@@ -1,0 +1,536 @@
+#!/usr/bin/env python3
+"""Chip smoke for tpuserve_torch: the quickest proof that the port builds,
+is right and serves on one NVIDIA GPU (written for the H100, sm_90a).
+
+    python3 chip_smoke.py        # from the root of a checkout; needs one card
+
+Phases (any failure exits non-zero before the result line):
+
+1. Device: require CUDA; print the card's name and power limit as
+   ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
+   them.
+2. Build: compile every kernel of the path from the checkout's sources
+   (``tpuserve_torch/ops/csrc``) with nvcc; the build time on its own line.
+3. Kernels: hold K1 (flash attention) against its plain PyTorch version on
+   the card — BERT shapes (B 1 and 32, S 64 and 128, H 12, D 64) in float32
+   and bfloat16 with padded keys, ragged shapes (Sq = Sk = 77, Sq != Sk,
+   S = 192), other head dims, strided q/k/v views of one fused projection,
+   a fully masked row and one gradient. TF32 is
+   off for the plain version. Tolerances: float32 atol 2e-5; bfloat16
+   atol = rtol = 1.6e-2 against the plain version computed in float32 from
+   the same bf16 inputs. Then time the kernel, the plain version and
+   ``F.scaled_dot_product_attention`` (a yardstick the port never calls) at
+   the main path's largest shape, beside the least time the card could take.
+4. Slice: start ``python -m tpuserve_torch serve`` on a full-width BERT-base
+   config (12 layers, d_model 768, 12 heads, d_ff 3072, vocab 30522, bf16,
+   attention = "flash", seq buckets [64, 128], batch buckets [1, 8, 32],
+   seeded weights), set the kernel launch counts to 0, send a single text,
+   an 8-text and a 32-text batch, a malformed body (400) and an unknown
+   model (404), and read the counts back: K1 must have launched 12 times
+   per batch, batches and items must have moved and the warm-up compile
+   count must not. Then sanity timings (sequential requests of each shape,
+   and concurrent clients sending 32-text batches), printed as the
+   ``serve`` line. The served answers must equal an in-process run of the
+   same seeded model with the same kernel, and agree with the dense
+   attention model in top-5 wherever its logits separate the ranks by more
+   than the bf16 logit tolerance. In-process, the forward's stream and
+   host-enqueue times per bucket are taken, and a second batch's h2d must
+   not wait for the first batch's forward still queued on the card.
+5. Print the slice and kernels lines, the card line, then the result line
+   ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import http.client
+import json
+import re
+import signal
+import socket
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
+H100_BF16_FLOPS = 989e12        # dense tensor-core bf16, H100 SXM data sheet
+BF16_TOL = 1.6e-2
+F32_TOL = 2e-5
+# Full-width serving logits, flash vs dense attention, bf16 (the dense path
+# rounds P to bf16 before P.V, flash keeps it in f32): agreement required.
+LOGIT_TOL = 0.1
+TEXTS_8 = [f"request number {i} asks the server to classify this text" for i in range(8)]
+TEXT_128 = "the model " * 45          # 90 word pieces: the 128-token bucket
+TEXTS_32 = [f"batch item {i}: " + " ".join(["serve", "fast", "text", "model"][: 1 + i % 4])
+            for i in range(32)]
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+# -- phase 1 + 2 ----------------------------------------------------------------
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def build_kernels() -> None:
+    from tpuserve_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.load("flash_attention")
+    so = _build.library_path("flash_attention")
+    print(f"build: flash_attention {time.perf_counter() - t0:.1f} s -> "
+          f"{so.relative_to(ROOT)}", flush=True)
+    log = so.with_name(so.name + ".log")
+    if log.exists():
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
+
+
+# -- phase 3 --------------------------------------------------------------------
+
+def qkv(b, sq, sk, h, d, dtype, seed=0, masked_row=False):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda s: torch.randn(s, generator=g, device="cuda").to(dtype)  # noqa: E731
+    q, k, v = mk((b, sq, h, d)), mk((b, sk, h, d)), mk((b, sk, h, d))
+    mask = torch.ones(b, sk, device="cuda")
+    mask[0, sk // 2:] = 0                     # padded keys
+    if b > 1:
+        mask[-1, max(1, sk - 5):] = 0
+    if masked_row:
+        mask[-1, :] = 0                       # a padded batch lane
+    return q, k, v, (1.0 - mask) * -1e9
+
+
+def compare(q, k, v, bias) -> float:
+    import torch
+
+    from tpuserve_torch.ops import flash_attention as fa
+
+    out = fa.flash_attention(q, k, v, bias)
+    ref = fa.flash_attention_reference(q.float(), k.float(), v.float(), bias)
+    torch.cuda.synchronize()
+    check(out.dtype == q.dtype and out.shape == q.shape, f"K1 output {out.dtype} {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), f"K1 non-finite output at {tuple(q.shape)}")
+    tol = F32_TOL if q.dtype == torch.float32 else BF16_TOL
+    rtol = 0.0 if q.dtype == torch.float32 else BF16_TOL
+    err = (out.float() - ref).abs()
+    bad = err > tol + rtol * ref.abs()
+    check(not bool(bad.any()), f"K1 disagrees with its plain version at q {tuple(q.shape)} "
+          f"k {tuple(k.shape)} {q.dtype}: max abs err {err.max().item():.3g}")
+    return err.max().item()
+
+
+def kernel_phase() -> dict:
+    import torch
+
+    from tpuserve_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in (1, 32):
+            for s in (64, 128):
+                compare(*qkv(b, s, s, 12, 64, dtype, seed=n))
+                n += 1
+        for sq, sk, d in ((77, 77, 64), (64, 100, 64), (100, 64, 64), (192, 192, 64),
+                          (77, 77, 16), (64, 64, 40), (64, 96, 80), (128, 128, 128)):
+            compare(*qkv(2, sq, sk, 12, d, dtype, seed=n))
+            n += 1
+        compare(*qkv(4, 64, 64, 12, 64, dtype, seed=n, masked_row=True))
+        # q/k/v as strided views of one fused (B, S, 3, H, D) projection.
+        fused = torch.randn(2, 128, 3, 12, 64, device="cuda").to(dtype)
+        compare(*fused.unbind(dim=2), qkv(2, 128, 128, 12, 64, dtype)[3])
+        n += 2
+    # One gradient through the autograd.Function (dense-recompute backward).
+    q, k, v, bias = qkv(2, 64, 64, 12, 64, torch.float32, seed=99)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ct = torch.randn_like(q)
+    (fa.flash_attention(*leaves, bias) * ct).sum().backward()
+    twins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    (fa.flash_attention_reference(*twins, bias) * ct).sum().backward()
+    for a, b_ in zip(leaves, twins):
+        check(torch.allclose(a.grad, b_.grad, atol=1e-4), "K1 gradient disagrees")
+    print(f"kernels: K1 agrees with its plain version at {n} shapes and one gradient")
+
+    # Times at the main path's shapes; the kernels line reports the largest.
+    return {s_: k1_timing(32, s_) for s_ in (64, 128)}
+
+
+def k1_timing(b: int, s: int, h: int = 12, d: int = 64) -> dict:
+    """K1, its plain version and the SDPA yardstick at one bf16 shape with
+    padded keys, beside the least time the card could take."""
+    import torch
+
+    from tpuserve_torch.ops import flash_attention as fa
+
+    q, k, v, bias = qkv(b, s, s, h, d, torch.bfloat16, seed=7)
+    max_err = compare(q, k, v, bias)
+    mask4 = bias.to(torch.bfloat16)[:, None, None, :]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, bias))
+    plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v, bias))
+    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask4))
+    nbytes = 4 * b * s * h * d * q.element_size() + b * s * 4   # q, k, v, o + f32 bias
+    flops = 4 * b * h * s * s * d                                # q.k^T and p.v
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
+    line = {"name": "flash_attention", "route": "cuda",
+            "source": "tpuserve_torch/ops/csrc/flash_attention.cu",
+            "replaces": "tpuserve/ops/flash_attention.py:96",
+            "max_abs_err": max_err, "ms": ms, "kernel_ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    # What bound_ms is computed from (kept off the kernels line).
+    inputs = {"shape": [b, s, h, d], "dtype": "bfloat16", "bytes": nbytes,
+              "operations": flops}
+    return {"line": line, "bound_inputs": inputs}
+
+
+def time_ms(fn, iters: int = 50) -> float:
+    import torch
+
+    for _ in range(5):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# -- phase 4 --------------------------------------------------------------------
+
+CONFIG = ROOT / "examples" / "bert_flash.toml"
+
+
+def model_config(attention: str):
+    import dataclasses
+
+    from tpuserve_torch.config import load_config
+
+    mcfg = load_config(str(CONFIG)).models[0]
+    return dataclasses.replace(mcfg, options={**mcfg.options, "attention": attention})
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def call(port, method, path, obj=None, raw=None):
+    body = raw if raw is not None else (json.dumps(obj).encode() if obj is not None else None)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request(method, path, body=body, headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def metric(text: str, name: str) -> float:
+    m = re.search(rf"^{re.escape(name)} (\S+)$", text, re.M)
+    return float(m.group(1)) if m else 0.0
+
+
+def wait_healthy(proc, port, log_path: Path, timeout_s: float = 600.0) -> None:
+    t0 = time.time()
+    while time.time() - t0 < timeout_s:
+        if proc.poll() is not None:
+            raise SmokeFailure(f"server exited with {proc.returncode}:\n"
+                               + log_path.read_text()[-4000:])
+        try:
+            if call(port, "GET", "/healthz")[0] == 200:
+                print(f"slice: server healthy after {time.time() - t0:.1f} s "
+                      "(params on the card, 6 buckets warmed, canary served)", flush=True)
+                return
+        except OSError:
+            pass
+        time.sleep(1.0)
+    raise SmokeFailure("server not healthy in time:\n" + log_path.read_text()[-4000:])
+
+
+def drive(port: int) -> dict:
+    """The main path's run: counts to 0, requests, counts read back."""
+    check(call(port, "POST", "/debug/kernels:reset")[0] == 200, "kernel count reset refused")
+    before = call(port, "GET", "/metrics")[1].decode()
+    t0 = time.perf_counter()
+    st, body = call(port, "POST", "/v1/models/bert:classify", {"text": "serve this text please"})
+    check(st == 200, f"single text: {st} {body[:300]!r}")
+    single = json.loads(body)
+    check(len(single["top_k"]) == 5, "single text: top_k must hold 5 entries")
+    answers = {}
+    for texts in (TEXTS_8, TEXTS_32):
+        st, body = call(port, "POST", "/v1/models/bert:classify", {"texts": texts})
+        check(st == 200, f"{len(texts)}-text batch: {st} {body[:300]!r}")
+        results = json.loads(body)["results"]
+        check(len(results) == len(texts), f"{len(texts)}-text batch: {len(results)} results")
+        answers.update(zip(texts, results))
+    wall_s = time.perf_counter() - t0
+    st, _ = call(port, "POST", "/v1/models/bert:classify", raw=b"{not json")
+    check(st == 400, f"malformed body answered {st}, expected 400")
+    st, _ = call(port, "POST", "/v1/models/nope:classify", {"text": "x"})
+    check(st == 404, f"unknown model answered {st}, expected 404")
+    stats = json.loads(call(port, "GET", "/stats")[1])
+    after = call(port, "GET", "/metrics")[1].decode()
+    launches = stats["kernels"]["flash_attention"]["launches"]
+    delta = {n: metric(after, f'{n}{{model="bert"}}') - metric(before, f'{n}{{model="bert"}}')
+             for n in ("batches_total", "items_total", "runtime_compiles_total")}
+    print(f"slice: 3 requests (41 texts) in {wall_s * 1e3:.1f} ms; batches {delta['batches_total']:g}, "
+          f"items {delta['items_total']:g}, K1 launches {launches}, compiles after warm-up "
+          f"{delta['runtime_compiles_total']:g}; backend {stats['backend']}", flush=True)
+    check(delta["batches_total"] >= 3, "batches_total did not move as expected")
+    check(delta["items_total"] == 41, f"items_total moved by {delta['items_total']}, expected 41")
+    check(delta["runtime_compiles_total"] == 0, "runtime_compiles_total moved after warm-up")
+    check(launches > 0 and launches == 12 * delta["batches_total"],
+          f"K1 launched {launches} times for {delta['batches_total']:g} batches (12 per batch)")
+    return {"launches": launches, "answers": answers}
+
+
+def serve_timing(port: int, reps: int = 10, clients: int = 4, per_client: int = 25) -> dict:
+    """Sanity figures of the served path, not end-to-end metrics (too few
+    requests, closed loop): request wall times, sequential from one client,
+    for each request shape; then ``clients`` concurrent clients each
+    sending ``per_client`` 32-text batches, so batches overlap in the
+    server's pipeline; and the server's per-phase p50s over both."""
+    import threading
+
+    kinds = {"single_s64": {"text": "serve this text please"},
+             "batch8_s64": {"texts": TEXTS_8},
+             "batch32_s64": {"texts": TEXTS_32},
+             "batch32_s128": {"texts": [TEXT_128] * 32}}
+    out = {}
+    for kind, obj in kinds.items():
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            st, _ = call(port, "POST", "/v1/models/bert:classify", obj)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            check(st == 200, f"timing request {kind} answered {st}")
+        walls.sort()
+        out[kind] = {"n": reps, "p50_ms": walls[reps // 2], "max_ms": walls[-1]}
+
+    walls, statuses = [], []
+
+    def client():
+        for _ in range(per_client):
+            t0 = time.perf_counter()
+            st, _ = call(port, "POST", "/v1/models/bert:classify", {"texts": TEXTS_32})
+            walls.append((time.perf_counter() - t0) * 1e3)
+            statuses.append(st)
+
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall_s = time.perf_counter() - t0
+    check(statuses == [200] * clients * per_client,
+          f"concurrent batches answered {sorted(set(statuses))}")
+    walls.sort()
+    out["concurrent_batch32_s64"] = {
+        "clients": clients, "n": len(walls), "items_per_s": 32 * len(walls) / wall_s,
+        "p50_ms": walls[len(walls) // 2], "max_ms": walls[-1]}
+    lat = json.loads(call(port, "GET", "/stats")[1])["latency"]
+    out["phase_p50_ms"] = {
+        p: lat[f"latency_ms{{model=bert,phase={p}}}"]["p50_ms"]
+        for p in ("body_read", "parse", "queue", "preproc", "h2d", "compute",
+                  "postproc", "total")}
+    return out
+
+
+def in_process_check(answers: dict) -> None:
+    """Served answers == the same seeded model in-process with the same
+    kernel; and agree with dense attention where its logits separate."""
+    import torch
+
+    from tpuserve_torch.models import build
+    from tpuserve_torch.runtime import build_runtime
+
+    runs, forward_ms = {}, {}
+    for attention in ("flash", "dense"):
+        model = build(model_config(attention))
+        rt = build_runtime(model, device="cuda")
+        items = [model.host_decode(json.dumps({"text": t}).encode(), "application/json")
+                 for t in TEXTS_32]
+        check(all(model.group_key(it) == 64 for it in items), "texts must fit seq bucket 64")
+        dev = rt.h2d((32, 64), model.assemble(items, (32, 64)))
+        with torch.inference_mode():
+            logits = rt.module(*dev).float()
+        check(bool(torch.isfinite(logits).all()) and logits.shape == (32, 1000),
+              f"{attention}: logits {tuple(logits.shape)} not finite")
+        runs[attention] = logits
+        if attention == "flash":
+            forward_ms = {s_: forward_timing(rt, model, (32, s_)) for s_ in (64, 128)}
+            h2d_overlap_check(rt, model)
+        del rt
+    flash, dense = runs["flash"], runs["dense"]
+    probs, idx = torch.softmax(flash, -1).topk(5)
+    for row, t in enumerate(TEXTS_32):
+        served = answers[t]["top_k"]
+        check([e["class"] for e in served] == idx[row].tolist(),
+              f"served top-5 != in-process flash top-5 for {t!r}")
+        check(torch.allclose(torch.tensor([e["prob"] for e in served]), probs[row].cpu(),
+                             atol=1e-6), f"served probs != in-process flash probs for {t!r}")
+    err = (flash - dense).abs().max().item()
+    check(err <= LOGIT_TOL, f"flash vs dense logits differ by {err:.3g} > {LOGIT_TOL}")
+    sd, si = dense.sort(dim=-1, descending=True)
+    fi = flash.argsort(dim=-1, descending=True)
+    checked = 0
+    for row in range(32):
+        for r in range(5):
+            gap_above = sd[row, r - 1] - sd[row, r] if r else float("inf")
+            gap_below = sd[row, r] - sd[row, r + 1]
+            if min(gap_above, gap_below) > LOGIT_TOL:
+                check(fi[row, r] == si[row, r], f"top-5 rank {r} differs from dense, row {row}")
+                checked += 1
+    print(f"slice: served answers equal the in-process flash run; flash vs dense logits "
+          f"max abs diff {err:.4g} (tol {LOGIT_TOL}), {checked} separated top-5 ranks agree",
+          flush=True)
+    return forward_ms
+
+
+def forward_timing(rt, model, bucket: tuple, rounds: int = 20, iters: int = 5) -> dict:
+    """One forward (network + softmax + top-k) at a bucket, inputs resident
+    on the card: the stream's time per forward (CUDA events) beside the
+    host's time to enqueue it, per round of ``iters`` forwards. A round
+    stays under the launch queue's depth, so the host never waits on the
+    card while it enqueues; enqueue time close to the stream time means the
+    card waits on the host. Medians and ranges over ``rounds`` rounds."""
+    import numpy as np
+    import torch
+
+    dev = rt.h2d(bucket, tuple(np.zeros(s.shape, s.dtype)
+                               for s in model.input_signature(bucket)))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    stream, host = [], []
+    with torch.inference_mode():
+        for _ in range(3):
+            model.forward(rt.module, dev)
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            start.record()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                model.forward(rt.module, dev)
+            host.append((time.perf_counter() - t0) * 1e3 / iters)
+            end.record()
+            torch.cuda.synchronize()
+            stream.append(start.elapsed_time(end) / iters)
+    stream.sort()
+    host.sort()
+    return {"rounds": rounds, "forwards_per_round": iters,
+            "stream_ms": stream[rounds // 2], "stream_ms_range": [stream[0], stream[-1]],
+            "host_enqueue_ms": host[rounds // 2], "host_enqueue_ms_range": [host[0], host[-1]]}
+
+
+def h2d_overlap_check(rt, model) -> None:
+    """Two batches in flight at full width: with h2d_sync on, the second
+    batch's h2d waits for its own copy, not for the first batch's forward
+    queued behind about a second of card work."""
+    import numpy as np
+    import torch
+
+    bucket = (32, 64)
+    host = tuple(torch.from_numpy(np.zeros(s.shape, s.dtype)).pin_memory().numpy()
+                 for s in model.input_signature(bucket))
+    rt.h2d_sync = True
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)
+    busy = torch.cuda.Event()
+    busy.record()
+    first = rt.run(bucket, host)
+    t0 = time.perf_counter()
+    rt.h2d(bucket, host)
+    h2d_ms = (time.perf_counter() - t0) * 1e3
+    check(not busy.query(), "h2d waited for the forward in flight before its copy")
+    rt.fetch(first)
+    print(f"slice: a second batch's h2d took {h2d_ms:.3f} ms with the first "
+          "batch's forward still queued (it waits for its own copy only)", flush=True)
+
+
+def slice_phase() -> int:
+    port = free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        log_path = Path(tmp) / "server.log"
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen([sys.executable, "-m", "tpuserve_torch", "serve",
+                                     "--config", str(CONFIG), "--set", f"port={port}"], cwd=ROOT,
+                                    stdout=log, stderr=subprocess.STDOUT)
+        try:
+            wait_healthy(proc, port, log_path)
+            run = drive(port)
+            run["timing"] = serve_timing(port)
+            print(json.dumps({"serve": run["timing"]}), flush=True)
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(30)
+    run["forward_ms"] = in_process_check(run["answers"])
+    return run
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: FAIL: torch.cuda.is_available() is false; this smoke "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    if not (ROOT / "tpuserve_torch" / "ops" / "csrc").is_dir():
+        print(f"chip_smoke: FAIL: no tpuserve_torch package beside {Path(__file__).name}; "
+              "run it from the root of a checkout", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    try:
+        card = card_line()
+        print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
+              f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+        build_kernels()
+        k1 = kernel_phase()
+        run = slice_phase()
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+    # Where a (32, S) batch's device time goes: 12 K1 launches of one forward.
+    k1_ms = {s_: k1[s_]["line"]["ms"] for s_ in (64, 128)}
+    share = {s_: 12 * k1_ms[s_] / run["forward_ms"][s_]["stream_ms"] for s_ in (64, 128)}
+    print(json.dumps({"slice": {"forward_ms_b32": run["forward_ms"], "k1_ms_b32": k1_ms,
+                                "k1_share_of_forward_b32": share,
+                                "k1_bound_inputs": k1[128]["bound_inputs"]}}))
+    print(json.dumps({"kernels": [dict(k1[128]["line"], launches=run["launches"])]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,149 @@
+"""Port parity for kernel K1's function: ``tpuserve_torch.ops.flash_attention``
+(its plain PyTorch path, which CPU tensors take) against the JAX package's
+``flash_attention`` run as its own tests run it on the CPU (Pallas interpret
+mode). Same numpy inputs on both sides.
+
+Tolerances: float32 atol 1e-5 (two f32 softmax orders); bfloat16 inputs
+atol 1.6e-2 (outputs rounded to bf16, whose spacing near 1 is 7.8e-3, on
+both sides independently); gradients through the reference's dense-recompute
+VJP, float32 atol 1e-4 (sums over up to 192 keys).
+
+The kernel itself runs only on the card: ``tests/test_torch_kernels_cuda.py``
+and ``chip_smoke.py`` hold it against this plain version there.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpuserve.ops.flash_attention import _flash, flash_attention as jax_flash
+from tpuserve_torch.ops import flash_attention as fa
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def make_inputs(seed, b, s, h, d, padded, sk=None):
+    rng = np.random.default_rng(seed)
+    sk = s if sk is None else sk
+    q = rng.normal(size=(b, s, h, d)).astype(np.float32)
+    k = rng.normal(size=(b, sk, h, d)).astype(np.float32)
+    v = rng.normal(size=(b, sk, h, d)).astype(np.float32)
+    mask = np.ones((b, sk), np.float32)
+    if padded:
+        mask[0, sk // 2:] = 0.0       # half the keys of row 0 are padding
+        mask[1, max(1, sk - 3):] = 0.0
+    bias = (1.0 - mask) * -1e9
+    return q, k, v, bias
+
+
+def torch_out(q, k, v, bias, dtype=torch.float32):
+    t = lambda x: torch.from_numpy(x).to(dtype)  # noqa: E731
+    return fa.flash_attention(t(q), t(k), t(v), torch.from_numpy(bias))
+
+
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("s", [8, 64, 192])
+@pytest.mark.parametrize("d", [16, 64])
+def test_matches_jax_flash_f32(d, s, padded):
+    q, k, v, bias = make_inputs(0, 2, s, 2, d, padded)
+    ref = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               jnp.asarray(bias)))
+    out = torch_out(q, k, v, bias)
+    assert out.dtype == torch.float32 and out.shape == (2, s, 2, d)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("s", [8, 64])
+def test_matches_jax_flash_bf16(s):
+    q, k, v, bias = make_inputs(1, 2, s, 2, 64, padded=True)
+    bf = lambda x: jnp.asarray(x, jnp.bfloat16)  # noqa: E731
+    ref = np.asarray(jax_flash(bf(q), bf(k), bf(v), jnp.asarray(bias)),
+                     np.float32)
+    out = torch_out(q, k, v, bias, torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=1.6e-2)
+
+
+def test_fully_masked_row_matches_reference():
+    """A row whose keys are all padding (a padded batch lane) gets the
+    reference's finite answer, not 0/0."""
+    q, k, v, bias = make_inputs(2, 2, 8, 2, 16, padded=False)
+    bias[1, :] = -1e9
+    ref = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               jnp.asarray(bias)))
+    out = torch_out(q, k, v, bias).numpy()
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out, ref, atol=1e-5)
+
+
+def test_ragged_query_and_key_lengths():
+    """Sq != Sk (the kernel masks both tails); no bias = zero bias."""
+    q, k, v, _ = make_inputs(3, 2, 8, 2, 16, padded=False, sk=24)
+    ref = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    out = fa.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)))
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [16, 64])
+def test_gradients_match_jax_vjp(d):
+    """The autograd.Function's backward recomputes through the plain version,
+    as the reference's VJP recomputes through _dense_stats."""
+    q, k, v, bias = make_inputs(4, 2, 64, 2, d, padded=True)
+    ct = np.random.default_rng(5).normal(size=q.shape).astype(np.float32)
+
+    def loss(q_, k_, v_):
+        out = _flash(q_, k_, v_, jnp.asarray(bias), 64, 64, True, False)
+        return jnp.sum(out * ct)
+
+    ref = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                            jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    out = fa.flash_attention(tq, tk, tv, torch.from_numpy(bias))
+    (out * torch.from_numpy(ct)).sum().backward()
+    for got, want in zip((tq.grad, tk.grad, tv.grad), ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
+def test_cpu_tensors_take_plain_version_and_count_no_launch():
+    q, k, v, bias = make_inputs(6, 2, 8, 2, 16, padded=True)
+    before = fa.launches
+    out = torch_out(q, k, v, bias)
+    plain = fa.flash_attention_reference(*(torch.from_numpy(x) for x in (q, k, v, bias)))
+    assert fa.launches == before
+    torch.testing.assert_close(out, plain, atol=0, rtol=0)
+
+
+def test_strided_views_from_a_fused_projection():
+    """q/k/v sliced out of one (B, S, 3, H, D) projection are strided views;
+    the result equals the contiguous inputs' result."""
+    rng = np.random.default_rng(7)
+    qkv = torch.from_numpy(rng.normal(size=(2, 8, 3, 2, 16)).astype(np.float32))
+    q, k, v = qkv.unbind(dim=2)
+    out = fa.flash_attention(q, k, v)
+    ref = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.testing.assert_close(out, ref)
+
+
+@pytest.mark.parametrize("shapes", [
+    ((2, 8, 2, 16), (2, 8, 2, 8), (2, 8, 2, 8)),      # head dims differ
+    ((2, 8, 2, 16), (3, 8, 2, 16), (3, 8, 2, 16)),    # batch differs
+    ((2, 8, 16), (2, 8, 16), (2, 8, 16)),             # not (B, S, H, D)
+])
+def test_rejects_mismatched_shapes(shapes):
+    q, k, v = (torch.zeros(s) for s in shapes)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, v)
+
+
+def test_rejects_bias_of_wrong_shape():
+    q = torch.zeros(2, 8, 2, 16)
+    with pytest.raises(ValueError, match="bias"):
+        fa.flash_attention(q, q, q, torch.zeros(2, 7))

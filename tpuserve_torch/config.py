@@ -1,0 +1,285 @@
+"""Typed configuration for tpuserve_torch: the part of ``tpuserve/config.py``
+the port serves, in its own copy (the port imports nothing from
+``tpuserve``).
+
+The port reads the same TOML files as the JAX package. What it serves is
+typed: :class:`ModelConfig`, :class:`PipelineConfig` and the top-level
+:class:`ServerConfig` fields, with the JAX package's defaults and checks.
+Every other setting the JAX package knows — its other tables (``[router]``,
+``[adaptive]``, ``[lifecycle]``, ...) and the keys the port has no use for
+yet (``drain_timeout_s``, ``batch_retry``, ...) — parses into the
+``unported`` dict of its ``ServerConfig`` or ``ModelConfig`` as a plain
+value. :func:`unported_settings` names those that ask for behaviour the
+port lacks, and the server refuses to start while any is set: a JAX config
+tuned with them never loads into a server that quietly behaves otherwise.
+A setting that switches a missing feature off (``[adaptive] enabled =
+false``, ``session_mode = "direct"``) asks for nothing and is accepted.
+
+Example TOML::
+
+    port = 8000
+
+    [[model]]
+    name = "bert"
+    family = "bert"
+    batch_buckets = [1, 8, 32]
+    seq_buckets = [64, 128]
+    dtype = "bfloat16"
+    parallelism = "single"
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+try:
+    import tomllib
+except ModuleNotFoundError:  # Python < 3.11: tomli is the same parser
+    import tomli as tomllib
+from dataclasses import dataclass, field
+from typing import Any
+
+# The JAX package's tables the port does not serve yet. Any key set in one
+# is refused, except ``enabled = false`` (and ``[parallel] mode`` naming the
+# one-device layout).
+UNPORTED_TABLES = ("adaptive", "autopilot", "cache", "distributed", "events",
+                   "faults", "genserve", "lifecycle", "parallel", "router",
+                   "scheduler", "telemetry", "tenants", "trace", "worker")
+_TABLE_OFF: dict[str, tuple] = {"enabled": (False,)}
+_PARALLEL_OFF: dict[str, tuple] = {"mode": ("", "single")}
+
+# The JAX package's top-level and per-model keys the port does not serve
+# yet, each with the values that ask for nothing the port lacks (empty: no
+# such value, any setting is refused).
+_SERVER_UNPORTED: dict[str, tuple] = {
+    "ingest_loops": (1,), "decode_inline": (False,), "profiler_port": (0,),
+    "compilation_cache_dir": ("",), "canary_interval_s": (0,),
+    "debug_nans": (False,), "prewarm_executables": (True,),
+    "roofline_probe_iters": (0,), "trace_capacity": (), "log_json": (False,),
+    "watchdog_interval_s": (0,), "drain_timeout_s": (),
+}
+_MODEL_UNPORTED: dict[str, tuple] = {
+    "quantize_min_size": (), "image_size": (), "wire_size": (),
+    "wire_format": ("rgb8",), "pp": (0, 1), "session_mode": ("direct",),
+    "relay_workers": (), "relay_epoch_images": (), "relay_epoch_ms": (),
+    "relay_slots": (), "priority": ("interactive",), "cold_start": (False,),
+    "cacheable": (False,), "stream_policy": (), "slo": (),
+    "batch_retry": (False,), "retry_split": (False,),
+    "breaker_threshold": (0,), "breaker_retry_after_s": (),
+}
+
+
+@dataclass
+class PipelineConfig:
+    """Pipelined host execution (``[pipeline]`` TOML; tpuserve_torch.hostpipe).
+
+    The hot path runs as a staged pipeline — assemble, H2D copy + dispatch,
+    D2H fetch, postprocess — with a dedicated thread pool per stage so
+    consecutive batches occupy different stages at once, preallocated
+    per-bucket assembly buffers, and a depth-k pool of staging slots
+    bounding the batches in the device section ([h2d..fetch])."""
+
+    # Thread-pool size per stage (shared across every model).
+    assemble_workers: int = 2
+    h2d_workers: int = 2
+    fetch_workers: int = 2
+    postproc_workers: int = 2
+    # Batches in flight inside [h2d..fetch] ("staging slots"); 0 derives it
+    # from each model's max_inflight.
+    depth: int = 0
+    # Extra batches admitted past the device depth so assembly runs ahead of
+    # the device: admission = depth + this.
+    assemble_ahead: int = 2
+    # Preallocated assembly buffers per (model, bucket); 0 sizes it to
+    # depth + assemble_ahead. Acquires beyond this take one-shot
+    # allocations counted in arena_overflow_total{model=}.
+    arena_slots: int = 0
+    # The h2d stage waits for its own copy to land (not for the work
+    # queued before it), so the "h2d" phase owns the transfer.
+    h2d_sync: bool = True
+
+    def __post_init__(self) -> None:
+        for f in ("assemble_workers", "h2d_workers", "fetch_workers",
+                  "postproc_workers"):
+            if getattr(self, f) < 1:
+                raise ValueError(f"pipeline.{f} must be >= 1")
+        if self.depth < 0 or self.assemble_ahead < 0 or self.arena_slots < 0:
+            raise ValueError(
+                "pipeline.depth/assemble_ahead/arena_slots must be >= 0")
+
+
+@dataclass
+class ModelConfig:
+    """Per-model serving configuration."""
+
+    name: str
+    # Which implementation in tpuserve_torch.models to build.
+    family: str = "resnet50"
+    # Optional path to weights; None => seeded random init. (Loading weights
+    # is not ported yet: a family raises when it is set.)
+    weights: str | None = None
+    # Optional class-label file (one name per line, in class-index order);
+    # responses then carry a "label" next to each class index.
+    labels: str | None = None
+    # Static batch-size buckets, ascending; each (batch, seq) bucket is
+    # warmed up once at startup.
+    batch_buckets: list[int] = field(default_factory=lambda: [1, 4, 8, 16, 32])
+    # Sequence-length buckets for text models.
+    seq_buckets: list[int] = field(default_factory=lambda: [64, 128, 256, 512])
+    # Batcher flush deadline: a request waits at most this long for the batch
+    # to fill before a partial (padded) batch is dispatched.
+    deadline_ms: float = 5.0
+    # Max requests queued before the server sheds load with 429s.
+    max_queue: int = 4096
+    # Per-request end-to-end deadline -> 504 when exceeded.
+    request_timeout_ms: float = 2000.0
+    # Compute dtype for params/activations on the device.
+    dtype: str = "bfloat16"
+    # Quantization mode (not ported yet: a family raises when it is set).
+    quantize: str | None = None
+    # Parallelism mode; the port serves "single" (one device) only.
+    parallelism: str = "sharded"
+    # Tensor- and sequence-parallel axis sizes (1 = off; > 1 not ported).
+    tp: int = 1
+    sp: int = 1
+    # Model-specific knobs (BERT: layers, d_model, heads, attention, ...).
+    options: dict[str, Any] = field(default_factory=dict)
+    # Number of classes where the family needs it.
+    num_classes: int = 1000
+    # Device-section depth (>= 1): how many of this model's batches occupy
+    # [h2d..fetch] staging slots at once; [pipeline] depth overrides it
+    # when nonzero.
+    max_inflight: int = 2
+    # The JAX package's per-model keys the port does not serve yet, as
+    # parsed (see unported_settings).
+    unported: dict[str, Any] = field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        if self.tp < 1 or self.sp < 1:
+            raise ValueError(
+                f"tp and sp must be >= 1, got tp={self.tp} sp={self.sp}")
+
+
+@dataclass
+class ServerConfig:
+    """Top-level server configuration."""
+
+    host: str = "0.0.0.0"
+    port: int = 8000
+    models: list[ModelConfig] = field(default_factory=list)
+    # Host-side decode threadpool size.
+    decode_threads: int = 8
+    # Validate-on-startup canary (tiny inference per model) on/off.
+    startup_canary: bool = True
+    # Retry-After hint (seconds) on 429 shed and drain 503 responses.
+    shed_retry_after_s: float = 1.0
+    # Pipelined host execution knobs (stage pools, depth, arenas).
+    pipeline: PipelineConfig = field(default_factory=PipelineConfig)
+    # The JAX package's settings the port does not serve yet, as parsed:
+    # "[table] key" for its tables, the bare key for top-level keys.
+    unported: dict[str, Any] = field(default_factory=dict)
+
+    def model(self, name: str) -> ModelConfig:
+        for m in self.models:
+            if m.name == name:
+                return m
+        raise KeyError(f"no model named {name!r} configured")
+
+
+def unported_settings(cfg: ServerConfig) -> list[str]:
+    """The settings of ``cfg`` that ask for behaviour the port lacks, as
+    ``name = value`` strings (empty when the port serves all of ``cfg``)."""
+    out = []
+    for name, value in cfg.unported.items():
+        if name.startswith("["):
+            table, _, key = name[1:].partition("] ")
+            accepted = (_PARALLEL_OFF if table == "parallel" else _TABLE_OFF).get(key, ())
+        else:
+            accepted = _SERVER_UNPORTED[name]
+        if value not in accepted:
+            out.append(f"{name} = {value!r}")
+    for m in cfg.models:
+        out += [f"model {m.name}: {k} = {v!r}" for k, v in m.unported.items()
+                if v not in _MODEL_UNPORTED[k]]
+    return out
+
+
+def _build(cls: type, data: dict[str, Any], unported: dict[str, tuple] | None = None) -> Any:
+    """Construct dataclass ``cls`` from a dict, erroring on unknown keys;
+    keys named in ``unported`` go to the instance's ``unported`` dict."""
+    names = {f.name for f in dataclasses.fields(cls)} - {"unported"}
+    rest = {k: v for k, v in data.items() if k not in names}
+    unknown = set(rest) - set(unported or ())
+    if unknown:
+        raise ValueError(f"unknown {cls.__name__} keys: {sorted(unknown)}")
+    obj = cls(**{k: v for k, v in data.items() if k in names})
+    if rest:
+        obj.unported = rest
+    return obj
+
+
+def load_config(path: str | None = None, overrides: list[str] | None = None) -> ServerConfig:
+    """Load a ServerConfig from a TOML file plus ``key.path=value`` overrides.
+
+    Overrides use dot paths, e.g. ``port=9000``,
+    ``model.bert.deadline_ms=2.5`` (the second path element selects the
+    model by name) or ``adaptive.enabled=false``. Values are parsed as TOML
+    scalars/arrays.
+    """
+    raw: dict[str, Any] = {}
+    if path:
+        with open(path, "rb") as f:
+            raw = tomllib.load(f)
+
+    model_dicts = raw.pop("model", [])
+    pipeline_dict = raw.pop("pipeline", None)
+    tables = {t: raw.pop(t) for t in UNPORTED_TABLES if t in raw}
+    cfg: ServerConfig = _build(ServerConfig, raw, _SERVER_UNPORTED)
+    cfg.models = [_build(ModelConfig, m, _MODEL_UNPORTED) for m in model_dicts]
+    if pipeline_dict is not None:
+        cfg.pipeline = _build(PipelineConfig, pipeline_dict)
+    for table, keys in tables.items():
+        cfg.unported.update({f"[{table}] {k}": v for k, v in keys.items()})
+
+    for ov in overrides or []:
+        _apply_override(cfg, ov)
+    return cfg
+
+
+def _parse_toml_value(text: str) -> Any:
+    try:
+        return tomllib.loads(f"v = {text}")["v"]
+    except tomllib.TOMLDecodeError:
+        return text  # bare string
+
+
+def _apply_override(cfg: ServerConfig, override: str) -> None:
+    if "=" not in override:
+        raise ValueError(f"override must look like key.path=value, got {override!r}")
+    key, _, text = override.partition("=")
+    value = _parse_toml_value(text.strip())
+    parts = key.strip().split(".")
+
+    target: Any = cfg
+    unported = _SERVER_UNPORTED
+    if parts[0] == "model":
+        if len(parts) < 3:
+            raise ValueError(f"model override needs model.<name>.<field>: {override!r}")
+        target = cfg.model(parts[1])
+        parts = parts[2:]
+        unported = _MODEL_UNPORTED
+    elif parts[0] in UNPORTED_TABLES and len(parts) == 2:
+        cfg.unported[f"[{parts[0]}] {parts[1]}"] = value
+        return
+    if len(parts) == 1 and parts[0] in unported:
+        target.unported[parts[0]] = value
+        return
+    for p in parts[:-1]:
+        target = target[p] if isinstance(target, dict) else getattr(target, p)
+    leaf = parts[-1]
+    if isinstance(target, dict):  # e.g. model.<name>.options.<key>
+        target[leaf] = value
+        return
+    if dataclasses.is_dataclass(target) and leaf not in {f.name for f in dataclasses.fields(target)}:
+        raise ValueError(f"unknown config field {leaf!r} in {type(target).__name__}")
+    setattr(target, leaf, value)

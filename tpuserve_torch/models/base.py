@@ -1,0 +1,183 @@
+"""ServingModel: the contract between the model zoo and the runtime/batcher,
+ported from ``tpuserve/models/base.py``.
+
+The runtime runs ``forward`` once per (batch-bucket, input-shape) pair at
+startup as a warm-up, then per batch; the batcher assembles padded host
+batches, and ``forward`` does everything device-side — preprocessing in front
+of the network (``device_preprocess``) and postprocessing (softmax, top-k)
+behind it — so one H2D copy of the inputs and one D2H copy of small outputs
+happen per batch.
+
+``input_signature`` gives (shape, dtype) specs (numpy dtypes, the host batch
+layout) where the JAX package gives ``jax.ShapeDtypeStruct``. Dynamic request
+counts are handled by padding: ``host_postprocess`` reads the first
+``n_valid`` rows, and padded lanes must not influence real lanes. The host
+side (decode, assemble, postprocess) is numpy and copied as it is.
+"""
+
+from __future__ import annotations
+
+import abc
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from tpuserve_torch.config import ModelConfig
+
+# A host batch: a tuple (or single) of np.ndarrays with leading batch dim.
+HostBatch = Any
+# Device outputs: a dict of tensors with leading batch dim.
+Outputs = Any
+
+
+@dataclass(frozen=True)
+class TensorSpec:
+    """Shape and dtype of one host-batch input (the port's
+    ``jax.ShapeDtypeStruct``)."""
+
+    shape: tuple
+    dtype: np.dtype
+
+
+def _stack_pad(arrs: list[np.ndarray], b: int) -> np.ndarray:
+    out = np.stack(arrs, axis=0)
+    if out.shape[0] < b:
+        pad = np.zeros((b - out.shape[0],) + out.shape[1:], dtype=out.dtype)
+        out = np.concatenate([out, pad], axis=0)
+    return out
+
+
+class ServingModel(abc.ABC):
+    """One deployable model family instance."""
+
+    def __init__(self, cfg: ModelConfig) -> None:
+        self.cfg = cfg
+        self.name = cfg.name
+        self.class_labels: list[str] | None = None
+        if cfg.labels:
+            with open(cfg.labels, encoding="utf-8") as f:
+                lines = [line.rstrip("\r\n") for line in f]
+            while lines and not lines[-1]:  # trailing blank lines
+                lines.pop()
+            self.class_labels = lines
+
+    # -- parameters ---------------------------------------------------------
+    @abc.abstractmethod
+    def init_params(self, seed: int = 0) -> dict[str, torch.Tensor]:
+        """Seeded random float32 parameters as a CPU state_dict."""
+
+    def load_params(self) -> dict[str, torch.Tensor]:
+        """Seeded random init (seed 0). Loading ``cfg.weights`` is not
+        ported yet; families reject ``weights=`` when they are built."""
+        return self.init_params(0)
+
+    @abc.abstractmethod
+    def build_module(self) -> torch.nn.Module:
+        """The network as an ``nn.Module`` whose state_dict matches
+        ``init_params``; the runtime loads params into it."""
+
+    # -- shapes -------------------------------------------------------------
+    @abc.abstractmethod
+    def input_signature(self, bucket: tuple) -> tuple[TensorSpec, ...]:
+        """Specs of the host batch for a bucket key: ``(batch,)`` for vision,
+        ``(batch, seq)`` for text."""
+
+    def buckets(self) -> list[tuple]:
+        """All bucket keys warmed up at startup."""
+        return [(b,) for b in self.cfg.batch_buckets]
+
+    def bucket_for(self, n: int, **kw) -> tuple:
+        """Smallest bucket that fits n requests (used by the batcher)."""
+        for b in self.cfg.batch_buckets:
+            if b >= n:
+                return (b,)
+        return (self.cfg.batch_buckets[-1],)
+
+    # -- device-side --------------------------------------------------------
+    def device_preprocess(self, batch: Any) -> Any:
+        """Device-side preprocessing seam: wire arrays -> network input.
+        Identity by default (token ids go to the network as they are)."""
+        return batch
+
+    @abc.abstractmethod
+    def forward(self, module: torch.nn.Module, batch: Any) -> Outputs:
+        """Device preprocess + network + device postprocess on a batch of
+        device tensors."""
+
+    # -- host-side ----------------------------------------------------------
+    @abc.abstractmethod
+    def host_decode(self, payload: bytes, content_type: str) -> Any:
+        """Decode one request body into per-item input arrays (threadpool)."""
+
+    def host_decode_items(self, payload: bytes, content_type: str) -> tuple[list, bool]:
+        """Decode one request body into (items, is_batch) with a single
+        parse; ``is_batch`` requests answer in the {"results": [...]} shape."""
+        return [self.host_decode(payload, content_type)], False
+
+    # A single POST may not carry more items than this.
+    MAX_ITEMS_PER_REQUEST = 1024
+
+    @abc.abstractmethod
+    def canary_item(self) -> Any:
+        """A trivial decoded item used by health canaries."""
+
+    def group_key(self, item: Any) -> Any:
+        """Batching group for a decoded item (e.g. seq bucket); None = one group."""
+        return None
+
+    @abc.abstractmethod
+    def host_postprocess(self, outputs: Outputs, n_valid: int) -> list[Any]:
+        """Convert device outputs (already np) to n_valid JSON-able results."""
+
+    def format_top_k(self, outputs: dict, n_valid: int) -> list[dict]:
+        """Shared classifier response shape: {"top_k": [{class, prob}, ...]},
+        plus a "label" per entry when cfg.labels names the classes."""
+        probs = outputs["probs"][:n_valid]
+        idx = outputs["indices"][:n_valid]
+        return [
+            {"top_k": [self._class_entry(i, p) for i, p in zip(idx[r], probs[r])]}
+            for r in range(n_valid)
+        ]
+
+    def _class_entry(self, i, p) -> dict:
+        entry = {"class": int(i), "prob": float(p)}
+        label = self.label_for(int(i))
+        if label is not None:
+            entry["label"] = label
+        return entry
+
+    def label_for(self, i: int) -> str | None:
+        if self.class_labels is not None and 0 <= i < len(self.class_labels):
+            return self.class_labels[i]
+        return None
+
+    def assemble(self, items: list[Any], bucket: tuple) -> HostBatch:
+        """Stack decoded items into one padded host batch for `bucket`: each
+        component stacked along axis 0 and zero-padded up to bucket[0]."""
+        b = bucket[0]
+        if isinstance(items[0], tuple):
+            return tuple(
+                _stack_pad([it[k] for it in items], b) for k in range(len(items[0]))
+            )
+        return _stack_pad(items, b)
+
+    def assemble_into(self, items: list[Any], bucket: tuple, out: HostBatch) -> HostBatch:
+        """Assemble into a preallocated host-batch buffer shaped like
+        ``input_signature(bucket)``; must produce exactly what ``assemble``
+        would, writing in place (real rows copied, padded rows zeroed)."""
+        n = len(items)
+        if isinstance(items[0], tuple):
+            for k in range(len(items[0])):
+                comp = out[k]
+                for i, it in enumerate(items):
+                    comp[i] = it[k]
+                if n < comp.shape[0]:
+                    comp[n:] = 0
+            return out
+        for i, it in enumerate(items):
+            out[i] = it
+        if n < out.shape[0]:
+            out[n:] = 0
+        return out

@@ -1,0 +1,332 @@
+"""BERT-base text classification, ported from ``tpuserve/models/bert.py``.
+
+The network is the reference's: post-LN residual blocks (original BERT),
+exact (erf) GELU FFN, LayerNorm eps 1e-12, tanh pooler on [CLS] in the
+compute dtype and a float32 linear classifier. Padding is an additive -1e9
+per-key bias, so padded lanes cannot perturb real lanes, and the serving
+forward ends in softmax and top-k on the device.
+
+``options.attention`` picks the attention core:
+
+- ``"dense"``: ``masked_attention``, the reference's ``_masked_attention``
+  (f32 softmax, P cast to the compute dtype before P.V);
+- ``"flash"``: ``tpuserve_torch.ops.flash_attention`` — kernel K1 on CUDA,
+  its plain version on the CPU (P stays f32, as in the reference's kernel).
+
+``from_jax_params`` converts the reference's flax parameter tree (numpy
+leaves) into this module's state_dict, which is how the tests hold the port
+to the JAX package on the same weights. Without weights the model serves a
+seeded init.
+
+Sizes come from ``cfg.options`` (layers/d_model/heads/d_ff/vocab_size) with
+BERT-base defaults; the vocabulary is ``synthetic_vocab`` or a standard
+``vocab.txt`` (``options.vocab_file``).
+"""
+
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tpuserve_torch.config import ModelConfig
+from tpuserve_torch.models.base import ServingModel, TensorSpec
+from tpuserve_torch.ops.flash_attention import flash_attention
+from tpuserve_torch.text import WordPieceTokenizer, synthetic_vocab
+
+ATTENTION_IMPLS = ("dense", "flash")
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not yet ported to tpuserve_torch (ROADMAP.md queue 1: {item})")
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     key_bias: torch.Tensor) -> torch.Tensor:
+    """(B,S,H,D) attention with an additive (B, S) f32 key bias, f32
+    softmax; the probabilities drop to the compute dtype before P.V."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    s = s + key_bias[:, None, None, :]
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+class SelfAttention(nn.Module):
+    """Multi-head self-attention with the reference's projections
+    (flax ``MultiHeadDotProductAttention``: query/key/value/out)."""
+
+    def __init__(self, d_model: int, heads: int, attention: str) -> None:
+        super().__init__()
+        self.heads = heads
+        self.attention = attention
+        self.query = nn.Linear(d_model, d_model)
+        self.key = nn.Linear(d_model, d_model)
+        self.value = nn.Linear(d_model, d_model)
+        self.out = nn.Linear(d_model, d_model)
+
+    def forward(self, x: torch.Tensor, key_bias: torch.Tensor) -> torch.Tensor:
+        b, s, d = x.shape
+        shape = (b, s, self.heads, d // self.heads)
+        q = self.query(x).view(shape)
+        k = self.key(x).view(shape)
+        v = self.value(x).view(shape)
+        if self.attention == "flash":
+            a = flash_attention(q, k, v, key_bias)
+        else:
+            a = masked_attention(q, k, v, key_bias)
+        return self.out(a.reshape(b, s, d))
+
+
+class BertBlock(nn.Module):
+    def __init__(self, d_model: int, heads: int, d_ff: int,
+                 attention: str = "dense", ln_eps: float = 1e-12) -> None:
+        super().__init__()
+        self.attn = SelfAttention(d_model, heads, attention)
+        self.ln_attn = nn.LayerNorm(d_model, eps=ln_eps)
+        self.mlp_up = nn.Linear(d_model, d_ff)
+        self.mlp_down = nn.Linear(d_ff, d_model)
+        self.ln_mlp = nn.LayerNorm(d_model, eps=ln_eps)
+
+    def forward(self, x: torch.Tensor, key_bias: torch.Tensor) -> torch.Tensor:
+        # Post-LN (original BERT): sublayer -> add -> LayerNorm.
+        x = self.ln_attn(x + self.attn(x, key_bias))
+        h = self.mlp_down(F.gelu(self.mlp_up(x)))  # exact (erf) GELU
+        return self.ln_mlp(x + h)
+
+
+class BertClassifier(nn.Module):
+    def __init__(self, vocab_size: int, layers: int, d_model: int, heads: int,
+                 d_ff: int, max_seq: int, num_classes: int,
+                 attention: str = "dense", ln_eps: float = 1e-12) -> None:
+        super().__init__()
+        self.embed = nn.Embedding(vocab_size, d_model)
+        self.pos_embed = nn.Parameter(torch.zeros(max_seq, d_model))
+        self.ln_embed = nn.LayerNorm(d_model, eps=ln_eps)
+        self.layers = nn.ModuleList(
+            BertBlock(d_model, heads, d_ff, attention, ln_eps)
+            for _ in range(layers))
+        self.pooler = nn.Linear(d_model, d_model)
+        self.classifier = nn.Linear(d_model, num_classes)
+
+    def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        x = self.embed(ids)
+        x = x + self.pos_embed[: ids.shape[1]].to(x.dtype)
+        x = self.ln_embed(x)
+        key_bias = (1.0 - mask.float()) * -1e9            # (B, S) f32
+        for layer in self.layers:
+            x = layer(x, key_bias)
+        pooled = torch.tanh(self.pooler(x[:, 0]))
+        # The classifier runs in f32 whatever the compute dtype.
+        return F.linear(pooled.float(), self.classifier.weight.float(),
+                        self.classifier.bias.float())
+
+
+def from_jax_params(tree) -> dict[str, torch.Tensor]:
+    """The reference's flax tree (``{"params": ...}``, numpy or jax leaves)
+    -> this port's float32 state_dict.
+
+    Layouts: q/k/v kernels (D, H, hd) -> (H*hd, D) and their biases
+    (H, hd) -> (H*hd,); the out kernel (H, hd, D) -> (D, H*hd); Dense
+    kernels (in, out) -> (out, in); LayerNorm scale/bias -> weight/bias;
+    the embedding table and pos_embed (max_seq, D) carry over unchanged."""
+    p = tree["params"] if "params" in tree else tree
+
+    def t(x) -> torch.Tensor:
+        return torch.from_numpy(np.array(x, dtype=np.float32))
+
+    def dense(prefix: str, node) -> dict:
+        return {f"{prefix}.weight": t(node["kernel"]).T.contiguous(),
+                f"{prefix}.bias": t(node["bias"])}
+
+    def norm(prefix: str, node) -> dict:
+        return {f"{prefix}.weight": t(node["scale"]),
+                f"{prefix}.bias": t(node["bias"])}
+
+    sd = {"embed.weight": t(p["embed"]["embedding"]),
+          "pos_embed": t(p["pos_embed"]),
+          **norm("ln_embed", p["ln_embed"]),
+          **dense("pooler", p["pooler"]),
+          **dense("classifier", p["classifier"])}
+    i = 0
+    while f"layer{i}" in p:
+        lp = p[f"layer{i}"]
+        pre = f"layers.{i}"
+        for name in ("query", "key", "value"):
+            kern = t(lp["attn"][name]["kernel"])           # (D, H, hd)
+            sd[f"{pre}.attn.{name}.weight"] = kern.reshape(kern.shape[0], -1).T.contiguous()
+            sd[f"{pre}.attn.{name}.bias"] = t(lp["attn"][name]["bias"]).reshape(-1)
+        out = t(lp["attn"]["out"]["kernel"])               # (H, hd, D)
+        sd[f"{pre}.attn.out.weight"] = out.reshape(-1, out.shape[-1]).T.contiguous()
+        sd[f"{pre}.attn.out.bias"] = t(lp["attn"]["out"]["bias"])
+        sd.update(norm(f"{pre}.ln_attn", lp["ln_attn"]))
+        sd.update(dense(f"{pre}.mlp_up", lp["mlp_up"]))
+        sd.update(dense(f"{pre}.mlp_down", lp["mlp_down"]))
+        sd.update(norm(f"{pre}.ln_mlp", lp["ln_mlp"]))
+        i += 1
+    return sd
+
+
+class BertServing(ServingModel):
+    def __init__(self, cfg: ModelConfig) -> None:
+        super().__init__(cfg)
+        opt = cfg.options
+        attention = str(opt.get("attention", "dense"))
+        if attention in ("ring", "ulysses"):
+            raise not_ported(f"options.attention={attention!r}",
+                             "parallel attention and MoE")
+        if attention not in ATTENTION_IMPLS:
+            raise ValueError("options.attention must be 'dense', 'flash', "
+                             f"'ring', or 'ulysses', got {attention!r}")
+        if int(opt.get("moe_experts", 0)):
+            raise not_ported("options.moe_experts", "parallel attention and MoE")
+        if cfg.quantize is not None:
+            raise not_ported(f"quantize={cfg.quantize!r}", "quantized variants")
+        if cfg.parallelism != "single" or cfg.tp > 1 or cfg.sp > 1:
+            raise not_ported(
+                f"parallelism={cfg.parallelism!r} (tp={cfg.tp}, sp={cfg.sp}); "
+                "set parallelism = \"single\"", "mesh modes")
+        if cfg.weights:
+            raise not_ported("weights=", "lifecycle and weights")
+        self.attention = attention
+        self.max_seq = max(cfg.seq_buckets)
+        vocab_file = opt.get("vocab_file")
+        if vocab_file:
+            self.tokenizer = WordPieceTokenizer.from_vocab_file(vocab_file)
+        else:
+            self.tokenizer = WordPieceTokenizer(
+                synthetic_vocab(int(opt.get("vocab_size", 8192))))
+        self.vocab_size = max(self.tokenizer.vocab.values()) + 1
+        self.layers = int(opt.get("layers", 12))
+        self.d_model = int(opt.get("d_model", 768))
+        self.heads = int(opt.get("heads", 12))
+        self.d_ff = int(opt.get("d_ff", 3072))
+        self.top_k = min(5, cfg.num_classes)
+
+    # -- params --------------------------------------------------------------
+    def build_module(self) -> BertClassifier:
+        return BertClassifier(
+            vocab_size=self.vocab_size, layers=self.layers,
+            d_model=self.d_model, heads=self.heads, d_ff=self.d_ff,
+            max_seq=self.max_seq, num_classes=self.cfg.num_classes,
+            attention=self.attention)
+
+    def init_params(self, seed: int = 0) -> dict[str, torch.Tensor]:
+        """Seeded init with the reference's initializer families (it cannot
+        reproduce jax.random's bits): LeCun-normal kernels, zero biases,
+        unit LayerNorm scales, N(0, 1/d_model) embeddings, N(0, 0.02)
+        position table."""
+        rng = np.random.default_rng(seed)
+        sd = {}
+        with torch.device("meta"):
+            shapes = {k: tuple(v.shape) for k, v in self.build_module().state_dict().items()}
+        for name, shape in shapes.items():
+            if name == "embed.weight":
+                x = rng.normal(0.0, self.d_model ** -0.5, shape)
+            elif name == "pos_embed":
+                x = rng.normal(0.0, 0.02, shape)
+            elif name.startswith("ln") or ".ln_" in name:
+                x = np.ones(shape) if name.endswith("weight") else np.zeros(shape)
+            elif name.endswith(".weight"):                 # Linear (out, in)
+                x = rng.normal(0.0, shape[1] ** -0.5, shape)
+            else:                                          # Linear bias
+                x = np.zeros(shape)
+            sd[name] = torch.from_numpy(x.astype(np.float32))
+        return sd
+
+    # -- shapes --------------------------------------------------------------
+    def buckets(self) -> list[tuple]:
+        return [(b, s) for b in self.cfg.batch_buckets for s in self.cfg.seq_buckets]
+
+    def bucket_for(self, n: int, group=None) -> tuple:
+        s = group if group is not None else max(self.cfg.seq_buckets)
+        for b in self.cfg.batch_buckets:
+            if b >= n:
+                return (b, s)
+        return (self.cfg.batch_buckets[-1], s)
+
+    def input_signature(self, bucket: tuple) -> tuple[TensorSpec, ...]:
+        b, s = bucket
+        return (TensorSpec((b, s), np.dtype(np.int32)),
+                TensorSpec((b, s), np.dtype(np.int32)))
+
+    # -- device side ---------------------------------------------------------
+    def forward(self, module: BertClassifier, batch) -> dict:
+        ids, mask = self.device_preprocess(batch)
+        logits = module(ids, mask)
+        probs = torch.softmax(logits, dim=-1)
+        top_p, top_i = torch.topk(probs, self.top_k, dim=-1)
+        return {"probs": top_p, "indices": top_i}
+
+    # -- host side -----------------------------------------------------------
+    def host_decode(self, payload: bytes, content_type: str) -> np.ndarray:
+        """Request body -> unpadded int32 token ids (incl. [CLS]/[SEP])."""
+        return self.host_decode_items(payload, content_type)[0][0]
+
+    def host_decode_items(self, payload: bytes, content_type: str) -> tuple[list, bool]:
+        """One JSON parse: {"text": str} is single, {"texts": [...]} a batch;
+        non-JSON bodies are one plain-text item."""
+        if not content_type.startswith("application/json"):
+            return [self._encode(payload.decode("utf-8"))], False
+        body = json.loads(payload.decode("utf-8"))
+        texts = body.get("texts")
+        if texts is not None:
+            if not isinstance(texts, list) or not all(isinstance(t, str) for t in texts):
+                raise ValueError('"texts" must be a list of strings')
+            if len(texts) > self.MAX_ITEMS_PER_REQUEST:
+                raise ValueError(
+                    f"batch of {len(texts)} exceeds the per-request limit "
+                    f"({self.MAX_ITEMS_PER_REQUEST})")
+            return [self._encode(t) for t in texts], True
+        text = body.get("text")
+        if not isinstance(text, str):
+            raise ValueError('JSON body must contain "text": str')
+        return [self._encode(text)], False
+
+    def _encode(self, text: str) -> np.ndarray:
+        tok = self.tokenizer
+        pieces = tok.tokenize(text)  # once; encode() would re-tokenize
+        ids = [tok.cls_id] + [tok.vocab.get(t, tok.unk_id) for t in pieces]
+        ids = ids[: self.max_seq - 1] + [tok.sep_id]
+        return np.asarray(ids, np.int32)  # unpadded; assemble pads per bucket
+
+    def group_key(self, item: np.ndarray):
+        """Seq bucket for an unpadded id array -> batching group."""
+        for s in self.cfg.seq_buckets:
+            if s >= item.shape[0]:
+                return s
+        return max(self.cfg.seq_buckets)
+
+    def canary_item(self) -> np.ndarray:
+        return self.host_decode(b'{"text": "canary"}', "application/json")
+
+    def assemble(self, items: list[np.ndarray], bucket: tuple):
+        b, s = bucket
+        ids = np.full((b, s), self.tokenizer.pad_id, np.int32)
+        mask = np.zeros((b, s), np.int32)
+        return self._fill_ids_mask(items, s, ids, mask)
+
+    def assemble_into(self, items: list[np.ndarray], bucket: tuple, out):
+        ids, mask = out
+        ids[:] = self.tokenizer.pad_id
+        mask[:] = 0
+        return self._fill_ids_mask(items, bucket[1], ids, mask)
+
+    @staticmethod
+    def _fill_ids_mask(items, s, ids, mask):
+        for i, it in enumerate(items):
+            n = min(it.shape[0], s)
+            ids[i, :n] = it[:n]
+            mask[i, :n] = 1
+        return ids, mask
+
+    def host_postprocess(self, outputs: dict, n_valid: int) -> list[dict]:
+        return self.format_top_k(outputs, n_valid)
+
+
+def create(cfg: ModelConfig) -> BertServing:
+    return BertServing(cfg)

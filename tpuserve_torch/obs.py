@@ -1,0 +1,216 @@
+"""Observability for the port: counters, gauges, latency histograms and the
+Prometheus exposition, ported from ``tpuserve/obs.py``.
+
+Metric names are the JAX package's, unchanged, so one dashboard reads both
+servers: ``batches_total{model=}``, ``items_total{model=}``,
+``queue_depth{model=}``, ``batch_fill_ratio{model=}``,
+``latency_ms{model=,phase=}``, ``runtime_compiles_total{model=}`` and
+``runtime_variants{model=}``.
+
+Not ported yet (ROADMAP.md queue 1, "Observability and analysis"): request
+trace contexts, the flight recorder, the span ring and histogram exemplars.
+"""
+
+from __future__ import annotations
+
+import bisect
+import math
+import time
+
+from tpuserve_torch.utils.locks import new_lock
+
+
+def _default_latency_buckets() -> list[float]:
+    # Log-linear: 9 linear sub-buckets per decade, 0.1 ms .. 100 s (the JAX
+    # package's bounds, so quantiles read the same on both servers).
+    return [m * (10.0**d) for d in range(-1, 5) for m in range(1, 10)] + [1e5]
+
+
+class Histogram:
+    """Fixed-bucket histogram (milliseconds by default)."""
+
+    def __init__(self, name: str, buckets: list[float] | None = None) -> None:
+        self.name = name
+        self.bounds = buckets or _default_latency_buckets()
+        self.counts = [0] * (len(self.bounds) + 1)
+        self.total = 0.0
+        self.n = 0
+        self._lock = new_lock("obs.Histogram")
+
+    def observe(self, value: float) -> None:
+        i = bisect.bisect_left(self.bounds, value)  # first bound >= value
+        with self._lock:
+            self.counts[i] += 1
+            self.total += value
+            self.n += 1
+
+    def quantile(self, q: float) -> float:
+        """Approximate quantile, linearly interpolated inside the bucket that
+        holds the rank (Prometheus ``histogram_quantile``); inf when the rank
+        lands in the overflow bucket."""
+        with self._lock:
+            n = self.n
+            if n == 0:
+                return 0.0
+            rank = math.ceil(q * n)
+            acc = 0
+            for i, c in enumerate(self.counts):
+                prev_acc = acc
+                acc += c
+                if acc >= rank and c > 0:
+                    if i == len(self.bounds):
+                        return float("inf")
+                    lo = self.bounds[i - 1] if i > 0 else 0.0
+                    return lo + (self.bounds[i] - lo) * (rank - prev_acc) / c
+        return self.bounds[-1]
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"n": self.n, "total": self.total, "counts": list(self.counts)}
+
+
+class Counter:
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self.value = 0.0
+        self._lock = new_lock("obs.Counter")
+
+    def inc(self, amount: float = 1.0) -> None:
+        with self._lock:
+            self.value += amount
+
+
+class Gauge:
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self.value = 0.0
+
+    def set(self, value: float) -> None:
+        self.value = value
+
+
+# Phase labels on latency_ms{model=,phase=}: "body_read" and "parse" are
+# request-scoped (HTTP layer), the rest batch-scoped (batcher). "preproc" is
+# the assemble stage, "h2d" the pinned copy plus the forward's dispatch,
+# "compute" the fetch stage's wait for the device, "postproc" the top-k
+# formatting.
+PHASES = ("body_read", "parse", "queue", "preproc", "h2d", "compute",
+          "postproc", "total")
+
+# Host-pipeline stage executors (tpuserve_torch.hostpipe): one thread pool
+# per stage, labelled on pipeline_stage_depth{model=,stage=}.
+PIPELINE_STAGES = ("assemble", "h2d", "fetch", "postproc")
+
+
+class Metrics:
+    """Registry of all server metrics. One instance per server process."""
+
+    def __init__(self) -> None:
+        self._lock = new_lock("obs.Metrics")
+        self._histograms: dict[str, Histogram] = {}
+        self._counters: dict[str, Counter] = {}
+        self._gauges: dict[str, Gauge] = {}
+        self.started_at = time.time()
+
+    def histogram(self, name: str) -> Histogram:
+        with self._lock:
+            h = self._histograms.get(name)
+            if h is None:
+                h = self._histograms[name] = Histogram(name)
+            return h
+
+    def counter(self, name: str) -> Counter:
+        with self._lock:
+            c = self._counters.get(name)
+            if c is None:
+                c = self._counters[name] = Counter(name)
+            return c
+
+    def gauge(self, name: str) -> Gauge:
+        with self._lock:
+            g = self._gauges.get(name)
+            if g is None:
+                g = self._gauges[name] = Gauge(name)
+            return g
+
+    def render_prometheus(self) -> str:
+        """Prometheus text exposition, ending with the OpenMetrics ``# EOF``."""
+        lines: list[str] = []
+        with self._lock:
+            counters = list(self._counters.values())
+            gauges = list(self._gauges.values())
+            hists = list(self._histograms.values())
+        typed: set[str] = set()
+
+        def emit(name: str, kind: str, value: float) -> None:
+            base, labels = _split(name)
+            if base not in typed:
+                typed.add(base)
+                lines.append(f"# TYPE {base} {kind}")
+            label_str = "{" + labels.rstrip(",") + "}" if labels else ""
+            lines.append(f"{base}{label_str} {value}")
+
+        for c in counters:
+            emit(c.name, "counter", c.value)
+        for g in gauges:
+            emit(g.name, "gauge", g.value)
+        for h in hists:
+            base, labels = _split(h.name)
+            if base not in typed:
+                typed.add(base)
+                lines.append(f"# TYPE {base} histogram")
+            snap = h.snapshot()
+            acc = 0
+            for bound, count in zip(h.bounds, snap["counts"]):
+                acc += count
+                lines.append(f'{base}_bucket{{{labels}le="{bound:g}"}} {acc}')
+            lines.append(f'{base}_bucket{{{labels}le="+Inf"}} {snap["n"]}')
+            lines.append(f"{base}_sum{{{labels.rstrip(',')}}} {snap['total']}")
+            lines.append(f"{base}_count{{{labels.rstrip(',')}}} {snap['n']}")
+        lines.append("# EOF")
+        return "\n".join(lines) + "\n"
+
+    def summary(self) -> dict:
+        """JSON-friendly summary used by /stats."""
+        out: dict = {"uptime_s": time.time() - self.started_at,
+                     "counters": {}, "gauges": {}, "latency": {}}
+        with self._lock:
+            counters = dict(self._counters)
+            gauges = dict(self._gauges)
+            hists = dict(self._histograms)
+        for name, c in counters.items():
+            out["counters"][name] = c.value
+        for name, g in gauges.items():
+            out["gauges"][name] = g.value
+        for name, h in hists.items():
+            p50, p99 = h.quantile(0.5), h.quantile(0.99)
+            row = {
+                "n": h.n,
+                "mean_ms": (h.total / h.n) if h.n else 0.0,
+                # Capped to the top bound: inf is not valid JSON.
+                "p50_ms": min(p50, h.bounds[-1]),
+                "p99_ms": min(p99, h.bounds[-1]),
+            }
+            if not (math.isfinite(p50) and math.isfinite(p99)):
+                row["saturated"] = True
+            out["latency"][name] = row
+        return out
+
+
+PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+
+def _escape_label(value: str) -> str:
+    """Prometheus label-value escaping: backslash, double-quote, newline."""
+    return value.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _split(name: str) -> tuple[str, str]:
+    """'lat{model=x,phase=y}' -> ('lat', 'model="x",phase="y",')."""
+    if "{" not in name:
+        return name, ""
+    base, _, rest = name.partition("{")
+    rest = rest.rstrip("}")
+    pairs = [p.split("=", 1) for p in rest.split(",") if p]
+    labels = ",".join(f'{k}="{_escape_label(v)}"' for k, v in pairs)
+    return base, labels + "," if labels else ""
