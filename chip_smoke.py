@@ -21,7 +21,24 @@ Phases (any failure exits non-zero before the result line):
    the same bf16 inputs. Then time the kernel, the plain version and
    ``F.scaled_dot_product_attention`` (a yardstick the port never calls) at
    the main path's largest shape, beside the least time the card could take.
-4. Slice: start ``python -m tpuserve_torch serve`` on a full-width BERT-base
+4. K2 (flash attention's stats variant, ring attention's local step): hold
+   it against its plain PyTorch version on the card — BERT shapes in
+   float32 and bfloat16 with padded keys and a fully masked row, ragged
+   Sq/Sk, strided q/k/v views, one gradient, and (8, 2048, 12, 64) bf16.
+   K2's outputs are float32 whatever its inputs, so the tolerances are
+   float32-level against the plain version computed in float32 from the same
+   inputs: acc/l atol 2e-5 + rtol 1e-5, m atol 2e-5 + rtol 1e-6, l atol 2e-5
+   + rtol 5e-5 (sums of up to 2048 exponentials in another order). Then
+   time K2, its plain version and its bound at (8, 2048, 12, 64) bf16; no
+   one PyTorch call returns (acc, m, l), so ``library_ms`` is null and SDPA's
+   time on the same inputs stands on the ``slice`` line as "normalized
+   output only". K1 is timed at the same shape (Ulysses launches it there).
+5. Sequence parallel on one card: ``ring_attention`` (flash and dense local
+   steps) and ``ulysses_attention`` over a 4-rank mesh whose ranks share the
+   card, at (2, 1024, 12, 64) bf16 with rank 2's key block fully masked and
+   lane 1 fully padded, against plain dense attention in float32 (atol =
+   rtol = 1.6e-2, as K1's bf16 check).
+6. Slice: start ``python -m tpuserve_torch serve`` on a full-width BERT-base
    config (12 layers, d_model 768, 12 heads, d_ff 3072, vocab 30522, bf16,
    attention = "flash", seq buckets [64, 128], batch buckets [1, 8, 32],
    seeded weights), set the kernel launch counts to 0, send a single text,
@@ -36,12 +53,26 @@ Phases (any failure exits non-zero before the result line):
    than the bf16 logit tolerance. In-process, the forward's stream and
    host-enqueue times per bucket are taken, and a second batch's h2d must
    not wait for the first batch's forward still queued on the card.
-5. Print the slice and kernels lines, the card line, then the result line
+7. Long-context slice: serve ``examples/bert_long_ring.toml`` (full-width
+   BERT-base, bf16, ``attention = "ring"``, seq bucket 2048, batch buckets
+   [1, 8], one-card mesh with sp = 1) through ``python -m tpuserve_torch
+   serve``; with the counts at 0 send one long text (the (1, 2048) bucket,
+   where the ring's auto local step is dense: 0 K2 launches) and a batch of
+   5 texts of 300 to 2040 word pieces (the (8, 2048) bucket, where it is
+   K2: 12 launches; its 3 padded lanes are fully masked rows), plus the 400
+   and 404 probes; the warm-up compile count must not move. The served
+   answers must equal an in-process run of the same seeded model and agree
+   in top-5 with dense attention wherever its logits separate the ranks by
+   more than the logit tolerance. In-process, the (8, 2048) forward's stream
+   and host-enqueue times and K2's share of it are taken.
+8. Print a ``slice`` line per path and the ``kernels`` line (K1 and K2, each
+   with its launches on its path), the card line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import http.client
 import json
 import re
@@ -65,6 +96,24 @@ TEXTS_8 = [f"request number {i} asks the server to classify this text" for i in 
 TEXT_128 = "the model " * 45          # 90 word pieces: the 128-token bucket
 TEXTS_32 = [f"batch item {i}: " + " ".join(["serve", "fast", "text", "model"][: 1 + i % 4])
             for i in range(32)]
+# K2's tolerances (atol, rtol) against its plain version in float32.
+K2_TOL = {"acc_over_l": (2e-5, 1e-5), "m": (2e-5, 1e-6), "l": (2e-5, 5e-5)}
+# Words of the synthetic vocabulary that are one word piece each.
+WORDS = ("the of and to in is was for on as with by at from it an be this that are "
+         "or time year day man world life hand part child eye woman place work week "
+         "case point company number group problem fact model serve image text token "
+         "batch size test run fast slow good new old high low").split()
+
+
+def long_text(n_pieces: int, seed: int) -> str:
+    """A seeded text of ``n_pieces`` word pieces."""
+    import numpy as np
+
+    return " ".join(np.random.default_rng(seed).choice(WORDS, n_pieces))
+
+
+LONG_PIECES = 2000                          # one text, the (1, 2048) bucket
+LONG_BATCH_PIECES = (300, 700, 1100, 1500, 2040)   # 5 texts, the (8, 2048) bucket
 
 
 class SmokeFailure(Exception):
@@ -95,9 +144,22 @@ def build_kernels() -> None:
           f"{so.relative_to(ROOT)}", flush=True)
     log = so.with_name(so.name + ".log")
     if log.exists():
+        # One line per kernel instantiation: K1/K2, input dtype, threads per
+        # row (TPR), then ptxas' spill and register report for it.
+        dtypes = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
+        name, report = None, []
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+            m = re.search(r"Compiling entry function '\w*flash_fwd_kernelI(\w+?)Li(\d)ELb(\d)E",
+                          line)
+            if m:
+                name = (f"{'K2' if m.group(3) == '1' else 'K1'} "
+                        f"{dtypes.get(m.group(1), m.group(1))} TPR={m.group(2)}")
+            elif name and ("spill" in line or "registers" in line):
+                report.append(line.split(":", 1)[-1].strip() if "registers" in line
+                              else line.strip())
+                if "registers" in line:
+                    print(f"  ptxas: {name}: {'; '.join(report)}")
+                    name, report = None, []
 
 
 # -- phase 3 --------------------------------------------------------------------
@@ -219,17 +281,154 @@ def time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-# -- phase 4 --------------------------------------------------------------------
+# -- phase 4: K2 ------------------------------------------------------------------
+
+def compare_stats(q, k, v, bias) -> dict:
+    """K2 against its plain version in float32 on the same inputs; the max
+    abs error of each output (and of acc/l, the normalized output)."""
+    import torch
+
+    from tpuserve_torch.ops import flash_attention as fa
+
+    got = fa.flash_attention(q, k, v, bias, return_stats=True)
+    want = fa.flash_attention_stats_reference(q.float(), k.float(), v.float(), bias)
+    torch.cuda.synchronize()
+    b, sq, h, d = q.shape
+    check([tuple(t.shape) for t in got] == [(b, sq, h, d), (b, sq, h), (b, sq, h)]
+          and all(t.dtype == torch.float32 for t in got),
+          f"K2 outputs {[(t.dtype, tuple(t.shape)) for t in got]}")
+    check(all(bool(torch.isfinite(t).all()) for t in got), f"K2 non-finite output at {(b, sq, h, d)}")
+    pairs = {"acc_over_l": (got[0] / got[2][..., None], want[0] / want[2][..., None]),
+             "m": (got[1], want[1]), "l": (got[2], want[2])}
+    errs = {"acc": (got[0] - want[0]).abs().max().item()}
+    for name, (a, w) in pairs.items():
+        atol, rtol = K2_TOL[name]
+        err = (a - w).abs()
+        errs[name] = err.max().item()
+        check(not bool((err > atol + rtol * w.abs()).any()),
+              f"K2 {name} disagrees with its plain version at q {(b, sq, h, d)} "
+              f"k {tuple(k.shape)} {q.dtype}: max abs err {errs[name]:.3g}")
+    return errs
+
+
+def stats_kernel_phase() -> dict:
+    import torch
+
+    from tpuserve_torch.ops import flash_attention as fa
+
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s_ in ((4, 128), (8, 512)):          # BERT shapes, a padded lane
+            compare_stats(*qkv(b, s_, s_, 12, 64, dtype, seed=100 + n, masked_row=True))
+            n += 1
+        for sq, sk in ((77, 77), (64, 100), (100, 64), (256, 333)):   # ragged
+            compare_stats(*qkv(2, sq, sk, 12, 64, dtype, seed=100 + n))
+            n += 1
+        fused = torch.randn(2, 128, 3, 12, 64, device="cuda").to(dtype)
+        compare_stats(*fused.unbind(dim=2), qkv(2, 128, 128, 12, 64, dtype)[3])
+        n += 1
+    # One gradient through the stats Function (dense-recompute backward).
+    q, k, v, bias = qkv(2, 64, 64, 12, 64, torch.float32, seed=199)
+    cts = [torch.randn(s_, device="cuda") for s_ in ((2, 64, 12, 64), (2, 64, 12), (2, 64, 12))]
+    grads = []
+    for fn in (lambda *a: fa.flash_attention(*a, return_stats=True),
+               fa.flash_attention_stats_reference):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        sum((o * c).sum() for o, c in zip(fn(*leaves, bias), cts)).backward()
+        grads.append([t.grad for t in leaves])
+    for a, b_ in zip(*grads):
+        check(torch.allclose(a, b_, atol=1e-4), "K2 gradient disagrees")
+    print(f"kernels: K2 agrees with its plain version at {n} shapes and one gradient "
+          f"(tolerances {K2_TOL})", flush=True)
+    return k2_timing(8, 2048)
+
+
+def k2_timing(b: int, s: int, h: int = 12, d: int = 64) -> dict:
+    """K2 and its plain version at one bf16 shape with padded keys and a
+    padded lane, beside the least time the card could take; no one PyTorch
+    call returns (acc, m, l), so SDPA's time (normalized output only) goes
+    on the slice line, not into ``library_ms``. K1 at the same shape too."""
+    import torch
+
+    from tpuserve_torch.ops import flash_attention as fa
+
+    q, k, v, bias = qkv(b, s, s, h, d, torch.bfloat16, seed=17, masked_row=True)
+    errs = compare_stats(q, k, v, bias)
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, bias, return_stats=True), iters=20)
+    plain_ms = time_ms(lambda: fa.flash_attention_stats_reference(q, k, v, bias), iters=10)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=bias.to(torch.bfloat16)[:, None, None, :]), iters=20)
+    # q, k, v in bf16 and the f32 bias read once; acc, m, l in f32 written once.
+    nbytes = 3 * b * s * h * d * q.element_size() + b * s * 4 + b * s * h * d * 4 + 2 * b * s * h * 4
+    flops = 4 * b * h * s * s * d                                # q.k^T and p.v
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
+    line = {"name": "flash_attention_stats", "route": "cuda",
+            "source": "tpuserve_torch/ops/csrc/flash_attention.cu",
+            "replaces": "tpuserve/ops/flash_attention.py:106",
+            "max_abs_err": max(errs["acc"], errs["m"], errs["l"]), "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    k1 = k1_timing(b, s, h, d)
+    print(f"kernels: K2 at {(b, s, h, d)} bf16 {ms:.3f} ms (plain {plain_ms:.3f}, bound "
+          f"{line['bound_ms']:.4f} {line['bound_by']}); K1 {k1['line']['ms']:.3f} ms", flush=True)
+    return {"line": line, "errors": errs, "sdpa_normalized_output_only_ms": sdpa_ms,
+            "bound_inputs": {"shape": [b, s, h, d], "dtype": "bfloat16", "bytes": nbytes,
+                             "operations": flops},
+            "k1_same_shape": k1}
+
+
+# -- phase 5: ring and Ulysses on a 4-rank one-card mesh ------------------------
+
+def sequence_parallel_phase() -> dict:
+    import torch
+
+    from tpuserve_torch.ops import dense_attention, ring_attention, ulysses_attention
+    from tpuserve_torch.ops import flash_attention as fa
+    from tpuserve_torch.parallel import MeshPlan, make_mesh
+
+    mesh = make_mesh(MeshPlan(sp=4), devices=[torch.device("cuda")] * 4)
+    q, k, v, _ = qkv(2, 1024, 1024, 12, 64, torch.bfloat16, seed=23)
+    bias = torch.zeros(2, 1024, device="cuda")
+    bias[:, 512:768] = -1e9        # rank 2's whole key block
+    bias[1, :] = -1e9              # lane 1 all padding
+    ref = dense_attention(q.float(), k.float(), v.float(), bias[:, None, None, :])
+    errs = {}
+    for fn, kernel in ((ring_attention, "stats_launches"), (ulysses_attention, "launches")):
+        for local in ("flash", "dense"):
+            before = getattr(fa, kernel)
+            out = fn(q, k, v, mesh, key_padding=bias, local_impl=local)
+            torch.cuda.synchronize()
+            name = f"{fn.__name__}/{local}"
+            check(out.dtype == torch.bfloat16 and out.shape == q.shape, f"{name}: {out.dtype}")
+            check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+            err = (out.float() - ref).abs()
+            errs[name] = err.max().item()
+            check(not bool((err > BF16_TOL + BF16_TOL * ref.abs()).any()),
+                  f"{name} disagrees with plain dense attention: max abs err {errs[name]:.3g}")
+            # The flash local step went through the kernel: ring 4 ranks x 4
+            # steps of K2, Ulysses one K1 per rank.
+            want = {"ring_attention/flash": 16, "ulysses_attention/flash": 4}.get(name, 0)
+            check(getattr(fa, kernel) - before == want,
+                  f"{name}: {getattr(fa, kernel) - before} kernel launches, expected {want}")
+    print(f"sequence parallel: ring and Ulysses on a 4-rank one-card mesh agree with plain "
+          f"dense attention at (2, 1024, 12, 64) bf16: max abs err {errs}", flush=True)
+    return errs
+
+
+# -- phase 6: BERT-base with flash attention -------------------------------------
 
 CONFIG = ROOT / "examples" / "bert_flash.toml"
+LONG_CONFIG = ROOT / "examples" / "bert_long_ring.toml"
 
 
-def model_config(attention: str):
+def model_config(attention: str, config: Path = CONFIG):
     import dataclasses
 
     from tpuserve_torch.config import load_config
 
-    mcfg = load_config(str(CONFIG)).models[0]
+    mcfg = load_config(str(config)).models[0]
     return dataclasses.replace(mcfg, options={**mcfg.options, "attention": attention})
 
 
@@ -255,7 +454,7 @@ def metric(text: str, name: str) -> float:
     return float(m.group(1)) if m else 0.0
 
 
-def wait_healthy(proc, port, log_path: Path, timeout_s: float = 600.0) -> None:
+def wait_healthy(proc, port, log_path: Path, n_buckets: int, timeout_s: float = 600.0) -> None:
     t0 = time.time()
     while time.time() - t0 < timeout_s:
         if proc.poll() is not None:
@@ -264,7 +463,8 @@ def wait_healthy(proc, port, log_path: Path, timeout_s: float = 600.0) -> None:
         try:
             if call(port, "GET", "/healthz")[0] == 200:
                 print(f"slice: server healthy after {time.time() - t0:.1f} s "
-                      "(params on the card, 6 buckets warmed, canary served)", flush=True)
+                      f"(params on the card, {n_buckets} buckets warmed, canary served)",
+                      flush=True)
                 return
         except OSError:
             pass
@@ -296,6 +496,8 @@ def drive(port: int) -> dict:
     stats = json.loads(call(port, "GET", "/stats")[1])
     after = call(port, "GET", "/metrics")[1].decode()
     launches = stats["kernels"]["flash_attention"]["launches"]
+    check(stats["kernels"]["flash_attention_stats"]["launches"] == 0,
+          "K2 launched on the flash path, which has no ring attention")
     delta = {n: metric(after, f'{n}{{model="bert"}}') - metric(before, f'{n}{{model="bert"}}')
              for n in ("batches_total", "items_total", "runtime_compiles_total")}
     print(f"slice: 3 requests (41 texts) in {wall_s * 1e3:.1f} ms; batches {delta['batches_total']:g}, "
@@ -397,20 +599,29 @@ def in_process_check(answers: dict) -> None:
                              atol=1e-6), f"served probs != in-process flash probs for {t!r}")
     err = (flash - dense).abs().max().item()
     check(err <= LOGIT_TOL, f"flash vs dense logits differ by {err:.3g} > {LOGIT_TOL}")
-    sd, si = dense.sort(dim=-1, descending=True)
-    fi = flash.argsort(dim=-1, descending=True)
-    checked = 0
-    for row in range(32):
-        for r in range(5):
-            gap_above = sd[row, r - 1] - sd[row, r] if r else float("inf")
-            gap_below = sd[row, r] - sd[row, r + 1]
-            if min(gap_above, gap_below) > LOGIT_TOL:
-                check(fi[row, r] == si[row, r], f"top-5 rank {r} differs from dense, row {row}")
-                checked += 1
+    checked = separated_ranks_agree(flash, dense, "flash")
     print(f"slice: served answers equal the in-process flash run; flash vs dense logits "
           f"max abs diff {err:.4g} (tol {LOGIT_TOL}), {checked} separated top-5 ranks agree",
           flush=True)
     return forward_ms
+
+
+def separated_ranks_agree(logits, dense, label: str) -> int:
+    """Top-5 ranks of ``logits`` equal dense attention's wherever the dense
+    logits separate that rank from its neighbours by more than LOGIT_TOL;
+    returns how many ranks were held."""
+    sd, si = dense.sort(dim=-1, descending=True)
+    fi = logits.argsort(dim=-1, descending=True)
+    checked = 0
+    for row in range(logits.shape[0]):
+        for r in range(5):
+            gap_above = sd[row, r - 1] - sd[row, r] if r else float("inf")
+            gap_below = sd[row, r] - sd[row, r + 1]
+            if min(gap_above, gap_below) > LOGIT_TOL:
+                check(fi[row, r] == si[row, r],
+                      f"{label}: top-5 rank {r} differs from dense, row {row}")
+                checked += 1
+    return checked
 
 
 def forward_timing(rt, model, bucket: tuple, rounds: int = 20, iters: int = 5) -> dict:
@@ -472,19 +683,20 @@ def h2d_overlap_check(rt, model) -> None:
           "batch's forward still queued (it waits for its own copy only)", flush=True)
 
 
-def slice_phase() -> int:
+@contextlib.contextmanager
+def serving(config: Path, n_buckets: int):
+    """``python -m tpuserve_torch serve --config <config>`` on a free port,
+    healthy; yields the port and stops the server on the way out."""
     port = free_port()
     with tempfile.TemporaryDirectory() as tmp:
         log_path = Path(tmp) / "server.log"
         with open(log_path, "w") as log:
             proc = subprocess.Popen([sys.executable, "-m", "tpuserve_torch", "serve",
-                                     "--config", str(CONFIG), "--set", f"port={port}"], cwd=ROOT,
-                                    stdout=log, stderr=subprocess.STDOUT)
+                                     "--config", str(config), "--set", f"port={port}"],
+                                    cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
         try:
-            wait_healthy(proc, port, log_path)
-            run = drive(port)
-            run["timing"] = serve_timing(port)
-            print(json.dumps({"serve": run["timing"]}), flush=True)
+            wait_healthy(proc, port, log_path, n_buckets)
+            yield port
         finally:
             proc.send_signal(signal.SIGTERM)
             try:
@@ -492,7 +704,137 @@ def slice_phase() -> int:
             except subprocess.TimeoutExpired:
                 proc.kill()
                 proc.wait(30)
+
+
+def slice_phase() -> dict:
+    with serving(CONFIG, n_buckets=6) as port:
+        run = drive(port)
+        run["timing"] = serve_timing(port)
+        print(json.dumps({"serve": run["timing"]}), flush=True)
     run["forward_ms"] = in_process_check(run["answers"])
+    return run
+
+
+# -- phase 7: long-context BERT-base with ring attention ------------------------
+
+def kernel_counts(port: int) -> tuple[int, int]:
+    k = json.loads(call(port, "GET", "/stats")[1])["kernels"]
+    return k["flash_attention"]["launches"], k["flash_attention_stats"]["launches"]
+
+
+def drive_long(port: int) -> dict:
+    """The long-context path's run: counts to 0, one long text (the
+    (1, 2048) bucket), counts read; a 5-text batch (the (8, 2048) bucket),
+    counts read; then the probes."""
+    single = long_text(LONG_PIECES, seed=0)
+    texts = [long_text(n, seed=1 + i) for i, n in enumerate(LONG_BATCH_PIECES)]
+    check(call(port, "POST", "/debug/kernels:reset")[0] == 200, "kernel count reset refused")
+    before = call(port, "GET", "/metrics")[1].decode()
+    walls = {}
+    t0 = time.perf_counter()
+    st, body = call(port, "POST", "/v1/models/bert:classify", {"text": single})
+    walls["single_s2048_ms"] = (time.perf_counter() - t0) * 1e3
+    check(st == 200, f"long text: {st} {body[:300]!r}")
+    answers = {single: json.loads(body)}
+    counts_single = kernel_counts(port)
+    t0 = time.perf_counter()
+    st, body = call(port, "POST", "/v1/models/bert:classify", {"texts": texts})
+    walls["batch5_s2048_ms"] = (time.perf_counter() - t0) * 1e3
+    check(st == 200, f"5-text long batch: {st} {body[:300]!r}")
+    results = json.loads(body)["results"]
+    check(len(results) == 5, f"5-text long batch: {len(results)} results")
+    answers.update(zip(texts, results))
+    counts_batch = kernel_counts(port)
+    after = call(port, "GET", "/metrics")[1].decode()
+    delta = {n: metric(after, f'{n}{{model="bert"}}') - metric(before, f'{n}{{model="bert"}}')
+             for n in ("batches_total", "items_total", "runtime_compiles_total")}
+    print(f"slice (long): K1, K2 launches after the (1, 2048) batch {counts_single}, after the "
+          f"(8, 2048) batch {counts_batch}; batches {delta['batches_total']:g}, items "
+          f"{delta['items_total']:g}, compiles after warm-up {delta['runtime_compiles_total']:g}; "
+          f"request walls {walls}", flush=True)
+    check(counts_single == (0, 0), f"the (1, 2048) batch launched K1, K2 {counts_single} "
+          "times; the ring's auto local step is dense there (0)")
+    check(counts_batch == (0, 12), f"the (8, 2048) batch launched K1, K2 {counts_batch} "
+          "times in all; the ring's auto local step is K2 there (12, one per layer)")
+    check(delta["batches_total"] == 2 and delta["items_total"] == 6,
+          f"batches/items moved by {delta['batches_total']:g}/{delta['items_total']:g}, expected 2/6")
+    check(delta["runtime_compiles_total"] == 0, "runtime_compiles_total moved after warm-up")
+    st, _ = call(port, "POST", "/v1/models/bert:classify", raw=b"{not json")
+    check(st == 400, f"malformed body answered {st}, expected 400")
+    st, _ = call(port, "POST", "/v1/models/nope:classify", {"text": "x"})
+    check(st == 404, f"unknown model answered {st}, expected 404")
+    # Sequential repeats of the batch: the served request's wall time and
+    # the server's phase split (decode = WordPiece over ~5,600 pieces).
+    reps = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        st, _ = call(port, "POST", "/v1/models/bert:classify", {"texts": texts})
+        reps.append((time.perf_counter() - t0) * 1e3)
+        check(st == 200, f"repeat of the long batch answered {st}")
+    lat = json.loads(call(port, "GET", "/stats")[1])["latency"]
+    phases = {p: lat[f"latency_ms{{model=bert,phase={p}}}"]["p50_ms"]
+              for p in ("body_read", "parse", "queue", "preproc", "h2d", "compute",
+                        "postproc", "total")}
+    return {"answers": answers, "single": single, "texts": texts,
+            "k2_launches": counts_batch[1] - counts_single[1],
+            "counts": {"b1_s2048": list(counts_single), "b8_s2048": list(counts_batch)},
+            "walls_ms": dict(walls, batch5_repeats=reps), "phase_p50_ms": phases}
+
+
+def long_in_process_check(run: dict) -> dict:
+    """Served answers == the same seeded model in-process; top-5 agreement
+    with dense attention where its logits separate; the (8, 2048) forward's
+    stream and host-enqueue times."""
+    import torch
+
+    from tpuserve_torch.models import build
+    from tpuserve_torch.runtime import build_runtime
+
+    groups = {(1, 2048): [run["single"]], (8, 2048): run["texts"]}
+    logits, forward = {}, None
+    for attention in ("ring", "dense"):
+        model = build(model_config(attention, LONG_CONFIG))
+        rt = build_runtime(model, device="cuda")
+        for bucket, texts in groups.items():
+            items = [model.host_decode(json.dumps({"text": t}).encode(), "application/json")
+                     for t in texts]
+            check(all(model.group_key(it) == 2048 for it in items), "texts must fit seq 2048")
+            dev = rt.h2d(bucket, model.assemble(items, bucket))
+            with torch.inference_mode():
+                out = rt.module(*dev).float()[: len(texts)]
+            check(bool(torch.isfinite(out).all()) and out.shape == (len(texts), 1000),
+                  f"{attention} {bucket}: logits {tuple(out.shape)} not finite")
+            logits[attention, bucket] = out
+        if attention == "ring":
+            lengths = [len(it) for it in items]
+            forward = forward_timing(rt, model, (8, 2048), rounds=5, iters=2)
+        del rt, model
+        torch.cuda.empty_cache()
+    checked, err = 0, 0.0
+    for bucket, texts in groups.items():
+        ring, dense = logits["ring", bucket], logits["dense", bucket]
+        probs, idx = torch.softmax(ring, -1).topk(5)
+        for row, t in enumerate(texts):
+            served = run["answers"][t]["top_k"]
+            check([e["class"] for e in served] == idx[row].tolist(),
+                  f"served top-5 != in-process ring top-5 at {bucket}, row {row}")
+            check(torch.allclose(torch.tensor([e["prob"] for e in served]), probs[row].cpu(),
+                                 atol=1e-6), f"served probs != in-process ring probs, row {row}")
+        err = max(err, (ring - dense).abs().max().item())
+        checked += separated_ranks_agree(ring, dense, f"ring {bucket}")
+    print(f"slice (long): served answers equal the in-process ring run; ring vs dense logits "
+          f"max abs diff {err:.4g}, {checked} separated top-5 ranks agree (tol {LOGIT_TOL}); "
+          f"batch word pieces {lengths}", flush=True)
+    return {"forward_ms_b8_s2048": forward, "ring_vs_dense_max_abs_logit_diff": err,
+            "separated_ranks_checked": checked, "batch_ids_per_text": lengths}
+
+
+def long_slice_phase() -> dict:
+    t0 = time.perf_counter()
+    with serving(LONG_CONFIG, n_buckets=2) as port:
+        run = drive_long(port)
+    run.update(long_in_process_check(run))
+    run["phase_s"] = time.perf_counter() - t0
     return run
 
 
@@ -514,17 +856,34 @@ def main() -> int:
               f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
         build_kernels()
         k1 = kernel_phase()
+        k2 = stats_kernel_phase()
+        sp_errs = sequence_parallel_phase()
         run = slice_phase()
+        long = long_slice_phase()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     # Where a (32, S) batch's device time goes: 12 K1 launches of one forward.
     k1_ms = {s_: k1[s_]["line"]["ms"] for s_ in (64, 128)}
     share = {s_: 12 * k1_ms[s_] / run["forward_ms"][s_]["stream_ms"] for s_ in (64, 128)}
-    print(json.dumps({"slice": {"forward_ms_b32": run["forward_ms"], "k1_ms_b32": k1_ms,
-                                "k1_share_of_forward_b32": share,
+    print(json.dumps({"slice": {"path": "bert_flash", "forward_ms_b32": run["forward_ms"],
+                                "k1_ms_b32": k1_ms, "k1_share_of_forward_b32": share,
                                 "k1_bound_inputs": k1[128]["bound_inputs"]}}))
-    print(json.dumps({"kernels": [dict(k1[128]["line"], launches=run["launches"])]}))
+    # Where the (8, 2048) batch's device time goes: 12 K2 launches of one forward.
+    k2_share = 12 * k2["line"]["ms"] / long["forward_ms_b8_s2048"]["stream_ms"]
+    print(json.dumps({"slice": {
+        "path": "bert_long_ring", "config": str(LONG_CONFIG.relative_to(ROOT)),
+        "launches_k1_k2": long["counts"], "forward_ms_b8_s2048": long["forward_ms_b8_s2048"],
+        "k2_ms_b8_s2048": k2["line"]["ms"], "k2_share_of_forward_b8_s2048": k2_share,
+        "k2_errors": k2["errors"], "k2_bound_inputs": k2["bound_inputs"],
+        "sdpa_normalized_output_only_ms_b8_s2048": k2["sdpa_normalized_output_only_ms"],
+        "k1_b8_s2048": k2["k1_same_shape"]["line"],
+        "sequence_parallel_4rank_max_abs_err": sp_errs,
+        "ring_vs_dense_max_abs_logit_diff": long["ring_vs_dense_max_abs_logit_diff"],
+        "serve_walls_ms": long["walls_ms"], "serve_phase_p50_ms": long["phase_p50_ms"],
+        "phase_s": long["phase_s"]}}))
+    print(json.dumps({"kernels": [dict(k1[128]["line"], launches=run["launches"]),
+                                  dict(k2["line"], launches=long["k2_launches"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

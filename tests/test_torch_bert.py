@@ -2,6 +2,12 @@
 package's ``tpuserve.models.bert`` on the same weights: the reference's
 seeded flax tree, converted by ``from_jax_params``.
 
+Ring and Ulysses attention run in single mode on a 1-device mesh on both
+sides, once at ``local_impl="auto"`` (dense local math at these sizes) and
+once with ``DENSE_SCORE_BYTES_MAX`` set to 0 in both packages, so both take
+their flash local step: the reference's Pallas kernels in interpret mode,
+the port's K2 (ring) and K1 (Ulysses) plain versions.
+
 Tolerances: float32 logits atol 1e-4 (chained matmuls and LayerNorms
 summed in different orders) with identical top-k indices; bfloat16 logits
 atol 3e-2, four bf16 spacings at 1 (two frameworks round every layer's
@@ -10,6 +16,7 @@ model), with identical top-1 wherever the reference's top-2 gap exceeds
 that tolerance.
 """
 
+import importlib
 import json
 
 import jax
@@ -22,10 +29,14 @@ from tpuserve import text as jtext
 from tpuserve.config import ModelConfig as JaxModelConfig
 from tpuserve.config import load_config as jax_load_config
 from tpuserve.models import build as jax_build
+from tpuserve.parallel import make_mesh as jax_make_mesh
+from tpuserve.parallel.mesh import MeshPlan as JaxMeshPlan
 from tpuserve_torch import text as ttext
 from tpuserve_torch.config import ModelConfig, load_config
 from tpuserve_torch.models import build
 from tpuserve_torch.models.bert import from_jax_params
+from tpuserve_torch.ops import flash_attention as fa
+from tpuserve_torch.parallel import MeshPlan, make_mesh
 from tpuserve_torch.runtime import build_runtime
 
 TINY = dict(layers=2, d_model=32, heads=2, d_ff=64, vocab_size=512)
@@ -145,6 +156,92 @@ def test_full_size_param_count_matches_reference():
     assert n == n_ref and 105e6 < n < 115e6, (n, n_ref)
 
 
+# -- ring and Ulysses attention (single mode, 1-device mesh) ------------------------
+
+# head_dim 64, so the flash local step is open to local_impl="auto".
+SP_TINY = dict(layers=2, d_model=128, heads=2, d_ff=64, vocab_size=512)
+
+
+def sp_pair(attention):
+    kw = cfg_kwargs(options=dict(SP_TINY, attention=attention))
+    return jax_build(JaxModelConfig(**kw)), build(ModelConfig(**kw))
+
+
+@pytest.fixture(scope="module")
+def sp_params():
+    jm, _ = sp_pair("dense")
+    return jax.device_get(jm.init_params(jax.random.key(1)))
+
+
+@pytest.mark.parametrize("local", ["auto", "flash"])
+@pytest.mark.parametrize("attention", ["ring", "ulysses"])
+def test_sequence_parallel_forward_matches_jax(attention, local, sp_params, monkeypatch):
+    if local == "flash":
+        for mod in ("tpuserve.ops.ring_attention", "tpuserve_torch.ops.ring_attention"):
+            monkeypatch.setattr(importlib.import_module(mod), "DENSE_SCORE_BYTES_MAX", 0)
+    plain = "flash_attention_stats_reference" if attention == "ring" else \
+        "flash_attention_reference"
+    calls = []
+    fn = getattr(fa, plain)
+    monkeypatch.setattr(fa, plain, lambda *a: calls.append(1) or fn(*a))
+    jm, tm = sp_pair(attention)
+    jm.bind_mesh(jax_make_mesh(JaxMeshPlan(), devices=jax.devices()[:1]))
+    tm.bind_mesh(make_mesh(MeshPlan(), devices=["cpu"]))
+    mod = tm.build_module()
+    mod.load_state_dict(from_jax_params(sp_params))
+    batch = batch_of(tm, TEXTS[:4], (4, 16))
+    ref_logits = np.asarray(jm.module.apply(sp_params, *batch))
+    ref_out = jm.forward(sp_params, batch)
+    with torch.inference_mode():
+        tb = tuple(torch.from_numpy(x) for x in batch)
+        logits = mod(*tb).numpy()
+        out = tm.forward(mod, tb)
+    # 2 layers: one local step per layer and forward on the flash path.
+    assert len(calls) == (4 if local == "flash" else 0)
+    np.testing.assert_allclose(logits, ref_logits, atol=1e-4)
+    np.testing.assert_array_equal(out["indices"].numpy(), np.asarray(ref_out["indices"]))
+    np.testing.assert_allclose(out["probs"].numpy(), np.asarray(ref_out["probs"]), atol=1e-5)
+
+
+@pytest.mark.parametrize("attention", ["ring", "ulysses"])
+def test_sequence_parallel_runtime_binds_its_mesh(attention):
+    """The runtime binds a 1-device mesh on its own device before it builds
+    the module, and serves the same answers as dense attention."""
+    _, tm = sp_pair(attention)
+    rt = build_runtime(tm, device="cpu")
+    assert rt.mesh.shape == {"data": 1, "model": 1, "seq": 1}
+    assert rt.mesh.axis_devices("seq") == [torch.device("cpu")]
+    assert rt.compiles_total == len(tm.buckets())
+    _, dm = sp_pair("dense")
+    drt = build_runtime(dm, device="cpu")
+    drt.module.load_state_dict(rt.module.state_dict())
+    batch = batch_of(tm, TEXTS[:2], (2, 16))
+    got, want = (r.fetch(r.run((2, 16), batch)) for r in (rt, drt))
+    np.testing.assert_allclose(got["probs"], want["probs"], atol=1e-5)
+    np.testing.assert_array_equal(got["indices"], want["indices"])
+
+
+def test_sequence_parallel_forward_without_mesh_raises():
+    _, tm = sp_pair("ring")
+    mod = tm.build_module()
+    ids = torch.zeros(1, 8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="bind_mesh"):
+        mod(ids, torch.ones_like(ids))
+
+
+@pytest.mark.parametrize("attention, over, match", [
+    ("ring", dict(parallelism="replica"), "replica mode"),
+    ("ulysses", dict(parallelism="replica"), "replica mode"),
+    ("ring", dict(sp=3), r"seq buckets \[8, 16\] are not divisible"),
+    ("ulysses", dict(sp=4), r"local heads 2 \(heads=2, tp=1\)"),
+])
+def test_sequence_parallel_build_checks_match_reference(attention, over, match):
+    kw = cfg_kwargs(options=dict(SP_TINY, attention=attention), **over)
+    for make in (lambda: jax_build(JaxModelConfig(**kw)), lambda: build(ModelConfig(**kw))):
+        with pytest.raises(ValueError, match=match):
+            make()
+
+
 # -- bucketing invariance in the port -------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -181,7 +278,9 @@ def test_batch_padding_invariance(served):
 # -- what this slice does not port ---------------------------------------------
 
 @pytest.mark.parametrize("over, match", [
-    (dict(options=dict(TINY, attention="ring")), "parallel attention"),
+    # Ring attention serves on a 1-device mesh; sp > 1 needs the mesh modes.
+    pytest.param(dict(options=dict(TINY, attention="ring"), sp=2), "mesh modes",
+                 id="over0-parallel attention"),
     (dict(options=dict(TINY, moe_experts=4)), "parallel attention"),
     (dict(quantize="int8"), "quantized"),
     (dict(parallelism="sharded"), "mesh modes"),
@@ -225,7 +324,8 @@ def test_same_toml_files_parse():
     from tpuserve_torch.config import ServerConfig
 
     for path in ("examples/bert_modes.toml", "examples/serve_all.toml",
-                 "examples/genserve.toml", "examples/latency_12k.toml"):
+                 "examples/genserve.toml", "examples/latency_12k.toml",
+                 "examples/bert_long_ring.toml"):
         cfg, jcfg = load_config(path), jax_load_config(path)
         for f in dataclasses.fields(ServerConfig):
             if f.name not in ("models", "unported"):

@@ -8,8 +8,14 @@ atol 1.6e-2 (outputs rounded to bf16, whose spacing near 1 is 7.8e-3, on
 both sides independently); gradients through the reference's dense-recompute
 VJP, float32 atol 1e-4 (sums over up to 192 keys).
 
-The kernel itself runs only on the card: ``tests/test_torch_kernels_cuda.py``
-and ``chip_smoke.py`` hold it against this plain version there.
+Kernel K2's function (``return_stats=True``) is held the same way against
+the reference's ``_fa_kernel_stats`` in interpret mode: acc and l, float32
+rtol 1e-5 and atol 1e-5 (unnormalized sums over up to 64 keys, two orders);
+m, atol 1e-5 (a max of the same f32 scores); the merge of two key blocks
+atol 2e-6 as in the reference's own test.
+
+The kernels themselves run only on the card: ``tests/test_torch_kernels_cuda.py``
+and ``chip_smoke.py`` hold them against these plain versions there.
 """
 
 import jax
@@ -147,3 +153,108 @@ def test_rejects_bias_of_wrong_shape():
     q = torch.zeros(2, 8, 2, 16)
     with pytest.raises(ValueError, match="bias"):
         fa.flash_attention(q, q, q, torch.zeros(2, 7))
+
+
+# -- kernel K2: return_stats=True ---------------------------------------------
+
+def jax_stats(q, k, v, bias=None):
+    args = [jnp.asarray(x) for x in (q, k, v)]
+    if bias is not None:
+        args.append(jnp.asarray(bias))
+    return [np.asarray(x) for x in jax_flash(*args, return_stats=True)]
+
+
+def assert_stats_close(got, want):
+    acc, m, l = (x.numpy() for x in got)
+    assert acc.dtype == m.dtype == l.dtype == np.float32
+    np.testing.assert_allclose(acc, want[0], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(m, want[1], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(l, want[2], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("s, sk", [(8, 8), (64, 64), (16, 40)])
+def test_stats_match_jax_flash_stats(s, sk, padded):
+    q, k, v, bias = make_inputs(8, 2, s, 2, 64, padded, sk=sk)
+    got = fa.flash_attention(*(torch.from_numpy(x) for x in (q, k, v, bias)),
+                             return_stats=True)
+    assert [tuple(t.shape) for t in got] == [(2, s, 2, 64), (2, s, 2), (2, s, 2)]
+    assert_stats_close(got, jax_stats(q, k, v, bias))
+
+
+def test_stats_bf16_inputs_stay_f32():
+    q, k, v, bias = make_inputs(9, 2, 16, 2, 64, padded=True)
+    bf = lambda x: jnp.asarray(x, jnp.bfloat16)  # noqa: E731
+    want = [np.asarray(x) for x in jax_flash(bf(q), bf(k), bf(v), jnp.asarray(bias),
+                                             return_stats=True)]
+    t = lambda x: torch.from_numpy(x).to(torch.bfloat16)  # noqa: E731
+    got = fa.flash_attention(t(q), t(k), t(v), torch.from_numpy(bias), return_stats=True)
+    assert_stats_close(got, want)
+
+
+@pytest.mark.parametrize("masked", [-1e9, -np.inf])
+def test_stats_fully_masked_row(masked):
+    """A row whose keys are all masked keeps the reference kernel's stats:
+    under -1e9, m ~ -1e9, l ~ Sk and acc = sum of v; under -inf, m = -1e30
+    (the running-max seed), l = 0 and acc = 0 — never NaN, never divided."""
+    q, k, v, bias = make_inputs(10, 2, 8, 2, 64, padded=False)
+    bias[1, :] = masked
+    got = fa.flash_attention(*(torch.from_numpy(x) for x in (q, k, v, bias)),
+                             return_stats=True)
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    want = jax_stats(q, k, v, bias)
+    assert_stats_close(got, want)
+    if masked == -1e9:
+        np.testing.assert_allclose(got[2][1].numpy(), 8.0)
+        np.testing.assert_allclose(got[0][1].numpy(), np.broadcast_to(
+            v[1].sum(axis=0), (8, 2, 64)), rtol=1e-5, atol=1e-5)
+    else:
+        assert (got[1][1] == fa.NEG_INF).all() and (got[2][1] == 0).all()
+
+
+def test_stats_merge_across_key_blocks():
+    """Two key blocks' (acc, m, l) merge to the full answer, as in the
+    reference's test_stats_variant_merges_across_key_blocks."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 128, 4, 64)).astype(np.float32))
+               for _ in range(3))
+    a1, m1, l1 = fa.flash_attention(q, k[:, :64], v[:, :64], return_stats=True)
+    a2, m2, l2 = fa.flash_attention(q, k[:, 64:], v[:, 64:], return_stats=True)
+    m12 = torch.maximum(m1, m2)
+    w1, w2 = torch.exp(m1 - m12), torch.exp(m2 - m12)
+    merged = (a1 * w1[..., None] + a2 * w2[..., None]) / (l1 * w1 + l2 * w2)[..., None]
+    np.testing.assert_allclose(merged.numpy(), fa.flash_attention(q, k, v).numpy(),
+                               atol=2e-6)
+    want = np.asarray(jax_flash(*(jnp.asarray(x.numpy()) for x in (q, k, v))))
+    np.testing.assert_allclose(merged.numpy(), want, atol=2e-6)
+
+
+def test_stats_gradients_match_jax_vjp():
+    """The stats Function's backward recomputes through the stats' plain
+    version, as the reference's VJP does with return_stats=True; the
+    cotangent weighs acc, m and l."""
+    q, k, v, bias = make_inputs(11, 2, 64, 2, 64, padded=True)
+    rng = np.random.default_rng(12)
+    cts = [rng.normal(size=s).astype(np.float32)
+           for s in ((2, 64, 2, 64), (2, 64, 2), (2, 64, 2))]
+
+    def loss(q_, k_, v_):
+        outs = _flash(q_, k_, v_, jnp.asarray(bias), 64, 64, True, True)
+        return sum(jnp.sum(o * c) for o, c in zip(outs, cts))
+
+    ref = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                            jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    outs = fa.flash_attention(tq, tk, tv, torch.from_numpy(bias), return_stats=True)
+    sum((o * torch.from_numpy(c)).sum() for o, c in zip(outs, cts)).backward()
+    for got, want in zip((tq.grad, tk.grad, tv.grad), ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+def test_stats_on_cpu_take_plain_version_and_count_no_launch():
+    q, k, v, bias = (torch.from_numpy(x) for x in make_inputs(13, 2, 8, 2, 16, padded=True))
+    before = (fa.launches, fa.stats_launches)
+    got = fa.flash_attention(q, k, v, bias, return_stats=True)
+    assert (fa.launches, fa.stats_launches) == before
+    for a, b in zip(got, fa.flash_attention_stats_reference(q, k, v, bias)):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)

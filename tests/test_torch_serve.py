@@ -166,10 +166,19 @@ def test_healthz_and_stats(server):
     stats = json.loads(call(server, "GET", "/stats")[2])
     assert stats["backend"]["device"] == "cpu"
     assert stats["backend"]["torch"] == torch.__version__
-    # CPU tensors take the plain version: the kernel never launches here.
-    assert stats["kernels"] == {"flash_attention": {"launches": 0}}
+    # CPU tensors take the plain versions: the kernels never launch here.
+    assert stats["kernels"] == {"flash_attention": {"launches": 0},
+                                "flash_attention_stats": {"launches": 0}}
     assert set(stats["pipeline"]["stages"]["workers"]) == {
         "assemble", "h2d", "fetch", "postproc"}
+
+
+def test_kernel_count_reset_covers_k1_and_k2(server):
+    status, _, body = call(server, "POST", "/debug/kernels:reset")
+    assert status == 200
+    assert json.loads(body) == {"kernels": {"flash_attention": {"launches": 0},
+                                            "flash_attention_stats": {"launches": 0}}}
+    assert call(server, "GET", "/debug/kernels:reset")[0] == 405
 
 
 def test_metric_deltas(server):

@@ -2,8 +2,9 @@
 
 Each family implements the ``ServingModel`` contract in ``base.py``. Ported:
 
-- bert — BERT-base text classification, bucketed seq lens, dense or flash
-  (kernel K1) attention.
+- bert — BERT-base text classification, bucketed seq lens, dense, flash
+  (kernel K1), ring (local step dense or kernel K2) or Ulysses (local step
+  dense or K1) attention.
 
 The JAX package's other families (resnet50, mobilenetv3, efficientdet, sd15,
 textgen, toy) are registered by name and raise "not yet ported", naming

@@ -78,6 +78,11 @@ class ServingModel(abc.ABC):
         """The network as an ``nn.Module`` whose state_dict matches
         ``init_params``; the runtime loads params into it."""
 
+    def bind_mesh(self, mesh) -> None:
+        """Hook for mesh-aware models (BERT's ring/Ulysses attention): the
+        runtime passes its serving mesh before it builds the module and
+        warms up. A no-op by default."""
+
     # -- shapes -------------------------------------------------------------
     @abc.abstractmethod
     def input_signature(self, bucket: tuple) -> tuple[TensorSpec, ...]:

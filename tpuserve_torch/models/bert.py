@@ -11,7 +11,14 @@ forward ends in softmax and top-k on the device.
 - ``"dense"``: ``masked_attention``, the reference's ``_masked_attention``
   (f32 softmax, P cast to the compute dtype before P.V);
 - ``"flash"``: ``tpuserve_torch.ops.flash_attention`` — kernel K1 on CUDA,
-  its plain version on the CPU (P stays f32, as in the reference's kernel).
+  its plain version on the CPU (P stays f32, as in the reference's kernel);
+- ``"ring"`` / ``"ulysses"``: sequence-parallel attention over the serving
+  mesh's ``seq`` axis (``tpuserve_torch.ops.ring_attention`` /
+  ``ulysses_attention``), whose local step ``local_impl="auto"`` picks by
+  memory: dense, or kernel K2 (ring) / K1 (Ulysses) once the dense score
+  tile passes 2 GiB. They need the mesh: the runtime calls ``bind_mesh``
+  before it builds the module; a forward without one raises. Only
+  ``parallelism = "single"`` (a 1-device mesh, sp = 1) is ported.
 
 ``from_jax_params`` converts the reference's flax parameter tree (numpy
 leaves) into this module's state_dict, which is how the tests hold the port
@@ -35,9 +42,12 @@ from torch import nn
 from tpuserve_torch.config import ModelConfig
 from tpuserve_torch.models.base import ServingModel, TensorSpec
 from tpuserve_torch.ops.flash_attention import flash_attention
+from tpuserve_torch.ops.ring_attention import ring_attention
+from tpuserve_torch.ops.ulysses import ulysses_attention
+from tpuserve_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh
 from tpuserve_torch.text import WordPieceTokenizer, synthetic_vocab
 
-ATTENTION_IMPLS = ("dense", "flash")
+ATTENTION_IMPLS = ("dense", "flash", "ring", "ulysses")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -60,10 +70,12 @@ class SelfAttention(nn.Module):
     """Multi-head self-attention with the reference's projections
     (flax ``MultiHeadDotProductAttention``: query/key/value/out)."""
 
-    def __init__(self, d_model: int, heads: int, attention: str) -> None:
+    def __init__(self, d_model: int, heads: int, attention: str,
+                 mesh: Mesh | None = None) -> None:
         super().__init__()
         self.heads = heads
         self.attention = attention
+        self.mesh = mesh  # required for "ring" / "ulysses"
         self.query = nn.Linear(d_model, d_model)
         self.key = nn.Linear(d_model, d_model)
         self.value = nn.Linear(d_model, d_model)
@@ -77,6 +89,14 @@ class SelfAttention(nn.Module):
         v = self.value(x).view(shape)
         if self.attention == "flash":
             a = flash_attention(q, k, v, key_bias)
+        elif self.attention in ("ring", "ulysses"):
+            if self.mesh is None:
+                raise ValueError(
+                    f"attention={self.attention!r} needs the serving mesh: the "
+                    "runtime calls bind_mesh(mesh); do the same before forward")
+            sp_attn = ring_attention if self.attention == "ring" else ulysses_attention
+            a = sp_attn(q, k, v, self.mesh, key_padding=key_bias,
+                        spec=(DATA_AXIS, SEQ_AXIS, MODEL_AXIS, None))
         else:
             a = masked_attention(q, k, v, key_bias)
         return self.out(a.reshape(b, s, d))
@@ -84,9 +104,10 @@ class SelfAttention(nn.Module):
 
 class BertBlock(nn.Module):
     def __init__(self, d_model: int, heads: int, d_ff: int,
-                 attention: str = "dense", ln_eps: float = 1e-12) -> None:
+                 attention: str = "dense", ln_eps: float = 1e-12,
+                 mesh: Mesh | None = None) -> None:
         super().__init__()
-        self.attn = SelfAttention(d_model, heads, attention)
+        self.attn = SelfAttention(d_model, heads, attention, mesh)
         self.ln_attn = nn.LayerNorm(d_model, eps=ln_eps)
         self.mlp_up = nn.Linear(d_model, d_ff)
         self.mlp_down = nn.Linear(d_ff, d_model)
@@ -102,13 +123,14 @@ class BertBlock(nn.Module):
 class BertClassifier(nn.Module):
     def __init__(self, vocab_size: int, layers: int, d_model: int, heads: int,
                  d_ff: int, max_seq: int, num_classes: int,
-                 attention: str = "dense", ln_eps: float = 1e-12) -> None:
+                 attention: str = "dense", ln_eps: float = 1e-12,
+                 mesh: Mesh | None = None) -> None:
         super().__init__()
         self.embed = nn.Embedding(vocab_size, d_model)
         self.pos_embed = nn.Parameter(torch.zeros(max_seq, d_model))
         self.ln_embed = nn.LayerNorm(d_model, eps=ln_eps)
         self.layers = nn.ModuleList(
-            BertBlock(d_model, heads, d_ff, attention, ln_eps)
+            BertBlock(d_model, heads, d_ff, attention, ln_eps, mesh)
             for _ in range(layers))
         self.pooler = nn.Linear(d_model, d_model)
         self.classifier = nn.Linear(d_model, num_classes)
@@ -176,12 +198,32 @@ class BertServing(ServingModel):
         super().__init__(cfg)
         opt = cfg.options
         attention = str(opt.get("attention", "dense"))
-        if attention in ("ring", "ulysses"):
-            raise not_ported(f"options.attention={attention!r}",
-                             "parallel attention and MoE")
         if attention not in ATTENTION_IMPLS:
             raise ValueError("options.attention must be 'dense', 'flash', "
                              f"'ring', or 'ulysses', got {attention!r}")
+        if attention in ("ring", "ulysses"):
+            if cfg.parallelism == "replica":
+                # One shared module can't close over N per-replica meshes;
+                # SP over a 1-device replica is pointless anyway.
+                raise ValueError(
+                    f"options.attention={attention!r} requires parallelism="
+                    "'sharded' or 'single' (replica mode has one mesh per "
+                    "device)")
+            bad = [s for s in cfg.seq_buckets if s % cfg.sp]
+            if bad:
+                raise ValueError(
+                    f"{attention} attention shards the seq dim over "
+                    f"sp={cfg.sp}; seq buckets {bad} are not divisible")
+        if attention == "ulysses":
+            # The all-to-all deals LOCAL heads (after any tp split) across
+            # the seq axis; mirror the op's check at build time.
+            heads = int(opt.get("heads", 12))
+            local = heads // cfg.tp if heads % cfg.tp == 0 else heads
+            if local % cfg.sp:
+                raise ValueError(
+                    f"ulysses attention deals heads over sp={cfg.sp}; "
+                    f"local heads {local} (heads={heads}, tp={cfg.tp}) "
+                    "are not divisible")
         if int(opt.get("moe_experts", 0)):
             raise not_ported("options.moe_experts", "parallel attention and MoE")
         if cfg.quantize is not None:
@@ -193,6 +235,7 @@ class BertServing(ServingModel):
         if cfg.weights:
             raise not_ported("weights=", "lifecycle and weights")
         self.attention = attention
+        self.mesh: Mesh | None = None
         self.max_seq = max(cfg.seq_buckets)
         vocab_file = opt.get("vocab_file")
         if vocab_file:
@@ -213,7 +256,13 @@ class BertServing(ServingModel):
             vocab_size=self.vocab_size, layers=self.layers,
             d_model=self.d_model, heads=self.heads, d_ff=self.d_ff,
             max_seq=self.max_seq, num_classes=self.cfg.num_classes,
-            attention=self.attention)
+            attention=self.attention, mesh=self.mesh)
+
+    def bind_mesh(self, mesh: Mesh) -> None:
+        """Ring/Ulysses attention closes over the serving mesh; modules
+        built after this call carry it (the runtime binds before it builds
+        the module and warms up)."""
+        self.mesh = mesh
 
     def init_params(self, seed: int = 0) -> dict[str, torch.Tensor]:
         """Seeded init with the reference's initializer families (it cannot

@@ -1,10 +1,20 @@
-// Kernel K1 of the port: fused (flash) attention forward for NVIDIA Hopper.
+// Kernels K1 and K2 of the port: fused (flash) attention forward for
+// NVIDIA Hopper, one source and one recurrence for both.
 //
-// Replaces: tpuserve/ops/flash_attention.py::_fa_kernel (the Pallas TPU
+// K1 replaces tpuserve/ops/flash_attention.py::_fa_kernel (the Pallas TPU
 // kernel, with its per-tile step _fa_step). It computes what that kernel
 // computes, softmax(q.k^T * D^-1/2 + bias) . v per (batch, head), as an
 // online softmax with a float32 running max m, normalizer l and
 // accumulator, and writes the normalized output in q's dtype.
+//
+// K2 replaces tpuserve/ops/flash_attention.py::_fa_kernel_stats, the local
+// step of ring attention: the same recurrence (the kernel template with
+// kStats = true), but it never divides. It stores the float32 accumulator
+// unnormalized into a contiguous (B, Sq, H, D) float32 tensor and the row
+// stats m and l into (B, Sq, H) float32 tensors, so a caller can merge this
+// key block with others. A fully masked row keeps the reference's answer
+// under a -1e9 bias (m ~ -1e9, l ~ Sk, acc = sum of v) and gives m = -1e30,
+// l = 0, acc = 0 under a -inf bias; the caller's merge weighs either away.
 //
 // Interface (the reference's layout): q is (B, Sq, H, D), k and v are
 // (B, Sk, H, D), each read through its own (batch, seq, head) strides with
@@ -22,10 +32,11 @@
 // stages a tile of K, V and the bias in shared memory as float32 (32 KB)
 // and each row scores it 8 keys per online-softmax update. Keys past Sk
 // are absent: a ragged tile is zero-filled and its scores are forced to
-// -1e30, so they add nothing to m, l or the accumulator. Fully masked rows
-// keep the reference's semantics: the -1e9 bias is added like any other
-// score and no tile is skipped, so a row whose keys are all padding gets the
-// same finite average of V as the reference, never 0/0.
+// -inf (the running max starts at -1e30), so they add nothing to m, l or
+// the accumulator, even in a row whose present keys all carry a -inf bias.
+// Fully masked rows keep the reference's semantics: the -1e9 bias is added
+// like any other score and no tile is skipped, so a row whose keys are all
+// padding gets the same finite average of V as the reference, never 0/0.
 //
 // What bounds it. At the BERT-base serving shapes (B up to 32, S 64 or 128,
 // H 12, D 64, bf16) the work is 4*B*H*Sq*Sk*D operations against
@@ -39,17 +50,24 @@
 // themselves run on the CUDA cores in float32 FMA, whose ~67 TFLOP/s is
 // what limits this first version in practice; moving them to the tensor
 // cores (mma.sync or wgmma, with TMA loads) is the next step.
+//
+// K2 on ring attention's long-context path (B 8, S 2048, H 12, D 64, bf16)
+// does 4*B*H*S^2*D = 103 GFLOP on 127.5 MB (q, k, v in bf16; acc, m, l in
+// float32): 809 operations per byte, so there the tensor cores' rate, not
+// the memory, sets the least time, and the float32 FMA loop sits further
+// from it than at BERT's short shapes.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 namespace {
 
 constexpr int kRowsPerBlock = 64;   // query rows per thread block
 constexpr int kKeysPerStep = 8;     // keys scored per online-softmax update
 constexpr int kDimsPerThread = 32;  // head-dim elements held by one thread
-constexpr float kNegInf = -1e30f;   // running-max seed and absent-key score
+constexpr float kNegInf = -1e30f;   // running-max seed (the reference's NEG_INF)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -68,11 +86,15 @@ struct Strides {  // in elements; the head dim is contiguous
   long long b, s, h;
 };
 
-template <typename T, int TPR>
+// kStats = false: K1, o is T (B, Sq, H, D), normalized; m_out and l_out
+// are unused. kStats = true: K2, o is float (B, Sq, H, D), unnormalized,
+// and m_out, l_out receive the row stats (B, Sq, H).
+template <typename T, int TPR, bool kStats>
 __global__ void __launch_bounds__(kRowsPerBlock * TPR)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ bias,
-                 T* __restrict__ o, int sq, int sk, int heads, int dim,
+                 void* __restrict__ o, float* __restrict__ m_out,
+                 float* __restrict__ l_out, int sq, int sk, int heads, int dim,
                  Strides qs, Strides ks, Strides vs, long long bias_sb,
                  float scale) {
   constexpr int kThreads = kRowsPerBlock * TPR;
@@ -138,7 +160,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int off = 1; off < TPR; off <<= 1) {
           dot += __shfl_xor_sync(0xffffffffu, dot, off);
         }
-        s[c] = j < n ? dot + bias_tile[j] : kNegInf;
+        s[c] = j < n ? dot + bias_tile[j] : -CUDART_INF_F;
         m_new = fmaxf(m_new, s[c]);
       }
       const float alpha = expf(m - m_new);
@@ -149,7 +171,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < kKeysPerStep; ++c) {
         const int j = j0 + c;
-        const float p = expf(s[c] - m);  // exactly 0 for an absent key
+        const float p = expf(s[c] - m);  // 0 for an absent key: m >= -1e30
         l += p;
 #pragma unroll
         for (int i = 0; i < kDimsPerThread; ++i) {
@@ -160,34 +182,84 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (!live) return;
-  T* orow = o + ((static_cast<long long>(b) * sq + qi) * heads + h) * dim;
+  const long long row_idx = (static_cast<long long>(b) * sq + qi) * heads + h;
+  if constexpr (kStats) {
+    float* orow = static_cast<float*>(o) + row_idx * dim;
 #pragma unroll
-  for (int i = 0; i < kDimsPerThread; ++i) {
-    const int d = i * TPR + part;
-    if (d < dim) orow[d] = from_f32<T>(acc[i] / l);
+    for (int i = 0; i < kDimsPerThread; ++i) {
+      const int d = i * TPR + part;
+      if (d < dim) orow[d] = acc[i];
+    }
+    if (part == 0) {  // one thread of the row's TPR group
+      m_out[row_idx] = m;
+      l_out[row_idx] = l;
+    }
+  } else {
+    T* orow = static_cast<T*>(o) + row_idx * dim;
+#pragma unroll
+    for (int i = 0; i < kDimsPerThread; ++i) {
+      const int d = i * TPR + part;
+      if (d < dim) orow[d] = from_f32<T>(acc[i] / l);
+    }
   }
 }
 
-template <typename T>
+template <typename T, bool kStats>
 void launch(const void* q, const void* k, const void* v, const float* bias,
-            void* o, int batch, int sq, int sk, int heads, int dim,
-            Strides qs, Strides ks, Strides vs, long long bias_sb, float scale,
-            cudaStream_t stream) {
+            void* o, float* m_out, float* l_out, int batch, int sq, int sk,
+            int heads, int dim, Strides qs, Strides ks, Strides vs,
+            long long bias_sb, float scale, cudaStream_t stream) {
   const dim3 grid((sq + kRowsPerBlock - 1) / kRowsPerBlock, heads, batch);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
-  T* ot = static_cast<T*>(o);
   if (dim <= 32) {
-    flash_fwd_kernel<T, 1><<<grid, kRowsPerBlock * 1, 0, stream>>>(
-        qt, kt, vt, bias, ot, sq, sk, heads, dim, qs, ks, vs, bias_sb, scale);
+    flash_fwd_kernel<T, 1, kStats><<<grid, kRowsPerBlock * 1, 0, stream>>>(
+        qt, kt, vt, bias, o, m_out, l_out, sq, sk, heads, dim, qs, ks, vs, bias_sb, scale);
   } else if (dim <= 64) {
-    flash_fwd_kernel<T, 2><<<grid, kRowsPerBlock * 2, 0, stream>>>(
-        qt, kt, vt, bias, ot, sq, sk, heads, dim, qs, ks, vs, bias_sb, scale);
+    flash_fwd_kernel<T, 2, kStats><<<grid, kRowsPerBlock * 2, 0, stream>>>(
+        qt, kt, vt, bias, o, m_out, l_out, sq, sk, heads, dim, qs, ks, vs, bias_sb, scale);
   } else {
-    flash_fwd_kernel<T, 4><<<grid, kRowsPerBlock * 4, 0, stream>>>(
-        qt, kt, vt, bias, ot, sq, sk, heads, dim, qs, ks, vs, bias_sb, scale);
+    flash_fwd_kernel<T, 4, kStats><<<grid, kRowsPerBlock * 4, 0, stream>>>(
+        qt, kt, vt, bias, o, m_out, l_out, sq, sk, heads, dim, qs, ks, vs, bias_sb, scale);
   }
+}
+
+template <bool kStats>
+int launch_checked(const void* q, const void* k, const void* v, const void* bias,
+                   void* o, float* m_out, float* l_out, int batch, int sq, int sk,
+                   int heads, int dim, long long q_sb, long long q_ss, long long q_sh,
+                   long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+                   long long v_ss, long long v_sh, long long bias_sb, float scale,
+                   int dtype, int device, void* stream) {
+  if (dim <= 0 || dim > 128 || dim % 8 != 0 || batch <= 0 || sq <= 0 ||
+      sk <= 0 || heads <= 0 || heads > 65535 || batch > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Strides qs{q_sb, q_ss, q_sh};
+  const Strides ks{k_sb, k_ss, k_sh};
+  const Strides vs{v_sb, v_ss, v_sh};
+  const float* b = static_cast<const float*>(bias);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      launch<float, kStats>(q, k, v, b, o, m_out, l_out, batch, sq, sk, heads, dim, qs, ks,
+                            vs, bias_sb, scale, s);
+      break;
+    case 1:
+      launch<__nv_bfloat16, kStats>(q, k, v, b, o, m_out, l_out, batch, sq, sk, heads, dim,
+                                    qs, ks, vs, bias_sb, scale, s);
+      break;
+    case 2:
+      launch<__half, kStats>(q, k, v, b, o, m_out, l_out, batch, sq, sk, heads, dim, qs, ks,
+                             vs, bias_sb, scale, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -202,30 +274,23 @@ extern "C" int tpuserve_flash_attention_fwd(
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     long long bias_sb, float scale, int dtype, int device, void* stream) {
-  if (dim <= 0 || dim > 128 || dim % 8 != 0 || batch <= 0 || sq <= 0 ||
-      sk <= 0 || heads <= 0 || heads > 65535 || batch > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Strides qs{q_sb, q_ss, q_sh};
-  const Strides ks{k_sb, k_ss, k_sh};
-  const Strides vs{v_sb, v_ss, v_sh};
-  const float* b = static_cast<const float*>(bias);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      launch<float>(q, k, v, b, o, batch, sq, sk, heads, dim, qs, ks, vs, bias_sb, scale, s);
-      break;
-    case 1:
-      launch<__nv_bfloat16>(q, k, v, b, o, batch, sq, sk, heads, dim, qs, ks, vs, bias_sb,
-                            scale, s);
-      break;
-    case 2:
-      launch<__half>(q, k, v, b, o, batch, sq, sk, heads, dim, qs, ks, vs, bias_sb, scale, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_checked<false>(q, k, v, bias, o, nullptr, nullptr, batch, sq, sk, heads, dim,
+                               q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, bias_sb,
+                               scale, dtype, device, stream);
+}
+
+// Launches K2 on `stream`, as tpuserve_flash_attention_fwd launches K1:
+// acc is a contiguous float32 (B, Sq, H, D) tensor, m and l contiguous
+// float32 (B, Sq, H) tensors.
+extern "C" int tpuserve_flash_attention_stats_fwd(
+    const void* q, const void* k, const void* v, const void* bias, void* acc,
+    void* m, void* l, int batch, int sq, int sk, int heads, int dim,
+    long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh,
+    long long bias_sb, float scale, int dtype, int device, void* stream) {
+  return launch_checked<true>(q, k, v, bias, acc, static_cast<float*>(m),
+                              static_cast<float*>(l), batch, sq, sk, heads, dim, q_sb, q_ss,
+                              q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, bias_sb, scale, dtype,
+                              device, stream);
 }

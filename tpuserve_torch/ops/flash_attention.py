@@ -3,27 +3,32 @@
 ``flash_attention(q, k, v, bias)`` computes ``softmax(q.k^T * D^-1/2 + bias).v``
 in the reference's (B, S, H, D) layout, with an optional additive per-key
 bias (B, Sk) — what BERT's padding mask lowers to (padded keys get -1e9).
+``flash_attention(..., return_stats=True)`` returns ``(acc, m, l)`` instead:
+the unnormalized f32 accumulator (B, Sq, H, D) and the online softmax's row
+max and normalizer (B, Sq, H) f32, which ring attention's local step merges
+across key blocks (the merge formula is in ``flash_attention``'s docstring).
 
 Dispatch is by the tensors' device, never by a fallback:
 
-- CUDA tensors launch kernel K1, ``csrc/flash_attention.cu`` (the hand-written
-  Hopper replacement of the Pallas ``_fa_kernel``). The library is built with
-  ``nvcc`` at the first launch (``tpuserve_torch.ops._build``). A shape,
-  dtype or layout the kernel does not take, a failed build or a refused
-  launch raises.
-- CPU tensors take ``flash_attention_reference``, the plain PyTorch version
-  of the same function (the twin of the reference's ``_dense_stats``): f32
-  scores, f32 softmax, f32 P.V, output cast to q's dtype.
+- CUDA tensors launch a hand-written Hopper kernel from
+  ``csrc/flash_attention.cu``: K1 (replacing the Pallas ``_fa_kernel``) for
+  the normalized output, K2 (replacing ``_fa_kernel_stats``) for the stats.
+  The library is built with ``nvcc`` at the first launch
+  (``tpuserve_torch.ops._build``). A shape, dtype or layout the kernels do
+  not take, a failed build or a refused launch raises.
+- CPU tensors take the plain PyTorch version of the same function (the twins
+  of the reference's ``_dense_stats``): ``flash_attention_reference`` — f32
+  scores, f32 softmax, f32 P.V, output cast to q's dtype — and
+  ``flash_attention_stats_reference``, which stops before the divide.
 
-``launches`` counts kernel launches (one per call on CUDA tensors, none on the
-CPU), so a run can show that its main path went through the kernel.
+``launches`` counts K1's launches and ``stats_launches`` K2's (one per call on
+CUDA tensors, none on the CPU), so a run can show that its main path went
+through the kernel.
 
-Gradients: a ``torch.autograd.Function`` whose backward recomputes through the
-plain version, as the reference's ``_flash_bwd`` does through ``_dense_stats``
-(training through flash pays the dense O(S^2) memory on backward only).
-
-Not ported yet: ``return_stats=True`` (kernel K2, ``_fa_kernel_stats``, the
-local step of ring attention; ROADMAP.md queue 2).
+Gradients: a ``torch.autograd.Function`` for each variant whose backward
+recomputes through its plain version, as the reference's ``_flash_bwd`` does
+through ``_dense_stats`` (training through flash pays the dense O(S^2)
+memory on backward only).
 """
 
 from __future__ import annotations
@@ -33,13 +38,25 @@ import threading
 
 import torch
 
-# Launches of kernel K1 since process start (or since a caller reset it to 0).
-# Batches dispatch from several pipeline threads, so the increment is locked.
+# Launches of kernels K1 and K2 since process start (or since a caller reset
+# them to 0). Batches dispatch from several pipeline threads, so the
+# increments are locked.
 launches = 0
+stats_launches = 0
 _launches_lock = threading.Lock()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_fn = None
+# The online softmax's running-max seed, as in the reference kernel: a row
+# whose keys all carry a -inf bias keeps m = NEG_INF and l = 0, not NaN.
+NEG_INF = -1e30
+_fns: dict = {}  # entry-point name -> ctypes function
+
+
+def reset_launches() -> None:
+    """Set both kernels' launch counts to 0."""
+    global launches, stats_launches
+    with _launches_lock:
+        launches = stats_launches = 0
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -57,19 +74,40 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (acc / l.transpose(1, 2)[..., None]).to(q.dtype)
 
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
+def flash_attention_stats_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                    bias: torch.Tensor | None = None
+                                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2 (the reference's ``_dense_stats(...,
+    return_stats=True)``): the unnormalized f32 accumulator (B, Sq, H, D)
+    and the row stats m, l (B, Sq, H) f32. m starts from NEG_INF as the
+    kernels' running max does, so an all -inf row gives m = NEG_INF, l = 0."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
+    if bias is not None:
+        s = s + bias[:, None, None, :].float()
+    m = s.amax(dim=-1).clamp_min(NEG_INF)                # (B, H, Sq)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return acc, m.transpose(1, 2), l.transpose(1, 2)
+
+
+def _kernel_fn(name: str):
+    """The library's entry point ``name`` with its C signature set; K1's
+    takes one output pointer, K2's three (acc, m, l)."""
+    fn = _fns.get(name)
+    if fn is None:
         from tpuserve_torch.ops import _build
 
-        fn = _build.load("flash_attention").tpuserve_flash_attention_fwd
+        n_out = 3 if name == "tpuserve_flash_attention_stats_fwd" else 1
+        fn = getattr(_build.load("flash_attention"), name)
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * (4 + n_out) + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 10
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -90,76 +128,124 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            bias: torch.Tensor) -> torch.Tensor:
-    """Run K1 on q's CUDA device and PyTorch's current stream."""
-    global launches
+            bias: torch.Tensor, stats: bool):
+    """Run K1 (``stats`` false) or K2 on q's CUDA device and PyTorch's
+    current stream."""
+    global launches, stats_launches
+    kernel = "K2" if stats else "K1"
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("K1 takes float32, bfloat16 or float16 q/k/v of one "
+        raise TypeError(f"{kernel} takes float32, bfloat16 or float16 q/k/v of one "
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if d % 8 or not 8 <= d <= 128:
-        raise ValueError(f"K1 takes a head dim that is a multiple of 8 up to 128, got {d}")
+        raise ValueError(f"{kernel} takes a head dim that is a multiple of 8 up to 128, "
+                         f"got {d}")
     if b > 65535 or h > 65535:
-        raise ValueError(f"K1's grid holds at most 65535 batches and heads, got B={b}, H={h}")
+        raise ValueError(f"{kernel}'s grid holds at most 65535 batches and heads, "
+                         f"got B={b}, H={h}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("K1 needs the head dim of q, k and v contiguous (stride 1)")
+        raise ValueError(f"{kernel} needs the head dim of q, k and v contiguous (stride 1)")
     bias = bias.to(torch.float32).contiguous()
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    if stats:
+        outs = (torch.empty((b, sq, h, d), dtype=torch.float32, device=q.device),
+                torch.empty((b, sq, h), dtype=torch.float32, device=q.device),
+                torch.empty((b, sq, h), dtype=torch.float32, device=q.device))
+        fn = _kernel_fn("tpuserve_flash_attention_stats_fwd")
+    else:
+        outs = (torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device),)
+        fn = _kernel_fn("tpuserve_flash_attention_fwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _kernel_fn()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        bias.data_ptr(), out.data_ptr(),
-        b, sq, sk, h, d,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        bias.stride(0),
-        d ** -0.5, _DTYPE_CODES[q.dtype], q.device.index, stream)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+             *(t.data_ptr() for t in outs),
+             b, sq, sk, h, d,
+             q.stride(0), q.stride(1), q.stride(2),
+             k.stride(0), k.stride(1), k.stride(2),
+             v.stride(0), v.stride(1), v.stride(2),
+             bias.stride(0),
+             d ** -0.5, _DTYPE_CODES[q.dtype], q.device.index, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError_t {err} "
+        raise RuntimeError(f"flash_attention {kernel} launch failed: cudaError_t {err} "
                            f"(q {tuple(q.shape)} {q.dtype}, Sk {sk})")
     with _launches_lock:
-        launches += 1
-    return out
+        if stats:
+            stats_launches += 1
+        else:
+            launches += 1
+    return outs if stats else outs[0]
 
 
-def _forward(q, k, v, bias):
+def _forward(q, k, v, bias, stats: bool):
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, bias)
+        reference = flash_attention_stats_reference if stats else flash_attention_reference
+        return reference(q, k, v, bias)
     if q.device.type == "cuda":
-        return _launch(q, k, v, bias)
+        return _launch(q, k, v, bias, stats)
     raise ValueError(f"flash_attention runs on CUDA (kernel) or CPU (plain version), "
                      f"not on {q.device}")
 
 
+def _recompute_grads(ctx, reference, grad_outs):  # noqa: ANN001
+    """The dense-recompute backward: differentiate the plain version."""
+    q, k, v, bias = ctx.saved_tensors
+    inputs = [t.detach().requires_grad_(need)
+              for t, need in zip((q, k, v, bias), ctx.needs_input_grad)]
+    with torch.enable_grad():
+        outs = reference(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    wanted = [t for t, need in zip(inputs, ctx.needs_input_grad) if need]
+    grads = iter(torch.autograd.grad(outs, wanted, grad_outs))
+    return tuple(next(grads) if need else None for need in ctx.needs_input_grad)
+
+
 class _FlashAttention(torch.autograd.Function):
-    """Kernel forward, dense-recompute backward (the reference's VJP)."""
+    """K1 forward, dense-recompute backward (the reference's VJP)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias):  # noqa: ANN001, ANN205
         ctx.save_for_backward(q, k, v, bias)
-        return _forward(q, k, v, bias)
+        return _forward(q, k, v, bias, stats=False)
 
     @staticmethod
     def backward(ctx, grad_out):  # noqa: ANN001, ANN205
-        q, k, v, bias = ctx.saved_tensors
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip((q, k, v, bias), ctx.needs_input_grad)]
-        with torch.enable_grad():
-            out = flash_attention_reference(*inputs)
-        wanted = [t for t, need in zip(inputs, ctx.needs_input_grad) if need]
-        grads = iter(torch.autograd.grad(out, wanted, grad_out))
-        return tuple(next(grads) if need else None for need in ctx.needs_input_grad)
+        return _recompute_grads(ctx, flash_attention_reference, (grad_out,))
+
+
+class _FlashAttentionStats(torch.autograd.Function):
+    """K2 forward, dense-recompute backward through the stats' plain version
+    (the reference's VJP with ``return_stats=True``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):  # noqa: ANN001, ANN205
+        ctx.save_for_backward(q, k, v, bias)
+        return _forward(q, k, v, bias, stats=True)
+
+    @staticmethod
+    def backward(ctx, grad_acc, grad_m, grad_l):  # noqa: ANN001, ANN205
+        return _recompute_grads(ctx, flash_attention_stats_reference,
+                                (grad_acc, grad_m, grad_l))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    bias: torch.Tensor | None = None) -> torch.Tensor:
+                    bias: torch.Tensor | None = None, *, return_stats: bool = False):
     """Blockwise fused attention, (B, S, H, D) in and out, output in q's
     dtype. ``bias``: optional additive per-key scores (B, Sk), e.g. a padding
-    mask's (1 - mask) * -1e9. Differentiable in q, k, v and bias."""
+    mask's (1 - mask) * -1e9. Differentiable in q, k, v and bias.
+
+    ``return_stats=True`` returns ``(acc, m, l)``: the unnormalized f32
+    accumulator (B, Sq, H, D) and the online softmax's row stats (B, Sq, H)
+    f32, never divided, so a caller can merge this key block with others
+    without NaN on fully masked blocks and without rounding partial results
+    to the input dtype. The merge is::
+
+        m12 = max(m1, m2); a1 = exp(m1-m12); a2 = exp(m2-m12)
+        l12 = l1*a1 + l2*a2
+        o12 = (acc1*a1 + acc2*a2) / l12
+    """
     _check(q, k, v, bias)
     if bias is None:
         bias = torch.zeros((q.shape[0], k.shape[1]), dtype=torch.float32,
                            device=q.device)
+    if return_stats:
+        return _FlashAttentionStats.apply(q, k, v, bias)
     return _FlashAttention.apply(q, k, v, bias)

@@ -31,6 +31,7 @@ import torch
 from tpuserve_torch.config import ModelConfig
 from tpuserve_torch.models.base import ServingModel
 from tpuserve_torch.obs import Metrics
+from tpuserve_torch.parallel.mesh import MeshPlan, make_mesh
 
 log = logging.getLogger("tpuserve_torch.runtime")
 
@@ -121,6 +122,11 @@ class ModelRuntime:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, "
                              f"got {self.cfg.dtype!r}")
         self.dtype = _DTYPES[self.cfg.dtype]
+        # Single mode serves on a 1-device mesh (every axis of size 1).
+        # Mesh-aware models (BERT's ring/Ulysses attention) close over it;
+        # this precedes building the module and warming up.
+        self.mesh = make_mesh(MeshPlan(), devices=[self.device])
+        model.bind_mesh(self.mesh)
         self.module: torch.nn.Module | None = None
         self.variants: dict[VariantKey, Variant] = {}
         self.version = 1

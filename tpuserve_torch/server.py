@@ -259,10 +259,11 @@ class ServerState:
         return json_response({n: rt.describe() for n, rt in self.runtimes.items()})
 
     def kernel_counts(self) -> dict:
-        return {"flash_attention": {"launches": fa.launches}}
+        return {"flash_attention": {"launches": fa.launches},
+                "flash_attention_stats": {"launches": fa.stats_launches}}
 
     def reset_kernel_counts(self) -> Response:
-        fa.launches = 0
+        fa.reset_launches()
         return json_response({"kernels": self.kernel_counts()})
 
     def stats(self) -> Response:
