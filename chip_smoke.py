@@ -10,29 +10,36 @@ Phases (any failure exits non-zero before the result line):
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
    them.
 2. Build: compile every kernel of the path from the checkout's sources
-   (``tpuserve_torch/ops/csrc``) with nvcc; the build time on its own line.
+   (``tpuserve_torch/ops/csrc``) with nvcc; the build time on its own line,
+   then ptxas' registers and spills and the dynamic shared memory of each
+   instantiation. The bf16 and fp16 tensor-core instantiations at D = 64
+   must not spill.
 3. Kernels: hold K1 (flash attention) against its plain PyTorch version on
-   the card — BERT shapes (B 1 and 32, S 64 and 128, H 12, D 64) in float32
-   and bfloat16 with padded keys, ragged shapes (Sq = Sk = 77, Sq != Sk,
-   S = 192), other head dims, strided q/k/v views of one fused projection,
-   a fully masked row and one gradient. TF32 is
-   off for the plain version. Tolerances: float32 atol 2e-5; bfloat16
-   atol = rtol = 1.6e-2 against the plain version computed in float32 from
-   the same bf16 inputs. Then time the kernel, the plain version and
+   the card — BERT shapes (B 1 and 32, S 64 and 128, H 12, D 64) in float32,
+   bfloat16 and float16 with padded keys, ragged shapes (Sq = Sk = 77,
+   Sq != Sk, S = 192), other head dims, strided q/k/v views of one fused
+   projection, a fully masked row and one gradient. TF32 is off for the
+   plain version. Tolerances: float32 atol 2e-5 (the CUDA-core kernel, full
+   float32); bfloat16/float16 atol = rtol = 1.6e-2 against the plain version
+   computed in float32 from the same inputs (the tensor-core kernel rounds P
+   to the input dtype before P.V, as the reference does on the TPU's MXU).
+   Then time the kernel, the plain version and
    ``F.scaled_dot_product_attention`` (a yardstick the port never calls) at
-   the main path's largest shape, beside the least time the card could take.
+   (32, 64) and (32, 128), beside the least time the card could take.
 4. K2 (flash attention's stats variant, ring attention's local step): hold
    it against its plain PyTorch version on the card — BERT shapes in
-   float32 and bfloat16 with padded keys and a fully masked row, ragged
-   Sq/Sk, strided q/k/v views, one gradient, and (8, 2048, 12, 64) bf16.
-   K2's outputs are float32 whatever its inputs, so the tolerances are
-   float32-level against the plain version computed in float32 from the same
-   inputs: acc/l atol 2e-5 + rtol 1e-5, m atol 2e-5 + rtol 1e-6, l atol 2e-5
-   + rtol 5e-5 (sums of up to 2048 exponentials in another order). Then
-   time K2, its plain version and its bound at (8, 2048, 12, 64) bf16; no
-   one PyTorch call returns (acc, m, l), so ``library_ms`` is null and SDPA's
-   time on the same inputs stands on the ``slice`` line as "normalized
-   output only". K1 is timed at the same shape (Ulysses launches it there).
+   float32, bfloat16 and float16 with padded keys and a fully masked row,
+   ragged Sq/Sk and head dims 40, 80, 128, strided q/k/v views, one
+   gradient, and (8, 2048, 12, 64) bf16. K2's outputs are float32 whatever
+   its inputs; against the plain version computed in float32 from the same
+   inputs: acc/l atol 2e-5 + rtol 1e-5 for float32 inputs and atol = rtol =
+   1.6e-2 for 16-bit ones (P rounded, as for K1), m atol 2e-5 + rtol 1e-6,
+   l atol 2e-5 + rtol 5e-5 (sums of up to 2048 exponentials in another
+   order). Then time K2, its plain version, its bound and its library
+   yardstick at (8, 2048, 12, 64) bf16: ``_scaled_dot_product_efficient_attention``
+   with ``compute_log_sumexp`` returns (acc/l, m + log l), which is held
+   once against K2's. SDPA (normalized output only) and K1 are timed at the
+   same shape too (Ulysses launches K1 there).
 5. Sequence parallel on one card: ``ring_attention`` (flash and dense local
    steps) and ``ulysses_attention`` over a 4-rank mesh whose ranks share the
    card, at (2, 1024, 12, 64) bf16 with rank 2's key block fully masked and
@@ -96,8 +103,12 @@ TEXTS_8 = [f"request number {i} asks the server to classify this text" for i in 
 TEXT_128 = "the model " * 45          # 90 word pieces: the 128-token bucket
 TEXTS_32 = [f"batch item {i}: " + " ".join(["serve", "fast", "text", "model"][: 1 + i % 4])
             for i in range(32)]
-# K2's tolerances (atol, rtol) against its plain version in float32.
+# K2's tolerances (atol, rtol) against its plain version in float32. For
+# 16-bit inputs the tensor-core kernel rounds P to the input dtype before
+# P.V (as the reference's f32 dot_general does on the TPU: one bf16 MXU
+# pass), so acc/l is held at K1's bf16 tolerance; m and l stay f32-level.
 K2_TOL = {"acc_over_l": (2e-5, 1e-5), "m": (2e-5, 1e-6), "l": (2e-5, 5e-5)}
+K2_TOL_16 = dict(K2_TOL, acc_over_l=(BF16_TOL, BF16_TOL))
 # Words of the synthetic vocabulary that are one word piece each.
 WORDS = ("the of and to in is was for on as with by at from it an be this that are "
          "or time year day man world life hand part child eye woman place work week "
@@ -134,32 +145,55 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def build_kernels() -> None:
+def build_kernels() -> dict:
+    """Build the kernels' library from the checkout's sources and print
+    ptxas' report of each instantiation; returns the build time and the
+    tensor-core instantiations' spill bytes."""
     from tpuserve_torch.ops import _build
+    from tpuserve_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
     _build.load("flash_attention")
+    build_s = time.perf_counter() - t0
     so = _build.library_path("flash_attention")
-    print(f"build: flash_attention {time.perf_counter() - t0:.1f} s -> "
-          f"{so.relative_to(ROOT)}", flush=True)
+    print(f"build: flash_attention {build_s:.1f} s -> {so.relative_to(ROOT)}", flush=True)
     log = so.with_name(so.name + ".log")
+    spills = {}
     if log.exists():
-        # One line per kernel instantiation: K1/K2, input dtype, threads per
-        # row (TPR), then ptxas' spill and register report for it.
-        dtypes = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
+        # One line per kernel instantiation: K1/K2, input dtype, then for the
+        # tensor-core kernel the padded head dim DP and its dynamic shared
+        # memory, for the CUDA-core kernel the threads per row (TPR); then
+        # ptxas' spill and register report for it.
+        import torch
+
+        dtypes = {"f": ("f32", torch.float32), "13__nv_bfloat16": ("bf16", torch.bfloat16),
+                  "6__half": ("f16", torch.float16)}
         name, report = None, []
         for line in log.read_text().splitlines():
-            m = re.search(r"Compiling entry function '\w*flash_fwd_kernelI(\w+?)Li(\d)ELb(\d)E",
-                          line)
-            if m:
-                name = (f"{'K2' if m.group(3) == '1' else 'K1'} "
-                        f"{dtypes.get(m.group(1), m.group(1))} TPR={m.group(2)}")
+            tc = re.search(r"Compiling entry function '\w*flash_fwd_wgmmaI(\w+?)Li(\d+)ELb(\d)E",
+                           line)
+            f32 = re.search(r"Compiling entry function '\w*flash_fwd_kernelI(\w+?)Li(\d)ELb(\d)E",
+                            line)
+            if tc:
+                label, dtype = dtypes.get(tc.group(1), (tc.group(1), None))
+                dp, stats = int(tc.group(2)), tc.group(3) == "1"
+                smem = fa.dynamic_smem_bytes(dtype, dp) if dtype else "?"
+                name = f"{'K2' if stats else 'K1'} {label} DP={dp} dynamic smem {smem} B"
+            elif f32:
+                name = (f"{'K2' if f32.group(3) == '1' else 'K1'} "
+                        f"{dtypes.get(f32.group(1), (f32.group(1),))[0]} TPR={f32.group(2)}")
             elif name and ("spill" in line or "registers" in line):
                 report.append(line.split(":", 1)[-1].strip() if "registers" in line
                               else line.strip())
+                if "spill" in line and "DP=" in name:
+                    spills[name] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
                 if "registers" in line:
                     print(f"  ptxas: {name}: {'; '.join(report)}")
                     name, report = None, []
+    # The bf16 and fp16 D = 64 instantiations must not spill.
+    bad = {n: b for n, b in spills.items() if "DP=64" in n and b}
+    check(not bad, f"tensor-core instantiations spill: {bad}")
+    return {"build_s": build_s, "tensor_core_spill_bytes": spills}
 
 
 # -- phase 3 --------------------------------------------------------------------
@@ -206,7 +240,7 @@ def kernel_phase() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     n = 0
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for b in (1, 32):
             for s in (64, 128):
                 compare(*qkv(b, s, s, 12, 64, dtype, seed=n))
@@ -246,7 +280,8 @@ def k1_timing(b: int, s: int, h: int = 12, d: int = 64) -> dict:
     max_err = compare(q, k, v, bias)
     mask4 = bias.to(torch.bfloat16)[:, None, None, :]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    ms = time_ms(lambda: fa.flash_attention(q, k, v, bias))
+    timed = time_calls(lambda: fa.flash_attention(q, k, v, bias))
+    ms = timed["device_ms"]
     plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v, bias))
     library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask4))
@@ -263,22 +298,45 @@ def k1_timing(b: int, s: int, h: int = 12, d: int = 64) -> dict:
     # What bound_ms is computed from (kept off the kernels line).
     inputs = {"shape": [b, s, h, d], "dtype": "bfloat16", "bytes": nbytes,
               "operations": flops}
-    return {"line": line, "bound_inputs": inputs}
+    return {"line": line, "bound_inputs": inputs, "host_enqueue_ms": timed["host_ms"]}
 
 
 def time_ms(fn, iters: int = 50) -> float:
+    """``fn``'s device time per call, in ms."""
+    return time_calls(fn, iters)["device_ms"]
+
+
+def time_calls(fn, iters: int = 50) -> dict:
+    """``fn``'s device time per call: CUDA events around ``iters`` calls
+    that the host enqueues while the card is held busy
+    (``torch.cuda._sleep``), so the calls run back to back on the card and
+    the host's time to enqueue them stays out of the window. The hold
+    doubles until the last call was enqueued before the window opened.
+    Also the host's enqueue time per call (Python, wrapper, launch)."""
     import torch
 
     for _ in range(5):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    hold_ms = max(2.0, 2e3 * iters * (time.perf_counter() - t0))
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    for _ in range(5):
+        torch.cuda._sleep(int(hold_ms * 2e6))    # cycles; >= 1 ms per 2e6 at <= 2 GHz
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3 / iters
+        held = not start.query()
+        end.record()
+        torch.cuda.synchronize()
+        if held:
+            return {"device_ms": start.elapsed_time(end) / iters, "host_ms": host_ms}
+        hold_ms *= 2
+    raise SmokeFailure("the card ran dry while the host enqueued the timed calls")
 
 
 # -- phase 4: K2 ------------------------------------------------------------------
@@ -301,8 +359,9 @@ def compare_stats(q, k, v, bias) -> dict:
     pairs = {"acc_over_l": (got[0] / got[2][..., None], want[0] / want[2][..., None]),
              "m": (got[1], want[1]), "l": (got[2], want[2])}
     errs = {"acc": (got[0] - want[0]).abs().max().item()}
+    tols = K2_TOL if q.dtype == torch.float32 else K2_TOL_16
     for name, (a, w) in pairs.items():
-        atol, rtol = K2_TOL[name]
+        atol, rtol = tols[name]
         err = (a - w).abs()
         errs[name] = err.max().item()
         check(not bool((err > atol + rtol * w.abs()).any()),
@@ -317,12 +376,13 @@ def stats_kernel_phase() -> dict:
     from tpuserve_torch.ops import flash_attention as fa
 
     n = 0
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for b, s_ in ((4, 128), (8, 512)):          # BERT shapes, a padded lane
             compare_stats(*qkv(b, s_, s_, 12, 64, dtype, seed=100 + n, masked_row=True))
             n += 1
-        for sq, sk in ((77, 77), (64, 100), (100, 64), (256, 333)):   # ragged
-            compare_stats(*qkv(2, sq, sk, 12, 64, dtype, seed=100 + n))
+        for sq, sk, d in ((77, 77, 64), (64, 100, 64), (100, 64, 64), (256, 333, 64),
+                          (200, 100, 40), (77, 333, 80), (192, 192, 128)):   # ragged
+            compare_stats(*qkv(2, sq, sk, 12, d, dtype, seed=100 + n))
             n += 1
         fused = torch.randn(2, 128, 3, 12, 64, device="cuda").to(dtype)
         compare_stats(*fused.unbind(dim=2), qkv(2, 128, 128, 12, 64, dtype)[3])
@@ -339,26 +399,54 @@ def stats_kernel_phase() -> dict:
     for a, b_ in zip(*grads):
         check(torch.allclose(a, b_, atol=1e-4), "K2 gradient disagrees")
     print(f"kernels: K2 agrees with its plain version at {n} shapes and one gradient "
-          f"(tolerances {K2_TOL})", flush=True)
+          f"(tolerances f32 {K2_TOL}, bf16/f16 {K2_TOL_16})", flush=True)
     return k2_timing(8, 2048)
+
+
+def efficient_attention_lse(qt, kt, vt, bias4):
+    """The library yardstick of K2 (never called by the port): PyTorch's
+    memory-efficient attention with its log-sum-exp, ``(out, lse)`` with
+    out = acc / l and lse = m + log l, in (B, H, S, D) / (B, H, Sq)."""
+    import torch
+
+    out, lse = torch.ops.aten._scaled_dot_product_efficient_attention(
+        qt, kt, vt, bias4, True)[:2]
+    return out, lse
 
 
 def k2_timing(b: int, s: int, h: int = 12, d: int = 64) -> dict:
     """K2 and its plain version at one bf16 shape with padded keys and a
-    padded lane, beside the least time the card could take; no one PyTorch
-    call returns (acc, m, l), so SDPA's time (normalized output only) goes
-    on the slice line, not into ``library_ms``. K1 at the same shape too."""
+    padded lane, beside the least time the card could take and the library
+    call that returns the same information, ``efficient_attention_lse``
+    (its (out, lse) held once against K2's (acc/l, m + log l) on the lanes
+    that have a key). SDPA (normalized output only) and K1 at the same shape
+    too."""
     import torch
 
     from tpuserve_torch.ops import flash_attention as fa
 
     q, k, v, bias = qkv(b, s, s, h, d, torch.bfloat16, seed=17, masked_row=True)
     errs = compare_stats(q, k, v, bias)
-    ms = time_ms(lambda: fa.flash_attention(q, k, v, bias, return_stats=True), iters=20)
+    timed = time_calls(lambda: fa.flash_attention(q, k, v, bias, return_stats=True), iters=20)
+    ms = timed["device_ms"]
     plain_ms = time_ms(lambda: fa.flash_attention_stats_reference(q, k, v, bias), iters=10)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    bias4 = bias.to(torch.bfloat16)[:, None, None, :].expand(b, h, s, s)
     sdpa_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=bias.to(torch.bfloat16)[:, None, None, :]), iters=20)
+    library_ms = time_ms(lambda: efficient_attention_lse(qt, kt, vt, bias4), iters=20)
+    # The yardstick computes K2's function: check it once, lanes 0..b-2
+    # (the last lane is all padding, where the bf16-rounded -1e9 differs).
+    acc, m, l = fa.flash_attention(q, k, v, bias, return_stats=True)
+    out, lse = efficient_attention_lse(qt, kt, vt, bias4)
+    torch.cuda.synchronize()
+    live = slice(0, b - 1)
+    lib_out_err = (out.transpose(1, 2)[live].float() - acc[live] / l[live][..., None]).abs()
+    lib_lse_err = (lse[..., :s].transpose(1, 2)[live] - (m + torch.log(l))[live]).abs()
+    check(float(lib_out_err.max()) <= BF16_TOL + BF16_TOL * float(out.abs().max())
+          and float(lib_lse_err.max()) <= BF16_TOL,
+          f"the efficient-attention yardstick disagrees with K2: out {lib_out_err.max():.3g}, "
+          f"lse {lib_lse_err.max():.3g}")
     # q, k, v in bf16 and the f32 bias read once; acc, m, l in f32 written once.
     nbytes = 3 * b * s * h * d * q.element_size() + b * s * 4 + b * s * h * d * 4 + 2 * b * s * h * 4
     flops = 4 * b * h * s * s * d                                # q.k^T and p.v
@@ -367,13 +455,20 @@ def k2_timing(b: int, s: int, h: int = 12, d: int = 64) -> dict:
             "source": "tpuserve_torch/ops/csrc/flash_attention.cu",
             "replaces": "tpuserve/ops/flash_attention.py:106",
             "max_abs_err": max(errs["acc"], errs["m"], errs["l"]), "ms": ms,
-            "plain_ms": plain_ms, "library_ms": None,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "aten._scaled_dot_product_efficient_attention(compute_log_sumexp=True)",
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     k1 = k1_timing(b, s, h, d)
-    print(f"kernels: K2 at {(b, s, h, d)} bf16 {ms:.3f} ms (plain {plain_ms:.3f}, bound "
-          f"{line['bound_ms']:.4f} {line['bound_by']}); K1 {k1['line']['ms']:.3f} ms", flush=True)
+    print(f"kernels: K2 at {(b, s, h, d)} bf16 {ms:.3f} ms (plain {plain_ms:.3f}, library "
+          f"{library_ms:.3f}, bound {line['bound_ms']:.4f} {line['bound_by']}); K1 "
+          f"{k1['line']['ms']:.3f} ms (SDPA {k1['line']['library_ms']:.3f}); the library's "
+          f"(out, lse) vs K2: max abs err {lib_out_err.max():.3g}, {lib_lse_err.max():.3g}",
+          flush=True)
     return {"line": line, "errors": errs, "sdpa_normalized_output_only_ms": sdpa_ms,
+            "host_enqueue_ms": timed["host_ms"],
+            "library_vs_k2_max_abs_err": {"out": float(lib_out_err.max()),
+                                          "lse": float(lib_lse_err.max())},
             "bound_inputs": {"shape": [b, s, h, d], "dtype": "bfloat16", "bytes": nbytes,
                              "operations": flops},
             "k1_same_shape": k1}
@@ -854,7 +949,7 @@ def main() -> int:
         card = card_line()
         print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
               f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-        build_kernels()
+        build = build_kernels()
         k1 = kernel_phase()
         k2 = stats_kernel_phase()
         sp_errs = sequence_parallel_phase()
@@ -868,15 +963,20 @@ def main() -> int:
     share = {s_: 12 * k1_ms[s_] / run["forward_ms"][s_]["stream_ms"] for s_ in (64, 128)}
     print(json.dumps({"slice": {"path": "bert_flash", "forward_ms_b32": run["forward_ms"],
                                 "k1_ms_b32": k1_ms, "k1_share_of_forward_b32": share,
-                                "k1_bound_inputs": k1[128]["bound_inputs"]}}))
+                                "k1_b32_s64": k1[64]["line"],
+                                "k1_host_enqueue_ms_b32": {s_: k1[s_]["host_enqueue_ms"]
+                                                           for s_ in (64, 128)},
+                                "k1_bound_inputs": k1[128]["bound_inputs"], "build": build}}))
     # Where the (8, 2048) batch's device time goes: 12 K2 launches of one forward.
     k2_share = 12 * k2["line"]["ms"] / long["forward_ms_b8_s2048"]["stream_ms"]
     print(json.dumps({"slice": {
         "path": "bert_long_ring", "config": str(LONG_CONFIG.relative_to(ROOT)),
         "launches_k1_k2": long["counts"], "forward_ms_b8_s2048": long["forward_ms_b8_s2048"],
         "k2_ms_b8_s2048": k2["line"]["ms"], "k2_share_of_forward_b8_s2048": k2_share,
+        "k2_host_enqueue_ms": k2["host_enqueue_ms"],
         "k2_errors": k2["errors"], "k2_bound_inputs": k2["bound_inputs"],
         "sdpa_normalized_output_only_ms_b8_s2048": k2["sdpa_normalized_output_only_ms"],
+        "library_vs_k2_max_abs_err": k2["library_vs_k2_max_abs_err"],
         "k1_b8_s2048": k2["k1_same_shape"]["line"],
         "sequence_parallel_4rank_max_abs_err": sp_errs,
         "ring_vs_dense_max_abs_logit_diff": long["ring_vs_dense_max_abs_logit_diff"],

@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from tpuserve.ops.flash_attention import _flash, flash_attention as jax_flash
+from tpuserve.ops.flash_attention import _dense_stats, _flash, flash_attention as jax_flash
 from tpuserve_torch.ops import flash_attention as fa
 
 
@@ -258,3 +258,93 @@ def test_stats_on_cpu_take_plain_version_and_count_no_launch():
     assert (fa.launches, fa.stats_launches) == before
     for a, b in zip(got, fa.flash_attention_stats_reference(q, k, v, bias)):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+# -- the tensor-core kernels' one rounding ----------------------------------------
+
+# The card's shapes (tests/test_torch_kernels_cuda.py and chip_smoke.py):
+# (B, Sq, Sk, H, D), with Sq and Sk off the 64-row and 128-key tiles.
+CARD_SHAPES = [
+    (2, 64, 64, 12, 64), (2, 128, 128, 12, 64), (1, 77, 77, 3, 64),
+    (2, 64, 100, 4, 40), (2, 192, 192, 2, 128), (2, 200, 333, 3, 64),
+    (1, 77, 100, 2, 80), (2, 100, 64, 4, 64), (2, 512, 512, 12, 64),
+]
+
+
+def emulate_tensor_core_stats(q, k, v, bias):
+    """The plain stats version with the tensor-core kernels' one rounding:
+    scores and m in f32, P cast to bf16 before P.V, l summed from the f32 P
+    (before any rounding), accumulation in f32."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
+    s = s + bias[:, None, None, :]
+    m = s.amax(dim=-1).clamp_min(fa.NEG_INF)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(torch.bfloat16).float(), v.float())
+    return acc, m.transpose(1, 2), l.transpose(1, 2)
+
+
+@pytest.mark.parametrize("b, sq, sk, h, d", CARD_SHAPES)
+def test_p_rounding_stays_within_bf16_tolerance(b, sq, sk, h, d):
+    """Rounding P to bf16 before P.V, as the tensor-core K1/K2 do (and as
+    the reference's f32 dot_general does on the TPU's MXU), moves acc/l by
+    at most max|v| * 2^-8 (each p moves by at most bf16's unit roundoff
+    2^-8 of itself, and l is summed from the unrounded p), and stays within
+    the bf16 tolerance 1.6e-2 of the plain f32 version and of the JAX
+    package's _dense_stats; m and l are untouched."""
+    rng = np.random.default_rng(b * 1000 + sq + sk + d)
+    bf = lambda x: torch.from_numpy(x).to(torch.bfloat16)  # noqa: E731
+    q = bf(rng.normal(size=(b, sq, h, d)).astype(np.float32))
+    k = bf(rng.normal(size=(b, sk, h, d)).astype(np.float32))
+    v = bf(rng.normal(size=(b, sk, h, d)).astype(np.float32))
+    bias = torch.zeros(b, sk)
+    bias[0, sk // 2:] = -1e9
+    acc, m, l = emulate_tensor_core_stats(q, k, v, bias)
+    racc, rm, rl = fa.flash_attention_stats_reference(q.float(), k.float(), v.float(), bias)
+    torch.testing.assert_close(m, rm, atol=0, rtol=0)
+    torch.testing.assert_close(l, rl, atol=0, rtol=0)
+    out, ref = acc / l[..., None], racc / rl[..., None]
+    bound = float(v.float().abs().max()) * 2.0 ** -8
+    assert float((out - ref).abs().max()) <= bound + 1e-6
+    torch.testing.assert_close(out, ref, atol=1.6e-2, rtol=1.6e-2)
+    jacc, jm, jl = (np.asarray(x) for x in _dense_stats(
+        *(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v)),
+        jnp.asarray(bias.numpy()), True))
+    np.testing.assert_allclose(out.numpy(), jacc / jl[..., None], atol=1.6e-2, rtol=1.6e-2)
+    np.testing.assert_allclose(l.numpy(), jl, rtol=1e-5, atol=1e-5)
+
+
+def _strided(dtype, shape, offset=0, head_pad=0):
+    b, s, h, d = shape
+    base = torch.zeros(b * s * h * (d + head_pad) + offset, dtype=dtype)
+    return base[offset:].view(b, s, h, d + head_pad)[..., :d]
+
+
+@pytest.mark.parametrize("case, want", [
+    ("bf16 contiguous", None),
+    ("bf16 fused projection", None),
+    ("f32 odd head stride", None),
+    ("bf16 odd head stride", "stride 68 (dim 2) is 136 bytes"),
+    ("bf16 unaligned base", "base address is not 16-byte aligned"),
+    ("bf16 single head, odd stride", None),
+])
+def test_tma_layout_problem(case, want):
+    """The tensor-core kernels' TMA needs 16-byte aligned bases and strides
+    (extent-1 dims excepted); float32 takes the CUDA-core kernel, which
+    reads any strides. The wrapper raises this message on a CUDA tensor."""
+    x = {
+        "bf16 contiguous": lambda: torch.zeros(2, 77, 4, 64, dtype=torch.bfloat16),
+        "bf16 fused projection": lambda: torch.zeros(
+            2, 77, 3, 4, 40, dtype=torch.bfloat16).unbind(dim=2)[1],
+        "f32 odd head stride": lambda: _strided(torch.float32, (2, 8, 4, 64), head_pad=3),
+        "bf16 odd head stride": lambda: _strided(torch.bfloat16, (2, 8, 4, 64), head_pad=4),
+        "bf16 unaligned base": lambda: _strided(torch.bfloat16, (2, 8, 4, 64), offset=3),
+        "bf16 single head, odd stride": lambda: torch.zeros(
+            2 * 8 * 64, dtype=torch.bfloat16).as_strided((2, 8, 1, 64), (512, 64, 3, 1)),
+    }[case]()
+    got = fa.tma_layout_problem(x, x, x)
+    if want is None:
+        assert got is None
+    else:
+        assert want in got and got.startswith("q's")

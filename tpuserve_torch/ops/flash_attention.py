@@ -13,7 +13,10 @@ Dispatch is by the tensors' device, never by a fallback:
 - CUDA tensors launch a hand-written Hopper kernel from
   ``csrc/flash_attention.cu``: K1 (replacing the Pallas ``_fa_kernel``) for
   the normalized output, K2 (replacing ``_fa_kernel_stats``) for the stats.
-  The library is built with ``nvcc`` at the first launch
+  bfloat16 and float16 inputs run on the tensor cores (``wgmma`` fed by
+  TMA), which need 16-byte aligned bases and strides
+  (``tma_layout_problem``); float32 inputs run on the CUDA cores in full
+  float32. The library is built with ``nvcc`` at the first launch
   (``tpuserve_torch.ops._build``). A shape, dtype or layout the kernels do
   not take, a failed build or a refused launch raises.
 - CPU tensors take the plain PyTorch version of the same function (the twins
@@ -110,6 +113,36 @@ def _kernel_fn(name: str):
     return fn
 
 
+def tma_layout_problem(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str | None:
+    """Why the tensor-core kernels cannot read these 16-bit q/k/v, or None.
+
+    Their tiles arrive by TMA, which needs each base address 16-byte aligned
+    and each (batch, seq, head) stride a positive multiple of 16 bytes (a
+    dimension of extent 1 has no stride that is ever used). float32 inputs
+    take the CUDA-core kernel, which reads any strides."""
+    if q.dtype == torch.float32:
+        return None
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            return f"{name}'s base address is not 16-byte aligned"
+        for dim, (n, stride) in enumerate(zip(t.shape[:3], t.stride()[:3])):
+            nbytes = stride * t.element_size()
+            if n > 1 and (nbytes <= 0 or nbytes % 16):
+                return (f"{name}'s stride {stride} (dim {dim}) is {nbytes} bytes, "
+                        "not a positive multiple of 16")
+    return None
+
+
+def dynamic_smem_bytes(dtype: torch.dtype, dim: int) -> int:
+    """Dynamic shared memory, in bytes, of the kernel instantiation that a
+    call with this dtype and head dim launches (0 for float32, whose kernel
+    has static shared memory). Builds the library if needed."""
+    from tpuserve_torch.ops import _build
+
+    lib = _build.load("flash_attention")
+    return lib.tpuserve_flash_attention_smem_bytes(_DTYPE_CODES[dtype], dim)
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            bias: torch.Tensor | None) -> None:
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
@@ -144,26 +177,29 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b > 65535 or h > 65535:
         raise ValueError(f"{kernel}'s grid holds at most 65535 batches and heads, "
                          f"got B={b}, H={h}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
+    strides = (q.stride(), k.stride(), v.stride())
+    if any(st[3] != 1 for st in strides):
         raise ValueError(f"{kernel} needs the head dim of q, k and v contiguous (stride 1)")
-    bias = bias.to(torch.float32).contiguous()
+    problem = tma_layout_problem(q, k, v)
+    if problem:
+        raise ValueError(f"{kernel}: {problem}")
+    if bias.dtype != torch.float32 or not bias.is_contiguous():
+        bias = bias.to(torch.float32).contiguous()
+    dev = q.device
     if stats:
-        outs = (torch.empty((b, sq, h, d), dtype=torch.float32, device=q.device),
-                torch.empty((b, sq, h), dtype=torch.float32, device=q.device),
-                torch.empty((b, sq, h), dtype=torch.float32, device=q.device))
+        outs = (torch.empty((b, sq, h, d), dtype=torch.float32, device=dev),
+                torch.empty((b, sq, h), dtype=torch.float32, device=dev),
+                torch.empty((b, sq, h), dtype=torch.float32, device=dev))
         fn = _kernel_fn("tpuserve_flash_attention_stats_fwd")
     else:
-        outs = (torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device),)
+        outs = (torch.empty((b, sq, h, d), dtype=q.dtype, device=dev),)
         fn = _kernel_fn("tpuserve_flash_attention_fwd")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-             *(t.data_ptr() for t in outs),
-             b, sq, sk, h, d,
-             q.stride(0), q.stride(1), q.stride(2),
-             k.stride(0), k.stride(1), k.stride(2),
-             v.stride(0), v.stride(1), v.stride(2),
-             bias.stride(0),
-             d ** -0.5, _DTYPE_CODES[q.dtype], q.device.index, stream)
+    # The current stream's handle without building a Stream object (about
+    # 8 us of host time per call on the serving path otherwise).
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), *(t.data_ptr() for t in outs),
+             b, sq, sk, h, d, *strides[0][:3], *strides[1][:3], *strides[2][:3],
+             bias.stride(0), d ** -0.5, _DTYPE_CODES[q.dtype], dev.index, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention {kernel} launch failed: cudaError_t {err} "
                            f"(q {tuple(q.shape)} {q.dtype}, Sk {sk})")
@@ -246,6 +282,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if bias is None:
         bias = torch.zeros((q.shape[0], k.shape[1]), dtype=torch.float32,
                            device=q.device)
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias))):
+        # No gradient wanted (serving): skip the autograd.Function's
+        # per-call bookkeeping on the host.
+        return _forward(q, k, v, bias, stats=return_stats)
     if return_stats:
         return _FlashAttentionStats.apply(q, k, v, bias)
     return _FlashAttention.apply(q, k, v, bias)
