@@ -72,9 +72,30 @@ Phases (any failure exits non-zero before the result line):
    in top-5 with dense attention wherever its logits separate the ranks by
    more than the logit tolerance. In-process, the (8, 2048) forward's stream
    and host-enqueue times and K2's share of it are taken.
-8. Print a ``slice`` line per path and the ``kernels`` line (K1 and K2, each
-   with its launches on its path), the card line, then the result line
-   ``{"ok": true, "device": {...}}``.
+8. Vision slice: serve ``examples/resnet50.toml`` — full-width ResNet-50
+   (1000 classes, 224 pixels, seeded, bf16, batch buckets [1, 8, 32]) as
+   ``resnet50`` (yuv420 wire at 160, int8 weights) and ``resnet50_rgb``
+   (rgb8 wire at 256, bf16 weights) — through ``python -m tpuserve_torch
+   serve``; with the counts at 0 send framed yuv420 bodies of 1, 8 and 32
+   items to the first and an npy (8, 256, 256, 3) batch and an npy
+   (256, 256, 3) image to the second, then a malformed frame (400,
+   ``frame_errors_total`` + 1) and an unknown model (404). Batches and
+   items must move, the warm-up compile count must not, and K1 and K2 must
+   not launch. In-process, per model: the served top-5 must equal the same
+   seeded model's on the same batches; the bf16 logits must agree with the
+   same network in float32 with TF32 off, from the same int8-dequantized
+   weights, within ``RESNET_LOGIT_REL`` of the float32 logits' scale, and
+   in top-5 wherever the float32 logits separate the ranks by more than
+   that; then at the (32,) bucket the forward's device time
+   (``time_calls``), its stream and host-enqueue times
+   (``forward_timing``), the device preprocessing alone and the int8
+   dequantization alone, beside the operations bound (multiply-accumulates
+   hooked from the convolutions' shapes, over the bf16 peak) and the bytes
+   bound (wire, weights as stored and the top-5 outputs, over HBM's rate).
+   ``native_jpeg`` says whether the libjpeg shim built on this machine.
+9. Print a ``slice`` line per path and the ``kernels`` line (K1 and K2, each
+   with its launches on its path; the vision path runs neither), the card
+   line, then the result line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -306,6 +327,83 @@ def time_ms(fn, iters: int = 50) -> float:
     return time_calls(fn, iters)["device_ms"]
 
 
+def graph_ms(fn, replays: int = 20, rounds: int = 5) -> float:
+    """Device time per call of ``fn``'s kernels, run back to back: ``fn``
+    captured once into a CUDA graph, the graph replayed ``replays`` times
+    between CUDA events (median of ``rounds``). For work of hundreds of
+    kernels, such as a whole forward: ``time_calls`` would overfill the
+    launch queue while it holds the card busy. The capture is the
+    measurement's own; the served path runs eagerly."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(rounds):
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / replays)
+    del graph
+    return sorted(times)[rounds // 2]
+
+
+KERNEL_KINDS = (("layout", ("nchwToNhwc", "nhwcToNchw", "transpose")),
+                ("convolution/gemm", ("conv", "xmma", "gemm", "cutlass", "cudnn", "wgrad",
+                                      "fprop")),
+                ("pool", ("pool",)), ("reduce", ("reduce", "softmax", "topk", "sort")),
+                ("elementwise", ("elementwise", "vectorized", "unrolled")))
+
+
+def device_breakdown(fn, iters: int = 5) -> dict:
+    """Device time per call of ``fn`` by kind of kernel, from
+    ``torch.profiler`` (CUDA activity) over ``iters`` calls enqueued back to
+    back: each kernel's name sorted into ``KERNEL_KINDS`` (else "other"),
+    and the eight costliest kernels. The same window's stream time per call
+    (CUDA events around the calls) and the card's idle share of it, 1 -
+    busy / stream; the profiler's own host cost is inside that window, so
+    the share is an upper bound on the unprofiled one. Empty of kernels,
+    and no idle share, when the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    stream_ms = start.elapsed_time(end) / iters
+    kernels = [(e.key, e.self_device_time_total / 1e3 / iters, e.count / iters)
+               for e in prof.key_averages() if e.self_device_time_total > 0]
+    kinds: dict[str, float] = {}
+    for name, ms, _ in kernels:
+        kind = next((k for k, words in KERNEL_KINDS
+                     if any(w.lower() in name.lower() for w in words)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+    busy_ms = sum(kinds.values())
+    top = sorted(kernels, key=lambda k: -k[1])[:8]
+    return {"ms_by_kind": kinds, "total_ms": busy_ms, "stream_ms": stream_ms,
+            "idle_share_of_stream": 1.0 - busy_ms / stream_ms if kernels else None,
+            "kernels_per_call": sum(n for _, _, n in kernels),
+            "top": [{"name": n[:90], "ms": ms, "launches": c} for n, ms, c in top]}
+
+
 def time_calls(fn, iters: int = 50) -> dict:
     """``fn``'s device time per call: CUDA events around ``iters`` calls
     that the host enqueues while the card is held busy
@@ -533,11 +631,11 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def call(port, method, path, obj=None, raw=None):
+def call(port, method, path, obj=None, raw=None, ctype="application/json"):
     body = raw if raw is not None else (json.dumps(obj).encode() if obj is not None else None)
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
     try:
-        conn.request(method, path, body=body, headers={"Content-Type": "application/json"})
+        conn.request(method, path, body=body, headers={"Content-Type": ctype})
         resp = conn.getresponse()
         return resp.status, resp.read()
     finally:
@@ -701,10 +799,10 @@ def in_process_check(answers: dict) -> None:
     return forward_ms
 
 
-def separated_ranks_agree(logits, dense, label: str) -> int:
-    """Top-5 ranks of ``logits`` equal dense attention's wherever the dense
-    logits separate that rank from its neighbours by more than LOGIT_TOL;
-    returns how many ranks were held."""
+def separated_ranks_agree(logits, dense, label: str, tol: float = LOGIT_TOL) -> int:
+    """Top-5 ranks of ``logits`` equal the reference logits' (``dense``)
+    wherever those separate that rank from its neighbours by more than
+    ``tol``; returns how many ranks were held."""
     sd, si = dense.sort(dim=-1, descending=True)
     fi = logits.argsort(dim=-1, descending=True)
     checked = 0
@@ -712,7 +810,7 @@ def separated_ranks_agree(logits, dense, label: str) -> int:
         for r in range(5):
             gap_above = sd[row, r - 1] - sd[row, r] if r else float("inf")
             gap_below = sd[row, r] - sd[row, r + 1]
-            if min(gap_above, gap_below) > LOGIT_TOL:
+            if min(gap_above, gap_below) > tol:
                 check(fi[row, r] == si[row, r],
                       f"{label}: top-5 rank {r} differs from dense, row {row}")
                 checked += 1
@@ -933,6 +1031,257 @@ def long_slice_phase() -> dict:
     return run
 
 
+# -- phase 8: ResNet-50, the vision path -----------------------------------------
+
+RESNET_CONFIG = ROOT / "examples" / "resnet50.toml"
+# bf16 logits against the same network in float32 (TF32 off) from the same
+# int8-dequantized weights: atol as a share of the float32 logits' largest
+# magnitude (the CPU measured 2.2e-3 and 2.6e-3 of it at 224 pixels, 6.7e-3
+# on a cut network at 32).
+RESNET_LOGIT_REL = 2e-2
+
+
+def resnet_requests() -> list:
+    """The vision path's seeded bodies, each with its decoded items:
+    framed yuv420 bodies of 1, 8 and 32 items for ``resnet50`` (wire 160),
+    an npy (8, 256, 256, 3) batch and an npy (256, 256, 3) image for
+    ``resnet50_rgb``."""
+    import io
+
+    import numpy as np
+
+    from tpuserve_torch import frame, preproc
+
+    rng = np.random.default_rng(11)
+    out = []
+    for n in (1, 8, 32):
+        items = [preproc.rgb_to_yuv420(a)
+                 for a in rng.integers(0, 256, (n, 160, 160, 3), dtype=np.uint8)]
+        out.append(("resnet50", f"frame{n}", frame.encode_frame(items, frame.KIND_YUV420, 160),
+                    frame.CONTENT_TYPE, items))
+    batch = rng.integers(0, 256, (8, 256, 256, 3), dtype=np.uint8)
+    for label, arr in (("npy8", batch), ("npy1", rng.integers(0, 256, (256, 256, 3), dtype=np.uint8))):
+        buf = io.BytesIO()
+        np.save(buf, arr)
+        out.append(("resnet50_rgb", label, buf.getvalue(), "application/x-npy",
+                    list(arr) if arr.ndim == 4 else [arr]))
+    return out
+
+
+def drive_resnet(port: int, requests: list) -> dict:
+    """The vision path's run: counts to 0, the five bodies, counts read
+    back; then a malformed frame (400) and an unknown model (404)."""
+    from tpuserve_torch import frame
+
+    check(call(port, "POST", "/debug/kernels:reset")[0] == 200, "kernel count reset refused")
+    before = call(port, "GET", "/metrics")[1].decode()
+    answers, walls = {}, {}
+    for name, label, body, ctype, items in requests:
+        t0 = time.perf_counter()
+        st, raw = call(port, "POST", f"/v1/models/{name}:classify", raw=body, ctype=ctype)
+        walls[label] = (time.perf_counter() - t0) * 1e3
+        check(st == 200, f"{name} {label}: {st} {raw[:300]!r}")
+        res = json.loads(raw)
+        results = res["results"] if "results" in res else [res]
+        check(len(results) == len(items) and all(len(r["top_k"]) == 5 for r in results),
+              f"{name} {label}: {len(results)} results for {len(items)} items")
+        answers[label] = results
+    ingest0 = json.loads(call(port, "GET", "/stats")[1])["ingest"]
+    st, raw = call(port, "POST", "/v1/models/resnet50:classify", raw=b"TPUF\x01\x00",
+                   ctype=frame.CONTENT_TYPE)
+    check(st == 400 and json.loads(raw)["error"].startswith("frame:"),
+          f"malformed frame answered {st} {raw[:200]!r}, expected 400 frame: ...")
+    st, _ = call(port, "POST", "/v1/models/nope:classify", raw=requests[0][2],
+                 ctype=frame.CONTENT_TYPE)
+    check(st == 404, f"unknown model answered {st}, expected 404")
+    stats = json.loads(call(port, "GET", "/stats")[1])
+    after = call(port, "GET", "/metrics")[1].decode()
+    counts = (stats["kernels"]["flash_attention"]["launches"],
+              stats["kernels"]["flash_attention_stats"]["launches"])
+    frame_errors = (stats["ingest"]["frame_errors_total"]["resnet50"]
+                    - ingest0["frame_errors_total"]["resnet50"])
+    delta = {m: {n: metric(after, f'{n}{{model="{m}"}}') - metric(before, f'{n}{{model="{m}"}}')
+                 for n in ("batches_total", "items_total", "runtime_compiles_total")}
+             for m in ("resnet50", "resnet50_rgb")}
+    print(f"slice (resnet50): 5 requests (50 images) answered; K1, K2 launches {counts}; "
+          f"frame errors +{frame_errors:g}; per model {delta}; request walls "
+          f"{ {k: round(v, 1) for k, v in walls.items()} } ms", flush=True)
+    check(counts == (0, 0), f"K1, K2 launched {counts} times on the vision path (0 expected)")
+    check(frame_errors == 1, f"frame_errors_total moved by {frame_errors:g}, expected 1")
+    want = {"resnet50": (3, 41), "resnet50_rgb": (2, 9)}
+    for m, (batches, items) in want.items():
+        check((delta[m]["batches_total"], delta[m]["items_total"]) == (batches, items),
+              f"{m}: batches/items moved by {delta[m]['batches_total']:g}/"
+              f"{delta[m]['items_total']:g}, expected {batches}/{items}")
+        check(delta[m]["runtime_compiles_total"] == 0, f"{m}: runtime_compiles_total moved")
+    # Each body twice more: the first request of a bucket on a pipeline
+    # thread against the ones after it.
+    repeats = {label: [] for _, label, _, _, _ in requests}
+    for _ in range(2):
+        for name, label, body, ctype, _ in requests:
+            t0 = time.perf_counter()
+            st, _ = call(port, "POST", f"/v1/models/{name}:classify", raw=body, ctype=ctype)
+            repeats[label].append((time.perf_counter() - t0) * 1e3)
+            check(st == 200, f"repeat of {name} {label} answered {st}")
+    print(f"slice (resnet50): repeat walls {repeats} ms", flush=True)
+    lat = json.loads(call(port, "GET", "/stats")[1])["latency"]
+    phases = {p: lat[f"latency_ms{{model=resnet50,phase={p}}}"]["p50_ms"]
+              for p in ("body_read", "parse", "queue", "preproc", "h2d", "compute",
+                        "postproc", "total")}
+    return {"answers": answers, "walls_ms": walls, "repeat_walls_ms": repeats,
+            "launches_k1_k2": list(counts),
+            "deltas": delta, "phase_p50_ms_resnet50": phases,
+            "ingest": stats["ingest"]}
+
+
+def resnet_operations(model, module) -> int:
+    """Multiply-accumulates of one image's forward: every convolution (from
+    its output shape, hooked at batch 1) and the head."""
+    import torch
+
+    from tpuserve_torch.models.resnet import Conv
+
+    macs = []
+
+    def hook(m, inp, out):
+        w = m.weight
+        macs.append(out[0].numel() * w.shape[1] * w.shape[2] * w.shape[3])
+
+    handles = [m.register_forward_hook(hook) for m in module.modules() if isinstance(m, Conv)]
+    dev = tuple(torch.zeros(s.shape, dtype=torch.uint8, device=module.head.weight.device)
+                for s in model.input_signature((1,)))
+    with torch.inference_mode():
+        module(model.device_preprocess(dev))
+    for h in handles:
+        h.remove()
+    return sum(macs) + module.head.in_features * module.head.out_features
+
+
+def resnet_model_check(mcfg, requests: list, answers: dict) -> dict:
+    """One model of the vision config in-process: served answers equal the
+    same seeded model's on the same assembled batches; bf16 logits agree
+    with the float32 network on the same (dequantized) weights; times of
+    the (32,) forward, its preprocessing and its dequantization; bounds."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tpuserve_torch import quantize
+    from tpuserve_torch.models import build
+    from tpuserve_torch.runtime import build_runtime
+
+    model = build(mcfg)
+    rt = build_runtime(model, device="cuda")
+    mine = [r for r in requests if r[0] == mcfg.name]
+    for _, label, _, _, items in mine:
+        bucket = model.bucket_for(len(items))
+        ref = rt.fetch(rt.run(bucket, model.assemble(items, bucket)))
+        for row, served in enumerate(answers[label]):
+            check([e["class"] for e in served["top_k"]] == ref["indices"][row].tolist(),
+                  f"{mcfg.name} {label}: served top-5 != in-process top-5, row {row}")
+            check(np.allclose([e["prob"] for e in served["top_k"]], ref["probs"][row],
+                              rtol=0, atol=1e-6),
+                  f"{mcfg.name} {label}: served probs != in-process probs, row {row}")
+
+    # The float32 twin: the same network and weights as the forward sees
+    # them (int8 dequantized in bf16), run in float32 with TF32 off.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, label, _, _, items = max(mine, key=lambda r: len(r[4]))
+    bucket = model.bucket_for(len(items))
+    twin = build(dataclasses.replace(mcfg, dtype="float32", quantize=None))
+    module32 = twin.build_module()
+    module32.load_state_dict({k: v.float() for k, v in quantize.dequantized_state_dict(rt.module).items()})
+    module32.eval().requires_grad_(False).to(memory_format=torch.channels_last).to(rt.device)
+    with torch.inference_mode():
+        dev = rt.h2d(bucket, model.assemble(items, bucket))
+        logits = rt.module(model.device_preprocess(dev)).float()[: len(items)]
+        logits32 = module32(twin.device_preprocess(dev))[: len(items)]
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(logits).all()) and logits.shape == (len(items), 1000),
+          f"{mcfg.name}: logits {tuple(logits.shape)} not finite")
+    err = (logits - logits32).abs().max().item()
+    tol = RESNET_LOGIT_REL * logits32.abs().max().item()
+    check(err <= tol, f"{mcfg.name}: bf16 vs float32 logits differ by {err:.4g} > {tol:.4g}")
+    checked = separated_ranks_agree(logits, logits32, f"{mcfg.name} bf16 vs f32", tol)
+    print(f"slice (resnet50): {mcfg.name} served answers equal the in-process run; bf16 vs "
+          f"float32 (TF32 off) logits max abs diff {err:.4g} (tol {tol:.4g}), {checked} "
+          f"separated top-5 ranks agree", flush=True)
+
+    # Times at the (32,) bucket, inputs resident on the card: device time
+    # from a CUDA-graph replay (the forward's kernels back to back), stream
+    # and host-enqueue time of the eager forward (``forward_timing``), the
+    # card's busy and idle time in one profiled eager window
+    # (``device_breakdown``).
+    bucket = (32,)
+    dev = rt.h2d(bucket, tuple(np.random.default_rng(3).integers(0, 256, s.shape, dtype=np.uint8)
+                               for s in model.input_signature(bucket)))
+    pairs = [(m, n) for m in rt.module.modules()
+             if torch.nn.utils.parametrize.is_parametrized(m) for n in m.parametrizations]
+
+    def dequantize_all():
+        return [getattr(m, n) for m, n in pairs]
+
+    forward = forward_timing(rt, model, bucket)
+    with torch.inference_mode():
+        device_ms = graph_ms(lambda: model.forward(rt.module, dev))
+        prep_ms = graph_ms(lambda: model.device_preprocess(dev))
+        deq_ms = graph_ms(dequantize_all) if pairs else None
+        t0 = time.perf_counter()
+        for _ in range(20):
+            dequantize_all()
+        deq_host_ms = (time.perf_counter() - t0) * 1e3 / 20 if pairs else None
+        torch.cuda.synchronize()
+        breakdown = device_breakdown(lambda: model.forward(rt.module, dev))
+    macs = resnet_operations(model, rt.module)
+    flops = 2 * macs * bucket[0]
+    wire = sum(int(np.prod(s.shape)) for s in model.input_signature(bucket))
+    params = rt.describe()["params"]["bytes"]
+    nbytes = wire + params + bucket[0] * 5 * (4 + 8)      # probs f32 + indices int64
+    t_ops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    out = {"forward_b32": forward, "forward_device_ms_b32": device_ms,
+           "device_idle_share_of_stream": breakdown["idle_share_of_stream"],
+           "preprocess_device_ms_b32": prep_ms,
+           "preprocess_share_of_forward": prep_ms / device_ms,
+           "dequant_device_ms_b32": deq_ms, "dequant_host_ms_b32": deq_host_ms,
+           "dequant_share_of_forward": deq_ms / device_ms if pairs else None,
+           "quantized_weights": len(pairs), "device_breakdown_b32": breakdown,
+           "bound": {"gmac_per_image": macs / 1e9, "operations": flops, "operations_ms": t_ops,
+                     "bytes": nbytes, "bytes_ms": t_bytes, "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "params_bytes": params, "wire_bytes": wire},
+           "logits_bf16_vs_f32": {"max_abs_diff": err, "tol": tol,
+                                  "separated_ranks_checked": checked}}
+    print(f"slice (resnet50): {mcfg.name} (32,): device {device_ms:.3f} ms (graph replay), "
+          f"stream {forward['stream_ms']:.3f} ms, enqueue {forward['host_enqueue_ms']:.3f} ms; "
+          f"preprocessing {prep_ms:.4f} ms; dequantization {deq_ms or 0:.4f} ms of device, "
+          f"{deq_host_ms or 0:.3f} ms of host; bound {max(t_ops, t_bytes):.4f} ms "
+          f"({out['bound']['bound_by']}; {macs / 1e9:.3f} GMAC per image); profiled eager "
+          f"window: busy {breakdown['total_ms']:.3f} of {breakdown['stream_ms']:.3f} ms, by "
+          f"kind { {k: round(v, 3) for k, v in breakdown['ms_by_kind'].items()} } ms",
+          flush=True)
+    del rt, module32
+    torch.cuda.empty_cache()
+    return out
+
+
+def resnet_phase() -> dict:
+    from tpuserve_torch import native
+    from tpuserve_torch.config import load_config
+
+    t0 = time.perf_counter()
+    requests = resnet_requests()
+    with serving(RESNET_CONFIG, n_buckets=6) as port:
+        run = drive_resnet(port, requests)
+    answers = run.pop("answers")
+    run["models"] = {m.name: resnet_model_check(m, requests, answers)
+                     for m in load_config(str(RESNET_CONFIG)).models}
+    run["native_jpeg"] = native.available()
+    run["phase_s"] = time.perf_counter() - t0
+    return run
+
+
 def main() -> int:
     import torch
 
@@ -955,6 +1304,7 @@ def main() -> int:
         sp_errs = sequence_parallel_phase()
         run = slice_phase()
         long = long_slice_phase()
+        vision = resnet_phase()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -982,6 +1332,9 @@ def main() -> int:
         "ring_vs_dense_max_abs_logit_diff": long["ring_vs_dense_max_abs_logit_diff"],
         "serve_walls_ms": long["walls_ms"], "serve_phase_p50_ms": long["phase_p50_ms"],
         "phase_s": long["phase_s"]}}))
+    # The vision path: no hand-written kernel; where its (32,) forward goes.
+    print(json.dumps({"slice": dict(vision, path="resnet50",
+                                    config=str(RESNET_CONFIG.relative_to(ROOT)))}))
     print(json.dumps({"kernels": [dict(k1[128]["line"], launches=run["launches"]),
                                   dict(k2["line"], launches=long["k2_launches"])]}))
     print(card)

@@ -292,7 +292,7 @@ def test_unported_options_raise(over, match):
         build(ModelConfig(**cfg_kwargs(**over)))
 
 
-@pytest.mark.parametrize("family", ["resnet50", "sd15", "textgen"])
+@pytest.mark.parametrize("family", ["mobilenetv3", "sd15", "textgen"])
 def test_unported_families_raise(family):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         build(ModelConfig(name="m", family=family))

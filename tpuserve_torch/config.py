@@ -59,14 +59,18 @@ _SERVER_UNPORTED: dict[str, tuple] = {
     "watchdog_interval_s": (0,), "drain_timeout_s": (),
 }
 _MODEL_UNPORTED: dict[str, tuple] = {
-    "quantize_min_size": (), "image_size": (), "wire_size": (),
-    "wire_format": ("rgb8",), "pp": (0, 1), "session_mode": ("direct",),
+    "pp": (0, 1), "session_mode": ("direct",),
     "relay_workers": (), "relay_epoch_images": (), "relay_epoch_ms": (),
     "relay_slots": (), "priority": ("interactive",), "cold_start": (False,),
     "cacheable": (False,), "stream_policy": (), "slo": (),
     "batch_retry": (False,), "retry_split": (False,),
     "breaker_threshold": (0,), "breaker_retry_after_s": (),
 }
+
+WIRE_FORMATS = ("rgb8", "yuv420")
+# The reference's quantization modes that the port does not serve yet: they
+# parse, and the server and the runtime refuse them.
+_QUANTIZE_UNPORTED = ("int8c",)
 
 
 @dataclass
@@ -135,8 +139,22 @@ class ModelConfig:
     request_timeout_ms: float = 2000.0
     # Compute dtype for params/activations on the device.
     dtype: str = "bfloat16"
-    # Quantization mode (not ported yet: a family raises when it is set).
+    # Quantization: "int8" stores every large weight as int8 plus a
+    # per-output-channel float32 scale and dequantizes it inside the forward
+    # (tpuserve_torch.quantize); None = full compute-dtype weights. The
+    # reference's "int8c" (int8 compute) is not ported yet.
     quantize: str | None = None
+    # Float leaves smaller than this stay unquantized (biases, norms).
+    quantize_min_size: int = 4096
+    # Image input edge (H == W) for vision models.
+    image_size: int = 224
+    # Host->device wire shape edge for images: the host decodes to the wire
+    # edge, the device resizes to image_size.
+    wire_size: int = 256
+    # Wire encoding of images: "rgb8" ((wire, wire, 3) uint8, 3 B/px) or
+    # "yuv420" (full-res Y plane + 2x2-subsampled Cb/Cr planes, 1.5 B/px;
+    # colour conversion on the device).
+    wire_format: str = "rgb8"
     # Parallelism mode; the port serves "single" (one device) only.
     parallelism: str = "sharded"
     # Tensor- and sequence-parallel axis sizes (1 = off; > 1 not ported).
@@ -155,9 +173,16 @@ class ModelConfig:
     unported: dict[str, Any] = field(default_factory=dict)
 
     def __post_init__(self) -> None:
+        self.validate()
+
+    def validate(self) -> None:
+        """The checks of the typed fields (run again after overrides)."""
         if self.tp < 1 or self.sp < 1:
             raise ValueError(
                 f"tp and sp must be >= 1, got tp={self.tp} sp={self.sp}")
+        if self.wire_format not in WIRE_FORMATS:
+            raise ValueError(f"wire_format must be one of {WIRE_FORMATS}, "
+                             f"got {self.wire_format!r}")
 
 
 @dataclass
@@ -201,6 +226,8 @@ def unported_settings(cfg: ServerConfig) -> list[str]:
     for m in cfg.models:
         out += [f"model {m.name}: {k} = {v!r}" for k, v in m.unported.items()
                 if v not in _MODEL_UNPORTED[k]]
+        if m.quantize in _QUANTIZE_UNPORTED:
+            out.append(f"model {m.name}: quantize = {m.quantize!r}")
     return out
 
 
@@ -243,6 +270,8 @@ def load_config(path: str | None = None, overrides: list[str] | None = None) -> 
 
     for ov in overrides or []:
         _apply_override(cfg, ov)
+    for m in cfg.models:
+        m.validate()
     return cfg
 
 

@@ -5,10 +5,15 @@ Each family implements the ``ServingModel`` contract in ``base.py``. Ported:
 - bert — BERT-base text classification, bucketed seq lens, dense, flash
   (kernel K1), ring (local step dense or kernel K2) or Ulysses (local step
   dense or K1) attention.
+- resnet50 — ResNet-50 image classification (``vision.py`` serving: framed,
+  npy and encoded-image bodies, rgb8 or yuv420 wire, preprocessing and
+  softmax + top-k on the device; bf16, channels_last, cuDNN convolutions;
+  weight-only int8).
+- toy — a tiny MLP image classifier, the fast model of the CPU tests.
 
-The JAX package's other families (resnet50, mobilenetv3, efficientdet, sd15,
-textgen, toy) are registered by name and raise "not yet ported", naming
-their ROADMAP.md item.
+The JAX package's other families (mobilenetv3, efficientdet, sd15, textgen)
+are registered by name and raise "not yet ported", naming their ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -22,16 +27,16 @@ if TYPE_CHECKING:
 
 _REGISTRY: dict[str, str] = {
     "bert": "tpuserve_torch.models.bert",
+    "resnet50": "tpuserve_torch.models.resnet",
+    "toy": "tpuserve_torch.models.toy",
 }
 
 # Families of the JAX package not ported yet -> their ROADMAP.md queue-1 item.
 _NOT_PORTED: dict[str, str] = {
-    "resnet50": "ResNet-50 (the next path)",
-    "mobilenetv3": "MobileNetV3",
+    "mobilenetv3": "MobileNetV3, the next vision family",
     "efficientdet": "EfficientDet",
     "sd15": "SD 1.5",
     "textgen": "textgen",
-    "toy": "ResNet-50 (the next path)",
 }
 
 

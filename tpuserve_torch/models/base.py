@@ -8,11 +8,13 @@ of the network (``device_preprocess``) and postprocessing (softmax, top-k)
 behind it — so one H2D copy of the inputs and one D2H copy of small outputs
 happen per batch.
 
-``input_signature`` gives (shape, dtype) specs (numpy dtypes, the host batch
-layout) where the JAX package gives ``jax.ShapeDtypeStruct``. Dynamic request
-counts are handled by padding: ``host_postprocess`` reads the first
-``n_valid`` rows, and padded lanes must not influence real lanes. The host
-side (decode, assemble, postprocess) is numpy and copied as it is.
+``input_signature`` gives a tuple of (shape, dtype) specs (numpy dtypes, the
+host batch layout) where the JAX package gives ``jax.ShapeDtypeStruct``s; a
+host batch is always the matching tuple of arrays, one component for an rgb8
+image batch, three for YUV 4:2:0 planes, two for BERT's ids and mask.
+Dynamic request counts are handled by padding: ``host_postprocess`` reads
+the first ``n_valid`` rows, and padded lanes must not influence real lanes.
+The host side (decode, assemble, postprocess) is numpy and copied as it is.
 """
 
 from __future__ import annotations
@@ -26,10 +28,22 @@ import torch
 
 from tpuserve_torch.config import ModelConfig
 
-# A host batch: a tuple (or single) of np.ndarrays with leading batch dim.
+# A host batch: a tuple of np.ndarrays with leading batch dim.
 HostBatch = Any
 # Device outputs: a dict of tensors with leading batch dim.
 Outputs = Any
+
+
+# Compute dtypes by their config name.
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error a family raises for a setting the port does not serve yet,
+    naming its ROADMAP.md item."""
+    return NotImplementedError(
+        f"{what} is not yet ported to tpuserve_torch (ROADMAP.md queue 1: {item})")
 
 
 @dataclass(frozen=True)
@@ -51,6 +65,10 @@ def _stack_pad(arrs: list[np.ndarray], b: int) -> np.ndarray:
 
 class ServingModel(abc.ABC):
     """One deployable model family instance."""
+
+    # True: the runtime keeps the module's 4-D weights in channels_last
+    # memory (convolutional families, whose inputs come channels_last).
+    channels_last = False
 
     def __init__(self, cfg: ModelConfig) -> None:
         self.cfg = cfg
@@ -124,9 +142,11 @@ class ServingModel(abc.ABC):
     # A single POST may not carry more items than this.
     MAX_ITEMS_PER_REQUEST = 1024
 
-    @abc.abstractmethod
     def canary_item(self) -> Any:
-        """A trivial decoded item used by health canaries."""
+        """A trivial decoded item used by health canaries; default zero
+        image at the wire edge."""
+        w = self.cfg.wire_size
+        return np.zeros((w, w, 3), dtype=np.uint8)
 
     def group_key(self, item: Any) -> Any:
         """Batching group for a decoded item (e.g. seq bucket); None = one group."""
@@ -159,30 +179,23 @@ class ServingModel(abc.ABC):
         return None
 
     def assemble(self, items: list[Any], bucket: tuple) -> HostBatch:
-        """Stack decoded items into one padded host batch for `bucket`: each
-        component stacked along axis 0 and zero-padded up to bucket[0]."""
+        """Stack decoded items into one padded host batch (a tuple) for
+        `bucket`: each component stacked along axis 0 and zero-padded up to
+        bucket[0]. An item that is one array is a one-component batch."""
         b = bucket[0]
-        if isinstance(items[0], tuple):
-            return tuple(
-                _stack_pad([it[k] for it in items], b) for k in range(len(items[0]))
-            )
-        return _stack_pad(items, b)
+        items = [it if isinstance(it, tuple) else (it,) for it in items]
+        return tuple(_stack_pad([it[k] for it in items], b) for k in range(len(items[0])))
 
     def assemble_into(self, items: list[Any], bucket: tuple, out: HostBatch) -> HostBatch:
-        """Assemble into a preallocated host-batch buffer shaped like
-        ``input_signature(bucket)``; must produce exactly what ``assemble``
-        would, writing in place (real rows copied, padded rows zeroed)."""
+        """Assemble into a preallocated host-batch buffer (the tuple shaped
+        like ``input_signature(bucket)``); must produce exactly what
+        ``assemble`` would, writing in place (real rows copied — read-only
+        frame views included —, padded rows zeroed)."""
         n = len(items)
-        if isinstance(items[0], tuple):
-            for k in range(len(items[0])):
-                comp = out[k]
-                for i, it in enumerate(items):
-                    comp[i] = it[k]
-                if n < comp.shape[0]:
-                    comp[n:] = 0
-            return out
-        for i, it in enumerate(items):
-            out[i] = it
-        if n < out.shape[0]:
-            out[n:] = 0
+        items = [it if isinstance(it, tuple) else (it,) for it in items]
+        for k, comp in enumerate(out):
+            for i, it in enumerate(items):
+                comp[i] = it[k]
+            if n < comp.shape[0]:
+                comp[n:] = 0
         return out

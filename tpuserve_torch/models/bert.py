@@ -40,7 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpuserve_torch.config import ModelConfig
-from tpuserve_torch.models.base import ServingModel, TensorSpec
+from tpuserve_torch.models.base import ServingModel, TensorSpec, not_ported
 from tpuserve_torch.ops.flash_attention import flash_attention
 from tpuserve_torch.ops.ring_attention import ring_attention
 from tpuserve_torch.ops.ulysses import ulysses_attention
@@ -48,11 +48,6 @@ from tpuserve_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh
 from tpuserve_torch.text import WordPieceTokenizer, synthetic_vocab
 
 ATTENTION_IMPLS = ("dense", "flash", "ring", "ulysses")
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported to tpuserve_torch (ROADMAP.md queue 1: {item})")
 
 
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

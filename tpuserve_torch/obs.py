@@ -4,8 +4,11 @@ Prometheus exposition, ported from ``tpuserve/obs.py``.
 Metric names are the JAX package's, unchanged, so one dashboard reads both
 servers: ``batches_total{model=}``, ``items_total{model=}``,
 ``queue_depth{model=}``, ``batch_fill_ratio{model=}``,
-``latency_ms{model=,phase=}``, ``runtime_compiles_total{model=}`` and
-``runtime_variants{model=}``.
+``latency_ms{model=,phase=}``, ``runtime_compiles_total{model=}``,
+``runtime_variants{model=}``, and the ingest counters
+``frame_errors_total{model=}``, ``native_decode_fallback_total{model=}``,
+``ingest_requests_total{loop=}`` and ``ingest_bytes_total{loop=}`` (the port
+has one accept loop, 0).
 
 Not ported yet (ROADMAP.md queue 1, "Observability and analysis"): request
 trace contexts, the flight recorder, the span ring and histogram exemplars.

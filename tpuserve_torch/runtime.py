@@ -28,15 +28,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from tpuserve_torch import quantize
 from tpuserve_torch.config import ModelConfig
-from tpuserve_torch.models.base import ServingModel
+from tpuserve_torch.models.base import DTYPES, ServingModel
 from tpuserve_torch.obs import Metrics
 from tpuserve_torch.parallel.mesh import MeshPlan, make_mesh
 
 log = logging.getLogger("tpuserve_torch.runtime")
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
 
 
 def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
@@ -118,10 +116,16 @@ class ModelRuntime:
             raise NotImplementedError(
                 f"parallelism={self.mode!r} is not yet ported to "
                 "tpuserve_torch (ROADMAP.md queue 1: mesh modes)")
-        if self.cfg.dtype not in _DTYPES:
-            raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, "
+        if self.cfg.dtype not in DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(DTYPES)}, "
                              f"got {self.cfg.dtype!r}")
-        self.dtype = _DTYPES[self.cfg.dtype]
+        if self.cfg.quantize == "int8c":
+            raise NotImplementedError(
+                "quantize='int8c' (int8 compute) is not yet ported to "
+                "tpuserve_torch (ROADMAP.md queue 1: quantized variants)")
+        if self.cfg.quantize not in (None, "int8"):
+            raise ValueError(f"unknown quantize mode {self.cfg.quantize!r}")
+        self.dtype = DTYPES[self.cfg.dtype]
         # Single mode serves on a 1-device mesh (every axis of size 1).
         # Mesh-aware models (BERT's ring/Ulysses attention) close over it;
         # this precedes building the module and warming up.
@@ -143,12 +147,21 @@ class ModelRuntime:
 
     # -- startup ------------------------------------------------------------
     def load_params(self) -> None:
-        """Build the module, load the float32 params (seeded init), cast the
-        floating ones to the compute dtype and move them to the device."""
+        """Build the module and load the float32 params (seeded init) on the
+        host; cast every floating one to the compute dtype; under
+        ``quantize = "int8"`` quantize each eligible cast weight (the
+        reference's order: cast, then quantize); then move the module to the
+        device without a dtype, so int8 values and float32 scales arrive as
+        they are. Convolutional families keep 4-D weights channels_last."""
         module = self.model.build_module()
         module.load_state_dict(self.model.load_params())
-        module.to(device=self.device, dtype=self.dtype)
+        module.to(dtype=self.dtype)
         module.eval().requires_grad_(False)
+        if self.cfg.quantize == "int8":
+            quantize.quantize_module(module, self.dtype, self.cfg.quantize_min_size)
+        if self.model.channels_last:
+            module.to(memory_format=torch.channels_last)
+        module.to(device=self.device)
         self.module = module
 
     def variant_key(self, bucket: tuple) -> VariantKey:
@@ -164,15 +177,26 @@ class ModelRuntime:
         log.info("%s: warmed %d bucket(s) on %s in %.1fs", self.model.name,
                  len(self.variants), self.device, time.perf_counter() - t0)
 
+    def _zeros(self, bucket: tuple) -> tuple:
+        return tuple(np.zeros(s.shape, s.dtype) for s in self.model.input_signature(bucket))
+
     def _compile_bucket(self, bucket: tuple) -> None:
         t0 = time.perf_counter()
-        zeros = tuple(np.zeros(s.shape, s.dtype)
-                      for s in self.model.input_signature(bucket))
-        self.fetch(self.run(bucket, zeros))
+        self.fetch(self.run(bucket, self._zeros(bucket)))
         key = self.variant_key(bucket)
         self.variants[key] = Variant(key, (time.perf_counter() - t0) * 1e3)
         self._c_compiles.inc()
         self._g_variants.set(len(self.variants))
+
+    def warm_thread(self) -> None:
+        """Run every bucket's forward once on the calling thread, uncounted
+        (each bucket counted its compile at startup): cuDNN builds and
+        caches its convolution plans per thread, so a thread that serves
+        without this builds them on its first batch of each bucket, inside
+        a request. The batcher calls it on each of its h2d threads before
+        it serves."""
+        for bucket in self.model.buckets():
+            self.fetch(self.run(tuple(bucket), self._zeros(tuple(bucket))))
 
     @property
     def compiles_total(self) -> float:
@@ -226,7 +250,9 @@ class ModelRuntime:
 
     # -- info ---------------------------------------------------------------
     def describe(self) -> dict:
-        params = list(self.module.parameters()) if self.module is not None else []
+        # Every tensor the forward reads: weights (int8 where quantized),
+        # scales and BatchNorm statistics.
+        params = list(self.module.state_dict().values()) if self.module is not None else []
         return {
             "model": self.model.name,
             "family": self.cfg.family,

@@ -12,15 +12,22 @@ Endpoints (response shapes and status codes as in the JAX server):
 
 - ``POST /v1/models/{name}:predict`` (aliases ``:classify``, ``:detect``,
   ``:generate``): ``{"text": ...}`` answers ``{"top_k": [...]}``,
-  ``{"texts": [...]}`` answers ``{"results": [...]}`` in request order.
+  ``{"texts": [...]}`` answers ``{"results": [...]}`` in request order; for
+  an image model an ``application/x-tpuserve-frame`` body or an npy
+  (N, H, W, 3) batch answers ``{"results": [...]}``, an npy (H, W, 3) image
+  or an encoded image ``{"top_k": [...]}``.
 - ``GET /healthz``, ``GET /metrics`` (Prometheus text), ``GET /stats``
   (latency summary, backend — card, torch and CUDA versions, device — the
-  host pipeline and the kernels' launch counts), ``GET /v1/models``
-  (buckets, variants, dtype, device).
+  ingest block — requests and bytes of the one accept loop, frame errors
+  and native-decode fallbacks per model —, the host pipeline and the
+  kernels' launch counts), ``GET /v1/models`` (buckets, variants, dtype,
+  quantize, device).
 - ``POST /debug/kernels:reset`` sets the kernels' launch counts to 0, so a
   caller can count exactly the launches of the requests it sends next.
 
-Errors: decode failure 400, unknown model or path 404, wrong method 405,
+Errors: decode failure 400 (a malformed frame answers its ``frame: ...``
+message and ticks ``frame_errors_total{model=}`` beside
+``bad_requests_total{model=}``), unknown model or path 404, wrong method 405,
 body too large 413, queue full 429 (+ ``Retry-After``), draining 503,
 deadline exceeded 504, batch failure 500. Error bodies are
 ``{"error": ..., "trace_id": ...}``; every predict response carries
@@ -50,8 +57,10 @@ from urllib.parse import parse_qsl, unquote
 import torch
 
 from tpuserve_torch import models as modelzoo
+from tpuserve_torch import preproc
 from tpuserve_torch.batcher import DeadlineExceeded, ModelBatcher, QueueFull
 from tpuserve_torch.config import ServerConfig, unported_settings
+from tpuserve_torch.frame import FrameError
 from tpuserve_torch.hostpipe import StageExecutors
 from tpuserve_torch.obs import PROMETHEUS_CONTENT_TYPE, Metrics
 from tpuserve_torch.ops import flash_attention as fa
@@ -125,7 +134,7 @@ class ModelHandles:
     """Per-model prebound metrics and config for the predict handler."""
 
     __slots__ = ("mcfg", "requests", "bad_requests", "timeouts", "total_hist",
-                 "body_read_hist", "parse_hist")
+                 "body_read_hist", "parse_hist", "frame_errors", "native_fallback")
 
     def __init__(self, name: str, mcfg, metrics: Metrics) -> None:
         self.mcfg = mcfg
@@ -136,6 +145,12 @@ class ModelHandles:
         self.body_read_hist = metrics.histogram(
             f"latency_ms{{model={name},phase=body_read}}")
         self.parse_hist = metrics.histogram(f"latency_ms{{model={name},phase=parse}}")
+        # Malformed frame bodies (each also counts in bad_requests_total).
+        self.frame_errors = metrics.counter(f"frame_errors_total{{model={name}}}")
+        # yuv420 decodes that the PIL path served although the native shim
+        # was tried (shim missing or failed, or not an exact-size 4:2:0 JPEG).
+        self.native_fallback = metrics.counter(
+            f"native_decode_fallback_total{{model={name}}}")
 
 
 def _reject_unported(cfg: ServerConfig) -> None:
@@ -165,6 +180,9 @@ class ServerState:
         self.runtimes: dict[str, ModelRuntime] = {}
         self.batchers: dict[str, ModelBatcher] = {}
         self.handles: dict[str, ModelHandles] = {}
+        # The one accept loop's ingest counters (the JAX server's loop 0).
+        self.ingest_requests = self.metrics.counter("ingest_requests_total{loop=0}")
+        self.ingest_bytes = self.metrics.counter("ingest_bytes_total{loop=0}")
         self.canary_ok: dict[str, bool] = {}
         self.draining = False
         self.serving_addresses: list = []
@@ -184,6 +202,7 @@ class ServerState:
                      time.perf_counter() - t0, rt.describe())
 
     async def start(self) -> None:
+        preproc.set_native_fallback_hook(self._note_native_fallback)
         for name, model in self.models.items():
             b = ModelBatcher(model, self.runtimes[name], self.metrics,
                              stages=self.stages, pipeline_cfg=self.cfg.pipeline)
@@ -193,6 +212,9 @@ class ServerState:
         if self.cfg.startup_canary:
             for name in self.models:
                 await self.run_canary(name)
+
+    def _note_native_fallback(self, model: str) -> None:
+        self.handles[model].native_fallback.inc()
 
     async def stop(self) -> None:
         for b in self.batchers.values():
@@ -271,6 +293,13 @@ class ServerState:
         out["backend"] = backend_info(self.device)
         out["kernels"] = self.kernel_counts()
         out["robustness"] = {"draining": self.draining}
+        out["ingest"] = {
+            "loops": {"0": {"requests": self.ingest_requests.value,
+                            "bytes": self.ingest_bytes.value}},
+            "frame_errors_total": {n: h.frame_errors.value for n, h in self.handles.items()},
+            "native_decode_fallback_total": {
+                n: h.native_fallback.value for n, h in self.handles.items()},
+        }
         out["pipeline"] = {
             "stages": self.stages.stats(),
             "models": {n: b.pipeline_stats() for n, b in self.batchers.items()},
@@ -289,6 +318,8 @@ class ServerState:
         h.requests.inc()
         t_start = time.perf_counter()
         h.body_read_hist.observe(req.read_s * 1e3)
+        self.ingest_requests.inc()
+        self.ingest_bytes.inc(len(req.body))
         ctype = req.content_type
         try:
             timeout_ms = _requested_timeout_ms(req, ctype)
@@ -304,6 +335,10 @@ class ServerState:
             if not items:
                 raise ValueError("empty batch")
             h.parse_hist.observe((time.perf_counter() - t_parse) * 1e3)
+        except FrameError as e:
+            h.frame_errors.inc()
+            h.bad_requests.inc()
+            return _err(400, str(e), trace_id=trace_id)
         except Exception as e:
             h.bad_requests.inc()
             return _err(400, f"could not decode request: {e}", trace_id=trace_id)
