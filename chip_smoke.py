@@ -72,6 +72,16 @@ Phases (any failure exits non-zero before the result line):
    in top-5 with dense attention wherever its logits separate the ranks by
    more than the logit tolerance. In-process, the (8, 2048) forward's stream
    and host-enqueue times and K2's share of it are taken.
+   Every served model answers from CUDA graphs, one per bucket and
+   parameter slot (3 per bucket); on each path the server's graph count and
+   ``memory_reserved`` before and after capture are printed, and
+   ``graph_phase`` holds, for every bucket of every model, the graph
+   replay against the eager forward of the live slot on the same resident
+   input (indices identical; logits and probabilities bit-identical, or the
+   max abs logit diff printed and held within ``LOGIT_TOL`` /
+   ``RESNET_LOGIT_REL`` of the scale) and times, at (32, 128), (8, 2048)
+   and (32,), the served h2d stage's host time (pinned copy + replay
+   enqueue) against the eager yardstick, and the replay's device time.
 8. Vision slice: serve ``examples/resnet50.toml`` — full-width ResNet-50
    (1000 classes, 224 pixels, seeded, bf16, batch buckets [1, 8, 32]) as
    ``resnet50`` (yuv420 wire at 160, int8 weights) and ``resnet50_rgb``
@@ -93,9 +103,20 @@ Phases (any failure exits non-zero before the result line):
    hooked from the convolutions' shapes, over the bf16 peak) and the bytes
    bound (wire, weights as stored and the top-5 outputs, over HBM's rate).
    ``native_jpeg`` says whether the libjpeg shim built on this machine.
-9. Print a ``slice`` line per path and the ``kernels`` line (K1 and K2, each
-   with its launches on its path; the vision path runs neither), the card
-   line, then the result line ``{"ok": true, "device": {...}}``.
+9. Lifecycle: serve ``examples/bert_flash.toml`` and then
+   ``examples/resnet50.toml`` with ``bert`` / ``resnet50`` (int8) reading a
+   seed-1 ``.npz`` checkpoint written by ``save_npz`` from the port's own
+   seeded init, and drive ``:reload`` (seed 2: version 2, other answers),
+   ``:rollback`` (version 1, the first answers again), a corrupted
+   checkpoint under a stale manifest (409 ``integrity``), one with an inf
+   leaf (409 ``nan_scan``; version 1 answers as before after each) and a
+   second ``:reload`` (version 3, version 2's answers), with the graph and
+   compile counts unchanged across all of it (``lifecycle_drill``).
+10. Print a ``slice`` line per path, the ``graphs`` line (phase 6-8's graph
+   checks and host times), the ``lifecycle`` line and the ``kernels`` line
+   (K1 and K2, each with its launches on its path, counted through graph
+   replays; the vision path runs neither), the card line, then the result
+   line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -333,7 +354,8 @@ def graph_ms(fn, replays: int = 20, rounds: int = 5) -> float:
     between CUDA events (median of ``rounds``). For work of hundreds of
     kernels, such as a whole forward: ``time_calls`` would overfill the
     launch queue while it holds the card busy. The capture is the
-    measurement's own; the served path runs eagerly."""
+    measurement's own, of any function; ``graph_phase`` times the
+    runtime's own graphs."""
     import torch
 
     side = torch.cuda.Stream()
@@ -877,18 +899,27 @@ def h2d_overlap_check(rt, model) -> None:
 
 
 @contextlib.contextmanager
-def serving(config: Path, n_buckets: int):
-    """``python -m tpuserve_torch serve --config <config>`` on a free port,
-    healthy; yields the port and stops the server on the way out."""
+def serving(config: Path, n_buckets: int, overrides: tuple = ()):
+    """``python -m tpuserve_torch serve --config <config>`` (plus ``--set``
+    ``overrides``) on a free port, healthy; prints each model's graphs and
+    the memory their capture reserved; yields the port and stops the server
+    on the way out."""
     port = free_port()
+    sets = [a for o in (f"port={port}", *overrides) for a in ("--set", o)]
     with tempfile.TemporaryDirectory() as tmp:
         log_path = Path(tmp) / "server.log"
         with open(log_path, "w") as log:
             proc = subprocess.Popen([sys.executable, "-m", "tpuserve_torch", "serve",
-                                     "--config", str(config), "--set", f"port={port}"],
+                                     "--config", str(config), *sets],
                                     cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
         try:
             wait_healthy(proc, port, log_path, n_buckets)
+            for name, g in served_graphs(port).items():
+                mem = g["capture_memory"]
+                print(f"slice: {name} serves from {g['captures_total']} CUDA graphs "
+                      f"({g['buckets']} buckets x 3 parameter slots); memory_reserved "
+                      f"{mem['reserved_before_bytes'] / 2**20:.0f} MiB before capture, "
+                      f"{mem['reserved_after_bytes'] / 2**20:.0f} MiB after", flush=True)
             yield port
         finally:
             proc.send_signal(signal.SIGTERM)
@@ -899,12 +930,169 @@ def serving(config: Path, n_buckets: int):
                 proc.wait(30)
 
 
+def served_graphs(port: int) -> dict:
+    """Per served model: its graphs, compiles and capture memory
+    (``/v1/models``)."""
+    inv = json.loads(call(port, "GET", "/v1/models")[1])
+    return {name: {"captures_total": d["captures_total"], "compiles_total": d["compiles_total"],
+                   "buckets": len(d["buckets"]), "capture_memory": d["capture_memory"],
+                   "version": d["version"]} for name, d in inv.items()}
+
+
+# -- (a), (c), (d): the runtime's graphs against the eager forward ----------------
+
+def forward_with_logits(model, module, batch) -> dict:
+    """The model's forward with its float32 logits kept as a third output
+    (what ``ServingModel.forward`` computes and drops)."""
+    import torch
+
+    logits = model.logits(module, batch).float()
+    probs, idx = torch.topk(torch.softmax(logits, dim=-1), model.top_k, dim=-1)
+    return {"probs": probs, "indices": idx, "logits": logits}
+
+
+def seeded_batch(model, bucket: tuple, seed: int = 0) -> tuple:
+    """A host batch for ``bucket``, pinned: BERT token ids with ragged
+    padding, or uint8 wire planes."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    if model.cfg.family == "bert":
+        b, s_ = bucket
+        ids = rng.integers(5, model.vocab_size, (b, s_), dtype=np.int32)
+        lengths = rng.integers(1, s_ + 1, b)
+        mask = (np.arange(s_)[None, :] < lengths[:, None]).astype(np.int32)
+        host = (ids * mask, mask)
+    else:
+        host = tuple(rng.integers(0, 256, sp.shape, dtype=np.uint8)
+                     for sp in model.input_signature(bucket))
+    return tuple(torch.from_numpy(a).pin_memory().numpy() for a in host)
+
+
+def host_time(rt, model, bucket: tuple, host: tuple, rounds: int = 21) -> dict:
+    """Host time per batch of what the served h2d stage does — the pinned
+    copy plus the graph replay's enqueue (``rt.run`` with h2d_sync on) —
+    beside the eager yardstick on the same runtime (``rt.h2d`` + the eager
+    forward on the live slot's module); the card idle before each batch, as
+    at low load. Medians and ranges over ``rounds`` batches."""
+    import torch
+
+    rt.h2d_sync = True
+    graph, eager = [], []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = rt.run(bucket, host)
+        graph.append((time.perf_counter() - t0) * 1e3)
+        rt.fetch(out)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            model.forward(rt.module, rt.h2d(bucket, host))
+        eager.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    graph.sort()
+    eager.sort()
+    return {"graph_h2d_host_ms": graph[rounds // 2], "graph_h2d_host_ms_range": [graph[0], graph[-1]],
+            "eager_h2d_host_ms": eager[rounds // 2], "eager_h2d_host_ms_range": [eager[0], eager[-1]]}
+
+
+def replay_timing(rt, bucket: tuple, dev: tuple, replays: int = 20, rounds: int = 5) -> dict:
+    """The runtime's dispatch of one bucket — copy into the graph's static
+    inputs, replay, clone of the outputs — ``replays`` times back to back
+    between CUDA events, inputs resident (median of ``rounds``). The host
+    enqueues a dispatch in a fraction of its device time, so the card runs
+    them back to back; holding the card busy first (``time_calls``) would
+    overfill the launch queue with the graphs' kernels."""
+    import torch
+
+    for _ in range(3):
+        rt.dispatch(bucket, dev)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(rounds):
+        start.record()
+        for _ in range(replays):
+            rt.dispatch(bucket, dev)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / replays)
+    times.sort()
+    return {"replay_device_ms": times[rounds // 2], "replay_device_ms_range": [times[0], times[-1]]}
+
+
+def graph_phase(config: Path, timed: dict, logit_tol) -> dict:
+    """Every model of ``config`` on a runtime whose graphs also keep the
+    logits: (a) for every bucket, the graph replay against the eager
+    forward of the live slot on the same resident input — indices
+    identical, logits and probabilities bit-identical, else the max abs
+    logit diff printed and held within ``logit_tol(logits)``; (c) at the
+    buckets ``timed`` names, the served h2d stage's host time against the
+    eager yardstick (``host_time``), and the replay's device time
+    (``replay_timing``); (d) memory_reserved before and after capture."""
+    import torch
+
+    from tpuserve_torch.config import load_config
+    from tpuserve_torch.models import build
+    from tpuserve_torch.runtime import build_runtime
+
+    out = {}
+    for mcfg in load_config(str(config)).models:
+        model = build(mcfg)
+        model.forward = lambda module, batch, m=model: forward_with_logits(m, module, batch)
+        rt = build_runtime(model, device="cuda")
+        rows = {}
+        for bucket in model.buckets():
+            dev = rt.h2d(bucket, seeded_batch(model, bucket, seed=len(rows)))
+            replay = rt.dispatch(bucket, dev)
+            with torch.inference_mode():
+                eager = model.forward(rt.module, dev)
+            torch.cuda.synchronize()
+            label = "x".join(map(str, bucket))
+            check(torch.equal(replay["indices"], eager["indices"]),
+                  f"{mcfg.name} {label}: graph replay and eager forward disagree on the top-k indices")
+            bit = all(torch.equal(replay[k], eager[k]) for k in ("logits", "probs"))
+            diff = (replay["logits"] - eager["logits"]).abs().max().item()
+            if not bit:
+                # Under capture cuBLAS and cuDNN may choose other algorithms
+                # (other workspace limits), which sum in another order.
+                tol = logit_tol(eager["logits"])
+                print(f"graphs: {mcfg.name} {label}: replay vs eager logits differ by {diff:.3g} "
+                      f"(tol {tol:.3g}): a kernel chose another algorithm under capture",
+                      flush=True)
+                check(diff <= tol, f"{mcfg.name} {label}: replay vs eager logits {diff:.3g} > {tol:.3g}")
+            rows[label] = {"bit_identical": bit, "max_abs_logit_diff": diff}
+        entry = {"buckets": rows, "captures_total": rt.captures_total,
+                 "compiles_total": rt.compiles_total, "capture_memory": dict(rt.capture_memory)}
+        bucket = timed.get(mcfg.name)
+        if bucket is not None:
+            host = seeded_batch(model, bucket, seed=99)
+            entry["bucket_timed"] = list(bucket)
+            entry.update(host_time(rt, model, bucket, host))
+            entry.update(replay_timing(rt, bucket, rt.h2d(bucket, host)))
+        mem = rt.capture_memory
+        print(f"graphs: {mcfg.name}: {rt.captures_total} captures, every bucket's replay "
+              f"{'bit-identical to' if all(r['bit_identical'] for r in rows.values()) else 'within tolerance of'}"
+              f" the eager forward; memory_reserved {mem['reserved_before_bytes'] / 2**20:.0f} -> "
+              f"{mem['reserved_after_bytes'] / 2**20:.0f} MiB over the captures"
+              + (f"; at {bucket} the h2d stage's host time {entry['graph_h2d_host_ms']:.3f} ms "
+                 f"(eager {entry['eager_h2d_host_ms']:.3f} ms), replay device "
+                 f"{entry['replay_device_ms']:.3f} ms" if bucket else ""), flush=True)
+        out[mcfg.name] = entry
+        del rt, model
+        torch.cuda.empty_cache()
+    return out
+
+
 def slice_phase() -> dict:
     with serving(CONFIG, n_buckets=6) as port:
         run = drive(port)
         run["timing"] = serve_timing(port)
         print(json.dumps({"serve": run["timing"]}), flush=True)
     run["forward_ms"] = in_process_check(run["answers"])
+    run["graphs"] = graph_phase(CONFIG, {"bert": (32, 128)}, lambda logits: LOGIT_TOL)
     return run
 
 
@@ -1027,6 +1215,7 @@ def long_slice_phase() -> dict:
     with serving(LONG_CONFIG, n_buckets=2) as port:
         run = drive_long(port)
     run.update(long_in_process_check(run))
+    run["graphs"] = graph_phase(LONG_CONFIG, {"bert": (8, 2048)}, lambda logits: LOGIT_TOL)
     run["phase_s"] = time.perf_counter() - t0
     return run
 
@@ -1277,9 +1466,107 @@ def resnet_phase() -> dict:
     answers = run.pop("answers")
     run["models"] = {m.name: resnet_model_check(m, requests, answers)
                      for m in load_config(str(RESNET_CONFIG)).models}
+    run["graphs"] = graph_phase(
+        RESNET_CONFIG, {"resnet50": (32,), "resnet50_rgb": (32,)},
+        lambda logits: RESNET_LOGIT_REL * logits.abs().max().item())
     run["native_jpeg"] = native.available()
     run["phase_s"] = time.perf_counter() - t0
     return run
+
+
+# -- phase 9: the versioned lifecycle over HTTP ------------------------------------
+
+def lifecycle_drill(config: Path, name: str, n_buckets: int, body: bytes, ctype: str) -> dict:
+    """Serve ``config`` with model ``name``'s weights read from a seed-1
+    checkpoint (``save_npz`` of the port's own seeded init, in a temporary
+    directory) and drive its lifecycle over HTTP with one fixed request:
+    ``:reload`` of a seed-2 checkpoint gives version 2 and other answers;
+    ``:rollback`` gives version 1 and answers equal to the first ones; a
+    corrupted .npz under a stale manifest answers 409 at ``integrity``, a
+    checkpoint with an inf leaf 409 at ``nan_scan``, and version 1 answers
+    as before after each; a second ``:reload`` of the seed-2 checkpoint
+    gives version 3 and version 2's answers. ``runtime_compiles_total`` and
+    the capture count must not move across all of it."""
+    from tpuserve_torch import savedmodel
+    from tpuserve_torch.config import load_config
+    from tpuserve_torch.models import build
+    from tpuserve_torch.utils.trees import flatten_with_paths
+
+    model = build(load_config(str(config)).model(name))
+    trees = {seed: model.to_jax_params(model.init_params(seed)) for seed in (1, 2)}
+    del model
+    leaves = dict(flatten_with_paths(trees[2]))
+    bad_path = sorted(leaves)[len(leaves) // 2]
+    bad_leaf = leaves[bad_path].copy()
+    bad_leaf.reshape(-1)[0] = float("inf")
+    poisoned = savedmodel.leaves_to_tree({**leaves, bad_path: bad_leaf})
+    seen = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / f"{name}.npz")
+        savedmodel.save_npz(ckpt, trees[1])
+        with serving(config, n_buckets, overrides=(f"model.{name}.weights={ckpt}",)) as port:
+            def answer():
+                st, raw = call(port, "POST", f"/v1/models/{name}:classify", raw=body, ctype=ctype)
+                check(st == 200, f"lifecycle {name}: request answered {st} {raw[:200]!r}")
+                return json.loads(raw)
+
+            def admin(verb: str, want: int) -> dict:
+                t0 = time.perf_counter()
+                st, raw = call(port, "POST", f"/admin/models/{name}:{verb}")
+                out = json.loads(raw)
+                check(st == want, f"lifecycle {name}: :{verb} answered {st}, expected {want}: "
+                      f"{raw[:300]!r}")
+                seen.setdefault("admin_ms", []).append((verb, st, (time.perf_counter() - t0) * 1e3))
+                return out
+
+            graphs0 = served_graphs(port)[name]
+            v1 = answer()
+            savedmodel.save_npz(ckpt, trees[2])
+            check(admin("reload", 200)["version"] == 2, f"lifecycle {name}: reload is not version 2")
+            v2 = answer()
+            check(v2 != v1, f"lifecycle {name}: version 2 answers as version 1")
+            info = admin("rollback", 200)
+            check((info["version"], info["rolled_back_from"]) == (1, 2),
+                  f"lifecycle {name}: rollback answered {info}")
+            check(answer() == v1, f"lifecycle {name}: rollback does not answer as version 1")
+            stale = Path(savedmodel.manifest_path(ckpt)).read_text()
+            savedmodel.save_npz(ckpt, trees[1])                # bytes the manifest does not hold
+            Path(savedmodel.manifest_path(ckpt)).write_text(stale)
+            rej = admin("reload", 409)
+            check((rej["stage"], rej["version"]) == ("integrity", 1),
+                  f"lifecycle {name}: corrupted checkpoint answered {rej}")
+            check(answer() == v1, f"lifecycle {name}: version 1 changed after the integrity rejection")
+            savedmodel.save_npz(ckpt, poisoned)
+            rej = admin("reload", 409)
+            check((rej["stage"], rej["version"]) == ("nan_scan", 1) and bad_path in rej["error"],
+                  f"lifecycle {name}: inf checkpoint answered {rej}")
+            check(answer() == v1, f"lifecycle {name}: version 1 changed after the nan_scan rejection")
+            savedmodel.save_npz(ckpt, trees[2])
+            check(admin("reload", 200)["version"] == 3, f"lifecycle {name}: second reload not version 3")
+            check(answer() == v2, f"lifecycle {name}: version 3 does not answer as version 2 did")
+            graphs1 = served_graphs(port)[name]
+            check((graphs1["captures_total"], graphs1["compiles_total"])
+                  == (graphs0["captures_total"], graphs0["compiles_total"]),
+                  f"lifecycle {name}: captures/compiles moved {graphs0} -> {graphs1}")
+            versions = json.loads(call(port, "GET", f"/admin/models/{name}/versions")[1])
+    seen.update({"captures_total": graphs1["captures_total"],
+                 "compiles_total": graphs1["compiles_total"],
+                 "history": [h["status"] for h in versions["history"]],
+                 "live_version": versions["live_version"], "nan_leaf": bad_path})
+    print(f"lifecycle: {name}: reload v2, rollback to v1 (answers as before), integrity and "
+          f"nan_scan rejected with v1 answering as before, reload v3; captures "
+          f"{graphs1['captures_total']} and compiles {graphs1['compiles_total']:g} unchanged; "
+          f"admin calls (verb, status, ms) {[(v, s_, round(ms)) for v, s_, ms in seen['admin_ms']]}",
+          flush=True)
+    return seen
+
+
+def lifecycle_phase() -> dict:
+    """The drill on BERT-flash and on the int8 ResNet-50."""
+    texts = json.dumps({"texts": TEXTS_8}).encode()
+    _, _, framed, ctype, _ = resnet_requests()[1]                # 8 framed yuv420 items
+    return {"bert_flash": lifecycle_drill(CONFIG, "bert", 6, texts, "application/json"),
+            "resnet50_int8": lifecycle_drill(RESNET_CONFIG, "resnet50", 6, framed, ctype)}
 
 
 def main() -> int:
@@ -1305,9 +1592,11 @@ def main() -> int:
         run = slice_phase()
         long = long_slice_phase()
         vision = resnet_phase()
+        lifecycle = lifecycle_phase()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
+    vision_graphs = vision.pop("graphs")
     # Where a (32, S) batch's device time goes: 12 K1 launches of one forward.
     k1_ms = {s_: k1[s_]["line"]["ms"] for s_ in (64, 128)}
     share = {s_: 12 * k1_ms[s_] / run["forward_ms"][s_]["stream_ms"] for s_ in (64, 128)}
@@ -1335,6 +1624,11 @@ def main() -> int:
     # The vision path: no hand-written kernel; where its (32,) forward goes.
     print(json.dumps({"slice": dict(vision, path="resnet50",
                                     config=str(RESNET_CONFIG.relative_to(ROOT)))}))
+    # The runtime's graphs against the eager forward, and the host time of
+    # the served h2d stage, per path; then the lifecycle drills.
+    print(json.dumps({"graphs": {"bert_flash": run["graphs"], "bert_long_ring": long["graphs"],
+                                 "resnet50": vision_graphs}}))
+    print(json.dumps({"lifecycle": lifecycle}))
     print(json.dumps({"kernels": [dict(k1[128]["line"], launches=run["launches"]),
                                   dict(k2["line"], launches=long["k2_launches"])]}))
     print(card)

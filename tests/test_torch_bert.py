@@ -285,7 +285,8 @@ def test_batch_padding_invariance(served):
     (dict(quantize="int8"), "quantized"),
     (dict(parallelism="sharded"), "mesh modes"),
     (dict(tp=2), "mesh modes"),
-    (dict(weights="/nonexistent"), "weights"),
+    # The port reads the .npz form of the reference's tree, not a GraphDef.
+    pytest.param(dict(weights="/nonexistent/frozen.pb"), "npz", id="over5-weights"),
 ])
 def test_unported_options_raise(over, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -227,7 +227,7 @@ def test_serving_forward_matches_reference(name):
         assert set(held) == set(qleaves) and "head" in held
         for k, v in held.items():
             np.testing.assert_array_equal(v.numpy(), to_port_layout(qleaves[k][jqz.QKEY]))
-        assert rt.describe()["params"]["bytes"] < 0.3 * 4 * rt.describe()["params"]["count"]
+        assert rt.describe()["params"]["bytes"] < 0.3 * 4 * rt.describe()["params"]["params"]
 
     ref = jax.device_get(jax.jit(jmodel.forward)(jparams, jbatch))
     ref_logits = np.asarray(jax.jit(lambda p, b: jmodel.module.apply(

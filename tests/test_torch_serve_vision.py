@@ -10,7 +10,8 @@ runtime run on the same assembled batch (probabilities atol 1e-6, identical
 indices); malformed frames answer 400 with the reference's ``frame: ...``
 messages and tick ``frame_errors_total`` and ``bad_requests_total``; a PNG on
 the yuv420 wire is served through the counted PIL fallback; ``/stats`` carries
-the ``ingest`` block; every h2d thread ran each bucket before serving, and
+the ``ingest`` block; every bucket of every model was warmed up before
+serving (no thread needs a warm-up of its own), and
 ``runtime_compiles_total`` does not move after warm-up.
 """
 
@@ -30,7 +31,6 @@ import torch
 from tpuserve_torch import frame, preproc
 from tpuserve_torch.config import ModelConfig, ServerConfig, load_config
 from tpuserve_torch.models.resnet import ResNet, ResNet50Serving
-from tpuserve_torch.runtime import ModelRuntime
 from tpuserve_torch.server import ServerState, start_server, stop_server
 
 CPU_CUT = {"resnet50": dict(image_size=32, wire_size=24, batch_buckets=[1, 4]),
@@ -49,18 +49,8 @@ def npy(arr) -> bytes:
     return buf.getvalue()
 
 
-# Idents of the threads that ran ModelRuntime.warm_thread, per model.
-WARMED: dict[str, set] = {}
-WARM_THREAD = ModelRuntime.warm_thread
-
-
 def shallow_module(self):
     return ResNet((1, 1, 1, 1), self.cfg.num_classes, self.v1_downsample, self.bn_eps)
-
-
-def recording_warm_thread(self):
-    WARMED.setdefault(self.model.name, set()).add(threading.get_ident())
-    WARM_THREAD(self)
 
 
 @pytest.fixture(scope="module")
@@ -73,7 +63,6 @@ def server():
                               num_classes=10, parallelism="single"))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(ResNet50Serving, "build_module", shallow_module)
-        mp.setattr(ModelRuntime, "warm_thread", recording_warm_thread)
         state = ServerState(ServerConfig(models=models, decode_threads=2), device="cpu")
         state.build()
         loop = asyncio.new_event_loop()
@@ -219,14 +208,18 @@ def test_stats_ingest_block_and_inventory(server):
 
 
 def test_every_h2d_thread_warmed_before_serving(server):
-    """The forward runs on the h2d stage's threads, and cuDNN's plans are per
-    thread: each of them ran every bucket once before serving."""
+    """The h2d stage's threads need no warm-up of their own: on the card they
+    replay graphs captured at startup (cuDNN's per-thread plans are baked
+    into them), and here each slot's module runs eagerly. What must hold is
+    that every bucket of every model was warmed up at startup, before the
+    batchers served, and that each model holds its three parameter slots."""
     _, state = server
-    workers = state.stages.workers["h2d"]
-    assert set(WARMED) == set(state.runtimes)
-    for idents in WARMED.values():
-        assert len(idents) == workers == 2
-        assert threading.get_ident() not in idents
+    for name, rt in state.runtimes.items():
+        model = state.models[name]
+        assert sorted(v.bucket for v in rt.variants) == sorted(model.buckets())
+        assert all(v.compile_ms > 0 for v in rt.variants.values())
+        assert len(rt.slots) == 3 and rt.describe()["slots"]["live"] == 0
+        assert rt.captures_total == 0  # CUDA graphs are captured on the card only
 
 
 def test_compiles_do_not_move_after_warm_up(server):

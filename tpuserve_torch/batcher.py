@@ -111,10 +111,6 @@ class ModelBatcher:
             self.model, pcfg.arena_slots or (self.depth + pcfg.assemble_ahead),
             self.metrics, pin=self.runtime.device.type == "cuda")
         self._inflight = asyncio.Semaphore(self._admission_cap)
-        # The forward runs on the h2d stage's threads; the startup warm-up
-        # ran on another, and cuDNN's execution plans are per thread.
-        await asyncio.get_running_loop().run_in_executor(
-            None, self.stages.on_each_worker, "h2d", self.runtime.warm_thread)
         self._running = True
 
     async def stop(self) -> None:

@@ -3,17 +3,22 @@ the port serves, in its own copy (the port imports nothing from
 ``tpuserve``).
 
 The port reads the same TOML files as the JAX package. What it serves is
-typed: :class:`ModelConfig`, :class:`PipelineConfig` and the top-level
-:class:`ServerConfig` fields, with the JAX package's defaults and checks.
-Every other setting the JAX package knows — its other tables (``[router]``,
-``[adaptive]``, ``[lifecycle]``, ...) and the keys the port has no use for
-yet (``drain_timeout_s``, ``batch_retry``, ...) — parses into the
+typed: :class:`ModelConfig`, :class:`PipelineConfig`,
+:class:`LifecycleConfig`, :class:`FaultsConfig` (with its
+:class:`FaultRuleConfig` rules) and the top-level :class:`ServerConfig`
+fields, with the JAX package's defaults and checks. Every other setting the
+JAX package knows — its other tables (``[router]``, ``[adaptive]``, ...)
+and the keys the port has no use for yet (``drain_timeout_s``,
+``batch_retry``, ...) — parses into the
 ``unported`` dict of its ``ServerConfig`` or ``ModelConfig`` as a plain
 value. :func:`unported_settings` names those that ask for behaviour the
 port lacks, and the server refuses to start while any is set: a JAX config
 tuned with them never loads into a server that quietly behaves otherwise.
 A setting that switches a missing feature off (``[adaptive] enabled =
-false``, ``session_mode = "direct"``) asks for nothing and is accepted.
+false``, ``session_mode = "direct"``) asks for nothing and is accepted. So
+is a ``[[faults.rule]]`` whose kind fires at a call site the port has;
+while ``[faults]`` is enabled, a rule whose call site the port lacks (the
+batcher's, the worker processes', streaming's) is refused by name.
 
 Example TOML::
 
@@ -43,8 +48,8 @@ from typing import Any
 # is refused, except ``enabled = false`` (and ``[parallel] mode`` naming the
 # one-device layout).
 UNPORTED_TABLES = ("adaptive", "autopilot", "cache", "distributed", "events",
-                   "faults", "genserve", "lifecycle", "parallel", "router",
-                   "scheduler", "telemetry", "tenants", "trace", "worker")
+                   "genserve", "parallel", "router", "scheduler", "telemetry",
+                   "tenants", "trace", "worker")
 _TABLE_OFF: dict[str, tuple] = {"enabled": (False,)}
 _PARALLEL_OFF: dict[str, tuple] = {"mode": ("", "single")}
 
@@ -53,9 +58,9 @@ _PARALLEL_OFF: dict[str, tuple] = {"mode": ("", "single")}
 # such value, any setting is refused).
 _SERVER_UNPORTED: dict[str, tuple] = {
     "ingest_loops": (1,), "decode_inline": (False,), "profiler_port": (0,),
-    "compilation_cache_dir": ("",), "canary_interval_s": (0,),
+    "compilation_cache_dir": ("",),
     "debug_nans": (False,), "prewarm_executables": (True,),
-    "roofline_probe_iters": (0,), "trace_capacity": (), "log_json": (False,),
+    "trace_capacity": (), "log_json": (False,),
     "watchdog_interval_s": (0,), "drain_timeout_s": (),
 }
 _MODEL_UNPORTED: dict[str, tuple] = {
@@ -68,6 +73,22 @@ _MODEL_UNPORTED: dict[str, tuple] = {
 }
 
 WIRE_FORMATS = ("rgb8", "yuv420")
+
+# Fault kinds the reference's injector knows (tpuserve/config.py FAULT_KINDS).
+FAULT_KINDS = ("batch_error", "slow_dispatch", "decode_corrupt", "worker_death",
+               "canary_fail", "device_error", "slow_compute", "kill_group_loop",
+               "reload_corrupt", "reload_nan", "reload_regressed", "worker_crash",
+               "worker_hang", "worker_slow", "stream_stall", "stream_disconnect")
+# The kinds whose call sites the port lacks, with the ROADMAP.md queue-1
+# item that ports them; a rule of one of these is refused while [faults]
+# is enabled.
+_FAULT_KINDS_UNPORTED = {
+    "batch_error": "batcher robustness", "slow_dispatch": "batcher robustness",
+    "kill_group_loop": "batcher robustness", "worker_death": "deferred mode",
+    "worker_crash": "router and workers", "worker_hang": "router and workers",
+    "worker_slow": "router and workers", "stream_stall": "streaming",
+    "stream_disconnect": "streaming",
+}
 # The reference's quantization modes that the port does not serve yet: they
 # parse, and the server and the runtime refuse them.
 _QUANTIZE_UNPORTED = ("int8c",)
@@ -113,14 +134,94 @@ class PipelineConfig:
 
 
 @dataclass
+class FaultRuleConfig:
+    """One armed chaos rule (TOML ``[[faults.rule]]``; tpuserve_torch.faults)."""
+
+    # Which call site fires (see FAULT_KINDS).
+    kind: str = "batch_error"
+    # Model name the rule applies to; "*" matches every model.
+    model: str = "*"
+    # Per-call-site chance of firing, drawn from a rule-local seeded RNG so
+    # runs are reproducible.
+    probability: float = 1.0
+    # Max times the rule fires; -1 = unlimited.
+    count: int = -1
+    # Sleep for the slow_* kinds (ignored by the others).
+    delay_ms: float = 0.0
+    # Rule-local RNG seed; 0 derives one from FaultsConfig.seed + rule index.
+    seed: int = 0
+    # Arm the rule only after the injector has been alive this long (s).
+    after_s: float = 0.0
+    # Restrict the rule to one worker process id: -1 = any process (the
+    # port serves in one process, which has no worker id).
+    worker: int = -1
+
+    def __post_init__(self) -> None:
+        if self.kind not in FAULT_KINDS:
+            raise ValueError(
+                f"unknown fault kind {self.kind!r}; known: {list(FAULT_KINDS)}")
+        if not 0.0 <= self.probability <= 1.0:
+            raise ValueError(f"probability must be in [0, 1], got {self.probability}")
+        if self.after_s < 0:
+            raise ValueError(f"faults.rule.after_s must be >= 0, got {self.after_s}")
+        if self.worker < -1:
+            raise ValueError(f"faults.rule.worker must be >= -1, got {self.worker}")
+
+
+@dataclass
+class FaultsConfig:
+    """Deterministic fault injection for chaos testing (``[faults]`` TOML).
+
+    Off by default; staging configs arm rules to prove that the lifecycle's
+    gates and the server's canaries hold while degraded."""
+
+    enabled: bool = False
+    # Base seed rule-local RNGs derive from (reproducible chaos runs).
+    seed: int = 0
+    rules: list[FaultRuleConfig] = field(default_factory=list)
+
+
+@dataclass
+class LifecycleConfig:
+    """Versioned model lifecycle (``[lifecycle]`` TOML; tpuserve_torch.lifecycle).
+
+    Every weight reload is a staged, reversible transition: load off the
+    serving path -> verify integrity -> canary the *staged* params -> publish
+    as a numbered version with the previous tree retained -> auto-rollback on
+    a post-publish canary failure or a failed canary within the soak
+    window."""
+
+    # Verify the sidecar checksum manifest (written by save_npz) against the
+    # loaded tree when one is present.
+    verify_checksum: bool = True
+    # Reject reloads of checkpoints that carry NO manifest (strict
+    # provenance mode).
+    require_manifest: bool = False
+    # Scan the candidate tree for NaN/Inf float leaves before staging.
+    nan_scan: bool = True
+    # Run the canary inference against the STAGED params (through the
+    # staged parameter slot's graphs) before publishing; a failure never
+    # publishes.
+    staged_canary: bool = True
+    # Post-publish soak window (s): if the periodic canary fails within this
+    # window, the reload auto-rolls back to the retained last-known-good
+    # version. 0 disables soaking.
+    soak_s: float = 0.0
+    # Soak poll cadence (s).
+    soak_poll_s: float = 0.25
+    # Version-transition records kept per model (/admin .../versions).
+    history_limit: int = 16
+
+
+@dataclass
 class ModelConfig:
     """Per-model serving configuration."""
 
     name: str
     # Which implementation in tpuserve_torch.models to build.
     family: str = "resnet50"
-    # Optional path to weights; None => seeded random init. (Loading weights
-    # is not ported yet: a family raises when it is set.)
+    # Optional path to weights: a .npz of the reference's parameter tree
+    # (tpuserve_torch.savedmodel); None => seeded random init.
     weights: str | None = None
     # Optional class-label file (one name per line, in class-index order);
     # responses then carry a "label" next to each class index.
@@ -196,10 +297,20 @@ class ServerConfig:
     decode_threads: int = 8
     # Validate-on-startup canary (tiny inference per model) on/off.
     startup_canary: bool = True
+    # Periodic canary interval (s): each model's canary re-runs so /healthz
+    # (and the lifecycle's soak monitor) reflect live serving health. 0 off.
+    canary_interval_s: float = 0.0
+    # Per-bucket raw-forward probes at startup (ModelRuntime.probe_all_raw):
+    # this many dispatches per bucket, inputs resident. 0 off.
+    roofline_probe_iters: int = 0
     # Retry-After hint (seconds) on 429 shed and drain 503 responses.
     shed_retry_after_s: float = 1.0
     # Pipelined host execution knobs (stage pools, depth, arenas).
     pipeline: PipelineConfig = field(default_factory=PipelineConfig)
+    # Deterministic chaos injection (off by default).
+    faults: FaultsConfig = field(default_factory=FaultsConfig)
+    # Versioned reload lifecycle (integrity checks, staged canary, rollback).
+    lifecycle: LifecycleConfig = field(default_factory=LifecycleConfig)
     # The JAX package's settings the port does not serve yet, as parsed:
     # "[table] key" for its tables, the bare key for top-level keys.
     unported: dict[str, Any] = field(default_factory=dict)
@@ -228,6 +339,10 @@ def unported_settings(cfg: ServerConfig) -> list[str]:
                 if v not in _MODEL_UNPORTED[k]]
         if m.quantize in _QUANTIZE_UNPORTED:
             out.append(f"model {m.name}: quantize = {m.quantize!r}")
+    if cfg.faults.enabled:
+        out += [f"[[faults.rule]] kind = {r.kind!r} (not yet ported "
+                f"({_FAULT_KINDS_UNPORTED[r.kind]}))"
+                for r in cfg.faults.rules if r.kind in _FAULT_KINDS_UNPORTED]
     return out
 
 
@@ -260,11 +375,19 @@ def load_config(path: str | None = None, overrides: list[str] | None = None) -> 
 
     model_dicts = raw.pop("model", [])
     pipeline_dict = raw.pop("pipeline", None)
+    faults_dict = raw.pop("faults", None)
+    lifecycle_dict = raw.pop("lifecycle", None)
     tables = {t: raw.pop(t) for t in UNPORTED_TABLES if t in raw}
     cfg: ServerConfig = _build(ServerConfig, raw, _SERVER_UNPORTED)
     cfg.models = [_build(ModelConfig, m, _MODEL_UNPORTED) for m in model_dicts]
     if pipeline_dict is not None:
         cfg.pipeline = _build(PipelineConfig, pipeline_dict)
+    if lifecycle_dict is not None:
+        cfg.lifecycle = _build(LifecycleConfig, lifecycle_dict)
+    if faults_dict is not None:
+        rule_dicts = faults_dict.pop("rule", [])
+        cfg.faults = _build(FaultsConfig, faults_dict)
+        cfg.faults.rules = [_build(FaultRuleConfig, r) for r in rule_dicts]
     for table, keys in tables.items():
         cfg.unported.update({f"[{table}] {k}": v for k, v in keys.items()})
 

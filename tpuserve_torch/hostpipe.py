@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import asyncio
 import concurrent.futures as cf
-import threading
 from collections import deque
 from typing import Any, Callable
 
@@ -109,22 +108,6 @@ class StageExecutors:
             return await loop.run_in_executor(self._pools[stage], fn, *args)
         finally:
             self._set_depth(model, stage, self._depth[(model, stage)] - 1)
-
-    def on_each_worker(self, stage: str, fn: Callable) -> None:
-        """Run ``fn()`` once on every thread of ``stage``'s pool and wait:
-        each task holds its thread at a barrier until all have one, so the
-        pool starts all its threads and no thread runs ``fn`` twice. For
-        per-thread state that must be warm before serving (cuDNN keeps its
-        execution plans per thread)."""
-        n = self.workers[stage]
-        barrier = threading.Barrier(n)
-
-        def task():
-            barrier.wait(timeout=600)
-            fn()
-
-        for f in [self._pools[stage].submit(task) for _ in range(n)]:
-            f.result()
 
     def stats(self) -> dict:
         per_stage_depth = {s: 0 for s in PIPELINE_STAGES}

@@ -1,12 +1,18 @@
 """ServingModel: the contract between the model zoo and the runtime/batcher,
 ported from ``tpuserve/models/base.py``.
 
-The runtime runs ``forward`` once per (batch-bucket, input-shape) pair at
-startup as a warm-up, then per batch; the batcher assembles padded host
-batches, and ``forward`` does everything device-side — preprocessing in front
-of the network (``device_preprocess``) and postprocessing (softmax, top-k)
-behind it — so one H2D copy of the inputs and one D2H copy of small outputs
-happen per batch.
+The runtime warms ``forward`` up once per (batch-bucket, input-shape) pair
+at startup and, on CUDA, captures it as a graph per parameter slot, which it
+replays per batch; the batcher assembles padded host batches, and
+``forward`` does everything device-side — preprocessing in front of the
+network (``device_preprocess``, inside ``logits``) and postprocessing
+(softmax, top-k) behind it — so one H2D copy of the inputs and one D2H copy
+of small outputs happen per batch.
+
+Weights: ``load_tree`` reads the reference's float32 parameter tree — the
+``.npz`` that ``cfg.weights`` names, held to its checksum manifest, or the
+seeded init — and each family's ``from_jax_params`` / ``to_jax_params``
+convert between that tree and its module's state_dict.
 
 ``input_signature`` gives a tuple of (shape, dtype) specs (numpy dtypes, the
 host batch layout) where the JAX package gives ``jax.ShapeDtypeStruct``s; a
@@ -26,6 +32,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from tpuserve_torch import savedmodel
 from tpuserve_torch.config import ModelConfig
 
 # A host batch: a tuple of np.ndarrays with leading batch dim.
@@ -73,6 +80,8 @@ class ServingModel(abc.ABC):
     def __init__(self, cfg: ModelConfig) -> None:
         self.cfg = cfg
         self.name = cfg.name
+        if cfg.weights:
+            savedmodel.detect_format(cfg.weights)  # refuse a form the port cannot read
         self.class_labels: list[str] | None = None
         if cfg.labels:
             with open(cfg.labels, encoding="utf-8") as f:
@@ -86,10 +95,34 @@ class ServingModel(abc.ABC):
     def init_params(self, seed: int = 0) -> dict[str, torch.Tensor]:
         """Seeded random float32 parameters as a CPU state_dict."""
 
+    @abc.abstractmethod
+    def from_jax_params(self, tree: Any) -> dict[str, torch.Tensor]:
+        """The reference's parameter tree (numpy leaves) -> this port's
+        float32 state_dict."""
+
+    @abc.abstractmethod
+    def to_jax_params(self, state_dict: dict[str, torch.Tensor]) -> dict:
+        """The inverse of ``from_jax_params``, bit for bit: a float32
+        state_dict -> the reference's tree of numpy arrays."""
+
+    def load_tree(self, verify_integrity: bool = True,
+                  require_manifest: bool = False) -> dict:
+        """The reference's float32 parameter tree: ``cfg.weights``' .npz,
+        held to its sidecar checksum manifest before anything else reads it
+        (IntegrityError; a missing manifest is one only with
+        ``require_manifest``), or the seeded init (seed 0) when no weights
+        are configured."""
+        if not self.cfg.weights:
+            return self.to_jax_params(self.init_params(0))
+        tree = savedmodel.load_npz(self.cfg.weights)
+        if verify_integrity:
+            savedmodel.verify_manifest_if_present(self.cfg.weights, tree,
+                                                  require=require_manifest)
+        return tree
+
     def load_params(self) -> dict[str, torch.Tensor]:
-        """Seeded random init (seed 0). Loading ``cfg.weights`` is not
-        ported yet; families reject ``weights=`` when they are built."""
-        return self.init_params(0)
+        """``load_tree`` (integrity gate included), as a float32 state_dict."""
+        return self.from_jax_params(self.load_tree())
 
     @abc.abstractmethod
     def build_module(self) -> torch.nn.Module:
@@ -125,9 +158,18 @@ class ServingModel(abc.ABC):
         return batch
 
     @abc.abstractmethod
+    def logits(self, module: torch.nn.Module, batch: Any) -> torch.Tensor:
+        """Device preprocess + network on a batch of device tensors: the
+        (B, classes) logits."""
+
+    # Entries of each answer's top-k (families set it from num_classes).
+    top_k = 5
+
     def forward(self, module: torch.nn.Module, batch: Any) -> Outputs:
-        """Device preprocess + network + device postprocess on a batch of
-        device tensors."""
+        """``logits`` + device postprocess: float32 softmax and top-k."""
+        probs = torch.softmax(self.logits(module, batch).float(), dim=-1)
+        top_p, top_i = torch.topk(probs, self.top_k, dim=-1)
+        return {"probs": top_p, "indices": top_i}
 
     # -- host-side ----------------------------------------------------------
     @abc.abstractmethod

@@ -22,8 +22,9 @@ forward ends in softmax and top-k on the device.
 
 ``from_jax_params`` converts the reference's flax parameter tree (numpy
 leaves) into this module's state_dict, which is how the tests hold the port
-to the JAX package on the same weights. Without weights the model serves a
-seeded init.
+to the JAX package on the same weights, and ``to_jax_params`` converts
+back. ``cfg.weights`` names a ``.npz`` of that tree; without it the model
+serves a seeded init.
 
 Sizes come from ``cfg.options`` (layers/d_model/heads/d_ff/vocab_size) with
 BERT-base defaults; the vocabulary is ``synthetic_vocab`` or a standard
@@ -188,6 +189,45 @@ def from_jax_params(tree) -> dict[str, torch.Tensor]:
     return sd
 
 
+def to_jax_params(state_dict: dict[str, torch.Tensor], heads: int) -> dict:
+    """This port's state_dict -> the reference's flax tree ``{"params":
+    ...}`` of float32 numpy arrays: ``from_jax_params`` inverted, bit for
+    bit (``heads`` splits the q/k/v and out projections back into (H, hd))."""
+    sd = {k: v.detach().to(torch.float32).cpu() for k, v in state_dict.items()}
+
+    def n(t: torch.Tensor) -> np.ndarray:
+        return t.contiguous().numpy()
+
+    def dense(prefix: str) -> dict:
+        return {"kernel": n(sd[f"{prefix}.weight"].T), "bias": n(sd[f"{prefix}.bias"])}
+
+    def norm(prefix: str) -> dict:
+        return {"scale": n(sd[f"{prefix}.weight"]), "bias": n(sd[f"{prefix}.bias"])}
+
+    p = {"embed": {"embedding": n(sd["embed.weight"])},
+         "pos_embed": n(sd["pos_embed"]),
+         "ln_embed": norm("ln_embed"),
+         "pooler": dense("pooler"),
+         "classifier": dense("classifier")}
+    i = 0
+    while f"layers.{i}.attn.query.weight" in sd:
+        pre = f"layers.{i}"
+        attn = {}
+        for name in ("query", "key", "value"):
+            w = sd[f"{pre}.attn.{name}.weight"]            # (H*hd, D)
+            attn[name] = {"kernel": n(w.T.reshape(w.shape[1], heads, -1)),
+                          "bias": n(sd[f"{pre}.attn.{name}.bias"].reshape(heads, -1))}
+        out = sd[f"{pre}.attn.out.weight"]                  # (D, H*hd)
+        attn["out"] = {"kernel": n(out.T.reshape(heads, -1, out.shape[0])),
+                       "bias": n(sd[f"{pre}.attn.out.bias"])}
+        p[f"layer{i}"] = {"attn": attn, "ln_attn": norm(f"{pre}.ln_attn"),
+                          "mlp_up": dense(f"{pre}.mlp_up"),
+                          "mlp_down": dense(f"{pre}.mlp_down"),
+                          "ln_mlp": norm(f"{pre}.ln_mlp")}
+        i += 1
+    return {"params": p}
+
+
 class BertServing(ServingModel):
     def __init__(self, cfg: ModelConfig) -> None:
         super().__init__(cfg)
@@ -227,8 +267,6 @@ class BertServing(ServingModel):
             raise not_ported(
                 f"parallelism={cfg.parallelism!r} (tp={cfg.tp}, sp={cfg.sp}); "
                 "set parallelism = \"single\"", "mesh modes")
-        if cfg.weights:
-            raise not_ported("weights=", "lifecycle and weights")
         self.attention = attention
         self.mesh: Mesh | None = None
         self.max_seq = max(cfg.seq_buckets)
@@ -298,13 +336,16 @@ class BertServing(ServingModel):
         return (TensorSpec((b, s), np.dtype(np.int32)),
                 TensorSpec((b, s), np.dtype(np.int32)))
 
+    def from_jax_params(self, tree) -> dict[str, torch.Tensor]:
+        return from_jax_params(tree)
+
+    def to_jax_params(self, state_dict: dict[str, torch.Tensor]) -> dict:
+        return to_jax_params(state_dict, self.heads)
+
     # -- device side ---------------------------------------------------------
-    def forward(self, module: BertClassifier, batch) -> dict:
+    def logits(self, module: BertClassifier, batch) -> torch.Tensor:
         ids, mask = self.device_preprocess(batch)
-        logits = module(ids, mask)
-        probs = torch.softmax(logits, dim=-1)
-        top_p, top_i = torch.topk(probs, self.top_k, dim=-1)
-        return {"probs": top_p, "indices": top_i}
+        return module(ids, mask)
 
     # -- host side -----------------------------------------------------------
     def host_decode(self, payload: bytes, content_type: str) -> np.ndarray:

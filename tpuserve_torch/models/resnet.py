@@ -30,6 +30,8 @@ Kept from the reference, exactly:
 ``from_jax_params`` converts the reference's ``{"params", "batch_stats"}``
 tree (numpy leaves) into this module's float32 state_dict; that is how the
 tests hold the port to the JAX package on the same weights.
+``to_jax_params`` converts back, so a ``.npz`` checkpoint of that tree can
+be written from the port's own seeded init.
 """
 
 from __future__ import annotations
@@ -172,6 +174,30 @@ def from_jax_params(tree) -> dict[str, torch.Tensor]:
     return sd
 
 
+def to_jax_params(state_dict: dict[str, torch.Tensor]) -> dict:
+    """This port's float32 state_dict -> the reference's ``{"params",
+    "batch_stats"}`` tree of numpy arrays: ``from_jax_params`` inverted, bit
+    for bit (OIHW -> HWIO, ``Linear.weight`` -> (in, out), 1-D weights ->
+    BatchNorm ``scale``, running statistics -> ``batch_stats``)."""
+    tree: dict = {"params": {}, "batch_stats": {}}
+    for name, v in state_dict.items():
+        t = v.detach().to(torch.float32).cpu()
+        *mods, leaf = name.split(".")
+        root = tree["params"]
+        if leaf in ("running_mean", "running_var"):
+            root, key = tree["batch_stats"], leaf[len("running_"):]
+        elif leaf == "weight" and t.dim() >= 2:
+            key = "kernel"
+            t = t.permute(2, 3, 1, 0) if t.dim() == 4 else t.T
+        else:
+            key = "scale" if leaf == "weight" else leaf
+        node = root
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[key] = t.contiguous().numpy()
+    return tree
+
+
 class ResNet50Serving(ImageClassifierServing):
     def __init__(self, cfg: ModelConfig) -> None:
         super().__init__(cfg)
@@ -181,6 +207,12 @@ class ResNet50Serving(ImageClassifierServing):
 
     def build_module(self) -> ResNet:
         return ResNet((3, 4, 6, 3), self.cfg.num_classes, self.v1_downsample, self.bn_eps)
+
+    def from_jax_params(self, tree) -> dict[str, torch.Tensor]:
+        return from_jax_params(tree)
+
+    def to_jax_params(self, state_dict: dict[str, torch.Tensor]) -> dict:
+        return to_jax_params(state_dict)
 
     def init_params(self, seed: int = 0) -> dict[str, torch.Tensor]:
         """Seeded init with the reference's initializer families (it cannot

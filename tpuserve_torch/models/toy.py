@@ -6,7 +6,7 @@ whole ServingModel contract (device preprocessing, top-k behind the network,
 padding, framed and npy client batches) without a real network's cost. The
 weights are ``nn.Linear``s, (out, in), so the weight-only int8 path treats
 them as the reference treats its (in, out) kernels; ``from_jax_params``
-transposes them.
+and ``to_jax_params`` transpose them.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from torch import nn
 
 from tpuserve_torch import frame, preproc
 from tpuserve_torch.config import ModelConfig
-from tpuserve_torch.models.base import DTYPES, ServingModel, TensorSpec, not_ported
+from tpuserve_torch.models.base import DTYPES, ServingModel, TensorSpec
 
 EDGE = 8  # toy wire shape: (8, 8, 3) uint8
 
@@ -39,15 +39,21 @@ def from_jax_params(tree) -> dict[str, torch.Tensor]:
             "fc2.weight": t["w2"].T.contiguous(), "fc2.bias": t["b2"]}
 
 
+def to_jax_params(state_dict: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """This port's state_dict -> the reference's {"w1", "b1", "w2", "b2"}."""
+    sd = {k: v.detach().to(torch.float32).cpu() for k, v in state_dict.items()}
+    return {"w1": sd["fc1.weight"].T.contiguous().numpy(), "b1": sd["fc1.bias"].numpy(),
+            "w2": sd["fc2.weight"].T.contiguous().numpy(), "b2": sd["fc2.bias"].numpy()}
+
+
 class ToyServing(ServingModel):
     TOP_K = 3
 
     def __init__(self, cfg: ModelConfig) -> None:
         super().__init__(cfg)
-        if cfg.weights:
-            raise not_ported("weights=", "lifecycle and weights")
         self.dtype = DTYPES[cfg.dtype]
         self.hidden = int(cfg.options.get("hidden", 32))
+        self.top_k = min(self.TOP_K, cfg.num_classes)
 
     def build_module(self) -> ToyMLP:
         return ToyMLP(self.hidden, self.cfg.num_classes)
@@ -72,11 +78,14 @@ class ToyServing(ServingModel):
         (x,) = batch
         return x.to(self.dtype).reshape(x.shape[0], -1) / 255.0
 
-    def forward(self, module: ToyMLP, batch: tuple) -> dict:
-        logits = module(self.device_preprocess(batch))
-        probs = torch.softmax(logits.float(), dim=-1)
-        top_p, top_i = torch.topk(probs, min(self.TOP_K, self.cfg.num_classes), dim=-1)
-        return {"probs": top_p, "indices": top_i}
+    def logits(self, module: ToyMLP, batch: tuple) -> torch.Tensor:
+        return module(self.device_preprocess(batch))
+
+    def from_jax_params(self, tree) -> dict[str, torch.Tensor]:
+        return from_jax_params(tree)
+
+    def to_jax_params(self, state_dict: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+        return to_jax_params(state_dict)
 
     def host_decode(self, payload: bytes, content_type: str) -> np.ndarray:
         return preproc.decode_image(payload, content_type, edge=EDGE)

@@ -39,8 +39,6 @@ class ImageClassifierServing(ServingModel):
             raise not_ported(
                 f"parallelism={cfg.parallelism!r} (tp={cfg.tp}, sp={cfg.sp}); "
                 "set parallelism = \"single\"", "mesh modes")
-        if cfg.weights:
-            raise not_ported("weights=", "lifecycle and weights")
         self.dtype = DTYPES[cfg.dtype]
         self.top_k = min(self.TOP_K, cfg.num_classes)
         # Normalisation the network was trained with, as (mean, std) applied
@@ -71,11 +69,8 @@ class ImageClassifierServing(ServingModel):
         return preproc.device_prepare_images(rgb, self.cfg.image_size, dtype=self.dtype,
                                              mean=self.norm_mean, std=self.norm_std)
 
-    def forward(self, module: torch.nn.Module, batch: tuple) -> dict:
-        logits = module(self.device_preprocess(batch))
-        probs = torch.softmax(logits.float(), dim=-1)
-        top_p, top_i = torch.topk(probs, self.top_k, dim=-1)
-        return {"probs": top_p, "indices": top_i}
+    def logits(self, module: torch.nn.Module, batch: tuple) -> torch.Tensor:
+        return module(self.device_preprocess(batch))
 
     # -- host side -----------------------------------------------------------
     def host_decode(self, payload: bytes, content_type: str) -> Any:

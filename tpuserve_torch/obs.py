@@ -8,7 +8,10 @@ servers: ``batches_total{model=}``, ``items_total{model=}``,
 ``runtime_variants{model=}``, and the ingest counters
 ``frame_errors_total{model=}``, ``native_decode_fallback_total{model=}``,
 ``ingest_requests_total{loop=}`` and ``ingest_bytes_total{loop=}`` (the port
-has one accept loop, 0).
+has one accept loop, 0), the lifecycle's ``model_version{model=}``,
+``reloads_total{model=}``, ``reload_rejected_total{model=,stage=}`` and
+``rollbacks_total{model=,reason=}``, and the fault injector's
+``faults_injected_total{model=,kind=}``.
 
 Not ported yet (ROADMAP.md queue 1, "Observability and analysis"): request
 trace contexts, the flight recorder, the span ring and histogram exemplars.
@@ -100,6 +103,18 @@ class Gauge:
 PHASES = ("body_read", "parse", "queue", "preproc", "h2d", "compute",
           "postproc", "total")
 
+# Lifecycle reload gates, in pipeline order (tpuserve_torch.lifecycle): the
+# stage label on reload_rejected_total{model=,stage=}. "post_canary" is the
+# only one that implies a rollback happened (the candidate had published).
+RELOAD_STAGES = ("integrity", "nan_scan", "structure", "load",
+                 "staged_canary", "post_canary")
+
+# Reasons on rollbacks_total{model=,reason=}: the explicit admin endpoint, a
+# failed post-publish canary, and the soak-window triggers (the port has no
+# circuit breaker yet, so "soak_breaker" never fires).
+ROLLBACK_REASONS = ("manual", "post_publish_canary", "soak_breaker",
+                    "soak_canary")
+
 # Host-pipeline stage executors (tpuserve_torch.hostpipe): one thread pool
 # per stage, labelled on pipeline_stage_depth{model=,stage=}.
 PIPELINE_STAGES = ("assemble", "h2d", "fetch", "postproc")
@@ -135,6 +150,12 @@ class Metrics:
             if g is None:
                 g = self._gauges[name] = Gauge(name)
             return g
+
+    def set_model_version(self, model: str, version: int) -> None:
+        """model_version{model=}: the live weight-tree version number
+        (tpuserve_torch.lifecycle). A sawtooth on a dashboard = publish
+        followed by rollback."""
+        self.gauge(f"model_version{{model={model}}}").set(float(version))
 
     def render_prometheus(self) -> str:
         """Prometheus text exposition, ending with the OpenMetrics ``# EOF``."""

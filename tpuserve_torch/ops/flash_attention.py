@@ -26,7 +26,10 @@ Dispatch is by the tensors' device, never by a fallback:
 
 ``launches`` counts K1's launches and ``stats_launches`` K2's (one per call on
 CUDA tensors, none on the CPU), so a run can show that its main path went
-through the kernel.
+through the kernel. A call made while a CUDA graph is being captured counts
+once at capture, though its launch runs at every replay; whoever replays the
+graph adds the launches it recorded (``count_replay``): the serving
+runtime's graphs do.
 
 Gradients: a ``torch.autograd.Function`` for each variant whose backward
 recomputes through its plain version, as the reference's ``_flash_bwd`` does
@@ -60,6 +63,15 @@ def reset_launches() -> None:
     global launches, stats_launches
     with _launches_lock:
         launches = stats_launches = 0
+
+
+def count_replay(k1: int, k2: int) -> None:
+    """Add the K1 and K2 launches of one replay of a captured CUDA graph
+    (the launches its capture recorded) to the counts."""
+    global launches, stats_launches
+    with _launches_lock:
+        launches += k1
+        stats_launches += k2
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

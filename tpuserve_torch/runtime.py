@@ -1,40 +1,79 @@
-"""Runtime: parameters on one device and the per-bucket variant registry,
-ported from ``tpuserve/runtime.py``.
+"""Runtime: parameter slots on one device, a captured CUDA graph per (bucket,
+slot), the variant registry and the versioned weight lifecycle, ported from
+``tpuserve/runtime.py``.
 
-The JAX runtime AOT-compiles one XLA executable per (bucket, device set).
-PyTorch runs eagerly, so here a *variant* is one bucket's warmed-up forward:
-every bucket runs once on zeros at startup, that warm-up is what
-``runtime_compiles_total`` counts, and a steady-state delta of 0 shows that
-serving never meets an unwarmed shape. (Capturing each variant as a CUDA
-graph is a later step, ROADMAP.md queue 1.)
+The JAX runtime AOT-compiles one XLA executable per (bucket, device set) and
+passes the weight tree to it as an argument, so publishing a new tree never
+recompiles. A CUDA graph instead bakes in the addresses of every tensor it
+reads. So the port keeps ``N_SLOTS`` = 3 *parameter slots* — live,
+last-known-good and staged — each one copy of the module's parameters and
+buffers (int8 values, float32 scales and BatchNorm statistics included) at
+fixed addresses, and captures one graph per (bucket, slot):
+
+- startup: each bucket is warmed up eagerly, once per slot (this sets K1/K2's
+  shared-memory opt-in, cuBLAS' workspace and cuDNN's plans before any
+  capture), then captured per slot into one memory pool per runtime. A
+  variant is the bucket's graph set: ``runtime_compiles_total`` counts one
+  per bucket, as the JAX runtime counts one per (bucket, replica), and the
+  variant summary reports its ``captures`` and ``compile_ms``. A capture that
+  fails raises at startup; no bucket is ever served eagerly on CUDA.
+- ``dispatch`` copies the device batch into the graph's static inputs,
+  replays it and clones its (small) outputs, all on the calling thread's
+  current stream and under one lock, so batches in flight never share a
+  static buffer. The launches of K1/K2 each graph recorded at capture are
+  added to the kernels' counts on every replay.
+- ``stage_params`` loads a candidate, runs the gates (integrity, NaN/Inf
+  scan, structure) and only then copies it in place into a free slot, after
+  that slot's last replay has finished on the card; ``publish`` and
+  ``rollback`` switch which slot is live. Zero new captures, ever.
+
+On the CPU the slots and the version machine are the same and each slot's
+module runs eagerly (the tests do this); only capture and replay are
+CUDA-only. The graphs of one runtime share a memory pool and are replayed on
+one stream, one at a time in stream order, so they never run concurrently.
 
 The device is explicit: ``build_runtime(model)`` serves on the current CUDA
-device, ``device="cpu"`` on the CPU (what the tests do); CUDA absent without
-``device="cpu"`` raises instead of falling back.
+device, ``device="cpu"`` on the CPU; CUDA absent without ``device="cpu"``
+raises instead of falling back.
 
 Hot path, one batch: ``h2d`` copies the pinned host batch with
-``non_blocking=True`` on a copy stream of its own, ``dispatch`` enqueues
-the forward on the current stream (which waits for that copy on the card)
-and returns device tensors at once, ``fetch`` blocks for the small outputs'
-copy back (called off the event loop by the batcher's fetch stage).
+``non_blocking=True`` on a copy stream of its own, ``dispatch`` replays the
+bucket's graph on the current stream (which waits for that copy on the
+card) and returns device tensors at once, ``fetch`` blocks for the small
+outputs' copy back (called off the event loop by the batcher's fetch stage).
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Any
 
 import numpy as np
 import torch
 
 from tpuserve_torch import quantize
 from tpuserve_torch.config import ModelConfig
+from tpuserve_torch.faults import FaultInjected
 from tpuserve_torch.models.base import DTYPES, ServingModel
 from tpuserve_torch.obs import Metrics
+from tpuserve_torch.ops import flash_attention as fa
 from tpuserve_torch.parallel.mesh import MeshPlan, make_mesh
+from tpuserve_torch.savedmodel import IntegrityError
+from tpuserve_torch.utils.locks import new_lock
+from tpuserve_torch.utils.trees import map_leaves, nonfinite_paths, tree_summary
 
 log = logging.getLogger("tpuserve_torch.runtime")
+
+# Parameter slots: live, last-known-good and staged. Rollback stays a switch
+# of the live slot, so no fewer will do.
+N_SLOTS = 3
+
+
+class NaNDetected(ValueError):
+    """A candidate weight tree holds NaN/Inf float leaves; the reload gate
+    (tpuserve_torch.lifecycle) rejects it and the old version keeps serving."""
 
 
 def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
@@ -69,7 +108,8 @@ def backend_info(device: torch.device) -> dict:
 class VariantKey:
     """Identity of one specialized variant: the static batch/seq bucket,
     the compute dtype, the quantization mode and the parallelism layout
-    (the JAX registry's key, unchanged)."""
+    (the JAX registry's key, unchanged; weight versions are not part of it,
+    so publish and rollback reuse the variant set)."""
 
     bucket: tuple
     dtype: str
@@ -85,10 +125,12 @@ class VariantKey:
 
 @dataclass
 class Variant:
-    """Registry entry: one VariantKey, warmed up on this runtime's device."""
+    """Registry entry: one VariantKey, warmed up and (on CUDA) captured on
+    every parameter slot."""
 
     key: VariantKey
     compile_ms: float = 0.0
+    captures: int = 0
 
     def summary(self) -> dict:
         return {
@@ -97,12 +139,59 @@ class Variant:
             "quantize": self.key.quantize,
             "parallelism": self.key.parallelism,
             "replicas": 1,
+            "captures": self.captures,
             "compile_ms": round(self.compile_ms, 1),
         }
 
 
+@dataclass
+class Graph:
+    """One bucket's forward captured on one parameter slot: its static
+    input and output tensors, and the K1/K2 launches one replay makes."""
+
+    graph: Any  # torch.cuda.CUDAGraph
+    inputs: tuple
+    outputs: dict
+    launches: tuple[int, int]
+
+
+@dataclass
+class Slot:
+    """One parameter slot: a module whose parameters and buffers (every
+    tensor the forward reads) stay at fixed addresses for the runtime's
+    life, its graphs, and the event recorded after its last replay."""
+
+    module: torch.nn.Module
+    tensors: dict[str, torch.Tensor]
+    graphs: dict[tuple, Graph] = field(default_factory=dict)
+    last_replay: Any = None  # torch.cuda.Event
+    # Bumped by each stage into this slot (a staged handle stays valid only
+    # while its generation is the slot's).
+    generation: int = 0
+
+
+@dataclass(frozen=True)
+class StagedParams:
+    """What ``stage_params`` returns: the slot holding the candidate. Pass
+    it to ``dispatch``/``run`` as ``params_override`` (the staged canary)
+    and then to ``publish``."""
+
+    slot: int
+    generation: int
+
+
+def slot_tensors(module: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """Every parameter and buffer of ``module`` by name, non-persistent
+    buffers included (a quantized weight's ``scale_cast``): all the storage
+    a forward reads."""
+    out = dict(module.named_parameters())
+    out.update(module.named_buffers())
+    return out
+
+
 class ModelRuntime:
-    """Owns the model's parameters on one device and its variant registry."""
+    """Owns the model's parameter slots on one device, their graphs, the
+    variant registry and the weight version machine."""
 
     def __init__(self, model: ServingModel,
                  device: "str | torch.device | None" = None,
@@ -128,79 +217,156 @@ class ModelRuntime:
         self.dtype = DTYPES[self.cfg.dtype]
         # Single mode serves on a 1-device mesh (every axis of size 1).
         # Mesh-aware models (BERT's ring/Ulysses attention) close over it;
-        # this precedes building the module and warming up.
+        # this precedes building the modules and warming up.
         self.mesh = make_mesh(MeshPlan(), devices=[self.device])
         model.bind_mesh(self.mesh)
-        self.module: torch.nn.Module | None = None
+        self.slots: list[Slot] = []
         self.variants: dict[VariantKey, Variant] = {}
-        self.version = 1
+        # memory_reserved() before the first capture and after the last.
+        self.capture_memory: dict[str, int] = {}
         # When True, h2d() waits for its own copy so the "h2d" phase owns
         # the transfer and "compute" measures dispatch-to-ready only (set
         # from [pipeline] h2d_sync by the batcher).
         self.h2d_sync = False
-        self._copy_stream = (torch.cuda.Stream(self.device)
-                             if self.device.type == "cuda" else None)
+        cuda = self.device.type == "cuda"
+        self._copy_stream = torch.cuda.Stream(self.device) if cuda else None
+        self._capture_stream = torch.cuda.Stream(self.device) if cuda else None
+        self._pool = torch.cuda.graph_pool_handle() if cuda else None
+        # Versioned lifecycle: the live slot carries a monotonically
+        # numbered version; publish() retains the previous slot as
+        # last-known-good so rollback() is a switch, not a reload.
+        self.version = 1
+        self._version_seq = 1  # never reused, even across rollbacks
+        self._live = 0
+        self._prev: int | None = None
+        self._prev_version: int | None = None
+        # Serializes replays (static buffers) and the choice of their slot;
+        # the reload lock serializes stage-into-slot, publish and rollback.
+        self._replay_lock = new_lock("runtime.replay")
+        self._reload_lock = new_lock("runtime.reload")
+        # Deterministic chaos (tpuserve_torch.faults.FaultInjector); None in
+        # production. device_error/slow_compute fire in dispatch().
+        self.injector = None
         name = model.name
         self._c_compiles = self.metrics.counter(
             f"runtime_compiles_total{{model={name}}}")
         self._g_variants = self.metrics.gauge(f"runtime_variants{{model={name}}}")
+        self._c_variant_batches: dict[tuple, Any] = {}
 
     # -- startup ------------------------------------------------------------
-    def load_params(self) -> None:
-        """Build the module and load the float32 params (seeded init) on the
-        host; cast every floating one to the compute dtype; under
-        ``quantize = "int8"`` quantize each eligible cast weight (the
-        reference's order: cast, then quantize); then move the module to the
-        device without a dtype, so int8 values and float32 scales arrive as
-        they are. Convolutional families keep 4-D weights channels_last."""
+    def _prepare(self, state_dict: dict[str, torch.Tensor]) -> torch.nn.Module:
+        """A fresh module holding ``state_dict`` as the forward reads it, on
+        the host: every floating tensor cast to the compute dtype; under
+        ``quantize = "int8"`` each eligible cast weight quantized (the
+        reference's order: cast, then quantize); 4-D weights channels_last
+        for convolutional families. ValueError when the state_dict does not
+        fit the module."""
         module = self.model.build_module()
-        module.load_state_dict(self.model.load_params())
+        try:
+            module.load_state_dict(state_dict)
+        except (RuntimeError, KeyError) as e:
+            raise ValueError(f"weights do not fit {self.model.name}'s module: {e}") from e
         module.to(dtype=self.dtype)
         module.eval().requires_grad_(False)
         if self.cfg.quantize == "int8":
             quantize.quantize_module(module, self.dtype, self.cfg.quantize_min_size)
         if self.model.channels_last:
             module.to(memory_format=torch.channels_last)
-        module.to(device=self.device)
-        self.module = module
+        return module
+
+    def load_params(self) -> None:
+        """Load the model's parameters (``cfg.weights`` under its integrity
+        gate, or the seeded init) into every slot: one module per slot,
+        moved to the device without a dtype so int8 values and float32
+        scales arrive as they are. Slot 0 is live."""
+        state_dict = self.model.load_params()
+        self.slots = []
+        for _ in range(N_SLOTS):
+            module = self._prepare(state_dict).to(device=self.device)
+            self.slots.append(Slot(module, slot_tensors(module)))
+
+    @property
+    def module(self) -> torch.nn.Module:
+        """The live slot's module."""
+        return self.slots[self._live].module
 
     def variant_key(self, bucket: tuple) -> VariantKey:
         return VariantKey(bucket=tuple(bucket), dtype=self.cfg.dtype,
                           quantize=self.cfg.quantize, parallelism=self.mode)
 
     def compile_all(self) -> None:
-        """Warm up every bucket once: the port's counterpart of the JAX
-        runtime's AOT compile (each counts in runtime_compiles_total)."""
+        """Warm up (and on CUDA capture) every bucket on every slot: the
+        port's counterpart of the JAX runtime's AOT compile."""
         t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            self.capture_memory["reserved_before_bytes"] = torch.cuda.memory_reserved(self.device)
         for bucket in self.model.buckets():
             self._compile_bucket(tuple(bucket))
-        log.info("%s: warmed %d bucket(s) on %s in %.1fs", self.model.name,
-                 len(self.variants), self.device, time.perf_counter() - t0)
+        if self.device.type == "cuda":
+            self.capture_memory["reserved_after_bytes"] = torch.cuda.memory_reserved(self.device)
+        log.info("%s: %d bucket(s) warmed, %d graph(s) captured on %s in %.1fs",
+                 self.model.name, len(self.variants), self.captures_total,
+                 self.device, time.perf_counter() - t0)
+
+    def ensure_compiled(self) -> int:
+        """Warm up and capture any configured bucket missing from the
+        variant registry, on every slot; returns how many were added. The
+        lifecycle calls it at stage time, so the staged canary and the
+        first post-publish request never meet an uncaptured bucket; a
+        candidate lands in a slot whose graphs exist, so steady state this
+        returns 0."""
+        new = 0
+        for b in self.model.buckets():
+            if self.variant_key(tuple(b)) not in self.variants:
+                self._compile_bucket(tuple(b))
+                new += 1
+        return new
 
     def _zeros(self, bucket: tuple) -> tuple:
         return tuple(np.zeros(s.shape, s.dtype) for s in self.model.input_signature(bucket))
 
     def _compile_bucket(self, bucket: tuple) -> None:
         t0 = time.perf_counter()
-        self.fetch(self.run(bucket, self._zeros(bucket)))
+        captures = 0
+        if self.device.type == "cuda":
+            for slot in self.slots:
+                slot.graphs[bucket] = self._capture(slot, bucket)
+                captures += 1
+        else:
+            self.fetch(self.run(bucket, self._zeros(bucket)))
         key = self.variant_key(bucket)
-        self.variants[key] = Variant(key, (time.perf_counter() - t0) * 1e3)
+        self.variants[key] = Variant(key, (time.perf_counter() - t0) * 1e3, captures)
+        self._c_variant_batches[bucket] = self.metrics.counter(
+            f"runtime_variant_batches_total{{model={self.model.name},variant={key.label}}}")
         self._c_compiles.inc()
         self._g_variants.set(len(self.variants))
 
-    def warm_thread(self) -> None:
-        """Run every bucket's forward once on the calling thread, uncounted
-        (each bucket counted its compile at startup): cuDNN builds and
-        caches its convolution plans per thread, so a thread that serves
-        without this builds them on its first batch of each bucket, inside
-        a request. The batcher calls it on each of its h2d threads before
-        it serves."""
-        for bucket in self.model.buckets():
-            self.fetch(self.run(tuple(bucket), self._zeros(tuple(bucket))))
+    def _capture(self, slot: Slot, bucket: tuple) -> Graph:
+        """One eager warm-up of ``bucket`` on ``slot`` and then its capture,
+        both on the runtime's capture stream; a failed capture raises."""
+        inputs = tuple(torch.from_numpy(a).to(self.device) for a in self._zeros(bucket))
+        stream = self._capture_stream
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.inference_mode():
+            with torch.cuda.stream(stream):
+                self.model.forward(slot.module, inputs)
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+            # K1/K2 launches count once per call at capture; startup captures
+            # on one thread, so the counts' delta is this graph's.
+            k1, k2 = fa.launches, fa.stats_launches
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self._pool, stream=stream):
+                outputs = self.model.forward(slot.module, inputs)
+            launches = (fa.launches - k1, fa.stats_launches - k2)
+        return Graph(graph, inputs, outputs, launches)
 
     @property
     def compiles_total(self) -> float:
         return self._c_compiles.value
+
+    @property
+    def captures_total(self) -> int:
+        return sum(v.captures for v in self.variants.values())
 
     def variants_summary(self) -> list[dict]:
         return [v.summary() for _, v in sorted(
@@ -212,9 +378,9 @@ class ModelRuntime:
         assembly arena pins its buffers on CUDA) with ``non_blocking=True``,
         on the runtime's own copy stream, so the copy overlaps the forward
         of the batch before it. The calling thread's current stream, which
-        runs the forward, waits for the copy on the card; with ``h2d_sync``
-        the host waits for this copy too, and for nothing queued before it.
-        """
+        replays the forward, waits for the copy on the card; with
+        ``h2d_sync`` the host waits for this copy too, and for nothing
+        queued before it."""
         tensors = [torch.from_numpy(np.ascontiguousarray(a)) for a in host_batch]
         if self.device.type != "cuda":
             return tuple(tensors)
@@ -233,26 +399,204 @@ class ModelRuntime:
             copied.synchronize()
         return tuple(out)
 
-    def dispatch(self, bucket: tuple, dev_batch: tuple) -> dict:
-        """Enqueue the forward on the device batch; returns device outputs
-        without waiting for them."""
-        with torch.inference_mode():
-            return self.model.forward(self.module, dev_batch)
+    def dispatch(self, bucket: tuple, dev_batch: tuple,
+                 params_override: StagedParams | None = None) -> dict:
+        """Enqueue the forward on the device batch against the live slot —
+        or, with ``params_override``, against a staged candidate's slot
+        (the lifecycle's staged canary runs the candidate through the real
+        graphs without it ever serving) — and return device outputs without
+        waiting for them. On CUDA: copy into the graph's static inputs,
+        replay, clone the outputs, record the slot's last-replay event, all
+        on the current stream under the replay lock. The chaos kinds
+        device_error/slow_compute fire here, below the batcher."""
+        if self.injector is not None:
+            delay = self.injector.delay_s("slow_compute", self.model.name)
+            if delay > 0:
+                time.sleep(delay)  # runs on a stage executor thread
+            self.injector.check("device_error", self.model.name)
+        with self._replay_lock, torch.inference_mode():
+            slot = self.slots[self._live if params_override is None
+                              else params_override.slot]
+            if self.device.type != "cuda":
+                out = self.model.forward(slot.module, dev_batch)
+            else:
+                g = slot.graphs[bucket]
+                for dst, src in zip(g.inputs, dev_batch):
+                    dst.copy_(src)
+                g.graph.replay()
+                fa.count_replay(*g.launches)
+                out = {k: v.clone() for k, v in g.outputs.items()}
+                slot.last_replay = torch.cuda.Event()
+                slot.last_replay.record()
+        c = self._c_variant_batches.get(bucket)
+        if c is not None:
+            c.inc()
+        return out
 
-    def run(self, bucket: tuple, host_batch: tuple) -> dict:
+    def run(self, bucket: tuple, host_batch: tuple,
+            params_override: StagedParams | None = None) -> dict:
         """h2d + dispatch in one call; returns device outputs immediately."""
-        return self.dispatch(bucket, self.h2d(bucket, host_batch))
+        return self.dispatch(bucket, self.h2d(bucket, host_batch),
+                             params_override=params_override)
 
     @staticmethod
     def fetch(outputs: dict) -> dict:
         """Block for the D2H copy of the outputs; call off the event loop."""
         return {k: v.cpu().numpy() for k, v in outputs.items()}
 
+    # -- raw-forward probes ---------------------------------------------------
+    def probe_raw_ms(self, bucket: tuple, iters: int = 8) -> float:
+        """The forward's time for one bucket (ms/batch), inputs resident:
+        ``iters`` back-to-back dispatches against one device batch, closed
+        by one dependent read, so the host-device copy never enters the
+        window. Call at startup, before the injector is armed."""
+        dev = self.h2d(bucket, self._zeros(bucket))
+        self.fetch(self.dispatch(bucket, dev))  # warm the window
+        t0 = time.perf_counter()
+        out = None
+        for _ in range(max(1, iters)):
+            out = self.dispatch(bucket, dev)
+        self.fetch(out)
+        return (time.perf_counter() - t0) / max(1, iters) * 1e3
+
+    def probe_all_raw(self, iters: int = 8) -> dict[tuple, float]:
+        """probe_raw_ms over every bucket, logged; returns {bucket: ms}."""
+        t0 = time.perf_counter()
+        out = {b: self.probe_raw_ms(b, iters=iters)
+               for b in sorted(v.bucket for v in self.variants)}
+        log.info("%s: raw-forward probes %s in %.1fs", self.model.name,
+                 {str(b): round(ms, 3) for b, ms in out.items()},
+                 time.perf_counter() - t0)
+        return out
+
+    # -- versioned weight lifecycle ------------------------------------------
+    #
+    # stage_params -> (staged canary, lifecycle.py) -> publish | rollback.
+    # Staging loads and validates the candidate off the serving path and
+    # copies it in place into a free slot (neither live nor last-known-good);
+    # publish and rollback switch the live slot under the reload lock. A
+    # batch reads the live slot under the replay lock, so it runs wholly on
+    # one version.
+
+    def stage_params(self, verify_integrity: bool = True, nan_scan: bool = True,
+                     require_manifest: bool = False) -> StagedParams:
+        """Load + validate a candidate weight tree and write it into a free
+        slot without publishing it.
+
+        Gates, in the JAX order: the sidecar checksum manifest
+        (IntegrityError), a NaN/Inf scan of the float leaves cast to the
+        compute dtype (NaNDetected), and structure, shape and dtype against
+        the slots (ValueError). Injected ``reload_corrupt`` / ``reload_nan``
+        faults fire at their gates. Only then is the candidate copied into
+        the slot — in place, so its graphs stay valid — once the slot's last
+        replay has finished on the card."""
+        name = self.model.name
+        if self.injector is not None:
+            try:
+                self.injector.check("reload_corrupt", name)
+            except FaultInjected as e:
+                raise IntegrityError(f"checksum mismatch (injected): {e}") from e
+        tree = self.model.load_tree(verify_integrity=verify_integrity,
+                                    require_manifest=require_manifest)
+        if nan_scan:
+            if self.injector is not None:
+                try:
+                    self.injector.check("reload_nan", name)
+                except FaultInjected as e:
+                    raise NaNDetected(f"NaN leaves (injected): {e}") from e
+            bad = nonfinite_paths(map_leaves(self._cast_leaf, tree))
+            if bad:
+                raise NaNDetected(
+                    f"candidate weights for {name} hold NaN/Inf in {bad}; "
+                    "candidate rejected")
+        try:
+            state_dict = self.model.from_jax_params(tree)
+        except (KeyError, TypeError, ValueError) as e:
+            raise ValueError(f"reloaded weights do not match the module: {e!r}; "
+                             "old params kept") from e
+        candidate = slot_tensors(self._prepare(state_dict))
+        live = self.slots[self._live].tensors
+        if list(candidate) != list(live) or any(
+                a.shape != b.shape or a.dtype != b.dtype
+                for a, b in zip(candidate.values(), live.values())):
+            raise ValueError("reloaded weights do not match the captured "
+                             "shapes/dtypes; old params kept")
+        with self._reload_lock:
+            free = next(i for i in range(N_SLOTS) if i not in (self._live, self._prev))
+            slot = self.slots[free]
+            slot.generation += 1
+            # A batch that read this slot while it was live has enqueued
+            # its replay by the time the replay lock is free.
+            with self._replay_lock:
+                last = slot.last_replay
+            if last is not None:
+                last.synchronize()
+            for key, t in slot.tensors.items():
+                t.copy_(candidate[key])
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            return StagedParams(free, slot.generation)
+
+    def _cast_leaf(self, leaf: Any) -> Any:
+        """A tree leaf as the forward would hold it, for the NaN/Inf scan
+        (a float32 value beyond the compute dtype's range casts to inf)."""
+        a = np.asarray(leaf)
+        return torch.from_numpy(a).to(self.dtype) if a.dtype.kind == "f" else a
+
+    def publish(self, staged: StagedParams) -> dict:
+        """Make a staged slot live as version N+1; the previous live slot is
+        retained as last-known-good for rollback(). In-flight batches finish
+        on the slot they read."""
+        with self._reload_lock:
+            if self.slots[staged.slot].generation != staged.generation:
+                raise ValueError("the staged candidate was overwritten by a later "
+                                 "stage; stage it again")
+            self._prev = self._live
+            self._prev_version = self.version
+            self._version_seq += 1
+            self.version = self._version_seq
+            self._live = staged.slot
+            return {"model": self.model.name, "version": self.version,
+                    "previous_version": self._prev_version}
+
+    def rollback(self) -> dict:
+        """Make the retained last-known-good slot live again (version N-1).
+        Version numbers are never reused: a later publish continues the
+        monotonic sequence. Raises ValueError when nothing is retained
+        (startup state, or already rolled back)."""
+        with self._reload_lock:
+            if self._prev is None:
+                raise ValueError(
+                    f"no retained previous version for {self.model.name} "
+                    "to roll back to")
+            rolled_from = self.version
+            self._live, self.version = self._prev, self._prev_version
+            self._prev = self._prev_version = None
+            return {"model": self.model.name, "version": self.version,
+                    "rolled_back_from": rolled_from}
+
+    @property
+    def previous_version(self) -> int | None:
+        """The retained last-known-good version, or None."""
+        return self._prev_version
+
+    def reload_params(self) -> dict:
+        """Hot-swap weights from cfg.weights with no new capture: stage +
+        publish in one call, no canary (the HTTP reload goes through
+        tpuserve_torch.lifecycle, which canaries the staged slot first and
+        owns rollback). A failed stage raises and the old version keeps
+        serving."""
+        t0 = time.perf_counter()
+        info = self.publish(self.stage_params())
+        info["reload_ms"] = round((time.perf_counter() - t0) * 1e3, 1)
+        info["params"] = self.describe()["params"]
+        return info
+
     # -- info ---------------------------------------------------------------
     def describe(self) -> dict:
         # Every tensor the forward reads: weights (int8 where quantized),
-        # scales and BatchNorm statistics.
-        params = list(self.module.state_dict().values()) if self.module is not None else []
+        # scales and BatchNorm statistics, of one slot.
+        params = self.slots[self._live].tensors if self.slots else {}
         return {
             "model": self.model.name,
             "family": self.cfg.family,
@@ -270,16 +614,18 @@ class ModelRuntime:
             "buckets": [list(k.bucket) for k in sorted(self.variants, key=lambda k: k.bucket)],
             "variants": self.variants_summary(),
             "compiles_total": self.compiles_total,
-            "params": {"count": sum(p.numel() for p in params),
-                       "bytes": sum(p.numel() * p.element_size() for p in params)},
+            "slots": {"count": len(self.slots), "live": self._live, "previous": self._prev},
+            "captures_total": self.captures_total,
+            "capture_memory": dict(self.capture_memory),
+            "params": tree_summary(params),
         }
 
 
 def build_runtime(model: ServingModel,
                   device: "str | torch.device | None" = None,
                   metrics: Metrics | None = None) -> ModelRuntime:
-    """Parameters on ``device`` (default: the current CUDA device) and every
-    bucket warmed up."""
+    """Parameter slots on ``device`` (default: the current CUDA device) and
+    every bucket warmed up and, on CUDA, captured per slot."""
     rt = ModelRuntime(model, device=device, metrics=metrics)
     rt.load_params()
     rt.compile_all()

@@ -24,6 +24,16 @@ Endpoints (response shapes and status codes as in the JAX server):
   quantize, device).
 - ``POST /debug/kernels:reset`` sets the kernels' launch counts to 0, so a
   caller can count exactly the launches of the requests it sends next.
+- ``POST /admin/models/{name}:reload`` (staged, canary-gated weight swap
+  from the model's ``weights``: 200 with the new version; 409 with the
+  failing gate's ``stage`` and the version still serving; 500 with
+  ``rolled_back: true`` when the post-publish canary failed and the
+  lifecycle reverted), ``POST /admin/models/{name}:rollback`` (200, or 409
+  when no previous version is retained) and ``GET
+  /admin/models/{name}/versions`` (live and previous version, soak state,
+  history), backed by ``tpuserve_torch.lifecycle``. ``/stats`` carries a
+  ``lifecycle`` block, and with ``canary_interval_s`` > 0 every model's
+  canary re-runs on that interval, feeding ``/healthz``.
 
 Errors: decode failure 400 (a malformed frame answers its ``frame: ...``
 message and ticks ``frame_errors_total{model=}`` beside
@@ -33,10 +43,10 @@ deadline exceeded 504, batch failure 500. Error bodies are
 ``{"error": ..., "trace_id": ...}``; every predict response carries
 ``X-Trace-Id``.
 
-Not ported yet (ROADMAP.md queue 1): the router/worker tiers, lifecycle
-(reload/rollback), result cache, fleet scheduler, tenants, the telemetry and
-event planes, streaming, parallel ingest loops and request tracing beyond
-the trace id.
+Not ported yet (ROADMAP.md queue 1): the router/worker tiers, the circuit
+breaker, result cache, fleet scheduler (``:warm``/``:demote``), tenants,
+the telemetry and event planes, streaming, parallel ingest loops, the
+``/stats`` roofline block and request tracing beyond the trace id.
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ from __future__ import annotations
 import asyncio
 import concurrent.futures as cf
 import contextlib
+import functools
 import json
 import logging
 import math
@@ -60,8 +71,10 @@ from tpuserve_torch import models as modelzoo
 from tpuserve_torch import preproc
 from tpuserve_torch.batcher import DeadlineExceeded, ModelBatcher, QueueFull
 from tpuserve_torch.config import ServerConfig, unported_settings
+from tpuserve_torch.faults import FaultInjector
 from tpuserve_torch.frame import FrameError
 from tpuserve_torch.hostpipe import StageExecutors
+from tpuserve_torch.lifecycle import ModelLifecycle, ReloadRejected
 from tpuserve_torch.obs import PROMETHEUS_CONTENT_TYPE, Metrics
 from tpuserve_torch.ops import flash_attention as fa
 from tpuserve_torch.runtime import (ModelRuntime, backend_info, build_runtime,
@@ -183,7 +196,11 @@ class ServerState:
         # The one accept loop's ingest counters (the JAX server's loop 0).
         self.ingest_requests = self.metrics.counter("ingest_requests_total{loop=0}")
         self.ingest_bytes = self.metrics.counter("ingest_bytes_total{loop=0}")
+        self.lifecycles: dict[str, ModelLifecycle] = {}
+        self.injector = (FaultInjector(cfg.faults, self.metrics)
+                         if cfg.faults.enabled else None)
         self.canary_ok: dict[str, bool] = {}
+        self._canary_task: asyncio.Task | None = None
         self.draining = False
         self.serving_addresses: list = []
         # Open client connections (keep-alive ones idle between requests),
@@ -196,6 +213,10 @@ class ServerState:
             t0 = time.perf_counter()
             model = modelzoo.build(mcfg)
             rt = build_runtime(model, device=self.device, metrics=self.metrics)
+            if self.cfg.roofline_probe_iters > 0:
+                rt.probe_all_raw(int(self.cfg.roofline_probe_iters))
+            # Armed after warm-up and probes: chaos targets the serving path.
+            rt.injector = self.injector
             self.models[mcfg.name] = model
             self.runtimes[mcfg.name] = rt
             log.info("model %s ready in %.1fs: %s", mcfg.name,
@@ -209,23 +230,55 @@ class ServerState:
             await b.start()
             self.batchers[name] = b
             self.handles[name] = ModelHandles(name, model.cfg, self.metrics)
+            self.lifecycles[name] = ModelLifecycle(
+                name, self.runtimes[name], model, self.cfg.lifecycle, self.metrics,
+                canary=functools.partial(self.run_canary, name),
+                canary_status=functools.partial(self.canary_ok.get, name),
+                injector=self.injector)
         if self.cfg.startup_canary:
             for name in self.models:
                 await self.run_canary(name)
+        if self.cfg.canary_interval_s > 0:
+            self._canary_task = asyncio.get_running_loop().create_task(self._canary_loop())
 
     def _note_native_fallback(self, model: str) -> None:
         self.handles[model].native_fallback.inc()
 
     async def stop(self) -> None:
+        for lc in self.lifecycles.values():
+            lc.close()  # stop soak monitors
+        if self._canary_task is not None:
+            self._canary_task.cancel()
+            with contextlib.suppress(asyncio.CancelledError):
+                await self._canary_task
+            self._canary_task = None
         for b in self.batchers.values():
             await b.stop()
         self.stages.shutdown()
         self.pool.shutdown(wait=False, cancel_futures=True)
 
+    async def _canary_loop(self) -> None:
+        """Re-run every model's canary each ``canary_interval_s`` so
+        /healthz (and the lifecycle's soak monitor) reflect live serving
+        health. Each cycle's timeout is bounded by the interval but never
+        below a model's own request_timeout_ms."""
+        base = min(60.0, max(2.0, 2.0 * self.cfg.canary_interval_s))
+        timeouts = {name: max(base, m.cfg.request_timeout_ms / 1e3)
+                    for name, m in self.models.items()}
+        while True:
+            await asyncio.sleep(self.cfg.canary_interval_s)
+            try:
+                await asyncio.gather(*(self.run_canary(n, timeout_s=t)
+                                       for n, t in timeouts.items()))
+            except Exception:  # one bad cycle must not end re-canarying
+                log.exception("periodic canary cycle failed")
+
     async def run_canary(self, name: str, timeout_s: float = 60.0) -> bool:
         """Tiny end-to-end inference through the batcher; feeds /healthz."""
         model = self.models[name]
         try:
+            if self.injector is not None:
+                self.injector.check("canary_fail", name)
             item = model.canary_item()
             fut = self.batchers[name].submit(item, group=model.group_key(item))
             await asyncio.wait_for(fut, timeout=timeout_s)
@@ -240,6 +293,8 @@ class ServerState:
     # -- routing -------------------------------------------------------------
     async def handle(self, req: Request) -> Response:
         path = req.path
+        if path.startswith("/admin/models/"):
+            return await self.admin(req, path[len("/admin/models/"):])
         if path.startswith("/v1/models/") and ":" in path:
             name, _, verb = path[len("/v1/models/"):].rpartition(":")
             if verb in _VERBS and name and "/" not in name:
@@ -264,6 +319,43 @@ class ServerState:
             resp.headers["Allow"] = method
             return resp
         return fn()
+
+    async def admin(self, req: Request, rest: str) -> Response:
+        """``{name}:reload``, ``{name}:rollback`` (POST) and
+        ``{name}/versions`` (GET), with the JAX server's answers."""
+        if rest.endswith("/versions"):
+            name, verb, method = rest[:-len("/versions")], "versions", "GET"
+        else:
+            name, _, verb = rest.rpartition(":")
+            method = "POST"
+        if not name or "/" in name or verb not in ("reload", "rollback", "versions"):
+            return _text(404)
+        if req.method != method and not (method == "GET" and req.method == "HEAD"):
+            resp = _text(405)
+            resp.headers["Allow"] = method
+            return resp
+        lc = self.lifecycles.get(name)
+        if lc is None:
+            return _err(404, f"unknown model {name!r}")
+        if verb == "versions":
+            return json_response(lc.describe())
+        if verb == "rollback":
+            try:
+                return json_response(await lc.rollback(reason="manual"))
+            except ValueError as e:
+                return _err(409, str(e))
+        try:
+            info = await lc.reload()
+        except ReloadRejected as e:
+            body = {"error": str(e), "stage": e.stage, "rolled_back": e.rolled_back,
+                    "version": self.runtimes[name].version}
+            # Pre-publish rejection: an artifact conflict (409). A
+            # post-publish rollback: bad weights were briefly live (500).
+            return json_response(body, status=500 if e.rolled_back else 409)
+        except Exception as e:  # noqa: BLE001
+            log.exception("reload of %s failed", name)
+            return _err(500, f"reload failed: {e}")
+        return json_response(info)
 
     def healthz(self) -> Response:
         if self.draining:
@@ -293,6 +385,9 @@ class ServerState:
         out["backend"] = backend_info(self.device)
         out["kernels"] = self.kernel_counts()
         out["robustness"] = {"draining": self.draining}
+        if self.injector is not None:
+            out["robustness"]["faults"] = self.injector.snapshot()
+        out["lifecycle"] = {n: lc.describe() for n, lc in self.lifecycles.items()}
         out["ingest"] = {
             "loops": {"0": {"requests": self.ingest_requests.value,
                             "bytes": self.ingest_bytes.value}},
@@ -329,6 +424,8 @@ class ServerState:
                      else h.mcfg.request_timeout_ms) / 1e3
         deadline_at = t_start + timeout_s
         try:
+            if self.injector is not None:
+                self.injector.check("decode_corrupt", name)
             t_parse = time.perf_counter()
             items, batched = await asyncio.get_running_loop().run_in_executor(
                 self.pool, model.host_decode_items, req.body, ctype)
