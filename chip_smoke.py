@@ -112,11 +112,37 @@ Phases (any failure exits non-zero before the result line):
    leaf (409 ``nan_scan``; version 1 answers as before after each) and a
    second ``:reload`` (version 3, version 2's answers), with the graph and
    compile counts unchanged across all of it (``lifecycle_drill``).
-10. Print a ``slice`` line per path, the ``graphs`` line (phase 6-8's graph
-   checks and host times), the ``lifecycle`` line and the ``kernels`` line
-   (K1 and K2, each with its launches on its path, counted through graph
-   replays; the vision path runs neither), the card line, then the result
-   line ``{"ok": true, "device": {...}}``.
+   Phase 8 also times the first request of each bucket stage by stage
+   (``stage_totals``: the server's per-stage histogram sums around one
+   request) against eight repeats, and holds each stage but the queue
+   within its repeats' range plus 5 ms (``first_request_table``): no
+   request pins memory or builds state on the request path.
+10. Robustness (``robustness_phase``), on full-width BERT-flash with the
+   reference's robustness defaults (no ``[adaptive]`` table): in-process,
+   lone texts under the fixed and the adaptive flush (total p50s,
+   bit-identical answers, ``adaptive_target_batch``), a 4-client burst,
+   per-bucket no-fault baselines, a retry drill (``batch_error`` at 0.1,
+   seed 1, 200 requests of 32 texts from 4 clients: availability >= 0.99,
+   breaker closed, answers bit-identical to a no-fault one), poison
+   bisection of a full 32-batch (31 answers bit-identical, the poison's
+   error, ``poison_items_total`` and ``batch_retries_total`` 1), the
+   watchdog reviving a killed group loop, and the breaker (``device_error``
+   at 1.0 inside the soak window of a reload: 5 x 500, then 503 +
+   ``Retry-After`` with nothing reaching the batcher, a ``soak_breaker``
+   rollback to version 1, the canary closing it, version 1's answers); K1
+   launches = 12 x the batches the runtime dispatched, captures and
+   compiles unchanged. Then a serving subprocess with ``[cache]``, two
+   ingest loops and a 200 ms ``slow_dispatch``: a repeat hits with the
+   same bytes, 8 identical texts are 1 miss + 7 coalesced, a reload misses
+   again, both accept loops serve, and SIGTERM with 4 requests in flight
+   answers them 200, new ones 503 + ``Retry-After``, ``/healthz``
+   ``draining``, exit 0.
+11. Print a ``slice`` line per path, the ``graphs`` line (phase 6-8's graph
+   checks and host times), the ``lifecycle`` line, the ``robustness`` line
+   (with phase 8's first-request table) and the ``kernels`` line (K1 and
+   K2, each with its launches on its path, counted through graph replays;
+   the vision path runs neither), the card line, then the result line
+   ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -124,6 +150,7 @@ from __future__ import annotations
 import contextlib
 import http.client
 import json
+import math
 import re
 import signal
 import socket
@@ -899,15 +926,21 @@ def h2d_overlap_check(rt, model) -> None:
 
 
 @contextlib.contextmanager
-def serving(config: Path, n_buckets: int, overrides: tuple = ()):
+def serving(config: Path, n_buckets: int, overrides: tuple = (), extra_toml: str = "",
+            with_proc: bool = False):
     """``python -m tpuserve_torch serve --config <config>`` (plus ``--set``
-    ``overrides``) on a free port, healthy; prints each model's graphs and
-    the memory their capture reserved; yields the port and stops the server
-    on the way out."""
+    ``overrides``, and ``extra_toml`` appended to a copy of the file) on a
+    free port, healthy; prints each model's graphs and the memory their
+    capture reserved; yields the port (and the process, ``with_proc``) and
+    stops the server on the way out."""
     port = free_port()
     sets = [a for o in (f"port={port}", *overrides) for a in ("--set", o)]
     with tempfile.TemporaryDirectory() as tmp:
         log_path = Path(tmp) / "server.log"
+        if extra_toml:
+            copy = Path(tmp) / config.name
+            copy.write_text(config.read_text() + "\n" + extra_toml)
+            config = copy
         with open(log_path, "w") as log:
             proc = subprocess.Popen([sys.executable, "-m", "tpuserve_torch", "serve",
                                      "--config", str(config), *sets],
@@ -920,7 +953,7 @@ def serving(config: Path, n_buckets: int, overrides: tuple = ()):
                       f"({g['buckets']} buckets x 3 parameter slots); memory_reserved "
                       f"{mem['reserved_before_bytes'] / 2**20:.0f} MiB before capture, "
                       f"{mem['reserved_after_bytes'] / 2**20:.0f} MiB after", flush=True)
-            yield port
+            yield (port, proc) if with_proc else port
         finally:
             proc.send_signal(signal.SIGTERM)
             try:
@@ -1264,11 +1297,18 @@ def drive_resnet(port: int, requests: list) -> dict:
 
     check(call(port, "POST", "/debug/kernels:reset")[0] == 200, "kernel count reset refused")
     before = call(port, "GET", "/metrics")[1].decode()
-    answers, walls = {}, {}
+    for name, p in json.loads(call(port, "GET", "/stats")[1])["pipeline"]["models"].items():
+        arena = p["arena"]
+        check(set(arena["buckets"]) == {"[1]", "[8]", "[32]"} and all(
+              b["pooled"] == arena["slots_per_bucket"] for b in arena["buckets"].values()),
+              f"{name}: the arena did not make every bucket's buffers at start: {arena}")
+    answers, walls, first_stages = {}, {}, {}
     for name, label, body, ctype, items in requests:
+        before_stages = stage_totals(port, name)
         t0 = time.perf_counter()
         st, raw = call(port, "POST", f"/v1/models/{name}:classify", raw=body, ctype=ctype)
         walls[label] = (time.perf_counter() - t0) * 1e3
+        first_stages[label] = stage_delta(before_stages, stage_totals(port, name))
         check(st == 200, f"{name} {label}: {st} {raw[:300]!r}")
         res = json.loads(raw)
         results = res["results"] if "results" in res else [res]
@@ -1303,24 +1343,86 @@ def drive_resnet(port: int, requests: list) -> dict:
               f"{m}: batches/items moved by {delta[m]['batches_total']:g}/"
               f"{delta[m]['items_total']:g}, expected {batches}/{items}")
         check(delta[m]["runtime_compiles_total"] == 0, f"{m}: runtime_compiles_total moved")
-    # Each body twice more: the first request of a bucket on a pipeline
-    # thread against the ones after it.
+    # Each body REPEATS times more: the first request of a bucket against
+    # the ones after it, stage by stage.
     repeats = {label: [] for _, label, _, _, _ in requests}
-    for _ in range(2):
+    repeat_stages = {label: [] for _, label, _, _, _ in requests}
+    for _ in range(REPEATS):
         for name, label, body, ctype, _ in requests:
             t0 = time.perf_counter()
+            before_stages = stage_totals(port, name)
             st, _ = call(port, "POST", f"/v1/models/{name}:classify", raw=body, ctype=ctype)
             repeats[label].append((time.perf_counter() - t0) * 1e3)
+            repeat_stages[label].append(stage_delta(before_stages, stage_totals(port, name)))
             check(st == 200, f"repeat of {name} {label} answered {st}")
     print(f"slice (resnet50): repeat walls {repeats} ms", flush=True)
+    first_request = first_request_table(first_stages, repeat_stages)
     lat = json.loads(call(port, "GET", "/stats")[1])["latency"]
     phases = {p: lat[f"latency_ms{{model=resnet50,phase={p}}}"]["p50_ms"]
               for p in ("body_read", "parse", "queue", "preproc", "h2d", "compute",
                         "postproc", "total")}
     return {"answers": answers, "walls_ms": walls, "repeat_walls_ms": repeats,
-            "launches_k1_k2": list(counts),
+            "first_request": first_request, "launches_k1_k2": list(counts),
             "deltas": delta, "phase_p50_ms_resnet50": phases,
             "ingest": stats["ingest"]}
+
+
+STAGES = ("body_read", "parse", "queue", "preproc", "h2d", "compute", "postproc", "total")
+REPEATS = 8
+
+
+def stage_totals(port: int, model: str) -> dict:
+    """The summed milliseconds of each stage histogram of ``model`` so far
+    (``/stats``: mean times count)."""
+    lat = json.loads(call(port, "GET", "/stats")[1])["latency"]
+    return {p: (lambda row: row["mean_ms"] * row["n"] if row else 0.0)(
+        lat.get(f"latency_ms{{model={model},phase={p}}}")) for p in STAGES}
+
+
+def stage_delta(before: dict, after: dict) -> dict:
+    """One request's time per stage: the histograms' sums after it less
+    before it (one request at a time, so the delta is that request's; the
+    queue stage sums over the request's items). ``service`` is every stage
+    but the queue: the adaptive flush's target moves between a first
+    request and its repeats, so their queue waits differ by policy."""
+    out = {p: round(after[p] - before[p], 3) for p in STAGES}
+    out["service"] = round(sum(v for p, v in out.items() if p not in ("queue", "total")), 3)
+    return out
+
+
+# A first request may exceed its repeats in any one stage by at most this:
+# large setup work on the request path (building cuDNN plans in the
+# request, 190 ms; pinning a frame8 or frame32 arena buffer in the request,
+# 16-21 ms; both on the H100) fails it, while the 0.1-2 ms that first calls
+# cost in body read, parse and h2d on the H100 pass. That no bucket pins a buffer at its first request is
+# held directly (the arena's per-bucket counts before the first request).
+FIRST_STAGE_SLACK_MS = 5.0
+
+
+def first_request_table(first: dict, repeats: dict) -> dict:
+    """Per request: the first one's stages beside its repeats' ranges. The
+    bar for the first-request fault: each stage of the first request but
+    the queue (the adaptive flush's target moves between a first request
+    and its repeats, so their waits differ by policy) within its repeats'
+    range plus FIRST_STAGE_SLACK_MS."""
+    table = {}
+    for label, rows in repeats.items():
+        rng = {p: [min(r[p] for r in rows), max(r[p] for r in rows)] for p in rows[0]}
+        excess = {p: round(first[label][p] - rng[p][1], 3) for p in STAGES
+                  if p not in ("queue", "total")}
+        table[label] = {"first": first[label], "repeats_range": rng,
+                        "first_over_repeats_max_ms": excess}
+    print(f"slice (resnet50): first request vs repeats, service ms: "
+          f"{ {k: (v['first']['service'], v['repeats_range']['service']) for k, v in table.items()} }",
+          flush=True)
+    print(json.dumps({"first_request_stages": table}), flush=True)
+    for label, row in table.items():
+        worst = max(row["first_over_repeats_max_ms"].items(), key=lambda kv: kv[1])
+        check(worst[1] <= FIRST_STAGE_SLACK_MS,
+              f"resnet50 {label}: the first request's {worst[0]} took {worst[1]:.2f} ms over "
+              f"its repeats' range (bar {FIRST_STAGE_SLACK_MS} ms); stages {row['first']}, "
+              f"repeats {row['repeats_range']}")
+    return table
 
 
 def resnet_operations(model, module) -> int:
@@ -1569,6 +1671,463 @@ def lifecycle_phase() -> dict:
             "resnet50_int8": lifecycle_drill(RESNET_CONFIG, "resnet50", 6, framed, ctype)}
 
 
+# -- phase 10: the batcher's robustness layer and the result cache -------------------
+
+# Robustness drill knobs: the periodic canary (the breaker's recovery probe),
+# the lone-text sample and the retry drill's load.
+CANARY_S = 2.0
+RETRY_CLIENTS, RETRY_PER_CLIENT = 4, 50
+POISON_TEXT = "a poison marker text the wrapper refuses to assemble"
+
+
+class _PoisonModel:
+    """Delegating wrapper whose assembly raises when the marked item is in
+    the batch: the whole-batch failure a single bad request induces."""
+
+    def __init__(self, inner, marked: str) -> None:
+        self._inner = inner
+        self._marked = marked
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def assemble(self, items, bucket):
+        from tpuserve_torch.cache import item_digest
+
+        if any(item_digest(it) == self._marked for it in items):
+            raise RuntimeError("poison item in batch: " + POISON_TEXT)
+        return self._inner.assemble(items, bucket)
+
+
+def _post_json(port: int, obj) -> tuple[int, bytes, str | None]:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", "/v1/models/bert:classify", body=json.dumps(obj).encode(),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read(), resp.getheader("Retry-After")
+    finally:
+        conn.close()
+
+
+def _counter(state, name: str) -> float:
+    return state.metrics.counter(f"{name}{{model=bert}}").value
+
+
+def _variant_batches(state) -> float:
+    return sum(v for k, v in state.metrics.summary()["counters"].items()
+               if k.startswith("runtime_variant_batches_total{model=bert,"))
+
+
+def _p50(xs: list) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+async def _robust_async(state, port: int) -> dict:
+    """The in-process drills on the served BERT-flash (see robustness_phase)."""
+    import asyncio
+
+    from tpuserve_torch.batcher import ModelBatcher
+    from tpuserve_torch.cache import item_digest
+    from tpuserve_torch.config import AdaptiveConfig
+    from tpuserve_torch.faults import FaultInjector
+    from tpuserve_torch.ops import flash_attention as fa
+
+    loop = asyncio.get_running_loop()
+    rt, model, br = state.runtimes["bert"], state.models["bert"], state.breakers["bert"]
+    b_adaptive = state.batchers["bert"]
+    out: dict = {}
+
+    async def post(obj):
+        return await loop.run_in_executor(None, _post_json, port, obj)
+
+    def new_batcher(m=model, adaptive=None):
+        return ModelBatcher(m, rt, state.metrics, stages=state.stages,
+                            pipeline_cfg=state.cfg.pipeline,
+                            adaptive_cfg=adaptive or state.cfg.adaptive, breaker=br,
+                            injector=state.injector)
+
+    async def lone_run() -> tuple[list, list, list]:
+        """Every text of TEXTS_32 alone, one after the other: bodies, client
+        walls and the server's total per request."""
+        bodies, walls, totals = [], [], []
+        hist = state.metrics.histogram("latency_ms{model=bert,phase=total}")
+        for t in TEXTS_32:
+            before = hist.total
+            t0 = time.perf_counter()
+            st, body, _ = await post({"text": t})
+            walls.append((time.perf_counter() - t0) * 1e3)
+            totals.append(hist.total - before)
+            check(st == 200, f"robustness: lone text answered {st} {body[:200]!r}")
+            bodies.append(body)
+        return bodies, walls, totals
+
+    captures0, compiles0 = rt.captures_total, rt.compiles_total
+    fa.reset_launches()
+    variants0 = _variant_batches(state)
+
+    # Adaptive flush: the fixed 10 ms deadline first (a batcher with
+    # [adaptive] enabled = false on the same graphs), then the reference's
+    # default, the same texts in the same order.
+    b_fixed = new_batcher(adaptive=AdaptiveConfig(enabled=False))
+    await b_fixed.start()
+    state.batchers["bert"] = b_fixed
+    fixed_bodies, fixed_walls, fixed_totals = await lone_run()
+    state.batchers["bert"] = b_adaptive
+    await b_fixed.stop()
+    target = state.metrics.gauge("adaptive_target_batch{model=bert}")
+    bodies1, walls, totals = await lone_run()
+    check(bodies1 == fixed_bodies,
+          "robustness: lone answers under the adaptive flush differ from the fixed flush's")
+    target_lone = target.value
+
+    def burst_client(n):
+        return [_post_json(port, {"texts": TEXTS_8})[0] for _ in range(n)]
+
+    burst = await asyncio.gather(*(loop.run_in_executor(None, burst_client, 10) for _ in range(4)))
+    check(all(s == 200 for part in burst for s in part), "robustness: burst answered non-200")
+    target_burst = target.value
+    out["adaptive"] = {
+        "lone_total_p50_ms": {"fixed": _p50(fixed_totals), "adaptive": _p50(totals),
+                              "adaptive_last20": _p50(totals[-20:])},
+        "lone_wall_p50_ms": {"fixed": _p50(fixed_walls), "adaptive": _p50(walls),
+                             "adaptive_last20": _p50(walls[-20:])},
+        "target_after_lone": target_lone,
+        "target_after_burst": target_burst, "bit_identical_to_fixed": True}
+    print(f"robustness: lone BERT text total p50 {_p50(fixed_totals):.2f} ms fixed flush, "
+          f"{_p50(totals):.2f} ms adaptive ({_p50(totals[-20:]):.2f} over the last 20); "
+          f"adaptive_target_batch {target_lone:g} after the lone texts, "
+          f"{target_burst:g} after a 4-client burst; answers bit-identical", flush=True)
+
+    # Baselines: each text's answer in each bucket it may be served in
+    # (alone: (1, 64); in eights: (8, 64); all 32: (32, 64)), no fault.
+    base = {t: {1: json.loads(b)} for t, b in zip(TEXTS_32, bodies1)}
+    for i in range(0, 32, 8):
+        st, body, _ = await post({"texts": TEXTS_32[i:i + 8]})
+        check(st == 200, f"robustness: baseline batch of 8 answered {st}")
+        for t, r in zip(TEXTS_32[i:i + 8], json.loads(body)["results"]):
+            base[t][8] = r
+    st, body, _ = await post({"texts": TEXTS_32})
+    check(st == 200, f"robustness: baseline batch of 32 answered {st}")
+    for t, r in zip(TEXTS_32, json.loads(body)["results"]):
+        base[t][32] = r
+    bucket_invariant = all(v[1] == v[8] == v[32] for v in base.values())
+
+    def matches(t, r) -> bool:
+        return r in base[t].values()
+
+    # Retry: batch_error at probability 0.1 (seed 1) under 4 clients. The
+    # served h2d phase runs from the end of assembly to the end of the h2d
+    # stage, so it holds the wait for a staging slot: time that wait apart.
+    retries0 = _counter(state, "batch_retries_total")
+    h2d_hist = state.metrics.histogram("latency_ms{model=bert,phase=h2d}")
+    h2d0 = (h2d_hist.total, h2d_hist.n)
+    staging_waits: list[float] = []
+    acquire = b_adaptive._acquire_staging
+
+    async def timed_acquire(reqs):
+        t0 = time.perf_counter()
+        try:
+            return await acquire(reqs)
+        finally:
+            staging_waits.append((time.perf_counter() - t0) * 1e3)
+
+    b_adaptive._acquire_staging = timed_acquire
+    state.injector.set_enabled(True)
+
+    def retry_client(n):
+        got = []
+        for _ in range(n):
+            st, body, _ = _post_json(port, {"texts": TEXTS_32})
+            got.append((st, body))
+        return got
+
+    parts = await asyncio.gather(*(loop.run_in_executor(None, retry_client, RETRY_PER_CLIENT)
+                                   for _ in range(RETRY_CLIENTS)))
+    state.injector.set_enabled(False)
+    b_adaptive._acquire_staging = acquire
+    h2d_n = h2d_hist.n - h2d0[1]
+    h2d_split = {"batches": h2d_n, "h2d_phase_mean_ms": (h2d_hist.total - h2d0[0]) / h2d_n,
+                 "staging_wait_mean_ms": sum(staging_waits) / len(staging_waits)}
+    h2d_split["h2d_stage_mean_ms"] = h2d_split["h2d_phase_mean_ms"] - h2d_split["staging_wait_mean_ms"]
+    results = [r for part in parts for r in part]
+    ok = [json.loads(b)["results"] for st, b in results if st == 200]
+    availability = len(ok) / len(results)
+    fired = sum(r["fired"] for r in state.injector.snapshot())
+    mismatched = sum(not matches(t, r) for res in ok for t, r in zip(TEXTS_32, res))
+    out["retry"] = {"requests": len(results), "availability": availability,
+                    "statuses": sorted({st for st, _ in results}), "batch_errors_fired": fired,
+                    "batch_retries": _counter(state, "batch_retries_total") - retries0,
+                    "breaker": br.describe(), "answers_not_bit_identical": mismatched,
+                    "answers_bucket_invariant": bucket_invariant, "h2d_under_4_clients": h2d_split}
+    print(f"robustness: retry drill {len(results)} requests of 32 texts, availability "
+          f"{availability:.4f}, batch_error fired {fired}, retries "
+          f"{out['retry']['batch_retries']:g}, breaker {br.state}; answers differing from the "
+          f"no-fault ones {mismatched} (bucket-invariant answers: {bucket_invariant}); h2d phase "
+          f"{h2d_split['h2d_phase_mean_ms']:.3f} ms mean over {h2d_n:g} batches, of which "
+          f"{h2d_split['staging_wait_mean_ms']:.3f} ms waiting for a staging slot", flush=True)
+    check(availability >= 0.99, f"robustness: availability {availability:.4f} < 0.99")
+    check(fired > 5, f"robustness: batch_error fired only {fired} times")
+    check(br.state == "closed" and br.opened_total == 0,
+          f"robustness: the breaker left closed in the retry drill: {br.describe()}")
+    check(mismatched == 0, f"robustness: {mismatched} retried answers differ from no-fault ones")
+
+    # Poison bisection, in-process: a full 32-batch with one marked text.
+    texts = TEXTS_32[:31] + [POISON_TEXT]
+    items, _ = model.host_decode_items(json.dumps({"texts": texts}).encode(), "application/json")
+    b_poison = new_batcher(m=_PoisonModel(model, item_digest(items[-1])))
+    await b_poison.start()
+    check(b_poison.arena is None, "robustness: the poison wrapper must take the allocating path")
+    poison0, retries0 = _counter(state, "poison_items_total"), _counter(state, "batch_retries_total")
+    futs = [b_poison.submit(it, group=model.group_key(it)) for it in items]
+    got = await asyncio.gather(*futs, return_exceptions=True)
+    await b_poison.stop()
+    good = [r for r in got[:31] if isinstance(r, dict)]
+    poison_err = got[31]
+    out["poison"] = {
+        "answered": len(good), "bit_identical": sum(matches(t, r) for t, r in zip(texts, good)),
+        "differing_indices": [i for i, (t, r) in enumerate(zip(texts, good)) if not matches(t, r)],
+        "error": str(poison_err),
+        "poison_items": _counter(state, "poison_items_total") - poison0,
+        "batch_retries": _counter(state, "batch_retries_total") - retries0}
+    print(f"robustness: poison bisection {out['poison']}", flush=True)
+    check(len(good) == 31 and out["poison"]["bit_identical"] == 31,
+          f"robustness: poison bisection answered {out['poison']}")
+    check(isinstance(poison_err, RuntimeError) and POISON_TEXT in str(poison_err),
+          f"robustness: the poison's error does not name it: {poison_err!r}")
+    check((out["poison"]["poison_items"], out["poison"]["batch_retries"]) == (1, 1),
+          f"robustness: poison/retry counters moved {out['poison']}")
+
+    # Watchdog: kill the group loop once; the sweep revives it.
+    b_adaptive.injector = FaultInjector.single("kill_group_loop", model="bert", count=1)
+    st, _, _ = await post({"text": TEXTS_32[0]})
+    restarts = state.metrics.counter("watchdog_restarts_total{model=bert,component=group_loop}")
+    t0 = time.perf_counter()
+    while restarts.value < 1 and time.perf_counter() - t0 < 10:
+        await asyncio.sleep(0.1)
+    b_adaptive.injector = state.injector
+    st2, body, _ = await post({"text": TEXTS_32[1]})
+    out["watchdog"] = {"restarts": restarts.value, "statuses": [st, st2]}
+    print(f"robustness: watchdog restarts {restarts.value:g} after kill_group_loop; "
+          f"statuses {[st, st2]}", flush=True)
+    check(restarts.value >= 1 and [st, st2] == [200, 200] and json.loads(body) == base[TEXTS_32[1]][1],
+          f"robustness: watchdog {out['watchdog']}")
+
+    # Breaker and soak_breaker: reload the seed-1 checkpoint (version 2),
+    # then every dispatch fails (device_error at probability 1) inside the
+    # soak window.
+    st, body = await loop.run_in_executor(None, call, port, "POST", "/admin/models/bert:reload")
+    check(st == 200 and json.loads(body)["version"] == 2, f"robustness: reload answered {st} {body[:300]!r}")
+    while state._next_canary_at is None or state._next_canary_at - time.monotonic() < 1.0:
+        await asyncio.sleep(0.05)  # trip the breaker between two canaries
+    transitions = [br.state]
+    rt.injector = FaultInjector.single("device_error", model="bert")
+    first = []
+    while br.state == "closed" and len(first) < 10:
+        first.append((await post({"text": TEXTS_32[2]}))[0])
+    transitions.append(br.state)
+    # While open, no request is decoded or submitted (requests_total counts
+    # the ones past the shed checks); only the canaries, the recovery probe,
+    # dispatch (batches_total).
+    requests0, batches0 = _counter(state, "requests_total"), _counter(state, "batches_total")
+    t0 = time.perf_counter()
+    sheds = [await post({"text": TEXTS_32[2]}) for _ in range(20)]
+    shed_s = time.perf_counter() - t0
+    shed_requests = _counter(state, "requests_total") - requests0
+    shed_batches = _counter(state, "batches_total") - batches0
+    lc = state.lifecycles["bert"]
+    t0 = time.perf_counter()
+    while rt.version != 1 and time.perf_counter() - t0 < 5:
+        await asyncio.sleep(0.05)
+    soak = {"version": rt.version,
+            "rollbacks_soak_breaker": state.metrics.counter(
+                "rollbacks_total{model=bert,reason=soak_breaker}").value,
+            "history": [(h["version"], h["status"], h.get("reason")) for h in lc.history]}
+    rt.injector = state.injector
+    t0 = time.perf_counter()
+    seen = set()
+    while br.state != "closed" and time.perf_counter() - t0 < 2 * CANARY_S + 2:
+        seen.add(br.state)
+        await asyncio.sleep(0.01)
+    transitions += sorted(seen - {transitions[-1]}) + [br.state]
+    recovered_s = time.perf_counter() - t0
+    st, body, _ = await post({"text": TEXTS_32[2]})
+    out["breaker"] = {
+        "failed_before_open": first, "transitions": transitions,
+        "shed": sorted({(s_, ra, b"circuit open" in b_) for s_, b_, ra in sheds}),
+        "shed_window_s": shed_s, "requests_past_shed_while_open": shed_requests,
+        "canary_batches_while_open": shed_batches,
+        "recovered_s": recovered_s, "after": st, "describe": br.describe()}
+    out["soak"] = soak
+    print(f"robustness: breaker {out['breaker']}", flush=True)
+    print(f"robustness: soak {soak}", flush=True)
+    check(first == [500] * state.cfg.models[0].breaker_threshold,
+          f"robustness: requests before the breaker opened answered {first}")
+    check(all(s_ == 503 and ra is not None and 1 <= int(ra) <= math.ceil(CANARY_S)
+              and b"circuit open" in b_ for s_, b_, ra in sheds),
+          f"robustness: sheds while open {out['breaker']['shed']}")
+    check(shed_requests == 0, f"robustness: {shed_requests:g} requests reached the batcher "
+          "while the breaker was open")
+    check(soak["version"] == 1 and soak["rollbacks_soak_breaker"] == 1,
+          f"robustness: soak_breaker did not roll back: {soak}")
+    check(br.state == "closed" and st == 200 and json.loads(body) == base[TEXTS_32[2]][1],
+          f"robustness: recovery {out['breaker']} answered {st} {body[:200]!r}")
+
+    out["k1_launches"], out["variant_batches"] = fa.launches, _variant_batches(state) - variants0
+    out["captures_delta"] = rt.captures_total - captures0
+    out["compiles_delta"] = rt.compiles_total - compiles0
+    check(out["k1_launches"] == 12 * out["variant_batches"] and out["variant_batches"] > 0,
+          f"robustness: K1 launched {out['k1_launches']} times for {out['variant_batches']:g} "
+          "dispatched batches (12 per batch)")
+    check(out["captures_delta"] == 0 and out["compiles_delta"] == 0,
+          f"robustness: captures/compiles moved by {out['captures_delta']}/{out['compiles_delta']}")
+    return out
+
+
+def robustness_subprocess(ckpt: str) -> dict:
+    """Cache, ingest loops and drain through ``python -m tpuserve_torch
+    serve`` on ``examples/bert_flash.toml`` with ``[cache]`` on, two accept
+    loops and a 200 ms slow_dispatch (so requests are in flight when SIGTERM
+    lands)."""
+    import threading
+
+    out: dict = {}
+    extra = ('[faults]\nenabled = true\n[[faults.rule]]\nkind = "slow_dispatch"\n'
+             'model = "bert"\ndelay_ms = 200.0\n')
+    with serving(CONFIG, 6, overrides=(f"model.bert.weights={ckpt}", "cache.enabled=true",
+                                       "ingest_loops=2", "drain_timeout_s=30"),
+                 extra_toml=extra, with_proc=True) as (port, proc):
+        def cache_counts():
+            return json.loads(call(port, "GET", "/stats")[1])["cache"]["bert"]
+
+        graphs0 = served_graphs(port)["bert"]
+        c0 = cache_counts()
+        st1, b1, _ = _post_json(port, {"text": TEXTS_32[3]})
+        st2, b2, _ = _post_json(port, {"text": TEXTS_32[3]})
+        c1 = cache_counts()
+        st3, b3, _ = _post_json(port, {"texts": [TEXTS_32[4]] * 8})
+        c2 = cache_counts()
+        check(call(port, "POST", "/admin/models/bert:reload")[0] == 200, "robustness: reload refused")
+        st4, b4, _ = _post_json(port, {"text": TEXTS_32[3]})
+        c3 = cache_counts()
+        delta = {k: {ev: c[ev] - c0[ev] for ev in ("hits", "misses", "coalesced", "stale_drops")}
+                 for k, c in (("repeat", c1), ("eight_identical", c2), ("after_reload", c3))}
+        out["cache"] = {"statuses": [st1, st2, st3, st4], "hit_body_identical": b1 == b2,
+                        "counters": delta}
+        print(f"robustness: cache {out['cache']}", flush=True)
+        check([st1, st2, st3, st4] == [200] * 4 and b1 == b2 and b4 == b1,
+              f"robustness: cache answers {out['cache']}")
+        check(delta["repeat"] == {"hits": 1, "misses": 1, "coalesced": 0, "stale_drops": 0},
+              f"robustness: cache repeat {delta['repeat']}")
+        check((delta["eight_identical"]["misses"] - 1, delta["eight_identical"]["coalesced"])
+              == (1, 7), f"robustness: 8 identical texts {delta['eight_identical']}")
+        check(delta["after_reload"]["misses"] == 3, f"robustness: after reload {delta['after_reload']}")
+
+        # Ingest loops: fresh connections spread over both listeners.
+        for _ in range(24):
+            call(port, "GET", "/healthz")
+            check(_post_json(port, {"text": TEXTS_32[3]})[0] == 200, "robustness: ingest request")
+        loops = json.loads(call(port, "GET", "/stats")[1])["ingest"]["loops"]
+        out["ingest_loops"] = loops
+        print(f"robustness: ingest loops {loops}", flush=True)
+        check(set(loops) == {"0", "1"} and all(v["requests"] > 0 for v in loops.values()),
+              f"robustness: an ingest loop served nothing: {loops}")
+        graphs1 = served_graphs(port)["bert"]
+        check((graphs1["captures_total"], graphs1["compiles_total"])
+              == (graphs0["captures_total"], graphs0["compiles_total"]),
+              f"robustness: captures/compiles moved {graphs0} -> {graphs1}")
+
+        # Drain: SIGTERM with requests in flight.
+        inflight: list = []
+
+        def client(i):
+            inflight.append(_post_json(port, {"text": TEXTS_32[10 + i]})[:2])
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        time.sleep(0.1)
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        time.sleep(0.05)
+        late = [_post_json(port, {"text": TEXTS_32[20 + i]}) for i in range(3)]
+        health = call(port, "GET", "/healthz")
+        for t in threads:
+            t.join(60)
+        rc = proc.wait(60)
+        exit_s = time.perf_counter() - t_term
+        out["drain"] = {
+            "accepted": [s_ for s_, _ in inflight],
+            "late": sorted({(s_, ra, b"draining" in b_) for s_, b_, ra in late}),
+            "healthz": [health[0], json.loads(health[1])["status"]],
+            "exit_code": rc, "exit_s": exit_s}
+        print(f"robustness: drain {out['drain']}", flush=True)
+        check(out["drain"]["accepted"] == [200] * 4, f"robustness: drain {out['drain']}")
+        check(out["drain"]["late"] == [(503, "1", True)], f"robustness: drain {out['drain']}")
+        check(out["drain"]["healthz"] == [503, "draining"] and rc == 0 and exit_s < 30,
+              f"robustness: drain {out['drain']}")
+    return out
+
+
+def robustness_phase() -> dict:
+    """The batcher's robustness layer and the result cache on the served
+    BERT-flash at full width (``examples/bert_flash.toml``, no ``[adaptive]``
+    table: the reference's default, the adaptive flush, applies).
+
+    In-process (a ServerState on the card, HTTP from client threads):
+    lone texts under the fixed and the adaptive flush (bit-identical
+    answers, the total p50 of each); a 4-client burst; per-bucket no-fault
+    baselines; a retry drill (batch_error at probability 0.1, seed 1, 4
+    clients x 50 requests of 32 texts: availability >= 0.99, the breaker
+    closed, every answer bit-identical to a no-fault one); poison bisection
+    of a full 32-batch with one marked text (31 answers bit-identical, one
+    error naming the poison, poison_items_total and batch_retries_total 1);
+    a killed group loop revived by the watchdog; the breaker (device_error
+    at probability 1 inside the soak window of a reload of the seed-1
+    checkpoint: 5 failures, fast 503 + Retry-After and no dispatch while
+    open, rollback for soak_breaker, then the canary closes it and version
+    1 answers as before); K1 launches = 12 x the batches the runtime
+    dispatched, and no capture or compile. Then the cache, two ingest loops
+    and the SIGTERM drain in a serving subprocess."""
+    import asyncio
+
+    from tpuserve_torch import savedmodel
+    from tpuserve_torch.config import FaultRuleConfig, FaultsConfig, load_config
+    from tpuserve_torch.models import build
+    from tpuserve_torch.server import ServerState, start_server, stop_server
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "bert.npz")
+        m = build(load_config(str(CONFIG)).model("bert"))
+        savedmodel.save_npz(ckpt, m.to_jax_params(m.init_params(1)))
+        del m
+        cfg = load_config(str(CONFIG), [f"model.bert.weights={ckpt}",
+                                        f"canary_interval_s={CANARY_S}",
+                                        "lifecycle.soak_s=120", "lifecycle.soak_poll_s=0.05"])
+        check(cfg.adaptive.enabled and cfg.model("bert").batch_retry and not cfg.cache.enabled,
+              "robustness: bert_flash.toml must take the reference's robustness defaults")
+        cfg.faults = FaultsConfig(enabled=True, seed=1, rules=[
+            FaultRuleConfig(kind="batch_error", model="bert", probability=0.1)])
+        state = ServerState(cfg, device="cuda")
+        state.build()
+        state.injector.set_enabled(False)
+
+        async def go():
+            server = await start_server(state, "127.0.0.1", 0)
+            try:
+                return await _robust_async(state, state.serving_addresses[0][1])
+            finally:
+                await stop_server(state, server)
+
+        out = asyncio.run(go())
+        del state, go
+        out.update(robustness_subprocess(ckpt))
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1593,10 +2152,12 @@ def main() -> int:
         long = long_slice_phase()
         vision = resnet_phase()
         lifecycle = lifecycle_phase()
+        robustness = robustness_phase()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     vision_graphs = vision.pop("graphs")
+    robustness["first_request_resnet50"] = vision.pop("first_request")
     # Where a (32, S) batch's device time goes: 12 K1 launches of one forward.
     k1_ms = {s_: k1[s_]["line"]["ms"] for s_ in (64, 128)}
     share = {s_: 12 * k1_ms[s_] / run["forward_ms"][s_]["stream_ms"] for s_ in (64, 128)}
@@ -1629,6 +2190,7 @@ def main() -> int:
     print(json.dumps({"graphs": {"bert_flash": run["graphs"], "bert_long_ring": long["graphs"],
                                  "resnet50": vision_graphs}}))
     print(json.dumps({"lifecycle": lifecycle}))
+    print(json.dumps({"robustness": robustness}))
     print(json.dumps({"kernels": [dict(k1[128]["line"], launches=run["launches"]),
                                   dict(k2["line"], launches=long["k2_launches"])]}))
     print(card)

@@ -345,7 +345,9 @@ def test_same_toml_files_parse():
                     assert _same(getattr(m, f.name), getattr(jm, f.name)), (path, f.name)
             for key, value in m.unported.items():
                 assert _same(value, getattr(jm, key)), (path, m.name, key)
-    assert "[adaptive] enabled" in load_config("examples/serve_all.toml").unported
+    serve_all = load_config("examples/serve_all.toml")
+    assert "[events] enabled" in serve_all.unported
+    assert _same(serve_all.adaptive, jax_load_config("examples/serve_all.toml").adaptive)
     cfg = load_config("examples/bert_modes.toml",
                       ["model.bert-pp.deadline_ms=2.5", "port=9001"])
     assert cfg.model("bert-pp").deadline_ms == 2.5 and cfg.port == 9001

@@ -48,6 +48,18 @@ def test_no_jax_flax_or_tpuserve_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_level_aiohttp_or_pil(path):
+    """The card's machine has neither: a module may reach PIL lazily, inside
+    the function that decodes an encoded image, never at import."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    names = [a.name for n in top if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in top if isinstance(n, ast.ImportFrom) and n.module]
+    bad = [n for n in names if n.split(".")[0] in ("aiohttp", "PIL")]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad} at module level"
+
+
 def test_every_module_imports_with_jax_flax_tpuserve_blocked():
     code = (
         "import sys, pkgutil, importlib\n"
@@ -104,16 +116,16 @@ MODEL_TOML = '[[model]]\nname = "bert"\nfamily = "bert"\nparallelism = "single"\
 
 
 @pytest.mark.parametrize("toml, named", [
-    ("[adaptive]\nenabled = true\n", "[adaptive] enabled = True"),
-    ("[adaptive]\nenabled = false\nmin_target = 4\n", "[adaptive] min_target = 4"),
-    ("[faults]\nenabled = true\n[[faults.rule]]\nkind = \"batch_error\"\n",
-     "[[faults.rule]] kind = 'batch_error' (not yet ported (batcher robustness))"),
+    ("[genserve]\nenabled = true\n", "[genserve] enabled = True"),
+    ("[router]\nenabled = false\nworkers = 4\n", "[router] workers = 4"),
+    ("[faults]\nenabled = true\n[[faults.rule]]\nkind = \"worker_crash\"\n",
+     "[[faults.rule]] kind = 'worker_crash' (not yet ported (router and workers))"),
     ("[trace]\nslow_n = 4\n", "[trace] slow_n = 4"),
     ("[telemetry]\nenabled = true\n", "[telemetry] enabled = True"),
     ("[events]\ncapacity = 16\n", "[events] capacity = 16"),
     ("[parallel]\nmode = \"replica\"\n", "[parallel] mode = 'replica'"),
-    ("drain_timeout_s = 5.0\n", "drain_timeout_s = 5.0"),
-    (MODEL_TOML + "batch_retry = true\n", "model bert: batch_retry = True"),
+    ("trace_capacity = 1024\n", "trace_capacity = 1024"),
+    (MODEL_TOML + "pp = 2\n", "model bert: pp = 2"),
     (MODEL_TOML + "[model.slo]\nlatency_ms = 50.0\n", "model bert: slo = {'latency_ms': 50.0}"),
 ])
 def test_server_refuses_unported_settings(tmp_path, toml, named):

@@ -206,4 +206,7 @@ def test_ensure_compiled_probe_and_replay_counts(tmp_path):
     fa.count_replay(12, 0)
     fa.count_replay(0, 12)
     assert (fa.launches - k1, fa.stats_launches - k2) == (12, 12)
+    # The counts are process-wide: put them back for the tests that follow
+    # in this process (the served CPU paths must read 0 launches).
+    fa.launches, fa.stats_launches = k1, k2
     assert rt.describe()["captures_total"] == 0      # graphs exist on the card only

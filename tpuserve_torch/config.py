@@ -5,20 +5,23 @@ the port serves, in its own copy (the port imports nothing from
 The port reads the same TOML files as the JAX package. What it serves is
 typed: :class:`ModelConfig`, :class:`PipelineConfig`,
 :class:`LifecycleConfig`, :class:`FaultsConfig` (with its
-:class:`FaultRuleConfig` rules) and the top-level :class:`ServerConfig`
-fields, with the JAX package's defaults and checks. Every other setting the
-JAX package knows — its other tables (``[router]``, ``[adaptive]``, ...)
-and the keys the port has no use for yet (``drain_timeout_s``,
-``batch_retry``, ...) — parses into the
+:class:`FaultRuleConfig` rules), :class:`CacheConfig`,
+:class:`AdaptiveConfig` and the top-level :class:`ServerConfig` fields,
+with the JAX package's defaults and checks. Every other setting the JAX
+package knows — its other tables (``[router]``, ``[telemetry]``, ...) and
+the keys the port has no use for yet (``trace_capacity``, ``pp``, ...) —
+parses into the
 ``unported`` dict of its ``ServerConfig`` or ``ModelConfig`` as a plain
 value. :func:`unported_settings` names those that ask for behaviour the
 port lacks, and the server refuses to start while any is set: a JAX config
 tuned with them never loads into a server that quietly behaves otherwise.
-A setting that switches a missing feature off (``[adaptive] enabled =
-false``, ``session_mode = "direct"``) asks for nothing and is accepted. So
-is a ``[[faults.rule]]`` whose kind fires at a call site the port has;
-while ``[faults]`` is enabled, a rule whose call site the port lacks (the
-batcher's, the worker processes', streaming's) is refused by name.
+A setting that switches a missing feature off (``[router] enabled =
+false``, ``session_mode = "direct"``), or that holds the JAX package's
+default where that default asks for nothing (``relay_workers = 2`` while
+the model is served directly), is accepted. So is a ``[[faults.rule]]``
+whose kind fires at a call site the port has; while ``[faults]`` is
+enabled, a rule whose call site the port lacks (the worker processes',
+deferred mode's, streaming's) is refused by name.
 
 Example TOML::
 
@@ -47,29 +50,37 @@ from typing import Any
 # The JAX package's tables the port does not serve yet. Any key set in one
 # is refused, except ``enabled = false`` (and ``[parallel] mode`` naming the
 # one-device layout).
-UNPORTED_TABLES = ("adaptive", "autopilot", "cache", "distributed", "events",
-                   "genserve", "parallel", "router", "scheduler", "telemetry",
-                   "tenants", "trace", "worker")
+UNPORTED_TABLES = ("autopilot", "distributed", "events", "genserve",
+                   "parallel", "router", "scheduler", "telemetry", "tenants",
+                   "trace", "worker")
 _TABLE_OFF: dict[str, tuple] = {"enabled": (False,)}
 _PARALLEL_OFF: dict[str, tuple] = {"mode": ("", "single")}
+_DISTRIBUTED_OFF: dict[str, tuple] = {"coordinator_address": ("",)}
+
+
+def _slo_off(value: Any) -> bool:
+    """A ``[model.slo]`` table that names no objective (the JAX default):
+    nothing for the port's missing burn-rate engine to evaluate."""
+    return isinstance(value, dict) and not value.get("latency_ms") \
+        and not value.get("first_unit_ms")
+
 
 # The JAX package's top-level and per-model keys the port does not serve
 # yet, each with the values that ask for nothing the port lacks (empty: no
-# such value, any setting is refused).
+# such value, any setting is refused); a callable decides for a sub-table.
 _SERVER_UNPORTED: dict[str, tuple] = {
-    "ingest_loops": (1,), "decode_inline": (False,), "profiler_port": (0,),
-    "compilation_cache_dir": ("",),
+    "profiler_port": (0,), "compilation_cache_dir": ("",),
     "debug_nans": (False,), "prewarm_executables": (True,),
     "trace_capacity": (), "log_json": (False,),
-    "watchdog_interval_s": (0,), "drain_timeout_s": (),
 }
-_MODEL_UNPORTED: dict[str, tuple] = {
+_MODEL_UNPORTED: dict[str, Any] = {
     "pp": (0, 1), "session_mode": ("direct",),
-    "relay_workers": (), "relay_epoch_images": (), "relay_epoch_ms": (),
-    "relay_slots": (), "priority": ("interactive",), "cold_start": (False,),
-    "cacheable": (False,), "stream_policy": (), "slo": (),
-    "batch_retry": (False,), "retry_split": (False,),
-    "breaker_threshold": (0,), "breaker_retry_after_s": (),
+    # Deferred (recycle) mode's knobs, inert while session_mode is direct.
+    "relay_workers": (2,), "relay_epoch_images": (4096,),
+    "relay_epoch_ms": (2000.0,), "relay_slots": (4,),
+    "priority": ("interactive",), "cold_start": (False,),
+    # Streaming's slow-consumer policy, inert without the generation engine.
+    "stream_policy": ("drop",), "slo": _slo_off,
 }
 
 WIRE_FORMATS = ("rgb8", "yuv420")
@@ -83,8 +94,7 @@ FAULT_KINDS = ("batch_error", "slow_dispatch", "decode_corrupt", "worker_death",
 # item that ports them; a rule of one of these is refused while [faults]
 # is enabled.
 _FAULT_KINDS_UNPORTED = {
-    "batch_error": "batcher robustness", "slow_dispatch": "batcher robustness",
-    "kill_group_loop": "batcher robustness", "worker_death": "deferred mode",
+    "worker_death": "deferred mode",
     "worker_crash": "router and workers", "worker_hang": "router and workers",
     "worker_slow": "router and workers", "stream_stall": "streaming",
     "stream_disconnect": "streaming",
@@ -131,6 +141,77 @@ class PipelineConfig:
         if self.depth < 0 or self.assemble_ahead < 0 or self.arena_slots < 0:
             raise ValueError(
                 "pipeline.depth/assemble_ahead/arena_slots must be >= 0")
+
+
+@dataclass
+class CacheConfig:
+    """Content-addressed result cache + single-flight coalescing (``[cache]``
+    TOML; tpuserve_torch.cache).
+
+    Key = digest(model, live version, decoded item); value = the
+    postprocessed result. The live model version is part of every key, so a
+    lifecycle publish or rollback invalidates all previous entries without a
+    sweep. Hits and coalesced waiters are counted apart from misses, so
+    cache traffic never reads as model throughput."""
+
+    enabled: bool = False
+    # Max cached results per model (LRU beyond it).
+    capacity: int = 4096
+    # Entry time-to-live in seconds; 0 disables expiry (version churn is the
+    # primary invalidation; TTL exists for non-deterministic models).
+    ttl_s: float = 0.0
+    # Single-flight: N concurrent identical misses occupy ONE batch slot,
+    # the result fanning out to every waiter.
+    coalesce: bool = True
+    # JSON results at most this big are serialized once at population time,
+    # so a hit's response body is a copy, not a json.dumps per request.
+    max_body_bytes: int = 1048576
+
+    def __post_init__(self) -> None:
+        if self.capacity < 1:
+            raise ValueError(f"cache.capacity must be >= 1, got {self.capacity}")
+        if self.ttl_s < 0 or self.max_body_bytes < 0:
+            raise ValueError("cache.ttl_s/max_body_bytes must be >= 0")
+
+
+@dataclass
+class AdaptiveConfig:
+    """SLO-aware adaptive batching (``[adaptive]`` TOML; tpuserve_torch.batcher).
+
+    Replaces the fixed max-wait flush with an AIMD-adjusted per-group target
+    batch size plus a deadline-headroom bound from the per-bucket
+    batch-duration EWMA: under light load the target decays to
+    ``min_target`` and batches flush at once; under sustained load it climbs
+    to the largest bucket and batches fill. ``deadline_ms`` stays as the
+    max-wait backstop."""
+
+    enabled: bool = True
+    # Floor of the AIMD target batch size.
+    min_target: int = 1
+    # Starting target per group; 0 = the model's largest batch bucket (the
+    # fixed-timer behaviour, so cold groups favour throughput).
+    initial_target: int = 0
+    # Additive increase when a batch fills to target with more work still
+    # queued.
+    increase: float = 1.0
+    # Multiplicative decrease on a timer-driven partial flush.
+    decrease: float = 0.5
+    # Smoothing factor of the per-bucket batch-duration EWMA.
+    ewma_alpha: float = 0.2
+    # Safety margin (ms) subtracted with the EWMA from the earliest request
+    # deadline when computing the flush headroom bound.
+    slack_ms: float = 2.0
+
+    def __post_init__(self) -> None:
+        if self.min_target < 1 or self.initial_target < 0:
+            raise ValueError(
+                "adaptive.min_target must be >= 1 and initial_target >= 0")
+        if self.increase <= 0 or not 0.0 < self.decrease <= 1.0:
+            raise ValueError(
+                "adaptive.increase must be > 0 and decrease in (0, 1]")
+        if not 0.0 < self.ewma_alpha <= 1.0 or self.slack_ms < 0:
+            raise ValueError(
+                "adaptive.ewma_alpha must be in (0, 1] and slack_ms >= 0")
 
 
 @dataclass
@@ -269,6 +350,20 @@ class ModelConfig:
     # [h2d..fetch] staging slots at once; [pipeline] depth overrides it
     # when nonzero.
     max_inflight: int = 2
+    # Result-cache eligibility: False keeps this model out of the result
+    # cache (for models whose results are not a pure function of the item).
+    cacheable: bool = True
+    # One-shot batch retry: a failed dispatch re-assembles and re-runs the
+    # batch once before failing its futures.
+    batch_retry: bool = True
+    # When the whole-batch retry also fails, bisect recursively so a single
+    # poison item fails only its own future.
+    retry_split: bool = True
+    # Circuit breaker: consecutive failed dispatches before the model trips
+    # to fast 503 + Retry-After (0 disables); the canary half-opens it.
+    breaker_threshold: int = 5
+    # Retry-After hint (s) on breaker 503s when no periodic canary runs.
+    breaker_retry_after_s: float = 5.0
     # The JAX package's per-model keys the port does not serve yet, as
     # parsed (see unported_settings).
     unported: dict[str, Any] = field(default_factory=dict)
@@ -293,8 +388,16 @@ class ServerConfig:
     host: str = "0.0.0.0"
     port: int = 8000
     models: list[ModelConfig] = field(default_factory=list)
+    # HTTP accept loops on the serving port: 1 = the main event loop only;
+    # N > 1 adds N-1 ingest event-loop threads, each with its own
+    # SO_REUSEPORT listener, whose handlers hop onto the main loop once per
+    # request to reach the batchers.
+    ingest_loops: int = 1
     # Host-side decode threadpool size.
     decode_threads: int = 8
+    # Decode request bodies on the accept loop instead of the threadpool
+    # (a single-core host saves the executor hop).
+    decode_inline: bool = False
     # Validate-on-startup canary (tiny inference per model) on/off.
     startup_canary: bool = True
     # Periodic canary interval (s): each model's canary re-runs so /healthz
@@ -303,10 +406,21 @@ class ServerConfig:
     # Per-bucket raw-forward probes at startup (ModelRuntime.probe_all_raw):
     # this many dispatches per bucket, inputs resident. 0 off.
     roofline_probe_iters: int = 0
+    # Watchdog sweep interval (s): restart dead group-accumulation tasks
+    # (0 disables).
+    watchdog_interval_s: float = 1.0
+    # Graceful-drain budget on SIGTERM: new requests 503 at once while every
+    # accepted request gets this long to finish before the hard stop.
+    drain_timeout_s: float = 30.0
     # Retry-After hint (seconds) on 429 shed and drain 503 responses.
     shed_retry_after_s: float = 1.0
     # Pipelined host execution knobs (stage pools, depth, arenas).
     pipeline: PipelineConfig = field(default_factory=PipelineConfig)
+    # Content-addressed result cache + single-flight coalescing (off by
+    # default: only correct for models deterministic in their input).
+    cache: CacheConfig = field(default_factory=CacheConfig)
+    # SLO-aware adaptive batching (AIMD target batch size per group).
+    adaptive: AdaptiveConfig = field(default_factory=AdaptiveConfig)
     # Deterministic chaos injection (off by default).
     faults: FaultsConfig = field(default_factory=FaultsConfig)
     # Versioned reload lifecycle (integrity checks, staged canary, rollback).
@@ -314,6 +428,11 @@ class ServerConfig:
     # The JAX package's settings the port does not serve yet, as parsed:
     # "[table] key" for its tables, the bare key for top-level keys.
     unported: dict[str, Any] = field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        if self.ingest_loops < 1:
+            raise ValueError(
+                f"ingest_loops must be >= 1, got {self.ingest_loops}")
 
     def model(self, name: str) -> ModelConfig:
         for m in self.models:
@@ -329,14 +448,15 @@ def unported_settings(cfg: ServerConfig) -> list[str]:
     for name, value in cfg.unported.items():
         if name.startswith("["):
             table, _, key = name[1:].partition("] ")
-            accepted = (_PARALLEL_OFF if table == "parallel" else _TABLE_OFF).get(key, ())
+            accepted = {"parallel": _PARALLEL_OFF,
+                        "distributed": _DISTRIBUTED_OFF}.get(table, _TABLE_OFF).get(key, ())
         else:
             accepted = _SERVER_UNPORTED[name]
-        if value not in accepted:
+        if not _accepts(accepted, value):
             out.append(f"{name} = {value!r}")
     for m in cfg.models:
         out += [f"model {m.name}: {k} = {v!r}" for k, v in m.unported.items()
-                if v not in _MODEL_UNPORTED[k]]
+                if not _accepts(_MODEL_UNPORTED[k], v)]
         if m.quantize in _QUANTIZE_UNPORTED:
             out.append(f"model {m.name}: quantize = {m.quantize!r}")
     if cfg.faults.enabled:
@@ -344,6 +464,10 @@ def unported_settings(cfg: ServerConfig) -> list[str]:
                 f"({_FAULT_KINDS_UNPORTED[r.kind]}))"
                 for r in cfg.faults.rules if r.kind in _FAULT_KINDS_UNPORTED]
     return out
+
+
+def _accepts(accepted: Any, value: Any) -> bool:
+    return accepted(value) if callable(accepted) else value in accepted
 
 
 def _build(cls: type, data: dict[str, Any], unported: dict[str, tuple] | None = None) -> Any:
@@ -377,6 +501,8 @@ def load_config(path: str | None = None, overrides: list[str] | None = None) -> 
     pipeline_dict = raw.pop("pipeline", None)
     faults_dict = raw.pop("faults", None)
     lifecycle_dict = raw.pop("lifecycle", None)
+    cache_dict = raw.pop("cache", None)
+    adaptive_dict = raw.pop("adaptive", None)
     tables = {t: raw.pop(t) for t in UNPORTED_TABLES if t in raw}
     cfg: ServerConfig = _build(ServerConfig, raw, _SERVER_UNPORTED)
     cfg.models = [_build(ModelConfig, m, _MODEL_UNPORTED) for m in model_dicts]
@@ -384,6 +510,10 @@ def load_config(path: str | None = None, overrides: list[str] | None = None) -> 
         cfg.pipeline = _build(PipelineConfig, pipeline_dict)
     if lifecycle_dict is not None:
         cfg.lifecycle = _build(LifecycleConfig, lifecycle_dict)
+    if cache_dict is not None:
+        cfg.cache = _build(CacheConfig, cache_dict)
+    if adaptive_dict is not None:
+        cfg.adaptive = _build(AdaptiveConfig, adaptive_dict)
     if faults_dict is not None:
         rule_dicts = faults_dict.pop("rule", [])
         cfg.faults = _build(FaultsConfig, faults_dict)

@@ -1,27 +1,39 @@
-"""Deterministic fault injection, ported from ``tpuserve/faults.py``
-(``FaultInjected`` and ``FaultInjector``).
+"""Fault injection and recovery machinery, ported from ``tpuserve/faults.py``.
 
-Rules (``[[faults.rule]]`` in TOML, ``FaultRuleConfig``) name a *kind* — a
-call site on the serving path — plus model, probability and count, and draw
-from rule-local seeded ``random.Random``s seeded exactly as the reference's,
-so one config fires the same sequence in both packages. The port's call
-sites: the runtime's ``dispatch`` (``device_error``, ``slow_compute``), its
-``stage_params`` gates (``reload_corrupt``, ``reload_nan``), the lifecycle's
-staged canary (``reload_regressed``) and the server (``decode_corrupt``,
-``canary_fail``). Kinds whose call sites the port lacks are refused when the
-config loads (``tpuserve_torch.config``). The reference's CircuitBreaker,
-Watchdog and chaos runner are not ported (ROADMAP.md queue 1, "Batcher
-robustness").
+- :class:`FaultInjector`: rules (``[[faults.rule]]`` in TOML,
+  ``FaultRuleConfig``) name a *kind* — a call site on the serving path —
+  plus model, probability and count, and draw from rule-local
+  ``random.Random``s seeded exactly as the reference's, so one config fires
+  the same sequence in both packages. The port's call sites: the batcher
+  (``batch_error``, ``slow_dispatch``, ``kill_group_loop``), the runtime's
+  ``dispatch`` (``device_error``, ``slow_compute``), its ``stage_params``
+  gates (``reload_corrupt``, ``reload_nan``), the lifecycle's staged canary
+  (``reload_regressed``) and the server (``decode_corrupt``,
+  ``canary_fail``). Kinds whose call sites the port lacks are refused when
+  the config loads (``tpuserve_torch.config``).
+- :class:`CircuitBreaker`: per model, trips to fast 503 + ``Retry-After``
+  after N consecutive failed dispatches; the canary half-opens it and the
+  first success closes it.
+- :class:`Watchdog`: a periodic sweep that restarts dead group-accumulation
+  tasks, counted in ``watchdog_restarts_total{model=,component=}``.
+
+The reference's chaos runner (``run_chaos``) drives its aiohttp load
+generator and is not ported (ROADMAP.md queue 1, "Server, rest").
 """
 
 from __future__ import annotations
 
+import asyncio
+import logging
 import random
 import time
+from typing import Callable
 
 from tpuserve_torch.config import FaultRuleConfig, FaultsConfig
-from tpuserve_torch.obs import Metrics
+from tpuserve_torch.obs import BREAKER_STATES, Metrics
 from tpuserve_torch.utils.locks import new_lock
+
+log = logging.getLogger("tpuserve_torch.faults")
 
 
 class FaultInjected(RuntimeError):
@@ -78,6 +90,10 @@ class FaultInjector:
                                count=count, delay_ms=delay_ms, seed=seed)
         return cls(FaultsConfig(enabled=True, seed=seed, rules=[rule]), metrics)
 
+    def set_enabled(self, enabled: bool) -> None:
+        """Flip injection live (chaos drills stop injecting mid-run)."""
+        self.cfg.enabled = enabled
+
     def fire(self, kind: str, model: str) -> FaultRuleConfig | None:
         """First matching armed rule that draws true, or None."""
         if not self.cfg.enabled:
@@ -119,3 +135,150 @@ class FaultInjector:
                 "fired": r.fired,
                 "remaining": r.remaining,
             } for r in self._rules]
+
+
+class CircuitBreaker:
+    """Per-model breaker over consecutive failed dispatches.
+
+    closed --(threshold consecutive failures)--> open
+    open   --(canary probe admitted)-----------> half_open
+    open/half_open --(any recorded success)----> closed
+
+    While open or half-open the server sheds the model's traffic with a
+    fast 503 + ``Retry-After`` before decoding the body. Recovery is driven
+    by the canary, which keeps riding the batcher whatever the breaker's
+    state; its first successful dispatch closes the breaker."""
+
+    def __init__(self, model: str, threshold: int,
+                 metrics: Metrics | None = None,
+                 retry_after_s: float = 5.0) -> None:
+        self.model = model
+        self.threshold = threshold
+        self.metrics = metrics
+        self.retry_after_s = retry_after_s
+        self._lock = new_lock("faults.CircuitBreaker")
+        self.state = "closed"
+        self.consecutive_errors = 0
+        self.opened_total = 0
+        self.shed_total = 0
+        self._set_gauge()
+
+    def allow(self) -> bool:
+        """May normal (non-canary) traffic reach this model's batcher?"""
+        if self.threshold <= 0:
+            return True
+        return self.state == "closed"
+
+    def record_success(self) -> None:
+        with self._lock:
+            self.consecutive_errors = 0
+            changed = self.state != "closed"
+            self.state = "closed"
+        if changed:
+            log.info("breaker for %s closed (recovered)", self.model)
+            self._set_gauge()
+
+    def record_failure(self) -> None:
+        if self.threshold <= 0:
+            return
+        with self._lock:
+            self.consecutive_errors += 1
+            was = self.state
+            if was == "half_open":
+                self.state = "open"  # failed probe: back to shedding
+            elif was == "closed" and self.consecutive_errors >= self.threshold:
+                self.state = "open"
+                self.opened_total += 1
+        if was != self.state:
+            log.warning("breaker for %s opened after %d consecutive failures",
+                        self.model, self.consecutive_errors)
+            self._set_gauge()
+        elif was == "half_open":
+            self._set_gauge()
+
+    def probe(self) -> None:
+        """A canary was admitted while tripped: open -> half_open."""
+        with self._lock:
+            changed = self.state == "open"
+            if changed:
+                self.state = "half_open"
+        if changed:
+            self._set_gauge()
+
+    def on_shed(self) -> None:
+        """One request answered 503 because the breaker is not closed."""
+        with self._lock:
+            self.shed_total += 1
+        if self.metrics is not None:
+            self.metrics.counter(
+                f"breaker_shed_total{{model={self.model}}}").inc()
+
+    def _set_gauge(self) -> None:
+        if self.metrics is not None:
+            self.metrics.gauge(
+                f"breaker_state{{model={self.model}}}").set(BREAKER_STATES[self.state])
+
+    def describe(self) -> dict:
+        with self._lock:
+            return {
+                "state": self.state,
+                "threshold": self.threshold,
+                "consecutive_errors": self.consecutive_errors,
+                "opened_total": self.opened_total,
+                "shed_total": self.shed_total,
+            }
+
+
+class Watchdog:
+    """Periodic sweep restarting dead serving machinery.
+
+    Components register a sweep callable returning how many restarts it
+    performed; non-zero sweeps land in
+    ``watchdog_restarts_total{model=,component=}``. Sweeps run on the event
+    loop and must not block."""
+
+    def __init__(self, interval_s: float, metrics: Metrics) -> None:
+        self.interval_s = interval_s
+        self.metrics = metrics
+        self._targets: list[tuple[str, str, Callable[[], int]]] = []
+        self._task: asyncio.Task | None = None
+
+    def register(self, model: str, component: str, sweep: Callable[[], int]) -> None:
+        self._targets.append((model, component, sweep))
+
+    def start(self) -> None:
+        if self.interval_s > 0 and self._task is None:
+            self._task = asyncio.get_running_loop().create_task(self._loop())
+
+    async def stop(self) -> None:
+        if self._task is not None:
+            self._task.cancel()
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+            self._task = None
+
+    async def _loop(self) -> None:
+        while True:
+            await asyncio.sleep(self.interval_s)
+            try:
+                self.sweep()
+            except Exception:  # one bad sweep must not end the watchdog
+                log.exception("watchdog sweep failed")
+
+    def sweep(self) -> int:
+        """Run every registered sweep once; returns total restarts."""
+        total = 0
+        for model, component, fn in self._targets:
+            try:
+                n = fn()
+            except Exception:
+                log.exception("watchdog sweep for %s/%s failed", model, component)
+                continue
+            if n:
+                log.warning("watchdog restarted %d %s for %s", n, component, model)
+                self.metrics.counter(
+                    f"watchdog_restarts_total{{model={model},component={component}}}").inc(n)
+                total += n
+        return total

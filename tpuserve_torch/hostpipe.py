@@ -6,10 +6,13 @@
 - :class:`AssemblyArena` — preallocated per-bucket host-batch buffers
   recycled through a free-list instead of allocating per batch. On a CUDA
   runtime the buffers are pinned, so the runtime's ``h2d`` copies them with
-  ``non_blocking=True``. A buffer goes back to the free-list only after its
-  batch's fetch completed, which proves the device finished reading it.
-- :class:`SlotPool` — a bounded pool of integer slots with async acquire:
-  the batcher's depth-k staging slots for the device section.
+  ``non_blocking=True``; ``prefill`` makes every bucket's buffers when the
+  batcher starts, so no request pins memory. A buffer goes back to the
+  free-list only after its batch's fetch completed, which proves the device
+  finished reading it.
+- :class:`SlotPool` — a bounded pool of integer slots with async acquire
+  (optionally bounded by a timeout): the batcher's depth-k staging slots for
+  the device section.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ from tpuserve_torch.utils.locks import new_lock
 
 class SlotPool:
     """Fixed set of integer slots [0, n) with async acquire (event loop only);
-    ``acquire`` waits until a slot frees."""
+    ``acquire`` waits until a slot frees, bounded by ``timeout_s`` (raises
+    ``asyncio.TimeoutError``)."""
 
     def __init__(self, n: int) -> None:
         self.capacity = max(1, n)
@@ -47,18 +51,22 @@ class SlotPool:
                 fut.set_result(None)
                 return
 
-    async def acquire(self) -> int:
+    def try_acquire(self) -> int | None:
+        return self._free.pop() if self._free else None
+
+    async def acquire(self, timeout_s: float | None = None) -> int:
         while True:
             if self._free:
                 return self._free.pop()
             fut = asyncio.get_running_loop().create_future()
             self._waiters.append(fut)
             try:
-                await fut
-            except asyncio.CancelledError:
+                await asyncio.wait_for(fut, timeout_s)
+            except (asyncio.TimeoutError, asyncio.CancelledError):
                 if fut in self._waiters:
                     self._waiters.remove(fut)
-                # A release that raced the cancellation must not strand its slot.
+                # A release that raced the timeout or cancellation must not
+                # strand its slot: pass it to the next waiter.
                 if self._free:
                     self._wake_one()
                 raise
@@ -160,6 +168,19 @@ class AssemblyArena:
             torch.zeros(s.shape, dtype=torch.from_numpy(np.zeros((), s.dtype)).dtype,
                         pin_memory=self.pin).numpy()
             for s in self.model.input_signature(bucket))
+
+    def prefill(self, buckets) -> None:
+        """Make every pooled buffer of ``buckets`` now (pinned on CUDA), so
+        the first batch of a bucket allocates nothing on the request path."""
+        for bucket in buckets:
+            bufs = []
+            with self._lock:
+                n = self.slots - self._made.get(bucket, 0)
+                self._made[bucket] = self.slots
+            for _ in range(max(0, n)):
+                bufs.append(self._alloc(bucket))
+            with self._lock:
+                self._free.setdefault(bucket, []).extend(bufs)
 
     def acquire(self, bucket: tuple) -> _ArenaLease:
         with self._lock:

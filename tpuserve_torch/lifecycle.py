@@ -15,8 +15,10 @@ pipeline, every step of which keeps the old version serving on failure:
    candidate becomes numbered version N and version N-1 stays resident in
    its slot as last-known-good.
 4. **post-publish canary + soak** — the canary re-runs on the live serving
-   path; its failure, or a failed periodic canary within
-   ``lifecycle.soak_s``, rolls back to the retained slot.
+   path; its failure, or within ``lifecycle.soak_s`` a breaker that left
+   ``closed`` (``soak_breaker``) or a failed periodic canary
+   (``soak_canary``), rolls back to the retained slot. The re-canary after
+   a rollback is also the breaker's recovery probe.
 
 ``POST .../{name}:rollback`` exposes the same rollback manually and
 ``GET .../{name}/versions`` the transition history. Metrics:
@@ -24,9 +26,7 @@ pipeline, every step of which keeps the old version serving on failure:
 / ``rollbacks_total{reason=}`` counters. Stage names, reasons, history
 statuses and counter labels are the JAX package's.
 
-Not ported yet: the circuit breaker (``breaker`` stays None, so the soak
-never rolls back for ``soak_breaker``; ROADMAP.md queue 1, "Batcher
-robustness") and the structured telemetry events the reference emits beside
+Not ported yet: the structured telemetry events the reference emits beside
 its log lines (ROADMAP.md queue 1, "Observability and analysis").
 """
 
@@ -239,7 +239,8 @@ class ModelLifecycle:
                      source=f"rollback({reason})")
         log.warning("%s: rolled back version %d -> %d (%s)", self.name,
                     info["rolled_back_from"], info["version"], reason)
-        # Re-canary so /healthz reflects the restored weights.
+        # Re-canary so /healthz reflects the restored weights and the
+        # breaker's recovery path sees a live probe.
         if self._canary is not None:
             await self._canary()
         return info

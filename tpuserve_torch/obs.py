@@ -7,11 +7,19 @@ servers: ``batches_total{model=}``, ``items_total{model=}``,
 ``latency_ms{model=,phase=}``, ``runtime_compiles_total{model=}``,
 ``runtime_variants{model=}``, and the ingest counters
 ``frame_errors_total{model=}``, ``native_decode_fallback_total{model=}``,
-``ingest_requests_total{loop=}`` and ``ingest_bytes_total{loop=}`` (the port
-has one accept loop, 0), the lifecycle's ``model_version{model=}``,
-``reloads_total{model=}``, ``reload_rejected_total{model=,stage=}`` and
-``rollbacks_total{model=,reason=}``, and the fault injector's
-``faults_injected_total{model=,kind=}``.
+``ingest_requests_total{loop=}`` and ``ingest_bytes_total{loop=}`` (one pair
+per accept loop, ``[server] ingest_loops``), the lifecycle's
+``model_version{model=}``, ``reloads_total{model=}``,
+``reload_rejected_total{model=,stage=}`` and
+``rollbacks_total{model=,reason=}``, the fault injector's
+``faults_injected_total{model=,kind=}``, the adaptive flush's
+``adaptive_target_batch{model=}`` and ``batch_duration_ewma_ms{model=}``,
+the retry path's ``batch_retries_total``, ``batch_retry_failures_total``
+and ``poison_items_total{model=}``, the breaker's ``breaker_state`` and
+``breaker_shed_total{model=}``, the watchdog's
+``watchdog_restarts_total{model=,component=}`` and the result cache's
+``cache_<event>_total{model=}`` (``CACHE_EVENTS``) and
+``cache_entries{model=}``.
 
 Not ported yet (ROADMAP.md queue 1, "Observability and analysis"): request
 trace contexts, the flight recorder, the span ring and histogram exemplars.
@@ -110,10 +118,21 @@ RELOAD_STAGES = ("integrity", "nan_scan", "structure", "load",
                  "staged_canary", "post_canary")
 
 # Reasons on rollbacks_total{model=,reason=}: the explicit admin endpoint, a
-# failed post-publish canary, and the soak-window triggers (the port has no
-# circuit breaker yet, so "soak_breaker" never fires).
+# failed post-publish canary, and the soak-window triggers (a breaker that
+# left "closed", a failed periodic canary).
 ROLLBACK_REASONS = ("manual", "post_publish_canary", "soak_breaker",
                     "soak_canary")
+
+# Circuit-breaker states as the breaker_state{model=} gauge's values
+# (tpuserve_torch.faults.CircuitBreaker): bigger = less healthy.
+BREAKER_STATES = {"closed": 0.0, "half_open": 1.0, "open": 2.0}
+
+# Result-cache events (tpuserve_torch.cache), the cache_<event>_total{model=}
+# counters: "hits" answer from the cache, "misses" lead a real batch
+# submission, "coalesced" join an identical in-flight miss (single-flight),
+# "evictions" are LRU drops and "stale_drops" flights that completed after
+# a mid-flight version change (served to their waiters, never cached).
+CACHE_EVENTS = ("hits", "misses", "coalesced", "evictions", "stale_drops")
 
 # Host-pipeline stage executors (tpuserve_torch.hostpipe): one thread pool
 # per stage, labelled on pipeline_stage_depth{model=,stage=}.
@@ -150,6 +169,21 @@ class Metrics:
             if g is None:
                 g = self._gauges[name] = Gauge(name)
             return g
+
+    def cache_counter(self, model: str, event: str) -> Counter:
+        """cache_<event>_total{model=}: one of CACHE_EVENTS. Prebound by
+        ModelCache at construction; never call this per request."""
+        return self.counter(f"cache_{event}_total{{model={model}}}")
+
+    def ingest_requests_counter(self, loop_index: int) -> Counter:
+        """ingest_requests_total{loop=}: predict requests read by one accept
+        loop (0 = the main serving loop, 1..N-1 the ingest threads)."""
+        return self.counter(f"ingest_requests_total{{loop={loop_index}}}")
+
+    def ingest_bytes_counter(self, loop_index: int) -> Counter:
+        """ingest_bytes_total{loop=}: request-body bytes read by one accept
+        loop."""
+        return self.counter(f"ingest_bytes_total{{loop={loop_index}}}")
 
     def set_model_version(self, model: str, version: int) -> None:
         """model_version{model=}: the live weight-tree version number

@@ -12,7 +12,8 @@ fixed addresses, and captures one graph per (bucket, slot):
 
 - startup: each bucket is warmed up eagerly, once per slot (this sets K1/K2's
   shared-memory opt-in, cuBLAS' workspace and cuDNN's plans before any
-  capture), then captured per slot into one memory pool per runtime. A
+  capture), then captured per slot into one memory pool per runtime and
+  replayed once (a graph's first launch uploads it to the card). A
   variant is the bucket's graph set: ``runtime_compiles_total`` counts one
   per bucket, as the JAX runtime counts one per (bucket, replica), and the
   variant summary reports its ``captures`` and ``compile_ms``. A capture that
@@ -358,6 +359,12 @@ class ModelRuntime:
             with torch.cuda.graph(graph, pool=self._pool, stream=stream):
                 outputs = self.model.forward(slot.module, inputs)
             launches = (fa.launches - k1, fa.stats_launches - k2)
+            # A graph's first launch uploads it to the card: pay that here,
+            # at startup, not in the first request of the bucket.
+            with torch.cuda.stream(stream):
+                graph.replay()
+            fa.count_replay(*launches)
+            stream.synchronize()
         return Graph(graph, inputs, outputs, launches)
 
     @property

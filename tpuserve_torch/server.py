@@ -3,10 +3,12 @@
 The JAX server is built on aiohttp; the port's front door is written on
 ``asyncio.start_server`` from the standard library (HTTP/1.1,
 ``Content-Length`` bodies, keep-alive), so it serves on a machine that has
-torch and nothing else. One event loop owns the batchers; handlers only read
-the body, decode it on the thread pool (``model.host_decode_items``), submit
-to the batcher, await the per-item futures and JSON-encode the result. All
-device work happens behind the batcher.
+torch and nothing else. One event loop (the main loop) owns the batchers,
+caches and breakers; handlers read the body, decode it on the thread pool
+(``model.host_decode_items``; on the accept loop with ``decode_inline``),
+submit to the batcher (through the result cache when ``[cache]`` is on),
+await the per-item futures and JSON-encode the result. All device work
+happens behind the batcher.
 
 Endpoints (response shapes and status codes as in the JAX server):
 
@@ -16,12 +18,15 @@ Endpoints (response shapes and status codes as in the JAX server):
   an image model an ``application/x-tpuserve-frame`` body or an npy
   (N, H, W, 3) batch answers ``{"results": [...]}``, an npy (H, W, 3) image
   or an encoded image ``{"top_k": [...]}``.
-- ``GET /healthz``, ``GET /metrics`` (Prometheus text), ``GET /stats``
-  (latency summary, backend — card, torch and CUDA versions, device — the
-  ingest block — requests and bytes of the one accept loop, frame errors
-  and native-decode fallbacks per model —, the host pipeline and the
-  kernels' launch counts), ``GET /v1/models`` (buckets, variants, dtype,
-  quantize, device).
+- ``GET /healthz`` (``ok``, ``degraded`` or, once a drain began,
+  ``draining`` with 503), ``GET /metrics`` (Prometheus text), ``GET
+  /stats`` (latency summary, backend — card, torch and CUDA versions,
+  device —, the ``robustness`` block — draining, each model's breaker, the
+  armed faults —, the ``cache`` block when ``[cache]`` is on, the ingest
+  block — requests and bytes per accept loop, frame errors and
+  native-decode fallbacks per model —, the host pipeline and the kernels'
+  launch counts), ``GET /v1/models`` (buckets, variants, dtype, quantize,
+  device).
 - ``POST /debug/kernels:reset`` sets the kernels' launch counts to 0, so a
   caller can count exactly the launches of the requests it sends next.
 - ``POST /admin/models/{name}:reload`` (staged, canary-gated weight swap
@@ -31,22 +36,34 @@ Endpoints (response shapes and status codes as in the JAX server):
   lifecycle reverted), ``POST /admin/models/{name}:rollback`` (200, or 409
   when no previous version is retained) and ``GET
   /admin/models/{name}/versions`` (live and previous version, soak state,
-  history), backed by ``tpuserve_torch.lifecycle``. ``/stats`` carries a
-  ``lifecycle`` block, and with ``canary_interval_s`` > 0 every model's
-  canary re-runs on that interval, feeding ``/healthz``.
+  history), backed by ``tpuserve_torch.lifecycle``. With
+  ``canary_interval_s`` > 0 every model's canary re-runs on that interval,
+  feeding ``/healthz``, the soak monitor and the breaker's recovery.
+
+Robustness: a per-model circuit breaker trips after ``breaker_threshold``
+consecutive failed dispatches; while it is open, predict answers 503 +
+``Retry-After`` (the time to the next periodic canary, the probe that
+half-opens and closes it) before the body is decoded. A watchdog revives
+dead group loops every ``watchdog_interval_s``. On SIGTERM the server
+drains: the watchdog and the canary stop, new requests get 503 +
+``Retry-After`` and ``/healthz`` turns ``draining``, every accepted request
+gets up to ``drain_timeout_s`` to finish, then the server stops and the
+process exits 0. With ``ingest_loops`` = N > 1, N-1 more accept loops, each
+on its own thread with an SO_REUSEPORT listener on the serving port, read,
+parse and decode requests and hop onto the main loop once per request.
 
 Errors: decode failure 400 (a malformed frame answers its ``frame: ...``
 message and ticks ``frame_errors_total{model=}`` beside
 ``bad_requests_total{model=}``), unknown model or path 404, wrong method 405,
-body too large 413, queue full 429 (+ ``Retry-After``), draining 503,
-deadline exceeded 504, batch failure 500. Error bodies are
-``{"error": ..., "trace_id": ...}``; every predict response carries
-``X-Trace-Id``.
+body too large 413, queue full 429 (+ ``Retry-After`` from the queue's
+clear time), draining or breaker open 503 (+ ``Retry-After``), deadline
+exceeded 504, batch failure 500. Error bodies are ``{"error": ...,
+"trace_id": ...}``; every predict response carries ``X-Trace-Id``.
 
-Not ported yet (ROADMAP.md queue 1): the router/worker tiers, the circuit
-breaker, result cache, fleet scheduler (``:warm``/``:demote``), tenants,
-the telemetry and event planes, streaming, parallel ingest loops, the
-``/stats`` roofline block and request tracing beyond the trace id.
+Not ported yet (ROADMAP.md queue 1): the router/worker tiers, the fleet
+scheduler (``:warm``/``:demote``), tenants, the telemetry and event planes,
+streaming, ``/debug/trace``, ``/debug/slow``, ``/``, the ``/stats`` roofline
+block and request tracing beyond the trace id.
 """
 
 from __future__ import annotations
@@ -55,11 +72,14 @@ import asyncio
 import concurrent.futures as cf
 import contextlib
 import functools
+import gc
 import json
 import logging
 import math
 import os
 import signal
+import socket
+import threading
 import time
 from dataclasses import dataclass, field
 from http import HTTPStatus
@@ -69,9 +89,11 @@ import torch
 
 from tpuserve_torch import models as modelzoo
 from tpuserve_torch import preproc
-from tpuserve_torch.batcher import DeadlineExceeded, ModelBatcher, QueueFull
+from tpuserve_torch.batcher import (DeadlineExceeded, ModelBatcher, QueueFull,
+                                    clamp_retry_after_s)
+from tpuserve_torch.cache import ModelCache
 from tpuserve_torch.config import ServerConfig, unported_settings
-from tpuserve_torch.faults import FaultInjector
+from tpuserve_torch.faults import CircuitBreaker, FaultInjector, Watchdog
 from tpuserve_torch.frame import FrameError
 from tpuserve_torch.hostpipe import StageExecutors
 from tpuserve_torch.lifecycle import ModelLifecycle, ReloadRejected
@@ -89,11 +111,16 @@ _MAX_HEAD = 64 * 1024
 
 @dataclass
 class Request:
+    """One request off the wire: the head is parsed at once, the body is
+    read on demand (``read``), so a shed can answer before it."""
+
     method: str
     path: str
     query: dict
     headers: dict  # lower-cased names
-    body: bytes = b""
+    length: int = 0
+    reader: asyncio.StreamReader | None = field(default=None, repr=False)
+    body: bytes | None = None
     read_s: float = 0.0  # time spent reading the body off the socket
 
     @property
@@ -102,6 +129,15 @@ class Request:
         header is absent, so decode sees what the JAX server sees)."""
         raw = self.headers.get("content-type", "")
         return raw.split(";", 1)[0].strip().lower() or "application/octet-stream"
+
+    async def read(self) -> bytes:
+        """The body (read off the socket at the first call)."""
+        if self.body is None:
+            t0 = time.perf_counter()
+            self.body = (await self.reader.readexactly(self.length)
+                         if self.length else b"")
+            self.read_s = time.perf_counter() - t0
+        return self.body
 
 
 @dataclass
@@ -166,6 +202,47 @@ class ModelHandles:
             f"native_decode_fallback_total{{model={name}}}")
 
 
+class IngestHandles:
+    """One accept loop's prebound ingest counters
+    (``ingest_requests_total{loop=}``, ``ingest_bytes_total{loop=}``)."""
+
+    __slots__ = ("index", "requests", "bytes")
+
+    def __init__(self, index: int, metrics: Metrics) -> None:
+        self.index = index
+        self.requests = metrics.ingest_requests_counter(index)
+        self.bytes = metrics.ingest_bytes_counter(index)
+
+
+class Connections:
+    """The open client connections of one accept loop and its requests in
+    progress (a read request not yet answered), so a stop can wait for the
+    answers of accepted work before closing the sockets. Loop-local."""
+
+    def __init__(self) -> None:
+        self.writers: set[asyncio.StreamWriter] = set()
+        self.busy = 0
+        self._idle = asyncio.Event()
+        self._idle.set()
+
+    def begin(self) -> None:
+        self.busy += 1
+        self._idle.clear()
+
+    def end(self) -> None:
+        self.busy -= 1
+        if self.busy == 0:
+            self._idle.set()
+
+    async def close(self, timeout_s: float) -> None:
+        """Wait (bounded) for the requests in progress to be answered, then
+        close every connection."""
+        with contextlib.suppress(asyncio.TimeoutError):
+            await asyncio.wait_for(self._idle.wait(), max(0.0, timeout_s))
+        for writer in list(self.writers):
+            writer.close()
+
+
 def _reject_unported(cfg: ServerConfig) -> None:
     """Refuse settings the port does not serve yet, instead of silently
     ignoring them."""
@@ -174,6 +251,10 @@ def _reject_unported(cfg: ServerConfig) -> None:
         raise NotImplementedError(
             "not yet ported to tpuserve_torch (see ROADMAP.md queue 1): "
             + ", ".join(unported))
+
+
+class NotServing(RuntimeError):
+    """The batcher refused the submit (stopped, racing shutdown) -> 503."""
 
 
 class ServerState:
@@ -192,20 +273,32 @@ class ServerState:
         self.models: dict[str, object] = {}
         self.runtimes: dict[str, ModelRuntime] = {}
         self.batchers: dict[str, ModelBatcher] = {}
+        self.breakers: dict[str, CircuitBreaker] = {}
+        # Per-model result cache + single-flight; empty unless [cache] is on.
+        self.caches: dict[str, ModelCache] = {}
         self.handles: dict[str, ModelHandles] = {}
-        # The one accept loop's ingest counters (the JAX server's loop 0).
-        self.ingest_requests = self.metrics.counter("ingest_requests_total{loop=0}")
-        self.ingest_bytes = self.metrics.counter("ingest_bytes_total{loop=0}")
+        # Per-accept-loop ingest counters by loop index (0 = the main loop).
+        self.ingest: dict[int, IngestHandles] = {}
         self.lifecycles: dict[str, ModelLifecycle] = {}
         self.injector = (FaultInjector(cfg.faults, self.metrics)
                          if cfg.faults.enabled else None)
+        self.watchdog = Watchdog(cfg.watchdog_interval_s, self.metrics)
         self.canary_ok: dict[str, bool] = {}
         self._canary_task: asyncio.Task | None = None
+        # Next periodic-canary fire time (time.monotonic clock): the basis of
+        # the breaker 503s' Retry-After (the canary is the recovery probe).
+        self._next_canary_at: float | None = None
+        # The loop that owns the batchers, caches and breakers (set in
+        # start); handlers on an ingest loop hop onto it.
+        self.main_loop: asyncio.AbstractEventLoop | None = None
+        # Graceful drain: True once shutdown began — new requests shed with
+        # 503 + Retry-After while accepted ones finish.
         self.draining = False
         self.serving_addresses: list = []
-        # Open client connections (keep-alive ones idle between requests),
-        # closed at shutdown so the listener's wait_closed() can return.
-        self.connections: set[asyncio.StreamWriter] = set()
+        # The main loop's client connections (keep-alive ones idle between
+        # requests), closed at shutdown so the listener's wait_closed() can
+        # return.
+        self.connections: Connections | None = None
 
     def build(self) -> None:
         """Build every model's runtime: params on the device, buckets warm."""
@@ -222,63 +315,123 @@ class ServerState:
             log.info("model %s ready in %.1fs: %s", mcfg.name,
                      time.perf_counter() - t0, rt.describe())
 
+    def ingest_handles(self, index: int) -> IngestHandles:
+        """Prebound ingest counters for accept loop ``index`` (idempotent)."""
+        h = self.ingest.get(index)
+        if h is None:
+            h = self.ingest[index] = IngestHandles(index, self.metrics)
+        return h
+
     async def start(self) -> None:
+        self.main_loop = asyncio.get_running_loop()
+        self.connections = Connections()
+        self.ingest_handles(0)
         preproc.set_native_fallback_hook(self._note_native_fallback)
         for name, model in self.models.items():
-            b = ModelBatcher(model, self.runtimes[name], self.metrics,
-                             stages=self.stages, pipeline_cfg=self.cfg.pipeline)
+            rt = self.runtimes[name]
+            br = CircuitBreaker(name, model.cfg.breaker_threshold, self.metrics,
+                                retry_after_s=model.cfg.breaker_retry_after_s)
+            self.breakers[name] = br
+            b = ModelBatcher(model, rt, self.metrics, stages=self.stages,
+                             pipeline_cfg=self.cfg.pipeline,
+                             adaptive_cfg=self.cfg.adaptive, breaker=br,
+                             injector=self.injector)
             await b.start()
             self.batchers[name] = b
             self.handles[name] = ModelHandles(name, model.cfg, self.metrics)
+            if self.cfg.cache.enabled and model.cfg.cacheable:
+                # Keys carry the LIVE version, so a publish or rollback
+                # invalidates every older entry.
+                self.caches[name] = ModelCache(
+                    name, self.cfg.cache, self.metrics,
+                    version_fn=functools.partial(getattr, rt, "version"))
+            self.watchdog.register(name, "group_loop", b.revive_group_loops)
             self.lifecycles[name] = ModelLifecycle(
-                name, self.runtimes[name], model, self.cfg.lifecycle, self.metrics,
+                name, rt, model, self.cfg.lifecycle, self.metrics, breaker=br,
                 canary=functools.partial(self.run_canary, name),
                 canary_status=functools.partial(self.canary_ok.get, name),
                 injector=self.injector)
         if self.cfg.startup_canary:
-            for name in self.models:
-                await self.run_canary(name)
+            await self.run_canaries()
         if self.cfg.canary_interval_s > 0:
             self._canary_task = asyncio.get_running_loop().create_task(self._canary_loop())
+        self.watchdog.start()
 
     def _note_native_fallback(self, model: str) -> None:
         self.handles[model].native_fallback.inc()
 
-    async def stop(self) -> None:
-        for lc in self.lifecycles.values():
-            lc.close()  # stop soak monitors
+    async def _stop_canary_loop(self) -> None:
         if self._canary_task is not None:
             self._canary_task.cancel()
             with contextlib.suppress(asyncio.CancelledError):
                 await self._canary_task
             self._canary_task = None
+
+    async def stop(self) -> None:
+        await self.watchdog.stop()
+        for lc in self.lifecycles.values():
+            lc.close()  # stop soak monitors
+        await self._stop_canary_loop()
         for b in self.batchers.values():
             await b.stop()
         self.stages.shutdown()
         self.pool.shutdown(wait=False, cancel_futures=True)
 
+    # -- graceful drain ------------------------------------------------------
+    def begin_drain(self) -> None:
+        """Stop admitting requests: predict answers 503 + Retry-After and
+        /healthz turns "draining" so load balancers pull this replica."""
+        self.draining = True
+
+    async def drain(self) -> bool:
+        """SIGTERM path: stop the revival machinery (the watchdog must not
+        revive a loop the drain quiesces, the canary must not add work after
+        admission closed), refuse new work, then wait up to
+        ``drain_timeout_s`` for every accepted request. False when the
+        budget expired first."""
+        await self.watchdog.stop()
+        await self._stop_canary_loop()
+        self.begin_drain()
+        deadline = asyncio.get_running_loop().time() + self.cfg.drain_timeout_s
+        ok = True
+        for b in self.batchers.values():
+            ok &= await b.drain(deadline)
+        return ok
+
+    # -- canaries ------------------------------------------------------------
     async def _canary_loop(self) -> None:
-        """Re-run every model's canary each ``canary_interval_s`` so
-        /healthz (and the lifecycle's soak monitor) reflect live serving
+        """Re-run every model's canary each ``canary_interval_s`` so /healthz,
+        the soak monitor and the breaker's recovery reflect live serving
         health. Each cycle's timeout is bounded by the interval but never
         below a model's own request_timeout_ms."""
         base = min(60.0, max(2.0, 2.0 * self.cfg.canary_interval_s))
         timeouts = {name: max(base, m.cfg.request_timeout_ms / 1e3)
                     for name, m in self.models.items()}
         while True:
+            self._next_canary_at = time.monotonic() + self.cfg.canary_interval_s
             await asyncio.sleep(self.cfg.canary_interval_s)
             try:
-                await asyncio.gather(*(self.run_canary(n, timeout_s=t)
-                                       for n, t in timeouts.items()))
+                await self.run_canaries(timeouts=timeouts)
             except Exception:  # one bad cycle must not end re-canarying
                 log.exception("periodic canary cycle failed")
 
+    async def run_canaries(self, timeout_s: float = 60.0,
+                           timeouts: dict[str, float] | None = None) -> None:
+        # Concurrent: one hung model must not stall the others.
+        await asyncio.gather(*(self.run_canary(n, timeout_s=(timeouts or {}).get(n, timeout_s))
+                               for n in self.models))
+
     async def run_canary(self, name: str, timeout_s: float = 60.0) -> bool:
-        """Tiny end-to-end inference through the batcher; feeds /healthz."""
+        """Tiny end-to-end inference through the batcher; feeds /healthz and
+        half-opens/closes the breaker (canaries ride the batcher whatever
+        the breaker's state: they are the recovery probe)."""
         model = self.models[name]
+        br = self.breakers.get(name)
         try:
             if self.injector is not None:
                 self.injector.check("canary_fail", name)
+            if br is not None:
+                br.probe()
             item = model.canary_item()
             fut = self.batchers[name].submit(item, group=model.group_key(item))
             await asyncio.wait_for(fut, timeout=timeout_s)
@@ -290,11 +443,37 @@ class ServerState:
             self.canary_ok[name] = False
         return self.canary_ok.get(name, True)
 
+    # -- Retry-After hints ---------------------------------------------------
+    def shed_retry_after(self) -> int:
+        """Retry-After seconds on drain 503s: this replica is going away."""
+        return max(1, math.ceil(self.cfg.shed_retry_after_s))
+
+    def queue_retry_after(self, name: str) -> int:
+        """Retry-After seconds on queue-full 429s: the batcher's estimated
+        queue-clear time, clamped to [1, 30] s; the configured constant
+        before any batch has completed."""
+        b = self.batchers.get(name)
+        hint = clamp_retry_after_s(b.estimate_clear_s() if b is not None else None)
+        return hint if hint is not None else self.shed_retry_after()
+
+    def breaker_retry_after(self, name: str) -> int:
+        """Retry-After seconds on breaker 503s: the time to the next
+        periodic canary when canaries drive recovery (the interval before
+        the loop armed a fire time), else the model's configured hint."""
+        if self.cfg.canary_interval_s > 0:
+            if self._next_canary_at is not None:
+                eta = self._next_canary_at - time.monotonic()
+                return max(1, math.ceil(eta)) if eta > 0 else 1
+            return max(1, math.ceil(self.cfg.canary_interval_s))
+        br = self.breakers.get(name)
+        return max(1, math.ceil(br.retry_after_s if br else 1.0))
+
     # -- routing -------------------------------------------------------------
-    async def handle(self, req: Request) -> Response:
+    async def handle(self, req: Request, ingest: IngestHandles) -> Response:
+        """Route one request. Predict runs on the accept loop that read it
+        (hopping once onto the main loop for the batcher); every other
+        route touches main-loop state and runs there."""
         path = req.path
-        if path.startswith("/admin/models/"):
-            return await self.admin(req, path[len("/admin/models/"):])
         if path.startswith("/v1/models/") and ":" in path:
             name, _, verb = path[len("/v1/models/"):].rpartition(":")
             if verb in _VERBS and name and "/" not in name:
@@ -302,7 +481,14 @@ class ServerState:
                     resp = _text(405)
                     resp.headers["Allow"] = "POST"
                     return resp
-                return await self.predict(req, name)
+                return await self.predict(req, name, ingest)
+        await req.read()
+        return await _on_main(self, lambda: self._route(req))
+
+    async def _route(self, req: Request) -> Response:
+        path = req.path
+        if path.startswith("/admin/models/"):
+            return await self.admin(req, path[len("/admin/models/"):])
         routes = {
             "/healthz": ("GET", self.healthz),
             "/metrics": ("GET", self.metrics_text),
@@ -384,13 +570,16 @@ class ServerState:
         out = self.metrics.summary()
         out["backend"] = backend_info(self.device)
         out["kernels"] = self.kernel_counts()
-        out["robustness"] = {"draining": self.draining}
+        out["robustness"] = {
+            "draining": self.draining,
+            "breakers": {n: br.describe() for n, br in self.breakers.items()},
+        }
         if self.injector is not None:
             out["robustness"]["faults"] = self.injector.snapshot()
         out["lifecycle"] = {n: lc.describe() for n, lc in self.lifecycles.items()}
         out["ingest"] = {
-            "loops": {"0": {"requests": self.ingest_requests.value,
-                            "bytes": self.ingest_bytes.value}},
+            "loops": {str(i): {"requests": ih.requests.value, "bytes": ih.bytes.value}
+                      for i, ih in sorted(self.ingest.items())},
             "frame_errors_total": {n: h.frame_errors.value for n, h in self.handles.items()},
             "native_decode_fallback_total": {
                 n: h.native_fallback.value for n, h in self.handles.items()},
@@ -399,22 +588,33 @@ class ServerState:
             "stages": self.stages.stats(),
             "models": {n: b.pipeline_stats() for n, b in self.batchers.items()},
         }
+        if self.caches:
+            out["cache"] = {n: c.stats() for n, c in self.caches.items()}
         return json_response(out)
 
-    async def predict(self, req: Request, name: str) -> Response:
+    async def predict(self, req: Request, name: str, ingest: IngestHandles) -> Response:
         trace_id = os.urandom(16).hex()
         model = self.models.get(name)
         if model is None:
             return _err(404, f"unknown model {name!r}", trace_id=trace_id)
+        # Shed checks run BEFORE the body is read and decoded: a draining
+        # replica or a tripped model answers at once, with a Retry-After.
         if self.draining:
             return _err(503, "server draining; retry against another replica",
-                        retry_after=self._retry_after(), trace_id=trace_id)
+                        retry_after=self.shed_retry_after(), trace_id=trace_id)
+        breaker = self.breakers.get(name)
+        if breaker is not None and not breaker.allow():
+            breaker.on_shed()
+            return _err(503, f"circuit open for model {name!r}; recovery probe "
+                             "in progress",
+                        retry_after=self.breaker_retry_after(name), trace_id=trace_id)
         h = self.handles[name]
         h.requests.inc()
         t_start = time.perf_counter()
+        body = await req.read()
         h.body_read_hist.observe(req.read_s * 1e3)
-        self.ingest_requests.inc()
-        self.ingest_bytes.inc(len(req.body))
+        ingest.requests.inc()
+        ingest.bytes.inc(len(body))
         ctype = req.content_type
         try:
             timeout_ms = _requested_timeout_ms(req, ctype)
@@ -427,8 +627,11 @@ class ServerState:
             if self.injector is not None:
                 self.injector.check("decode_corrupt", name)
             t_parse = time.perf_counter()
-            items, batched = await asyncio.get_running_loop().run_in_executor(
-                self.pool, model.host_decode_items, req.body, ctype)
+            if self.cfg.decode_inline:
+                items, batched = model.host_decode_items(body, ctype)
+            else:
+                items, batched = await asyncio.get_running_loop().run_in_executor(
+                    self.pool, model.host_decode_items, body, ctype)
             if not items:
                 raise ValueError("empty batch")
             h.parse_hist.observe((time.perf_counter() - t_parse) * 1e3)
@@ -440,28 +643,14 @@ class ServerState:
             h.bad_requests.inc()
             return _err(400, f"could not decode request: {e}", trace_id=trace_id)
 
-        batcher = self.batchers[name]
-        futs: list[asyncio.Future] = []
         try:
-            for item in items:
-                futs.append(batcher.submit(item, group=model.group_key(item),
-                                           deadline_at=deadline_at))
+            results, hit_entry = await _on_main(self, lambda: self._submit_and_gather(
+                name, model, items, deadline_at, timeout_ms))
         except QueueFull:
-            for f in futs:
-                f.cancel()
             return _err(429, "queue full, retry later",
-                        retry_after=self._retry_after(), trace_id=trace_id)
-        except RuntimeError as e:  # batcher stopped: racing shutdown
-            for f in futs:
-                f.cancel()
+                        retry_after=self.queue_retry_after(name), trace_id=trace_id)
+        except NotServing as e:
             return _err(503, f"server not accepting requests: {e}", trace_id=trace_id)
-        try:
-            # The batcher enforces an explicit client deadline at flush time;
-            # this timer runs slightly late as the backstop.
-            grace = 0.25 if timeout_ms is not None else 0.0
-            remaining = max(0.0, deadline_at - time.perf_counter())
-            results = await asyncio.wait_for(asyncio.gather(*futs),
-                                             timeout=remaining + grace)
         except DeadlineExceeded as e:
             return _err(504, f"deadline_exceeded: {e}", trace_id=trace_id)
         except asyncio.TimeoutError:
@@ -470,16 +659,83 @@ class ServerState:
                         trace_id=trace_id)
         except Exception as e:
             return _err(500, f"inference failed: {e}", trace_id=trace_id)
-        finally:
-            for f in futs:
-                if not f.done():
-                    f.cancel()
         h.total_hist.observe((time.perf_counter() - t_start) * 1e3)
-        payload = {"results": list(results)} if batched else results[0]
-        return json_response(payload, headers={"X-Trace-Id": trace_id})
+        headers = {"X-Trace-Id": trace_id}
+        if batched:
+            return json_response({"results": results}, headers=headers)
+        if hit_entry is not None and hit_entry.body is not None:
+            # Cache hit: the response bytes were serialized once, when the
+            # entry was made.
+            return Response(200, hit_entry.body, headers=headers)
+        return json_response(results[0], headers=headers)
 
-    def _retry_after(self) -> int:
-        return max(1, math.ceil(self.cfg.shed_retry_after_s))
+    async def _submit_and_gather(self, name: str, model, items: list,
+                                 deadline_at: float,
+                                 timeout_ms: float | None) -> tuple[list, object]:
+        """Cache lookup and single-flight, batcher submission and the
+        deadline-bounded gather of one decoded request: everything that must
+        run on the main loop. Returns (results, the last hit entry or None).
+        Raises QueueFull (-> 429), NotServing (-> 503), DeadlineExceeded
+        (-> fast 504), asyncio.TimeoutError (-> backstop 504) or the batch
+        failure (-> 500)."""
+        cache = self.caches.get(name)
+        batcher = self.batchers[name]
+        results: list = [None] * len(items)
+        futs: list[asyncio.Future] = []
+        slots: list[int] = []
+        hit_entry = None
+        try:
+            for i, item in enumerate(items):
+                if cache is not None:
+                    key = cache.key_for(item)
+                    entry = cache.get(key)
+                    if entry is not None:
+                        results[i] = entry.value
+                        hit_entry = entry
+                        continue
+                    fut = cache.submit_through(key, lambda it=item: batcher.submit(
+                        it, group=model.group_key(it), deadline_at=deadline_at))
+                else:
+                    fut = batcher.submit(item, group=model.group_key(item),
+                                         deadline_at=deadline_at)
+                futs.append(fut)
+                slots.append(i)
+        except QueueFull:
+            for f in futs:
+                f.cancel()
+            raise
+        except RuntimeError as e:  # batcher stopped: racing shutdown
+            for f in futs:
+                f.cancel()
+            raise NotServing(str(e)) from e
+        if futs:
+            try:
+                # The batcher enforces an explicit client deadline at flush
+                # time; this timer runs slightly late as the backstop.
+                grace = 0.25 if timeout_ms is not None else 0.0
+                remaining = max(0.0, deadline_at - time.perf_counter())
+                done = await asyncio.wait_for(asyncio.gather(*futs),
+                                              timeout=remaining + grace)
+            except BaseException:
+                for f in futs:
+                    f.cancel()
+                raise
+            for i, res in zip(slots, done):
+                results[i] = res
+        return results, hit_entry
+
+
+async def _on_main(state: ServerState, factory):
+    """Run ``factory()`` (a coroutine factory) on the main loop: a plain
+    await there; from an ingest loop the coroutine is scheduled onto the
+    main loop (which owns the batchers, caches and breakers) and its result
+    or exception crosses back through a concurrent future. Cancelling the
+    ingest side's await cancels the main-loop task."""
+    loop = asyncio.get_running_loop()
+    if state.main_loop is None or loop is state.main_loop:
+        return await factory()
+    return await asyncio.wrap_future(
+        asyncio.run_coroutine_threadsafe(factory(), state.main_loop))
 
 
 def _requested_timeout_ms(req: Request, ctype: str) -> float | None:
@@ -508,8 +764,9 @@ def _requested_timeout_ms(req: Request, ctype: str) -> float | None:
 # -- HTTP/1.1 on asyncio streams ----------------------------------------------
 
 async def _read_request(reader: asyncio.StreamReader) -> "Request | Response | None":
-    """One request off the connection: a Request, an error Response to send
-    before closing, or None when the peer closed between requests."""
+    """One request's head off the connection: a Request (its body left on
+    the socket for ``Request.read``), an error Response to send before
+    closing, or None when the peer closed between requests."""
     try:
         head = await reader.readuntil(b"\r\n\r\n")
     except asyncio.IncompleteReadError:
@@ -535,12 +792,10 @@ async def _read_request(reader: asyncio.StreamReader) -> "Request | Response | N
         return _err(411, "chunked request bodies are not supported; send Content-Length")
     if length > _MAX_BODY:
         return _text(413)
-    t0 = time.perf_counter()
-    body = await reader.readexactly(length) if length else b""
     path, _, qs = target.partition("?")
     req = Request(method=method.upper(), path=unquote(path),
-                  query=dict(parse_qsl(qs)), headers=headers, body=body,
-                  read_s=time.perf_counter() - t0)
+                  query=dict(parse_qsl(qs)), headers=headers, length=length,
+                  reader=reader)
     req.headers[":version"] = version
     return req
 
@@ -552,9 +807,10 @@ def _keep_alive(req: Request) -> bool:
     return conn != "close"
 
 
-async def _serve_connection(state: ServerState, reader: asyncio.StreamReader,
+async def _serve_connection(state: ServerState, conns: Connections,
+                            ingest: IngestHandles, reader: asyncio.StreamReader,
                             writer: asyncio.StreamWriter) -> None:
-    state.connections.add(writer)
+    conns.writers.add(writer)
     try:
         while True:
             try:
@@ -567,61 +823,186 @@ async def _serve_connection(state: ServerState, reader: asyncio.StreamReader,
                 writer.write(req.encode(keep_alive=False))
                 await writer.drain()
                 return
+            conns.begin()
             try:
-                resp = await state.handle(req)
-            except Exception as e:
-                log.exception("handler failed for %s %s", req.method, req.path)
-                resp = _err(500, f"internal error: {e}")
-            keep = _keep_alive(req)
-            writer.write(resp.encode(keep_alive=keep))
-            await writer.drain()
+                try:
+                    resp = await state.handle(req, ingest)
+                except (asyncio.IncompleteReadError, ConnectionError):
+                    return  # the client went away mid-body
+                except Exception as e:
+                    log.exception("handler failed for %s %s", req.method, req.path)
+                    resp = _err(500, f"internal error: {e}")
+                if req.body is None:
+                    await req.read()  # a shed left the body: discard it
+                keep = _keep_alive(req)
+                writer.write(resp.encode(keep_alive=keep))
+                await writer.drain()
+            finally:
+                conns.end()
             if not keep:
                 return
-    except ConnectionError:
-        return  # the client went away mid-response
+    except (asyncio.IncompleteReadError, ConnectionError):
+        return  # the client went away mid-request or mid-response
     finally:
-        state.connections.discard(writer)
+        conns.writers.discard(writer)
         writer.close()
         with contextlib.suppress(ConnectionError):
             await writer.wait_closed()
 
 
+async def _listen(state: ServerState, conns: Connections, ingest: IngestHandles,
+                  host: str, port: int, reuse_port: bool) -> asyncio.AbstractServer:
+    return await asyncio.start_server(
+        lambda r, w: _serve_connection(state, conns, ingest, r, w),
+        host, port, limit=_MAX_HEAD, reuse_port=reuse_port or None)
+
+
+class IngestLoop(threading.Thread):
+    """One more accept loop: its own thread, event loop and SO_REUSEPORT
+    listener on the serving port. The kernel spreads connections across the
+    listeners, so reading, parsing and decoding of this loop's requests do
+    not serialize on the main loop; predict hops onto the main loop once per
+    request (``_on_main``), and no runtime or batcher is touched from here.
+    A daemon thread: a wedged teardown never keeps the process alive."""
+
+    def __init__(self, state: ServerState, index: int, host: str, port: int) -> None:
+        super().__init__(name=f"tpuserve-torch-ingest-{index}", daemon=True)
+        self.state = state
+        self.index = index
+        self.host = host
+        self.port = port
+        self.error: BaseException | None = None
+        self._ready = threading.Event()
+        self._loop: asyncio.AbstractEventLoop | None = None
+        self._stop_ev: asyncio.Event | None = None
+
+    def run(self) -> None:
+        loop = asyncio.new_event_loop()
+        asyncio.set_event_loop(loop)
+        self._loop = loop
+        try:
+            loop.run_until_complete(self._serve())
+        except BaseException as e:  # noqa: BLE001 — surfaced by wait_ready
+            self.error = e
+            log.exception("ingest loop %d failed", self.index)
+        finally:
+            self._ready.set()
+            loop.close()
+
+    async def _serve(self) -> None:
+        conns = Connections()
+        server = await _listen(self.state, conns, self.state.ingest_handles(self.index),
+                               self.host, self.port, reuse_port=True)
+        self._stop_ev = asyncio.Event()
+        self._ready.set()
+        try:
+            await self._stop_ev.wait()
+        finally:
+            server.close()
+            await conns.close(5.0)
+            await server.wait_closed()
+
+    def wait_ready(self, timeout: float = 30.0) -> None:
+        """Block (call from an executor) until the listener is up; re-raise
+        a bind or startup failure."""
+        self._ready.wait(timeout)
+        if self.error is not None:
+            raise self.error
+
+    def request_stop(self) -> None:
+        """Thread-safe: ask the loop to close its listener and exit."""
+        loop, ev = self._loop, self._stop_ev
+        if loop is not None and ev is not None:
+            loop.call_soon_threadsafe(ev.set)
+
+
+def start_ingest_loops(state: ServerState, host: str, port: int) -> list[IngestLoop]:
+    """Spawn the N-1 extra accept loops of ``ingest_loops = N``; the caller
+    awaits ``stop_ingest_loops`` at shutdown. Serves on one loop, with a
+    warning, where SO_REUSEPORT is missing."""
+    n = max(1, state.cfg.ingest_loops)
+    if n <= 1:
+        return []
+    if not hasattr(socket, "SO_REUSEPORT"):
+        log.warning("ingest_loops = %d requested but SO_REUSEPORT is not "
+                    "available on this platform; serving on one loop", n)
+        return []
+    threads = [IngestLoop(state, i, host, port) for i in range(1, n)]
+    for t in threads:
+        t.start()
+    return threads
+
+
+async def stop_ingest_loops(threads: list[IngestLoop]) -> None:
+    """Stop and join the ingest loops without blocking the calling loop."""
+    loop = asyncio.get_running_loop()
+    for t in threads:
+        t.request_stop()
+    for t in threads:
+        await loop.run_in_executor(None, functools.partial(t.join, 10.0))
+
+
 async def start_server(state: ServerState, host: str | None = None,
                        port: int | None = None) -> asyncio.AbstractServer:
-    """Start the batchers (and canaries), then listen; ``port=0`` binds an
-    ephemeral port, recorded in ``state.serving_addresses``."""
+    """Start the batchers (and canaries, watchdog), then listen on the main
+    loop and start the ingest loops; ``port=0`` binds an ephemeral port,
+    recorded in ``state.serving_addresses``."""
     await state.start()
-    server = await asyncio.start_server(
-        lambda r, w: _serve_connection(state, r, w),
-        host if host is not None else state.cfg.host,
-        state.cfg.port if port is None else port, limit=_MAX_HEAD)
+    host = host if host is not None else state.cfg.host
+    reuse = state.cfg.ingest_loops > 1 and hasattr(socket, "SO_REUSEPORT")
+    server = await _listen(state, state.connections, state.ingest_handles(0), host,
+                           state.cfg.port if port is None else port, reuse)
     state.serving_addresses = [s.getsockname()[:2] for s in server.sockets]
+    # Ingest listeners bind the ACTUAL port (an ephemeral one included).
+    threads = start_ingest_loops(state, host, state.serving_addresses[0][1])
+    server.ingest_threads = threads
+    for t in threads:
+        await asyncio.get_running_loop().run_in_executor(None, t.wait_ready)
     return server
 
 
 async def stop_server(state: ServerState, server: asyncio.AbstractServer) -> None:
-    """Stop listening, stop the batchers (queued requests fail, in-flight
-    batches finish), then close the client connections still open."""
+    """Stop listening (ingest loops first), stop the batchers (queued
+    requests fail, in-flight batches finish), let the handlers answer, then
+    close the client connections still open."""
     state.draining = True
+    await stop_ingest_loops(getattr(server, "ingest_threads", []))
     server.close()
     await state.stop()
-    for writer in list(state.connections):
-        writer.close()
+    await state.connections.close(5.0)
     await server.wait_closed()
 
 
-async def serve_async(state: ServerState) -> None:
-    """Serve until SIGINT or SIGTERM."""
+async def serve_async(state: ServerState, ready: asyncio.Event | None = None,
+                      stop: asyncio.Event | None = None) -> None:
+    """Serve until SIGTERM or SIGINT (or ``stop``), then drain: new requests
+    get 503 + Retry-After while every accepted request gets up to
+    ``drain_timeout_s`` to finish; only then stop. ``ready`` is set once
+    every listener is up."""
     server = await start_server(state)
-    stop = asyncio.Event()
     loop = asyncio.get_running_loop()
+    if stop is None:
+        stop = asyncio.Event()
+    installed: list[signal.Signals] = []
     for sig in (signal.SIGINT, signal.SIGTERM):
-        loop.add_signal_handler(sig, stop.set)
+        try:
+            loop.add_signal_handler(sig, stop.set)
+            installed.append(sig)
+        except (NotImplementedError, RuntimeError):
+            pass  # not the main thread
     for host, port in state.serving_addresses:
-        log.info("Running on http://%s:%d (device %s)", host, port, state.device)
+        log.info("Running on http://%s:%d (device %s, %d accept loop(s))", host, port,
+                 state.device, 1 + len(server.ingest_threads))
+    if ready is not None:
+        ready.set()
     try:
         await stop.wait()
+        log.info("shutdown signal: draining (budget %.0fs)", state.cfg.drain_timeout_s)
+        if not await state.drain():
+            log.warning("drain budget expired with requests still in flight")
     finally:
+        for sig in installed:
+            loop.remove_signal_handler(sig)
         await stop_server(state, server)
 
 
@@ -630,4 +1011,11 @@ def serve(cfg: ServerConfig, device: "str | None" = None) -> None:
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     state = ServerState(cfg, device=device)
     state.build()
+    # Startup leaves ~200k objects that live as long as the process and a
+    # full collection nearly due; scanning them stalls whichever request
+    # trips it (over 100 ms on the H100 machine's host once the two models
+    # of examples/resnet50.toml are built: scripts/torch_first_request.py).
+    # Frozen, they are never scanned again.
+    gc.collect()
+    gc.freeze()
     asyncio.run(serve_async(state))
