@@ -111,7 +111,10 @@ Phases (any failure exits non-zero before the result line):
    checkpoint under a stale manifest (409 ``integrity``), one with an inf
    leaf (409 ``nan_scan``; version 1 answers as before after each) and a
    second ``:reload`` (version 3, version 2's answers), with the graph and
-   compile counts unchanged across all of it (``lifecycle_drill``).
+   compile counts unchanged across all of it (``lifecycle_drill``); the
+   drill must stand in ``/debug/audit`` (reload ok, rollback ok, the two
+   rejections with their gates, reload ok) and in ``/debug/events``
+   (``published`` twice, ``rolled_back``, ``reload_rejected`` twice).
    Phase 8 also times the first request of each bucket stage by stage
    (``stage_totals``: the server's per-stage histogram sums around one
    request) against eight repeats, and holds each stage but the queue
@@ -137,12 +140,46 @@ Phases (any failure exits non-zero before the result line):
    again, both accept loops serve, and SIGTERM with 4 requests in flight
    answers them 200, new ones 503 + ``Retry-After``, ``/healthz``
    ``draining``, exit 0.
-11. Print a ``slice`` line per path, the ``graphs`` line (phase 6-8's graph
-   checks and host times), the ``lifecycle`` line, the ``robustness`` line
-   (with phase 8's first-request table) and the ``kernels`` line (K1 and
-   K2, each with its launches on its path, counted through graph replays;
-   the vision path runs neither), the card line, then the result line
-   ``{"ok": true, "device": {...}}``.
+11. Observability (``observability_phase``): serve BERT-flash with a 50 ms
+   ``[model.slo]`` objective and a 0.25 s sampler; a well-formed
+   ``X-Trace-Id`` comes back, a malformed one is replaced; the request's
+   span tree (``/debug/trace?trace_id=``) has ``request`` at the root and
+   body_read, parse, queue, preproc, h2d, compute, postproc under it, in
+   order, summing to no more than it; a 400 leaves a ``request_error``
+   event under its trace id; ``/debug/slow`` holds entries. Under 4 clients
+   of 32-text batches: ``device_utilization`` in (0, 1], a positive
+   ``batches_total`` rate in ``/stats/history``, the objective in
+   ``/alerts``, and a 1 s ``POST /debug/profile`` whose merged trace says
+   ``device_trace: "ok"`` and holds K1's kernels by name, every one inside
+   the capture window and (on the span ring's clock) inside a served
+   batch's span, about 12 per batch; a second, concurrent capture answers
+   409 and both land in ``/debug/audit``. K1 launches = 12 x the batches
+   dispatched; captures and compiles unchanged.
+12. Cost of the defaults (``defaults_cost_phase``): BERT-flash with the
+   reference's planes on and with them off, both served at once, 32-text
+   batches from 1 client and from 4, measured on, off, off, on: p50 and
+   p99 and the mean time per stage, printed; nothing is gated on them.
+13. MobileNetV3-Large (``mobilenet_phase``): serve
+   ``examples/mobilenetv3.toml`` (full width, bf16, yuv420 at 224, batch
+   buckets [1, 2, 4, 8]); with the counts at 0 framed bodies of 1, 2, 4 and
+   8 items (K1 and K2: 0 launches; batches 4, items 15, compiles 0), each
+   bucket's first request within its repeats' range + 5 ms per stage,
+   then 21 lone single-item requests under the adaptive flush (server
+   total p50). In-process: served top-5 equal to the same seeded model's,
+   bf16 logits against the float32 network (TF32 off) within
+   ``RESNET_LOGIT_REL`` of their scale with separated ranks equal, each
+   bucket's replay device time, the eager stream and enqueue at (1,) and
+   (8,), the depthwise convolutions' device time against the rest, one
+   profiled eager window by kind; ``graph_phase`` holds every bucket's
+   replay bit-identical to the eager forward.
+14. Print a ``slice`` line per path, the ``graphs`` line (phase 6-8's and
+   13's graph checks and host times), the ``lifecycle`` line, the
+   ``robustness`` line (with phase 8's and 13's first-request tables), the
+   ``observability`` and ``defaults_cost`` lines, and the ``kernels`` line
+   (K1 and K2, each with its launches on its path, counted through graph
+   replays; the vision paths run neither), the card line, then the result
+   line ``{"ok": true, "device": {...}}``. Every phase's JSON line from 11
+   on carries the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -1399,7 +1436,7 @@ def stage_delta(before: dict, after: dict) -> dict:
 FIRST_STAGE_SLACK_MS = 5.0
 
 
-def first_request_table(first: dict, repeats: dict) -> dict:
+def first_request_table(first: dict, repeats: dict, name: str = "resnet50") -> dict:
     """Per request: the first one's stages beside its repeats' ranges. The
     bar for the first-request fault: each stage of the first request but
     the queue (the adaptive flush's target moves between a first request
@@ -1412,14 +1449,14 @@ def first_request_table(first: dict, repeats: dict) -> dict:
                   if p not in ("queue", "total")}
         table[label] = {"first": first[label], "repeats_range": rng,
                         "first_over_repeats_max_ms": excess}
-    print(f"slice (resnet50): first request vs repeats, service ms: "
+    print(f"slice ({name}): first request vs repeats, service ms: "
           f"{ {k: (v['first']['service'], v['repeats_range']['service']) for k, v in table.items()} }",
           flush=True)
-    print(json.dumps({"first_request_stages": table}), flush=True)
+    print(json.dumps({"first_request_stages": {name: table}}), flush=True)
     for label, row in table.items():
         worst = max(row["first_over_repeats_max_ms"].items(), key=lambda kv: kv[1])
         check(worst[1] <= FIRST_STAGE_SLACK_MS,
-              f"resnet50 {label}: the first request's {worst[0]} took {worst[1]:.2f} ms over "
+              f"{name} {label}: the first request's {worst[0]} took {worst[1]:.2f} ms over "
               f"its repeats' range (bar {FIRST_STAGE_SLACK_MS} ms); stages {row['first']}, "
               f"repeats {row['repeats_range']}")
     return table
@@ -1651,6 +1688,21 @@ def lifecycle_drill(config: Path, name: str, n_buckets: int, body: bytes, ctype:
                   == (graphs0["captures_total"], graphs0["compiles_total"]),
                   f"lifecycle {name}: captures/compiles moved {graphs0} -> {graphs1}")
             versions = json.loads(call(port, "GET", f"/admin/models/{name}/versions")[1])
+            # The drill in the audit trail (newest first) and in the event
+            # plane's lifecycle events.
+            audit = json.loads(call(port, "GET", "/debug/audit")[1])["audit"]
+            trail = [(a["verb"], a["outcome"], a.get("stage")) for a in reversed(audit)
+                     if a["target"] == name]
+            check(trail == [("reload", "ok", None), ("rollback", "ok", None),
+                            ("reload", "rejected", "integrity"), ("reload", "rejected", "nan_scan"),
+                            ("reload", "ok", None)], f"lifecycle {name}: audit trail {trail}")
+            evs = json.loads(call(port, "GET", "/debug/events?subsystem=lifecycle")[1])["events"]
+            kinds = [e["event"] for e in evs if e.get("model") == name]
+            check(kinds.count("published") == 2 and kinds.count("rolled_back") == 1
+                  and kinds.count("reload_rejected") == 2,
+                  f"lifecycle {name}: lifecycle events {kinds}")
+            seen["audit"] = trail
+            seen["lifecycle_events"] = kinds
     seen.update({"captures_total": graphs1["captures_total"],
                  "compiles_total": graphs1["compiles_total"],
                  "history": [h["status"] for h in versions["history"]],
@@ -2128,6 +2180,480 @@ def robustness_phase() -> dict:
     return out
 
 
+# -- phase 11: the observability plane, served ---------------------------------------
+
+# The observability phase's server: bert_flash.toml with a latency objective
+# and a sampler fast enough to read rates and utilization within seconds.
+OBS_TOML = """
+[model.slo]
+latency_ms = 50.0
+availability = 0.99
+
+[telemetry]
+sample_interval_s = 0.25
+utilization_window_s = 2.0
+burn_windows_s = [5.0, 30.0, 300.0]
+"""
+# The same file with the planes the reference turns on by default off.
+OBS_OFF_TOML = """
+[telemetry]
+enabled = false
+
+[events]
+enabled = false
+
+[trace]
+slow_n = 0
+error_capacity = 0
+"""
+TRACE_PHASES = ("body_read", "parse", "queue", "preproc", "h2d", "compute", "postproc")
+# Spans are taken from two clocks (wall for starts, perf_counter for
+# lengths): neighbours may overlap by this much.
+SPAN_SLACK_US = 200.0
+# K1 and K2 by their kernels' names (the template's last argument is kStats).
+K1_NAME = re.compile(r"flash_fwd_\w+<[^<>]*false>")
+
+
+def call_h(port, method, path, obj=None, raw=None, ctype="application/json",
+           headers=None) -> tuple[int, bytes, dict]:
+    """``call`` with request headers, returning the response headers too."""
+    body = raw if raw is not None else (json.dumps(obj).encode() if obj is not None else None)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request(method, path, body=body, headers={"Content-Type": ctype, **(headers or {})})
+        resp = conn.getresponse()
+        return resp.status, resp.read(), dict(resp.getheaders())
+    finally:
+        conn.close()
+
+
+def trace_tree_check(port: int) -> dict:
+    """A well-formed X-Trace-Id comes back and names the request's span tree
+    (``request`` at the root, the seven phases under it, in order, summing
+    to no more than the root); a malformed one is replaced; a 400 leaves a
+    ``request_error`` event under its trace id; /debug/slow holds entries."""
+    tid = "5a" * 16
+    st, raw, hdr = call_h(port, "POST", "/v1/models/bert:classify",
+                          {"text": "trace this text please"}, headers={"X-Trace-Id": tid})
+    check(st == 200 and hdr.get("X-Trace-Id") == tid,
+          f"a well-formed X-Trace-Id was not adopted: {st} {hdr.get('X-Trace-Id')}")
+    st, _, hdr = call_h(port, "POST", "/v1/models/bert:classify", {"text": "and this one"},
+                        headers={"X-Trace-Id": "not-a-trace-id"})
+    fresh = hdr.get("X-Trace-Id", "")
+    check(st == 200 and re.fullmatch(r"[0-9a-f]{32}", fresh) is not None,
+          f"a malformed X-Trace-Id was not replaced by a fresh id: {fresh!r}")
+    st, raw = call(port, "GET", f"/debug/trace?trace_id={tid}&format=record")
+    check(st == 200, f"/debug/trace?trace_id= answered {st}")
+    spans = json.loads(raw)["spans"]
+    roots = [s for s in spans if s["name"] == "request"]
+    check(len(roots) == 1 and roots[0]["parent_id"] is None, f"no single root span: {roots}")
+    root = roots[0]
+    by = {s["name"]: s for s in spans}
+    missing = [p for p in TRACE_PHASES if p not in by]
+    check(not missing, f"span tree lacks {missing}: {sorted(by)}")
+    check(all(by[p]["parent_id"] == root["span_id"] for p in TRACE_PHASES),
+          "a phase span does not hang off the request span")
+    for a, b in zip(TRACE_PHASES, TRACE_PHASES[1:]):
+        check(by[b]["ts_us"] >= by[a]["ts_us"] + by[a]["dur_us"] - SPAN_SLACK_US,
+              f"span {b} starts before {a} ends: {by[a]} {by[b]}")
+    phase_us = sum(by[p]["dur_us"] for p in TRACE_PHASES)
+    check(phase_us <= root["dur_us"] + SPAN_SLACK_US,
+          f"phases sum to {phase_us:.0f} us > the request's {root['dur_us']:.0f} us")
+    check(by[TRACE_PHASES[0]]["ts_us"] >= root["ts_us"] - SPAN_SLACK_US
+          and by["postproc"]["ts_us"] + by["postproc"]["dur_us"]
+          <= root["ts_us"] + root["dur_us"] + SPAN_SLACK_US, "phases outside the request span")
+    st, raw, hdr = call_h(port, "POST", "/v1/models/bert:classify", raw=b"{not json")
+    bad = hdr.get("X-Trace-Id")
+    check(st == 400 and json.loads(raw).get("trace_id") == bad,
+          f"the 400's body and X-Trace-Id disagree: {raw[:200]!r} {bad}")
+    evs = json.loads(call(port, "GET", f"/debug/events?trace_id={bad}")[1])["events"]
+    check(any(e["event"] == "request_error" and e["fields"]["status"] == 400 for e in evs),
+          f"no request_error event under the 400's trace id: {evs}")
+    slow = json.loads(call(port, "GET", "/debug/slow")[1])
+    check(slow["slow"].get("bert") and slow["errors"], "/debug/slow holds no entries")
+    tree = {p: round(by[p]["dur_us"] / 1e3, 3) for p in TRACE_PHASES}
+    print(f"observability: X-Trace-Id adopted and a malformed one replaced; span tree of one "
+          f"text (ms) {tree}, request {root['dur_us'] / 1e3:.3f} ms; the 400 left a "
+          f"request_error event; /debug/slow holds {len(slow['slow']['bert'])} slow and "
+          f"{len(slow['errors'])} errored trees", flush=True)
+    return {"span_ms": tree, "request_ms": root["dur_us"] / 1e3}
+
+
+def profile_check(data: dict) -> dict:
+    """The merged trace of a served window: device events on the ring's
+    clock, K1 by name, each K1 inside the capture window and inside a
+    served batch's ring span, and K1's count beside 12 per batch."""
+    meta = data["tpuserve_profile"]
+    check(meta["device_trace"] == "ok", f"profile: device_trace {meta['device_trace']!r}")
+    lo, hi = meta["window_us"]
+    evs = data["traceEvents"]
+    k1 = [e for e in evs if e.get("pid", 0) >= 1000 and e.get("cat") == "kernel"
+          and K1_NAME.search(e.get("name", ""))]
+    batches = [e for e in evs if e.get("pid") == 0 and e["name"].startswith("batch[")
+               and e["tid"] == "bert"]
+    check(k1, f"profile: no K1 kernel event among {meta['device_events']} device events")
+    outside = [e for e in k1 if not (lo <= e["ts"] and e["ts"] + e["dur"] <= hi)]
+    check(not outside, f"profile: {len(outside)} K1 events outside the capture window")
+    in_batch = [e for e in k1 if any(b["ts"] <= e["ts"] and e["ts"] + e["dur"] <= b["ts"] + b["dur"]
+                                     for b in batches)]
+    hit = {b["args"]["batch"] for b in batches
+           if any(b["ts"] <= e["ts"] <= b["ts"] + b["dur"] for e in k1)}
+    share = len(in_batch) / len(k1)
+    out = {"device_events": meta["device_events"], "ring_events": meta["ring_events"],
+           "k1_events": len(k1), "k1_inside_a_batch_span": share,
+           "batches_with_k1": len(hit), "k1_per_batch": len(k1) / max(1, len(hit)),
+           "k1_name": k1[0]["name"][:80], "window_ms": (hi - lo) / 1e3}
+    print(f"observability: /debug/profile: {meta['device_events']} device events beside "
+          f"{meta['ring_events']} ring spans over {out['window_ms']:.0f} ms; {len(k1)} K1 "
+          f"events ({out['k1_name']}), all inside the window, {share:.1%} inside a served "
+          f"batch's span; {len(hit)} batches ran them ({out['k1_per_batch']:.2f} per batch, 12 "
+          f"expected)", flush=True)
+    check(share >= 0.95, f"profile: only {share:.1%} of K1 events fall inside a batch span "
+                         "(device lanes off the ring's clock?)")
+    check(abs(len(k1) - 12 * len(hit)) <= 24,
+          f"profile: {len(k1)} K1 events for {len(hit)} batches (12 per batch)")
+    return out
+
+
+def observability_phase(card: str) -> dict:
+    """Serve bert_flash.toml with a latency objective and a fast sampler:
+    tracing (``trace_tree_check``), then 4 clients of 32-text batches and,
+    under that load, history, utilization, alerts and a device profile
+    (with a second, concurrent capture refused), K1 counted through the
+    replays; captures and compiles unchanged across it all."""
+    import threading
+
+    t0 = time.perf_counter()
+    with serving(CONFIG, n_buckets=6, extra_toml=OBS_TOML) as port:
+        out = {"card": card, "trace": trace_tree_check(port)}
+        graphs0 = served_graphs(port)["bert"]
+        check(call(port, "POST", "/debug/kernels:reset")[0] == 200, "kernel count reset refused")
+        before = call(port, "GET", "/metrics")[1].decode()
+        stop, statuses = threading.Event(), []
+
+        def client():
+            while not stop.is_set():
+                statuses.append(call(port, "POST", "/v1/models/bert:classify",
+                                     {"texts": TEXTS_32})[0])
+
+        threads = [threading.Thread(target=client) for _ in range(4)]
+        for t in threads:
+            t.start()
+        try:
+            time.sleep(3.0)                          # > the 2 s utilization window
+            text = call(port, "GET", "/metrics")[1].decode()
+            util = metric(text, 'device_utilization{model="bert",replica="0"}')
+            prof = {}
+            capture = threading.Thread(target=lambda: prof.update(
+                r=call(port, "POST", "/debug/profile?duration_ms=1000")))
+            capture.start()
+            time.sleep(0.3)
+            busy = call(port, "POST", "/debug/profile?duration_ms=50")[0]
+            capture.join()
+        finally:
+            stop.set()
+            for t in threads:
+                t.join()
+        check(set(statuses) == {200}, f"load answered {sorted(set(statuses))}")
+        check(busy == 409, f"a second concurrent capture answered {busy}, expected 409")
+        st, raw = prof["r"]
+        check(st == 200, f"/debug/profile answered {st} {raw[:300]!r}")
+        out["profile"] = profile_check(json.loads(raw))
+        stats = json.loads(call(port, "GET", "/stats")[1])
+        after = call(port, "GET", "/metrics")[1].decode()
+        batches = (metric(after, 'batches_total{model="bert"}')
+                   - metric(before, 'batches_total{model="bert"}'))
+        launches = stats["kernels"]["flash_attention"]["launches"]
+        check(launches == 12 * batches, f"K1 launched {launches} times for {batches:g} batches")
+        graphs1 = served_graphs(port)["bert"]
+        check((graphs1["captures_total"], graphs1["compiles_total"])
+              == (graphs0["captures_total"], graphs0["compiles_total"]),
+              f"captures/compiles moved across the capture: {graphs0} -> {graphs1}")
+        check(0.0 < util <= 1.0, f"device_utilization under load read {util}")
+        series = json.loads(call(port, "GET", "/stats/history?metric=batches_total&window_s=5")[1])
+        rate = series["series"][0]["window_rate_per_s"]
+        check(rate > 0, f"/stats/history gives batches_total a rate of {rate}")
+        alerts = json.loads(call(port, "GET", "/alerts")[1])
+        check("bert" in alerts["models"], f"/alerts lists no objective for bert: {alerts}")
+        missing = [b for b in ("trace", "events", "telemetry", "utilization", "slo") if b not in stats]
+        check(not missing, f"/stats lacks the blocks {missing}")
+        audit = json.loads(call(port, "GET", "/debug/audit")[1])["audit"]
+        outcomes = sorted(a["outcome"] for a in audit if a["verb"] == "profile")
+        check(outcomes == ["busy", "ok"], f"the profile audit records: {audit}")
+        out.update({"requests_under_load": len(statuses), "batches_under_load": batches,
+                    "k1_launches": launches, "device_utilization": util,
+                    "batches_rate_per_s": rate, "alert": alerts["models"]["bert"]["state"],
+                    "burn": alerts["models"]["bert"]["burn"],
+                    "captures_total": graphs1["captures_total"],
+                    "compiles_total": graphs1["compiles_total"],
+                    "sampler_samples": stats["telemetry"]["samples_total"]})
+    print(f"observability: under 4 clients device_utilization {util:.3f}, batches "
+          f"{rate:.1f}/s (history), K1 {launches} = 12 x {batches:g} batches, /alerts "
+          f"{out['alert']} (burn {out['burn']}), captures and compiles unchanged", flush=True)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def latency_cost(port: int, seq: int = 40, clients: int = 4, per_client: int = 25) -> dict:
+    """Served BERT-flash latency of 32-text batches: 5 warm-up requests,
+    ``seq`` sequential requests from one client, then ``clients``
+    concurrent clients of ``per_client`` requests each; p50 and p99
+    (nearest rank) of the walls."""
+    import threading
+
+    def pcts(walls):
+        walls = sorted(walls)
+        return {"n": len(walls), "p50_ms": walls[len(walls) // 2],
+                "p99_ms": walls[min(len(walls) - 1, math.ceil(0.99 * len(walls)) - 1)]}
+
+    def timed() -> float:
+        t0 = time.perf_counter()
+        st, _ = call(port, "POST", "/v1/models/bert:classify", {"texts": TEXTS_32})
+        check(st == 200, f"latency request answered {st}")
+        return (time.perf_counter() - t0) * 1e3
+
+    for _ in range(5):
+        timed()
+    one = [timed() for _ in range(seq)]
+    many: list = []
+    threads = [threading.Thread(target=lambda: many.extend(timed() for _ in range(per_client)))
+               for _ in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return {"one_client": pcts(one), f"{clients}_clients": pcts(many)}
+
+
+def defaults_cost_phase(card: str) -> dict:
+    """Served BERT-flash latency (``latency_cost``) with the reference's
+    planes on (bert_flash.toml as it is) and with [telemetry], [events] and
+    the flight recorder off, both servers up at once on the card and
+    measured on, off, off, on; with each run's mean time per stage."""
+    with serving(CONFIG, n_buckets=6) as on, \
+            serving(CONFIG, n_buckets=6, extra_toml=OBS_OFF_TOML) as off:
+        ports = {"on": on, "off": off}
+        for label, port in ports.items():
+            stats = json.loads(call(port, "GET", "/stats")[1])
+            check(("telemetry" in stats and "events" in stats) == (label == "on"),
+                  f"the planes' blocks do not match the {label} server's config")
+        out = {"card": card, "on": [], "off": []}
+        for label in ("on", "off", "off", "on"):
+            s0 = stage_totals(ports[label], "bert")
+            run = latency_cost(ports[label])
+            s1 = stage_totals(ports[label], "bert")
+            n = sum(v["n"] for v in run.values()) + 5
+            run["stage_mean_ms"] = {p: round((s1[p] - s0[p]) / n, 3) for p in STAGES}
+            out[label].append(run)
+
+    def short(runs):
+        return [{k: (round(v["p50_ms"], 2), round(v["p99_ms"], 2))
+                 for k, v in r.items() if k != "stage_mean_ms"} for r in runs]
+
+    print(f"defaults cost: 32-text batches, p50/p99 ms, planes on {short(out['on'])}, off "
+          f"{short(out['off'])} ({card})", flush=True)
+    return out
+
+
+# -- phase 12: MobileNetV3-Large, the batch-1 vision path -----------------------------
+
+MNV3_CONFIG = ROOT / "examples" / "mobilenetv3.toml"
+MNV3_BUCKETS = ("[1]", "[2]", "[4]", "[8]")
+
+
+def mnv3_requests() -> list:
+    """Framed yuv420 bodies of 1, 2, 4 and 8 seeded items at 224 px."""
+    import numpy as np
+
+    from tpuserve_torch import frame, preproc
+
+    rng = np.random.default_rng(21)
+    out = []
+    for n in (1, 2, 4, 8):
+        items = [preproc.rgb_to_yuv420(a)
+                 for a in rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8)]
+        out.append(("mobilenetv3", f"frame{n}", frame.encode_frame(items, frame.KIND_YUV420, 224),
+                    frame.CONTENT_TYPE, items))
+    return out
+
+
+def drive_mnv3(port: int, requests: list, lone: int = 21) -> dict:
+    """The MobileNetV3 path's run: counts to 0, the four bodies (first
+    request of each bucket, stage by stage), counts read back (K1 and K2:
+    0); the repeats; then ``lone`` single-item requests one at a time under
+    the adaptive flush."""
+    name = "mobilenetv3"
+    check(call(port, "POST", "/debug/kernels:reset")[0] == 200, "kernel count reset refused")
+    before = call(port, "GET", "/metrics")[1].decode()
+    arena = json.loads(call(port, "GET", "/stats")[1])["pipeline"]["models"][name]["arena"]
+    check(set(arena["buckets"]) == set(MNV3_BUCKETS) and all(
+          b["pooled"] == arena["slots_per_bucket"] for b in arena["buckets"].values()),
+          f"{name}: the arena did not make every bucket's buffers at start: {arena}")
+    answers, first, repeats = {}, {}, {label: [] for _, label, _, _, _ in requests}
+    for _, label, body, ctype, items in requests:
+        s0 = stage_totals(port, name)
+        st, raw = call(port, "POST", f"/v1/models/{name}:classify", raw=body, ctype=ctype)
+        first[label] = stage_delta(s0, stage_totals(port, name))
+        check(st == 200, f"{name} {label}: {st} {raw[:300]!r}")
+        results = json.loads(raw)["results"]
+        check(len(results) == len(items) and all(len(r["top_k"]) == 5 for r in results),
+              f"{name} {label}: {len(results)} results for {len(items)} items")
+        answers[label] = results
+    stats = json.loads(call(port, "GET", "/stats")[1])
+    after = call(port, "GET", "/metrics")[1].decode()
+    counts = (stats["kernels"]["flash_attention"]["launches"],
+              stats["kernels"]["flash_attention_stats"]["launches"])
+    delta = {n: metric(after, f'{n}{{model="{name}"}}') - metric(before, f'{n}{{model="{name}"}}')
+             for n in ("batches_total", "items_total", "runtime_compiles_total")}
+    check(counts == (0, 0), f"K1, K2 launched {counts} times on the MobileNetV3 path")
+    check((delta["batches_total"], delta["items_total"], delta["runtime_compiles_total"])
+          == (4, 15, 0), f"{name}: batches/items/compiles moved by {delta}")
+    for _ in range(REPEATS):
+        for _, label, body, ctype, _ in requests:
+            s0 = stage_totals(port, name)
+            st, _ = call(port, "POST", f"/v1/models/{name}:classify", raw=body, ctype=ctype)
+            repeats[label].append(stage_delta(s0, stage_totals(port, name)))
+            check(st == 200, f"repeat of {name} {label} answered {st}")
+    first_request = first_request_table(first, repeats, name)
+    _, _, body, ctype, _ = requests[0]
+    totals, walls = [], []
+    for _ in range(lone):
+        s0 = stage_totals(port, name)
+        t0 = time.perf_counter()
+        st, _ = call(port, "POST", f"/v1/models/{name}:classify", raw=body, ctype=ctype)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        totals.append(stage_delta(s0, stage_totals(port, name))["total"])
+        check(st == 200, f"lone {name} request answered {st}")
+    lat = json.loads(call(port, "GET", "/stats")[1])["latency"]
+    out = {"answers": answers, "first_request": first_request, "launches_k1_k2": list(counts),
+           "deltas": delta,
+           "lone": {"n": lone, "server_total_p50_ms": sorted(totals)[lone // 2],
+                    "wall_p50_ms": sorted(walls)[lone // 2],
+                    "server_total_ms_range": [min(totals), max(totals)]},
+           "phase_p50_ms": {p: lat[f"latency_ms{{model={name},phase={p}}}"]["p50_ms"]
+                            for p in STAGES}}
+    print(f"slice (mobilenetv3): 4 requests (15 images) answered; K1, K2 launches {counts}; "
+          f"{delta}; lone single-item requests: server total p50 "
+          f"{out['lone']['server_total_p50_ms']:.3f} ms, wall p50 {out['lone']['wall_p50_ms']:.3f} ms",
+          flush=True)
+    return out
+
+
+def depthwise_split(model, rt, bucket: tuple) -> dict:
+    """Device time of one forward at ``bucket`` (graph replay) beside that of
+    its depthwise convolutions alone (each run on the input it got in the
+    forward, all in one captured graph)."""
+    import numpy as np
+    import torch
+
+    from tpuserve_torch.models.layers import Conv
+
+    dev = rt.h2d(bucket, tuple(np.random.default_rng(5).integers(0, 256, s.shape, dtype=np.uint8)
+                               for s in model.input_signature(bucket)))
+    taken = []
+    hooks = [m.register_forward_hook(lambda m, inp, out: taken.append((m, inp[0])))
+             for m in rt.module.modules() if isinstance(m, Conv) and m.groups > 1]
+    with torch.inference_mode():
+        model.forward(rt.module, dev)
+        for h in hooks:
+            h.remove()
+        total = graph_ms(lambda: model.forward(rt.module, dev))
+        dw = graph_ms(lambda: [m(x) for m, x in taken])
+    return {"forward_device_ms": total, "depthwise_device_ms": dw, "rest_device_ms": total - dw,
+            "depthwise_convs": len(taken)}
+
+
+def mnv3_model_check(mcfg, requests: list, answers: dict) -> dict:
+    """MobileNetV3 in-process: served answers equal the same seeded model's
+    on the same assembled batches; bf16 logits agree with the float32
+    network (TF32 off) within RESNET_LOGIT_REL of their scale, separated
+    ranks equal; per bucket the replay's device time; the eager stream and
+    enqueue at (1,) and (8,); the depthwise convolutions' share; the
+    card's busy and idle time in one profiled eager window at (8,)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tpuserve_torch.models import build
+    from tpuserve_torch.runtime import build_runtime
+
+    model = build(mcfg)
+    rt = build_runtime(model, device="cuda")
+    for _, label, _, _, items in requests:
+        bucket = model.bucket_for(len(items))
+        ref = rt.fetch(rt.run(bucket, model.assemble(items, bucket)))
+        for row, served in enumerate(answers[label]):
+            check([e["class"] for e in served["top_k"]] == ref["indices"][row].tolist(),
+                  f"mobilenetv3 {label}: served top-5 != in-process top-5, row {row}")
+            check(np.allclose([e["prob"] for e in served["top_k"]], ref["probs"][row],
+                              rtol=0, atol=1e-6),
+                  f"mobilenetv3 {label}: served probs != in-process probs, row {row}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, label, _, _, items = requests[-1]
+    bucket = model.bucket_for(len(items))
+    twin = build(dataclasses.replace(mcfg, dtype="float32"))
+    module32 = twin.build_module()
+    module32.load_state_dict({k: v.float() for k, v in rt.module.state_dict().items()})
+    module32.eval().requires_grad_(False).to(memory_format=torch.channels_last).to(rt.device)
+    with torch.inference_mode():
+        dev = rt.h2d(bucket, model.assemble(items, bucket))
+        logits = rt.module(model.device_preprocess(dev)).float()[: len(items)]
+        logits32 = module32(twin.device_preprocess(dev))[: len(items)]
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(logits).all()) and logits.shape == (len(items), 1000),
+          f"mobilenetv3: logits {tuple(logits.shape)} not finite")
+    err = (logits - logits32).abs().max().item()
+    tol = RESNET_LOGIT_REL * logits32.abs().max().item()
+    check(err <= tol, f"mobilenetv3: bf16 vs float32 logits differ by {err:.4g} > {tol:.4g}")
+    checked = separated_ranks_agree(logits, logits32, "mobilenetv3 bf16 vs f32", tol)
+    replay = {}
+    for b in model.buckets():
+        dev_b = rt.h2d(b, seeded_batch(model, b, seed=7))
+        replay[str(b[0])] = replay_timing(rt, b, dev_b)
+    forward = {str(b[0]): forward_timing(rt, model, b) for b in ((1,), (8,))}
+    split = {str(b[0]): depthwise_split(model, rt, b) for b in ((1,), (8,))}
+    dev8 = rt.h2d((8,), seeded_batch(model, (8,), seed=8))
+    with torch.inference_mode():
+        breakdown = device_breakdown(lambda: model.forward(rt.module, dev8))
+    out = {"logits_bf16_vs_f32": {"max_abs_diff": err, "tol": tol,
+                                  "separated_ranks_checked": checked},
+           "replay_device_ms": replay, "eager_forward": forward, "depthwise_split": split,
+           "device_breakdown_b8": breakdown, "capture_memory": dict(rt.capture_memory),
+           "captures_total": rt.captures_total}
+    print(f"slice (mobilenetv3): served answers equal the in-process run; bf16 vs float32 "
+          f"(TF32 off) logits max abs diff {err:.4g} (tol {tol:.4g}), {checked} separated "
+          f"top-5 ranks agree; replay device ms per bucket "
+          f"{ {k: round(v['replay_device_ms'], 4) for k, v in replay.items()} }; eager stream / "
+          f"enqueue ms { {k: (round(v['stream_ms'], 3), round(v['host_enqueue_ms'], 3)) for k, v in forward.items()} }; "
+          f"depthwise / rest device ms "
+          f"{ {k: (round(v['depthwise_device_ms'], 4), round(v['rest_device_ms'], 4)) for k, v in split.items()} }; "
+          f"profiled eager (8,): busy {breakdown['total_ms']:.3f} of {breakdown['stream_ms']:.3f} "
+          f"ms, by kind { {k: round(v, 3) for k, v in breakdown['ms_by_kind'].items()} }",
+          flush=True)
+    del rt, module32
+    torch.cuda.empty_cache()
+    return out
+
+
+def mobilenet_phase(card: str) -> dict:
+    t0 = time.perf_counter()
+    from tpuserve_torch.config import load_config
+
+    requests = mnv3_requests()
+    with serving(MNV3_CONFIG, n_buckets=4) as port:
+        run = drive_mnv3(port, requests)
+        run["served_graphs"] = served_graphs(port)["mobilenetv3"]
+    answers = run.pop("answers")
+    run["model"] = mnv3_model_check(load_config(str(MNV3_CONFIG)).models[0], requests, answers)
+    run["graphs"] = graph_phase(MNV3_CONFIG, {"mobilenetv3": (1,)},
+                                lambda logits: RESNET_LOGIT_REL * logits.abs().max().item())
+    run["card"] = card
+    run["phase_s"] = time.perf_counter() - t0
+    return run
+
+
 def main() -> int:
     import torch
 
@@ -2153,6 +2679,9 @@ def main() -> int:
         vision = resnet_phase()
         lifecycle = lifecycle_phase()
         robustness = robustness_phase()
+        observability = observability_phase(card)
+        cost = defaults_cost_phase(card)
+        mnv3 = mobilenet_phase(card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2185,12 +2714,18 @@ def main() -> int:
     # The vision path: no hand-written kernel; where its (32,) forward goes.
     print(json.dumps({"slice": dict(vision, path="resnet50",
                                     config=str(RESNET_CONFIG.relative_to(ROOT)))}))
+    mnv3_graphs = mnv3.pop("graphs")
+    robustness["first_request_mobilenetv3"] = mnv3.pop("first_request")
+    print(json.dumps({"slice": dict(mnv3, path="mobilenetv3",
+                                    config=str(MNV3_CONFIG.relative_to(ROOT)))}))
     # The runtime's graphs against the eager forward, and the host time of
     # the served h2d stage, per path; then the lifecycle drills.
     print(json.dumps({"graphs": {"bert_flash": run["graphs"], "bert_long_ring": long["graphs"],
-                                 "resnet50": vision_graphs}}))
+                                 "resnet50": vision_graphs, "mobilenetv3": mnv3_graphs}}))
     print(json.dumps({"lifecycle": lifecycle}))
     print(json.dumps({"robustness": robustness}))
+    print(json.dumps({"observability": observability}))
+    print(json.dumps({"defaults_cost": cost}))
     print(json.dumps({"kernels": [dict(k1[128]["line"], launches=run["launches"]),
                                   dict(k2["line"], launches=long["k2_launches"])]}))
     print(card)

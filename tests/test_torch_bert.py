@@ -293,7 +293,7 @@ def test_unported_options_raise(over, match):
         build(ModelConfig(**cfg_kwargs(**over)))
 
 
-@pytest.mark.parametrize("family", ["mobilenetv3", "sd15", "textgen"])
+@pytest.mark.parametrize("family", ["efficientdet", "sd15", "textgen"])
 def test_unported_families_raise(family):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         build(ModelConfig(name="m", family=family))
@@ -346,7 +346,8 @@ def test_same_toml_files_parse():
             for key, value in m.unported.items():
                 assert _same(value, getattr(jm, key)), (path, m.name, key)
     serve_all = load_config("examples/serve_all.toml")
-    assert "[events] enabled" in serve_all.unported
+    # The observability tables are typed (served) now, as the reference reads them.
+    assert serve_all.events.enabled and serve_all.telemetry.enabled and not serve_all.unported
     assert _same(serve_all.adaptive, jax_load_config("examples/serve_all.toml").adaptive)
     cfg = load_config("examples/bert_modes.toml",
                       ["model.bert-pp.deadline_ms=2.5", "port=9001"])

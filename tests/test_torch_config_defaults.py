@@ -9,12 +9,18 @@ still refuses:
 
 - each typed field of the port equals the reference's value for the same
   file (defaults included);
-- for each key the port refuses (``_SERVER_UNPORTED``, ``_MODEL_UNPORTED``
-  and the switch of each table in ``UNPORTED_TABLES``), the reference's
-  default is a value the port accepts — or the key is in ``OBSERVABILITY``,
-  the one explicit list of reference defaults the port does not serve yet
-  (its events and telemetry planes and request tracing, ROADMAP.md queue 1
-  item 12), each of which the port indeed refuses when written;
+- for each key the port refuses (``_SERVER_UNPORTED``, ``_MODEL_UNPORTED``,
+  the switch of each table in ``UNPORTED_TABLES`` and the worker-tier keys
+  of typed tables), the reference's default is a value the port accepts —
+  or the key is in ``OBSERVABILITY``, the explicit list of reference
+  defaults the port does not serve yet, each of which the port indeed
+  refuses when written. The list is empty: since the port serves request
+  tracing and the events and telemetry planes, every reference default is
+  served;
+- the keys of the observability tables (``[trace]``, ``[events]``,
+  ``[telemetry]``, ``[model.slo]`` and ``trace_capacity``) are typed with
+  the reference's defaults, and the worker-tier keys among them are
+  refused when written;
 - every field of the reference's server, model and table configs is known
   to the port (typed or refused), so no key slips through unnamed.
 
@@ -29,24 +35,26 @@ from tpuserve import config as jconfig
 from tpuserve_torch import config as tconfig
 
 EXAMPLES = ("examples/bert_flash.toml", "examples/bert_long_ring.toml",
-            "examples/resnet50.toml")
+            "examples/resnet50.toml", "examples/mobilenetv3.toml")
 
 # The reference's defaults that turn on a feature the port does not serve
-# yet, each refused by the port when written out.
-OBSERVABILITY = {"[events] enabled", "[telemetry] enabled", "trace_capacity"}
+# yet, each refused by the port when written out: none.
+OBSERVABILITY: set[str] = set()
 
 # The switch of each unported table: the key whose reference default says
-# whether the feature is on. Two tables have no switch of their own: [trace]
-# sizes the request tracing that trace_capacity also configures, and
-# [worker] configures processes that exist only behind [router].
+# whether the feature is on. [worker] has no switch of its own: it
+# configures processes that exist only behind [router].
 TABLE_SWITCH = {"parallel": "[parallel] mode",
                 "distributed": "[distributed] coordinator_address",
-                "trace": "trace_capacity", "worker": "[router] enabled"}
+                "worker": "[router] enabled"}
 TABLE_CLASS = {"autopilot": "AutopilotConfig", "distributed": "DistributedConfig",
-               "events": "EventsConfig", "genserve": "GenserveConfig",
-               "parallel": "ParallelConfig", "router": "RouterConfig",
-               "scheduler": "SchedulerConfig", "telemetry": "TelemetryConfig",
-               "tenants": "TenantsConfig", "trace": "TraceConfig", "worker": "WorkerConfig"}
+               "genserve": "GenserveConfig", "parallel": "ParallelConfig",
+               "router": "RouterConfig", "scheduler": "SchedulerConfig",
+               "tenants": "TenantsConfig", "worker": "WorkerConfig"}
+
+# The typed observability tables: the port's class and the reference's.
+OBS_TABLES = {"trace": "TraceConfig", "events": "EventsConfig",
+              "telemetry": "TelemetryConfig", "slo": "SloConfig"}
 
 
 def _jax_default(name: str):
@@ -75,9 +83,15 @@ def _switch(table: str) -> str:
     return TABLE_SWITCH.get(table, f"[{table}] enabled")
 
 
+# The worker-tier keys of typed tables refused while non-empty. (The
+# router's [telemetry] fleet_timeout_ms is refused whenever written, so its
+# default, never written, is not a refused value.)
+TIER_KEYS = sorted(f"[{t}] {k}" for t, keys in tconfig._TABLE_KEYS_UNPORTED.items()
+                   for k, accepted in keys.items() if accepted)
+
 REFUSED = sorted(tconfig._SERVER_UNPORTED) \
     + [f"model {k}" for k in sorted(tconfig._MODEL_UNPORTED)] \
-    + sorted({_switch(t) for t in tconfig.UNPORTED_TABLES})
+    + sorted({_switch(t) for t in tconfig.UNPORTED_TABLES}) + TIER_KEYS
 
 
 @pytest.mark.parametrize("name", REFUSED)
@@ -131,7 +145,10 @@ def test_served_examples_type_what_the_reference_reads(path):
     for m, jm in zip(cfg.models, jcfg.models, strict=True):
         for f in dataclasses.fields(tconfig.ModelConfig):
             if f.name != "unported":
-                assert getattr(m, f.name) == getattr(jm, f.name), (path, m.name, f.name)
+                port, ref = getattr(m, f.name), getattr(jm, f.name)
+                if dataclasses.is_dataclass(port):  # [model.slo]
+                    port, ref = dataclasses.asdict(port), dataclasses.asdict(ref)
+                assert port == ref, (path, m.name, f.name)
 
 
 @pytest.mark.parametrize("cls, refused", [
@@ -156,3 +173,49 @@ def test_unported_table_keys_parse_as_refused(table, tmp_path):
     cfg = tconfig.load_config(None, [f"{table}.{key}=12345"])
     assert cfg.unported == {f"[{table}] {key}": 12345}
     assert tconfig.unported_settings(cfg) == [f"[{table}] {key} = 12345"]
+
+
+OBS_KEYS = ["trace_capacity"] + [
+    f"{'model slo' if t == 'slo' else f'[{t}]'} {f.name}"
+    for t, cls in OBS_TABLES.items() for f in dataclasses.fields(getattr(jconfig, cls))]
+
+
+def _port_obs_default(name: str):
+    if name.startswith("model slo "):
+        return getattr(tconfig.ModelConfig(name="m").slo, name.split()[-1])
+    if name.startswith("["):
+        table, key = name[1:].split("] ")
+        return getattr(getattr(tconfig.ServerConfig(), table), key)
+    return getattr(tconfig.ServerConfig(), name)
+
+
+def _ref_obs_default(name: str):
+    if name.startswith("model slo "):
+        return getattr(jconfig.ModelConfig(name="m").slo, name.split()[-1])
+    return _jax_default(name)
+
+
+@pytest.mark.parametrize("name", OBS_KEYS)
+def test_observability_keys_are_typed_with_the_reference_default(name):
+    """Every key of the reference's observability tables (and
+    trace_capacity) is a typed field of the port with the reference's
+    default, which the port serves: no refusal."""
+    assert _port_obs_default(name) == _ref_obs_default(name)
+    assert name not in tconfig._SERVER_UNPORTED
+    cfg = tconfig.ServerConfig(models=[tconfig.ModelConfig(name="m")])
+    assert tconfig.unported_settings(cfg) == []
+    assert not {"trace", "events", "telemetry"} & set(tconfig.UNPORTED_TABLES)
+    assert "slo" not in tconfig._MODEL_UNPORTED
+
+
+@pytest.mark.parametrize("name, value", [
+    ("events.dir", "/tmp/bb"), ("events.stderr_path", "w0.stderr"),
+    ("events.snapshot_path", "w0.json"), ("telemetry.fleet_timeout_ms", 2000.0)])
+def test_worker_tier_keys_of_typed_tables_are_refused_when_written(name, value):
+    """The reference's worker and router tiers read these; written, the port
+    refuses them by name (the typed field still takes the value)."""
+    table, key = name.split(".")
+    cfg = tconfig.load_config(None, [f"{name}={value!r}" if isinstance(value, str)
+                                     else f"{name}={value}"])
+    assert getattr(getattr(cfg, table), key) == value
+    assert tconfig.unported_settings(cfg) == [f"[{table}] {key} = {value!r}"]

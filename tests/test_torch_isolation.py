@@ -120,13 +120,14 @@ MODEL_TOML = '[[model]]\nname = "bert"\nfamily = "bert"\nparallelism = "single"\
     ("[router]\nenabled = false\nworkers = 4\n", "[router] workers = 4"),
     ("[faults]\nenabled = true\n[[faults.rule]]\nkind = \"worker_crash\"\n",
      "[[faults.rule]] kind = 'worker_crash' (not yet ported (router and workers))"),
-    ("[trace]\nslow_n = 4\n", "[trace] slow_n = 4"),
-    ("[telemetry]\nenabled = true\n", "[telemetry] enabled = True"),
-    ("[events]\ncapacity = 16\n", "[events] capacity = 16"),
+    ("[events]\ndir = \"/tmp/bb\"\n", "[events] dir = '/tmp/bb'"),
+    ("[telemetry]\nfleet_timeout_ms = 2000.0\n", "[telemetry] fleet_timeout_ms = 2000.0"),
+    ("[events]\nsnapshot_path = \"s.json\"\n", "[events] snapshot_path = 's.json'"),
     ("[parallel]\nmode = \"replica\"\n", "[parallel] mode = 'replica'"),
-    ("trace_capacity = 1024\n", "trace_capacity = 1024"),
+    ("profiler_port = 9999\n", "profiler_port = 9999"),
     (MODEL_TOML + "pp = 2\n", "model bert: pp = 2"),
-    (MODEL_TOML + "[model.slo]\nlatency_ms = 50.0\n", "model bert: slo = {'latency_ms': 50.0}"),
+    (MODEL_TOML + "[model.slo]\nlatency_ms = 50.0\n[tenants]\nenabled = true\n",
+     "[tenants] enabled = True"),
 ])
 def test_server_refuses_unported_settings(tmp_path, toml, named):
     """A setting the port does not honour is refused by name at startup,
@@ -149,8 +150,8 @@ def test_server_accepts_settings_that_switch_unported_features_off(tmp_path):
     path.write_text('ingest_loops = 1\n[adaptive]\nenabled = false\n'
                     '[cache]\nenabled = false\n[parallel]\nmode = "single"\n'
                     + MODEL_TOML + 'session_mode = "direct"\ncold_start = false\n')
-    cfg = load_config(str(path), ["telemetry.enabled=false"])
-    assert cfg.unported["[telemetry] enabled"] is False
+    cfg = load_config(str(path), ["scheduler.enabled=false"])
+    assert cfg.unported["[scheduler] enabled"] is False
     assert unported_settings(cfg) == []
     for example in ("bert_flash.toml", "bert_long_ring.toml"):
         assert unported_settings(load_config(str(ROOT / "examples" / example))) == []

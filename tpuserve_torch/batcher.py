@@ -31,10 +31,17 @@
 - ``QueueFull`` (-> 429) when ``max_queue`` requests are pending, and
   ``DeadlineExceeded`` (-> fast 504) for a request whose deadline passed
   while it was still queued.
+- Tracing: a request submitted with its ``TraceContext`` gets a ``queue``
+  span at flush and, per batch it rode in, ``preproc``, ``h2d``,
+  ``compute`` and ``postproc`` spans tagged with the batch id (a retried or
+  bisected request's tree holds every attempt); the phase histograms carry
+  a member's trace id as their exemplar, and the span ring gets one
+  ``batch[bucket]`` span per batch. ``device_seconds_total{model=,
+  replica=0}`` counts the compute phase's wall time (the telemetry
+  sampler's device utilization).
 
 Not ported: deferred (recycle) mode, the per-priority queue-wait split and
-the fleet scheduler's device-time hooks (ROADMAP.md queue 1, item 11), and
-request trace spans (item 12).
+the fleet scheduler's device-time hooks (ROADMAP.md queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -81,6 +88,9 @@ class _Request:
     enqueued_at: float = 0.0  # time.perf_counter()
     # Absolute deadline (perf_counter clock); None = no per-request deadline.
     deadline_at: float | None = None
+    # The request's obs.TraceContext (queue and phase spans are appended to
+    # it); None when the caller does not trace.
+    ctx: Any = None
 
 
 class ModelBatcher:
@@ -118,6 +128,8 @@ class ModelBatcher:
         self._c_poison = metrics.counter(f"poison_items_total{{model={name}}}")
         self._h_phase = {p: metrics.histogram(f"latency_ms{{model={name},phase={p}}}")
                          for p in PHASES}
+        # One device serves the model: replica 0.
+        self._c_device_seconds = metrics.device_seconds_counter(name, 0)
         # Stage executors are normally server-owned and shared across models;
         # a batcher built without one (tests) owns and later shuts down its own.
         self._own_stages = stages is None
@@ -208,10 +220,11 @@ class ModelBatcher:
 
     # -- submission (event loop) --------------------------------------------
     def submit(self, item: Any, group: Hashable = None,
-               deadline_at: float | None = None) -> asyncio.Future:
+               deadline_at: float | None = None, ctx: Any = None) -> asyncio.Future:
         """Enqueue one decoded request; returns a Future of its result.
         ``deadline_at`` (perf_counter clock): past it, a still-queued request
-        fails with DeadlineExceeded instead of dispatching."""
+        fails with DeadlineExceeded instead of dispatching. ``ctx``
+        (obs.TraceContext) collects the request's queue and phase spans."""
         if not self._running or self._inflight is None:
             raise RuntimeError(f"batcher for {self.model.name} not started")
         if self._pending >= self.cfg.max_queue:
@@ -220,7 +233,8 @@ class ModelBatcher:
         loop = asyncio.get_running_loop()
         fut: asyncio.Future = loop.create_future()
         req = _Request(item=item, group=group, future=fut,
-                       enqueued_at=time.perf_counter(), deadline_at=deadline_at)
+                       enqueued_at=time.perf_counter(), deadline_at=deadline_at,
+                       ctx=ctx)
         q = self._queues.get(group)
         if q is None:
             q = self._queues[group] = asyncio.Queue()
@@ -232,7 +246,8 @@ class ModelBatcher:
         return fut
 
     def submit_threadsafe(self, item: Any, group: Hashable = None,
-                          deadline_at: float | None = None) -> cf.Future:
+                          deadline_at: float | None = None,
+                          ctx: Any = None) -> cf.Future:
         """Submit from a thread that is not the batcher's event loop (an
         ingest loop, an embedding thread): schedules ``submit`` on the loop
         captured at ``start`` and returns a ``concurrent.futures.Future`` of
@@ -247,7 +262,7 @@ class ModelBatcher:
 
         def _do() -> None:
             try:
-                fut = self.submit(item, group=group, deadline_at=deadline_at)
+                fut = self.submit(item, group=group, deadline_at=deadline_at, ctx=ctx)
             except Exception as e:  # QueueFull / stopped: through the future
                 out.set_exception(e)
                 return
@@ -462,8 +477,14 @@ class ModelBatcher:
                 self._maybe_idle()
                 continue
             now = time.perf_counter()
+            now_wall = time.time()
             for r in live:
-                self._h_phase["queue"].observe((now - r.enqueued_at) * 1e3)
+                wait_ms = (now - r.enqueued_at) * 1e3
+                tid = r.ctx.trace_id if r.ctx is not None else None
+                self._h_phase["queue"].observe(wait_ms, trace_id=tid)
+                if r.ctx is not None:
+                    r.ctx.span("queue", now_wall - wait_ms / 1e3, now_wall,
+                               tid=self.model.name)
             task = asyncio.get_running_loop().create_task(self._dispatch(live, group))
             self._dispatch_tasks.add(task)
             task.add_done_callback(self._dispatch_tasks.discard)
@@ -532,10 +553,28 @@ class ModelBatcher:
         the retry policy."""
         name = self.model.name
         bucket = self.model.bucket_for(len(reqs), group=group)
-        self._g_fill.set(len(reqs) / bucket[0])
+        fill = len(reqs) / bucket[0]
+        self._g_fill.set(fill)
         self._c_batches.inc()
+        # Batch identity for trace correlation: the lifetime batch count
+        # right after its tick (unique per model: every increment happens on
+        # the owning loop). A retry or a bisected half re-enters here and
+        # gets its own id.
+        bid = int(self._c_batches.value)
+        ctxs = [r.ctx for r in reqs if r.ctx is not None]
+        ex_tid = ctxs[0].trace_id if ctxs else None
         items = [r.item for r in reqs]
+        wall0 = time.time()
         t0 = time.perf_counter()
+
+        def mark(phase: str, t_a: float, t_b: float) -> None:
+            """Observe one batch phase (exemplar = a member's trace id) and
+            append its span, batch-tagged, to every traced member."""
+            self._h_phase[phase].observe((t_b - t_a) * 1e3, trace_id=ex_tid)
+            for c in ctxs:
+                c.span(phase, wall0 + (t_a - t0), wall0 + (t_b - t0),
+                       tid=name, batch=bid)
+
         lease = self.arena.acquire(bucket) if self.arena is not None else None
         try:
             if lease is not None:
@@ -545,7 +584,7 @@ class ModelBatcher:
                 host_batch = await self.stages.run(
                     name, "assemble", self.model.assemble, items, bucket)
             t1 = time.perf_counter()
-            self._h_phase["preproc"].observe((t1 - t0) * 1e3)
+            mark("preproc", t0, t1)
             slot = await self._acquire_staging(reqs)
             if slot is None:
                 return  # every request expired; nothing to run
@@ -558,10 +597,11 @@ class ModelBatcher:
                 outputs = await self.stages.run(
                     name, "h2d", self.runtime.run, bucket, host_batch)
                 t2 = time.perf_counter()
-                self._h_phase["h2d"].observe((t2 - t1) * 1e3)
+                mark("h2d", t1, t2)
                 np_out = await self.stages.run(name, "fetch", self.runtime.fetch, outputs)
                 t3 = time.perf_counter()
-                self._h_phase["compute"].observe((t3 - t2) * 1e3)
+                mark("compute", t2, t3)
+                self._c_device_seconds.inc(t3 - t2)
             finally:
                 self._staging.release(slot)
         finally:
@@ -572,11 +612,17 @@ class ModelBatcher:
         results = await self.stages.run(
             name, "postproc", self.model.host_postprocess, np_out, len(reqs))
         t4 = time.perf_counter()
-        self._h_phase["postproc"].observe((t4 - t3) * 1e3)
+        mark("postproc", t3, t4)
         self._c_items.inc(len(reqs))
         # Feed the adaptive scheduler's per-bucket duration model (tracked
         # with adaptive off too: the gauge is useful on its own).
         self._observe_batch_duration(bucket, (t4 - t0) * 1e3)
+        # Start and duration from the same wall-clock capture; member trace
+        # ids capped, so a wide bucket does not bloat every ring event.
+        self.metrics.tracer.add(
+            f"batch[{bucket}]", wall0, wall0 + (t4 - t0), tid=name,
+            trace_id=ex_tid, n=len(reqs), fill=fill, batch=bid,
+            trace_ids=[c.trace_id for c in ctxs[:8]])
         if self.breaker is not None:
             self.breaker.record_success()
         for r, res in zip(reqs, results):

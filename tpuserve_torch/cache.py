@@ -15,6 +15,8 @@
   batch slot: the first leads and submits to the batcher, the rest wait on
   the leader's completion (``cache_coalesced_total``). A failed leader
   (poison bisection included) fans its error out and populates nothing.
+  With trace contexts, each joining waiter records a ``coalesced`` span
+  whose ``linked_trace`` names the leader's trace.
 - **Honest accounting** — hits, misses and coalesced waiters are disjoint
   counters, so cache traffic never reads as model throughput.
 
@@ -89,6 +91,8 @@ class _Flight:
     key: str
     version: int
     waiters: list[asyncio.Future]
+    # The leader's trace id, named by every coalesced waiter's link span.
+    leader_trace: str | None = None
 
 
 class ModelCache:
@@ -145,15 +149,18 @@ class ModelCache:
         self._g_entries.set(len(self._entries))
 
     # -- single-flight --------------------------------------------------------
-    def submit_through(self, key: str,
-                       submit: Callable[[], asyncio.Future]) -> asyncio.Future:
+    def submit_through(self, key: str, submit: Callable[[], asyncio.Future],
+                       ctx: Any = None) -> asyncio.Future:
         """Miss path: join the in-flight computation for ``key`` or lead a
         new one by calling ``submit()`` (which may raise, e.g. QueueFull —
         propagated to the caller with nothing registered).
 
         Returns a per-caller waiter future. Cancelling a waiter (client
         disconnect, HTTP timeout) never cancels the batch slot or the other
-        waiters; the flight still completes and populates."""
+        waiters; the flight still completes and populates. ``ctx``
+        (obs.TraceContext) makes coalescing traceable: the leader's trace id
+        is kept on the flight and each joining waiter records a
+        ``coalesced`` span naming it."""
         loop = asyncio.get_running_loop()
         if self.cfg.coalesce:
             fl = self._flights.get(key)
@@ -161,10 +168,15 @@ class ModelCache:
                 w = loop.create_future()
                 fl.waiters.append(w)
                 self._c_coalesced.inc()
+                if ctx is not None:
+                    now = time.time()
+                    ctx.span("coalesced", now, now, tid=self.name,
+                             linked_trace=fl.leader_trace)
                 return w
         base = submit()
         self._c_misses.inc()
-        fl = _Flight(key=key, version=self._version_fn(), waiters=[])
+        fl = _Flight(key=key, version=self._version_fn(), waiters=[],
+                     leader_trace=ctx.trace_id if ctx is not None else None)
         if self.cfg.coalesce:
             self._flights[key] = fl
         w = loop.create_future()

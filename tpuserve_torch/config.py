@@ -6,11 +6,13 @@ The port reads the same TOML files as the JAX package. What it serves is
 typed: :class:`ModelConfig`, :class:`PipelineConfig`,
 :class:`LifecycleConfig`, :class:`FaultsConfig` (with its
 :class:`FaultRuleConfig` rules), :class:`CacheConfig`,
-:class:`AdaptiveConfig` and the top-level :class:`ServerConfig` fields,
-with the JAX package's defaults and checks. Every other setting the JAX
-package knows — its other tables (``[router]``, ``[telemetry]``, ...) and
-the keys the port has no use for yet (``trace_capacity``, ``pp``, ...) —
-parses into the
+:class:`AdaptiveConfig`, the observability tables :class:`TraceConfig`,
+:class:`EventsConfig` and :class:`TelemetryConfig`, the per-model
+:class:`SloConfig` and the top-level :class:`ServerConfig` fields, with the
+JAX package's defaults and checks. Every other setting the JAX package
+knows — its other tables (``[router]``, ``[tenants]``, ...) and the keys
+the port has no use for yet (``profiler_port``, ``pp``, ...) — parses into
+the
 ``unported`` dict of its ``ServerConfig`` or ``ModelConfig`` as a plain
 value. :func:`unported_settings` names those that ask for behaviour the
 port lacks, and the server refuses to start while any is set: a JAX config
@@ -21,7 +23,10 @@ default where that default asks for nothing (``relay_workers = 2`` while
 the model is served directly), is accepted. So is a ``[[faults.rule]]``
 whose kind fires at a call site the port has; while ``[faults]`` is
 enabled, a rule whose call site the port lacks (the worker processes',
-deferred mode's, streaming's) is refused by name.
+deferred mode's, streaming's) is refused by name. Four keys of typed
+tables belong to the reference's worker and router tiers and are refused
+the same way: ``[events] dir``, ``stderr_path`` and ``snapshot_path`` while
+non-empty, and ``[telemetry] fleet_timeout_ms`` whenever it is written.
 
 Example TOML::
 
@@ -50,37 +55,36 @@ from typing import Any
 # The JAX package's tables the port does not serve yet. Any key set in one
 # is refused, except ``enabled = false`` (and ``[parallel] mode`` naming the
 # one-device layout).
-UNPORTED_TABLES = ("autopilot", "distributed", "events", "genserve",
-                   "parallel", "router", "scheduler", "telemetry", "tenants",
-                   "trace", "worker")
+UNPORTED_TABLES = ("autopilot", "distributed", "genserve", "parallel",
+                   "router", "scheduler", "tenants", "worker")
 _TABLE_OFF: dict[str, tuple] = {"enabled": (False,)}
 _PARALLEL_OFF: dict[str, tuple] = {"mode": ("", "single")}
 _DISTRIBUTED_OFF: dict[str, tuple] = {"coordinator_address": ("",)}
-
-
-def _slo_off(value: Any) -> bool:
-    """A ``[model.slo]`` table that names no objective (the JAX default):
-    nothing for the port's missing burn-rate engine to evaluate."""
-    return isinstance(value, dict) and not value.get("latency_ms") \
-        and not value.get("first_unit_ms")
-
+# Keys of typed tables that only the reference's worker, supervisor and
+# router tiers read, with the values that ask for nothing (empty: refused
+# whenever written). Written values are also kept in ``unported`` as
+# "[table] key", so unported_settings names them.
+_TABLE_KEYS_UNPORTED: dict[str, dict[str, tuple]] = {
+    "events": {"dir": ("",), "stderr_path": ("",), "snapshot_path": ("",)},
+    "telemetry": {"fleet_timeout_ms": ()},
+}
 
 # The JAX package's top-level and per-model keys the port does not serve
 # yet, each with the values that ask for nothing the port lacks (empty: no
-# such value, any setting is refused); a callable decides for a sub-table.
+# such value, any setting is refused).
 _SERVER_UNPORTED: dict[str, tuple] = {
     "profiler_port": (0,), "compilation_cache_dir": ("",),
     "debug_nans": (False,), "prewarm_executables": (True,),
-    "trace_capacity": (), "log_json": (False,),
+    "log_json": (False,),
 }
-_MODEL_UNPORTED: dict[str, Any] = {
+_MODEL_UNPORTED: dict[str, tuple] = {
     "pp": (0, 1), "session_mode": ("direct",),
     # Deferred (recycle) mode's knobs, inert while session_mode is direct.
     "relay_workers": (2,), "relay_epoch_images": (4096,),
     "relay_epoch_ms": (2000.0,), "relay_slots": (4,),
     "priority": ("interactive",), "cold_start": (False,),
     # Streaming's slow-consumer policy, inert without the generation engine.
-    "stream_policy": ("drop",), "slo": _slo_off,
+    "stream_policy": ("drop",),
 }
 
 WIRE_FORMATS = ("rgb8", "yuv420")
@@ -295,6 +299,161 @@ class LifecycleConfig:
 
 
 @dataclass
+class TraceConfig:
+    """Request-scoped tracing (``[trace]`` TOML; tpuserve_torch.obs).
+
+    Every HTTP request gets a 128-bit trace context at ingest (adopted from
+    a well-formed ``X-Trace-Id``) and the id comes back as ``X-Trace-Id`` on
+    every response, errors included. This block sizes what is retained: the
+    flight recorder's slowest-N-per-model reservoir, the errored-request
+    FIFO, and whether /metrics histograms render trace-id exemplars."""
+
+    # Slowest-N complete span trees retained per model for /debug/slow;
+    # 0 disables the slow reservoir (errors still record).
+    slow_n: int = 16
+    # Record every errored/shed request (HTTP status >= 400) even when fast.
+    always_record_errors: bool = True
+    # Errored-request span trees retained (FIFO beyond it).
+    error_capacity: int = 256
+    # Per-bucket trace-id exemplars on /metrics histogram bucket lines
+    # (OpenMetrics exemplar syntax).
+    exemplars: bool = True
+
+    def __post_init__(self) -> None:
+        if self.slow_n < 0 or self.error_capacity < 0:
+            raise ValueError(
+                "trace.slow_n/error_capacity must be >= 0")
+
+
+@dataclass
+class EventsConfig:
+    """Structured event plane (``[events]`` TOML; tpuserve_torch.telemetry.events).
+
+    On by default: a bounded ring of structured event records fed by
+    explicit emissions and a stdlib ``logging.Handler`` bridge over the
+    ``tpuserve_torch.*`` loggers (``GET /debug/events``), the admin audit
+    trail (``GET /debug/audit``) and the postmortem ledger
+    (``GET /debug/postmortems``). ``dir``, ``stderr_path`` and
+    ``snapshot_path`` belong to the reference's supervised worker processes
+    and are refused while non-empty."""
+
+    enabled: bool = True
+    # Event records retained in the ring (newest kept).
+    capacity: int = 4096
+    # Optional JSONL file sink ("" disables).
+    jsonl_path: str = ""
+    # Minimum stdlib-logging level bridged into the ring.
+    bridge_level: str = "INFO"
+    # Black-box directory of the worker tier (refused while non-empty).
+    dir: str = ""
+    # Postmortem-snapshot cadence (s) of a worker's black box.
+    snapshot_interval_s: float = 2.0
+    # Bytes of a dead process's stderr capture folded into its postmortem.
+    stderr_tail_bytes: int = 4096
+    # Admin audit records retained (FIFO beyond it).
+    audit_capacity: int = 256
+    # Postmortem records retained (FIFO beyond it).
+    postmortem_capacity: int = 64
+    # Set per worker slot by the reference's supervisor (refused while
+    # non-empty).
+    stderr_path: str = ""
+    snapshot_path: str = ""
+
+    def __post_init__(self) -> None:
+        if self.capacity < 1 or self.audit_capacity < 1 \
+                or self.postmortem_capacity < 1:
+            raise ValueError(
+                "events.capacity/audit_capacity/postmortem_capacity "
+                "must be >= 1")
+        if self.snapshot_interval_s < 0 or self.stderr_tail_bytes < 0:
+            raise ValueError(
+                "events.snapshot_interval_s/stderr_tail_bytes must be >= 0")
+        if self.bridge_level.upper() not in ("DEBUG", "INFO", "WARNING",
+                                             "ERROR"):
+            raise ValueError(
+                f"events.bridge_level must be DEBUG/INFO/WARNING/ERROR, "
+                f"got {self.bridge_level!r}")
+
+
+@dataclass
+class TelemetryConfig:
+    """Telemetry plane (``[telemetry]`` TOML; tpuserve_torch.telemetry).
+
+    On by default: a sampler thread snapshots every metric into bounded
+    rings at ``sample_interval_s`` (``GET /stats/history``), the SLO engine
+    evaluates multi-window burn rates over ``[model.slo]`` (``GET
+    /alerts``), the sampler derives ``device_utilization{model=,replica=}``
+    from ``device_seconds_total``, and ``POST /debug/profile`` captures a
+    device trace. ``fleet_timeout_ms`` is the reference router's and is
+    refused whenever written."""
+
+    enabled: bool = True
+    # Sampler cadence (s).
+    sample_interval_s: float = 1.0
+    # History retained per metric (s); ring capacity = history_s /
+    # sample_interval_s, capped at 4096 samples.
+    history_s: float = 600.0
+    # Burn-rate windows (s), ascending: FIRING when the burn exceeds
+    # `burn_alert` over the first two, PENDING over the first alone.
+    burn_windows_s: list[float] = field(
+        default_factory=lambda: [60.0, 300.0, 1800.0])
+    # Window (s) of the device_utilization derivation.
+    utilization_window_s: float = 10.0
+    # The router's per-source fleet-scrape budget.
+    fleet_timeout_ms: float = 2000.0
+    # Upper bound on POST /debug/profile?duration_ms=.
+    profile_max_ms: float = 10000.0
+
+    def __post_init__(self) -> None:
+        if self.sample_interval_s <= 0 or self.history_s <= 0:
+            raise ValueError(
+                "telemetry.sample_interval_s/history_s must be > 0")
+        if len(self.burn_windows_s) < 2 \
+                or any(w <= 0 for w in self.burn_windows_s) \
+                or sorted(self.burn_windows_s) != list(self.burn_windows_s):
+            raise ValueError(
+                "telemetry.burn_windows_s must be >= 2 ascending positive "
+                f"windows, got {self.burn_windows_s}")
+        if self.utilization_window_s <= 0 or self.fleet_timeout_ms <= 0 \
+                or self.profile_max_ms <= 0:
+            raise ValueError(
+                "telemetry.utilization_window_s/fleet_timeout_ms/"
+                "profile_max_ms must be > 0")
+
+
+@dataclass
+class SloConfig:
+    """Per-model service-level objective (``[model.slo]`` TOML;
+    tpuserve_torch.telemetry.slo). A request is good when it answers within
+    ``latency_ms``; the error budget is ``1 - availability`` and the burn
+    rate over a window is (bad fraction) / budget. ``latency_ms = 0`` (the
+    default) disables the SLO for the model."""
+
+    latency_ms: float = 0.0
+    availability: float = 0.999
+    # FIRING when exceeded over the short and mid windows, PENDING on the
+    # short alone.
+    burn_alert: float = 10.0
+    # First-unit objective of streamed generation (evaluated over
+    # gen_first_unit_ms{model=}, which only a generation engine feeds).
+    first_unit_ms: float = 0.0
+
+    def __post_init__(self) -> None:
+        if self.latency_ms < 0:
+            raise ValueError(
+                f"slo.latency_ms must be >= 0, got {self.latency_ms}")
+        if self.first_unit_ms < 0:
+            raise ValueError(
+                f"slo.first_unit_ms must be >= 0, got {self.first_unit_ms}")
+        if not 0.0 < self.availability < 1.0:
+            raise ValueError(
+                f"slo.availability must be in (0, 1), got {self.availability}")
+        if self.burn_alert <= 0:
+            raise ValueError(
+                f"slo.burn_alert must be > 0, got {self.burn_alert}")
+
+
+@dataclass
 class ModelConfig:
     """Per-model serving configuration."""
 
@@ -364,6 +523,8 @@ class ModelConfig:
     breaker_threshold: int = 5
     # Retry-After hint (s) on breaker 503s when no periodic canary runs.
     breaker_retry_after_s: float = 5.0
+    # Service-level objective ([model.slo] sub-table).
+    slo: SloConfig = field(default_factory=SloConfig)
     # The JAX package's per-model keys the port does not serve yet, as
     # parsed (see unported_settings).
     unported: dict[str, Any] = field(default_factory=dict)
@@ -425,6 +586,15 @@ class ServerConfig:
     faults: FaultsConfig = field(default_factory=FaultsConfig)
     # Versioned reload lifecycle (integrity checks, staged canary, rollback).
     lifecycle: LifecycleConfig = field(default_factory=LifecycleConfig)
+    # Span ring capacity of the tracer (/debug/trace, /debug/profile).
+    trace_capacity: int = 65536
+    # Request tracing retention (flight recorder, exemplars).
+    trace: TraceConfig = field(default_factory=TraceConfig)
+    # Telemetry plane (sampler, history, SLO burn rates, utilization,
+    # profiling).
+    telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
+    # Structured event plane (event ring, logging bridge, audit trail).
+    events: EventsConfig = field(default_factory=EventsConfig)
     # The JAX package's settings the port does not serve yet, as parsed:
     # "[table] key" for its tables, the bare key for top-level keys.
     unported: dict[str, Any] = field(default_factory=dict)
@@ -441,6 +611,11 @@ class ServerConfig:
         raise KeyError(f"no model named {name!r} configured")
 
 
+# The observability tables the port types, by TOML table name.
+OBS_TABLES = {"trace": TraceConfig, "telemetry": TelemetryConfig,
+              "events": EventsConfig}
+
+
 def unported_settings(cfg: ServerConfig) -> list[str]:
     """The settings of ``cfg`` that ask for behaviour the port lacks, as
     ``name = value`` strings (empty when the port serves all of ``cfg``)."""
@@ -448,15 +623,15 @@ def unported_settings(cfg: ServerConfig) -> list[str]:
     for name, value in cfg.unported.items():
         if name.startswith("["):
             table, _, key = name[1:].partition("] ")
-            accepted = {"parallel": _PARALLEL_OFF,
-                        "distributed": _DISTRIBUTED_OFF}.get(table, _TABLE_OFF).get(key, ())
+            accepted = {"parallel": _PARALLEL_OFF, "distributed": _DISTRIBUTED_OFF,
+                        **_TABLE_KEYS_UNPORTED}.get(table, _TABLE_OFF).get(key, ())
         else:
             accepted = _SERVER_UNPORTED[name]
-        if not _accepts(accepted, value):
+        if value not in accepted:
             out.append(f"{name} = {value!r}")
     for m in cfg.models:
         out += [f"model {m.name}: {k} = {v!r}" for k, v in m.unported.items()
-                if not _accepts(_MODEL_UNPORTED[k], v)]
+                if v not in _MODEL_UNPORTED[k]]
         if m.quantize in _QUANTIZE_UNPORTED:
             out.append(f"model {m.name}: quantize = {m.quantize!r}")
     if cfg.faults.enabled:
@@ -464,10 +639,6 @@ def unported_settings(cfg: ServerConfig) -> list[str]:
                 f"({_FAULT_KINDS_UNPORTED[r.kind]}))"
                 for r in cfg.faults.rules if r.kind in _FAULT_KINDS_UNPORTED]
     return out
-
-
-def _accepts(accepted: Any, value: Any) -> bool:
-    return accepted(value) if callable(accepted) else value in accepted
 
 
 def _build(cls: type, data: dict[str, Any], unported: dict[str, tuple] | None = None) -> Any:
@@ -503,9 +674,22 @@ def load_config(path: str | None = None, overrides: list[str] | None = None) -> 
     lifecycle_dict = raw.pop("lifecycle", None)
     cache_dict = raw.pop("cache", None)
     adaptive_dict = raw.pop("adaptive", None)
+    obs_dicts = {t: raw.pop(t) for t in ("trace", "telemetry", "events") if t in raw}
     tables = {t: raw.pop(t) for t in UNPORTED_TABLES if t in raw}
     cfg: ServerConfig = _build(ServerConfig, raw, _SERVER_UNPORTED)
-    cfg.models = [_build(ModelConfig, m, _MODEL_UNPORTED) for m in model_dicts]
+    models = []
+    for m in model_dicts:
+        # [model.slo] is a nested sub-table of its [[model]] entry.
+        slo_dict = m.pop("slo", None)
+        mc = _build(ModelConfig, m, _MODEL_UNPORTED)
+        if slo_dict is not None:
+            mc.slo = _build(SloConfig, slo_dict)
+        models.append(mc)
+    cfg.models = models
+    for table, data in obs_dicts.items():
+        setattr(cfg, table, _build(OBS_TABLES[table], data))
+        for key in _TABLE_KEYS_UNPORTED.get(table, {}).keys() & data.keys():
+            cfg.unported[f"[{table}] {key}"] = data[key]
     if pipeline_dict is not None:
         cfg.pipeline = _build(PipelineConfig, pipeline_dict)
     if lifecycle_dict is not None:
@@ -553,6 +737,8 @@ def _apply_override(cfg: ServerConfig, override: str) -> None:
     elif parts[0] in UNPORTED_TABLES and len(parts) == 2:
         cfg.unported[f"[{parts[0]}] {parts[1]}"] = value
         return
+    elif len(parts) == 2 and parts[1] in _TABLE_KEYS_UNPORTED.get(parts[0], {}):
+        cfg.unported[f"[{parts[0]}] {parts[1]}"] = value
     if len(parts) == 1 and parts[0] in unported:
         target.unported[parts[0]] = value
         return

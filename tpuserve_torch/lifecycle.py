@@ -24,10 +24,10 @@ pipeline, every step of which keeps the old version serving on failure:
 ``GET .../{name}/versions`` the transition history. Metrics:
 ``model_version`` gauge, ``reloads_total`` / ``reload_rejected_total{stage=}``
 / ``rollbacks_total{reason=}`` counters. Stage names, reasons, history
-statuses and counter labels are the JAX package's.
-
-Not ported yet: the structured telemetry events the reference emits beside
-its log lines (ROADMAP.md queue 1, "Observability and analysis").
+statuses and counter labels are the JAX package's, and so are the
+structured events emitted beside the log lines (``published``,
+``reload_rejected``, ``rolled_back`` in subsystem ``lifecycle``, through
+``telemetry.events.emit``: a no-op unless the server's event plane is on).
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from tpuserve_torch.config import LifecycleConfig
 from tpuserve_torch.obs import Metrics
 from tpuserve_torch.runtime import NaNDetected, StagedParams
 from tpuserve_torch.savedmodel import IntegrityError
+from tpuserve_torch.telemetry import events as events_mod
 from tpuserve_torch.utils.locks import new_async_lock
 
 log = logging.getLogger("tpuserve_torch.lifecycle")
@@ -152,6 +153,9 @@ class ModelLifecycle:
             self._record(version=self.runtime.version, status="live",
                          source=self.model.cfg.weights or "init")
             log.info("%s: published version %d", self.name, self.runtime.version)
+            # Structured twin of the log line: fields a reader can match.
+            events_mod.emit("info", "lifecycle", "published",
+                            model=self.name, version=self.runtime.version)
 
             canary_ok = True
             if self._canary is not None:
@@ -203,6 +207,9 @@ class ModelLifecycle:
                      stage=stage, error=str(err))
         log.warning("%s: reload rejected at %s gate: %s; version %d keeps "
                     "serving", self.name, stage, err, self.runtime.version)
+        events_mod.emit("warning", "lifecycle", "reload_rejected",
+                        model=self.name, stage=stage, error=str(err),
+                        version=self.runtime.version)
         raise ReloadRejected(
             f"reload rejected at {stage} gate: {err}", stage=stage) from err
 
@@ -239,6 +246,10 @@ class ModelLifecycle:
                      source=f"rollback({reason})")
         log.warning("%s: rolled back version %d -> %d (%s)", self.name,
                     info["rolled_back_from"], info["version"], reason)
+        events_mod.emit("warning", "lifecycle", "rolled_back",
+                        model=self.name, reason=reason,
+                        version=info["version"],
+                        rolled_back_from=info["rolled_back_from"])
         # Re-canary so /healthz reflects the restored weights and the
         # breaker's recovery path sees a live probe.
         if self._canary is not None:

@@ -9,9 +9,15 @@ Each family implements the ``ServingModel`` contract in ``base.py``. Ported:
   npy and encoded-image bodies, rgb8 or yuv420 wire, preprocessing and
   softmax + top-k on the device; bf16, channels_last, cuDNN convolutions;
   weight-only int8).
+- mobilenetv3 — MobileNetV3-Large image classification (the same
+  ``vision.py`` serving; depthwise and squeeze-excite blocks, cuDNN
+  convolutions, batch-1 latency through the CUDA graphs).
 - toy — a tiny MLP image classifier, the fast model of the CPU tests.
 
-The JAX package's other families (mobilenetv3, efficientdet, sd15, textgen)
+The shared convolution, BatchNorm and weight-conversion code of the
+convolutional families is ``layers.py``.
+
+The JAX package's other families (efficientdet, sd15, textgen)
 are registered by name and raise "not yet ported", naming their ROADMAP.md
 item.
 """
@@ -27,13 +33,13 @@ if TYPE_CHECKING:
 
 _REGISTRY: dict[str, str] = {
     "bert": "tpuserve_torch.models.bert",
+    "mobilenetv3": "tpuserve_torch.models.mobilenet",
     "resnet50": "tpuserve_torch.models.resnet",
     "toy": "tpuserve_torch.models.toy",
 }
 
 # Families of the JAX package not ported yet -> their ROADMAP.md queue-1 item.
 _NOT_PORTED: dict[str, str] = {
-    "mobilenetv3": "MobileNetV3, the next vision family",
     "efficientdet": "EfficientDet",
     "sd15": "SD 1.5",
     "textgen": "textgen",

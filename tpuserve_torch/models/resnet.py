@@ -36,59 +36,14 @@ be written from the port's own seeded init.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from tpuserve_torch.config import ModelConfig
+from tpuserve_torch.models.layers import (BatchNorm, Conv, from_jax_params,
+                                          seeded_state_dict, to_jax_params)
 from tpuserve_torch.models.vision import ImageClassifierServing
-
-
-def _same_padding(size: int, k: int, s: int) -> tuple[int, int]:
-    """flax/XLA "SAME" padding (lo, hi) of one spatial dim."""
-    total = max((-(-size // s) - 1) * s + k - size, 0)
-    return total // 2, total - total // 2
-
-
-class Conv(nn.Module):
-    """Bias-free 2-D convolution with flax's padding: "SAME" when
-    ``padding`` is None, else the given symmetric padding."""
-
-    def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
-                 padding: int | None = None) -> None:
-        super().__init__()
-        self.k, self.stride, self.padding = k, stride, padding
-        self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        pad = self.padding
-        if pad is None:
-            (ht, hb), (wl, wr) = (_same_padding(n, self.k, self.stride) for n in x.shape[-2:])
-            if ht == hb and wl == wr:
-                pad = (ht, wl)
-            else:
-                x = F.pad(x, (wl, wr, ht, hb))
-                pad = 0
-        return F.conv2d(x, self.weight, stride=self.stride, padding=pad)
-
-
-class BatchNorm(nn.Module):
-    """Inference BatchNorm over the channel dim in flax's order of ops."""
-
-    def __init__(self, c: int, eps: float) -> None:
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(c))
-        self.bias = nn.Parameter(torch.zeros(c))
-        self.register_buffer("running_mean", torch.zeros(c))
-        self.register_buffer("running_var", torch.ones(c))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shape = (1, -1, 1, 1)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x - self.running_mean.view(shape)) * mul.view(shape)
-        return y + self.bias.view(shape)
 
 
 class Bottleneck(nn.Module):
@@ -147,57 +102,6 @@ class ResNet(nn.Module):
         return F.linear(x.float(), self.head.weight.float(), self.head.bias.float())
 
 
-def from_jax_params(tree) -> dict[str, torch.Tensor]:
-    """The reference's ``{"params", "batch_stats"}`` tree (numpy or jax
-    leaves) -> this port's float32 state_dict.
-
-    Layouts: conv kernels HWIO -> OIHW (``permute(3, 2, 0, 1)``); the Dense
-    head's (in, out) kernel -> ``Linear.weight`` (out, in); BatchNorm
-    ``scale``/``bias`` -> ``weight``/``bias``; ``batch_stats`` ``mean``/``var``
-    -> ``running_mean``/``running_var``."""
-    names = {"kernel": "weight", "scale": "weight", "bias": "bias",
-             "mean": "running_mean", "var": "running_var"}
-    sd: dict[str, torch.Tensor] = {}
-
-    def walk(node, prefix: str) -> None:
-        for key, val in node.items():
-            if hasattr(val, "items"):          # a sub-tree
-                walk(val, f"{prefix}{key}.")
-                continue
-            t = torch.from_numpy(np.array(val, dtype=np.float32))
-            if key == "kernel":
-                t = t.permute(3, 2, 0, 1) if t.dim() == 4 else t.T
-            sd[prefix + names[key]] = t.contiguous()
-
-    walk(tree["params"], "")
-    walk(tree.get("batch_stats", {}), "")
-    return sd
-
-
-def to_jax_params(state_dict: dict[str, torch.Tensor]) -> dict:
-    """This port's float32 state_dict -> the reference's ``{"params",
-    "batch_stats"}`` tree of numpy arrays: ``from_jax_params`` inverted, bit
-    for bit (OIHW -> HWIO, ``Linear.weight`` -> (in, out), 1-D weights ->
-    BatchNorm ``scale``, running statistics -> ``batch_stats``)."""
-    tree: dict = {"params": {}, "batch_stats": {}}
-    for name, v in state_dict.items():
-        t = v.detach().to(torch.float32).cpu()
-        *mods, leaf = name.split(".")
-        root = tree["params"]
-        if leaf in ("running_mean", "running_var"):
-            root, key = tree["batch_stats"], leaf[len("running_"):]
-        elif leaf == "weight" and t.dim() >= 2:
-            key = "kernel"
-            t = t.permute(2, 3, 1, 0) if t.dim() == 4 else t.T
-        else:
-            key = "scale" if leaf == "weight" else leaf
-        node = root
-        for m in mods:
-            node = node.setdefault(m, {})
-        node[key] = t.contiguous().numpy()
-    return tree
-
-
 class ResNet50Serving(ImageClassifierServing):
     def __init__(self, cfg: ModelConfig) -> None:
         super().__init__(cfg)
@@ -215,24 +119,7 @@ class ResNet50Serving(ImageClassifierServing):
         return to_jax_params(state_dict)
 
     def init_params(self, seed: int = 0) -> dict[str, torch.Tensor]:
-        """Seeded init with the reference's initializer families (it cannot
-        reproduce jax.random's bits): LeCun-normal conv and head weights,
-        zero head bias, BatchNorm at identity (scale 1, bias 0, mean 0,
-        var 1)."""
-        rng = np.random.default_rng(seed)
-        with torch.device("meta"):
-            shapes = {k: tuple(v.shape) for k, v in self.build_module().state_dict().items()}
-        sd = {}
-        for name, shape in shapes.items():
-            if len(shape) >= 2:                    # conv OIHW or head (out, in)
-                fan_in = int(np.prod(shape[1:]))
-                x = rng.normal(0.0, fan_in ** -0.5, shape)
-            elif name.endswith(("weight", "running_var")):
-                x = np.ones(shape)
-            else:
-                x = np.zeros(shape)
-            sd[name] = torch.from_numpy(x.astype(np.float32))
-        return sd
+        return seeded_state_dict(self.build_module, seed)
 
 
 def create(cfg: ModelConfig) -> ResNet50Serving:

@@ -29,6 +29,18 @@ Endpoints (response shapes and status codes as in the JAX server):
   device).
 - ``POST /debug/kernels:reset`` sets the kernels' launch counts to 0, so a
   caller can count exactly the launches of the requests it sends next.
+- Observability (the reference's defaults, on unless their table switches
+  them off): ``GET /debug/trace`` (the span ring as Chrome JSON, ``?limit=``
+  default 5000, ``?since_us=``; ``?trace_id=`` one recorded request's span
+  tree with its events interleaved, ``&format=record`` the raw record),
+  ``GET /debug/slow`` (the flight recorder: slowest-N trees per model and
+  the errored ones, ``?model=``), ``GET /debug/events`` (the event ring,
+  ``?since_us=&level=&subsystem=&trace_id=&limit=``), ``GET /debug/audit``,
+  ``GET /debug/postmortems``, ``GET /stats/history?metric=&window_s=``,
+  ``GET /alerts`` and ``POST /debug/profile?duration_ms=`` (a
+  ``torch.profiler`` device trace merged with the span ring; 409 while one
+  is armed). ``/metrics`` answers the OpenMetrics content type when the
+  ``Accept`` header asks for it.
 - ``POST /admin/models/{name}:reload`` (staged, canary-gated weight swap
   from the model's ``weights``: 200 with the new version; 409 with the
   failing gate's ``stage`` and the version still serving; 500 with
@@ -58,12 +70,19 @@ message and ticks ``frame_errors_total{model=}`` beside
 body too large 413, queue full 429 (+ ``Retry-After`` from the queue's
 clear time), draining or breaker open 503 (+ ``Retry-After``), deadline
 exceeded 504, batch failure 500. Error bodies are ``{"error": ...,
-"trace_id": ...}``; every predict response carries ``X-Trace-Id``.
+"trace_id": ...}``; every predict response carries ``X-Trace-Id``: the
+request's well-formed ``X-Trace-Id`` when it sent one, else a fresh id. The
+request's span tree (``request`` at the root; ``body_read``, ``parse``,
+``dispatch``, then the batcher's ``queue``, ``preproc``, ``h2d``,
+``compute`` and ``postproc``) goes to the flight recorder, and an errored
+or retained-slow request leaves a ``request_error`` / ``slow_request``
+event with its trace id. Admin verbs (``:reload``, ``:rollback``, profile,
+drain) leave audit records.
 
-Not ported yet (ROADMAP.md queue 1): the router/worker tiers, the fleet
-scheduler (``:warm``/``:demote``), tenants, the telemetry and event planes,
-streaming, ``/debug/trace``, ``/debug/slow``, ``/``, the ``/stats`` roofline
-block and request tracing beyond the trace id.
+Not ported yet (ROADMAP.md queue 1): the router/worker tiers and their
+black box, the fleet scheduler (``:warm``/``:demote``), tenants, streaming,
+``/``, ``/metrics/fleet``, the ``/stats`` roofline block and
+``profiler_port``.
 """
 
 from __future__ import annotations
@@ -76,7 +95,6 @@ import gc
 import json
 import logging
 import math
-import os
 import signal
 import socket
 import threading
@@ -92,15 +110,21 @@ from tpuserve_torch import preproc
 from tpuserve_torch.batcher import (DeadlineExceeded, ModelBatcher, QueueFull,
                                     clamp_retry_after_s)
 from tpuserve_torch.cache import ModelCache
-from tpuserve_torch.config import ServerConfig, unported_settings
+from tpuserve_torch.config import ServerConfig, SloConfig, unported_settings
 from tpuserve_torch.faults import CircuitBreaker, FaultInjector, Watchdog
 from tpuserve_torch.frame import FrameError
 from tpuserve_torch.hostpipe import StageExecutors
 from tpuserve_torch.lifecycle import ModelLifecycle, ReloadRejected
-from tpuserve_torch.obs import PROMETHEUS_CONTENT_TYPE, Metrics
+from tpuserve_torch.obs import (FlightRecorder, Metrics, TraceContext,
+                                exposition_content_type, spans_to_chrome)
 from tpuserve_torch.ops import flash_attention as fa
 from tpuserve_torch.runtime import (ModelRuntime, backend_info, build_runtime,
                                     resolve_device)
+from tpuserve_torch.telemetry import events as events_mod
+from tpuserve_torch.telemetry.events import AuditLog, EventLog, PostmortemLog
+from tpuserve_torch.telemetry.profile import CaptureBusy, ProfileCapture
+from tpuserve_torch.telemetry.slo import SloEngine, UtilizationDeriver
+from tpuserve_torch.telemetry.store import MetricSampler, TimeSeriesStore
 
 log = logging.getLogger("tpuserve_torch.server")
 
@@ -266,7 +290,15 @@ class ServerState:
         _reject_unported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.metrics = Metrics()
+        self.metrics = Metrics(cfg.trace_capacity, exemplars=cfg.trace.exemplars)
+        # Tail-latency flight recorder: complete span trees of the slowest-N
+        # requests per model and of every errored or shed one
+        # (/debug/slow, /debug/trace?trace_id=). Thread-safe: every accept
+        # loop finishes its own requests into it.
+        self.recorder = FlightRecorder(
+            slow_n=cfg.trace.slow_n, error_capacity=cfg.trace.error_capacity,
+            always_record_errors=cfg.trace.always_record_errors,
+            metrics=self.metrics)
         self.pool = cf.ThreadPoolExecutor(max_workers=cfg.decode_threads,
                                           thread_name_prefix="tpuserve-torch")
         self.stages = StageExecutors(cfg.pipeline, self.metrics)
@@ -299,6 +331,39 @@ class ServerState:
         # requests), closed at shutdown so the listener's wait_closed() can
         # return.
         self.connections: Connections | None = None
+        # Telemetry plane: metric history, SLO burn rates, device
+        # utilization and profiling; all None with [telemetry] enabled =
+        # false.
+        self.store: TimeSeriesStore | None = None
+        self.sampler: MetricSampler | None = None
+        self.slo: SloEngine | None = None
+        self.util: UtilizationDeriver | None = None
+        self.profiler: ProfileCapture | None = None
+        if cfg.telemetry.enabled:
+            tcfg = cfg.telemetry
+            self.store = TimeSeriesStore(
+                self.metrics, capacity=int(tcfg.history_s / tcfg.sample_interval_s))
+            self.slo = SloEngine(self.metrics, self.store, tcfg.burn_windows_s)
+            self.util = UtilizationDeriver(self.metrics, self.store,
+                                           tcfg.utilization_window_s)
+            self.sampler = MetricSampler(self.store, tcfg.sample_interval_s,
+                                         hooks=[self.slo.tick, self.util.tick])
+            self.profiler = ProfileCapture(self.metrics, cuda=self.device.type == "cuda")
+        # Event plane: the event ring with its logging bridge, the admin
+        # audit trail and the postmortem ledger; all None with [events]
+        # enabled = false.
+        self.events: EventLog | None = None
+        self.audit: AuditLog | None = None
+        self.postmortems: PostmortemLog | None = None
+        if cfg.events.enabled:
+            ecfg = cfg.events
+            self.events = EventLog(self.metrics, ecfg.capacity, jsonl_path=ecfg.jsonl_path)
+            self.audit = AuditLog(self.metrics, ecfg.audit_capacity, events=self.events)
+            self.postmortems = PostmortemLog(
+                self.metrics, ecfg.postmortem_capacity,
+                tail_bytes=ecfg.stderr_tail_bytes, events=self.events)
+            events_mod.install_bridge(self.events, ecfg.bridge_level)
+            events_mod.set_active(self.events)
 
     def build(self) -> None:
         """Build every model's runtime: params on the device, buckets warm."""
@@ -351,6 +416,21 @@ class ServerState:
                 canary=functools.partial(self.run_canary, name),
                 canary_status=functools.partial(self.canary_ok.get, name),
                 injector=self.injector)
+        if self.slo is not None:
+            # Models whose [model.slo] names a latency objective get burn
+            # gauges and an /alerts row; a first-unit objective is its own
+            # subject over gen_first_unit_ms.
+            for mcfg in self.cfg.models:
+                self.slo.register(mcfg.name, mcfg.slo)
+                if mcfg.slo.first_unit_ms > 0:
+                    self.slo.register(
+                        f"{mcfg.name}:first_unit",
+                        SloConfig(latency_ms=mcfg.slo.first_unit_ms,
+                                  availability=mcfg.slo.availability,
+                                  burn_alert=mcfg.slo.burn_alert),
+                        metric=f"gen_first_unit_ms{{model={mcfg.name}}}")
+        if self.sampler is not None:
+            self.sampler.start()
         if self.cfg.startup_canary:
             await self.run_canaries()
         if self.cfg.canary_interval_s > 0:
@@ -369,6 +449,7 @@ class ServerState:
 
     async def stop(self) -> None:
         await self.watchdog.stop()
+        await self._stop_sampler()
         for lc in self.lifecycles.values():
             lc.close()  # stop soak monitors
         await self._stop_canary_loop()
@@ -376,6 +457,15 @@ class ServerState:
             await b.stop()
         self.stages.shutdown()
         self.pool.shutdown(wait=False, cancel_futures=True)
+        if self.profiler is not None:
+            self.profiler.close()
+        if self.events is not None:
+            self.events.close()  # close the JSONL sink
+
+    async def _stop_sampler(self) -> None:
+        """Join the telemetry sampler off the loop (idempotent)."""
+        if self.sampler is not None:
+            await asyncio.get_running_loop().run_in_executor(None, self.sampler.stop)
 
     # -- graceful drain ------------------------------------------------------
     def begin_drain(self) -> None:
@@ -389,13 +479,20 @@ class ServerState:
         admission closed), refuse new work, then wait up to
         ``drain_timeout_s`` for every accepted request. False when the
         budget expired first."""
+        t_drain = time.perf_counter()
         await self.watchdog.stop()
         await self._stop_canary_loop()
         self.begin_drain()
+        # The sampler only reads metrics: it joins after admission closed.
+        await self._stop_sampler()
         deadline = asyncio.get_running_loop().time() + self.cfg.drain_timeout_s
         ok = True
         for b in self.batchers.values():
             ok &= await b.drain(deadline)
+        if self.audit is not None:
+            self.audit.record("drain", "server", "ok" if ok else "budget_expired",
+                              duration_ms=(time.perf_counter() - t_drain) * 1e3,
+                              drain_timeout_s=self.cfg.drain_timeout_s)
         return ok
 
     # -- canaries ------------------------------------------------------------
@@ -495,6 +592,14 @@ class ServerState:
             "/stats": ("GET", self.stats),
             "/v1/models": ("GET", self.models_json),
             "/debug/kernels:reset": ("POST", self.reset_kernel_counts),
+            "/debug/trace": ("GET", self.debug_trace),
+            "/debug/slow": ("GET", self.debug_slow),
+            "/debug/events": ("GET", self.debug_events),
+            "/debug/audit": ("GET", self.debug_audit),
+            "/debug/postmortems": ("GET", self.debug_postmortems),
+            "/debug/profile": ("POST", self.debug_profile),
+            "/stats/history": ("GET", self.stats_history),
+            "/alerts": ("GET", self.alerts),
         }
         route = routes.get(path)
         if route is None:
@@ -504,11 +609,13 @@ class ServerState:
             resp = _text(405)
             resp.headers["Allow"] = method
             return resp
-        return fn()
+        resp = fn(req)
+        return await resp if asyncio.iscoroutine(resp) else resp
 
     async def admin(self, req: Request, rest: str) -> Response:
         """``{name}:reload``, ``{name}:rollback`` (POST) and
-        ``{name}/versions`` (GET), with the JAX server's answers."""
+        ``{name}/versions`` (GET), with the JAX server's answers; reloads and
+        rollbacks leave audit records."""
         if rest.endswith("/versions"):
             name, verb, method = rest[:-len("/versions")], "versions", "GET"
         else:
@@ -525,25 +632,41 @@ class ServerState:
             return _err(404, f"unknown model {name!r}")
         if verb == "versions":
             return json_response(lc.describe())
+        t0 = time.perf_counter()
+
+        def audit(outcome: str, **fields) -> None:
+            if self.audit is not None:
+                self.audit.record(verb, name, outcome,
+                                  duration_ms=(time.perf_counter() - t0) * 1e3, **fields)
+
         if verb == "rollback":
             try:
-                return json_response(await lc.rollback(reason="manual"))
+                info = await lc.rollback(reason="manual")
             except ValueError as e:
+                audit("rejected", error=str(e))
                 return _err(409, str(e))
+            audit("ok", version=info.get("version"),
+                  rolled_back_from=info.get("rolled_back_from"))
+            return json_response(info)
         try:
             info = await lc.reload()
         except ReloadRejected as e:
+            version = self.runtimes[name].version
+            audit("rolled_back" if e.rolled_back else "rejected", stage=e.stage,
+                  version=version, error=str(e))
             body = {"error": str(e), "stage": e.stage, "rolled_back": e.rolled_back,
-                    "version": self.runtimes[name].version}
+                    "version": version}
             # Pre-publish rejection: an artifact conflict (409). A
             # post-publish rollback: bad weights were briefly live (500).
             return json_response(body, status=500 if e.rolled_back else 409)
         except Exception as e:  # noqa: BLE001
             log.exception("reload of %s failed", name)
+            audit("error", error=str(e))
             return _err(500, f"reload failed: {e}")
+        audit("ok", version=info.get("version"))
         return json_response(info)
 
-    def healthz(self) -> Response:
+    def healthz(self, req: Request) -> Response:
         if self.draining:
             return json_response({"status": "draining", "models": self.canary_ok},
                                  status=503)
@@ -551,22 +674,22 @@ class ServerState:
         return json_response({"status": "ok" if ok else "degraded",
                               "models": self.canary_ok}, status=200 if ok else 503)
 
-    def metrics_text(self) -> Response:
+    def metrics_text(self, req: Request) -> Response:
         return Response(200, self.metrics.render_prometheus().encode("utf-8"),
-                        content_type=PROMETHEUS_CONTENT_TYPE)
+                        content_type=exposition_content_type(req.headers.get("accept")))
 
-    def models_json(self) -> Response:
+    def models_json(self, req: Request) -> Response:
         return json_response({n: rt.describe() for n, rt in self.runtimes.items()})
 
     def kernel_counts(self) -> dict:
         return {"flash_attention": {"launches": fa.launches},
                 "flash_attention_stats": {"launches": fa.stats_launches}}
 
-    def reset_kernel_counts(self) -> Response:
+    def reset_kernel_counts(self, req: Request) -> Response:
         fa.reset_launches()
         return json_response({"kernels": self.kernel_counts()})
 
-    def stats(self) -> Response:
+    def stats(self, req: Request) -> Response:
         out = self.metrics.summary()
         out["backend"] = backend_info(self.device)
         out["kernels"] = self.kernel_counts()
@@ -576,6 +699,24 @@ class ServerState:
         }
         if self.injector is not None:
             out["robustness"]["faults"] = self.injector.snapshot()
+        # Flight-recorder occupancy (the trees are at /debug/slow and
+        # /debug/trace?trace_id=).
+        out["trace"] = self.recorder.stats()
+        if self.events is not None:
+            out["events"] = {**self.events.stats(), "audit": self.audit.stats(),
+                             "postmortems": self.postmortems.stats()}
+        if self.store is not None:
+            out["telemetry"] = {**self.store.stats(),
+                                "sample_interval_s": self.cfg.telemetry.sample_interval_s,
+                                "profile": self.profiler.stats()}
+        if self.util is not None:
+            util = self.util.stats()
+            if util:
+                out["utilization"] = util
+        if self.slo is not None:
+            alerts = self.slo.alerts()
+            if alerts["models"]:
+                out["slo"] = alerts
         out["lifecycle"] = {n: lc.describe() for n, lc in self.lifecycles.items()}
         out["ingest"] = {
             "loops": {str(i): {"requests": ih.requests.value, "bytes": ih.bytes.value}
@@ -592,8 +733,141 @@ class ServerState:
             out["cache"] = {n: c.stats() for n, c in self.caches.items()}
         return json_response(out)
 
+    # -- observability routes -------------------------------------------------
+    def debug_trace(self, req: Request) -> Response:
+        """The span ring as Chrome JSON (``?limit=``, default 5000;
+        ``?since_us=``), or with ``?trace_id=`` one recorded request's span
+        tree, its events interleaved (``&format=record``: the raw record
+        with an ``events`` key)."""
+        trace_id = req.query.get("trace_id")
+        if trace_id:
+            rec = self.recorder.get(trace_id)
+            if rec is None:
+                return _err(404, f"trace {trace_id!r} is not in the flight "
+                                 "recorder (evicted or never retained)")
+            events = (self.events.query(trace_id=trace_id, limit=200)
+                      if self.events is not None else [])
+            if req.query.get("format") == "record":
+                return json_response(dict(rec, events=events))
+            return Response(200, spans_to_chrome(rec["spans"], events=events).encode())
+        try:
+            limit = int(req.query.get("limit", "5000"))
+            since_us = float(req.query["since_us"]) if "since_us" in req.query else None
+        except ValueError as e:
+            return _err(400, f"limit/since_us must be numbers: {e}")
+        if limit < 0:
+            return _err(400, f"limit must be >= 0, got {limit}")
+        return Response(200, self.metrics.tracer.chrome_trace(
+            limit=limit, since_us=since_us).encode())
+
+    def debug_slow(self, req: Request) -> Response:
+        return json_response(self.recorder.dump(model=req.query.get("model")))
+
+    def debug_events(self, req: Request) -> Response:
+        if self.events is None:
+            return _err(409, "[events] is disabled; no events are recorded")
+        try:
+            q = events_mod.parse_events_query(req.query)
+        except ValueError as e:
+            return _err(400, str(e))
+        return json_response({"events": self.events.query(**q), **self.events.stats()})
+
+    def debug_audit(self, req: Request) -> Response:
+        if self.audit is None:
+            return _err(409, "[events] is disabled; no audit trail is kept")
+        return json_response({"audit": self.audit.dump(), **self.audit.stats()})
+
+    def debug_postmortems(self, req: Request) -> Response:
+        if self.postmortems is None:
+            return _err(409, "[events] is disabled; no postmortems are kept")
+        return json_response({"postmortems": self.postmortems.dump(),
+                              **self.postmortems.stats()})
+
+    def stats_history(self, req: Request) -> Response:
+        """Metric history from the telemetry rings: without ``?metric=`` the
+        recorded series' names; with it (a full labelled name or a base
+        name) each matching series, over ``?window_s=``."""
+        if self.store is None:
+            return _err(409, "[telemetry] is disabled; no history is recorded")
+        metric = req.query.get("metric")
+        if not metric:
+            return json_response({"metrics": self.store.metric_names(),
+                                  **self.store.stats()})
+        try:
+            window_s = float(req.query["window_s"]) if "window_s" in req.query else None
+            if window_s is not None and window_s <= 0:
+                raise ValueError(window_s)
+        except (TypeError, ValueError):
+            return _err(400, "window_s must be a positive number")
+        names = self.store.match(metric)
+        if not names:
+            return _err(404, f"no recorded series matches {metric!r} "
+                             "(GET /stats/history lists the inventory)")
+        series = [self.store.history(n, window_s) for n in names]
+        return json_response({"series": [x for x in series if x is not None]})
+
+    def alerts(self, req: Request) -> Response:
+        if self.slo is None:
+            return _err(409, "[telemetry] is disabled; no SLO evaluation runs")
+        return json_response(self.slo.alerts())
+
+    async def debug_profile(self, req: Request) -> Response:
+        """Arm a device trace for ``?duration_ms=`` (default 500) and answer
+        one merged Chrome trace: device lanes (pids >= 1000) beside the span
+        ring's events of the same window. 409 while a capture is armed."""
+        if self.profiler is None:
+            return _err(409, "[telemetry] is disabled; profiling is not armed")
+        try:
+            duration_ms = float(req.query.get("duration_ms", "500"))
+        except (TypeError, ValueError):
+            return _err(400, "duration_ms must be a number")
+        cap = self.cfg.telemetry.profile_max_ms
+        if not 1.0 <= duration_ms <= cap:
+            return _err(400, f"duration_ms must be in [1, {cap:g}], got {duration_ms:g}")
+        t0 = time.perf_counter()
+        try:
+            merged = await self.profiler.capture(duration_ms)
+        except CaptureBusy:
+            if self.audit is not None:
+                self.audit.record("profile", "server", "busy", requested_ms=duration_ms)
+            return _err(409, "a profile capture is already armed "
+                             "(the profiler is one-at-a-time)")
+        if self.audit is not None:
+            self.audit.record("profile", "server", "ok",
+                              duration_ms=(time.perf_counter() - t0) * 1e3,
+                              requested_ms=duration_ms)
+        return json_response(merged)
+
+    # -- predict -------------------------------------------------------------
     async def predict(self, req: Request, name: str, ingest: IngestHandles) -> Response:
-        trace_id = os.urandom(16).hex()
+        """Adopt (or mint) the request's trace context, serve it, then stamp
+        ``X-Trace-Id`` on the response, record the root span and offer the
+        finished trace to the flight recorder; errored and retained-slow
+        requests leave an event carrying the trace id."""
+        ctx = TraceContext.from_headers(req.headers)
+        wall0 = time.time()
+        t0 = time.perf_counter()
+        resp = await self._predict_traced(req, name, ingest, ctx)
+        dur_s = time.perf_counter() - t0
+        ctx.root_span("request", wall0, wall0 + dur_s, tid=name, status=resp.status)
+        resp.headers.setdefault("X-Trace-Id", ctx.trace_id)
+        kinds = self.recorder.finish(ctx, name, resp.status, dur_s * 1e3)
+        if self.events is not None:
+            if resp.status >= 400:
+                self.events.emit(
+                    "error" if resp.status >= 500 else "warning", "http",
+                    "request_error", model=name, trace_id=ctx.trace_id,
+                    status=resp.status, duration_ms=round(dur_s * 1e3, 3))
+            elif "slow" in kinds:
+                self.events.emit(
+                    "info", "http", "slow_request", model=name,
+                    trace_id=ctx.trace_id, status=resp.status,
+                    duration_ms=round(dur_s * 1e3, 3))
+        return resp
+
+    async def _predict_traced(self, req: Request, name: str, ingest: IngestHandles,
+                              ctx: TraceContext) -> Response:
+        trace_id = ctx.trace_id
         model = self.models.get(name)
         if model is None:
             return _err(404, f"unknown model {name!r}", trace_id=trace_id)
@@ -611,8 +885,11 @@ class ServerState:
         h = self.handles[name]
         h.requests.inc()
         t_start = time.perf_counter()
+        w_read = time.time()
         body = await req.read()
-        h.body_read_hist.observe(req.read_s * 1e3)
+        h.body_read_hist.observe(req.read_s * 1e3, trace_id=trace_id)
+        ctx.span("body_read", w_read, w_read + req.read_s, tid=name,
+                 loop=ingest.index, bytes=len(body))
         ingest.requests.inc()
         ingest.bytes.inc(len(body))
         ctype = req.content_type
@@ -627,6 +904,7 @@ class ServerState:
             if self.injector is not None:
                 self.injector.check("decode_corrupt", name)
             t_parse = time.perf_counter()
+            w_parse = time.time()
             if self.cfg.decode_inline:
                 items, batched = model.host_decode_items(body, ctype)
             else:
@@ -634,7 +912,9 @@ class ServerState:
                     self.pool, model.host_decode_items, body, ctype)
             if not items:
                 raise ValueError("empty batch")
-            h.parse_hist.observe((time.perf_counter() - t_parse) * 1e3)
+            parse_s = time.perf_counter() - t_parse
+            h.parse_hist.observe(parse_s * 1e3, trace_id=trace_id)
+            ctx.span("parse", w_parse, w_parse + parse_s, tid=name, items=len(items))
         except FrameError as e:
             h.frame_errors.inc()
             h.bad_requests.inc()
@@ -643,9 +923,11 @@ class ServerState:
             h.bad_requests.inc()
             return _err(400, f"could not decode request: {e}", trace_id=trace_id)
 
+        w_dispatch = time.time()
+        t_dispatch = time.perf_counter()
         try:
             results, hit_entry = await _on_main(self, lambda: self._submit_and_gather(
-                name, model, items, deadline_at, timeout_ms))
+                name, model, items, deadline_at, timeout_ms, ctx))
         except QueueFull:
             return _err(429, "queue full, retry later",
                         retry_after=self.queue_retry_after(name), trace_id=trace_id)
@@ -659,7 +941,13 @@ class ServerState:
                         trace_id=trace_id)
         except Exception as e:
             return _err(500, f"inference failed: {e}", trace_id=trace_id)
-        h.total_hist.observe((time.perf_counter() - t_start) * 1e3)
+        finally:
+            # The hop onto the main loop plus everything it ran (cache,
+            # single-flight, batcher): the batcher's spans are its children
+            # in time.
+            ctx.span("dispatch", w_dispatch,
+                     w_dispatch + (time.perf_counter() - t_dispatch), tid=name)
+        h.total_hist.observe((time.perf_counter() - t_start) * 1e3, trace_id=trace_id)
         headers = {"X-Trace-Id": trace_id}
         if batched:
             return json_response({"results": results}, headers=headers)
@@ -670,8 +958,8 @@ class ServerState:
         return json_response(results[0], headers=headers)
 
     async def _submit_and_gather(self, name: str, model, items: list,
-                                 deadline_at: float,
-                                 timeout_ms: float | None) -> tuple[list, object]:
+                                 deadline_at: float, timeout_ms: float | None,
+                                 ctx: TraceContext | None = None) -> tuple[list, object]:
         """Cache lookup and single-flight, batcher submission and the
         deadline-bounded gather of one decoded request: everything that must
         run on the main loop. Returns (results, the last hit entry or None).
@@ -692,12 +980,16 @@ class ServerState:
                     if entry is not None:
                         results[i] = entry.value
                         hit_entry = entry
+                        if ctx is not None:
+                            now = time.time()
+                            ctx.span("cache_hit", now, now, tid=name)
                         continue
                     fut = cache.submit_through(key, lambda it=item: batcher.submit(
-                        it, group=model.group_key(it), deadline_at=deadline_at))
+                        it, group=model.group_key(it), deadline_at=deadline_at,
+                        ctx=ctx), ctx=ctx)
                 else:
                     fut = batcher.submit(item, group=model.group_key(item),
-                                         deadline_at=deadline_at)
+                                         deadline_at=deadline_at, ctx=ctx)
                 futs.append(fut)
                 slots.append(i)
         except QueueFull:
