@@ -172,14 +172,47 @@ Phases (any failure exits non-zero before the result line):
    (8,), the depthwise convolutions' device time against the rest, one
    profiled eager window by kind; ``graph_phase`` holds every bucket's
    replay bit-identical to the eager forward.
-14. Print a ``slice`` line per path, the ``graphs`` line (phase 6-8's and
-   13's graph checks and host times), the ``lifecycle`` line, the
-   ``robustness`` line (with phase 8's and 13's first-request tables), the
-   ``observability`` and ``defaults_cost`` lines, and the ``kernels`` line
-   (K1 and K2, each with its launches on its path, counted through graph
-   replays; the vision paths run neither), the card line, then the result
-   line ``{"ok": true, "device": {...}}``. Every phase's JSON line from 11
-   on carries the card's name and power limit.
+14. EfficientDet-D0 (``efficientdet_phase``): serve
+   ``examples/efficientdet.toml`` (full width, bf16, 512 px, yuv420 wire,
+   batch buckets [4, 8]); with the counts at 0 framed bodies of 1, 4, 5 and
+   8 items to ``:detect``, a malformed frame (400) and an unknown model
+   (404): K1 and K2 0 launches, batches 4, items 18, compiles 0, captures 6
+   before and after; each bucket's first request within its repeats' range
+   + 5 ms per stage (when a stage misses, all of it again on a second fresh
+   server; a stage over the bar on both fails). In-process: the served detections equal the same
+   seeded model's; each bucket's replay bit-identical to its eager forward
+   on boxes, scores, classes and n; the bf16 heads against the float32
+   network (TF32 off) on the 8-item batch within ``RESNET_LOGIT_REL`` of
+   each output's scale, detections equal where the float32 scores
+   separate (the seeded D0 scores every anchor near its 0.01 prior, below
+   the 0.05 threshold, so both keep none); the detection tail alone on
+   seeded logits whose scores spread (100 kept per image) on the card
+   against the CPU and the CPU's against a naive greedy NMS; then per
+   bucket the replay's device time and the eager stream and enqueue, the
+   network alone and the tail alone at (8,), one profiled eager window.
+15. int8 compute (``int8c_phase``): ``quantize.int8_matmul`` on the card
+   against its plain version at BERT's FFN shape (32 x 128 rows), a
+   ResNet-50 (32,) 1x1 convolution and 5 rows (padded to ``_int_mm``'s 17):
+   int32 products equal, outputs within one bf16 unit; serve
+   ``examples/bert_flash.toml`` and ``examples/resnet50.toml`` with
+   ``--set model.<name>.quantize=int8c``: the served answers equal an
+   in-process int8c run (72 and 36 int8-native weights), K1 12 launches
+   per BERT batch, none on ResNet-50, compiles 0; phase 9's lifecycle drill
+   on int8c BERT-flash (reload, rollback, both rejections, no new capture);
+   int8c logits against the
+   weight-only int8 network on the same weights and batch within
+   ``INT8C_LOGIT_REL`` of their scale, separated top-5 ranks equal; the
+   replay device time of bf16, int8 and int8c at BERT (32, 128) and
+   ResNet-50 (32,), printed, nothing gated on speed.
+16. Print a ``slice`` line per path, the ``graphs`` line (phase 6-8's,
+   13's and 14's graph checks and host times), the ``lifecycle`` line, the
+   ``robustness`` line (with phase 8's, 13's and 14's first-request
+   tables), the ``observability`` and ``defaults_cost`` lines, and the
+   ``kernels`` line (K1 and K2, each with its launches on its path,
+   counted through graph replays, K1's on the int8c path beside; the vision
+   paths run neither), the card line, then the result line ``{"ok": true,
+   "device": {...}}``. Every phase's JSON line from 11 on carries the
+   card's name and power limit.
 """
 
 from __future__ import annotations
@@ -1436,12 +1469,14 @@ def stage_delta(before: dict, after: dict) -> dict:
 FIRST_STAGE_SLACK_MS = 5.0
 
 
-def first_request_table(first: dict, repeats: dict, name: str = "resnet50") -> dict:
+def first_request_table(first: dict, repeats: dict, name: str = "resnet50",
+                        gate: bool = True) -> dict:
     """Per request: the first one's stages beside its repeats' ranges. The
     bar for the first-request fault: each stage of the first request but
     the queue (the adaptive flush's target moves between a first request
     and its repeats, so their waits differ by policy) within its repeats'
-    range plus FIRST_STAGE_SLACK_MS."""
+    range plus FIRST_STAGE_SLACK_MS; held here unless ``gate`` is False
+    (the caller holds ``first_request_misses`` of the table itself)."""
     table = {}
     for label, rows in repeats.items():
         rng = {p: [min(r[p] for r in rows), max(r[p] for r in rows)] for p in rows[0]}
@@ -1453,6 +1488,8 @@ def first_request_table(first: dict, repeats: dict, name: str = "resnet50") -> d
           f"{ {k: (v['first']['service'], v['repeats_range']['service']) for k, v in table.items()} }",
           flush=True)
     print(json.dumps({"first_request_stages": {name: table}}), flush=True)
+    if not gate:
+        return table
     for label, row in table.items():
         worst = max(row["first_over_repeats_max_ms"].items(), key=lambda kv: kv[1])
         check(worst[1] <= FIRST_STAGE_SLACK_MS,
@@ -1460,6 +1497,14 @@ def first_request_table(first: dict, repeats: dict, name: str = "resnet50") -> d
               f"its repeats' range (bar {FIRST_STAGE_SLACK_MS} ms); stages {row['first']}, "
               f"repeats {row['repeats_range']}")
     return table
+
+
+def first_request_misses(table: dict) -> dict:
+    """The (request, stage) pairs of a ``first_request_table`` over the bar,
+    with their excess in ms."""
+    return {f"{label}.{stage}": ms for label, row in table.items()
+            for stage, ms in row["first_over_repeats_max_ms"].items()
+            if ms > FIRST_STAGE_SLACK_MS}
 
 
 def resnet_operations(model, module) -> int:
@@ -1615,8 +1660,9 @@ def resnet_phase() -> dict:
 
 # -- phase 9: the versioned lifecycle over HTTP ------------------------------------
 
-def lifecycle_drill(config: Path, name: str, n_buckets: int, body: bytes, ctype: str) -> dict:
-    """Serve ``config`` with model ``name``'s weights read from a seed-1
+def lifecycle_drill(config: Path, name: str, n_buckets: int, body: bytes, ctype: str,
+                    overrides: tuple = ()) -> dict:
+    """Serve ``config`` (plus ``--set overrides``) with model ``name``'s weights read from a seed-1
     checkpoint (``save_npz`` of the port's own seeded init, in a temporary
     directory) and drive its lifecycle over HTTP with one fixed request:
     ``:reload`` of a seed-2 checkpoint gives version 2 and other answers;
@@ -1643,7 +1689,8 @@ def lifecycle_drill(config: Path, name: str, n_buckets: int, body: bytes, ctype:
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = str(Path(tmp) / f"{name}.npz")
         savedmodel.save_npz(ckpt, trees[1])
-        with serving(config, n_buckets, overrides=(f"model.{name}.weights={ckpt}",)) as port:
+        with serving(config, n_buckets,
+                     overrides=(f"model.{name}.weights={ckpt}", *overrides)) as port:
             def answer():
                 st, raw = call(port, "POST", f"/v1/models/{name}:classify", raw=body, ctype=ctype)
                 check(st == 200, f"lifecycle {name}: request answered {st} {raw[:200]!r}")
@@ -1959,6 +2006,13 @@ async def _robust_async(state, port: int) -> dict:
     while restarts.value < 1 and time.perf_counter() - t0 < 10:
         await asyncio.sleep(0.1)
     b_adaptive.injector = state.injector
+    # The periodic canary rides this batcher: one that fires as the loop
+    # revives (the canary's and the watchdog's ticks align) folds the next
+    # text into its batch, another bucket than its lone baseline's. Post on
+    # an idle batcher, between two canaries, as the breaker drill does.
+    while not (await b_adaptive.drain(loop.time() + 5) and state._next_canary_at is not None
+               and state._next_canary_at - time.monotonic() > 0.5):
+        await asyncio.sleep(0.05)
     st2, body, _ = await post({"text": TEXTS_32[1]})
     out["watchdog"] = {"restarts": restarts.value, "statuses": [st, st2]}
     print(f"robustness: watchdog restarts {restarts.value:g} after kill_group_loop; "
@@ -2654,6 +2708,531 @@ def mobilenet_phase(card: str) -> dict:
     return run
 
 
+# -- phase 14: EfficientDet-D0 --------------------------------------------------
+
+DET_CONFIG = ROOT / "examples" / "efficientdet.toml"
+DET_BUCKETS = ("[4]", "[8]")
+DET_SIZES = (1, 4, 5, 8)
+# bf16 heads against the float32 network (TF32 off) on the same batch: atol
+# as a share of each float32 output's largest magnitude, as for the
+# classifiers (RESNET_LOGIT_REL). Detections are held equal where the
+# float32 scores of the kept slots separate by more than twice the largest
+# score difference the two networks show on that batch; boxes within
+# DET_BOX_TOL (normalized corners).
+DET_BOX_TOL = 1e-2
+# The tail on seeded logits, card against the CPU: float32 on both, sums of
+# the same few terms in another order (the IoU, the decode's exp).
+DET_TAIL_TOL = 1e-5
+
+
+def det_requests() -> list:
+    """Framed yuv420 bodies of 1, 4, 5 and 8 seeded items at 512 px."""
+    import numpy as np
+
+    from tpuserve_torch import frame, preproc
+
+    rng = np.random.default_rng(31)
+    out = []
+    for n in DET_SIZES:
+        items = [preproc.rgb_to_yuv420(a)
+                 for a in rng.integers(0, 256, (n, 512, 512, 3), dtype=np.uint8)]
+        out.append(("efficientdet", f"frame{n}", frame.encode_frame(items, frame.KIND_YUV420, 512),
+                    frame.CONTENT_TYPE, items))
+    return out
+
+
+def drive_det(port: int, requests: list) -> dict:
+    """The EfficientDet path's run: counts to 0, the four bodies to
+    ``:detect`` (first request of each bucket, stage by stage), a malformed
+    frame (400) and an unknown model (404), counts read back (K1 and K2: 0;
+    batches 4, items 18, compiles 0, captures unchanged); the repeats."""
+    from tpuserve_torch import frame
+
+    name = "efficientdet"
+    graphs0 = served_graphs(port)[name]
+    check(call(port, "POST", "/debug/kernels:reset")[0] == 200, "kernel count reset refused")
+    before = call(port, "GET", "/metrics")[1].decode()
+    arena = json.loads(call(port, "GET", "/stats")[1])["pipeline"]["models"][name]["arena"]
+    check(set(arena["buckets"]) == set(DET_BUCKETS) and all(
+          b["pooled"] == arena["slots_per_bucket"] for b in arena["buckets"].values()),
+          f"{name}: the arena did not make every bucket's buffers at start: {arena}")
+    answers, first, walls = {}, {}, {}
+    repeats = {label: [] for _, label, _, _, _ in requests}
+    for _, label, body, ctype, items in requests:
+        s0 = stage_totals(port, name)
+        t0 = time.perf_counter()
+        st, raw = call(port, "POST", f"/v1/models/{name}:detect", raw=body, ctype=ctype)
+        walls[label] = (time.perf_counter() - t0) * 1e3
+        first[label] = stage_delta(s0, stage_totals(port, name))
+        check(st == 200, f"{name} {label}: {st} {raw[:300]!r}")
+        res = json.loads(raw)
+        results = res["results"] if "results" in res else [res]
+        check(len(results) == len(items) and all(
+              set(r) == {"detections", "num_detections"}
+              and r["num_detections"] == len(r["detections"]) for r in results),
+              f"{name} {label}: {len(results)} results for {len(items)} items: {results[:2]}")
+        answers[label] = results
+    ingest0 = json.loads(call(port, "GET", "/stats")[1])["ingest"]
+    st, raw = call(port, "POST", f"/v1/models/{name}:detect", raw=b"TPUF\x01\x00",
+                   ctype=frame.CONTENT_TYPE)
+    check(st == 400 and json.loads(raw)["error"].startswith("frame:"),
+          f"malformed frame answered {st} {raw[:200]!r}, expected 400 frame: ...")
+    st, _ = call(port, "POST", "/v1/models/nope:detect", raw=requests[0][2],
+                 ctype=frame.CONTENT_TYPE)
+    check(st == 404, f"unknown model answered {st}, expected 404")
+    stats = json.loads(call(port, "GET", "/stats")[1])
+    after = call(port, "GET", "/metrics")[1].decode()
+    counts = (stats["kernels"]["flash_attention"]["launches"],
+              stats["kernels"]["flash_attention_stats"]["launches"])
+    frame_errors = (stats["ingest"]["frame_errors_total"][name]
+                    - ingest0["frame_errors_total"][name])
+    delta = {n: metric(after, f'{n}{{model="{name}"}}') - metric(before, f'{n}{{model="{name}"}}')
+             for n in ("batches_total", "items_total", "runtime_compiles_total")}
+    graphs1 = served_graphs(port)[name]
+    print(f"slice (efficientdet): 4 requests ({sum(DET_SIZES)} images) answered; K1, K2 "
+          f"launches {counts}; {delta}; frame errors +{frame_errors:g}; captures "
+          f"{graphs0['captures_total']} -> {graphs1['captures_total']}; request walls "
+          f"{ {k: round(v, 1) for k, v in walls.items()} } ms", flush=True)
+    check(counts == (0, 0), f"K1, K2 launched {counts} times on the EfficientDet path")
+    check(frame_errors == 1, f"frame_errors_total moved by {frame_errors:g}, expected 1")
+    check((delta["batches_total"], delta["items_total"], delta["runtime_compiles_total"])
+          == (4, sum(DET_SIZES), 0), f"{name}: batches/items/compiles moved by {delta}")
+    check(graphs1["captures_total"] == graphs0["captures_total"] == 6,
+          f"{name}: captures {graphs0['captures_total']} -> {graphs1['captures_total']}, "
+          "expected 6 (2 buckets x 3 slots) throughout")
+    for _ in range(REPEATS):
+        for _, label, body, ctype, _ in requests:
+            s0 = stage_totals(port, name)
+            st, _ = call(port, "POST", f"/v1/models/{name}:detect", raw=body, ctype=ctype)
+            repeats[label].append(stage_delta(s0, stage_totals(port, name)))
+            check(st == 200, f"repeat of {name} {label} answered {st}")
+    first_request = first_request_table(first, repeats, name, gate=False)
+    lat = json.loads(call(port, "GET", "/stats")[1])["latency"]
+    return {"answers": answers, "first_request": first_request, "launches_k1_k2": list(counts),
+            "deltas": delta, "walls_ms": walls,
+            "phase_p50_ms": {p: lat[f"latency_ms{{model={name},phase={p}}}"]["p50_ms"]
+                             for p in STAGES}}
+
+
+def det_equal_where_separated(got: dict, ref: dict, score_tol: float, box_tol: float,
+                              label: str) -> int:
+    """Detections ``got`` equal ``ref`` (numpy outputs of the tail) in
+    classes and boxes (within ``box_tol``) over every slot up to the first
+    pair of kept reference scores closer than ``score_tol``, and in count
+    and every class where no such pair exists. Returns the slots held."""
+    import numpy as np
+
+    held = 0
+    for r in range(ref["n"].shape[0]):
+        n = int(ref["n"][r])
+        gaps = np.abs(np.diff(ref["scores"][r][:n]))
+        close = np.nonzero(gaps <= score_tol)[0]
+        m = int(close[0]) + 1 if len(close) else n
+        check(np.array_equal(got["classes"][r][:m], ref["classes"][r][:m]),
+              f"{label}: classes differ in the first {m} slots of row {r}")
+        check(bool(np.all(np.abs(got["boxes"][r][:m] - ref["boxes"][r][:m]) <= box_tol)),
+              f"{label}: boxes differ by more than {box_tol} in the first {m} slots of row {r}")
+        if m == n:
+            check(int(got["n"][r]) == n, f"{label}: count {int(got['n'][r])} != {n}, row {r}")
+            check(np.array_equal(got["classes"][r], ref["classes"][r]),
+                  f"{label}: classes differ in row {r}")
+        held += m
+    return held
+
+
+def naive_nms(boxes, scores, classes, max_dets: int, iou_t: float, score_t: float) -> list:
+    """Greedy per-class NMS in plain numpy (the reference test's semantic
+    yardstick): kept candidate indices in score order."""
+    import numpy as np
+
+    def iou(a, b):
+        inter = (max(min(a[2], b[2]) - max(a[0], b[0]), 0)
+                 * max(min(a[3], b[3]) - max(a[1], b[1]), 0))
+        u = (max(a[2] - a[0], 0) * max(a[3] - a[1], 0)
+             + max(b[2] - b[0], 0) * max(b[3] - b[1], 0) - inter)
+        return inter / u if u > 0 else 0.0
+
+    kept = []
+    for i in np.argsort(-scores, kind="stable"):
+        if scores[i] <= score_t or len(kept) == max_dets:
+            break
+        if not any(classes[i] == classes[j] and iou(boxes[i], boxes[j]) > iou_t for j in kept):
+            kept.append(int(i))
+    return kept
+
+
+def det_tail_check(model, bucket: tuple) -> dict:
+    """The detection tail alone on seeded logits whose scores spread over
+    the threshold (class logits N(-2, 1.5), box regression N(0, 0.5)): on
+    the card against the same tail on the CPU (count and classes equal,
+    boxes within DET_TAIL_TOL where the kept scores separate by more than
+    that), and the CPU's against the naive greedy NMS in numpy on the same
+    top ``pre_nms`` candidates."""
+    import numpy as np
+    import torch
+
+    from tpuserve_torch.models import efficientdet as det
+
+    rng = np.random.default_rng(41)
+    a = model.anchors.shape[0]
+    cls = rng.normal(-2.0, 1.5, (bucket[0], a, model.det_classes)).astype(np.float32)
+    box = rng.normal(0.0, 0.5, (bucket[0], a, 4)).astype(np.float32)
+    with torch.inference_mode():
+        gpu = {k: v.cpu().numpy() for k, v in
+               model.detect(torch.from_numpy(cls).cuda(), torch.from_numpy(box).cuda()).items()}
+        cpu = {k: v.numpy() for k, v in
+               model.detect(torch.from_numpy(cls), torch.from_numpy(box)).items()}
+    held = det_equal_where_separated(gpu, cpu, DET_TAIL_TOL, DET_TAIL_TOL, "tail, card vs CPU")
+    # The naive NMS over the CPU tail's candidates: the top pre_nms anchors by
+    # the best class's float32 score (a stable sort), decoded.
+    probs = torch.sigmoid(torch.from_numpy(cls))
+    best, best_cls = probs.amax(-1), probs.argmax(-1)
+    top = torch.sort(best, dim=-1, descending=True, stable=True).indices[:, : model.pre_nms]
+    naive_rows = 0
+    for r in range(bucket[0]):
+        t = top[r]
+        boxes = det.decode_boxes(torch.from_numpy(box[r])[t], torch.from_numpy(model.anchors)[t],
+                                 model.cfg.image_size).numpy()
+        scores, classes = best[r][t].numpy(), best_cls[r][t].numpy()
+        kept = naive_nms(boxes, scores, classes, model.max_dets, model.iou_thresh,
+                         model.score_thresh)
+        n = int(cpu["n"][r])
+        check(n == len(kept) and np.array_equal(cpu["classes"][r][:n], classes[kept])
+              and np.allclose(cpu["boxes"][r][:n], boxes[kept], rtol=0, atol=1e-6),
+              f"the tail vs naive NMS: row {r}: {n} vs {len(kept)} kept")
+        naive_rows += 1
+    out = {"slots_held_card_vs_cpu": held, "rows_held_vs_naive": naive_rows,
+           "kept_per_row": gpu["n"].tolist()}
+    print(f"slice (efficientdet): the tail on seeded logits: card == CPU over {held} slots, "
+          f"CPU == naive NMS on {naive_rows} rows; kept per row {out['kept_per_row']}", flush=True)
+    return out
+
+
+def det_model_check(mcfg, requests: list, answers: dict) -> dict:
+    """EfficientDet in-process: served detections equal the same seeded
+    model's on the same assembled batches; every bucket's replay
+    bit-identical to its eager forward on all four outputs; bf16 heads
+    against the float32 network (TF32 off) on the same batch, detections
+    equal where the float32 scores separate; the tail alone on seeded
+    logits (``det_tail_check``); per bucket the replay's device time and the
+    eager stream and enqueue; the network alone and the tail alone at
+    (8,); capture memory."""
+    import dataclasses
+
+    import torch
+
+    from tpuserve_torch.models import build
+    from tpuserve_torch.runtime import build_runtime
+
+    model = build(mcfg)
+    rt = build_runtime(model, device="cuda")
+    for _, label, _, _, items in requests:
+        bucket = model.bucket_for(len(items))
+        ref = model.host_postprocess(rt.fetch(rt.run(bucket, model.assemble(items, bucket))),
+                                     len(items))
+        check(answers[label] == ref, f"efficientdet {label}: served detections != in-process "
+                                     f"{answers[label][:1]} vs {ref[:1]}")
+    # Each bucket's replay against the eager forward of the live slot.
+    graphs = {}
+    for b in model.buckets():
+        dev = rt.h2d(b, seeded_batch(model, b, seed=b[0]))
+        replay = rt.dispatch(b, dev)
+        with torch.inference_mode():
+            eager = model.forward(rt.module, dev)
+        torch.cuda.synchronize()
+        same = {k: torch.equal(replay[k], eager[k]) for k in ("boxes", "scores", "classes", "n")}
+        check(all(same.values()), f"efficientdet {b}: replay vs eager outputs differ: {same}")
+        graphs[str(b[0])] = {"bit_identical": True, "outputs": sorted(same)}
+    # bf16 against float32 with TF32 off, on the 8-item batch.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, label, _, _, items = requests[-1]
+    bucket = model.bucket_for(len(items))
+    twin = build(dataclasses.replace(mcfg, dtype="float32"))
+    module32 = twin.build_module()
+    module32.load_state_dict({k: v.float() for k, v in rt.module.state_dict().items()})
+    module32.eval().requires_grad_(False).to(memory_format=torch.channels_last).to(rt.device)
+    with torch.inference_mode():
+        dev = rt.h2d(bucket, model.assemble(items, bucket))
+        cls16, box16 = model.logits(rt.module, dev)
+        cls32, box32 = twin.logits(module32, dev)
+        det16 = {k: v.cpu().numpy() for k, v in model.detect(cls16, box16).items()}
+        det32 = {k: v.cpu().numpy() for k, v in twin.detect(cls32, box32).items()}
+        s16, s32 = torch.sigmoid(cls16).amax(-1), torch.sigmoid(cls32).amax(-1)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, b in (("class_logits", cls16, cls32), ("box_regression", box16, box32)):
+        check(bool(torch.isfinite(a).all()) and a.dtype == torch.float32
+              and a.shape[:2] == (bucket[0], model.anchors.shape[0]),
+              f"efficientdet {name}: {tuple(a.shape)} {a.dtype} not finite")
+        err = (a - b).abs().max().item()
+        tol = RESNET_LOGIT_REL * b.abs().max().item()
+        check(err <= tol, f"efficientdet: bf16 vs float32 {name} differ by {err:.4g} > {tol:.4g}")
+        errs[name] = {"max_abs_diff": err, "tol": tol, "scale": b.abs().max().item()}
+    score_err = (s16 - s32).abs().max().item()
+    held = det_equal_where_separated(det16, det32, 2 * score_err, DET_BOX_TOL, "bf16 vs f32")
+    errs["detections"] = {"max_abs_score_diff": score_err, "slots_held": held,
+                          "kept_f32": det32["n"].tolist(), "kept_bf16": det16["n"].tolist(),
+                          "max_score_f32": s32.max().item()}
+    tail = det_tail_check(model, (8,))
+    # Times per bucket, inputs resident.
+    replay, forward = {}, {}
+    for b in model.buckets():
+        dev_b = rt.h2d(b, seeded_batch(model, b, seed=7))
+        replay[str(b[0])] = replay_timing(rt, b, dev_b)
+        forward[str(b[0])] = forward_timing(rt, model, b)
+    dev8 = rt.h2d((8,), seeded_batch(model, (8,), seed=8))
+    with torch.inference_mode():
+        heads = model.logits(rt.module, dev8)
+        network_ms = graph_ms(lambda: model.logits(rt.module, dev8))
+        tail_ms = graph_ms(lambda: model.detect(*heads))
+        breakdown = device_breakdown(lambda: model.forward(rt.module, dev8))
+    out = {"graphs": graphs, "bf16_vs_f32": errs, "tail_on_seeded_logits": tail,
+           "replay_device_ms": replay, "eager_forward": forward,
+           "network_device_ms_b8": network_ms, "tail_device_ms_b8": tail_ms,
+           "tail_share_of_forward_b8": tail_ms / (network_ms + tail_ms),
+           "device_breakdown_b8": breakdown, "capture_memory": dict(rt.capture_memory),
+           "captures_total": rt.captures_total}
+    print(f"slice (efficientdet): served detections equal the in-process run; every bucket's "
+          f"replay bit-identical to the eager forward on boxes, scores, classes and n; bf16 vs "
+          f"float32 (TF32 off): class logits {errs['class_logits']['max_abs_diff']:.4g} (tol "
+          f"{errs['class_logits']['tol']:.4g}), boxes {errs['box_regression']['max_abs_diff']:.4g} "
+          f"(tol {errs['box_regression']['tol']:.4g}), {held} detection slots held (kept "
+          f"{det32['n'].tolist()}; best float32 score {errs['detections']['max_score_f32']:.4g}); "
+          f"replay device ms per bucket { {k: round(v['replay_device_ms'], 4) for k, v in replay.items()} }; "
+          f"eager stream / enqueue ms { {k: (round(v['stream_ms'], 3), round(v['host_enqueue_ms'], 3)) for k, v in forward.items()} }; "
+          f"(8,): network {network_ms:.4f} ms, tail {tail_ms:.4f} ms; profiled eager (8,): busy "
+          f"{breakdown['total_ms']:.3f} of {breakdown['stream_ms']:.3f} ms, by kind "
+          f"{ {k: round(v, 3) for k, v in breakdown['ms_by_kind'].items()} }", flush=True)
+    del rt, module32
+    torch.cuda.empty_cache()
+    return out
+
+
+def efficientdet_phase(card: str) -> dict:
+    t0 = time.perf_counter()
+    from tpuserve_torch.config import load_config
+
+    requests = det_requests()
+    # The first-request bar on a fresh server, and, when a stage misses it,
+    # on a second fresh server: a first-request cost recurs on every fresh
+    # server and fails, a one-off stall of the host does not (a 2-3 MB body's
+    # read stalled 19 ms once in 8 fresh servers on the H100 machine).
+    misses = []
+    for _ in range(2):
+        with serving(DET_CONFIG, n_buckets=2) as port:
+            run = drive_det(port, requests)
+            run["served_graphs"] = served_graphs(port)["efficientdet"]
+        misses.append(first_request_misses(run["first_request"]))
+        if not misses[-1]:
+            break
+        print(f"slice (efficientdet): first requests over the bar: {misses[-1]}; "
+              "once more on a fresh server", flush=True)
+    recurring = sorted(set(misses[0]) & set(misses[-1])) if len(misses) == 2 else list(misses[0])
+    check(not recurring, f"efficientdet: the first request's {recurring} over its repeats' "
+                         f"range + {FIRST_STAGE_SLACK_MS} ms on two fresh servers: {misses}")
+    run["first_request_misses"] = misses
+    answers = run.pop("answers")
+    run["kept_per_served_item"] = {k: [r["num_detections"] for r in v] for k, v in answers.items()}
+    run["model"] = det_model_check(load_config(str(DET_CONFIG)).models[0], requests, answers)
+    run["card"] = card
+    run["phase_s"] = time.perf_counter() - t0
+    return run
+
+
+# -- phase 15: int8 compute (quantize = "int8c") -------------------------------------
+
+# int8c against weight-only int8 on the same weights and batch: the int8c
+# logits add the activations' per-row int8 rounding in every int8-native
+# product. atol as a share of the int8 logits' largest magnitude.
+INT8C_LOGIT_REL = 5e-2
+
+
+def int8_matmul_check() -> dict:
+    """``quantize.int8_matmul`` on the card against its plain version at the
+    int8c path's shapes (BERT's FFN at (32, 128) and a ResNet-50 (32,) 1x1
+    convolution, bf16, and 5 rows, under ``_int_mm``'s 17): the int32
+    products equal a float64 product of the same int8 values, the outputs
+    within one unit of bf16's last place of the plain epilogue's."""
+    import torch
+
+    from tpuserve_torch import quantize as qz
+
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for label, (m, k, n) in {"bert_mlp_up_32x128": (32 * 128, 768, 3072),
+                             "resnet_conv_b32": (32 * 56 * 56, 64, 256),
+                             "rows_5": (5, 768, 768)}.items():
+        x = torch.randn(m, k, device="cuda", generator=g).to(torch.bfloat16)
+        w = torch.randn(n, k, device="cuda", generator=g) * 0.05
+        q, scale = qz.quantize_leaf(w)
+        with torch.inference_mode():
+            xq, s_x = qz.quantize_activations(x)
+            y = qz.int_mm(xq, q.t())
+            plain = (xq.double() @ q.t().double()).to(torch.int32)
+            got = qz.int8_matmul(x, q.t(), scale, torch.bfloat16)
+            want = (plain.float() * s_x * scale.reshape(-1)).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        check(torch.equal(y, plain), f"int8_matmul {label}: int32 products differ from the plain")
+        ulp = torch.finfo(torch.bfloat16).eps * want.float().abs().clamp_min(
+            torch.finfo(torch.bfloat16).tiny)
+        err = (got.float() - want.float()).abs()
+        check(bool((err <= ulp).all()), f"int8_matmul {label}: outputs differ by more than one "
+                                        f"bf16 unit (max {err.max().item():.4g})")
+        with torch.inference_mode():
+            ms = time_ms(lambda: qz.int8_matmul(x, q.t(), scale, torch.bfloat16))
+            mm_ms = time_ms(lambda: qz.int_mm(xq, q.t()))
+            bf16_ms = time_ms(lambda: x @ w.to(torch.bfloat16).t())
+        out[label] = {"shape_mkn": [m, k, n], "int32_equal": True, "max_abs_err": err.max().item(),
+                      "int8_matmul_ms": ms, "int_mm_ms": mm_ms, "bf16_matmul_ms": bf16_ms}
+    print(f"slice (int8c): int8_matmul on the card == its plain version (int32 exact, "
+          f"outputs within one bf16 unit) at {list(out)}; ms "
+          f"{ {k: (round(v['int8_matmul_ms'], 4), round(v['int_mm_ms'], 4), round(v['bf16_matmul_ms'], 4)) for k, v in out.items()} } "
+          f"(int8_matmul, _int_mm alone, a bf16 matmul)", flush=True)
+    return out
+
+
+def int8c_served(config: Path, name: str, n_buckets: int, drive_fn) -> dict:
+    """Serve ``config`` with ``model.<name>.quantize=int8c``; ``drive_fn(port)``
+    sends the requests; the server's counts come back with the answers."""
+    with serving(config, n_buckets=n_buckets, overrides=(f"model.{name}.quantize=int8c",)) as port:
+        inv = json.loads(call(port, "GET", "/v1/models")[1])[name]
+        check(inv["quantize"] == "int8c", f"{name} serves quantize={inv['quantize']!r}")
+        run = drive_fn(port)
+        run["captures_total"] = inv["captures_total"]
+    return run
+
+
+def int8c_compare(mcfg, bucket: tuple, host: tuple, label: str) -> dict:
+    """int8c against weight-only int8 (and bf16) on the same seeded weights
+    and batch at ``bucket``: logits within INT8C_LOGIT_REL of the int8
+    logits' scale, top-5 equal where they separate by more; each variant's
+    replay device time at that bucket (a runtime of that one bucket)."""
+    import dataclasses
+
+    import torch
+
+    from tpuserve_torch.models import build
+    from tpuserve_torch.runtime import build_runtime
+
+    over = ({"batch_buckets": [bucket[0]], "seq_buckets": [bucket[1]]} if len(bucket) == 2
+            else {"batch_buckets": [bucket[0]]})
+    logits, replay = {}, {}
+    for quantize in (None, "int8", "int8c"):
+        model = build(dataclasses.replace(mcfg, quantize=quantize, **over))
+        rt = build_runtime(model, device="cuda")
+        dev = rt.h2d(bucket, host)
+        with torch.inference_mode():
+            logits[quantize or "bf16"] = model.logits(rt.module, dev).float()
+        replay[quantize or "bf16"] = replay_timing(rt, bucket, dev)
+        del rt, model
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    c, w = logits["int8c"], logits["int8"]
+    check(bool(torch.isfinite(c).all()), f"{label}: int8c logits not finite")
+    err = (c - w).abs().max().item()
+    tol = INT8C_LOGIT_REL * w.abs().max().item()
+    check(err <= tol, f"{label}: int8c vs int8 logits differ by {err:.4g} > {tol:.4g}")
+    checked = separated_ranks_agree(c, w, f"{label} int8c vs int8", tol)
+    out = {"bucket": list(bucket), "int8c_vs_int8": {"max_abs_diff": err, "tol": tol,
+                                                     "separated_ranks_checked": checked},
+           "int8_vs_bf16_max_abs_diff": (w - logits["bf16"]).abs().max().item(),
+           "replay_device_ms": replay}
+    print(f"slice (int8c): {label} {bucket}: int8c vs int8 logits max abs diff {err:.4g} (tol "
+          f"{tol:.4g}), {checked} separated top-5 ranks agree; replay device ms "
+          f"{ {k: round(v['replay_device_ms'], 4) for k, v in replay.items()} }", flush=True)
+    return out
+
+
+def int8c_phase(card: str) -> dict:
+    """Phase 15: BERT-flash and ResNet-50 served with ``quantize = "int8c"``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tpuserve_torch.config import load_config
+    from tpuserve_torch.models import build
+    from tpuserve_torch.runtime import build_runtime
+
+    t0 = time.perf_counter()
+    run = {"int8_matmul": int8_matmul_check()}
+    bert = int8c_served(CONFIG, "bert", 6, drive)
+    run["bert_launches_k1"] = bert["launches"]
+    # The lifecycle under int8c: staged checkpoints quantize the same way and
+    # the graphs survive publish and rollback.
+    run["lifecycle_bert_int8c"] = lifecycle_drill(
+        CONFIG, "bert", 6, json.dumps({"texts": TEXTS_8}).encode(), "application/json",
+        overrides=("model.bert.quantize=int8c",))
+    # Served answers == an in-process int8c run of the same seeded model.
+    mcfg = dataclasses.replace(load_config(str(CONFIG)).models[0], quantize="int8c")
+    model = build(mcfg)
+    rt = build_runtime(model, device="cuda")
+    items = [model.host_decode(json.dumps({"text": t}).encode(), "application/json")
+             for t in TEXTS_32]
+    ref = rt.fetch(rt.run((32, 64), model.assemble(items, (32, 64))))
+    for row, t in enumerate(TEXTS_32):
+        served = bert["answers"][t]["top_k"]
+        check([e["class"] for e in served] == ref["indices"][row].tolist(),
+              f"int8c: served top-5 != in-process top-5 for {t!r}")
+        check(np.allclose([e["prob"] for e in served], ref["probs"][row], rtol=0, atol=1e-6),
+              f"int8c: served probs != in-process probs for {t!r}")
+    native = sum(1 for m in rt.module.modules() if getattr(m, "weight_scale", None) is not None)
+    check(native == 6 * model.layers, f"int8c BERT holds {native} int8-native weights, "
+                                      f"expected {6 * model.layers}")
+    del rt
+    torch.cuda.empty_cache()
+    run["bert_compare"] = int8c_compare(mcfg, (32, 128), seeded_batch(model, (32, 128), seed=3),
+                                        "bert_flash")
+    print(f"slice (int8c): bert served answers equal the in-process int8c run; K1 launches "
+          f"{bert['launches']} (12 per batch); {native} int8-native weights", flush=True)
+
+    requests = [r for r in resnet_requests() if r[0] == "resnet50"]
+
+    def drive_rn(port: int) -> dict:
+        check(call(port, "POST", "/debug/kernels:reset")[0] == 200, "kernel count reset refused")
+        before = call(port, "GET", "/metrics")[1].decode()
+        answers = {}
+        for name, label, body, ctype, items in requests:
+            st, raw = call(port, "POST", f"/v1/models/{name}:classify", raw=body, ctype=ctype)
+            check(st == 200, f"int8c {name} {label}: {st} {raw[:300]!r}")
+            res = json.loads(raw)
+            answers[label] = res["results"] if "results" in res else [res]
+        after = call(port, "GET", "/metrics")[1].decode()
+        stats = json.loads(call(port, "GET", "/stats")[1])
+        counts = (stats["kernels"]["flash_attention"]["launches"],
+                  stats["kernels"]["flash_attention_stats"]["launches"])
+        delta = {n: metric(after, f'{n}{{model="resnet50"}}') - metric(before, f'{n}{{model="resnet50"}}')
+                 for n in ("batches_total", "items_total", "runtime_compiles_total")}
+        check(counts == (0, 0), f"K1, K2 launched {counts} times on the int8c ResNet path")
+        check((delta["batches_total"], delta["items_total"], delta["runtime_compiles_total"])
+              == (3, 41, 0), f"int8c resnet50: batches/items/compiles moved by {delta}")
+        return {"answers": answers, "deltas": delta}
+
+    rn = int8c_served(RESNET_CONFIG, "resnet50", 6, drive_rn)
+    rcfg = dataclasses.replace(load_config(str(RESNET_CONFIG)).model("resnet50"), quantize="int8c")
+    model = build(rcfg)
+    rt = build_runtime(model, device="cuda")
+    for _, label, _, _, items in requests:
+        bucket = model.bucket_for(len(items))
+        ref = rt.fetch(rt.run(bucket, model.assemble(items, bucket)))
+        for row, served in enumerate(rn["answers"][label]):
+            check([e["class"] for e in served["top_k"]] == ref["indices"][row].tolist(),
+                  f"int8c resnet50 {label}: served top-5 != in-process top-5, row {row}")
+    native = sum(1 for m in rt.module.modules() if getattr(m, "weight_scale", None) is not None)
+    check(native == 36, f"int8c ResNet-50 holds {native} int8-native 1x1 weights, expected 36")
+    del rt
+    torch.cuda.empty_cache()
+    run["resnet_compare"] = int8c_compare(rcfg, (32,), seeded_batch(model, (32,), seed=3),
+                                          "resnet50")
+    run["resnet_deltas"] = rn["deltas"]
+    print(f"slice (int8c): resnet50 served answers equal the in-process int8c run; "
+          f"{native} int8-native weights; {rn['deltas']}", flush=True)
+    run["card"] = card
+    run["phase_s"] = time.perf_counter() - t0
+    return run
+
+
 def main() -> int:
     import torch
 
@@ -2682,6 +3261,8 @@ def main() -> int:
         observability = observability_phase(card)
         cost = defaults_cost_phase(card)
         mnv3 = mobilenet_phase(card)
+        det = efficientdet_phase(card)
+        int8c = int8c_phase(card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2718,15 +3299,24 @@ def main() -> int:
     robustness["first_request_mobilenetv3"] = mnv3.pop("first_request")
     print(json.dumps({"slice": dict(mnv3, path="mobilenetv3",
                                     config=str(MNV3_CONFIG.relative_to(ROOT)))}))
+    det_graphs = det["model"].pop("graphs")
+    robustness["first_request_efficientdet"] = det.pop("first_request")
+    print(json.dumps({"slice": dict(det, path="efficientdet",
+                                    config=str(DET_CONFIG.relative_to(ROOT)))}))
+    print(json.dumps({"slice": dict(int8c, path="int8c", configs=[
+        str(CONFIG.relative_to(ROOT)), str(RESNET_CONFIG.relative_to(ROOT))])}))
     # The runtime's graphs against the eager forward, and the host time of
     # the served h2d stage, per path; then the lifecycle drills.
     print(json.dumps({"graphs": {"bert_flash": run["graphs"], "bert_long_ring": long["graphs"],
-                                 "resnet50": vision_graphs, "mobilenetv3": mnv3_graphs}}))
+                                 "resnet50": vision_graphs, "mobilenetv3": mnv3_graphs,
+                                 "efficientdet": det_graphs}}))
     print(json.dumps({"lifecycle": lifecycle}))
     print(json.dumps({"robustness": robustness}))
     print(json.dumps({"observability": observability}))
     print(json.dumps({"defaults_cost": cost}))
-    print(json.dumps({"kernels": [dict(k1[128]["line"], launches=run["launches"]),
+    # K1's launches on the main path (BERT-flash), and on the int8c one.
+    print(json.dumps({"kernels": [dict(k1[128]["line"], launches=run["launches"],
+                                       launches_int8c=int8c["bert_launches_k1"]),
                                   dict(k2["line"], launches=long["k2_launches"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

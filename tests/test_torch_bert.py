@@ -282,7 +282,9 @@ def test_batch_padding_invariance(served):
     pytest.param(dict(options=dict(TINY, attention="ring"), sp=2), "mesh modes",
                  id="over0-parallel attention"),
     (dict(options=dict(TINY, moe_experts=4)), "parallel attention"),
-    (dict(quantize="int8"), "quantized"),
+    # int8 and int8c serve; the MoE variant they would quantize does not.
+    pytest.param(dict(options=dict(TINY, moe_experts=4), quantize="int8c"),
+                 "parallel attention and MoE", id="over2-quantized"),
     (dict(parallelism="sharded"), "mesh modes"),
     (dict(tp=2), "mesh modes"),
     # The port reads the .npz form of the reference's tree, not a GraphDef.
@@ -293,10 +295,20 @@ def test_unported_options_raise(over, match):
         build(ModelConfig(**cfg_kwargs(**over)))
 
 
-@pytest.mark.parametrize("family", ["efficientdet", "sd15", "textgen"])
-def test_unported_families_raise(family):
+@pytest.mark.parametrize("family, via", [
+    # EfficientDet is ported: its case became sd15, refused by the server.
+    pytest.param("sd15", "server", id="sd15-server"),
+    pytest.param("sd15", "build", id="sd15"), pytest.param("textgen", "build", id="textgen")])
+def test_unported_families_raise(family, via):
+    cfg = ModelConfig(name="m", family=family)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        build(ModelConfig(name="m", family=family))
+        if via == "server":
+            from tpuserve_torch.config import ServerConfig
+            from tpuserve_torch.server import ServerState
+
+            ServerState(ServerConfig(models=[cfg]), device="cpu").build()
+        else:
+            build(cfg)
 
 
 def _same(port_value, jax_value) -> bool:

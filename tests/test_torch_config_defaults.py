@@ -35,7 +35,8 @@ from tpuserve import config as jconfig
 from tpuserve_torch import config as tconfig
 
 EXAMPLES = ("examples/bert_flash.toml", "examples/bert_long_ring.toml",
-            "examples/resnet50.toml", "examples/mobilenetv3.toml")
+            "examples/resnet50.toml", "examples/mobilenetv3.toml",
+            "examples/efficientdet.toml")
 
 # The reference's defaults that turn on a feature the port does not serve
 # yet, each refused by the port when written out: none.

@@ -153,7 +153,7 @@ def test_server_accepts_settings_that_switch_unported_features_off(tmp_path):
     cfg = load_config(str(path), ["scheduler.enabled=false"])
     assert cfg.unported["[scheduler] enabled"] is False
     assert unported_settings(cfg) == []
-    for example in ("bert_flash.toml", "bert_long_ring.toml"):
+    for example in ("bert_flash.toml", "bert_long_ring.toml", "efficientdet.toml"):
         assert unported_settings(load_config(str(ROOT / "examples" / example))) == []
     with pytest.raises(ValueError, match="unknown ServerConfig keys"):
         path.write_text("no_such_key = 1\n")

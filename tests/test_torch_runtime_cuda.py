@@ -11,9 +11,11 @@ TF32 off, logits atol 1e-4 x their scale; under ``quantize = "int8"`` the
 weights stay int8 with float32 scales on the card, equal to the CPU's.
 
 Serving from CUDA graphs (one per bucket and parameter slot): for every
-bucket of a tiny BERT (flash and ring attention), the toy and a cut ResNet
-(int8), the graph replay answers bit-identically to the eager forward of
-the live slot on the same resident input; publish and rollback across
+bucket of a tiny BERT (flash and ring attention; flash under int8c), the
+toy, a cut ResNet (int8 and int8c) and the reference's tiny EfficientDet
+(whose NMS tail runs inside the graph), the graph replay answers
+bit-identically to the eager forward of the live slot on the same resident
+input, every output; publish and rollback across
 staged weights capture nothing new and rollback answers bit-identically to
 before; two threads dispatching batches of one bucket concurrently
 (the batcher's depth-2 h2d stage) each get their own answers; and the
@@ -132,17 +134,25 @@ def served_model(kind: str, monkeypatch):
     dtypes."""
     monkeypatch.setattr(ResNet50Serving, "build_module", lambda self: ResNet(
         (1, 1, 1, 1), self.cfg.num_classes, self.v1_downsample, self.bn_eps))
-    if kind in ("flash", "ring"):
+    if kind in ("flash", "ring", "flash_int8c"):
         return build(ModelConfig(
             name="b", family="bert", parallelism="single", dtype="bfloat16",
             batch_buckets=[1, 4], seq_buckets=[64, 128], num_classes=8,
-            options=dict(TINY, attention=kind)))
+            options=dict(TINY, attention=kind.split("_")[0]),
+            quantize="int8c" if kind.endswith("int8c") else None, quantize_min_size=1024))
     if kind == "toy":
         return build(ModelConfig(name="t", family="toy", parallelism="single",
                                  dtype="float32", batch_buckets=[1, 4], num_classes=10))
+    if kind == "efficientdet":
+        return build(ModelConfig(
+            name="d", family="efficientdet", parallelism="single", dtype="bfloat16",
+            batch_buckets=[1, 4], image_size=64, wire_size=64, wire_format="yuv420",
+            options=dict(det_classes=5, fpn_channels=16, fpn_repeats=1, head_repeats=1,
+                         max_level=5, pre_nms=32, max_dets=8, backbone_width=0.25,
+                         backbone_depth=0.35, score_thresh=0.005)))
     return build(ModelConfig(name="r", family="resnet50", parallelism="single",
                              dtype="bfloat16", batch_buckets=[1, 4], image_size=64,
-                             wire_size=48, wire_format="yuv420", quantize="int8"))
+                             wire_size=48, wire_format="yuv420", quantize=kind.split("_")[1]))
 
 
 def random_batch(model, bucket, seed=0):
@@ -157,7 +167,8 @@ def random_batch(model, bucket, seed=0):
                  for s in model.input_signature(bucket))
 
 
-@pytest.mark.parametrize("kind", ["flash", "ring", "toy", "resnet_int8"])
+@pytest.mark.parametrize("kind", ["flash", "ring", "toy", "resnet_int8", "flash_int8c",
+                                  "resnet_int8c", "efficientdet"])
 def test_graph_replay_equals_eager_forward_per_bucket(cuda, kind, monkeypatch):
     model = served_model(kind, monkeypatch)
     rt = build_runtime(model, device=cuda)
@@ -167,8 +178,10 @@ def test_graph_replay_equals_eager_forward_per_bucket(cuda, kind, monkeypatch):
         replay = rt.fetch(rt.dispatch(bucket, dev))
         with torch.inference_mode():
             eager = rt.fetch(model.forward(rt.module, dev))
-        np.testing.assert_array_equal(replay["indices"], eager["indices"])
-        np.testing.assert_array_equal(replay["probs"], eager["probs"])
+        assert replay.keys() == eager.keys()
+        for key in replay:
+            assert replay[key].dtype == eager[key].dtype
+            np.testing.assert_array_equal(replay[key], eager[key], err_msg=key)
 
 
 def test_publish_and_rollback_capture_nothing(cuda, monkeypatch):

@@ -389,14 +389,14 @@ def test_resnet50_toml_parses_into_typed_fields():
 
 
 def test_int8c_and_unknown_quantize_refused():
+    """int8c serves ResNet-50 (its 1x1 convolutions compute in int8) and is
+    refused, with the reference's guidance, for a family that names no
+    int8-native site (toy)."""
     cfg = load_config("examples/resnet50.toml", ["model.resnet50.quantize=int8c"])
-    assert unported_settings(cfg) == ["model resnet50: quantize = 'int8c'"]
-    from tpuserve_torch.server import ServerState
-
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ServerState(cfg, device="cpu")
+    assert unported_settings(cfg) == []
+    assert build(cfg.model("resnet50")).int8c_native_kernel_paths()
     kw = dict(name="t", family="toy", dtype="float32", num_classes=10, parallelism="single")
-    with pytest.raises(NotImplementedError, match=r"not yet ported.*quantized variants"):
+    with pytest.raises(ValueError, match=r"names no int8-native kernel sites; use quantize='int8'"):
         build_runtime(build(ModelConfig(quantize="int8c", **kw)), device="cpu")
     with pytest.raises(ValueError, match="unknown quantize mode"):
         build_runtime(build(ModelConfig(quantize="int4", **kw)), device="cpu")

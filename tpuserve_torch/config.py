@@ -103,9 +103,6 @@ _FAULT_KINDS_UNPORTED = {
     "worker_slow": "router and workers", "stream_stall": "streaming",
     "stream_disconnect": "streaming",
 }
-# The reference's quantization modes that the port does not serve yet: they
-# parse, and the server and the runtime refuse them.
-_QUANTIZE_UNPORTED = ("int8c",)
 
 
 @dataclass
@@ -481,9 +478,11 @@ class ModelConfig:
     # Compute dtype for params/activations on the device.
     dtype: str = "bfloat16"
     # Quantization: "int8" stores every large weight as int8 plus a
-    # per-output-channel float32 scale and dequantizes it inside the forward
-    # (tpuserve_torch.quantize); None = full compute-dtype weights. The
-    # reference's "int8c" (int8 compute) is not ported yet.
+    # per-channel float32 scale and dequantizes it inside the forward;
+    # "int8c" also keeps the family's int8-native weights (BERT's
+    # projections and FFN, ResNet's 1x1 convs) int8 and multiplies them
+    # int8 x int8 -> int32 (tpuserve_torch.quantize); None = full
+    # compute-dtype weights.
     quantize: str | None = None
     # Float leaves smaller than this stay unquantized (biases, norms).
     quantize_min_size: int = 4096
@@ -632,8 +631,6 @@ def unported_settings(cfg: ServerConfig) -> list[str]:
     for m in cfg.models:
         out += [f"model {m.name}: {k} = {v!r}" for k, v in m.unported.items()
                 if v not in _MODEL_UNPORTED[k]]
-        if m.quantize in _QUANTIZE_UNPORTED:
-            out.append(f"model {m.name}: quantize = {m.quantize!r}")
     if cfg.faults.enabled:
         out += [f"[[faults.rule]] kind = {r.kind!r} (not yet ported "
                 f"({_FAULT_KINDS_UNPORTED[r.kind]}))"

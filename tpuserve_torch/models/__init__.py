@@ -8,16 +8,20 @@ Each family implements the ``ServingModel`` contract in ``base.py``. Ported:
 - resnet50 — ResNet-50 image classification (``vision.py`` serving: framed,
   npy and encoded-image bodies, rgb8 or yuv420 wire, preprocessing and
   softmax + top-k on the device; bf16, channels_last, cuDNN convolutions;
-  weight-only int8).
+  weight-only int8, or int8 compute in the bottleneck 1x1 convolutions).
 - mobilenetv3 — MobileNetV3-Large image classification (the same
   ``vision.py`` serving; depthwise and squeeze-excite blocks, cuDNN
   convolutions, batch-1 latency through the CUDA graphs).
+- efficientdet — EfficientDet-D0 object detection (the same ``vision.py``
+  ingest; EfficientNet-B0, BiFPN, shared heads, and the fixed-shape
+  detection tail — top-k, decode, greedy NMS — on the device, inside the
+  bucket's CUDA graph).
 - toy — a tiny MLP image classifier, the fast model of the CPU tests.
 
 The shared convolution, BatchNorm and weight-conversion code of the
 convolutional families is ``layers.py``.
 
-The JAX package's other families (efficientdet, sd15, textgen)
+The JAX package's other families (sd15, textgen)
 are registered by name and raise "not yet ported", naming their ROADMAP.md
 item.
 """
@@ -33,6 +37,7 @@ if TYPE_CHECKING:
 
 _REGISTRY: dict[str, str] = {
     "bert": "tpuserve_torch.models.bert",
+    "efficientdet": "tpuserve_torch.models.efficientdet",
     "mobilenetv3": "tpuserve_torch.models.mobilenet",
     "resnet50": "tpuserve_torch.models.resnet",
     "toy": "tpuserve_torch.models.toy",
@@ -40,7 +45,6 @@ _REGISTRY: dict[str, str] = {
 
 # Families of the JAX package not ported yet -> their ROADMAP.md queue-1 item.
 _NOT_PORTED: dict[str, str] = {
-    "efficientdet": "EfficientDet",
     "sd15": "SD 1.5",
     "textgen": "textgen",
 }

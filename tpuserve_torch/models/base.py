@@ -32,7 +32,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from tpuserve_torch import savedmodel
+from tpuserve_torch import quantize, savedmodel
 from tpuserve_torch.config import ModelConfig
 
 # A host batch: a tuple of np.ndarrays with leading batch dim.
@@ -128,6 +128,22 @@ class ServingModel(abc.ABC):
     def build_module(self) -> torch.nn.Module:
         """The network as an ``nn.Module`` whose state_dict matches
         ``init_params``; the runtime loads params into it."""
+
+    def reference_layout(self, name: str, shape: tuple) -> tuple[tuple, tuple]:
+        """How parameter ``name`` of the module lies in the reference's tree:
+        ``(view, perm)`` with ``reference leaf == param.reshape(view)
+        .permute(perm)``. Quantization picks the reference's channel through
+        it (``tpuserve_torch.quantize``). Default: conv weights OIHW (the
+        reference's HWIO), ``nn.Linear`` weights (out, in) (its (in, out)
+        Dense kernels), other leaves as they are."""
+        return quantize.default_layout(shape)
+
+    def int8c_native_kernel_paths(self) -> list[str]:
+        """Regexes over parameter names of the weights an int8c module
+        (``quantize.Int8Linear``, ``quantize.Int8Conv1x1``) consumes int8
+        natively under ``quantize = "int8c"``. Empty by default: the runtime
+        then refuses int8c for the family, as the reference's does."""
+        return []
 
     def bind_mesh(self, mesh) -> None:
         """Hook for mesh-aware models (BERT's ring/Ulysses attention): the

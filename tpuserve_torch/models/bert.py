@@ -20,6 +20,15 @@ forward ends in softmax and top-k on the device.
   before it builds the module; a forward without one raises. Only
   ``parallelism = "single"`` (a 1-device mesh, sp = 1) is ported.
 
+``quantize = "int8"`` stores the large weights int8 (weight-only, as the
+reference) and ``"int8c"`` also multiplies the q/k/v/out projections and
+the FFN int8 x int8 -> int32 (``quantize.Int8Linear``, the reference's
+``Int8SelfAttention`` and ``Int8Dense``); ``reference_layout`` tells the
+quantizer the reference's layout of each leaf, so q/k/v keep one scale per
+head_dim index shared by all heads and the embedding tables one per column
+of d, as in the reference. The MoE variant is not ported (nor, with it, its
+int8c refusal).
+
 ``from_jax_params`` converts the reference's flax parameter tree (numpy
 leaves) into this module's state_dict, which is how the tests hold the port
 to the JAX package on the same weights, and ``to_jax_params`` converts
@@ -45,6 +54,7 @@ from tpuserve_torch.models.base import ServingModel, TensorSpec, not_ported
 from tpuserve_torch.ops.flash_attention import flash_attention
 from tpuserve_torch.ops.ring_attention import ring_attention
 from tpuserve_torch.ops.ulysses import ulysses_attention
+from tpuserve_torch.quantize import Int8Linear
 from tpuserve_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh
 from tpuserve_torch.text import WordPieceTokenizer, synthetic_vocab
 
@@ -72,10 +82,10 @@ class SelfAttention(nn.Module):
         self.heads = heads
         self.attention = attention
         self.mesh = mesh  # required for "ring" / "ulysses"
-        self.query = nn.Linear(d_model, d_model)
-        self.key = nn.Linear(d_model, d_model)
-        self.value = nn.Linear(d_model, d_model)
-        self.out = nn.Linear(d_model, d_model)
+        self.query = Int8Linear(d_model, d_model)
+        self.key = Int8Linear(d_model, d_model)
+        self.value = Int8Linear(d_model, d_model)
+        self.out = Int8Linear(d_model, d_model)
 
     def forward(self, x: torch.Tensor, key_bias: torch.Tensor) -> torch.Tensor:
         b, s, d = x.shape
@@ -105,8 +115,8 @@ class BertBlock(nn.Module):
         super().__init__()
         self.attn = SelfAttention(d_model, heads, attention, mesh)
         self.ln_attn = nn.LayerNorm(d_model, eps=ln_eps)
-        self.mlp_up = nn.Linear(d_model, d_ff)
-        self.mlp_down = nn.Linear(d_ff, d_model)
+        self.mlp_up = Int8Linear(d_model, d_ff)
+        self.mlp_down = Int8Linear(d_ff, d_model)
         self.ln_mlp = nn.LayerNorm(d_model, eps=ln_eps)
 
     def forward(self, x: torch.Tensor, key_bias: torch.Tensor) -> torch.Tensor:
@@ -261,8 +271,6 @@ class BertServing(ServingModel):
                     "are not divisible")
         if int(opt.get("moe_experts", 0)):
             raise not_ported("options.moe_experts", "parallel attention and MoE")
-        if cfg.quantize is not None:
-            raise not_ported(f"quantize={cfg.quantize!r}", "quantized variants")
         if cfg.parallelism != "single" or cfg.tp > 1 or cfg.sp > 1:
             raise not_ported(
                 f"parallelism={cfg.parallelism!r} (tp={cfg.tp}, sp={cfg.sp}); "
@@ -290,6 +298,31 @@ class BertServing(ServingModel):
             d_model=self.d_model, heads=self.heads, d_ff=self.d_ff,
             max_seq=self.max_seq, num_classes=self.cfg.num_classes,
             attention=self.attention, mesh=self.mesh)
+
+    def reference_layout(self, name: str, shape: tuple) -> tuple[tuple, tuple]:
+        """The reference's layouts of BERT's leaves (``from_jax_params``):
+        q/k/v kernels (D, H, hd) of the port's (H*hd, D) and their biases
+        (H, hd); the out kernel (H, hd, D) of the port's (D, H*hd); the
+        embedding tables (rows, D) in both; Dense kernels (in, out)."""
+        h = self.heads
+        parts = name.split(".")
+        if len(parts) > 2 and parts[-3] == "attn":
+            if parts[-2] in ("query", "key", "value"):
+                if parts[-1] == "weight":
+                    return (h, shape[0] // h, shape[1]), (2, 0, 1)
+                return (h, shape[0] // h), (0, 1)
+            if parts[-2] == "out" and parts[-1] == "weight":
+                return (shape[0], h, shape[1] // h), (1, 2, 0)
+        if name in ("embed.weight", "pos_embed"):
+            return tuple(shape), (0, 1)
+        return super().reference_layout(name, shape)
+
+    def int8c_native_kernel_paths(self) -> list[str]:
+        """The weights the int8c modules consume natively: the FFN matmuls
+        (2/3 of a block's matmul FLOPs) and the q/k/v/out projections (the
+        remaining 1/3) — the reference's ``mlp_(up|down)/kernel$`` and
+        ``attn/(query|key|value|out)/kernel$`` under the port's names."""
+        return [r"mlp_(up|down)\.weight$", r"attn\.(query|key|value|out)\.weight$"]
 
     def bind_mesh(self, mesh: Mesh) -> None:
         """Ring/Ulysses attention closes over the serving mesh; modules

@@ -1,5 +1,5 @@
 """Layers and weight conversion shared by the port's convolutional families
-(``resnet.py``, ``mobilenet.py``).
+(``resnet.py``, ``mobilenet.py``, ``efficientdet.py``).
 
 - ``Conv``: a 2-D convolution with flax's ``"SAME"`` padding computed from
   the input size at run time (``_same_padding``: ``total = max((ceil(in /
@@ -17,7 +17,8 @@
   OIHW (a depthwise kernel (kh, kw, 1, C) <-> (C, 1, kh, kw), the same
   permutation), Dense kernels (in, out) <-> ``Linear.weight`` (out, in),
   BatchNorm ``scale``/``bias`` <-> ``weight``/``bias`` and ``batch_stats``
-  ``mean``/``var`` <-> ``running_mean``/``running_var``.
+  ``mean``/``var`` <-> ``running_mean``/``running_var``; any other leaf
+  (EfficientDet's fusion weights ``w_td{l}``) keeps its name and values.
 - ``seeded_state_dict``: a seeded init with the reference's initializer
   families (it cannot reproduce jax.random's bits): LeCun-normal kernels,
   zero biases, BatchNorm at identity.
@@ -98,7 +99,7 @@ def from_jax_params(tree) -> dict[str, torch.Tensor]:
             t = torch.from_numpy(np.array(val, dtype=np.float32))
             if key == "kernel":
                 t = t.permute(3, 2, 0, 1) if t.dim() == 4 else t.T
-            sd[prefix + names[key]] = t.contiguous()
+            sd[prefix + names.get(key, key)] = t.contiguous()
 
     walk(tree["params"], "")
     walk(tree.get("batch_stats", {}), "")

@@ -27,6 +27,12 @@ Kept from the reference, exactly:
   weights are promoted to float32 for the matmul, as ``nn.Dense(dtype=
   jnp.float32)`` does.
 
+Under ``quantize = "int8c"`` the bottleneck 1x1 convolutions (``conv1``,
+``conv3``, ``proj_conv``: ``quantize.Int8Conv1x1``) multiply int8 x int8 ->
+int32, a strided one as a spatial slice first, as the reference's
+``Int8Conv1x1``; the 3x3 and 7x7 convolutions and the head stay on the
+weight-only path.
+
 ``from_jax_params`` converts the reference's ``{"params", "batch_stats"}``
 tree (numpy leaves) into this module's float32 state_dict; that is how the
 tests hold the port to the JAX package on the same weights.
@@ -44,6 +50,7 @@ from tpuserve_torch.config import ModelConfig
 from tpuserve_torch.models.layers import (BatchNorm, Conv, from_jax_params,
                                           seeded_state_dict, to_jax_params)
 from tpuserve_torch.models.vision import ImageClassifierServing
+from tpuserve_torch.quantize import Int8Conv1x1
 
 
 class Bottleneck(nn.Module):
@@ -52,14 +59,14 @@ class Bottleneck(nn.Module):
         super().__init__()
         s1, s2 = (stride, 1) if v1_downsample else (1, stride)
         cout = features * 4
-        self.conv1 = Conv(cin, features, 1, s1)
+        self.conv1 = Int8Conv1x1(cin, features, s1)
         self.bn1 = BatchNorm(features, bn_eps)
         self.conv2 = Conv(features, features, 3, s2)
         self.bn2 = BatchNorm(features, bn_eps)
-        self.conv3 = Conv(features, cout, 1)
+        self.conv3 = Int8Conv1x1(features, cout)
         self.bn3 = BatchNorm(cout, bn_eps)
         if projection:
-            self.proj_conv = Conv(cin, cout, 1, stride)
+            self.proj_conv = Int8Conv1x1(cin, cout, stride)
             self.proj_bn = BatchNorm(cout, bn_eps)
         self.projection = projection
 
@@ -111,6 +118,13 @@ class ResNet50Serving(ImageClassifierServing):
 
     def build_module(self) -> ResNet:
         return ResNet((3, 4, 6, 3), self.cfg.num_classes, self.v1_downsample, self.bn_eps)
+
+    def int8c_native_kernel_paths(self) -> list[str]:
+        """The bottleneck 1x1 convolutions (``Int8Conv1x1``) consume their
+        weights int8 under int8c; the 3x3 and 7x7 convolutions and the head
+        stay on the weight-only dequantization path (the reference's
+        ``(conv1|conv3|proj_conv)/kernel$``)."""
+        return [r"(conv1|conv3|proj_conv)\.weight$"]
 
     def from_jax_params(self, tree) -> dict[str, torch.Tensor]:
         return from_jax_params(tree)

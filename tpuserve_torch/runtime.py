@@ -13,7 +13,8 @@ fixed addresses, and captures one graph per (bucket, slot):
 - startup: each bucket is warmed up eagerly, once per slot (this sets K1/K2's
   shared-memory opt-in, cuBLAS' workspace and cuDNN's plans before any
   capture), then captured per slot into one memory pool per runtime and
-  replayed once (a graph's first launch uploads it to the card). A
+  replayed once (a graph's first launch uploads it to the card), and its
+  inputs are allocated once on the copy stream the served h2d uses. A
   variant is the bucket's graph set: ``runtime_compiles_total`` counts one
   per bucket, as the JAX runtime counts one per (bucket, replica), and the
   variant summary reports its ``captures`` and ``compile_ms``. A capture that
@@ -209,12 +210,14 @@ class ModelRuntime:
         if self.cfg.dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}, "
                              f"got {self.cfg.dtype!r}")
-        if self.cfg.quantize == "int8c":
-            raise NotImplementedError(
-                "quantize='int8c' (int8 compute) is not yet ported to "
-                "tpuserve_torch (ROADMAP.md queue 1: quantized variants)")
-        if self.cfg.quantize not in (None, "int8"):
+        if self.cfg.quantize not in (None, "int8", "int8c"):
             raise ValueError(f"unknown quantize mode {self.cfg.quantize!r}")
+        if self.cfg.quantize == "int8c" and not model.int8c_native_kernel_paths():
+            raise ValueError(
+                f"{model.name}: quantize='int8c' (int8 COMPUTE) is not "
+                f"supported by family {self.cfg.family!r} — it names no "
+                "int8-native kernel sites; use quantize='int8' "
+                "(weight-only) instead")
         self.dtype = DTYPES[self.cfg.dtype]
         # Single mode serves on a 1-device mesh (every axis of size 1).
         # Mesh-aware models (BERT's ring/Ulysses attention) close over it;
@@ -258,10 +261,12 @@ class ModelRuntime:
     def _prepare(self, state_dict: dict[str, torch.Tensor]) -> torch.nn.Module:
         """A fresh module holding ``state_dict`` as the forward reads it, on
         the host: every floating tensor cast to the compute dtype; under
-        ``quantize = "int8"`` each eligible cast weight quantized (the
-        reference's order: cast, then quantize); 4-D weights channels_last
-        for convolutional families. ValueError when the state_dict does not
-        fit the module."""
+        ``quantize = "int8"`` or ``"int8c"`` each eligible cast weight
+        quantized on the reference's channel (the reference's order: cast,
+        then quantize), under int8c the family's int8-native weights kept
+        int8 for their int8 modules and the rest dequantized on access as
+        under int8; 4-D weights channels_last for convolutional families.
+        ValueError when the state_dict does not fit the module."""
         module = self.model.build_module()
         try:
             module.load_state_dict(state_dict)
@@ -269,8 +274,11 @@ class ModelRuntime:
             raise ValueError(f"weights do not fit {self.model.name}'s module: {e}") from e
         module.to(dtype=self.dtype)
         module.eval().requires_grad_(False)
-        if self.cfg.quantize == "int8":
-            quantize.quantize_module(module, self.dtype, self.cfg.quantize_min_size)
+        if self.cfg.quantize is not None:
+            native = (self.model.int8c_native_kernel_paths()
+                      if self.cfg.quantize == "int8c" else ())
+            quantize.quantize_module(module, self.dtype, self.cfg.quantize_min_size,
+                                     layout=self.model.reference_layout, native=native)
         if self.model.channels_last:
             module.to(memory_format=torch.channels_last)
         return module
@@ -333,6 +341,13 @@ class ModelRuntime:
             for slot in self.slots:
                 slot.graphs[bucket] = self._capture(slot, bucket)
                 captures += 1
+            # The served h2d allocates the bucket's inputs on the copy stream,
+            # whose pool the captures never touched: allocate them there once
+            # now, so that no request grows the allocator (a first request's
+            # cudaMalloc took 17-124 ms on the H100 machine; chip_smoke.py
+            # phase 14's first requests).
+            self.h2d(bucket, self._zeros(bucket))
+            self._copy_stream.synchronize()
         else:
             self.fetch(self.run(bucket, self._zeros(bucket)))
         key = self.variant_key(bucket)
