@@ -81,7 +81,10 @@ Phases (any failure exits non-zero before the result line):
    max abs logit diff printed and held within ``LOGIT_TOL`` /
    ``RESNET_LOGIT_REL`` of the scale) and times, at (32, 128), (8, 2048)
    and (32,), the served h2d stage's host time (pinned copy + replay
-   enqueue) against the eager yardstick, and the replay's device time.
+   enqueue) against the eager yardstick, and the replay's device time,
+   beside the runtime's ``probe_raw_ms`` (the server's startup probe: 8
+   dispatches on the host's clock) right after the captures, on the warm
+   card, and over 64 dispatches.
 8. Vision slice: serve ``examples/resnet50.toml`` — full-width ResNet-50
    (1000 classes, 224 pixels, seeded, bf16, batch buckets [1, 8, 32]) as
    ``resnet50`` (yuv420 wire at 160, int8 weights) and ``resnet50_rgb``
@@ -204,12 +207,37 @@ Phases (any failure exits non-zero before the result line):
    ``INT8C_LOGIT_REL`` of their scale, separated top-5 ranks equal; the
    replay device time of bf16, int8 and int8c at BERT (32, 128) and
    ResNet-50 (32,), printed, nothing gated on speed.
-16. Print a ``slice`` line per path, the ``graphs`` line (phase 6-8's,
+16. The command line (``cli_phase``), through ``python -m tpuserve_torch``
+   as a user runs it: ``describe`` reports platform ``gpu`` and the card's
+   name; ``warmup --config examples/bert_flash.toml`` exits 0 listing all
+   6 buckets; serve BERT-flash with ``roofline_probe_iters=8`` and run
+   ``bench`` with a 32-text JSON body (1 s warm-up, 5 s window) closed at 8
+   connections, open at half its throughput, and that open loop again with
+   ``--procs 2``: each exits 0 with ``n_ok > 0`` and ``n_err == 0``, and K1's
+   launches, set to 0 just before each run and read just after, equal 12 x
+   ``batches_total`` over the same span; ``device_utilization`` (a 2 s
+   window sampled every 0.25 s) is read 3 s after each open loop's first
+   batch; ``/stats`` ``roofline.bert`` has a raw forward ms
+   for every bucket and a ``compute_split``; ``GET /`` answers 200 HTML.
+   Then serve ``examples/resnet50.toml`` (probes on) and run a framed
+   yuv420 open loop of 32-item bodies at 160 px to ``resnet50`` at 20
+   requests/s (``n_err == 0``, K1 0, every bucket probed on both models);
+   then ``chaos`` runs twice, side by side, on a copy of the config holding
+   ``resnet50_rgb`` alone (npy at 256) with ``batch_error`` at 0.1 and at
+   1.0 and ``reload_corrupt`` at 1.0 under ``--drill reload``, 5 s each at
+   ``--min-availability 0.99``: at 0.1 exit 0, availability >= 0.99, the
+   rule fired more than 5 times, the breaker closed, version 1 live, no
+   reload published; at 1.0 exit 1. The ``cli`` line carries every run's
+   summary, the K1 counts, both configs' roofline blocks, the utilization
+   samples and the startup probe's raw (32, 128) ms beside phase 6's
+   replay device time of the same bucket.
+17. Print a ``slice`` line per path, the ``graphs`` line (phase 6-8's,
    13's and 14's graph checks and host times), the ``lifecycle`` line, the
    ``robustness`` line (with phase 8's, 13's and 14's first-request
-   tables), the ``observability`` and ``defaults_cost`` lines, and the
-   ``kernels`` line (K1 and K2, each with its launches on its path,
-   counted through graph replays, K1's on the int8c path beside; the vision
+   tables), the ``observability``, ``defaults_cost`` and ``cli`` lines, and
+   the ``kernels`` line (K1 and K2, each with its launches on its path,
+   counted through graph replays, K1's on the int8c path and in each of
+   phase 16's ``bench`` runs beside; the vision
    paths run neither), the card line, then the result line ``{"ok": true,
    "device": {...}}``. Every phase's JSON line from 11 on carries the
    card's name and power limit.
@@ -1146,6 +1174,10 @@ def graph_phase(config: Path, timed: dict, logit_tol) -> dict:
         model = build(mcfg)
         model.forward = lambda module, batch, m=model: forward_with_logits(m, module, batch)
         rt = build_runtime(model, device="cuda")
+        bucket = timed.get(mcfg.name)
+        # The server's startup probe, as it runs there: right after the
+        # captures, 8 back-to-back dispatches on the host's clock.
+        probe_cold = rt.probe_raw_ms(bucket, iters=8) if bucket is not None else None
         rows = {}
         for bucket in model.buckets():
             dev = rt.h2d(bucket, seeded_batch(model, bucket, seed=len(rows)))
@@ -1169,12 +1201,16 @@ def graph_phase(config: Path, timed: dict, logit_tol) -> dict:
             rows[label] = {"bit_identical": bit, "max_abs_logit_diff": diff}
         entry = {"buckets": rows, "captures_total": rt.captures_total,
                  "compiles_total": rt.compiles_total, "capture_memory": dict(rt.capture_memory)}
-        bucket = timed.get(mcfg.name)
         if bucket is not None:
             host = seeded_batch(model, bucket, seed=99)
             entry["bucket_timed"] = list(bucket)
             entry.update(host_time(rt, model, bucket, host))
             entry.update(replay_timing(rt, bucket, rt.h2d(bucket, host)))
+            # The same probe on a warm card, and over 64 dispatches: beside
+            # the replay's device time, what the startup probe measures.
+            entry["probe_raw_ms"] = {"after_capture_8": probe_cold,
+                                     "warm_8": rt.probe_raw_ms(bucket, iters=8),
+                                     "warm_64": rt.probe_raw_ms(bucket, iters=64)}
         mem = rt.capture_memory
         print(f"graphs: {mcfg.name}: {rt.captures_total} captures, every bucket's replay "
               f"{'bit-identical to' if all(r['bit_identical'] for r in rows.values()) else 'within tolerance of'}"
@@ -3233,6 +3269,214 @@ def int8c_phase(card: str) -> dict:
     return run
 
 
+# -- phase 16: the command line and the load generator ---------------------------------
+
+CLI_BENCH_S = ("--duration", "5", "--warmup", "1")
+CLI_TIMEOUT_S = 240.0
+RESNET_RATE = 20.0   # framed 32-item requests per second to resnet50 (640 images/s)
+# Probes on; device_utilization over a 2 s window sampled every 0.25 s, so a
+# reading 3 s after a bench run's first batch (1 s warm-up) covers that run
+# alone.
+CLI_SERVE_SETS = ("roofline_probe_iters=8", "telemetry.sample_interval_s=0.25",
+                  "telemetry.utilization_window_s=2")
+
+
+class Cli:
+    """``python -m tpuserve_torch <args>`` from the checkout, started at
+    once; its stdout and stderr go to files under ``tmp`` (a pipe nobody
+    reads while the process runs could fill and stall it)."""
+
+    def __init__(self, tmp: Path, label: str, *args: str) -> None:
+        self.label = label
+        self.out_path, self.err_path = tmp / f"{label}.out", tmp / f"{label}.err"
+        with open(self.out_path, "w") as out, open(self.err_path, "w") as err:
+            self.proc = subprocess.Popen([sys.executable, "-m", "tpuserve_torch", *args],
+                                         cwd=ROOT, stdout=out, stderr=err)
+
+    def finish(self, timeout_s: float = CLI_TIMEOUT_S) -> tuple[int, str]:
+        """Wait: (exit code 0 or 1, stdout); any other end fails the phase
+        with the tail of stderr."""
+        try:
+            self.proc.wait(timeout_s)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise SmokeFailure(f"{self.label} did not end in {timeout_s:.0f} s:\n"
+                               + self.err_path.read_text()[-3000:])
+        if self.proc.returncode not in (0, 1):
+            raise SmokeFailure(f"{self.label} exited {self.proc.returncode}:\n"
+                               + self.err_path.read_text()[-3000:])
+        return self.proc.returncode, self.out_path.read_text()
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+
+
+def batches_now(port: int) -> float:
+    """``batches_total`` summed over the served models."""
+    text = call(port, "GET", "/metrics")[1].decode()
+    return sum(float(v) for v in re.findall(r'^batches_total\{model="[^"]+"\} (\S+)$', text, re.M))
+
+
+def bench_run(tmp: Path, port: int, label: str, *args: str,
+              sample_at_s: float | None = None) -> dict:
+    """One ``python -m tpuserve_torch bench`` against the server on ``port``,
+    K1 counted over it: the counts set to 0 just before, read just after,
+    against ``batches_total`` over the same span. With ``sample_at_s``,
+    ``device_utilization`` is read that long after the load's first batch
+    (a bench process that builds framed bodies imports torch first, so its
+    load starts seconds after the process)."""
+    check(call(port, "POST", "/debug/kernels:reset")[0] == 200, "kernel count reset refused")
+    before = call(port, "GET", "/metrics")[1].decode()
+    bench = Cli(tmp, "bench_" + re.sub(r"\W+", "_", label), "bench", "--url",
+                f"http://127.0.0.1:{port}", *CLI_BENCH_S, *args)
+    util = None
+    try:
+        if sample_at_s is not None:
+            first = batches_now(port)
+            deadline = time.monotonic() + 60.0
+            while batches_now(port) == first and bench.proc.poll() is None:
+                check(time.monotonic() < deadline, f"bench {label}: no batch in 60 s")
+                time.sleep(0.05)
+            time.sleep(sample_at_s)
+            text = call(port, "GET", "/metrics")[1].decode()
+            util = {m.group(1): float(m.group(2)) for m in re.finditer(
+                r'^device_utilization\{model="([^"]+)",replica="0"\} (\S+)$', text, re.M)}
+        rc, out = bench.finish()
+    finally:
+        bench.kill()
+    summary = json.loads(out.strip().splitlines()[-1])
+    after = call(port, "GET", "/metrics")[1].decode()
+    stats = json.loads(call(port, "GET", "/stats")[1])
+    batches = {n: metric(after, f'batches_total{{model="{n}"}}')
+               - metric(before, f'batches_total{{model="{n}"}}') for n in stats["roofline"]}
+    k1 = stats["kernels"]["flash_attention"]["launches"]
+    check(rc == 0, f"bench {label} exited {rc}: {summary}")
+    check(summary["n_ok"] > 0 and summary["n_err"] == 0, f"bench {label}: {summary}")
+    print(f"cli: bench {label}: {summary['throughput_per_s']}/s, p50 {summary['p50_ms']} ms, "
+          f"p99 {summary['p99_ms']} ms, n_ok {summary['n_ok']}, n_err {summary['n_err']}; "
+          f"K1 {k1} over {batches} batches; device_utilization {util}", flush=True)
+    return {"summary": summary, "k1_launches": k1, "batches": batches,
+            "device_utilization": util}
+
+
+def chaos_config(tmp: Path, probability: float) -> Path:
+    """A copy of examples/resnet50.toml holding its ``resnet50_rgb`` model (npy
+    at 256) alone, with a ``[faults]`` table: ``batch_error`` at
+    ``probability`` and ``reload_corrupt`` at 1.0, so every drilled reload is
+    refused at the integrity gate and version 1 keeps serving."""
+    head, *blocks = RESNET_CONFIG.read_text().split("[[model]]")
+    rgb = [b for b in blocks if 'name = "resnet50_rgb"' in b]
+    check(len(rgb) == 1, "examples/resnet50.toml names no resnet50_rgb model")
+    path = tmp / f"chaos_{probability}.toml"
+    path.write_text(head + "[[model]]" + rgb[0] + f"""
+[faults]
+enabled = true
+seed = 1
+
+[[faults.rule]]
+kind = "batch_error"
+model = "resnet50_rgb"
+probability = {probability}
+
+[[faults.rule]]
+kind = "reload_corrupt"
+model = "resnet50_rgb"
+""")
+    return path
+
+
+def cli_phase(card: str) -> dict:
+    """Phase 16: ``describe``, ``warmup``, ``bench`` and ``chaos`` through
+    ``python -m tpuserve_torch``, as a user runs them."""
+    import torch
+
+    t0 = time.perf_counter()
+    out: dict = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        payload = tmp / "texts32.json"
+        payload.write_text(json.dumps({"texts": TEXTS_32}))
+        describe = Cli(tmp, "describe", "describe")
+        warmup = Cli(tmp, "warmup", "warmup", "--config", str(CONFIG))
+        with serving(CONFIG, n_buckets=6, overrides=CLI_SERVE_SETS) as port:
+            rc, text = describe.finish()
+            desc = json.loads(text)
+            name = torch.cuda.get_device_name(0)
+            check(rc == 0 and desc["platform"] == "gpu" and any(name in d for d in desc["devices"]),
+                  f"describe: {desc}")
+            rc, text = warmup.finish()
+            check(rc == 0, f"warmup exited {rc}")
+            warm = json.loads(text)["bert"]
+            want = [[b, s] for b in (1, 8, 32) for s in (64, 128)]
+            check(sorted(warm["buckets"]) == sorted(want), f"warmup buckets {warm['buckets']}")
+            out["describe"], out["warmup_buckets"] = desc, warm["buckets"]
+            st, body = call(port, "GET", "/")
+            check(st == 200 and body.startswith(b"<!doctype html>"), f"GET / answered {st}")
+            common = ("--model", "bert", "--verb", "classify", "--payload", str(payload),
+                      "--content-type", "application/json")
+            runs = {"closed_c8": bench_run(tmp, port, "closed c8", *common, "--concurrency", "8")}
+            rate = runs["closed_c8"]["summary"]["throughput_per_s"] / 2
+            runs["open"] = bench_run(tmp, port, f"open {rate:g}/s", *common, "--rate", f"{rate:g}",
+                                     sample_at_s=3.0)
+            runs["open_procs2"] = bench_run(tmp, port, f"open {rate:g}/s procs 2", *common,
+                                            "--rate", f"{rate:g}", "--procs", "2",
+                                            sample_at_s=3.0)
+            for label, r in runs.items():
+                check(r["k1_launches"] > 0 and r["k1_launches"] == 12 * r["batches"]["bert"],
+                      f"bench {label}: K1 launched {r['k1_launches']} times for "
+                      f"{r['batches']['bert']:g} batches (12 per batch)")
+            bert_roof = json.loads(call(port, "GET", "/stats")[1])["roofline"]["bert"]
+            check(sorted(bert_roof["raw_ms_per_batch"]) == sorted(str(b) for b in want)
+                  and all(v for v in bert_roof["raw_ms_per_batch"].values())
+                  and "compute_split" in bert_roof, f"/stats roofline.bert: {bert_roof}")
+        out["bert"] = {"open_rate_per_s": rate, "runs": runs, "roofline": bert_roof}
+        # ResNet-50: the framed wire in the open loop, the card to itself (a
+        # chaos server beside it would share the card and skew the startup
+        # probes and the latencies); then both chaos runs side by side.
+        with serving(RESNET_CONFIG, n_buckets=6, overrides=CLI_SERVE_SETS) as port:
+            run = bench_run(tmp, port, f"resnet50 frame open {RESNET_RATE:g}/s",
+                            "--model", "resnet50", "--wire", "frame", "--frame-kind", "yuv420",
+                            "--edge", "160", "--batch", "32", "--rate", f"{RESNET_RATE:g}",
+                            sample_at_s=3.0)
+            check(run["k1_launches"] == 0,
+                  f"K1 launched {run['k1_launches']} times on ResNet-50")
+            roof = json.loads(call(port, "GET", "/stats")[1])["roofline"]
+            check(all(sorted(roof[n]["raw_ms_per_batch"]) == ["[1]", "[32]", "[8]"]
+                      for n in ("resnet50", "resnet50_rgb"))
+                  and "compute_split" in roof["resnet50"], f"/stats roofline: {roof}")
+        out["resnet50"] = {"rate_per_s": RESNET_RATE, "run": run, "roofline": roof}
+        chaos = {p: Cli(tmp, f"chaos_{p}", "chaos", "--config", str(chaos_config(tmp, p)),
+                        "--model", "resnet50_rgb", "--duration", "5",
+                        "--min-availability", "0.99", "--drill", "reload")
+                 for p in (0.1, 1.0)}
+        try:
+            results = {p: c.finish() for p, c in chaos.items()}
+        finally:
+            for c in chaos.values():
+                c.kill()
+    for p, (rc, text) in results.items():
+        summary = json.loads(text)
+        fired = {r["kind"]: r["fired"] for r in summary["faults"]}
+        lc = summary["lifecycle"]["resnet50_rgb"]
+        print(f"cli: chaos at batch_error {p}: exit {rc}, availability {summary['availability']}, "
+              f"n_ok {summary['n_ok']}, n_err {summary['n_err']}, fired {fired}, breaker "
+              f"{summary['breakers']['resnet50_rgb']['state']}, live_version {lc['live_version']}, "
+              f"reload drill {summary['reload_drill']}", flush=True)
+        if p < 1.0:
+            check(rc == 0 and summary["availability"] >= 0.99 and fired["batch_error"] > 5
+                  and summary["breakers"]["resnet50_rgb"]["state"] == "closed"
+                  and lc["live_version"] == 1 and summary["reload_drill"]["ok"] == 0,
+                  f"chaos at batch_error {p}: exit {rc}, {summary}")
+        else:
+            check(rc == 1 and summary["availability"] < 0.99,
+                  f"chaos at batch_error {p} must exit 1 below 0.99: exit {rc}, {summary}")
+        out[f"chaos_{p}"] = dict(summary, exit_code=rc)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3263,6 +3507,7 @@ def main() -> int:
         mnv3 = mobilenet_phase(card)
         det = efficientdet_phase(card)
         int8c = int8c_phase(card)
+        cli_run = cli_phase(card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3314,9 +3559,19 @@ def main() -> int:
     print(json.dumps({"robustness": robustness}))
     print(json.dumps({"observability": observability}))
     print(json.dumps({"defaults_cost": cost}))
+    # The CLI's runs; the startup probe's raw (32, 128) forward beside the
+    # replay device time graph_phase took of the same bucket.
+    probe = cli_run["bert"]["roofline"]["raw_ms_per_batch"]["[32, 128]"]
+    replay = run["graphs"]["bert"]["replay_device_ms"]
+    cli_run["probe_vs_replay_b32_s128"] = {"probe_raw_ms": probe, "replay_device_ms": replay,
+                                           "probe_over_replay": probe / replay}
+    print(json.dumps({"cli": cli_run}))
     # K1's launches on the main path (BERT-flash), and on the int8c one.
     print(json.dumps({"kernels": [dict(k1[128]["line"], launches=run["launches"],
-                                       launches_int8c=int8c["bert_launches_k1"]),
+                                       launches_int8c=int8c["bert_launches_k1"],
+                                       launches_cli_bench={
+                                           k: r["k1_launches"]
+                                           for k, r in cli_run["bert"]["runs"].items()}),
                                   dict(k2["line"], launches=long["k2_launches"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

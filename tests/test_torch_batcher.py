@@ -462,11 +462,21 @@ def test_adaptive_light_load_flushes_before_max_wait(envs):
 
 def test_adaptive_saturated_load_fills_buckets(envs):
     """With the queue never empty the target stays at the largest bucket and
-    every batch fills: 32 items in 8 batches of 4."""
+    every batch fills: 32 items in 8 batches of 4. The precondition holds by
+    construction: all 32 items are queued before the group loop first runs,
+    and the max-wait timer (30 s) cannot expire while the loop works through
+    them, so no flush is timer-driven. (At 50 ms, as in the reference's test,
+    the items at the back of the queue outlived the timer behind the
+    admission slots whenever parallel test workers slowed the forwards, and
+    the timer flushes shrank the target to 1 or 2.) A timer-driven flush
+    under a full queue, and its effect on the target, is held only by the
+    reference's twin of this test in tests/test_batcher.py."""
     async def go():
-        b, metrics = make_batcher(envs["port"], deadline_ms=50.0, max_queue=64)
+        b, metrics = make_batcher(envs["port"], deadline_ms=30_000.0, max_queue=64)
         await b.start()
-        await asyncio.wait_for(asyncio.gather(*[b.submit(item()) for _ in range(32)]), 30)
+        futs = [b.submit(item()) for _ in range(32)]
+        assert b._pending == 32  # queued before the group loop takes a batch
+        await asyncio.wait_for(asyncio.gather(*futs), 30)
         await b.stop()
         assert counter(metrics, "items_total") == 32
         assert counter(metrics, "batches_total") == 8

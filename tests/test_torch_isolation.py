@@ -1,6 +1,7 @@
 """The port stands alone: ``tpuserve_torch`` imports with ``jax``, ``flax``
 and ``tpuserve`` blocked, no module of it (nor ``chip_smoke.py``) imports
-them, and its entry points run on CUDA unless the CPU is asked for —
+them or ``aiohttp`` (``tpuserve_torch.bench`` imports with ``aiohttp`` and
+PIL blocked too), and its entry points run on CUDA unless the CPU is asked for —
 without CUDA they raise instead of falling back."""
 
 import ast
@@ -76,6 +77,40 @@ def test_every_module_imports_with_jax_flax_tpuserve_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 15  # every module of the package
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_aiohttp_import_anywhere(path):
+    """Not even lazily: the load generator and the chaos runner speak HTTP
+    through ``tpuserve_torch.bench.client``."""
+    bad = [n for n in _imports(path) if n.split(".")[0] == "aiohttp"]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_bench_imports_and_builds_payloads_with_aiohttp_blocked():
+    """``tpuserve_torch.bench`` (client, loadgen, roofline) and the CLI
+    import, and the load generator builds every synthetic body but JPEG,
+    with jax, flax, tpuserve, aiohttp and PIL blocked; a JPEG body then
+    fails with a clear message."""
+    code = (
+        "import sys\n"
+        f"for name in {(*BLOCKED, 'aiohttp', 'PIL')!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import tpuserve_torch.cli\n"
+        "from tpuserve_torch.bench import client, loadgen, roofline\n"
+        "assert loadgen.synthetic_frame(16, 2, 'yuv420')\n"
+        "assert loadgen.synthetic_pool('npy', 2, 8) and loadgen.synthetic_prompt_pool(3)\n"
+        "try:\n"
+        "    loadgen.synthetic_image_jpeg(16)\n"
+        "except RuntimeError as e:\n"
+        "    print('jpeg:', e)\n"
+        "print(sorted(m for m in sys.modules if m.startswith('tpuserve_torch.bench')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ENV,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "jpeg: synthetic JPEG payloads need PIL" in out.stdout
+    assert ("['tpuserve_torch.bench', 'tpuserve_torch.bench.client', "
+            "'tpuserve_torch.bench.loadgen', 'tpuserve_torch.bench.roofline']") in out.stdout
 
 
 @pytest.fixture

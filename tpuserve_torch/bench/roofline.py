@@ -1,0 +1,191 @@
+"""Roofline attribution and bench-variance helpers, copied from
+``tpuserve/bench/roofline.py`` (the port keeps its own copy: it imports
+nothing of the JAX package).
+
+- ``build_roofline`` assembles a bench's ``roofline`` block from the phase
+  histograms, the per-bucket raw-forward probes
+  (``ModelRuntime.probe_raw_ms``) and a measured link rate: per bucket the
+  raw device ms and wire ms, per phase the observed p50 against its
+  physical ceiling (``pct_of_ceiling``), the compute split into device time
+  and host wait, and the binding phase.
+- ``compute_split`` and ``phase_p50`` price the ``/stats`` ``roofline``
+  block's compute split (``ServerState.roofline``).
+- ``best_window`` / ``spread_pct`` / ``cv_pct``: the variance discipline of
+  a multi-pass bench (the best consecutive window of k passes, its spread
+  and coefficient of variation).
+
+Pure functions over plain dicts and lists, equal to the reference's on the
+same inputs (``tests/test_torch_loadgen.py``).
+"""
+
+from __future__ import annotations
+
+import math
+
+# Phases with a measurable physical ceiling, and what prices it:
+# body_read against the measured link rate at the actual request-body size
+# (the ingest wire — with the framed format, bytes-per-item is
+# frame.item_nbytes plus the amortized header/table), h2d against the
+# measured link rate at the serving transfer size, compute against the
+# bucket's raw-executable probe. parse/queue/preproc/postproc are
+# host-side bookkeeping with no hardware floor — reported, not ratioed.
+ROOFLINE_CEILINGS = {"body_read": "wire", "h2d": "wire", "compute": "device"}
+
+# Attribution order (ingest phases first): body_read and parse
+# are request-scoped (observed by the HTTP layer), the rest batch-scoped.
+# With the framed wire carrying one device bucket per POST the two scales
+# are directly comparable; with single-item POSTs a request is 1/bucket of
+# a batch — read the per_bucket rows before comparing across the seam.
+ROOFLINE_PHASES = ("body_read", "parse", "queue", "preproc", "h2d",
+                   "compute", "postproc")
+
+
+def best_window(values: list[float], k: int = 3) -> tuple[int, list[float]]:
+    """The best (lowest relative spread) CONSECUTIVE window of ``k`` passes.
+
+    Consecutive on purpose: cherry-picking the k closest passes from
+    anywhere would let a bimodal run (fast half / slow half) fake
+    convergence; adjacent passes share the same minute of host and link
+    conditions, so their agreement is evidence the measurement settled."""
+    if not values:
+        return 0, []
+    k = max(1, min(k, len(values)))
+    best_i, best_s = 0, math.inf
+    for i in range(len(values) - k + 1):
+        w = values[i:i + k]
+        s = spread_pct(w)
+        if s < best_s:
+            best_i, best_s = i, s
+    return best_i, values[best_i:best_i + k]
+
+
+def spread_pct(window: list[float]) -> float:
+    """100 * (max - min) / max over a window; 0 for empty/degenerate."""
+    if not window:
+        return 0.0
+    hi = max(window)
+    return 100.0 * (hi - min(window)) / hi if hi > 0 else 0.0
+
+
+def cv_pct(window: list[float]) -> float:
+    """Coefficient of variation (population stddev / mean) in percent."""
+    if not window:
+        return 0.0
+    mean = sum(window) / len(window)
+    if mean <= 0:
+        return 0.0
+    var = sum((v - mean) ** 2 for v in window) / len(window)
+    return 100.0 * math.sqrt(var) / mean
+
+
+def phase_p50(latency_summary: dict, model: str, phase: str) -> float | None:
+    """Observed p50 (ms) for one model phase from Metrics.summary()["latency"];
+    None when the phase recorded nothing."""
+    row = latency_summary.get(f"latency_ms{{model={model},phase={phase}}}")
+    if not row or not row.get("n"):
+        return None
+    return float(row["p50_ms"])
+
+
+def wire_ms_per_batch(bucket: int, img_bytes: int,
+                      link_mbps: float) -> float | None:
+    """Ideal transfer time for one padded batch at the measured link rate."""
+    if not link_mbps or link_mbps <= 0:
+        return None
+    return bucket * img_bytes / (link_mbps * 1e6) * 1e3
+
+
+def compute_split(observed_ms: float | None,
+                  device_ms: float | None) -> dict | None:
+    """Decompose the observed compute phase into device-time vs host-wait.
+
+    ``device_ms`` is the raw-executable probe for the relevant bucket
+    (inputs resident, dependent read); everything the serving path observes
+    beyond it — transfer drain on buffered links, device queueing behind
+    other batches, fetch-executor wait — is host-wait. This is the 465-vs-24
+    gap as a named number."""
+    if observed_ms is None or device_ms is None or device_ms <= 0:
+        return None
+    return {
+        "observed_p50_ms": round(observed_ms, 3),
+        "device_ms": round(device_ms, 3),
+        "host_wait_ms": round(max(0.0, observed_ms - device_ms), 3),
+        "pct_of_ceiling": round(100.0 * min(observed_ms, device_ms)
+                                / observed_ms, 1) if observed_ms > 0 else None,
+    }
+
+
+def build_roofline(latency_summary: dict, model: str, buckets: list[int],
+                   raw_ms_by_bucket: dict[int, float | None],
+                   link_mbps: float, img_bytes: int,
+                   chip_img_s: float | None,
+                   value_img_s: float | None,
+                   n_chips: int = 1,
+                   req_bytes: int | None = None) -> dict:
+    """The bench/``/stats`` ``roofline`` block for one model.
+
+    ``raw_ms_by_bucket`` maps batch size -> raw-executable ms/batch (None
+    where unprobed). Ceilings: the top bucket's wire time for h2d, its raw
+    executable time for compute (the top bucket is what a saturated closed
+    loop overwhelmingly serves; per-bucket numbers ship alongside so the
+    reader can re-ratio for other fills).
+
+    ``chip_img_s`` is the SINGLE-chip compute probe; with ``n_chips`` > 1
+    the serving path has n_chips of those, so ``pct_of_chip_ceiling`` is
+    taken against the aggregate (chip_img_s x n_chips) — an 8-chip run
+    reporting 100% of one chip's ceiling is at 12.5% of the hardware it
+    holds, and the block must say so.
+
+    ``req_bytes`` is the actual HTTP request-body size the load
+    used — for the framed wire, ``frame.frame_nbytes(kind, edge, items)``
+    — pricing the ``body_read`` ingest phase against the link the same way
+    ``h2d`` is priced."""
+    top = max(buckets) if buckets else None
+    per_bucket: dict[str, dict] = {}
+    for b in sorted(buckets):
+        raw = raw_ms_by_bucket.get(b)
+        wire = wire_ms_per_batch(b, img_bytes, link_mbps)
+        per_bucket[str(b)] = {
+            "raw_ms_per_batch": round(raw, 3) if raw else None,
+            "raw_img_s": round(b / raw * 1e3, 1) if raw else None,
+            "wire_ms_per_batch": round(wire, 3) if wire else None,
+        }
+    ceilings = {
+        "body_read": (req_bytes / (link_mbps * 1e6) * 1e3
+                      if req_bytes and link_mbps and link_mbps > 0 else None),
+        "h2d": wire_ms_per_batch(top, img_bytes, link_mbps) if top else None,
+        "compute": raw_ms_by_bucket.get(top) if top else None,
+    }
+    phases: dict[str, dict] = {}
+    binding, binding_ms = None, -1.0
+    for phase in ROOFLINE_PHASES:
+        p50 = phase_p50(latency_summary, model, phase)
+        row: dict = {"p50_ms": round(p50, 3) if p50 is not None else None}
+        ceil = ceilings.get(phase)
+        if ceil and p50:
+            row["ceiling_ms"] = round(ceil, 3)
+            row["ceiling_kind"] = ROOFLINE_CEILINGS[phase]
+            row["pct_of_ceiling"] = round(100.0 * min(p50, ceil) / p50, 1)
+        phases[phase] = row
+        # Binding constraint among the pipelined per-batch stages (queue is
+        # a symptom of the binding stage, not a stage itself).
+        if phase != "queue" and p50 is not None and p50 > binding_ms:
+            binding, binding_ms = phase, p50
+    out = {
+        "per_bucket": per_bucket,
+        "phases": phases,
+        "compute_split": compute_split(
+            phase_p50(latency_summary, model, "compute"),
+            ceilings.get("compute")),
+        "binding_phase": binding,
+    }
+    if req_bytes:
+        out["ingest_req_bytes"] = int(req_bytes)
+    if chip_img_s and value_img_s is not None:
+        n = max(1, n_chips)
+        aggregate = chip_img_s * n
+        out["chip_ceiling_img_s"] = round(chip_img_s, 1)
+        out["aggregate_chip_ceiling_img_s"] = round(aggregate, 1)
+        out["n_chips"] = n
+        out["pct_of_chip_ceiling"] = round(100.0 * value_img_s / aggregate, 1)
+    return out

@@ -17,8 +17,11 @@
 - :class:`Watchdog`: a periodic sweep that restarts dead group-accumulation
   tasks, counted in ``watchdog_restarts_total{model=,component=}``.
 
-The reference's chaos runner (``run_chaos``) drives its aiohttp load
-generator and is not ported (ROADMAP.md queue 1, "Server, rest").
+- :func:`run_chaos`: the chaos runner (``python -m tpuserve_torch chaos``):
+  serves a built ``ServerState`` on an ephemeral local port, drives the
+  port's load generator (``tpuserve_torch.bench.loadgen``) at one model,
+  optionally hammers ``:reload`` (the ``reload`` drill), and reports
+  availability, the injector's counts, the breakers and the lifecycle.
 """
 
 from __future__ import annotations
@@ -282,3 +285,90 @@ class Watchdog:
                     f"watchdog_restarts_total{{model={model},component={component}}}").inc(n)
                 total += n
         return total
+
+
+# ---------------------------------------------------------------------------
+# Chaos-run harness (python -m tpuserve_torch chaos)
+# ---------------------------------------------------------------------------
+
+async def run_chaos(state, model_name: str, duration_s: float = 10.0,
+                    warmup_s: float = 1.0, concurrency: int = 16,
+                    rate_per_s: float | None = None, verb: str = "predict",
+                    edge: int = 256, drill: str | None = None,
+                    drill_interval_s: float = 0.5) -> dict:
+    """Serve ``state`` on an ephemeral local port, drive the load generator
+    at one model, and report availability + per-rule injection counts.
+
+    The server must be built (``state.build()``) but not started; this owns
+    its lifecycle. Intended for staging chaos drills: arm ``[faults]`` rules
+    in the config and assert the availability number here, not in prod.
+
+    ``drill="reload"`` additionally hammers ``:reload`` every
+    ``drill_interval_s`` throughout the run — with ``reload_corrupt`` /
+    ``reload_nan`` / ``reload_regressed`` rules armed this proves the
+    lifecycle gates hold availability while every reload is failing; the
+    summary carries the reload outcomes and final lifecycle state."""
+    from tpuserve_torch.bench.client import ClientSession
+    from tpuserve_torch.bench.loadgen import run_load, run_load_open, synthetic_image_npy
+    from tpuserve_torch.server import start_server, stop_server
+
+    server = await start_server(state, host="127.0.0.1", port=0)
+    drill_task = None
+    reload_stats = {"attempts": 0, "ok": 0, "rejected": 0, "rolled_back": 0,
+                    "errors": 0}
+
+    async def reload_driller(base: str) -> None:
+        async with ClientSession() as session:
+            while True:
+                await asyncio.sleep(drill_interval_s)
+                reload_stats["attempts"] += 1
+                try:
+                    r = await session.post(f"{base}/admin/models/{model_name}:reload")
+                    body = r.json()
+                    if r.status == 200:
+                        reload_stats["ok"] += 1
+                    elif body.get("rolled_back"):
+                        reload_stats["rolled_back"] += 1
+                    else:
+                        reload_stats["rejected"] += 1
+                except asyncio.CancelledError:
+                    raise
+                except Exception:  # noqa: BLE001 — drill races teardown
+                    reload_stats["errors"] += 1
+
+    try:
+        port = state.serving_addresses[0][1]
+        base = f"http://127.0.0.1:{port}"
+        url = f"{base}/v1/models/{model_name}:{verb}"
+        payload = synthetic_image_npy(edge=edge)
+        if drill == "reload":
+            drill_task = asyncio.get_running_loop().create_task(
+                reload_driller(base))
+        if rate_per_s:
+            result = await run_load_open(url, payload, "application/x-npy",
+                                         rate_per_s, duration_s, warmup_s)
+        else:
+            result = await run_load(url, payload, "application/x-npy",
+                                    duration_s, concurrency, warmup_s)
+    finally:
+        if drill_task is not None:
+            drill_task.cancel()
+            try:
+                await drill_task
+            except asyncio.CancelledError:
+                pass
+        # Snapshot lifecycle state BEFORE cleanup tears the server down.
+        lifecycle_out = {n: lc.describe()
+                         for n, lc in state.lifecycles.items()}
+        await stop_server(state, server)
+    out = result.summary()
+    total = result.n_ok + result.n_err
+    out["availability"] = round(result.n_ok / total, 5) if total else 0.0
+    if state.injector is not None:
+        out["faults"] = state.injector.snapshot()
+    out["breakers"] = {n: br.describe() for n, br in state.breakers.items()}
+    if lifecycle_out:
+        out["lifecycle"] = lifecycle_out
+    if drill is not None:
+        out["reload_drill"] = reload_stats
+    return out

@@ -717,3 +717,13 @@ class phase_timer:
         if self.trace:
             self.metrics.tracer.add(self.phase, self.wall0, self.wall0 + (t1 - self.t0),
                                     tid=self.model)
+
+
+def percentile(values: Iterable[float], q: float) -> float:
+    """Exact percentile of a finite sample (bench-side helper): the
+    ``ceil(q * n)``-th smallest value, as the reference's."""
+    vs = sorted(values)
+    if not vs:
+        return 0.0
+    idx = min(len(vs) - 1, max(0, math.ceil(q * len(vs)) - 1))
+    return vs[idx]

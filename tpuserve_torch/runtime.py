@@ -226,6 +226,9 @@ class ModelRuntime:
         model.bind_mesh(self.mesh)
         self.slots: list[Slot] = []
         self.variants: dict[VariantKey, Variant] = {}
+        # Raw forward ms per bucket from the startup probes (probe_raw_ms),
+        # the /stats roofline block's device-time term.
+        self.raw_ms_per_batch: dict[tuple, float] = {}
         # memory_reserved() before the first capture and after the last.
         self.capture_memory: dict[str, int] = {}
         # When True, h2d() waits for its own copy so the "h2d" phase owns
@@ -471,7 +474,8 @@ class ModelRuntime:
         """The forward's time for one bucket (ms/batch), inputs resident:
         ``iters`` back-to-back dispatches against one device batch, closed
         by one dependent read, so the host-device copy never enters the
-        window. Call at startup, before the injector is armed."""
+        window; recorded (rounded to 3 places) in ``raw_ms_per_batch``.
+        Call at startup, before the injector is armed."""
         dev = self.h2d(bucket, self._zeros(bucket))
         self.fetch(self.dispatch(bucket, dev))  # warm the window
         t0 = time.perf_counter()
@@ -479,17 +483,20 @@ class ModelRuntime:
         for _ in range(max(1, iters)):
             out = self.dispatch(bucket, dev)
         self.fetch(out)
-        return (time.perf_counter() - t0) / max(1, iters) * 1e3
+        ms = (time.perf_counter() - t0) / max(1, iters) * 1e3
+        self.raw_ms_per_batch[bucket] = round(ms, 3)
+        return ms
 
     def probe_all_raw(self, iters: int = 8) -> dict[tuple, float]:
-        """probe_raw_ms over every bucket, logged; returns {bucket: ms}."""
+        """probe_raw_ms over every bucket, logged; returns the map (also
+        kept on the runtime for /stats roofline attribution)."""
         t0 = time.perf_counter()
-        out = {b: self.probe_raw_ms(b, iters=iters)
-               for b in sorted(v.bucket for v in self.variants)}
+        for b in sorted(v.bucket for v in self.variants):
+            self.probe_raw_ms(b, iters=iters)
         log.info("%s: raw-forward probes %s in %.1fs", self.model.name,
-                 {str(b): round(ms, 3) for b, ms in out.items()},
+                 {str(b): ms for b, ms in sorted(self.raw_ms_per_batch.items())},
                  time.perf_counter() - t0)
-        return out
+        return dict(self.raw_ms_per_batch)
 
     # -- versioned weight lifecycle ------------------------------------------
     #
@@ -639,6 +646,8 @@ class ModelRuntime:
             "slots": {"count": len(self.slots), "live": self._live, "previous": self._prev},
             "captures_total": self.captures_total,
             "capture_memory": dict(self.capture_memory),
+            "raw_ms_per_batch": {str(list(b)): v
+                                 for b, v in sorted(self.raw_ms_per_batch.items())},
             "params": tree_summary(params),
         }
 

@@ -24,9 +24,13 @@ Endpoints (response shapes and status codes as in the JAX server):
   device —, the ``robustness`` block — draining, each model's breaker, the
   armed faults —, the ``cache`` block when ``[cache]`` is on, the ingest
   block — requests and bytes per accept loop, frame errors and
-  native-decode fallbacks per model —, the host pipeline and the kernels'
-  launch counts), ``GET /v1/models`` (buckets, variants, dtype, quantize,
-  device).
+  native-decode fallbacks per model —, the host pipeline, the kernels'
+  launch counts and the ``roofline`` block — per model the resident
+  variants, ``compiles_total``, the startup probes' raw forward ms per
+  bucket (``roofline_probe_iters``), ``utilization`` and the compute phase
+  split into device time and host wait —), ``GET /v1/models`` (buckets,
+  variants, dtype, quantize, device), ``GET /`` (the reference's HTML
+  index page, byte for byte).
 - ``POST /debug/kernels:reset`` sets the kernels' launch counts to 0, so a
   caller can count exactly the launches of the requests it sends next.
 - Observability (the reference's defaults, on unless their table switches
@@ -80,9 +84,8 @@ event with its trace id. Admin verbs (``:reload``, ``:rollback``, profile,
 drain) leave audit records.
 
 Not ported yet (ROADMAP.md queue 1): the router/worker tiers and their
-black box, the fleet scheduler (``:warm``/``:demote``), tenants, streaming,
-``/``, ``/metrics/fleet``, the ``/stats`` roofline block and
-``profiler_port``.
+black box, the fleet scheduler (``:warm``/``:demote``), tenants
+(``/tenants``), streaming, ``/metrics/fleet`` and ``profiler_port``.
 """
 
 from __future__ import annotations
@@ -109,6 +112,7 @@ from tpuserve_torch import models as modelzoo
 from tpuserve_torch import preproc
 from tpuserve_torch.batcher import (DeadlineExceeded, ModelBatcher, QueueFull,
                                     clamp_retry_after_s)
+from tpuserve_torch.bench.roofline import compute_split, phase_p50
 from tpuserve_torch.cache import ModelCache
 from tpuserve_torch.config import ServerConfig, SloConfig, unported_settings
 from tpuserve_torch.faults import CircuitBreaker, FaultInjector, Watchdog
@@ -131,6 +135,25 @@ log = logging.getLogger("tpuserve_torch.server")
 _VERBS = ("predict", "classify", "detect", "generate")
 _MAX_BODY = 64 * 1024 * 1024  # the JAX server's client_max_size
 _MAX_HEAD = 64 * 1024
+
+# The JAX server's index page, byte for byte.
+_INDEX_HTML = """<!doctype html><title>tpuserve</title>
+<h1>tpuserve</h1>
+<p>POST an image to <code>/v1/models/&lt;name&gt;:classify</code>.
+See <a href="/v1/models">models</a>, <a href="/metrics">metrics</a>,
+<a href="/stats">stats</a>, <a href="/healthz">health</a>.</p>
+<form method=post enctype=multipart/form-data onsubmit="
+  event.preventDefault();
+  const f=document.getElementById('f').files[0];
+  const m=document.getElementById('m').value;
+  fetch('/v1/models/'+m+':predict',{method:'POST',body:f,
+    headers:{'Content-Type':f.type}})
+   .then(r=>r.json()).then(j=>document.getElementById('out').textContent=
+     JSON.stringify(j,null,2));
+">
+<input type=text id=m value=resnet50> <input type=file id=f>
+<button>predict</button></form><pre id=out></pre>
+"""
 
 
 @dataclass
@@ -587,6 +610,7 @@ class ServerState:
         if path.startswith("/admin/models/"):
             return await self.admin(req, path[len("/admin/models/"):])
         routes = {
+            "/": ("GET", self.index),
             "/healthz": ("GET", self.healthz),
             "/metrics": ("GET", self.metrics_text),
             "/stats": ("GET", self.stats),
@@ -666,6 +690,10 @@ class ServerState:
         audit("ok", version=info.get("version"))
         return json_response(info)
 
+    def index(self, req: Request) -> Response:
+        return Response(200, _INDEX_HTML.encode("utf-8"),
+                        content_type="text/html; charset=utf-8")
+
     def healthz(self, req: Request) -> Response:
         if self.draining:
             return json_response({"status": "draining", "models": self.canary_ok},
@@ -731,7 +759,40 @@ class ServerState:
         }
         if self.caches:
             out["cache"] = {n: c.stats() for n, c in self.caches.items()}
+        roofline = self.roofline(out["latency"])
+        if roofline:
+            out["roofline"] = roofline
         return json_response(out)
+
+    def roofline(self, latency_summary: dict) -> dict:
+        """The /stats ``roofline`` block, as the reference builds it: per
+        model the resident variants, the lifetime compile count, the raw
+        forward ms per bucket (when ``roofline_probe_iters`` armed the
+        startup probes), the live utilization, and the serving compute
+        phase split into device time and host wait."""
+        out: dict = {}
+        for name, rt in self.runtimes.items():
+            row: dict = {
+                "variants": rt.variants_summary(),
+                "compiles_total": rt.compiles_total,
+                "raw_ms_per_batch": {str(list(b)): v
+                                     for b, v in sorted(rt.raw_ms_per_batch.items())},
+            }
+            if self.util is not None:
+                u = self.util.stats().get(name)
+                if u:
+                    row["utilization"] = u
+            raw_vals = [v for v in rt.raw_ms_per_batch.values() if v]
+            if raw_vals:
+                # The largest probed bucket prices the split: it is what a
+                # saturated loop overwhelmingly serves, and the biggest raw
+                # time makes host_wait a lower bound.
+                split = compute_split(phase_p50(latency_summary, name, "compute"),
+                                      max(raw_vals))
+                if split is not None:
+                    row["compute_split"] = split
+            out[name] = row
+        return out
 
     # -- observability routes -------------------------------------------------
     def debug_trace(self, req: Request) -> Response:
