@@ -231,13 +231,44 @@ Phases (any failure exits non-zero before the result line):
    summary, the K1 counts, both configs' roofline blocks, the utilization
    samples and the startup probe's raw (32, 128) ms beside phase 6's
    replay device time of the same bucket.
-17. Print a ``slice`` line per path, the ``graphs`` line (phase 6-8's,
+17. Text generation (``textgen_phase``): K1 against its plain version at
+   the prefill's shapes ((1, 256) inserts, (32, 256) locked batches, bf16,
+   padded keys, and a one-token prompt), timed with its bound, plain
+   version and SDPA; then serve ``examples/textgen_flash.toml`` (GPT-2
+   small's widths: 12 layers, d 768, 12 heads, d_ff 3072, vocab 50257;
+   prompt 256, max_new 256, 32 slots, bf16, ``attention = "flash"``, seeded
+   weights) through ``python -m tpuserve_torch serve``, the generation
+   engine's programs captured per parameter slot and state block. With the
+   counts at 0, 16 seeded ``:generate`` requests (8-256-word prompts,
+   max_new_tokens 1-256, temperatures 0 and 0.7) in two waves: K1 launches
+   = 12 x inserts (none per decode step), fold-ins and early exits > 0; a
+   mid-generation deadline answers 504 (one eviction); ``?stream=true``
+   501; the same requests again and across ``:reload`` (the engine's
+   staged canary) and ``:rollback``: tokens unchanged, compiles and
+   captures moved 0; ``bench --synthetic prompt`` (64 prompts, max_new
+   1-256, every 8th a 200-word prompt) for 5 s at 32 connections with
+   ``n_err`` 0. In-process, on the same seeded weights: each program's
+   replay bit-identical to its eager call; the in-process engine's tokens
+   equal the served ones; the locked-batch forward (bucket 32) gives the
+   same tokens — a lane may differ first only at a step where the locked
+   batch's top-two sampling margin is below ``TG_MARGIN`` (1e-3), and such
+   lanes are counted; the same for the dense-attention model; flash
+   against dense under the same rule in float32 (TF32 off), and in bf16
+   reported only (the two attention cores round the scores differently,
+   which moves logits past the rule's 1e-3); the staged canary leaves the live state block's bytes
+   unchanged; the step's host and device time at 1, 8 and 32 active slots,
+   the insert's, and the step's device time by kind; whole-prompt paged KV
+   tokens equal the dense engine's. Then a second server with
+   ``genserve.kv_paging = true`` and ``prefill_chunk = 64``: chunked tokens
+   equal across two runs and batch mixes, and KV exhaustion sheds 503
+   ``kv_pressure``.
+18. Print a ``slice`` line per path, the ``graphs`` line (phase 6-8's,
    13's and 14's graph checks and host times), the ``lifecycle`` line, the
    ``robustness`` line (with phase 8's, 13's and 14's first-request
    tables), the ``observability``, ``defaults_cost`` and ``cli`` lines, and
    the ``kernels`` line (K1 and K2, each with its launches on its path,
-   counted through graph replays, K1's on the int8c path and in each of
-   phase 16's ``bench`` runs beside; the vision
+   counted through graph replays, K1's on the int8c path, in each of
+   phase 16's ``bench`` runs and on phase 17's textgen path beside; the vision
    paths run neither), the card line, then the result line ``{"ok": true,
    "device": {...}}``. Every phase's JSON line from 11 on carries the
    card's name and power limit.
@@ -1048,7 +1079,8 @@ def serving(config: Path, n_buckets: int, overrides: tuple = (), extra_toml: str
             for name, g in served_graphs(port).items():
                 mem = g["capture_memory"]
                 print(f"slice: {name} serves from {g['captures_total']} CUDA graphs "
-                      f"({g['buckets']} buckets x 3 parameter slots); memory_reserved "
+                      f"({g['buckets']} buckets or programs x "
+                      f"{g['captures_total'] // max(1, g['buckets'])} each); memory_reserved "
                       f"{mem['reserved_before_bytes'] / 2**20:.0f} MiB before capture, "
                       f"{mem['reserved_after_bytes'] / 2**20:.0f} MiB after", flush=True)
             yield (port, proc) if with_proc else port
@@ -3477,6 +3509,528 @@ def cli_phase(card: str) -> dict:
     return out
 
 
+# -- phase 17: text generation through the iteration-level engine -----------------------
+
+TEXTGEN_CONFIG = ROOT / "examples" / "textgen_flash.toml"
+# A token may differ between two computations of one request only at a step
+# where the reference computation's top-two margin of its sampling scores
+# (logits, or logits / T + Gumbel noise) is below this.
+TG_MARGIN = 1e-3
+TG_LAYERS = 12
+
+
+def textgen_bodies(n: int = 16, seed: int = 0) -> list[dict]:
+    """``n`` seeded :generate bodies: prompts of 8-256 words, max_new_tokens
+    1-256 (the extremes included), temperatures 0 and 0.7 alternating."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        words = 256 if i == 2 else 8 if i == 3 else int(rng.integers(8, 257))
+        out.append({"prompt": " ".join(rng.choice(WORDS, words)),
+                    "seed": int(rng.integers(0, 2**31 - 1)),
+                    "max_new_tokens": 256 if i == 0 else 1 if i == 1 else int(rng.integers(1, 257)),
+                    "temperature": 0.7 if i % 2 else 0.0})
+    return out
+
+
+def textgen_model(attention: str = "flash", dtype: str = "bfloat16"):
+    import dataclasses
+
+    from tpuserve_torch.config import load_config
+    from tpuserve_torch.models import build
+
+    cfg = load_config(str(TEXTGEN_CONFIG))
+    mcfg = cfg.models[0]
+    return build(dataclasses.replace(mcfg, dtype=dtype,
+                                     options={**mcfg.options, "attention": attention})), cfg
+
+
+def textgen_engine(attention: str = "flash", dtype: str = "bfloat16", **genserve):
+    """An in-process engine on the card over examples/textgen_flash.toml's
+    model (seed-0 weights, as the server's), programs captured."""
+    import dataclasses
+
+    from tpuserve_torch.genserve import GenEngine
+    from tpuserve_torch.obs import Metrics
+    from tpuserve_torch.runtime import build_runtime
+
+    model, cfg = textgen_model(attention, dtype)
+    rt = build_runtime(model, device="cuda", compile_forward=False)
+    eng = GenEngine(model, rt, Metrics(), dataclasses.replace(cfg.genserve, **genserve))
+    eng.compile()
+    return model, rt, eng
+
+
+def engine_tokens(eng, items: list, waves: int = 1) -> list:
+    """Tokens of ``items`` through an in-process engine, submitted in
+    ``waves`` (later waves fold into a generating block)."""
+    import asyncio
+
+    async def go():
+        await eng.start()
+        futs, per = [], -(-len(items) // waves)
+        for w in range(waves):
+            futs += [eng.submit(it) for it in items[w * per:(w + 1) * per]]
+            await asyncio.sleep(0.05)
+        res = await asyncio.gather(*futs)
+        await eng.stop()
+        return [r["tokens"] for r in res]
+
+    return asyncio.run(go())
+
+
+def locked_tokens(model, module, items: list) -> tuple[list, list]:
+    """The locked-batch forward (``model.forward``, prefill + max_new - 1
+    steps) over ``items`` padded to bucket 32, on ``module``: each lane's
+    tokens, and per sampling call the top-two margin of every lane's
+    sampling scores."""
+    import torch
+
+    from tpuserve_torch.ops import threefry
+
+    margins = []
+    orig = model._sample
+
+    def recording(logits, seed, position, temp):
+        lg = logits.float()
+        k0, k1 = threefry.key(torch.zeros_like(seed))
+        k0, k1 = threefry.fold_in(*threefry.fold_in(k0, k1, seed), position)
+        g = threefry.gumbel(threefry.bits32(k0, k1, lg.shape[-1]))
+        t = torch.where(temp > 0, temp, torch.ones_like(temp))[:, None]
+        scores = torch.where(temp[:, None] > 0, lg / t + g, lg)
+        top = scores.topk(2, dim=-1).values
+        margins.append(top[:, 0] - top[:, 1])
+        return orig(logits, seed, position, temp)
+
+    batch = model.assemble(items, (32,))
+    model._sample = recording
+    try:
+        with torch.inference_mode():
+            out = model.forward(module, tuple(torch.from_numpy(a).cuda() for a in batch))
+    finally:
+        model._sample = orig
+    res = model.host_postprocess({k: v.cpu().numpy() for k, v in out.items()}, len(items))
+    return [r["tokens"] for r in res], torch.stack(margins, dim=1).cpu().numpy()
+
+
+def compare_tokens(got: list, want: list, margins, label: str, gate: bool = True) -> dict:
+    """Lane by lane: ``got`` equals ``want`` up to the first differing step,
+    which is allowed only where ``want``'s top-two margin is below
+    TG_MARGIN (the lane is not compared past it: both continue from
+    different tokens). Returns the lanes that differ, each as (lane, step,
+    margin). ``gate=False`` reports them without holding the rule."""
+    diff = []
+    for lane, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        step = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), min(len(g), len(w)))
+        margin = float(margins[lane, step])
+        check(margin < TG_MARGIN or not gate,
+              f"{label}: lane {lane} differs at step {step} ({g[step:step + 3]} vs "
+              f"{w[step:step + 3]}) where the margin is {margin:.3g} >= {TG_MARGIN}")
+        diff.append((lane, step, margin))
+    print(f"textgen: {label}: {len(got) - len(diff)} of {len(got)} lanes identical, "
+          f"{len(diff)} differ, first at (lane, step, margin) {diff}"
+          + ("" if gate else " (reported, not held to the rule)"), flush=True)
+    return {"identical_lanes": len(got) - len(diff), "differing_lanes": diff}
+
+
+def textgen_kernel_checks() -> dict:
+    """K1 against its plain version at the textgen prefill's shapes: the
+    insert (1, 256), the locked batch (32, 256), a one-token prompt; timed at
+    both."""
+    import torch
+
+    compare(*qkv(1, 256, 256, 12, 64, torch.bfloat16, seed=31))
+    compare(*qkv(32, 256, 256, 12, 64, torch.bfloat16, seed=32))
+    q, k, v, _ = qkv(1, 256, 256, 12, 64, torch.bfloat16, seed=33)
+    bias = torch.full((1, 256), -1e9, device="cuda")
+    bias[0, 0] = 0.0
+    err_one = compare(q, k, v, bias)
+    out = {b: k1_timing(b, 256) for b in (1, 32)}
+    print(f"textgen: K1 agrees with its plain version at (1, 256), (32, 256) and a one-token "
+          f"prompt (max abs err {err_one:.3g}); (1, 256) {out[1]['line']['ms'] * 1e3:.2f} us, "
+          f"(32, 256) {out[32]['line']['ms'] * 1e3:.2f} us", flush=True)
+    return out
+
+
+def program_graphs_check(rt, item) -> dict:
+    """Every program's graph replay against its eager call on a copy of the
+    same state block and arguments: bit-identical state and outputs."""
+    import numpy as np
+    import torch
+
+    from tpuserve_torch.runtime import LIVE_BLOCK
+
+    block = rt.state_blocks[LIVE_BLOCK]
+    fold_in = "prefill" if "prefill" in rt.gen_programs else "insert"
+    pps = block["bt"].shape[1] if fold_in == "prefill" else 0
+    args = {"insert": (np.array([3]), item), "step": (), "extract": (np.array([3]),),
+            "prefill": (np.array([3]), item, np.int32(0),
+                        np.arange(1, pps + 1, dtype=np.int32))}
+    rows = {}
+    rt.zero_state(LIVE_BLOCK)
+    for tag in (fold_in, "step", "step", "extract"):
+        prog = rt.gen_programs[tag]
+        copy = {k: t.clone() for k, t in block.items()}
+        flat = [a for x in args[tag] for a in (x if isinstance(x, tuple) else (x,))]
+        tensors = [torch.from_numpy(np.asarray(a, dtype=s.dtype)).cuda()
+                   for a, s in zip(flat, [s for x in prog.arg_specs
+                                          for s in (x if isinstance(x, tuple) else (x,))])]
+        it = iter(tensors)
+        eager_args = tuple(tuple(next(it) for _ in s) if isinstance(s, tuple) else next(it)
+                           for s in prog.arg_specs)
+        replay = rt.run_program(tag, *args[tag], block=LIVE_BLOCK)
+        with torch.inference_mode():
+            eager = prog.fn(rt.module, copy, *eager_args)
+        torch.cuda.synchronize()
+        outs = ({} if replay is None else
+                {"out": (replay, eager)} if torch.is_tensor(replay) else
+                {k: (replay[k], eager[k]) for k in replay})
+        pairs = {**{k: (block[k], copy[k]) for k in block}, **outs}
+        bad = [k for k, (a, b) in pairs.items() if not torch.equal(a, b)]
+        check(not bad, f"textgen: program {tag}'s replay differs from its eager call in {bad}")
+        rows[tag] = "bit-identical"
+    rt.zero_state(LIVE_BLOCK)
+    print(f"textgen: every program's replay is bit-identical to its eager call "
+          f"({sorted(rows)}), state block and outputs", flush=True)
+    return rows
+
+
+def step_timing(rt, eng, item, actives=(1, 8, 32), steps: int = 24) -> dict:
+    """The live block's step (replay + the pinned copy of its out-block, the
+    engine's per-step call) at 1, 8 and 32 active slots: host p50 per step
+    and the replay's device time (CUDA events); the insert's host time; the
+    step's device time by kind of kernel."""
+    import numpy as np
+    import torch
+
+    from tpuserve_torch.runtime import LIVE_BLOCK
+
+    out = {}
+    for n in actives:
+        rt.zero_state(LIVE_BLOCK)
+        inserts = []
+        for slot in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rt.run_program("insert", np.array([slot]), item, block=LIVE_BLOCK)
+            torch.cuda.synchronize()
+            inserts.append((time.perf_counter() - t0) * 1e3)
+        host = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            eng._step_sync()
+            host.append((time.perf_counter() - t0) * 1e3)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(steps):
+            rt.run_program("step", block=LIVE_BLOCK)
+        end.record()
+        torch.cuda.synchronize()
+        out[n] = {"step_host_p50_ms": sorted(host)[steps // 2],
+                  "step_device_ms": start.elapsed_time(end) / steps,
+                  "insert_host_p50_ms": sorted(inserts)[len(inserts) // 2]}
+    out["device_breakdown_step_32"] = device_breakdown(
+        lambda: rt.run_program("step", block=LIVE_BLOCK))
+    rt.zero_state(LIVE_BLOCK)
+    print("textgen: step host p50 / device ms at 1, 8, 32 active slots: "
+          + ", ".join(f"{n}: {out[n]['step_host_p50_ms']:.3f} / {out[n]['step_device_ms']:.3f}"
+                      for n in actives)
+          + f"; insert host p50 {out[32]['insert_host_p50_ms']:.3f} ms; step by kind "
+          f"{ {k: round(v, 4) for k, v in out['device_breakdown_step_32']['ms_by_kind'].items()} }",
+          flush=True)
+    return out
+
+
+def canary_keeps_live_block(rt, eng, item) -> None:
+    """The staged canary runs on the scratch block: a live block holding a
+    request mid-generation keeps every byte."""
+    import numpy as np
+    import torch
+
+    from tpuserve_torch.runtime import LIVE_BLOCK
+
+    rt.zero_state(LIVE_BLOCK)
+    rt.run_program("insert", np.array([5]), item, block=LIVE_BLOCK)
+    rt.run_program("step", block=LIVE_BLOCK)
+    before = {k: t.clone() for k, t in rt.state_blocks[LIVE_BLOCK].items()}
+    eng.staged_canary_sync(rt.stage_params())
+    torch.cuda.synchronize()
+    bad = [k for k, t in rt.state_blocks[LIVE_BLOCK].items() if not torch.equal(t, before[k])]
+    check(not bad, f"textgen: the staged canary changed the live block's {bad}")
+    rt.zero_state(LIVE_BLOCK)
+    print("textgen: the staged canary (scratch block) left the live block's bytes unchanged",
+          flush=True)
+
+
+def textgen_in_process(bodies: list, served: list) -> dict:
+    """In-process half: graphs, the locked batch against the served engine's
+    tokens, flash against dense, the canary's block, timings, and paged
+    whole-prompt KV against dense."""
+    import torch
+
+    t0 = time.perf_counter()
+    model, rt, eng = textgen_engine()
+    items = [model.host_decode(json.dumps(b).encode(), "application/json") for b in bodies]
+    out = {"prompt_tokens": [int(it[1]) for it in items],
+           "captures_total": rt.captures_total, "compiles_total": rt.compiles_total,
+           "capture_memory": dict(rt.capture_memory)}
+    out["graphs"] = program_graphs_check(rt, items[2])
+    mine = engine_tokens(eng, items, waves=2)
+    check(mine == served, "textgen: the in-process engine's tokens differ from the served "
+          "engine's (same weights, same programs)")
+    locked, margins = locked_tokens(model, rt.module, items)
+    out["engine_vs_locked"] = compare_tokens(served, locked, margins, "engine vs locked batch")
+    canary_keeps_live_block(rt, eng, items[2])
+    out["timing"] = step_timing(rt, eng, items[2])
+    del model, rt, eng
+    torch.cuda.empty_cache()
+    model_d, rt_d, eng_d = textgen_engine("dense")
+    dense = engine_tokens(eng_d, items, waves=2)
+    dense_locked, dense_margins = locked_tokens(model_d, rt_d.module, items)
+    out["dense_engine_vs_dense_locked"] = compare_tokens(dense, dense_locked, dense_margins,
+                                                         "dense engine vs dense locked batch")
+    # In bf16 the two attention cores round differently (K1 keeps the
+    # scores in f32, the dense twin rounds them to bf16 as the reference's
+    # does), which moves logits by more than TG_MARGIN: reported only.
+    out["flash_vs_dense_bf16"] = compare_tokens(served, dense, dense_margins,
+                                                "flash engine vs dense engine, bf16", gate=False)
+    del model_d, rt_d, eng_d
+    torch.cuda.empty_cache()
+    # Held to the rule in float32 (TF32 off; K1's CUDA-core kernel): the
+    # flash engine against the dense locked batch.
+    model_f, rt_f, eng_f = textgen_engine("flash", dtype="float32")
+    flash32 = engine_tokens(eng_f, items, waves=2)
+    del model_f, rt_f, eng_f
+    torch.cuda.empty_cache()
+    from tpuserve_torch.runtime import build_runtime
+
+    model_d = textgen_model("dense", "float32")[0]
+    rt_d = build_runtime(model_d, device="cuda", compile_forward=False)
+    dense32, margins32 = locked_tokens(model_d, rt_d.module, items)
+    out["flash_vs_dense_f32"] = compare_tokens(flash32, dense32, margins32,
+                                               "flash engine vs dense locked batch, float32")
+    del model_d, rt_d
+    torch.cuda.empty_cache()
+    model_p, rt_p, eng_p = textgen_engine(kv_paging=True, prefill_chunk=0)
+    out["graphs_paged"] = program_graphs_check(rt_p, items[2])
+    paged = engine_tokens(eng_p, items, waves=2)
+    check(paged == served, "textgen: whole-prompt paged KV tokens differ from the dense "
+          "engine's")
+    print("textgen: whole-prompt paged KV tokens equal the dense engine's for all "
+          f"{len(items)} requests", flush=True)
+    del model_p, rt_p, eng_p
+    torch.cuda.empty_cache()
+    out["in_process_s"] = time.perf_counter() - t0
+    return out
+
+
+def generate(port: int, bodies: list, waves: int = 2, timeout_s: float = 300.0) -> list:
+    """POST each body to :generate from its own thread, in ``waves``; the
+    answers in body order."""
+    import threading
+
+    answers: list = [None] * len(bodies)
+
+    def one(i: int) -> None:
+        answers[i] = call(port, "POST", "/v1/models/textgen:generate", bodies[i])
+
+    per = -(-len(bodies) // waves)
+    threads = []
+    for w in range(waves):
+        for i in range(w * per, min(len(bodies), (w + 1) * per)):
+            threads.append(threading.Thread(target=one, args=(i,)))
+            threads[-1].start()
+        time.sleep(0.3)
+    for t in threads:
+        t.join(timeout_s)
+    out = []
+    for i, a in enumerate(answers):
+        check(a is not None and a[0] == 200, f"textgen request {i}: {a and a[0]} "
+              f"{a and a[1][:300]!r}")
+        res = json.loads(a[1])
+        check(res["n_tokens"] == len(res["tokens"]) <= bodies[i]["max_new_tokens"],
+              f"textgen request {i}: {res['n_tokens']} tokens for max_new_tokens "
+              f"{bodies[i]['max_new_tokens']}")
+        out.append(res["tokens"])
+    return out
+
+
+def gen_counters(port: int) -> dict:
+    text = call(port, "GET", "/metrics")[1].decode()
+    names = ("gen_admitted_total", "gen_iterations_total", "gen_fold_ins_total",
+             "gen_early_exits_total", "gen_evictions_total", "gen_units_total",
+             "runtime_compiles_total")
+    out = {n: metric(text, f'{n}{{model="textgen"}}') for n in names}
+    inv = json.loads(call(port, "GET", "/v1/models")[1])["textgen"]
+    out["captures_total"] = inv["captures_total"]
+    return out
+
+
+def textgen_served(tmp: Path, bodies: list) -> dict:
+    """The main path: examples/textgen_flash.toml through ``python -m
+    tpuserve_torch serve``."""
+    out: dict = {}
+    with serving(TEXTGEN_CONFIG, n_buckets=3) as port:
+        check(call(port, "POST", "/debug/kernels:reset")[0] == 200, "kernel count reset refused")
+        c0 = gen_counters(port)
+        t0 = time.perf_counter()
+        tokens = generate(port, bodies)
+        wall_s = time.perf_counter() - t0
+        stats = json.loads(call(port, "GET", "/stats")[1])
+        k1 = stats["kernels"]["flash_attention"]["launches"]
+        c1 = gen_counters(port)
+        d = {n: c1[n] - c0[n] for n in c0}
+        print(f"textgen: {len(bodies)} requests, {d['gen_units_total']:g} tokens in "
+              f"{wall_s:.2f} s; inserts {d['gen_admitted_total']:g}, steps "
+              f"{d['gen_iterations_total']:g}, K1 launches {k1}, fold-ins "
+              f"{d['gen_fold_ins_total']:g}, early exits {d['gen_early_exits_total']:g}",
+              flush=True)
+        check(d["gen_admitted_total"] == len(bodies) and k1 == TG_LAYERS * len(bodies),
+              f"textgen: K1 launched {k1} times for {d['gen_admitted_total']:g} inserts "
+              f"({TG_LAYERS} per insert, none per decode step)")
+        check(d["gen_iterations_total"] > 0 and stats["kernels"]["flash_attention_stats"][
+            "launches"] == 0, "textgen: no decode step ran, or K2 launched")
+        check(d["gen_fold_ins_total"] > 0 and d["gen_early_exits_total"] > 0,
+              f"textgen: fold-ins {d['gen_fold_ins_total']:g}, early exits "
+              f"{d['gen_early_exits_total']:g}: both must exceed 0")
+        out.update(tokens=tokens, wall_s=wall_s, k1_launches=k1, deltas=d)
+        # A request whose deadline lands mid-generation: evicted, fast 504.
+        st, body = call(port, "POST", "/v1/models/textgen:generate?timeout_ms=60",
+                        {"prompt": "a deadline inside the generation", "seed": 3,
+                         "max_new_tokens": 256})
+        ev = gen_counters(port)["gen_evictions_total"] - c1["gen_evictions_total"]
+        check(st == 504 and ev == 1, f"textgen: past-deadline request answered {st} "
+              f"{body[:200]!r}, evictions {ev:g}")
+        st, body = call(port, "POST", "/v1/models/textgen:generate?stream=true",
+                        {"prompt": "x", "max_new_tokens": 2})
+        check(st == 501, f"textgen: ?stream=true answered {st}, not refused")
+        # Churn, reload and rollback: no new compile, no new capture.
+        c2 = gen_counters(port)
+        again = generate(port, bodies[:8], waves=1)
+        check(again == tokens[:8], "textgen: a second run of the same requests changed tokens")
+        st, body = call(port, "POST", "/admin/models/textgen:reload")
+        check(st == 200, f"textgen: :reload answered {st} {body[:300]!r}")
+        again = generate(port, bodies[8:], waves=1)
+        st, body = call(port, "POST", "/admin/models/textgen:rollback")
+        check(st == 200, f"textgen: :rollback answered {st} {body[:300]!r}")
+        again += generate(port, bodies[:4], waves=1)
+        c3 = gen_counters(port)
+        moved = {n: c3[n] - c2[n] for n in ("runtime_compiles_total", "captures_total")}
+        check(moved == {"runtime_compiles_total": 0, "captures_total": 0},
+              f"textgen: churn, :reload and :rollback moved {moved}")
+        print(f"textgen: deadline eviction answered 504; ?stream=true 501; churn, :reload "
+              f"(staged canary) and :rollback: compiles and captures moved {moved}", flush=True)
+        out["graphs_served"] = served_graphs(port)["textgen"]
+        # The generative load: bench with the prompt pool.
+        before = gen_counters(port)
+        bench = Cli(tmp, "bench_textgen", "bench", "--url", f"http://127.0.0.1:{port}",
+                    "--model", "textgen", "--verb", "generate", *CLI_BENCH_S,
+                    "--concurrency", "32", "--content-type", "application/json",
+                    "--synthetic", "prompt", "--distinct", "64", "--max-new", "1,256",
+                    "--long-every", "8", "--long-words", "200")
+        try:
+            # Tokens/s inside the load: gen_units_total over 4 s from the
+            # first retirement the load causes.
+            deadline = time.monotonic() + 60.0
+            while gen_counters(port)["gen_units_total"] == before["gen_units_total"]:
+                check(time.monotonic() < deadline and bench.proc.poll() is None,
+                      "textgen: bench retired no token in 60 s")
+                time.sleep(0.05)
+            u0, t_0 = gen_counters(port), time.perf_counter()
+            time.sleep(4.0)
+            u1, t_1 = gen_counters(port), time.perf_counter()
+            rc, text = bench.finish()
+        finally:
+            bench.kill()
+        summary = json.loads(text.strip().splitlines()[-1])
+        after = gen_counters(port)
+        check(rc == 0 and summary["n_ok"] > 0 and summary["n_err"] == 0,
+              f"textgen: bench exited {rc}: {summary}")
+        units = after["gen_units_total"] - before["gen_units_total"]
+        window = {k: u1[k] - u0[k] for k in ("gen_units_total", "gen_iterations_total",
+                                                "gen_admitted_total")}
+        out["bench"] = {"summary": summary, "tokens": units,
+                        "steps": after["gen_iterations_total"] - before["gen_iterations_total"],
+                        "window_s": t_1 - t_0, "window": window,
+                        "tokens_per_s": window["gen_units_total"] / (t_1 - t_0),
+                        "steps_per_s": window["gen_iterations_total"] / (t_1 - t_0)}
+        print(f"textgen: bench (32 connections, prompt pool, max_new 1-256): "
+              f"{summary['throughput_per_s']} requests/s, p50 {summary['p50_ms']} ms, "
+              f"n_err {summary['n_err']}; {units:g} tokens over the run, "
+              f"{out['bench']['tokens_per_s']:.0f} tokens/s and "
+              f"{out['bench']['steps_per_s']:.1f} steps/s over {t_1 - t_0:.2f} s inside it",
+              flush=True)
+    return out
+
+
+def textgen_paged_served(bodies: list) -> dict:
+    """Paged KV with chunked prefill (64-token chunks) served: tokens
+    deterministic across two runs and batch mixes; KV exhaustion sheds 503
+    kv_pressure."""
+    import threading
+
+    out: dict = {}
+    sets = ("genserve.kv_paging=true", "genserve.prefill_chunk=64", "genserve.kv_pages=257")
+    with serving(TEXTGEN_CONFIG, n_buckets=3, overrides=sets) as port:
+        c0 = gen_counters(port)
+        first = generate(port, bodies, waves=2)
+        mix = generate(port, bodies[::-1], waves=4)[::-1]
+        check(first == mix, "textgen paged: chunked-prefill tokens changed with the batch mix")
+        # 256 usable pages; a (256 + 256)-token request reserves 32: eight
+        # held, eight queued, and the backlog bound (2 x 256) sheds the next.
+        long_body = {"prompt": " ".join(["token"] * 256), "seed": 1, "max_new_tokens": 256}
+        answers = []
+        threads = [threading.Thread(target=lambda s=s: answers.append(
+            call(port, "POST", "/v1/models/textgen:generate", dict(long_body, seed=s))))
+            for s in range(16)]
+        for t in threads:
+            t.start()
+        time.sleep(0.3)
+        st, body = call(port, "POST", "/v1/models/textgen:generate", dict(long_body, seed=99))
+        for t in threads:
+            t.join(300)
+        reason = json.loads(body).get("reason") if st == 503 else None
+        check(st == 503 and reason == "kv_pressure",
+              f"textgen paged: KV exhaustion answered {st} {body[:200]!r}")
+        check(sorted(a[0] for a in answers) == [200] * 16,
+              "textgen paged: a held or queued request failed")
+        kv = json.loads(call(port, "GET", "/stats")[1])["genserve"]["textgen"]["kv"]
+        check(kv["reserved"] == 0, f"textgen paged: pages still reserved after the drain: {kv}")
+        c1 = gen_counters(port)
+        moved = {n: c1[n] - c0[n] for n in ("runtime_compiles_total", "captures_total")}
+        check(moved == {"runtime_compiles_total": 0, "captures_total": 0},
+              f"textgen paged: page churn and chunked prefill moved {moved}")
+        out.update(chunked_deterministic=True, shed_status=st, shed_reason=reason, kv=kv,
+                   chunks_total=kv["prefill_chunks_total"])
+        print(f"textgen paged (64-token chunks): tokens equal across two runs and batch "
+              f"mixes; KV exhaustion shed {st} {reason}; {kv['prefill_chunks_total']} prefill "
+              f"chunks; compiles and captures moved {moved}", flush=True)
+    return out
+
+
+def textgen_phase(card: str) -> dict:
+    """Phase 17: examples/textgen_flash.toml (GPT-2 small widths, 12 layers)
+    served through the generation engine, K1 in the prefill."""
+    import torch
+
+    t0 = time.perf_counter()
+    out: dict = {"card": card, "config": str(TEXTGEN_CONFIG.relative_to(ROOT))}
+    out["kernels"] = textgen_kernel_checks()
+    bodies = textgen_bodies()
+    with tempfile.TemporaryDirectory() as tmp_name:
+        out["served"] = textgen_served(Path(tmp_name), bodies)
+    out["in_process"] = textgen_in_process(bodies, out["served"]["tokens"])
+    out["paged"] = textgen_paged_served(bodies)
+    out["served"].pop("tokens")
+    out["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3508,6 +4062,7 @@ def main() -> int:
         det = efficientdet_phase(card)
         int8c = int8c_phase(card)
         cli_run = cli_phase(card)
+        textgen = textgen_phase(card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3548,6 +4103,9 @@ def main() -> int:
     robustness["first_request_efficientdet"] = det.pop("first_request")
     print(json.dumps({"slice": dict(det, path="efficientdet",
                                     config=str(DET_CONFIG.relative_to(ROOT)))}))
+    tg_k1 = textgen.pop("kernels")
+    tg_kernels = {f"k1_b{b}_s256": tg_k1[b]["line"] for b in (1, 32)}
+    print(json.dumps({"slice": dict(textgen, path="textgen", **tg_kernels)}))
     print(json.dumps({"slice": dict(int8c, path="int8c", configs=[
         str(CONFIG.relative_to(ROOT)), str(RESNET_CONFIG.relative_to(ROOT))])}))
     # The runtime's graphs against the eager forward, and the host time of
@@ -3566,12 +4124,14 @@ def main() -> int:
     cli_run["probe_vs_replay_b32_s128"] = {"probe_raw_ms": probe, "replay_device_ms": replay,
                                            "probe_over_replay": probe / replay}
     print(json.dumps({"cli": cli_run}))
-    # K1's launches on the main path (BERT-flash), and on the int8c one.
+    # K1's launches on the main path (BERT-flash), on the int8c one and on
+    # textgen's (12 per insert, none per decode step).
     print(json.dumps({"kernels": [dict(k1[128]["line"], launches=run["launches"],
                                        launches_int8c=int8c["bert_launches_k1"],
                                        launches_cli_bench={
                                            k: r["k1_launches"]
-                                           for k, r in cli_run["bert"]["runs"].items()}),
+                                           for k, r in cli_run["bert"]["runs"].items()},
+                                       launches_textgen=textgen["served"]["k1_launches"]),
                                   dict(k2["line"], launches=long["k2_launches"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -16,6 +16,11 @@ the port refuses.
   ``tests/test_torch_loadgen.py``: ``--dump-latencies`` writes the summary
   it prints and one sample per completion; ``--procs 2`` merges two worker
   processes' exact samples; the summaries have the reference's keys.
+- ``bench --synthetic prompt`` (a pool of distinct prompts with mixed
+  ``max_new_tokens`` and the ``--long-every`` skew) against the port's
+  textgen served on the CPU through its generation engine: ``n_err`` 0, the
+  summary keys equal to the reference's load generator's against the same
+  server, and the server's token and fold-in counters moving;
 - ``import-model``, ``finetune-det``, ``lint`` and the drills ``worker_kill``,
   ``host_kill``, ``stream_kill``, ``fleet`` and ``autopilot`` exit 2 naming
   their ROADMAP item.
@@ -233,3 +238,72 @@ def test_unported_drill_flags_refused(flag, capsys):
     with pytest.raises(SystemExit) as e:
         port_main(["chaos", "--device", "cpu", flag, "5"])
     assert e.value.code == 2 and flag in capsys.readouterr().err
+
+
+TEXTGEN_TOML = """
+decode_threads = 2
+
+[genserve]
+enabled = true
+slots = 4
+
+[[model]]
+name = "tg"
+family = "textgen"
+batch_buckets = [1, 2, 4]
+dtype = "float32"
+parallelism = "single"
+request_timeout_ms = 60000.0
+
+[model.options]
+layers = 1
+d_model = 32
+heads = 2
+d_ff = 64
+vocab_size = 512
+prompt_len = 16
+max_new_tokens = 64
+"""
+
+
+def test_bench_prompt_pool_against_served_textgen(tmp_path, capsys):
+    """The generative load against the engine-served textgen: each
+    package's ``bench`` with a prompt pool, mixed lengths and a long-prompt
+    skew, closed loop; both summaries error-free with the same keys."""
+    import asyncio
+    import threading
+
+    from tpuserve_torch.config import load_config
+    from tpuserve_torch.server import ServerState, start_server, stop_server
+
+    path = tmp_path / "tg.toml"
+    path.write_text(TEXTGEN_TOML)
+    state = ServerState(load_config(str(path)), device="cpu")
+    state.build()
+    loop = asyncio.new_event_loop()
+    threading.Thread(target=loop.run_forever, daemon=True).start()
+    srv = asyncio.run_coroutine_threadsafe(start_server(state, "127.0.0.1", 0), loop).result(60)
+    url = f"http://127.0.0.1:{state.serving_addresses[0][1]}"
+    argv = ["bench", "--url", url, "--model", "tg", "--verb", "generate", "--duration", "1.0",
+            "--warmup", "0.2", "--concurrency", "4", "--content-type", "application/json",
+            "--synthetic", "prompt", "--distinct", "16", "--max-new", "2,12",
+            "--long-every", "4"]
+    try:
+        summaries = {}
+        for pkg in MAINS:
+            rc, out = run_main(pkg, argv, capsys)
+            assert rc == 0, (pkg, out)
+            summaries[pkg] = json.loads(out)
+        units = state.metrics.counter("gen_units_total{model=tg}").value
+        stats = state.engines["tg"].pipeline_stats()
+    finally:
+        asyncio.run_coroutine_threadsafe(stop_server(state, srv), loop).result(60)
+        loop.call_soon_threadsafe(loop.stop)
+    for pkg, s in summaries.items():
+        assert s["n_ok"] > 0 and s["n_err"] == 0 and s["distinct_payloads"] == 16, (pkg, s)
+    assert sorted(summaries["port"]) == sorted(summaries["jax"])
+    # Mixed lengths: the server retired tokens, folded requests into a
+    # generating block and let short ones exit early.
+    n_ok = sum(s["n_ok"] for s in summaries.values())
+    assert units >= 2 * n_ok
+    assert stats["fold_ins_total"] > 0 and stats["early_exits_total"] > 0

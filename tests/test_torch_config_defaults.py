@@ -22,7 +22,9 @@ still refuses:
   the reference's defaults, and the worker-tier keys among them are
   refused when written;
 - every field of the reference's server, model and table configs is known
-  to the port (typed or refused), so no key slips through unnamed.
+  to the port (typed or refused), so no key slips through unnamed;
+- ``[genserve]``, typed since the generation engine was ported, holds the
+  reference's defaults and refuses only its streaming keys when written.
 
 Exact: the values are compared with ``==``.
 """
@@ -36,7 +38,7 @@ from tpuserve_torch import config as tconfig
 
 EXAMPLES = ("examples/bert_flash.toml", "examples/bert_long_ring.toml",
             "examples/resnet50.toml", "examples/mobilenetv3.toml",
-            "examples/efficientdet.toml")
+            "examples/efficientdet.toml", "examples/textgen_flash.toml")
 
 # The reference's defaults that turn on a feature the port does not serve
 # yet, each refused by the port when written out: none.
@@ -164,7 +166,17 @@ def test_every_reference_key_is_typed_or_refused(cls, refused):
 @pytest.mark.parametrize("table", sorted(TABLE_CLASS))
 def test_unported_table_keys_parse_as_refused(table, tmp_path):
     """Each key of an unported table parses into the port's unported dict
-    under its name, and is refused when it asks for anything."""
+    under its name, and is refused when it asks for anything. [genserve] is
+    typed since the generation engine was ported: the keys it still refuses
+    are streaming's, written with anything but their defaults."""
+    if table == "genserve":
+        assert table not in tconfig.UNPORTED_TABLES
+        for key in tconfig._TABLE_KEYS_UNPORTED[table]:
+            cfg = tconfig.load_config(None, [f"{table}.{key}=12345"])
+            assert getattr(cfg.genserve, key) == 12345
+            assert cfg.unported == {f"[{table}] {key}": 12345}
+            assert tconfig.unported_settings(cfg) == [f"[{table}] {key} = 12345"]
+        return
     assert table in tconfig.UNPORTED_TABLES
     fields = dataclasses.fields(getattr(jconfig, TABLE_CLASS[table]))
     scalar = [f.name for f in fields if isinstance(getattr(

@@ -7,7 +7,8 @@ typed: :class:`ModelConfig`, :class:`PipelineConfig`,
 :class:`LifecycleConfig`, :class:`FaultsConfig` (with its
 :class:`FaultRuleConfig` rules), :class:`CacheConfig`,
 :class:`AdaptiveConfig`, the observability tables :class:`TraceConfig`,
-:class:`EventsConfig` and :class:`TelemetryConfig`, the per-model
+:class:`EventsConfig` and :class:`TelemetryConfig`, the generation
+engine's :class:`GenserveConfig`, the per-model
 :class:`SloConfig` and the top-level :class:`ServerConfig` fields, with the
 JAX package's defaults and checks. Every other setting the JAX package
 knows — its other tables (``[router]``, ``[tenants]``, ...) and the keys
@@ -26,7 +27,9 @@ enabled, a rule whose call site the port lacks (the worker processes',
 deferred mode's, streaming's) is refused by name. Four keys of typed
 tables belong to the reference's worker and router tiers and are refused
 the same way: ``[events] dir``, ``stderr_path`` and ``snapshot_path`` while
-non-empty, and ``[telemetry] fleet_timeout_ms`` whenever it is written.
+non-empty, and ``[telemetry] fleet_timeout_ms`` whenever it is written;
+and ``[genserve]``'s streaming keys (``stream_queue``,
+``stream_heartbeat_s``, ``stream_drain_s``) unless at their defaults.
 
 Example TOML::
 
@@ -55,7 +58,7 @@ from typing import Any
 # The JAX package's tables the port does not serve yet. Any key set in one
 # is refused, except ``enabled = false`` (and ``[parallel] mode`` naming the
 # one-device layout).
-UNPORTED_TABLES = ("autopilot", "distributed", "genserve", "parallel",
+UNPORTED_TABLES = ("autopilot", "distributed", "parallel",
                    "router", "scheduler", "tenants", "worker")
 _TABLE_OFF: dict[str, tuple] = {"enabled": (False,)}
 _PARALLEL_OFF: dict[str, tuple] = {"mode": ("", "single")}
@@ -67,6 +70,10 @@ _DISTRIBUTED_OFF: dict[str, tuple] = {"coordinator_address": ("",)}
 _TABLE_KEYS_UNPORTED: dict[str, dict[str, tuple]] = {
     "events": {"dir": ("",), "stderr_path": ("",), "snapshot_path": ("",)},
     "telemetry": {"fleet_timeout_ms": ()},
+    # Streaming's knobs, inert while streamed generation is not ported: the
+    # reference's defaults only.
+    "genserve": {"stream_queue": (64,), "stream_heartbeat_s": (5.0,),
+                 "stream_drain_s": (5.0,)},
 }
 
 # The JAX package's top-level and per-model keys the port does not serve
@@ -213,6 +220,73 @@ class AdaptiveConfig:
         if not 0.0 < self.ewma_alpha <= 1.0 or self.slack_ms < 0:
             raise ValueError(
                 "adaptive.ewma_alpha must be in (0, 1] and slack_ms >= 0")
+
+
+@dataclass
+class GenserveConfig:
+    """Iteration-level generation engine (``[genserve]`` TOML;
+    tpuserve_torch.genserve).
+
+    The static-bucket batcher locks a batch for its whole run — correct for
+    one-shot classifiers, wrong for multi-step generative work. With this
+    block enabled, models whose family implements the generative contract
+    (``tpuserve_torch.genserve.GenerativeModel``: textgen) serve through an
+    iteration-level engine instead (Orca): the active batch re-forms every
+    model iteration, finished sequences retire immediately, queued requests
+    fold into free slots mid-flight, and past-deadline sequences evict with
+    the fast-504 contract. Non-generative models keep the batcher. The
+    streaming keys are the reference's and accepted at their defaults only
+    (streamed generation is not ported)."""
+
+    enabled: bool = False
+    # Generative slot capacity per model (the step's batch width); 0 = the
+    # model's largest batch bucket.
+    slots: int = 0
+    # Max queued requests folded into free slots per iteration; 0 = fill
+    # every free slot.
+    admit_per_step: int = 0
+    # Streaming: per-request emission queue depth, SSE heartbeat interval,
+    # graceful-drain stream budget (refused unless at these defaults).
+    stream_queue: int = 64
+    stream_heartbeat_s: float = 5.0
+    stream_drain_s: float = 5.0
+    # Paged KV cache (PagedAttention / vLLM): families with the paged
+    # contract (textgen) keep KV in fixed-size pages behind a block table
+    # instead of one dense worst-case-context slab per slot. Pages are
+    # reserved at fold-in (prompt + decode budget) and returned on
+    # retire/evict/disconnect; exhaustion sheds 503 (reason kv_pressure).
+    kv_paging: bool = False
+    # Tokens per KV page.
+    kv_page_tokens: int = 16
+    # Pages in the pool, INCLUDING the write-sink sentinel (page 0). 0 =
+    # auto: slots * pages-per-max-context + 1, the dense slab's bytes.
+    kv_pages: int = 0
+    # Chunked prefill: a paged prompt folds in this many tokens per engine
+    # iteration, interleaved with decode steps. 0 = whole prompt in one
+    # chunk (exactly the dense prefill math). Only with kv_paging.
+    prefill_chunk: int = 0
+
+    def __post_init__(self) -> None:
+        if self.slots < 0 or self.admit_per_step < 0:
+            raise ValueError(
+                "genserve.slots/admit_per_step must be >= 0")
+        if self.stream_queue < 1:
+            raise ValueError(
+                f"genserve.stream_queue must be >= 1, got {self.stream_queue}")
+        if self.stream_heartbeat_s < 0 or self.stream_drain_s < 0:
+            raise ValueError(
+                "genserve.stream_heartbeat_s/stream_drain_s must be >= 0")
+        if self.kv_page_tokens < 1:
+            raise ValueError(
+                f"genserve.kv_page_tokens must be >= 1, got "
+                f"{self.kv_page_tokens}")
+        if self.kv_pages < 0 or self.prefill_chunk < 0:
+            raise ValueError(
+                "genserve.kv_pages/prefill_chunk must be >= 0")
+        if self.kv_pages == 1:
+            raise ValueError(
+                "genserve.kv_pages must be 0 (auto) or >= 2 (the pool "
+                "includes the sentinel page)")
 
 
 @dataclass
@@ -594,6 +668,8 @@ class ServerConfig:
     telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
     # Structured event plane (event ring, logging bridge, audit trail).
     events: EventsConfig = field(default_factory=EventsConfig)
+    # Iteration-level generation engine for generative families.
+    genserve: GenserveConfig = field(default_factory=GenserveConfig)
     # The JAX package's settings the port does not serve yet, as parsed:
     # "[table] key" for its tables, the bare key for top-level keys.
     unported: dict[str, Any] = field(default_factory=dict)
@@ -610,9 +686,10 @@ class ServerConfig:
         raise KeyError(f"no model named {name!r} configured")
 
 
-# The observability tables the port types, by TOML table name.
-OBS_TABLES = {"trace": TraceConfig, "telemetry": TelemetryConfig,
-              "events": EventsConfig}
+# The observability tables and [genserve], typed by TOML table name (each
+# may hold keys of _TABLE_KEYS_UNPORTED).
+TYPED_TABLES = {"trace": TraceConfig, "telemetry": TelemetryConfig,
+                "events": EventsConfig, "genserve": GenserveConfig}
 
 
 def unported_settings(cfg: ServerConfig) -> list[str]:
@@ -671,7 +748,7 @@ def load_config(path: str | None = None, overrides: list[str] | None = None) -> 
     lifecycle_dict = raw.pop("lifecycle", None)
     cache_dict = raw.pop("cache", None)
     adaptive_dict = raw.pop("adaptive", None)
-    obs_dicts = {t: raw.pop(t) for t in ("trace", "telemetry", "events") if t in raw}
+    typed_dicts = {t: raw.pop(t) for t in TYPED_TABLES if t in raw}
     tables = {t: raw.pop(t) for t in UNPORTED_TABLES if t in raw}
     cfg: ServerConfig = _build(ServerConfig, raw, _SERVER_UNPORTED)
     models = []
@@ -683,8 +760,8 @@ def load_config(path: str | None = None, overrides: list[str] | None = None) -> 
             mc.slo = _build(SloConfig, slo_dict)
         models.append(mc)
     cfg.models = models
-    for table, data in obs_dicts.items():
-        setattr(cfg, table, _build(OBS_TABLES[table], data))
+    for table, data in typed_dicts.items():
+        setattr(cfg, table, _build(TYPED_TABLES[table], data))
         for key in _TABLE_KEYS_UNPORTED.get(table, {}).keys() & data.keys():
             cfg.unported[f"[{table}] {key}"] = data[key]
     if pipeline_dict is not None:

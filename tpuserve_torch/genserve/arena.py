@@ -1,0 +1,107 @@
+"""SlotArena: generative slot bookkeeping for the iteration-level engine,
+copied from ``tpuserve/genserve/arena.py`` (host-only; the same errors).
+
+The device-side state block (KV caches, token buffers) is one fixed-capacity
+set of tensors allocated at engine start; this arena is its host-side ledger
+— which slot indices are free, which request owns each active slot, and how
+many iterations it has taken. The invariant the engine (and its tests) lean
+on: a slot is never handed to two requests at once, and never released by anything that doesn't hold it — a double-hand
+would let one request's step output retire (or overwrite) another's state.
+Violations raise instead of corrupting, the same posture as the hostpipe
+AssemblyArena's free-list.
+
+Event-loop-side only (the engine's step loop owns all mutation), so there is
+deliberately no lock to witness.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any
+
+
+class SlotCorrupted(RuntimeError):
+    """The free-list and the active ledger disagree — a double acquire or a
+    foreign release. Engine state can no longer be trusted for the slot."""
+
+
+@dataclass
+class SlotInfo:
+    """One active slot's host-side request bookkeeping."""
+
+    item: Any
+    future: Any  # asyncio.Future of the final result
+    deadline_at: float | None = None  # perf_counter clock (fast-504 contract)
+    enqueued_at: float = 0.0
+    admitted_at: float = 0.0
+    iterations: int = 0
+    # Request trace context (obs.TraceContext): the engine tags
+    # this slot's fold-in/step/evict/retire events with its trace id.
+    ctx: Any = None
+    # Emission channel of a streamed request; always None in the port, which
+    # serves unary generation only (streaming is not ported yet).
+    stream: Any = None
+    meta: dict = field(default_factory=dict)
+
+
+class SlotArena:
+    """Fixed set of generative slots [0, n) with an ownership ledger."""
+
+    def __init__(self, slots: int) -> None:
+        self.slots = max(1, int(slots))
+        self._free: list[int] = list(range(self.slots - 1, -1, -1))
+        self._active: dict[int, SlotInfo] = {}
+        # Lifetime hand-out count (monotone; feeds /stats).
+        self.acquires_total = 0
+
+    @property
+    def n_active(self) -> int:
+        return len(self._active)
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    def active_slots(self) -> list[int]:
+        """Active slot indices in admission order (dicts preserve it)."""
+        return list(self._active)
+
+    def peek(self, slot: int) -> SlotInfo:
+        return self._active[slot]
+
+    def acquire(self, info: SlotInfo) -> int:
+        """Hand out a free slot to ``info``; raises SlotCorrupted if the
+        free-list offers a slot the ledger says is already owned (the
+        double-hand this class exists to make impossible to miss), and
+        IndexError when no slot is free (callers gate on n_free)."""
+        slot = self._free.pop()
+        if slot in self._active:
+            self._free.append(slot)
+            raise SlotCorrupted(
+                f"slot {slot} is on the free-list AND active — double-hand")
+        self._active[slot] = info
+        self.acquires_total += 1
+        return slot
+
+    def release(self, slot: int) -> SlotInfo:
+        """Return a slot; raises SlotCorrupted for a slot not held (foreign
+        or double release)."""
+        info = self._active.pop(slot, None)
+        if info is None:
+            raise SlotCorrupted(f"release of slot {slot} that is not active")
+        self._free.append(slot)
+        return info
+
+    def release_all(self) -> list[SlotInfo]:
+        """Error-path reset: return every active slot's info (the engine
+        fails their futures and reinitializes the device state block)."""
+        out = [self.release(s) for s in self.active_slots()]
+        return out
+
+    def stats(self) -> dict:
+        return {
+            "slots": self.slots,
+            "active": self.n_active,
+            "free": self.n_free,
+            "acquires_total": self.acquires_total,
+        }

@@ -9,8 +9,10 @@ pipeline, every step of which keeps the old version serving on failure:
    match structure, shapes and dtypes against the slots; then copy it into
    a free parameter slot (``ModelRuntime.stage_params``).
 2. **staged canary** — run the model's canary item through the staged
-   slot's captured graphs (``params_override``). A regressed candidate never
-   serves one request.
+   slot's captured graphs (``params_override``); for a model served by the
+   generation engine, a short generation through the engine's programs on
+   its scratch state block (``GenEngine.staged_canary_sync``). A regressed
+   candidate never serves one request.
 3. **publish** — switch the live slot under the runtime's reload lock; the
    candidate becomes numbered version N and version N-1 stays resident in
    its slot as last-known-good.
@@ -75,7 +77,8 @@ class ModelLifecycle:
                  breaker: Any | None = None,
                  canary: Callable[[], Awaitable[bool]] | None = None,
                  canary_status: Callable[[], bool | None] | None = None,
-                 injector: Any | None = None) -> None:
+                 injector: Any | None = None,
+                 staged_canary_fn: Callable[[StagedParams], None] | None = None) -> None:
         self.name = name
         self.runtime = runtime
         self.model = model
@@ -89,6 +92,13 @@ class ModelLifecycle:
         # Cheap read of the latest periodic-canary verdict; the soak monitor
         # watches it without submitting extra probes.
         self._canary_status = canary_status
+        # Replacement staged-canary body (blocking; runs in the executor):
+        # an engine-served generative model passes
+        # GenEngine.staged_canary_sync, so the candidate proves itself on a
+        # SHORT end-to-end generation through the real programs (on the
+        # engine's scratch state block) instead of the one-shot forward
+        # buckets it does not capture.
+        self._staged_canary_fn = staged_canary_fn
         self.injector = injector
         self._lock = new_async_lock("lifecycle.ModelLifecycle")
         self._soak_task: asyncio.Task | None = None
@@ -218,6 +228,9 @@ class ModelLifecycle:
         (``params_override``): the candidate proves itself on the device
         before one request can reach it. Blocking D2H — runs in the default
         executor."""
+        if self._staged_canary_fn is not None:
+            self._staged_canary_fn(staged)
+            return
         item = self.model.canary_item()
         bucket = self.model.bucket_for(1, group=self.model.group_key(item))
         host_batch = self.model.assemble([item], bucket)

@@ -16,14 +16,17 @@ Each family implements the ``ServingModel`` contract in ``base.py``. Ported:
   ingest; EfficientNet-B0, BiFPN, shared heads, and the fixed-shape
   detection tail — top-k, decode, greedy NMS — on the device, inside the
   bucket's CUDA graph).
+- textgen — autoregressive text generation (a prefix-LM decoder whose
+  prompt prefill runs kernel K1 with ``attention = "flash"``), served as
+  locked batches by the batcher or iteration by iteration by the
+  generation engine (``tpuserve_torch.genserve``) with dense or paged KV.
 - toy — a tiny MLP image classifier, the fast model of the CPU tests.
 
 The shared convolution, BatchNorm and weight-conversion code of the
 convolutional families is ``layers.py``.
 
-The JAX package's other families (sd15, textgen)
-are registered by name and raise "not yet ported", naming their ROADMAP.md
-item.
+The JAX package's other family (sd15) is registered by name and raises
+"not yet ported", naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -40,13 +43,13 @@ _REGISTRY: dict[str, str] = {
     "efficientdet": "tpuserve_torch.models.efficientdet",
     "mobilenetv3": "tpuserve_torch.models.mobilenet",
     "resnet50": "tpuserve_torch.models.resnet",
+    "textgen": "tpuserve_torch.models.textgen",
     "toy": "tpuserve_torch.models.toy",
 }
 
 # Families of the JAX package not ported yet -> their ROADMAP.md queue-1 item.
 _NOT_PORTED: dict[str, str] = {
     "sd15": "SD 1.5",
-    "textgen": "textgen",
 }
 
 

@@ -493,6 +493,11 @@ CACHE_EVENTS = ("hits", "misses", "coalesced", "evictions", "stale_drops")
 # per stage, labelled on pipeline_stage_depth{model=,stage=}.
 PIPELINE_STAGES = ("assemble", "h2d", "fetch", "postproc")
 
+# Priority classes, the label on queue_wait_ms{model=,priority=} (the
+# reference's fleet scheduler arbitrates them; the port serves every
+# request at the model's default, "interactive").
+PRIORITIES = ("interactive", "batch")
+
 
 class Metrics:
     """Registry of all server metrics, one per server process, and the span
@@ -559,6 +564,46 @@ class Metrics:
         Prebound at batcher start; never call per batch."""
         return self.counter(
             f"device_seconds_total{{model={model},replica={replica}}}")
+
+    def queue_wait_histogram(self, model: str, priority: str) -> Histogram:
+        """queue_wait_ms{model=,priority=}: time a request spent queued
+        before its generation slot admitted it, by priority class
+        (PRIORITIES). Prebound at engine start — never call per request."""
+        return self.histogram(
+            f"queue_wait_ms{{model={model},priority={priority}}}")
+
+    def sched_shed_counter(self, model: str, reason: str) -> Counter:
+        """sched_sheds_total{model=,reason=}: requests refused at admission
+        by reason ("kv_pressure": the paged engine's free-page ledger cannot
+        cover the request's prompt + decode reservation). Prebound — never
+        call per request."""
+        return self.counter(
+            f"sched_sheds_total{{model={model},reason={reason}}}")
+
+    def gen_replica_steps_counter(self, model: str, replica: int) -> Counter:
+        """gen_replica_steps_total{model=,replica=}: decode iterations one
+        generation engine executed (the port runs one engine per model, on
+        replica 0). Prebound at engine construction."""
+        return self.counter(
+            f"gen_replica_steps_total{{model={model},replica={replica}}}")
+
+    def gen_replica_units_counter(self, model: str, replica: int) -> Counter:
+        """gen_replica_units_total{model=,replica=}: output units (tokens)
+        retired by one generation engine. Prebound at engine construction."""
+        return self.counter(
+            f"gen_replica_units_total{{model={model},replica={replica}}}")
+
+    def gen_replica_active_gauge(self, model: str, replica: int) -> Gauge:
+        """gen_replica_active_slots{model=,replica=}: slots currently
+        generating on one engine."""
+        return self.gauge(
+            f"gen_replica_active_slots{{model={model},replica={replica}}}")
+
+    def gen_replica_kv_free_gauge(self, model: str, replica: int) -> Gauge:
+        """gen_replica_kv_pages_free{model=,replica=}: free KV pages in one
+        engine's page pool (paged mode only)."""
+        return self.gauge(
+            f"gen_replica_kv_pages_free{{model={model},replica={replica}}}")
 
     def device_utilization_gauge(self, model: str, replica: int) -> Gauge:
         """device_utilization{model=,replica=}: the share of wall time one

@@ -29,6 +29,20 @@ fixed addresses, and captures one graph per (bucket, slot):
   that slot's last replay has finished on the card; ``publish`` and
   ``rollback`` switch which slot is live. Zero new captures, ever.
 
+The iteration-level generation engine (``tpuserve_torch.genserve``) adds
+*programs* (``register_program`` / ``run_program``): insert or prefill, step
+and extract, each a function of a parameter slot's module, the engine's state
+block and a few small arguments. The state block (KV caches, token buffers,
+per-slot counters) is one set of device tensors the programs update in place,
+standing in for the JAX engine's donated state; the runtime keeps
+``N_BLOCKS`` = 2 of them — the live block the engine serves from and a
+scratch block the lifecycle's staged canary generates on — and captures one
+graph per (program, parameter slot, block), so slot roles rotating on
+publish and rollback never need a new capture. A program's small arguments
+(slot index, request item, chunk start, block-table row) are copied into its
+static input tensors before each replay and never baked into a graph, so
+slot, page and chunk churn replay the same graphs.
+
 On the CPU the slots and the version machine are the same and each slot's
 module runs eagerly (the tests do this); only capture and replay are
 CUDA-only. The graphs of one runtime share a memory pool and are replayed on
@@ -50,7 +64,7 @@ from __future__ import annotations
 import logging
 import time
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -71,6 +85,10 @@ log = logging.getLogger("tpuserve_torch.runtime")
 # Parameter slots: live, last-known-good and staged. Rollback stays a switch
 # of the live slot, so no fewer will do.
 N_SLOTS = 3
+# Generation state blocks: the live block the engine serves from, and the
+# scratch block the staged canary runs on (it must never touch the live one).
+N_BLOCKS = 2
+LIVE_BLOCK, SCRATCH_BLOCK = 0, 1
 
 
 class NaNDetected(ValueError):
@@ -155,6 +173,24 @@ class Graph:
     inputs: tuple
     outputs: dict
     launches: tuple[int, int]
+
+
+@dataclass
+class Program:
+    """One registered generative program: ``fn(module, state, *args)``, the
+    specs of its arguments after the state block, the static input tensors
+    its graphs read (shared by all of them: replays are serialized), and on
+    CUDA its graph per (parameter slot, state block)."""
+
+    tag: str
+    fn: Callable
+    arg_specs: tuple
+    inputs: tuple = ()
+    graphs: dict[tuple[int, int], Graph] = field(default_factory=dict)
+    counter: Any = None
+    # Whatever the registering engine needs to read the outputs back (the
+    # step's packed out-block layout).
+    out_layout: dict = field(default_factory=dict)
 
 
 @dataclass
@@ -259,6 +295,13 @@ class ModelRuntime:
             f"runtime_compiles_total{{model={name}}}")
         self._g_variants = self.metrics.gauge(f"runtime_variants{{model={name}}}")
         self._c_variant_batches: dict[tuple, Any] = {}
+        # False for a runtime serving through the generation engine: its
+        # programs replace the forward buckets (build_runtime).
+        self.compile_forward = True
+        # The generation engine's programs and state blocks (register_state).
+        self.gen_programs: dict[str, Program] = {}
+        self.gen_meta: dict | None = None
+        self.state_blocks: list[dict[str, torch.Tensor]] = []
 
     # -- startup ------------------------------------------------------------
     def _prepare(self, state_dict: dict[str, torch.Tensor]) -> torch.nn.Module:
@@ -328,6 +371,10 @@ class ModelRuntime:
         candidate lands in a slot whose graphs exist, so steady state this
         returns 0."""
         new = 0
+        if not self.compile_forward:
+            # Engine-served: the programs were registered at engine start and
+            # shapes never change across versions, so nothing is missing.
+            return new
         for b in self.model.buckets():
             if self.variant_key(tuple(b)) not in self.variants:
                 self._compile_bucket(tuple(b))
@@ -393,9 +440,14 @@ class ModelRuntime:
     def captures_total(self) -> int:
         return sum(v.captures for v in self.variants.values())
 
+    @staticmethod
+    def _bucket_order(key: VariantKey) -> tuple:
+        # Forward buckets (numbers) first, then programs ("step", width).
+        return (isinstance(key.bucket[0], str), key.bucket)
+
     def variants_summary(self) -> list[dict]:
         return [v.summary() for _, v in sorted(
-            self.variants.items(), key=lambda kv: kv[0].bucket)]
+            self.variants.items(), key=lambda kv: self._bucket_order(kv[0]))]
 
     # -- hot path -----------------------------------------------------------
     def h2d(self, bucket: tuple, host_batch: tuple) -> tuple:
@@ -469,6 +521,148 @@ class ModelRuntime:
         """Block for the D2H copy of the outputs; call off the event loop."""
         return {k: v.cpu().numpy() for k, v in outputs.items()}
 
+    # -- generative programs (tpuserve_torch.genserve) ------------------------
+    def register_state(self, struct: dict) -> None:
+        """Allocate the engine's ``N_BLOCKS`` state blocks, zeros of
+        ``struct`` (``{name: TensorSpec}``; numpy or torch dtypes), at
+        addresses fixed for the runtime's life. Call before
+        ``register_program``: the programs' graphs bind them."""
+        if self.state_blocks:
+            raise ValueError(f"{self.model.name}: state blocks already allocated")
+        if self.device.type == "cuda":
+            self.capture_memory["reserved_before_bytes"] = torch.cuda.memory_reserved(self.device)
+        self.state_blocks = [
+            {k: torch.zeros(spec.shape, dtype=torch_dtype(spec.dtype), device=self.device)
+             for k, spec in struct.items()} for _ in range(N_BLOCKS)]
+
+    def zero_state(self, block: int) -> None:
+        """Zero every tensor of one state block in place (after the work
+        queued on the calling thread's stream, as every replay is)."""
+        with self._replay_lock, torch.inference_mode():
+            for t in self.state_blocks[block].values():
+                t.zero_()
+
+    def register_program(self, tag: str, fn: Callable, arg_specs: tuple,
+                         width: int = 0) -> Program:
+        """Register ``fn(module, state, *args)`` — a generative program that
+        updates the state block in place and returns a tensor, a dict of
+        tensors or None — in the variant registry under the bucket
+        ``(tag, width)``, as the JAX runtime AOT-compiles it: one
+        ``runtime_compiles_total`` tick, a per-variant serving counter that
+        ``run_program`` ticks, weight versions out of the key.
+
+        ``arg_specs`` gives each argument after the state block as a
+        TensorSpec, or a tuple of them for a tuple argument (a request
+        item). On CUDA each argument gets a static input tensor, shared by
+        the program's graphs, and the program is warmed up and captured on
+        every (parameter slot, state block) pair; the slot index, item,
+        chunk start and block-table row are copied into those inputs before
+        each replay and are never baked into a graph, so slot, page and
+        chunk churn and publish/rollback all replay the same graphs. Both
+        state blocks are zeroed afterwards. On the CPU the program runs
+        eagerly."""
+        if not self.state_blocks:
+            raise ValueError(f"{self.model.name}: register_state before register_program")
+        t0 = time.perf_counter()
+        prog = Program(tag, fn, tuple(arg_specs))
+        captures = 0
+        if self.device.type == "cuda":
+            with torch.inference_mode():
+                prog.inputs = tuple(
+                    torch.zeros(spec.shape, dtype=torch_dtype(spec.dtype), device=self.device)
+                    for spec in _flatten(prog.arg_specs))
+            for i, slot in enumerate(self.slots):
+                for block in range(N_BLOCKS):
+                    prog.graphs[(i, block)] = self._capture_program(prog, slot, block)
+                    captures += 1
+            for block in range(N_BLOCKS):
+                self.zero_state(block)
+            torch.cuda.current_stream(self.device).synchronize()
+            # The state blocks and every program's captures so far.
+            self.capture_memory["reserved_after_bytes"] = torch.cuda.memory_reserved(self.device)
+        key = self.variant_key((tag, width))
+        self.variants[key] = Variant(key, (time.perf_counter() - t0) * 1e3, captures)
+        prog.counter = self._c_variant_batches[(tag, width)] = self.metrics.counter(
+            f"runtime_variant_batches_total{{model={self.model.name},variant={key.label}}}")
+        self.gen_programs[tag] = prog
+        self._c_compiles.inc()
+        self._g_variants.set(len(self.variants))
+        return prog
+
+    def _capture_program(self, prog: Program, slot: Slot, block: int) -> Graph:
+        """One eager warm-up of ``prog`` on (``slot``, ``block``) and then
+        its capture, both on the runtime's capture stream."""
+        state = self.state_blocks[block]
+        stream = self._capture_stream
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.inference_mode():
+            with torch.cuda.stream(stream):
+                prog.fn(slot.module, state, *_unflatten(prog.arg_specs, prog.inputs))
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+            k1, k2 = fa.launches, fa.stats_launches
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self._pool, stream=stream):
+                outputs = prog.fn(slot.module, state, *_unflatten(prog.arg_specs, prog.inputs))
+            launches = (fa.launches - k1, fa.stats_launches - k2)
+            # The first launch uploads the graph: pay it at startup.
+            with torch.cuda.stream(stream):
+                graph.replay()
+            fa.count_replay(*launches)
+            stream.synchronize()
+        return Graph(graph, prog.inputs, outputs, launches)
+
+    def run_program(self, tag: str, *args, params_override: StagedParams | None = None,
+                    block: int = LIVE_BLOCK) -> Any:
+        """Enqueue a registered program on state block ``block`` against the
+        live parameter slot — or a staged candidate's (``params_override``:
+        the lifecycle's staged canary generates through the real graphs on
+        the scratch block without the candidate ever serving) — and return
+        its outputs as device tensors without waiting for them. ``args``
+        are numpy arrays or scalars, shaped as the program's specs. On CUDA:
+        copy them into the static inputs, replay the (slot, block) graph,
+        clone the outputs, all under the replay lock on the current stream.
+        The chaos kinds device_error/slow_compute fire here, as in
+        ``dispatch``."""
+        if self.injector is not None:
+            delay = self.injector.delay_s("slow_compute", self.model.name)
+            if delay > 0:
+                time.sleep(delay)  # runs on a stage executor thread
+            self.injector.check("device_error", self.model.name)
+        prog = self.gen_programs[tag]
+        # np.asarray, not ascontiguousarray, which turns 0-d arrays into 1-d.
+        arrays = [np.asarray(a, dtype=spec.dtype, order="C")
+                  for a, spec in zip(_flatten(args), _flatten(prog.arg_specs))]
+        with self._replay_lock, torch.inference_mode():
+            i = self._live if params_override is None else params_override.slot
+            slot = self.slots[i]
+            state = self.state_blocks[block]
+            if self.device.type != "cuda":
+                tensors = tuple(torch.from_numpy(a) for a in arrays)
+                out = prog.fn(slot.module, state, *_unflatten(prog.arg_specs, tensors))
+            else:
+                g = prog.graphs[(i, block)]
+                for dst, a in zip(prog.inputs, arrays):
+                    dst.copy_(torch.from_numpy(a).pin_memory(), non_blocking=True)
+                g.graph.replay()
+                fa.count_replay(*g.launches)
+                out = _map_out(g.outputs, torch.Tensor.clone)
+                slot.last_replay = torch.cuda.Event()
+                slot.last_replay.record()
+        prog.counter.inc()
+        return out
+
+    def fetch_program(self, out: Any) -> Any:
+        """Block for a program's outputs on the host (numpy), each through
+        one copy into pinned memory on CUDA; call off the event loop."""
+        if self.device.type != "cuda":
+            return _map_out(out, lambda t: t.numpy().copy())
+        host = _map_out(out, lambda t: torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                        .copy_(t, non_blocking=True))
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        return _map_out(host, lambda t: t.numpy())
+
     # -- raw-forward probes ---------------------------------------------------
     def probe_raw_ms(self, bucket: tuple, iters: int = 8) -> float:
         """The forward's time for one bucket (ms/batch), inputs resident:
@@ -491,7 +685,7 @@ class ModelRuntime:
         """probe_raw_ms over every bucket, logged; returns the map (also
         kept on the runtime for /stats roofline attribution)."""
         t0 = time.perf_counter()
-        for b in sorted(v.bucket for v in self.variants):
+        for b in sorted(v.bucket for v in self.variants if not isinstance(v.bucket[0], str)):
             self.probe_raw_ms(b, iters=iters)
         log.info("%s: raw-forward probes %s in %.1fs", self.model.name,
                  {str(b): ms for b, ms in sorted(self.raw_ms_per_batch.items())},
@@ -640,7 +834,7 @@ class ModelRuntime:
             "n_chips": 1,
             "parallel": self.mode,
             "device": str(self.device),
-            "buckets": [list(k.bucket) for k in sorted(self.variants, key=lambda k: k.bucket)],
+            "buckets": [list(k.bucket) for k in sorted(self.variants, key=self._bucket_order)],
             "variants": self.variants_summary(),
             "compiles_total": self.compiles_total,
             "slots": {"count": len(self.slots), "live": self._live, "previous": self._prev},
@@ -652,12 +846,49 @@ class ModelRuntime:
         }
 
 
+def torch_dtype(dtype: Any) -> torch.dtype:
+    """A TensorSpec's dtype (numpy, or torch for dtypes numpy lacks such as
+    bfloat16) as a torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros((), dtype)).dtype
+
+
+def _flatten(args: tuple) -> list:
+    """A program's arguments (or specs), tuple arguments spliced in."""
+    out = []
+    for a in args:
+        out.extend(a if isinstance(a, tuple) else (a,))
+    return out
+
+
+def _unflatten(specs: tuple, flat: tuple) -> tuple:
+    """``flat`` regrouped into ``specs``' structure."""
+    it = iter(flat)
+    return tuple(tuple(next(it) for _ in s) if isinstance(s, tuple) else next(it)
+                 for s in specs)
+
+
+def _map_out(out: Any, fn: Callable) -> Any:
+    """``fn`` over a program's output: None, a tensor or a dict of them."""
+    if out is None:
+        return None
+    if isinstance(out, dict):
+        return {k: fn(v) for k, v in out.items()}
+    return fn(out)
+
+
 def build_runtime(model: ServingModel,
                   device: "str | torch.device | None" = None,
-                  metrics: Metrics | None = None) -> ModelRuntime:
+                  metrics: Metrics | None = None,
+                  compile_forward: bool = True) -> ModelRuntime:
     """Parameter slots on ``device`` (default: the current CUDA device) and
-    every bucket warmed up and, on CUDA, captured per slot."""
+    every bucket warmed up and, on CUDA, captured per slot.
+    ``compile_forward=False`` skips the buckets: a runtime for the
+    generation engine, whose programs replace them (``register_program``)."""
     rt = ModelRuntime(model, device=device, metrics=metrics)
+    rt.compile_forward = compile_forward
     rt.load_params()
-    rt.compile_all()
+    if compile_forward:
+        rt.compile_all()
     return rt

@@ -17,14 +17,24 @@ Endpoints (response shapes and status codes as in the JAX server):
   ``{"texts": [...]}`` answers ``{"results": [...]}`` in request order; for
   an image model an ``application/x-tpuserve-frame`` body or an npy
   (N, H, W, 3) batch answers ``{"results": [...]}``, an npy (H, W, 3) image
-  or an encoded image ``{"top_k": [...]}``.
+  or an encoded image ``{"top_k": [...]}``; for textgen ``{"prompt",
+  "seed"?, "max_new_tokens"?, "temperature"?}`` answers ``{"text",
+  "tokens", "n_tokens"}``. With ``[genserve] enabled = true`` a generative
+  model is served by the iteration-level engine
+  (``tpuserve_torch.genserve.GenEngine``) in place of the batcher, with the
+  same front-door surface (deadlines, breaker, cache, canaries, watchdog,
+  drain); its paged-KV admission shed answers 503 with ``"reason":
+  "kv_pressure"`` and a Retry-After, a mid-generation deadline 504.
+  ``?stream=true`` is refused (501): streamed generation is not ported.
 - ``GET /healthz`` (``ok``, ``degraded`` or, once a drain began,
   ``draining`` with 503), ``GET /metrics`` (Prometheus text), ``GET
   /stats`` (latency summary, backend — card, torch and CUDA versions,
   device —, the ``robustness`` block — draining, each model's breaker, the
   armed faults —, the ``cache`` block when ``[cache]`` is on, the ingest
   block — requests and bytes per accept loop, frame errors and
-  native-decode fallbacks per model —, the host pipeline, the kernels'
+  native-decode fallbacks per model —, the host pipeline, the
+  ``genserve`` block of each engine-served model — slots, fold-ins, early
+  exits, evictions, step EWMA, the KV page pool —, the kernels'
   launch counts and the ``roofline`` block — per model the resident
   variants, ``compiles_total``, the startup probes' raw forward ms per
   bucket (``roofline_probe_iters``), ``utilization`` and the compute phase
@@ -117,6 +127,7 @@ from tpuserve_torch.cache import ModelCache
 from tpuserve_torch.config import ServerConfig, SloConfig, unported_settings
 from tpuserve_torch.faults import CircuitBreaker, FaultInjector, Watchdog
 from tpuserve_torch.frame import FrameError
+from tpuserve_torch.genserve import GenEngine, KVPressure
 from tpuserve_torch.hostpipe import StageExecutors
 from tpuserve_torch.lifecycle import ModelLifecycle, ReloadRejected
 from tpuserve_torch.obs import (FlightRecorder, Metrics, TraceContext,
@@ -215,11 +226,14 @@ def _text(status: int) -> Response:
 
 
 def _err(status: int, message: str, retry_after: int | None = None,
-         trace_id: str | None = None) -> Response:
+         trace_id: str | None = None, reason: str | None = None) -> Response:
     headers: dict[str, str] = {}
     if retry_after:
         headers["Retry-After"] = str(retry_after)
     body = {"error": message}
+    if reason is not None:
+        # Machine-readable shed reason ("kv_pressure").
+        body["reason"] = reason
     if trace_id is not None:
         body["trace_id"] = trace_id
         headers["X-Trace-Id"] = trace_id
@@ -327,7 +341,12 @@ class ServerState:
         self.stages = StageExecutors(cfg.pipeline, self.metrics)
         self.models: dict[str, object] = {}
         self.runtimes: dict[str, ModelRuntime] = {}
-        self.batchers: dict[str, ModelBatcher] = {}
+        # Per-model dispatch: ModelBatcher (locked batches) or GenEngine
+        # (iteration-level generation); both expose the same surface.
+        self.batchers: "dict[str, ModelBatcher | GenEngine]" = {}
+        # The GenEngine subset of batchers (the /stats genserve block; the
+        # lifecycle's staged canary).
+        self.engines: dict[str, GenEngine] = {}
         self.breakers: dict[str, CircuitBreaker] = {}
         # Per-model result cache + single-flight; empty unless [cache] is on.
         self.caches: dict[str, ModelCache] = {}
@@ -389,13 +408,26 @@ class ServerState:
             events_mod.set_active(self.events)
 
     def build(self) -> None:
-        """Build every model's runtime: params on the device, buckets warm."""
+        """Build every model's runtime: params on the device, buckets warm —
+        or, for a generative model with ``[genserve]`` on, the generation
+        engine's programs in place of the buckets."""
         for mcfg in self.cfg.models:
             t0 = time.perf_counter()
             model = modelzoo.build(mcfg)
-            rt = build_runtime(model, device=self.device, metrics=self.metrics)
-            if self.cfg.roofline_probe_iters > 0:
-                rt.probe_all_raw(int(self.cfg.roofline_probe_iters))
+            if self.cfg.genserve.enabled and getattr(model, "generative", False):
+                # The engine's insert/step/extract programs replace the
+                # forward buckets: capturing both would double startup for
+                # nothing.
+                rt = build_runtime(model, device=self.device, metrics=self.metrics,
+                                   compile_forward=False)
+                eng = GenEngine(model, rt, self.metrics, self.cfg.genserve,
+                                stages=self.stages, pipeline_cfg=self.cfg.pipeline)
+                eng.compile()  # registers, captures and prewarms the programs
+                self.engines[mcfg.name] = eng
+            else:
+                rt = build_runtime(model, device=self.device, metrics=self.metrics)
+                if self.cfg.roofline_probe_iters > 0:
+                    rt.probe_all_raw(int(self.cfg.roofline_probe_iters))
             # Armed after warm-up and probes: chaos targets the serving path.
             rt.injector = self.injector
             self.models[mcfg.name] = model
@@ -420,11 +452,19 @@ class ServerState:
             br = CircuitBreaker(name, model.cfg.breaker_threshold, self.metrics,
                                 retry_after_s=model.cfg.breaker_retry_after_s)
             self.breakers[name] = br
-            b = ModelBatcher(model, rt, self.metrics, stages=self.stages,
-                             pipeline_cfg=self.cfg.pipeline,
-                             adaptive_cfg=self.cfg.adaptive, breaker=br,
-                             injector=self.injector)
-            await b.start()
+            eng = self.engines.get(name)
+            if eng is not None:
+                # The same front-door surface as the batcher: canary, cache,
+                # watchdog, lifecycle and drain compose unchanged.
+                eng.breaker, eng.injector = br, self.injector
+                await eng.start()
+                b: "ModelBatcher | GenEngine" = eng
+            else:
+                b = ModelBatcher(model, rt, self.metrics, stages=self.stages,
+                                 pipeline_cfg=self.cfg.pipeline,
+                                 adaptive_cfg=self.cfg.adaptive, breaker=br,
+                                 injector=self.injector)
+                await b.start()
             self.batchers[name] = b
             self.handles[name] = ModelHandles(name, model.cfg, self.metrics)
             if self.cfg.cache.enabled and model.cfg.cacheable:
@@ -434,11 +474,14 @@ class ServerState:
                     name, self.cfg.cache, self.metrics,
                     version_fn=functools.partial(getattr, rt, "version"))
             self.watchdog.register(name, "group_loop", b.revive_group_loops)
+            # Engine-served models canary a staged candidate with a SHORT
+            # generation through the real programs, on the scratch block.
             self.lifecycles[name] = ModelLifecycle(
                 name, rt, model, self.cfg.lifecycle, self.metrics, breaker=br,
                 canary=functools.partial(self.run_canary, name),
                 canary_status=functools.partial(self.canary_ok.get, name),
-                injector=self.injector)
+                injector=self.injector,
+                staged_canary_fn=eng.staged_canary_sync if eng is not None else None)
         if self.slo is not None:
             # Models whose [model.slo] names a latency objective get burn
             # gauges and an /alerts row; a first-unit objective is its own
@@ -575,6 +618,13 @@ class ServerState:
         b = self.batchers.get(name)
         hint = clamp_retry_after_s(b.estimate_clear_s() if b is not None else None)
         return hint if hint is not None else self.shed_retry_after()
+
+    def kv_retry_after(self, name: str, exc: KVPressure) -> int:
+        """Retry-After seconds on paged-KV pressure 503s: the engine's
+        page-clear estimate carried on the shed, clamped like every hint;
+        the queue-clear hint before the engine has duration evidence."""
+        hint = clamp_retry_after_s(exc.retry_after_s)
+        return hint if hint is not None else self.queue_retry_after(name)
 
     def breaker_retry_after(self, name: str) -> int:
         """Retry-After seconds on breaker 503s: the time to the next
@@ -759,6 +809,10 @@ class ServerState:
         }
         if self.caches:
             out["cache"] = {n: c.stats() for n, c in self.caches.items()}
+        if self.engines:
+            # Slot occupancy, fold-in/early-exit/eviction counts, step
+            # timing and the KV page pool, per engine-served model.
+            out["genserve"] = {n: e.pipeline_stats() for n, e in self.engines.items()}
         roofline = self.roofline(out["latency"])
         if roofline:
             out["roofline"] = roofline
@@ -943,6 +997,15 @@ class ServerState:
             return _err(503, f"circuit open for model {name!r}; recovery probe "
                              "in progress",
                         retry_after=self.breaker_retry_after(name), trace_id=trace_id)
+        try:
+            want_stream = _requested_stream(req)
+        except ValueError as e:
+            return _err(400, str(e), trace_id=trace_id)
+        if want_stream:
+            # Never answered as a plain body: a streaming client would read
+            # one unary JSON object as a torn stream.
+            return _err(501, "stream=true is not yet ported to tpuserve_torch "
+                             "(ROADMAP.md queue 1: item 7, streaming)", trace_id=trace_id)
         h = self.handles[name]
         h.requests.inc()
         t_start = time.perf_counter()
@@ -989,6 +1052,12 @@ class ServerState:
         try:
             results, hit_entry = await _on_main(self, lambda: self._submit_and_gather(
                 name, model, items, deadline_at, timeout_ms, ctx))
+        except KVPressure as e:
+            # Paged-KV admission shed: the fast-shed contract of queue-full,
+            # but 503 with reason "kv_pressure", so clients can tell memory
+            # pressure from queue pressure.
+            return _err(503, str(e), retry_after=self.kv_retry_after(name, e),
+                        trace_id=trace_id, reason="kv_pressure")
         except QueueFull:
             return _err(429, "queue full, retry later",
                         retry_after=self.queue_retry_after(name), trace_id=trace_id)
@@ -1089,6 +1158,20 @@ async def _on_main(state: ServerState, factory):
         return await factory()
     return await asyncio.wrap_future(
         asyncio.run_coroutine_threadsafe(factory(), state.main_loop))
+
+
+def _requested_stream(req: Request) -> bool:
+    """The ``?stream=`` query flag; ValueError (-> 400) on junk values — a
+    typo'd flag must fail loudly, not silently serve unary."""
+    raw = req.query.get("stream")
+    if raw is None:
+        return False
+    val = raw.strip().lower()
+    if val in ("true", "1"):
+        return True
+    if val in ("false", "0"):
+        return False
+    raise ValueError(f'stream must be "true", "1", "false" or "0", got {raw!r}')
 
 
 def _requested_timeout_ms(req: Request, ctype: str) -> float | None:
