@@ -24,7 +24,10 @@ still refuses:
 - every field of the reference's server, model and table configs is known
   to the port (typed or refused), so no key slips through unnamed;
 - ``[genserve]``, typed since the generation engine was ported, holds the
-  reference's defaults and refuses only its streaming keys when written.
+  reference's defaults and refuses nothing since streaming was ported; the
+  streaming keys (``stream_queue``, ``stream_heartbeat_s``,
+  ``stream_drain_s``, the model's ``stream_policy``) are typed with the
+  reference's defaults and served when written.
 
 Exact: the values are compared with ``==``.
 """
@@ -38,7 +41,8 @@ from tpuserve_torch import config as tconfig
 
 EXAMPLES = ("examples/bert_flash.toml", "examples/bert_long_ring.toml",
             "examples/resnet50.toml", "examples/mobilenetv3.toml",
-            "examples/efficientdet.toml", "examples/textgen_flash.toml")
+            "examples/efficientdet.toml", "examples/textgen_flash.toml",
+            "examples/textgen_moe_flash.toml", "examples/bert_moe_flash.toml")
 
 # The reference's defaults that turn on a feature the port does not serve
 # yet, each refused by the port when written out: none.
@@ -133,6 +137,24 @@ def test_robustness_keys_are_typed_with_the_reference_default(name):
     assert "adaptive" not in tconfig.UNPORTED_TABLES and "cache" not in tconfig.UNPORTED_TABLES
 
 
+@pytest.mark.parametrize("name", [
+    "[genserve] stream_queue", "[genserve] stream_heartbeat_s",
+    "[genserve] stream_drain_s", "model stream_policy"])
+def test_streaming_keys_are_typed_with_the_reference_default(name):
+    """Streaming's keys, refused off their defaults until streamed
+    generation was ported, are typed in the port now with the reference's
+    default, and never refused."""
+    if name.startswith("["):
+        table, key = name[1:].split("] ")
+        port = getattr(getattr(tconfig.ServerConfig(), table), key)
+    else:
+        key = name[len("model "):]
+        port = getattr(tconfig.ModelConfig(name="m"), key)
+    assert port == _jax_default(name)
+    assert key not in tconfig._MODEL_UNPORTED
+    assert key not in tconfig._TABLE_KEYS_UNPORTED.get("genserve", {})
+
+
 @pytest.mark.parametrize("path", EXAMPLES)
 def test_served_examples_type_what_the_reference_reads(path):
     """Every typed field of the port equals the reference's value for the
@@ -167,15 +189,18 @@ def test_every_reference_key_is_typed_or_refused(cls, refused):
 def test_unported_table_keys_parse_as_refused(table, tmp_path):
     """Each key of an unported table parses into the port's unported dict
     under its name, and is refused when it asks for anything. [genserve] is
-    typed since the generation engine was ported: the keys it still refuses
-    are streaming's, written with anything but their defaults."""
+    typed since the generation engine was ported and refuses nothing since
+    streaming was: each of its keys written parses typed and is served."""
     if table == "genserve":
         assert table not in tconfig.UNPORTED_TABLES
-        for key in tconfig._TABLE_KEYS_UNPORTED[table]:
-            cfg = tconfig.load_config(None, [f"{table}.{key}=12345"])
-            assert getattr(cfg.genserve, key) == 12345
-            assert cfg.unported == {f"[{table}] {key}": 12345}
-            assert tconfig.unported_settings(cfg) == [f"[{table}] {key} = 12345"]
+        assert table not in tconfig._TABLE_KEYS_UNPORTED
+        for f in dataclasses.fields(tconfig.GenserveConfig):
+            if isinstance(f.default, bool) or not isinstance(f.default, (int, float)):
+                continue
+            cfg = tconfig.load_config(None, [f"{table}.{f.name}=12345"])
+            assert getattr(cfg.genserve, f.name) == 12345
+            assert cfg.unported == {}
+            assert tconfig.unported_settings(cfg) == []
         return
     assert table in tconfig.UNPORTED_TABLES
     fields = dataclasses.fields(getattr(jconfig, TABLE_CLASS[table]))

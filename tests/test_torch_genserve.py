@@ -18,7 +18,7 @@ staged canary (never touching the live state block); flash prefill equal
 to dense; cache keys carry every sampling parameter; ``cacheable = false``;
 the ``[genserve]`` TOML; and over HTTP: ``:generate`` through the engine, a
 reload gated by the engine's staged canary, cache hits, ``?stream=true``
-refused, and ``[genserve] enabled = false`` serving the same tokens as
+answered as a stream (never a plain body), and ``[genserve] enabled = false`` serving the same tokens as
 locked batches through the batcher.
 """
 
@@ -50,6 +50,7 @@ from tpuserve_torch import faults as tfaults
 from tpuserve_torch import genserve as tgenserve
 from tpuserve_torch import obs as tobs
 from tpuserve_torch import savedmodel as sm
+from tpuserve_torch.bench import loadgen as tbench_loadgen
 from tpuserve_torch.models import build as port_build
 from tpuserve_torch.runtime import LIVE_BLOCK
 from tpuserve_torch.runtime import build_runtime as port_build_runtime
@@ -560,10 +561,17 @@ def test_genserve_config_toml(tmp_path):
     for pkg in PKGS:
         with pytest.raises(ValueError, match="admit_per_step"):
             MODS[pkg].config.GenserveConfig(admit_per_step=-1)
-    # Streaming's knobs: the defaults only.
-    p.write_text(GENSERVE_TOML.replace("slots = 6", "slots = 6\nstream_queue = 8"))
-    assert tconfig.unported_settings(tconfig.load_config(str(p))) == [
-        "[genserve] stream_queue = 8"]
+    # Streaming's knobs are served, typed as the reference types them.
+    p.write_text(GENSERVE_TOML.replace(
+        "slots = 6", "slots = 6\nstream_queue = 8\nstream_heartbeat_s = 0.5\n"
+                     "stream_drain_s = 2.0"))
+    cfgs = {pkg: MODS[pkg].config.load_config(str(p)) for pkg in PKGS}
+    assert dataclasses.asdict(cfgs["port"].genserve) == dataclasses.asdict(cfgs["jax"].genserve)
+    assert cfgs["port"].genserve.stream_queue == 8
+    assert tconfig.unported_settings(cfgs["port"]) == []
+    for pkg in PKGS:
+        with pytest.raises(ValueError, match="stream_queue"):
+            MODS[pkg].config.GenserveConfig(stream_queue=0)
 
 
 # ---------------------------------------------------------------------------
@@ -662,12 +670,16 @@ def test_http_textgen_through_engine(served, reference_tokens):
 
 
 def test_http_stream_flag_refused(served):
-    """Streamed generation is not ported: ?stream=true is refused naming its
-    ROADMAP item, never answered as a plain body; junk values are a 400."""
+    """?stream=true is never answered as a plain body: it streams SSE (two
+    token events and one done for 2 tokens); junk values are refused with
+    a 400; stream=false answers the unary body."""
     s = served()
-    st, body, _ = s.call("POST", "/v1/models/tg:generate?stream=true",
-                         {"prompt": "hello", "max_new_tokens": 2})
-    assert st == 501 and "streaming" in json.loads(body)["error"]
+    st, body, hdrs = s.call("POST", "/v1/models/tg:generate?stream=true",
+                            {"prompt": "hello", "max_new_tokens": 2})
+    assert st == 200 and hdrs["Content-Type"] == "text/event-stream"
+    assert hdrs["X-Tpuserve-Stream"] == "1"
+    events = [e for e, _ in tbench_loadgen.SseParser().feed(body)]
+    assert events == ["token", "token", "done"]
     assert s.call("POST", "/v1/models/tg:generate?stream=maybe", {"prompt": "x"})[0] == 400
     st, body, _ = s.call("POST", "/v1/models/tg:generate?stream=false",
                          {"prompt": "hello", "max_new_tokens": 2})

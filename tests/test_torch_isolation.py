@@ -151,9 +151,11 @@ MODEL_TOML = '[[model]]\nname = "bert"\nfamily = "bert"\nparallelism = "single"\
 
 
 @pytest.mark.parametrize("toml, named", [
-    # [genserve] is served since the generation engine was ported; its case
-    # (keeping its id) holds that a streaming knob off its default is refused.
-    pytest.param("[genserve]\nenabled = true\nstream_queue = 8\n", "[genserve] stream_queue = 8",
+    # [genserve] is served, streaming knobs included; its case (keeping its
+    # id) holds that the engine over a replica mesh (GenEngineGroup, the
+    # mesh modes) is refused.
+    pytest.param("[genserve]\nenabled = true\nstream_queue = 8\n[parallel]\nmode = \"replica\"\n",
+                 "[parallel] mode = 'replica'",
                  id="[genserve]\nenabled = true\n-[genserve] enabled = True"),
     ("[router]\nenabled = false\nworkers = 4\n", "[router] workers = 4"),
     ("[faults]\nenabled = true\n[[faults.rule]]\nkind = \"worker_crash\"\n",

@@ -13,7 +13,7 @@ What it does, and no more:
 - every request carries ``Content-Length`` (the port's server answers a
   chunked request body with 411);
 - answers framed by ``Content-Length``, by ``Transfer-Encoding: chunked``
-  (the JAX server's SSE streams) or by the end of the connection;
+  (both servers' SSE streams) or by the end of the connection;
 - a total timeout per request, head and body included;
 - a refused, reset or timed-out connection, or a malformed answer, raises
   :class:`ClientError` (:class:`ClientTimeout` for the timeout) and closes

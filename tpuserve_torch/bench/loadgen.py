@@ -26,9 +26,8 @@ distinct bodies, and the CLI exposes it as ``--distinct N``.
 
 Streaming (``--stream``): ``run_stream_load`` parses ``text/event-stream``
 answers (``SseParser``) for first-token latency, inter-token gaps and
-tokens/s; the port's generation engine serves unary answers only (streamed
-generation is not ported), so this mode reaches the JAX package's servers
-only. ``--synthetic prompt`` pools (``synthetic_prompt_pool``) drive the
+tokens/s, against the port's engine-served generation and the JAX
+package's alike. ``--synthetic prompt`` pools (``synthetic_prompt_pool``) drive the
 port's text generation with mixed ``max_new_tokens``.
 """
 

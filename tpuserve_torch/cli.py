@@ -19,8 +19,7 @@ it is the HTTP load generator (``tpuserve_torch.bench.loadgen``).
 Not ported, refused by name with exit code 2: ``import-model`` (converts a
 TF SavedModel; needs TensorFlow), ``finetune-det`` (ROADMAP.md queue 1 item
 13), ``lint`` (item 12), and the chaos drills ``worker_kill``,
-``host_kill``, ``stream_kill`` (items 7 and 11), ``fleet`` and
-``autopilot`` (item 11).
+``host_kill``, ``stream_kill``, ``fleet`` and ``autopilot`` (item 11).
 """
 
 from __future__ import annotations
@@ -42,8 +41,7 @@ UNPORTED_COMMANDS = {
 UNPORTED_DRILLS = {
     "worker_kill": "not yet ported: ROADMAP.md queue 1 item 11 (the process tiers)",
     "host_kill": "not yet ported: ROADMAP.md queue 1 item 11 (the process tiers)",
-    "stream_kill": "not yet ported: ROADMAP.md queue 1 items 7 (streaming) and 11 "
-                   "(the process tiers)",
+    "stream_kill": "not yet ported: ROADMAP.md queue 1 item 11 (the process tiers)",
     "fleet": "not yet ported: ROADMAP.md queue 1 item 11 (the fleet scheduler)",
     "autopilot": "not yet ported: ROADMAP.md queue 1 item 11 (tenants, autopilot)",
 }

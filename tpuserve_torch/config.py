@@ -24,12 +24,10 @@ default where that default asks for nothing (``relay_workers = 2`` while
 the model is served directly), is accepted. So is a ``[[faults.rule]]``
 whose kind fires at a call site the port has; while ``[faults]`` is
 enabled, a rule whose call site the port lacks (the worker processes',
-deferred mode's, streaming's) is refused by name. Four keys of typed
-tables belong to the reference's worker and router tiers and are refused
-the same way: ``[events] dir``, ``stderr_path`` and ``snapshot_path`` while
-non-empty, and ``[telemetry] fleet_timeout_ms`` whenever it is written;
-and ``[genserve]``'s streaming keys (``stream_queue``,
-``stream_heartbeat_s``, ``stream_drain_s``) unless at their defaults.
+deferred mode's) is refused by name. Four keys of typed tables belong to
+the reference's worker and router tiers and are refused the same way:
+``[events] dir``, ``stderr_path`` and ``snapshot_path`` while non-empty,
+and ``[telemetry] fleet_timeout_ms`` whenever it is written.
 
 Example TOML::
 
@@ -70,10 +68,6 @@ _DISTRIBUTED_OFF: dict[str, tuple] = {"coordinator_address": ("",)}
 _TABLE_KEYS_UNPORTED: dict[str, dict[str, tuple]] = {
     "events": {"dir": ("",), "stderr_path": ("",), "snapshot_path": ("",)},
     "telemetry": {"fleet_timeout_ms": ()},
-    # Streaming's knobs, inert while streamed generation is not ported: the
-    # reference's defaults only.
-    "genserve": {"stream_queue": (64,), "stream_heartbeat_s": (5.0,),
-                 "stream_drain_s": (5.0,)},
 }
 
 # The JAX package's top-level and per-model keys the port does not serve
@@ -90,8 +84,6 @@ _MODEL_UNPORTED: dict[str, tuple] = {
     "relay_workers": (2,), "relay_epoch_images": (4096,),
     "relay_epoch_ms": (2000.0,), "relay_slots": (4,),
     "priority": ("interactive",), "cold_start": (False,),
-    # Streaming's slow-consumer policy, inert without the generation engine.
-    "stream_policy": ("drop",),
 }
 
 WIRE_FORMATS = ("rgb8", "yuv420")
@@ -107,8 +99,7 @@ FAULT_KINDS = ("batch_error", "slow_dispatch", "decode_corrupt", "worker_death",
 _FAULT_KINDS_UNPORTED = {
     "worker_death": "deferred mode",
     "worker_crash": "router and workers", "worker_hang": "router and workers",
-    "worker_slow": "router and workers", "stream_stall": "streaming",
-    "stream_disconnect": "streaming",
+    "worker_slow": "router and workers",
 }
 
 
@@ -234,9 +225,7 @@ class GenserveConfig:
     iteration-level engine instead (Orca): the active batch re-forms every
     model iteration, finished sequences retire immediately, queued requests
     fold into free slots mid-flight, and past-deadline sequences evict with
-    the fast-504 contract. Non-generative models keep the batcher. The
-    streaming keys are the reference's and accepted at their defaults only
-    (streamed generation is not ported)."""
+    the fast-504 contract. Non-generative models keep the batcher."""
 
     enabled: bool = False
     # Generative slot capacity per model (the step's batch width); 0 = the
@@ -245,10 +234,15 @@ class GenserveConfig:
     # Max queued requests folded into free slots per iteration; 0 = fill
     # every free slot.
     admit_per_step: int = 0
-    # Streaming: per-request emission queue depth, SSE heartbeat interval,
-    # graceful-drain stream budget (refused unless at these defaults).
+    # Streaming: per-request emission queue depth between the step loop and
+    # the HTTP writer (a full queue applies the model's stream_policy).
     stream_queue: int = 64
+    # SSE heartbeat comments (": hb") across idle emission gaps, so a client
+    # can tell "still generating" from a dead stream; 0 disables them.
     stream_heartbeat_s: float = 5.0
+    # Graceful-drain stream budget: on SIGTERM, in-flight streams get this
+    # long to finish before the engine terminates stragglers with the
+    # well-formed error event (reason "drain").
     stream_drain_s: float = 5.0
     # Paged KV cache (PagedAttention / vLLM): families with the paged
     # contract (textgen) keep KV in fixed-size pages behind a block table
@@ -585,6 +579,12 @@ class ModelConfig:
     # Result-cache eligibility: False keeps this model out of the result
     # cache (for models whose results are not a pure function of the item).
     cacheable: bool = True
+    # Streaming slow-consumer policy: what the engine does when a stream's
+    # bounded emission queue is full because the client reads slowly.
+    # "drop" discards DROPPABLE units (progress/preview events, counted in
+    # gen_stream_dropped_total; tokens and terminals are never dropped) and
+    # blocks only on non-droppable ones; "block" always blocks the step loop.
+    stream_policy: str = "drop"
     # One-shot batch retry: a failed dispatch re-assembles and re-runs the
     # batch once before failing its futures.
     batch_retry: bool = True
@@ -613,6 +613,10 @@ class ModelConfig:
         if self.wire_format not in WIRE_FORMATS:
             raise ValueError(f"wire_format must be one of {WIRE_FORMATS}, "
                              f"got {self.wire_format!r}")
+        if self.stream_policy not in ("drop", "block"):
+            raise ValueError(
+                f"stream_policy must be 'drop' or 'block', "
+                f"got {self.stream_policy!r}")
 
 
 @dataclass

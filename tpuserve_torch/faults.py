@@ -9,8 +9,11 @@
   ``dispatch`` (``device_error``, ``slow_compute``), its ``stage_params``
   gates (``reload_corrupt``, ``reload_nan``), the lifecycle's staged canary
   (``reload_regressed``) and the server (``decode_corrupt``,
-  ``canary_fail``). Kinds whose call sites the port lacks are refused when
-  the config loads (``tpuserve_torch.config``).
+  ``canary_fail``, and on a started stream only — after a unit was
+  written — ``stream_stall``, which wedges the writer, and
+  ``stream_disconnect``, which tears the transport with no terminal event).
+  Kinds whose call sites the port lacks are refused when the config loads
+  (``tpuserve_torch.config``).
 - :class:`CircuitBreaker`: per model, trips to fast 503 + ``Retry-After``
   after N consecutive failed dispatches; the canary half-opens it and the
   first success closes it.

@@ -48,6 +48,12 @@ MAGIC = b"TPUF"
 VERSION = 1
 KIND_RGB8 = 1
 KIND_YUV420 = 2
+# Stream-only: a self-delimiting JSON event frame. Never valid in a request
+# body (parse_frame rejects the kind); it lets a chunked binary *response*
+# stream interleave progress/done/error events between image frames.
+# ``count`` carries the payload byte length, ``edge`` is 0, and there is no
+# offset table — header + payload, nothing else.
+KIND_EVENT = 3
 KIND_NAMES = {KIND_RGB8: "rgb8", KIND_YUV420: "yuv420"}
 KIND_BY_WIRE_FORMAT = {"rgb8": KIND_RGB8, "yuv420": KIND_YUV420}
 
@@ -101,6 +107,55 @@ def encode_frame(items: list, kind: int, edge: int) -> bytes:
     header = _HEADER.pack(MAGIC, VERSION, kind, len(items), edge)
     table = np.asarray(offsets, dtype="<u8").tobytes()
     return b"".join([header, table, *chunks])
+
+
+def encode_stream_event(payload: bytes) -> bytes:
+    """One self-delimiting ``KIND_EVENT`` frame for a binary response
+    stream: 16-byte header (count = payload byte length, edge = 0) followed
+    directly by the JSON payload. Pairs with :class:`StreamFrameReader`."""
+    return _HEADER.pack(MAGIC, VERSION, KIND_EVENT, len(payload), 0) + payload
+
+
+class StreamFrameReader:
+    """Incremental decoder for a chunked binary response stream (the client
+    side). ``feed`` accepts arbitrary transport chunk splits and returns the
+    frames completed so far as ``(kind, payload)`` tuples — for
+    ``KIND_EVENT`` the payload is the raw JSON bytes; for image kinds it is
+    the COMPLETE frame body (header included), ready for
+    :func:`parse_frame`."""
+
+    def __init__(self) -> None:
+        self._buf = bytearray()
+
+    def feed(self, chunk: bytes) -> list:
+        self._buf += chunk
+        frames: list = []
+        while len(self._buf) >= HEADER_SIZE:
+            magic, version, kind, count, edge = _HEADER.unpack_from(self._buf)
+            if magic != MAGIC:
+                raise FrameError(f"frame: bad stream magic {bytes(magic)!r}")
+            if version != VERSION:
+                raise FrameError(
+                    f"frame: unsupported stream frame version {version}")
+            if kind == KIND_EVENT:
+                total = HEADER_SIZE + count
+            elif kind in KIND_NAMES:
+                total = frame_nbytes(kind, edge, count)
+            else:
+                raise FrameError(f"frame: unknown stream frame kind {kind}")
+            if len(self._buf) < total:
+                break
+            body = bytes(self._buf[:total])
+            del self._buf[:total]
+            frames.append((kind, body[HEADER_SIZE:] if kind == KIND_EVENT
+                           else body))
+        return frames
+
+    @property
+    def pending(self) -> int:
+        """Buffered bytes of a not-yet-complete frame (a torn stream ends
+        with pending > 0 or a missing terminal event — never silently)."""
+        return len(self._buf)
 
 
 def parse_frame(body: bytes, *, kind: int, edge: int, max_items: int) -> list:

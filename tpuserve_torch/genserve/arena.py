@@ -38,8 +38,8 @@ class SlotInfo:
     # Request trace context (obs.TraceContext): the engine tags
     # this slot's fold-in/step/evict/retire events with its trace id.
     ctx: Any = None
-    # Emission channel of a streamed request; always None in the port, which
-    # serves unary generation only (streaming is not ported yet).
+    # Emission channel of a streamed request (engine.GenStream); None for
+    # unary generation.
     stream: Any = None
     meta: dict = field(default_factory=dict)
 

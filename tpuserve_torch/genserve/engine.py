@@ -35,8 +35,14 @@ device work hops through the server's StageExecutors ("h2d" for inserts,
 small out-block (done, n_new and the token buffer) comes back through one
 pinned copy per step.
 
-Not ported: streamed generation (``submit_stream``, ``GenStream``) and the
-replica group (``GenEngineGroup``).
+Streamed generation: ``submit_stream`` returns a :class:`GenStream` the
+HTTP layer drains; each step's units (``model.stream_units``, read from the
+same host copy of the out-block, so streaming adds no device work) flush
+per iteration, and every stream ends in exactly one terminal unit — "done"
+at retire, or an "error" naming the machinery that cut it
+(``obs.GEN_STREAM_REASONS``).
+
+Not ported: the replica group (``GenEngineGroup``).
 
 All engine state is event-loop-only (the step loop owns every mutation);
 there is deliberately no lock to witness.
@@ -61,7 +67,7 @@ from tpuserve_torch.genserve.model import GenerativeModel
 from tpuserve_torch.genserve.pages import PageLedger
 from tpuserve_torch.hostpipe import StageExecutors
 from tpuserve_torch.models.base import TensorSpec
-from tpuserve_torch.obs import PRIORITIES, Metrics
+from tpuserve_torch.obs import GEN_STREAM_REASONS, PRIORITIES, Metrics
 from tpuserve_torch.runtime import LIVE_BLOCK, SCRATCH_BLOCK, torch_dtype
 
 log = logging.getLogger("tpuserve_torch.genserve")
@@ -97,6 +103,50 @@ class _GenRequest:
     priority: str | None = None
     # Request trace context (obs.TraceContext); None untraced.
     ctx: Any = None
+    # Emission channel of a streamed request; None for unary.
+    stream: "GenStream | None" = None
+
+
+def _retrieve_exception(fut: asyncio.Future) -> None:
+    """Streamed requests surface failures as error terminal units on the
+    stream; the future stays for cancellation and bookkeeping. Retrieve the
+    exception so asyncio never logs 'exception was never retrieved'."""
+    if not fut.cancelled():
+        fut.exception()
+
+
+class GenStream:
+    """Consumer handle for one streamed generation: a bounded queue of unit
+    dicts the engine produces and the HTTP layer drains. Exactly one
+    terminal unit ("done" or "error") always arrives — every engine failure
+    path enqueues one — so a client can always tell a complete stream from
+    a torn transport. ``close()`` is the consumer's abandon signal (client
+    disconnect): it stops further emission and unblocks a producer waiting
+    on the full queue. Event-loop-only: touch it from the engine's loop."""
+
+    __slots__ = ("queue", "policy", "state", "first_unit_at", "terminated",
+                 "dropped")
+
+    def __init__(self, maxsize: int, policy: str) -> None:
+        self.queue: asyncio.Queue = asyncio.Queue(maxsize=max(1, maxsize))
+        self.policy = policy  # ModelConfig.stream_policy: "drop" | "block"
+        self.state: dict = {}  # the model's incremental emission state
+        self.first_unit_at: float | None = None
+        # Terminal enqueued (or consumer gone): emission is over.
+        self.terminated = False
+        self.dropped = 0
+
+    async def get(self) -> dict:
+        return await self.queue.get()
+
+    def close(self) -> None:
+        """Consumer gone: stop emission and free any blocked producer."""
+        self.terminated = True
+        while True:
+            try:
+                self.queue.get_nowait()
+            except asyncio.QueueEmpty:
+                return
 
 
 def _packed_step(model: GenerativeModel, layout: dict):
@@ -197,6 +247,15 @@ class GenEngine:
         self._h_extract = metrics.histogram(f"gen_extract_ms{{model={name}}}")
         self._h_queue = metrics.histogram(
             f"latency_ms{{model={name},phase=queue}}")
+        # Streaming: first-unit latency feeds the first-unit SLO subject;
+        # the terminated counter is per reason (created on demand).
+        self._h_first_unit = metrics.histogram(
+            f"gen_first_unit_ms{{model={name}}}")
+        self._c_streams = metrics.counter(f"gen_streams_total{{model={name}}}")
+        self._c_disconnects = metrics.counter(
+            f"gen_client_disconnects_total{{model={name}}}")
+        self._c_stream_dropped = metrics.counter(
+            f"gen_stream_dropped_total{{model={name}}}")
         # Paged-KV observability, prebound so the telemetry sampler sees the
         # rows from the first scrape.
         self._g_kv_pages_total = metrics.gauge(
@@ -237,6 +296,10 @@ class GenEngine:
         # Runaway guard: a slot that somehow never reports done is failed
         # (and freed) past this bound instead of pinning its slot forever.
         self._max_steps_guard = 2 * max(1, model.gen_max_steps())
+        # Drain's bounded stream budget: once set (perf_counter clock),
+        # still-open streams past it terminate with the "drain" error event
+        # instead of holding the drain hostage.
+        self._stream_kill_at: float | None = None
 
     # -- compilation ----------------------------------------------------------
     def compile(self) -> None:
@@ -381,9 +444,11 @@ class GenEngine:
         err = RuntimeError(f"server shutting down; {self.name} not served")
         while self._pending:
             req = self._pending.popleft()
+            self._terminate_stream(req.stream, "shutdown", str(err))
             if not req.future.done():
                 req.future.set_exception(err)
         for info in self.arena.release_all():
+            self._terminate_stream(info.stream, "shutdown", str(err))
             if not info.future.done():
                 info.future.set_exception(err)
         if self.pages is not None:
@@ -414,19 +479,27 @@ class GenEngine:
     async def drain(self, deadline: float) -> bool:
         """Graceful drain: wait until every accepted request (queued or
         mid-generation) resolved, bounded by ``deadline`` (event-loop
-        clock). Same idle-event discipline as the batcher."""
+        clock). Same idle-event discipline as the batcher. Streams get their
+        own bounded budget inside the window (``stream_drain_s``): past it
+        the scheduling passes terminate stragglers with the "drain" error
+        event — a well-formed torn-stream signal, never a silent truncation
+        or an unbounded drain."""
         loop = asyncio.get_running_loop()
-        while self._pending or self.arena.n_active:
-            timeout = deadline - loop.time()
-            if timeout <= 0:
-                break
-            self._idle_event.clear()
-            if not self._pending and not self.arena.n_active:
-                break
-            try:
-                await asyncio.wait_for(self._idle_event.wait(), timeout)
-            except asyncio.TimeoutError:
-                break
+        self._stream_kill_at = time.perf_counter() + self.gcfg.stream_drain_s
+        try:
+            while self._pending or self.arena.n_active:
+                timeout = deadline - loop.time()
+                if timeout <= 0:
+                    break
+                self._idle_event.clear()
+                if not self._pending and not self.arena.n_active:
+                    break
+                try:
+                    await asyncio.wait_for(self._idle_event.wait(), timeout)
+                except asyncio.TimeoutError:
+                    break
+        finally:
+            self._stream_kill_at = None
         self._maybe_idle()
         return not self._pending and not self.arena.n_active
 
@@ -441,6 +514,26 @@ class GenEngine:
         labels the queue-wait histogram. ``ctx`` (obs.TraceContext)
         collects the request's queue/fold-in/step/evict/retire spans,
         tagged with its slot."""
+        return self._enqueue(item, deadline_at, priority, ctx, None)
+
+    def submit_stream(self, item: Any, deadline_at: float | None = None,
+                      priority: str | None = None,
+                      ctx: Any = None) -> "tuple[asyncio.Future, GenStream]":
+        """Enqueue one streamed generation -> (future, stream). The HTTP
+        layer consumes ONLY the stream (units ending in one terminal —
+        every failure path pushes an error terminal, so the queue is the
+        single channel); the future exists for disconnect cancellation.
+        Raises QueueFull exactly like submit (a shed stream was never
+        started: a plain 429)."""
+        stream = GenStream(self.gcfg.stream_queue, self.cfg.stream_policy)
+        fut = self._enqueue(item, deadline_at, priority, ctx, stream)
+        fut.add_done_callback(_retrieve_exception)
+        self._c_streams.inc()
+        return fut, stream
+
+    def _enqueue(self, item: Any, deadline_at: float | None,
+                 priority: str | None, ctx: Any,
+                 stream: "GenStream | None") -> asyncio.Future:
         if not self._running or self._work_event is None:
             raise RuntimeError(f"engine for {self.name} not started")
         if len(self._pending) >= self.cfg.max_queue:
@@ -468,11 +561,121 @@ class GenEngine:
         self._pending.append(_GenRequest(
             item=item, future=fut, enqueued_at=time.perf_counter(),
             deadline_at=deadline_at, priority=priority, ctx=ctx,
-            pages_needed=need))
+            stream=stream, pages_needed=need))
         self._publish_queue_depth()
         self._idle_event.clear()
         self._work_event.set()
         return fut
+
+    # -- stream emission (event loop) -----------------------------------------
+    def _count_termination(self, reason: str) -> None:
+        if reason not in GEN_STREAM_REASONS:
+            # An off-vocabulary label would fragment the metric: fail loudly.
+            raise ValueError(f"unknown stream-termination reason {reason!r} "
+                             f"(add it to obs.GEN_STREAM_REASONS)")
+        self.metrics.counter(
+            f"gen_stream_terminated_total{{model={self.name},"
+            f"reason={reason}}}").inc()
+
+    def _terminate_stream(self, stream: "GenStream | None", reason: str,
+                          message: str | None = None,
+                          unit: dict | None = None) -> None:
+        """Enqueue the terminal unit (sync: callable from the scheduling
+        passes and stop()). The terminal is never dropped — on a full queue
+        the oldest buffered unit makes room; the terminal outranks any
+        backlog because the stream is ending either way."""
+        if stream is None or stream.terminated:
+            return
+        stream.terminated = True
+        if unit is None:
+            unit = {"type": "error", "error": reason,
+                    "message": message or reason}
+        q = stream.queue
+        while True:
+            try:
+                q.put_nowait(unit)
+                break
+            except asyncio.QueueFull:
+                try:
+                    q.get_nowait()
+                except asyncio.QueueEmpty:
+                    break
+        self._count_termination(reason)
+
+    async def _emit_unit(self, stream: "GenStream", unit: dict) -> None:
+        """Policy-aware in-flight emission. A droppable unit under policy
+        "drop" is discarded when the consumer lags (gen_stream_dropped_
+        total); everything else blocks the step loop until the consumer
+        drains — re-checking the terminated flag every 50 ms so an
+        abandoned stream can never wedge the engine."""
+        if stream.terminated:
+            return
+        if unit.get("droppable") and stream.policy == "drop":
+            if stream.queue.full():
+                stream.dropped += 1
+                self._c_stream_dropped.inc()
+                return
+            stream.queue.put_nowait(unit)
+            return
+        while not stream.terminated:
+            if not self._running:
+                # stop() is tearing the engine down; it sends the
+                # "shutdown" terminal itself once the loop exits.
+                return
+            kill_at = self._stream_kill_at
+            if kill_at is not None and time.perf_counter() >= kill_at:
+                # Draining and the stream budget is spent: a wedged
+                # consumer must not hold the step loop (and the drain) open.
+                self._terminate_stream(stream, "drain",
+                                       "server draining; stream budget spent")
+                return
+            try:
+                await asyncio.wait_for(stream.queue.put(unit), 0.05)
+                return
+            except asyncio.TimeoutError:
+                continue
+
+    async def _emit_step_units(self, out: dict) -> None:
+        """Flush each streaming slot's newly produced units for this
+        iteration, read from the step's host out-block (no device work),
+        plus the family's optional preview extract — which reuses the
+        captured extract program, so previews never add a capture."""
+        model = self.model
+        for slot in self.arena.active_slots():
+            info = self.arena.peek(slot)
+            stream = info.stream
+            if stream is None or stream.terminated or info.future.done():
+                continue
+            try:
+                units = model.stream_units(out, slot, stream.state)
+            except Exception:  # noqa: BLE001 — emission must not kill a slot
+                log.exception("stream_units failed for %s slot %d",
+                              self.name, slot)
+                continue
+            if units and stream.first_unit_at is None:
+                now = time.perf_counter()
+                stream.first_unit_at = now
+                ms = (now - info.enqueued_at) * 1e3
+                tid = info.ctx.trace_id if info.ctx is not None else None
+                self._h_first_unit.observe(ms, trace_id=tid)
+                if info.ctx is not None:
+                    wall = time.time()
+                    info.ctx.span("first_unit", wall - ms / 1e3, wall,
+                                  tid=self.name, slot=slot)
+            for u in units:
+                await self._emit_unit(stream, u)
+            if model.stream_wants_preview(out, slot, stream.state):
+                try:
+                    extracted = await self.stages.run(
+                        self.name, "fetch", self._extract_sync, slot)
+                    u = model.stream_preview_unit(extracted, stream.state)
+                except asyncio.CancelledError:
+                    raise
+                except Exception:  # noqa: BLE001 — a preview is best-effort
+                    log.exception("preview extract failed for %s slot %d",
+                                  self.name, slot)
+                else:
+                    await self._emit_unit(stream, u)
 
     def _maybe_idle(self) -> None:
         if self._idle_event is not None and not self._pending \
@@ -575,6 +778,7 @@ class GenEngine:
             except Exception as e:  # noqa: BLE001 — contained per step
                 await self._fail_active(e)
                 continue
+            await self._emit_step_units(out)
             await self._retire(out)
 
     def _step_sync(self) -> dict:
@@ -627,6 +831,7 @@ class GenEngine:
             except Exception as e:  # noqa: BLE001 — same blast radius as
                 # an insert failure: the block may be half-written.
                 self._release_slot(slot)
+                self._terminate_stream(info.stream, "engine_error", str(e))
                 if not info.future.done():
                     info.future.set_exception(e)
                 await self._fail_active(e)
@@ -639,16 +844,28 @@ class GenEngine:
         if not self._pending:
             return
         now = time.perf_counter()
+        kill_at = self._stream_kill_at
         live: collections.deque[_GenRequest] = collections.deque()
         n_expired = 0
         for req in self._pending:
             if req.future.done():
+                if req.stream is not None:
+                    req.stream.close()  # consumer already gone
                 continue
             if req.deadline_at is not None and now >= req.deadline_at:
                 msg = ("deadline expired after "
                        f"{(now - req.enqueued_at) * 1e3:.0f} ms in queue")
+                self._terminate_stream(req.stream, "deadline_exceeded", msg)
                 req.future.set_exception(DeadlineExceeded(msg))
                 n_expired += 1
+                continue
+            if req.stream is not None and kill_at is not None \
+                    and now >= kill_at:
+                # Drain's stream budget spent before this one ever started.
+                self._terminate_stream(req.stream, "drain",
+                                       "server draining; stream budget spent")
+                req.future.set_exception(RuntimeError(
+                    f"{self.name}: draining; stream budget spent"))
                 continue
             live.append(req)
         if n_expired:
@@ -664,15 +881,21 @@ class GenEngine:
         lanes hold stale state until the next insert overwrites them; their
         own done flag freezes them within the model's step bound."""
         now = time.perf_counter()
+        kill_at = self._stream_kill_at
         for slot in self.arena.active_slots():
             info = self.arena.peek(slot)
             if info.future.done():  # client gone mid-generation
+                self._note_disconnect(info)
                 self._release_slot(slot)
                 continue
             if info.deadline_at is not None and now >= info.deadline_at:
                 msg = (f"deadline expired after {info.iterations} "
                        "iteration(s) "
                        f"({(now - info.enqueued_at) * 1e3:.0f} ms total)")
+                # The deadline contract splits at the first unit: before it
+                # the HTTP layer answers a plain 504; after it this terminal
+                # becomes the in-stream error event — never a silent cut.
+                self._terminate_stream(info.stream, "deadline_exceeded", msg)
                 info.future.set_exception(DeadlineExceeded(msg))
                 self._c_deadline.inc()
                 self._c_evictions.inc()
@@ -681,7 +904,30 @@ class GenEngine:
                     info.ctx.span("evict", wall, wall, tid=self.name,
                                   slot=slot, iterations=info.iterations)
                 self._release_slot(slot)
+                continue
+            if info.stream is not None and kill_at is not None \
+                    and now >= kill_at:
+                self._terminate_stream(info.stream, "drain",
+                                       "server draining; stream budget spent")
+                info.future.set_exception(RuntimeError(
+                    f"{self.name}: draining; stream terminated after "
+                    f"{info.iterations} iteration(s)"))
+                self._c_evictions.inc()
+                if info.ctx is not None:
+                    wall = time.time()
+                    info.ctx.span("evict", wall, wall, tid=self.name,
+                                  slot=slot, iterations=info.iterations,
+                                  reason="drain")
+                self._release_slot(slot)
         self._publish_active()
+
+    def _note_disconnect(self, info: SlotInfo) -> None:
+        """A slot whose future is done before retire: for a stream, its
+        consumer cancelled it (client gone)."""
+        if info.stream is not None:
+            self._c_disconnects.inc()
+            self._count_termination("disconnect")
+            info.stream.close()
 
     async def _admit(self) -> None:
         """Fold queued requests into free slots — mid-flight when the block
@@ -697,6 +943,7 @@ class GenEngine:
             if req.deadline_at is not None and now >= req.deadline_at:
                 msg = ("deadline expired after "
                        f"{(now - req.enqueued_at) * 1e3:.0f} ms in queue")
+                self._terminate_stream(req.stream, "deadline_exceeded", msg)
                 req.future.set_exception(DeadlineExceeded(msg))
                 self._c_deadline.inc()
                 continue
@@ -713,7 +960,7 @@ class GenEngine:
             info = SlotInfo(item=req.item, future=req.future,
                             deadline_at=req.deadline_at,
                             enqueued_at=req.enqueued_at, admitted_at=now,
-                            ctx=req.ctx)
+                            ctx=req.ctx, stream=req.stream)
             slot = self.arena.acquire(info)
             trace_id = req.ctx.trace_id if req.ctx is not None else None
             try:
@@ -754,6 +1001,7 @@ class GenEngine:
                 # The state block may be half-written: hard-reset like a
                 # step failure. The admitting request fails with the cause.
                 self._release_slot(slot)
+                self._terminate_stream(req.stream, "engine_error", str(e))
                 if not req.future.done():
                     req.future.set_exception(e)
                 await self._fail_active(e)
@@ -782,6 +1030,7 @@ class GenEngine:
         for slot in self.arena.active_slots():
             info = self.arena.peek(slot)
             if info.future.done():
+                self._note_disconnect(info)
                 self._release_slot(slot)
                 continue
             # Prefill chunks ride the same iteration counter, so a paged
@@ -791,6 +1040,7 @@ class GenEngine:
                 msg = (f"{self.name}: slot {slot} exceeded the "
                        f"{guard}-iteration guard without "
                        "reporting done")
+                self._terminate_stream(info.stream, "engine_error", msg)
                 info.future.set_exception(RuntimeError(msg))
                 self._c_batch_errors.inc()
                 self._release_slot(slot)
@@ -819,9 +1069,21 @@ class GenEngine:
                 self._c_batch_errors.inc()
                 if self.breaker is not None:
                     self.breaker.record_failure()
+                self._terminate_stream(info.stream, "engine_error", str(e))
                 if not info.future.done():
                     info.future.set_exception(e)
             else:
+                if info.stream is not None and not info.stream.terminated:
+                    # Terminal burst: the family's final units, then done
+                    # (finish reason + usage) through _terminate_stream, so
+                    # its delivery is unconditional and the per-reason
+                    # counter sees a "done".
+                    finals = self.model.stream_final_units(extracted, result)
+                    for u in finals[:-1]:
+                        await self._emit_unit(info.stream, u)
+                    self._terminate_stream(
+                        info.stream, "done",
+                        unit=finals[-1] if finals else {"type": "done"})
                 if not info.future.done():
                     info.future.set_result(result)
                 self._c_items.inc()
@@ -859,6 +1121,7 @@ class GenEngine:
             self.breaker.record_failure()
         wall = time.time()
         for info in self.arena.release_all():
+            self._terminate_stream(info.stream, "engine_error", str(e))
             if not info.future.done():
                 info.future.set_exception(e)
             if info.ctx is not None:

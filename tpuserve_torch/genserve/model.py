@@ -34,18 +34,18 @@ content-addressable: the result cache digests the whole item, so two prompts
 differing only in seed never alias (``ModelConfig.cacheable`` opts a family
 out).
 
-Streaming (the reference's ``stream_*`` hooks) is not ported yet: those
-hooks raise ``NotImplementedError`` naming its ROADMAP item.
+Streaming: the engine feeds each streamed slot's units (``stream_units``
+per iteration, ``stream_final_units`` at retire) to its ``GenStream``; the
+HTTP layer encodes them with ``encode_stream_unit`` (SSE by default).
 """
 
 from __future__ import annotations
 
 import abc
+import json
 from typing import Any
 
-from tpuserve_torch.models.base import ServingModel, not_ported
-
-_STREAMING = "item 7, streaming"
+from tpuserve_torch.models.base import ServingModel
 
 
 class GenerativeModel(ServingModel):
@@ -172,31 +172,66 @@ class GenerativeModel(ServingModel):
         decode steps skip it."""
         raise NotImplementedError
 
-    # -- streaming contract: not ported ---------------------------------------
+    # -- streaming contract ---------------------------------------------------
+    # The engine calls stream_units after EVERY fetched iteration for each
+    # slot with an attached stream, and stream_final_units once at retire;
+    # the HTTP layer encodes each unit with encode_stream_unit under
+    # stream_content_type. Units are plain dicts with a "type" key; a unit
+    # carrying "droppable": True may be discarded under the model's
+    # stream_policy = "drop" when the client reads slowly (progress and
+    # previews are droppable, tokens and terminals never are).
+
     def stream_units(self, step_out: dict, slot: int, stream: dict) -> list:
-        raise not_ported("streamed generation", _STREAMING)
+        """Newly produced stream units for one slot after one iteration.
+        ``stream`` is a per-request mutable dict the model keeps its
+        incremental emission state in (e.g. tokens already sent). The
+        default streams nothing per iteration (the terminal burst from
+        stream_final_units still makes the stream well-formed)."""
+        return []
 
     def stream_wants_preview(self, step_out: dict, slot: int,
                              stream: dict) -> bool:
-        raise not_ported("streamed generation", _STREAMING)
+        """Side-effect-free: should the engine run the (already captured)
+        extract program for this slot NOW to build a mid-flight preview
+        unit? A preview costs one extract, never a new capture."""
+        return False
 
     def stream_preview_unit(self, extracted: Any, stream: dict) -> dict:
-        raise not_ported("streamed generation", _STREAMING)
+        """Fetched extract() outputs -> one droppable preview unit (and the
+        model's chance to note in ``stream`` when it last previewed)."""
+        return {"type": "preview", "droppable": True}
 
     def stream_final_units(self, extracted: Any, result: Any) -> list:
-        raise not_ported("streamed generation", _STREAMING)
+        """Terminal burst for one retired slot, ending in the ``done``
+        event every complete stream MUST carry (clients distinguish
+        complete from torn by the terminal alone)."""
+        return [{"type": "done",
+                 "finish_reason": self.stream_finish_reason(result),
+                 "usage": self.stream_usage(result)}]
 
     def stream_finish_reason(self, result: Any) -> str:
-        raise not_ported("streamed generation", _STREAMING)
+        """Why generation ended: "stop" (natural EOS) or "length" (cap)."""
+        return "stop"
 
     def stream_usage(self, result: Any) -> dict:
-        raise not_ported("streamed generation", _STREAMING)
+        """The usage block on the terminal ``done`` event."""
+        return {"units": self.result_units(result)}
 
     def stream_content_type(self) -> str:
-        raise not_ported("streamed generation", _STREAMING)
+        """Wire format for streamed responses: SSE by default; binary
+        families answer ``frame.CONTENT_TYPE`` instead."""
+        return "text/event-stream"
 
     def encode_stream_unit(self, unit: dict) -> bytes:
-        raise not_ported("streamed generation", _STREAMING)
+        """One unit -> wire bytes under stream_content_type. The SSE
+        default renders ``event: <type>`` + a JSON data line; every key
+        except "type" (and the droppable marker) rides in the data."""
+        data = {k: v for k, v in unit.items()
+                if k not in ("type", "droppable")}
+        return (f"event: {unit['type']}\n"
+                f"data: {json.dumps(data)}\n\n").encode("utf-8")
 
     def stream_heartbeat(self) -> bytes:
-        raise not_ported("streamed generation", _STREAMING)
+        """Idle-gap keepalive bytes (an SSE comment by default); empty
+        bytes disable heartbeats for the family."""
+        return b": hb\n\n"

@@ -26,8 +26,17 @@ the FFN int8 x int8 -> int32 (``quantize.Int8Linear``, the reference's
 ``Int8SelfAttention`` and ``Int8Dense``); ``reference_layout`` tells the
 quantizer the reference's layout of each leaf, so q/k/v keep one scale per
 head_dim index shared by all heads and the embedding tables one per column
-of d, as in the reference. The MoE variant is not ported (nor, with it, its
-int8c refusal).
+of d, as in the reference.
+
+``options.moe_experts`` = E > 0 replaces every block's FFN with the
+reference's top-1 Switch FFN (``tpuserve_torch.ops.moe.SwitchFFN``, routed
+per batch row with capacity ``ceil(S / E * options.moe_capacity_factor)``,
+default 1.25; padded tokens, recovered from the attention mask, never claim
+capacity). Its GELU is the tanh approximation, as flax's ``nn.gelu``
+default that the reference's ``SwitchFFN`` calls, where the dense FFN's is
+the exact one. The reference's refusals come with it: no pipeline mode, an
+expert count the tensor-parallel width divides, no imported weights, and
+no int8c (the MoE FFN has no int8-native kernels).
 
 ``from_jax_params`` converts the reference's flax parameter tree (numpy
 leaves) into this module's state_dict, which is how the tests hold the port
@@ -52,6 +61,7 @@ from torch import nn
 from tpuserve_torch.config import ModelConfig
 from tpuserve_torch.models.base import ServingModel, TensorSpec, not_ported
 from tpuserve_torch.ops.flash_attention import flash_attention
+from tpuserve_torch.ops.moe import SwitchFFN
 from tpuserve_torch.ops.ring_attention import ring_attention
 from tpuserve_torch.ops.ulysses import ulysses_attention
 from tpuserve_torch.quantize import Int8Linear
@@ -111,18 +121,27 @@ class SelfAttention(nn.Module):
 class BertBlock(nn.Module):
     def __init__(self, d_model: int, heads: int, d_ff: int,
                  attention: str = "dense", ln_eps: float = 1e-12,
-                 mesh: Mesh | None = None) -> None:
+                 mesh: Mesh | None = None, moe_experts: int = 0,
+                 moe_capacity_factor: float = 1.25) -> None:
         super().__init__()
         self.attn = SelfAttention(d_model, heads, attention, mesh)
         self.ln_attn = nn.LayerNorm(d_model, eps=ln_eps)
-        self.mlp_up = Int8Linear(d_model, d_ff)
-        self.mlp_down = Int8Linear(d_ff, d_model)
+        if moe_experts:
+            self.moe = SwitchFFN(d_model, moe_experts, d_ff, moe_capacity_factor)
+        else:
+            self.mlp_up = Int8Linear(d_model, d_ff)
+            self.mlp_down = Int8Linear(d_ff, d_model)
         self.ln_mlp = nn.LayerNorm(d_model, eps=ln_eps)
 
     def forward(self, x: torch.Tensor, key_bias: torch.Tensor) -> torch.Tensor:
         # Post-LN (original BERT): sublayer -> add -> LayerNorm.
         x = self.ln_attn(x + self.attn(x, key_bias))
-        h = self.mlp_down(F.gelu(self.mlp_up(x)))  # exact (erf) GELU
+        if hasattr(self, "moe"):
+            # The (B, S) token mask from the additive key bias, as the
+            # reference recovers it; the serving forward drops the aux loss.
+            h, _aux = self.moe(x, (key_bias == 0.0).float())
+        else:
+            h = self.mlp_down(F.gelu(self.mlp_up(x)))  # exact (erf) GELU
         return self.ln_mlp(x + h)
 
 
@@ -130,13 +149,15 @@ class BertClassifier(nn.Module):
     def __init__(self, vocab_size: int, layers: int, d_model: int, heads: int,
                  d_ff: int, max_seq: int, num_classes: int,
                  attention: str = "dense", ln_eps: float = 1e-12,
-                 mesh: Mesh | None = None) -> None:
+                 mesh: Mesh | None = None, moe_experts: int = 0,
+                 moe_capacity_factor: float = 1.25) -> None:
         super().__init__()
         self.embed = nn.Embedding(vocab_size, d_model)
         self.pos_embed = nn.Parameter(torch.zeros(max_seq, d_model))
         self.ln_embed = nn.LayerNorm(d_model, eps=ln_eps)
         self.layers = nn.ModuleList(
-            BertBlock(d_model, heads, d_ff, attention, ln_eps, mesh)
+            BertBlock(d_model, heads, d_ff, attention, ln_eps, mesh,
+                      moe_experts, moe_capacity_factor)
             for _ in range(layers))
         self.pooler = nn.Linear(d_model, d_model)
         self.classifier = nn.Linear(d_model, num_classes)
@@ -161,7 +182,8 @@ def from_jax_params(tree) -> dict[str, torch.Tensor]:
     Layouts: q/k/v kernels (D, H, hd) -> (H*hd, D) and their biases
     (H, hd) -> (H*hd,); the out kernel (H, hd, D) -> (D, H*hd); Dense
     kernels (in, out) -> (out, in); LayerNorm scale/bias -> weight/bias;
-    the embedding table and pos_embed (max_seq, D) carry over unchanged."""
+    the embedding table, pos_embed (max_seq, D) and the MoE FFN's
+    ``moe/{router, w_up, w_down}`` carry over unchanged."""
     p = tree["params"] if "params" in tree else tree
 
     def t(x) -> torch.Tensor:
@@ -192,8 +214,12 @@ def from_jax_params(tree) -> dict[str, torch.Tensor]:
         sd[f"{pre}.attn.out.weight"] = out.reshape(-1, out.shape[-1]).T.contiguous()
         sd[f"{pre}.attn.out.bias"] = t(lp["attn"]["out"]["bias"])
         sd.update(norm(f"{pre}.ln_attn", lp["ln_attn"]))
-        sd.update(dense(f"{pre}.mlp_up", lp["mlp_up"]))
-        sd.update(dense(f"{pre}.mlp_down", lp["mlp_down"]))
+        if "moe" in lp:
+            sd.update({f"{pre}.moe.{w}": t(lp["moe"][w])
+                       for w in ("router", "w_up", "w_down")})
+        else:
+            sd.update(dense(f"{pre}.mlp_up", lp["mlp_up"]))
+            sd.update(dense(f"{pre}.mlp_down", lp["mlp_down"]))
         sd.update(norm(f"{pre}.ln_mlp", lp["ln_mlp"]))
         i += 1
     return sd
@@ -230,17 +256,23 @@ def to_jax_params(state_dict: dict[str, torch.Tensor], heads: int) -> dict:
         out = sd[f"{pre}.attn.out.weight"]                  # (D, H*hd)
         attn["out"] = {"kernel": n(out.T.reshape(heads, -1, out.shape[0])),
                        "bias": n(sd[f"{pre}.attn.out.bias"])}
+        if f"{pre}.moe.router" in sd:
+            ffn = {"moe": {w: n(sd[f"{pre}.moe.{w}"])
+                           for w in ("router", "w_up", "w_down")}}
+        else:
+            ffn = {"mlp_up": dense(f"{pre}.mlp_up"),
+                   "mlp_down": dense(f"{pre}.mlp_down")}
         p[f"layer{i}"] = {"attn": attn, "ln_attn": norm(f"{pre}.ln_attn"),
-                          "mlp_up": dense(f"{pre}.mlp_up"),
-                          "mlp_down": dense(f"{pre}.mlp_down"),
-                          "ln_mlp": norm(f"{pre}.ln_mlp")}
+                          **ffn, "ln_mlp": norm(f"{pre}.ln_mlp")}
         i += 1
     return {"params": p}
 
 
 class BertServing(ServingModel):
     def __init__(self, cfg: ModelConfig) -> None:
-        super().__init__(cfg)
+        # The option checks read the config alone and run first, as the
+        # reference's do: an MoE config with weights= is refused for that,
+        # whatever the weights' form.
         opt = cfg.options
         attention = str(opt.get("attention", "dense"))
         if attention not in ATTENTION_IMPLS:
@@ -269,13 +301,36 @@ class BertServing(ServingModel):
                     f"ulysses attention deals heads over sp={cfg.sp}; "
                     f"local heads {local} (heads={heads}, tp={cfg.tp}) "
                     "are not divisible")
-        if int(opt.get("moe_experts", 0)):
-            raise not_ported("options.moe_experts", "parallel attention and MoE")
+        moe_experts = int(opt.get("moe_experts", 0))
+        # The reference's MoE refusals, with its reasons, ahead of the
+        # port's own refusal of every mode but "single".
+        if cfg.parallelism == "pipeline":
+            if attention != "dense":
+                raise ValueError(
+                    "parallelism='pipeline' supports options.attention="
+                    f"'dense' only, got {attention!r}")
+            if moe_experts:
+                raise ValueError(
+                    "parallelism='pipeline' does not compose with "
+                    "options.moe_experts")
+        if moe_experts and cfg.parallelism == "sharded" and cfg.tp > 1 \
+                and moe_experts % cfg.tp:
+            raise ValueError(
+                f"options.moe_experts={moe_experts} shards the expert dim "
+                f"over the model axis (tp={cfg.tp}); it must divide evenly")
+        if moe_experts and cfg.weights:
+            raise ValueError(
+                "options.moe_experts cannot be combined with weights=: no "
+                "TF import mapping exists for the MoE FFN; serve it with "
+                "seeded weights or an orbax checkpoint trained in-framework")
         if cfg.parallelism != "single" or cfg.tp > 1 or cfg.sp > 1:
             raise not_ported(
                 f"parallelism={cfg.parallelism!r} (tp={cfg.tp}, sp={cfg.sp}); "
                 "set parallelism = \"single\"", "mesh modes")
+        super().__init__(cfg)
         self.attention = attention
+        self.moe_experts = moe_experts
+        self.moe_capacity_factor = float(opt.get("moe_capacity_factor", 1.25))
         self.mesh: Mesh | None = None
         self.max_seq = max(cfg.seq_buckets)
         vocab_file = opt.get("vocab_file")
@@ -297,7 +352,9 @@ class BertServing(ServingModel):
             vocab_size=self.vocab_size, layers=self.layers,
             d_model=self.d_model, heads=self.heads, d_ff=self.d_ff,
             max_seq=self.max_seq, num_classes=self.cfg.num_classes,
-            attention=self.attention, mesh=self.mesh)
+            attention=self.attention, mesh=self.mesh,
+            moe_experts=self.moe_experts,
+            moe_capacity_factor=self.moe_capacity_factor)
 
     def reference_layout(self, name: str, shape: tuple) -> tuple[tuple, tuple]:
         """The reference's layouts of BERT's leaves (``from_jax_params``):
@@ -313,15 +370,19 @@ class BertServing(ServingModel):
                 return (h, shape[0] // h), (0, 1)
             if parts[-2] == "out" and parts[-1] == "weight":
                 return (shape[0], h, shape[1] // h), (1, 2, 0)
-        if name in ("embed.weight", "pos_embed"):
-            return tuple(shape), (0, 1)
+        if name in ("embed.weight", "pos_embed") or ".moe." in name:
+            return tuple(shape), tuple(range(len(shape)))
         return super().reference_layout(name, shape)
 
     def int8c_native_kernel_paths(self) -> list[str]:
         """The weights the int8c modules consume natively: the FFN matmuls
         (2/3 of a block's matmul FLOPs) and the q/k/v/out projections (the
         remaining 1/3) — the reference's ``mlp_(up|down)/kernel$`` and
-        ``attn/(query|key|value|out)/kernel$`` under the port's names."""
+        ``attn/(query|key|value|out)/kernel$`` under the port's names. The
+        MoE variant has no mlp kernels, so it names none and the runtime
+        refuses int8c for it, as the reference's does."""
+        if self.moe_experts:
+            return []
         return [r"mlp_(up|down)\.weight$", r"attn\.(query|key|value|out)\.weight$"]
 
     def bind_mesh(self, mesh: Mesh) -> None:
@@ -334,7 +395,8 @@ class BertServing(ServingModel):
         """Seeded init with the reference's initializer families (it cannot
         reproduce jax.random's bits): LeCun-normal kernels, zero biases,
         unit LayerNorm scales, N(0, 1/d_model) embeddings, N(0, 0.02)
-        position table."""
+        position table, and the MoE FFN's N(0, 0.02) (flax's
+        ``SwitchFFN`` initializer)."""
         rng = np.random.default_rng(seed)
         sd = {}
         with torch.device("meta"):
@@ -344,6 +406,9 @@ class BertServing(ServingModel):
                 x = rng.normal(0.0, self.d_model ** -0.5, shape)
             elif name == "pos_embed":
                 x = rng.normal(0.0, 0.02, shape)
+            elif ".moe." in name:
+                # float32 draws: the expert stacks are ~E x the FFN's size.
+                x = rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
             elif name.startswith("ln") or ".ln_" in name:
                 x = np.ones(shape) if name.endswith("weight") else np.zeros(shape)
             elif name.endswith(".weight"):                 # Linear (out, in)

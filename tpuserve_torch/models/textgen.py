@@ -41,9 +41,19 @@ every page assignment. Global position p of a slot lives at
 sentinel: free and frozen lanes scribble there instead of into pages the
 ledger may have re-handed to another request.
 
+``options.moe_experts`` = E >= 2 replaces every layer's MLP with the
+reference's top-1 Switch FFN (``_moe_ffn`` over
+``tpuserve_torch.ops.moe.switch_route``) with GROUP SIZE ONE: every token
+routes alone with capacity 1, so no token is ever dropped and a lane's
+output depends on that lane alone. The one ``_mlp`` seam is shared by all
+four forward bodies (prefill, decode, paged chunk, paged decode).
+
+Streaming (``stream_units``): each step's new tokens become ``token`` units
+whose ``text`` is an incremental detokenize, so the concatenated stream
+text equals the unary ``text`` byte for byte.
+
 Sizes come from ``cfg.options`` (layers/d_model/heads/d_ff/vocab_size/
-prompt_len/max_new_tokens) with the reference's small defaults. Not ported:
-the Switch-MoE FFN (``options.moe_experts``) and streaming.
+prompt_len/max_new_tokens/moe_experts) with the reference's small defaults.
 """
 
 from __future__ import annotations
@@ -62,6 +72,7 @@ from tpuserve_torch.genserve.model import GenerativeModel
 from tpuserve_torch.models.base import DTYPES, TensorSpec, not_ported
 from tpuserve_torch.models.bert import masked_attention
 from tpuserve_torch.ops import threefry
+from tpuserve_torch.ops.moe import switch_route
 from tpuserve_torch.ops.flash_attention import flash_attention
 from tpuserve_torch.text import WordPieceTokenizer, synthetic_vocab
 
@@ -88,9 +99,11 @@ class _Norm(nn.Module):
 
 
 class _Layer(nn.Module):
-    """One decoder block's weights in the reference's (in, out) layout."""
+    """One decoder block's weights in the reference's layout: (in, out)
+    matrices; with ``experts`` the Switch FFN's router (d, E) and expert
+    stacks (E, d, f) / (E, f, d) in place of the dense MLP."""
 
-    def __init__(self, d: int, f: int) -> None:
+    def __init__(self, d: int, f: int, experts: int = 0) -> None:
         super().__init__()
         self.ln1 = _Norm(d)
         self.wq = nn.Parameter(torch.zeros(d, d))
@@ -98,20 +111,26 @@ class _Layer(nn.Module):
         self.wv = nn.Parameter(torch.zeros(d, d))
         self.wo = nn.Parameter(torch.zeros(d, d))
         self.ln2 = _Norm(d)
-        self.w_up = nn.Parameter(torch.zeros(d, f))
-        self.w_down = nn.Parameter(torch.zeros(f, d))
+        if experts:
+            self.router = nn.Parameter(torch.zeros(d, experts))
+            self.moe_up = nn.Parameter(torch.zeros(experts, d, f))
+            self.moe_down = nn.Parameter(torch.zeros(experts, f, d))
+        else:
+            self.w_up = nn.Parameter(torch.zeros(d, f))
+            self.w_down = nn.Parameter(torch.zeros(f, d))
 
 
 class TextGenModule(nn.Module):
     """The decoder's parameters; ``TextGenServing`` holds the math."""
 
-    def __init__(self, vocab: int, d: int, f: int, layers: int, max_ctx: int) -> None:
+    def __init__(self, vocab: int, d: int, f: int, layers: int, max_ctx: int,
+                 experts: int = 0) -> None:
         super().__init__()
         self.embed = nn.Parameter(torch.zeros(vocab, d))
         self.pos = nn.Parameter(torch.zeros(max_ctx, d))
         self.ln_f = _Norm(d)
         self.head = nn.Parameter(torch.zeros(d, vocab))
-        self.layers = nn.ModuleList(_Layer(d, f) for _ in range(layers))
+        self.layers = nn.ModuleList(_Layer(d, f, experts) for _ in range(layers))
 
 
 def _lane_write(state: dict, slot: torch.Tensor, lane: dict) -> None:
@@ -149,12 +168,12 @@ class TextGenServing(GenerativeModel):
         if self.attention not in ("dense", "flash"):
             raise ValueError("options.attention must be 'dense' or 'flash', "
                              f"got {self.attention!r}")
-        moe = int(o.get("moe_experts", 0))
-        if moe == 1 or moe < 0:
+        # Switch-MoE FFN: 0 = dense MLP; >= 2 replaces every layer's MLP
+        # with top-1 routing over ops.moe.switch_route.
+        self.moe_experts = int(o.get("moe_experts", 0))
+        if self.moe_experts == 1 or self.moe_experts < 0:
             raise ValueError("options.moe_experts must be 0 (dense MLP) "
-                             f"or >= 2 experts, got {moe}")
-        if moe:
-            raise not_ported("options.moe_experts", "item 7a, MoE FFN")
+                             f"or >= 2 experts, got {self.moe_experts}")
         if self.attention == "flash" and self.max_prompt % 8:
             raise ValueError(
                 f"options.attention='flash' needs prompt_len "
@@ -179,13 +198,14 @@ class TextGenServing(GenerativeModel):
     # -- params ---------------------------------------------------------------
     def build_module(self) -> TextGenModule:
         return TextGenModule(self.vocab_size, self.d_model, self.d_ff,
-                             self.layers, self.max_ctx)
+                             self.layers, self.max_ctx, self.moe_experts)
 
     def init_params(self, seed: int = 0) -> dict[str, torch.Tensor]:
         """Seeded init with the reference's initializer families (it cannot
         reproduce jax.random's normal draws): N(0, 1/fan_in) matrices,
         N(0, 0.02) embeddings, N(0, 0.01) positions, unit LayerNorm scales,
-        zero biases."""
+        zero biases; expert stacks N(0, 1/fan_in) over their (d or f) input
+        axis."""
         rng = np.random.default_rng(seed)
         sd = {}
         with torch.device("meta"):
@@ -199,14 +219,23 @@ class TextGenServing(GenerativeModel):
                 x = np.ones(shape)
             elif name.endswith(".bias"):
                 x = np.zeros(shape)
+            elif name.endswith((".moe_up", ".moe_down")):
+                # float32 draws: the stacks are ~E x the dense MLP's size.
+                x = rng.standard_normal(shape, dtype=np.float32) * np.float32(
+                    1.0 / math.sqrt(shape[1]))
             else:
                 x = rng.normal(0.0, 1.0 / math.sqrt(shape[0]), shape)
             sd[name] = torch.from_numpy(x.astype(np.float32))
         return sd
 
+    def _ffn_names(self) -> tuple[str, ...]:
+        return (("router", "moe_up", "moe_down") if self.moe_experts
+                else ("w_up", "w_down"))
+
     def from_jax_params(self, tree: Any) -> dict[str, torch.Tensor]:
         """The reference's parameter tree (numpy leaves) -> this module's
-        float32 state_dict; the layouts are the same, (in, out) matrices."""
+        float32 state_dict; the layouts are the same: (in, out) matrices,
+        the MoE layers' router (d, E) and expert stacks (E, in, out)."""
         def t(x) -> torch.Tensor:
             return torch.from_numpy(np.array(x, dtype=np.float32))
 
@@ -216,12 +245,10 @@ class TextGenServing(GenerativeModel):
         i = 0
         while f"layer{i}" in tree:
             lp = tree[f"layer{i}"]
-            if "router" in lp:
-                raise not_ported("options.moe_experts", "item 7a, MoE FFN")
             for ln in ("ln1", "ln2"):
                 sd[f"layers.{i}.{ln}.scale"] = t(lp[ln]["scale"])
                 sd[f"layers.{i}.{ln}.bias"] = t(lp[ln]["bias"])
-            for w in ("wq", "wk", "wv", "wo", "w_up", "w_down"):
+            for w in ("wq", "wk", "wv", "wo") + self._ffn_names():
                 sd[f"layers.{i}.{w}"] = t(lp[w])
             i += 1
         return sd
@@ -238,7 +265,7 @@ class TextGenServing(GenerativeModel):
             tree[f"layer{i}"] = {
                 "ln1": {"scale": sd[p + "ln1.scale"], "bias": sd[p + "ln1.bias"]},
                 "ln2": {"scale": sd[p + "ln2.scale"], "bias": sd[p + "ln2.bias"]},
-                **{w: sd[p + w] for w in ("wq", "wk", "wv", "wo", "w_up", "w_down")}}
+                **{w: sd[p + w] for w in ("wq", "wk", "wv", "wo") + self._ffn_names()}}
         return tree
 
     def reference_layout(self, name: str, shape: tuple) -> tuple[tuple, tuple]:
@@ -299,11 +326,35 @@ class TextGenServing(GenerativeModel):
         # float32 GEMM, as the reference's: TF32 must stay off for parity.
         return _norm(x, module.ln_f).float() @ module.head.float()
 
+    def _mlp(self, lp: _Layer, hx: torch.Tensor) -> torch.Tensor:
+        """The position-wise FFN delta for a normed hidden block ``hx``
+        (..., d): the dense MLP (tanh-approximate GELU, as ``jax.nn.gelu``'s
+        default), or the Switch-MoE twin with ``options.moe_experts``."""
+        if not self.moe_experts:
+            return F.gelu(hx @ lp.w_up, approximate="tanh") @ lp.w_down
+        return self._moe_ffn(lp, hx)
+
     @staticmethod
-    def _mlp(lp: _Layer, hx: torch.Tensor) -> torch.Tensor:
-        """The position-wise FFN delta: tanh-approximate GELU, as
-        ``jax.nn.gelu``'s default."""
-        return F.gelu(hx @ lp.w_up, approximate="tanh") @ lp.w_down
+    def _moe_ffn(lp: _Layer, hx: torch.Tensor) -> torch.Tensor:
+        """Top-1 Switch FFN with GROUP SIZE ONE: every token routes alone
+        with capacity 1, so no token is ever dropped and a lane's output is
+        a function of that lane alone (a batch-global capacity would let
+        one slot's routing evict another's token). The reference's dense
+        formulation: one-hot dispatch and gate-weighted combine in the
+        compute dtype, every expert's product over every token — static
+        shapes throughout, so the step stays one CUDA graph."""
+        lead, d = hx.shape[:-1], hx.shape[-1]
+        dt = hx.dtype
+        xt = hx.reshape(-1, d)
+        logits = xt.float() @ lp.router.float()
+        dispatch, combine, _aux = switch_route(logits[:, None, :], 1)
+        dispatch = dispatch[:, 0, :, 0].to(dt)   # (T, E) 0/1 routing
+        combine = combine[:, 0, :, 0].to(dt)     # (T, E) gate-weighted
+        xe = torch.einsum("te,td->etd", dispatch, xt)
+        up = F.gelu(torch.bmm(xe, lp.moe_up), approximate="tanh")
+        down = torch.bmm(up, lp.moe_down)
+        out = torch.einsum("te,etd->td", combine, down)
+        return out.reshape(*lead, d).to(dt)
 
     def _qkv(self, lp: _Layer, hx: torch.Tensor, shape: tuple):
         return ((hx @ lp.wq).reshape(shape), (hx @ lp.wk).reshape(shape),
@@ -653,6 +704,37 @@ class TextGenServing(GenerativeModel):
     def result_units(self, result: Any) -> float:
         """Tokens generated — the tokens/s headline unit."""
         return float(result.get("n_tokens", 1))
+
+    # -- streaming ------------------------------------------------------------
+    def stream_units(self, step_out: dict, slot: int, stream: dict) -> list:
+        """Token units newly landed for one slot this iteration, read from
+        the step's host out-block. The text delta is an incremental
+        detokenize: detokenize() is append-only under WordPiece merges (a
+        new word appends " w", a "##" continuation its suffix, EOS and PAD
+        nothing), so the concatenation of every unit's "text" equals the
+        unary result's "text" byte for byte."""
+        n = int(step_out["n_new"][slot])
+        sent = int(stream.get("sent", 0))
+        if n <= sent:
+            return []
+        toks = [int(t) for t in step_out["tokens"][slot][:n]]
+        prev = stream.get("text", "")
+        units = []
+        for i in range(sent, n):
+            text = self.detokenize(toks[: i + 1])
+            units.append({"type": "token", "text": text[len(prev):],
+                          "token": toks[i], "index": i})
+            prev = text
+        stream["sent"] = n
+        stream["text"] = prev
+        return units
+
+    def stream_finish_reason(self, result: Any) -> str:
+        toks = result.get("tokens") or []
+        return "stop" if toks and toks[-1] == self.eos_id else "length"
+
+    def stream_usage(self, result: Any) -> dict:
+        return {"completion_tokens": int(result.get("n_tokens", 0))}
 
     def host_postprocess(self, outputs: dict, n_valid: int) -> list[dict]:
         return [self._result(outputs["tokens"][r], outputs["n_new"][r])

@@ -498,6 +498,13 @@ PIPELINE_STAGES = ("assemble", "h2d", "fetch", "postproc")
 # request at the model's default, "interactive").
 PRIORITIES = ("interactive", "batch")
 
+# Reasons on gen_stream_terminated_total{model=,reason=} — how a generation
+# stream ended (tpuserve_torch.genserve.engine._terminate_stream): "done" is
+# the only success; everything else names which machinery cut the stream.
+# The engine refuses any other label, so the vocabulary stays closed.
+GEN_STREAM_REASONS = ("done", "disconnect", "deadline_exceeded",
+                      "engine_error", "drain", "shutdown")
+
 
 class Metrics:
     """Registry of all server metrics, one per server process, and the span

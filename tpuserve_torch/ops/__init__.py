@@ -9,6 +9,9 @@
   queries' online softmax (local step dense or K2).
 - ``ulysses_attention`` — the head all-to-all twin of the ring (local step
   dense or K1).
+- ``moe`` — the top-1 Switch FFN (``switch_route``, ``SwitchFFN``) in the
+  reference's static-shape formulation, as torch ops (the reference has no
+  Pallas kernel there).
 
 As in the JAX package, the functions are re-exported under their modules'
 names; ``importlib.import_module("tpuserve_torch.ops.ring_attention")``

@@ -25,7 +25,14 @@ Endpoints (response shapes and status codes as in the JAX server):
   same front-door surface (deadlines, breaker, cache, canaries, watchdog,
   drain); its paged-KV admission shed answers 503 with ``"reason":
   "kv_pressure"`` and a Retry-After, a mid-generation deadline 504.
-  ``?stream=true`` is refused (501): streamed generation is not ported.
+  ``?stream=true`` on an engine-served model answers one request as a
+  chunked ``text/event-stream`` (``X-Tpuserve-Stream: 1``): a ``token``
+  event per generated token, heartbeats (``: hb``) across idle gaps, and
+  exactly one terminal event, ``done`` (finish reason, usage) or ``error``
+  (its reason). Before the first unit failures are plain statuses (504,
+  503, 429, 500) with no byte of stream written; after it they are
+  in-stream ``error`` events. A stream bypasses the result cache and
+  single-flight; a client that goes away frees its slot.
 - ``GET /healthz`` (``ok``, ``degraded`` or, once a drain began,
   ``draining`` with 503), ``GET /metrics`` (Prometheus text), ``GET
   /stats`` (latency summary, backend — card, torch and CUDA versions,
@@ -95,7 +102,7 @@ drain) leave audit records.
 
 Not ported yet (ROADMAP.md queue 1): the router/worker tiers and their
 black box, the fleet scheduler (``:warm``/``:demote``), tenants
-(``/tenants``), streaming, ``/metrics/fleet`` and ``profiler_port``.
+(``/tenants``), ``/metrics/fleet`` and ``profiler_port``.
 """
 
 from __future__ import annotations
@@ -146,6 +153,9 @@ log = logging.getLogger("tpuserve_torch.server")
 _VERBS = ("predict", "classify", "detect", "generate")
 _MAX_BODY = 64 * 1024 * 1024  # the JAX server's client_max_size
 _MAX_HEAD = 64 * 1024
+# How long an injected stream_stall wedges a started stream's writer: the
+# client sees heartbeats and units stop (the reference's hang interval).
+_STREAM_STALL_S = 3600.0
 
 # The JAX server's index page, byte for byte.
 _INDEX_HTML = """<!doctype html><title>tpuserve</title>
@@ -178,6 +188,8 @@ class Request:
     headers: dict  # lower-cased names
     length: int = 0
     reader: asyncio.StreamReader | None = field(default=None, repr=False)
+    # The connection's writer: a streamed response writes through it.
+    writer: asyncio.StreamWriter | None = field(default=None, repr=False)
     body: bytes | None = None
     read_s: float = 0.0  # time spent reading the body off the socket
 
@@ -213,6 +225,52 @@ class Response:
                  f"Connection: {'keep-alive' if keep_alive else 'close'}"]
         lines += [f"{k}: {v}" for k, v in self.headers.items()]
         return ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1") + self.body
+
+
+class StreamResponse:
+    """A response the handler writes itself as it goes (HTTP/1.1 chunked
+    transfer coding), on the connection's own loop: ``prepare`` writes the
+    head, ``write`` one chunk, ``write_eof`` the terminating chunk. A client
+    that went away is seen at a write — its end of the connection closed,
+    or the transport reset — as ConnectionResetError. After ``write_eof``
+    (``complete``) the connection serves its next request; a torn stream
+    closes it. ``stream_score_ms`` is what the flight recorder ranks the
+    request by (set by the stream handler)."""
+
+    def __init__(self, req: Request, content_type: str, headers: dict) -> None:
+        self.status = 200
+        self.content_type = content_type
+        self.headers = headers
+        self.keep_alive = _keep_alive(req)
+        self.complete = False
+        self.stream_score_ms: float | None = None
+        self._reader = req.reader
+        self._writer = req.writer
+
+    async def prepare(self) -> None:
+        lines = ["HTTP/1.1 200 OK", f"Content-Type: {self.content_type}",
+                 "Transfer-Encoding: chunked",
+                 f"Connection: {'keep-alive' if self.keep_alive else 'close'}"]
+        lines += [f"{k}: {v}" for k, v in self.headers.items()]
+        await self._send(("\r\n".join(lines) + "\r\n\r\n").encode("latin-1"))
+
+    async def write(self, data: bytes) -> None:
+        if data:
+            await self._send(b"%x\r\n%s\r\n" % (len(data), data))
+
+    async def write_eof(self) -> None:
+        await self._send(b"0\r\n\r\n")
+        self.complete = True
+
+    def abort(self) -> None:
+        """Tear the connection down mid-stream: no terminating chunk."""
+        self._writer.transport.close()
+
+    async def _send(self, data: bytes) -> None:
+        if self._reader.at_eof() or self._writer.is_closing():
+            raise ConnectionResetError("the client closed the connection")
+        self._writer.write(data)
+        await self._writer.drain()
 
 
 def json_response(obj, status: int = 200, headers: dict | None = None) -> Response:
@@ -966,7 +1024,11 @@ class ServerState:
         dur_s = time.perf_counter() - t0
         ctx.root_span("request", wall0, wall0 + dur_s, tid=name, status=resp.status)
         resp.headers.setdefault("X-Trace-Id", ctx.trace_id)
-        kinds = self.recorder.finish(ctx, name, resp.status, dur_s * 1e3)
+        # A stream scores by max(first unit, largest gap), so a slow stream
+        # is catchable while a long healthy generation is not filed as slow.
+        score_ms = getattr(resp, "stream_score_ms", None)
+        kinds = self.recorder.finish(
+            ctx, name, resp.status, score_ms if score_ms is not None else dur_s * 1e3)
         if self.events is not None:
             if resp.status >= 400:
                 self.events.emit(
@@ -981,7 +1043,7 @@ class ServerState:
         return resp
 
     async def _predict_traced(self, req: Request, name: str, ingest: IngestHandles,
-                              ctx: TraceContext) -> Response:
+                              ctx: TraceContext) -> "Response | StreamResponse":
         trace_id = ctx.trace_id
         model = self.models.get(name)
         if model is None:
@@ -1001,11 +1063,6 @@ class ServerState:
             want_stream = _requested_stream(req)
         except ValueError as e:
             return _err(400, str(e), trace_id=trace_id)
-        if want_stream:
-            # Never answered as a plain body: a streaming client would read
-            # one unary JSON object as a torn stream.
-            return _err(501, "stream=true is not yet ported to tpuserve_torch "
-                             "(ROADMAP.md queue 1: item 7, streaming)", trace_id=trace_id)
         h = self.handles[name]
         h.requests.inc()
         t_start = time.perf_counter()
@@ -1047,6 +1104,23 @@ class ServerState:
             h.bad_requests.inc()
             return _err(400, f"could not decode request: {e}", trace_id=trace_id)
 
+        if want_stream:
+            # Straight to the engine's emission channel: no result cache, no
+            # single-flight (a stream never coalesces onto a buffered leader
+            # nor answers from a cached body), and never the unary path.
+            eng = self.engines.get(name)
+            if eng is None:
+                h.bad_requests.inc()
+                return _err(400, f"model {name!r} does not support streaming "
+                                 "(stream=true needs a [genserve]-served "
+                                 "generative model)", trace_id=trace_id)
+            if len(items) != 1:
+                h.bad_requests.inc()
+                return _err(400, "stream=true requires a single-item request",
+                            trace_id=trace_id)
+            return await self._predict_stream(req, name, model, h, eng, items[0],
+                                              deadline_at, timeout_s, ctx, t_start)
+
         w_dispatch = time.time()
         t_dispatch = time.perf_counter()
         try:
@@ -1086,6 +1160,144 @@ class ServerState:
             # entry was made.
             return Response(200, hit_entry.body, headers=headers)
         return json_response(results[0], headers=headers)
+
+    async def _predict_stream(self, req: Request, name: str, model, h: ModelHandles,
+                              eng: GenEngine, item, deadline_at: float,
+                              timeout_s: float, ctx: TraceContext,
+                              t_start: float) -> "Response | StreamResponse":
+        """One streamed generation end to end. The engine's GenStream queue
+        is the single channel: units flush per engine iteration, heartbeats
+        cover idle gaps, and exactly one terminal ("done" with finish reason
+        and usage, or "error" naming the cause) closes every started
+        stream. The deadline contract splits here: until the first unit no
+        byte is written and failures stay plain statuses (a fast 504); after
+        it they become in-stream error events. The stream's queue lives on
+        the main loop: every read hops there (``_on_main``), every write
+        happens on this connection's loop. A client gone mid-stream cancels
+        the engine future, which frees its slot."""
+        trace_id = ctx.trace_id
+
+        async def _submit():
+            try:
+                return eng.submit_stream(item, deadline_at=deadline_at, ctx=ctx)
+            except QueueFull:
+                raise
+            except RuntimeError as e:
+                raise NotServing(str(e)) from e
+
+        try:
+            fut, stream = await _on_main(self, _submit)
+        except KVPressure as e:
+            return _err(503, str(e), retry_after=self.kv_retry_after(name, e),
+                        trace_id=trace_id, reason="kv_pressure")
+        except QueueFull:
+            return _err(429, "queue full, retry later",
+                        retry_after=self.queue_retry_after(name), trace_id=trace_id)
+        except NotServing as e:
+            return _err(503, f"server not accepting requests: {e}", trace_id=trace_id)
+
+        hb_s = eng.gcfg.stream_heartbeat_s
+        hb = model.stream_heartbeat()
+        encode = model.encode_stream_unit
+        resp: StreamResponse | None = None
+        terminal: dict | None = None
+        n_units = 0
+        last_write: float | None = None
+        first_unit_ms: float | None = None
+        max_gap_ms = 0.0
+        max_gap_end = 0.0
+        try:
+            while terminal is None:
+                if resp is None:
+                    # Admission -> first unit: bounded by the request
+                    # deadline plus the unary path's 0.25 s backstop grace
+                    # (the engine's fast-504 eviction normally answers first).
+                    budget = max(0.0, deadline_at - time.perf_counter()) + 0.25
+                    try:
+                        unit = await _on_main(self, lambda: asyncio.wait_for(
+                            stream.get(), budget))
+                    except asyncio.TimeoutError:
+                        h.timeouts.inc()
+                        return _err(504, f"request deadline ({timeout_s * 1e3:.0f} "
+                                         "ms) exceeded", trace_id=trace_id)
+                    if unit["type"] == "error":
+                        status = _stream_error_status(unit.get("error", ""))
+                        if status == 504:
+                            h.timeouts.inc()
+                        return _err(status, f"{unit.get('error', 'error')}: "
+                                            f"{unit.get('message', '')}",
+                                    trace_id=trace_id)
+                    resp = StreamResponse(req, model.stream_content_type(),
+                                          {"X-Tpuserve-Stream": "1",
+                                           "X-Trace-Id": trace_id})
+                    try:
+                        await resp.prepare()
+                    except ConnectionError:
+                        return resp
+                else:
+                    try:
+                        unit = await _on_main(self, lambda: asyncio.wait_for(
+                            stream.get(), hb_s if hb_s > 0 else None))
+                    except asyncio.TimeoutError:
+                        try:
+                            await resp.write(hb)
+                        except ConnectionError:
+                            return resp
+                        continue
+                now = time.perf_counter()
+                if first_unit_ms is None:
+                    first_unit_ms = (now - t_start) * 1e3
+                elif last_write is not None:
+                    gap = (now - last_write) * 1e3
+                    if gap > max_gap_ms:
+                        max_gap_ms, max_gap_end = gap, time.time()
+                last_write = now
+                if unit["type"] in ("done", "error"):
+                    terminal = unit
+                try:
+                    await resp.write(encode(unit))
+                except ConnectionError:
+                    return resp  # the finally below frees the slot
+                n_units += 1
+                if self.injector is not None and terminal is None:
+                    # Chaos on a STARTED stream: stream_stall wedges the
+                    # writer (units and heartbeats stop); stream_disconnect
+                    # tears the transport with NO terminal event, the torn
+                    # shape clients must count as an error.
+                    if self.injector.fire("stream_stall", name) is not None:
+                        await asyncio.sleep(_STREAM_STALL_S)
+                        return resp
+                    if self.injector.fire("stream_disconnect", name) is not None:
+                        resp.abort()
+                        return resp
+        finally:
+            if terminal is None:
+                # Abandoned mid-stream (client gone, handler cancelled,
+                # injected tear): cancel the engine future so the slot frees,
+                # and close the stream so a blocked producer wakes. Scheduled
+                # on the main loop, not awaited: this may run a cancellation.
+                def _abandon():
+                    fut.cancel()
+                    stream.close()
+
+                (self.main_loop or asyncio.get_running_loop()).call_soon_threadsafe(
+                    _abandon)
+
+        # Stream health spans: first-unit latency and the largest gap between
+        # units, not the total wall time, say whether a stream was slow.
+        wall_end = time.time()
+        if max_gap_ms > 0:
+            ctx.span("stream_gap", max_gap_end - max_gap_ms / 1e3, max_gap_end,
+                     tid=name, gap_ms=round(max_gap_ms, 3))
+        ctx.span("stream_terminal", wall_end, wall_end, tid=name,
+                 type=terminal["type"],
+                 finish_reason=(terminal.get("finish_reason")
+                                if terminal["type"] == "done" else terminal.get("error")),
+                 units=n_units)
+        resp.stream_score_ms = max(first_unit_ms or 0.0, max_gap_ms)
+        with contextlib.suppress(ConnectionError):
+            await resp.write_eof()
+        return resp
 
     async def _submit_and_gather(self, name: str, model, items: list,
                                  deadline_at: float, timeout_ms: float | None,
@@ -1174,6 +1386,12 @@ def _requested_stream(req: Request) -> bool:
     raise ValueError(f'stream must be "true", "1", "false" or "0", got {raw!r}')
 
 
+def _stream_error_status(reason: str) -> int:
+    """A terminal before the first unit -> a plain HTTP status (no byte of
+    the stream was written, so no stream semantics are owed)."""
+    return {"deadline_exceeded": 504, "shutdown": 503, "drain": 503}.get(reason, 500)
+
+
 def _requested_timeout_ms(req: Request, ctype: str) -> float | None:
     """Client deadline: ``timeout_ms`` as a JSON body key, a ``?timeout_ms=``
     query parameter or an ``X-Timeout-Ms`` header; ValueError (-> 400) when
@@ -1259,6 +1477,7 @@ async def _serve_connection(state: ServerState, conns: Connections,
                 writer.write(req.encode(keep_alive=False))
                 await writer.drain()
                 return
+            req.writer = writer
             conns.begin()
             try:
                 try:
@@ -1268,11 +1487,18 @@ async def _serve_connection(state: ServerState, conns: Connections,
                 except Exception as e:
                     log.exception("handler failed for %s %s", req.method, req.path)
                     resp = _err(500, f"internal error: {e}")
-                if req.body is None:
-                    await req.read()  # a shed left the body: discard it
-                keep = _keep_alive(req)
-                writer.write(resp.encode(keep_alive=keep))
-                await writer.drain()
+                if isinstance(resp, StreamResponse):
+                    # Written by the handler as it went: a complete stream
+                    # keeps the connection, a torn one closes it.
+                    if not resp.complete:
+                        return
+                    keep = resp.keep_alive
+                else:
+                    if req.body is None:
+                        await req.read()  # a shed left the body: discard it
+                    keep = _keep_alive(req)
+                    writer.write(resp.encode(keep_alive=keep))
+                    await writer.drain()
             finally:
                 conns.end()
             if not keep:
