@@ -297,15 +297,48 @@ Phases (any failure exits non-zero before the result line):
    router's argmax sends a token to another expert), every bucket's replay
    bit-identical to its eager forward, the (32, 128) replay's device time
    and the capture memory.
-20. Print a ``slice`` line per path, the ``graphs`` line (phase 6-8's,
+20. SD 1.5 txt2img (``sd15_phase``): K1 against its plain version at SD's
+   padded shapes, (B, 4096, 8, 64 <- 40) and (B, 1024, 8, 128 <- 80) bf16
+   with B = 2 (the locked path's UNet rows) and B = 16 (the engine step's
+   2 x 8 slots) (phase 3's tolerance, its atol a share of max |plain|; the
+   padded tensors pass K1's TMA rule), timed beside its bound at the
+   padded dim and at d and SDPA on the UNPADDED heads; serve
+   ``examples/sd15_flash.toml`` (full width, 512 px, 20 steps, CFG 7.5,
+   bf16, ``unet_attention = "flash"``, seeded weights; one graph per
+   bucket [1] and slot holds CLIP, the loop and the VAE): with the counts
+   at 0 a prompt twice (200 ``image/png``, a 512x512 PNG read by the
+   smoke's own zlib reader, the same bytes again), ``{"seed": 1}`` 400, K1
+   200 launches per image, 100 at each (2, ...) shape, compiles and
+   captures moved 0; a ``:reload`` of the seeded weights, then the same
+   bytes again. In-process on
+   the same seeded weights: the served PNG equal to the runtime's replay
+   and to the eager forward, finite latents, the replay's device time; one
+   bf16 UNet call flash against dense, max abs eps difference within
+   ``SD_EPS_REL`` (5e-2) of the dense eps's max abs, K1 10 launches; the
+   2-row UNet call's device time and by kind; the engine's programs on the
+   same runtime: insert (CLIP), step at 1 and 8 active slots and extract
+   (VAE) device times. Then the engine variant (``SD_ENGINE_SETS``: 8
+   slots, buckets [1, 4], ``preview_every`` 5): eight concurrent requests
+   (1-60-word prompts, one negative prompt) and one ``?stream=true``
+   (``frame.CONTENT_TYPE``: progress 1..20, 3 previews, one final image
+   equal to the unary one, one ``done``, last), the eight again in reverse
+   order (other slots) with the same PNG bytes, K1 = 10 x steps, 5 x
+   steps at each (16, ...) shape,
+   ``gen_iterations_total`` > 0, captures and compiles moved 0 (previews
+   included); the engine's image of the locked body beside the locked PNG
+   (reported).
+21. Print a ``slice`` line per path, the ``graphs`` line (phase 6-8's,
    13's and 14's graph checks and host times), the ``lifecycle`` line, the
    ``robustness`` line (with phase 8's, 13's and 14's first-request
    tables), the ``observability``, ``defaults_cost`` and ``cli`` lines, and
    the ``kernels`` line (K1 and K2, each with its launches on its path,
    counted through graph replays, K1's on the int8c path, in each of
    phase 16's ``bench`` runs, on phase 17's textgen path, phase 18's
-   streams and ``bench --stream`` and phase 19's MoE paths beside; the
-   vision paths run neither), the card line, then the result line ``{"ok": true,
+   streams and ``bench --stream``, phase 19's MoE paths and phase 20's
+   locked and engine SD paths beside, then K1's four SD rows, each with the
+   launches counted at its shape on the locked (B = 2) or engine (B = 16)
+   path; the vision paths run neither),
+   the card line, then the result line ``{"ok": true,
    "device": {...}}``. Every phase's JSON line from 11 on carries the
    card's name and power limit.
 """
@@ -447,22 +480,40 @@ def qkv(b, sq, sk, h, d, dtype, seed=0, masked_row=False):
     return q, k, v, (1.0 - mask) * -1e9
 
 
-def compare(q, k, v, bias) -> float:
+def plain_k1(q, k, v, bias, rows: int | None = None):
+    """K1's plain version, ``rows`` batch rows at a time (all at once by
+    default), so a large batch's float32 scores fit beside the rest."""
+    import torch
+
+    from tpuserve_torch.ops import flash_attention as fa
+
+    rows = rows or q.shape[0]
+    return torch.cat([fa.flash_attention_reference(q[i:i + rows], k[i:i + rows], v[i:i + rows],
+                                                   bias[i:i + rows])
+                      for i in range(0, q.shape[0], rows)])
+
+
+def compare(q, k, v, bias, scaled: bool = False, rows: int | None = None) -> float:
+    """K1 against its plain version in float32: |err| <= atol + rtol |plain|.
+    With ``scaled`` the bf16 atol is that share of max |plain| (outputs far
+    below 1, where an absolute 1.6e-2 would hide a dropped key tile)."""
     import torch
 
     from tpuserve_torch.ops import flash_attention as fa
 
     out = fa.flash_attention(q, k, v, bias)
-    ref = fa.flash_attention_reference(q.float(), k.float(), v.float(), bias)
+    ref = plain_k1(q.float(), k.float(), v.float(), bias, rows)
     torch.cuda.synchronize()
     check(out.dtype == q.dtype and out.shape == q.shape, f"K1 output {out.dtype} {tuple(out.shape)}")
     check(bool(torch.isfinite(out).all()), f"K1 non-finite output at {tuple(q.shape)}")
     tol = F32_TOL if q.dtype == torch.float32 else BF16_TOL
     rtol = 0.0 if q.dtype == torch.float32 else BF16_TOL
+    if scaled:
+        tol *= ref.abs().max().item()
     err = (out.float() - ref).abs()
     bad = err > tol + rtol * ref.abs()
     check(not bool(bad.any()), f"K1 disagrees with its plain version at q {tuple(q.shape)} "
-          f"k {tuple(k.shape)} {q.dtype}: max abs err {err.max().item():.3g}")
+          f"k {tuple(k.shape)} {q.dtype}: max abs err {err.max().item():.3g} (atol {tol:.3g})")
     return err.max().item()
 
 
@@ -4437,6 +4488,500 @@ def moe_phase(card: str) -> dict:
     return out
 
 
+# -- phase 20: SD 1.5 txt2img -----------------------------------------------------
+
+SD_CONFIG = ROOT / "examples" / "sd15_flash.toml"
+SD_STEPS = 20
+SD_EDGE = 512
+SD_K1_PER_UNET = 10            # down0/1_attn0/1 and up0/1_attn0/1/2
+# The engine variant: examples/genserve.toml's buckets and slots, previews
+# every 5 steps.
+SD_ENGINE_SETS = ("genserve.enabled=true", "genserve.slots=8",
+                  "model.sd15.batch_buckets=[1, 4]", "model.sd15.options.preview_every=5")
+# One bf16 UNet call, flash against dense spatial self-attention: the max
+# abs difference of eps may be at most this share of the dense eps's max
+# abs. The dense path rounds its scores to bf16 before the softmax (the
+# reference's flax attention does), K1 keeps them in float32: about 2e-2 of
+# the scale is expected; the bound leaves 2.5x that.
+SD_EPS_REL = 5e-2
+SD_BODY = {"prompt": "a lighthouse on a cliff at dusk, oil painting", "seed": 1234}
+
+
+def sd_bodies() -> list[dict]:
+    """Eight :generate bodies: ``SD_BODY`` (the locked path's), then prompts
+    of 1 to 60 words, one with a negative prompt."""
+    import numpy as np
+
+    rng = np.random.default_rng(20)
+    out = [dict(SD_BODY)]
+    for i, n in enumerate((1, 3, 7, 12, 20, 47, 60)):
+        body = {"prompt": " ".join(rng.choice(WORDS, n)), "seed": int(rng.integers(0, 2**31 - 1))}
+        if i == 3:
+            body["negative_prompt"] = "blurry low quality"
+        out.append(body)
+    return out
+
+
+def read_png(data: bytes):
+    """An 8-bit RGB PNG of filter-0 scanlines (what the port writes) ->
+    (H, W, 3) uint8, its chunks' CRCs checked."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"not a PNG: {data[:16]!r}")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        check(crc == zlib.crc32(kind + body) & 0xFFFFFFFF, f"PNG chunk {kind!r}: bad CRC")
+        chunks[kind] = chunks.get(kind, b"") + body
+        pos += 12 + n
+    w, h, depth, ctype, _, _, _ = struct.unpack(">IIBBBBB", chunks[b"IHDR"])
+    check((depth, ctype) == (8, 2), f"PNG depth {depth}, color type {ctype}: expected 8-bit RGB")
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8).reshape(h, 1 + 3 * w)
+    check(not rows[:, 0].any(), "PNG rows use a filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def sd_bound(b: int, s: int, d: int, bias: bool) -> tuple[float, str, dict]:
+    """The least time for attention over (b, s, 8, d) bf16 q/k/v: q, k, v
+    and o moved once (and a float32 (b, s) bias), q.k^T and p.v at d."""
+    nbytes = 4 * b * s * 8 * d * 2 + (b * s * 4 if bias else 0)
+    flops = 4 * b * 8 * s * s * d
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            {"bytes": nbytes, "operations": flops})
+
+
+def sd_k1_row(b: int, s: int, d: int) -> dict:
+    """K1 at an SD shape: (b, s, 8, d) bf16 q/k/v padded to the next
+    multiple of 64 in the head dim (zero lanes) and q pre-scaled, as the
+    UNet hands them over (b = 2 on the locked path, 2 x 8 slots in the
+    engine's step), against its plain version in float32 (phase 3's bf16
+    tolerance, its atol a share of the output's scale), K1's TMA layout
+    rule on the padded tensors; timed with its plain version (two rows at a
+    time), its bound at the padded dim and at d, and SDPA on the UNPADDED
+    heads."""
+    import torch
+
+    from tpuserve_torch.models import sd15
+    from tpuserve_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(b + s + d)
+    q, k, v = (torch.randn(b, s, 8, d, generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    qp, kp, vp = (sd15.pad_head_dim(t) for t in (q, k, v))
+    dp = qp.shape[-1]
+    qp = qp * sd15._rounded((dp / d) ** 0.5, torch.bfloat16)
+    check(fa.tma_layout_problem(qp, kp, vp) is None,
+          f"sd15: padded ({b}, {s}, 8, {dp}) tensors break K1's TMA rule: "
+          f"{fa.tma_layout_problem(qp, kp, vp)}")
+    bias = torch.zeros(b, s, device="cuda")
+    max_err = compare(qp, kp, vp, bias, scaled=True, rows=2)
+    # The UNet's call (no bias argument: K1 gets zeros) equals the check's.
+    out = sd15.flash_unet_attention(q, k, v)
+    check(torch.equal(out, fa.flash_attention(qp, kp, vp, bias)[..., :d]),
+          "sd15: flash_unet_attention differs from K1 on the padded tensors")
+    ms = time_ms(lambda: fa.flash_attention(qp, kp, vp, bias))
+    # Few calls: at 16 rows each call is ~80 launches, and time_calls must
+    # enqueue them all inside the launch queue while the card is held.
+    plain_ms = time_ms(lambda: plain_k1(qp, kp, vp, bias, rows=2), iters=max(2, 20 // b))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
+    bound, bound_by, bound_inputs = sd_bound(b, s, dp, bias=True)
+    bound_d, bound_by_d, _ = sd_bound(b, s, d, bias=False)
+    line = {"name": "flash_attention", "route": "cuda",
+            "source": "tpuserve_torch/ops/csrc/flash_attention.cu",
+            "replaces": "tpuserve/ops/flash_attention.py:96", "shape": [b, s, 8, dp],
+            "from_head_dim": d, "max_abs_err": max_err,
+            "tolerance": "atol 1.6e-2 x max|plain|, rtol 1.6e-2", "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": f"SDPA on the unpadded ({b}, 8, {s}, {d}) heads",
+            "bound_ms": bound, "bound_by": bound_by,
+            "bound_ms_unpadded": bound_d, "bound_by_unpadded": bound_by_d}
+    print(f"sd15: K1 at ({b}, {s}, 8, {dp} <- {d}) bf16 agrees with its plain version (max abs "
+          f"err {max_err:.3g}); {ms * 1e3:.2f} us against a {bound * 1e3:.2f} us {bound_by} "
+          f"bound ({bound_d * 1e3:.2f} us at d = {d}), plain {plain_ms * 1e3:.1f} us, SDPA "
+          f"unpadded {library_ms * 1e3:.2f} us", flush=True)
+    return {"line": line, "bound_inputs": bound_inputs}
+
+
+def sd_counters(port: int) -> dict:
+    text = call(port, "GET", "/metrics")[1].decode()
+    names = ("gen_iterations_total", "gen_admitted_total", "batches_total", "items_total",
+             "runtime_compiles_total", "gen_streams_total")
+    out = {n: metric(text, f'{n}{{model="sd15"}}') for n in names}
+    inv = json.loads(call(port, "GET", "/v1/models")[1])["sd15"]
+    out["captures_total"] = inv["captures_total"]
+    k1 = json.loads(call(port, "GET", "/stats")[1])["kernels"]["flash_attention"]
+    out["k1"] = k1["launches"]
+    out["k1_by_shape"] = k1["by_shape"]
+    return out
+
+
+def sd_shape_key(b: int, s: int) -> str:
+    """/stats' key for K1 at an SD level's padded shape."""
+    return f"{b}x{s}x8x{64 if s == 4096 else 128}"
+
+
+def sd_shape_launches(c0: dict, c1: dict) -> dict:
+    """K1's launches by shape between two ``sd_counters`` readings."""
+    return {s: n - c0["k1_by_shape"].get(s, 0) for s, n in c1["k1_by_shape"].items()
+            if n != c0["k1_by_shape"].get(s, 0)}
+
+
+def sd_generate(port: int, body: dict, stream: bool = False) -> tuple[int, bytes, dict]:
+    path = "/v1/models/sd15:generate" + ("?stream=true" if stream else "")
+    return call_h(port, "POST", path, body)
+
+
+def sd_locked_served() -> dict:
+    """examples/sd15_flash.toml served: one image, the same again (same
+    bytes), a 400 without a prompt; K1 200 launches per image, 100 at each
+    level's shape; compiles and captures unchanged after startup; a
+    ``:reload`` of the seeded weights, then the same bytes again."""
+    out: dict = {}
+    with serving(SD_CONFIG, n_buckets=1) as port:
+        g = served_graphs(port)["sd15"]
+        check(call(port, "POST", "/debug/kernels:reset")[0] == 200, "kernel count reset refused")
+        c0 = sd_counters(port)
+        walls, pngs = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            st, png, hdrs = sd_generate(port, SD_BODY)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            check(st == 200 and hdrs.get("Content-Type") == "image/png",
+                  f"sd15 locked: {st} {hdrs.get('Content-Type')} {png[:200]!r}")
+            pngs.append(png)
+        img = read_png(pngs[0])
+        check(img.shape == (SD_EDGE, SD_EDGE, 3),
+              f"sd15 locked: PNG of {img.shape}, expected {SD_EDGE} px")
+        check(pngs[1] == pngs[0], "sd15 locked: the same (prompt, seed) gave other PNG bytes")
+        st, body = call(port, "POST", "/v1/models/sd15:generate", {"seed": 1})
+        check(st == 400, f"sd15 locked: a body without a prompt answered {st}, expected 400")
+        c1 = sd_counters(port)
+        d = {n: c1[n] - c0[n] for n in c0 if n != "k1_by_shape"}
+        by_shape = sd_shape_launches(c0, c1)
+        per_level = 2 * SD_STEPS * (SD_K1_PER_UNET // 2)     # 2 images, 5 per UNet call
+        check(d["batches_total"] == 2 and d["k1"] == 2 * SD_STEPS * SD_K1_PER_UNET
+              and by_shape == {sd_shape_key(2, s): per_level for s in (4096, 1024)},
+              f"sd15 locked: K1 launched {d['k1']} times {by_shape} for "
+              f"{d['batches_total']:g} batches ({SD_STEPS * SD_K1_PER_UNET} per image, half "
+              f"at each level)")
+        check(d["runtime_compiles_total"] == 0 and d["captures_total"] == 0,
+              f"sd15 locked: compiles / captures moved {d['runtime_compiles_total']:g} / "
+              f"{d['captures_total']} after startup")
+        # A :reload of the seeded weights stages a slot (its float32 build on
+        # the card beside the three live slots) behind a staged canary; the
+        # same request then gives the same bytes.
+        t0 = time.perf_counter()
+        st, body = call(port, "POST", "/admin/models/sd15:reload")
+        reload_s = time.perf_counter() - t0
+        check(st == 200, f"sd15 locked: :reload answered {st} {body[:300]!r}")
+        st, png, _ = sd_generate(port, SD_BODY)
+        check(st == 200 and png == pngs[0], "sd15 locked: after :reload the same request gave "
+              f"{st} and {'other' if st == 200 else 'no'} PNG bytes")
+        c2 = sd_counters(port)
+        check(c2["captures_total"] == c0["captures_total"]
+              and c2["runtime_compiles_total"] == c0["runtime_compiles_total"],
+              "sd15 locked: :reload moved compiles or captures")
+        out.update(png=pngs[0], walls_ms=walls, k1_launches=d["k1"], k1_by_shape=by_shape,
+                   deltas=d, graphs_served=g, image_std=float(img.std()), reload_s=reload_s)
+        print(f"sd15 locked: 2 images of {SD_EDGE} px, walls {walls[0]:.1f} / {walls[1]:.1f} ms, "
+              f"byte-identical PNGs; K1 {d['k1']} launches {by_shape}; compiles and captures "
+              f"moved 0; 400 without a prompt; :reload in {reload_s:.1f} s, same bytes after",
+              flush=True)
+    return out
+
+
+def sd_model():
+    from tpuserve_torch.config import load_config
+    from tpuserve_torch.models import build
+
+    return build(load_config(str(SD_CONFIG)).models[0])
+
+
+def sd_in_process(served_png: bytes) -> dict:
+    """The same seeded model in this process: the runtime's locked graph
+    against the eager forward and the served PNG, finite latents, the
+    replay's device time; one UNet call flash against dense; the engine's
+    programs registered on the same runtime, timed."""
+    import numpy as np
+    import torch
+
+    from tpuserve_torch.config import load_config
+    from tpuserve_torch.genserve import GenEngine
+    from tpuserve_torch.models import sd15
+    from tpuserve_torch.obs import Metrics
+    from tpuserve_torch.ops import flash_attention as fa
+    from tpuserve_torch.runtime import build_runtime
+
+    out: dict = {}
+    model = sd_model()
+    t0 = time.perf_counter()
+    rt = build_runtime(model, device="cuda")
+    out["startup_s"] = time.perf_counter() - t0
+    item = model.host_decode(json.dumps(SD_BODY).encode(), "application/json")
+    host = model.assemble([item], (1,))
+    dev = rt.h2d((1,), host)
+    replay = rt.fetch(rt.dispatch((1,), dev))["image"]
+    lats = []
+    decode = model._decode
+    model._decode = lambda module, lat: lats.append(lat) or decode(module, lat)
+    try:
+        with torch.inference_mode():
+            eager = model.forward(rt.module, dev)["image"].cpu().numpy()
+    finally:
+        model._decode = decode
+    served = read_png(served_png)
+    check(np.array_equal(replay[0], served), "sd15: the served PNG differs from the in-process "
+          "graph replay of the same request")
+    check(np.array_equal(eager, replay), "sd15: the locked graph's replay differs from the "
+          f"eager forward (max diff {np.abs(eager.astype(int) - replay.astype(int)).max()})")
+    lat = lats[0]
+    check(bool(torch.isfinite(lat).all()), "sd15: non-finite latents after the loop")
+    noise = model.latents(torch.tensor([SD_BODY["seed"]], dtype=torch.int32, device="cuda"))
+    check(bool(torch.isfinite(noise).all()), "sd15: non-finite initial latents")
+    out["latents"] = {"initial_std": float(noise.std()), "final_std": float(lat.std()),
+                      "finite": True}
+    # The locked request's device time: the runtime's graph replayed.
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(3):
+        start.record()
+        rt.dispatch((1,), dev)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    out["locked_replay_device_ms"] = sorted(times)[1]
+    print(f"sd15: served PNG == in-process replay == eager forward; latents finite (std "
+          f"{out['latents']['initial_std']:.3f} -> {out['latents']['final_std']:.3f}); locked "
+          f"image replay {out['locked_replay_device_ms']:.1f} ms of device time", flush=True)
+    # UNet flash against dense, one call on the same module.
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(2, 64, 64, 4, generator=g, device="cuda")
+    t = torch.tensor([500, 500], dtype=torch.int32, device="cuda")
+    ctx = torch.randn(2, 77, 768, generator=g, device="cuda").to(torch.bfloat16)
+    blocks = [m for m in rt.module.modules() if isinstance(m, sd15.TransformerBlock)]
+    with torch.inference_mode():
+        k0 = fa.launches
+        flash = rt.module.unet(x, t, ctx)
+        k1_per_call = fa.launches - k0
+        for b in blocks:
+            b.flash = False
+        try:
+            dense = rt.module.unet(x, t, ctx)
+        finally:
+            for b in blocks:
+                b.flash = True
+    diff = float((flash - dense).abs().max())
+    scale = float(dense.abs().max())
+    check(k1_per_call == SD_K1_PER_UNET, f"sd15: one UNet call launched K1 {k1_per_call} times")
+    check(diff <= SD_EPS_REL * scale, f"sd15: flash vs dense eps differ by {diff:.4g}, over "
+          f"{SD_EPS_REL} of their scale {scale:.4g}")
+    out["unet_flash_vs_dense"] = {"max_abs_diff": diff, "dense_max_abs": scale,
+                                  "share_of_scale": diff / scale, "bound_share": SD_EPS_REL,
+                                  "k1_launches_per_call": k1_per_call}
+    print(f"sd15: one bf16 UNet call, flash vs dense: max abs diff {diff:.4g} = "
+          f"{diff / scale:.4f} of the eps scale {scale:.4g} (bound {SD_EPS_REL}); K1 "
+          f"{k1_per_call} launches per call", flush=True)
+    # Where a 2-row UNet call's device time goes.
+    with torch.inference_mode():
+        out["unet_2rows_device_ms"] = graph_ms(lambda: rt.module.unet(x, t, ctx),
+                                               replays=5, rounds=3)
+        out["unet_2rows_by_kind"] = device_breakdown(lambda: rt.module.unet(x, t, ctx),
+                                                     iters=3)
+    print(f"sd15: one 2-row UNet call {out['unet_2rows_device_ms']:.2f} ms of device time; "
+          f"by kind { {k: round(v, 3) for k, v in out['unet_2rows_by_kind']['ms_by_kind'].items()} }"
+          f", {out['unet_2rows_by_kind']['kernels_per_call']:.0f} kernels", flush=True)
+    # The engine's programs on the same runtime: insert, step, extract.
+    eng = GenEngine(model, rt, Metrics(),
+                    load_config(str(SD_CONFIG), list(SD_ENGINE_SETS)).genserve)
+    t0 = time.perf_counter()
+    eng.compile()
+    out["engine_compile_s"] = time.perf_counter() - t0
+    out["engine"] = sd_engine_timing(rt, eng, item)
+    out["capture_memory"] = dict(rt.capture_memory)
+    del eng, rt
+    torch.cuda.empty_cache()
+    return out
+
+
+def sd_engine_timing(rt, eng, item) -> dict:
+    """Device times (CUDA events) of the insert (CLIP + the latent draw), of
+    the step at 1 and 8 active slots, and of the extract (VAE decode)."""
+    import numpy as np
+    import torch
+
+    from tpuserve_torch.runtime import LIVE_BLOCK
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def timed(fn) -> float:
+        torch.cuda.synchronize()
+        ev[0].record()
+        fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1])
+
+    out: dict = {}
+    for n in (1, 8):
+        rt.zero_state(LIVE_BLOCK)
+        inserts = [timed(lambda s=s: rt.run_program("insert", np.array([s]), item,
+                                                     block=LIVE_BLOCK)) for s in range(n)]
+        steps = [timed(lambda: rt.run_program("step", block=LIVE_BLOCK)) for _ in range(6)]
+        out[n] = {"insert_device_ms": sorted(inserts)[len(inserts) // 2],
+                  "step_device_ms": sorted(steps)[3]}
+    extracts = [timed(lambda: rt.run_program("extract", np.array([0]), block=LIVE_BLOCK))
+                for _ in range(5)]
+    out["extract_device_ms"] = sorted(extracts)[2]
+    rt.zero_state(LIVE_BLOCK)
+    print(f"sd15 engine: insert (CLIP) {out[1]['insert_device_ms']:.2f} ms, step at 1 / 8 "
+          f"active slots {out[1]['step_device_ms']:.1f} / {out[8]['step_device_ms']:.1f} ms, "
+          f"extract (VAE) {out['extract_device_ms']:.1f} ms of device time", flush=True)
+    return out
+
+
+def sd_stream(port: int, body: dict) -> dict:
+    """One ``?stream=true`` request read to its end: the frames by kind."""
+    import numpy as np
+
+    from tpuserve_torch import frame
+
+    st, raw, hdrs = sd_generate(port, body, stream=True)
+    check(st == 200 and hdrs.get("Content-Type") == frame.CONTENT_TYPE,
+          f"sd15 stream: {st} {hdrs.get('Content-Type')} {raw[:200]!r}")
+    reader = frame.StreamFrameReader()
+    frames = reader.feed(raw)
+    check(reader.pending == 0, f"sd15 stream: {reader.pending} bytes of a torn frame")
+    events = [json.loads(p) for k, p in frames if k == frame.KIND_EVENT]
+    images = [frame.parse_frame(p, kind=frame.KIND_RGB8, edge=SD_EDGE, max_items=1)[0]
+              for k, p in frames if k == frame.KIND_RGB8]
+    progress = [e["step"] for e in events if e["type"] == "progress"]
+    terminals = [e for e in events if e["type"] in ("done", "error")]
+    check(len(terminals) == 1 and terminals[0]["type"] == "done"
+          and json.loads(frames[-1][1]) == terminals[0],
+          f"sd15 stream: terminals {terminals} (exactly one done, last)")
+    check(progress == list(range(1, SD_STEPS + 1)),
+          f"sd15 stream: progress events {progress}, expected 1..{SD_STEPS}")
+    # Previews after steps 5, 10 and 15; the final image right before done.
+    check(len(images) == 4 and frames[-2][0] == frame.KIND_RGB8,
+          f"sd15 stream: {len(images)} image frames (3 previews + the final image expected)")
+    return {"final": np.array(images[-1]), "previews": len(images) - 1,
+            "progress_events": len(progress), "frames": len(frames)}
+
+
+def sd_concurrent(port: int, bodies: list, stream_body: dict | None = None) -> tuple:
+    """Every body at once from its own thread (and one streamed request):
+    the answers in body order, the stream's frames, the wall time."""
+    import threading
+
+    answers: list = [None] * len(bodies)
+    stream: dict = {}
+
+    def one(i: int) -> None:
+        answers[i] = sd_generate(port, bodies[i])
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(bodies))]
+    if stream_body is not None:
+        threads.append(threading.Thread(target=lambda: stream.update(sd_stream(port, stream_body))))
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall_s = time.perf_counter() - t0
+    for i, a in enumerate(answers):
+        check(a is not None and a[0] == 200 and a[2].get("Content-Type") == "image/png",
+              f"sd15 engine request {i}: {a and a[0]} {a and a[1][:200]!r}")
+        check(read_png(a[1]).shape == (SD_EDGE, SD_EDGE, 3),
+              f"sd15 engine request {i}: not {SD_EDGE} px")
+    check(stream_body is None or "final" in stream, "sd15 engine: the stream did not finish")
+    return [a[1] for a in answers], stream, wall_s
+
+
+def sd_engine_served(bodies: list, locked_png: bytes) -> dict:
+    """The engine variant served: eight concurrent requests and a stream,
+    then the eight again in reverse order (other slots: the same bytes);
+    previews add no capture; K1 10 launches per engine step;
+    gen_iterations_total > 0. The engine's image of the locked path's body
+    beside the locked PNG (reported)."""
+    import numpy as np
+
+    out: dict = {}
+    with serving(SD_CONFIG, n_buckets=3, overrides=SD_ENGINE_SETS) as port:
+        g = served_graphs(port)["sd15"]
+        check(call(port, "POST", "/debug/kernels:reset")[0] == 200, "kernel count reset refused")
+        c0 = sd_counters(port)
+        pngs, stream, wall_s = sd_concurrent(port, bodies, stream_body=bodies[0])
+        check((stream["final"] == read_png(pngs[0])).all(),
+              "sd15 engine: the streamed image differs from the unary one")
+        c1 = sd_counters(port)
+        again, _, _ = sd_concurrent(port, bodies[::-1])
+        check(again[::-1] == pngs, "sd15 engine: the same requests in other slots gave other "
+              f"PNG bytes ({sum(a != b for a, b in zip(again[::-1], pngs))} of {len(pngs)})")
+        c2 = sd_counters(port)
+        d = {n: c2[n] - c0[n] for n in c0 if n != "k1_by_shape"}
+        by_shape = sd_shape_launches(c0, c2)
+        # Every step runs all 8 slots' rows: 2 x 8 = 16 UNet rows.
+        check(d["gen_iterations_total"] > 0 and d["k1"] == SD_K1_PER_UNET
+              * d["gen_iterations_total"] and by_shape == {
+                  sd_shape_key(16, s): SD_K1_PER_UNET // 2 * d["gen_iterations_total"]
+                  for s in (4096, 1024)},
+              f"sd15 engine: K1 launched {d['k1']} times {by_shape} in "
+              f"{d['gen_iterations_total']:g} steps ({SD_K1_PER_UNET} per step, half at each "
+              f"level, 16 rows)")
+        check(d["captures_total"] == 0 and d["runtime_compiles_total"] == 0,
+              f"sd15 engine: captures / compiles moved {d['captures_total']} / "
+              f"{d['runtime_compiles_total']:g} (previews included)")
+        check(d["gen_admitted_total"] == 2 * len(bodies) + 1,
+              f"sd15 engine: {d['gen_admitted_total']:g} admitted")
+        diff = np.abs(read_png(pngs[0]).astype(int) - read_png(locked_png).astype(int))
+        out.update(wall_s_8_plus_stream=wall_s, deltas=d, k1_launches=d["k1"],
+                   k1_by_shape=by_shape,
+                   stream={k: v for k, v in stream.items() if k != "final"},
+                   graphs_served=g, first_wave_steps=c1["gen_iterations_total"]
+                   - c0["gen_iterations_total"],
+                   vs_locked={"max_pixel_diff": int(diff.max()),
+                              "equal_share": float((diff == 0).mean())})
+        print(f"sd15 engine: 8 requests + 1 stream in {wall_s:.2f} s over "
+              f"{out['first_wave_steps']:g} steps; stream: {stream['progress_events']} progress "
+              f"events, {stream['previews']} previews, one image, one done; the 8 again in "
+              f"other slots byte-identical; K1 {d['k1']} = {SD_K1_PER_UNET} x "
+              f"{d['gen_iterations_total']:g} steps; captures and compiles moved 0; against "
+              f"the locked image max pixel diff {int(diff.max())}, "
+              f"{(diff == 0).mean():.4f} equal", flush=True)
+    return out
+
+
+def sd15_phase(card: str) -> dict:
+    """Phase 20: SD 1.5 txt2img (examples/sd15_flash.toml), locked and
+    through the engine, K1 at SD's padded head dims."""
+    import torch
+
+    t0 = time.perf_counter()
+    out: dict = {"card": card, "config": str(SD_CONFIG.relative_to(ROOT))}
+    # The locked path's 2 UNet rows and the engine step's 2 x 8 slots.
+    out["kernels"] = {(b, s): sd_k1_row(b, s, d) for b in (2, 16)
+                      for s, d in ((4096, 40), (1024, 80))}
+    locked = sd_locked_served()
+    png = locked.pop("png")
+    out["in_process"] = sd_in_process(png)
+    out["locked"] = locked
+    out["engine"] = sd_engine_served(sd_bodies(), png)
+    # K1's share of a 2-row UNet call: its ten launches at the timed shapes.
+    k1_ms = 5 * sum(out["kernels"][(2, n)]["line"]["ms"] for n in (4096, 1024))
+    out["k1_share_of_unet_2rows"] = k1_ms / out["in_process"]["unet_2rows_device_ms"]
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"sd15: phase 20 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4471,6 +5016,7 @@ def main() -> int:
         textgen = textgen_phase(card)
         stream = streaming_phase(card, textgen["served"]["bench"]["tokens_per_s"])
         moe = moe_phase(card)
+        sd = sd15_phase(card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4519,6 +5065,9 @@ def main() -> int:
                                     config=moe["configs"][0])}))
     print(json.dumps({"slice": dict(moe["bert"], path="bert_moe", card=card,
                                     config=moe["configs"][1], phase_s=moe["phase_s"])}))
+    sd_k1 = sd.pop("kernels")
+    print(json.dumps({"slice": dict(sd, path="sd15", **{
+        f"k1_b{b}_s{n}": row["line"] for (b, n), row in sd_k1.items()})}))
     print(json.dumps({"slice": dict(int8c, path="int8c", configs=[
         str(CONFIG.relative_to(ROOT)), str(RESNET_CONFIG.relative_to(ROOT))])}))
     # The runtime's graphs against the eager forward, and the host time of
@@ -4550,8 +5099,16 @@ def main() -> int:
                                        launches_textgen_stream_bench=stream["bench"][
                                            "k1_launches"],
                                        launches_textgen_moe=moe["textgen"]["k1_launches"],
-                                       launches_bert_moe=moe["bert"]["launches"]),
-                                  dict(k2["line"], launches=long["k2_launches"])]}))
+                                       launches_bert_moe=moe["bert"]["launches"],
+                                       launches_sd15=sd["locked"]["k1_launches"],
+                                       launches_sd15_engine=sd["engine"]["k1_launches"]),
+                                  dict(k2["line"], launches=long["k2_launches"]),
+                                  # K1 at SD 1.5's padded shapes, with the launches counted
+                                  # at each shape: 2 rows on the locked path, 16 in the
+                                  # engine's step.
+                                  *(dict(row["line"], launches=sd[
+                                      "locked" if b == 2 else "engine"]["k1_by_shape"][
+                                      sd_shape_key(b, n)]) for (b, n), row in sd_k1.items())]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

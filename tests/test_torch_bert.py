@@ -300,10 +300,10 @@ def test_unported_options_raise(over, match):
 
 
 @pytest.mark.parametrize("family, via", [
-    # EfficientDet is ported: its case became sd15, refused by the server.
+    # Every family is ported: each case holds that the family's default
+    # layout (parallelism = "sharded", the mesh modes) is refused, by the
+    # server and at build.
     pytest.param("sd15", "server", id="sd15-server"),
-    # textgen is ported; its case holds that the default layout (sharded
-    # decode) is refused.
     pytest.param("sd15", "build", id="sd15"), pytest.param("textgen", "build", id="textgen")])
 def test_unported_families_raise(family, via):
     cfg = ModelConfig(name="m", family=family)

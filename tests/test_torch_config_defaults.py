@@ -42,7 +42,8 @@ from tpuserve_torch import config as tconfig
 EXAMPLES = ("examples/bert_flash.toml", "examples/bert_long_ring.toml",
             "examples/resnet50.toml", "examples/mobilenetv3.toml",
             "examples/efficientdet.toml", "examples/textgen_flash.toml",
-            "examples/textgen_moe_flash.toml", "examples/bert_moe_flash.toml")
+            "examples/textgen_moe_flash.toml", "examples/bert_moe_flash.toml",
+            "examples/sd15_flash.toml")
 
 # The reference's defaults that turn on a feature the port does not serve
 # yet, each refused by the port when written out: none.
@@ -257,3 +258,28 @@ def test_worker_tier_keys_of_typed_tables_are_refused_when_written(name, value):
                                      else f"{name}={value}"])
     assert getattr(getattr(cfg, table), key) == value
     assert tconfig.unported_settings(cfg) == [f"[{table}] {key} = {value!r}"]
+
+
+@pytest.mark.parametrize("key, value, named", [
+    ("options.bpe_vocab", '"vocab.json"', "item 8b"),
+    ("parallelism", '"sharded"', "mesh modes"),
+    ("tp", "2", "mesh modes")])
+def test_sd15_example_refuses_unserved_options_by_name(key, value, named, tmp_path):
+    """``examples/sd15_flash.toml`` builds (its module on the meta device);
+    with a setting the slice does not serve written in, the server refuses
+    it at build time by name, with its ROADMAP.md item, where the reference
+    would serve it."""
+    from tpuserve_torch.models import build
+    from tpuserve_torch.server import ServerState
+
+    cfg = tconfig.load_config("examples/sd15_flash.toml")
+    import torch
+
+    with torch.device("meta"):
+        build(cfg.models[0]).build_module()
+    sets = [f"model.sd15.{key}={value}"]
+    if key == "options.bpe_vocab":
+        sets.append('model.sd15.options.bpe_merges="merges.txt"')
+    bad = tconfig.load_config("examples/sd15_flash.toml", sets)
+    with pytest.raises(NotImplementedError, match=named):
+        ServerState(bad, device="cpu").build()

@@ -127,6 +127,27 @@ def test_cpu_tensors_take_plain_version_and_count_no_launch():
     torch.testing.assert_close(out, plain, atol=0, rtol=0)
 
 
+def test_k1_counts_by_shape_through_replays_and_reset():
+    saved = (fa.launches, fa.stats_launches, dict(fa.shape_launches))
+    lvl0, lvl1 = (2, 4096, 8, 64), (2, 1024, 8, 128)
+    try:
+        fa.reset_launches()
+        fa.count_replay(10, 0, {lvl0: 5, lvl1: 5})
+        before = dict(fa.shape_launches)
+        fa.count_replay(10, 0, {lvl0: 5, lvl1: 5})
+        fa.count_replay(0, 12)
+        assert (fa.launches, fa.stats_launches) == (20, 12)
+        assert fa.shape_launches == {lvl0: 10, lvl1: 10}
+        assert fa.shape_launches_since(before) == {lvl0: 5, lvl1: 5}
+        assert fa.shape_launches_since(dict(fa.shape_launches)) == {}
+        fa.reset_launches()
+        assert (fa.launches, fa.stats_launches, fa.shape_launches) == (0, 0, {})
+    finally:
+        fa.launches, fa.stats_launches = saved[:2]
+        fa.shape_launches.clear()
+        fa.shape_launches.update(saved[2])
+
+
 def test_strided_views_from_a_fused_projection():
     """q/k/v sliced out of one (B, S, 3, H, D) projection are strided views;
     the result equals the contiguous inputs' result."""

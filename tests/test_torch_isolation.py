@@ -113,6 +113,37 @@ def test_bench_imports_and_builds_payloads_with_aiohttp_blocked():
             "'tpuserve_torch.bench.loadgen', 'tpuserve_torch.bench.roofline']") in out.stdout
 
 
+def test_sd15_serves_on_host_with_jax_flax_tpuserve_and_pil_blocked():
+    """SD 1.5's module, PNG writer, stream frames and seeded init need none
+    of them: a tiny txt2img forward on the CPU and its PNG, in a process
+    where importing any of them fails."""
+    code = (
+        "import sys, json\n"
+        f"for name in {(*BLOCKED, 'PIL', 'aiohttp')!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import torch\n"
+        "from tpuserve_torch.config import ModelConfig\n"
+        "from tpuserve_torch.models import build\n"
+        "opts = dict(steps=2, vocab_size=128, text_layers=1, text_d_model=16, text_heads=2,\n"
+        "            unet_ch=8, unet_mults=[1, 2], unet_res=1, unet_attn_levels=[0],\n"
+        "            unet_heads=2, vae_ch=8, vae_mults=[1, 2])\n"
+        "m = build(ModelConfig(name='sd', family='sd15', dtype='float32',\n"
+        "                      parallelism='single', image_size=16, options=opts))\n"
+        "mod = m.build_module()\n"
+        "mod.load_state_dict(m.init_params(0))\n"
+        "batch = m.assemble([m.host_decode(b'{\"prompt\": \"x\"}', 'application/json')], (1,))\n"
+        "with torch.inference_mode():\n"
+        "    out = m.forward(mod, tuple(torch.from_numpy(a) for a in batch))\n"
+        "png = m.host_postprocess({'image': out['image'].numpy()}, 1)[0]\n"
+        "unit = m.encode_stream_unit({'type': 'image', 'image': out['image'][0].numpy()})\n"
+        "assert png[:8] == b'\\x89PNG\\r\\n\\x1a\\n' and len(unit) > 16 * 16 * 3\n"
+        "print('ok', tuple(out['image'].shape))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ENV,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[0] == "ok (1, 16, 16, 3)"
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

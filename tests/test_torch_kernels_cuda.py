@@ -74,9 +74,10 @@ SHAPES = [
 @pytest.mark.parametrize("b, sq, sk, h, d", SHAPES)
 def test_kernel_matches_plain_version(cuda, dtype, b, sq, sk, h, d):
     q, k, v, bias = inputs(cuda, b, sq, sk, h, d, dtype, seed=0)
-    before = fa.launches
+    before, shape_before = fa.launches, fa.shape_launches.get((b, sq, h, d), 0)
     out = fa.flash_attention(q, k, v, bias)
     assert fa.launches == before + 1
+    assert fa.shape_launches[(b, sq, h, d)] == shape_before + 1
     assert out.dtype == dtype and out.shape == q.shape
     ref = fa.flash_attention_reference(q.float(), k.float(), v.float(), bias)
     assert_out_close(out, ref, dtype)

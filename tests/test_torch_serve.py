@@ -167,7 +167,7 @@ def test_healthz_and_stats(server):
     assert stats["backend"]["device"] == "cpu"
     assert stats["backend"]["torch"] == torch.__version__
     # CPU tensors take the plain versions: the kernels never launch here.
-    assert stats["kernels"] == {"flash_attention": {"launches": 0},
+    assert stats["kernels"] == {"flash_attention": {"launches": 0, "by_shape": {}},
                                 "flash_attention_stats": {"launches": 0}}
     assert set(stats["pipeline"]["stages"]["workers"]) == {
         "assemble", "h2d", "fetch", "postproc"}
@@ -176,7 +176,7 @@ def test_healthz_and_stats(server):
 def test_kernel_count_reset_covers_k1_and_k2(server):
     status, _, body = call(server, "POST", "/debug/kernels:reset")
     assert status == 200
-    assert json.loads(body) == {"kernels": {"flash_attention": {"launches": 0},
+    assert json.loads(body) == {"kernels": {"flash_attention": {"launches": 0, "by_shape": {}},
                                             "flash_attention_stats": {"launches": 0}}}
     assert call(server, "GET", "/debug/kernels:reset")[0] == 405
 

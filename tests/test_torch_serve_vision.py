@@ -197,7 +197,7 @@ def test_stats_ingest_block_and_inventory(server):
     assert list(ingest["loops"]) == ["0"]
     assert ingest["loops"]["0"]["requests"] >= 1 and ingest["loops"]["0"]["bytes"] > 0
     assert set(ingest["frame_errors_total"]) == {"resnet50", "resnet50_rgb", "toy"}
-    assert stats["kernels"] == {"flash_attention": {"launches": 0},
+    assert stats["kernels"] == {"flash_attention": {"launches": 0, "by_shape": {}},
                                 "flash_attention_stats": {"launches": 0}}
     inv = json.loads(call(port, "GET", "/v1/models")[1])
     assert inv["resnet50"]["quantize"] == "int8" and inv["resnet50_rgb"]["quantize"] is None

@@ -10,7 +10,12 @@ temperature above 0 need the same noise. Tolerances:
   (``jax.random.bits``): equal bit for bit, over seeds including negative
   and extreme int32 values and every position 0-511;
 - ``gumbel``: within rtol 1e-6, atol 1e-6 of ``jax.random.gumbel`` (the
-  bits are exact; the two frameworks' ``log`` may differ in the last ulps).
+  bits are exact; the two frameworks' ``log`` may differ in the last ulps);
+- ``normal`` (SD 1.5's latents, ``jax.random.normal(fold_in(key(0), seed),
+  (64, 64, 4))``): within 3 ulps, every value finite, and the uniform draw
+  it starts from bit for bit (``erf_inv``'s ``log1p`` is the framework's);
+  ``erf_inv`` alone within 2 ulps of ``lax.erf_inv`` over (-1, 1) and
+  infinite at +-1.
 """
 
 import jax
@@ -90,3 +95,34 @@ def test_uniform_edges():
     tiny = np.finfo(np.float32).tiny
     assert u[0] == tiny and u[1] == tiny
     assert u[2] == np.float32(1.0) - np.float32(2.0 ** -23)
+
+
+@pytest.mark.parametrize("seed", (0, 1, 2**31 - 1, -1, -(2**31)))
+def test_normal_within_ulps(seed):
+    key = jax.random.fold_in(jax.random.key(0), jnp.int32(seed))
+    want = np.asarray(jax.random.normal(key, (64, 64, 4), jnp.float32))
+    want_u = np.asarray(jax.random.uniform(
+        key, (64 * 64 * 4,), jnp.float32, np.nextafter(np.float32(-1), np.float32(0)), 1.0))
+    s = torch.tensor([seed], dtype=torch.int32)
+    k0, k1 = threefry.fold_in(*threefry.key(torch.zeros_like(s)), s)
+    bits = threefry.bits32(k0, k1, 64 * 64 * 4)[0]
+    u = threefry.uniform_signed(bits).numpy()
+    np.testing.assert_array_equal(u, want_u)
+    got = threefry.normal(bits).reshape(64, 64, 4).numpy()
+    assert got.dtype == np.float32 and np.isfinite(got).all()
+    ulps = np.abs(got.view(np.int32).astype(np.int64) - want.view(np.int32).astype(np.int64))
+    assert ulps.max() <= 3, ulps.max()
+
+
+def test_erf_inv_within_ulps():
+    from jax import lax
+
+    x = np.random.default_rng(0).uniform(-1, 1, 200_000).astype(np.float32)
+    x = np.concatenate([x, np.float32(1) - np.float32(2.0 ** -24) * np.arange(1, 64,
+                                                                               dtype=np.float32)])
+    want = np.asarray(lax.erf_inv(jnp.asarray(x)))
+    got = threefry.erf_inv(torch.from_numpy(x)).numpy()
+    ulps = np.abs(got.view(np.int32).astype(np.int64) - want.view(np.int32).astype(np.int64))
+    assert ulps.max() <= 2, ulps.max()
+    edge = threefry.erf_inv(torch.tensor([1.0, -1.0])).numpy()
+    assert np.isposinf(edge[0]) and np.isneginf(edge[1])

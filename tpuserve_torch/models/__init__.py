@@ -16,6 +16,10 @@ Each family implements the ``ServingModel`` contract in ``base.py``. Ported:
   ingest; EfficientNet-B0, BiFPN, shared heads, and the fixed-shape
   detection tail — top-k, decode, greedy NMS — on the device, inside the
   bucket's CUDA graph).
+- sd15 — Stable Diffusion 1.5 txt2img (CLIP text tower, UNet, VAE
+  decoder; spatial self-attention on kernel K1 with ``unet_attention =
+  "flash"``), served as one captured graph per locked batch or step by step
+  by the generation engine, previews streamed as binary frames.
 - textgen — autoregressive text generation (a prefix-LM decoder whose
   prompt prefill runs kernel K1 with ``attention = "flash"``), served as
   locked batches by the batcher or iteration by iteration by the
@@ -25,8 +29,9 @@ Each family implements the ``ServingModel`` contract in ``base.py``. Ported:
 The shared convolution, BatchNorm and weight-conversion code of the
 convolutional families is ``layers.py``.
 
-The JAX package's other family (sd15) is registered by name and raises
-"not yet ported", naming its ROADMAP.md item.
+Every family of the JAX package is ported; ``_NOT_PORTED`` stays the place
+where a family that is registered by name but not served yet raises "not
+yet ported", naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -43,14 +48,13 @@ _REGISTRY: dict[str, str] = {
     "efficientdet": "tpuserve_torch.models.efficientdet",
     "mobilenetv3": "tpuserve_torch.models.mobilenet",
     "resnet50": "tpuserve_torch.models.resnet",
+    "sd15": "tpuserve_torch.models.sd15",
     "textgen": "tpuserve_torch.models.textgen",
     "toy": "tpuserve_torch.models.toy",
 }
 
 # Families of the JAX package not ported yet -> their ROADMAP.md queue-1 item.
-_NOT_PORTED: dict[str, str] = {
-    "sd15": "SD 1.5",
-}
+_NOT_PORTED: dict[str, str] = {}
 
 
 def build(cfg: "ModelConfig") -> "ServingModel":

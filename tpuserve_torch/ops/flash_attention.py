@@ -26,7 +26,7 @@ Dispatch is by the tensors' device, never by a fallback:
 
 ``launches`` counts K1's launches and ``stats_launches`` K2's (one per call on
 CUDA tensors, none on the CPU), so a run can show that its main path went
-through the kernel. A call made while a CUDA graph is being captured counts
+through the kernel; ``shape_launches`` splits K1's count by q's (B, Sq, H, D). A call made while a CUDA graph is being captured counts
 once at capture, though its launch runs at every replay; whoever replays the
 graph adds the launches it recorded (``count_replay``): the serving
 runtime's graphs do.
@@ -49,6 +49,7 @@ import torch
 # increments are locked.
 launches = 0
 stats_launches = 0
+shape_launches: dict[tuple[int, int, int, int], int] = {}
 _launches_lock = threading.Lock()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -63,15 +64,26 @@ def reset_launches() -> None:
     global launches, stats_launches
     with _launches_lock:
         launches = stats_launches = 0
+        shape_launches.clear()
 
 
-def count_replay(k1: int, k2: int) -> None:
+def count_replay(k1: int, k2: int, k1_shapes: dict | None = None) -> None:
     """Add the K1 and K2 launches of one replay of a captured CUDA graph
-    (the launches its capture recorded) to the counts."""
+    (the launches its capture recorded, K1's by shape in ``k1_shapes``) to
+    the counts."""
     global launches, stats_launches
     with _launches_lock:
         launches += k1
         stats_launches += k2
+        for shape, n in (k1_shapes or {}).items():
+            shape_launches[shape] = shape_launches.get(shape, 0) + n
+
+
+def shape_launches_since(before: dict) -> dict:
+    """K1's launches by shape since ``before`` (a copy of ``shape_launches``)."""
+    with _launches_lock:
+        return {s: n - before.get(s, 0) for s, n in shape_launches.items()
+                if n != before.get(s, 0)}
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -220,6 +232,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             stats_launches += 1
         else:
             launches += 1
+            shape_launches[(b, sq, h, d)] = shape_launches.get((b, sq, h, d), 0) + 1
     return outs if stats else outs[0]
 
 

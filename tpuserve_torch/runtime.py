@@ -167,12 +167,14 @@ class Variant:
 @dataclass
 class Graph:
     """One bucket's forward captured on one parameter slot: its static
-    input and output tensors, and the K1/K2 launches one replay makes."""
+    input and output tensors, and the K1/K2 launches one replay makes
+    (K1's by q shape in ``k1_shapes``)."""
 
     graph: Any  # torch.cuda.CUDAGraph
     inputs: tuple
     outputs: dict
     launches: tuple[int, int]
+    k1_shapes: dict
 
 
 @dataclass
@@ -306,14 +308,20 @@ class ModelRuntime:
     # -- startup ------------------------------------------------------------
     def _prepare(self, state_dict: dict[str, torch.Tensor]) -> torch.nn.Module:
         """A fresh module holding ``state_dict`` as the forward reads it, on
-        the host: every floating tensor cast to the compute dtype; under
-        ``quantize = "int8"`` or ``"int8c"`` each eligible cast weight
-        quantized on the reference's channel (the reference's order: cast,
-        then quantize), under int8c the family's int8-native weights kept
-        int8 for their int8 modules and the rest dequantized on access as
-        under int8; 4-D weights channels_last for convolutional families.
+        the serving device (on the host under ``quantize``): every floating
+        tensor cast to the compute dtype; under ``quantize = "int8"`` or
+        ``"int8c"`` each eligible cast weight quantized on the reference's
+        channel (the reference's order: cast, then quantize), under int8c
+        the family's int8-native weights kept int8 for their int8 modules
+        and the rest dequantized on access as under int8; 4-D weights
+        channels_last for convolutional families.
         ValueError when the state_dict does not fit the module."""
-        module = self.model.build_module()
+        # Quantization runs on the host: CUDA divides by a scalar through
+        # its reciprocal, which moves an int8 scale (absmax / 127) by an ulp
+        # from the host's (tests/test_torch_runtime_cuda.py holds the card's
+        # held weights equal to the CPU's).
+        with torch.device("cpu" if self.cfg.quantize is not None else self.device):
+            module = self.model.build_module()
         try:
             module.load_state_dict(state_dict)
         except (RuntimeError, KeyError) as e:
@@ -332,13 +340,19 @@ class ModelRuntime:
     def load_params(self) -> None:
         """Load the model's parameters (``cfg.weights`` under its integrity
         gate, or the seeded init) into every slot: one module per slot,
-        moved to the device without a dtype so int8 values and float32
-        scales arrive as they are. Slot 0 is live."""
+        moved to the device without a dtype (when ``_prepare`` built it on
+        the host) so int8 values and float32 scales arrive as they are.
+        Slot 0 is live."""
         state_dict = self.model.load_params()
         self.slots = []
         for _ in range(N_SLOTS):
             module = self._prepare(state_dict).to(device=self.device)
             self.slots.append(Slot(module, slot_tensors(module)))
+        if self.device.type == "cuda":
+            # Hand the float32 build and cast copies back, so memory_reserved
+            # before capture counts the slots, not those transients.
+            del state_dict, module
+            torch.cuda.empty_cache()
 
     @property
     def module(self) -> torch.nn.Module:
@@ -419,18 +433,19 @@ class ModelRuntime:
             torch.cuda.current_stream(self.device).wait_stream(stream)
             # K1/K2 launches count once per call at capture; startup captures
             # on one thread, so the counts' delta is this graph's.
-            k1, k2 = fa.launches, fa.stats_launches
+            k1, k2, shapes = fa.launches, fa.stats_launches, dict(fa.shape_launches)
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, pool=self._pool, stream=stream):
                 outputs = self.model.forward(slot.module, inputs)
             launches = (fa.launches - k1, fa.stats_launches - k2)
+            shapes = fa.shape_launches_since(shapes)
             # A graph's first launch uploads it to the card: pay that here,
             # at startup, not in the first request of the bucket.
             with torch.cuda.stream(stream):
                 graph.replay()
-            fa.count_replay(*launches)
+            fa.count_replay(*launches, shapes)
             stream.synchronize()
-        return Graph(graph, inputs, outputs, launches)
+        return Graph(graph, inputs, outputs, launches, shapes)
 
     @property
     def compiles_total(self) -> float:
@@ -501,7 +516,7 @@ class ModelRuntime:
                 for dst, src in zip(g.inputs, dev_batch):
                     dst.copy_(src)
                 g.graph.replay()
-                fa.count_replay(*g.launches)
+                fa.count_replay(*g.launches, g.k1_shapes)
                 out = {k: v.clone() for k, v in g.outputs.items()}
                 slot.last_replay = torch.cuda.Event()
                 slot.last_replay.record()
@@ -599,17 +614,18 @@ class ModelRuntime:
             with torch.cuda.stream(stream):
                 prog.fn(slot.module, state, *_unflatten(prog.arg_specs, prog.inputs))
             torch.cuda.current_stream(self.device).wait_stream(stream)
-            k1, k2 = fa.launches, fa.stats_launches
+            k1, k2, shapes = fa.launches, fa.stats_launches, dict(fa.shape_launches)
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, pool=self._pool, stream=stream):
                 outputs = prog.fn(slot.module, state, *_unflatten(prog.arg_specs, prog.inputs))
             launches = (fa.launches - k1, fa.stats_launches - k2)
+            shapes = fa.shape_launches_since(shapes)
             # The first launch uploads the graph: pay it at startup.
             with torch.cuda.stream(stream):
                 graph.replay()
-            fa.count_replay(*launches)
+            fa.count_replay(*launches, shapes)
             stream.synchronize()
-        return Graph(graph, prog.inputs, outputs, launches)
+        return Graph(graph, prog.inputs, outputs, launches, shapes)
 
     def run_program(self, tag: str, *args, params_override: StagedParams | None = None,
                     block: int = LIVE_BLOCK) -> Any:
@@ -644,7 +660,7 @@ class ModelRuntime:
                 for dst, a in zip(prog.inputs, arrays):
                     dst.copy_(torch.from_numpy(a).pin_memory(), non_blocking=True)
                 g.graph.replay()
-                fa.count_replay(*g.launches)
+                fa.count_replay(*g.launches, g.k1_shapes)
                 out = _map_out(g.outputs, torch.Tensor.clone)
                 slot.last_replay = torch.cuda.Event()
                 slot.last_replay.record()

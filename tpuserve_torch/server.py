@@ -19,7 +19,9 @@ Endpoints (response shapes and status codes as in the JAX server):
   (N, H, W, 3) batch answers ``{"results": [...]}``, an npy (H, W, 3) image
   or an encoded image ``{"top_k": [...]}``; for textgen ``{"prompt",
   "seed"?, "max_new_tokens"?, "temperature"?}`` answers ``{"text",
-  "tokens", "n_tokens"}``. With ``[genserve] enabled = true`` a generative
+  "tokens", "n_tokens"}``; for sd15 ``{"prompt", "negative_prompt"?,
+  "seed"?}`` answers the PNG (``image/png``). With ``[genserve] enabled =
+  true`` a generative
   model is served by the iteration-level engine
   (``tpuserve_torch.genserve.GenEngine``) in place of the batcher, with the
   same front-door surface (deadlines, breaker, cache, canaries, watchdog,
@@ -29,7 +31,8 @@ Endpoints (response shapes and status codes as in the JAX server):
   chunked ``text/event-stream`` (``X-Tpuserve-Stream: 1``): a ``token``
   event per generated token, heartbeats (``: hb``) across idle gaps, and
   exactly one terminal event, ``done`` (finish reason, usage) or ``error``
-  (its reason). Before the first unit failures are plain statuses (504,
+  (its reason); sd15 streams binary frames instead
+  (``frame.CONTENT_TYPE``: progress events, previews, the image). Before the first unit failures are plain statuses (504,
   503, 429, 500) with no byte of stream written; after it they are
   in-stream ``error`` events. A stream bypasses the result cache and
   single-flight; a client that goes away frees its slot.
@@ -818,7 +821,8 @@ class ServerState:
         return json_response({n: rt.describe() for n, rt in self.runtimes.items()})
 
     def kernel_counts(self) -> dict:
-        return {"flash_attention": {"launches": fa.launches},
+        by_shape = {"x".join(map(str, s)): n for s, n in sorted(fa.shape_launches.items())}
+        return {"flash_attention": {"launches": fa.launches, "by_shape": by_shape},
                 "flash_attention_stats": {"launches": fa.stats_launches}}
 
     def reset_kernel_counts(self, req: Request) -> Response:
@@ -1155,6 +1159,8 @@ class ServerState:
         headers = {"X-Trace-Id": trace_id}
         if batched:
             return json_response({"results": results}, headers=headers)
+        if isinstance(results[0], bytes):  # sd15's PNG
+            return Response(200, results[0], content_type="image/png", headers=headers)
         if hit_entry is not None and hit_entry.body is not None:
             # Cache hit: the response bytes were serialized once, when the
             # entry was made.
