@@ -106,7 +106,9 @@ Phases (any failure exits non-zero before the result line):
    hooked from the convolutions' shapes, over the bf16 peak) and the bytes
    bound (wire, weights as stored and the top-5 outputs, over HBM's rate).
    ``native_jpeg`` says whether the libjpeg shim built on this machine.
-9. Lifecycle: serve ``examples/bert_flash.toml`` and then
+9. Lifecycle: serve ``examples/bert_flash.toml`` (at ``SHALLOW_LAYERS`` =
+   4 layers, a copy under ``build/smoke/``, as phases 12, 15 and 16 do) and
+   then
    ``examples/resnet50.toml`` with ``bert`` / ``resnet50`` (int8) reading a
    seed-1 ``.npz`` checkpoint written by ``save_npz`` from the port's own
    seeded init, and drive ``:reload`` (seed 2: version 2, other answers),
@@ -121,8 +123,10 @@ Phases (any failure exits non-zero before the result line):
    Phase 8 also times the first request of each bucket stage by stage
    (``stage_totals``: the server's per-stage histogram sums around one
    request) against eight repeats, and holds each stage but the queue
-   within its repeats' range plus 5 ms (``first_request_table``): no
-   request pins memory or builds state on the request path.
+   within its repeats' range plus 5 ms (``first_request_table``; when a
+   stage misses, all of it again on a second fresh server, and a stage over
+   the bar on both fails: ``drive_fresh``): no request pins memory or
+   builds state on the request path.
 10. Robustness (``robustness_phase``), on full-width BERT-flash with the
    reference's robustness defaults (no ``[adaptive]`` table): in-process,
    lone texts under the fixed and the adaptive flush (total p50s,
@@ -158,15 +162,17 @@ Phases (any failure exits non-zero before the result line):
    batch's span, about 12 per batch; a second, concurrent capture answers
    409 and both land in ``/debug/audit``. K1 launches = 12 x the batches
    dispatched; captures and compiles unchanged.
-12. Cost of the defaults (``defaults_cost_phase``): BERT-flash with the
-   reference's planes on and with them off, both served at once, 32-text
+12. Cost of the defaults (``defaults_cost_phase``): BERT-flash (at
+   ``SHALLOW_LAYERS`` layers) with the reference's planes on and with them
+   off, both served at once, 32-text
    batches from 1 client and from 4, measured on, off, off, on: p50 and
    p99 and the mean time per stage, printed; nothing is gated on them.
 13. MobileNetV3-Large (``mobilenet_phase``): serve
    ``examples/mobilenetv3.toml`` (full width, bf16, yuv420 at 224, batch
    buckets [1, 2, 4, 8]); with the counts at 0 framed bodies of 1, 2, 4 and
    8 items (K1 and K2: 0 launches; batches 4, items 15, compiles 0), each
-   bucket's first request within its repeats' range + 5 ms per stage,
+   bucket's first request within its repeats' range + 5 ms per stage
+   (on a second fresh server when a stage misses, as in phase 8),
    then 21 lone single-item requests under the adaptive flush (server
    total p50). In-process: served top-5 equal to the same seeded model's,
    bf16 logits against the float32 network (TF32 off) within
@@ -197,10 +203,11 @@ Phases (any failure exits non-zero before the result line):
    against its plain version at BERT's FFN shape (32 x 128 rows), a
    ResNet-50 (32,) 1x1 convolution and 5 rows (padded to ``_int_mm``'s 17):
    int32 products equal, outputs within one bf16 unit; serve
-   ``examples/bert_flash.toml`` and ``examples/resnet50.toml`` with
-   ``--set model.<name>.quantize=int8c``: the served answers equal an
-   in-process int8c run (72 and 36 int8-native weights), K1 12 launches
-   per BERT batch, none on ResNet-50, compiles 0; phase 9's lifecycle drill
+   ``examples/bert_flash.toml`` (at ``SHALLOW_LAYERS`` = 4 layers) and
+   ``examples/resnet50.toml`` with ``--set model.<name>.quantize=int8c``:
+   the served answers equal an in-process int8c run (24 and 36
+   int8-native weights), K1 4 launches per BERT batch, none on ResNet-50,
+   compiles 0; phase 9's lifecycle drill
    on int8c BERT-flash (reload, rollback, both rejections, no new capture);
    int8c logits against the
    weight-only int8 network on the same weights and batch within
@@ -209,12 +216,13 @@ Phases (any failure exits non-zero before the result line):
    ResNet-50 (32,), printed, nothing gated on speed.
 16. The command line (``cli_phase``), through ``python -m tpuserve_torch``
    as a user runs it: ``describe`` reports platform ``gpu`` and the card's
-   name; ``warmup --config examples/bert_flash.toml`` exits 0 listing all
+   name; ``warmup --config examples/bert_flash.toml`` (at ``SHALLOW_LAYERS``
+   layers, as the BERT-flash server of this phase) exits 0 listing all
    6 buckets; serve BERT-flash with ``roofline_probe_iters=8`` and run
    ``bench`` with a 32-text JSON body (1 s warm-up, 5 s window) closed at 8
    connections, open at half its throughput, and that open loop again with
    ``--procs 2``: each exits 0 with ``n_ok > 0`` and ``n_err == 0``, and K1's
-   launches, set to 0 just before each run and read just after, equal 12 x
+   launches, set to 0 just before each run and read just after, equal 4 x
    ``batches_total`` over the same span; ``device_utilization`` (a 2 s
    window sampled every 0.25 s) is read 3 s after each open loop's first
    batch; ``/stats`` ``roofline.bert`` has a raw forward ms
@@ -229,8 +237,8 @@ Phases (any failure exits non-zero before the result line):
    rule fired more than 5 times, the breaker closed, version 1 live, no
    reload published; at 1.0 exit 1. The ``cli`` line carries every run's
    summary, the K1 counts, both configs' roofline blocks, the utilization
-   samples and the startup probe's raw (32, 128) ms beside phase 6's
-   replay device time of the same bucket.
+   samples and the startup probe's raw (32, 128) ms (4 layers) beside phase
+   6's replay device time of the same bucket (12 layers).
 17. Text generation (``textgen_phase``): K1 against its plain version at
    the prefill's shapes ((1, 256) inserts, (32, 256) locked batches, bf16,
    padded keys, and a one-token prompt), timed with its bound, plain
@@ -327,15 +335,37 @@ Phases (any failure exits non-zero before the result line):
    ``gen_iterations_total`` > 0, captures and compiles moved 0 (previews
    included); the engine's image of the locked body beside the locked PNG
    (reported).
-21. Print a ``slice`` line per path, the ``graphs`` line (phase 6-8's,
+21. The router/worker process tier (``router_phase``): serve
+   ``examples/bert_flash.toml`` alone and bench it closed at 8 connections
+   (phase 16's 32-text body); serve ``examples/bert_flash_router.toml``
+   (the same model behind the router, ``python -m tpuserve_torch serve``)
+   at 1, 2 and 4 worker processes on the card and bench each the same way
+   (requests/s, p50, p99, each worker's ``device_utilization``, K1 = 12 x
+   the batches summed over the workers with the counts set to 0 just
+   before); at 2 workers, with the counts at 0, phase 6's three requests
+   byte-identical to the direct server's answers, K1 = 12 x batches,
+   compiles unchanged in every worker, a ``:reload`` fanned out to both
+   (version 2 everywhere, the same bytes after); the router's process
+   never initializes CUDA (its ``/stats``); each fleet's worker boot
+   times, ``memory_reserved`` per worker and the card's used memory. Then
+   ``chaos --drill worker_kill`` on that config and ``--drill
+   stream_kill`` on ``examples/textgen_flash_router.toml`` (10 s at 16
+   connections, the SIGKILL 2 s in, a respawn budget of the backoff plus
+   twice the slowest boot measured here): each exits 0 (availability >=
+   0.99, respawn within the budget, 0 torn and 0 duplicate answers; 0
+   torn streams, 0 order violations, every done stream equal to the unary
+   reference, the survivor's compiles unchanged).
+22. Print a ``slice`` line per path, the ``graphs`` line (phase 6-8's,
    13's and 14's graph checks and host times), the ``lifecycle`` line, the
    ``robustness`` line (with phase 8's, 13's and 14's first-request
-   tables), the ``observability``, ``defaults_cost`` and ``cli`` lines, and
+   tables), the ``observability``, ``defaults_cost``, ``cli`` and
+   ``router`` lines, and
    the ``kernels`` line (K1 and K2, each with its launches on its path,
    counted through graph replays, K1's on the int8c path, in each of
    phase 16's ``bench`` runs, on phase 17's textgen path, phase 18's
    streams and ``bench --stream``, phase 19's MoE paths and phase 20's
-   locked and engine SD paths beside, then K1's four SD rows, each with the
+   locked and engine SD paths and phase 21's router path and its benches
+   beside, then K1's four SD rows, each with the
    launches counted at its shape on the locked (B = 2) or engine (B = 16)
    path; the vision paths run neither),
    the card line, then the result line ``{"ok": true,
@@ -890,6 +920,30 @@ def model_config(attention: str, config: Path = CONFIG):
     return dataclasses.replace(mcfg, options={**mcfg.options, "attention": attention})
 
 
+# Phases 9 (BERT's lifecycle drill), 12, 15 (int8c BERT) and 16 serve
+# examples/bert_flash.toml at this depth, every width as published: at 12
+# layers the smoke with phase 21 ran past its time limit (1,272.2 s on an
+# H100 80GB HBM3 at 700 W; PERF.md). Their checks are of structure
+# (versions, answers equal or not, exit codes, counts) and of time, and
+# phase 15's int8c-against-int8 logits keep their tolerance, a share of the
+# logits' scale. The main path (phase 6), the MoE paths (a router flip is
+# not bounded by their bf16 rule at another depth) and every other numeric
+# comparison keep the 12 layers.
+SHALLOW_LAYERS = 4
+
+
+def shallow_config() -> Path:
+    """A copy of examples/bert_flash.toml under build/ at SHALLOW_LAYERS
+    layers (nothing else changed)."""
+    text = CONFIG.read_text()
+    cut = re.sub(r"(?m)^layers = 12$", f"layers = {SHALLOW_LAYERS}", text)
+    check(cut != text, f"{CONFIG.name} does not set layers = 12")
+    out = ROOT / "build" / "smoke" / CONFIG.name
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(cut)
+    return out
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -926,12 +980,13 @@ def wait_healthy(proc, port, log_path: Path, n_buckets: int, timeout_s: float = 
                 return
         except OSError:
             pass
-        time.sleep(1.0)
+        time.sleep(0.2)
     raise SmokeFailure("server not healthy in time:\n" + log_path.read_text()[-4000:])
 
 
-def drive(port: int) -> dict:
-    """The main path's run: counts to 0, requests, counts read back."""
+def drive(port: int, layers: int = 12) -> dict:
+    """The main path's run: counts to 0, requests, counts read back (K1 once
+    per layer of each batch)."""
     check(call(port, "POST", "/debug/kernels:reset")[0] == 200, "kernel count reset refused")
     before = call(port, "GET", "/metrics")[1].decode()
     t0 = time.perf_counter()
@@ -964,8 +1019,9 @@ def drive(port: int) -> dict:
     check(delta["batches_total"] >= 3, "batches_total did not move as expected")
     check(delta["items_total"] == 41, f"items_total moved by {delta['items_total']}, expected 41")
     check(delta["runtime_compiles_total"] == 0, "runtime_compiles_total moved after warm-up")
-    check(launches > 0 and launches == 12 * delta["batches_total"],
-          f"K1 launched {launches} times for {delta['batches_total']:g} batches (12 per batch)")
+    check(launches > 0 and launches == layers * delta["batches_total"],
+          f"K1 launched {launches} times for {delta['batches_total']:g} batches "
+          f"({layers} per batch)")
     return {"launches": launches, "answers": answers}
 
 
@@ -1638,14 +1694,13 @@ def stage_delta(before: dict, after: dict) -> dict:
 FIRST_STAGE_SLACK_MS = 5.0
 
 
-def first_request_table(first: dict, repeats: dict, name: str = "resnet50",
-                        gate: bool = True) -> dict:
+def first_request_table(first: dict, repeats: dict, name: str = "resnet50") -> dict:
     """Per request: the first one's stages beside its repeats' ranges. The
     bar for the first-request fault: each stage of the first request but
     the queue (the adaptive flush's target moves between a first request
     and its repeats, so their waits differ by policy) within its repeats'
-    range plus FIRST_STAGE_SLACK_MS; held here unless ``gate`` is False
-    (the caller holds ``first_request_misses`` of the table itself)."""
+    range plus FIRST_STAGE_SLACK_MS; ``drive_fresh`` holds it through
+    ``first_request_misses``."""
     table = {}
     for label, rows in repeats.items():
         rng = {p: [min(r[p] for r in rows), max(r[p] for r in rows)] for p in rows[0]}
@@ -1657,14 +1712,6 @@ def first_request_table(first: dict, repeats: dict, name: str = "resnet50",
           f"{ {k: (v['first']['service'], v['repeats_range']['service']) for k, v in table.items()} }",
           flush=True)
     print(json.dumps({"first_request_stages": {name: table}}), flush=True)
-    if not gate:
-        return table
-    for label, row in table.items():
-        worst = max(row["first_over_repeats_max_ms"].items(), key=lambda kv: kv[1])
-        check(worst[1] <= FIRST_STAGE_SLACK_MS,
-              f"{name} {label}: the first request's {worst[0]} took {worst[1]:.2f} ms over "
-              f"its repeats' range (bar {FIRST_STAGE_SLACK_MS} ms); stages {row['first']}, "
-              f"repeats {row['repeats_range']}")
     return table
 
 
@@ -1674,6 +1721,32 @@ def first_request_misses(table: dict) -> dict:
     return {f"{label}.{stage}": ms for label, row in table.items()
             for stage, ms in row["first_over_repeats_max_ms"].items()
             if ms > FIRST_STAGE_SLACK_MS}
+
+
+def drive_fresh(config: Path, n_buckets: int, name: str, drive) -> dict:
+    """Serve ``config`` and run ``drive(port)`` (whose result holds a
+    ``first_request_table`` under ``first_request``), holding the
+    first-request bar: when a stage misses it, all of it again on a second
+    fresh server. A first-request cost recurs on every fresh server and
+    fails; a one-off stall of the host does not (a 2-3 MB body's read stalled
+    19 ms once in 8 fresh servers, and every stage of one ResNet-50 request
+    ran 3-10x its repeats once, both on the H100 machine). The run kept is
+    the last one, with ``first_request_misses`` per server."""
+    misses = []
+    for _ in range(2):
+        with serving(config, n_buckets=n_buckets) as port:
+            run = drive(port)
+            run["served_graphs"] = served_graphs(port)[name]
+        misses.append(first_request_misses(run["first_request"]))
+        if not misses[-1]:
+            break
+        print(f"slice ({name}): first requests over the bar: {misses[-1]}; "
+              "once more on a fresh server", flush=True)
+    recurring = sorted(set(misses[0]) & set(misses[-1])) if len(misses) == 2 else list(misses[0])
+    check(not recurring, f"{name}: the first request's {recurring} over its repeats' "
+                         f"range + {FIRST_STAGE_SLACK_MS} ms on two fresh servers: {misses}")
+    run["first_request_misses"] = misses
+    return run
 
 
 def resnet_operations(model, module) -> int:
@@ -1814,8 +1887,7 @@ def resnet_phase() -> dict:
 
     t0 = time.perf_counter()
     requests = resnet_requests()
-    with serving(RESNET_CONFIG, n_buckets=6) as port:
-        run = drive_resnet(port, requests)
+    run = drive_fresh(RESNET_CONFIG, 6, "resnet50", lambda port: drive_resnet(port, requests))
     answers = run.pop("answers")
     run["models"] = {m.name: resnet_model_check(m, requests, answers)
                      for m in load_config(str(RESNET_CONFIG)).models}
@@ -1935,7 +2007,7 @@ def lifecycle_phase() -> dict:
     """The drill on BERT-flash and on the int8 ResNet-50."""
     texts = json.dumps({"texts": TEXTS_8}).encode()
     _, _, framed, ctype, _ = resnet_requests()[1]                # 8 framed yuv420 items
-    return {"bert_flash": lifecycle_drill(CONFIG, "bert", 6, texts, "application/json"),
+    return {"bert_flash": lifecycle_drill(shallow_config(), "bert", 6, texts, "application/json"),
             "resnet50_int8": lifecycle_drill(RESNET_CONFIG, "resnet50", 6, framed, ctype)}
 
 
@@ -2653,8 +2725,9 @@ def defaults_cost_phase(card: str) -> dict:
     planes on (bert_flash.toml as it is) and with [telemetry], [events] and
     the flight recorder off, both servers up at once on the card and
     measured on, off, off, on; with each run's mean time per stage."""
-    with serving(CONFIG, n_buckets=6) as on, \
-            serving(CONFIG, n_buckets=6, extra_toml=OBS_OFF_TOML) as off:
+    shallow = shallow_config()
+    with serving(shallow, n_buckets=6) as on, \
+            serving(shallow, n_buckets=6, extra_toml=OBS_OFF_TOML) as off:
         ports = {"on": on, "off": off}
         for label, port in ports.items():
             stats = json.loads(call(port, "GET", "/stats")[1])
@@ -2865,9 +2938,7 @@ def mobilenet_phase(card: str) -> dict:
     from tpuserve_torch.config import load_config
 
     requests = mnv3_requests()
-    with serving(MNV3_CONFIG, n_buckets=4) as port:
-        run = drive_mnv3(port, requests)
-        run["served_graphs"] = served_graphs(port)["mobilenetv3"]
+    run = drive_fresh(MNV3_CONFIG, 4, "mobilenetv3", lambda port: drive_mnv3(port, requests))
     answers = run.pop("answers")
     run["model"] = mnv3_model_check(load_config(str(MNV3_CONFIG)).models[0], requests, answers)
     run["graphs"] = graph_phase(MNV3_CONFIG, {"mobilenetv3": (1,)},
@@ -2975,7 +3046,7 @@ def drive_det(port: int, requests: list) -> dict:
             st, _ = call(port, "POST", f"/v1/models/{name}:detect", raw=body, ctype=ctype)
             repeats[label].append(stage_delta(s0, stage_totals(port, name)))
             check(st == 200, f"repeat of {name} {label} answered {st}")
-    first_request = first_request_table(first, repeats, name, gate=False)
+    first_request = first_request_table(first, repeats, name)
     lat = json.loads(call(port, "GET", "/stats")[1])["latency"]
     return {"answers": answers, "first_request": first_request, "launches_k1_k2": list(counts),
             "deltas": delta, "walls_ms": walls,
@@ -3183,24 +3254,7 @@ def efficientdet_phase(card: str) -> dict:
     from tpuserve_torch.config import load_config
 
     requests = det_requests()
-    # The first-request bar on a fresh server, and, when a stage misses it,
-    # on a second fresh server: a first-request cost recurs on every fresh
-    # server and fails, a one-off stall of the host does not (a 2-3 MB body's
-    # read stalled 19 ms once in 8 fresh servers on the H100 machine).
-    misses = []
-    for _ in range(2):
-        with serving(DET_CONFIG, n_buckets=2) as port:
-            run = drive_det(port, requests)
-            run["served_graphs"] = served_graphs(port)["efficientdet"]
-        misses.append(first_request_misses(run["first_request"]))
-        if not misses[-1]:
-            break
-        print(f"slice (efficientdet): first requests over the bar: {misses[-1]}; "
-              "once more on a fresh server", flush=True)
-    recurring = sorted(set(misses[0]) & set(misses[-1])) if len(misses) == 2 else list(misses[0])
-    check(not recurring, f"efficientdet: the first request's {recurring} over its repeats' "
-                         f"range + {FIRST_STAGE_SLACK_MS} ms on two fresh servers: {misses}")
-    run["first_request_misses"] = misses
+    run = drive_fresh(DET_CONFIG, 2, "efficientdet", lambda port: drive_det(port, requests))
     answers = run.pop("answers")
     run["kept_per_served_item"] = {k: [r["num_detections"] for r in v] for k, v in answers.items()}
     run["model"] = det_model_check(load_config(str(DET_CONFIG)).models[0], requests, answers)
@@ -3325,16 +3379,17 @@ def int8c_phase(card: str) -> dict:
     from tpuserve_torch.runtime import build_runtime
 
     t0 = time.perf_counter()
-    run = {"int8_matmul": int8_matmul_check()}
-    bert = int8c_served(CONFIG, "bert", 6, drive)
+    run = {"int8_matmul": int8_matmul_check(), "bert_layers": SHALLOW_LAYERS}
+    shallow = shallow_config()
+    bert = int8c_served(shallow, "bert", 6, lambda port: drive(port, layers=SHALLOW_LAYERS))
     run["bert_launches_k1"] = bert["launches"]
     # The lifecycle under int8c: staged checkpoints quantize the same way and
     # the graphs survive publish and rollback.
     run["lifecycle_bert_int8c"] = lifecycle_drill(
-        CONFIG, "bert", 6, json.dumps({"texts": TEXTS_8}).encode(), "application/json",
+        shallow, "bert", 6, json.dumps({"texts": TEXTS_8}).encode(), "application/json",
         overrides=("model.bert.quantize=int8c",))
     # Served answers == an in-process int8c run of the same seeded model.
-    mcfg = dataclasses.replace(load_config(str(CONFIG)).models[0], quantize="int8c")
+    mcfg = dataclasses.replace(load_config(str(shallow)).models[0], quantize="int8c")
     model = build(mcfg)
     rt = build_runtime(model, device="cuda")
     items = [model.host_decode(json.dumps({"text": t}).encode(), "application/json")
@@ -3354,7 +3409,8 @@ def int8c_phase(card: str) -> dict:
     run["bert_compare"] = int8c_compare(mcfg, (32, 128), seeded_batch(model, (32, 128), seed=3),
                                         "bert_flash")
     print(f"slice (int8c): bert served answers equal the in-process int8c run; K1 launches "
-          f"{bert['launches']} (12 per batch); {native} int8-native weights", flush=True)
+          f"{bert['launches']} ({SHALLOW_LAYERS} per batch); {native} int8-native weights",
+          flush=True)
 
     requests = [r for r in resnet_requests() if r[0] == "resnet50"]
 
@@ -3532,8 +3588,9 @@ def cli_phase(card: str) -> dict:
         payload = tmp / "texts32.json"
         payload.write_text(json.dumps({"texts": TEXTS_32}))
         describe = Cli(tmp, "describe", "describe")
-        warmup = Cli(tmp, "warmup", "warmup", "--config", str(CONFIG))
-        with serving(CONFIG, n_buckets=6, overrides=CLI_SERVE_SETS) as port:
+        shallow = shallow_config()
+        warmup = Cli(tmp, "warmup", "warmup", "--config", str(shallow))
+        with serving(shallow, n_buckets=6, overrides=CLI_SERVE_SETS) as port:
             rc, text = describe.finish()
             desc = json.loads(text)
             name = torch.cuda.get_device_name(0)
@@ -3557,9 +3614,10 @@ def cli_phase(card: str) -> dict:
                                             "--rate", f"{rate:g}", "--procs", "2",
                                             sample_at_s=3.0)
             for label, r in runs.items():
-                check(r["k1_launches"] > 0 and r["k1_launches"] == 12 * r["batches"]["bert"],
+                check(r["k1_launches"] > 0
+                      and r["k1_launches"] == SHALLOW_LAYERS * r["batches"]["bert"],
                       f"bench {label}: K1 launched {r['k1_launches']} times for "
-                      f"{r['batches']['bert']:g} batches (12 per batch)")
+                      f"{r['batches']['bert']:g} batches ({SHALLOW_LAYERS} per batch)")
             bert_roof = json.loads(call(port, "GET", "/stats")[1])["roofline"]["bert"]
             check(sorted(bert_roof["raw_ms_per_batch"]) == sorted(str(b) for b in want)
                   and all(v for v in bert_roof["raw_ms_per_batch"].values())
@@ -4982,6 +5040,273 @@ def sd15_phase(card: str) -> dict:
     return out
 
 
+# -- phase 21: the router/worker process tier -------------------------------------
+
+ROUTER_CONFIG = ROOT / "examples" / "bert_flash_router.toml"
+TG_ROUTER_CONFIG = ROOT / "examples" / "textgen_flash_router.toml"
+ROUTER_WORKERS = (1, 2, 4)
+# Each drill: 10 s of closed-loop load at 16 connections after 1 s of
+# warm-up, the SIGKILL 2 s in.
+ROUTER_DRILL_ARGS = ("--duration", "10", "--warmup", "1", "--concurrency", "16",
+                     "--kill-after", "2", "--min-availability", "0.99")
+# The drills' respawn budget: the configured backoff plus this many times the
+# slowest worker boot measured in this run (a respawn boots beside a worker
+# serving the drill's load).
+ROUTER_BOOT_MARGIN = 2.0
+# Phase 21's bench window; device_utilization (a 2 s window) is read 2.5 s
+# after the load's first batch.
+ROUTER_BENCH_S = ("--duration", "4", "--warmup", "1")
+
+
+@contextlib.contextmanager
+def serving_together(*specs: tuple):
+    """``serving(config, **kwargs)`` for each ``(config, kwargs)`` spec, the
+    servers booting side by side; yields their values in order and stops
+    every one that started."""
+    import concurrent.futures as cf
+
+    cms = [serving(config, **kwargs) for config, kwargs in specs]
+    with contextlib.ExitStack() as stack, cf.ThreadPoolExecutor(len(cms)) as pool:
+        futures = [pool.submit(cm.__enter__) for cm in cms]
+        values, errors = [], []
+        for cm, fut in zip(cms, futures):
+            try:
+                values.append(fut.result())
+                stack.push(cm)
+            except Exception as e:  # noqa: BLE001 — re-raised below, the rest stopped
+                errors.append(e)
+        if errors:
+            raise errors[0]
+        yield values
+
+
+def router_answers(port: int) -> list[bytes]:
+    """The bodies of phase 6's three requests (a text, 8 texts, 32 texts)."""
+    out = []
+    for obj in ({"text": "serve this text please"}, {"texts": TEXTS_8}, {"texts": TEXTS_32}):
+        st, body = call(port, "POST", "/v1/models/bert:classify", obj)
+        check(st == 200, f"router: {st} {body[:300]!r}")
+        out.append(body)
+    return out
+
+
+def worker_metrics(port: int, n: int) -> list[str]:
+    """Each worker's own /metrics, through the router's worker proxy."""
+    texts = []
+    for i in range(n):
+        st, body = call(port, "GET", f"/workers/{i}/metrics")
+        check(st == 200, f"router: /workers/{i}/metrics answered {st}")
+        texts.append(body.decode())
+    return texts
+
+
+def gpu_memory_used_mib() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def router_memory(port: int, n: int) -> dict:
+    """memory_reserved of each worker process (its /stats backend) and the
+    card's used memory."""
+    reserved = []
+    for i in range(n):
+        st, body = call(port, "GET", f"/workers/{i}/stats")
+        check(st == 200, f"router: /workers/{i}/stats answered {st}")
+        reserved.append(json.loads(body)["backend"]["memory_reserved_bytes"] / 2**20)
+    return {"memory_reserved_mib_per_worker": reserved, "nvidia_smi_used_mib": gpu_memory_used_mib()}
+
+
+def router_bench(tmp: Path, port: int, label: str, n: int, payload: Path) -> dict:
+    """``bench`` closed at 8 connections through the router on ``port`` (``n``
+    workers), K1 counted over it (the counts set to 0 in every worker just
+    before, summed just after, against the workers' summed batches), each
+    worker's ``device_utilization`` read 2.5 s after the load's first batch."""
+    check(call(port, "POST", "/debug/kernels:reset")[0] == 200, "router: kernel count reset refused")
+    before = worker_metrics(port, n)
+
+    def batches() -> float:
+        return sum(metric(t, 'batches_total{model="bert"}') for t in worker_metrics(port, n))
+
+    first = batches()
+    bench = Cli(tmp, "bench_" + re.sub(r"\W+", "_", label), "bench", "--url",
+                f"http://127.0.0.1:{port}", *ROUTER_BENCH_S, "--model", "bert", "--verb",
+                "classify", "--payload", str(payload), "--content-type", "application/json",
+                "--concurrency", "8")
+    try:
+        deadline = time.monotonic() + 60.0
+        while batches() == first and bench.proc.poll() is None:
+            check(time.monotonic() < deadline, f"bench {label}: no batch in 60 s")
+            time.sleep(0.05)
+        time.sleep(2.5)
+        util = [metric(t, 'device_utilization{model="bert",replica="0"}')
+                for t in worker_metrics(port, n)]
+        rc, out = bench.finish()
+    finally:
+        bench.kill()
+    summary = json.loads(out.strip().splitlines()[-1])
+    after = worker_metrics(port, n)
+    n_batches = sum(metric(a, 'batches_total{model="bert"}') - metric(b, 'batches_total{model="bert"}')
+                    for a, b in zip(after, before))
+    k1 = json.loads(call(port, "GET", "/stats")[1])["kernels"]["flash_attention"]["launches"]
+    check(rc == 0 and summary["n_ok"] > 0 and summary["n_err"] == 0, f"bench {label}: {summary}")
+    check(k1 > 0 and k1 == 12 * n_batches,
+          f"bench {label}: K1 launched {k1} times for {n_batches:g} batches (12 per batch)")
+    print(f"router: bench {label}: {summary['throughput_per_s']}/s, p50 {summary['p50_ms']} ms, "
+          f"p99 {summary['p99_ms']} ms, n_ok {summary['n_ok']}; K1 {k1} over {n_batches:g} "
+          f"batches; device_utilization per worker {util}", flush=True)
+    return {"summary": summary, "k1_launches": k1, "batches": n_batches,
+            "device_utilization": util}
+
+
+def router_fleet(tmp: Path, payload: Path, served: tuple, n: int,
+                 direct: list | None = None) -> dict:
+    """examples/bert_flash_router.toml served (``served``: its port and
+    process) with ``n`` workers: their boot times and memory, then with
+    ``direct`` (the single-process server's answers): the answers through
+    the router byte-identical to them, K1 = 12 x batches summed over the
+    workers with the counts set to 0 just before, every worker's compile
+    count unchanged, a ``:reload`` fanned out to every worker (one version,
+    the same bytes after); then the bench; the router's process free of
+    CUDA throughout."""
+    port, proc = served
+    out: dict = {"workers": n}
+    stats = json.loads(call(port, "GET", "/stats")[1])
+    check(stats["router"]["pid"] == proc.pid and stats["router"]["cuda_initialized"] is False,
+          f"router: the router process initialized CUDA: {stats['router']}")
+    rows = stats["workers"]["workers"]
+    check(len(rows) == n and all(r["state"] == "ready" for r in rows),
+          f"router: workers {rows}")
+    out["boot_s"] = [r["boot_s"] for r in rows]
+    out["memory"] = router_memory(port, n)
+    if direct is not None:
+        check(call(port, "POST", "/debug/kernels:reset")[0] == 200,
+              "router: kernel count reset refused")
+        before = worker_metrics(port, n)
+        answers = router_answers(port)
+        after = worker_metrics(port, n)
+        k1 = json.loads(call(port, "GET", "/stats")[1])["kernels"]
+        deltas = {name: [metric(a, f'{name}{{model="bert"}}') - metric(b, f'{name}{{model="bert"}}')
+                         for a, b in zip(after, before)]
+                  for name in ("batches_total", "items_total", "runtime_compiles_total")}
+        n_batches = sum(deltas["batches_total"])
+        check(answers == direct, "router: answers differ from the single-process server's")
+        check(sum(deltas["items_total"]) == 41, f"router: items {deltas['items_total']}")
+        check(deltas["runtime_compiles_total"] == [0.0] * n,
+              f"router: compiles moved {deltas['runtime_compiles_total']}")
+        launches = k1["flash_attention"]["launches"]
+        check(launches > 0 and launches == 12 * n_batches,
+              f"router: K1 launched {launches} times for {n_batches:g} batches, summed over "
+              f"the workers {k1['workers']}")
+        t0 = time.perf_counter()
+        st, body = call(port, "POST", "/admin/models/bert:reload")
+        reload_s = time.perf_counter() - t0
+        info = json.loads(body)
+        check(st == 200 and info["fleet_consistent"] and len(info["workers"]) == n
+              and {w["version"] for w in info["workers"].values()} == {2},
+              f"router: reload fan-out {st} {info}")
+        check(router_answers(port) == direct, "router: answers changed across :reload")
+        compiles = [metric(t, 'runtime_compiles_total{model="bert"}')
+                    for t in worker_metrics(port, n)]
+        check(compiles == [metric(t, 'runtime_compiles_total{model="bert"}') for t in after],
+              f"router: compiles moved across :reload: {compiles}")
+        out.update(launches=launches, batches_per_worker=deltas["batches_total"],
+                   reload_s=reload_s, answers_equal_direct=True)
+        print(f"router: {n} workers: the 3 requests byte-identical to the direct server's, "
+              f"K1 {launches} = 12 x {n_batches:g} batches {deltas['batches_total']}, "
+              f"compiles moved 0; :reload fanned out in {reload_s:.2f} s (version 2 on "
+              f"every worker, the same bytes after)", flush=True)
+    out["bench"] = router_bench(tmp, port, f"router {n} workers closed c8", n, payload)
+    check(json.loads(call(port, "GET", "/stats")[1])["router"]["cuda_initialized"] is False,
+          "router: the router process initialized CUDA under load")
+    print(f"router: {n} workers booted in {out['boot_s']} s; memory_reserved per worker "
+          f"{out['memory']['memory_reserved_mib_per_worker']} MiB, card used "
+          f"{out['memory']['nvidia_smi_used_mib']:g} MiB (with the other server of the pair "
+          "up)", flush=True)
+    return out
+
+
+def router_drills(tmp: Path, budget_s: float) -> dict:
+    """``python -m tpuserve_torch chaos --drill worker_kill`` on
+    examples/bert_flash_router.toml and ``--drill stream_kill`` on
+    examples/textgen_flash_router.toml, side by side on the card (as phase
+    16 runs its two chaos runs): each exits 0 (availability >= 0.99 and
+    every gate)."""
+    t0 = time.perf_counter()
+    runs = {drill: Cli(tmp, drill, "chaos", "--config", str(config), "--drill", drill,
+                       *ROUTER_DRILL_ARGS, "--respawn-budget", f"{budget_s:.1f}")
+            for drill, config in (("worker_kill", ROUTER_CONFIG),
+                                  ("stream_kill", TG_ROUTER_CONFIG))}
+    try:
+        results = {drill: run.finish(timeout_s=420.0) for drill, run in runs.items()}
+    finally:
+        for run in runs.values():
+            run.kill()
+    return {drill: router_drill_summary(drill, rc, text, time.perf_counter() - t0)
+            for drill, (rc, text) in results.items()}
+
+
+def router_drill_summary(drill: str, rc: int, text: str, wall_s: float) -> dict:
+    summary = json.loads(text)
+    summary.pop("postmortems", None)
+    check(rc == 0 and summary["availability"] >= 0.99 and all(summary["gates"].values()),
+          f"{drill}: exit {rc}, {json.dumps(summary)[:3000]}")
+    audit = summary.get("stream_audit") or summary.get("integrity")
+    print(f"router: {drill}: exit 0, availability {summary['availability']}, n_ok "
+          f"{summary['n_ok']}, kill {summary['kill']}, gates {summary['gates']}, {audit}",
+          flush=True)
+    return dict(summary, wall_s=wall_s)
+
+
+def router_phase(card: str) -> dict:
+    """Phase 21: BERT-flash through the router over worker processes on the
+    card (answers, K1, compiles, :reload, no CUDA in the router; bench at 1,
+    2 and 4 workers beside the direct server), then the worker_kill and
+    stream_kill drills."""
+    t0 = time.perf_counter()
+    out: dict = {"card": card, "configs": [str(c.relative_to(ROOT))
+                                           for c in (ROUTER_CONFIG, TG_ROUTER_CONFIG)]}
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        payload = tmp / "texts32.json"
+        payload.write_text(json.dumps({"texts": TEXTS_32}))
+        # Servers boot in pairs (each pair side by side) and are benched one
+        # at a time while the other idles.
+        fleet = (ROUTER_CONFIG, {"n_buckets": 6, "with_proc": True})
+        fleets = {}
+        with serving_together((CONFIG, {"n_buckets": 6, "overrides": CLI_SERVE_SETS}),
+                              (fleet[0], dict(fleet[1], overrides=(*CLI_SERVE_SETS,
+                                                                   "router.workers=1")))
+                              ) as (port, served1):
+            direct = router_answers(port)
+            # ROUTER_BENCH_S after bench_run's own window: the later flags win.
+            run = bench_run(tmp, port, "direct closed c8", *ROUTER_BENCH_S, "--model", "bert",
+                            "--verb", "classify", "--payload", str(payload), "--content-type",
+                            "application/json", "--concurrency", "8", sample_at_s=2.5)
+            check(run["k1_launches"] == 12 * run["batches"]["bert"],
+                  f"direct bench: K1 {run['k1_launches']} for {run['batches']} batches")
+            out["direct"] = {"bench": run}
+            fleets[1] = router_fleet(tmp, payload, served1, 1)
+        with serving_together(*((fleet[0], dict(fleet[1], overrides=(*CLI_SERVE_SETS,
+                                                                     f"router.workers={n}")))
+                                for n in (2, 4))) as (served2, served4):
+            fleets[2] = router_fleet(tmp, payload, served2, 2, direct)
+            fleets[4] = router_fleet(tmp, payload, served4, 4)
+        out["fleets"] = fleets
+        from tpuserve_torch.config import load_config
+
+        backoff = load_config(str(ROUTER_CONFIG)).router.respawn_initial_s
+        boot = max(b for f in fleets.values() for b in f["boot_s"])
+        budget = backoff + ROUTER_BOOT_MARGIN * boot
+        out["respawn_budget_s"] = {"budget_s": budget, "backoff_s": backoff,
+                                   "slowest_boot_s": boot, "margin": ROUTER_BOOT_MARGIN}
+        out.update(router_drills(tmp, budget))
+    out["k1_launches"] = fleets[2]["launches"]
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"router: phase 21 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5017,6 +5342,7 @@ def main() -> int:
         stream = streaming_phase(card, textgen["served"]["bench"]["tokens_per_s"])
         moe = moe_phase(card)
         sd = sd15_phase(card)
+        router = router_phase(card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -5079,19 +5405,21 @@ def main() -> int:
     print(json.dumps({"robustness": robustness}))
     print(json.dumps({"observability": observability}))
     print(json.dumps({"defaults_cost": cost}))
-    # The CLI's runs; the startup probe's raw (32, 128) forward beside the
-    # replay device time graph_phase took of the same bucket.
+    # The CLI's runs; the startup probe's raw (32, 128) forward (at
+    # SHALLOW_LAYERS layers) beside the replay device time graph_phase took of
+    # the same bucket at 12.
     probe = cli_run["bert"]["roofline"]["raw_ms_per_batch"]["[32, 128]"]
     replay = run["graphs"]["bert"]["replay_device_ms"]
-    cli_run["probe_vs_replay_b32_s128"] = {"probe_raw_ms": probe, "replay_device_ms": replay,
-                                           "probe_over_replay": probe / replay}
+    cli_run["probe_vs_replay_b32_s128"] = {f"probe_raw_ms_{SHALLOW_LAYERS}_layers": probe,
+                                           "replay_device_ms_12_layers": replay}
     print(json.dumps({"cli": cli_run}))
+    print(json.dumps({"router": router}))
     # K1's launches on the main path (BERT-flash), on the int8c one, on
     # textgen's (12 per insert, none per decode step), streamed and unary,
     # and on the Switch-MoE paths (textgen's inserts, BERT-flash's batches).
     print(json.dumps({"kernels": [dict(k1[128]["line"], launches=run["launches"],
-                                       launches_int8c=int8c["bert_launches_k1"],
-                                       launches_cli_bench={
+                                       launches_int8c_4_layers=int8c["bert_launches_k1"],
+                                       launches_cli_bench_4_layers={
                                            k: r["k1_launches"]
                                            for k, r in cli_run["bert"]["runs"].items()},
                                        launches_textgen=textgen["served"]["k1_launches"],
@@ -5101,7 +5429,11 @@ def main() -> int:
                                        launches_textgen_moe=moe["textgen"]["k1_launches"],
                                        launches_bert_moe=moe["bert"]["launches"],
                                        launches_sd15=sd["locked"]["k1_launches"],
-                                       launches_sd15_engine=sd["engine"]["k1_launches"]),
+                                       launches_sd15_engine=sd["engine"]["k1_launches"],
+                                       launches_router=router["k1_launches"],
+                                       launches_router_bench={
+                                           n: f["bench"]["k1_launches"]
+                                           for n, f in router["fleets"].items()}),
                                   dict(k2["line"], launches=long["k2_launches"]),
                                   # K1 at SD 1.5's padded shapes, with the launches counted
                                   # at each shape: 2 rows on the locked path, 16 in the

@@ -19,8 +19,15 @@ still refuses:
   served;
 - the keys of the observability tables (``[trace]``, ``[events]``,
   ``[telemetry]``, ``[model.slo]`` and ``trace_capacity``) are typed with
-  the reference's defaults, and the worker-tier keys among them are
-  refused when written;
+  the reference's defaults, and the router's ``[telemetry]
+  fleet_timeout_ms`` is refused when written;
+- the process tier's keys (every field of ``[router]`` and ``[worker]``),
+  the worker black box's ``[events]`` keys and the server's small keys
+  (``log_json``, ``debug_nans``, ``prewarm_executables``,
+  ``compilation_cache_dir``), typed since the router/worker tier was
+  ported, hold the reference's defaults and are served when written,
+  except the router's host, peer and autopilot keys, refused off their
+  defaults naming their ROADMAP.md item;
 - every field of the reference's server, model and table configs is known
   to the port (typed or refused), so no key slips through unnamed;
 - ``[genserve]``, typed since the generation engine was ported, holds the
@@ -33,6 +40,7 @@ Exact: the values are compared with ``==``.
 """
 
 import dataclasses
+import json
 
 import pytest
 
@@ -43,18 +51,17 @@ EXAMPLES = ("examples/bert_flash.toml", "examples/bert_long_ring.toml",
             "examples/resnet50.toml", "examples/mobilenetv3.toml",
             "examples/efficientdet.toml", "examples/textgen_flash.toml",
             "examples/textgen_moe_flash.toml", "examples/bert_moe_flash.toml",
-            "examples/sd15_flash.toml")
+            "examples/sd15_flash.toml", "examples/bert_flash_router.toml",
+            "examples/textgen_flash_router.toml")
 
 # The reference's defaults that turn on a feature the port does not serve
 # yet, each refused by the port when written out: none.
 OBSERVABILITY: set[str] = set()
 
 # The switch of each unported table: the key whose reference default says
-# whether the feature is on. [worker] has no switch of its own: it
-# configures processes that exist only behind [router].
+# whether the feature is on.
 TABLE_SWITCH = {"parallel": "[parallel] mode",
-                "distributed": "[distributed] coordinator_address",
-                "worker": "[router] enabled"}
+                "distributed": "[distributed] coordinator_address"}
 TABLE_CLASS = {"autopilot": "AutopilotConfig", "distributed": "DistributedConfig",
                "genserve": "GenserveConfig", "parallel": "ParallelConfig",
                "router": "RouterConfig", "scheduler": "SchedulerConfig",
@@ -91,9 +98,10 @@ def _switch(table: str) -> str:
     return TABLE_SWITCH.get(table, f"[{table}] enabled")
 
 
-# The worker-tier keys of typed tables refused while non-empty. (The
-# router's [telemetry] fleet_timeout_ms is refused whenever written, so its
-# default, never written, is not a refused value.)
+# The keys of typed tables refused off the reference's default (the
+# router's host, peer and autopilot keys). (The router's [telemetry]
+# fleet_timeout_ms is refused whenever written, so its default, never
+# written, is not a refused value.)
 TIER_KEYS = sorted(f"[{t}] {k}" for t, keys in tconfig._TABLE_KEYS_UNPORTED.items()
                    for k, accepted in keys.items() if accepted)
 
@@ -191,7 +199,25 @@ def test_unported_table_keys_parse_as_refused(table, tmp_path):
     """Each key of an unported table parses into the port's unported dict
     under its name, and is refused when it asks for anything. [genserve] is
     typed since the generation engine was ported and refuses nothing since
-    streaming was: each of its keys written parses typed and is served."""
+    streaming was: each of its keys written parses typed and is served.
+    [router] and [worker] are typed since the router/worker tier was
+    ported: each key written parses typed; the router's host, peer and
+    autopilot keys are refused off their defaults naming ROADMAP.md item
+    11b, the rest are served."""
+    if table in ("router", "worker"):
+        assert table not in tconfig.UNPORTED_TABLES
+        refused = tconfig._TABLE_KEYS_UNPORTED.get(table, {})
+        for f in dataclasses.fields(getattr(tconfig, TABLE_CLASS[table])):
+            # A value other than the default (active_workers stays <= workers).
+            value = (not f.default if isinstance(f.default, bool)
+                     else "127.0.0.2" if isinstance(f.default, str) else f.default * 2 + 1)
+            cfg = tconfig.load_config(None, [f"{table}.{f.name}={json.dumps(value)}"])
+            assert getattr(getattr(cfg, table), f.name) == value, f.name
+            expect = ([f"[{table}] {f.name} = {value!r} (not yet ported: ROADMAP.md "
+                       f"{tconfig._TABLE_KEY_ITEMS[f'[{table}] {f.name}']})"]
+                      if f.name in refused else [])
+            assert tconfig.unported_settings(cfg) == expect, f.name
+        return
     if table == "genserve":
         assert table not in tconfig.UNPORTED_TABLES
         assert table not in tconfig._TABLE_KEYS_UNPORTED
@@ -247,12 +273,10 @@ def test_observability_keys_are_typed_with_the_reference_default(name):
     assert "slo" not in tconfig._MODEL_UNPORTED
 
 
-@pytest.mark.parametrize("name, value", [
-    ("events.dir", "/tmp/bb"), ("events.stderr_path", "w0.stderr"),
-    ("events.snapshot_path", "w0.json"), ("telemetry.fleet_timeout_ms", 2000.0)])
+@pytest.mark.parametrize("name, value", [("telemetry.fleet_timeout_ms", 2000.0)])
 def test_worker_tier_keys_of_typed_tables_are_refused_when_written(name, value):
-    """The reference's worker and router tiers read these; written, the port
-    refuses them by name (the typed field still takes the value)."""
+    """The reference router's fleet scrape reads this; written, the port
+    refuses it by name (the typed field still takes the value)."""
     table, key = name.split(".")
     cfg = tconfig.load_config(None, [f"{name}={value!r}" if isinstance(value, str)
                                      else f"{name}={value}"])
@@ -283,3 +307,53 @@ def test_sd15_example_refuses_unserved_options_by_name(key, value, named, tmp_pa
     bad = tconfig.load_config("examples/sd15_flash.toml", sets)
     with pytest.raises(NotImplementedError, match=named):
         ServerState(bad, device="cpu").build()
+
+
+# Keys typed since the router/worker tier was ported: every field of
+# [router] and [worker], the worker black box's [events] keys and the
+# server's small keys.
+PROCESS_TIER_KEYS = (
+    [f"[router] {f.name}" for f in dataclasses.fields(tconfig.RouterConfig)]
+    + [f"[worker] {f.name}" for f in dataclasses.fields(tconfig.WorkerConfig)]
+    + ["[events] dir", "[events] stderr_path", "[events] snapshot_path",
+       "log_json", "debug_nans", "prewarm_executables", "compilation_cache_dir"])
+
+
+@pytest.mark.parametrize("name", PROCESS_TIER_KEYS)
+def test_process_tier_keys_are_typed_with_the_reference_default(name):
+    """Each key is a typed field of the port holding the reference's
+    default, and that default is served (no refusal); the server's small
+    keys are no longer in the refusal table."""
+    if name.startswith("["):
+        table, key = name[1:].split("] ")
+        port = getattr(getattr(tconfig.ServerConfig(), table), key)
+        assert table not in tconfig.UNPORTED_TABLES
+    else:
+        key = name
+        port = getattr(tconfig.ServerConfig(), name)
+        assert name not in tconfig._SERVER_UNPORTED
+    assert port == _jax_default(name)
+    cfg = tconfig.ServerConfig(models=[tconfig.ModelConfig(name="m")])
+    assert tconfig.unported_settings(cfg) == []
+    assert key not in tconfig._TABLE_KEYS_UNPORTED.get("events", {})
+
+
+ROUTER_REFUSED = sorted(tconfig._TABLE_KEYS_UNPORTED["router"])
+
+
+@pytest.mark.parametrize("key", ROUTER_REFUSED)
+def test_unserved_router_values_are_refused_by_name(key, tmp_path):
+    """The router's host failure domains, peer routers and autopilot slots
+    wait for ROADMAP.md item 11b: off the reference's default, the server
+    (and a router deployment) refuses the key by name with that item."""
+    from tpuserve_torch.server import ServerState
+
+    default = getattr(tconfig.RouterConfig(), key)
+    value = {"active_workers": 1, "routers": 2, "hosts": 2}.get(key, default * 2 or 1)
+    path = tmp_path / "c.toml"
+    path.write_text(f"[router]\nenabled = true\n{key} = {json.dumps(value)}\n")
+    cfg = tconfig.load_config(str(path))
+    named = f"[router] {key} = {value!r} (not yet ported: ROADMAP.md item 11b"
+    assert tconfig.unported_settings(cfg)[0].startswith(named)
+    with pytest.raises(NotImplementedError, match=r"item 11b"):
+        ServerState(cfg, device="cpu")

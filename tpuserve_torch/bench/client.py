@@ -14,7 +14,11 @@ What it does, and no more:
   chunked request body with 411);
 - answers framed by ``Content-Length``, by ``Transfer-Encoding: chunked``
   (both servers' SSE streams) or by the end of the connection;
-- a total timeout per request, head and body included;
+- a total timeout per request, head and body included, and an optional
+  connect timeout per new connection (``connect_timeout_s``);
+- ``open`` hands back an answer whose head has arrived with its connection
+  held until ``release()`` (the router's stream relay reads the body at
+  its own pace); the timeout then covers the head only;
 - a refused, reset or timed-out connection, or a malformed answer, raises
   :class:`ClientError` (:class:`ClientTimeout` for the timeout) and closes
   that connection. Nothing is retried: the caller counts a failed request.
@@ -129,15 +133,24 @@ _TRANSPORT_ERRORS = (OSError, EOFError, asyncio.LimitOverrunError, ValueError)
 
 class StreamResponse:
     """An answer whose head has arrived; its body is read by ``iter_any``
-    (as it arrives) or ``read`` (whole)."""
+    (as it arrives) or ``read`` (whole). ``release()`` hands the connection
+    back: to the pool after a complete body, closed otherwise (a body not
+    read to its end tells the server the client went away)."""
 
     def __init__(self, status: int, headers: dict, reader: asyncio.StreamReader,
-                 framing: tuple[str, int]) -> None:
+                 framing: tuple[str, int], on_release=None) -> None:
         self.status = status
         self.headers = headers
         self._reader = reader
         self._framing = framing
+        self._on_release = on_release
         self.complete = framing[0] == "none"
+
+    def release(self) -> None:
+        """Return the connection (idempotent)."""
+        if self._on_release is not None:
+            on_release, self._on_release = self._on_release, None
+            on_release(self)
 
     async def iter_any(self) -> AsyncIterator[bytes]:
         """Body bytes as they arrive (chunk boundaries are not meaningful)."""
@@ -177,10 +190,13 @@ class StreamResponse:
 class ClientSession:
     """Pooled keep-alive HTTP/1.1 client for one event loop. ``limit``:
     most connections open at once (0 = no cap); ``timeout_s``: default total
-    time per request (aiohttp's default is 300 s)."""
+    time per request (aiohttp's default is 300 s); ``connect_timeout_s``:
+    the budget of opening a connection (a ClientError past it)."""
 
-    def __init__(self, limit: int = 100, timeout_s: float = 300.0) -> None:
+    def __init__(self, limit: int = 100, timeout_s: float = 300.0,
+                 connect_timeout_s: float | None = None) -> None:
         self.timeout_s = timeout_s
+        self.connect_timeout_s = connect_timeout_s
         self._slots = asyncio.Semaphore(limit) if limit > 0 else None
         self._idle: dict[tuple, list[_Conn]] = {}
         self._heads: dict[tuple, bytes] = {}
@@ -240,7 +256,8 @@ class ClientSession:
                 if not (conn.reader.at_eof() or conn.writer.is_closing()):
                     return conn
                 conn.close()  # the peer closed it while idle
-            return _Conn(*await asyncio.open_connection(*addr, limit=_HEAD_LIMIT))
+            return _Conn(*await asyncio.wait_for(
+                asyncio.open_connection(*addr, limit=_HEAD_LIMIT), self.connect_timeout_s))
         except BaseException:
             self._release_slot()
             raise
@@ -279,6 +296,29 @@ class ClientSession:
         return addr, conn, version, status, hdrs, framing
 
     # -- requests ------------------------------------------------------------
+    async def _open(self, method: str, url: str, data: bytes,
+                    headers: dict | None) -> StreamResponse:
+        addr, conn, version, status, hdrs, framing = await self._exchange(
+            method, url, data, headers)
+
+        def on_release(resp: StreamResponse) -> None:
+            self._release(addr, conn, resp.complete and framing[0] != "eof"
+                          and _keep_alive(version, hdrs))
+
+        return StreamResponse(status, hdrs, conn.reader, framing, on_release)
+
+    async def open(self, method: str, url: str, data: bytes = b"",
+                   headers: dict | None = None,
+                   timeout_s: float | None = None) -> StreamResponse:
+        """Send one request; return the answer once its head has arrived,
+        its connection held until the caller's ``release()``. The timeout
+        covers the head only."""
+        try:
+            async with asyncio.timeout(self.timeout_s if timeout_s is None else timeout_s):
+                return await self._open(method, url, data, headers)
+        except TimeoutError as e:
+            raise ClientTimeout(f"{method} {url}: no answer in time") from e
+
     @contextlib.asynccontextmanager
     async def stream(self, method: str, url: str, data: bytes = b"",
                      headers: dict | None = None,
@@ -288,16 +328,11 @@ class ClientSession:
         the connection instead of pooling it."""
         try:
             async with asyncio.timeout(self.timeout_s if timeout_s is None else timeout_s):
-                addr, conn, version, status, hdrs, framing = await self._exchange(
-                    method, url, data, headers)
-                reusable = False
+                resp = await self._open(method, url, data, headers)
                 try:
-                    resp = StreamResponse(status, hdrs, conn.reader, framing)
                     yield resp
-                    reusable = (resp.complete and framing[0] != "eof"
-                                and _keep_alive(version, hdrs))
                 finally:
-                    self._release(addr, conn, reusable)
+                    resp.release()
         except TimeoutError as e:
             raise ClientTimeout(f"{method} {url}: no complete answer in time") from e
 

@@ -211,6 +211,11 @@ class ModelCache:
             if not w.done():
                 w.set_result(val)
 
+    def clear(self) -> None:
+        """Drop every entry (the router's fleet-wide reload invalidation)."""
+        self._entries.clear()
+        self._g_entries.set(0)
+
     # -- introspection --------------------------------------------------------
     def stats(self) -> dict:
         """The /stats "cache" block entry for this model."""

@@ -6,7 +6,7 @@ Usage::
                                       [--device cuda|cpu|cuda:N]
     python -m tpuserve_torch bench    --url http://127.0.0.1:8000 --model resnet50 ...
     python -m tpuserve_torch chaos    --config chaos.toml --min-availability 0.99 \\
-                                      [--drill reload] [--device ...]
+                                      [--drill reload|worker_kill|stream_kill] [--device ...]
     python -m tpuserve_torch warmup   --config serve.toml [--device ...]
     python -m tpuserve_torch describe [--device ...]
 
@@ -14,19 +14,23 @@ Flags, names and defaults are the reference's. The subcommands that build a
 model (``serve``, ``chaos``, ``warmup``) and ``describe`` run on the current
 CUDA device unless ``--device`` names another (``cpu`` included); without
 CUDA they fail instead of falling back to the CPU. ``bench`` builds nothing:
-it is the HTTP load generator (``tpuserve_torch.bench.loadgen``).
+it is the HTTP load generator (``tpuserve_torch.bench.loadgen``). With
+``[router] enabled``, ``serve`` runs the router in this process and the
+workers build the models on ``--device``; ``chaos --drill worker_kill`` and
+``--drill stream_kill`` (``tpuserve_torch.workerproc.drill``) do the same
+with a SIGKILL mid-load and exit 1 unless availability holds and every
+drill gate passes. Either way this process never initializes CUDA.
 
 Not ported, refused by name with exit code 2: ``import-model`` (converts a
 TF SavedModel; needs TensorFlow), ``finetune-det`` (ROADMAP.md queue 1 item
-13), ``lint`` (item 12), and the chaos drills ``worker_kill``,
-``host_kill``, ``stream_kill``, ``fleet`` and ``autopilot`` (item 11).
+13), ``lint`` (item 12), and the chaos drills ``host_kill``, ``fleet`` and
+``autopilot`` (item 11b).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import logging
 import sys
 
 # Subcommands and drills of the reference that the port does not serve yet:
@@ -39,12 +43,12 @@ UNPORTED_COMMANDS = {
             "tpuserve_torch/)",
 }
 UNPORTED_DRILLS = {
-    "worker_kill": "not yet ported: ROADMAP.md queue 1 item 11 (the process tiers)",
-    "host_kill": "not yet ported: ROADMAP.md queue 1 item 11 (the process tiers)",
-    "stream_kill": "not yet ported: ROADMAP.md queue 1 item 11 (the process tiers)",
-    "fleet": "not yet ported: ROADMAP.md queue 1 item 11 (the fleet scheduler)",
-    "autopilot": "not yet ported: ROADMAP.md queue 1 item 11 (tenants, autopilot)",
+    "host_kill": "not yet ported: ROADMAP.md queue 1 item 11b (host failure domains)",
+    "fleet": "not yet ported: ROADMAP.md queue 1 item 11b (the fleet scheduler)",
+    "autopilot": "not yet ported: ROADMAP.md queue 1 item 11b (tenants, autopilot)",
 }
+# The drills that serve a router over worker processes.
+PROCESS_DRILLS = ("worker_kill", "stream_kill")
 
 
 def _add_config_args(p: argparse.ArgumentParser) -> None:
@@ -137,13 +141,26 @@ def _add_chaos_args(p: argparse.ArgumentParser) -> None:
                    help="open-loop offered rate (req/s); default closed loop")
     p.add_argument("--min-availability", type=float, default=0.0,
                    help="exit non-zero when n_ok/(n_ok+n_err) falls below this")
-    p.add_argument("--drill", choices=["reload", *UNPORTED_DRILLS], default=None,
+    p.add_argument("--drill", choices=["reload", *PROCESS_DRILLS, *UNPORTED_DRILLS],
+                   default=None,
                    help="additionally drive a drill during the run: 'reload' "
                         "POSTs :reload on an interval so reload_* fault rules "
-                        "prove the lifecycle gates hold availability; the "
-                        "reference's other drills are not ported yet (exit 2)")
+                        "prove the lifecycle gates hold availability; "
+                        "'worker_kill' serves a router + worker fleet and "
+                        "SIGKILLs one worker mid-load (availability, respawn "
+                        "time, zero torn or duplicate answers); 'stream_kill' "
+                        "does so under mixed streaming + unary load on a "
+                        "generative model (zero torn or reordered streams, "
+                        "streams equal to a seeded reference); host_kill, "
+                        "fleet and autopilot are not ported yet (exit 2)")
     p.add_argument("--drill-interval", type=float, default=0.5,
                    help="seconds between drill operations")
+    p.add_argument("--kill-after", type=float, default=None,
+                   help="worker_kill/stream_kill: seconds after warmup before the "
+                        "SIGKILL (default: 25%% of the run)")
+    p.add_argument("--respawn-budget", type=float, default=120.0,
+                   help="worker_kill/stream_kill: seconds the killed worker has "
+                        "to come back healthy (backoff + boot)")
 
 
 def _load(parser: argparse.ArgumentParser, args):
@@ -153,11 +170,6 @@ def _load(parser: argparse.ArgumentParser, args):
     if not cfg.models:
         parser.error("the config names no [[model]]")
     return cfg
-
-
-def _configure_logging() -> None:
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
 
 
 def _refuse(what: str, why: str) -> int:
@@ -238,12 +250,27 @@ def main(argv: list[str] | None = None) -> int:
             return _refuse(f"chaos --drill {args.drill}", UNPORTED_DRILLS[args.drill])
         import asyncio
 
-        from tpuserve_torch.faults import run_chaos
-        from tpuserve_torch.server import ServerState
+        from tpuserve_torch.server import ServerState, configure_logging
 
         cfg = _load(parser, args)
-        _configure_logging()
+        configure_logging(cfg)
         model = args.model or cfg.models[0].name
+        if args.drill in PROCESS_DRILLS:
+            # This process is the router: it stays free of CUDA, the workers
+            # build the models on --device.
+            from tpuserve_torch.workerproc import drill
+
+            run = (drill.run_worker_kill_drill if args.drill == "worker_kill"
+                   else drill.run_stream_kill_drill)
+            summary = asyncio.run(run(
+                cfg, model, duration_s=args.duration, warmup_s=args.warmup,
+                concurrency=args.concurrency, kill_after_s=args.kill_after,
+                respawn_budget_s=args.respawn_budget, device=args.device or "cuda"))
+            print(json.dumps(summary, indent=2))
+            return 0 if (summary["availability"] >= args.min_availability
+                         and all(summary["gates"].values())) else 1
+        from tpuserve_torch.faults import run_chaos
+
         state = ServerState(cfg, device=args.device)
         state.build()
         summary = asyncio.run(run_chaos(
@@ -255,10 +282,10 @@ def main(argv: list[str] | None = None) -> int:
         return 0 if summary["availability"] >= args.min_availability else 1
 
     if args.cmd == "warmup":
-        from tpuserve_torch.server import ServerState
+        from tpuserve_torch.server import ServerState, configure_logging
 
         cfg = _load(parser, args)
-        _configure_logging()
+        configure_logging(cfg)
         state = ServerState(cfg, device=args.device)
         state.build()
         print(json.dumps({n: rt.describe() for n, rt in state.runtimes.items()}, indent=2))

@@ -8,26 +8,28 @@ typed: :class:`ModelConfig`, :class:`PipelineConfig`,
 :class:`FaultRuleConfig` rules), :class:`CacheConfig`,
 :class:`AdaptiveConfig`, the observability tables :class:`TraceConfig`,
 :class:`EventsConfig` and :class:`TelemetryConfig`, the generation
-engine's :class:`GenserveConfig`, the per-model
-:class:`SloConfig` and the top-level :class:`ServerConfig` fields, with the
-JAX package's defaults and checks. Every other setting the JAX package
-knows — its other tables (``[router]``, ``[tenants]``, ...) and the keys
-the port has no use for yet (``profiler_port``, ``pp``, ...) — parses into
-the
-``unported`` dict of its ``ServerConfig`` or ``ModelConfig`` as a plain
-value. :func:`unported_settings` names those that ask for behaviour the
-port lacks, and the server refuses to start while any is set: a JAX config
+engine's :class:`GenserveConfig`, the process tier's :class:`RouterConfig`
+and :class:`WorkerConfig`, the per-model :class:`SloConfig` and the
+top-level :class:`ServerConfig` fields, with the JAX package's defaults and
+checks. Every other setting the JAX package knows — its other tables
+(``[tenants]``, ``[scheduler]``, ...) and the keys the port has no use for
+yet (``profiler_port``, ``pp``, ...) — parses into the ``unported`` dict of
+its ``ServerConfig`` or ``ModelConfig`` as a plain value.
+:func:`unported_settings` names those that ask for behaviour the port
+lacks, and the server refuses to start while any is set: a JAX config
 tuned with them never loads into a server that quietly behaves otherwise.
-A setting that switches a missing feature off (``[router] enabled =
+A setting that switches a missing feature off (``[tenants] enabled =
 false``, ``session_mode = "direct"``), or that holds the JAX package's
 default where that default asks for nothing (``relay_workers = 2`` while
 the model is served directly), is accepted. So is a ``[[faults.rule]]``
 whose kind fires at a call site the port has; while ``[faults]`` is
-enabled, a rule whose call site the port lacks (the worker processes',
-deferred mode's) is refused by name. Four keys of typed tables belong to
-the reference's worker and router tiers and are refused the same way:
-``[events] dir``, ``stderr_path`` and ``snapshot_path`` while non-empty,
-and ``[telemetry] fleet_timeout_ms`` whenever it is written.
+enabled, a rule whose call site the port lacks (deferred mode's
+``worker_death``) is refused by name. Keys of typed tables whose behaviour
+waits for a later item are refused off the reference's default, naming
+that item: ``[router] hosts``, ``host_breaker_*`` and ``active_workers``
+(host failure domains, the autopilot), ``routers``, ``peer_port`` and
+``peer_sync_interval_s`` (peer routers), and ``[telemetry]
+fleet_timeout_ms`` whenever it is written (the fleet scrape).
 
 Example TOML::
 
@@ -56,28 +58,37 @@ from typing import Any
 # The JAX package's tables the port does not serve yet. Any key set in one
 # is refused, except ``enabled = false`` (and ``[parallel] mode`` naming the
 # one-device layout).
-UNPORTED_TABLES = ("autopilot", "distributed", "parallel",
-                   "router", "scheduler", "tenants", "worker")
+UNPORTED_TABLES = ("autopilot", "distributed", "parallel", "scheduler", "tenants")
 _TABLE_OFF: dict[str, tuple] = {"enabled": (False,)}
 _PARALLEL_OFF: dict[str, tuple] = {"mode": ("", "single")}
 _DISTRIBUTED_OFF: dict[str, tuple] = {"coordinator_address": ("",)}
-# Keys of typed tables that only the reference's worker, supervisor and
-# router tiers read, with the values that ask for nothing (empty: refused
-# whenever written). Written values are also kept in ``unported`` as
-# "[table] key", so unported_settings names them.
+# Keys of typed tables whose behaviour the port does not serve yet, with the
+# values that ask for nothing (empty: refused whenever written). Written
+# values are also kept in ``unported`` as "[table] key", so
+# unported_settings names them.
 _TABLE_KEYS_UNPORTED: dict[str, dict[str, tuple]] = {
-    "events": {"dir": ("",), "stderr_path": ("",), "snapshot_path": ("",)},
+    # The router's host failure domains, peer routers and autopilot
+    # scaling; the reference's defaults ask for none of them.
+    "router": {"hosts": (0,), "host_breaker_threshold": (3,),
+               "host_breaker_cooldown_s": (1.0,), "active_workers": (0,),
+               "routers": (1,), "peer_port": (0,), "peer_sync_interval_s": (0.5,)},
     "telemetry": {"fleet_timeout_ms": ()},
+}
+# The ROADMAP.md item a refused key of a typed table waits for.
+_TABLE_KEY_ITEMS = {
+    "[router] hosts": "item 11b: host failure domains",
+    "[router] host_breaker_threshold": "item 11b: host failure domains",
+    "[router] host_breaker_cooldown_s": "item 11b: host failure domains",
+    "[router] active_workers": "item 11b: the autopilot",
+    "[router] routers": "item 11b: peer routers",
+    "[router] peer_port": "item 11b: peer routers",
+    "[router] peer_sync_interval_s": "item 11b: peer routers",
 }
 
 # The JAX package's top-level and per-model keys the port does not serve
 # yet, each with the values that ask for nothing the port lacks (empty: no
 # such value, any setting is refused).
-_SERVER_UNPORTED: dict[str, tuple] = {
-    "profiler_port": (0,), "compilation_cache_dir": ("",),
-    "debug_nans": (False,), "prewarm_executables": (True,),
-    "log_json": (False,),
-}
+_SERVER_UNPORTED: dict[str, tuple] = {"profiler_port": (0,)}
 _MODEL_UNPORTED: dict[str, tuple] = {
     "pp": (0, 1), "session_mode": ("direct",),
     # Deferred (recycle) mode's knobs, inert while session_mode is direct.
@@ -96,11 +107,7 @@ FAULT_KINDS = ("batch_error", "slow_dispatch", "decode_corrupt", "worker_death",
 # The kinds whose call sites the port lacks, with the ROADMAP.md queue-1
 # item that ports them; a rule of one of these is refused while [faults]
 # is enabled.
-_FAULT_KINDS_UNPORTED = {
-    "worker_death": "deferred mode",
-    "worker_crash": "router and workers", "worker_hang": "router and workers",
-    "worker_slow": "router and workers",
-}
+_FAULT_KINDS_UNPORTED = {"worker_death": "deferred mode"}
 
 
 @dataclass
@@ -302,8 +309,8 @@ class FaultRuleConfig:
     seed: int = 0
     # Arm the rule only after the injector has been alive this long (s).
     after_s: float = 0.0
-    # Restrict the rule to one worker process id: -1 = any process (the
-    # port serves in one process, which has no worker id).
+    # Restrict the rule to one worker process id behind the router: -1 =
+    # any process (a single-process server has no worker id).
     worker: int = -1
 
     def __post_init__(self) -> None:
@@ -399,8 +406,11 @@ class EventsConfig:
     ``tpuserve_torch.*`` loggers (``GET /debug/events``), the admin audit
     trail (``GET /debug/audit``) and the postmortem ledger
     (``GET /debug/postmortems``). ``dir``, ``stderr_path`` and
-    ``snapshot_path`` belong to the reference's supervised worker processes
-    and are refused while non-empty."""
+    ``snapshot_path`` are the worker tier's black box
+    (``tpuserve_torch.workerproc``): the supervisor sets the last two per
+    worker slot, the worker redirects its stderr to the first and
+    checkpoints a snapshot to the second, and the supervisor folds both
+    into the postmortem of a worker it reaps."""
 
     enabled: bool = True
     # Event records retained in the ring (newest kept).
@@ -409,7 +419,8 @@ class EventsConfig:
     jsonl_path: str = ""
     # Minimum stdlib-logging level bridged into the ring.
     bridge_level: str = "INFO"
-    # Black-box directory of the worker tier (refused while non-empty).
+    # Black-box directory of the worker tier ("" = a per-deployment
+    # directory under the system's temporary directory).
     dir: str = ""
     # Postmortem-snapshot cadence (s) of a worker's black box.
     snapshot_interval_s: float = 2.0
@@ -419,8 +430,8 @@ class EventsConfig:
     audit_capacity: int = 256
     # Postmortem records retained (FIFO beyond it).
     postmortem_capacity: int = 64
-    # Set per worker slot by the reference's supervisor (refused while
-    # non-empty).
+    # Set per worker slot by the supervisor: the worker's stderr capture
+    # and its snapshot file ("" = none).
     stderr_path: str = ""
     snapshot_path: str = ""
 
@@ -449,8 +460,8 @@ class TelemetryConfig:
     evaluates multi-window burn rates over ``[model.slo]`` (``GET
     /alerts``), the sampler derives ``device_utilization{model=,replica=}``
     from ``device_seconds_total``, and ``POST /debug/profile`` captures a
-    device trace. ``fleet_timeout_ms`` is the reference router's and is
-    refused whenever written."""
+    device trace. ``fleet_timeout_ms`` is the router's fleet scrape (ROADMAP
+    item 12) and is refused whenever written."""
 
     enabled: bool = True
     # Sampler cadence (s).
@@ -484,6 +495,135 @@ class TelemetryConfig:
             raise ValueError(
                 "telemetry.utilization_window_s/fleet_timeout_ms/"
                 "profile_max_ms must be > 0")
+
+
+@dataclass
+class RouterConfig:
+    """Router/worker process split (``[router]`` TOML;
+    tpuserve_torch.workerproc).
+
+    Off by default — the single-process server is unchanged. When enabled,
+    ``serve`` starts a **router** process owning HTTP/JSON, the result
+    cache + single-flight coalescing, admission/deadline stamping, and
+    per-model circuit breakers, plus ``workers`` isolated worker processes
+    each owning batching + the device runtime. A supervisor health-checks
+    workers, reaps dead ones, and respawns them with exponential backoff;
+    the router re-dispatches idempotent work to a surviving worker on
+    transport failure (never past the request's absolute deadline) and
+    hedges slow attempts — one misbehaving or crashed worker costs
+    capacity, never availability. ``hosts``, ``host_breaker_*``,
+    ``active_workers``, ``routers``, ``peer_port`` and
+    ``peer_sync_interval_s`` are typed with the reference's defaults and
+    refused off them (ROADMAP.md item 11b)."""
+
+    enabled: bool = False
+    # Worker processes to supervise (each builds every configured model).
+    workers: int = 2
+    # Host failure domains (not yet served: 0).
+    hosts: int = 0
+    # Router processes sharing the serving port (not yet served: 1).
+    routers: int = 1
+    # Host breaker (with hosts > 0; not yet served).
+    host_breaker_threshold: int = 3
+    host_breaker_cooldown_s: float = 1.0
+    # Peer routers' topology sync and the primary's peer listener (with
+    # routers > 1; not yet served).
+    peer_sync_interval_s: float = 0.5
+    peer_port: int = 0
+    # Transport-failure re-dispatches per request (connection refused/reset,
+    # a worker dying mid-request). Definitive worker answers (any HTTP
+    # status from a live worker except 503-not-admitted) are NEVER retried:
+    # a 500 means the work already executed and failed — re-running it
+    # would double-execute. Retries always honor the admission deadline.
+    retry_max: int = 2
+    # > 0: an attempt silent for this long gets a duplicate dispatched to a
+    # different worker; first definitive answer wins, the loser is
+    # cancelled (tail-latency hedging; covers a wedged-but-alive worker).
+    hedge_ms: float = 0.0
+    # TCP connect budget per attempt.
+    connect_timeout_ms: float = 500.0
+    # Supervisor HTTP health-probe cadence and per-probe budget.
+    health_interval_s: float = 0.5
+    health_timeout_ms: float = 1000.0
+    # Consecutive failed probes before a live process is routed around.
+    unhealthy_after: int = 3
+    # Exponential respawn backoff for dead workers:
+    # min(max_s, initial_s * multiplier^consecutive_failures).
+    respawn_initial_s: float = 0.5
+    respawn_max_s: float = 30.0
+    respawn_multiplier: float = 2.0
+    # Worker boot budget (spawn -> ready handshake), seconds. Generous: a
+    # cold worker builds the kernels and captures every bucket's graphs.
+    spawn_timeout_s: float = 900.0
+    # Initial active worker slots per host domain (the autopilot's; not yet
+    # served: 0 = all of them).
+    active_workers: int = 0
+    # Per-stream idle timeout: a STARTED stream whose worker goes silent (no
+    # chunk) this long is terminated with the well-formed error event
+    # (reason "idle_timeout"), distinct from the absolute request deadline.
+    # 0 disables it (only the deadline bounds the stream).
+    stream_idle_timeout_ms: float = 30000.0
+    # Router-side graceful-drain stream budget: on SIGTERM, in-flight
+    # streams get this long to finish before the router terminates them
+    # with the error event (reason "drain"); 0 = only drain_timeout_s.
+    stream_drain_s: float = 5.0
+
+    def __post_init__(self) -> None:
+        if self.workers < 1:
+            raise ValueError(f"router.workers must be >= 1, got {self.workers}")
+        if self.active_workers < 0 or self.active_workers > self.workers:
+            raise ValueError(
+                f"router.active_workers must be in [0, workers], got "
+                f"{self.active_workers}")
+        if self.retry_max < 0 or self.hedge_ms < 0:
+            raise ValueError("router.retry_max/hedge_ms must be >= 0")
+        if self.respawn_initial_s < 0 or self.respawn_max_s <= 0 \
+                or self.respawn_multiplier < 1.0:
+            raise ValueError(
+                "router.respawn_initial_s must be >= 0, respawn_max_s > 0, "
+                "respawn_multiplier >= 1")
+        if self.health_interval_s <= 0 or self.unhealthy_after < 1:
+            raise ValueError(
+                "router.health_interval_s must be > 0 and unhealthy_after >= 1")
+        if self.hosts < 0:
+            raise ValueError(f"router.hosts must be >= 0, got {self.hosts}")
+        if self.routers < 1:
+            raise ValueError(
+                f"router.routers must be >= 1, got {self.routers}")
+        if self.host_breaker_threshold < 0 \
+                or self.host_breaker_cooldown_s <= 0:
+            raise ValueError(
+                "router.host_breaker_threshold must be >= 0 and "
+                "host_breaker_cooldown_s > 0")
+        if self.peer_sync_interval_s <= 0 or self.peer_port < 0:
+            raise ValueError(
+                "router.peer_sync_interval_s must be > 0 and "
+                "peer_port >= 0")
+        if self.stream_idle_timeout_ms < 0 or self.stream_drain_s < 0:
+            raise ValueError(
+                "router.stream_idle_timeout_ms/stream_drain_s must be >= 0")
+
+
+@dataclass
+class WorkerConfig:
+    """Worker-process side of the router split (``[worker]`` TOML;
+    tpuserve_torch.workerproc.worker). Workers are full single-process
+    servers bound to loopback; the router relays to them."""
+
+    # Bind address for worker HTTP listeners (loopback: workers are an
+    # internal tier, never exposed).
+    host: str = "127.0.0.1"
+    # Worker i listens on port_base + i; 0 = ephemeral ports (the
+    # supervisor learns them from the ready handshake).
+    port_base: int = 0
+    # Per-worker SIGTERM drain budget; 0 = inherit the server's
+    # drain_timeout_s.
+    drain_timeout_s: float = 0.0
+
+    def __post_init__(self) -> None:
+        if self.port_base < 0 or self.drain_timeout_s < 0:
+            raise ValueError(
+                "worker.port_base/drain_timeout_s must be >= 0")
 
 
 @dataclass
@@ -636,11 +776,22 @@ class ServerConfig:
     # Decode request bodies on the accept loop instead of the threadpool
     # (a single-core host saves the executor hop).
     decode_inline: bool = False
+    # Directory the hand-written CUDA kernels build into and load from (the
+    # port's counterpart of the reference's persistent XLA compilation
+    # cache); "" = build/kernels at the root of the checkout.
+    compilation_cache_dir: str = ""
     # Validate-on-startup canary (tiny inference per model) on/off.
     startup_canary: bool = True
     # Periodic canary interval (s): each model's canary re-runs so /healthz
     # (and the lifecycle's soak monitor) reflect live serving health. 0 off.
     canary_interval_s: float = 0.0
+    # Debug mode: check every fetched batch's outputs for NaN/Inf and fail
+    # the batch with FloatingPointError. Re-reads every output; dev only.
+    debug_nans: bool = False
+    # Replay every bucket's graph once at startup (the first launch uploads
+    # it to the card) so first requests do not pay it; the graphs are
+    # captured either way.
+    prewarm_executables: bool = True
     # Per-bucket raw-forward probes at startup (ModelRuntime.probe_all_raw):
     # this many dispatches per bucket, inputs resident. 0 off.
     roofline_probe_iters: int = 0
@@ -674,6 +825,13 @@ class ServerConfig:
     events: EventsConfig = field(default_factory=EventsConfig)
     # Iteration-level generation engine for generative families.
     genserve: GenserveConfig = field(default_factory=GenserveConfig)
+    # Router/worker process split (off by default).
+    router: RouterConfig = field(default_factory=RouterConfig)
+    # Worker-process knobs of the router split (loopback bind, drain).
+    worker: WorkerConfig = field(default_factory=WorkerConfig)
+    # Emit one JSON object per log line instead of the human-readable
+    # default.
+    log_json: bool = False
     # The JAX package's settings the port does not serve yet, as parsed:
     # "[table] key" for its tables, the bare key for top-level keys.
     unported: dict[str, Any] = field(default_factory=dict)
@@ -690,10 +848,11 @@ class ServerConfig:
         raise KeyError(f"no model named {name!r} configured")
 
 
-# The observability tables and [genserve], typed by TOML table name (each
-# may hold keys of _TABLE_KEYS_UNPORTED).
+# The observability tables, [genserve], [router] and [worker], typed by TOML
+# table name (each may hold keys of _TABLE_KEYS_UNPORTED).
 TYPED_TABLES = {"trace": TraceConfig, "telemetry": TelemetryConfig,
-                "events": EventsConfig, "genserve": GenserveConfig}
+                "events": EventsConfig, "genserve": GenserveConfig,
+                "router": RouterConfig, "worker": WorkerConfig}
 
 
 def unported_settings(cfg: ServerConfig) -> list[str]:
@@ -708,7 +867,9 @@ def unported_settings(cfg: ServerConfig) -> list[str]:
         else:
             accepted = _SERVER_UNPORTED[name]
         if value not in accepted:
-            out.append(f"{name} = {value!r}")
+            item = _TABLE_KEY_ITEMS.get(name)
+            out.append(f"{name} = {value!r}" + (f" (not yet ported: ROADMAP.md {item})"
+                                                 if item else ""))
     for m in cfg.models:
         out += [f"model {m.name}: {k} = {v!r}" for k, v in m.unported.items()
                 if v not in _MODEL_UNPORTED[k]]

@@ -9,9 +9,13 @@
   ``dispatch`` (``device_error``, ``slow_compute``), its ``stage_params``
   gates (``reload_corrupt``, ``reload_nan``), the lifecycle's staged canary
   (``reload_regressed``) and the server (``decode_corrupt``,
-  ``canary_fail``, and on a started stream only — after a unit was
-  written — ``stream_stall``, which wedges the writer, and
-  ``stream_disconnect``, which tears the transport with no terminal event).
+  ``canary_fail``; ``worker_slow``, ``worker_hang`` and ``worker_crash``,
+  which delay, wedge or end the serving process before a predict reads its
+  body; and on a started stream only — after a unit was written —
+  ``stream_stall``, which wedges the writer, and ``stream_disconnect``,
+  which tears the transport with no terminal event). A rule with
+  ``worker >= 0`` fires only in the worker process of that id
+  (``tpuserve_torch.workerproc``).
   Kinds whose call sites the port lacks are refused when the config loads
   (``tpuserve_torch.config``).
 - :class:`CircuitBreaker`: per model, trips to fast 503 + ``Retry-After``
@@ -82,6 +86,9 @@ class FaultInjector:
         # Epoch for rule.after_s: such a rule stays cold until the injector
         # has been alive that long.
         self._born = time.monotonic()
+        # Worker-process id for rule.worker pinning (set by a worker process
+        # behind the router); None/-1 rules match any process.
+        self.worker_id: int | None = None
         # Derived seeds keep distinct rules decorrelated even when every
         # rule.seed is left at 0.
         self._rules = [_ArmedRule(r, cfg.seed * 1000003 + i + 1)
@@ -109,10 +116,7 @@ class FaultInjector:
             for rule in self._rules:
                 if rule.cfg.after_s > 0 and alive_s < rule.cfg.after_s:
                     continue
-                if rule.cfg.worker >= 0:
-                    # Pinned to a worker process; the port serves in one
-                    # process, which has no worker id (the reference's
-                    # single-process server matches none either).
+                if rule.cfg.worker >= 0 and rule.cfg.worker != self.worker_id:
                     continue
                 if rule.matches(kind, model) and rule.draw():
                     if self.metrics is not None:

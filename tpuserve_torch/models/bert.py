@@ -152,7 +152,13 @@ class BertClassifier(nn.Module):
                  mesh: Mesh | None = None, moe_experts: int = 0,
                  moe_capacity_factor: float = 1.25) -> None:
         super().__init__()
-        self.embed = nn.Embedding(vocab_size, d_model)
+        # nn.Embedding's own N(0, 1) init, skipped on the meta device (where
+        # init_params only reads shapes): normal_ on a meta tensor imports
+        # torch._dynamo, seconds of every BERT process's boot.
+        weight = torch.empty(vocab_size, d_model)
+        if not weight.is_meta:
+            nn.init.normal_(weight)
+        self.embed = nn.Embedding(vocab_size, d_model, _weight=weight)
         self.pos_embed = nn.Parameter(torch.zeros(max_seq, d_model))
         self.ln_embed = nn.LayerNorm(d_model, eps=ln_eps)
         self.layers = nn.ModuleList(

@@ -28,7 +28,13 @@ and ``poison_items_total{model=}``, the breaker's ``breaker_state`` and
 ``slo_alert_state{model=}``, ``telemetry_samples_total`` and
 ``profile_captures_total``, and the event plane's
 ``events_logged_total{level=,subsystem=}`` and
-``audit_events_total{verb=,outcome=}``.
+``audit_events_total{verb=,outcome=}``, and the router/worker tier's
+``worker_up{worker=}``, ``worker_respawns_total{worker=}``,
+``worker_backoff_s{worker=}``, ``worker_inflight{worker=}``,
+``router_<kind>_total{model=}`` (``ROUTER_COUNTERS``),
+``router_latency_ms{model=}``, ``router_first_unit_ms{model=}`` and
+``router_stream_terminated_total{model=,reason=}``
+(``ROUTER_STREAM_REASONS``).
 
 Request tracing: a ``TraceContext`` is minted per HTTP request (128-bit
 trace id, adopted from a well-formed ``X-Trace-Id``, returned as
@@ -505,6 +511,19 @@ PRIORITIES = ("interactive", "batch")
 GEN_STREAM_REASONS = ("done", "disconnect", "deadline_exceeded",
                       "engine_error", "drain", "shutdown")
 
+# Reasons on router_stream_terminated_total{model=,reason=} — the router's
+# stream relay (tpuserve_torch.workerproc.router): the same contract as
+# GEN_STREAM_REASONS seen from the relay ("done" the only success;
+# "upstream_error" folds any worker-side failure).
+ROUTER_STREAM_REASONS = ("done", "client_disconnect", "deadline_exceeded",
+                         "idle_timeout", "upstream_error", "drain")
+
+# The router's per-model relay counters: router_<kind>_total{model=}
+# (requests admitted, transport-failure retries, hedges, 504s at the
+# router, committed streams relayed). Its sheds count in the breaker's
+# breaker_shed_total{model=}.
+ROUTER_COUNTERS = ("requests", "retries", "hedges", "timeouts", "streams")
+
 
 class Metrics:
     """Registry of all server metrics, one per server process, and the span
@@ -553,6 +572,44 @@ class Metrics:
         """cache_<event>_total{model=}: one of CACHE_EVENTS. Prebound by
         ModelCache at construction; never call this per request."""
         return self.counter(f"cache_{event}_total{{model={model}}}")
+
+    def worker_up_gauge(self, worker: int) -> Gauge:
+        """worker_up{worker=}: 1 while the supervised worker process is alive
+        and passing health probes, 0 while dead, respawning or unhealthy
+        (tpuserve_torch.workerproc.supervisor). Prebound per slot."""
+        return self.gauge(f"worker_up{{worker={worker}}}")
+
+    def worker_respawns_counter(self, worker: int) -> Counter:
+        """worker_respawns_total{worker=}: times the supervisor respawned
+        this worker slot after its process died (SIGKILL, crash, OOM)."""
+        return self.counter(f"worker_respawns_total{{worker={worker}}}")
+
+    def worker_backoff_gauge(self, worker: int) -> Gauge:
+        """worker_backoff_s{worker=}: the exponential respawn delay applied
+        to this slot's latest respawn (0 once it is back up)."""
+        return self.gauge(f"worker_backoff_s{{worker={worker}}}")
+
+    def worker_inflight_gauge(self, worker: int) -> Gauge:
+        """worker_inflight{worker=}: relayed requests in flight on one worker
+        (the router's least-loaded pick reads the same count)."""
+        return self.gauge(f"worker_inflight{{worker={worker}}}")
+
+    def router_counter(self, model: str, kind: str) -> Counter:
+        """router_<kind>_total{model=}, ``kind`` one of ROUTER_COUNTERS.
+        Prebound per model by the router."""
+        if kind not in ROUTER_COUNTERS:
+            raise ValueError(f"unknown router counter {kind!r}")
+        return self.counter(f"router_{kind}_total{{model={model}}}")
+
+    def router_stream_terminated_counter(self, model: str, reason: str) -> Counter:
+        """router_stream_terminated_total{model=,reason=}: how a relayed
+        stream ended; ``reason`` must be one of ROUTER_STREAM_REASONS (an
+        off-list reason raises instead of minting a new label)."""
+        if reason not in ROUTER_STREAM_REASONS:
+            raise ValueError(f"unknown stream-termination reason {reason!r} "
+                             "(add it to obs.ROUTER_STREAM_REASONS)")
+        return self.counter(
+            f"router_stream_terminated_total{{model={model},reason={reason}}}")
 
     def ingest_requests_counter(self, loop_index: int) -> Counter:
         """ingest_requests_total{loop=}: predict requests read by one accept

@@ -3,7 +3,9 @@ a plain C interface, loaded with ``ctypes``.
 
 The build happens at the first launch, never at import: the CPU tests import
 every module on a machine with no ``nvcc``. Each source under ``csrc/``
-becomes ``build/kernels/lib<name>-<hash>.so`` at the root of the checkout;
+becomes ``lib<name>-<hash>.so`` in the build directory — ``build/kernels/``
+at the root of the checkout, or the server's ``compilation_cache_dir``
+(``set_build_dir``);
 the hash covers every file under ``csrc/`` and the flags, so an edit rebuilds
 and an unchanged tree reuses the library (``.gitignore`` lists ``build/``).
 The library is written under a temporary name and renamed into place, so two
@@ -47,6 +49,14 @@ def _digest() -> str:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
+
+
+def set_build_dir(path: "str | Path") -> None:
+    """Build into and load from ``path`` (process-wide, like the reference's
+    persistent compilation cache): libraries built there before are reused,
+    so a process that finds its kernels built loads them without ``nvcc``."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
 
 
 def library_path(name: str) -> Path:

@@ -14,7 +14,9 @@ fixed addresses, and captures one graph per (bucket, slot):
   shared-memory opt-in, cuBLAS' workspace and cuDNN's plans before any
   capture), then captured per slot into one memory pool per runtime and
   replayed once (a graph's first launch uploads it to the card), and its
-  inputs are allocated once on the copy stream the served h2d uses. A
+  inputs are allocated once on the copy stream the served h2d uses
+  (``prewarm_executables = false``: no replay at startup, the captures
+  stay; on the CPU no warm run). A
   variant is the bucket's graph set: ``runtime_compiles_total`` counts one
   per bucket, as the JAX runtime counts one per (bucket, replica), and the
   variant summary reports its ``captures`` and ``compile_ms``. A capture that
@@ -43,6 +45,11 @@ publish and rollback never need a new capture. A program's small arguments
 static input tensors before each replay and never baked into a graph, so
 slot, page and chunk churn replay the same graphs.
 
+``debug_nans`` makes every fetch check its outputs and fail the batch with
+FloatingPointError on NaN/Inf (bound at construction: with it off the fetch
+is the plain one); ``configure_runtime`` points the kernel build at
+``compilation_cache_dir``.
+
 On the CPU the slots and the version machine are the same and each slot's
 module runs eagerly (the tests do this); only capture and replay are
 CUDA-only. The graphs of one runtime share a memory pool and are replayed on
@@ -70,10 +77,11 @@ import numpy as np
 import torch
 
 from tpuserve_torch import quantize
-from tpuserve_torch.config import ModelConfig
+from tpuserve_torch.config import ModelConfig, ServerConfig
 from tpuserve_torch.faults import FaultInjected
 from tpuserve_torch.models.base import DTYPES, ServingModel
 from tpuserve_torch.obs import Metrics
+from tpuserve_torch.ops import _build
 from tpuserve_torch.ops import flash_attention as fa
 from tpuserve_torch.parallel.mesh import MeshPlan, make_mesh
 from tpuserve_torch.savedmodel import IntegrityError
@@ -96,6 +104,14 @@ class NaNDetected(ValueError):
     (tpuserve_torch.lifecycle) rejects it and the old version keeps serving."""
 
 
+def configure_runtime(cfg: ServerConfig) -> None:
+    """Process-wide runtime settings (call once, before any kernel builds):
+    ``compilation_cache_dir`` becomes the directory the hand-written
+    kernels build into and load from."""
+    if cfg.compilation_cache_dir:
+        _build.set_build_dir(cfg.compilation_cache_dir)
+
+
 def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
     """The device a runtime serves on: the current CUDA device unless the
     caller names another. Raises when CUDA is asked for (or defaulted to)
@@ -115,12 +131,15 @@ def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
 
 
 def backend_info(device: torch.device) -> dict:
-    """What the server runs on, for /stats: the card, torch and CUDA."""
+    """What the server runs on, for /stats: the card, torch and CUDA, and on
+    the card this process's ``memory_reserved`` and ``memory_allocated``."""
     info = {"device": str(device), "torch": torch.__version__,
             "cuda": torch.version.cuda}
     if device.type == "cuda":
         info["device_name"] = torch.cuda.get_device_name(device)
         info["device_count"] = torch.cuda.device_count()
+        info["memory_reserved_bytes"] = torch.cuda.memory_reserved(device)
+        info["memory_allocated_bytes"] = torch.cuda.memory_allocated(device)
     return info
 
 
@@ -235,7 +254,8 @@ class ModelRuntime:
 
     def __init__(self, model: ServingModel,
                  device: "str | torch.device | None" = None,
-                 metrics: Metrics | None = None) -> None:
+                 metrics: Metrics | None = None, prewarm: bool = True,
+                 debug_nans: bool = False) -> None:
         self.model = model
         self.cfg: ModelConfig = model.cfg
         self.device = resolve_device(device)
@@ -300,6 +320,15 @@ class ModelRuntime:
         # False for a runtime serving through the generation engine: its
         # programs replace the forward buckets (build_runtime).
         self.compile_forward = True
+        # [server] prewarm_executables: replay each bucket's graph once at
+        # startup (on the CPU: one eager run per bucket); False skips those
+        # runs, never a capture.
+        self.prewarm = prewarm
+        if debug_nans:
+            # [server] debug_nans: every fetch checks its outputs. Bound
+            # here, so with it off the hot path's fetch is the plain one.
+            self.fetch = self._fetch_finite
+            self.fetch_program = self._fetch_program_finite
         # The generation engine's programs and state blocks (register_state).
         self.gen_programs: dict[str, Program] = {}
         self.gen_meta: dict | None = None
@@ -412,7 +441,7 @@ class ModelRuntime:
             # phase 14's first requests).
             self.h2d(bucket, self._zeros(bucket))
             self._copy_stream.synchronize()
-        else:
+        elif self.prewarm:
             self.fetch(self.run(bucket, self._zeros(bucket)))
         key = self.variant_key(bucket)
         self.variants[key] = Variant(key, (time.perf_counter() - t0) * 1e3, captures)
@@ -439,11 +468,12 @@ class ModelRuntime:
                 outputs = self.model.forward(slot.module, inputs)
             launches = (fa.launches - k1, fa.stats_launches - k2)
             shapes = fa.shape_launches_since(shapes)
-            # A graph's first launch uploads it to the card: pay that here,
-            # at startup, not in the first request of the bucket.
-            with torch.cuda.stream(stream):
-                graph.replay()
-            fa.count_replay(*launches, shapes)
+            if self.prewarm:
+                # A graph's first launch uploads it to the card: pay that
+                # here, at startup, not in the first request of the bucket.
+                with torch.cuda.stream(stream):
+                    graph.replay()
+                fa.count_replay(*launches, shapes)
             stream.synchronize()
         return Graph(graph, inputs, outputs, launches, shapes)
 
@@ -535,6 +565,13 @@ class ModelRuntime:
     def fetch(outputs: dict) -> dict:
         """Block for the D2H copy of the outputs; call off the event loop."""
         return {k: v.cpu().numpy() for k, v in outputs.items()}
+
+    def _fetch_finite(self, outputs: dict) -> dict:
+        """``fetch`` under debug_nans: FloatingPointError when a floating
+        output holds NaN/Inf, which fails the batch."""
+        out = ModelRuntime.fetch(outputs)
+        _raise_nonfinite(self.model.name, out)
+        return out
 
     # -- generative programs (tpuserve_torch.genserve) ------------------------
     def register_state(self, struct: dict) -> None:
@@ -666,6 +703,12 @@ class ModelRuntime:
                 slot.last_replay.record()
         prog.counter.inc()
         return out
+
+    def _fetch_program_finite(self, out: Any) -> Any:
+        """``fetch_program`` under debug_nans (as ``_fetch_finite``)."""
+        host = ModelRuntime.fetch_program(self, out)
+        _raise_nonfinite(self.model.name, host if isinstance(host, dict) else {"out": host})
+        return host
 
     def fetch_program(self, out: Any) -> Any:
         """Block for a program's outputs on the host (numpy), each through
@@ -862,6 +905,13 @@ class ModelRuntime:
         }
 
 
+def _raise_nonfinite(name: str, outputs: dict) -> None:
+    bad = [k for k, v in outputs.items() if v is not None
+           and np.asarray(v).dtype.kind == "f" and not np.isfinite(v).all()]
+    if bad:
+        raise FloatingPointError(f"debug_nans: {name} produced NaN/Inf in {sorted(bad)}")
+
+
 def torch_dtype(dtype: Any) -> torch.dtype:
     """A TensorSpec's dtype (numpy, or torch for dtypes numpy lacks such as
     bfloat16) as a torch dtype."""
@@ -897,12 +947,16 @@ def _map_out(out: Any, fn: Callable) -> Any:
 def build_runtime(model: ServingModel,
                   device: "str | torch.device | None" = None,
                   metrics: Metrics | None = None,
-                  compile_forward: bool = True) -> ModelRuntime:
+                  compile_forward: bool = True, prewarm: bool = True,
+                  debug_nans: bool = False) -> ModelRuntime:
     """Parameter slots on ``device`` (default: the current CUDA device) and
     every bucket warmed up and, on CUDA, captured per slot.
     ``compile_forward=False`` skips the buckets: a runtime for the
-    generation engine, whose programs replace them (``register_program``)."""
-    rt = ModelRuntime(model, device=device, metrics=metrics)
+    generation engine, whose programs replace them (``register_program``).
+    ``prewarm=False`` skips each bucket's startup replay (the capture stays);
+    ``debug_nans`` makes every fetch fail on a NaN/Inf output."""
+    rt = ModelRuntime(model, device=device, metrics=metrics, prewarm=prewarm,
+                      debug_nans=debug_nans)
     rt.compile_forward = compile_forward
     rt.load_params()
     if compile_forward:

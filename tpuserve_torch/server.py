@@ -103,9 +103,21 @@ or retained-slow request leaves a ``request_error`` / ``slow_request``
 event with its trace id. Admin verbs (``:reload``, ``:rollback``, profile,
 drain) leave audit records.
 
-Not ported yet (ROADMAP.md queue 1): the router/worker tiers and their
-black box, the fleet scheduler (``:warm``/``:demote``), tenants
-(``/tenants``), ``/metrics/fleet`` and ``profiler_port``.
+Behind the router (``tpuserve_torch.workerproc``) this server is a worker:
+it adopts the router's ``X-Trace-Id`` / ``X-Parent-Span`` (its spans and
+events on lane worker id + 1), re-stamps the forwarded ``X-Timeout-Ms`` on
+its own clock, checkpoints a black-box snapshot to ``[events]
+snapshot_path`` and hosts the ``worker_slow`` / ``worker_hang`` /
+``worker_crash`` fault call sites, which fire before a predict reads its
+body. ``log_json`` logs one JSON object per line (``configure_logging``);
+``debug_nans``, ``prewarm_executables`` and ``compilation_cache_dir`` are
+the runtime's (``tpuserve_torch.runtime``). ``serve`` with ``[router]
+enabled`` runs the router in this process instead.
+
+Not ported yet (ROADMAP.md queue 1): host failure domains, peer routers,
+the fleet scheduler (``:warm``/``:demote``), tenants (``/tenants``), the
+autopilot and deferred mode (item 11b), ``/metrics/fleet`` and
+``profiler_port`` (item 12).
 """
 
 from __future__ import annotations
@@ -118,6 +130,7 @@ import gc
 import json
 import logging
 import math
+import os
 import signal
 import socket
 import threading
@@ -144,9 +157,10 @@ from tpuserve_torch.obs import (FlightRecorder, Metrics, TraceContext,
                                 exposition_content_type, spans_to_chrome)
 from tpuserve_torch.ops import flash_attention as fa
 from tpuserve_torch.runtime import (ModelRuntime, backend_info, build_runtime,
-                                    resolve_device)
+                                    configure_runtime, resolve_device)
 from tpuserve_torch.telemetry import events as events_mod
-from tpuserve_torch.telemetry.events import AuditLog, EventLog, PostmortemLog
+from tpuserve_torch.telemetry.events import (AuditLog, BlackBoxWriter, EventLog,
+                                             PostmortemLog)
 from tpuserve_torch.telemetry.profile import CaptureBusy, ProfileCapture
 from tpuserve_torch.telemetry.slo import SloEngine, UtilizationDeriver
 from tpuserve_torch.telemetry.store import MetricSampler, TimeSeriesStore
@@ -156,9 +170,11 @@ log = logging.getLogger("tpuserve_torch.server")
 _VERBS = ("predict", "classify", "detect", "generate")
 _MAX_BODY = 64 * 1024 * 1024  # the JAX server's client_max_size
 _MAX_HEAD = 64 * 1024
-# How long an injected stream_stall wedges a started stream's writer: the
-# client sees heartbeats and units stop (the reference's hang interval).
-_STREAM_STALL_S = 3600.0
+# How long an injected stream_stall wedges a started stream's writer, and an
+# injected worker_hang a request: long enough that the request never answers
+# within any sane deadline (the router's hedging and 504 own it), short
+# enough that a forgotten armed rule cannot pin a connection forever.
+_STREAM_STALL_S = _WORKER_HANG_S = 3600.0
 
 # The JAX server's index page, byte for byte.
 _INDEX_HTML = """<!doctype html><title>tpuserve</title>
@@ -388,6 +404,11 @@ class ServerState:
         _reject_unported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        configure_runtime(cfg)
+        # The worker id behind the router (tpuserve_torch.workerproc), None
+        # when serving alone: spans and events of this process then carry
+        # the lane worker id + 1, the router's being 0.
+        self.worker_id: int | None = None
         self.metrics = Metrics(cfg.trace_capacity, exemplars=cfg.trace.exemplars)
         # Tail-latency flight recorder: complete span trees of the slowest-N
         # requests per model and of every errored or shed one
@@ -467,6 +488,9 @@ class ServerState:
                 tail_bytes=ecfg.stderr_tail_bytes, events=self.events)
             events_mod.install_bridge(self.events, ecfg.bridge_level)
             events_mod.set_active(self.events)
+        # The worker tier's black box: a postmortem snapshot checkpointed to
+        # [events] snapshot_path (set per worker slot by the supervisor).
+        self.blackbox: BlackBoxWriter | None = None
 
     def build(self) -> None:
         """Build every model's runtime: params on the device, buckets warm —
@@ -480,13 +504,15 @@ class ServerState:
                 # forward buckets: capturing both would double startup for
                 # nothing.
                 rt = build_runtime(model, device=self.device, metrics=self.metrics,
-                                   compile_forward=False)
+                                   compile_forward=False, debug_nans=self.cfg.debug_nans)
                 eng = GenEngine(model, rt, self.metrics, self.cfg.genserve,
                                 stages=self.stages, pipeline_cfg=self.cfg.pipeline)
                 eng.compile()  # registers, captures and prewarms the programs
                 self.engines[mcfg.name] = eng
             else:
-                rt = build_runtime(model, device=self.device, metrics=self.metrics)
+                rt = build_runtime(model, device=self.device, metrics=self.metrics,
+                                   prewarm=self.cfg.prewarm_executables,
+                                   debug_nans=self.cfg.debug_nans)
                 if self.cfg.roofline_probe_iters > 0:
                     rt.probe_all_raw(int(self.cfg.roofline_probe_iters))
             # Armed after warm-up and probes: chaos targets the serving path.
@@ -562,7 +588,46 @@ class ServerState:
             await self.run_canaries()
         if self.cfg.canary_interval_s > 0:
             self._canary_task = asyncio.get_running_loop().create_task(self._canary_loop())
+        if self.events is not None and self.cfg.events.snapshot_path \
+                and self.cfg.events.snapshot_interval_s > 0:
+            # Checkpoint a postmortem snapshot once now and then on the
+            # interval, so a SIGKILL at any point after boot leaves the last
+            # events, flight summaries and key counters for the supervisor.
+            self.blackbox = BlackBoxWriter(self.cfg.events.snapshot_path,
+                                           self.cfg.events.snapshot_interval_s,
+                                           self._blackbox_snapshot)
+            self.blackbox.start()
         self.watchdog.start()
+
+    # Counter families the black-box snapshot carries: the serving volume and
+    # failure tallies a postmortem reader checks first.
+    _BLACKBOX_COUNTERS = frozenset((
+        "requests_total", "bad_requests_total", "timeouts_total",
+        "deadline_exceeded_total", "batches_total",
+        "watchdog_restarts_total", "events_logged_total"))
+
+    def _blackbox_snapshot(self) -> dict:
+        """One postmortem checkpoint (BlackBoxWriter's ``collect``): the
+        last 50 event records, compact flight-recorder summaries (trace
+        ids, not span trees) and the key counters. Runs on the black-box
+        thread; everything it reads is locked."""
+        counters = {name: v for name, v in self.metrics.counter_values().items()
+                    if name.split("{", 1)[0] in self._BLACKBOX_COUNTERS}
+        dumped = self.recorder.dump()
+        slow = [{"model": model, "trace_id": r["trace_id"], "status": r["status"],
+                 "duration_ms": r["duration_ms"]}
+                for model, recs in sorted(dumped.get("slow", {}).items())
+                for r in recs[:4]]
+        errors = [{"model": r["model"], "trace_id": r["trace_id"], "status": r["status"],
+                   "duration_ms": r["duration_ms"]} for r in dumped.get("errors", [])[:8]]
+        return {"ts": round(time.time(), 3), "pid": os.getpid(),
+                "worker_id": self.worker_id,
+                "events": self.events.tail(50) if self.events is not None else [],
+                "flight": {"slow": slow, "errors": errors}, "counters": counters}
+
+    async def _stop_blackbox(self) -> None:
+        if self.blackbox is not None:
+            await asyncio.get_running_loop().run_in_executor(None, self.blackbox.stop)
 
     def _note_native_fallback(self, model: str) -> None:
         self.handles[model].native_fallback.inc()
@@ -577,6 +642,7 @@ class ServerState:
     async def stop(self) -> None:
         await self.watchdog.stop()
         await self._stop_sampler()
+        await self._stop_blackbox()
         for lc in self.lifecycles.values():
             lc.close()  # stop soak monitors
         await self._stop_canary_loop()
@@ -610,8 +676,10 @@ class ServerState:
         await self.watchdog.stop()
         await self._stop_canary_loop()
         self.begin_drain()
-        # The sampler only reads metrics: it joins after admission closed.
+        # The sampler and the black box only read: they join after admission
+        # closed.
         await self._stop_sampler()
+        await self._stop_blackbox()
         deadline = asyncio.get_running_loop().time() + self.cfg.drain_timeout_s
         ok = True
         for b in self.batchers.values():
@@ -1021,7 +1089,8 @@ class ServerState:
         ``X-Trace-Id`` on the response, record the root span and offer the
         finished trace to the flight recorder; errored and retained-slow
         requests leave an event carrying the trace id."""
-        ctx = TraceContext.from_headers(req.headers)
+        ctx = TraceContext.from_headers(
+            req.headers, pid=self.worker_id + 1 if self.worker_id is not None else 0)
         wall0 = time.time()
         t0 = time.perf_counter()
         resp = await self._predict_traced(req, name, ingest, ctx)
@@ -1070,6 +1139,22 @@ class ServerState:
         h = self.handles[name]
         h.requests.inc()
         t_start = time.perf_counter()
+        if self.injector is not None:
+            # Process-boundary chaos: a degraded (worker_slow), wedged
+            # (worker_hang: the request never answers) or crashed
+            # (worker_crash: the process exits, taking every request in it)
+            # serving process. Behind the router they prove hedging, retry
+            # and supervision; alone they show the blast radius the split
+            # removes.
+            delay = self.injector.delay_s("worker_slow", name)
+            if delay > 0:
+                await asyncio.sleep(delay)
+            if self.injector.fire("worker_hang", name) is not None:
+                await asyncio.sleep(_WORKER_HANG_S)
+                return _err(503, "wedged worker unwedged; retry", trace_id=trace_id)
+            if self.injector.fire("worker_crash", name) is not None:
+                log.error("chaos: worker_crash fired for %s: exiting the process", name)
+                os._exit(17)
         w_read = time.time()
         body = await req.read()
         h.body_read_hist.observe(req.read_s * 1e3, trace_id=trace_id)
@@ -1674,9 +1759,46 @@ async def serve_async(state: ServerState, ready: asyncio.Event | None = None,
         await stop_server(state, server)
 
 
+class JsonLogFormatter(logging.Formatter):
+    """One JSON object per line: ts/level/logger/msg (+ exc when present)."""
+
+    def format(self, record: logging.LogRecord) -> str:
+        out = {
+            "ts": round(record.created, 3),
+            "level": record.levelname,
+            "logger": record.name,
+            "msg": record.getMessage(),
+        }
+        if record.exc_info:
+            out["exc"] = self.formatException(record.exc_info)
+        if record.stack_info:
+            out["stack"] = self.formatStack(record.stack_info)
+        return json.dumps(out, ensure_ascii=False)
+
+
+def configure_logging(cfg: ServerConfig) -> None:
+    """INFO logging to stderr: one JSON object per line with ``log_json``,
+    else the human-readable format."""
+    if cfg.log_json:
+        handler = logging.StreamHandler()
+        handler.setFormatter(JsonLogFormatter())
+        logging.basicConfig(level=logging.INFO, handlers=[handler])
+    else:
+        logging.basicConfig(level=logging.INFO,
+                            format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+
+
 def serve(cfg: ServerConfig, device: "str | None" = None) -> None:
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    """Serve ``cfg`` until SIGTERM/SIGINT: in this process, or with ``[router]
+    enabled`` as a router over worker processes on ``device``."""
+    configure_logging(cfg)
+    if cfg.router.enabled:
+        # This process is the device-free front tier; the supervisor spawns
+        # the worker processes that build the models.
+        from tpuserve_torch.workerproc import serve_router
+
+        serve_router(cfg, device=device)
+        return
     state = ServerState(cfg, device=device)
     state.build()
     # Startup leaves ~200k objects that live as long as the process and a

@@ -16,10 +16,12 @@ pieces:
   ``/debug/profile``, drain) with its outcome, duration and fields, FIFO
   bounded, mirrored into the event ring; ``GET /debug/audit``.
 - **PostmortemLog** and **BlackBoxWriter**: the crash-forensics ledger
-  (``GET /debug/postmortems``) and the snapshot checkpointer. In the
-  reference a supervisor folds a dead worker's stderr tail and last
-  snapshot into a postmortem; the port serves one process, so its ledger
-  stays empty unless a caller adds to it.
+  (``GET /debug/postmortems``) and the snapshot checkpointer. Behind the
+  router (``tpuserve_torch.workerproc``) each worker redirects its stderr
+  to a capture file (``redirect_stderr``, in ``resolve_blackbox_dir``) and
+  checkpoints snapshots; the supervisor folds a dead worker's stderr tail
+  and last snapshot into the router's ledger. A single-process server's
+  ledger stays empty.
 
 Events carry the request trace id when the emitter knows one, so
 ``/debug/trace?trace_id=`` interleaves them into the record (and into the
@@ -35,6 +37,8 @@ import json
 import logging
 import os
 import signal as _signal
+import sys
+import tempfile
 import threading
 import time
 from collections import deque
@@ -119,6 +123,38 @@ def read_snapshot(path: str | None) -> dict | None:
         return None
     return out if isinstance(out, dict) else None
 
+
+def resolve_blackbox_dir(events_cfg) -> str:
+    """The black-box directory (stderr captures + snapshots), created.
+    ``[events] dir`` when set; otherwise a per-deployment default keyed by
+    THIS process's pid — the supervisor resolves it once and bakes the
+    result into every derived worker config, so respawns reuse the same
+    files across the whole deployment's lifetime."""
+    d = events_cfg.dir or os.path.join(
+        tempfile.gettempdir(), f"tpuserve-blackbox-{os.getpid()}")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def redirect_stderr(path: str | None, banner: str) -> bool:
+    """Redirect THIS process's fd 2 to an append-mode capture file (call
+    first thing in a spawned child, before any import can write). Append +
+    a boot banner per spawn, so a respawned slot's file keeps the previous
+    incarnation's last words for the postmortem reader. Returns False (and
+    leaves stderr alone) when the path is unset or the open fails — stderr
+    capture is forensics, never a boot blocker."""
+    if not path:
+        return False
+    try:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+        os.write(fd, f"--- {banner} ---\n".encode())
+        sys.stderr.flush()
+        os.dup2(fd, 2)
+        os.close(fd)
+        return True
+    except OSError:
+        return False
 
 class EventLog:
     """Bounded per-process ring of structured event records.

@@ -1,0 +1,39 @@
+"""Router/worker process split, ported from ``tpuserve/workerproc/``.
+
+The single-process server is one GIL, one event loop, one failure domain: a
+wedged handler or a crash in the runtime takes the HTTP front door down with
+it. This package splits a deployment into failure domains:
+
+- ``worker``     — the process entry of one isolated serving process: the
+  port's single-process server, bound to loopback on the device the
+  supervisor names, announced to the supervisor over a pipe handshake.
+- ``supervisor`` — spawns (``spawn`` method only: worker 0 first) and owns
+  N workers, health-checks them over HTTP, reaps dead processes and
+  respawns them with exponential backoff.
+- ``router``     — the front tier: HTTP/JSON, admission and deadline
+  stamping, the result cache with single-flight coalescing, per-model
+  circuit breakers; relays to the least-loaded healthy worker with
+  transport-failure retry and hedging, never past a request's deadline, and
+  relays streams with a well-formed terminal when a worker dies mid-stream.
+- ``drill``      — ``chaos --drill worker_kill`` and ``--drill
+  stream_kill``: SIGKILL a worker under load and gate availability, the
+  respawn time, torn and duplicate answers and torn or reordered streams.
+
+Enable with ``[router] enabled = true``. Not ported yet (ROADMAP.md item
+11b): host failure domains (``hosts.py``), peer routers (``peers.py``),
+the fleet scheduler, tenants, the autopilot and deferred mode.
+"""
+
+from tpuserve_torch.workerproc.router import RouterState, serve_router, serve_router_async
+from tpuserve_torch.workerproc.supervisor import WorkerHandle, WorkerSupervisor
+from tpuserve_torch.workerproc.worker import worker_config, worker_main
+
+__all__ = [
+    "RouterState",
+    "WorkerHandle",
+    "WorkerSupervisor",
+    "serve_router",
+    "serve_router_async",
+    "worker_config",
+    "worker_main",
+]
