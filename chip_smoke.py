@@ -335,15 +335,16 @@ Phases (any failure exits non-zero before the result line):
    ``gen_iterations_total`` > 0, captures and compiles moved 0 (previews
    included); the engine's image of the locked body beside the locked PNG
    (reported).
-21. The router/worker process tier (``router_phase``): serve
-   ``examples/bert_flash.toml`` alone and bench it closed at 8 connections
-   (phase 16's 32-text body); serve ``examples/bert_flash_router.toml``
-   (the same model behind the router, ``python -m tpuserve_torch serve``)
-   at 1, 2 and 4 worker processes on the card and bench each the same way
-   (requests/s, p50, p99, each worker's ``device_utilization``, K1 = 12 x
-   the batches summed over the workers with the counts set to 0 just
-   before); at 2 workers, with the counts at 0, phase 6's three requests
-   byte-identical to the direct server's answers, K1 = 12 x batches,
+21. The router/worker process tier (``router_phase``), every server and
+   drill at ``SHALLOW_LAYERS`` (4): serve ``examples/bert_flash.toml``
+   alone and bench it closed at 8 connections (phase 16's 32-text body);
+   serve ``examples/bert_flash_router.toml`` (the same model behind the
+   router, ``python -m tpuserve_torch serve``) at 1 and 2 worker processes
+   on the card and bench each the same way (requests/s, p50, p99, each
+   worker's ``device_utilization``, K1 = 4 x the batches summed over the
+   workers with the counts set to 0 just before); at 2 workers, with the
+   counts at 0, phase 6's three requests byte-identical to the direct
+   server's answers, K1 = 4 x batches,
    compiles unchanged in every worker, a ``:reload`` fanned out to both
    (version 2 everywhere, the same bytes after); the router's process
    never initializes CUDA (its ``/stats``); each fleet's worker boot
@@ -355,17 +356,40 @@ Phases (any failure exits non-zero before the result line):
    0.99, respawn within the budget, 0 torn and 0 duplicate answers; 0
    torn streams, 0 order violations, every done stream equal to the unary
    reference, the survivor's compiles unchanged).
-22. Print a ``slice`` line per path, the ``graphs`` line (phase 6-8's,
+22. Host failure domains and the peer router tier (``hosts_phase``):
+   serve ``examples/bert_flash_hosts.toml`` (the same model, 2 host
+   domains of 2 workers each, every agent its own process group, 2 routers
+   on one SO_REUSEPORT port, 12 layers) beside a copy with the cache on
+   and 1 worker per host and beside ``examples/bert_flash.toml`` alone. On
+   the file as written: phase 6's three requests 4 times over fresh
+   connections byte-identical to the direct server's,
+   both routers taking some (their ``router_requests_total``); K1 = 12 x
+   the batches summed over the 4 workers with the counts at 0 just before,
+   compiles unchanged; ``/metrics/fleet``'s ``requests_total{model=bert}``
+   equal to the workers' sum; no router initializes CUDA (the primary's
+   ``/stats`` and the peer's ``/peer/stats``, the primary being the serve
+   process); the bench closed at 8 connections as phase 21's; then
+   ``/admin/hosts/0:scale?active=1`` and back (200, 200) and a SIGKILL of
+   router 1 under load: every request sent after its death answers 200, the
+   ring is back at 2 members with ``router_respawns_total{router=1}`` >= 1.
+   On the cached copy: 8 identical bodies on 8 fresh connections cost one
+   batch in the fleet, with ``cache_peer_hops_total`` >= 1. Meanwhile
+   ``chaos --drill host_kill`` on the file (phase 21's arguments: one whole
+   domain killed with killpg, a re-absorb budget of the backoff plus twice
+   the slowest host boot measured here) exits 0: availability >= 0.99,
+   re-absorbed within the budget, 0 torn, 0 duplicate, the survivors'
+   compiles unchanged.
+23. Print a ``slice`` line per path, the ``graphs`` line (phase 6-8's,
    13's and 14's graph checks and host times), the ``lifecycle`` line, the
    ``robustness`` line (with phase 8's, 13's and 14's first-request
-   tables), the ``observability``, ``defaults_cost``, ``cli`` and
-   ``router`` lines, and
+   tables), the ``observability``, ``defaults_cost``, ``cli``, ``router``
+   and ``hosts`` lines, and
    the ``kernels`` line (K1 and K2, each with its launches on its path,
    counted through graph replays, K1's on the int8c path, in each of
    phase 16's ``bench`` runs, on phase 17's textgen path, phase 18's
    streams and ``bench --stream``, phase 19's MoE paths and phase 20's
-   locked and engine SD paths and phase 21's router path and its benches
-   beside, then K1's four SD rows, each with the
+   locked and engine SD paths, phase 21's router path and phase 22's host
+   path and their benches beside, then K1's four SD rows, each with the
    launches counted at its shape on the locked (B = 2) or engine (B = 16)
    path; the vision paths run neither),
    the card line, then the result line ``{"ok": true,
@@ -379,6 +403,7 @@ import contextlib
 import http.client
 import json
 import math
+import os
 import re
 import signal
 import socket
@@ -932,13 +957,13 @@ def model_config(attention: str, config: Path = CONFIG):
 SHALLOW_LAYERS = 4
 
 
-def shallow_config() -> Path:
-    """A copy of examples/bert_flash.toml under build/ at SHALLOW_LAYERS
-    layers (nothing else changed)."""
-    text = CONFIG.read_text()
+def shallow_config(config: Path = CONFIG) -> Path:
+    """A copy of ``config`` (examples/bert_flash.toml by default) under
+    build/ at SHALLOW_LAYERS layers (nothing else changed)."""
+    text = config.read_text()
     cut = re.sub(r"(?m)^layers = 12$", f"layers = {SHALLOW_LAYERS}", text)
-    check(cut != text, f"{CONFIG.name} does not set layers = 12")
-    out = ROOT / "build" / "smoke" / CONFIG.name
+    check(cut != text, f"{config.name} does not set layers = 12")
+    out = ROOT / "build" / "smoke" / config.name
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(cut)
     return out
@@ -5117,11 +5142,13 @@ def router_memory(port: int, n: int) -> dict:
     return {"memory_reserved_mib_per_worker": reserved, "nvidia_smi_used_mib": gpu_memory_used_mib()}
 
 
-def router_bench(tmp: Path, port: int, label: str, n: int, payload: Path) -> dict:
+def router_bench(tmp: Path, port: int, label: str, n: int, payload: Path,
+                 layers: int = 12) -> dict:
     """``bench`` closed at 8 connections through the router on ``port`` (``n``
     workers), K1 counted over it (the counts set to 0 in every worker just
-    before, summed just after, against the workers' summed batches), each
-    worker's ``device_utilization`` read 2.5 s after the load's first batch."""
+    before, summed just after, against the workers' summed batches: once
+    per layer of each), each worker's ``device_utilization`` read 2.5 s
+    after the load's first batch."""
     check(call(port, "POST", "/debug/kernels:reset")[0] == 200, "router: kernel count reset refused")
     before = worker_metrics(port, n)
 
@@ -5150,8 +5177,8 @@ def router_bench(tmp: Path, port: int, label: str, n: int, payload: Path) -> dic
                     for a, b in zip(after, before))
     k1 = json.loads(call(port, "GET", "/stats")[1])["kernels"]["flash_attention"]["launches"]
     check(rc == 0 and summary["n_ok"] > 0 and summary["n_err"] == 0, f"bench {label}: {summary}")
-    check(k1 > 0 and k1 == 12 * n_batches,
-          f"bench {label}: K1 launched {k1} times for {n_batches:g} batches (12 per batch)")
+    check(k1 > 0 and k1 == layers * n_batches,
+          f"bench {label}: K1 launched {k1} times for {n_batches:g} batches ({layers} per batch)")
     print(f"router: bench {label}: {summary['throughput_per_s']}/s, p50 {summary['p50_ms']} ms, "
           f"p99 {summary['p99_ms']} ms, n_ok {summary['n_ok']}; K1 {k1} over {n_batches:g} "
           f"batches; device_utilization per worker {util}", flush=True)
@@ -5160,7 +5187,7 @@ def router_bench(tmp: Path, port: int, label: str, n: int, payload: Path) -> dic
 
 
 def router_fleet(tmp: Path, payload: Path, served: tuple, n: int,
-                 direct: list | None = None) -> dict:
+                 direct: list | None = None, layers: int = 12) -> dict:
     """examples/bert_flash_router.toml served (``served``: its port and
     process) with ``n`` workers: their boot times and memory, then with
     ``direct`` (the single-process server's answers): the answers through
@@ -5195,7 +5222,7 @@ def router_fleet(tmp: Path, payload: Path, served: tuple, n: int,
         check(deltas["runtime_compiles_total"] == [0.0] * n,
               f"router: compiles moved {deltas['runtime_compiles_total']}")
         launches = k1["flash_attention"]["launches"]
-        check(launches > 0 and launches == 12 * n_batches,
+        check(launches > 0 and launches == layers * n_batches,
               f"router: K1 launched {launches} times for {n_batches:g} batches, summed over "
               f"the workers {k1['workers']}")
         t0 = time.perf_counter()
@@ -5213,10 +5240,10 @@ def router_fleet(tmp: Path, payload: Path, served: tuple, n: int,
         out.update(launches=launches, batches_per_worker=deltas["batches_total"],
                    reload_s=reload_s, answers_equal_direct=True)
         print(f"router: {n} workers: the 3 requests byte-identical to the direct server's, "
-              f"K1 {launches} = 12 x {n_batches:g} batches {deltas['batches_total']}, "
+              f"K1 {launches} = {layers} x {n_batches:g} batches {deltas['batches_total']}, "
               f"compiles moved 0; :reload fanned out in {reload_s:.2f} s (version 2 on "
               f"every worker, the same bytes after)", flush=True)
-    out["bench"] = router_bench(tmp, port, f"router {n} workers closed c8", n, payload)
+    out["bench"] = router_bench(tmp, port, f"router {n} workers closed c8", n, payload, layers)
     check(json.loads(call(port, "GET", "/stats")[1])["router"]["cuda_initialized"] is False,
           "router: the router process initialized CUDA under load")
     print(f"router: {n} workers booted in {out['boot_s']} s; memory_reserved per worker "
@@ -5226,17 +5253,16 @@ def router_fleet(tmp: Path, payload: Path, served: tuple, n: int,
     return out
 
 
-def router_drills(tmp: Path, budget_s: float) -> dict:
-    """``python -m tpuserve_torch chaos --drill worker_kill`` on
-    examples/bert_flash_router.toml and ``--drill stream_kill`` on
-    examples/textgen_flash_router.toml, side by side on the card (as phase
-    16 runs its two chaos runs): each exits 0 (availability >= 0.99 and
-    every gate)."""
+def router_drills(tmp: Path, budget_s: float, configs: tuple[Path, Path]) -> dict:
+    """``python -m tpuserve_torch chaos --drill worker_kill`` on the first of
+    ``configs`` (BERT-flash behind the router) and ``--drill stream_kill`` on
+    the second (textgen behind it), side by side on the card (as phase 16
+    runs its two chaos runs): each exits 0 (availability >= 0.99 and every
+    gate)."""
     t0 = time.perf_counter()
     runs = {drill: Cli(tmp, drill, "chaos", "--config", str(config), "--drill", drill,
                        *ROUTER_DRILL_ARGS, "--respawn-budget", f"{budget_s:.1f}")
-            for drill, config in (("worker_kill", ROUTER_CONFIG),
-                                  ("stream_kill", TG_ROUTER_CONFIG))}
+            for drill, config in zip(("worker_kill", "stream_kill"), configs)}
     try:
         results = {drill: run.finish(timeout_s=420.0) for drill, run in runs.items()}
     finally:
@@ -5260,21 +5286,24 @@ def router_drill_summary(drill: str, rc: int, text: str, wall_s: float) -> dict:
 
 def router_phase(card: str) -> dict:
     """Phase 21: BERT-flash through the router over worker processes on the
-    card (answers, K1, compiles, :reload, no CUDA in the router; bench at 1,
-    2 and 4 workers beside the direct server), then the worker_kill and
-    stream_kill drills."""
+    card (answers, K1, compiles, :reload, no CUDA in the router; bench at 1
+    and 2 workers beside the direct server), then the worker_kill and
+    stream_kill drills; every server and drill at SHALLOW_LAYERS (the
+    direct server too: the answers compared are of one depth)."""
     t0 = time.perf_counter()
-    out: dict = {"card": card, "configs": [str(c.relative_to(ROOT))
-                                           for c in (ROUTER_CONFIG, TG_ROUTER_CONFIG)]}
+    out: dict = {"card": card, "layers": SHALLOW_LAYERS,
+                 "configs": [str(c.relative_to(ROOT)) for c in (ROUTER_CONFIG, TG_ROUTER_CONFIG)]}
+    direct_cfg, router_cfg, tg_cfg = (shallow_config(c) for c in
+                                      (CONFIG, ROUTER_CONFIG, TG_ROUTER_CONFIG))
     with tempfile.TemporaryDirectory() as tmp_name:
         tmp = Path(tmp_name)
         payload = tmp / "texts32.json"
         payload.write_text(json.dumps({"texts": TEXTS_32}))
         # Servers boot in pairs (each pair side by side) and are benched one
         # at a time while the other idles.
-        fleet = (ROUTER_CONFIG, {"n_buckets": 6, "with_proc": True})
+        fleet = (router_cfg, {"n_buckets": 6, "with_proc": True})
         fleets = {}
-        with serving_together((CONFIG, {"n_buckets": 6, "overrides": CLI_SERVE_SETS}),
+        with serving_together((direct_cfg, {"n_buckets": 6, "overrides": CLI_SERVE_SETS}),
                               (fleet[0], dict(fleet[1], overrides=(*CLI_SERVE_SETS,
                                                                    "router.workers=1")))
                               ) as (port, served1):
@@ -5283,15 +5312,15 @@ def router_phase(card: str) -> dict:
             run = bench_run(tmp, port, "direct closed c8", *ROUTER_BENCH_S, "--model", "bert",
                             "--verb", "classify", "--payload", str(payload), "--content-type",
                             "application/json", "--concurrency", "8", sample_at_s=2.5)
-            check(run["k1_launches"] == 12 * run["batches"]["bert"],
+            check(run["k1_launches"] == SHALLOW_LAYERS * run["batches"]["bert"],
                   f"direct bench: K1 {run['k1_launches']} for {run['batches']} batches")
             out["direct"] = {"bench": run}
-            fleets[1] = router_fleet(tmp, payload, served1, 1)
-        with serving_together(*((fleet[0], dict(fleet[1], overrides=(*CLI_SERVE_SETS,
-                                                                     f"router.workers={n}")))
-                                for n in (2, 4))) as (served2, served4):
-            fleets[2] = router_fleet(tmp, payload, served2, 2, direct)
-            fleets[4] = router_fleet(tmp, payload, served4, 4)
+            fleets[1] = router_fleet(tmp, payload, served1, 1, layers=SHALLOW_LAYERS)
+        # Phase 22 benches 4 workers (over 2 host domains); the 2-worker
+        # fleet here is the last of this phase.
+        with serving(fleet[0], **dict(fleet[1], overrides=(*CLI_SERVE_SETS,
+                                                           "router.workers=2"))) as served2:
+            fleets[2] = router_fleet(tmp, payload, served2, 2, direct, SHALLOW_LAYERS)
         out["fleets"] = fleets
         from tpuserve_torch.config import load_config
 
@@ -5300,10 +5329,304 @@ def router_phase(card: str) -> dict:
         budget = backoff + ROUTER_BOOT_MARGIN * boot
         out["respawn_budget_s"] = {"budget_s": budget, "backoff_s": backoff,
                                    "slowest_boot_s": boot, "margin": ROUTER_BOOT_MARGIN}
-        out.update(router_drills(tmp, budget))
+        out.update(router_drills(tmp, budget, (router_cfg, tg_cfg)))
     out["k1_launches"] = fleets[2]["launches"]
     out["phase_s"] = time.perf_counter() - t0
     print(f"router: phase 21 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+# -- phase 22: host failure domains and the peer router tier -----------------------
+
+HOSTS_CONFIG = ROOT / "examples" / "bert_flash_hosts.toml"
+HOSTS_WORKERS = 4
+# The host_kill drill: phase 21's arguments (10 s at 16 connections after 1 s
+# of warm-up, the killpg 2 s in).
+HOSTS_DRILL_ARGS = ROUTER_DRILL_ARGS
+# The drill's re-absorb budget: the backoff plus this many times the slowest
+# host boot (an agent and its workers, booted one after another) measured
+# in this phase.
+HOSTS_BOOT_MARGIN = ROUTER_BOOT_MARGIN
+# Phase 6's three requests are sent this many times over fresh connections.
+HOSTS_ROUNDS = 4
+
+
+def router_urls(port: int) -> dict[int, str]:
+    """Each router's peer-listener URL by router id, from the ring its
+    ``/stats`` shows (the shared public port cannot address one router)."""
+    ring = json.loads(call(port, "GET", "/stats")[1])["router"].get("ring", {})
+    return {int(rid): url for rid, url in ring.get("members", {}).items()}
+
+
+def peer_call(url: str, path: str) -> tuple[int, bytes]:
+    """GET ``path`` on one router's loopback peer listener."""
+    host, port = url.rsplit("/", 1)[-1].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=120)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def routers_settled(port: int, n: int = 2, timeout_s: float = 60.0) -> dict[int, str]:
+    """Wait until ``n`` routers are in the ring and a fresh connection on the
+    shared port has reached each; their peer URLs."""
+    deadline = time.monotonic() + timeout_s
+    seen: set[int] = set()
+    while time.monotonic() < deadline:
+        urls = router_urls(port)
+        seen.add(json.loads(call(port, "GET", "/healthz")[1])["router_id"])
+        if len(urls) == n and seen == set(range(n)):
+            return urls
+        time.sleep(0.05)
+    raise SmokeFailure(f"hosts: {n} routers never all served the port (ring {urls}, seen {seen})")
+
+
+def routers_cuda_free(urls: dict[int, str], pid: int) -> list[bool]:
+    """Each router's ``cuda_initialized`` off its own ``/peer/stats``; the
+    primary is the ``serve`` process."""
+    flags = []
+    for rid, url in sorted(urls.items()):
+        st, body = peer_call(url, "/peer/stats")
+        check(st == 200, f"hosts: router {rid} /peer/stats answered {st}")
+        r = json.loads(body)["router"]
+        check(r["router_id"] == rid and r["is_primary"] is (rid == 0),
+              f"hosts: router {rid}'s /peer/stats: {r}")
+        check(rid != 0 or r["pid"] == pid, f"hosts: the primary is pid {r['pid']}, not {pid}")
+        flags.append(r["cuda_initialized"])
+    check(flags == [False] * len(urls), f"hosts: a router initialized CUDA: {flags}")
+    return flags
+
+
+def router_counter(urls: dict[int, str], name: str) -> dict[int, float]:
+    return {rid: metric(peer_call(url, "/peer/metrics")[1].decode(), name)
+            for rid, url in urls.items()}
+
+
+def hosts_fleet(tmp: Path, payload: Path, served: tuple, direct: list) -> dict:
+    """examples/bert_flash_hosts.toml as written (2 host domains x 2
+    workers, 2 routers, no cache): the roster, the routers free of CUDA,
+    phase 6's three requests over fresh connections byte-identical to the
+    direct server's with both routers taking some, K1 = 12 x batches over
+    the 4 workers, compiles unchanged, the fleet scrape's sum exact, the
+    bench; then host scaling and a SIGKILL of router 1 under load."""
+    from tpuserve_torch.telemetry.fleet import sum_counter
+
+    port, proc = served
+    out: dict = {}
+    urls = routers_settled(port)
+    routers_cuda_free(urls, proc.pid)
+    primary = json.loads(peer_call(urls[0], "/peer/stats")[1])
+    w = primary["workers"]
+    check(w["hosts_up"] == 2 and w["healthy"] == HOSTS_WORKERS
+          and len({h["pgid"] for h in w["hosts"]}) == 2,
+          f"hosts: roster {json.dumps(w)[:2000]}")
+    out["host_boot_s"] = [h["boot_s"] for h in w["hosts"]]
+    out["worker_boot_s"] = [r["boot_s"] for h in w["hosts"] for r in h["workers"]]
+    out["memory"] = router_memory(port, HOSTS_WORKERS)
+
+    check(call(port, "POST", "/debug/kernels:reset")[0] == 200, "hosts: kernel count reset refused")
+    before = worker_metrics(port, HOSTS_WORKERS)
+    taken0 = router_counter(urls, 'router_requests_total{model="bert"}')
+    for _ in range(HOSTS_ROUNDS):
+        check(router_answers(port) == direct,
+              "hosts: answers through the routers differ from the direct server's")
+    taken = {rid: n - taken0[rid] for rid, n in
+             router_counter(urls, 'router_requests_total{model="bert"}').items()}
+    check(sum(taken.values()) == 3 * HOSTS_ROUNDS and all(n > 0 for n in taken.values()),
+          f"hosts: requests taken per router {taken}")
+    after = worker_metrics(port, HOSTS_WORKERS)
+    deltas = {name: [metric(a, f'{name}{{model="bert"}}') - metric(b, f'{name}{{model="bert"}}')
+                     for a, b in zip(after, before)]
+              for name in ("batches_total", "items_total", "runtime_compiles_total")}
+    n_batches = sum(deltas["batches_total"])
+    launches = json.loads(call(port, "GET", "/stats")[1])["kernels"]["flash_attention"]["launches"]
+    check(sum(deltas["items_total"]) == 41 * HOSTS_ROUNDS, f"hosts: items {deltas['items_total']}")
+    check(deltas["runtime_compiles_total"] == [0.0] * HOSTS_WORKERS,
+          f"hosts: compiles moved {deltas['runtime_compiles_total']}")
+    check(launches > 0 and launches == 12 * n_batches,
+          f"hosts: K1 launched {launches} times for {n_batches:g} batches over 4 workers")
+    out.update(launches=launches, batches_per_worker=deltas["batches_total"],
+               requests_per_router=taken, answers_equal_direct=True)
+    # The fleet scrape: requests_total summed over every process, exactly.
+    st, fleet = call(port, "GET", "/metrics/fleet")
+    check(st == 200, f"hosts: /metrics/fleet answered {st}")
+    fleet_sum = sum_counter(fleet.decode(), "requests_total", 'model="bert"')
+    procs_sum = sum(sum_counter(t, "requests_total", 'model="bert"')
+                    for t in worker_metrics(port, HOSTS_WORKERS))
+    check(fleet_sum == procs_sum > 0, f"hosts: fleet requests_total {fleet_sum} != {procs_sum}")
+    out["fleet_requests_total"] = fleet_sum
+    print(f"hosts: 2 hosts x 2 workers, 2 routers: {3 * HOSTS_ROUNDS} requests over fresh "
+          f"connections byte-identical to the direct server's, taken per router {taken}; "
+          f"K1 {launches} = 12 x {n_batches:g} batches {deltas['batches_total']}, compiles "
+          f"moved 0; /metrics/fleet requests_total {fleet_sum:g} = the workers' sum; host "
+          f"boots {out['host_boot_s']} s, worker boots {out['worker_boot_s']} s", flush=True)
+    out["bench"] = router_bench(tmp, port, "2 hosts x 2 workers, 2 routers closed c8",
+                                HOSTS_WORKERS, payload)
+    return out
+
+
+def hosts_scale_and_peer_kill(port: int, proc) -> dict:
+    """``/admin/hosts/0:scale?active=1`` and back (both 200), then a
+    SIGKILL of router 1 (its pid from the primary's roster) under load:
+    every request sent after its death answers 200, and the primary
+    respawns it into a 2-member ring."""
+    import threading
+
+    urls = router_urls(port)
+    out: dict = {}
+    for active in (1, 2):
+        st, body = call(port, "POST", f"/admin/hosts/0:scale?active={active}")
+        check(st == 200 and json.loads(body)["active"] == active,
+              f"hosts: scale host 0 to {active}: {st} {body[:300]!r}")
+    out["scale"] = "host 0 to 1 and back to 2: 200, 200"
+    primary = json.loads(peer_call(urls[0], "/peer/stats")[1])
+    peer_pid = primary["routers"]["peers"][0]["pid"]
+    stop = threading.Event()
+    sent: list[tuple[float, int, str]] = []
+
+    def load(i: int) -> None:
+        n = 0
+        while not stop.is_set():
+            t = time.monotonic()
+            try:
+                st, body = call(port, "POST", "/v1/models/bert:classify",
+                                {"text": f"load {i} request {n}"})
+                what = body[:200].decode("utf-8", "replace") if st != 200 else ""
+            except OSError as e:
+                st, what = 0, repr(e)
+            sent.append((t, st, what))
+            n += 1
+
+    threads = [threading.Thread(target=load, args=(i,), daemon=True) for i in range(4)]
+    for t in threads:
+        t.start()
+    try:
+        time.sleep(1.0)
+        os.kill(peer_pid, signal.SIGKILL)
+        # Dead once reaped (the primary's liveness sweep): a zombie leader
+        # may still have threads, and with them its listening socket.
+        deadline = time.monotonic() + 30.0
+        while Path(f"/proc/{peer_pid}").exists() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        check(not Path(f"/proc/{peer_pid}").exists(), f"hosts: router 1 (pid {peer_pid}) "
+              "was not reaped in 30 s")
+        dead_at = time.monotonic()
+        time.sleep(3.0)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(60.0)
+    after = [st for t, st, _ in sent if t > dead_at]
+    failed = [(round(t - dead_at, 3), st, what) for t, st, what in sent
+              if t > dead_at and st != 200]
+    check(after and not failed,
+          f"hosts: after router 1's SIGKILL {len(failed)} of {len(after)} requests failed "
+          f"(seconds after its death, status, answer): {failed[:5]}")
+    deadline = time.monotonic() + 60.0
+    while time.monotonic() < deadline:
+        urls = router_urls(port)
+        respawns = metric(peer_call(urls[0], "/peer/metrics")[1].decode(),
+                          'router_respawns_total{router="1"}')
+        if len(urls) == 2 and respawns >= 1:
+            break
+        time.sleep(0.1)
+    check(len(urls) == 2 and respawns >= 1,
+          f"hosts: ring {urls}, router_respawns_total{{router=1}} {respawns}")
+    out.update(peer_killed_pid=peer_pid, requests_after_kill=len(after),
+               non_200_after_kill=0, ring_members=len(urls), router_respawns=respawns)
+    # Before teardown: host 0's second worker back, so no boot is cut.
+    deadline = time.monotonic() + 120.0
+    while time.monotonic() < deadline:
+        w = json.loads(peer_call(urls[0], "/peer/stats")[1])["workers"]
+        if w["healthy"] == HOSTS_WORKERS:
+            break
+        time.sleep(0.2)
+    check(w["healthy"] == HOSTS_WORKERS, f"hosts: {w['healthy']} workers healthy after the scale")
+    print(f"hosts: scaled host 0 to 1 and back (200, 200); router 1 (pid {peer_pid}) SIGKILLed "
+          f"under load: {len(after)} requests sent after its death, all 200; ring back at 2, "
+          f"router_respawns_total{{router=1}} {respawns:g}", flush=True)
+    return out
+
+
+def hosts_cached(port: int) -> dict:
+    """The same file with the cache on: 8 identical bodies on 8 fresh
+    connections cost one batch in the fleet, at least one of them through a
+    peer hop to the key's owning router."""
+    urls = routers_settled(port)
+    n = len(json.loads(peer_call(urls[0], "/peer/stats")[1])["workers"]["workers"])
+    body = {"text": "one execution for the whole router tier"}
+    batches0 = sum(metric(t, 'batches_total{model="bert"}') for t in worker_metrics(port, n))
+    hops0 = sum(router_counter(urls, 'cache_peer_hops_total{model="bert"}').values())
+    answers = set()
+    for _ in range(8):
+        st, got = call(port, "POST", "/v1/models/bert:classify", body)
+        check(st == 200, f"hosts: cached request answered {st}")
+        answers.add(got)
+    batches = sum(metric(t, 'batches_total{model="bert"}')
+                  for t in worker_metrics(port, n)) - batches0
+    hops = sum(router_counter(urls, 'cache_peer_hops_total{model="bert"}').values()) - hops0
+    check(len(answers) == 1 and batches == 1 and hops >= 1,
+          f"hosts: 8 identical bodies: {len(answers)} answers, {batches:g} batches, {hops:g} hops")
+    print(f"hosts: cache on: 8 identical bodies on fresh connections, 1 batch in the fleet, "
+          f"{hops:g} peer hops", flush=True)
+    return {"identical_bodies": 8, "batches": batches, "peer_hops": hops}
+
+
+def hosts_phase(card: str) -> dict:
+    """Phase 22: examples/bert_flash_hosts.toml (full-width BERT-flash, 2
+    host domains x 2 workers, 2 routers on one port) served beside a copy
+    with the cache on (1 worker per host) and beside examples/bert_flash.toml
+    alone (the direct server whose answers the routers' must equal), then
+    ``chaos --drill host_kill`` on the file, started once the bench is
+    done."""
+    t0 = time.perf_counter()
+    out: dict = {"card": card, "config": str(HOSTS_CONFIG.relative_to(ROOT))}
+    from tpuserve_torch.config import load_config
+
+    backoff = load_config(str(HOSTS_CONFIG)).router.respawn_initial_s
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        payload = tmp / "texts32.json"
+        payload.write_text(json.dumps({"texts": TEXTS_32}))
+        drill = None
+        try:
+            with serving_together(
+                    (HOSTS_CONFIG, {"n_buckets": 6, "with_proc": True,
+                                    "overrides": CLI_SERVE_SETS}),
+                    (HOSTS_CONFIG, {"n_buckets": 6, "with_proc": True,
+                                    "overrides": ("cache.enabled=true", "router.workers=1")}),
+                    (CONFIG, {"n_buckets": 6, "with_proc": True})
+            ) as (served, cached, alone):
+                direct = router_answers(alone[0])
+                alone[1].send_signal(signal.SIGTERM)  # its card memory is not the fleet's
+                alone[1].wait(60)
+                out["fleet"] = hosts_fleet(tmp, payload, served, direct)
+                # The drill boots its own fleet while the checks below run.
+                boot = max(out["fleet"]["host_boot_s"])
+                budget = backoff + HOSTS_BOOT_MARGIN * boot
+                out["reabsorb_budget_s"] = {"budget_s": budget, "backoff_s": backoff,
+                                            "slowest_host_boot_s": boot,
+                                            "margin": HOSTS_BOOT_MARGIN}
+                drill = Cli(tmp, "host_kill", "chaos", "--config", str(HOSTS_CONFIG), "--drill",
+                            "host_kill", *HOSTS_DRILL_ARGS, "--respawn-budget", f"{budget:.1f}")
+                out["cache"] = hosts_cached(cached[0])
+                routers_cuda_free(router_urls(cached[0]), cached[1].pid)
+                out["peer_kill"] = hosts_scale_and_peer_kill(*served)
+                routers_cuda_free(router_urls(served[0]), served[1].pid)
+            rc, text = drill.finish(timeout_s=420.0)
+        finally:
+            if drill is not None:
+                drill.kill()
+    summary = router_drill_summary("host_kill", rc, text, time.perf_counter() - t0)
+    check(summary["gates"]["survivor_compiles_zero"] and summary["kill"]["workers_killed"] == 2,
+          f"host_kill: {summary['gates']} {summary['kill']}")
+    out["host_kill"] = summary
+    out["k1_launches"] = out["fleet"]["launches"]
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"hosts: phase 22 took {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -5343,6 +5666,7 @@ def main() -> int:
         moe = moe_phase(card)
         sd = sd15_phase(card)
         router = router_phase(card)
+        hosts = hosts_phase(card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -5414,6 +5738,7 @@ def main() -> int:
                                            "replay_device_ms_12_layers": replay}
     print(json.dumps({"cli": cli_run}))
     print(json.dumps({"router": router}))
+    print(json.dumps({"hosts": hosts}))
     # K1's launches on the main path (BERT-flash), on the int8c one, on
     # textgen's (12 per insert, none per decode step), streamed and unary,
     # and on the Switch-MoE paths (textgen's inserts, BERT-flash's batches).
@@ -5430,10 +5755,13 @@ def main() -> int:
                                        launches_bert_moe=moe["bert"]["launches"],
                                        launches_sd15=sd["locked"]["k1_launches"],
                                        launches_sd15_engine=sd["engine"]["k1_launches"],
-                                       launches_router=router["k1_launches"],
-                                       launches_router_bench={
+                                       launches_router_4_layers=router["k1_launches"],
+                                       launches_router_bench_4_layers={
                                            n: f["bench"]["k1_launches"]
-                                           for n, f in router["fleets"].items()}),
+                                           for n, f in router["fleets"].items()},
+                                       launches_hosts=hosts["k1_launches"],
+                                       launches_hosts_bench=hosts["fleet"]["bench"][
+                                           "k1_launches"]),
                                   dict(k2["line"], launches=long["k2_launches"]),
                                   # K1 at SD 1.5's padded shapes, with the launches counted
                                   # at each shape: 2 rows on the locked path, 16 in the

@@ -216,6 +216,11 @@ def test_bench_frame_wire_and_synthetic_payloads(capsys):
     (["finetune-det", "--out", "o"], "ROADMAP.md queue 1 item 13"),
     (["lint"], "ROADMAP.md queue 1 item 12"),
     *[(["chaos", "--drill", drill], "ROADMAP.md queue 1 item") for drill in UNPORTED_DRILLS],
+    # host_kill is served since host failure domains were ported; this case
+    # (keeping its id) holds that a refused drill is refused whatever the
+    # run's own arguments.
+    pytest.param(["chaos", "--drill", "autopilot", "--duration", "1", "--concurrency", "2"],
+                 "ROADMAP.md queue 1 item 11b", id="argv5-ROADMAP.md queue 1 item"),
 ])
 def test_refused_subcommands_and_drills_exit_2(argv, item, capsys):
     assert port_main(argv) == 2
@@ -234,13 +239,13 @@ def test_unknown_arguments_still_refused(capsys):
 @pytest.mark.parametrize("flag", ["--kill-after", "--respawn-budget"])
 def test_unported_drill_flags_refused(flag, capsys):
     """The reference's worker_kill options came with that drill; a drill
-    still refused (host_kill, ROADMAP.md item 11b) is refused by name with
+    still refused (fleet, ROADMAP.md item 11b) is refused by name with
     them too, before any config is read, and no process drill is left in
     the refusal table."""
-    assert port_main(["chaos", "--device", "cpu", "--drill", "host_kill", flag, "5"]) == 2
+    assert port_main(["chaos", "--device", "cpu", "--drill", "fleet", flag, "5"]) == 2
     err = capsys.readouterr().err
-    assert "chaos --drill host_kill: not yet ported: ROADMAP.md queue 1 item 11b" in err
-    assert not {"worker_kill", "stream_kill"} & set(UNPORTED_DRILLS)
+    assert "chaos --drill fleet: not yet ported: ROADMAP.md queue 1 item 11b" in err
+    assert not {"worker_kill", "host_kill", "stream_kill"} & set(UNPORTED_DRILLS)
 
 
 TEXTGEN_TOML = """

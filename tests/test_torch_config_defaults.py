@@ -10,8 +10,8 @@ still refuses:
 - each typed field of the port equals the reference's value for the same
   file (defaults included);
 - for each key the port refuses (``_SERVER_UNPORTED``, ``_MODEL_UNPORTED``,
-  the switch of each table in ``UNPORTED_TABLES`` and the worker-tier keys
-  of typed tables), the reference's default is a value the port accepts —
+  the switch of each table in ``UNPORTED_TABLES``; and the router's host,
+  peer and scaling keys, served now), the reference's default is a value the port accepts —
   or the key is in ``OBSERVABILITY``, the explicit list of reference
   defaults the port does not serve yet, each of which the port indeed
   refuses when written. The list is empty: since the port serves request
@@ -19,15 +19,15 @@ still refuses:
   served;
 - the keys of the observability tables (``[trace]``, ``[events]``,
   ``[telemetry]``, ``[model.slo]`` and ``trace_capacity``) are typed with
-  the reference's defaults, and the router's ``[telemetry]
-  fleet_timeout_ms`` is refused when written;
+  the reference's defaults, the router's ``[telemetry] fleet_timeout_ms``
+  included, and served when written;
 - the process tier's keys (every field of ``[router]`` and ``[worker]``),
   the worker black box's ``[events]`` keys and the server's small keys
   (``log_json``, ``debug_nans``, ``prewarm_executables``,
   ``compilation_cache_dir``), typed since the router/worker tier was
-  ported, hold the reference's defaults and are served when written,
-  except the router's host, peer and autopilot keys, refused off their
-  defaults naming their ROADMAP.md item;
+  ported, hold the reference's defaults and are served when written; the
+  router's host, peer and scaling keys since host failure domains and peer
+  routers were ported;
 - every field of the reference's server, model and table configs is known
   to the port (typed or refused), so no key slips through unnamed;
 - ``[genserve]``, typed since the generation engine was ported, holds the
@@ -52,7 +52,7 @@ EXAMPLES = ("examples/bert_flash.toml", "examples/bert_long_ring.toml",
             "examples/efficientdet.toml", "examples/textgen_flash.toml",
             "examples/textgen_moe_flash.toml", "examples/bert_moe_flash.toml",
             "examples/sd15_flash.toml", "examples/bert_flash_router.toml",
-            "examples/textgen_flash_router.toml")
+            "examples/textgen_flash_router.toml", "examples/bert_flash_hosts.toml")
 
 # The reference's defaults that turn on a feature the port does not serve
 # yet, each refused by the port when written out: none.
@@ -85,9 +85,14 @@ def _jax_default(name: str):
 
 
 def _port_refuses(name: str, value) -> bool:
-    """Does the port refuse ``name`` written out with ``value``?"""
+    """Does the port refuse ``name`` written out with ``value``? (A key of a
+    typed table is written through ``load_config``'s override.)"""
     cfg = tconfig.ServerConfig(models=[tconfig.ModelConfig(name="m")])
-    if name.startswith("model "):
+    if name in SERVED_TIER_KEYS:
+        table, key = name[1:].split("] ")
+        cfg = tconfig.load_config(None, [f"{table}.{key}={json.dumps(value)}"])
+        assert getattr(getattr(cfg, table), key) == value
+    elif name.startswith("model "):
         cfg.models[0].unported = {name[len("model "):]: value}
     else:
         cfg.unported = {name: value}
@@ -98,16 +103,16 @@ def _switch(table: str) -> str:
     return TABLE_SWITCH.get(table, f"[{table}] enabled")
 
 
-# The keys of typed tables refused off the reference's default (the
-# router's host, peer and autopilot keys). (The router's [telemetry]
-# fleet_timeout_ms is refused whenever written, so its default, never
-# written, is not a refused value.)
-TIER_KEYS = sorted(f"[{t}] {k}" for t, keys in tconfig._TABLE_KEYS_UNPORTED.items()
-                   for k, accepted in keys.items() if accepted)
+# The router's host, peer and scaling keys: refused off the reference's
+# default until host failure domains and peer routers were ported, served
+# since (their reference default among them).
+SERVED_TIER_KEYS = [f"[router] {k}" for k in (
+    "active_workers", "host_breaker_cooldown_s", "host_breaker_threshold", "hosts",
+    "peer_port", "peer_sync_interval_s", "routers")]
 
 REFUSED = sorted(tconfig._SERVER_UNPORTED) \
     + [f"model {k}" for k in sorted(tconfig._MODEL_UNPORTED)] \
-    + sorted({_switch(t) for t in tconfig.UNPORTED_TABLES}) + TIER_KEYS
+    + sorted({_switch(t) for t in tconfig.UNPORTED_TABLES}) + SERVED_TIER_KEYS
 
 
 @pytest.mark.parametrize("name", REFUSED)
@@ -161,7 +166,9 @@ def test_streaming_keys_are_typed_with_the_reference_default(name):
         port = getattr(tconfig.ModelConfig(name="m"), key)
     assert port == _jax_default(name)
     assert key not in tconfig._MODEL_UNPORTED
-    assert key not in tconfig._TABLE_KEYS_UNPORTED.get("genserve", {})
+    cfg = tconfig.load_config(None, [f"genserve.{key}={json.dumps(port)}"]
+                              if name.startswith("[") else None)
+    assert tconfig.unported_settings(cfg) == []
 
 
 @pytest.mark.parametrize("path", EXAMPLES)
@@ -201,26 +208,20 @@ def test_unported_table_keys_parse_as_refused(table, tmp_path):
     typed since the generation engine was ported and refuses nothing since
     streaming was: each of its keys written parses typed and is served.
     [router] and [worker] are typed since the router/worker tier was
-    ported: each key written parses typed; the router's host, peer and
-    autopilot keys are refused off their defaults naming ROADMAP.md item
-    11b, the rest are served."""
+    ported: each key written parses typed and, since host failure domains
+    and peer routers were ported, is served."""
     if table in ("router", "worker"):
         assert table not in tconfig.UNPORTED_TABLES
-        refused = tconfig._TABLE_KEYS_UNPORTED.get(table, {})
         for f in dataclasses.fields(getattr(tconfig, TABLE_CLASS[table])):
             # A value other than the default (active_workers stays <= workers).
             value = (not f.default if isinstance(f.default, bool)
                      else "127.0.0.2" if isinstance(f.default, str) else f.default * 2 + 1)
             cfg = tconfig.load_config(None, [f"{table}.{f.name}={json.dumps(value)}"])
             assert getattr(getattr(cfg, table), f.name) == value, f.name
-            expect = ([f"[{table}] {f.name} = {value!r} (not yet ported: ROADMAP.md "
-                       f"{tconfig._TABLE_KEY_ITEMS[f'[{table}] {f.name}']})"]
-                      if f.name in refused else [])
-            assert tconfig.unported_settings(cfg) == expect, f.name
+            assert cfg.unported == {} and tconfig.unported_settings(cfg) == [], f.name
         return
     if table == "genserve":
         assert table not in tconfig.UNPORTED_TABLES
-        assert table not in tconfig._TABLE_KEYS_UNPORTED
         for f in dataclasses.fields(tconfig.GenserveConfig):
             if isinstance(f.default, bool) or not isinstance(f.default, (int, float)):
                 continue
@@ -275,13 +276,14 @@ def test_observability_keys_are_typed_with_the_reference_default(name):
 
 @pytest.mark.parametrize("name, value", [("telemetry.fleet_timeout_ms", 2000.0)])
 def test_worker_tier_keys_of_typed_tables_are_refused_when_written(name, value):
-    """The reference router's fleet scrape reads this; written, the port
-    refuses it by name (the typed field still takes the value)."""
+    """The router's fleet scrape reads this: refused when written until the
+    fleet scrape was ported, served since (the typed field takes the value,
+    nothing is refused)."""
     table, key = name.split(".")
     cfg = tconfig.load_config(None, [f"{name}={value!r}" if isinstance(value, str)
                                      else f"{name}={value}"])
     assert getattr(getattr(cfg, table), key) == value
-    assert tconfig.unported_settings(cfg) == [f"[{table}] {key} = {value!r}"]
+    assert cfg.unported == {} and tconfig.unported_settings(cfg) == []
 
 
 @pytest.mark.parametrize("key, value, named", [
@@ -335,17 +337,20 @@ def test_process_tier_keys_are_typed_with_the_reference_default(name):
     assert port == _jax_default(name)
     cfg = tconfig.ServerConfig(models=[tconfig.ModelConfig(name="m")])
     assert tconfig.unported_settings(cfg) == []
-    assert key not in tconfig._TABLE_KEYS_UNPORTED.get("events", {})
+    if name.startswith("["):
+        written = tconfig.load_config(None, [f"{table}.{key}={json.dumps(port)}"])
+        assert written.unported == {} and tconfig.unported_settings(written) == []
 
 
-ROUTER_REFUSED = sorted(tconfig._TABLE_KEYS_UNPORTED["router"])
+ROUTER_SERVED = [k.split("] ")[1] for k in SERVED_TIER_KEYS]
 
 
-@pytest.mark.parametrize("key", ROUTER_REFUSED)
+@pytest.mark.parametrize("key", ROUTER_SERVED)
 def test_unserved_router_values_are_refused_by_name(key, tmp_path):
-    """The router's host failure domains, peer routers and autopilot slots
-    wait for ROADMAP.md item 11b: off the reference's default, the server
-    (and a router deployment) refuses the key by name with that item."""
+    """The router's host failure domains, peer routers and host scaling
+    slots: refused off the reference's default until they were ported;
+    served since. Off the default, a router deployment's file loads typed
+    with nothing refused, and the server builds on it."""
     from tpuserve_torch.server import ServerState
 
     default = getattr(tconfig.RouterConfig(), key)
@@ -353,7 +358,6 @@ def test_unserved_router_values_are_refused_by_name(key, tmp_path):
     path = tmp_path / "c.toml"
     path.write_text(f"[router]\nenabled = true\n{key} = {json.dumps(value)}\n")
     cfg = tconfig.load_config(str(path))
-    named = f"[router] {key} = {value!r} (not yet ported: ROADMAP.md item 11b"
-    assert tconfig.unported_settings(cfg)[0].startswith(named)
-    with pytest.raises(NotImplementedError, match=r"item 11b"):
-        ServerState(cfg, device="cpu")
+    assert getattr(cfg.router, key) == value
+    assert cfg.unported == {} and tconfig.unported_settings(cfg) == []
+    ServerState(cfg, device="cpu")

@@ -1,8 +1,9 @@
-"""The ``worker_kill`` and ``stream_kill`` drills (``python -m tpuserve_torch
-chaos --drill ...``, ``tpuserve_torch.workerproc.drill``) against the port on
-the CPU, at a small size: a router over 2 spawned workers serving a narrow
+"""The ``worker_kill``, ``host_kill`` and ``stream_kill`` drills (``python -m
+tpuserve_torch chaos --drill ...``, ``tpuserve_torch.workerproc.drill``)
+against the port on the CPU, at a small size: a router over 2 spawned
+workers (2 host domains of 2 workers for ``host_kill``) serving a narrow
 seeded BERT-flash (2 layers, d_model 32) or textgen (2 layers, d_model 64),
-one worker SIGKILLed under load.
+one worker (one whole domain) SIGKILLed under load.
 
 The reference's gates (``tpuserve/workerproc/drill.py``):
 
@@ -19,6 +20,11 @@ The reference's gates (``tpuserve/workerproc/drill.py``):
   error-terminated one a prefix of it, the survivor's compile count
   unchanged; the router's terminations counted under the closed
   vocabulary.
+- ``host_kill``: availability >= 0.99 with one whole host domain killed
+  (``killpg`` of its agent's process group), the domain back (agent and
+  every worker healthy) within the re-absorb budget, zero torn and zero
+  duplicate answers, the surviving workers' compile counts unchanged; the
+  CLI exits 1 when a gate breaks.
 """
 
 import asyncio
@@ -150,6 +156,52 @@ def test_worker_kill_drill_exits_1_when_a_gate_breaks(tmp_path, capsys):
     assert rc == 1
     assert out["gates"]["respawn_within_budget"] is False
     assert out["kill"]["respawn_s"] is None
+    assert out["gates"]["zero_torn"] and out["gates"]["zero_duplicates"]
+
+
+def _host_chaos(tmp_path, capsys, budget: float) -> tuple[int, dict]:
+    """``chaos --drill host_kill`` on BERT_TOML: the drill makes it 2 host
+    domains of 2 workers each and kills one domain with killpg 0.5 s in."""
+    path = tmp_path / "bert_router.toml"
+    path.write_text(BERT_TOML)
+    rc = port_main(["chaos", "--config", str(path), "--device", "cpu", "--drill",
+                    "host_kill", "--duration", "3", "--warmup", "0.5", "--concurrency", "4",
+                    "--kill-after", "0.5", "--respawn-budget", str(budget),
+                    "--min-availability", "0.99"])
+    return rc, json.loads(capsys.readouterr().out)
+
+
+def test_host_kill_drill_passes_its_gates(tmp_path, capsys):
+    """The reference's host_kill gates: availability >= 0.99 with a whole
+    domain killed, the domain re-absorbed (agent and both workers healthy)
+    within the budget, zero torn and zero duplicate answers, the survivors'
+    compile counts unchanged; the domain's postmortem names SIGKILL."""
+    rc, out = _host_chaos(tmp_path, capsys, 90.0)
+    assert rc == 0, (out["gates"], out["kill"])
+    assert out["drill"] == "host_kill" and out["availability"] >= 0.99
+    assert out["gates"] == {"reabsorb_within_budget": True, "zero_torn": True,
+                            "zero_duplicates": True, "survivor_compiles_zero": True}
+    kill = out["kill"]
+    assert kill["killed_host"] in (0, 1) and kill["workers_killed"] == 2
+    assert 0 < kill["reabsorb_s"] <= 90.0
+    survivors = {str(w) for w in range(4)} - {str(2 * kill["killed_host"]),
+                                              str(2 * kill["killed_host"] + 1)}
+    assert set(out["compile_deltas"]) == survivors
+    assert out["integrity"]["validated"] > 0
+    workers = out["workers"]
+    assert workers["hosts_up"] == 2 and workers["host_deaths_total"] == 1
+    assert any(p["component"] == "host" and p["signal"] == "SIGKILL"
+               and p["id"] == f"host{kill['killed_host']}" for p in out["postmortems"])
+    assert {"availability", "kill", "integrity", "workers", "compile_deltas",
+            "router"} <= set(out)
+
+
+def test_host_kill_drill_exits_1_when_a_gate_breaks(tmp_path, capsys):
+    """A budget no re-absorb meets breaks that gate: exit 1, the others
+    still reported."""
+    rc, out = _host_chaos(tmp_path, capsys, 0.05)
+    assert rc == 1
+    assert out["gates"]["reabsorb_within_budget"] is False and out["kill"]["reabsorb_s"] is None
     assert out["gates"]["zero_torn"] and out["gates"]["zero_duplicates"]
 
 

@@ -167,6 +167,35 @@ def test_router_imports_and_builds_without_cuda_or_jax():
     assert out.stdout.split("\n")[0] == "cuda_initialized False"
 
 
+def test_host_and_peer_tiers_build_without_cuda_or_jax():
+    """With jax, flax, tpuserve and aiohttp blocked, the host and peer tiers
+    build their state for examples/bert_flash_hosts.toml: the primary's
+    HostSupervisor (2 hosts x 2 workers on the card, the device handed to
+    the agents) and peer supervisor, a peer router's passive view and its
+    ring; and CUDA is never initialized in the process."""
+    code = (
+        "import sys\n"
+        f"for name in {(*BLOCKED, 'aiohttp')!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import torch\n"
+        "from tpuserve_torch.config import load_config\n"
+        "from tpuserve_torch.telemetry import fleet\n"
+        "from tpuserve_torch.workerproc import hosts, peers, router\n"
+        "cfg = load_config('examples/bert_flash_hosts.toml')\n"
+        "state = router.RouterState(cfg)\n"
+        "assert isinstance(state.supervisor, hosts.HostSupervisor)\n"
+        "assert state.supervisor.n == 4 and state.supervisor.device == 'cuda'\n"
+        "assert state.peer_sup.rids == [1] and state.topo is None\n"
+        "peer = router.RouterState(cfg, router_id=1, primary_peer_url='http://127.0.0.1:1')\n"
+        "assert isinstance(peer.supervisor, peers.PassiveWorkerView) and peer.peer_sup is None\n"
+        "assert peers.HashRing({0: 'a', 1: 'b'}).owner('k')[0] in (0, 1)\n"
+        "print('cuda_initialized', torch.cuda.is_initialized())\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ENV,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[0] == "cuda_initialized False"
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -212,22 +241,23 @@ MODEL_TOML = '[[model]]\nname = "bert"\nfamily = "bert"\nparallelism = "single"\
                  "[parallel] mode = 'replica'",
                  id="[genserve]\nenabled = true\n-[genserve] enabled = True"),
     # Since the router/worker tier was ported, [router], worker_crash and
-    # the black-box keys are served; these cases (keeping their ids) hold
-    # the values of the same tables still refused: host failure domains,
-    # deferred mode's fault kind, the fleet scrape and peer routers.
-    pytest.param("[router]\nenabled = false\nhosts = 2\n",
-                 "[router] hosts = 2 (not yet ported: ROADMAP.md item 11b",
+    # the black-box keys are served, and since host failure domains, peer
+    # routers and the fleet scrape were ported, [router] hosts, peer_port,
+    # routers and [telemetry] fleet_timeout_ms too: these cases (keeping
+    # their ids) hold that those settings are served (``named`` None: the
+    # server builds and nothing is refused), and that deferred mode's fault
+    # kind is still refused.
+    pytest.param("[router]\nenabled = false\nhosts = 2\n", None,
                  id="[router]\nenabled = false\nworkers = 4\n-[router] workers = 4"),
     pytest.param("[faults]\nenabled = true\n[[faults.rule]]\nkind = \"worker_death\"\n",
                  "[[faults.rule]] kind = 'worker_death' (not yet ported (deferred mode))",
                  id="[faults]\nenabled = true\n[[faults.rule]]\nkind = \"worker_crash\"\n-"
                     "[[faults.rule]] kind = 'worker_crash' (not yet ported (router and workers))"),
-    pytest.param("[router]\npeer_port = 9100\n",
-                 "[router] peer_port = 9100 (not yet ported: ROADMAP.md item 11b",
+    pytest.param("[router]\npeer_port = 9100\n", None,
                  id="[events]\ndir = \"/tmp/bb\"\n-[events] dir = '/tmp/bb'"),
-    ("[telemetry]\nfleet_timeout_ms = 2000.0\n", "[telemetry] fleet_timeout_ms = 2000.0"),
-    pytest.param("[router]\nrouters = 2\n",
-                 "[router] routers = 2 (not yet ported: ROADMAP.md item 11b",
+    pytest.param("[telemetry]\nfleet_timeout_ms = 2000.0\n", None,
+                 id="[telemetry]\nfleet_timeout_ms = 2000.0\n-[telemetry] fleet_timeout_ms = 2000.0"),
+    pytest.param("[router]\nrouters = 2\n", None,
                  id="[events]\nsnapshot_path = \"s.json\"\n-[events] snapshot_path = 's.json'"),
     ("[parallel]\nmode = \"replica\"\n", "[parallel] mode = 'replica'"),
     ("profiler_port = 9999\n", "profiler_port = 9999"),
@@ -237,13 +267,19 @@ MODEL_TOML = '[[model]]\nname = "bert"\nfamily = "bert"\nparallelism = "single"\
 ])
 def test_server_refuses_unported_settings(tmp_path, toml, named):
     """A setting the port does not honour is refused by name at startup,
-    never quietly ignored; the file itself still parses."""
-    from tpuserve_torch.config import load_config
+    never quietly ignored; the file itself still parses. A case whose
+    setting the port serves now (``named`` None) builds and refuses
+    nothing."""
+    from tpuserve_torch.config import load_config, unported_settings
     from tpuserve_torch.server import ServerState
 
     path = tmp_path / "c.toml"
     path.write_text(toml)
     cfg = load_config(str(path))
+    if named is None:
+        assert unported_settings(cfg) == []
+        ServerState(cfg, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="not yet ported") as err:
         ServerState(cfg, device="cpu")
     assert named in str(err.value)

@@ -55,6 +55,7 @@ from tpuserve.workerproc.worker import worker_config as jax_worker_config
 from tpuserve_torch import config as tconfig
 from tpuserve_torch import frame as tframe
 from tpuserve_torch import obs as tobs
+from tpuserve_torch.bench import client as tclient
 from tpuserve_torch.ops import _build
 from tpuserve_torch.runtime import ModelRuntime
 from tpuserve_torch.server import JsonLogFormatter, ServerState, start_server, stop_server
@@ -564,25 +565,52 @@ def test_compilation_cache_dir_moves_the_kernel_build(tmp_path, monkeypatch):
     assert _build.load("flash_attention").stand_in() == 7
 
 
-def test_refused_router_routes_name_their_item(tmp_path):
-    """The fleet scrape (item 12), host scaling, the autopilot and tenants
-    (item 11b) answer with their refusal, without a fleet."""
-    state, _ = _router_states(tmp_path)
+def _route(state, path, method="GET", query=None):
     from tpuserve_torch.server import Request
 
-    async def go(path, method="GET"):
-        req = Request(method=method, path=path, query={}, headers={}, body=b"")
+    async def go():
+        req = Request(method=method, path=path, query=query or {}, headers={}, body=b"")
         return await state.handle(req)
 
-    for path, status, item in [("/metrics/fleet", 501, "item 12"),
-                               ("/stats/fleet", 501, "item 12"),
-                               ("/debug/autopilot", 409, "item 11b"),
-                               ("/tenants", 409, "item 11b")]:
-        resp = asyncio.run(go(path))
-        assert resp.status == status and item in json.loads(resp.body)["error"], path
-    resp = asyncio.run(go("/admin/hosts/0:scale", "POST"))
-    assert resp.status == 409 and b"item 11b" in resp.body
-    assert asyncio.run(go("/no/such/page")).status == 404
+    return asyncio.run(go())
+
+
+def test_refused_router_routes_name_their_item(tmp_path):
+    """The autopilot and tenants (item 11b) answer with their refusal,
+    without a fleet; host scaling with no host domains answers the
+    reference's 409."""
+    state, _ = _router_states(tmp_path)
+    for path in ("/debug/autopilot", "/tenants"):
+        resp = _route(state, path)
+        assert resp.status == 409 and "item 11b" in json.loads(resp.body)["error"], path
+    resp = _route(state, "/admin/hosts/0:scale", "POST", {"active": "1"})
+    assert resp.status == 409
+    assert json.loads(resp.body)["error"] == ("[router] hosts = 0: there are no host "
+                                              "domains to scale")
+    assert _route(state, "/no/such/page").status == 404
+
+
+@pytest.mark.parametrize("path", ["/metrics/fleet", "/stats/fleet"])
+def test_fleet_scrape_routes_are_served_without_a_fleet(tmp_path, path):
+    """The fleet scrape, refused until it was ported, answers 200 with every
+    worker slot stale (no fleet was started), never a 5xx."""
+    state, _ = _router_states(tmp_path)
+    state._session = tclient.ClientSession(timeout_s=1.0)
+    resp = _route(state, path)
+    assert resp.status == 200, resp.body
+    if path == "/stats/fleet":
+        rollup = json.loads(resp.body)
+        assert rollup["stale"] == ["worker0", "worker1", "worker2"]
+        assert rollup["sources"]["router0"] == "up"
+    else:
+        assert b"# STALE worker0" in resp.body and resp.body.endswith(b"# EOF\n")
+
+
+@pytest.mark.parametrize("query, status", [({}, 400), ({"active": "x"}, 400),
+                                           ({"active": "1", "junk": "1"}, 400)])
+def test_host_scale_validates_its_query_like_the_reference(tmp_path, query, status):
+    state, _ = _router_states(tmp_path)
+    assert _route(state, "/admin/hosts/0:scale", "POST", query).status == status
 
 
 def test_worker_fault_kinds_fire_pinned_to_their_worker():

@@ -6,7 +6,8 @@ Usage::
                                       [--device cuda|cpu|cuda:N]
     python -m tpuserve_torch bench    --url http://127.0.0.1:8000 --model resnet50 ...
     python -m tpuserve_torch chaos    --config chaos.toml --min-availability 0.99 \\
-                                      [--drill reload|worker_kill|stream_kill] [--device ...]
+                                      [--drill reload|worker_kill|host_kill|stream_kill]
+                                      [--device ...]
     python -m tpuserve_torch warmup   --config serve.toml [--device ...]
     python -m tpuserve_torch describe [--device ...]
 
@@ -16,15 +17,18 @@ CUDA device unless ``--device`` names another (``cpu`` included); without
 CUDA they fail instead of falling back to the CPU. ``bench`` builds nothing:
 it is the HTTP load generator (``tpuserve_torch.bench.loadgen``). With
 ``[router] enabled``, ``serve`` runs the router in this process and the
-workers build the models on ``--device``; ``chaos --drill worker_kill`` and
-``--drill stream_kill`` (``tpuserve_torch.workerproc.drill``) do the same
-with a SIGKILL mid-load and exit 1 unless availability holds and every
-drill gate passes. Either way this process never initializes CUDA.
+workers build the models on ``--device`` (with ``[router] hosts > 0`` under
+host agents, with ``[router] routers > 1`` beside peer routers on the same
+port); ``chaos --drill worker_kill``, ``--drill host_kill`` and ``--drill
+stream_kill`` (``tpuserve_torch.workerproc.drill``) do the same with a
+SIGKILL of a worker (of a whole host domain with ``host_kill``) mid-load and
+exit 1 unless availability holds and every drill gate passes. Either way
+this process never initializes CUDA.
 
 Not ported, refused by name with exit code 2: ``import-model`` (converts a
 TF SavedModel; needs TensorFlow), ``finetune-det`` (ROADMAP.md queue 1 item
-13), ``lint`` (item 12), and the chaos drills ``host_kill``, ``fleet`` and
-``autopilot`` (item 11b).
+13), ``lint`` (item 12), and the chaos drills ``fleet`` and ``autopilot``
+(item 11b).
 """
 
 from __future__ import annotations
@@ -43,12 +47,11 @@ UNPORTED_COMMANDS = {
             "tpuserve_torch/)",
 }
 UNPORTED_DRILLS = {
-    "host_kill": "not yet ported: ROADMAP.md queue 1 item 11b (host failure domains)",
     "fleet": "not yet ported: ROADMAP.md queue 1 item 11b (the fleet scheduler)",
     "autopilot": "not yet ported: ROADMAP.md queue 1 item 11b (tenants, autopilot)",
 }
 # The drills that serve a router over worker processes.
-PROCESS_DRILLS = ("worker_kill", "stream_kill")
+PROCESS_DRILLS = ("worker_kill", "host_kill", "stream_kill")
 
 
 def _add_config_args(p: argparse.ArgumentParser) -> None:
@@ -148,19 +151,24 @@ def _add_chaos_args(p: argparse.ArgumentParser) -> None:
                         "prove the lifecycle gates hold availability; "
                         "'worker_kill' serves a router + worker fleet and "
                         "SIGKILLs one worker mid-load (availability, respawn "
-                        "time, zero torn or duplicate answers); 'stream_kill' "
+                        "time, zero torn or duplicate answers); 'host_kill' "
+                        "serves >= 2 host domains and SIGKILLs one whole domain "
+                        "(its process group) mid-load (availability, re-absorb "
+                        "time, zero torn or duplicate answers, survivors' "
+                        "compiles unchanged); 'stream_kill' "
                         "does so under mixed streaming + unary load on a "
                         "generative model (zero torn or reordered streams, "
-                        "streams equal to a seeded reference); host_kill, "
-                        "fleet and autopilot are not ported yet (exit 2)")
+                        "streams equal to a seeded reference); fleet and "
+                        "autopilot are not ported yet (exit 2)")
     p.add_argument("--drill-interval", type=float, default=0.5,
                    help="seconds between drill operations")
     p.add_argument("--kill-after", type=float, default=None,
-                   help="worker_kill/stream_kill: seconds after warmup before the "
-                        "SIGKILL (default: 25%% of the run)")
+                   help="worker_kill/host_kill/stream_kill: seconds after warmup "
+                        "before the SIGKILL (default: 25%% of the run)")
     p.add_argument("--respawn-budget", type=float, default=120.0,
-                   help="worker_kill/stream_kill: seconds the killed worker has "
-                        "to come back healthy (backoff + boot)")
+                   help="worker_kill/host_kill/stream_kill: seconds the killed "
+                        "worker (or host, with all its workers) has to come "
+                        "back healthy (backoff + boot)")
 
 
 def _load(parser: argparse.ArgumentParser, args):
@@ -260,12 +268,17 @@ def main(argv: list[str] | None = None) -> int:
             # build the models on --device.
             from tpuserve_torch.workerproc import drill
 
-            run = (drill.run_worker_kill_drill if args.drill == "worker_kill"
-                   else drill.run_stream_kill_drill)
-            summary = asyncio.run(run(
-                cfg, model, duration_s=args.duration, warmup_s=args.warmup,
-                concurrency=args.concurrency, kill_after_s=args.kill_after,
-                respawn_budget_s=args.respawn_budget, device=args.device or "cuda"))
+            kw = dict(duration_s=args.duration, warmup_s=args.warmup,
+                      concurrency=args.concurrency, kill_after_s=args.kill_after,
+                      device=args.device or "cuda")
+            if args.drill == "host_kill":
+                summary = asyncio.run(drill.run_host_kill_drill(
+                    cfg, model, reabsorb_budget_s=args.respawn_budget, **kw))
+            else:
+                run = (drill.run_worker_kill_drill if args.drill == "worker_kill"
+                       else drill.run_stream_kill_drill)
+                summary = asyncio.run(run(cfg, model, respawn_budget_s=args.respawn_budget,
+                                          **kw))
             print(json.dumps(summary, indent=2))
             return 0 if (summary["availability"] >= args.min_availability
                          and all(summary["gates"].values())) else 1

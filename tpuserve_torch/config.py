@@ -24,12 +24,7 @@ default where that default asks for nothing (``relay_workers = 2`` while
 the model is served directly), is accepted. So is a ``[[faults.rule]]``
 whose kind fires at a call site the port has; while ``[faults]`` is
 enabled, a rule whose call site the port lacks (deferred mode's
-``worker_death``) is refused by name. Keys of typed tables whose behaviour
-waits for a later item are refused off the reference's default, naming
-that item: ``[router] hosts``, ``host_breaker_*`` and ``active_workers``
-(host failure domains, the autopilot), ``routers``, ``peer_port`` and
-``peer_sync_interval_s`` (peer routers), and ``[telemetry]
-fleet_timeout_ms`` whenever it is written (the fleet scrape).
+``worker_death``) is refused by name.
 
 Example TOML::
 
@@ -62,29 +57,6 @@ UNPORTED_TABLES = ("autopilot", "distributed", "parallel", "scheduler", "tenants
 _TABLE_OFF: dict[str, tuple] = {"enabled": (False,)}
 _PARALLEL_OFF: dict[str, tuple] = {"mode": ("", "single")}
 _DISTRIBUTED_OFF: dict[str, tuple] = {"coordinator_address": ("",)}
-# Keys of typed tables whose behaviour the port does not serve yet, with the
-# values that ask for nothing (empty: refused whenever written). Written
-# values are also kept in ``unported`` as "[table] key", so
-# unported_settings names them.
-_TABLE_KEYS_UNPORTED: dict[str, dict[str, tuple]] = {
-    # The router's host failure domains, peer routers and autopilot
-    # scaling; the reference's defaults ask for none of them.
-    "router": {"hosts": (0,), "host_breaker_threshold": (3,),
-               "host_breaker_cooldown_s": (1.0,), "active_workers": (0,),
-               "routers": (1,), "peer_port": (0,), "peer_sync_interval_s": (0.5,)},
-    "telemetry": {"fleet_timeout_ms": ()},
-}
-# The ROADMAP.md item a refused key of a typed table waits for.
-_TABLE_KEY_ITEMS = {
-    "[router] hosts": "item 11b: host failure domains",
-    "[router] host_breaker_threshold": "item 11b: host failure domains",
-    "[router] host_breaker_cooldown_s": "item 11b: host failure domains",
-    "[router] active_workers": "item 11b: the autopilot",
-    "[router] routers": "item 11b: peer routers",
-    "[router] peer_port": "item 11b: peer routers",
-    "[router] peer_sync_interval_s": "item 11b: peer routers",
-}
-
 # The JAX package's top-level and per-model keys the port does not serve
 # yet, each with the values that ask for nothing the port lacks (empty: no
 # such value, any setting is refused).
@@ -460,8 +432,8 @@ class TelemetryConfig:
     evaluates multi-window burn rates over ``[model.slo]`` (``GET
     /alerts``), the sampler derives ``device_utilization{model=,replica=}``
     from ``device_seconds_total``, and ``POST /debug/profile`` captures a
-    device trace. ``fleet_timeout_ms`` is the router's fleet scrape (ROADMAP
-    item 12) and is refused whenever written."""
+    device trace. ``fleet_timeout_ms`` bounds each source of the router's
+    fleet scrape (``/metrics/fleet``, ``/stats/fleet``)."""
 
     enabled: bool = True
     # Sampler cadence (s).
@@ -511,24 +483,42 @@ class RouterConfig:
     the router re-dispatches idempotent work to a surviving worker on
     transport failure (never past the request's absolute deadline) and
     hedges slow attempts — one misbehaving or crashed worker costs
-    capacity, never availability. ``hosts``, ``host_breaker_*``,
-    ``active_workers``, ``routers``, ``peer_port`` and
-    ``peer_sync_interval_s`` are typed with the reference's defaults and
-    refused off them (ROADMAP.md item 11b)."""
+    capacity, never availability. ``hosts`` groups the workers into host
+    failure domains (``tpuserve_torch.workerproc.hosts``) and ``routers``
+    puts peer routers on the serving port (``tpuserve_torch.workerproc.
+    peers``)."""
 
     enabled: bool = False
     # Worker processes to supervise (each builds every configured model).
+    # With hosts > 0 this is the worker count PER HOST.
     workers: int = 2
-    # Host failure domains (not yet served: 0).
+    # Host failure domains. 0 = no host layer: workers are direct children
+    # of the router. N >= 1 groups the workers into N named hosts, each a
+    # host-agent process in its own process group owning ``workers``
+    # worker processes, so one SIGKILL of the group takes out the whole
+    # domain, as a machine dying would. The router routes around a dead
+    # host (host breaker + health probes), respawns it with the workers'
+    # backoff, and never places a hedge on its primary's host.
     hosts: int = 0
-    # Router processes sharing the serving port (not yet served: 1).
+    # Router processes sharing the serving port via SO_REUSEPORT. Router 0
+    # (the primary) owns the host/worker supervisor and supervises the
+    # N - 1 peer routers; every router shards the result cache by
+    # consistent hash, forwarding a miss to the key's owning router over
+    # loopback HTTP and degrading to local-only (counted, never erroring)
+    # when the owner is unreachable.
     routers: int = 1
-    # Host breaker (with hosts > 0; not yet served).
+    # Consecutive relay transport failures (connection refused/reset)
+    # against one host's workers before the whole host is routed around
+    # without waiting for health probes; 0 disables the host breaker.
     host_breaker_threshold: int = 3
+    # How long a tripped host breaker sheds picks before half-opening (the
+    # next pick is the recovery probe; a success closes it).
     host_breaker_cooldown_s: float = 1.0
-    # Peer routers' topology sync and the primary's peer listener (with
-    # routers > 1; not yet served).
+    # Peer routers poll the primary for topology (worker addresses, ring
+    # membership, cache generations) this often.
     peer_sync_interval_s: float = 0.5
+    # The primary's peer-listener port (the loopback control plane the peer
+    # routers sync from and forward cache hops to); 0 = ephemeral.
     peer_port: int = 0
     # Transport-failure re-dispatches per request (connection refused/reset,
     # a worker dying mid-request). Definitive worker answers (any HTTP
@@ -555,8 +545,9 @@ class RouterConfig:
     # Worker boot budget (spawn -> ready handshake), seconds. Generous: a
     # cold worker builds the kernels and captures every bucket's graphs.
     spawn_timeout_s: float = 900.0
-    # Initial active worker slots per host domain (the autopilot's; not yet
-    # served: 0 = all of them).
+    # Initial ACTIVE worker slots per host domain: slots beyond this boot
+    # scaled down and cost nothing until ``/admin/hosts/{hid}:scale``
+    # activates them. 0 = all ``workers`` slots active.
     active_workers: int = 0
     # Per-stream idle timeout: a STARTED stream whose worker goes silent (no
     # chunk) this long is terminated with the well-formed error event
@@ -849,7 +840,7 @@ class ServerConfig:
 
 
 # The observability tables, [genserve], [router] and [worker], typed by TOML
-# table name (each may hold keys of _TABLE_KEYS_UNPORTED).
+# table name.
 TYPED_TABLES = {"trace": TraceConfig, "telemetry": TelemetryConfig,
                 "events": EventsConfig, "genserve": GenserveConfig,
                 "router": RouterConfig, "worker": WorkerConfig}
@@ -862,14 +853,12 @@ def unported_settings(cfg: ServerConfig) -> list[str]:
     for name, value in cfg.unported.items():
         if name.startswith("["):
             table, _, key = name[1:].partition("] ")
-            accepted = {"parallel": _PARALLEL_OFF, "distributed": _DISTRIBUTED_OFF,
-                        **_TABLE_KEYS_UNPORTED}.get(table, _TABLE_OFF).get(key, ())
+            accepted = {"parallel": _PARALLEL_OFF,
+                        "distributed": _DISTRIBUTED_OFF}.get(table, _TABLE_OFF).get(key, ())
         else:
             accepted = _SERVER_UNPORTED[name]
         if value not in accepted:
-            item = _TABLE_KEY_ITEMS.get(name)
-            out.append(f"{name} = {value!r}" + (f" (not yet ported: ROADMAP.md {item})"
-                                                 if item else ""))
+            out.append(f"{name} = {value!r}")
     for m in cfg.models:
         out += [f"model {m.name}: {k} = {v!r}" for k, v in m.unported.items()
                 if v not in _MODEL_UNPORTED[k]]
@@ -927,8 +916,6 @@ def load_config(path: str | None = None, overrides: list[str] | None = None) -> 
     cfg.models = models
     for table, data in typed_dicts.items():
         setattr(cfg, table, _build(TYPED_TABLES[table], data))
-        for key in _TABLE_KEYS_UNPORTED.get(table, {}).keys() & data.keys():
-            cfg.unported[f"[{table}] {key}"] = data[key]
     if pipeline_dict is not None:
         cfg.pipeline = _build(PipelineConfig, pipeline_dict)
     if lifecycle_dict is not None:
@@ -976,8 +963,6 @@ def _apply_override(cfg: ServerConfig, override: str) -> None:
     elif parts[0] in UNPORTED_TABLES and len(parts) == 2:
         cfg.unported[f"[{parts[0]}] {parts[1]}"] = value
         return
-    elif len(parts) == 2 and parts[1] in _TABLE_KEYS_UNPORTED.get(parts[0], {}):
-        cfg.unported[f"[{parts[0]}] {parts[1]}"] = value
     if len(parts) == 1 and parts[0] in unported:
         target.unported[parts[0]] = value
         return

@@ -32,9 +32,13 @@ and ``poison_items_total{model=}``, the breaker's ``breaker_state`` and
 ``worker_up{worker=}``, ``worker_respawns_total{worker=}``,
 ``worker_backoff_s{worker=}``, ``worker_inflight{worker=}``,
 ``router_<kind>_total{model=}`` (``ROUTER_COUNTERS``),
-``router_latency_ms{model=}``, ``router_first_unit_ms{model=}`` and
+``router_latency_ms{model=}``, ``router_first_unit_ms{model=}``,
 ``router_stream_terminated_total{model=,reason=}``
-(``ROUTER_STREAM_REASONS``).
+(``ROUTER_STREAM_REASONS``), the host failure domains' ``host_up{host=}``,
+``host_respawns_total{host=}``, ``host_backoff_s{host=}`` and
+``host_breaker_open{host=}``, and the peer router tier's
+``router_up{router=}``, ``router_respawns_total{router=}`` and
+``cache_peer_{hops,errors,serves}_total{model=}``.
 
 Request tracing: a ``TraceContext`` is minted per HTTP request (128-bit
 trace id, adopted from a well-formed ``X-Trace-Id``, returned as
@@ -593,6 +597,39 @@ class Metrics:
         """worker_inflight{worker=}: relayed requests in flight on one worker
         (the router's least-loaded pick reads the same count)."""
         return self.gauge(f"worker_inflight{{worker={worker}}}")
+
+    def host_up_gauge(self, host: int) -> Gauge:
+        """host_up{host=}: 1 while the host agent process (one whole failure
+        domain: the agent and its workers) is alive
+        (tpuserve_torch.workerproc.hosts). Prebound per host."""
+        return self.gauge(f"host_up{{host={host}}}")
+
+    def host_respawns_counter(self, host: int) -> Counter:
+        """host_respawns_total{host=}: times the router respawned this whole
+        host (agent and workers) after its agent died."""
+        return self.counter(f"host_respawns_total{{host={host}}}")
+
+    def host_backoff_gauge(self, host: int) -> Gauge:
+        """host_backoff_s{host=}: the exponential respawn delay applied to
+        the host slot's latest respawn (0 once the domain is back up)."""
+        return self.gauge(f"host_backoff_s{{host={host}}}")
+
+    def host_breaker_gauge(self, host: int) -> Gauge:
+        """host_breaker_open{host=}: 1 while consecutive relay transport
+        failures have tripped the host breaker and picks shed around the
+        whole domain; 0 when closed."""
+        return self.gauge(f"host_breaker_open{{host={host}}}")
+
+    def router_up_gauge(self, router: int) -> Gauge:
+        """router_up{router=}: 1 while the supervised peer router process is
+        alive and in the consistent-hash ring
+        (tpuserve_torch.workerproc.peers). Emitted by the primary router."""
+        return self.gauge(f"router_up{{router={router}}}")
+
+    def router_respawns_counter(self, router: int) -> Counter:
+        """router_respawns_total{router=}: times the primary respawned a dead
+        peer router process (its cache shard rejoins the ring on boot)."""
+        return self.counter(f"router_respawns_total{{router={router}}}")
 
     def router_counter(self, model: str, kind: str) -> Counter:
         """router_<kind>_total{model=}, ``kind`` one of ROUTER_COUNTERS.

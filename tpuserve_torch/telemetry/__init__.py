@@ -1,6 +1,5 @@
-"""Telemetry plane of the port, mirroring ``tpuserve/telemetry`` without the
-router's fleet scrape (``fleet.py``). Fed by the one metric registry the
-server owns (``tpuserve_torch.obs.Metrics``):
+"""Telemetry plane of the port, mirroring ``tpuserve/telemetry``. Fed by the
+one metric registry the server owns (``tpuserve_torch.obs.Metrics``):
 
 - ``store``   — bounded per-metric time-series rings and the sampler thread
   that fills them (``GET /stats/history``);
@@ -11,7 +10,9 @@ server owns (``tpuserve_torch.obs.Metrics``):
   span ring (``POST /debug/profile``);
 - ``events``  — the structured event plane, the admin audit trail and the
   postmortem ledger (``GET /debug/events``, ``/debug/audit``,
-  ``/debug/postmortems``).
+  ``/debug/postmortems``);
+- ``fleet``   — the router's fleet scrape: expositions of every process
+  merged into one (``GET /metrics/fleet``, ``/stats/fleet``).
 """
 
 from tpuserve_torch.telemetry.events import (AuditLog, BlackBoxWriter, EventLog,

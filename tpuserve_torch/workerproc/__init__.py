@@ -15,20 +15,34 @@ it. This package splits a deployment into failure domains:
   circuit breakers; relays to the least-loaded healthy worker with
   transport-failure retry and hedging, never past a request's deadline, and
   relays streams with a well-formed terminal when a worker dies mid-stream.
-- ``drill``      — ``chaos --drill worker_kill`` and ``--drill
-  stream_kill``: SIGKILL a worker under load and gate availability, the
-  respawn time, torn and duplicate answers and torn or reordered streams.
+- ``hosts``      — host failure domains: workers grouped into named hosts,
+  each a host-agent process in its own process group (one ``killpg`` is one
+  machine death), with host breakers, host-aware hedging and whole-domain
+  respawn.
+- ``peers``      — the horizontal router tier: N router processes on one
+  SO_REUSEPORT port sharing a result cache sharded by consistent hash;
+  peers forward a miss to its key's owning router and degrade to local-only
+  when it dies.
+- ``drill``      — ``chaos --drill worker_kill``, ``--drill host_kill`` and
+  ``--drill stream_kill``: SIGKILL a worker (or a whole host's process
+  group) under load and gate availability, the respawn time, torn and
+  duplicate answers and torn or reordered streams.
 
-Enable with ``[router] enabled = true``. Not ported yet (ROADMAP.md item
-11b): host failure domains (``hosts.py``), peer routers (``peers.py``),
-the fleet scheduler, tenants, the autopilot and deferred mode.
+Enable with ``[router] enabled = true``; ``[router] hosts`` and ``[router]
+routers`` grow the failure domains outward. Not ported yet (ROADMAP.md item
+11b): the fleet scheduler, tenants, the autopilot and deferred mode.
 """
 
+from tpuserve_torch.workerproc.hosts import HostSupervisor
+from tpuserve_torch.workerproc.peers import HashRing, PeerRouterSupervisor
 from tpuserve_torch.workerproc.router import RouterState, serve_router, serve_router_async
 from tpuserve_torch.workerproc.supervisor import WorkerHandle, WorkerSupervisor
 from tpuserve_torch.workerproc.worker import worker_config, worker_main
 
 __all__ = [
+    "HashRing",
+    "HostSupervisor",
+    "PeerRouterSupervisor",
     "RouterState",
     "WorkerHandle",
     "WorkerSupervisor",

@@ -1,6 +1,6 @@
-"""Kill-a-worker chaos drills (``python -m tpuserve_torch chaos --drill
-worker_kill`` and ``--drill stream_kill``), ported from
-``tpuserve/workerproc/drill.py``.
+"""Kill-a-worker and kill-a-host chaos drills (``python -m tpuserve_torch
+chaos --drill worker_kill``, ``--drill host_kill`` and ``--drill
+stream_kill``), ported from ``tpuserve/workerproc/drill.py``.
 
 Each drill serves a REAL router over N >= 2 worker processes on an
 ephemeral loopback port (in the calling process, which stays free of CUDA:
@@ -20,6 +20,12 @@ split promises, with a ``gates`` block the CLI exits on:
   on the batch it ran in); **zero duplicate responses** — every validator
   request carries its own ``X-Trace-Id`` and its answer must carry it back,
   so a duplicated or crossed answer cannot pass.
+- ``host_kill`` — the same load over >= 2 host domains of >= 2 workers
+  each: one WHOLE domain is killed with ``killpg`` (its agent and every
+  worker at once); gates **reabsorb_s** (SIGKILL until the host is back
+  with every worker healthy) within ``reabsorb_budget_s``, zero torn and
+  zero duplicate answers, and the surviving workers' compile counts
+  unchanged.
 - ``stream_kill`` — mixed streaming and unary load on a generative model:
   every stream that STARTED ends in exactly one terminal event (zero
   ``torn``: the router appends the terminal for the streams the SIGKILL
@@ -234,6 +240,123 @@ async def run_worker_kill_drill(cfg: ServerConfig, model_name: str | None = None
         "respawn_within_budget": respawn_s is not None and respawn_s <= respawn_budget_s,
         "zero_torn": integrity["mismatched"] == 0 and integrity["validated"] > 0,
         "zero_duplicates": integrity["duplicates"] == 0,
+    }
+    return out
+
+
+async def _kill_host_and_wait(state, warmup_s: float, kill_at_s: float,
+                              reabsorb_budget_s: float, kill_info: dict,
+                              survivor_urls: dict) -> None:
+    """killpg(SIGKILL) the host domain of the worker the router would pick
+    next (its agent and every worker, one syscall: a machine losing power),
+    then wait until the host slot is respawned with every worker healthy
+    again (``reabsorb_s``; None past the budget). The pgid comes from the
+    supervisor's roster, never from a process search."""
+    await asyncio.sleep(warmup_s + kill_at_s)
+    victim = state.supervisor.pick()
+    if victim is None:
+        kill_info["error"] = "no healthy worker whose host to kill"
+        return
+    hid = victim.host
+    h = state.supervisor.hosts[hid]
+    if h is None:
+        kill_info["error"] = f"host {hid} already down"
+        return
+    pgid, old_pids = h.pgid, {r.wid: r.pid for r in h.workers.values()}
+    for wid in old_pids:
+        survivor_urls.pop(wid, None)  # the victims are no compile-audit subjects
+    log.warning("drill: SIGKILL host %d: killpg(%d) takes the agent and workers %s at once",
+                hid, pgid, sorted(old_pids))
+    t0 = time.monotonic()
+    os.killpg(pgid, signal.SIGKILL)
+    kill_info.update(killed_host=hid, killed_pgid=pgid, workers_killed=len(old_pids))
+    deadline = t0 + reabsorb_budget_s
+    while time.monotonic() < deadline:
+        nh = state.supervisor.hosts[hid]
+        if nh is not None and nh.pgid != pgid and nh.proc.is_alive():
+            refs = list(nh.workers.values())
+            if len(refs) == state.rcfg.workers and all(r.up and r.healthy for r in refs):
+                kill_info["reabsorb_s"] = round(time.monotonic() - t0, 2)
+                kill_info["host_boot_s"] = round(nh.boot_s, 2)
+                return
+        await asyncio.sleep(0.05)
+    kill_info["reabsorb_s"] = None  # did not come back in budget
+
+
+async def run_host_kill_drill(cfg: ServerConfig, model_name: str | None = None,
+                              duration_s: float = 25.0, warmup_s: float = 1.0,
+                              concurrency: int = 16, kill_after_s: float | None = None,
+                              reabsorb_budget_s: float = 120.0,
+                              device: str = "cuda") -> dict:
+    """Serve a router over >= 2 host domains of >= 2 workers each on
+    ``device``, killpg(SIGKILL) one WHOLE host 25 % into the load (or
+    ``kill_after_s`` after the warm-up), and report availability (the
+    caller's bound: the surviving host absorbs the retries), ``reabsorb_s``
+    (SIGKILL until the host is respawned with every worker healthy: the
+    backoff, the agent's boot and its workers' boots), the validator's
+    torn and duplicate audit, and the survivors' ``compile_deltas`` (the
+    kill must not perturb the survivors), with their gates."""
+    from tpuserve_torch.bench.loadgen import run_load
+    from tpuserve_torch.workerproc.router import RouterState, start_router, stop_router
+
+    _fleet_cfg(cfg)
+    cfg.router.hosts = max(2, cfg.router.hosts)
+    model = model_name or cfg.models[0].name
+    state = RouterState(cfg, device=device)
+    server = await start_router(state, host="127.0.0.1", port=0)
+    url = f"http://127.0.0.1:{state.serving_addresses[0][1]}/v1/models/{model}:predict"
+    payload, ctype, batches = drill_payload(cfg, model)
+    kill_info: dict = {}
+    integrity = {"validated": 0, "mismatched": 0, "duplicates": 0, "transport_errors": 0}
+    stop_validator = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    try:
+        async with ClientSession(timeout_s=60.0) as session:
+            refs = await _reference_bodies(session, url, payload, ctype, batches)
+        survivor_urls = {w.wid: w.base_url for w in state.supervisor.live_workers()}
+        compiles_before = await _worker_compile_totals(dict(survivor_urls))
+        validator = loop.create_task(_validator(url, payload, ctype, refs, stop_validator,
+                                                integrity))
+        load = loop.create_task(run_load(url, payload, ctype, duration_s, concurrency,
+                                         warmup_s))
+        killer = loop.create_task(_kill_host_and_wait(
+            state, warmup_s, duration_s * 0.25 if kill_after_s is None else kill_after_s,
+            reabsorb_budget_s, kill_info, survivor_urls))
+        result = await load
+        await killer
+        stop_validator.set()
+        await validator
+        compiles_after = await _worker_compile_totals(survivor_urls)
+        postmortems = await _await_postmortem(state)
+        workers = state.supervisor.stats()
+    finally:
+        await stop_router(state, server)
+
+    out = result.summary()
+    total = result.n_ok + result.n_err
+    out["availability"] = round(result.n_ok / total, 5) if total else 0.0
+    out["drill"] = "host_kill"
+    out["postmortems"] = postmortems
+    out["kill"] = kill_info
+    out["integrity"] = dict(integrity, reference_bodies=len(refs))
+    out["workers"] = workers
+    out["compile_deltas"] = {
+        str(wid): compiles_after.get(wid, compiles_before[wid]) - compiles_before[wid]
+        for wid in compiles_before if wid in compiles_after}
+    out["router"] = {
+        "retries_total": state.handles[model].retries.value,
+        "hedges_total": state.handles[model].hedges.value,
+        "reabsorb_budget_s": reabsorb_budget_s,
+        "respawn_backoff_initial_s": cfg.router.respawn_initial_s,
+        "host_breaker_threshold": cfg.router.host_breaker_threshold,
+    }
+    reabsorb_s = kill_info.get("reabsorb_s")
+    out["gates"] = {
+        "reabsorb_within_budget": reabsorb_s is not None and reabsorb_s <= reabsorb_budget_s,
+        "zero_torn": integrity["mismatched"] == 0 and integrity["validated"] > 0,
+        "zero_duplicates": integrity["duplicates"] == 0,
+        "survivor_compiles_zero": bool(out["compile_deltas"])
+        and all(v == 0 for v in out["compile_deltas"].values()),
     }
     return out
 

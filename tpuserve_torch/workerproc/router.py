@@ -48,6 +48,19 @@ Relay semantics:
   attempts are sibling spans with the worker's tree under each;
   ``/debug/trace?trace_id=`` stitches router and worker records (worker
   spans carry pid = worker id + 1).
+- **Host failure domains** — with ``[router] hosts > 0`` the primary's
+  supervisor is a ``HostSupervisor`` (``hosts.py``): a hedge never lands
+  on its primary's host, relay transport failures feed the host breaker,
+  and ``:reload`` refuses 409 with per-host outcomes while a domain is down.
+- **Peer routers** — with ``[router] routers > 1`` router 0 (the primary)
+  binds the serving socket with SO_REUSEPORT, spawns and supervises the
+  peer routers (``peers.py``) that bind the same port, and every router
+  shards the result cache by consistent hash: a miss whose key another
+  router owns is forwarded to that router's loopback peer listener and
+  degrades to the local shard when the owner cannot be reached (counted in
+  ``cache_peer_errors_total``, never surfaced). A peer proxies the admin
+  verbs, the audit trail, the postmortems and the fleet scrape to the
+  primary, which owns the fleet.
 
 Routes: ``POST /v1/models/{name}:{predict,classify,detect,generate}``;
 ``GET /healthz``, ``/metrics``, ``/stats`` (with the supervisor's
@@ -56,10 +69,14 @@ Routes: ``POST /v1/models/{name}:{predict,classify,detect,generate}``;
 postmortems,audit}``; ``GET /workers/{wid}/{metrics,stats,healthz}``,
 ``/workers/{wid}/stats/history`` and ``/workers/{wid}/debug/events`` (a
 proxy to one worker's own page); ``POST /admin/models/{name}:reload`` and
-``:rollback`` (atomic fan-outs), ``GET /admin/models/{name}/versions``;
-``POST /debug/kernels:reset`` (fanned out). The fleet scrape
-(``/metrics/fleet``, ``/stats/fleet``: ROADMAP.md item 12), host scaling,
-the autopilot and tenants (item 11b) answer with their refusal.
+``:rollback`` (atomic fan-outs), ``GET /admin/models/{name}/versions``,
+``POST /admin/hosts/{hid}:scale?active=N``; ``POST /debug/kernels:reset``
+(fanned out); ``GET /metrics/fleet`` and ``/stats/fleet`` (the fleet
+scrape, ``tpuserve_torch.telemetry.fleet``). The peer listener (loopback)
+serves ``/peer/state``, ``/peer/invalidate``, ``/peer/models/{name}:{verb}``,
+``/peer/admin/...``, ``/peer/stats``, ``/peer/healthz``, ``/peer/metrics``,
+``/peer/fleet/{metrics,stats}`` and ``/peer/debug/{audit,postmortems}``.
+The autopilot and tenants (ROADMAP.md item 11b) answer with their refusal.
 """
 
 from __future__ import annotations
@@ -72,6 +89,7 @@ import logging
 import math
 import os
 import signal
+import socket
 import time
 from urllib.parse import urlencode
 
@@ -84,13 +102,18 @@ from tpuserve_torch.config import ServerConfig, SloConfig
 from tpuserve_torch.faults import CircuitBreaker, Watchdog
 from tpuserve_torch.obs import (FlightRecorder, Metrics, TraceContext,
                                 exposition_content_type, spans_to_chrome)
-from tpuserve_torch.server import (_INDEX_HTML, _VERBS, Connections, Request, Response,
-                                   StreamResponse, _err, _listen, _requested_stream,
-                                   _requested_timeout_ms, _text, json_response)
+from tpuserve_torch.server import (_INDEX_HTML, _MAX_HEAD, _VERBS, Connections, Request,
+                                   Response, StreamResponse, _err, _listen, _requested_stream,
+                                   _requested_timeout_ms, _serve_connection, _text,
+                                   json_response)
 from tpuserve_torch.telemetry import events as events_mod
 from tpuserve_torch.telemetry.events import AuditLog, EventLog, PostmortemLog
+from tpuserve_torch.telemetry.fleet import merge_expositions, parse_exposition
 from tpuserve_torch.telemetry.slo import SloEngine
-from tpuserve_torch.telemetry.store import MetricSampler, TimeSeriesStore
+from tpuserve_torch.telemetry.store import MetricSampler, TimeSeriesStore, quantile_from_counts
+from tpuserve_torch.workerproc.hosts import HostSupervisor, host_name
+from tpuserve_torch.workerproc.peers import (HashRing, PassiveWorkerView, PeerRouterSupervisor,
+                                             TopologyClient)
 from tpuserve_torch.workerproc.supervisor import WorkerHandle, WorkerSupervisor
 
 log = logging.getLogger("tpuserve_torch.workerproc")
@@ -104,17 +127,13 @@ _DEADLINE_GRACE_S = 0.25
 _STREAM_HEADER = "x-tpuserve-stream"
 
 # Routes of the reference's router this slice does not serve: each answers
-# with its refusal. The reference answers the disabled ones 409.
+# with its refusal (the reference answers them 409 while disabled).
 _REFUSED = {
-    "/metrics/fleet": (501, "not yet ported: ROADMAP.md item 12 (the fleet scrape)"),
-    "/stats/fleet": (501, "not yet ported: ROADMAP.md item 12 (the fleet scrape)"),
     "/debug/autopilot": (409, "[autopilot] is disabled; no controller runs "
                               "(not yet ported: ROADMAP.md item 11b)"),
     "/tenants": (409, "[tenants] is disabled; no tenant ledger is kept "
                       "(not yet ported: ROADMAP.md item 11b)"),
 }
-_HOSTS_REFUSAL = ("[router] hosts = 0: there are no host domains to scale "
-                  "(not yet ported: ROADMAP.md item 11b)")
 
 
 class NoHealthyWorker(Exception):
@@ -192,7 +211,7 @@ class RouterHandles:
     """Per-model hot-path metric handles, prebound once."""
 
     __slots__ = ("mcfg", "requests", "retries", "hedges", "timeouts", "latency",
-                 "streams", "first_unit")
+                 "streams", "first_unit", "peer_hops", "peer_errors", "peer_serves")
 
     def __init__(self, name: str, mcfg, metrics: Metrics) -> None:
         self.mcfg = mcfg
@@ -205,6 +224,12 @@ class RouterHandles:
         # latency (the "<model>:first_unit" SLO's input at this tier).
         self.streams = metrics.router_counter(name, "streams")
         self.first_unit = metrics.histogram(f"router_first_unit_ms{{model={name}}}")
+        # Sharded-cache peer hops: forwards to a key's owning router, hops
+        # that failed transport (and degraded to the local shard), and
+        # requests this router served on a peer's behalf.
+        self.peer_hops = metrics.counter(f"cache_peer_hops_total{{model={name}}}")
+        self.peer_errors = metrics.counter(f"cache_peer_errors_total{{model={name}}}")
+        self.peer_serves = metrics.counter(f"cache_peer_serves_total{{model={name}}}")
 
 
 def _content_type(raw: str | None) -> str:
@@ -215,11 +240,21 @@ class RouterState:
     """Everything a running router process owns. ``device`` is what the
     workers serve on: ``"cuda"`` (the default: the current CUDA device) or
     another torch device string, ``"cpu"`` included; this process never
-    touches it."""
+    touches it.
 
-    def __init__(self, cfg: ServerConfig, device: str = "cuda") -> None:
+    ``router_id`` 0 (the default) is the PRIMARY: it owns the worker or
+    host supervisor and, with ``[router] routers > 1``, the peer-router
+    supervisor. A peer router (``router_id >= 1``, spawned by the primary
+    through ``peers.py``) owns no process: it syncs the worker topology and
+    the ring's membership from the primary's peer listener
+    (``primary_peer_url``) and serves the same public port."""
+
+    def __init__(self, cfg: ServerConfig, device: str = "cuda", router_id: int = 0,
+                 primary_peer_url: str | None = None) -> None:
         self.cfg = cfg
         self.rcfg = cfg.router
+        self.router_id = router_id
+        self.is_primary = router_id == 0
         self.metrics = Metrics(cfg.trace_capacity, exemplars=cfg.trace.exemplars)
         # The front door's view of slow and errored requests (root + attempt
         # spans, pid 0); /debug/trace?trace_id= stitches the workers' in.
@@ -240,9 +275,36 @@ class RouterState:
                 tail_bytes=ecfg.stderr_tail_bytes, events=self.events)
             events_mod.install_bridge(self.events, ecfg.bridge_level)
             events_mod.set_active(self.events)
-        self.supervisor = WorkerSupervisor(cfg, self.metrics, device=device,
-                                           postmortems=self.postmortems)
+        if not self.is_primary:
+            # A peer router: a passive worker view synced from the primary.
+            self.supervisor = PassiveWorkerView(cfg, self.metrics)
+        elif cfg.router.hosts > 0:
+            # Host failure domains: workers grouped under host agents, each
+            # agent one SIGKILL-able process group.
+            self.supervisor = HostSupervisor(cfg, self.metrics, device=device,
+                                             postmortems=self.postmortems)
+        else:
+            self.supervisor = WorkerSupervisor(cfg, self.metrics, device=device,
+                                               postmortems=self.postmortems)
+        self.device = device
         self.watchdog = Watchdog(cfg.watchdog_interval_s, self.metrics)
+        # The consistent-hash ring over every live router's peer listener:
+        # None until membership is known (one router keeps it None: always
+        # local).
+        self.ring: HashRing | None = None
+        self.peer_port: int | None = None
+        self.peer_url: str | None = None
+        self._peer_server: asyncio.AbstractServer | None = None
+        self._peer_conns: Connections | None = None
+        # (host, port) of the shared public listener: serve_router_async
+        # binds the SO_REUSEPORT socket BEFORE start(), so the peers spawned
+        # there join it.
+        self.public_addr: tuple[str, int] | None = None
+        self.peer_sup = (PeerRouterSupervisor(cfg, self.metrics, self._rebuild_ring,
+                                              postmortems=self.postmortems)
+                         if self.is_primary and cfg.router.routers > 1 else None)
+        self.topo = (TopologyClient(self, primary_peer_url, cfg.router.peer_sync_interval_s)
+                     if not self.is_primary else None)
         self.handles: dict[str, RouterHandles] = {}
         self.breakers: dict[str, CircuitBreaker] = {}
         self.caches: dict[str, ModelCache] = {}
@@ -289,6 +351,8 @@ class RouterState:
                                   availability=mcfg.slo.availability,
                                   burn_alert=mcfg.slo.burn_alert),
                         metric=f"router_first_unit_ms{{model={mcfg.name}}}")
+        self.fleet_scrapes = self.metrics.counter("fleet_scrapes_total")
+        self.fleet_scrape_errors = self.metrics.counter("fleet_scrape_errors_total")
         for mcfg in cfg.models:
             name = mcfg.name
             self.handles[name] = RouterHandles(name, mcfg, self.metrics)
@@ -310,11 +374,83 @@ class RouterState:
         self.connections = Connections()
         if self.sampler is not None:
             self.sampler.start()
+        if not self.is_primary:
+            # A peer router: bind the peer listener (cache hops land here).
+            # Its topology sync runs after the ready handshake (peers.py):
+            # the primary puts a peer in the ring only once it knows the
+            # peer port.
+            await self._start_peer_listener()
+            return
         await self.supervisor.start()
-        # The process-liveness sweep rides the watchdog: a reaped worker
-        # lands in watchdog_restarts_total{model=_router,component=worker}.
-        self.watchdog.register("_router", "worker", self.supervisor.sweep)
+        # The process-liveness sweep rides the watchdog: a reaped worker (or
+        # whole host) lands in
+        # watchdog_restarts_total{model=_router,component=worker|host}.
+        self.watchdog.register("_router", "host" if self.rcfg.hosts > 0 else "worker",
+                               self.supervisor.sweep)
+        if self.rcfg.routers > 1:
+            await self._start_peer_listener()
+        if self.peer_sup is not None:
+            if self.public_addr is None:
+                raise RuntimeError("[router] routers > 1 needs the shared public address "
+                                   "bound before start(): set state.public_addr "
+                                   "(serve_router_async binds the SO_REUSEPORT socket)")
+            await self.peer_sup.start(self.public_addr[0], self.public_addr[1], self.peer_url)
+            self.watchdog.register("_router", "router", self.peer_sup.sweep)
+            self._rebuild_ring()
         self.watchdog.start()
+
+    async def _start_peer_listener(self) -> None:
+        """Bind this router's loopback control plane: the /peer/state
+        topology, /peer/models (sharded-cache hops from sibling routers) and
+        the primary's /peer/admin fan-out entry."""
+        self._peer_conns = Connections()
+        port = self.rcfg.peer_port if self.is_primary and self.rcfg.peer_port else 0
+        self._peer_server = await _listen(PeerApp(self), self._peer_conns, None, "127.0.0.1",
+                                          port, False)
+        self.peer_port = self._peer_server.sockets[0].getsockname()[1]
+        self.peer_url = f"http://127.0.0.1:{self.peer_port}"
+
+    def _rebuild_ring(self) -> None:
+        """Primary: rebuild the hash ring from itself and the live peers (at
+        start and on every peer death or respawn). Peers rebuild theirs from
+        /peer/state."""
+        members = {self.router_id: self.peer_url}
+        if self.peer_sup is not None:
+            members.update(self.peer_sup.members())
+        self.ring = HashRing(members)
+
+    def apply_topology(self, data: dict) -> None:
+        """Peer side: adopt one /peer/state snapshot: worker addresses, ring
+        membership and cache generations (a generation bump clears the
+        local shard, the poll half of the reload invalidation)."""
+        self.supervisor.update(data.get("workers") or [])
+        members = {int(r["router"]): r["peer_url"] for r in (data.get("ring") or [])}
+        if members and (self.ring is None or members != self.ring.members):
+            self.ring = HashRing(members)
+        for name, gen in (data.get("generations") or {}).items():
+            self._set_generation(name, int(gen))
+
+    def _set_generation(self, name: str, gen: int) -> None:
+        """Adopt the primary's generation of ``name``; a change clears this
+        router's shard."""
+        if name in self.generations and self.generations[name] != gen:
+            self.generations[name] = gen
+            cache = self.caches.get(name)
+            if cache is not None:
+                cache.clear()
+
+    def peer_state(self) -> dict:
+        """The /peer/state body a peer syncs from (the primary's authority)."""
+        sup = self.supervisor
+        workers = [{"wid": w.wid, "host": sup.host_of(w), "url": w.base_url,
+                    "healthy": w.healthy} for w in sup.live_workers()]
+        if self.ring is not None:
+            ring = [{"router": rid, "peer_url": url}
+                    for rid, url in sorted(self.ring.members.items())]
+        else:
+            ring = [{"router": self.router_id, "peer_url": self.peer_url}]
+        return {"ring": ring, "workers": workers, "generations": dict(self.generations),
+                "draining": self.draining}
 
     def begin_drain(self) -> None:
         self.draining = True
@@ -335,15 +471,28 @@ class RouterState:
         if self.audit is not None:
             self.audit.record("drain", "server", "ok" if drained else "budget_expired",
                               duration_ms=(time.perf_counter() - t0) * 1e3,
+                              router_id=self.router_id,
                               drain_timeout_s=self.cfg.drain_timeout_s)
         return drained
 
     async def stop(self) -> None:
         await self.watchdog.stop()
         await self._stop_sampler()
-        # Workers drain their accepted batches on SIGTERM; with the router
-        # drained first there is nothing in flight to lose.
-        await self.supervisor.stop(drain=True)
+        if self.topo is not None:
+            await self.topo.stop()
+        if self.peer_sup is not None:
+            # Peer routers first: they drain their own relays on SIGTERM,
+            # and must do so while the workers still answer.
+            await self.peer_sup.stop()
+        if self.is_primary:
+            # Workers drain their accepted batches on SIGTERM; with the
+            # router drained first there is nothing in flight to lose.
+            await self.supervisor.stop(drain=True)
+        if self._peer_server is not None:
+            self._peer_server.close()
+            await self._peer_conns.close(2.0)
+            await self._peer_server.wait_closed()
+            self._peer_server = None
         if self._session is not None:
             await self._session.close()
             self._session = None
@@ -441,7 +590,17 @@ class RouterState:
             return deadline_at - time.perf_counter()
 
         def launch(hedge: bool = False) -> bool:
-            w = self.supervisor.pick(exclude=tried)
+            exclude_hosts: set[int] = set()
+            if hedge:
+                # A hedge covers a wedged or dying FAILURE DOMAIN: beside
+                # its primary, one host death would kill both copies, so
+                # the hosts of the attempts in flight are excluded (no
+                # fallback: with every other host busy or down, no hedge).
+                for w2 in tasks.values():
+                    hid = self.supervisor.host_of(w2)
+                    if hid is not None:
+                        exclude_hosts.add(hid)
+            w = self.supervisor.pick(exclude=tried, exclude_hosts=exclude_hosts)
             if w is None and tried and not hedge:
                 # Every healthy worker was tried: allow a re-dispatch (the
                 # failure may have been transient and the fleet down to one).
@@ -485,12 +644,13 @@ class RouterState:
                         raise RelayDeadline()
                     continue
                 for t in done:
-                    tasks.pop(t)
+                    w_done = tasks.pop(t)
                     if t.cancelled():
                         continue
                     exc = t.exception()
                     if exc is None:
                         ans = t.result()
+                        self.supervisor.note_success(w_done)
                         if ans.status != 503:
                             # Definitive: the worker admitted and answered
                             # (200, 4xx, 500, 504). NEVER re-dispatched.
@@ -501,8 +661,14 @@ class RouterState:
                         # the work never ran, another worker may take it.
                         last_503 = ans
                     elif isinstance(exc, (ClientError, TimeoutError, OSError)):
-                        if isinstance(exc, (ClientTimeout, TimeoutError)) and remaining() <= 0:
-                            raise RelayDeadline() from exc
+                        if isinstance(exc, (ClientTimeout, TimeoutError)):
+                            if remaining() <= 0:
+                                raise RelayDeadline() from exc
+                        else:
+                            # Refused or reset: the "this machine just died"
+                            # signal feeds the host breaker, so a dead host
+                            # is routed around in milliseconds.
+                            self.supervisor.note_transport_failure(w_done)
                         last_exc = exc
                     else:
                         raise exc  # a programming error: surface it
@@ -546,23 +712,81 @@ class RouterState:
             self.last_shed_reason[name] = reason
 
     async def _dispatch(self, name: str, verb: str, body: bytes, ctype: str,
-                        deadline_at: float, ctx: TraceContext,
-                        stream: bool) -> "_Answer | _StreamAnswer":
-        """Cache and single-flight in front of the relay. The key is
-        content-addressed at the WIRE level (verb, content type, body: the
-        router has no models to decode with) and carries the model's
-        generation, so a fleet reload invalidates atomically. Streams bypass
-        the cache and coalescing: a stream is a live connection, and
-        coalescing one would hand one client's tokens to another."""
+                        deadline_at: float, ctx: TraceContext | None = None,
+                        stream: bool = False) -> "_Answer | _StreamAnswer":
+        """Cache and single-flight in front of the relay, sharded across the
+        router tier. The key is content-addressed at the WIRE level (verb,
+        content type, body: the router has no models to decode with) and
+        carries the model's generation, so a fleet reload invalidates
+        atomically. With N routers the ring names ONE owner per key: a
+        non-owner forwards the request to the owner's peer listener, so the
+        owner's cache and single-flight lead for the whole tier; an
+        unreachable owner degrades to the local shard (counted), never to an
+        error. Streams bypass the cache, the coalescing and the hop: a
+        stream is a live connection, and coalescing one would hand one
+        client's tokens to another."""
         cache = self.caches.get(name)
         if cache is None or stream:
             return await self._relay(name, verb, body, ctype, deadline_at, ctx, stream=stream)
         key = cache.key_for((verb, ctype, body))
+        if self.ring is not None:
+            owner = self.ring.owner(key)
+            if owner is not None and owner[0] != self.router_id:
+                ans = await self._peer_forward(owner, name, verb, body, ctype, deadline_at,
+                                               ctx)
+                if ans is not None:
+                    return ans
+                # The owner is unreachable: the local shard serves until it
+                # respawns; coalescing within this router still holds, and
+                # the client sees nothing.
+        return await self._dispatch_local(cache, key, name, verb, body, ctype, deadline_at,
+                                          ctx)
+
+    async def _peer_forward(self, owner: tuple[int, str], name: str, verb: str, body: bytes,
+                            ctype: str, deadline_at: float,
+                            ctx: TraceContext | None) -> _Answer | None:
+        """Forward one request to the owning router's peer listener: its
+        complete answer, or None on a transport failure (counted in
+        cache_peer_errors_total; the caller degrades to the local shard)."""
+        h = self.handles[name]
+        remaining = deadline_at - time.perf_counter()
+        headers = {"X-Timeout-Ms": f"{max(1.0, remaining * 1e3):.0f}"}
+        if ctype:
+            headers["Content-Type"] = ctype
+        span_id = None
+        if ctx is not None:
+            span_id = ctx.new_span_id()
+            headers["X-Trace-Id"] = ctx.trace_id
+            headers["X-Parent-Span"] = span_id
+        h.peer_hops.inc()
+        w0 = time.time()
+        outcome: "int | str" = "transport_error"
+        try:
+            r = await self._session.post(f"{owner[1]}/peer/models/{name}:{verb}", body,
+                                         headers,
+                                         timeout_s=max(0.001, remaining + _DEADLINE_GRACE_S))
+            outcome = r.status
+            return _Answer(r.status, _content_type(r.headers.get("content-type")), r.body,
+                           r.headers.get("retry-after"))
+        except (ClientError, TimeoutError, OSError):
+            h.peer_errors.inc()
+            return None
+        finally:
+            if ctx is not None:
+                ctx.span("peer_hop", w0, time.time(), span_id=span_id, tid=name,
+                         owner_router=owner[0], status=outcome)
+
+    async def _dispatch_local(self, cache: ModelCache, key: str, name: str, verb: str,
+                              body: bytes, ctype: str, deadline_at: float,
+                              ctx: TraceContext | None = None) -> _Answer:
+        """This router's own cache shard: a hit at once, else single-flight
+        into the worker relay."""
         entry = cache.get(key)
         if entry is not None:
             ct, raw = entry.value
-            now = time.time()
-            ctx.span("cache_hit", now, now, tid=name)
+            if ctx is not None:
+                now = time.time()
+                ctx.span("cache_hit", now, now, tid=name)
             return _Answer(200, ct, raw, None)
         loop = asyncio.get_running_loop()
         fut = cache.submit_through(key, lambda: loop.create_task(self.relay_cacheable(
@@ -575,6 +799,52 @@ class RouterState:
         except _RelayedError as e:
             return e.ans
         return _Answer(200, ct, raw, None)
+
+    async def peer_relay(self, req: Request, name: str, verb: str) -> Response:
+        """``POST /peer/models/{name}:{verb}``: a sibling router forwarded a
+        request whose cache key THIS router owns. Served through the LOCAL
+        shard (hit, single-flight, worker relay), never forwarded again: the
+        origin did the admission and shed checks and owns the breaker, and a
+        ring disagreement during a membership change must end here, not
+        loop."""
+        h = self.handles.get(name)
+        if h is None:
+            return _err(404, f"unknown model {name!r}")
+        ctx = TraceContext.from_headers(req.headers, pid=0)
+        t_start = time.perf_counter()
+        body = await req.read()
+        ctype = req.headers.get("content-type", "")
+        try:
+            timeout_ms = _requested_timeout_ms(req, req.content_type)
+        except ValueError as e:
+            return _err(400, str(e), trace_id=ctx.trace_id)
+        timeout_s = (timeout_ms if timeout_ms is not None else h.mcfg.request_timeout_ms) / 1e3
+        deadline_at = t_start + timeout_s
+        h.peer_serves.inc()
+        self._inflight += 1
+        wall0 = time.time()
+        try:
+            cache = self.caches.get(name)
+            if cache is None:
+                ans = await self._relay(name, verb, body, ctype, deadline_at, ctx)
+            else:
+                ans = await self._dispatch_local(cache, cache.key_for((verb, ctype, body)),
+                                                 name, verb, body, ctype, deadline_at, ctx)
+        except NoHealthyWorker as e:
+            return _err(503, "no healthy worker; capacity respawning",
+                        retry_after=max(1, math.ceil(e.eta_s)), trace_id=ctx.trace_id)
+        except (RelayDeadline, asyncio.TimeoutError):
+            return _err(504, f"request deadline ({timeout_s * 1e3:.0f} ms) exceeded",
+                        trace_id=ctx.trace_id)
+        except UpstreamFailed:
+            return _err(503, "workers unreachable; retry",
+                        retry_after=self.no_worker_retry_after(), trace_id=ctx.trace_id)
+        finally:
+            self._inflight -= 1
+            ctx.root_span("peer_serve", wall0, wall0 + time.perf_counter() - t_start, tid=name)
+        resp = ans.to_response()
+        resp.headers["X-Trace-Id"] = ctx.trace_id
+        return resp
 
     # -- admin fan-out -------------------------------------------------------
     async def _admin_call(self, w: WorkerHandle, method: str,
@@ -591,10 +861,21 @@ class RouterState:
             body = {"error": r.body[:512].decode("utf-8", "replace")}
         return w.wid, r.status, body if isinstance(body, dict) else {"body": body}
 
+    def _per_host_outcomes(self, per_worker: dict) -> dict | None:
+        """Per-worker admin outcomes grouped by failure domain (host mode
+        only): the operator's view of a partial fan-out."""
+        if self.rcfg.hosts <= 0:
+            return None
+        out: dict[str, dict] = {}
+        for wid, row in per_worker.items():
+            out.setdefault(host_name(int(wid) // self.rcfg.workers), {})[wid] = row
+        return out
+
     def _audit_fanout(self, verb: str, name: str, status: int, body: dict,
                       t0: float) -> None:
         """Fold one admin fan-out into the audit trail: outcome, duration,
-        the post-action generation and the per-worker statuses."""
+        the post-action generation and the per-host (or per-worker)
+        statuses."""
         if self.audit is None:
             return
         outcome = ("ok" if status == 200 else "rejected" if status in (409, 503)
@@ -604,7 +885,13 @@ class RouterState:
             fields["version"] = body["version"]
         if body.get("down"):
             fields["down"] = body["down"]
-        if body.get("workers"):
+        per_host = body.get("per_host")
+        if per_host is not None:
+            # A per-domain rollup, not the whole per-worker bodies: the
+            # record stays small enough to keep 256 of.
+            fields["per_host"] = {host: {wid: row.get("status") for wid, row in rows.items()}
+                                  for host, rows in per_host.items()}
+        elif body.get("workers"):
             fields["per_worker"] = {str(wid): row.get("status")
                                     for wid, row in body["workers"].items()}
         if body.get("rolled_back_workers"):
@@ -612,11 +899,25 @@ class RouterState:
         self.audit.record(verb, name, outcome,
                           duration_ms=(time.perf_counter() - t0) * 1e3, **fields)
 
-    def _bump_generation(self, name: str) -> None:
+    async def _bump_generation(self, name: str) -> None:
+        """Invalidate ``name``'s cached answers fleet-wide: bump its
+        generation here, then push it to every live peer router (best
+        effort: the peers' topology sync is the backstop, so a lost push
+        costs at most one peer_sync_interval_s of stale shard)."""
         self.generations[name] = self.generations.get(name, 1) + 1
         cache = self.caches.get(name)
         if cache is not None:
             cache.clear()
+        if self.peer_sup is None:
+            return
+        data = json.dumps({"model": name, "generation": self.generations[name]}).encode()
+
+        async def push(url: str) -> None:
+            with contextlib.suppress(ClientError, TimeoutError, OSError):
+                await self._session.post(f"{url}/peer/invalidate", data,
+                                         {"Content-Type": "application/json"}, timeout_s=2.0)
+
+        await asyncio.gather(*(push(url) for url in self.peer_sup.members().values()))
 
     async def fanout_reload(self, name: str) -> tuple[int, dict]:
         """Atomic fleet reload: POST ``:reload`` to every live worker; if any
@@ -636,18 +937,26 @@ class RouterState:
         # diverge from the new version: refuse up front, touching nobody.
         down = self.supervisor.down_domains()
         if down:
-            return 409, {"error": f"fleet degraded ({', '.join(down)} down/respawning); "
-                                  "reload refused — a respawning domain boots the "
-                                  "original config and would diverge from the new version",
-                         "down": down, "workers": {}}
+            body = {"error": f"fleet degraded ({', '.join(down)} down/respawning); "
+                             "reload refused — a respawning domain boots the "
+                             "original config and would diverge from the new version",
+                    "down": down, "workers": {}}
+            per_host = self._per_host_outcomes({w.wid: {"status": "skipped"} for w in workers})
+            if per_host is not None:
+                body["per_host"] = per_host
+            return 409, body
         results = await asyncio.gather(
             *(self._admin_call(w, "POST", f"/admin/models/{name}:reload") for w in workers))
         per_worker = {wid: {"status": status, **body} for wid, status, body in results}
+        per_host = self._per_host_outcomes(per_worker)
         if all(status == 200 for _, status, _ in results):
-            self._bump_generation(name)
+            await self._bump_generation(name)
             versions = {body.get("version") for _, _, body in results}
-            return 200, {"workers": per_worker, "version": results[0][2].get("version"),
-                         "fleet_consistent": len(versions) == 1}
+            out = {"workers": per_worker, "version": results[0][2].get("version"),
+                   "fleet_consistent": len(versions) == 1}
+            if per_host is not None:
+                out["per_host"] = per_host
+            return 200, out
         # Partial failure: restore the workers that DID publish, so the fleet
         # stays on one version (all-or-nothing).
         succeeded = [w for w, (_, status, _) in zip(workers, results) if status == 200]
@@ -661,9 +970,11 @@ class RouterState:
         # post-publish canary) means bad weights briefly served: 500 so
         # operators page; a clean pre-publish rejection everywhere is 409.
         any_rb = any(body.get("rolled_back") for _, _, body in results)
-        return (500 if (any_rb or succeeded) else 409), {
-            "error": "reload rejected by at least one worker; fleet kept on one version",
-            "workers": per_worker, "rolled_back_workers": rolled_back}
+        out = {"error": "reload rejected by at least one worker; fleet kept on one version",
+               "workers": per_worker, "rolled_back_workers": rolled_back}
+        if per_host is not None:
+            out["per_host"] = per_host
+        return (500 if (any_rb or succeeded) else 409), out
 
     async def fanout_simple(self, name: str, op: str) -> tuple[int, dict]:
         """Fan-out of ``:rollback`` (every live worker restores the same
@@ -679,7 +990,7 @@ class RouterState:
                                              for w in workers))
             ok = all(s == 200 for _, s, _ in results)
             if ok and op == "rollback":
-                self._bump_generation(name)
+                await self._bump_generation(name)
             status = 200 if ok else 409
             body = {"workers": {wid: {"status": s, **b} for wid, s, b in results}}
         if op == "rollback":
@@ -703,6 +1014,126 @@ class RouterState:
                 shapes[shape] = shapes.get(shape, 0) + n
             total["flash_attention_stats"]["launches"] += k["flash_attention_stats"]["launches"]
         return dict(total, workers=per)
+
+    # -- fleet scrape --------------------------------------------------------
+    async def _scrape_one(self, proc: str, url: str) -> tuple[str, str | None]:
+        """One source's /metrics; None = stale (counted, never an error up
+        the stack: a dead host is data)."""
+        try:
+            r = await self._session.get(url, timeout_s=self.cfg.telemetry.fleet_timeout_ms / 1e3)
+        except asyncio.CancelledError:
+            raise
+        except Exception:  # noqa: BLE001 — stale-marked, never 5xx
+            self.fleet_scrape_errors.inc()
+            return proc, None
+        if r.status != 200:
+            self.fleet_scrape_errors.inc()
+            return proc, None
+        return proc, r.body.decode("utf-8", "replace")
+
+    async def scrape_fleet(self) -> list[tuple[str, str | None]]:
+        """Every process's exposition, stale-marked where unreachable: this
+        router, every CONFIGURED worker slot (a dead host's workers scrape
+        as stale) and, on the primary, every configured peer router."""
+        self.fleet_scrapes.inc()
+        jobs: list = []
+        sources: list[tuple[str, str | None]] = [
+            (f"router{self.router_id}", self.metrics.render_prometheus())]
+        for wid in range(self.supervisor.n):
+            w = self.supervisor.worker_by_id(wid)
+            if w is None:
+                sources.append((f"worker{wid}", None))
+            else:
+                jobs.append(self._scrape_one(f"worker{wid}", f"{w.base_url}/metrics"))
+        if self.is_primary and self.peer_sup is not None:
+            members = self.peer_sup.members()
+            for rid in range(1, self.rcfg.routers):
+                url = members.get(rid)
+                if url is None:
+                    sources.append((f"router{rid}", None))
+                else:
+                    jobs.append(self._scrape_one(f"router{rid}", f"{url}/peer/metrics"))
+        if jobs:
+            sources.extend(await asyncio.gather(*jobs))
+        return sources
+
+    def fleet_rollup(self, sources: list[tuple[str, str | None]], merged: str) -> dict:
+        """The /stats/fleet body: per-source liveness, the down failure
+        domains, and per-model fleet-summed serving counters with true fleet
+        latency quantiles from the bucket-merged histogram."""
+        per_model: dict[str, dict] = {
+            n: {"requests_total": 0.0, "items_total": 0.0, "batches_total": 0.0,
+                "deadline_exceeded_total": 0.0} for n in self.handles}
+        hist: dict[str, dict[float, float]] = {}
+        for base, labels, value in parse_exposition(merged)["samples"]:
+            if base == "latency_ms_bucket" and 'phase="total"' in labels:
+                for n in per_model:
+                    if f'model="{n}"' in labels:
+                        le = next((p[3:].strip('"') for p in labels.split(",")
+                                   if p.startswith("le=")), None)
+                        if le is not None:
+                            hist.setdefault(n, {})[float("inf") if le == "+Inf"
+                                                   else float(le)] = value
+                continue
+            if base not in ("requests_total", "items_total", "batches_total",
+                            "deadline_exceeded_total"):
+                continue
+            for n, row in per_model.items():
+                if f'model="{n}"' in labels:
+                    row[base] += value
+        for n, buckets in hist.items():
+            bounds = sorted(b for b in buckets if math.isfinite(b))
+            cum = [buckets[b] for b in bounds] + [buckets.get(float("inf"), 0.0)]
+            # Cumulative counts to per-bucket deltas for the quantile math.
+            deltas = [cum[0]] + [max(0.0, cum[i] - cum[i - 1]) for i in range(1, len(cum))]
+            for q, key in ((0.5, "fleet_latency_p50_ms"), (0.99, "fleet_latency_p99_ms")):
+                v = quantile_from_counts(bounds, deltas, q)
+                per_model[n][key] = round(v, 3) if v is not None and math.isfinite(v) else None
+        return {
+            "sources": {proc: "up" if text is not None else "stale" for proc, text in sources},
+            "stale": sorted(p for p, t in sources if t is None),
+            "down_domains": self.supervisor.down_domains(),
+            "models": per_model,
+            "scrapes_total": int(self.fleet_scrapes.value),
+            "scrape_errors_total": int(self.fleet_scrape_errors.value),
+        }
+
+    async def fleet_metrics(self, req: Request) -> Response:
+        """``GET /metrics/fleet``: ONE merged exposition for the whole fleet
+        (counters summed, gauges labelled ``proc=``, histograms merged
+        bucket by bucket). Unreachable sources are stale-marked; a dead host
+        never makes this 5xx. Peers proxy to the primary, which owns the
+        scrape."""
+        if not self.is_primary:
+            return await self._proxy_to_primary("GET", "/peer/fleet/metrics")
+        text = merge_expositions(await self.scrape_fleet())
+        return Response(200, text.encode("utf-8"),
+                        content_type=exposition_content_type(req.headers.get("accept")))
+
+    async def fleet_stats(self, req: Request) -> Response:
+        """``GET /stats/fleet``: the JSON rollup of the same scrape."""
+        if not self.is_primary:
+            return await self._proxy_to_primary("GET", "/peer/fleet/stats")
+        sources = await self.scrape_fleet()
+        return json_response(self.fleet_rollup(sources, merge_expositions(sources)))
+
+    async def _proxy_to_primary(self, method: str, path: str) -> Response:
+        """A peer never fans admin out itself: the PRIMARY owns the
+        generation counter, the all-or-nothing reload and the fleet's
+        ledgers, so one router serializes fleet transitions. Proxied over
+        the primary's peer listener (the shared public port cannot address
+        the primary)."""
+        if self.topo is None:
+            return _err(503, "no primary to proxy the admin fan-out to")
+        try:
+            r = await self._session.request(method, f"{self.topo.url}{path}", timeout_s=180.0)
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:  # noqa: BLE001 — the primary died mid-admin
+            return _err(503, "primary router unreachable for admin fan-out: "
+                             f"{type(e).__name__}: {e}")
+        return Response(r.status, r.body,
+                        content_type=r.headers.get("content-type", "application/json"))
 
     # -- HTTP ----------------------------------------------------------------
     async def handle(self, req: Request, ingest=None) -> "Response | StreamResponse":
@@ -731,6 +1162,8 @@ class RouterState:
             "/metrics": ("GET", self.metrics_text),
             "/stats": ("GET", self.stats),
             "/stats/history": ("GET", self.stats_history),
+            "/metrics/fleet": ("GET", self.fleet_metrics),
+            "/stats/fleet": ("GET", self.fleet_stats),
             "/alerts": ("GET", self.alerts),
             "/v1/models": ("GET", self.models_json),
             "/debug/kernels:reset": ("POST", self.reset_kernel_counts),
@@ -909,11 +1342,13 @@ class RouterState:
                         else:
                             reason = "idle_timeout"
                             failure = f"no bytes from worker {w.wid} for {idle_s:g}s"
+                        self.supervisor.note_transport_failure(w)
                         self.breakers[name].record_failure()
                         break
                     except ClientError as e:
                         reason = "upstream_error"
                         failure = f"worker {w.wid} died mid-stream: {e}"
+                        self.supervisor.note_transport_failure(w)
                         self.breakers[name].record_failure()
                         break
                     now = time.perf_counter()
@@ -953,7 +1388,7 @@ class RouterState:
     # -- admin and proxy routes ----------------------------------------------
     async def admin(self, req: Request, rest: str) -> Response:
         if rest.startswith("hosts/"):
-            return _err(409, _HOSTS_REFUSAL)
+            return await self.scale_host(req, rest[len("hosts/"):])
         if not rest.startswith("models/"):
             return _text(404)
         rest = rest[len("models/"):]
@@ -970,11 +1405,58 @@ class RouterState:
             return resp
         if name not in self.handles:
             return _err(404, f"unknown model {name!r}")
+        if not self.is_primary:
+            return await self._proxy_to_primary(
+                method, f"/peer/admin/{name}/versions" if op == "versions"
+                else f"/peer/admin/{name}:{op}")
         if op == "reload":
             status, body = await self.fanout_reload(name)
         else:
             status, body = await self.fanout_simple(name, op)
         return json_response(body, status=status)
+
+    async def scale_host(self, req: Request, rest: str) -> Response:
+        """``POST /admin/hosts/{hid}:scale?active=N``: set one host domain's
+        active worker-slot target (audited; serialized through the primary
+        like every fleet transition)."""
+        hid_s, _, op = rest.rpartition(":")
+        if op != "scale" or not hid_s or "/" in hid_s:
+            return _text(404)
+        if req.method != "POST":
+            resp = _text(405)
+            resp.headers["Allow"] = "POST"
+            return resp
+        try:
+            events_mod.reject_unknown_query(req.query, {"active"})
+        except ValueError as e:
+            return _err(400, str(e))
+        try:
+            hid = int(hid_s)
+            active = int(req.query["active"])
+        except KeyError:
+            return _err(400, "?active=<slots> is required")
+        except ValueError:
+            return _err(400, "host id and active must be integers")
+        if not self.is_primary:
+            return await self._proxy_to_primary(
+                "POST", f"/peer/admin/hosts/{hid}:scale?active={active}")
+        if not hasattr(self.supervisor, "scale_domain"):
+            return _err(409, "[router] hosts = 0: there are no host domains to scale")
+        t0 = time.perf_counter()
+        try:
+            out = self.supervisor.scale_domain(hid, active)
+        except ValueError as e:
+            return _err(400, str(e))
+        except RuntimeError as e:
+            if self.audit is not None:
+                self.audit.record("scale", f"host:{hid}", "rejected",
+                                  duration_ms=(time.perf_counter() - t0) * 1e3, active=active,
+                                  error=str(e))
+            return _err(409, str(e))
+        if self.audit is not None:
+            self.audit.record("scale", f"host:{hid}", "ok",
+                              duration_ms=(time.perf_counter() - t0) * 1e3, **out)
+        return json_response(out)
 
     async def worker_proxy(self, req: Request, rest: str) -> Response:
         """``GET /workers/{wid}/{metrics|stats|healthz}``,
@@ -1013,17 +1495,32 @@ class RouterState:
 
     def healthz(self, req: Request) -> Response:
         """503 only when this router can serve nothing (draining, or no
-        healthy worker); missing workers answer 200 "degraded": lost
-        capacity is not downtime."""
+        healthy worker anywhere); lost hosts, dead peer routers and missing
+        workers answer 200 "degraded": lost capacity is not downtime, and a
+        load balancer that pulls a degraded router turns a capacity
+        incident into an availability one."""
         sup = self.supervisor.stats()
         if self.draining:
-            return json_response({"status": "draining", "workers": sup}, status=503)
+            return json_response({"status": "draining", "router_id": self.router_id,
+                                  "workers": sup}, status=503)
         healthy = sup["healthy"]
         if healthy == 0:
-            return json_response({"status": "no_workers", "workers": sup}, status=503,
+            return json_response({"status": "no_workers", "router_id": self.router_id,
+                                  "workers": sup}, status=503,
                                  headers={"Retry-After": str(self.no_worker_retry_after())})
-        return json_response({"status": "degraded" if healthy < sup["configured"] else "ok",
-                              "workers": sup})
+        degraded = healthy < sup["configured"]
+        body: dict = {"router_id": self.router_id}
+        if "hosts_configured" in sup:
+            body["hosts"] = {"configured": sup["hosts_configured"], "up": sup["hosts_up"]}
+            degraded = degraded or sup["hosts_up"] < sup["hosts_configured"]
+        if self.ring is not None:
+            body["routers"] = {"configured": self.rcfg.routers,
+                               "in_ring": len(self.ring.members)}
+            if self.is_primary:
+                degraded = degraded or len(self.ring.members) < self.rcfg.routers
+        body["status"] = "degraded" if degraded else "ok"
+        body["workers"] = sup
+        return json_response(body)
 
     def metrics_text(self, req: Request) -> Response:
         return Response(200, self.metrics.render_prometheus().encode("utf-8"),
@@ -1036,12 +1533,20 @@ class RouterState:
             "breakers": {n: br.describe() for n, br in self.breakers.items()},
         }
         out["workers"] = self.supervisor.stats()
-        out["router"] = {"generations": dict(self.generations),
+        out["router"] = {"router_id": self.router_id, "is_primary": self.is_primary,
+                         "generations": dict(self.generations),
                          "retry_max": self.rcfg.retry_max, "hedge_ms": self.rcfg.hedge_ms,
                          # The front tier holds no CUDA context.
                          "pid": os.getpid(),
                          "cuda_initialized": torch.cuda.is_initialized()}
-        out["topology"] = {"routers_configured": self.rcfg.routers,
+        if self.ring is not None:
+            out["router"]["ring"] = {"members": {str(rid): url for rid, url
+                                                 in sorted(self.ring.members.items())},
+                                     "size": len(self.ring.members)}
+        if self.peer_sup is not None:
+            out["routers"] = self.peer_sup.stats()
+        out["topology"] = {"router_id": self.router_id,
+                           "routers_configured": self.rcfg.routers,
                            "hosts_configured": self.rcfg.hosts,
                            "workers_per_domain": self.rcfg.workers}
         out["trace"] = self.recorder.stats()
@@ -1152,17 +1657,25 @@ class RouterState:
             return _err(400, str(e))
         return json_response({"events": self.events.query(**q), **self.events.stats()})
 
-    def debug_postmortems(self, req: Request) -> Response:
-        """The fleet's crash forensics: one record per reaped worker (exit
-        code and signal, its stderr tail, its last black-box snapshot)."""
+    async def debug_postmortems(self, req: Request) -> Response:
+        """The fleet's crash forensics: one record per reaped worker, host
+        agent or peer router (exit code and signal, its stderr tail, its
+        last black-box snapshot). The primary's supervisors reap everything,
+        so its ledger is the fleet's; peers proxy to it."""
         if self.postmortems is None:
             return _err(409, "[events] is disabled; no postmortems are kept")
+        if not self.is_primary:
+            return await self._proxy_to_primary("GET", "/peer/debug/postmortems")
         return json_response({"postmortems": self.postmortems.dump(),
                               **self.postmortems.stats()})
 
-    def debug_audit(self, req: Request) -> Response:
+    async def debug_audit(self, req: Request) -> Response:
+        """The fleet's admin audit trail: admin verbs serialize through the
+        primary, so its trail is the fleet's; peers proxy to it."""
         if self.audit is None:
             return _err(409, "[events] is disabled; no audit trail is kept")
+        if not self.is_primary:
+            return await self._proxy_to_primary("GET", "/peer/debug/audit")
         return json_response({"audit": self.audit.dump(), **self.audit.stats()})
 
 
@@ -1177,14 +1690,112 @@ def _stream_error_bytes(content_type: str, reason: str, message: str) -> bytes:
     return f"event: error\ndata: {json.dumps(data)}\n\n".encode("utf-8")
 
 
+class PeerApp:
+    """A router's loopback control plane, served beside its public
+    listener: topology for the peers, forwarded cache hops, the pushed
+    invalidation, and (on the primary) the admin, audit, postmortem and
+    fleet-scrape entries the peers proxy to. Answers each request with the
+    router's own handler."""
+
+    def __init__(self, state: RouterState) -> None:
+        self.state = state
+
+    async def handle(self, req: Request, ingest=None) -> Response:
+        st = self.state
+        path = req.path
+        if not path.startswith("/peer/"):
+            return _text(404)
+        rest = path[len("/peer/"):]
+        if rest.startswith("models/") and ":" in rest:
+            name, _, verb = rest[len("models/"):].rpartition(":")
+            if verb in _VERBS and name and "/" not in name:
+                if req.method != "POST":
+                    return _text(405)
+                return await st.peer_relay(req, name, verb)
+        await req.read()
+        if rest.startswith("admin/"):
+            # /peer/admin/{name}:{verb}, /peer/admin/{name}/versions and
+            # /peer/admin/hosts/{hid}:scale: the public admin routes.
+            admin = rest[len("admin/"):]
+            return await st.admin(req, admin if admin.startswith("hosts/")
+                                  else "models/" + admin)
+        routes = {
+            "state": ("GET", lambda r: json_response(st.peer_state())),
+            "invalidate": ("POST", self.invalidate),
+            "stats": ("GET", st.stats),
+            "healthz": ("GET", st.healthz),
+            "metrics": ("GET", st.metrics_text),
+            "fleet/metrics": ("GET", st.fleet_metrics),
+            "fleet/stats": ("GET", st.fleet_stats),
+            "debug/audit": ("GET", st.debug_audit),
+            "debug/postmortems": ("GET", st.debug_postmortems),
+        }
+        route = routes.get(rest)
+        if route is None:
+            return _text(404)
+        method, fn = route
+        if req.method != method:
+            return _text(405)
+        resp = fn(req)
+        return await resp if asyncio.iscoroutine(resp) else resp
+
+    def invalidate(self, req: Request) -> Response:
+        """``POST /peer/invalidate {model, generation}``: the push half of
+        a fleet reload's invalidation (the topology sync is the backstop)."""
+        try:
+            data = json.loads(req.body)
+            name = data["model"]
+            gen = int(data["generation"])
+        except (ValueError, KeyError, TypeError):
+            return _err(400, "body must be {model, generation}")
+        self.state._set_generation(name, gen)
+        return json_response({"ok": True, "generation": self.state.generations.get(name)})
+
+
+def bind_public_socket(host: str, port: int) -> socket.socket:
+    """Bind (not listen) the shared public socket with SO_REUSEPORT, so N
+    router processes serve one port; ``port=0`` binds an ephemeral one (the
+    peers then join the bound port)."""
+    sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    try:
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+        sock.bind((host, port))
+    except OSError:
+        sock.close()
+        raise
+    return sock
+
+
+async def listen_on(state: RouterState, sock: socket.socket) -> asyncio.AbstractServer:
+    """Serve ``state`` on the bound public socket ``sock`` (listening starts
+    here)."""
+    return await asyncio.start_server(
+        lambda r, w: _serve_connection(state, state.connections, None, r, w),
+        sock=sock, limit=_MAX_HEAD)
+
+
 async def start_router(state: RouterState, host: str | None = None,
                        port: int | None = None) -> asyncio.AbstractServer:
     """Spawn the fleet (``state.start``), then listen; ``port=0`` binds an
-    ephemeral port, recorded in ``state.serving_addresses``."""
-    await state.start()
-    server = await _listen(state, state.connections, None,
-                           state.cfg.host if host is None else host,
-                           state.cfg.port if port is None else port, False)
+    ephemeral port, recorded in ``state.serving_addresses``. With ``[router]
+    routers > 1`` the SO_REUSEPORT socket is bound BEFORE the start, so the
+    peer routers it spawns join the final (host, port), ephemeral
+    included."""
+    host = state.cfg.host if host is None else host
+    port = state.cfg.port if port is None else port
+    if state.rcfg.routers > 1:
+        sock = bind_public_socket(host, port)
+        state.public_addr = (host, sock.getsockname()[1])
+        try:
+            await state.start()
+            server = await listen_on(state, sock)
+        except BaseException:
+            sock.close()
+            raise
+    else:
+        await state.start()
+        server = await _listen(state, state.connections, None, host, port, False)
     state.serving_addresses = [s.getsockname()[:2] for s in server.sockets]
     return server
 
@@ -1215,8 +1826,9 @@ async def serve_router_async(state: RouterState, ready: asyncio.Event | None = N
             installed.append(sig)
         except (NotImplementedError, RuntimeError):
             pass  # not the main thread
-    log.info("router serving on %s over %d worker(s) on %s", state.serving_addresses,
-             state.rcfg.workers, state.supervisor.device)
+    log.info("router %d serving on %s (%d router(s), %d host(s), %d worker(s)%s on %s)",
+             state.router_id, state.serving_addresses, state.rcfg.routers, state.rcfg.hosts,
+             state.rcfg.workers, " per host" if state.rcfg.hosts else "", state.device)
     if ready is not None:
         ready.set()
     try:

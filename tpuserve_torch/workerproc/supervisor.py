@@ -112,6 +112,15 @@ def spawn_worker_blocking(wcfg: ServerConfig, wid: int, device: str,
     return proc, parent, int(msg["port"]), int(msg.get("pid", proc.pid))
 
 
+def kernels_built(cfg: ServerConfig) -> bool:
+    """Are the kernels of this source tree built where the workers load them
+    from? (No nvcc runs here: the library's name is a digest of the
+    sources.)"""
+    build_dir = (Path(cfg.compilation_cache_dir) if cfg.compilation_cache_dir
+                 else _build.BUILD_DIR)
+    return (build_dir / _build.library_path("flash_attention").name).exists()
+
+
 class WorkerSupervisor:
     """Owns the worker fleet for one router process.
 
@@ -150,12 +159,7 @@ class WorkerSupervisor:
 
     # -- lifecycle -----------------------------------------------------------
     def kernels_built(self) -> bool:
-        """Are the kernels of this source tree built where the workers load
-        them from? (No nvcc runs here: the library's name is a digest of the
-        sources.)"""
-        build_dir = (Path(self.cfg.compilation_cache_dir) if self.cfg.compilation_cache_dir
-                     else _build.BUILD_DIR)
-        return (build_dir / _build.library_path("flash_attention").name).exists()
+        return kernels_built(self.cfg)
 
     async def start(self) -> None:
         """Spawn the fleet and start the health loop. On the card with the
@@ -383,9 +387,20 @@ class WorkerSupervisor:
         return [f"worker{i}" for i, h in enumerate(self.slots)
                 if h is None or not h.proc.is_alive()]
 
-    def pick(self, exclude: "set[int] | frozenset[int]" = frozenset()) -> WorkerHandle | None:
+    def host_of(self, h: WorkerHandle) -> int | None:
+        return None  # a flat fleet has no host domains
+
+    def note_transport_failure(self, h: WorkerHandle) -> None:
+        pass  # no host breaker without hosts: the health probes route around
+
+    def note_success(self, h: WorkerHandle) -> None:
+        pass
+
+    def pick(self, exclude: "set[int] | frozenset[int]" = frozenset(),
+             exclude_hosts: "set[int] | frozenset[int]" = frozenset()) -> WorkerHandle | None:
         """Least-loaded healthy worker not in ``exclude``; ties break to the
-        least recently picked, so equal load round-robins."""
+        least recently picked, so equal load round-robins. A flat fleet has
+        no host domains, so ``exclude_hosts`` excludes nothing."""
         best: WorkerHandle | None = None
         for h in self.slots:
             if h is None or not h.healthy or h.wid in exclude:
