@@ -340,7 +340,8 @@ Phases (any failure exits non-zero before the result line):
    alone and bench it closed at 8 connections (phase 16's 32-text body);
    serve ``examples/bert_flash_router.toml`` (the same model behind the
    router, ``python -m tpuserve_torch serve``) at 1 and 2 worker processes
-   on the card and bench each the same way (requests/s, p50, p99, each
+   on the card (the three servers booted side by side) and bench each the
+   same way, one at a time (requests/s, p50, p99, each
    worker's ``device_utilization``, K1 = 4 x the batches summed over the
    workers with the counts set to 0 just before); at 2 workers, with the
    counts at 0, phase 6's three requests byte-identical to the direct
@@ -359,12 +360,14 @@ Phases (any failure exits non-zero before the result line):
 22. Host failure domains and the peer router tier (``hosts_phase``):
    serve ``examples/bert_flash_hosts.toml`` (the same model, 2 host
    domains of 2 workers each, every agent its own process group, 2 routers
-   on one SO_REUSEPORT port, 12 layers) beside a copy with the cache on
-   and 1 worker per host and beside ``examples/bert_flash.toml`` alone. On
-   the file as written: phase 6's three requests 4 times over fresh
-   connections byte-identical to the direct server's,
-   both routers taking some (their ``router_requests_total``); K1 = 12 x
-   the batches summed over the 4 workers with the counts at 0 just before,
+   on one SO_REUSEPORT port; at ``SHALLOW_LAYERS``, as the direct server
+   and the drill, so that phases 23-24 fit) beside a copy
+   with the cache on and 1 worker per host and beside
+   ``examples/bert_flash.toml`` alone. On the file: phase 6's three
+   requests 4 times over fresh connections byte-identical to the direct
+   server's, both routers taking some (their ``router_requests_total``);
+   K1 = 4 x the batches summed over the 4 workers with the counts at 0
+   just before,
    compiles unchanged; ``/metrics/fleet``'s ``requests_total{model=bert}``
    equal to the workers' sum; no router initializes CUDA (the primary's
    ``/stats`` and the peer's ``/peer/stats``, the primary being the serve
@@ -378,18 +381,58 @@ Phases (any failure exits non-zero before the result line):
    domain killed with killpg, a re-absorb budget of the backoff plus twice
    the slowest host boot measured here) exits 0: availability >= 0.99,
    re-absorbed within the budget, 0 torn, 0 duplicate, the survivors'
-   compiles unchanged.
-23. Print a ``slice`` line per path, the ``graphs`` line (phase 6-8's,
+   compiles unchanged. Phase 23's fleet drill starts right after this
+   drill, and phases 23 and 24 run once this phase's servers are stopped,
+   while the drill's fleet re-absorbs its killed host (the smoke's time
+   limit: with them after phase 22 the smoke took 1,211.9 s on an H100
+   80GB HBM3 at 700 W; PERF.md).
+23. The fleet scheduler's weight paging (``fleet_phase``): serve
+   ``examples/bert_fleet.toml`` (``[scheduler]`` on; full-width 12-layer
+   BERT-flash declared ``cold_start`` beside ResNet-50, config 1, and
+   MobileNetV3, config 2): bert boots cold (``/stats`` ``scheduler``, no
+   slot, compiles 0, captures 0); a bert request answers 503
+   ``model_warming`` with a ``Retry-After``; ``:warm`` answers 200 with
+   ``warm_ms``; with the counts at 0 phase 6's three requests answer the
+   bytes of phase 6's server and K1 = 12 x bert's batches; ``:demote``
+   frees the slots: the server's ``memory_reserved`` falls by at least
+   the three slots' parameter bytes (``nvidia-smi``'s figure for the
+   process gated too when it lists the process); then ``:warm`` again
+   while closed-loop clients load resnet50 and mobilenetv3 (every answer
+   200): the same bytes, K1 = 12 x batches through the recaptured graphs,
+   ``runtime_compiles_total`` unchanged and ``captures_total`` doubled
+   (slots x buckets more); ``/debug/audit`` holds warm, demote, warm.
+   Beside these checks (started first, read last) ``chaos --drill fleet``
+   on the file with mobilenetv3 the victim (``device_error`` at 100 %):
+   exit 0, the victim's breaker open, both
+   survivors at availability >= 0.99 with p99 within
+   ``FLEET_P99_BUDGET_MS``, K1 = 12 x bert's batches over the load.
+   Memory in each state, ``warm_ms`` and the survivors' p50/p99 are
+   printed (the ``fleet`` line).
+24. Tenants and the autopilot (``autopilot_phase``), started with phase 23
+   and read after it: ``chaos --drill autopilot`` on a copy of
+   ``examples/bert_flash_tenants.toml`` (2 host domains x 2 worker slots,
+   1 active, 2 routers, ``[tenants]`` and ``[autopilot]`` on) at
+   ``SHALLOW_LAYERS`` with the reference drill's mid-load ``worker_slow``
+   fault on host 1's active worker: exit 0 with the victim tenant's
+   availability >= 0.97 and every gate of the reference's
+   ``scripts/autopilot_drill.sh`` (the hostile tenant 429'd with
+   ``tenant_*`` reasons, the victim never, ``scale_up`` or ``shed_on``
+   acted within 18 s with no actuation error, every decision in
+   ``/debug/audit`` as ``autopilot:*``, ``/tenants`` 200); the
+   ``autopilot`` line carries ``first_action_s``, the actions and the
+   victim's availability.
+25. Print a ``slice`` line per path, the ``graphs`` line (phase 6-8's,
    13's and 14's graph checks and host times), the ``lifecycle`` line, the
    ``robustness`` line (with phase 8's, 13's and 14's first-request
-   tables), the ``observability``, ``defaults_cost``, ``cli``, ``router``
-   and ``hosts`` lines, and
+   tables), the ``observability``, ``defaults_cost``, ``cli``, ``router``,
+   ``hosts``, ``fleet`` and ``autopilot`` lines, and
    the ``kernels`` line (K1 and K2, each with its launches on its path,
    counted through graph replays, K1's on the int8c path, in each of
    phase 16's ``bench`` runs, on phase 17's textgen path, phase 18's
    streams and ``bench --stream``, phase 19's MoE paths and phase 20's
    locked and engine SD paths, phase 21's router path and phase 22's host
-   path and their benches beside, then K1's four SD rows, each with the
+   path and their benches beside, phase 23's first warm, re-warm and fleet
+   drill, then K1's four SD rows, each with the
    launches counted at its shape on the locked (B = 2) or engine (B = 16)
    path; the vision paths run neither),
    the card line, then the result line ``{"ok": true,
@@ -1254,6 +1297,9 @@ def serving(config: Path, n_buckets: int, overrides: tuple = (), extra_toml: str
             wait_healthy(proc, port, log_path, n_buckets)
             for name, g in served_graphs(port).items():
                 mem = g["capture_memory"]
+                if not mem:
+                    print(f"slice: {name} boots cold: no parameter slot, no graph", flush=True)
+                    continue
                 print(f"slice: {name} serves from {g['captures_total']} CUDA graphs "
                       f"({g['buckets']} buckets or programs x "
                       f"{g['captures_total'] // max(1, g['buckets'])} each); parameters "
@@ -1442,6 +1488,8 @@ def graph_phase(config: Path, timed: dict, logit_tol, share: bool = False) -> di
 def slice_phase() -> dict:
     with serving(CONFIG, n_buckets=6) as port:
         run = drive(port)
+        # Phase 23's fleet server answers these bytes.
+        run["direct_bodies"] = router_answers(port)
         run["timing"] = serve_timing(port)
         print(json.dumps({"serve": run["timing"]}), flush=True)
     run["forward_ms"] = in_process_check(run["answers"])
@@ -5299,14 +5347,15 @@ def router_phase(card: str) -> dict:
         tmp = Path(tmp_name)
         payload = tmp / "texts32.json"
         payload.write_text(json.dumps({"texts": TEXTS_32}))
-        # Servers boot in pairs (each pair side by side) and are benched one
-        # at a time while the other idles.
+        # The three servers boot side by side and are benched one at a time
+        # while the others idle. Phase 22 benches 4 workers (over 2 host
+        # domains); the 2-worker fleet here is the last of this phase.
         fleet = (router_cfg, {"n_buckets": 6, "with_proc": True})
         fleets = {}
         with serving_together((direct_cfg, {"n_buckets": 6, "overrides": CLI_SERVE_SETS}),
-                              (fleet[0], dict(fleet[1], overrides=(*CLI_SERVE_SETS,
-                                                                   "router.workers=1")))
-                              ) as (port, served1):
+                              *((fleet[0], dict(fleet[1], overrides=(*CLI_SERVE_SETS,
+                                                                     f"router.workers={n}")))
+                                for n in (1, 2))) as (port, served1, served2):
             direct = router_answers(port)
             # ROUTER_BENCH_S after bench_run's own window: the later flags win.
             run = bench_run(tmp, port, "direct closed c8", *ROUTER_BENCH_S, "--model", "bert",
@@ -5316,10 +5365,6 @@ def router_phase(card: str) -> dict:
                   f"direct bench: K1 {run['k1_launches']} for {run['batches']} batches")
             out["direct"] = {"bench": run}
             fleets[1] = router_fleet(tmp, payload, served1, 1, layers=SHALLOW_LAYERS)
-        # Phase 22 benches 4 workers (over 2 host domains); the 2-worker
-        # fleet here is the last of this phase.
-        with serving(fleet[0], **dict(fleet[1], overrides=(*CLI_SERVE_SETS,
-                                                           "router.workers=2"))) as served2:
             fleets[2] = router_fleet(tmp, payload, served2, 2, direct, SHALLOW_LAYERS)
         out["fleets"] = fleets
         from tpuserve_torch.config import load_config
@@ -5409,9 +5454,10 @@ def hosts_fleet(tmp: Path, payload: Path, served: tuple, direct: list) -> dict:
     """examples/bert_flash_hosts.toml as written (2 host domains x 2
     workers, 2 routers, no cache): the roster, the routers free of CUDA,
     phase 6's three requests over fresh connections byte-identical to the
-    direct server's with both routers taking some, K1 = 12 x batches over
-    the 4 workers, compiles unchanged, the fleet scrape's sum exact, the
-    bench; then host scaling and a SIGKILL of router 1 under load."""
+    direct server's with both routers taking some, K1 = SHALLOW_LAYERS x
+    batches over the 4 workers, compiles unchanged, the fleet scrape's sum
+    exact, the bench; then host scaling and a SIGKILL of router 1 under
+    load."""
     from tpuserve_torch.telemetry.fleet import sum_counter
 
     port, proc = served
@@ -5446,7 +5492,7 @@ def hosts_fleet(tmp: Path, payload: Path, served: tuple, direct: list) -> dict:
     check(sum(deltas["items_total"]) == 41 * HOSTS_ROUNDS, f"hosts: items {deltas['items_total']}")
     check(deltas["runtime_compiles_total"] == [0.0] * HOSTS_WORKERS,
           f"hosts: compiles moved {deltas['runtime_compiles_total']}")
-    check(launches > 0 and launches == 12 * n_batches,
+    check(launches > 0 and launches == SHALLOW_LAYERS * n_batches,
           f"hosts: K1 launched {launches} times for {n_batches:g} batches over 4 workers")
     out.update(launches=launches, batches_per_worker=deltas["batches_total"],
                requests_per_router=taken, answers_equal_direct=True)
@@ -5460,11 +5506,11 @@ def hosts_fleet(tmp: Path, payload: Path, served: tuple, direct: list) -> dict:
     out["fleet_requests_total"] = fleet_sum
     print(f"hosts: 2 hosts x 2 workers, 2 routers: {3 * HOSTS_ROUNDS} requests over fresh "
           f"connections byte-identical to the direct server's, taken per router {taken}; "
-          f"K1 {launches} = 12 x {n_batches:g} batches {deltas['batches_total']}, compiles "
+          f"K1 {launches} = {SHALLOW_LAYERS} x {n_batches:g} batches {deltas['batches_total']}, compiles "
           f"moved 0; /metrics/fleet requests_total {fleet_sum:g} = the workers' sum; host "
           f"boots {out['host_boot_s']} s, worker boots {out['worker_boot_s']} s", flush=True)
     out["bench"] = router_bench(tmp, port, "2 hosts x 2 workers, 2 routers closed c8",
-                                HOSTS_WORKERS, payload)
+                                HOSTS_WORKERS, payload, layers=SHALLOW_LAYERS)
     return out
 
 
@@ -5575,15 +5621,22 @@ def hosts_cached(port: int) -> dict:
     return {"identical_bodies": 8, "batches": batches, "peer_hops": hops}
 
 
-def hosts_phase(card: str) -> dict:
+def hosts_phase(card: str, start=None, meanwhile=None) -> tuple[dict, object]:
     """Phase 22: examples/bert_flash_hosts.toml (full-width BERT-flash, 2
     host domains x 2 workers, 2 routers on one port) served beside a copy
     with the cache on (1 worker per host) and beside examples/bert_flash.toml
     alone (the direct server whose answers the routers' must equal), then
     ``chaos --drill host_kill`` on the file, started once the bench is
-    done."""
+    done; every server and the drill at SHALLOW_LAYERS. ``start()`` runs
+    right after the drill starts (the smoke starts phase 23's fleet drill
+    there) and ``meanwhile()`` (phases 23-24) once this phase's servers are
+    stopped, while the drill's fleet re-absorbs its killed host: the smoke
+    fits its time limit only so. Returns (this phase's summary, what
+    ``meanwhile`` returned)."""
     t0 = time.perf_counter()
-    out: dict = {"card": card, "config": str(HOSTS_CONFIG.relative_to(ROOT))}
+    out: dict = {"card": card, "config": str(HOSTS_CONFIG.relative_to(ROOT)),
+                 "layers": SHALLOW_LAYERS}
+    hosts_cfg, direct_cfg = shallow_config(HOSTS_CONFIG), shallow_config(CONFIG)
     from tpuserve_torch.config import load_config
 
     backoff = load_config(str(HOSTS_CONFIG)).router.respawn_initial_s
@@ -5594,11 +5647,11 @@ def hosts_phase(card: str) -> dict:
         drill = None
         try:
             with serving_together(
-                    (HOSTS_CONFIG, {"n_buckets": 6, "with_proc": True,
-                                    "overrides": CLI_SERVE_SETS}),
-                    (HOSTS_CONFIG, {"n_buckets": 6, "with_proc": True,
-                                    "overrides": ("cache.enabled=true", "router.workers=1")}),
-                    (CONFIG, {"n_buckets": 6, "with_proc": True})
+                    (hosts_cfg, {"n_buckets": 6, "with_proc": True,
+                                 "overrides": CLI_SERVE_SETS}),
+                    (hosts_cfg, {"n_buckets": 6, "with_proc": True,
+                                 "overrides": ("cache.enabled=true", "router.workers=1")}),
+                    (direct_cfg, {"n_buckets": 6, "with_proc": True})
             ) as (served, cached, alone):
                 direct = router_answers(alone[0])
                 alone[1].send_signal(signal.SIGTERM)  # its card memory is not the fleet's
@@ -5610,12 +5663,17 @@ def hosts_phase(card: str) -> dict:
                 out["reabsorb_budget_s"] = {"budget_s": budget, "backoff_s": backoff,
                                             "slowest_host_boot_s": boot,
                                             "margin": HOSTS_BOOT_MARGIN}
-                drill = Cli(tmp, "host_kill", "chaos", "--config", str(HOSTS_CONFIG), "--drill",
+                drill = Cli(tmp, "host_kill", "chaos", "--config", str(hosts_cfg), "--drill",
                             "host_kill", *HOSTS_DRILL_ARGS, "--respawn-budget", f"{budget:.1f}")
+                if start is not None:
+                    start()
                 out["cache"] = hosts_cached(cached[0])
                 routers_cuda_free(router_urls(cached[0]), cached[1].pid)
                 out["peer_kill"] = hosts_scale_and_peer_kill(*served)
                 routers_cuda_free(router_urls(served[0]), served[1].pid)
+            t_meanwhile = time.perf_counter()
+            beside = meanwhile() if meanwhile is not None else None
+            out["meanwhile_s"] = time.perf_counter() - t_meanwhile
             rc, text = drill.finish(timeout_s=420.0)
         finally:
             if drill is not None:
@@ -5626,7 +5684,297 @@ def hosts_phase(card: str) -> dict:
     out["host_kill"] = summary
     out["k1_launches"] = out["fleet"]["launches"]
     out["phase_s"] = time.perf_counter() - t0
-    print(f"hosts: phase 22 took {out['phase_s']:.1f} s", flush=True)
+    print(f"hosts: phase 22 took {out['phase_s']:.1f} s ({out['meanwhile_s']:.1f} s of it "
+          "beside the next phases)", flush=True)
+    return out, beside
+
+
+# -- phase 23: the fleet scheduler's weight paging ---------------------------------
+
+FLEET_CONFIG = ROOT / "examples" / "bert_fleet.toml"
+# Warmed at boot: resnet50's 3 buckets and mobilenetv3's 4 (bert boots cold).
+FLEET_BUCKETS = 7
+FLEET_LAYERS = 12
+FLEET_DRILL_ARGS = ("--drill", "fleet", "--model", "mobilenetv3", "--duration", "10",
+                    "--warmup", "1", "--concurrency", "8", "--min-availability", "0.99")
+# The fleet drill's p99 budget for each survivor (ms).
+FLEET_P99_BUDGET_MS = 2000.0
+
+
+def process_card_mib(pid: int) -> float | None:
+    """The card memory ``nvidia-smi`` lists for process ``pid`` (None when
+    it lists none: a container may show other process ids)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    for line in out.stdout.strip().splitlines():
+        fields = [f.strip() for f in line.split(",")]
+        if len(fields) == 2 and fields[0].isdigit() and int(fields[0]) == pid:
+            return float(fields[1])
+    return None
+
+
+def fleet_memory(port: int, pid: int) -> dict:
+    """The server process's card memory: PyTorch's reserved and allocated
+    bytes (its /stats backend), nvidia-smi's figure for the process and the
+    card's used memory, in MiB."""
+    backend = json.loads(call(port, "GET", "/stats")[1])["backend"]
+    return {"memory_reserved_mib": backend["memory_reserved_bytes"] / 2**20,
+            "memory_allocated_mib": backend["memory_allocated_bytes"] / 2**20,
+            "nvidia_smi_process_mib": process_card_mib(pid),
+            "nvidia_smi_card_used_mib": gpu_memory_used_mib()}
+
+
+def fleet_bert(port: int) -> dict:
+    """bert's paging state (``/stats`` ``scheduler``) and graph counts
+    (``/v1/models``)."""
+    state = json.loads(call(port, "GET", "/stats")[1])["scheduler"]["models"]["bert"]["state"]
+    d = json.loads(call(port, "GET", "/v1/models")[1])["bert"]
+    return {"state": state, "compiles_total": d["compiles_total"],
+            "captures_total": d["captures_total"], "param_bytes_per_slot": d["params"]["bytes"],
+            "slots": d["slots"]["count"], "params_resident": d["params_resident"],
+            "version": d["version"]}
+
+
+def fleet_bert_round(port: int, direct: list[bytes], label: str) -> dict:
+    """Phase 6's three requests to bert with the counts at 0 just before:
+    the bytes equal to the direct server's and K1 = FLEET_LAYERS x bert's
+    batches."""
+    check(call(port, "POST", "/debug/kernels:reset")[0] == 200, "kernel count reset refused")
+    before = metric(call(port, "GET", "/metrics")[1].decode(), 'batches_total{model="bert"}')
+    bodies = router_answers(port)
+    after = metric(call(port, "GET", "/metrics")[1].decode(), 'batches_total{model="bert"}')
+    launches, stats_launches = kernel_counts(port)
+    batches = after - before
+    check(bodies == direct, f"fleet {label}: bert's answers differ from the direct server's")
+    check(stats_launches == 0 and batches >= 3 and launches == FLEET_LAYERS * batches,
+          f"fleet {label}: K1 {launches} (K2 {stats_launches}) for {batches:g} bert batches")
+    return {"k1_launches": launches, "batches": batches}
+
+
+class NeighbourLoad:
+    """Closed-loop clients sending framed bodies to resnet50 and
+    mobilenetv3 until stopped, every answer's status counted."""
+
+    def __init__(self, port: int, clients: int = 2) -> None:
+        import threading
+
+        bodies = [(f"/v1/models/{name}:predict", body, ctype)
+                  for name, label, body, ctype, _ in resnet_requests() + mnv3_requests()
+                  if label in ("frame8", "frame4")]
+        self.statuses: dict[str, dict[int, int]] = {path: {} for path, _, _ in bodies}
+        self._stop = threading.Event()
+        self._lock = threading.Lock()
+        self._threads = [threading.Thread(target=self._loop, args=(port, *b), daemon=True)
+                         for b in bodies for _ in range(clients)]
+        for t in self._threads:
+            t.start()
+
+    def _loop(self, port: int, path: str, body: bytes, ctype: str) -> None:
+        while not self._stop.is_set():
+            try:
+                st = call(port, "POST", path, raw=body, ctype=ctype)[0]
+            except OSError:
+                st = -1
+            with self._lock:
+                row = self.statuses[path]
+                row[st] = row.get(st, 0) + 1
+
+    def stop(self) -> dict:
+        self._stop.set()
+        for t in self._threads:
+            t.join(60)
+        return {path: dict(row) for path, row in self.statuses.items()}
+
+
+def _fleet_checks(specs: list, direct: list[bytes] | None, out: dict) -> None:
+    """Phase 23's checks on examples/bert_fleet.toml's server (and the
+    direct server in ``specs`` when ``direct`` is None): cold boot, the
+    warming shed, :warm, the answers and K1, :demote and the memory it
+    returns, the re-warm under the neighbours' load."""
+    with serving_together(*specs) as served:
+        port, proc = served[0]
+        if direct is None:
+            direct = router_answers(served[1][0])
+            served[1][1].send_signal(signal.SIGTERM)  # its memory is not the fleet's
+            served[1][1].wait(60)
+        memory, warm_ms = {}, {}
+        cold = fleet_bert(port)
+        check(cold["state"] == "cold" and cold["compiles_total"] == 0
+              and cold["captures_total"] == 0 and not cold["params_resident"],
+              f"fleet: bert did not boot cold: {cold}")
+        memory["cold"] = fleet_memory(port, proc.pid)
+        st, body, headers = call_h(port, "POST", "/v1/models/bert:classify",
+                                   {"text": "serve this text please"})
+        check(st == 503 and json.loads(body).get("reason") == "model_warming"
+              and int(headers.get("Retry-After", "0")) >= 1,
+              f"fleet: a cold bert answered {st} {body[:200]!r} {headers}")
+        st, body = call(port, "POST", "/admin/models/bert:warm")
+        check(st == 200, f"fleet: :warm answered {st} {body[:300]!r}")
+        warm_ms["first"] = json.loads(body).get("warm_ms")
+        warm = fleet_bert(port)
+        check(warm["state"] == "warm" and warm["params_resident"] and warm["compiles_total"] > 0,
+              f"fleet: bert not warm after :warm: {warm}")
+        memory["warm"] = fleet_memory(port, proc.pid)
+        out["first_warm"] = fleet_bert_round(port, direct, "first warm")
+        st, body = call(port, "POST", "/admin/models/bert:demote")
+        check(st == 200 and json.loads(body).get("demoted") is True,
+              f"fleet: :demote answered {st} {body[:300]!r}")
+        demoted = fleet_bert(port)
+        check(demoted["state"] == "cold" and not demoted["params_resident"]
+              and demoted["slots"] == 0, f"fleet: bert not cold after :demote: {demoted}")
+        memory["demoted"] = fleet_memory(port, proc.pid)
+        slots_mib = warm["slots"] * warm["param_bytes_per_slot"] / 2**20
+        freed = {k: memory["warm"][k] - memory["demoted"][k]
+                 for k in ("memory_reserved_mib", "nvidia_smi_process_mib")
+                 if memory["warm"][k] is not None and memory["demoted"][k] is not None}
+        check(freed["memory_reserved_mib"] >= slots_mib,
+              f"fleet: demote returned {freed} MiB, the slots hold {slots_mib:.0f} MiB")
+        if "nvidia_smi_process_mib" in freed:
+            check(freed["nvidia_smi_process_mib"] >= slots_mib,
+                  f"fleet: demote returned {freed} MiB to the card, the slots hold "
+                  f"{slots_mib:.0f} MiB")
+        out["freed_mib"] = dict(freed, slots_param_mib=slots_mib)
+        load = NeighbourLoad(port)
+        try:
+            time.sleep(1.0)
+            st, body = call(port, "POST", "/admin/models/bert:warm")
+            check(st == 200, f"fleet: re-warm answered {st} {body[:300]!r}")
+            warm_ms["rewarm"] = json.loads(body).get("warm_ms")
+            out["rewarm"] = fleet_bert_round(port, direct, "re-warm")
+        finally:
+            neighbours = load.stop()
+        out["neighbours_during_rewarm"] = neighbours
+        check(all(set(row) == {200} and row[200] > 0 for row in neighbours.values()),
+              f"fleet: a neighbour answered other than 200 during the re-warm: {neighbours}")
+        rewarm = fleet_bert(port)
+        check(rewarm["compiles_total"] == warm["compiles_total"]
+              and rewarm["captures_total"] == warm["captures_total"] * 2,
+              f"fleet: re-warm compiles/captures {rewarm} against the first warm's {warm}")
+        memory["rewarmed"] = fleet_memory(port, proc.pid)
+        audit = [(r["verb"], r["outcome"])
+                 for r in json.loads(call(port, "GET", "/debug/audit")[1])["audit"]]
+        check(audit == [("warm", "ok"), ("demote", "ok"), ("warm", "ok")],
+              f"fleet: audit trail {audit}")
+        out["bert"] = {"cold": cold, "warm": warm, "demoted": demoted, "rewarmed": rewarm}
+        out["memory"] = memory
+        out["warm_ms"] = warm_ms
+
+
+def start_fleet_drill(tmp: Path) -> Cli:
+    """``chaos --drill fleet`` on examples/bert_fleet.toml, mobilenetv3 the
+    victim, started at once (it serves its own fleet)."""
+    return Cli(tmp, "fleet", "chaos", "--config", str(FLEET_CONFIG), *FLEET_DRILL_ARGS)
+
+
+def fleet_phase(card: str, direct: list[bytes] | None = None,
+                drill: Cli | None = None) -> dict:
+    """Phase 23: examples/bert_fleet.toml (cold_start BERT-flash at 12
+    layers beside ResNet-50 and MobileNetV3, the fleet scheduler on): cold
+    boot, the warming shed, :warm, the answers and K1, :demote and the
+    memory it returns, the re-warm under the neighbours' load, beside
+    ``chaos --drill fleet`` with mobilenetv3 as the victim (its own server,
+    started first, by ``start_fleet_drill`` when ``drill`` is None, and
+    read last). ``direct``: phase 6's answer bytes (a direct server is
+    booted beside the fleet without them)."""
+    t0 = time.perf_counter()
+    out: dict = {"card": card, "config": str(FLEET_CONFIG.relative_to(ROOT)),
+                 "layers": FLEET_LAYERS}
+    with tempfile.TemporaryDirectory() as tmp_name:
+        drill = drill or start_fleet_drill(Path(tmp_name))
+        specs = [(FLEET_CONFIG, {"n_buckets": FLEET_BUCKETS, "with_proc": True})]
+        if direct is None:
+            specs.append((CONFIG, {"n_buckets": 6, "with_proc": True}))
+        try:
+            _fleet_checks(specs, direct, out)
+            rc, text = drill.finish(timeout_s=420.0)
+        finally:
+            drill.kill()
+    summary = json.loads(text)
+    survivors = {n: row for n, row in summary["models"].items() if row["role"] == "survivor"}
+    check(rc == 0 and summary["victim_breaker_open"]
+          and all(r["availability"] >= 0.99 and r["p99_ms"] <= FLEET_P99_BUDGET_MS
+                  for r in survivors.values()),
+          f"fleet drill: exit {rc}, {json.dumps(summary)[:3000]}")
+    drill_k = summary["kernels"]
+    check(drill_k["k1_launches"] == FLEET_LAYERS * drill_k["batches"]["bert"] > 0,
+          f"fleet drill: K1 {drill_k['k1_launches']} for {drill_k['batches']} batches")
+    out["drill"] = {"exit": rc, "victim": summary["victim"], "kernels": drill_k,
+                    "victim_breaker": summary["victim_breaker"],
+                    "p99_budget_ms": FLEET_P99_BUDGET_MS,
+                    "models": {n: {k: r[k] for k in ("role", "availability", "n_ok", "n_err",
+                                                     "p50_ms", "p99_ms")}
+                               for n, r in summary["models"].items()},
+                    "bert_state": summary["scheduler"]["models"]["bert"]["state"]}
+    out["k1_launches"] = {"first_warm": out["first_warm"]["k1_launches"],
+                          "rewarm": out["rewarm"]["k1_launches"],
+                          "drill": drill_k["k1_launches"]}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"fleet: warm {out['warm_ms']} ms, freed {out['freed_mib']} MiB, drill survivors "
+          f"{out['drill']['models']}; phase 23 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+# -- phase 24: tenants and the autopilot ---------------------------------------------
+
+TENANTS_CONFIG = ROOT / "examples" / "bert_flash_tenants.toml"
+AUTOPILOT_DRILL_ARGS = ("--drill", "autopilot", "--duration", "18", "--warmup", "1",
+                        "--concurrency", "12", "--min-availability", "0.97")
+# The reference's autopilot drill arms a single-host latency fault mid-load:
+# worker 2 is host 1's boot-active slot (wid = host x workers + i).
+AUTOPILOT_FAULT_TOML = """
+[faults]
+enabled = true
+seed = 7
+
+[[faults.rule]]
+kind = "worker_slow"
+model = "*"
+probability = 1.0
+delay_ms = 250.0
+after_s = 6.0
+worker = 2
+"""
+
+
+def start_autopilot_drill() -> Cli:
+    """``chaos --drill autopilot`` on a copy of examples/bert_flash_tenants.toml
+    at SHALLOW_LAYERS with the reference drill's fault rule, started at once
+    (it serves its own fleet)."""
+    tmp = ROOT / "build" / "smoke" / "autopilot"
+    tmp.mkdir(parents=True, exist_ok=True)
+    config = tmp / TENANTS_CONFIG.name
+    config.write_text(shallow_config(TENANTS_CONFIG).read_text() + AUTOPILOT_FAULT_TOML)
+    return Cli(tmp, "autopilot", "chaos", "--config", str(config), *AUTOPILOT_DRILL_ARGS)
+
+
+def autopilot_phase(card: str, drill: Cli | None = None) -> dict:
+    """Phase 24: the autopilot drill (started by ``start_autopilot_drill``
+    when ``drill`` is None) must exit 0 with every gate of the reference's
+    scripts/autopilot_drill.sh."""
+    t0 = time.perf_counter()
+    drill = drill or start_autopilot_drill()
+    try:
+        rc, text = drill.finish(timeout_s=420.0)
+    finally:
+        drill.kill()
+    summary = json.loads(text)
+    ap = summary["autopilot"]
+    check(rc == 0 and summary["availability"] >= 0.97 and all(summary["gates"].values()),
+          f"autopilot drill: exit {rc}, {json.dumps(summary)[:3000]}")
+    hostile, victim = summary["tenants"]["hostile"], summary["tenants"]["victim"]
+    out = {"card": card, "config": str(TENANTS_CONFIG.relative_to(ROOT)),
+           "layers": SHALLOW_LAYERS, "exit": rc, "gates": summary["gates"],
+           "victim_availability": summary["availability"], "hostile": hostile, "victim": victim,
+           "first_action_s": ap["first_action_s"], "action_kinds": ap["action_kinds"],
+           "actions": [{k: d.get(k) for k in ("kind", "target", "reason", "outcome")}
+                       for d in ap["decisions"]],
+           "rollbacks_total": ap["rollbacks_total"], "audit": summary["audit"],
+           "usage": summary["usage"], "scale_state": summary["scale_state"],
+           "wait_s": time.perf_counter() - t0}
+    print(f"autopilot: victim availability {summary['availability']}, hostile 429 "
+          f"{hostile['n_429']} {hostile['reasons']}, actions {ap['action_kinds']}, first at "
+          f"{ap['first_action_s']} s", flush=True)
     return out
 
 
@@ -5666,7 +6014,24 @@ def main() -> int:
         moe = moe_phase(card)
         sd = sd15_phase(card)
         router = router_phase(card)
-        hosts = hosts_phase(card)
+        drills: dict = {}
+        drill_tmp = ROOT / "build" / "smoke" / "fleet"
+        drill_tmp.mkdir(parents=True, exist_ok=True)
+
+        def start_fleet() -> None:
+            drills["fleet"] = start_fleet_drill(drill_tmp)
+
+        def fleet_and_tenants() -> dict:
+            # Phase 24's drill serves its own fleet beside phase 23's.
+            drills["autopilot"] = start_autopilot_drill()
+            return fleet_phase(card, run["direct_bodies"], drills["fleet"])
+
+        try:
+            hosts, fleet = hosts_phase(card, start=start_fleet, meanwhile=fleet_and_tenants)
+            autopilot = autopilot_phase(card, drills["autopilot"])
+        finally:
+            for drill in drills.values():
+                drill.kill()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -5739,6 +6104,8 @@ def main() -> int:
     print(json.dumps({"cli": cli_run}))
     print(json.dumps({"router": router}))
     print(json.dumps({"hosts": hosts}))
+    print(json.dumps({"fleet": fleet}))
+    print(json.dumps({"autopilot": autopilot}))
     # K1's launches on the main path (BERT-flash), on the int8c one, on
     # textgen's (12 per insert, none per decode step), streamed and unary,
     # and on the Switch-MoE paths (textgen's inserts, BERT-flash's batches).
@@ -5759,9 +6126,13 @@ def main() -> int:
                                        launches_router_bench_4_layers={
                                            n: f["bench"]["k1_launches"]
                                            for n, f in router["fleets"].items()},
-                                       launches_hosts=hosts["k1_launches"],
-                                       launches_hosts_bench=hosts["fleet"]["bench"][
-                                           "k1_launches"]),
+                                       launches_hosts_4_layers=hosts["k1_launches"],
+                                       launches_hosts_bench_4_layers=hosts["fleet"]["bench"][
+                                           "k1_launches"],
+                                       launches_fleet_first_warm=fleet["k1_launches"][
+                                           "first_warm"],
+                                       launches_fleet_rewarm=fleet["k1_launches"]["rewarm"],
+                                       launches_fleet_drill=fleet["k1_launches"]["drill"]),
                                   dict(k2["line"], launches=long["k2_launches"]),
                                   # K1 at SD 1.5's padded shapes, with the launches counted
                                   # at each shape: 2 rows on the locked path, 16 in the

@@ -21,10 +21,16 @@ the port refuses.
   textgen served on the CPU through its generation engine: ``n_err`` 0, the
   summary keys equal to the reference's load generator's against the same
   server, and the server's token and fold-in counters moving;
-- ``import-model``, ``finetune-det``, ``lint`` and the drills ``host_kill``,
-  ``fleet`` and ``autopilot`` exit 2 naming their ROADMAP item (the
-  ``worker_kill`` and ``stream_kill`` drills run against the port:
-  ``tests/test_torch_drill.py``).
+- ``import-model``, ``finetune-det`` and ``lint`` exit 2 naming their
+  ROADMAP item (the ``worker_kill``, ``host_kill`` and ``stream_kill``
+  drills run against the port: ``tests/test_torch_drill.py``);
+- ``chaos --drill fleet`` (3 toy models, one poisoned) exits 0 with the
+  victim's breaker open and the survivors whole, with the reference's
+  summary keys against the reference's own run on the same config; ``chaos
+  --drill autopilot`` (a toy router fleet over 2 host domains with tenants
+  and the autopilot, a hostile tenant flooding) exits 0 with every gate;
+  the process drills' flags are accepted by the fleet drill, the
+  reference's way.
 """
 
 import json
@@ -38,7 +44,7 @@ import torch
 
 from test_torch_loadgen import Stub
 from tpuserve.cli import main as jax_main
-from tpuserve_torch.cli import UNPORTED_COMMANDS, UNPORTED_DRILLS
+from tpuserve_torch.cli import PROCESS_DRILLS, UNPORTED_COMMANDS
 from tpuserve_torch.cli import main as port_main
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -215,12 +221,6 @@ def test_bench_frame_wire_and_synthetic_payloads(capsys):
      "it as never ported)"),
     (["finetune-det", "--out", "o"], "ROADMAP.md queue 1 item 13"),
     (["lint"], "ROADMAP.md queue 1 item 12"),
-    *[(["chaos", "--drill", drill], "ROADMAP.md queue 1 item") for drill in UNPORTED_DRILLS],
-    # host_kill is served since host failure domains were ported; this case
-    # (keeping its id) holds that a refused drill is refused whatever the
-    # run's own arguments.
-    pytest.param(["chaos", "--drill", "autopilot", "--duration", "1", "--concurrency", "2"],
-                 "ROADMAP.md queue 1 item 11b", id="argv5-ROADMAP.md queue 1 item"),
 ])
 def test_refused_subcommands_and_drills_exit_2(argv, item, capsys):
     assert port_main(argv) == 2
@@ -230,6 +230,161 @@ def test_refused_subcommands_and_drills_exit_2(argv, item, capsys):
     assert set(UNPORTED_COMMANDS) == {"import-model", "finetune-det", "lint"}
 
 
+
+
+def fleet_toml(cold_start: bool) -> str:
+    """Three toy models behind the scheduler, ``ok_a`` declared cold_start
+    (the port's drill warms a cold survivor before the clock; the
+    reference's does not, so its runs take none)."""
+    return "decode_threads = 2\nstartup_canary = false\n[scheduler]\nenabled = true\n" + "".join(
+        f"""
+[[model]]
+name = "{name}"
+family = "toy"
+batch_buckets = [1, 2, 4]
+dtype = "float32"
+num_classes = 10
+parallelism = "single"
+request_timeout_ms = 10000.0
+wire_size = 8
+breaker_threshold = 3
+cold_start = {str(cold_start and name == "ok_a").lower()}
+""" for name in ("victim", "ok_a", "ok_b"))
+
+# The reference's scripts/autopilot_drill.sh config with three changes for
+# a short run on a loaded CPU: the fault armed 2 s after the worker's boot
+# (the drill is shorter than the script's); the hostile tenant's quota 30
+# device-seconds, not 3 (the flood spent 3 within its first second, every
+# request charging its wall time, and the pressure the controller reads
+# went with it; its rate limit still sheds it with tenant_rate_exceeded);
+# and pressure_high 0.5, not 1.5 (the router routes around the slowed
+# worker, so its domain held more than 1.5 relays per slot for two ticks in
+# some runs only; at 0.5 one relay in flight on a one-slot domain is a
+# trigger).
+AUTOPILOT_TOML = """
+decode_threads = 2
+startup_canary = false
+drain_timeout_s = 5.0
+watchdog_interval_s = 0.2
+
+[telemetry]
+sample_interval_s = 0.25
+burn_windows_s = [5.0, 30.0, 120.0]
+
+[router]
+enabled = true
+hosts = 2
+workers = 2
+active_workers = 1
+retry_max = 3
+hedge_ms = 500.0
+health_interval_s = 0.2
+respawn_initial_s = 0.5
+respawn_max_s = 5.0
+
+[autopilot]
+enabled = true
+interval_s = 0.25
+hysteresis_ticks = 2
+cooldown_s = 3.0
+window_s = 30.0
+max_actions_per_window = 8
+follow_up_s = 5.0
+pressure_high = 0.5
+pressure_low = 0.05
+
+[tenants]
+enabled = true
+window_s = 30.0
+slo_latency_ms = 2000.0
+slo_availability = 0.99
+
+[[tenants.tenant]]
+name = "hostile"
+api_key = "drill-hostile-key"
+weight = 1.0
+quota_device_s = 30.0
+rate_per_s = 40.0
+
+[[tenants.tenant]]
+name = "victim"
+api_key = "drill-victim-key"
+weight = 4.0
+
+[faults]
+enabled = true
+seed = 7
+
+[[faults.rule]]
+kind = "worker_slow"
+model = "*"
+probability = 1.0
+delay_ms = 250.0
+after_s = 2.0
+worker = 2
+
+[[model]]
+name = "toy"
+family = "toy"
+batch_buckets = [1, 2]
+deadline_ms = 2.0
+dtype = "float32"
+num_classes = 10
+parallelism = "single"
+request_timeout_ms = 10000.0
+wire_size = 8
+"""
+FLEET_ARGS = ("--drill", "fleet", "--model", "victim", "--duration", "1.5", "--warmup", "0.3",
+              "--concurrency", "4", "--min-availability", "0.99")
+
+
+def fleet_check(summary: dict) -> None:
+    assert summary["victim"] == "victim" and summary["victim_breaker_open"]
+    assert summary["availability"] >= 0.99
+    assert {n: r["role"] for n, r in summary["models"].items()} == {
+        "victim": "victim", "ok_a": "survivor", "ok_b": "survivor"}
+    assert summary["scheduler"]["models"]["ok_a"]["state"] == "warm"
+
+
+@pytest.mark.parametrize("case", ["fleet", "fleet_against_reference", "autopilot"])
+def test_fleet_and_autopilot_drills_exit_0(case, tmp_path, capsys):
+    """Served since the fleet scheduler, tenants and the autopilot were
+    ported (until then these cases were refusals, exit 2): ``chaos --drill
+    fleet`` on the CPU exits 0 (the worst survivor at >= 0.99, the victim's
+    breaker open, the cold survivor warmed before the clock), with the
+    summary keys of the reference's own run on the same config (the port
+    adds ``kernels``); ``chaos --drill autopilot`` exits 0 with every gate
+    of the reference's scripts/autopilot_drill.sh and the victim at >=
+    0.97."""
+    path = tmp_path / "drill.toml"
+    if case == "autopilot":
+        assert "autopilot" in PROCESS_DRILLS
+        path.write_text(AUTOPILOT_TOML)
+        rc, out = run_main("port", ["chaos", "--config", str(path), "--device", "cpu",
+                                    "--drill", "autopilot", "--duration", "8", "--warmup", "0.5",
+                                    "--concurrency", "8", "--min-availability", "0.97"], capsys)
+        summary = json.loads(out)
+        assert rc == 0, summary["gates"]
+        assert all(summary["gates"].values()) and summary["availability"] >= 0.97
+        assert summary["tenants"]["hostile"]["n_429"] > 0
+        assert set(summary["autopilot"]["action_kinds"]) & {"scale_up", "shed_on"}
+        return
+    path.write_text(fleet_toml(cold_start=case == "fleet"))
+    rc, out = run_main("port", ["chaos", "--config", str(path), "--device", "cpu",
+                                *FLEET_ARGS], capsys)
+    summary = json.loads(out)
+    assert rc == 0
+    fleet_check(summary)
+    if case == "fleet_against_reference":
+        rc, out = run_main("jax", ["chaos", "--config", str(path), *FLEET_ARGS], capsys)
+        ref = json.loads(out)
+        assert rc == 0
+        fleet_check(ref)
+        assert sorted(summary) == sorted([*ref, "kernels"])
+        assert sorted(summary["scheduler"]) == sorted(ref["scheduler"])
+        assert sorted(summary["models"]["ok_b"]) == sorted(ref["models"]["ok_b"])
+
+
 def test_unknown_arguments_still_refused(capsys):
     with pytest.raises(SystemExit) as e:
         port_main(["describe", "--device", "cpu", "--no-such-flag"])
@@ -237,15 +392,18 @@ def test_unknown_arguments_still_refused(capsys):
 
 
 @pytest.mark.parametrize("flag", ["--kill-after", "--respawn-budget"])
-def test_unported_drill_flags_refused(flag, capsys):
-    """The reference's worker_kill options came with that drill; a drill
-    still refused (fleet, ROADMAP.md item 11b) is refused by name with
-    them too, before any config is read, and no process drill is left in
-    the refusal table."""
-    assert port_main(["chaos", "--device", "cpu", "--drill", "fleet", flag, "5"]) == 2
-    err = capsys.readouterr().err
-    assert "chaos --drill fleet: not yet ported: ROADMAP.md queue 1 item 11b" in err
-    assert not {"worker_kill", "host_kill", "stream_kill"} & set(UNPORTED_DRILLS)
+def test_unported_drill_flags_refused(flag, tmp_path, capsys):
+    """The reference's worker_kill options came with that drill. Until the
+    fleet drill was ported it was refused by name with them; since, it
+    takes them as the reference's CLI does (and does not use them): the
+    drill runs and exits 0. No drill is refused any more."""
+    path = tmp_path / "fleet.toml"
+    path.write_text(fleet_toml(cold_start=True))
+    rc, out = run_main("port", ["chaos", "--config", str(path), "--device", "cpu",
+                                *FLEET_ARGS, flag, "5"], capsys)
+    assert rc == 0
+    fleet_check(json.loads(out))
+    assert {"worker_kill", "host_kill", "stream_kill", "autopilot"} == set(PROCESS_DRILLS)
 
 
 TEXTGEN_TOML = """

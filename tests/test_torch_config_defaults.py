@@ -34,7 +34,12 @@ still refuses:
   reference's defaults and refuses nothing since streaming was ported; the
   streaming keys (``stream_queue``, ``stream_heartbeat_s``,
   ``stream_drain_s``, the model's ``stream_policy``) are typed with the
-  reference's defaults and served when written.
+  reference's defaults and served when written;
+- every field of ``[scheduler]``, ``[tenants]`` (and its
+  ``[[tenants.tenant]]`` entries) and ``[autopilot]``, and the model's
+  ``priority`` and ``cold_start``, typed since the fleet scheduler, tenants
+  and the autopilot were ported, holds the reference's default and is
+  served when written.
 
 Exact: the values are compared with ``==``.
 """
@@ -52,7 +57,8 @@ EXAMPLES = ("examples/bert_flash.toml", "examples/bert_long_ring.toml",
             "examples/efficientdet.toml", "examples/textgen_flash.toml",
             "examples/textgen_moe_flash.toml", "examples/bert_moe_flash.toml",
             "examples/sd15_flash.toml", "examples/bert_flash_router.toml",
-            "examples/textgen_flash_router.toml", "examples/bert_flash_hosts.toml")
+            "examples/textgen_flash_router.toml", "examples/bert_flash_hosts.toml",
+            "examples/bert_fleet.toml", "examples/bert_flash_tenants.toml")
 
 # The reference's defaults that turn on a feature the port does not serve
 # yet, each refused by the port when written out: none.
@@ -88,10 +94,15 @@ def _port_refuses(name: str, value) -> bool:
     """Does the port refuse ``name`` written out with ``value``? (A key of a
     typed table is written through ``load_config``'s override.)"""
     cfg = tconfig.ServerConfig(models=[tconfig.ModelConfig(name="m")])
-    if name in SERVED_TIER_KEYS:
+    if name in SERVED_TIER_KEYS or (name in SERVED_FLEET_KEYS and name.startswith("[")):
         table, key = name[1:].split("] ")
         cfg = tconfig.load_config(None, [f"{table}.{key}={json.dumps(value)}"])
         assert getattr(getattr(cfg, table), key) == value
+    elif name in SERVED_FLEET_KEYS:
+        key = name[len("model "):]
+        setattr(cfg.models[0], key, value)
+        cfg.models[0].validate()
+        assert key not in tconfig._MODEL_UNPORTED
     elif name.startswith("model "):
         cfg.models[0].unported = {name[len("model "):]: value}
     else:
@@ -109,10 +120,16 @@ def _switch(table: str) -> str:
 SERVED_TIER_KEYS = [f"[router] {k}" for k in (
     "active_workers", "host_breaker_cooldown_s", "host_breaker_threshold", "hosts",
     "peer_port", "peer_sync_interval_s", "routers")]
+# The fleet scheduler's, the tenants' and the autopilot's switches and the
+# model's paging keys: refused off the reference's default until they were
+# ported, served since.
+SERVED_FLEET_KEYS = ["[autopilot] enabled", "[scheduler] enabled", "[tenants] enabled",
+                     "model cold_start", "model priority"]
 
 REFUSED = sorted(tconfig._SERVER_UNPORTED) \
     + [f"model {k}" for k in sorted(tconfig._MODEL_UNPORTED)] \
-    + sorted({_switch(t) for t in tconfig.UNPORTED_TABLES}) + SERVED_TIER_KEYS
+    + sorted({_switch(t) for t in tconfig.UNPORTED_TABLES}) + SERVED_TIER_KEYS \
+    + SERVED_FLEET_KEYS
 
 
 @pytest.mark.parametrize("name", REFUSED)
@@ -209,13 +226,21 @@ def test_unported_table_keys_parse_as_refused(table, tmp_path):
     streaming was: each of its keys written parses typed and is served.
     [router] and [worker] are typed since the router/worker tier was
     ported: each key written parses typed and, since host failure domains
-    and peer routers were ported, is served."""
-    if table in ("router", "worker"):
+    and peer routers were ported, is served; [scheduler], [tenants] and
+    [autopilot] likewise since the fleet scheduler, tenants and the
+    autopilot were ported."""
+    if table in ("router", "worker", "scheduler", "tenants", "autopilot"):
         assert table not in tconfig.UNPORTED_TABLES
         for f in dataclasses.fields(getattr(tconfig, TABLE_CLASS[table])):
-            # A value other than the default (active_workers stays <= workers).
+            if f.default is dataclasses.MISSING:
+                continue  # [tenants]' entry list: [[tenants.tenant]] tables
+            # A value other than the default (active_workers stays <= workers;
+            # the autopilot's pressure_low stays below pressure_high, the
+            # scheduler's min_share below 0.5).
             value = (not f.default if isinstance(f.default, bool)
-                     else "127.0.0.2" if isinstance(f.default, str) else f.default * 2 + 1)
+                     else "127.0.0.2" if isinstance(f.default, str)
+                     else {"pressure_low": 0.5, "min_share": 0.1,
+                           "slo_availability": 0.99}.get(f.name, f.default * 2 + 1))
             cfg = tconfig.load_config(None, [f"{table}.{f.name}={json.dumps(value)}"])
             assert getattr(getattr(cfg, table), f.name) == value, f.name
             assert cfg.unported == {} and tconfig.unported_settings(cfg) == [], f.name
@@ -361,3 +386,27 @@ def test_unserved_router_values_are_refused_by_name(key, tmp_path):
     assert getattr(cfg.router, key) == value
     assert cfg.unported == {} and tconfig.unported_settings(cfg) == []
     ServerState(cfg, device="cpu")
+
+
+FLEET_CLASSES = {"scheduler": "SchedulerConfig", "tenants": "TenantsConfig",
+                 "autopilot": "AutopilotConfig", "tenant": "TenantConfig"}
+FLEET_FIELDS = [(t, f.name) for t, cls in FLEET_CLASSES.items()
+                for f in dataclasses.fields(getattr(jconfig, cls))]
+
+
+@pytest.mark.parametrize("table, key", FLEET_FIELDS)
+def test_fleet_keys_are_typed_with_the_reference_default(table, key):
+    """Every field of [scheduler], [tenants] (its [[tenants.tenant]]
+    entries too) and [autopilot] is a typed field of the port holding the
+    reference's default, and that default is served: the tables are out of
+    UNPORTED_TABLES and a config of defaults refuses nothing."""
+    if table == "tenant":
+        port = getattr(tconfig.TenantConfig(name="t", api_key="k"), key)
+        ref = getattr(jconfig.TenantConfig(name="t", api_key="k"), key)
+    else:
+        assert table not in tconfig.UNPORTED_TABLES
+        port = getattr(getattr(tconfig.ServerConfig(), table), key)
+        ref = getattr(getattr(jconfig.ServerConfig(), table), key)
+    assert port == ref, (table, key)
+    assert tconfig.unported_settings(tconfig.ServerConfig(
+        models=[tconfig.ModelConfig(name="m")])) == []

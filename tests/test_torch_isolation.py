@@ -148,8 +148,11 @@ def test_sd15_serves_on_host_with_jax_flax_tpuserve_and_pil_blocked():
 def test_router_imports_and_builds_without_cuda_or_jax():
     """The router tier (``tpuserve_torch.workerproc``) imports with jax,
     flax, tpuserve and aiohttp blocked, builds its state for a CUDA fleet
-    (the supervisor only derives the worker configs) and answers
-    ``/stats``' process block, and CUDA is never initialized in its process."""
+    (the supervisor only derives the worker configs) — also with
+    ``[tenants]`` and ``[autopilot]`` on (examples/bert_flash_tenants.toml:
+    the tenant ledger and the fleet controller, which it runs, take one
+    admission, one tick of signals and the /tenants and /debug/autopilot
+    bodies) — and CUDA is never initialized in its process."""
     code = (
         "import sys, asyncio\n"
         f"for name in {(*BLOCKED, 'aiohttp')!r}:\n"
@@ -160,6 +163,15 @@ def test_router_imports_and_builds_without_cuda_or_jax():
         "cfg = load_config('examples/bert_flash_router.toml')\n"
         "state = router.RouterState(cfg)\n"
         "assert state.supervisor.device == 'cuda' and state.supervisor.n == 2\n"
+        "from tpuserve_torch.scheduler import autopilot, tenants\n"
+        "state = router.RouterState(load_config('examples/bert_flash_tenants.toml'))\n"
+        "assert state.tenants is not None and state.autopilot is not None\n"
+        "assert state.tenants.admit(state.tenants.resolve('victim-key')) is None\n"
+        "sig = state._collect_signals()\n"
+        "assert [d.hid for d in sig.domains] == [0, 1] and sig.models[0].name == 'bert'\n"
+        "assert state.autopilot.policy.decide(sig) == []\n"
+        "assert set(state.tenants.usage()['tenants']) == {'hostile', 'victim'}\n"
+        "assert state.autopilot.describe()['enabled']\n"
         "print('cuda_initialized', torch.cuda.is_initialized())\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=ENV,
                          capture_output=True, text=True, timeout=120)
@@ -222,11 +234,13 @@ def test_server_state_without_device_needs_cuda(no_cuda):
 
 
 def test_server_refuses_unported_sections():
+    """A table the port does not serve is refused by name ([tenants] is
+    served since the tenants were ported; [distributed] is not)."""
     from tpuserve_torch.config import ServerConfig
     from tpuserve_torch.server import ServerState
 
-    cfg = ServerConfig(unported={"[tenants] enabled": True})
-    with pytest.raises(NotImplementedError, match=r"\[tenants\]"):
+    cfg = ServerConfig(unported={"[distributed] coordinator_address": "10.0.0.1:1234"})
+    with pytest.raises(NotImplementedError, match=r"\[distributed\]"):
         ServerState(cfg, device="cpu")
 
 
@@ -262,8 +276,11 @@ MODEL_TOML = '[[model]]\nname = "bert"\nfamily = "bert"\nparallelism = "single"\
     ("[parallel]\nmode = \"replica\"\n", "[parallel] mode = 'replica'"),
     ("profiler_port = 9999\n", "profiler_port = 9999"),
     (MODEL_TOML + "pp = 2\n", "model bert: pp = 2"),
-    (MODEL_TOML + "[model.slo]\nlatency_ms = 50.0\n[tenants]\nenabled = true\n",
-     "[tenants] enabled = True"),
+    # [tenants] is served since the tenants were ported: this case (keeping
+    # its id) holds that the file builds and nothing is refused.
+    pytest.param(MODEL_TOML + "[model.slo]\nlatency_ms = 50.0\n[tenants]\nenabled = true\n",
+                 None, id=MODEL_TOML + "[model.slo]\nlatency_ms = 50.0\n[tenants]\nenabled = "
+                         "true\n-[tenants] enabled = True"),
 ])
 def test_server_refuses_unported_settings(tmp_path, toml, named):
     """A setting the port does not honour is refused by name at startup,
@@ -292,8 +309,8 @@ def test_server_accepts_settings_that_switch_unported_features_off(tmp_path):
     path.write_text('ingest_loops = 1\n[adaptive]\nenabled = false\n'
                     '[cache]\nenabled = false\n[parallel]\nmode = "single"\n'
                     + MODEL_TOML + 'session_mode = "direct"\ncold_start = false\n')
-    cfg = load_config(str(path), ["scheduler.enabled=false"])
-    assert cfg.unported["[scheduler] enabled"] is False
+    cfg = load_config(str(path), ['distributed.coordinator_address=""'])
+    assert cfg.unported["[distributed] coordinator_address"] == ""
     assert unported_settings(cfg) == []
     for example in ("bert_flash.toml", "bert_long_ring.toml", "efficientdet.toml"):
         assert unported_settings(load_config(str(ROOT / "examples" / example))) == []

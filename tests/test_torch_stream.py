@@ -740,11 +740,34 @@ def test_http_stream_from_an_ingest_loop(served):
 
 def test_injected_stream_stall_wedges_then_tears(served, monkeypatch):
     """The stream_stall kind wedges a STARTED stream's writer: after its
-    first unit nothing arrives for the stall (shortened here from the
-    reference's hour), then the stream ends torn and its slot comes back."""
+    first unit nothing is written for the stall (shortened here from the
+    reference's hour), then the stream ends torn and its slot comes back.
+
+    The silence is timed where the stall makes it, at the server's writer:
+    the first unit's write, then no write until the handler gives the
+    connection up. The client's clock cannot time it: it stamps the first
+    unit when its own thread gets to parse it, which under a loaded CPU
+    lags the write by more than the tear lags the handler's end (0.497 s
+    of a 0.5 s stall seen that way)."""
     from tpuserve_torch import server as tserver
 
     monkeypatch.setattr(tserver, "_STREAM_STALL_S", 0.5)
+    writes: list[tuple[float, bytes]] = []
+    ends: list[float] = []
+    real_write, real_stream = tserver.StreamResponse.write, tserver.ServerState._predict_stream
+
+    async def write(self, data):
+        await real_write(self, data)
+        writes.append((time.perf_counter(), data))
+
+    async def predict_stream(self, *args, **kw):
+        try:
+            return await real_stream(self, *args, **kw)
+        finally:
+            ends.append(time.perf_counter())
+
+    monkeypatch.setattr(tserver.StreamResponse, "write", write)
+    monkeypatch.setattr(tserver.ServerState, "_predict_stream", predict_stream)
     s = served()
     s.state.injector = tfaults.FaultInjector.single("stream_stall")
     try:
@@ -761,7 +784,10 @@ def test_injected_stream_stall_wedges_then_tears(served, monkeypatch):
     finally:
         s.state.injector = None
     assert rec["status"] == 200 and rec["torn"] and len(rec["indices"]) == 1
-    assert t_end - rec["token_times"][0] >= 0.5  # the first unit, then silence
+    assert rec["token_times"][0] <= t_end
+    # The server wrote the first unit and then nothing for the stall.
+    assert len(writes) == 1 and writes[0][1].startswith(b"event: token")
+    assert len(ends) == 1 and ends[0] - writes[0][0] >= 0.5
     eng = s.state.engines["tg"]
     deadline = time.monotonic() + 30
     while eng.arena.n_active:

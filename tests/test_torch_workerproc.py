@@ -576,13 +576,14 @@ def _route(state, path, method="GET", query=None):
 
 
 def test_refused_router_routes_name_their_item(tmp_path):
-    """The autopilot and tenants (item 11b) answer with their refusal,
-    without a fleet; host scaling with no host domains answers the
-    reference's 409."""
+    """The autopilot and tenants, served since they were ported, answer the
+    reference's 409 while their tables are off, without a fleet; host
+    scaling with no host domains answers the reference's 409."""
     state, _ = _router_states(tmp_path)
-    for path in ("/debug/autopilot", "/tenants"):
+    for path, error in (("/debug/autopilot", "[autopilot] is disabled; no controller runs"),
+                        ("/tenants", "[tenants] is disabled; no tenant ledger is kept")):
         resp = _route(state, path)
-        assert resp.status == 409 and "item 11b" in json.loads(resp.body)["error"], path
+        assert resp.status == 409 and json.loads(resp.body)["error"] == error, path
     resp = _route(state, "/admin/hosts/0:scale", "POST", {"active": "1"})
     assert resp.status == 409
     assert json.loads(resp.body)["error"] == ("[router] hosts = 0: there are no host "

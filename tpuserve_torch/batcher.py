@@ -39,9 +39,14 @@
   ``batch[bucket]`` span per batch. ``device_seconds_total{model=,
   replica=0}`` counts the compute phase's wall time (the telemetry
   sampler's device utilization).
+- Fleet scheduler seams (``tpuserve_torch.scheduler``): a request submitted
+  with its ``priority`` class lands in ``queue_wait_ms{model=,priority=}``
+  (the model's default class without one), and ``device_time_cb``, when the
+  scheduler set it, receives each batch's compute-phase seconds on the
+  event loop. ``pending``, ``estimate_clear_s`` and ``predicted_service_s``
+  are what its admission reads.
 
-Not ported: deferred (recycle) mode, the per-priority queue-wait split and
-the fleet scheduler's device-time hooks (ROADMAP.md queue 1, item 11).
+Not ported: deferred (recycle) mode (ROADMAP.md queue 1, item 11b).
 """
 
 from __future__ import annotations
@@ -57,7 +62,7 @@ from typing import Any, Hashable
 from tpuserve_torch.config import AdaptiveConfig, PipelineConfig
 from tpuserve_torch.hostpipe import AssemblyArena, SlotPool, StageExecutors
 from tpuserve_torch.models.base import ServingModel
-from tpuserve_torch.obs import PHASES, Metrics
+from tpuserve_torch.obs import PHASES, PRIORITIES, Metrics
 from tpuserve_torch.runtime import ModelRuntime
 
 log = logging.getLogger("tpuserve_torch.batcher")
@@ -88,6 +93,9 @@ class _Request:
     enqueued_at: float = 0.0  # time.perf_counter()
     # Absolute deadline (perf_counter clock); None = no per-request deadline.
     deadline_at: float | None = None
+    # Priority class (obs.PRIORITIES) labelling the queue-wait histogram;
+    # None = the model's default class.
+    priority: str | None = None
     # The request's obs.TraceContext (queue and phase spans are appended to
     # it); None when the caller does not trace.
     ctx: Any = None
@@ -130,6 +138,13 @@ class ModelBatcher:
                          for p in PHASES}
         # One device serves the model: replica 0.
         self._c_device_seconds = metrics.device_seconds_counter(name, 0)
+        # Per-priority queue-wait split: requests without a resolved priority
+        # land under the model's default class.
+        self._default_priority = getattr(model.cfg, "priority", "interactive")
+        self._h_qwait = {p: metrics.queue_wait_histogram(name, p) for p in PRIORITIES}
+        # The fleet scheduler's device-seconds ledger feed (set at its
+        # registration): called with each batch's compute-phase seconds.
+        self.device_time_cb = None
         # Stage executors are normally server-owned and shared across models;
         # a batcher built without one (tests) owns and later shuts down its own.
         self._own_stages = stages is None
@@ -220,10 +235,12 @@ class ModelBatcher:
 
     # -- submission (event loop) --------------------------------------------
     def submit(self, item: Any, group: Hashable = None,
-               deadline_at: float | None = None, ctx: Any = None) -> asyncio.Future:
+               deadline_at: float | None = None, priority: str | None = None,
+               ctx: Any = None) -> asyncio.Future:
         """Enqueue one decoded request; returns a Future of its result.
         ``deadline_at`` (perf_counter clock): past it, a still-queued request
-        fails with DeadlineExceeded instead of dispatching. ``ctx``
+        fails with DeadlineExceeded instead of dispatching. ``priority``
+        labels the request's queue-wait histogram. ``ctx``
         (obs.TraceContext) collects the request's queue and phase spans."""
         if not self._running or self._inflight is None:
             raise RuntimeError(f"batcher for {self.model.name} not started")
@@ -234,7 +251,7 @@ class ModelBatcher:
         fut: asyncio.Future = loop.create_future()
         req = _Request(item=item, group=group, future=fut,
                        enqueued_at=time.perf_counter(), deadline_at=deadline_at,
-                       ctx=ctx)
+                       priority=priority, ctx=ctx)
         q = self._queues.get(group)
         if q is None:
             q = self._queues[group] = asyncio.Queue()
@@ -247,6 +264,7 @@ class ModelBatcher:
 
     def submit_threadsafe(self, item: Any, group: Hashable = None,
                           deadline_at: float | None = None,
+                          priority: str | None = None,
                           ctx: Any = None) -> cf.Future:
         """Submit from a thread that is not the batcher's event loop (an
         ingest loop, an embedding thread): schedules ``submit`` on the loop
@@ -262,7 +280,8 @@ class ModelBatcher:
 
         def _do() -> None:
             try:
-                fut = self.submit(item, group=group, deadline_at=deadline_at, ctx=ctx)
+                fut = self.submit(item, group=group, deadline_at=deadline_at,
+                                  priority=priority, ctx=ctx)
             except Exception as e:  # QueueFull / stopped: through the future
                 out.set_exception(e)
                 return
@@ -482,6 +501,8 @@ class ModelBatcher:
                 wait_ms = (now - r.enqueued_at) * 1e3
                 tid = r.ctx.trace_id if r.ctx is not None else None
                 self._h_phase["queue"].observe(wait_ms, trace_id=tid)
+                self._h_qwait[r.priority or self._default_priority].observe(
+                    wait_ms, trace_id=tid)
                 if r.ctx is not None:
                     r.ctx.span("queue", now_wall - wait_ms / 1e3, now_wall,
                                tid=self.model.name)
@@ -602,6 +623,10 @@ class ModelBatcher:
                 t3 = time.perf_counter()
                 mark("compute", t2, t3)
                 self._c_device_seconds.inc(t3 - t2)
+                if self.device_time_cb is not None:
+                    # The device section (dispatch to ready) is what the
+                    # fleet's models compete for.
+                    self.device_time_cb(t3 - t2)
             finally:
                 self._staging.release(slot)
         finally:

@@ -20,10 +20,14 @@
 - **Honest accounting** — hits, misses and coalesced waiters are disjoint
   counters, so cache traffic never reads as model throughput.
 
+- **Tenant partition** — with ``[tenants]`` on, ``set_tenant_weights``
+  caps each tenant's entries at its weighted share of the capacity, so one
+  tenant's churn evicts its own oldest entries, never a neighbour's hits.
+  A flight and its entry carry the leader's tenant. Hits stay
+  content-addressed across tenants: identical bytes are identical answers.
+
 Threading: every method runs on the server's main event loop (the predict
-handler and future done-callbacks); there is no lock. The reference's
-per-tenant capacity shares wait for ``[tenants]`` (ROADMAP.md queue 1,
-item 11), which the port refuses.
+handler and future done-callbacks); there is no lock.
 """
 
 from __future__ import annotations
@@ -82,6 +86,8 @@ class CacheEntry:
     value: Any
     body: bytes | None
     at: float  # time.monotonic() at population
+    # The tenant whose miss populated the entry; None without [tenants].
+    tenant: str | None = None
 
 
 @dataclass
@@ -93,6 +99,8 @@ class _Flight:
     waiters: list[asyncio.Future]
     # The leader's trace id, named by every coalesced waiter's link span.
     leader_trace: str | None = None
+    # The leader's tenant: the completed flight populates its partition.
+    tenant: str | None = None
 
 
 class ModelCache:
@@ -112,10 +120,34 @@ class ModelCache:
         self._c_evictions = c["evictions"]
         self._c_stale = c["stale_drops"]
         self._g_entries = metrics.gauge(f"cache_entries{{model={name}}}")
+        # Tenant partition: entry-count shares from tenant weights, and each
+        # tenant's entries. Empty = unpartitioned.
+        self._tenant_shares: dict[str, int] = {}
+        self._tenant_counts: dict[str, int] = {}
+
+    def set_tenant_weights(self, weights: dict[str, float]) -> None:
+        """Partition the capacity by tenant weight: each tenant's entries
+        are capped at ``max(1, floor(capacity * weight / total))``."""
+        self._tenant_shares = {}
+        total = sum(weights.values())
+        if total <= 0:
+            return
+        for name, w in weights.items():
+            self._tenant_shares[name] = max(1, int(self.cfg.capacity * w / total))
 
     # -- lookup ---------------------------------------------------------------
     def key_for(self, item: Any) -> str:
         return f"{self._version_fn()}:{item_digest(item)}"
+
+    def _pop(self, key: str) -> CacheEntry | None:
+        e = self._entries.pop(key, None)
+        if e is not None and e.tenant is not None:
+            n = self._tenant_counts.get(e.tenant, 0) - 1
+            if n > 0:
+                self._tenant_counts[e.tenant] = n
+            else:
+                self._tenant_counts.pop(e.tenant, None)
+        return e
 
     def get(self, key: str) -> CacheEntry | None:
         """Return the live entry for ``key`` (counting a hit) or None."""
@@ -123,7 +155,7 @@ class ModelCache:
         if e is None:
             return None
         if self.cfg.ttl_s > 0 and time.monotonic() - e.at > self.cfg.ttl_s:
-            del self._entries[key]
+            self._pop(key)
             self._g_entries.set(len(self._entries))
             return None
         # LRU touch: move to the end of the dict's insertion order.
@@ -132,7 +164,24 @@ class ModelCache:
         self._c_hits.inc()
         return e
 
-    def put(self, key: str, value: Any) -> None:
+    def _evict_one(self, tenant: str | None = None) -> None:
+        """Evict the oldest entry: of ``tenant`` when given, else of any
+        tenant over its share, else the oldest of all."""
+        victim = None
+        if tenant is not None:
+            victim = next((k for k, e in self._entries.items() if e.tenant == tenant), None)
+        else:
+            for k, e in self._entries.items():
+                share = self._tenant_shares.get(e.tenant) if e.tenant is not None else None
+                if share is not None and self._tenant_counts.get(e.tenant, 0) > share:
+                    victim = k
+                    break
+        if victim is None:
+            victim = next(iter(self._entries))
+        self._pop(victim)
+        self._c_evictions.inc()
+
+    def put(self, key: str, value: Any, tenant: str | None = None) -> None:
         body = None
         if isinstance(value, (dict, list)):
             try:
@@ -141,16 +190,20 @@ class ModelCache:
                     body = raw
             except (TypeError, ValueError):
                 body = None  # non-JSON-able results cache by value only
-        self._entries.pop(key, None)
-        self._entries[key] = CacheEntry(value, body, time.monotonic())
+        self._pop(key)
+        self._entries[key] = CacheEntry(value, body, time.monotonic(), tenant)
+        if tenant is not None:
+            self._tenant_counts[tenant] = self._tenant_counts.get(tenant, 0) + 1
+            share = self._tenant_shares.get(tenant)
+            while share is not None and self._tenant_counts.get(tenant, 0) > share:
+                self._evict_one(tenant)
         while len(self._entries) > self.cfg.capacity:
-            del self._entries[next(iter(self._entries))]
-            self._c_evictions.inc()
+            self._evict_one()
         self._g_entries.set(len(self._entries))
 
     # -- single-flight --------------------------------------------------------
     def submit_through(self, key: str, submit: Callable[[], asyncio.Future],
-                       ctx: Any = None) -> asyncio.Future:
+                       ctx: Any = None, tenant: str | None = None) -> asyncio.Future:
         """Miss path: join the in-flight computation for ``key`` or lead a
         new one by calling ``submit()`` (which may raise, e.g. QueueFull —
         propagated to the caller with nothing registered).
@@ -160,7 +213,8 @@ class ModelCache:
         waiters; the flight still completes and populates. ``ctx``
         (obs.TraceContext) makes coalescing traceable: the leader's trace id
         is kept on the flight and each joining waiter records a
-        ``coalesced`` span naming it."""
+        ``coalesced`` span naming it. ``tenant`` is the leader's: the
+        result populates that tenant's partition."""
         loop = asyncio.get_running_loop()
         if self.cfg.coalesce:
             fl = self._flights.get(key)
@@ -176,7 +230,8 @@ class ModelCache:
         base = submit()
         self._c_misses.inc()
         fl = _Flight(key=key, version=self._version_fn(), waiters=[],
-                     leader_trace=ctx.trace_id if ctx is not None else None)
+                     leader_trace=ctx.trace_id if ctx is not None else None,
+                     tenant=tenant)
         if self.cfg.coalesce:
             self._flights[key] = fl
         w = loop.create_future()
@@ -201,7 +256,7 @@ class ModelCache:
             return
         val = base.result()
         if self._version_fn() == fl.version:
-            self.put(fl.key, val)
+            self.put(fl.key, val, tenant=fl.tenant)
         else:
             # Publish or rollback mid-flight: the result was admitted under
             # a version no longer live. Waiters still get it (as an uncached
@@ -214,12 +269,13 @@ class ModelCache:
     def clear(self) -> None:
         """Drop every entry (the router's fleet-wide reload invalidation)."""
         self._entries.clear()
+        self._tenant_counts.clear()
         self._g_entries.set(0)
 
     # -- introspection --------------------------------------------------------
     def stats(self) -> dict:
         """The /stats "cache" block entry for this model."""
-        return {
+        out = {
             "entries": len(self._entries),
             "capacity": self.cfg.capacity,
             "inflight": len(self._flights),
@@ -229,6 +285,11 @@ class ModelCache:
             "evictions": self._c_evictions.value,
             "stale_drops": self._c_stale.value,
         }
+        if self._tenant_shares:
+            out["tenants"] = {
+                t: {"entries": self._tenant_counts.get(t, 0), "share": share}
+                for t, share in sorted(self._tenant_shares.items())}
+        return out
 
 
 def hit_rate(counters: dict[str, float]) -> float | None:

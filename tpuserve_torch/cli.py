@@ -6,7 +6,8 @@ Usage::
                                       [--device cuda|cpu|cuda:N]
     python -m tpuserve_torch bench    --url http://127.0.0.1:8000 --model resnet50 ...
     python -m tpuserve_torch chaos    --config chaos.toml --min-availability 0.99 \\
-                                      [--drill reload|worker_kill|host_kill|stream_kill]
+                                      [--drill reload|worker_kill|host_kill|stream_kill|
+                                               fleet|autopilot]
                                       [--device ...]
     python -m tpuserve_torch warmup   --config serve.toml [--device ...]
     python -m tpuserve_torch describe [--device ...]
@@ -22,13 +23,18 @@ host agents, with ``[router] routers > 1`` beside peer routers on the same
 port); ``chaos --drill worker_kill``, ``--drill host_kill`` and ``--drill
 stream_kill`` (``tpuserve_torch.workerproc.drill``) do the same with a
 SIGKILL of a worker (of a whole host domain with ``host_kill``) mid-load and
-exit 1 unless availability holds and every drill gate passes. Either way
-this process never initializes CUDA.
+exit 1 unless availability holds and every drill gate passes; ``chaos
+--drill autopilot`` serves a tenant-fenced router fleet with the autopilot
+on, floods it as a hostile tenant beside a victim one, and exits 1 unless
+the victim's availability holds and every gate passes. Either way this
+process never initializes CUDA. ``chaos --drill fleet``
+(``tpuserve_torch.scheduler.run_fleet_drill``) serves the config's >= 3
+models in this process with the scheduler on, poisons ``--model`` (the
+victim) with ``device_error`` and gates the worst survivor's availability.
 
 Not ported, refused by name with exit code 2: ``import-model`` (converts a
 TF SavedModel; needs TensorFlow), ``finetune-det`` (ROADMAP.md queue 1 item
-13), ``lint`` (item 12), and the chaos drills ``fleet`` and ``autopilot``
-(item 11b).
+13) and ``lint`` (item 12).
 """
 
 from __future__ import annotations
@@ -37,8 +43,8 @@ import argparse
 import json
 import sys
 
-# Subcommands and drills of the reference that the port does not serve yet:
-# what each is refused with.
+# Subcommands of the reference that the port does not serve yet: what each
+# is refused with.
 UNPORTED_COMMANDS = {
     "import-model": "not ported: needs TensorFlow (import-model converts a TF "
                     "SavedModel; ROADMAP.md lists it as never ported)",
@@ -46,12 +52,8 @@ UNPORTED_COMMANDS = {
     "lint": "not yet ported: ROADMAP.md queue 1 item 12 (analysis/ pointed at "
             "tpuserve_torch/)",
 }
-UNPORTED_DRILLS = {
-    "fleet": "not yet ported: ROADMAP.md queue 1 item 11b (the fleet scheduler)",
-    "autopilot": "not yet ported: ROADMAP.md queue 1 item 11b (tenants, autopilot)",
-}
 # The drills that serve a router over worker processes.
-PROCESS_DRILLS = ("worker_kill", "host_kill", "stream_kill")
+PROCESS_DRILLS = ("worker_kill", "host_kill", "stream_kill", "autopilot")
 
 
 def _add_config_args(p: argparse.ArgumentParser) -> None:
@@ -144,7 +146,7 @@ def _add_chaos_args(p: argparse.ArgumentParser) -> None:
                    help="open-loop offered rate (req/s); default closed loop")
     p.add_argument("--min-availability", type=float, default=0.0,
                    help="exit non-zero when n_ok/(n_ok+n_err) falls below this")
-    p.add_argument("--drill", choices=["reload", *PROCESS_DRILLS, *UNPORTED_DRILLS],
+    p.add_argument("--drill", choices=["reload", "fleet", *PROCESS_DRILLS],
                    default=None,
                    help="additionally drive a drill during the run: 'reload' "
                         "POSTs :reload on an interval so reload_* fault rules "
@@ -158,8 +160,13 @@ def _add_chaos_args(p: argparse.ArgumentParser) -> None:
                         "compiles unchanged); 'stream_kill' "
                         "does so under mixed streaming + unary load on a "
                         "generative model (zero torn or reordered streams, "
-                        "streams equal to a seeded reference); fleet and "
-                        "autopilot are not ported yet (exit 2)")
+                        "streams equal to a seeded reference); 'fleet' loads "
+                        "every model of a >= 3-model config with --model "
+                        "poisoned (device_error at 100%%) and gates the worst "
+                        "survivor; 'autopilot' serves a tenant-fenced fleet "
+                        "with the autopilot on and floods it as a hostile "
+                        "tenant beside a victim tenant (the victim's "
+                        "availability is gated)")
     p.add_argument("--drill-interval", type=float, default=0.5,
                    help="seconds between drill operations")
     p.add_argument("--kill-after", type=float, default=None,
@@ -254,8 +261,6 @@ def main(argv: list[str] | None = None) -> int:
         return run_loadgen_cli(args)
 
     if args.cmd == "chaos":
-        if args.drill in UNPORTED_DRILLS:
-            return _refuse(f"chaos --drill {args.drill}", UNPORTED_DRILLS[args.drill])
         import asyncio
 
         from tpuserve_torch.server import ServerState, configure_logging
@@ -271,7 +276,10 @@ def main(argv: list[str] | None = None) -> int:
             kw = dict(duration_s=args.duration, warmup_s=args.warmup,
                       concurrency=args.concurrency, kill_after_s=args.kill_after,
                       device=args.device or "cuda")
-            if args.drill == "host_kill":
+            if args.drill == "autopilot":
+                del kw["kill_after_s"]
+                summary = asyncio.run(drill.run_autopilot_drill(cfg, model, **kw))
+            elif args.drill == "host_kill":
                 summary = asyncio.run(drill.run_host_kill_drill(
                     cfg, model, reabsorb_budget_s=args.respawn_budget, **kw))
             else:
@@ -282,6 +290,16 @@ def main(argv: list[str] | None = None) -> int:
             print(json.dumps(summary, indent=2))
             return 0 if (summary["availability"] >= args.min_availability
                          and all(summary["gates"].values())) else 1
+        if args.drill == "fleet":
+            # --model names the VICTIM; the gated availability is the worst
+            # survivor's.
+            from tpuserve_torch.scheduler import run_fleet_drill
+
+            summary = asyncio.run(run_fleet_drill(
+                cfg, victim=model, duration_s=args.duration, warmup_s=args.warmup,
+                concurrency=args.concurrency, device=args.device))
+            print(json.dumps(summary, indent=2))
+            return 0 if summary["availability"] >= args.min_availability else 1
         from tpuserve_torch.faults import run_chaos
 
         state = ServerState(cfg, device=args.device)

@@ -9,17 +9,20 @@ typed: :class:`ModelConfig`, :class:`PipelineConfig`,
 :class:`AdaptiveConfig`, the observability tables :class:`TraceConfig`,
 :class:`EventsConfig` and :class:`TelemetryConfig`, the generation
 engine's :class:`GenserveConfig`, the process tier's :class:`RouterConfig`
-and :class:`WorkerConfig`, the per-model :class:`SloConfig` and the
-top-level :class:`ServerConfig` fields, with the JAX package's defaults and
-checks. Every other setting the JAX package knows — its other tables
-(``[tenants]``, ``[scheduler]``, ...) and the keys the port has no use for
-yet (``profiler_port``, ``pp``, ...) — parses into the ``unported`` dict of
-its ``ServerConfig`` or ``ModelConfig`` as a plain value.
+and :class:`WorkerConfig`, the fleet scheduler's :class:`SchedulerConfig`,
+the tenants' :class:`TenantsConfig` (with its :class:`TenantConfig`
+entries), the fleet controller's :class:`AutopilotConfig`, the per-model
+:class:`SloConfig` and the top-level :class:`ServerConfig` fields, with the
+JAX package's defaults and checks. Every other setting the JAX package
+knows — its other tables (``[parallel]``, ``[distributed]``) and the keys
+the port has no use for yet (``profiler_port``, ``pp``, ``session_mode``,
+...) — parses into the ``unported`` dict of its ``ServerConfig`` or
+``ModelConfig`` as a plain value.
 :func:`unported_settings` names those that ask for behaviour the port
 lacks, and the server refuses to start while any is set: a JAX config
 tuned with them never loads into a server that quietly behaves otherwise.
-A setting that switches a missing feature off (``[tenants] enabled =
-false``, ``session_mode = "direct"``), or that holds the JAX package's
+A setting that switches a missing feature off (``[parallel] mode =
+"single"``, ``session_mode = "direct"``), or that holds the JAX package's
 default where that default asks for nothing (``relay_workers = 2`` while
 the model is served directly), is accepted. So is a ``[[faults.rule]]``
 whose kind fires at a call site the port has; while ``[faults]`` is
@@ -53,7 +56,7 @@ from typing import Any
 # The JAX package's tables the port does not serve yet. Any key set in one
 # is refused, except ``enabled = false`` (and ``[parallel] mode`` naming the
 # one-device layout).
-UNPORTED_TABLES = ("autopilot", "distributed", "parallel", "scheduler", "tenants")
+UNPORTED_TABLES = ("distributed", "parallel")
 _TABLE_OFF: dict[str, tuple] = {"enabled": (False,)}
 _PARALLEL_OFF: dict[str, tuple] = {"mode": ("", "single")}
 _DISTRIBUTED_OFF: dict[str, tuple] = {"coordinator_address": ("",)}
@@ -66,8 +69,8 @@ _MODEL_UNPORTED: dict[str, tuple] = {
     # Deferred (recycle) mode's knobs, inert while session_mode is direct.
     "relay_workers": (2,), "relay_epoch_images": (4096,),
     "relay_epoch_ms": (2000.0,), "relay_slots": (4,),
-    "priority": ("interactive",), "cold_start": (False,),
 }
+
 
 WIRE_FORMATS = ("rgb8", "yuv420")
 
@@ -618,6 +621,234 @@ class WorkerConfig:
 
 
 @dataclass
+class SchedulerConfig:
+    """Fleet-level SLO scheduler (``[scheduler]`` TOML;
+    tpuserve_torch.scheduler).
+
+    Off by default: every model keeps its independent batcher. When enabled,
+    a central scheduler sits between admission and the per-model batchers
+    and engines: requests whose stamped deadline provably cannot be met shed
+    at admission with a fast 504 (``deadline_unmeetable``);
+    ``X-Priority: interactive|batch`` requests arbitrate device time through
+    a per-model device-seconds ledger (batch-class work sheds first under
+    overload, and no model's interactive traffic is starved below
+    ``min_share``); and models declared ``cold_start`` boot with no
+    parameter slot on the device, warm through the lifecycle's
+    stage-then-publish path on their first request (or ``:warm``) and demote
+    back to cold after ``idle_demote_s``, freeing their slots."""
+
+    enabled: bool = False
+    # Sliding window (s) of the per-model device-seconds ledger behind the
+    # priority-share arbitration.
+    window_s: float = 10.0
+    # The fleet counts as saturated (batch-class sheds, share floors
+    # enforce) when the summed predicted queue-clear time of the warm models
+    # exceeds this many seconds.
+    overload_clear_s: float = 1.0
+    # Interactive floor: under saturation a model with queued work whose
+    # windowed device-time share is below this is "starved", and a model
+    # over its allowance (1 - min_share * others) sheds until it catches
+    # up. 0 disables the floor.
+    min_share: float = 0.05
+    # Grace (ms) beyond the predicted completion before deadline_unmeetable
+    # fires.
+    headroom_ms: float = 0.0
+    # > 0: a warm cold_start model idle this long demotes back to cold,
+    # freeing its parameter slots, until the next request warms it again.
+    idle_demote_s: float = 0.0
+    # Retry-After hint (s) of warming-window 503s before the first warm-up
+    # was measured (the measured warm duration after that).
+    warm_retry_after_s: float = 5.0
+    # Idle-demotion sweep cadence (s).
+    sweep_interval_s: float = 0.5
+    # Chip budget of the warm models (each warm model occupies its
+    # parallelism degree: 1 on one card); warming past it first demotes
+    # idle cold_start models and otherwise sheds 503 chip_budget. 0 =
+    # unlimited.
+    chip_budget: int = 0
+
+    def __post_init__(self) -> None:
+        if self.window_s <= 0 or self.sweep_interval_s <= 0:
+            raise ValueError(
+                "scheduler.window_s/sweep_interval_s must be > 0")
+        if self.chip_budget < 0:
+            raise ValueError(
+                f"scheduler.chip_budget must be >= 0, got {self.chip_budget}")
+        if not 0.0 <= self.min_share < 0.5:
+            raise ValueError(
+                f"scheduler.min_share must be in [0, 0.5), got {self.min_share}")
+        if self.overload_clear_s < 0 or self.headroom_ms < 0 \
+                or self.idle_demote_s < 0 or self.warm_retry_after_s < 0:
+            raise ValueError(
+                "scheduler.overload_clear_s/headroom_ms/idle_demote_s/"
+                "warm_retry_after_s must be >= 0")
+
+
+@dataclass
+class TenantConfig:
+    """One tenant (``[[tenants.tenant]]`` TOML;
+    tpuserve_torch.scheduler.tenants): an API key and its containment
+    envelope — a fairness weight, a windowed device-seconds quota and a
+    request-rate limit. Overage is refused at admission with 429 +
+    Retry-After."""
+
+    name: str = ""
+    # The key clients present as ``X-Api-Key``; unique and non-empty.
+    api_key: str = ""
+    # Fairness weight: the tenant's relative share of device time under
+    # saturation, and of the result cache's capacity.
+    weight: float = 1.0
+    # Device-seconds the tenant may use per [tenants] window_s; 0 =
+    # unlimited (tenant_quota_exceeded 429s past it).
+    quota_device_s: float = 0.0
+    # Request-rate limit (token bucket, requests/s); 0 = unlimited.
+    rate_per_s: float = 0.0
+    # Token-bucket burst; 0 derives max(1, 2 * rate_per_s).
+    burst: float = 0.0
+
+    def __post_init__(self) -> None:
+        if not self.name:
+            raise ValueError("tenants.tenant.name must be non-empty")
+        if not self.api_key:
+            raise ValueError(
+                f"tenants.tenant {self.name!r}: api_key must be non-empty")
+        if self.weight <= 0:
+            raise ValueError(
+                f"tenants.tenant {self.name!r}: weight must be > 0, "
+                f"got {self.weight}")
+        if self.quota_device_s < 0 or self.rate_per_s < 0 or self.burst < 0:
+            raise ValueError(
+                f"tenants.tenant {self.name!r}: quota_device_s/rate_per_s/"
+                "burst must be >= 0")
+
+
+@dataclass
+class TenantsConfig:
+    """Multi-tenant front door (``[tenants]`` TOML;
+    tpuserve_torch.scheduler.tenants).
+
+    Off by default. When enabled, every predict request presents a
+    configured ``X-Api-Key`` (401 otherwise, unless ``allow_anonymous``),
+    and admission enforces per-tenant rate, windowed device-seconds quota
+    and, under fleet saturation, weighted fair share, from one
+    sliding-window device-seconds ledger per tenant. The result cache
+    partitions its capacity by tenant weight, and each tenant gets SLO burn
+    gauges over ``tenant_latency_ms{tenant=}``."""
+
+    enabled: bool = False
+    # Sliding window (s) of the per-tenant device-seconds ledger.
+    window_s: float = 60.0
+    # Admit requests with no or an unknown API key as the tenant named here
+    # ("" = refuse them with 401); weight 1 and no quota or rate unless a
+    # [[tenants.tenant]] entry names it.
+    allow_anonymous: str = ""
+    # Slack over a tenant's weighted fair share before share shedding fires
+    # under saturation (tenant_share_exceeded); 0 disables it.
+    share_slack: float = 1.25
+    # Per-tenant SLO over tenant_latency_ms{tenant=}: latency objective (ms;
+    # 0 disables the burn evaluation), availability target and burn alert.
+    slo_latency_ms: float = 0.0
+    slo_availability: float = 0.999
+    slo_burn_alert: float = 10.0
+    tenants: list[TenantConfig] = field(default_factory=list)
+
+    def __post_init__(self) -> None:
+        if self.window_s <= 0:
+            raise ValueError(
+                f"tenants.window_s must be > 0, got {self.window_s}")
+        if self.share_slack < 0:
+            raise ValueError(
+                f"tenants.share_slack must be >= 0, got {self.share_slack}")
+        if self.slo_latency_ms < 0:
+            raise ValueError(
+                f"tenants.slo_latency_ms must be >= 0, got {self.slo_latency_ms}")
+        if not 0.0 < self.slo_availability < 1.0:
+            raise ValueError(
+                f"tenants.slo_availability must be in (0, 1), "
+                f"got {self.slo_availability}")
+        if self.slo_burn_alert <= 0:
+            raise ValueError(
+                f"tenants.slo_burn_alert must be > 0, got {self.slo_burn_alert}")
+        names = [t.name for t in self.tenants]
+        if len(set(names)) != len(names):
+            raise ValueError(f"tenants.tenant names must be unique: {names}")
+        keys = [t.api_key for t in self.tenants]
+        if len(set(keys)) != len(keys):
+            raise ValueError("tenants.tenant api_keys must be unique")
+
+
+@dataclass
+class AutopilotConfig:
+    """Self-healing fleet controller (``[autopilot]`` TOML;
+    tpuserve_torch.scheduler.autopilot).
+
+    Off by default. When enabled on the primary router, a reconcile loop
+    reads SLO burn state, the host domains' queue pressure and the predicted
+    clear time every ``interval_s`` and acts through the audited verbs an
+    operator uses: scale a host domain's worker slots, engage or clear
+    shed-on-burn per model, and (with ``paging``) warm or demote models under
+    a budget. Every decision is damped by hysteresis, a per-(action, target)
+    cooldown and an action budget per window, and rolled back when the
+    objective got worse."""
+
+    enabled: bool = False
+    # Reconcile tick cadence (s).
+    interval_s: float = 0.5
+    # Consecutive ticks a trigger must hold before it acts.
+    hysteresis_ticks: int = 3
+    # Per-(action kind, target) cooldown (s); rollbacks are exempt.
+    cooldown_s: float = 10.0
+    # At most this many non-rollback actions per window_s.
+    max_actions_per_window: int = 8
+    window_s: float = 60.0
+    # Follow-up watch: this long after an action the objective is measured
+    # again, and an action that made it worse by more than
+    # rollback_tolerance is inverted. 0 disables.
+    follow_up_s: float = 15.0
+    rollback_tolerance: float = 0.5
+    # Queue pressure (mean in-flight relays per active healthy worker slot):
+    # above high a domain scales up, below low with nothing burning it
+    # scales down.
+    pressure_high: float = 2.0
+    pressure_low: float = 0.25
+    # Predicted queue-clear time (s) that also triggers scale-up; 0 off.
+    clear_high_s: float = 0.0
+    # Never scale a domain below this many active slots.
+    min_slots: int = 1
+    # Allow shed-on-burn actions.
+    burn_shed: bool = True
+    # Allow scale actions against host domains.
+    scale: bool = True
+    # Allow warm/demote paging actions (fanned out to the workers' :warm and
+    # :demote); needs [scheduler] cold_start models.
+    paging: bool = False
+    # Most models warm at once under paging; 0 = unlimited.
+    max_warm: int = 0
+    # Decision records kept for GET /debug/autopilot.
+    history: int = 256
+
+    def __post_init__(self) -> None:
+        if self.interval_s <= 0 or self.window_s <= 0:
+            raise ValueError(
+                "autopilot.interval_s/window_s must be > 0")
+        if self.hysteresis_ticks < 1 or self.max_actions_per_window < 1 \
+                or self.min_slots < 1 or self.history < 1:
+            raise ValueError(
+                "autopilot.hysteresis_ticks/max_actions_per_window/"
+                "min_slots/history must be >= 1")
+        if self.cooldown_s < 0 or self.follow_up_s < 0 \
+                or self.rollback_tolerance < 0 or self.clear_high_s < 0 \
+                or self.max_warm < 0:
+            raise ValueError(
+                "autopilot.cooldown_s/follow_up_s/rollback_tolerance/"
+                "clear_high_s/max_warm must be >= 0")
+        if not 0.0 <= self.pressure_low < self.pressure_high:
+            raise ValueError(
+                f"autopilot.pressure_low must be in [0, pressure_high), got "
+                f"low={self.pressure_low} high={self.pressure_high}")
+
+
+@dataclass
 class SloConfig:
     """Per-model service-level objective (``[model.slo]`` TOML;
     tpuserve_torch.telemetry.slo). A request is good when it answers within
@@ -707,6 +938,15 @@ class ModelConfig:
     # [h2d..fetch] staging slots at once; [pipeline] depth overrides it
     # when nonzero.
     max_inflight: int = 2
+    # Default priority class of requests without an X-Priority header
+    # ("interactive" or "batch"); the fleet scheduler ([scheduler] enabled)
+    # sheds batch-class work first under overload.
+    priority: str = "interactive"
+    # Weight paging: True boots this model cold (no parameter slot on the
+    # device, nothing captured) until its first request or POST
+    # .../{name}:warm stages it through the lifecycle; [scheduler]
+    # idle_demote_s demotes it back. Needs [scheduler] enabled.
+    cold_start: bool = False
     # Result-cache eligibility: False keeps this model out of the result
     # cache (for models whose results are not a pure function of the item).
     cacheable: bool = True
@@ -748,6 +988,14 @@ class ModelConfig:
             raise ValueError(
                 f"stream_policy must be 'drop' or 'block', "
                 f"got {self.stream_policy!r}")
+        if self.priority not in ("interactive", "batch"):
+            raise ValueError(
+                f"priority must be 'interactive' or 'batch', "
+                f"got {self.priority!r}")
+        if self.cold_start and self.unported.get("session_mode", "direct") != "direct":
+            raise ValueError(
+                "cold_start requires session_mode = 'direct' (recycle-mode "
+                "workers own their params out of process)")
 
 
 @dataclass
@@ -820,6 +1068,13 @@ class ServerConfig:
     router: RouterConfig = field(default_factory=RouterConfig)
     # Worker-process knobs of the router split (loopback bind, drain).
     worker: WorkerConfig = field(default_factory=WorkerConfig)
+    # Fleet scheduler: predictive admission, priority classes, weight
+    # paging (off by default).
+    scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
+    # Per-tenant containment at the front door (off by default).
+    tenants: TenantsConfig = field(default_factory=TenantsConfig)
+    # Self-healing fleet controller on the primary router (off by default).
+    autopilot: AutopilotConfig = field(default_factory=AutopilotConfig)
     # Emit one JSON object per log line instead of the human-readable
     # default.
     log_json: bool = False
@@ -839,11 +1094,13 @@ class ServerConfig:
         raise KeyError(f"no model named {name!r} configured")
 
 
-# The observability tables, [genserve], [router] and [worker], typed by TOML
-# table name.
+# The observability tables, [genserve], [router], [worker], [scheduler] and
+# [autopilot], typed by TOML table name ([tenants] nests its entries and is
+# built on its own).
 TYPED_TABLES = {"trace": TraceConfig, "telemetry": TelemetryConfig,
                 "events": EventsConfig, "genserve": GenserveConfig,
-                "router": RouterConfig, "worker": WorkerConfig}
+                "router": RouterConfig, "worker": WorkerConfig,
+                "scheduler": SchedulerConfig, "autopilot": AutopilotConfig}
 
 
 def unported_settings(cfg: ServerConfig) -> list[str]:
@@ -902,6 +1159,7 @@ def load_config(path: str | None = None, overrides: list[str] | None = None) -> 
     lifecycle_dict = raw.pop("lifecycle", None)
     cache_dict = raw.pop("cache", None)
     adaptive_dict = raw.pop("adaptive", None)
+    tenants_dict = raw.pop("tenants", None)
     typed_dicts = {t: raw.pop(t) for t in TYPED_TABLES if t in raw}
     tables = {t: raw.pop(t) for t in UNPORTED_TABLES if t in raw}
     cfg: ServerConfig = _build(ServerConfig, raw, _SERVER_UNPORTED)
@@ -924,6 +1182,12 @@ def load_config(path: str | None = None, overrides: list[str] | None = None) -> 
         cfg.cache = _build(CacheConfig, cache_dict)
     if adaptive_dict is not None:
         cfg.adaptive = _build(AdaptiveConfig, adaptive_dict)
+    if tenants_dict is not None:
+        # [[tenants.tenant]] entries are nested sub-tables of [tenants].
+        tenant_dicts = tenants_dict.pop("tenant", [])
+        cfg.tenants = _build(TenantsConfig, tenants_dict)
+        cfg.tenants.tenants = [_build(TenantConfig, t) for t in tenant_dicts]
+        cfg.tenants.__post_init__()  # uniqueness, with the entries set
     if faults_dict is not None:
         rule_dicts = faults_dict.pop("rule", [])
         cfg.faults = _build(FaultsConfig, faults_dict)

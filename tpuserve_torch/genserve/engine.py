@@ -267,12 +267,15 @@ class GenEngine:
         self._c_prefill_chunks = metrics.counter(
             f"gen_prefill_chunks_total{{model={name}}}")
         self._c_kv_shed = metrics.sched_shed_counter(name, "kv_pressure")
-        self._default_priority = "interactive"
+        self._default_priority = getattr(model.cfg, "priority", "interactive")
         self._h_qwait = {p: metrics.queue_wait_histogram(name, p)
                          for p in PRIORITIES}
         # Device-seconds ledger: step time feeds device_utilization.
         self._c_device_seconds = metrics.device_seconds_counter(
             name, self.replica)
+        # The fleet scheduler's device-seconds ledger feed (set at its
+        # registration): called with each step's seconds.
+        self.device_time_cb = None
         self._c_replica_steps = metrics.gen_replica_steps_counter(
             name, self.replica)
         self._c_replica_units = metrics.gen_replica_units_counter(
@@ -771,6 +774,8 @@ class GenEngine:
                 self._h_step.observe(step_ms, trace_id=ex_tid)
                 self._observe_step(step_ms)
                 self._c_device_seconds.inc(step_ms / 1e3)
+                if self.device_time_cb is not None:
+                    self.device_time_cb(step_ms / 1e3)
                 self._c_iterations.inc()
                 self._c_replica_steps.inc()
             except asyncio.CancelledError:

@@ -22,6 +22,14 @@ pipeline, every step of which keeps the old version serving on failure:
    (``soak_canary``), rolls back to the retained slot. The re-canary after
    a rollback is also the breaker's recovery probe.
 
+The fleet scheduler's warm (``tpuserve_torch.scheduler``, a ``cold_start``
+model) is ``reload`` on a cold runtime: the stage fills its slots, the
+completeness gate captures every (bucket, slot) (the first warm compiles
+the variants, a re-warm after a demote only captures), and the staged
+canary and the publish follow, so no request is ever answered by unstaged
+weights; a failed capture is the ``load`` gate's rejection and the model
+stays cold.
+
 ``POST .../{name}:rollback`` exposes the same rollback manually and
 ``GET .../{name}/versions`` the transition history. Metrics:
 ``model_version`` gauge, ``reloads_total`` / ``reload_rejected_total{stage=}``

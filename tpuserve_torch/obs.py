@@ -503,10 +503,30 @@ CACHE_EVENTS = ("hits", "misses", "coalesced", "evictions", "stale_drops")
 # per stage, labelled on pipeline_stage_depth{model=,stage=}.
 PIPELINE_STAGES = ("assemble", "h2d", "fetch", "postproc")
 
-# Priority classes, the label on queue_wait_ms{model=,priority=} (the
-# reference's fleet scheduler arbitrates them; the port serves every
-# request at the model's default, "interactive").
+# Priority classes (X-Priority, or the model's ``priority`` default): the
+# label on queue_wait_ms{model=,priority=}. Under fleet overload the
+# scheduler sheds "batch" first (tpuserve_torch.scheduler).
 PRIORITIES = ("interactive", "batch")
+
+# Reasons on sched_sheds_total{model=,reason=} (tpuserve_torch.scheduler):
+# "deadline_unmeetable" — the stamped deadline provably cannot be met at
+# admission (fast 504); "priority_shed" — batch-class work shed under fleet
+# saturation; "share_exceeded" — an over-allowance model shed while another
+# model's interactive traffic was starved below min_share; "model_warming" —
+# shed during a cold model's warming window; "burn_shed" — batch-class work
+# of a model burning its error budget; "kv_pressure" — the paged generation
+# engine's free pages cannot cover the request; "chip_budget" — warming the
+# model would exceed the warm fleet's chip budget.
+SCHED_SHED_REASONS = ("deadline_unmeetable", "priority_shed",
+                      "share_exceeded", "model_warming", "burn_shed",
+                      "kv_pressure", "chip_budget")
+
+# Tenant admission refusals (tpuserve_torch.scheduler.tenants), by cause.
+TENANT_SHED_REASONS = ("tenant_unknown", "tenant_rate_exceeded",
+                       "tenant_quota_exceeded", "tenant_share_exceeded")
+
+# A model's paging state as a gauge value (model_state{model=}).
+MODEL_STATES = {"cold": 0.0, "warming": 1.0, "warm": 2.0}
 
 # Reasons on gen_stream_terminated_total{model=,reason=} — how a generation
 # stream ended (tpuserve_torch.genserve.engine._terminate_stream): "done" is
@@ -668,18 +688,57 @@ class Metrics:
 
     def queue_wait_histogram(self, model: str, priority: str) -> Histogram:
         """queue_wait_ms{model=,priority=}: time a request spent queued
-        before its generation slot admitted it, by priority class
-        (PRIORITIES). Prebound at engine start — never call per request."""
+        before its batch flushed (or its generation slot admitted it), by
+        priority class (PRIORITIES). Prebound at batcher/engine start —
+        never call per request."""
         return self.histogram(
             f"queue_wait_ms{{model={model},priority={priority}}}")
 
     def sched_shed_counter(self, model: str, reason: str) -> Counter:
-        """sched_sheds_total{model=,reason=}: requests refused at admission
-        by reason ("kv_pressure": the paged engine's free-page ledger cannot
-        cover the request's prompt + decode reservation). Prebound — never
-        call per request."""
+        """sched_sheds_total{model=,reason=}: requests refused at admission,
+        by reason (SCHED_SHED_REASONS). Prebound — never call per
+        request."""
         return self.counter(
             f"sched_sheds_total{{model={model},reason={reason}}}")
+
+    def sched_device_seconds_counter(self, model: str) -> Counter:
+        """sched_device_seconds_total{model=}: device-section seconds this
+        model's dispatches consumed (batch compute phases, generation
+        steps): the fleet scheduler's device-time ledger, monotonic."""
+        return self.counter(f"sched_device_seconds_total{{model={model}}}")
+
+    def tenant_requests_counter(self, tenant: str) -> Counter:
+        """tenant_requests_total{tenant=}: predict requests admitted for one
+        tenant. Prebound by the tenant ledger."""
+        return self.counter(f"tenant_requests_total{{tenant={tenant}}}")
+
+    def tenant_shed_counter(self, tenant: str, reason: str) -> Counter:
+        """tenant_sheds_total{tenant=,reason=}: requests refused at the
+        tenant front door, by reason (TENANT_SHED_REASONS)."""
+        return self.counter(
+            f"tenant_sheds_total{{tenant={tenant},reason={reason}}}")
+
+    def tenant_device_seconds_counter(self, tenant: str) -> Counter:
+        """tenant_device_seconds_total{tenant=}: the device-time proxy one
+        tenant consumed (its windowed form drives quota and fair share)."""
+        return self.counter(
+            f"tenant_device_seconds_total{{tenant={tenant}}}")
+
+    def tenant_latency_histogram(self, tenant: str) -> Histogram:
+        """tenant_latency_ms{tenant=}: end-to-end predict latency per tenant
+        (what the per-tenant SLO burn engine reads)."""
+        return self.histogram(f"tenant_latency_ms{{tenant={tenant}}}")
+
+    def autopilot_action_counter(self, kind: str, outcome: str) -> Counter:
+        """autopilot_actions_total{kind=,outcome=}: fleet-controller
+        decisions by action kind and outcome (ok/error/rollback)."""
+        return self.counter(
+            f"autopilot_actions_total{{kind={kind},outcome={outcome}}}")
+
+    def set_model_state(self, model: str, state: str) -> None:
+        """model_state{model=}: the paging state as a gauge (MODEL_STATES:
+        cold 0 / warming 1 / warm 2)."""
+        self.gauge(f"model_state{{model={model}}}").set(MODEL_STATES[state])
 
     def gen_replica_steps_counter(self, model: str, replica: int) -> Counter:
         """gen_replica_steps_total{model=,replica=}: decode iterations one

@@ -29,7 +29,10 @@ CUDA tensors, none on the CPU), so a run can show that its main path went
 through the kernel; ``shape_launches`` splits K1's count by q's (B, Sq, H, D). A call made while a CUDA graph is being captured counts
 once at capture, though its launch runs at every replay; whoever replays the
 graph adds the launches it recorded (``count_replay``): the serving
-runtime's graphs do.
+runtime's graphs do. A capture learns its own launches from
+``capture_launches``, which counts the calling thread's launches only, so
+other threads launching or replaying meanwhile (a capture under live load)
+do not enter a graph's count.
 
 Gradients: a ``torch.autograd.Function`` for each variant whose backward
 recomputes through its plain version, as the reference's ``_flash_bwd`` does
@@ -39,6 +42,7 @@ memory on backward only).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 
@@ -51,6 +55,8 @@ launches = 0
 stats_launches = 0
 shape_launches: dict[tuple[int, int, int, int], int] = {}
 _launches_lock = threading.Lock()
+# The launches of the calling thread's capture_launches block, if any.
+_capturing = threading.local()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # The online softmax's running-max seed, as in the reference kernel: a row
@@ -79,11 +85,19 @@ def count_replay(k1: int, k2: int, k1_shapes: dict | None = None) -> None:
             shape_launches[shape] = shape_launches.get(shape, 0) + n
 
 
-def shape_launches_since(before: dict) -> dict:
-    """K1's launches by shape since ``before`` (a copy of ``shape_launches``)."""
-    with _launches_lock:
-        return {s: n - before.get(s, 0) for s, n in shape_launches.items()
-                if n != before.get(s, 0)}
+@contextlib.contextmanager
+def capture_launches():
+    """Count the K1 and K2 launches the calling thread makes inside the
+    block, apart from every other thread's: yields ``{"k1": n, "k2": n,
+    "shapes": {q shape: n}}``, filled as the launches happen (what one
+    captured graph's replay launches)."""
+    rec = {"k1": 0, "k2": 0, "shapes": {}}
+    prev = getattr(_capturing, "rec", None)
+    _capturing.rec = rec
+    try:
+        yield rec
+    finally:
+        _capturing.rec = prev
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -233,6 +247,13 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         else:
             launches += 1
             shape_launches[(b, sq, h, d)] = shape_launches.get((b, sq, h, d), 0) + 1
+    rec = getattr(_capturing, "rec", None)
+    if rec is not None:
+        if stats:
+            rec["k2"] += 1
+        else:
+            rec["k1"] += 1
+            rec["shapes"][(b, sq, h, d)] = rec["shapes"].get((b, sq, h, d), 0) + 1
     return outs if stats else outs[0]
 
 

@@ -30,6 +30,22 @@ fixed addresses, and captures one graph per (bucket, slot):
   scan, structure) and only then copies it in place into a free slot, after
   that slot's last replay has finished on the card; ``publish`` and
   ``rollback`` switch which slot is live. Zero new captures, ever.
+- Weight paging (the fleet scheduler's ``cold_start``): a cold runtime
+  (``build_runtime(..., cold=True)``) holds no slot and has captured
+  nothing (``compiles_total`` 0). Its first ``stage_params`` fills all
+  ``N_SLOTS`` slots with the candidate and ``ensure_compiled`` warms up and
+  captures every (bucket, slot), so a later reload still needs no capture;
+  ``publish`` makes it resident (``params_resident``). ``release_params``
+  (demote) waits for each slot's last replay, then drops the graphs, the
+  slots' tensors and the graphs' memory pool and empties PyTorch's cache,
+  so the memory is back on the card. A graph binds its slot's storage by
+  address, so the graphs go with the storage: a re-warm captures every
+  (bucket, slot) again. The variant registry stays, so the port's form of
+  the reference's "a re-warm recompiles nothing" is that
+  ``runtime_compiles_total`` does not move across demote and re-warm while
+  ``captures_total`` rises by slots x buckets. A dispatch on a released (or
+  not yet published) runtime raises; it never replays a graph over freed
+  storage.
 
 The iteration-level generation engine (``tpuserve_torch.genserve``) adds
 *programs* (``register_program`` / ``run_program``): insert or prefill, step
@@ -54,6 +70,10 @@ On the CPU the slots and the version machine are the same and each slot's
 module runs eagerly (the tests do this); only capture and replay are
 CUDA-only. The graphs of one runtime share a memory pool and are replayed on
 one stream, one at a time in stream order, so they never run concurrently.
+Captures use ``capture_error_mode="thread_local"``, so a capture (a re-warm
+under live load) tolerates other threads' allocations and syncs, and take
+the K1/K2 launches a graph records from ``fa.capture_launches``, which sees
+the capturing thread's launches only.
 
 The device is explicit: ``build_runtime(model)`` serves on the current CUDA
 device, ``device="cpu"`` on the CPU; CUDA absent without ``device="cpu"``
@@ -68,6 +88,7 @@ outputs' copy back (called off the event loop by the batcher's fetch stage).
 
 from __future__ import annotations
 
+import gc
 import logging
 import time
 from dataclasses import dataclass, field
@@ -305,6 +326,12 @@ class ModelRuntime:
         self._live = 0
         self._prev: int | None = None
         self._prev_version: int | None = None
+        # True while a published parameter set serves (False for a cold
+        # runtime until its first publish, and after release_params).
+        self._resident = True
+        # Demotes so far (release_params): each re-warm captures every
+        # (bucket, slot) again and compiles nothing.
+        self.releases_total = 0
         # Serializes replays (static buffers) and the choice of their slot;
         # the reload lock serializes stage-into-slot, publish and rollback.
         self._replay_lock = new_lock("runtime.replay")
@@ -372,15 +399,20 @@ class ModelRuntime:
         moved to the device without a dtype (when ``_prepare`` built it on
         the host) so int8 values and float32 scales arrive as they are.
         Slot 0 is live."""
-        state_dict = self.model.load_params()
-        self.slots = []
+        self._fill_slots(self.model.load_params())
+
+    def _fill_slots(self, state_dict: dict[str, torch.Tensor]) -> None:
+        """``N_SLOTS`` slots, each a module holding ``state_dict``."""
+        slots = []
         for _ in range(N_SLOTS):
             module = self._prepare(state_dict).to(device=self.device)
-            self.slots.append(Slot(module, slot_tensors(module)))
+            slots.append(Slot(module, slot_tensors(module)))
+        with self._replay_lock:
+            self.slots = slots
         if self.device.type == "cuda":
             # Hand the float32 build and cast copies back, so memory_reserved
             # before capture counts the slots, not those transients.
-            del state_dict, module
+            del state_dict, module, slots
             torch.cuda.empty_cache()
 
     @property
@@ -412,16 +444,24 @@ class ModelRuntime:
         lifecycle calls it at stage time, so the staged canary and the
         first post-publish request never meet an uncaptured bucket; a
         candidate lands in a slot whose graphs exist, so steady state this
-        returns 0."""
+        returns 0. After ``release_params`` the registry keeps its variants
+        and the new slots have no graph: each (bucket, slot) is captured
+        again, counted in the variant's ``captures`` and not in
+        ``runtime_compiles_total``."""
         new = 0
         if not self.compile_forward:
             # Engine-served: the programs were registered at engine start and
             # shapes never change across versions, so nothing is missing.
             return new
         for b in self.model.buckets():
-            if self.variant_key(tuple(b)) not in self.variants:
-                self._compile_bucket(tuple(b))
+            bucket = tuple(b)
+            key = self.variant_key(bucket)
+            if key not in self.variants:
+                self._compile_bucket(bucket)
                 new += 1
+            elif self.device.type == "cuda":
+                # The variant stays; its captures grow.
+                self.variants[key].captures += self._capture_missing(bucket)
         return new
 
     def _zeros(self, bucket: tuple) -> tuple:
@@ -431,24 +471,38 @@ class ModelRuntime:
         t0 = time.perf_counter()
         captures = 0
         if self.device.type == "cuda":
-            for slot in self.slots:
-                slot.graphs[bucket] = self._capture(slot, bucket)
-                captures += 1
-            # The served h2d allocates the bucket's inputs on the copy stream,
-            # whose pool the captures never touched: allocate them there once
-            # now, so that no request grows the allocator (a first request's
-            # cudaMalloc took 17-124 ms on the H100 machine; chip_smoke.py
-            # phase 14's first requests).
-            self.h2d(bucket, self._zeros(bucket))
-            self._copy_stream.synchronize()
+            captures = self._capture_missing(bucket)
         elif self.prewarm:
-            self.fetch(self.run(bucket, self._zeros(bucket)))
+            # One eager run on the live slot (a cold runtime's first warm
+            # runs this before its publish).
+            with torch.inference_mode():
+                self.model.forward(self.slots[self._live].module,
+                                   self.h2d(bucket, self._zeros(bucket)))
         key = self.variant_key(bucket)
         self.variants[key] = Variant(key, (time.perf_counter() - t0) * 1e3, captures)
         self._c_variant_batches[bucket] = self.metrics.counter(
             f"runtime_variant_batches_total{{model={self.model.name},variant={key.label}}}")
         self._c_compiles.inc()
         self._g_variants.set(len(self.variants))
+
+    def _capture_missing(self, bucket: tuple) -> int:
+        """Capture ``bucket`` on every slot that lacks its graph (all of them
+        at a first compile, the slots a re-warm filled after a demote);
+        returns how many were captured (0, touching nothing, when every
+        slot has it: a reload's steady state)."""
+        missing = [slot for slot in self.slots if bucket not in slot.graphs]
+        if not missing:
+            return 0
+        for slot in missing:
+            slot.graphs[bucket] = self._capture(slot, bucket)
+        # The served h2d allocates the bucket's inputs on the copy stream,
+        # whose pool the captures never touched: allocate them there once
+        # now, so that no request grows the allocator (a first request's
+        # cudaMalloc took 17-124 ms on the H100 machine; chip_smoke.py
+        # phase 14's first requests).
+        self.h2d(bucket, self._zeros(bucket))
+        self._copy_stream.synchronize()
+        return len(missing)
 
     def _capture(self, slot: Slot, bucket: tuple) -> Graph:
         """One eager warm-up of ``bucket`` on ``slot`` and then its capture,
@@ -460,14 +514,14 @@ class ModelRuntime:
             with torch.cuda.stream(stream):
                 self.model.forward(slot.module, inputs)
             torch.cuda.current_stream(self.device).wait_stream(stream)
-            # K1/K2 launches count once per call at capture; startup captures
-            # on one thread, so the counts' delta is this graph's.
-            k1, k2, shapes = fa.launches, fa.stats_launches, dict(fa.shape_launches)
+            # This thread's K1/K2 launches while capturing are the graph's;
+            # other threads' launches and replays stay out of its count.
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self._pool, stream=stream):
+            with fa.capture_launches() as rec, torch.cuda.graph(
+                    graph, pool=self._pool, stream=stream,
+                    capture_error_mode="thread_local"):
                 outputs = self.model.forward(slot.module, inputs)
-            launches = (fa.launches - k1, fa.stats_launches - k2)
-            shapes = fa.shape_launches_since(shapes)
+            launches, shapes = (rec["k1"], rec["k2"]), rec["shapes"]
             if self.prewarm:
                 # A graph's first launch uploads it to the card: pay that
                 # here, at startup, not in the first request of the bucket.
@@ -537,8 +591,7 @@ class ModelRuntime:
                 time.sleep(delay)  # runs on a stage executor thread
             self.injector.check("device_error", self.model.name)
         with self._replay_lock, torch.inference_mode():
-            slot = self.slots[self._live if params_override is None
-                              else params_override.slot]
+            slot = self._serving_slot(params_override)
             if self.device.type != "cuda":
                 out = self.model.forward(slot.module, dev_batch)
             else:
@@ -554,6 +607,18 @@ class ModelRuntime:
         if c is not None:
             c.inc()
         return out
+
+    def _serving_slot(self, params_override: StagedParams | None) -> Slot:
+        """The slot a replay reads (call under the replay lock): the live
+        one, or a staged candidate's. Raises on a runtime whose parameters
+        are released or not yet published: a graph must never replay over
+        storage the allocator may have handed to another model."""
+        if not self.slots or (params_override is None and not self._resident):
+            raise RuntimeError(
+                f"{self.model.name}: parameters are not resident (cold "
+                "runtime or demoted); warm it before dispatching")
+        return self.slots[self._live if params_override is None
+                          else params_override.slot]
 
     def run(self, bucket: tuple, host_batch: tuple,
             params_override: StagedParams | None = None) -> dict:
@@ -651,12 +716,12 @@ class ModelRuntime:
             with torch.cuda.stream(stream):
                 prog.fn(slot.module, state, *_unflatten(prog.arg_specs, prog.inputs))
             torch.cuda.current_stream(self.device).wait_stream(stream)
-            k1, k2, shapes = fa.launches, fa.stats_launches, dict(fa.shape_launches)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self._pool, stream=stream):
+            with fa.capture_launches() as rec, torch.cuda.graph(
+                    graph, pool=self._pool, stream=stream,
+                    capture_error_mode="thread_local"):
                 outputs = prog.fn(slot.module, state, *_unflatten(prog.arg_specs, prog.inputs))
-            launches = (fa.launches - k1, fa.stats_launches - k2)
-            shapes = fa.shape_launches_since(shapes)
+            launches, shapes = (rec["k1"], rec["k2"]), rec["shapes"]
             # The first launch uploads the graph: pay it at startup.
             with torch.cuda.stream(stream):
                 graph.replay()
@@ -686,8 +751,8 @@ class ModelRuntime:
         arrays = [np.asarray(a, dtype=spec.dtype, order="C")
                   for a, spec in zip(_flatten(args), _flatten(prog.arg_specs))]
         with self._replay_lock, torch.inference_mode():
+            slot = self._serving_slot(params_override)
             i = self._live if params_override is None else params_override.slot
-            slot = self.slots[i]
             state = self.state_blocks[block]
             if self.device.type != "cuda":
                 tensors = tuple(torch.from_numpy(a) for a in arrays)
@@ -796,6 +861,8 @@ class ModelRuntime:
         except (KeyError, TypeError, ValueError) as e:
             raise ValueError(f"reloaded weights do not match the module: {e!r}; "
                              "old params kept") from e
+        if not self.slots:
+            return self._stage_cold(state_dict)
         candidate = slot_tensors(self._prepare(state_dict))
         live = self.slots[self._live].tensors
         if list(candidate) != list(live) or any(
@@ -819,6 +886,18 @@ class ModelRuntime:
                 torch.cuda.current_stream(self.device).synchronize()
             return StagedParams(free, slot.generation)
 
+    def _stage_cold(self, state_dict: dict[str, torch.Tensor]) -> StagedParams:
+        """Stage into a runtime with no slot (cold boot or demoted): the
+        candidate fills all ``N_SLOTS`` slots, as ``load_params`` does at a
+        warm boot, and a free one is handed out as the staged candidate;
+        ``ensure_compiled`` then captures every (bucket, slot)."""
+        with self._reload_lock:
+            self._fill_slots(state_dict)
+            free = next(i for i in range(N_SLOTS) if i not in (self._live, self._prev))
+            slot = self.slots[free]
+            slot.generation += 1
+            return StagedParams(free, slot.generation)
+
     def _cast_leaf(self, leaf: Any) -> Any:
         """A tree leaf as the forward would hold it, for the NaN/Inf scan
         (a float32 value beyond the compute dtype's range casts to inf)."""
@@ -838,6 +917,7 @@ class ModelRuntime:
             self._version_seq += 1
             self.version = self._version_seq
             self._live = staged.slot
+            self._resident = True
             return {"model": self.model.name, "version": self.version,
                     "previous_version": self._prev_version}
 
@@ -856,6 +936,43 @@ class ModelRuntime:
             self._prev = self._prev_version = None
             return {"model": self.model.name, "version": self.version,
                     "rolled_back_from": rolled_from}
+
+    def release_params(self) -> None:
+        """Demote to cold (the fleet scheduler's weight paging): free every
+        parameter slot — the live one and the last-known-good one included —
+        and the graphs that bind them. In-flight batches finish on their own
+        storage first: each slot's last-replay event is waited for. Then the
+        graphs, the slots' tensors and the graphs' memory pool are dropped
+        and PyTorch's cache emptied, so the memory is back on the card. The
+        variant registry stays: a re-warm (``stage_params``,
+        ``ensure_compiled``, ``publish``) captures the graphs again and
+        compiles nothing."""
+        if self.gen_programs:
+            raise ValueError(f"{self.model.name}: the generation engine's programs "
+                             "bind the slots; an engine-served model is never demoted")
+        with self._reload_lock:
+            with self._replay_lock:
+                slots, self.slots = self.slots, []
+                self._resident = False
+                self._prev = self._prev_version = None
+            self.releases_total += 1
+            # A batch that read a slot has enqueued its replay by the time
+            # the replay lock is free.
+            for event in [s.last_replay for s in slots if s.last_replay is not None]:
+                event.synchronize()
+            del slots
+            if self.device.type == "cuda":
+                # A graph's pool returns its memory only once every graph
+                # holding it is gone; the next warm captures into a new one.
+                self._pool = torch.cuda.graph_pool_handle()
+                gc.collect()
+                torch.cuda.empty_cache()
+
+    @property
+    def params_resident(self) -> bool:
+        """True while a published parameter set serves (False = cold: the
+        model holds no parameter slot on the device)."""
+        return self._resident and bool(self.slots)
 
     @property
     def previous_version(self) -> int | None:
@@ -897,7 +1014,12 @@ class ModelRuntime:
             "variants": self.variants_summary(),
             "compiles_total": self.compiles_total,
             "slots": {"count": len(self.slots), "live": self._live, "previous": self._prev},
+            "params_resident": self.params_resident,
+            # Counted per (bucket, slot) capture: each demote and re-warm
+            # (releases_total) adds slots x buckets here on the card and
+            # nothing to compiles_total.
             "captures_total": self.captures_total,
+            "releases_total": self.releases_total,
             "capture_memory": dict(self.capture_memory),
             "raw_ms_per_batch": {str(list(b)): v
                                  for b, v in sorted(self.raw_ms_per_batch.items())},
@@ -948,16 +1070,21 @@ def build_runtime(model: ServingModel,
                   device: "str | torch.device | None" = None,
                   metrics: Metrics | None = None,
                   compile_forward: bool = True, prewarm: bool = True,
-                  debug_nans: bool = False) -> ModelRuntime:
+                  debug_nans: bool = False, cold: bool = False) -> ModelRuntime:
     """Parameter slots on ``device`` (default: the current CUDA device) and
     every bucket warmed up and, on CUDA, captured per slot.
     ``compile_forward=False`` skips the buckets: a runtime for the
     generation engine, whose programs replace them (``register_program``).
     ``prewarm=False`` skips each bucket's startup replay (the capture stays);
-    ``debug_nans`` makes every fetch fail on a NaN/Inf output."""
+    ``debug_nans`` makes every fetch fail on a NaN/Inf output. ``cold=True``
+    builds neither slots nor graphs (weight paging's cold boot: the first
+    stage fills them)."""
     rt = ModelRuntime(model, device=device, metrics=metrics, prewarm=prewarm,
                       debug_nans=debug_nans)
     rt.compile_forward = compile_forward
+    if cold:
+        rt._resident = False
+        return rt
     rt.load_params()
     if compile_forward:
         rt.compile_all()

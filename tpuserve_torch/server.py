@@ -114,9 +114,27 @@ body. ``log_json`` logs one JSON object per line (``configure_logging``);
 the runtime's (``tpuserve_torch.runtime``). ``serve`` with ``[router]
 enabled`` runs the router in this process instead.
 
-Not ported yet (ROADMAP.md queue 1): host failure domains, peer routers,
-the fleet scheduler (``:warm``/``:demote``), tenants (``/tenants``), the
-autopilot and deferred mode (item 11b), ``/metrics/fleet`` and
+The fleet scheduler (``[scheduler] enabled``; ``tpuserve_torch.scheduler``)
+admits before the body is read: ``X-Priority`` (or the model's
+``priority``) resolves the request's class (junk -> 400), and a shed answers
+with the reference's body — ``{"error", "reason", "trace_id"}`` and a
+Retry-After: 503 ``model_warming`` while a cold model warms (its first
+request starts the warm), ``chip_budget``, ``burn_shed``, ``priority_shed``
+or ``share_exceeded`` under saturation, and, once the deadline is stamped,
+504 ``deadline_unmeetable``. A ``cold_start`` model boots with no parameter
+slot; ``POST /admin/models/{name}:warm`` stages it through the lifecycle
+(integrity gates, captures, staged canary, publish) and ``:demote`` frees
+its slots and graphs (both audited; 409 without a scheduler); the idle
+sweep demotes after ``idle_demote_s``. ``/stats`` has a ``scheduler``
+block. With ``[tenants] enabled`` an ``X-Api-Key`` resolves the request's
+tenant before everything else (401 ``tenant_unknown``; 429
+``tenant_rate_exceeded``, ``tenant_quota_exceeded``,
+``tenant_share_exceeded``), each answered request charges the tenant's
+ledger, the caches partition by tenant weight, and ``GET /tenants``
+(``?tenant=``) answers the envelopes, the window usage and, with
+``slo_latency_ms``, the per-tenant burn alerts.
+
+Not ported yet (ROADMAP.md queue 1): deferred mode (item 11b) and
 ``profiler_port`` (item 12).
 """
 
@@ -153,11 +171,13 @@ from tpuserve_torch.frame import FrameError
 from tpuserve_torch.genserve import GenEngine, KVPressure
 from tpuserve_torch.hostpipe import StageExecutors
 from tpuserve_torch.lifecycle import ModelLifecycle, ReloadRejected
-from tpuserve_torch.obs import (FlightRecorder, Metrics, TraceContext,
+from tpuserve_torch.obs import (PRIORITIES, FlightRecorder, Metrics, TraceContext,
                                 exposition_content_type, spans_to_chrome)
 from tpuserve_torch.ops import flash_attention as fa
 from tpuserve_torch.runtime import (ModelRuntime, backend_info, build_runtime,
                                     configure_runtime, resolve_device)
+from tpuserve_torch.scheduler import FleetScheduler
+from tpuserve_torch.scheduler.tenants import TenantLedger
 from tpuserve_torch.telemetry import events as events_mod
 from tpuserve_torch.telemetry.events import (AuditLog, BlackBoxWriter, EventLog,
                                              PostmortemLog)
@@ -439,6 +459,18 @@ class ServerState:
         self.injector = (FaultInjector(cfg.faults, self.metrics)
                          if cfg.faults.enabled else None)
         self.watchdog = Watchdog(cfg.watchdog_interval_s, self.metrics)
+        # Fleet scheduler: cross-model admission, priority arbitration and
+        # weight paging; None unless [scheduler] enabled (the batchers then
+        # stay independent).
+        self.scheduler = (FleetScheduler(cfg.scheduler, self.metrics)
+                          if cfg.scheduler.enabled else None)
+        # Tenant containment: X-Api-Key resolution and the per-tenant
+        # ledger, enforced at admission; the scheduler's saturation gates
+        # fair-share shedding (without one only rate and quota run).
+        self.tenants = (TenantLedger(cfg.tenants, self.metrics)
+                        if cfg.tenants.enabled else None)
+        if self.tenants is not None and self.scheduler is not None:
+            self.tenants.saturated_fn = self.scheduler.saturated
         self.canary_ok: dict[str, bool] = {}
         self._canary_task: asyncio.Task | None = None
         # Next periodic-canary fire time (time.monotonic clock): the basis of
@@ -461,6 +493,7 @@ class ServerState:
         self.store: TimeSeriesStore | None = None
         self.sampler: MetricSampler | None = None
         self.slo: SloEngine | None = None
+        self.tenant_slo: SloEngine | None = None
         self.util: UtilizationDeriver | None = None
         self.profiler: ProfileCapture | None = None
         if cfg.telemetry.enabled:
@@ -470,8 +503,20 @@ class ServerState:
             self.slo = SloEngine(self.metrics, self.store, tcfg.burn_windows_s)
             self.util = UtilizationDeriver(self.metrics, self.store,
                                            tcfg.utilization_window_s)
-            self.sampler = MetricSampler(self.store, tcfg.sample_interval_s,
-                                         hooks=[self.slo.tick, self.util.tick])
+            hooks = [self.slo.tick, self.util.tick]
+            if self.tenants is not None and cfg.tenants.slo_latency_ms > 0:
+                # Per-tenant SLO burn: the same machinery over
+                # tenant_latency_ms{tenant=}, one objective from [tenants].
+                self.tenant_slo = SloEngine(
+                    self.metrics, self.store, tcfg.burn_windows_s,
+                    metric_fmt="tenant_latency_ms{{tenant={name}}}", label="tenant")
+                tenant_slo_cfg = SloConfig(latency_ms=cfg.tenants.slo_latency_ms,
+                                           availability=cfg.tenants.slo_availability,
+                                           burn_alert=cfg.tenants.slo_burn_alert)
+                for tname in self.tenants.names():
+                    self.tenant_slo.register(tname, tenant_slo_cfg)
+                hooks.append(self.tenant_slo.tick)
+            self.sampler = MetricSampler(self.store, tcfg.sample_interval_s, hooks=hooks)
             self.profiler = ProfileCapture(self.metrics, cuda=self.device.type == "cuda")
         # Event plane: the event ring with its logging bridge, the admin
         # audit trail and the postmortem ledger; all None with [events]
@@ -495,11 +540,29 @@ class ServerState:
     def build(self) -> None:
         """Build every model's runtime: params on the device, buckets warm —
         or, for a generative model with ``[genserve]`` on, the generation
-        engine's programs in place of the buckets."""
+        engine's programs in place of the buckets; for a ``cold_start``
+        model under the scheduler, nothing on the device (its first warm
+        stages it)."""
         for mcfg in self.cfg.models:
             t0 = time.perf_counter()
             model = modelzoo.build(mcfg)
-            if self.cfg.genserve.enabled and getattr(model, "generative", False):
+            engine_served = self.cfg.genserve.enabled and getattr(model, "generative", False)
+            if mcfg.cold_start and self.scheduler is None:
+                log.warning("model %s: cold_start ignored — [scheduler] is not "
+                            "enabled", mcfg.name)
+            if mcfg.cold_start and self.scheduler is not None:
+                if engine_served:
+                    raise ValueError(
+                        f"model {mcfg.name}: cold_start does not compose with the "
+                        "generation engine yet (its programs compile against the "
+                        "live param structure)")
+                # Cold boot: no parameter slot, no capture. The first request
+                # (or :warm) stages the weights through the lifecycle; the
+                # scheduler sheds 503 model_warming until the publish lands.
+                rt = build_runtime(model, device=self.device, metrics=self.metrics,
+                                   prewarm=self.cfg.prewarm_executables,
+                                   debug_nans=self.cfg.debug_nans, cold=True)
+            elif engine_served:
                 # The engine's insert/step/extract programs replace the
                 # forward buckets: capturing both would double startup for
                 # nothing.
@@ -569,6 +632,20 @@ class ServerState:
                 canary_status=functools.partial(self.canary_ok.get, name),
                 injector=self.injector,
                 staged_canary_fn=eng.staged_canary_sync if eng is not None else None)
+            if self.scheduler is not None:
+                # The scheduler reads each batcher's demand and feeds its
+                # ledger from dispatch timings; a cold model warms through
+                # the lifecycle's staged path, so no request is ever
+                # answered by unstaged weights.
+                self.scheduler.register(name, batcher=b, mcfg=model.cfg, runtime=rt,
+                                        warm_fn=self.lifecycles[name].reload,
+                                        cold=bool(model.cfg.cold_start))
+        if self.tenants is not None:
+            # Tenant-partitioned cache capacity: a tenant's flood churns its
+            # own share first. Hits stay content-addressed across tenants.
+            weights = self.tenants.weights()
+            for c in self.caches.values():
+                c.set_tenant_weights(weights)
         if self.slo is not None:
             # Models whose [model.slo] names a latency objective get burn
             # gauges and an /alerts row; a first-unit objective is its own
@@ -582,6 +659,11 @@ class ServerState:
                                   availability=mcfg.slo.availability,
                                   burn_alert=mcfg.slo.burn_alert),
                         metric=f"gen_first_unit_ms{{model={mcfg.name}}}")
+        if self.scheduler is not None:
+            # The shed-on-burn seam: the scheduler reads each model's live
+            # alert state.
+            self.scheduler.slo = self.slo
+            await self.scheduler.start()
         if self.sampler is not None:
             self.sampler.start()
         if self.cfg.startup_canary:
@@ -641,6 +723,8 @@ class ServerState:
 
     async def stop(self) -> None:
         await self.watchdog.stop()
+        if self.scheduler is not None:
+            await self.scheduler.stop()
         await self._stop_sampler()
         await self._stop_blackbox()
         for lc in self.lifecycles.values():
@@ -674,6 +758,9 @@ class ServerState:
         budget expired first."""
         t_drain = time.perf_counter()
         await self.watchdog.stop()
+        if self.scheduler is not None:
+            # No warm or idle demotion may start under a drain.
+            await self.scheduler.stop()
         await self._stop_canary_loop()
         self.begin_drain()
         # The sampler and the black box only read: they join after admission
@@ -716,7 +803,11 @@ class ServerState:
     async def run_canary(self, name: str, timeout_s: float = 60.0) -> bool:
         """Tiny end-to-end inference through the batcher; feeds /healthz and
         half-opens/closes the breaker (canaries ride the batcher whatever
-        the breaker's state: they are the recovery probe)."""
+        the breaker's state: they are the recovery probe). A cold or warming
+        model has no live parameters to probe (the warm's staged canary
+        validates its candidate): it reads as healthy until measured."""
+        if self.scheduler is not None and not self.scheduler.is_warm(name):
+            return self.canary_ok.get(name, True)
         model = self.models[name]
         br = self.breakers.get(name)
         try:
@@ -788,6 +879,12 @@ class ServerState:
         path = req.path
         if path.startswith("/admin/models/"):
             return await self.admin(req, path[len("/admin/models/"):])
+        if path == "/tenants":
+            if req.method not in ("GET", "HEAD"):
+                resp = _text(405)
+                resp.headers["Allow"] = "GET"
+                return resp
+            return self.tenants_json(req)
         routes = {
             "/": ("GET", self.index),
             "/healthz": ("GET", self.healthz),
@@ -816,15 +913,17 @@ class ServerState:
         return await resp if asyncio.iscoroutine(resp) else resp
 
     async def admin(self, req: Request, rest: str) -> Response:
-        """``{name}:reload``, ``{name}:rollback`` (POST) and
-        ``{name}/versions`` (GET), with the JAX server's answers; reloads and
-        rollbacks leave audit records."""
+        """``{name}:reload``, ``{name}:rollback``, ``{name}:warm``,
+        ``{name}:demote`` (POST) and ``{name}/versions`` (GET), with the JAX
+        server's answers; every verb but ``versions`` leaves an audit
+        record."""
         if rest.endswith("/versions"):
             name, verb, method = rest[:-len("/versions")], "versions", "GET"
         else:
             name, _, verb = rest.rpartition(":")
             method = "POST"
-        if not name or "/" in name or verb not in ("reload", "rollback", "versions"):
+        if not name or "/" in name or verb not in ("reload", "rollback", "versions",
+                                                   "warm", "demote"):
             return _text(404)
         if req.method != method and not (method == "GET" and req.method == "HEAD"):
             resp = _text(405)
@@ -841,6 +940,29 @@ class ServerState:
             if self.audit is not None:
                 self.audit.record(verb, name, outcome,
                                   duration_ms=(time.perf_counter() - t0) * 1e3, **fields)
+
+        if verb in ("warm", "demote"):
+            if self.scheduler is None:
+                return _err(409, "the fleet scheduler ([scheduler] enabled) owns "
+                                 "warm/cold states; it is not enabled")
+            if verb == "demote":
+                try:
+                    demoted = self.scheduler.demote(name)
+                except Exception as e:  # noqa: BLE001 — a failed demote keeps it warm
+                    audit("error", error=str(e))
+                    return _err(500, f"demote failed (model stays warm): {e}")
+                audit("ok", demoted=demoted)
+                return json_response({"model": name, "demoted": demoted})
+            try:
+                info = await self.scheduler.warm(name)
+            except ValueError as e:
+                audit("rejected", error=str(e))
+                return _err(409, str(e))
+            except Exception as e:  # noqa: BLE001 — a failed warm keeps it cold
+                audit("error", error=str(e))
+                return _err(500, f"warm-up failed (model stays cold): {e}")
+            audit("ok", state=info.get("state"))
+            return json_response(info)
 
         if verb == "rollback":
             try:
@@ -868,6 +990,9 @@ class ServerState:
             return _err(500, f"reload failed: {e}")
         audit("ok", version=info.get("version"))
         return json_response(info)
+
+    def tenants_json(self, req: Request) -> Response:
+        return tenants_response(self.tenants, self.tenant_slo, req.query)
 
     def index(self, req: Request) -> Response:
         return Response(200, _INDEX_HTML.encode("utf-8"),
@@ -939,6 +1064,11 @@ class ServerState:
         }
         if self.caches:
             out["cache"] = {n: c.stats() for n, c in self.caches.items()}
+        if self.scheduler is not None:
+            out["scheduler"] = self.scheduler.stats()
+        if self.tenants is not None:
+            # Envelopes and window usage; /tenants adds the burn alerts.
+            out["tenants"] = self.tenants.usage()
         if self.engines:
             # Slot occupancy, fold-in/early-exit/eviction counts, step
             # timing and the KV page pool, per engine-served model.
@@ -1126,12 +1256,49 @@ class ServerState:
         if self.draining:
             return _err(503, "server draining; retry against another replica",
                         retry_after=self.shed_retry_after(), trace_id=trace_id)
+        # Tenant containment: identity, rate, quota and fair share are judged
+        # before the body: a flooding tenant never reaches decode. Behind the
+        # router the router admits ([tenants] is off in the workers).
+        tenant: str | None = None
+        if self.tenants is not None:
+            tenant = self.tenants.resolve(req.headers.get("x-api-key"))
+            t_shed = (self.tenants.shed_unknown() if tenant is None
+                      else self.tenants.admit(tenant))
+            if t_shed is not None:
+                return _err(t_shed.status, t_shed.message, retry_after=t_shed.retry_after,
+                            trace_id=trace_id, reason=t_shed.reason)
         breaker = self.breakers.get(name)
         if breaker is not None and not breaker.allow():
             breaker.on_shed()
             return _err(503, f"circuit open for model {name!r}; recovery probe "
                              "in progress",
                         retry_after=self.breaker_retry_after(name), trace_id=trace_id)
+        # Fleet scheduler admission, part 1: warm/cold state and priority
+        # arbitration need only headers, so a cold model or a shed
+        # batch-class request answers before the body (scheduler state is
+        # main-loop-only: an ingest loop hops).
+        raw_priority = req.headers.get("x-priority")
+        priority: str | None = None
+        if self.scheduler is not None:
+            async def _precheck():
+                p = self.scheduler.resolve_priority(name, raw_priority)
+                shed = self.scheduler.check_admission(name, p)
+                if shed is None:
+                    self.scheduler.touch(name)
+                return p, shed
+
+            try:
+                priority, shed = await _on_main(self, _precheck)
+            except ValueError as e:
+                return _err(400, str(e), trace_id=trace_id)
+            if shed is not None:
+                return _err(shed.status, shed.message, retry_after=shed.retry_after,
+                            trace_id=trace_id, reason=shed.reason)
+        elif raw_priority:
+            # No scheduler, no arbitration: the class still labels the
+            # queue-wait split, and junk falls back to the model's default.
+            value = raw_priority.strip().lower()
+            priority = value if value in PRIORITIES else None
         try:
             want_stream = _requested_stream(req)
         except ValueError as e:
@@ -1170,6 +1337,17 @@ class ServerState:
         timeout_s = (timeout_ms if timeout_ms is not None
                      else h.mcfg.request_timeout_ms) / 1e3
         deadline_at = t_start + timeout_s
+        if self.scheduler is not None:
+            # Admission, part 2: a deadline the predicted queue-clear and
+            # service time provably overrun sheds with a fast 504 before
+            # decode or enqueue.
+            async def _deadline_check():
+                return self.scheduler.check_deadline(name, deadline_at)
+
+            shed = await _on_main(self, _deadline_check)
+            if shed is not None:
+                return _err(shed.status, shed.message, retry_after=shed.retry_after,
+                            trace_id=trace_id, reason=shed.reason)
         try:
             if self.injector is not None:
                 self.injector.check("decode_corrupt", name)
@@ -1208,13 +1386,14 @@ class ServerState:
                 return _err(400, "stream=true requires a single-item request",
                             trace_id=trace_id)
             return await self._predict_stream(req, name, model, h, eng, items[0],
-                                              deadline_at, timeout_s, ctx, t_start)
+                                              deadline_at, timeout_s, ctx, t_start,
+                                              priority, tenant)
 
         w_dispatch = time.time()
         t_dispatch = time.perf_counter()
         try:
             results, hit_entry = await _on_main(self, lambda: self._submit_and_gather(
-                name, model, items, deadline_at, timeout_ms, ctx))
+                name, model, items, deadline_at, timeout_ms, ctx, priority, tenant))
         except KVPressure as e:
             # Paged-KV admission shed: the fast-shed contract of queue-full,
             # but 503 with reason "kv_pressure", so clients can tell memory
@@ -1240,7 +1419,13 @@ class ServerState:
             # in time.
             ctx.span("dispatch", w_dispatch,
                      w_dispatch + (time.perf_counter() - t_dispatch), tid=name)
-        h.total_hist.observe((time.perf_counter() - t_start) * 1e3, trace_id=trace_id)
+        total_ms = (time.perf_counter() - t_start) * 1e3
+        h.total_hist.observe(total_ms, trace_id=trace_id)
+        if self.tenants is not None and tenant is not None:
+            # Charge the tenant's ledger with the wall time the request
+            # occupied the server (the device-time proxy quota and fair share
+            # enforce) and feed its latency series.
+            self.tenants.record(tenant, total_ms / 1e3, latency_ms=total_ms)
         headers = {"X-Trace-Id": trace_id}
         if batched:
             return json_response({"results": results}, headers=headers)
@@ -1254,8 +1439,9 @@ class ServerState:
 
     async def _predict_stream(self, req: Request, name: str, model, h: ModelHandles,
                               eng: GenEngine, item, deadline_at: float,
-                              timeout_s: float, ctx: TraceContext,
-                              t_start: float) -> "Response | StreamResponse":
+                              timeout_s: float, ctx: TraceContext, t_start: float,
+                              priority: str | None = None,
+                              tenant: str | None = None) -> "Response | StreamResponse":
         """One streamed generation end to end. The engine's GenStream queue
         is the single channel: units flush per engine iteration, heartbeats
         cover idle gaps, and exactly one terminal ("done" with finish reason
@@ -1270,7 +1456,8 @@ class ServerState:
 
         async def _submit():
             try:
-                return eng.submit_stream(item, deadline_at=deadline_at, ctx=ctx)
+                return eng.submit_stream(item, deadline_at=deadline_at,
+                                         priority=priority, ctx=ctx)
             except QueueFull:
                 raise
             except RuntimeError as e:
@@ -1386,13 +1573,20 @@ class ServerState:
                                 if terminal["type"] == "done" else terminal.get("error")),
                  units=n_units)
         resp.stream_score_ms = max(first_unit_ms or 0.0, max_gap_ms)
+        if self.tenants is not None and tenant is not None:
+            # Charge wall occupancy; the latency series gets the first unit
+            # (responsiveness), not the stream's length.
+            total_ms = (time.perf_counter() - t_start) * 1e3
+            self.tenants.record(tenant, total_ms / 1e3, latency_ms=first_unit_ms or total_ms)
         with contextlib.suppress(ConnectionError):
             await resp.write_eof()
         return resp
 
     async def _submit_and_gather(self, name: str, model, items: list,
                                  deadline_at: float, timeout_ms: float | None,
-                                 ctx: TraceContext | None = None) -> tuple[list, object]:
+                                 ctx: TraceContext | None = None,
+                                 priority: str | None = None,
+                                 tenant: str | None = None) -> tuple[list, object]:
         """Cache lookup and single-flight, batcher submission and the
         deadline-bounded gather of one decoded request: everything that must
         run on the main loop. Returns (results, the last hit entry or None).
@@ -1419,10 +1613,10 @@ class ServerState:
                         continue
                     fut = cache.submit_through(key, lambda it=item: batcher.submit(
                         it, group=model.group_key(it), deadline_at=deadline_at,
-                        ctx=ctx), ctx=ctx)
+                        priority=priority, ctx=ctx), ctx=ctx, tenant=tenant)
                 else:
                     fut = batcher.submit(item, group=model.group_key(item),
-                                         deadline_at=deadline_at, ctx=ctx)
+                                         deadline_at=deadline_at, priority=priority, ctx=ctx)
                 futs.append(fut)
                 slots.append(i)
         except QueueFull:
@@ -1448,6 +1642,29 @@ class ServerState:
             for i, res in zip(slots, done):
                 results[i] = res
         return results, hit_entry
+
+
+def tenants_response(ledger: "TenantLedger | None", tenant_slo: "SloEngine | None",
+                     query: dict, **fields) -> Response:
+    """``GET /tenants`` (the server's and each router's): per-tenant
+    envelopes and live window usage, ``fields`` beside them, the per-tenant
+    burn alerts with ``slo_latency_ms``; ``?tenant=`` narrows to one
+    tenant's row; 409 without ``[tenants]``."""
+    try:
+        events_mod.reject_unknown_query(query, {"tenant"})
+    except ValueError as e:
+        return _err(400, str(e))
+    if ledger is None:
+        return _err(409, "[tenants] is disabled; no tenant ledger is kept")
+    body = dict(ledger.usage(), **fields)
+    if tenant_slo is not None:
+        body["slo"] = tenant_slo.alerts()
+    want = query.get("tenant")
+    if want is not None:
+        if want not in body["tenants"]:
+            return _err(404, f"unknown tenant {want!r}")
+        body["tenants"] = {want: body["tenants"][want]}
+    return json_response(body)
 
 
 async def _on_main(state: ServerState, factory):

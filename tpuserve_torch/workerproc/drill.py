@@ -1,6 +1,7 @@
 """Kill-a-worker and kill-a-host chaos drills (``python -m tpuserve_torch
 chaos --drill worker_kill``, ``--drill host_kill`` and ``--drill
-stream_kill``), ported from ``tpuserve/workerproc/drill.py``.
+stream_kill``) and the hostile-tenant autopilot drill (``--drill
+autopilot``), ported from ``tpuserve/workerproc/drill.py``.
 
 Each drill serves a REAL router over N >= 2 worker processes on an
 ephemeral loopback port (in the calling process, which stays free of CUDA:
@@ -33,6 +34,18 @@ split promises, with a ``gates`` block the CLI exits on:
   stream's text equal to the unary reference of the same seeded body (zero
   ``mismatched``) and an error-terminated one's a prefix of it (zero
   ``non_prefix``); the survivors' compile counts do not move.
+- ``autopilot`` — a router fleet over >= 2 host domains with one dormant
+  worker slot per domain, ``[tenants]`` and the autopilot on, and no
+  operator: tenant "hostile" floods past its quota and rate (ignoring
+  Retry-After) while tenant "victim" sends at a modest pace. Its gates are
+  those of the reference's ``scripts/autopilot_drill.sh``: the hostile
+  tenant is 429'd with ``tenant_*`` reasons and charged device-seconds,
+  the victim never is (its availability, which the caller bounds, is the
+  drill's ``availability``) and its SLO does not fire, the controller acted
+  (``scale_up`` or ``shed_on``) with its first action within 18 s of the
+  load's start and no actuation error, every decision carries its signals
+  and is readable from ``GET /debug/audit`` as ``autopilot:*``, and
+  ``/debug/autopilot`` and ``/tenants`` answer 200.
 """
 
 from __future__ import annotations
@@ -481,5 +494,199 @@ async def run_stream_kill_drill(cfg: ServerConfig, model_name: str | None = None
         "byte_audit": audit["mismatched"] == 0 and audit["non_prefix"] == 0
         and audit["done"] > 0,
         "survivor_compiles_zero": all(v == 0 for v in out["compile_deltas"].values()),
+    }
+    return out
+
+
+# The reference script's bound on the controller's reaction (seconds from
+# the load's start to its first action).
+FIRST_ACTION_BOUND_S = 18.0
+
+
+async def _tenant_load(url: str, payload: bytes, ctype: str, api_key: str,
+                       stop: asyncio.Event, out: dict, clients: int,
+                       think_s: float = 0.0) -> None:
+    """Closed-loop load of one tenant: ``clients`` concurrent callers, each
+    presenting ``X-Api-Key`` and counting every answer by status and shed
+    reason. The hostile tenant is this with no think time: it ignores
+    Retry-After."""
+    headers = {"Content-Type": ctype, "X-Api-Key": api_key}
+
+    async def _one(session: ClientSession) -> None:
+        while not stop.is_set():
+            try:
+                r = await session.post(url, payload, headers)
+            except asyncio.CancelledError:
+                raise
+            except Exception:  # noqa: BLE001 — a transport-level failure
+                out["transport_errors"] += 1
+            else:
+                if r.status == 200:
+                    out["n_200"] += 1
+                else:
+                    key = f"n_{r.status}" if r.status in (429, 503) else "n_other"
+                    out[key] = out.get(key, 0) + 1
+                    try:
+                        reason = r.json().get("reason", "")
+                    except (ValueError, AttributeError):
+                        reason = ""
+                    if reason:
+                        out["reasons"][reason] = out["reasons"].get(reason, 0) + 1
+            if think_s:
+                await asyncio.sleep(think_s)
+
+    async with ClientSession(limit=clients * 2, timeout_s=30.0) as session:
+        await asyncio.gather(*(_one(session) for _ in range(clients)))
+
+
+async def run_autopilot_drill(cfg: ServerConfig, model_name: str | None = None,
+                              duration_s: float = 25.0, warmup_s: float = 1.0,
+                              concurrency: int = 16, device: str = "cuda") -> dict:
+    """Serve a tenant-fenced router fleet on ``device`` with the autopilot
+    engaged, let the hostile tenant flood beside the victim for
+    ``duration_s``, and report containment, the controller's reaction and
+    the audit trail read over HTTP from the live fleet, with the gates of
+    the module docstring (all but the victim's availability, whose bound
+    the caller holds)."""
+    from tpuserve_torch.config import TenantConfig
+    from tpuserve_torch.workerproc.router import RouterState, start_router, stop_router
+
+    cfg.router.enabled = True
+    cfg.router.hosts = max(2, cfg.router.hosts)
+    cfg.router.workers = max(2, cfg.router.workers)  # per host
+    if not 1 <= cfg.router.active_workers < cfg.router.workers:
+        # One dormant slot per host: scale_up has real headroom.
+        cfg.router.active_workers = cfg.router.workers - 1
+    # Identical payloads would coalesce into one cache hit, hiding both the
+    # hostile load and the pressure signal the controller reads.
+    cfg.cache.enabled = False
+    ap = cfg.autopilot
+    ap.enabled = True
+    # The drill runs tens of seconds: tighten the controller's clocks so
+    # hysteresis, cooldown and follow-up fit inside it (never loosening
+    # what the config set tighter).
+    ap.interval_s = min(ap.interval_s, 0.25)
+    ap.hysteresis_ticks = min(ap.hysteresis_ticks, 2)
+    ap.cooldown_s = min(ap.cooldown_s, 3.0)
+    ap.follow_up_s = min(ap.follow_up_s, 5.0)
+    tn = cfg.tenants
+    tn.enabled = True
+    have = {t.name for t in tn.tenants}
+    if "hostile" not in have:
+        # A tight envelope: the flood must hit its quota mid-run.
+        tn.tenants.append(TenantConfig(name="hostile", api_key="drill-hostile-key",
+                                       weight=1.0, quota_device_s=max(1.0, duration_s * 0.2),
+                                       rate_per_s=float(concurrency)))
+    if "victim" not in have:
+        tn.tenants.append(TenantConfig(name="victim", api_key="drill-victim-key", weight=4.0))
+    keys = {t.name: t.api_key for t in tn.tenants}
+    model = model_name or cfg.models[0].name
+
+    state = RouterState(cfg, device=device)
+    server = await start_router(state, host="127.0.0.1", port=0)
+    base = f"http://127.0.0.1:{state.serving_addresses[0][1]}"
+    url = f"{base}/v1/models/{model}:predict"
+    payload, ctype, _ = drill_payload(cfg, model)
+
+    def _bucket() -> dict:
+        return {"n_200": 0, "n_429": 0, "n_503": 0, "n_other": 0,
+                "transport_errors": 0, "reasons": {}}
+
+    hostile, victim = _bucket(), _bucket()
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    try:
+        # A reference request as the victim (anonymous is 401): the fleet
+        # serves before the clock starts.
+        async with ClientSession(timeout_s=60.0) as session:
+            r = await session.post(url, payload, {"Content-Type": ctype,
+                                                  "X-Api-Key": keys["victim"]})
+            if r.status != 200:
+                raise RuntimeError(f"reference request failed: {r.status} {r.body[:200]!r}")
+        await asyncio.sleep(warmup_s)
+        t_load0 = time.monotonic()
+        tasks = [
+            loop.create_task(_tenant_load(url, payload, ctype, keys["hostile"], stop, hostile,
+                                          clients=max(4, concurrency))),
+            loop.create_task(_tenant_load(url, payload, ctype, keys["victim"], stop, victim,
+                                          clients=max(2, concurrency // 4), think_s=0.05)),
+        ]
+        await asyncio.sleep(duration_s)
+        stop.set()
+        await asyncio.gather(*tasks)
+
+        ap_desc = state.autopilot.describe() if state.autopilot else {}
+        decisions = ap_desc.get("decisions", [])
+        # Reaction time from the load's start (decision timestamps are
+        # wall-clock; so is this conversion).
+        wall_load0 = time.time() - (time.monotonic() - t_load0)
+        first_action_s = round(decisions[0]["ts"] - wall_load0, 2) if decisions else None
+        usage = state.tenants.usage() if state.tenants else {}
+        tenant_slo = state.tenant_slo.alerts() if state.tenant_slo is not None else {}
+        scale_state = (state.supervisor.scale_state()
+                       if hasattr(state.supervisor, "scale_state") else [])
+        # Audit completeness against the LIVE endpoint: every decision must
+        # be readable from GET /debug/audit.
+        async with ClientSession(timeout_s=30.0) as session:
+            r = await session.get(f"{base}/debug/audit")
+            audit_body = r.json() if r.status == 200 else {}
+            ap_http_status = (await session.get(f"{base}/debug/autopilot")).status
+            tenants_http_status = (await session.get(f"{base}/tenants")).status
+        audit_recs = [rec for rec in audit_body.get("audit", [])
+                      if str(rec.get("verb", "")).startswith("autopilot:")]
+    finally:
+        await stop_router(state, server)
+
+    kinds: dict[str, int] = {}
+    for d in decisions:
+        kinds[d["kind"]] = kinds.get(d["kind"], 0) + 1
+    v_total = (victim["n_200"] + victim["n_429"] + victim["n_503"] + victim["n_other"]
+               + victim["transport_errors"])
+    autopilot = {
+        "ticks": ap_desc.get("ticks", 0),
+        "actions_total": ap_desc.get("actions_total", 0),
+        "errors_total": ap_desc.get("errors_total", 0),
+        "rollbacks_total": ap_desc.get("policy", {}).get("rollbacks_total", 0),
+        "action_kinds": kinds,
+        "first_action_s": first_action_s,
+        "decisions": decisions,
+        "http_status": ap_http_status,
+    }
+    audit = {"autopilot_records": len(audit_recs), "decisions_total": len(decisions),
+             "complete": len(audit_recs) >= min(len(decisions), cfg.events.audit_capacity)}
+    hostile_tenant_reasons = {r: n for r, n in hostile["reasons"].items()
+                              if r.startswith("tenant_")}
+    out = {
+        "drill": "autopilot",
+        "model": model,
+        "duration_s": duration_s,
+        # The CLI's --min-availability bounds the VICTIM: the hostile
+        # tenant's 429s are the contract working, not an outage.
+        "availability": round(victim["n_200"] / v_total, 5) if v_total else 0.0,
+        "tenants": {"hostile": hostile, "victim": victim},
+        "autopilot": autopilot,
+        "audit": audit,
+        "tenant_slo": tenant_slo,
+        "tenants_endpoint_status": tenants_http_status,
+        "usage": usage,
+        "scale_state": scale_state,
+    }
+    out["gates"] = {
+        "hostile_shed_by_tenant_reason": hostile["n_429"] > 0 and bool(hostile_tenant_reasons),
+        "victim_never_429": victim["n_429"] == 0,
+        "victim_slo_not_firing": tenant_slo.get("models", {}).get("victim", {})
+        .get("state", "ok") != "firing",
+        "hostile_charged": usage.get("tenants", {}).get("hostile", {})
+        .get("device_seconds_total", 0) > 0,
+        "controller_acted": autopilot["actions_total"] >= 1
+        and bool(set(kinds) & {"scale_up", "shed_on"}),
+        "first_action_in_window": first_action_s is not None
+        and first_action_s <= FIRST_ACTION_BOUND_S,
+        "zero_actuation_errors": autopilot["errors_total"] == 0,
+        "decisions_carry_signals": all(d.get("signals") for d in decisions),
+        "audit_complete": audit["complete"]
+        and audit["autopilot_records"] >= audit["decisions_total"],
+        "autopilot_endpoint_200": ap_http_status == 200,
+        "tenants_endpoint_200": tenants_http_status == 200,
     }
     return out

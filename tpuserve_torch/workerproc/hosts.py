@@ -584,6 +584,10 @@ class HostSupervisor:
         log.info("%s: worker %d scaled down", host_name(h.hid), wid)
 
     # -- scaling -------------------------------------------------------------
+    def active_slots(self, hid: int) -> int:
+        """One host domain's active worker-slot target."""
+        return self._active[hid]
+
     def scale_domain(self, hid: int, active: int) -> dict:
         """Set one host domain's active worker-slot target. Raises
         ValueError on a bad target, RuntimeError when the host is down (its

@@ -25,7 +25,14 @@ workers it fronts. This module makes the router tier itself horizontal:
   ``/peer/state`` for the worker addresses, the ring's membership and the
   cache generations; a fleet reload also pushes an invalidation to every
   live peer, so no router serves a stale generation longer than one sync
-  interval even when the push is lost.
+  interval even when the push is lost. The same sync carries the primary
+  autopilot's shed-on-burn set, which every peer adopts, so the whole tier
+  sheds together.
+- **Tenant identity**: the ingress router resolves the client's
+  ``X-Api-Key`` once and forwards the resolved tenant as ``X-Tenant``
+  (``TENANT_HEADER``) on a cache-shard hop, so the owner charges the right
+  cache partition without authenticating again. The peer listener is
+  loopback-only: the header cannot be forged from outside.
 
 Every router process is free of any device: it imports torch (through the
 port's server module) and never initializes CUDA. Peer hops, the topology
@@ -56,6 +63,8 @@ from tpuserve_torch.workerproc.hosts import _EOF, WorkerRef, _poll_recv
 log = logging.getLogger("tpuserve_torch.workerproc")
 
 _VNODES = 64
+# The resolved tenant on a peer hop (never the API key).
+TENANT_HEADER = "X-Tenant"
 
 
 def _point(data: str) -> int:

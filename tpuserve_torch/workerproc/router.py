@@ -75,8 +75,30 @@ proxy to one worker's own page); ``POST /admin/models/{name}:reload`` and
 scrape, ``tpuserve_torch.telemetry.fleet``). The peer listener (loopback)
 serves ``/peer/state``, ``/peer/invalidate``, ``/peer/models/{name}:{verb}``,
 ``/peer/admin/...``, ``/peer/stats``, ``/peer/healthz``, ``/peer/metrics``,
-``/peer/fleet/{metrics,stats}`` and ``/peer/debug/{audit,postmortems}``.
-The autopilot and tenants (ROADMAP.md item 11b) answer with their refusal.
+``/peer/fleet/{metrics,stats}`` and ``/peer/debug/{audit,postmortems,autopilot}``.
+
+Tenants and the autopilot (``tpuserve_torch.scheduler``):
+
+- **Tenants** — with ``[tenants] enabled`` every router resolves
+  ``X-Api-Key`` and admits against its own ledger before the body is read
+  (each router process admits independently, so with N routers a tenant's
+  effective budget is N x its configured one); a shed answers the
+  reference's body (401 ``tenant_unknown``, 429 ``tenant_*`` with
+  Retry-After). Every answered request charges the tenant's ledger, the
+  resolved tenant (never the key) crosses a peer hop as ``X-Tenant``, the
+  caches partition by tenant weight, and ``GET /tenants`` answers this
+  router's view.
+- **Priority** — ``X-Priority`` is relayed verbatim to the workers, whose
+  fleet scheduler owns the class vocabulary; the cache key never sees it.
+- **Autopilot** — with ``[autopilot] enabled`` the primary runs the
+  reconcile loop (``AutopilotLoop``): per-domain queue pressure from the
+  host supervisor's ``scale_state``, per-model burn state from the router's
+  SLO engine; it scales host domains through ``scale_domain``, engages
+  shed-on-burn (batch-class work of a burning model sheds 503
+  ``burn_shed`` at the front door; the peers adopt the set through the
+  topology sync) and, with ``paging``, fans ``:warm`` / ``:demote`` out to
+  the workers. Every decision is audited as ``autopilot:<kind>``;
+  ``GET /debug/autopilot`` answers the decision history (peers proxy it).
 """
 
 from __future__ import annotations
@@ -102,18 +124,21 @@ from tpuserve_torch.config import ServerConfig, SloConfig
 from tpuserve_torch.faults import CircuitBreaker, Watchdog
 from tpuserve_torch.obs import (FlightRecorder, Metrics, TraceContext,
                                 exposition_content_type, spans_to_chrome)
+from tpuserve_torch.scheduler.autopilot import (Action, AutopilotLoop, DomainSignal,
+                                                ModelSignal, Signals)
+from tpuserve_torch.scheduler.tenants import TenantLedger
 from tpuserve_torch.server import (_INDEX_HTML, _MAX_HEAD, _VERBS, Connections, Request,
                                    Response, StreamResponse, _err, _listen, _requested_stream,
                                    _requested_timeout_ms, _serve_connection, _text,
-                                   json_response)
+                                   json_response, tenants_response)
 from tpuserve_torch.telemetry import events as events_mod
 from tpuserve_torch.telemetry.events import AuditLog, EventLog, PostmortemLog
 from tpuserve_torch.telemetry.fleet import merge_expositions, parse_exposition
 from tpuserve_torch.telemetry.slo import SloEngine
 from tpuserve_torch.telemetry.store import MetricSampler, TimeSeriesStore, quantile_from_counts
 from tpuserve_torch.workerproc.hosts import HostSupervisor, host_name
-from tpuserve_torch.workerproc.peers import (HashRing, PassiveWorkerView, PeerRouterSupervisor,
-                                             TopologyClient)
+from tpuserve_torch.workerproc.peers import (TENANT_HEADER, HashRing, PassiveWorkerView,
+                                             PeerRouterSupervisor, TopologyClient)
 from tpuserve_torch.workerproc.supervisor import WorkerHandle, WorkerSupervisor
 
 log = logging.getLogger("tpuserve_torch.workerproc")
@@ -125,15 +150,6 @@ _DEADLINE_GRACE_S = 0.25
 # Response header a worker stamps on a committed stream: its presence is
 # the router's first-byte latch (retries and hedges stop being legal).
 _STREAM_HEADER = "x-tpuserve-stream"
-
-# Routes of the reference's router this slice does not serve: each answers
-# with its refusal (the reference answers them 409 while disabled).
-_REFUSED = {
-    "/debug/autopilot": (409, "[autopilot] is disabled; no controller runs "
-                              "(not yet ported: ROADMAP.md item 11b)"),
-    "/tenants": (409, "[tenants] is disabled; no tenant ledger is kept "
-                      "(not yet ported: ROADMAP.md item 11b)"),
-}
 
 
 class NoHealthyWorker(Exception):
@@ -328,6 +344,17 @@ class RouterState:
         self.serving_addresses: list = []
         self.connections: Connections | None = None
         self._session: ClientSession | None = None
+        # Tenant containment: every router fronts clients (SO_REUSEPORT), so
+        # every router keeps a ledger and admits on its own.
+        self.tenants: TenantLedger | None = None
+        self.tenant_slo: SloEngine | None = None
+        if cfg.tenants.enabled:
+            self.tenants = TenantLedger(cfg.tenants, self.metrics)
+            self.tenants.saturated_fn = self._fleet_saturated
+        # Models whose batch-priority work sheds at this front door
+        # (shed-on-burn): the primary's autopilot owns the set, the peers
+        # adopt it from /peer/state.
+        self.burn_shed: set[str] = set()
         # Telemetry at the router tier: history over the router's registry
         # and the SLO engine over router_latency_ms{model=}, the latency the
         # CLIENT sees (queue, retries and hedges included).
@@ -340,8 +367,20 @@ class RouterState:
                 self.metrics, capacity=int(tcfg.history_s / tcfg.sample_interval_s))
             self.slo = SloEngine(self.metrics, self.store, tcfg.burn_windows_s,
                                  metric_fmt="router_latency_ms{{model={name}}}")
-            self.sampler = MetricSampler(self.store, tcfg.sample_interval_s,
-                                         hooks=[self.slo.tick])
+            hooks = [self.slo.tick]
+            if self.tenants is not None and cfg.tenants.slo_latency_ms > 0:
+                # Per-tenant burn gauges over tenant_latency_ms{tenant=}, one
+                # shared objective from [tenants].
+                self.tenant_slo = SloEngine(
+                    self.metrics, self.store, tcfg.burn_windows_s,
+                    metric_fmt="tenant_latency_ms{{tenant={name}}}", label="tenant")
+                tenant_slo_cfg = SloConfig(latency_ms=cfg.tenants.slo_latency_ms,
+                                           availability=cfg.tenants.slo_availability,
+                                           burn_alert=cfg.tenants.slo_burn_alert)
+                for tname in self.tenants.names():
+                    self.tenant_slo.register(tname, tenant_slo_cfg)
+                hooks.append(self.tenant_slo.tick)
+            self.sampler = MetricSampler(self.store, tcfg.sample_interval_s, hooks=hooks)
             for mcfg in cfg.models:
                 self.slo.register(mcfg.name, mcfg.slo)
                 if mcfg.slo.first_unit_ms > 0:
@@ -366,6 +405,20 @@ class RouterState:
                 self.caches[name] = ModelCache(
                     name, cfg.cache, self.metrics,
                     version_fn=functools.partial(self.generations.get, name, 0))
+        if self.tenants is not None:
+            # A flooding tenant churns its own share of the cache first; hits
+            # stay content-addressed across tenants.
+            weights = self.tenants.weights()
+            for c in self.caches.values():
+                c.set_tenant_weights(weights)
+        # The fleet controller runs on the PRIMARY only: it owns the
+        # supervisors (the scale actuator) and the audit trail. The peers
+        # see its effects through /peer/state (burn_shed) and the topology.
+        self.autopilot: AutopilotLoop | None = None
+        if self.is_primary and cfg.autopilot.enabled:
+            self.autopilot = AutopilotLoop(cfg.autopilot, self._collect_signals,
+                                           self._actuate, audit=self.audit,
+                                           metrics=self.metrics)
 
     # -- lifecycle -----------------------------------------------------------
     async def start(self) -> None:
@@ -398,6 +451,11 @@ class RouterState:
             self.watchdog.register("_router", "router", self.peer_sup.sweep)
             self._rebuild_ring()
         self.watchdog.start()
+        if self.autopilot is not None:
+            self.autopilot.start()
+            log.info("autopilot engaged (interval %.2fs, hysteresis %d ticks, budget %d/%gs)",
+                     self.cfg.autopilot.interval_s, self.cfg.autopilot.hysteresis_ticks,
+                     self.cfg.autopilot.max_actions_per_window, self.cfg.autopilot.window_s)
 
     async def _start_peer_listener(self) -> None:
         """Bind this router's loopback control plane: the /peer/state
@@ -429,6 +487,10 @@ class RouterState:
             self.ring = HashRing(members)
         for name, gen in (data.get("generations") or {}).items():
             self._set_generation(name, int(gen))
+        # The primary autopilot's shed-on-burn set: the whole tier sheds
+        # together (within one peer_sync_interval_s).
+        if "burn_shed" in data:
+            self.burn_shed = {str(n) for n in (data["burn_shed"] or []) if str(n) in self.handles}
 
     def _set_generation(self, name: str, gen: int) -> None:
         """Adopt the primary's generation of ``name``; a change clears this
@@ -450,7 +512,62 @@ class RouterState:
         else:
             ring = [{"router": self.router_id, "peer_url": self.peer_url}]
         return {"ring": ring, "workers": workers, "generations": dict(self.generations),
-                "draining": self.draining}
+                "draining": self.draining, "burn_shed": sorted(self.burn_shed)}
+
+    # -- autopilot -----------------------------------------------------------
+    def _fleet_saturated(self) -> bool:
+        """The tenant ledger's fair-share gate: more relays in flight than
+        healthy workers means every worker has work and arrivals wait."""
+        healthy = len(self.supervisor.healthy_workers())
+        return healthy == 0 or self._inflight >= healthy
+
+    def _collect_signals(self) -> Signals:
+        """One reconcile tick's input (primary only): per-domain queue
+        pressure from the host supervisor, per-model burn state from the SLO
+        engine, the shed set the controller keeps itself."""
+        domains = []
+        scale_state = getattr(self.supervisor, "scale_state", None)
+        if scale_state is not None:
+            for row in scale_state():
+                denom = max(1, min(row["active"], row["healthy"]))
+                domains.append(DomainSignal(
+                    hid=row["host"], up=row["up"], active=row["active"],
+                    max_slots=row["max_slots"], healthy=row["healthy"],
+                    pressure=row["inflight"] / denom if row["up"] else 0.0))
+        models = [ModelSignal(name=name,
+                              burn_state=self.slo.state_of(name) if self.slo is not None else "ok",
+                              shed_engaged=name in self.burn_shed)
+                  for name in self.handles]
+        return Signals(now=time.monotonic(), domains=domains, models=models)
+
+    async def _actuate(self, action: Action) -> str:
+        """One controller decision through the operation an operator's verb
+        performs. Raising is fine: the loop audits the failure as the
+        action's outcome."""
+        kind, target = action.kind, action.target
+        if kind in ("scale_up", "scale_down"):
+            hid = int(target.split(":", 1)[1])
+            sup = self.supervisor
+            if not hasattr(sup, "scale_domain"):
+                return "error: no host domains to scale ([router] hosts = 0)"
+            out = sup.scale_domain(hid, sup.active_slots(hid) + (1 if kind == "scale_up" else -1))
+            action.signals["active_after"] = out["active"]
+            return "ok"
+        if kind == "shed_on":
+            self.burn_shed.add(target)
+            return "ok"
+        if kind == "shed_off":
+            self.burn_shed.discard(target)
+            return "ok"
+        if kind in ("warm", "demote"):
+            workers = self.supervisor.live_workers()
+            if not workers:
+                return "error: no live worker"
+            results = await asyncio.gather(*(
+                self._admin_call(w, "POST", f"/admin/models/{target}:{kind}") for w in workers))
+            bad = [f"worker{wid}:{status}" for wid, status, _ in results if status != 200]
+            return "ok" if not bad else "error: " + ", ".join(bad)
+        return f"error: unknown action kind {kind!r}"
 
     def begin_drain(self) -> None:
         self.draining = True
@@ -461,6 +578,10 @@ class RouterState:
         admitting, then wait for every relay in flight within the budget."""
         t0 = time.perf_counter()
         await self.watchdog.stop()
+        if self.autopilot is not None:
+            # The controller must not fight the drain (scaling a domain up
+            # while its workers are about to be SIGTERMed).
+            await self.autopilot.stop()
         await self._stop_sampler()
         self.begin_drain()
         self._stream_kill_at = time.monotonic() + self.rcfg.stream_drain_s
@@ -477,6 +598,8 @@ class RouterState:
 
     async def stop(self) -> None:
         await self.watchdog.stop()
+        if self.autopilot is not None:
+            await self.autopilot.stop()
         await self._stop_sampler()
         if self.topo is not None:
             await self.topo.stop()
@@ -515,7 +638,7 @@ class RouterState:
                        ctype: str, deadline_at: float, ctx: TraceContext | None = None,
                        stream: bool = False,
                        committed: "list[_StreamAnswer] | None" = None,
-                       ) -> "_Answer | _StreamAnswer":
+                       priority: str | None = None) -> "_Answer | _StreamAnswer":
         """One request/response against one worker. A unary body is read
         whole before returning, so a relayed response is never torn: a
         worker dying mid-body is a transport error (and a retry), not a
@@ -523,9 +646,13 @@ class RouterState:
         header commits this attempt at the HEADERS: the open response is
         handed up as a _StreamAnswer (registered in ``committed`` first, so
         the relay can close a losing one). The trace id crosses as
-        ``X-Trace-Id`` and this attempt's span id as ``X-Parent-Span``."""
+        ``X-Trace-Id`` and this attempt's span id as ``X-Parent-Span``;
+        ``priority`` relays the client's X-Priority, so the worker's fleet
+        scheduler arbitrates with the class the client asked for."""
         remaining = deadline_at - time.perf_counter()
         headers = {"X-Timeout-Ms": f"{max(1.0, remaining * 1e3):.0f}"}
+        if priority:
+            headers["X-Priority"] = priority
         span_id = None
         if ctx is not None:
             span_id = ctx.new_span_id()
@@ -569,7 +696,8 @@ class RouterState:
 
     async def _relay(self, name: str, verb: str, body: bytes, ctype: str,
                      deadline_at: float, ctx: TraceContext | None = None,
-                     stream: bool = False) -> "_Answer | _StreamAnswer":
+                     stream: bool = False,
+                     priority: str | None = None) -> "_Answer | _StreamAnswer":
         """Dispatch to the least-loaded healthy worker with retry and
         hedging under the absolute deadline. Returns the first definitive
         answer; raises NoHealthyWorker / RelayDeadline / UpstreamFailed. A
@@ -609,7 +737,7 @@ class RouterState:
                 return False
             tried.add(w.wid)
             t = loop.create_task(self._attempt(w, name, verb, body, ctype, deadline_at,
-                                               ctx, stream, committed))
+                                               ctx, stream, committed, priority))
             tasks[t] = w
             return True
 
@@ -688,12 +816,13 @@ class RouterState:
                     sa.close()
 
     async def relay_cacheable(self, name: str, verb: str, body: bytes, ctype: str,
-                              deadline_at: float, ctx: TraceContext | None = None) -> tuple:
+                              deadline_at: float, ctx: TraceContext | None = None,
+                              priority: str | None = None) -> tuple:
         """The cache-value form of _relay: ``(content_type, body)`` for a 200
         (what the single-flight leader populates); _RelayedError for any
         other definitive answer (fans out to coalesced waiters, populates
         nothing)."""
-        ans = await self._relay(name, verb, body, ctype, deadline_at, ctx)
+        ans = await self._relay(name, verb, body, ctype, deadline_at, ctx, priority=priority)
         if ans.status == 200:
             return (ans.content_type, ans.body)
         raise _RelayedError(ans)
@@ -713,7 +842,8 @@ class RouterState:
 
     async def _dispatch(self, name: str, verb: str, body: bytes, ctype: str,
                         deadline_at: float, ctx: TraceContext | None = None,
-                        stream: bool = False) -> "_Answer | _StreamAnswer":
+                        stream: bool = False, priority: str | None = None,
+                        tenant: str | None = None) -> "_Answer | _StreamAnswer":
         """Cache and single-flight in front of the relay, sharded across the
         router tier. The key is content-addressed at the WIRE level (verb,
         content type, body: the router has no models to decode with) and
@@ -724,33 +854,43 @@ class RouterState:
         unreachable owner degrades to the local shard (counted), never to an
         error. Streams bypass the cache, the coalescing and the hop: a
         stream is a live connection, and coalescing one would hand one
-        client's tokens to another."""
+        client's tokens to another. Priority stays out of the key: it
+        schedules the work, it does not change the answer."""
         cache = self.caches.get(name)
         if cache is None or stream:
-            return await self._relay(name, verb, body, ctype, deadline_at, ctx, stream=stream)
+            return await self._relay(name, verb, body, ctype, deadline_at, ctx, stream=stream,
+                                     priority=priority)
         key = cache.key_for((verb, ctype, body))
         if self.ring is not None:
             owner = self.ring.owner(key)
             if owner is not None and owner[0] != self.router_id:
                 ans = await self._peer_forward(owner, name, verb, body, ctype, deadline_at,
-                                               ctx)
+                                               ctx, priority, tenant)
                 if ans is not None:
                     return ans
                 # The owner is unreachable: the local shard serves until it
                 # respawns; coalescing within this router still holds, and
                 # the client sees nothing.
         return await self._dispatch_local(cache, key, name, verb, body, ctype, deadline_at,
-                                          ctx)
+                                          ctx, priority, tenant)
 
     async def _peer_forward(self, owner: tuple[int, str], name: str, verb: str, body: bytes,
-                            ctype: str, deadline_at: float,
-                            ctx: TraceContext | None) -> _Answer | None:
+                            ctype: str, deadline_at: float, ctx: TraceContext | None,
+                            priority: str | None = None,
+                            tenant: str | None = None) -> _Answer | None:
         """Forward one request to the owning router's peer listener: its
         complete answer, or None on a transport failure (counted in
         cache_peer_errors_total; the caller degrades to the local shard)."""
         h = self.handles[name]
         remaining = deadline_at - time.perf_counter()
         headers = {"X-Timeout-Ms": f"{max(1.0, remaining * 1e3):.0f}"}
+        if priority:
+            headers["X-Priority"] = priority
+        if tenant:
+            # The RESOLVED tenant (never the key) crosses the loopback peer
+            # listener, so the owner's shard partitions by the identity the
+            # origin admitted.
+            headers[TENANT_HEADER] = tenant
         if ctype:
             headers["Content-Type"] = ctype
         span_id = None
@@ -778,7 +918,8 @@ class RouterState:
 
     async def _dispatch_local(self, cache: ModelCache, key: str, name: str, verb: str,
                               body: bytes, ctype: str, deadline_at: float,
-                              ctx: TraceContext | None = None) -> _Answer:
+                              ctx: TraceContext | None = None, priority: str | None = None,
+                              tenant: str | None = None) -> _Answer:
         """This router's own cache shard: a hit at once, else single-flight
         into the worker relay."""
         entry = cache.get(key)
@@ -790,7 +931,7 @@ class RouterState:
             return _Answer(200, ct, raw, None)
         loop = asyncio.get_running_loop()
         fut = cache.submit_through(key, lambda: loop.create_task(self.relay_cacheable(
-            name, verb, body, ctype, deadline_at, ctx)), ctx=ctx)
+            name, verb, body, ctype, deadline_at, ctx, priority)), ctx=ctx, tenant=tenant)
         # A coalesced waiter honours ITS deadline; cancelling a waiter never
         # cancels the leader's flight.
         try:
@@ -811,6 +952,9 @@ class RouterState:
         if h is None:
             return _err(404, f"unknown model {name!r}")
         ctx = TraceContext.from_headers(req.headers, pid=0)
+        priority = req.headers.get("x-priority")
+        # The origin resolved the API key; its tenant rides the hop.
+        tenant = req.headers.get(TENANT_HEADER.lower()) or None
         t_start = time.perf_counter()
         body = await req.read()
         ctype = req.headers.get("content-type", "")
@@ -826,10 +970,12 @@ class RouterState:
         try:
             cache = self.caches.get(name)
             if cache is None:
-                ans = await self._relay(name, verb, body, ctype, deadline_at, ctx)
+                ans = await self._relay(name, verb, body, ctype, deadline_at, ctx,
+                                        priority=priority)
             else:
                 ans = await self._dispatch_local(cache, cache.key_for((verb, ctype, body)),
-                                                 name, verb, body, ctype, deadline_at, ctx)
+                                                 name, verb, body, ctype, deadline_at, ctx,
+                                                 priority, tenant)
         except NoHealthyWorker as e:
             return _err(503, "no healthy worker; capacity respawning",
                         retry_after=max(1, math.ceil(e.eta_s)), trace_id=ctx.trace_id)
@@ -1153,9 +1299,6 @@ class RouterState:
             return await self.admin(req, path[len("/admin/"):])
         if path.startswith("/workers/"):
             return await self.worker_proxy(req, path[len("/workers/"):])
-        if path in _REFUSED:
-            status, message = _REFUSED[path]
-            return _err(status, message)
         routes = {
             "/": ("GET", self.index),
             "/healthz": ("GET", self.healthz),
@@ -1172,6 +1315,8 @@ class RouterState:
             "/debug/events": ("GET", self.debug_events),
             "/debug/audit": ("GET", self.debug_audit),
             "/debug/postmortems": ("GET", self.debug_postmortems),
+            "/debug/autopilot": ("GET", self.debug_autopilot),
+            "/tenants": ("GET", self.tenants_json),
         }
         route = routes.get(path)
         if route is None:
@@ -1221,6 +1366,24 @@ class RouterState:
         if self.draining:
             return _err(503, "router draining; retry against another replica",
                         retry_after=self.shed_retry_after(), trace_id=trace_id)
+        # Tenant containment: identity, rate, quota and fair share are
+        # judged here, before the body read and any relay, so a hostile
+        # tenant's flood never occupies a worker.
+        tenant: str | None = None
+        if self.tenants is not None:
+            tenant = self.tenants.resolve(req.headers.get("x-api-key"))
+            shed = (self.tenants.shed_unknown() if tenant is None
+                    else self.tenants.admit(tenant))
+            if shed is not None:
+                return _err(shed.status, shed.message, retry_after=shed.retry_after,
+                            reason=shed.reason, trace_id=trace_id)
+        # Shed-on-burn (the autopilot's actuator): while a model burns its
+        # error budget its batch-priority work sheds at the front door.
+        if name in self.burn_shed and req.headers.get("x-priority") == "batch":
+            return _err(503, f"model {name!r} is burning its SLO error budget; batch "
+                             "work shed until the alert clears",
+                        retry_after=self.shed_retry_after(), reason="burn_shed",
+                        trace_id=trace_id)
         breaker = self.breakers[name]
         if not breaker.allow():
             now = time.monotonic()
@@ -1239,6 +1402,9 @@ class RouterState:
                         retry_after=self.no_worker_retry_after(), trace_id=trace_id)
         h.requests.inc()
         t_start = time.perf_counter()
+        # Priority rides the wire verbatim: the worker's scheduler owns the
+        # class vocabulary (and 400s junk).
+        priority = req.headers.get("x-priority")
         w_read = time.time()
         body = await req.read()
         ctx.span("body_read", w_read, time.time(), tid=name, bytes=len(body))
@@ -1255,7 +1421,8 @@ class RouterState:
 
         self._inflight += 1
         try:
-            ans = await self._dispatch(name, verb, body, ctype, deadline_at, ctx, want_stream)
+            ans = await self._dispatch(name, verb, body, ctype, deadline_at, ctx, want_stream,
+                                       priority, tenant)
         except NoHealthyWorker as e:
             breaker.record_failure()
             return _err(503, "no healthy worker; capacity respawning",
@@ -1277,7 +1444,8 @@ class RouterState:
             breaker.record_success()
             self._inflight += 1
             try:
-                return await self._forward_stream(req, name, h, ans, ctx, t_start, deadline_at)
+                return await self._forward_stream(req, name, h, ans, ctx, t_start, deadline_at,
+                                                  tenant)
             finally:
                 self._inflight -= 1
         if ans.status == 200:
@@ -1285,12 +1453,18 @@ class RouterState:
         elif ans.status >= 500:
             breaker.record_failure()
         self.note_shed_reason(name, ans)
-        h.latency.observe((time.perf_counter() - t_start) * 1e3, trace_id=trace_id)
+        dur_ms = (time.perf_counter() - t_start) * 1e3
+        h.latency.observe(dur_ms, trace_id=trace_id)
+        if self.tenants is not None and tenant is not None:
+            # Charge the tenant's ledger with the wall time the request
+            # occupied the fleet (the device-time proxy quota and fair share
+            # enforce) and feed its latency series.
+            self.tenants.record(tenant, dur_ms / 1e3, latency_ms=dur_ms)
         return ans.to_response()
 
     async def _forward_stream(self, req: Request, name: str, h: RouterHandles,
                               ans: _StreamAnswer, ctx: TraceContext, t_start: float,
-                              deadline_at: float) -> StreamResponse:
+                              deadline_at: float, tenant: str | None = None) -> StreamResponse:
         """Relay one committed stream. From here every failure ends the
         CLIENT's stream with a well-formed error terminal, never a
         re-dispatch: a worker dying mid-stream ("upstream_error"), a stall
@@ -1380,6 +1554,10 @@ class RouterState:
                              trace_id=ctx.trace_id, reason=reason, worker=w.wid,
                              bytes=bytes_out)
         resp.stream_score_ms = max(first_unit_ms or 0.0, max_gap_ms)
+        if self.tenants is not None and tenant is not None:
+            dur_s = time.perf_counter() - t_start
+            self.tenants.record(tenant, dur_s, latency_ms=first_unit_ms
+                                if first_unit_ms is not None else dur_s * 1e3)
         if reason != "client_disconnect":
             with contextlib.suppress(ConnectionError):
                 await resp.write_eof()
@@ -1532,6 +1710,8 @@ class RouterState:
             "draining": self.draining,
             "breakers": {n: br.describe() for n, br in self.breakers.items()},
         }
+        if self.burn_shed:
+            out["robustness"]["burn_shed"] = sorted(self.burn_shed)
         out["workers"] = self.supervisor.stats()
         out["router"] = {"router_id": self.router_id, "is_primary": self.is_primary,
                          "generations": dict(self.generations),
@@ -1562,8 +1742,38 @@ class RouterState:
                 out["slo"] = alerts
         if self.caches:
             out["cache"] = {n: c.stats() for n, c in self.caches.items()}
+        # Live window usage and the controller's counters; the decision
+        # history is at /debug/autopilot, the per-tenant view at /tenants.
+        if self.tenants is not None:
+            out["tenants"] = self.tenants.usage()
+        if self.autopilot is not None:
+            ap = self.autopilot.describe()
+            ap.pop("decisions", None)  # keep /stats bounded
+            out["autopilot"] = ap
         out["kernels"] = await self.worker_kernel_counts()
         return json_response(out)
+
+    async def debug_autopilot(self, req: Request) -> Response:
+        """``GET /debug/autopilot``: the controller's decision history (every
+        action with its triggering signals and outcome) and its damping
+        state. The loop runs on the primary; peers proxy."""
+        try:
+            events_mod.reject_unknown_query(req.query, set())
+        except ValueError as e:
+            return _err(400, str(e))
+        if not self.is_primary:
+            return await self._proxy_to_primary("GET", "/peer/debug/autopilot")
+        if self.autopilot is None:
+            return _err(409, "[autopilot] is disabled; no controller runs")
+        body = self.autopilot.describe()
+        body["burn_shed"] = sorted(self.burn_shed)
+        return json_response(body)
+
+    def tenants_json(self, req: Request) -> Response:
+        """``GET /tenants`` on THIS router (each router admits on its
+        own)."""
+        return tenants_response(self.tenants, self.tenant_slo, req.query,
+                                router_id=self.router_id)
 
     async def reset_kernel_counts(self, req: Request) -> Response:
         """Set every live worker's kernel launch counts to 0."""
@@ -1729,6 +1939,7 @@ class PeerApp:
             "fleet/stats": ("GET", st.fleet_stats),
             "debug/audit": ("GET", st.debug_audit),
             "debug/postmortems": ("GET", st.debug_postmortems),
+            "debug/autopilot": ("GET", st.debug_autopilot),
         }
         route = routes.get(rest)
         if route is None:

@@ -60,9 +60,12 @@ def worker_config(cfg: ServerConfig, worker_id: int) -> ServerConfig:
                  if cfg.worker.port_base else 0)
     if cfg.worker.drain_timeout_s > 0:
         wcfg.drain_timeout_s = cfg.worker.drain_timeout_s
-    # Router-owned layers never run in the worker.
+    # Router-owned layers never run in the worker: the router admits
+    # tenants and runs the fleet controller.
     wcfg.router.enabled = False
     wcfg.cache.enabled = False
+    wcfg.tenants.enabled = False
+    wcfg.autopilot.enabled = False
     # Black box: the supervisor resolves ONE directory for the deployment
     # (stable across respawns: it runs in the supervisor's process) and
     # assigns the slot's stderr capture and snapshot files; the worker
