@@ -335,6 +335,12 @@ Phases (any failure exits non-zero before the result line):
    ``gen_iterations_total`` > 0, captures and compiles moved 0 (previews
    included); the engine's image of the locked body beside the locked PNG
    (reported).
+   Phases 17-20 each start their second server (17's paged one, 18's
+   tearing one, 19's BERT-MoE one, 20's engine one) as their first boots,
+   after the phase's K1 timings (``prestart``), as phase 6 starts phase
+   7's and phase 15 its int8c ResNet-50 one; the first ``serving`` waits
+   for both, so no boot runs under a measurement (the smoke's time
+   limit).
 21. The router/worker process tier (``router_phase``), every server and
    drill at ``SHALLOW_LAYERS`` (4): serve ``examples/bert_flash.toml``
    alone and bench it closed at 8 connections (phase 16's 32-text body);
@@ -411,8 +417,11 @@ Phases (any failure exits non-zero before the result line):
 24. Tenants and the autopilot (``autopilot_phase``), started with phase 23
    and read after it: ``chaos --drill autopilot`` on a copy of
    ``examples/bert_flash_tenants.toml`` (2 host domains x 2 worker slots,
-   1 active, 2 routers, ``[tenants]`` and ``[autopilot]`` on) at
-   ``SHALLOW_LAYERS`` with the reference drill's mid-load ``worker_slow``
+   1 active, ``[tenants]`` and ``[autopilot]`` on) at ``SHALLOW_LAYERS``
+   and with one router, as the reference's drill runs it (the controller
+   reads the pressure of the primary router's relays only; with the file's
+   2 routers the kernel splits the victim's connections between them by
+   chance), with the reference drill's mid-load ``worker_slow``
    fault on host 1's active worker: exit 0 with the victim tenant's
    availability >= 0.97 and every gate of the reference's
    ``scripts/autopilot_drill.sh`` (the hostile tenant 429'd with
@@ -421,18 +430,40 @@ Phases (any failure exits non-zero before the result line):
    ``/debug/audit`` as ``autopilot:*``, ``/tenants`` 200); the
    ``autopilot`` line carries ``first_action_s``, the actions and the
    victim's availability.
-25. Print a ``slice`` line per path, the ``graphs`` line (phase 6-8's,
+25. Deferred (recycle) mode (``deferred_phase``), run beside phase 21:
+   serve ``examples/bert_flash_recycle.toml`` (full-width 12-layer
+   BERT-flash, ``session_mode = "recycle"``, the reference's relay
+   defaults: 2 workers, 4,096-row or 2 s epochs, 4 slots) through ``python
+   -m tpuserve_torch serve``; the server's process never initializes CUDA
+   (its ``/stats``), the workers are spawned. With the counts at 0, phase
+   6's three requests, 0.2 s apart (three batches in one epoch), answer
+   the bytes of phase 6's direct server, and K1 = 12 x batches summed over
+   the workers' epochs after their readback; ``:reload``, ``:rollback``
+   and ``/versions`` answer 409 with the reference's words. Then 384
+   32-text bodies over 128 connections, closed loop (every answer waits
+   for its epoch, so an epoch holds the requests in flight: 128 x 32 texts
+   fill its 4,096 rows and stay under ``max_queue``): every answer 200, >= 3
+   epochs, K1 = 12 x batches; the rotations, dry acquires, each worker's
+   boot and ``memory_reserved``, the one read per epoch, p50 and p99
+   beside ``relay_epoch_ms`` and requests/s beside phase 21's direct
+   server are printed. SIGTERM 0.3 s after a 32-text batch lands on a warm worker:
+   the batch answers 200 before the 2 s epoch ends and the process exits
+   0. Beside it, ``chaos`` on a copy with one ``worker_death`` rule (armed
+   45 s after the drill's server is born; single texts offered at 20/s for
+   30 s): exit 0, availability >= 0.99, the one death absorbed by
+   ``batch_retries_total`` >= 1, a watchdog restart or a respawn counted.
+26. Print a ``slice`` line per path, the ``graphs`` line (phase 6-8's,
    13's and 14's graph checks and host times), the ``lifecycle`` line, the
    ``robustness`` line (with phase 8's, 13's and 14's first-request
    tables), the ``observability``, ``defaults_cost``, ``cli``, ``router``,
-   ``hosts``, ``fleet`` and ``autopilot`` lines, and
+   ``hosts``, ``fleet``, ``autopilot`` and ``deferred`` lines, and
    the ``kernels`` line (K1 and K2, each with its launches on its path,
    counted through graph replays, K1's on the int8c path, in each of
    phase 16's ``bench`` runs, on phase 17's textgen path, phase 18's
    streams and ``bench --stream``, phase 19's MoE paths and phase 20's
    locked and engine SD paths, phase 21's router path and phase 22's host
    path and their benches beside, phase 23's first warm, re-warm and fleet
-   drill, then K1's four SD rows, each with the
+   drill, phase 25's recycle path and its load, then K1's four SD rows, each with the
    launches counted at its shape on the locked (B = 2) or engine (B = 16)
    path; the vision paths run neither),
    the card line, then the result line ``{"ok": true,
@@ -448,6 +479,7 @@ import json
 import math
 import os
 import re
+import shutil
 import signal
 import socket
 import subprocess
@@ -1273,47 +1305,87 @@ def h2d_overlap_check(rt, model) -> None:
           "batch's forward still queued (it waits for its own copy only)", flush=True)
 
 
+# Servers started ahead of their use (``prestart``), by ``serving``'s
+# arguments: ``serving`` takes its server from here when one is waiting.
+_PRESTARTED: dict[tuple, dict] = {}
+
+
+def _start_server(config: Path, overrides: tuple, extra_toml: str) -> dict:
+    """``python -m tpuserve_torch serve`` on a free port, started at once."""
+    port = free_port()
+    sets = [a for o in (f"port={port}", *overrides) for a in ("--set", o)]
+    tmp = Path(tempfile.mkdtemp(prefix="smoke-serve-"))
+    log_path = tmp / "server.log"
+    if extra_toml:
+        copy = tmp / config.name
+        copy.write_text(config.read_text() + "\n" + extra_toml)
+        config = copy
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, "-m", "tpuserve_torch", "serve",
+                                 "--config", str(config), *sets],
+                                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    return {"port": port, "proc": proc, "log": log_path, "tmp": tmp}
+
+
+def _stop_server(srv: dict) -> None:
+    proc = srv["proc"]
+    proc.send_signal(signal.SIGTERM)
+    try:
+        proc.wait(60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(30)
+    shutil.rmtree(srv["tmp"], ignore_errors=True)
+
+
+def prestart(config: Path, n_buckets: int, overrides: tuple = (), extra_toml: str = "") -> None:
+    """Start now the server that a later ``serving`` with the same
+    arguments will use, so that it boots beside the server a phase starts
+    next; that ``serving`` waits for both before it yields, so no boot runs
+    under the phase's measurements and the later server is ready when its
+    turn comes (the smoke's time limit)."""
+    _PRESTARTED[(str(config), tuple(overrides), extra_toml)] = dict(
+        _start_server(config, tuple(overrides), extra_toml), n_buckets=n_buckets)
+
+
+def stop_prestarted() -> None:
+    """Stop every prestarted server no ``serving`` took (a failed phase)."""
+    while _PRESTARTED:
+        _stop_server(_PRESTARTED.popitem()[1])
+
+
 @contextlib.contextmanager
 def serving(config: Path, n_buckets: int, overrides: tuple = (), extra_toml: str = "",
             with_proc: bool = False):
     """``python -m tpuserve_torch serve --config <config>`` (plus ``--set``
     ``overrides``, and ``extra_toml`` appended to a copy of the file) on a
-    free port, healthy; prints each model's graphs and the memory their
-    capture reserved; yields the port (and the process, ``with_proc``) and
-    stops the server on the way out."""
-    port = free_port()
-    sets = [a for o in (f"port={port}", *overrides) for a in ("--set", o)]
-    with tempfile.TemporaryDirectory() as tmp:
-        log_path = Path(tmp) / "server.log"
-        if extra_toml:
-            copy = Path(tmp) / config.name
-            copy.write_text(config.read_text() + "\n" + extra_toml)
-            config = copy
-        with open(log_path, "w") as log:
-            proc = subprocess.Popen([sys.executable, "-m", "tpuserve_torch", "serve",
-                                     "--config", str(config), *sets],
-                                    cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
-        try:
-            wait_healthy(proc, port, log_path, n_buckets)
-            for name, g in served_graphs(port).items():
-                mem = g["capture_memory"]
-                if not mem:
-                    print(f"slice: {name} boots cold: no parameter slot, no graph", flush=True)
-                    continue
-                print(f"slice: {name} serves from {g['captures_total']} CUDA graphs "
-                      f"({g['buckets']} buckets or programs x "
-                      f"{g['captures_total'] // max(1, g['buckets'])} each); parameters "
-                      f"{g['param_bytes_per_slot'] / 2**20:.0f} MiB per slot; memory_reserved "
-                      f"{mem['reserved_before_bytes'] / 2**20:.0f} MiB before capture, "
-                      f"{mem['reserved_after_bytes'] / 2**20:.0f} MiB after", flush=True)
-            yield (port, proc) if with_proc else port
-        finally:
-            proc.send_signal(signal.SIGTERM)
-            try:
-                proc.wait(60)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait(30)
+    free port, healthy (the prestarted one, if any, and every other
+    prestarted server healthy too); prints each model's graphs and the
+    memory their capture reserved; yields the port (and the process,
+    ``with_proc``) and stops the server on the way out."""
+    srv = _PRESTARTED.pop((str(config), tuple(overrides), extra_toml), None) \
+        or _start_server(config, tuple(overrides), extra_toml)
+    port, proc, log_path = srv["port"], srv["proc"], srv["log"]
+    try:
+        wait_healthy(proc, port, log_path, n_buckets)
+        for other in list(_PRESTARTED.values()):  # booting beside this one
+            # Booted, or failed: the phase that takes it reports a failure.
+            with contextlib.suppress(SmokeFailure):
+                wait_healthy(other["proc"], other["port"], other["log"], other["n_buckets"])
+        for name, g in served_graphs(port).items():
+            mem = g["capture_memory"]
+            if not mem:
+                print(f"slice: {name} boots cold: no parameter slot, no graph", flush=True)
+                continue
+            print(f"slice: {name} serves from {g['captures_total']} CUDA graphs "
+                  f"({g['buckets']} buckets or programs x "
+                  f"{g['captures_total'] // max(1, g['buckets'])} each); parameters "
+                  f"{g['param_bytes_per_slot'] / 2**20:.0f} MiB per slot; memory_reserved "
+                  f"{mem['reserved_before_bytes'] / 2**20:.0f} MiB before capture, "
+                  f"{mem['reserved_after_bytes'] / 2**20:.0f} MiB after", flush=True)
+        yield (port, proc) if with_proc else port
+    finally:
+        _stop_server(srv)
 
 
 def served_graphs(port: int) -> dict:
@@ -1486,6 +1558,7 @@ def graph_phase(config: Path, timed: dict, logit_tol, share: bool = False) -> di
 
 
 def slice_phase() -> dict:
+    prestart(LONG_CONFIG, 2)  # phase 7's server boots beside this one
     with serving(CONFIG, n_buckets=6) as port:
         run = drive(port)
         # Phase 23's fleet server answers these bytes.
@@ -3454,6 +3527,9 @@ def int8c_phase(card: str) -> dict:
     t0 = time.perf_counter()
     run = {"int8_matmul": int8_matmul_check(), "bert_layers": SHALLOW_LAYERS}
     shallow = shallow_config()
+    # The int8c ResNet-50 server boots beside the BERT one (after the
+    # int8_matmul timings).
+    prestart(RESNET_CONFIG, 6, ("model.resnet50.quantize=int8c",))
     bert = int8c_served(shallow, "bert", 6, lambda port: drive(port, layers=SHALLOW_LAYERS))
     run["bert_launches_k1"] = bert["launches"]
     # The lifecycle under int8c: staged checkpoints quantize the same way and
@@ -4246,8 +4322,7 @@ def textgen_paged_served(bodies: list) -> dict:
     import threading
 
     out: dict = {}
-    sets = ("genserve.kv_paging=true", "genserve.prefill_chunk=64", "genserve.kv_pages=257")
-    with serving(TEXTGEN_CONFIG, n_buckets=3, overrides=sets) as port:
+    with serving(TEXTGEN_CONFIG, n_buckets=3, overrides=TG_PAGED_SETS) as port:
         c0 = gen_counters(port)
         first = generate(port, bodies, waves=2)
         mix = generate(port, bodies[::-1], waves=4)[::-1]
@@ -4284,6 +4359,10 @@ def textgen_paged_served(bodies: list) -> dict:
     return out
 
 
+# Phase 17's paged server: 64-token chunks over 257 pages.
+TG_PAGED_SETS = ("genserve.kv_paging=true", "genserve.prefill_chunk=64", "genserve.kv_pages=257")
+
+
 def textgen_phase(card: str) -> dict:
     """Phase 17: examples/textgen_flash.toml (GPT-2 small widths, 12 layers)
     served through the generation engine, K1 in the prefill."""
@@ -4293,6 +4372,8 @@ def textgen_phase(card: str) -> dict:
     out: dict = {"card": card, "config": str(TEXTGEN_CONFIG.relative_to(ROOT))}
     out["kernels"] = textgen_kernel_checks()
     bodies = textgen_bodies()
+    # The paged server boots beside the first one (after K1's timings).
+    prestart(TEXTGEN_CONFIG, 3, TG_PAGED_SETS)
     with tempfile.TemporaryDirectory() as tmp_name:
         out["served"] = textgen_served(Path(tmp_name), bodies)
     out["in_process"] = textgen_in_process(bodies, out["served"]["tokens"])
@@ -4307,6 +4388,10 @@ def textgen_phase(card: str) -> dict:
 
 # Chance a started stream is torn after each unit, in phase 18's fault drill.
 STREAM_TEAR_P = 0.2
+# Phase 18's tearing server: paged KV, stream_disconnect at STREAM_TEAR_P.
+TORN_SETS = ("genserve.kv_paging=true",)
+TORN_FAULTS = ("[faults]\nenabled = true\nseed = 1\n\n[[faults.rule]]\n"
+               f'kind = "stream_disconnect"\nmodel = "textgen"\nprobability = {STREAM_TEAR_P}\n')
 
 
 def stream_events(bodies: list, port: int) -> tuple[list, list]:
@@ -4450,10 +4535,8 @@ def streaming_torn(bodies: list, unary: list) -> dict:
     from tpuserve_torch.bench.client import ClientSession
     from tpuserve_torch.bench.loadgen import stream_generate
 
-    faults = ("[faults]\nenabled = true\nseed = 1\n\n[[faults.rule]]\n"
-              f'kind = "stream_disconnect"\nmodel = "textgen"\nprobability = {STREAM_TEAR_P}\n')
-    with serving(TEXTGEN_CONFIG, n_buckets=3, overrides=("genserve.kv_paging=true",),
-                 extra_toml=faults) as port:
+    with serving(TEXTGEN_CONFIG, n_buckets=3, overrides=TORN_SETS,
+                 extra_toml=TORN_FAULTS) as port:
         c0 = stream_counters(port)
         url = f"http://127.0.0.1:{port}/v1/models/textgen:generate"
 
@@ -4503,6 +4586,7 @@ def streaming_phase(card: str, unary_tokens_per_s: float) -> dict:
     out: dict = {"card": card, "config": str(TEXTGEN_CONFIG.relative_to(ROOT))}
     bodies = textgen_bodies()
     eos = textgen_model()[0].eos_id
+    prestart(TEXTGEN_CONFIG, 3, TORN_SETS, TORN_FAULTS)  # boots beside the clean one
     with tempfile.TemporaryDirectory() as tmp_name:
         out.update(streaming_served(Path(tmp_name), bodies, eos))
     out["torn_drill"] = streaming_torn(bodies, out.pop("unary"))
@@ -4610,6 +4694,7 @@ def moe_phase(card: str) -> dict:
     out: dict = {"card": card, "configs": [str(c.relative_to(ROOT)) for c in
                                            (TEXTGEN_MOE_CONFIG, BERT_MOE_CONFIG)]}
     bodies = textgen_bodies()
+    prestart(BERT_MOE_CONFIG, 6)  # boots beside the MoE textgen server
     out["textgen"] = textgen_moe_served(bodies)
     out["textgen"]["in_process"] = textgen_moe_in_process(bodies, out["textgen"].pop("tokens"))
     out["bert"] = bert_moe_phase()
@@ -5099,6 +5184,8 @@ def sd15_phase(card: str) -> dict:
     # The locked path's 2 UNet rows and the engine step's 2 x 8 slots.
     out["kernels"] = {(b, s): sd_k1_row(b, s, d) for b in (2, 16)
                       for s, d in ((4096, 40), (1024, 80))}
+    # The engine's server boots beside the locked one (after K1's timings).
+    prestart(SD_CONFIG, 3, SD_ENGINE_SETS)
     locked = sd_locked_served()
     png = locked.pop("png")
     out["in_process"] = sd_in_process(png)
@@ -5939,12 +6026,16 @@ worker = 2
 
 def start_autopilot_drill() -> Cli:
     """``chaos --drill autopilot`` on a copy of examples/bert_flash_tenants.toml
-    at SHALLOW_LAYERS with the reference drill's fault rule, started at once
-    (it serves its own fleet)."""
+    at SHALLOW_LAYERS and one router (the reference drill's topology) with
+    the reference drill's fault rule, started at once (it serves its own
+    fleet)."""
     tmp = ROOT / "build" / "smoke" / "autopilot"
     tmp.mkdir(parents=True, exist_ok=True)
     config = tmp / TENANTS_CONFIG.name
-    config.write_text(shallow_config(TENANTS_CONFIG).read_text() + AUTOPILOT_FAULT_TOML)
+    text = shallow_config(TENANTS_CONFIG).read_text()
+    one = re.sub(r"(?m)^routers = 2$", "routers = 1", text)
+    check(one != text, f"{TENANTS_CONFIG.name} does not set routers = 2")
+    config.write_text(one + AUTOPILOT_FAULT_TOML)
     return Cli(tmp, "autopilot", "chaos", "--config", str(config), *AUTOPILOT_DRILL_ARGS)
 
 
@@ -5975,6 +6066,265 @@ def autopilot_phase(card: str, drill: Cli | None = None) -> dict:
     print(f"autopilot: victim availability {summary['availability']}, hostile 429 "
           f"{hostile['n_429']} {hostile['reasons']}, actions {ap['action_kinds']}, first at "
           f"{ap['first_action_s']} s", flush=True)
+    return out
+
+
+# -- phase 25: deferred (recycle) mode ------------------------------------------------
+
+RECYCLE_CONFIG = ROOT / "examples" / "bert_flash_recycle.toml"
+# 384 bodies of 32 texts: three epochs filled to their 4,096 rows. Every
+# answer waits for its epoch's readback, so a closed loop holds its
+# connections' requests in one epoch: 8 connections would carry 256 rows an
+# epoch (and need 48 epochs); 128 carry 4,096, one epoch a round, and the
+# queue of a stalled rotation (a dry acquire) stays under max_queue's 4,096
+# texts (two of the 128 batches are admitted).
+RECYCLE_REQUESTS = 384
+RECYCLE_CONNS = 128
+# The worker_death drill: single texts offered at 20/s for 30 s, measured
+# from the first request (no warm-up), on a copy with one rule, its workers
+# at SHALLOW_LAYERS. Open loop: the pool fires the rule only at an enqueue
+# onto a worker that already holds a batch, and a closed loop's few texts
+# per epoch can all ride one.
+RECYCLE_CHAOS_ARGS = ("--model", "bert", "--duration", "30", "--warmup", "0",
+                      "--rate", "20", "--min-availability", "0.99")
+# Seconds from the chaos server's birth to the rule's arming: past its boot
+# (two workers one after the other), so the death lands in the load's first
+# seconds; at once when the boot takes longer.
+RECYCLE_DEATH_AFTER_S = 35.0
+# The chaos copy's breaker_threshold. One death fails every batch of its
+# epoch at once, and each counts against the breaker, as in the reference;
+# at the drill's 20 texts/s an epoch holds about 40 batches (2 s), a few
+# more after a dry acquire's backlog, so the default of 5 would open the
+# breaker on the one death the drill is there to show absorbed.
+RECYCLE_CHAOS_BREAKER = 100
+RECYCLE_409 = {"reload": "weight reload is not supported in recycle mode",
+               "rollback": "versioned lifecycle is not supported in recycle mode",
+               "versions": "versioned lifecycle is not supported in recycle mode"}
+
+
+def recycle_chaos_config(tmp: Path, after_s: float) -> Path:
+    """A copy of examples/bert_flash_recycle.toml at SHALLOW_LAYERS, with
+    ``breaker_threshold = RECYCLE_CHAOS_BREAKER`` and one ``worker_death``
+    rule: the pool's enqueue kills its active worker once, ``after_s`` after
+    the server's injector is born."""
+    path = tmp / "recycle_chaos.toml"
+    text = shallow_config(RECYCLE_CONFIG).read_text()
+    copy = text.replace('session_mode = "recycle"\n',
+                        f'session_mode = "recycle"\nbreaker_threshold = {RECYCLE_CHAOS_BREAKER}\n')
+    check(copy != text, f"{RECYCLE_CONFIG.name} does not set session_mode")
+    path.write_text(copy + f"""
+[faults]
+enabled = true
+seed = 1
+
+[[faults.rule]]
+kind = "worker_death"
+model = "bert"
+count = 1
+after_s = {after_s:.1f}
+""")
+    return path
+
+
+def recycle_pool(port: int) -> dict:
+    return json.loads(call(port, "GET", "/v1/models")[1])["bert"]
+
+
+def recycle_load(port: int, n: int, conns: int) -> dict:
+    """``n`` 32-text bodies over ``conns`` keep-alive connections, closed
+    loop: statuses, request walls, and requests/s over the run."""
+    import concurrent.futures as cf
+    import threading
+
+    body = json.dumps({"texts": TEXTS_32}).encode()
+    lock = threading.Lock()
+    left = [n]
+    statuses: list[int] = []
+    walls: list[float] = []
+
+    def client() -> None:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        try:
+            while True:
+                with lock:
+                    if left[0] == 0:
+                        return
+                    left[0] -= 1
+                t = time.perf_counter()
+                conn.request("POST", "/v1/models/bert:classify", body=body,
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                resp.read()
+                with lock:
+                    statuses.append(resp.status)
+                    walls.append((time.perf_counter() - t) * 1e3)
+        finally:
+            conn.close()
+
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(conns) as pool:
+        for f in [pool.submit(client) for _ in range(conns)]:
+            f.result()
+    wall_s = time.perf_counter() - t0
+    walls.sort()
+    return {"requests": n, "connections": conns, "wall_s": wall_s,
+            "requests_per_s": n / wall_s, "rows_per_s": 32 * n / wall_s,
+            "non_200": sum(1 for s in statuses if s != 200),
+            "p50_ms": walls[len(walls) // 2], "p99_ms": walls[min(len(walls) - 1,
+                                                                int(0.99 * len(walls)))]}
+
+
+def recycle_drain(port: int, server: Cli, epoch_ms: float) -> dict:
+    """SIGTERM with one 32-text batch far inside its epoch (sent to a warm
+    worker, 0.3 s before the signal): it must answer 200 before the epoch's
+    deadline (the drain retires the epoch at once), and the process exit 0."""
+    import concurrent.futures as cf
+
+    deadline = time.monotonic() + 120.0
+    while recycle_pool(port)["warm"] < 1:  # a rotation's successor, booted
+        check(time.monotonic() < deadline, "recycle: no warm worker within 120 s")
+        time.sleep(0.2)
+    with cf.ThreadPoolExecutor(1) as pool:
+        t = time.perf_counter()
+        fut = pool.submit(call, port, "POST", "/v1/models/bert:classify", {"texts": TEXTS_32})
+        time.sleep(0.3)
+        server.proc.send_signal(signal.SIGTERM)
+        st, body = fut.result(timeout=120)
+        wall_ms = (time.perf_counter() - t) * 1e3
+    try:
+        rc = server.proc.wait(120)
+    except subprocess.TimeoutExpired:
+        server.kill()
+        raise SmokeFailure("recycle: the server did not exit within 120 s of SIGTERM")
+    print(f"recycle: drain: the pending batch answered {st} in {wall_ms:.1f} ms "
+          f"(epoch {epoch_ms:g} ms), exit {rc}", flush=True)
+    check(st == 200 and wall_ms < epoch_ms and rc == 0,
+          f"recycle drain: status {st} in {wall_ms:.1f} ms (epoch {epoch_ms:g}), exit {rc}: "
+          f"{body[:300]!r}")
+    return {"status": st, "wall_ms": wall_ms, "exit_code": rc}
+
+
+def deferred_phase(card: str, direct: list[bytes]) -> dict:
+    """Phase 25: deferred (recycle) mode, run beside phase 21 (it waits on
+    worker boots, CPU work, far more than it uses the card). Serve
+    examples/bert_flash_recycle.toml (full-width 12-layer BERT-flash; 2
+    spawned workers, 4,096-row or 2 s epochs) and, beside it, the
+    ``worker_death`` chaos drill on a copy; then: phase 6's three requests
+    byte-identical to phase 6's direct server's (``direct``), K1 = 12 x
+    batches summed over the workers' epochs, the server's process without
+    CUDA, the 409s; 384 32-text bodies (every answer 200, >= 3 epochs), the
+    rotations, dry acquires, boots, the one read per epoch and the
+    latencies beside ``relay_epoch_ms``; the drain; the drill's gates."""
+    t0 = time.perf_counter()
+    from tpuserve_torch.config import load_config
+
+    mcfg = load_config(str(RECYCLE_CONFIG)).model("bert")
+    epoch_ms = mcfg.relay_epoch_ms
+    out: dict = {"card": card, "config": str(RECYCLE_CONFIG.relative_to(ROOT)), "layers": 12,
+                 "relay": {"workers": mcfg.relay_workers, "epoch_images": mcfg.relay_epoch_images,
+                           "epoch_ms": epoch_ms, "slots": mcfg.relay_slots}}
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    port = free_port()
+    server = Cli(tmp, "recycle_serve", "serve", "--config", str(RECYCLE_CONFIG),
+                 "--set", f"port={port}")
+    chaos = Cli(tmp, "recycle_chaos", "chaos", "--config",
+                str(recycle_chaos_config(tmp, RECYCLE_DEATH_AFTER_S)), *RECYCLE_CHAOS_ARGS)
+    try:
+        wait_healthy(server.proc, port, server.err_path, 6)
+        out["healthy_s"] = time.perf_counter() - t0
+        pool = recycle_pool(port)
+        out["boot"] = pool["worker_boots"]
+        # Phase 6's three requests, sent 0.2 s apart: three batches (one per
+        # request, as phase 6 batches them) in one epoch.
+        check(call(port, "POST", "/debug/kernels:reset")[0] == 200, "recycle: reset refused")
+        before = call(port, "GET", "/metrics")[1].decode()
+        import concurrent.futures as cf
+
+        objs = ({"text": "serve this text please"}, {"texts": TEXTS_8}, {"texts": TEXTS_32})
+        with cf.ThreadPoolExecutor(3) as ex:
+            futs = []
+            for obj in objs:
+                futs.append(ex.submit(call, port, "POST", "/v1/models/bert:classify", obj))
+                time.sleep(0.2)
+            answers = [f.result() for f in futs]
+        check(all(st == 200 for st, _ in answers), f"recycle: {[(s, b[:200]) for s, b in answers]}")
+        same = [body == want for (_, body), want in zip(answers, direct)]
+        after = call(port, "GET", "/metrics")[1].decode()
+        stats = json.loads(call(port, "GET", "/stats")[1])
+        batches = metric(after, 'batches_total{model="bert"}') - metric(before, 'batches_total{model="bert"}')
+        k1 = stats["kernels"]["flash_attention"]["launches"]
+        print(f"recycle: healthy after {out['healthy_s']:.1f} s (workers' boots {out['boot']}); "
+              f"phase 6's requests equal to the direct server's {same}; K1 {k1} over {batches:g} "
+              f"batches; the server's process initialized CUDA: {stats['cuda_initialized']}",
+              flush=True)
+        check(all(same), f"recycle: answers differ from phase 6's direct server: {same}")
+        check(batches == 3 and k1 == 12 * batches,
+              f"recycle: K1 launched {k1} times for {batches:g} batches (12 per batch)")
+        check(stats["kernels"]["flash_attention_stats"]["launches"] == 0, "recycle: K2 launched")
+        check(stats["cuda_initialized"] is False, "recycle: the server's process initialized CUDA")
+        out.update(k1_launches=k1, batches=batches, bytes_equal=same)
+        for verb, (method, path) in {"reload": ("POST", "/admin/models/bert:reload"),
+                                     "rollback": ("POST", "/admin/models/bert:rollback"),
+                                     "versions": ("GET", "/admin/models/bert/versions")}.items():
+            st, body = call(port, method, path)
+            check(st == 409 and json.loads(body) == {"error": RECYCLE_409[verb]},
+                  f"recycle: {path} answered {st} {body[:200]!r}")
+        # Rotation under load.
+        check(call(port, "POST", "/debug/kernels:reset")[0] == 200, "recycle: reset refused")
+        s0 = recycle_pool(port)["stats"]
+        before = call(port, "GET", "/metrics")[1].decode()
+        load = recycle_load(port, RECYCLE_REQUESTS, RECYCLE_CONNS)
+        after = call(port, "GET", "/metrics")[1].decode()
+        pool = recycle_pool(port)
+        s1 = pool["stats"]
+        stats = json.loads(call(port, "GET", "/stats")[1])
+        lb = metric(after, 'batches_total{model="bert"}') - metric(before, 'batches_total{model="bert"}')
+        lk1 = stats["kernels"]["flash_attention"]["launches"]
+        epochs = s1["epochs"] - s0["epochs"]
+        rot = {"epochs": epochs, "rows": s1["rows_total"] - s0["rows_total"],
+               "dry_acquires": s1["worker_respawns"] - s0["worker_respawns"],
+               "prespawned": s1["workers_prespawned"] - s0["workers_prespawned"],
+               "read_ms_per_epoch": 1e3 * (s1["read_s_total"] - s0["read_s_total"]) / max(1, epochs),
+               "batches": lb, "k1_launches": lk1}
+        out["boot"] = pool["worker_boots"]
+        out["load"] = dict(load, **rot, epoch_ms=epoch_ms)
+        print(f"recycle: {RECYCLE_REQUESTS} x 32 texts over {RECYCLE_CONNS} connections: "
+              f"{load['requests_per_s']:.1f} requests/s, p50 {load['p50_ms']:.0f} ms, "
+              f"p99 {load['p99_ms']:.0f} ms "
+              f"(epoch {epoch_ms:g} ms), non-200 {load['non_200']}; {rot}; boots {out['boot']}",
+              flush=True)
+        check(load["non_200"] == 0, f"recycle: {load['non_200']} answers were not 200")
+        check(epochs >= 3, f"recycle: {epochs} epochs under the load, expected >= 3")
+        check(lk1 == 12 * lb and lb > 0, f"recycle: K1 {lk1} for {lb:g} batches under load")
+        out["drain"] = recycle_drain(port, server, epoch_ms)
+        rc, text = chaos.finish(timeout_s=420.0)
+        summary = json.loads(text)
+        deaths = sum(r["fired"] for r in summary["faults"] if r["kind"] == "worker_death")
+        dstats = summary["deferred"]["bert"]
+        # Held to every completion: an answer that waits out an epoch's
+        # readback or a dry acquire lands after the load's window, where the
+        # CLI's own availability does not look (availability_all does).
+        out["chaos"] = {"exit": rc, "availability": summary["availability"],
+                        "availability_all": dstats["availability_all"],
+                        "n_ok": summary["n_ok"], "n_err": summary["n_err"],
+                        "n_late": summary["n_late"], "n_late_err": dstats["n_late_err"],
+                        "p50_ms": summary.get("p50_ms"), "p99_ms": summary.get("p99_ms"),
+                        "worker_deaths": deaths, "breaker": summary["breakers"]["bert"],
+                        "pool": dstats}
+        print(f"recycle: worker_death drill {out['chaos']}", flush=True)
+        check(rc == 0 and summary["availability"] >= 0.99 and dstats["availability_all"] >= 0.99
+              and deaths == 1 and dstats["batch_retries_total"] >= 1
+              and dstats["batch_retry_failures_total"] == 0
+              and dstats["watchdog_restarts_total"] + dstats["worker_respawns"]
+              + dstats["workers_prespawned"] >= 1,
+              f"recycle: worker_death drill: exit {rc}, {json.dumps(summary)[:3000]}")
+    finally:
+        chaos.kill()
+        server.kill()
+        tmp_dir.cleanup()
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"recycle: phase 25 took {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -6013,7 +6363,16 @@ def main() -> int:
         stream = streaming_phase(card, textgen["served"]["bench"]["tokens_per_s"])
         moe = moe_phase(card)
         sd = sd15_phase(card)
-        router = router_phase(card)
+        import concurrent.futures as cf
+
+        # Phase 25 waits on its workers' boots far more than it uses the
+        # card: it runs beside phase 21, as phases 23-24 run inside 22.
+        with cf.ThreadPoolExecutor(1) as beside:
+            deferred_run = beside.submit(deferred_phase, card, run["direct_bodies"])
+            try:
+                router = router_phase(card)
+            finally:
+                deferred = deferred_run.result()
         drills: dict = {}
         drill_tmp = ROOT / "build" / "smoke" / "fleet"
         drill_tmp.mkdir(parents=True, exist_ok=True)
@@ -6035,6 +6394,8 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
+    finally:
+        stop_prestarted()
     vision_graphs = vision.pop("graphs")
     robustness["first_request_resnet50"] = vision.pop("first_request")
     # Where a (32, S) batch's device time goes: 12 K1 launches of one forward.
@@ -6106,6 +6467,9 @@ def main() -> int:
     print(json.dumps({"hosts": hosts}))
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"autopilot": autopilot}))
+    deferred["load"]["direct_requests_per_s_4_layers"] = \
+        router["direct"]["bench"]["summary"]["throughput_per_s"]
+    print(json.dumps({"deferred": deferred}))
     # K1's launches on the main path (BERT-flash), on the int8c one, on
     # textgen's (12 per insert, none per decode step), streamed and unary,
     # and on the Switch-MoE paths (textgen's inserts, BERT-flash's batches).
@@ -6132,7 +6496,9 @@ def main() -> int:
                                        launches_fleet_first_warm=fleet["k1_launches"][
                                            "first_warm"],
                                        launches_fleet_rewarm=fleet["k1_launches"]["rewarm"],
-                                       launches_fleet_drill=fleet["k1_launches"]["drill"]),
+                                       launches_fleet_drill=fleet["k1_launches"]["drill"],
+                                       launches_recycle=deferred["k1_launches"],
+                                       launches_recycle_load=deferred["load"]["k1_launches"]),
                                   dict(k2["line"], launches=long["k2_launches"]),
                                   # K1 at SD 1.5's padded shapes, with the launches counted
                                   # at each shape: 2 rows on the locked path, 16 in the

@@ -39,7 +39,10 @@ still refuses:
   ``[[tenants.tenant]]`` entries) and ``[autopilot]``, and the model's
   ``priority`` and ``cold_start``, typed since the fleet scheduler, tenants
   and the autopilot were ported, holds the reference's default and is
-  served when written.
+  served when written;
+- deferred mode's model keys (``session_mode`` and the four ``relay_*``),
+  typed since deferred mode was ported, hold the reference's defaults and
+  are served when written.
 
 Exact: the values are compared with ``==``.
 """
@@ -58,7 +61,8 @@ EXAMPLES = ("examples/bert_flash.toml", "examples/bert_long_ring.toml",
             "examples/textgen_moe_flash.toml", "examples/bert_moe_flash.toml",
             "examples/sd15_flash.toml", "examples/bert_flash_router.toml",
             "examples/textgen_flash_router.toml", "examples/bert_flash_hosts.toml",
-            "examples/bert_fleet.toml", "examples/bert_flash_tenants.toml")
+            "examples/bert_fleet.toml", "examples/bert_flash_tenants.toml",
+            "examples/bert_flash_recycle.toml")
 
 # The reference's defaults that turn on a feature the port does not serve
 # yet, each refused by the port when written out: none.
@@ -98,7 +102,7 @@ def _port_refuses(name: str, value) -> bool:
         table, key = name[1:].split("] ")
         cfg = tconfig.load_config(None, [f"{table}.{key}={json.dumps(value)}"])
         assert getattr(getattr(cfg, table), key) == value
-    elif name in SERVED_FLEET_KEYS:
+    elif name in SERVED_FLEET_KEYS or name in SERVED_DEFERRED_KEYS:
         key = name[len("model "):]
         setattr(cfg.models[0], key, value)
         cfg.models[0].validate()
@@ -126,10 +130,15 @@ SERVED_TIER_KEYS = [f"[router] {k}" for k in (
 SERVED_FLEET_KEYS = ["[autopilot] enabled", "[scheduler] enabled", "[tenants] enabled",
                      "model cold_start", "model priority"]
 
+# Deferred mode's model keys: refused off the reference's default until
+# deferred mode was ported, served since.
+SERVED_DEFERRED_KEYS = [f"model {k}" for k in (
+    "relay_epoch_images", "relay_epoch_ms", "relay_slots", "relay_workers", "session_mode")]
+
 REFUSED = sorted(tconfig._SERVER_UNPORTED) \
     + [f"model {k}" for k in sorted(tconfig._MODEL_UNPORTED)] \
     + sorted({_switch(t) for t in tconfig.UNPORTED_TABLES}) + SERVED_TIER_KEYS \
-    + SERVED_FLEET_KEYS
+    + SERVED_FLEET_KEYS + SERVED_DEFERRED_KEYS
 
 
 @pytest.mark.parametrize("name", REFUSED)

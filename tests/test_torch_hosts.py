@@ -213,9 +213,8 @@ def test_host_supervisor_decisions_match_reference(tmp_path, monkeypatch):
 
 
 def test_recycle_refused_at_construction_like_the_reference():
-    cfg = ServerConfig(models=[tconfig.ModelConfig(name="rc")],
+    cfg = ServerConfig(models=[tconfig.ModelConfig(name="rc", session_mode="recycle")],
                        router=RouterConfig(enabled=True, hosts=2))
-    cfg.models[0].unported = {"session_mode": "recycle"}
     jcfg = jconfig.ServerConfig(models=[jconfig.ModelConfig(name="rc", session_mode="recycle")],
                                 router=jconfig.RouterConfig(enabled=True, hosts=2))
     with pytest.raises(ValueError, match="recycle") as port:

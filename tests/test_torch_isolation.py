@@ -257,14 +257,13 @@ MODEL_TOML = '[[model]]\nname = "bert"\nfamily = "bert"\nparallelism = "single"\
     # Since the router/worker tier was ported, [router], worker_crash and
     # the black-box keys are served, and since host failure domains, peer
     # routers and the fleet scrape were ported, [router] hosts, peer_port,
-    # routers and [telemetry] fleet_timeout_ms too: these cases (keeping
-    # their ids) hold that those settings are served (``named`` None: the
-    # server builds and nothing is refused), and that deferred mode's fault
-    # kind is still refused.
+    # routers and [telemetry] fleet_timeout_ms too, and since deferred mode
+    # was ported its worker_death fault kind: these cases (keeping their
+    # ids) hold that those settings are served (``named`` None: the server
+    # builds and nothing is refused).
     pytest.param("[router]\nenabled = false\nhosts = 2\n", None,
                  id="[router]\nenabled = false\nworkers = 4\n-[router] workers = 4"),
-    pytest.param("[faults]\nenabled = true\n[[faults.rule]]\nkind = \"worker_death\"\n",
-                 "[[faults.rule]] kind = 'worker_death' (not yet ported (deferred mode))",
+    pytest.param("[faults]\nenabled = true\n[[faults.rule]]\nkind = \"worker_death\"\n", None,
                  id="[faults]\nenabled = true\n[[faults.rule]]\nkind = \"worker_crash\"\n-"
                     "[[faults.rule]] kind = 'worker_crash' (not yet ported (router and workers))"),
     pytest.param("[router]\npeer_port = 9100\n", None,

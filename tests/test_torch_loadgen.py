@@ -225,6 +225,19 @@ def test_closed_loop_excludes_stragglers(pkg):
     assert (res.n_ok, res.n_late, res.n_err) == (4, 4, 0)
 
 
+def test_late_failures_counted_apart_from_the_summary():
+    """The port's window clamp also counts which late completions failed
+    (``n_late_err``, read by the chaos run's recycle block); the summary
+    keeps the reference's keys and numbers."""
+    res, ref = tlg.LoadResult(), jlg.LoadResult()
+    for ok, t1 in ((True, 0.5), (False, 0.6), (True, 1.5), (False, 1.6), (False, 1.7)):
+        tlg._record(res, ok, 0.0, t1, record_from=0.0, stop_at=1.0)
+        jlg._record(ref, ok, 0.0, t1, record_from=0.0, stop_at=1.0)
+    assert (res.n_ok, res.n_err, res.n_late, res.n_late_err) == (1, 1, 3, 2)
+    res.duration_s = ref.duration_s = 1.0
+    assert res.summary() == ref.summary()
+
+
 @pytest.mark.parametrize("pkg", PKGS)
 def test_open_loop_issues_on_a_clock(pkg):
     """Offered rate is held regardless of completions; latency is server

@@ -291,10 +291,12 @@ def test_scheduler_config_validation_and_toml(tmp_path):
                 cfg2.scheduler.overload_clear_s)
 
     assert both(scenario)[1:] == (True, 0.1, 3.0, "batch", True, 2.0)
-    # cold_start with recycle mode: refused by both (the port types
-    # session_mode as a refused key, so it checks at load).
+    # cold_start with recycle mode: refused by both, at construction and
+    # at load (session_mode is typed in both).
     with pytest.raises(ValueError, match="cold_start"):
         jconfig.ModelConfig(name="m", cold_start=True, session_mode="recycle")
+    with pytest.raises(ValueError, match="cold_start"):
+        tconfig.ModelConfig(name="m", cold_start=True, session_mode="recycle")
     p.write_text(text + 'session_mode = "recycle"\n')
     with pytest.raises(ValueError, match="cold_start"):
         tconfig.load_config(str(p))

@@ -137,6 +137,7 @@ def test_worker_config_matches_reference(tmp_path, wid, port_base, drain):
 
 def test_worker_config_rejects_recycle_mode_like_the_reference(tmp_path):
     cfg, jcfg = both_configs(tmp_path, extra='session_mode = "recycle"\n')
+    assert cfg.models[0].session_mode == jcfg.models[0].session_mode == "recycle"
     with pytest.raises(ValueError, match="recycle") as port_err:
         worker_config(cfg, 0)
     with pytest.raises(ValueError, match="recycle") as ref_err:

@@ -45,8 +45,13 @@
   scheduler set it, receives each batch's compute-phase seconds on the
   event loop. ``pending``, ``estimate_clear_s`` and ``predicted_service_s``
   are what its admission reads.
-
-Not ported: deferred (recycle) mode (ROADMAP.md queue 1, item 11b).
+- Deferred (recycle) mode: over a ``tpuserve_torch.deferred.DeferredPool``
+  (a runtime with ``run_deferred``) the model has no staging slots and no
+  arena, and admission is ``max(1, max_inflight)`` batches between assembly
+  and their enqueue on a worker, released as soon as ``enqueue`` returns
+  (once per batch, retries included), before the epoch's readback. There
+  ``h2d`` is the enqueue and ``compute`` the wait for the epoch; its seconds
+  go to ``device_seconds_total{replica=0}`` and ``device_time_cb``.
 """
 
 from __future__ import annotations
@@ -111,6 +116,10 @@ class ModelBatcher:
                  breaker: Any | None = None, injector: Any | None = None) -> None:
         self.model = model
         self.runtime = runtime
+        # A deferred-readback pool (tpuserve_torch.deferred.DeferredPool)
+        # instead of an in-process runtime: dispatch awaits the epoch's
+        # readback, and this process never touches the device.
+        self.deferred = hasattr(runtime, "run_deferred")
         self.metrics = metrics
         self.cfg = model.cfg
         self.pipeline_cfg = pipeline_cfg or PipelineConfig()
@@ -184,6 +193,15 @@ class ModelBatcher:
     async def start(self) -> None:
         pcfg = self.pipeline_cfg
         self._loop = asyncio.get_running_loop()
+        if self.deferred:
+            # The pool's shm-slot wait is the device backpressure; admission
+            # bounds the batches between assembly and enqueue.
+            self._admission_cap = max(1, self.cfg.max_inflight)
+            self._inflight = asyncio.Semaphore(self._admission_cap)
+            self._idle_event = asyncio.Event()
+            self._idle_event.set()
+            self._running = True
+            return
         self.runtime.h2d_sync = pcfg.h2d_sync
         self.depth = max(1, pcfg.depth or self.cfg.max_inflight)
         if self.runtime.device.type == "cpu":
@@ -515,14 +533,16 @@ class ModelBatcher:
     async def _dispatch(self, reqs: list[_Request], group: Hashable) -> None:
         """Run one batch; on failure retry/split per config before failing
         futures. Failure stays inside this batch: the group task and the
-        server keep serving. Retries hold this batch's admission slot."""
+        server keep serving. Retries hold this batch's admission slot (in
+        deferred mode until its first enqueue returned: it is released once)."""
         name = self.model.name
+        released = [False]  # deferred mode releases admission mid-flight
         self._inflight_now += 1
         self._inflight_peak = max(self._inflight_peak, self._inflight_now)
         self._g_inflight.set(self._inflight_now)
         try:
             try:
-                await self._execute(reqs, group)
+                await self._execute(reqs, group, released)
             except Exception as e:
                 log.exception("batch dispatch failed for %s", name)
                 self._c_batch_errors.inc()
@@ -531,7 +551,7 @@ class ModelBatcher:
                 live = [r for r in reqs if not r.future.done()]
                 if self.cfg.batch_retry and live:
                     try:
-                        await self._retry(live, group)
+                        await self._retry(live, group, released)
                     except Exception as retry_err:
                         # The retry machinery must never leave futures
                         # unresolved (clients would hang to 504).
@@ -545,7 +565,8 @@ class ModelBatcher:
         finally:
             self._inflight_now -= 1
             self._g_inflight.set(self._inflight_now)
-            self._inflight.release()
+            if not released[0]:
+                self._inflight.release()
 
     async def _acquire_staging(self, reqs: list[_Request]) -> int | None:
         """Take one of the depth-k staging slots, bounded by the earliest
@@ -568,10 +589,12 @@ class ModelBatcher:
             except asyncio.TimeoutError:
                 continue
 
-    async def _execute(self, reqs: list[_Request], group: Hashable) -> None:
+    async def _execute(self, reqs: list[_Request], group: Hashable,
+                       released: list[bool]) -> None:
         """Assemble + run + postprocess one batch, resolving futures on
         success. Raises on failure WITHOUT failing futures: the caller owns
-        the retry policy."""
+        the retry policy. ``released[0]`` turns True once deferred mode has
+        given the batch's admission back."""
         name = self.model.name
         bucket = self.model.bucket_for(len(reqs), group=group)
         fill = len(reqs) / bucket[0]
@@ -606,29 +629,45 @@ class ModelBatcher:
                     name, "assemble", self.model.assemble, items, bucket)
             t1 = time.perf_counter()
             mark("preproc", t0, t1)
-            slot = await self._acquire_staging(reqs)
-            if slot is None:
-                return  # every request expired; nothing to run
-            try:
-                if self.injector is not None:
-                    delay = self.injector.delay_s("slow_dispatch", name)
-                    if delay > 0:
-                        await asyncio.sleep(delay)
-                    self.injector.check("batch_error", name)
-                outputs = await self.stages.run(
-                    name, "h2d", self.runtime.run, bucket, host_batch)
+            if self.deferred:
+                # The enqueue is cheap (a shm write; the slot wait is the
+                # backpressure), so admission is released as soon as the
+                # batch is on its worker; the await then spans the rest of
+                # that worker's epoch and its bulk readback, which is what
+                # "compute" measures in this mode.
+                await self._inject(name)
+                out_fut = await self.runtime.enqueue(bucket, host_batch)
                 t2 = time.perf_counter()
                 mark("h2d", t1, t2)
-                np_out = await self.stages.run(name, "fetch", self.runtime.fetch, outputs)
+                if not released[0]:
+                    self._inflight.release()
+                    released[0] = True
+                np_out = await out_fut
                 t3 = time.perf_counter()
                 mark("compute", t2, t3)
                 self._c_device_seconds.inc(t3 - t2)
                 if self.device_time_cb is not None:
-                    # The device section (dispatch to ready) is what the
-                    # fleet's models compete for.
                     self.device_time_cb(t3 - t2)
-            finally:
-                self._staging.release(slot)
+            else:
+                slot = await self._acquire_staging(reqs)
+                if slot is None:
+                    return  # every request expired; nothing to run
+                try:
+                    await self._inject(name)
+                    outputs = await self.stages.run(
+                        name, "h2d", self.runtime.run, bucket, host_batch)
+                    t2 = time.perf_counter()
+                    mark("h2d", t1, t2)
+                    np_out = await self.stages.run(name, "fetch", self.runtime.fetch, outputs)
+                    t3 = time.perf_counter()
+                    mark("compute", t2, t3)
+                    self._c_device_seconds.inc(t3 - t2)
+                    if self.device_time_cb is not None:
+                        # The device section (dispatch to ready) is what the
+                        # fleet's models compete for.
+                        self.device_time_cb(t3 - t2)
+                finally:
+                    self._staging.release(slot)
         finally:
             if lease is not None:
                 # Safe only now: the completed fetch proves the device is
@@ -654,7 +693,16 @@ class ModelBatcher:
             if not r.future.done():
                 r.future.set_result(res)
 
-    async def _retry(self, reqs: list[_Request], group: Hashable) -> None:
+    async def _inject(self, name: str) -> None:
+        """The dispatch's fault seams: ``slow_dispatch``, then ``batch_error``."""
+        if self.injector is not None:
+            delay = self.injector.delay_s("slow_dispatch", name)
+            if delay > 0:
+                await asyncio.sleep(delay)
+            self.injector.check("batch_error", name)
+
+    async def _retry(self, reqs: list[_Request], group: Hashable,
+                     released: list[bool]) -> None:
         """One-shot batch retry with poison isolation: the whole batch
         re-assembles and re-runs once; if that fails and ``retry_split`` is
         on, it bisects recursively (each half runs once), so a single poison
@@ -667,7 +715,7 @@ class ModelBatcher:
             if not live:
                 return
             try:
-                await self._execute(live, group)
+                await self._execute(live, group, released)
             except Exception as e:
                 self._c_retry_failures.inc()
                 if len(live) == 1 or not self.cfg.retry_split:
@@ -720,7 +768,18 @@ class ModelBatcher:
         return self._pending / rate
 
     def pipeline_stats(self) -> dict:
+        adaptive = {
+            "enabled": self.adaptive_cfg.enabled,
+            "targets": {repr(g): round(t, 2) for g, t in self._targets.items()},
+            "batch_ewma_ms": {repr(b): round(v, 2) for b, v in self._ewma_ms.items()},
+        }
+        if self.deferred:
+            # The reference's keys in this mode: no depth, staging or arena.
+            return {"mode": "deferred", "admission": self._admission_cap,
+                    "inflight": self._inflight_now, "inflight_peak": self._inflight_peak,
+                    "pending": self._pending, "adaptive": adaptive}
         return {
+            "mode": "direct",
             "depth": self.depth,
             "admission_cap": self._admission_cap,
             "inflight": self._inflight_now,
@@ -728,9 +787,5 @@ class ModelBatcher:
             "staging_in_use": self._staging.in_use if self._staging else 0,
             "pending": self._pending,
             "arena": self.arena.stats() if self.arena is not None else None,
-            "adaptive": {
-                "enabled": self.adaptive_cfg.enabled,
-                "targets": {repr(g): round(t, 2) for g, t in self._targets.items()},
-                "batch_ewma_ms": {repr(b): round(v, 2) for b, v in self._ewma_ms.items()},
-            },
+            "adaptive": adaptive,
         }

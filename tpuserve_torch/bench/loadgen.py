@@ -73,6 +73,7 @@ class LoadResult:
     n_ok: int = 0
     n_err: int = 0
     n_late: int = 0  # completed after the window closed (excluded above)
+    n_late_err: int = 0  # of those, the ones that failed (not in the summary)
     duration_s: float = 0.0  # actual measurement window
     offered_rate: float = 0.0  # open loop only: requests/s issued
     # Client-side batching: each POST carries this many items (the server's
@@ -465,6 +466,7 @@ def _record(result: LoadResult, ok: bool, t0: float, t1: float,
         return  # warmup
     if t1 >= stop_at:
         result.n_late += 1
+        result.n_late_err += not ok
         return
     if ok:
         result.n_ok += 1

@@ -320,6 +320,8 @@ def main(argv: list[str] | None = None) -> int:
         state = ServerState(cfg, device=args.device)
         state.build()
         print(json.dumps({n: rt.describe() for n, rt in state.runtimes.items()}, indent=2))
+        for pool in state.pools().values():
+            pool.close()  # a recycle model's workers: stopped, segments unlinked
         return 0
 
     if args.cmd == "describe":

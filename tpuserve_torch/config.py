@@ -15,19 +15,19 @@ entries), the fleet controller's :class:`AutopilotConfig`, the per-model
 :class:`SloConfig` and the top-level :class:`ServerConfig` fields, with the
 JAX package's defaults and checks. Every other setting the JAX package
 knows — its other tables (``[parallel]``, ``[distributed]``) and the keys
-the port has no use for yet (``profiler_port``, ``pp``, ``session_mode``,
-...) — parses into the ``unported`` dict of its ``ServerConfig`` or
-``ModelConfig`` as a plain value.
+the port has no use for yet (``profiler_port``, ``pp``) — parses into the
+``unported`` dict of its ``ServerConfig`` or ``ModelConfig`` as a plain
+value.
 :func:`unported_settings` names those that ask for behaviour the port
 lacks, and the server refuses to start while any is set: a JAX config
 tuned with them never loads into a server that quietly behaves otherwise.
 A setting that switches a missing feature off (``[parallel] mode =
-"single"``, ``session_mode = "direct"``), or that holds the JAX package's
-default where that default asks for nothing (``relay_workers = 2`` while
-the model is served directly), is accepted. So is a ``[[faults.rule]]``
-whose kind fires at a call site the port has; while ``[faults]`` is
-enabled, a rule whose call site the port lacks (deferred mode's
-``worker_death``) is refused by name.
+"single"``), or that holds the JAX package's default where that default
+asks for nothing (``pp = 1``), is accepted. Every ``[[faults.rule]]`` kind
+fires at a call site the port has; while ``[faults]`` is enabled, a rule
+of a kind whose call site the port lacked would be refused by name
+(``_FAULT_KINDS_UNPORTED``, empty since deferred mode's ``worker_death``
+was ported).
 
 Example TOML::
 
@@ -64,12 +64,7 @@ _DISTRIBUTED_OFF: dict[str, tuple] = {"coordinator_address": ("",)}
 # yet, each with the values that ask for nothing the port lacks (empty: no
 # such value, any setting is refused).
 _SERVER_UNPORTED: dict[str, tuple] = {"profiler_port": (0,)}
-_MODEL_UNPORTED: dict[str, tuple] = {
-    "pp": (0, 1), "session_mode": ("direct",),
-    # Deferred (recycle) mode's knobs, inert while session_mode is direct.
-    "relay_workers": (2,), "relay_epoch_images": (4096,),
-    "relay_epoch_ms": (2000.0,), "relay_slots": (4,),
-}
+_MODEL_UNPORTED: dict[str, tuple] = {"pp": (0, 1)}
 
 
 WIRE_FORMATS = ("rgb8", "yuv420")
@@ -81,8 +76,8 @@ FAULT_KINDS = ("batch_error", "slow_dispatch", "decode_corrupt", "worker_death",
                "worker_hang", "worker_slow", "stream_stall", "stream_disconnect")
 # The kinds whose call sites the port lacks, with the ROADMAP.md queue-1
 # item that ports them; a rule of one of these is refused while [faults]
-# is enabled.
-_FAULT_KINDS_UNPORTED = {"worker_death": "deferred mode"}
+# is enabled. None is left since deferred mode's worker_death.
+_FAULT_KINDS_UNPORTED: dict[str, str] = {}
 
 
 @dataclass
@@ -936,8 +931,23 @@ class ModelConfig:
     num_classes: int = 1000
     # Device-section depth (>= 1): how many of this model's batches occupy
     # [h2d..fetch] staging slots at once; [pipeline] depth overrides it
-    # when nonzero.
+    # when nonzero. In recycle mode it bounds the batches between assembly
+    # and their enqueue on a worker.
     max_inflight: int = 2
+    # Execution mode (tpuserve_torch.deferred):
+    # - "direct":  per-batch dispatch and readback in this process.
+    # - "recycle": a deferred-readback pool of single-use worker processes
+    #   that read their results back in bulk once per epoch; result latency
+    #   is bounded by relay_epoch_ms.
+    session_mode: str = "direct"
+    # recycle mode: worker processes warmed before serving.
+    relay_workers: int = 2
+    # recycle mode: the epoch budget: a worker retires after this many rows
+    # or relay_epoch_ms after its first batch, whichever comes first.
+    relay_epoch_images: int = 4096
+    relay_epoch_ms: float = 2000.0
+    # recycle mode: shared-memory batch slots per worker (batches in flight).
+    relay_slots: int = 4
     # Default priority class of requests without an X-Priority header
     # ("interactive" or "batch"); the fleet scheduler ([scheduler] enabled)
     # sheds batch-class work first under overload.
@@ -992,7 +1002,7 @@ class ModelConfig:
             raise ValueError(
                 f"priority must be 'interactive' or 'batch', "
                 f"got {self.priority!r}")
-        if self.cold_start and self.unported.get("session_mode", "direct") != "direct":
+        if self.cold_start and self.session_mode != "direct":
             raise ValueError(
                 "cold_start requires session_mode = 'direct' (recycle-mode "
                 "workers own their params out of process)")

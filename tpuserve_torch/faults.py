@@ -314,10 +314,20 @@ async def run_chaos(state, model_name: str, duration_s: float = 10.0,
     ``drill_interval_s`` throughout the run — with ``reload_corrupt`` /
     ``reload_nan`` / ``reload_regressed`` rules armed this proves the
     lifecycle gates hold availability while every reload is failing; the
-    summary carries the reload outcomes and final lifecycle state."""
+    summary carries the reload outcomes and final lifecycle state.
+
+    The load sends one npy image at ``edge`` to a vision model and one JSON
+    text to a BERT model. For a recycle-mode model the summary also carries
+    ``deferred``: its pool's epochs, respawns and replenished workers, the
+    batcher's retries and failed retries, timeouts and sheds, the watchdog's
+    restarts of its workers, and ``availability_all`` over every completion,
+    late ones included (``n_late_ok``, ``n_late_err``): an epoch's readback
+    and a dry acquire hold answers past the window, where ``availability``
+    does not look."""
     from tpuserve_torch.bench.client import ClientSession
     from tpuserve_torch.bench.loadgen import run_load, run_load_open, synthetic_image_npy
     from tpuserve_torch.server import start_server, stop_server
+    from tpuserve_torch.workerproc.drill import drill_payload
 
     server = await start_server(state, host="127.0.0.1", port=0)
     drill_task = None
@@ -347,16 +357,18 @@ async def run_chaos(state, model_name: str, duration_s: float = 10.0,
         port = state.serving_addresses[0][1]
         base = f"http://127.0.0.1:{port}"
         url = f"{base}/v1/models/{model_name}:{verb}"
-        payload = synthetic_image_npy(edge=edge)
+        if state.cfg.model(model_name).family == "bert":
+            # A text model reads JSON: one text per request.
+            payload, ctype, _ = drill_payload(state.cfg, model_name)
+        else:
+            payload, ctype = synthetic_image_npy(edge=edge), "application/x-npy"
         if drill == "reload":
             drill_task = asyncio.get_running_loop().create_task(
                 reload_driller(base))
         if rate_per_s:
-            result = await run_load_open(url, payload, "application/x-npy",
-                                         rate_per_s, duration_s, warmup_s)
+            result = await run_load_open(url, payload, ctype, rate_per_s, duration_s, warmup_s)
         else:
-            result = await run_load(url, payload, "application/x-npy",
-                                    duration_s, concurrency, warmup_s)
+            result = await run_load(url, payload, ctype, duration_s, concurrency, warmup_s)
     finally:
         if drill_task is not None:
             drill_task.cancel()
@@ -374,6 +386,25 @@ async def run_chaos(state, model_name: str, duration_s: float = 10.0,
     if state.injector is not None:
         out["faults"] = state.injector.snapshot()
     out["breakers"] = {n: br.describe() for n, br in state.breakers.items()}
+    pools = state.pools()
+    if pools:
+        # What absorbed a worker's death: the pool's epochs, respawns and
+        # replenished workers, the batch retries and the watchdog's sweeps;
+        # and what did not: failed retries, timeouts, sheds, late failures.
+        counters = state.metrics.counter_values()
+        n_all = result.n_ok + result.n_err + result.n_late
+        late = {"n_late_ok": result.n_late - result.n_late_err,
+                "n_late_err": result.n_late_err,
+                "availability_all": round((result.n_ok + result.n_late - result.n_late_err)
+                                          / n_all, 5) if n_all else 0.0}
+        out["deferred"] = {n: dict(
+            pool.describe()["stats"], **late,
+            **{c: counters.get(f"{c}{{model={n}}}", 0.0)
+               for c in ("batch_retries_total", "batch_retry_failures_total",
+                         "timeouts_total", "shed_total", "deadline_exceeded_total")},
+            watchdog_restarts_total=counters.get(
+                f"watchdog_restarts_total{{model={n},component=worker}}", 0.0))
+            for n, pool in pools.items()}
     if lifecycle_out:
         out["lifecycle"] = lifecycle_out
     if drill is not None:

@@ -11,8 +11,9 @@
   free-list only after its batch's fetch completed, which proves the device
   finished reading it.
 - :class:`SlotPool` — a bounded pool of integer slots with async acquire
-  (optionally bounded by a timeout): the batcher's depth-k staging slots for
-  the device section.
+  (optionally bounded by a timeout) and ``close`` (every waiter wakes with
+  :class:`SlotsClosed`): the batcher's depth-k staging slots for the device
+  section, and a deferred-mode worker's shared-memory batch slots.
 """
 
 from __future__ import annotations
@@ -30,15 +31,23 @@ from tpuserve_torch.obs import PIPELINE_STAGES, Metrics
 from tpuserve_torch.utils.locks import new_lock
 
 
+class SlotsClosed(Exception):
+    """The pool was closed while (or before) a waiter held on for a slot."""
+
+
 class SlotPool:
     """Fixed set of integer slots [0, n) with async acquire (event loop only);
     ``acquire`` waits until a slot frees, bounded by ``timeout_s`` (raises
-    ``asyncio.TimeoutError``)."""
+    ``asyncio.TimeoutError``); ``close`` wakes every waiter with
+    :class:`SlotsClosed`. Construction touches no event loop, so a pool can
+    be built on an executor thread (the deferred pool spawns workers off
+    the loop)."""
 
     def __init__(self, n: int) -> None:
         self.capacity = max(1, n)
         self._free: list[int] = list(range(self.capacity))
         self._waiters: deque[asyncio.Future] = deque()
+        self._closed = False
 
     @property
     def in_use(self) -> int:
@@ -52,10 +61,14 @@ class SlotPool:
                 return
 
     def try_acquire(self) -> int | None:
-        return self._free.pop() if self._free else None
+        if self._closed or not self._free:
+            return None
+        return self._free.pop()
 
     async def acquire(self, timeout_s: float | None = None) -> int:
         while True:
+            if self._closed:
+                raise SlotsClosed("slot pool closed")
             if self._free:
                 return self._free.pop()
             fut = asyncio.get_running_loop().create_future()
@@ -74,6 +87,15 @@ class SlotPool:
     def release(self, slot: int) -> None:
         self._free.append(slot)
         self._wake_one()
+
+    def close(self) -> None:
+        """Wake every waiter with SlotsClosed; held slots may still be
+        released afterwards (bookkeeping only)."""
+        self._closed = True
+        while self._waiters:
+            fut = self._waiters.popleft()
+            if not fut.done():
+                fut.set_exception(SlotsClosed("slot pool closed"))
 
 
 class StageExecutors:

@@ -79,6 +79,10 @@ The device is explicit: ``build_runtime(model)`` serves on the current CUDA
 device, ``device="cpu"`` on the CPU; CUDA absent without ``device="cpu"``
 raises instead of falling back.
 
+A deferred-mode worker (``tpuserve_torch.deferred``) runs no lifecycle, so
+it asks for one parameter slot (``build_runtime(..., n_slots=1)``) and one
+graph per bucket; every other runtime keeps ``N_SLOTS``.
+
 Hot path, one batch: ``h2d`` copies the pinned host batch with
 ``non_blocking=True`` on a copy stream of its own, ``dispatch`` replays the
 bucket's graph on the current stream (which waits for that copy on the
@@ -133,10 +137,14 @@ def configure_runtime(cfg: ServerConfig) -> None:
         _build.set_build_dir(cfg.compilation_cache_dir)
 
 
-def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
+def resolve_device(device: "str | torch.device | None" = None,
+                   init: bool = True) -> torch.device:
     """The device a runtime serves on: the current CUDA device unless the
     caller names another. Raises when CUDA is asked for (or defaulted to)
-    and absent — the port never falls back to the CPU on its own."""
+    and absent — the port never falls back to the CPU on its own.
+    ``init=False`` leaves CUDA uninitialized in this process: an unindexed
+    ``"cuda"`` stays unindexed (a process that only hands the device to
+    workers, as a deferred pool's server does)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"tpuserve_torch serves on 'cuda' or 'cpu', not {dev}")
@@ -146,17 +154,20 @@ def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
                 "CUDA is not available: tpuserve_torch runs on the GPU by "
                 "default; pass device='cpu' (serve --device cpu) to run on "
                 "the CPU")
-        if dev.index is None:
+        if dev.index is None and init:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
 def backend_info(device: torch.device) -> dict:
-    """What the server runs on, for /stats: the card, torch and CUDA, and on
-    the card this process's ``memory_reserved`` and ``memory_allocated``."""
+    """What the server runs on, for /stats: the card, torch and CUDA,
+    whether this process initialized CUDA, and then the card and this
+    process's ``memory_reserved`` and ``memory_allocated`` (never asked of
+    a process that did not: the question would initialize it)."""
     info = {"device": str(device), "torch": torch.__version__,
-            "cuda": torch.version.cuda}
-    if device.type == "cuda":
+            "cuda": torch.version.cuda,
+            "cuda_initialized": torch.cuda.is_initialized()}
+    if device.type == "cuda" and info["cuda_initialized"]:
         info["device_name"] = torch.cuda.get_device_name(device)
         info["device_count"] = torch.cuda.device_count()
         info["memory_reserved_bytes"] = torch.cuda.memory_reserved(device)
@@ -276,8 +287,11 @@ class ModelRuntime:
     def __init__(self, model: ServingModel,
                  device: "str | torch.device | None" = None,
                  metrics: Metrics | None = None, prewarm: bool = True,
-                 debug_nans: bool = False) -> None:
+                 debug_nans: bool = False, n_slots: int = N_SLOTS) -> None:
         self.model = model
+        # Parameter slots this runtime fills: N_SLOTS, or 1 for a runtime
+        # that never stages a candidate (a deferred-mode worker).
+        self.n_slots = n_slots
         self.cfg: ModelConfig = model.cfg
         self.device = resolve_device(device)
         self.metrics = metrics if metrics is not None else Metrics()
@@ -402,9 +416,9 @@ class ModelRuntime:
         self._fill_slots(self.model.load_params())
 
     def _fill_slots(self, state_dict: dict[str, torch.Tensor]) -> None:
-        """``N_SLOTS`` slots, each a module holding ``state_dict``."""
+        """``n_slots`` slots, each a module holding ``state_dict``."""
         slots = []
-        for _ in range(N_SLOTS):
+        for _ in range(self.n_slots):
             module = self._prepare(state_dict).to(device=self.device)
             slots.append(Slot(module, slot_tensors(module)))
         with self._replay_lock:
@@ -871,7 +885,7 @@ class ModelRuntime:
             raise ValueError("reloaded weights do not match the captured "
                              "shapes/dtypes; old params kept")
         with self._reload_lock:
-            free = next(i for i in range(N_SLOTS) if i not in (self._live, self._prev))
+            free = next(i for i in range(self.n_slots) if i not in (self._live, self._prev))
             slot = self.slots[free]
             slot.generation += 1
             # A batch that read this slot while it was live has enqueued
@@ -893,7 +907,7 @@ class ModelRuntime:
         ``ensure_compiled`` then captures every (bucket, slot)."""
         with self._reload_lock:
             self._fill_slots(state_dict)
-            free = next(i for i in range(N_SLOTS) if i not in (self._live, self._prev))
+            free = next(i for i in range(self.n_slots) if i not in (self._live, self._prev))
             slot = self.slots[free]
             slot.generation += 1
             return StagedParams(free, slot.generation)
@@ -1070,7 +1084,8 @@ def build_runtime(model: ServingModel,
                   device: "str | torch.device | None" = None,
                   metrics: Metrics | None = None,
                   compile_forward: bool = True, prewarm: bool = True,
-                  debug_nans: bool = False, cold: bool = False) -> ModelRuntime:
+                  debug_nans: bool = False, cold: bool = False,
+                  n_slots: int = N_SLOTS) -> ModelRuntime:
     """Parameter slots on ``device`` (default: the current CUDA device) and
     every bucket warmed up and, on CUDA, captured per slot.
     ``compile_forward=False`` skips the buckets: a runtime for the
@@ -1078,9 +1093,10 @@ def build_runtime(model: ServingModel,
     ``prewarm=False`` skips each bucket's startup replay (the capture stays);
     ``debug_nans`` makes every fetch fail on a NaN/Inf output. ``cold=True``
     builds neither slots nor graphs (weight paging's cold boot: the first
-    stage fills them)."""
+    stage fills them). ``n_slots=1``: one parameter slot and one graph per
+    bucket, for a runtime that never stages (a deferred-mode worker)."""
     rt = ModelRuntime(model, device=device, metrics=metrics, prewarm=prewarm,
-                      debug_nans=debug_nans)
+                      debug_nans=debug_nans, n_slots=n_slots)
     rt.compile_forward = compile_forward
     if cold:
         rt._resident = False

@@ -134,8 +134,19 @@ ledger, the caches partition by tenant weight, and ``GET /tenants``
 (``?tenant=``) answers the envelopes, the window usage and, with
 ``slo_latency_ms``, the per-tenant burn alerts.
 
-Not ported yet (ROADMAP.md queue 1): deferred mode (item 11b) and
-``profiler_port`` (item 12).
+A ``session_mode = "recycle"`` model is served by a deferred-readback pool
+(``tpuserve_torch.deferred``) in place of a runtime: ``build`` prewarms its
+worker processes, ``start`` binds it to the loop and registers its
+``watchdog_sweep`` as component ``"worker"``, drain and stop retire its
+active epochs first so pending batches resolve at readback time. It has no
+lifecycle: ``:reload`` answers 409 "weight reload is not supported in
+recycle mode", ``:rollback`` and ``/versions`` 409 "versioned lifecycle is
+not supported in recycle mode", as the reference does. Its workers' K1/K2
+launches, reported at each epoch's readback, are summed into ``/stats``
+``kernels``. When every model is recycle this process never initializes
+CUDA (``/stats`` ``cuda_initialized``): the workers own the card.
+
+Not ported yet (ROADMAP.md queue 1): ``profiler_port`` (item 12).
 """
 
 from __future__ import annotations
@@ -166,6 +177,7 @@ from tpuserve_torch.batcher import (DeadlineExceeded, ModelBatcher, QueueFull,
 from tpuserve_torch.bench.roofline import compute_split, phase_p50
 from tpuserve_torch.cache import ModelCache
 from tpuserve_torch.config import ServerConfig, SloConfig, unported_settings
+from tpuserve_torch.deferred import DeferredPool
 from tpuserve_torch.faults import CircuitBreaker, FaultInjector, Watchdog
 from tpuserve_torch.frame import FrameError
 from tpuserve_torch.genserve import GenEngine, KVPressure
@@ -417,13 +429,17 @@ class NotServing(RuntimeError):
 
 class ServerState:
     """Everything a running server owns. ``device`` defaults to the current
-    CUDA device; pass ``"cpu"`` to serve on the CPU."""
+    CUDA device; pass ``"cpu"`` to serve on the CPU. A server whose every
+    model is recycle-mode hands the device to its pools' workers and never
+    initializes CUDA itself."""
 
     def __init__(self, cfg: ServerConfig,
                  device: "str | torch.device | None" = None) -> None:
         _reject_unported(cfg)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.pools_only = bool(cfg.models) and all(
+            m.session_mode == "recycle" for m in cfg.models)
+        self.device = resolve_device(device, init=not self.pools_only)
         configure_runtime(cfg)
         # The worker id behind the router (tpuserve_torch.workerproc), None
         # when serving alone: spans and events of this process then carry
@@ -442,7 +458,7 @@ class ServerState:
                                           thread_name_prefix="tpuserve-torch")
         self.stages = StageExecutors(cfg.pipeline, self.metrics)
         self.models: dict[str, object] = {}
-        self.runtimes: dict[str, ModelRuntime] = {}
+        self.runtimes: "dict[str, ModelRuntime | DeferredPool]" = {}
         # Per-model dispatch: ModelBatcher (locked batches) or GenEngine
         # (iteration-level generation); both expose the same surface.
         self.batchers: "dict[str, ModelBatcher | GenEngine]" = {}
@@ -517,7 +533,8 @@ class ServerState:
                     self.tenant_slo.register(tname, tenant_slo_cfg)
                 hooks.append(self.tenant_slo.tick)
             self.sampler = MetricSampler(self.store, tcfg.sample_interval_s, hooks=hooks)
-            self.profiler = ProfileCapture(self.metrics, cuda=self.device.type == "cuda")
+            self.profiler = ProfileCapture(
+                self.metrics, cuda=self.device.type == "cuda" and not self.pools_only)
         # Event plane: the event ring with its logging bridge, the admin
         # audit trail and the postmortem ledger; all None with [events]
         # enabled = false.
@@ -542,7 +559,8 @@ class ServerState:
         or, for a generative model with ``[genserve]`` on, the generation
         engine's programs in place of the buckets; for a ``cold_start``
         model under the scheduler, nothing on the device (its first warm
-        stages it)."""
+        stages it); for a recycle-mode model, a deferred pool with its
+        workers warm."""
         for mcfg in self.cfg.models:
             t0 = time.perf_counter()
             model = modelzoo.build(mcfg)
@@ -562,6 +580,12 @@ class ServerState:
                 rt = build_runtime(model, device=self.device, metrics=self.metrics,
                                    prewarm=self.cfg.prewarm_executables,
                                    debug_nans=self.cfg.debug_nans, cold=True)
+            elif mcfg.session_mode == "recycle":
+                # Deferred-readback worker pool: the workers, spawned on this
+                # server's device, own the model; this process does not.
+                rt = DeferredPool(mcfg, self.cfg.compilation_cache_dir, model,
+                                  device=str(self.device), injector=self.injector)
+                rt.prewarm()
             elif engine_served:
                 # The engine's insert/step/extract programs replace the
                 # forward buckets: capturing both would double startup for
@@ -597,8 +621,11 @@ class ServerState:
         self.connections = Connections()
         self.ingest_handles(0)
         preproc.set_native_fallback_hook(self._note_native_fallback)
+        pools = self.pools()
         for name, model in self.models.items():
             rt = self.runtimes[name]
+            if name in pools:
+                await rt.start()  # binds the pool to this loop
             br = CircuitBreaker(name, model.cfg.breaker_threshold, self.metrics,
                                 retry_after_s=model.cfg.breaker_retry_after_s)
             self.breakers[name] = br
@@ -620,25 +647,30 @@ class ServerState:
             if self.cfg.cache.enabled and model.cfg.cacheable:
                 # Keys carry the LIVE version, so a publish or rollback
                 # invalidates every older entry.
+                # A pool has no in-process version: its keys pin 0.
                 self.caches[name] = ModelCache(
                     name, self.cfg.cache, self.metrics,
-                    version_fn=functools.partial(getattr, rt, "version"))
+                    version_fn=functools.partial(getattr, rt, "version", 0))
             self.watchdog.register(name, "group_loop", b.revive_group_loops)
-            # Engine-served models canary a staged candidate with a SHORT
-            # generation through the real programs, on the scratch block.
-            self.lifecycles[name] = ModelLifecycle(
-                name, rt, model, self.cfg.lifecycle, self.metrics, breaker=br,
-                canary=functools.partial(self.run_canary, name),
-                canary_status=functools.partial(self.canary_ok.get, name),
-                injector=self.injector,
-                staged_canary_fn=eng.staged_canary_sync if eng is not None else None)
+            if name in pools:
+                self.watchdog.register(name, "worker", rt.watchdog_sweep)
+            if hasattr(rt, "stage_params"):
+                # Engine-served models canary a staged candidate with a SHORT
+                # generation through the real programs, on the scratch block.
+                self.lifecycles[name] = ModelLifecycle(
+                    name, rt, model, self.cfg.lifecycle, self.metrics, breaker=br,
+                    canary=functools.partial(self.run_canary, name),
+                    canary_status=functools.partial(self.canary_ok.get, name),
+                    injector=self.injector,
+                    staged_canary_fn=eng.staged_canary_sync if eng is not None else None)
             if self.scheduler is not None:
                 # The scheduler reads each batcher's demand and feeds its
                 # ledger from dispatch timings; a cold model warms through
                 # the lifecycle's staged path, so no request is ever
                 # answered by unstaged weights.
+                lc = self.lifecycles.get(name)
                 self.scheduler.register(name, batcher=b, mcfg=model.cfg, runtime=rt,
-                                        warm_fn=self.lifecycles[name].reload,
+                                        warm_fn=lc.reload if lc is not None else None,
                                         cold=bool(model.cfg.cold_start))
         if self.tenants is not None:
             # Tenant-partitioned cache capacity: a tenant's flood churns its
@@ -730,14 +762,28 @@ class ServerState:
         for lc in self.lifecycles.values():
             lc.close()  # stop soak monitors
         await self._stop_canary_loop()
+        # Deferred pools first retire their active epochs (fast), so batches
+        # awaiting a readback resolve in readback time, not at the epoch
+        # deadline; then the batchers stop, then the pools.
+        self._retire_pools()
         for b in self.batchers.values():
             await b.stop()
+        for pool in self.pools().values():
+            await pool.stop()
         self.stages.shutdown()
         self.pool.shutdown(wait=False, cancel_futures=True)
         if self.profiler is not None:
             self.profiler.close()
         if self.events is not None:
             self.events.close()  # close the JSONL sink
+
+    def pools(self) -> "dict[str, DeferredPool]":
+        """The recycle-mode models' deferred pools, by model name."""
+        return {n: rt for n, rt in self.runtimes.items() if isinstance(rt, DeferredPool)}
+
+    def _retire_pools(self) -> None:
+        for pool in self.pools().values():
+            pool.retire_active()
 
     async def _stop_sampler(self) -> None:
         """Join the telemetry sampler off the loop (idempotent)."""
@@ -767,6 +813,7 @@ class ServerState:
         # closed.
         await self._stop_sampler()
         await self._stop_blackbox()
+        self._retire_pools()
         deadline = asyncio.get_running_loop().time() + self.cfg.drain_timeout_s
         ok = True
         for b in self.batchers.values():
@@ -929,9 +976,13 @@ class ServerState:
             resp = _text(405)
             resp.headers["Allow"] = method
             return resp
-        lc = self.lifecycles.get(name)
-        if lc is None:
+        if name not in self.runtimes:
             return _err(404, f"unknown model {name!r}")
+        lc = self.lifecycles.get(name)
+        if lc is None and verb == "reload":
+            return _err(409, "weight reload is not supported in recycle mode")
+        if lc is None and verb in ("rollback", "versions"):
+            return _err(409, "versioned lifecycle is not supported in recycle mode")
         if verb == "versions":
             return json_response(lc.describe())
         t0 = time.perf_counter()
@@ -1014,17 +1065,32 @@ class ServerState:
         return json_response({n: rt.describe() for n, rt in self.runtimes.items()})
 
     def kernel_counts(self) -> dict:
-        by_shape = {"x".join(map(str, s)): n for s, n in sorted(fa.shape_launches.items())}
-        return {"flash_attention": {"launches": fa.launches, "by_shape": by_shape},
-                "flash_attention_stats": {"launches": fa.stats_launches}}
+        """K1/K2 launches of this process plus, summed in, those every
+        deferred pool's workers reported at their epochs' readbacks."""
+        k1 = fa.launches
+        k2 = fa.stats_launches
+        by_shape = {"x".join(map(str, s)): n for s, n in fa.shape_launches.items()}
+        for pool in self.pools().values():
+            pk = pool.kernel_counts()
+            k1 += pk["flash_attention"]["launches"]
+            k2 += pk["flash_attention_stats"]["launches"]
+            for shape, n in pk["flash_attention"]["by_shape"].items():
+                by_shape[shape] = by_shape.get(shape, 0) + n
+        return {"flash_attention": {"launches": k1, "by_shape": dict(sorted(by_shape.items()))},
+                "flash_attention_stats": {"launches": k2}}
 
     def reset_kernel_counts(self, req: Request) -> Response:
         fa.reset_launches()
+        for pool in self.pools().values():
+            pool.reset_kernel_counts()
         return json_response({"kernels": self.kernel_counts()})
 
     def stats(self, req: Request) -> Response:
         out = self.metrics.summary()
         out["backend"] = backend_info(self.device)
+        # False for a server whose models are all recycle-mode: the
+        # workers own the card.
+        out["cuda_initialized"] = out["backend"]["cuda_initialized"]
         out["kernels"] = self.kernel_counts()
         out["robustness"] = {
             "draining": self.draining,
@@ -1085,7 +1151,10 @@ class ServerState:
         startup probes), the live utilization, and the serving compute
         phase split into device time and host wait."""
         out: dict = {}
+        pools = self.pools()
         for name, rt in self.runtimes.items():
+            if name in pools:
+                continue  # its runtimes live in the workers
             row: dict = {
                 "variants": rt.variants_summary(),
                 "compiles_total": rt.compiles_total,

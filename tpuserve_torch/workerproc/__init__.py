@@ -29,8 +29,11 @@ it. This package splits a deployment into failure domains:
   duplicate answers and torn or reordered streams.
 
 Enable with ``[router] enabled = true``; ``[router] hosts`` and ``[router]
-routers`` grow the failure domains outward. Not ported yet (ROADMAP.md item
-11b): the fleet scheduler, tenants, the autopilot and deferred mode.
+routers`` grow the failure domains outward. The fleet scheduler, tenants
+and the autopilot live in ``tpuserve_torch.scheduler`` (the tenants and the
+autopilot on the primary router). Deferred (recycle) mode is the other
+process split (``tpuserve_torch.deferred``): a recycle model is served
+single-process and refused behind the router, as the reference refuses it.
 """
 
 from tpuserve_torch.workerproc.hosts import HostSupervisor

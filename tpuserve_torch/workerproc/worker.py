@@ -48,7 +48,7 @@ from tpuserve_torch.telemetry.events import redirect_stderr, resolve_blackbox_di
 def worker_config(cfg: ServerConfig, worker_id: int) -> ServerConfig:
     """Derive one worker's ServerConfig from the deployment config."""
     for m in cfg.models:
-        if m.unported.get("session_mode") == "recycle":
+        if m.session_mode == "recycle":
             raise ValueError(
                 f"model {m.name!r}: recycle-mode models cannot run behind "
                 "the router tier (the deferred pool is its own process "
