@@ -310,16 +310,27 @@ Phases (any failure exits non-zero before the result line):
    with B = 2 (the locked path's UNet rows) and B = 16 (the engine step's
    2 x 8 slots) (phase 3's tolerance, its atol a share of max |plain|; the
    padded tensors pass K1's TMA rule), timed beside its bound at the
-   padded dim and at d and SDPA on the UNPADDED heads; serve
-   ``examples/sd15_flash.toml`` (full width, 512 px, 20 steps, CFG 7.5,
-   bf16, ``unet_attention = "flash"``, seeded weights; one graph per
-   bucket [1] and slot holds CLIP, the loop and the VAE): with the counts
-   at 0 a prompt twice (200 ``image/png``, a 512x512 PNG read by the
-   smoke's own zlib reader, the same bytes again), ``{"seed": 1}`` 400, K1
-   200 launches per image, 100 at each (2, ...) shape, compiles and
-   captures moved 0; a ``:reload`` of the seeded weights, then the same
-   bytes again. In-process on
-   the same seeded weights: the served PNG equal to the runtime's replay
+   padded dim and at d and SDPA on the UNPADDED heads. Meanwhile, with
+   the smoke's own code (the card's machine has neither ``safetensors``
+   nor ``transformers``), it writes into a temporary directory a seeded
+   CLIP-shaped byte-level BPE (``clip_bpe_files``: ``vocab.json`` of
+   49,408 entries, ``merges.txt`` of 48,894 merges) and the seeded tree
+   of ``examples/sd15_flash.toml`` with that BPE, drawn on the card as a
+   server without weights draws it, in the published LDM layout as a
+   float32 ``.safetensors`` of ~4.1 GB (``ldm_state_dict``, the
+   importer's inverse; ``write_safetensors``); its size and the times are
+   printed. Serve ``examples/sd15_flash.toml`` (full width, 512 px, 20
+   steps, CFG 7.5, bf16, ``unet_attention = "flash"``; one graph per
+   bucket [1] and slot holds CLIP, the loop and the VAE) with ``--set``
+   ``weights`` naming that file and ``bpe_vocab``/``bpe_merges`` the BPE:
+   one import logged at boot (read and mapping seconds printed); with the
+   counts at 0 a prompt twice (200 ``image/png``, a 512x512 PNG read by
+   the smoke's own zlib reader, the same bytes again), ``{"seed": 1}``
+   400, K1 200 launches per image, 100 at each (2, ...) shape, compiles
+   and captures moved 0; a ``:reload`` (the file imported again, its
+   times printed), then the same bytes again. In-process on the seeded
+   tree with the same BPE: the PNG served from the imported checkpoint
+   equal to the runtime's replay
    and to the eager forward, finite latents, the replay's device time; one
    bf16 UNet call flash against dense, max abs eps difference within
    ``SD_EPS_REL`` (5e-2) of the dense eps's max abs, K1 10 launches; the
@@ -327,7 +338,8 @@ Phases (any failure exits non-zero before the result line):
    same runtime: insert (CLIP), step at 1 and 8 active slots and extract
    (VAE) device times. Then the engine variant (``SD_ENGINE_SETS``: 8
    slots, buckets [1, 4], ``preview_every`` 5): eight concurrent requests
-   (1-60-word prompts, one negative prompt) and one ``?stream=true``
+   (1-60-word prompts, one negative prompt; the seeded tree and the same
+   BPE) and one ``?stream=true``
    (``frame.CONTENT_TYPE``: progress 1..20, 3 previews, one final image
    equal to the unary one, one ``done``, last), the eight again in reverse
    order (other slots) with the same PNG bytes, K1 = 10 x steps, 5 x
@@ -466,7 +478,7 @@ Phases (any failure exits non-zero before the result line):
    drill, phase 25's recycle path and its load, then K1's four SD rows, each with the
    launches counted at its shape on the locked (B = 2) or engine (B = 16)
    path; the vision paths run neither),
-   the card line, then the result line ``{"ok": true,
+   the whole smoke's seconds, the card line, then the result line ``{"ok": true,
    "device": {...}}``. Every phase's JSON line from 11 on carries the
    card's name and power limit.
 """
@@ -1356,13 +1368,14 @@ def stop_prestarted() -> None:
 
 @contextlib.contextmanager
 def serving(config: Path, n_buckets: int, overrides: tuple = (), extra_toml: str = "",
-            with_proc: bool = False):
+            with_proc: bool = False, with_log: bool = False):
     """``python -m tpuserve_torch serve --config <config>`` (plus ``--set``
     ``overrides``, and ``extra_toml`` appended to a copy of the file) on a
     free port, healthy (the prestarted one, if any, and every other
     prestarted server healthy too); prints each model's graphs and the
     memory their capture reserved; yields the port (and the process,
-    ``with_proc``) and stops the server on the way out."""
+    ``with_proc``, or the path of its log, ``with_log``) and stops the server
+    on the way out."""
     srv = _PRESTARTED.pop((str(config), tuple(overrides), extra_toml), None) \
         or _start_server(config, tuple(overrides), extra_toml)
     port, proc, log_path = srv["port"], srv["proc"], srv["log"]
@@ -1383,7 +1396,7 @@ def serving(config: Path, n_buckets: int, overrides: tuple = (), extra_toml: str
                   f"{g['param_bytes_per_slot'] / 2**20:.0f} MiB per slot; memory_reserved "
                   f"{mem['reserved_before_bytes'] / 2**20:.0f} MiB before capture, "
                   f"{mem['reserved_after_bytes'] / 2**20:.0f} MiB after", flush=True)
-        yield (port, proc) if with_proc else port
+        yield (port, proc) if with_proc else (port, log_path) if with_log else port
     finally:
         _stop_server(srv)
 
@@ -4721,6 +4734,246 @@ SD_ENGINE_SETS = ("genserve.enabled=true", "genserve.slots=8",
 # the scale is expected; the bound leaves 2.5x that.
 SD_EPS_REL = 5e-2
 SD_BODY = {"prompt": "a lighthouse on a cliff at dusk, oil painting", "seed": 1234}
+# Phase 20's seconds before it imported a checkpoint: the phase alone on
+# the tree before the import, four runs on three NVIDIA H100 80GB HBM3
+# machines at 700 W (PERF.md section 6; the machine moves it by ~40 %).
+SD_PHASE_S_PARENT = (73.0, 116.1)
+
+
+# CLIP's vocabulary: 256 byte symbols, the same with "</w>", 48,894 merges,
+# then <|startoftext|> and <|endoftext|>.
+CLIP_MERGES = 48894
+CLIP_VOCAB = 2 * 256 + CLIP_MERGES + 2
+
+
+def clip_bpe_files(tmp: Path, seed: int = 17) -> tuple[Path, Path]:
+    """Write a seeded CLIP-shaped byte-level BPE to ``tmp``: ``vocab.json``
+    of CLIP_VOCAB (49,408) entries — the 256 byte symbols in
+    ``bytes_to_unicode`` order, the same 256 ending in ``</w>``, one token
+    per merge, ``<|startoftext|>`` 49406 and ``<|endoftext|>`` 49407 — and
+    ``merges.txt`` (a ``#version`` line, then CLIP_MERGES merges). Each merge
+    joins two tokens that exist before it (the first without ``</w>``) into
+    a new one; nine in ten draw both parts from tokens of lower-case ASCII
+    letters, older (shorter) ones more often, so words merge in several
+    steps, the rest from any token
+    (digits, punctuation, the bytes of accents, CJK and emoji). Returns
+    (vocab, merges)."""
+    import numpy as np
+
+    from tpuserve_torch.text import bytes_to_unicode
+
+    rng = np.random.default_rng(seed)
+    syms = list(bytes_to_unicode().values())
+    toks = syms + [c + "</w>" for c in syms]
+    seen = set(toks)
+
+    def lower_ascii(t: str) -> bool:
+        return all("a" <= c <= "z" for c in t.removesuffix("</w>"))
+
+    heads = [t for t in toks if not t.endswith("</w>")]
+    letters = [t for t in toks if lower_ascii(t)]
+    letter_heads = [t for t in heads if lower_ascii(t)]
+    merges = []
+    while len(merges) < CLIP_MERGES:
+        if rng.random() < 0.9:
+            # Older (shorter) tokens first: u**2 favours the list's head.
+            a = letter_heads[int(len(letter_heads) * rng.random() ** 2)]
+            b = letters[int(len(letters) * rng.random() ** 2)]
+        else:
+            a = heads[int(rng.integers(len(heads)))]
+            b = toks[int(rng.integers(len(toks)))]
+        t = a + b
+        if t in seen:
+            continue
+        seen.add(t)
+        toks.append(t)
+        merges.append(f"{a} {b}")
+        if not t.endswith("</w>"):
+            heads.append(t)
+        if lower_ascii(t):
+            letters.append(t)
+            if not t.endswith("</w>"):
+                letter_heads.append(t)
+    toks += ["<|startoftext|>", "<|endoftext|>"]
+    vocab, merges_txt = tmp / "vocab.json", tmp / "merges.txt"
+    vocab.write_text(json.dumps({t: i for i, t in enumerate(toks)}, ensure_ascii=False),
+                     encoding="utf-8")
+    merges_txt.write_text("#version: 0.2\n" + "\n".join(merges) + "\n", encoding="utf-8")
+    return vocab, merges_txt
+
+
+def ldm_state_dict(tree: dict, model) -> dict:
+    """The reference's SD tree (``to_jax_params``) written back in the
+    published single-file LDM layout: ``tpuserve_torch/models/sd15_import.py``
+    inverted, mapper for mapper, with the same derived block numbering.
+    Kernels HWIO -> OIHW and (in, out) -> (out, in), attention kernels
+    (d, heads, hd) / (heads, hd, d) -> (heads*hd, d) / (d, heads*hd), the
+    GEGLU halves swapped back, the VAE's Dense attention as 1x1 convs, norm
+    ``scale`` -> ``weight``. The UNet attention's q/k/v biases have no LDM
+    tensor: they must be zero (the seeded init's), or the import would not
+    give the tree back. Values are numpy views of ``tree``."""
+    import numpy as np
+
+    out: dict = {}
+
+    def conv(p: dict, dst: str) -> None:
+        out[f"{dst}.weight"] = p["kernel"].transpose(3, 2, 0, 1)
+        out[f"{dst}.bias"] = p["bias"]
+
+    def lin(p: dict, dst: str) -> None:
+        out[f"{dst}.weight"] = p["kernel"].T
+        out[f"{dst}.bias"] = p["bias"]
+
+    def norm(p: dict, dst: str) -> None:
+        out[f"{dst}.weight"] = p["scale"]
+        out[f"{dst}.bias"] = p["bias"]
+
+    def mha(p: dict, q: str, k: str, v: str, o: str, qkv_bias: bool) -> None:
+        for name, dst in (("query", q), ("key", k), ("value", v)):
+            kern = p[name]["kernel"]
+            out[f"{dst}.weight"] = kern.reshape(kern.shape[0], -1).T
+            if qkv_bias:
+                out[f"{dst}.bias"] = p[name]["bias"].reshape(-1)
+            else:
+                check(not p[name]["bias"].any(), f"LDM write: {dst} has a non-zero bias")
+        kern = p["out"]["kernel"]
+        out[f"{o}.weight"] = kern.reshape(-1, kern.shape[-1]).T
+        out[f"{o}.bias"] = p["out"]["bias"]
+
+    def unet_res(p: dict, dst: str) -> None:
+        norm(p["norm1"], f"{dst}.in_layers.0")
+        conv(p["conv1"], f"{dst}.in_layers.2")
+        lin(p["temb_proj"], f"{dst}.emb_layers.1")
+        norm(p["norm2"], f"{dst}.out_layers.0")
+        conv(p["conv2"], f"{dst}.out_layers.3")
+        if "skip" in p:
+            conv(p["skip"], f"{dst}.skip_connection")
+
+    def spatial(p: dict, dst: str) -> None:
+        tb, b = f"{dst}.transformer_blocks.0", p["block"]
+        norm(p["norm"], f"{dst}.norm")
+        conv(p["proj_in"], f"{dst}.proj_in")
+        norm(b["ln1"], f"{tb}.norm1")
+        mha(b["self_attn"], f"{tb}.attn1.to_q", f"{tb}.attn1.to_k", f"{tb}.attn1.to_v",
+            f"{tb}.attn1.to_out.0", qkv_bias=False)
+        norm(b["ln2"], f"{tb}.norm2")
+        mha(b["cross_attn"], f"{tb}.attn2.to_q", f"{tb}.attn2.to_k", f"{tb}.attn2.to_v",
+            f"{tb}.attn2.to_out.0", qkv_bias=False)
+        norm(b["ln3"], f"{tb}.norm3")
+        w, bias = b["ff_up"]["kernel"].T, b["ff_up"]["bias"]      # gate half first
+        inner = w.shape[0] // 2
+        out[f"{tb}.ff.net.0.proj.weight"] = np.concatenate([w[inner:], w[:inner]])
+        out[f"{tb}.ff.net.0.proj.bias"] = np.concatenate([bias[inner:], bias[:inner]])
+        lin(b["ff_down"], f"{tb}.ff.net.2")
+        conv(p["proj_out"], f"{dst}.proj_out")
+
+    t = tree["text"]["params"]
+    pre = "cond_stage_model.transformer.text_model."
+    out[f"{pre}embeddings.token_embedding.weight"] = t["token_embed"]["embedding"]
+    out[f"{pre}embeddings.position_embedding.weight"] = t["pos_embed"]
+    norm(t["ln_final"], f"{pre}final_layer_norm")
+    for i in range(model.text_layers):
+        lp, q = f"{pre}encoder.layers.{i}.", t[f"layer{i}"]
+        norm(q["ln1"], f"{lp}layer_norm1")
+        mha(q["attn"], f"{lp}self_attn.q_proj", f"{lp}self_attn.k_proj",
+            f"{lp}self_attn.v_proj", f"{lp}self_attn.out_proj", qkv_bias=True)
+        norm(q["ln2"], f"{lp}layer_norm2")
+        lin(q["mlp_up"], f"{lp}mlp.fc1")
+        lin(q["mlp_down"], f"{lp}mlp.fc2")
+
+    u, pre = tree["unet"]["params"], "model.diffusion_model."
+    mults, levels = tuple(model.unet_mults), tuple(model.unet_attn_levels)
+    lin(u["time1"], f"{pre}time_embed.0")
+    lin(u["time2"], f"{pre}time_embed.2")
+    conv(u["conv_in"], f"{pre}input_blocks.0.0")
+    norm(u["norm_out"], f"{pre}out.0")
+    conv(u["conv_out"], f"{pre}out.2")
+    k = 1
+    for i in range(len(mults)):
+        for j in range(model.unet_res):
+            unet_res(u[f"down{i}_res{j}"], f"{pre}input_blocks.{k}.0")
+            if i in levels:
+                spatial(u[f"down{i}_attn{j}"], f"{pre}input_blocks.{k}.1")
+            k += 1
+        if i != len(mults) - 1:
+            conv(u[f"down{i}_ds"], f"{pre}input_blocks.{k}.0.op")
+            k += 1
+    unet_res(u["mid_res1"], f"{pre}middle_block.0")
+    spatial(u["mid_attn"], f"{pre}middle_block.1")
+    unet_res(u["mid_res2"], f"{pre}middle_block.2")
+    k = 0
+    for i in reversed(range(len(mults))):
+        for j in range(model.unet_res + 1):
+            unet_res(u[f"up{i}_res{j}"], f"{pre}output_blocks.{k}.0")
+            idx = 1
+            if i in levels:
+                spatial(u[f"up{i}_attn{j}"], f"{pre}output_blocks.{k}.1")
+                idx = 2
+            if i != 0 and j == model.unet_res:
+                conv(u[f"up{i}_us"], f"{pre}output_blocks.{k}.{idx}.conv")
+            k += 1
+
+    v, pre = tree["vae"]["params"], "first_stage_model."
+    d = f"{pre}decoder."
+
+    def vae_res(p: dict, dst: str) -> None:
+        norm(p["norm1"], f"{dst}.norm1")
+        conv(p["conv1"], f"{dst}.conv1")
+        norm(p["norm2"], f"{dst}.norm2")
+        conv(p["conv2"], f"{dst}.conv2")
+        if "skip" in p:
+            conv(p["skip"], f"{dst}.nin_shortcut")
+
+    conv(v["post_quant"], f"{pre}post_quant_conv")
+    conv(v["conv_in"], f"{d}conv_in")
+    vae_res(v["mid_res1"], f"{d}mid.block_1")
+    norm(v["mid_attn"]["norm"], f"{d}mid.attn_1.norm")
+    for name, dst in (("q", "q"), ("k", "k"), ("v", "v"), ("proj", "proj_out")):
+        a = v["mid_attn"][name]
+        out[f"{d}mid.attn_1.{dst}.weight"] = a["kernel"].T[:, :, None, None]
+        out[f"{d}mid.attn_1.{dst}.bias"] = a["bias"]
+    vae_res(v["mid_res2"], f"{d}mid.block_2")
+    norm(v["norm_out"], f"{d}norm_out")
+    conv(v["conv_out"], f"{d}conv_out")
+    for i in reversed(range(len(model.vae_mults))):
+        for j in range(3):
+            vae_res(v[f"up{i}_res{j}"], f"{d}up.{i}.block.{j}")
+        if i != 0:
+            conv(v[f"up{i}_us"], f"{d}up.{i}.upsample.conv")
+    return out
+
+
+def write_safetensors(path: Path, tensors: dict) -> int:
+    """``tensors`` ({name: float32 numpy array}) as a ``.safetensors`` file:
+    an 8-byte little-endian header length, the JSON header (``dtype``,
+    ``shape``, ``data_offsets``), the bytes in header order. Each tensor is
+    made contiguous just ahead of its write, by a pool of threads (numpy
+    copies outside the GIL) at most 16 tensors ahead of the file. Returns
+    the file's size."""
+    import collections
+    import concurrent.futures as cf
+    import struct
+
+    import numpy as np
+
+    header, offset = {}, 0
+    for name, a in tensors.items():
+        check(a.dtype == np.float32, f"LDM write: {name} is {a.dtype}, not float32")
+        header[name] = {"dtype": "F32", "shape": list(a.shape),
+                        "data_offsets": [offset, offset + a.nbytes]}
+        offset += a.nbytes
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f, cf.ThreadPoolExecutor(8) as pool:
+        f.write(struct.pack("<Q", len(head)) + head)
+        ahead: collections.deque = collections.deque()
+        for a in tensors.values():
+            ahead.append(pool.submit(np.ascontiguousarray, a))
+            if len(ahead) > 16:
+                f.write(memoryview(ahead.popleft().result()).cast("B"))
+        while ahead:
+            f.write(memoryview(ahead.popleft().result()).cast("B"))
+    return path.stat().st_size
 
 
 def sd_bodies() -> list[dict]:
@@ -4854,13 +5107,32 @@ def sd_generate(port: int, body: dict, stream: bool = False) -> tuple[int, bytes
     return call_h(port, "POST", path, body)
 
 
-def sd_locked_served() -> dict:
-    """examples/sd15_flash.toml served: one image, the same again (same
-    bytes), a 400 without a prompt; K1 200 launches per image, 100 at each
-    level's shape; compiles and captures unchanged after startup; a
-    ``:reload`` of the seeded weights, then the same bytes again."""
+SD_IMPORT_LOG = re.compile(r"imported torch checkpoint \S+ \((\d+) tensors\): read "
+                           r"([0-9.]+) s, mapping ([0-9.]+) s")
+
+
+def sd_import_times(log_path: Path) -> list[dict]:
+    """The server's import lines (``ServingModel.load_tree``): per import,
+    the tensors, the read (header and memory map) and the mapping onto the
+    tree, in seconds."""
+    return [{"tensors": int(m[1]), "read_s": float(m[2]), "mapping_s": float(m[3])}
+            for m in SD_IMPORT_LOG.finditer(log_path.read_text(errors="replace"))]
+
+
+def sd_locked_served(ckpt: dict) -> dict:
+    """examples/sd15_flash.toml served from the seeded tree's LDM
+    ``.safetensors`` with the CLIP-shaped BPE: one image, the same again
+    (same bytes), a 400 without a prompt; K1 200 launches per image, 100 at
+    each level's shape; compiles and captures unchanged after startup; a
+    ``:reload`` (the file imported again), then the same bytes again; one
+    import at boot and one at the reload, their read and mapping times."""
     out: dict = {}
-    with serving(SD_CONFIG, n_buckets=1) as port:
+    sets = ckpt["sets"] + (f"model.sd15.weights={json.dumps(str(ckpt['path']))}",)
+    with serving(SD_CONFIG, n_buckets=1, overrides=sets, with_log=True) as (port, log_path):
+        boot_imports = sd_import_times(log_path)
+        check(len(boot_imports) == 1 and boot_imports[0]["tensors"] == ckpt["tensors"],
+              f"sd15 locked: the server's boot logged imports {boot_imports}, expected one "
+              f"of {ckpt['tensors']} tensors")
         g = served_graphs(port)["sd15"]
         check(call(port, "POST", "/debug/kernels:reset")[0] == 200, "kernel count reset refused")
         c0 = sd_counters(port)
@@ -4890,9 +5162,9 @@ def sd_locked_served() -> dict:
         check(d["runtime_compiles_total"] == 0 and d["captures_total"] == 0,
               f"sd15 locked: compiles / captures moved {d['runtime_compiles_total']:g} / "
               f"{d['captures_total']} after startup")
-        # A :reload of the seeded weights stages a slot (its float32 build on
-        # the card beside the three live slots) behind a staged canary; the
-        # same request then gives the same bytes.
+        # A :reload imports the file again and stages a slot (beside the
+        # three live slots) behind a staged canary; the same request then
+        # gives the same bytes.
         t0 = time.perf_counter()
         st, body = call(port, "POST", "/admin/models/sd15:reload")
         reload_s = time.perf_counter() - t0
@@ -4904,27 +5176,77 @@ def sd_locked_served() -> dict:
         check(c2["captures_total"] == c0["captures_total"]
               and c2["runtime_compiles_total"] == c0["runtime_compiles_total"],
               "sd15 locked: :reload moved compiles or captures")
+        imports = sd_import_times(log_path)
+        check(len(imports) == 2, f"sd15 locked: {len(imports)} imports logged after the "
+              ":reload, expected 2 (boot, reload)")
         out.update(png=pngs[0], walls_ms=walls, k1_launches=d["k1"], k1_by_shape=by_shape,
-                   deltas=d, graphs_served=g, image_std=float(img.std()), reload_s=reload_s)
-        print(f"sd15 locked: 2 images of {SD_EDGE} px, walls {walls[0]:.1f} / {walls[1]:.1f} ms, "
-              f"byte-identical PNGs; K1 {d['k1']} launches {by_shape}; compiles and captures "
-              f"moved 0; 400 without a prompt; :reload in {reload_s:.1f} s, same bytes after",
-              flush=True)
+                   deltas=d, graphs_served=g, image_std=float(img.std()), reload_s=reload_s,
+                   import_boot=imports[0], import_reload=imports[1])
+        print(f"sd15 locked: 2 images of {SD_EDGE} px from the imported checkpoint, walls "
+              f"{walls[0]:.1f} / {walls[1]:.1f} ms, byte-identical PNGs; K1 {d['k1']} launches "
+              f"{by_shape}; compiles and captures moved 0; 400 without a prompt; import at "
+              f"boot: read {imports[0]['read_s']:.3f} s, mapping {imports[0]['mapping_s']:.3f} "
+              f"s; :reload in {reload_s:.1f} s (read {imports[1]['read_s']:.3f} s, mapping "
+              f"{imports[1]['mapping_s']:.3f} s), same bytes after", flush=True)
     return out
 
 
-def sd_model():
+def sd_model(sets: tuple = ()):
     from tpuserve_torch.config import load_config
     from tpuserve_torch.models import build
 
-    return build(load_config(str(SD_CONFIG)).models[0])
+    return build(load_config(str(SD_CONFIG), list(sets)).models[0])
 
 
-def sd_in_process(served_png: bytes) -> dict:
-    """The same seeded model in this process: the runtime's locked graph
-    against the eager forward and the served PNG, finite latents, the
-    replay's device time; one UNet call flash against dense; the engine's
-    programs registered on the same runtime, timed."""
+def sd_seeded_tree(tmp: Path) -> dict:
+    """Phase 20's BPE and seeded tree: the CLIP-shaped BPE written into
+    ``tmp`` (``clip_bpe_files``), and the seeded tree of
+    ``examples/sd15_flash.toml`` with that BPE, drawn on the card as a
+    server without weights draws it and read back to the host. Returns the
+    tree, the model, the ``--set`` flags that name the BPE, and the times."""
+    import torch
+
+    t0 = time.perf_counter()
+    vocab, merges = clip_bpe_files(tmp)
+    sets = (f"model.sd15.options.bpe_vocab={json.dumps(str(vocab))}",
+            f"model.sd15.options.bpe_merges={json.dumps(str(merges))}")
+    t1 = time.perf_counter()
+    model = sd_model(sets)
+    check(model.vocab_size == CLIP_VOCAB, f"sd15: the BPE gives a vocabulary of "
+          f"{model.vocab_size}, expected {CLIP_VOCAB}")
+    tree = model.to_jax_params(model.init_params(0, "cuda"))
+    torch.cuda.empty_cache()  # the float32 draws go back to the card
+    return {"tree": tree, "model": model, "sets": sets, "bpe_s": t1 - t0,
+            "tree_s": time.perf_counter() - t1}
+
+
+def sd_checkpoint(seeded: dict, tmp: Path) -> dict:
+    """The seeded tree written into ``tmp`` in the published LDM layout as a
+    float32 ``.safetensors`` with the smoke's own code (the card's machine
+    has neither ``safetensors`` nor ``transformers``): ``ldm_state_dict``,
+    the importer's inverse, then ``write_safetensors``. Host work only: it
+    runs beside K1's timings. Returns the file, its size and tensors, the
+    BPE's ``--set`` flags, and the times."""
+    t0 = time.perf_counter()
+    path = tmp / "sd15-seeded-ldm.safetensors"
+    tensors = ldm_state_dict(seeded["tree"], seeded["model"])
+    size = write_safetensors(path, tensors)
+    out = {"path": path, "sets": seeded["sets"], "bytes": size, "tensors": len(tensors),
+           "bpe_s": seeded["bpe_s"], "tree_s": seeded["tree_s"],
+           "write_s": time.perf_counter() - t0}
+    print(f"sd15: wrote the CLIP-shaped BPE ({CLIP_VOCAB} entries) in {out['bpe_s']:.1f} s and "
+          f"the seeded tree in LDM layout, {size:,} bytes in {len(tensors)} float32 tensors, "
+          f"in {out['write_s']:.1f} s (the tree drawn and read back in {out['tree_s']:.1f} s)",
+          flush=True)
+    return out
+
+
+def sd_in_process(served_png: bytes, sets: tuple) -> dict:
+    """The same model on its seeded tree in this process (with the BPE
+    ``sets``): the runtime's locked graph against the eager forward and the
+    served PNG — which the locked server made from the imported checkpoint
+    —, finite latents, the replay's device time; one UNet call flash against
+    dense; the engine's programs registered on the same runtime, timed."""
     import numpy as np
     import torch
 
@@ -4936,7 +5258,7 @@ def sd_in_process(served_png: bytes) -> dict:
     from tpuserve_torch.runtime import build_runtime
 
     out: dict = {}
-    model = sd_model()
+    model = sd_model(sets)
     t0 = time.perf_counter()
     rt = build_runtime(model, device="cuda")
     out["startup_s"] = time.perf_counter() - t0
@@ -4953,8 +5275,8 @@ def sd_in_process(served_png: bytes) -> dict:
     finally:
         model._decode = decode
     served = read_png(served_png)
-    check(np.array_equal(replay[0], served), "sd15: the served PNG differs from the in-process "
-          "graph replay of the same request")
+    check(np.array_equal(replay[0], served), "sd15: the PNG served from the imported "
+          "checkpoint differs from the in-process graph replay on the seeded tree")
     check(np.array_equal(eager, replay), "sd15: the locked graph's replay differs from the "
           f"eager forward (max diff {np.abs(eager.astype(int) - replay.astype(int)).max()})")
     lat = lats[0]
@@ -5015,7 +5337,7 @@ def sd_in_process(served_png: bytes) -> dict:
           f", {out['unet_2rows_by_kind']['kernels_per_call']:.0f} kernels", flush=True)
     # The engine's programs on the same runtime: insert, step, extract.
     eng = GenEngine(model, rt, Metrics(),
-                    load_config(str(SD_CONFIG), list(SD_ENGINE_SETS)).genserve)
+                    load_config(str(SD_CONFIG), list(SD_ENGINE_SETS + sets)).genserve)
     t0 = time.perf_counter()
     eng.compile()
     out["engine_compile_s"] = time.perf_counter() - t0
@@ -5120,7 +5442,7 @@ def sd_concurrent(port: int, bodies: list, stream_body: dict | None = None) -> t
     return [a[1] for a in answers], stream, wall_s
 
 
-def sd_engine_served(bodies: list, locked_png: bytes) -> dict:
+def sd_engine_served(bodies: list, locked_png: bytes, sets: tuple) -> dict:
     """The engine variant served: eight concurrent requests and a stream,
     then the eight again in reverse order (other slots: the same bytes);
     previews add no capture; K1 10 launches per engine step;
@@ -5129,7 +5451,7 @@ def sd_engine_served(bodies: list, locked_png: bytes) -> dict:
     import numpy as np
 
     out: dict = {}
-    with serving(SD_CONFIG, n_buckets=3, overrides=SD_ENGINE_SETS) as port:
+    with serving(SD_CONFIG, n_buckets=3, overrides=SD_ENGINE_SETS + sets) as port:
         g = served_graphs(port)["sd15"]
         check(call(port, "POST", "/debug/kernels:reset")[0] == 200, "kernel count reset refused")
         c0 = sd_counters(port)
@@ -5175,28 +5497,47 @@ def sd_engine_served(bodies: list, locked_png: bytes) -> dict:
 
 
 def sd15_phase(card: str) -> dict:
-    """Phase 20: SD 1.5 txt2img (examples/sd15_flash.toml), locked and
-    through the engine, K1 at SD's padded head dims."""
+    """Phase 20: SD 1.5 txt2img (examples/sd15_flash.toml) with CLIP's BPE,
+    locked from the seeded tree's LDM checkpoint and, on the seeded tree,
+    through the engine and in this process; K1 at SD's padded head dims."""
+    import concurrent.futures as cf
+
     import torch
 
     t0 = time.perf_counter()
     out: dict = {"card": card, "config": str(SD_CONFIG.relative_to(ROOT))}
-    # The locked path's 2 UNet rows and the engine step's 2 x 8 slots.
-    out["kernels"] = {(b, s): sd_k1_row(b, s, d) for b in (2, 16)
-                      for s, d in ((4096, 40), (1024, 80))}
-    # The engine's server boots beside the locked one (after K1's timings).
-    prestart(SD_CONFIG, 3, SD_ENGINE_SETS)
-    locked = sd_locked_served()
-    png = locked.pop("png")
-    out["in_process"] = sd_in_process(png)
-    out["locked"] = locked
-    out["engine"] = sd_engine_served(sd_bodies(), png)
+    tmp = Path(tempfile.mkdtemp(prefix="smoke-sd15-"))
+    try:
+        # The seeded tree is drawn and read back before K1's timings (its
+        # copies would share the card with them); the file is written while
+        # they run.
+        seeded = sd_seeded_tree(tmp)
+        with cf.ThreadPoolExecutor(1) as beside:
+            writing = beside.submit(sd_checkpoint, seeded, tmp)
+            # The locked path's 2 UNet rows and the engine step's 2 x 8 slots.
+            out["kernels"] = {(b, s): sd_k1_row(b, s, d) for b in (2, 16)
+                              for s, d in ((4096, 40), (1024, 80))}
+            ckpt = writing.result()
+        del seeded
+        out["checkpoint"] = {k: v for k, v in ckpt.items() if k not in ("path", "sets")}
+        # The engine's server boots beside the locked one.
+        prestart(SD_CONFIG, 3, SD_ENGINE_SETS + ckpt["sets"])
+        locked = sd_locked_served(ckpt)
+        png = locked.pop("png")
+        out["in_process"] = sd_in_process(png, ckpt["sets"])
+        out["locked"] = locked
+        out["engine"] = sd_engine_served(sd_bodies(), png, ckpt["sets"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     # K1's share of a 2-row UNet call: its ten launches at the timed shapes.
     k1_ms = 5 * sum(out["kernels"][(2, n)]["line"]["ms"] for n in (4096, 1024))
     out["k1_share_of_unet_2rows"] = k1_ms / out["in_process"]["unet_2rows_device_ms"]
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t0
-    print(f"sd15: phase 20 took {out['phase_s']:.1f} s", flush=True)
+    out["phase_s_parent"] = SD_PHASE_S_PARENT
+    print(f"sd15: phase 20 took {out['phase_s']:.1f} s (before the import: "
+          f"{SD_PHASE_S_PARENT[0]:.1f}-{SD_PHASE_S_PARENT[1]:.1f} s on an H100 at 700 W); "
+          f"{card}", flush=True)
     return out
 
 
@@ -6331,6 +6672,7 @@ def deferred_phase(card: str, direct: list[bytes]) -> dict:
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false; this smoke "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -6506,6 +6848,7 @@ def main() -> int:
                                   *(dict(row["line"], launches=sd[
                                       "locked" if b == 2 else "engine"]["k1_by_shape"][
                                       sd_shape_key(b, n)]) for (b, n), row in sd_k1.items())]}))
+    print(f"smoke: the whole smoke took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -21,8 +21,8 @@ the port refuses.
   textgen served on the CPU through its generation engine: ``n_err`` 0, the
   summary keys equal to the reference's load generator's against the same
   server, and the server's token and fold-in counters moving;
-- ``import-model``, ``finetune-det`` and ``lint`` exit 2 naming their
-  ROADMAP item (the ``worker_kill``, ``host_kill`` and ``stream_kill``
+- ``import-model --quantize int8``, ``finetune-det`` and ``lint`` exit 2
+  naming their ROADMAP item (the ``worker_kill``, ``host_kill`` and ``stream_kill``
   drills run against the port: ``tests/test_torch_drill.py``);
 - ``chaos --drill fleet`` (3 toy models, one poisoned) exits 0 with the
   victim's breaker open and the survivors whole, with the reference's
@@ -216,9 +216,8 @@ def test_bench_frame_wire_and_synthetic_payloads(capsys):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["import-model", "--saved-model", "d", "--family", "resnet50", "--out", "o"],
-     "needs TensorFlow (import-model converts a TF SavedModel; ROADMAP.md lists "
-     "it as never ported)"),
+    (["import-model", "--saved-model", "d", "--family", "resnet50", "--out", "o.npz",
+      "--quantize", "int8"], "ROADMAP.md queue 1: item 14b"),
     (["finetune-det", "--out", "o"], "ROADMAP.md queue 1 item 13"),
     (["lint"], "ROADMAP.md queue 1 item 12"),
 ])
@@ -227,7 +226,7 @@ def test_refused_subcommands_and_drills_exit_2(argv, item, capsys):
     err = capsys.readouterr().err
     assert "not" in err and "ported" in err
     assert item in err
-    assert set(UNPORTED_COMMANDS) == {"import-model", "finetune-det", "lint"}
+    assert set(UNPORTED_COMMANDS) == {"finetune-det", "lint"}
 
 
 

@@ -321,7 +321,6 @@ def test_worker_tier_keys_of_typed_tables_are_refused_when_written(name, value):
 
 
 @pytest.mark.parametrize("key, value, named", [
-    ("options.bpe_vocab", '"vocab.json"', "item 8b"),
     ("parallelism", '"sharded"', "mesh modes"),
     ("tp", "2", "mesh modes")])
 def test_sd15_example_refuses_unserved_options_by_name(key, value, named, tmp_path):
@@ -337,10 +336,7 @@ def test_sd15_example_refuses_unserved_options_by_name(key, value, named, tmp_pa
 
     with torch.device("meta"):
         build(cfg.models[0]).build_module()
-    sets = [f"model.sd15.{key}={value}"]
-    if key == "options.bpe_vocab":
-        sets.append('model.sd15.options.bpe_merges="merges.txt"')
-    bad = tconfig.load_config("examples/sd15_flash.toml", sets)
+    bad = tconfig.load_config("examples/sd15_flash.toml", [f"model.sd15.{key}={value}"])
     with pytest.raises(NotImplementedError, match=named):
         ServerState(bad, device="cpu").build()
 

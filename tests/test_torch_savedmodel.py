@@ -185,12 +185,17 @@ def test_npz_round_trip_is_bit_identical(tmp_path):
 
 
 def test_detect_format(tmp_path):
+    """The port serves its .npz and torch checkpoints; a TF form is refused
+    naming import-model, an orbax directory by name; anything else is not
+    a weight file."""
     assert sm.detect_format("w.npz") == "npz"
+    for suffix in (".safetensors", ".ckpt", ".pt", ".pth", ".bin"):
+        assert sm.detect_format("w" + suffix) == "torch"
     (tmp_path / "sm").mkdir()
     (tmp_path / "sm" / "saved_model.pb").write_bytes(b"")
-    for path, kind in ((tmp_path, "orbax"), (tmp_path / "sm", "TF SavedModel"),
-                       ("frozen.pb", "GraphDef"), ("w.safetensors", "torch")):
-        with pytest.raises(NotImplementedError, match=f"{kind}.*npz"):
+    for path, kind in ((tmp_path, "orbax.*npz"), (tmp_path / "sm", "TF SavedModel.*import-model"),
+                       ("frozen.pb", "GraphDef.*import-model")):
+        with pytest.raises(NotImplementedError, match=kind):
             sm.detect_format(str(path))
     with pytest.raises(ValueError, match="cannot identify"):
         sm.detect_format("weights.txt")

@@ -20,6 +20,7 @@ on the card, 0 on the CPU, where nothing is captured).
 
 import asyncio
 import io
+import math
 import re
 import shutil
 import time
@@ -598,9 +599,16 @@ def test_cold_start_warm_demote_rewarm_zero_recompiles(tmp_path):
         while rt.params_resident and time.monotonic() - t0 < 10.0:
             await asyncio.sleep(0.05)
         seen["demoted"] = (rt.params_resident, side.state.scheduler.state_of("toy"), gauge.value)
+        # The re-warm's first shed hints the last warm's own wall time
+        # (fleet.py: max(1, ceil(last_warm_s))), which each package measures
+        # on its own clock: held within each side, not across them.
+        stats = (await side.call("GET", "/stats"))[1]
+        last_warm_ms = stats["scheduler"]["models"]["toy"]["last_warm_ms"]
+        hint = str(max(1, math.ceil(last_warm_ms / 1000)))
         statuses2, probs2 = await _poll_until_200(side)
-        seen["rewarm"] = (statuses2[0], rt.compiles_total == compiles, rt.version,
-                          probs2 == probs, gauge.value)
+        (st2, reason2, ra2) = statuses2[0]
+        seen["rewarm"] = ((st2, reason2, ra2 == hint), rt.compiles_total == compiles,
+                          rt.version, probs2 == probs, gauge.value)
         seen["sheds"] = side.state.metrics.counter(
             "sched_sheds_total{model=toy,reason=model_warming}").value >= 2
         return seen, probs, compiles
@@ -614,6 +622,7 @@ def test_cold_start_warm_demote_rewarm_zero_recompiles(tmp_path):
     assert pseen["boot"] == (False, 0, 0.0)
     assert pseen["first"][0] == (503, "model_warming", "5") and pseen["first"][2] is True
     assert pseen["demoted"] == (False, "cold", 0.0)
+    assert pseen["rewarm"][0] == (503, "model_warming", True)
     assert pseen["rewarm"][1] is True and pseen["rewarm"][2] == 3 and pseen["rewarm"][3] is True
     assert pseen["rewarm"][4] == 2.0 and pseen["sheds"]
     assert pcompiles == jcompiles == 3

@@ -537,17 +537,14 @@ def test_http_stream_frames(served):
 
 
 @pytest.mark.parametrize("over, exc, match", [
-    (dict(options={**TINY, "bpe_vocab": "v.json", "bpe_merges": "m.txt"}),
-     NotImplementedError, "item 8b"),
     (dict(options={**TINY, "bpe_vocab": "v.json"}), ValueError, "set together"),
     (dict(parallelism="sharded"), NotImplementedError, "mesh modes"),
     (dict(tp=2), NotImplementedError, "mesh modes"),
-    (dict(weights="/nonexistent/model.pt"), NotImplementedError, "npz"),
+    (dict(weights="/nonexistent/frozen.pb"), NotImplementedError, "import-model"),
     (dict(options={**TINY, "unet_attention": "magic"}), ValueError, "unet_attention"),
     (dict(options={**TINY, "preview_every": -1}), ValueError, "preview_every"),
     (dict(dtype="float64"), ValueError, "dtype"),
-], ids=["bpe", "bpe-half", "sharded", "tp2", "torch-weights", "attention", "preview",
-        "dtype"])
+], ids=["bpe-half", "sharded", "tp2", "tf-weights", "attention", "preview", "dtype"])
 def test_refusals(over, exc, match):
     """What the slice does not serve is refused at build by name, with its
     ROADMAP.md item; the reference's own validation messages otherwise."""

@@ -11,6 +11,8 @@ Usage::
                                       [--device ...]
     python -m tpuserve_torch warmup   --config serve.toml [--device ...]
     python -m tpuserve_torch describe [--device ...]
+    python -m tpuserve_torch import-model --saved-model <SavedModel dir | .pb | torch ckpt>
+                                      --family resnet50 --out weights.npz [--opt k=v ...]
 
 Flags, names and defaults are the reference's. The subcommands that build a
 model (``serve``, ``chaos``, ``warmup``) and ``describe`` run on the current
@@ -32,9 +34,16 @@ process never initializes CUDA. ``chaos --drill fleet``
 models in this process with the scheduler on, poisons ``--model`` (the
 victim) with ``device_error`` and gates the worst survivor's availability.
 
-Not ported, refused by name with exit code 2: ``import-model`` (converts a
-TF SavedModel; needs TensorFlow), ``finetune-det`` (ROADMAP.md queue 1 item
-13) and ``lint`` (item 12).
+``import-model`` (``savedmodel.convert_cli``) converts a TF SavedModel, a
+frozen GraphDef or a torch checkpoint into the port's ``.npz`` and its
+manifest; it imports TensorFlow for the TF forms, so it runs where
+TensorFlow is installed, and the card's machine serves the ``.npz``. Its
+``--quantize int8`` (the reference's quantized tree) is refused by name
+with exit code 2 (ROADMAP.md queue 1 item 14b): serve the float ``.npz``
+with ``quantize = "int8"``.
+
+Not ported, refused by name with exit code 2: ``finetune-det`` (ROADMAP.md
+queue 1 item 13) and ``lint`` (item 12).
 """
 
 from __future__ import annotations
@@ -46,8 +55,6 @@ import sys
 # Subcommands of the reference that the port does not serve yet: what each
 # is refused with.
 UNPORTED_COMMANDS = {
-    "import-model": "not ported: needs TensorFlow (import-model converts a TF "
-                    "SavedModel; ROADMAP.md lists it as never ported)",
     "finetune-det": "not yet ported: ROADMAP.md queue 1 item 13 (training)",
     "lint": "not yet ported: ROADMAP.md queue 1 item 12 (analysis/ pointed at "
             "tpuserve_torch/)",
@@ -178,6 +185,19 @@ def _add_chaos_args(p: argparse.ArgumentParser) -> None:
                         "back healthy (backoff + boot)")
 
 
+def _parse_opt_args(parser: argparse.ArgumentParser, items: list[str]) -> dict:
+    """--opt KEY=VALUE pairs -> {key: TOML-parsed value}."""
+    from tpuserve_torch.config import _parse_toml_value
+
+    options = {}
+    for item in items:
+        if "=" not in item:
+            parser.error(f"--opt must look like key=value, got {item!r}")
+        key, _, text = item.partition("=")
+        options[key.strip()] = _parse_toml_value(text.strip())
+    return options
+
+
 def _load(parser: argparse.ArgumentParser, args):
     from tpuserve_torch.config import load_config
 
@@ -237,6 +257,20 @@ def main(argv: list[str] | None = None) -> int:
 
     p_desc = sub.add_parser("describe", help="print device / mesh inventory")
     _add_device_arg(p_desc)
+
+    p_imp = sub.add_parser(
+        "import-model",
+        help="convert a TF SavedModel / GraphDef (or a torch checkpoint) -> the "
+             "port's .npz and its manifest")
+    p_imp.add_argument("--saved-model", required=True)
+    p_imp.add_argument("--family", required=True)
+    p_imp.add_argument("--out", required=True)
+    p_imp.add_argument("--opt", action="append", default=[], metavar="KEY=VALUE",
+                       help="model option for the import (TOML-parsed value), "
+                            "e.g. --opt vocab_file=vocab.txt --opt layers=24")
+    p_imp.add_argument("--quantize", choices=["int8"], default=None,
+                       help="the reference's weight-only int8 tree: not ported "
+                            "(serve the float .npz with quantize = \"int8\")")
 
     for name, why in UNPORTED_COMMANDS.items():
         sub.add_parser(name, help=why)
@@ -322,6 +356,16 @@ def main(argv: list[str] | None = None) -> int:
         print(json.dumps({n: rt.describe() for n, rt in state.runtimes.items()}, indent=2))
         for pool in state.pools().values():
             pool.close()  # a recycle model's workers: stopped, segments unlinked
+        return 0
+
+    if args.cmd == "import-model":
+        from tpuserve_torch import savedmodel
+
+        try:
+            savedmodel.convert_cli(args.saved_model, args.family, args.out,
+                                   _parse_opt_args(parser, args.opt), quantize=args.quantize)
+        except NotImplementedError as e:  # --quantize int8, an orbax directory
+            return _refuse("import-model", str(e))
         return 0
 
     if args.cmd == "describe":

@@ -10,9 +10,11 @@ network (``device_preprocess``, inside ``logits``) and postprocessing
 of small outputs happen per batch.
 
 Weights: ``load_tree`` reads the reference's float32 parameter tree — the
-``.npz`` that ``cfg.weights`` names, held to its checksum manifest, or the
-seeded init — and each family's ``from_jax_params`` / ``to_jax_params``
-convert between that tree and its module's state_dict.
+``.npz`` that ``cfg.weights`` names, held to its checksum manifest, a torch
+checkpoint through the family's ``import_torch_variables``, or the seeded
+init — and each family's ``from_jax_params`` / ``to_jax_params`` convert
+between that tree and its module's state_dict. ``import_tf_variables``
+maps a TF checkpoint's variables onto the tree for ``import-model``.
 
 ``input_signature`` gives a tuple of (shape, dtype) specs (numpy dtypes, the
 host batch layout) where the JAX package gives ``jax.ShapeDtypeStruct``s; a
@@ -26,6 +28,8 @@ The host side (decode, assemble, postprocess) is numpy and copied as it is.
 from __future__ import annotations
 
 import abc
+import logging
+import time
 from dataclasses import dataclass
 from typing import Any
 
@@ -34,6 +38,8 @@ import torch
 
 from tpuserve_torch import quantize, savedmodel
 from tpuserve_torch.config import ModelConfig
+
+log = logging.getLogger("tpuserve_torch.models")
 
 # A host batch: a tuple of np.ndarrays with leading batch dim.
 HostBatch = Any
@@ -110,19 +116,46 @@ class ServingModel(abc.ABC):
         """The reference's float32 parameter tree: ``cfg.weights``' .npz,
         held to its sidecar checksum manifest before anything else reads it
         (IntegrityError; a missing manifest is one only with
-        ``require_manifest``), or the seeded init (seed 0) when no weights
-        are configured."""
+        ``require_manifest``); a torch checkpoint, imported through
+        ``import_torch_variables`` and, as in the reference, held to no
+        manifest; or the seeded init (seed 0) when no weights are
+        configured."""
         if not self.cfg.weights:
             return self.to_jax_params(self.init_params(0))
-        tree = savedmodel.load_npz(self.cfg.weights)
+        path = self.cfg.weights
+        if savedmodel.detect_format(path) == "torch":
+            t0 = time.perf_counter()
+            flat = savedmodel.read_torch_checkpoint(path)
+            t1 = time.perf_counter()
+            tree = self.import_torch_variables(flat)
+            log.info("%s: imported torch checkpoint %s (%d tensors): read %.3f s, "
+                     "mapping %.3f s", self.name, path, len(flat), t1 - t0,
+                     time.perf_counter() - t1)
+            return tree
+        tree = savedmodel.load_npz(path)
         if verify_integrity:
-            savedmodel.verify_manifest_if_present(self.cfg.weights, tree,
-                                                  require=require_manifest)
+            savedmodel.verify_manifest_if_present(path, tree, require=require_manifest)
         return tree
 
     def load_params(self) -> dict[str, torch.Tensor]:
         """``load_tree`` (integrity gate included), as a float32 state_dict."""
         return self.from_jax_params(self.load_tree())
+
+    def import_tf_variables(self, flat: dict[str, np.ndarray]) -> Any:
+        """Translate a flat TF {name: array} dict into the reference's tree
+        (``import-model``). Family-specific (name schemes and layouts differ
+        per source repo)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no TF variable mapping; convert the "
+            "weights to the port's .npz or implement import_tf_variables")
+
+    def import_torch_variables(self, flat: dict[str, np.ndarray]) -> Any:
+        """Translate a flat torch {name: array} state_dict into the
+        reference's tree. Family-specific; implemented for families whose
+        published artifacts ship as torch/safetensors (SD 1.5)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no torch state_dict mapping; convert "
+            "the weights to the port's .npz or implement import_torch_variables")
 
     @abc.abstractmethod
     def build_module(self) -> torch.nn.Module:

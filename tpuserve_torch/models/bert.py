@@ -42,7 +42,9 @@ no int8c (the MoE FFN has no int8-native kernels).
 leaves) into this module's state_dict, which is how the tests hold the port
 to the JAX package on the same weights, and ``to_jax_params`` converts
 back. ``cfg.weights`` names a ``.npz`` of that tree; without it the model
-serves a seeded init.
+serves a seeded init. ``import_tf_variables`` maps an HF
+``TFBertForSequenceClassification`` SavedModel onto the tree
+(``import-model``).
 
 Sizes come from ``cfg.options`` (layers/d_model/heads/d_ff/vocab_size) with
 BERT-base defaults; the vocabulary is ``synthetic_vocab`` or a standard
@@ -445,6 +447,104 @@ class BertServing(ServingModel):
 
     def to_jax_params(self, state_dict: dict[str, torch.Tensor]) -> dict:
         return to_jax_params(state_dict, self.heads)
+
+    def import_tf_variables(self, flat: dict) -> dict:
+        """HF transformers TFBert(ForSequenceClassification) -> the
+        reference's tree.
+
+        Source scheme (``transformers.TFBertForSequenceClassification``
+        SavedModel): ``<root>/bert/embeddings/{word_embeddings/weight,
+        position_embeddings/embeddings, token_type_embeddings/embeddings,
+        LayerNorm}``, per-layer ``bert/encoder/layer_._{i}/{attention/self/
+        query|key|value, attention/output/dense, attention/output/LayerNorm,
+        intermediate/dense, output/dense, output/LayerNorm}``, then
+        ``bert/pooler/dense`` and ``<root>/classifier``.
+
+        Layout translations: HF fuses heads into (d, d) attention kernels;
+        the tree wants (d, heads, head_dim) for Q/K/V and (heads, head_dim,
+        d) for the out projection — pure reshapes, head-major on both sides.
+        The serving path is single-segment (classify one text), so the
+        token-type table collapses to its segment-0 row, folded into the
+        position embeddings (both are added before the embedding LayerNorm).
+        The embedding table must match the serving tokenizer's vocabulary,
+        the classifier ``num_classes``, the position table the longest seq
+        bucket (ValueError otherwise)."""
+        d, heads = self.d_model, self.heads
+        head_dim = d // heads
+        f: dict[str, np.ndarray] = {}
+        for k, v in flat.items():
+            k = k.split(":")[0]
+            k = k.split("/", 1)[1] if "/" in k else k  # drop the root name
+            f[k] = np.asarray(v)
+
+        emb = "bert/embeddings"
+        words = f[f"{emb}/word_embeddings/weight"]
+        if words.shape[0] != self.vocab_size:
+            raise ValueError(
+                f"imported embedding table has {words.shape[0]} rows but the "
+                f"serving tokenizer implies vocab_size {self.vocab_size}; pair "
+                "the checkpoint with its matching vocab_file")
+        n_cls = f["classifier/kernel"].shape[1]
+        if n_cls != self.cfg.num_classes:
+            raise ValueError(
+                f"imported classifier has {n_cls} classes but cfg.num_classes "
+                f"is {self.cfg.num_classes}")
+        pos = f[f"{emb}/position_embeddings/embeddings"]
+        if pos.shape[0] < self.max_seq:
+            raise ValueError(
+                f"imported position table covers {pos.shape[0]} positions "
+                f"but max seq bucket is {self.max_seq}")
+        pos = pos[: self.max_seq]
+        tt = f.get(f"{emb}/token_type_embeddings/embeddings")
+        if tt is not None:
+            pos = pos + tt[0][None, :]
+
+        params: dict = {
+            "embed": {"embedding": words},
+            "pos_embed": pos,
+            "ln_embed": {"scale": f[f"{emb}/LayerNorm/gamma"],
+                         "bias": f[f"{emb}/LayerNorm/beta"]},
+            "pooler": {"kernel": f["bert/pooler/dense/kernel"],
+                       "bias": f["bert/pooler/dense/bias"]},
+            "classifier": {"kernel": f["classifier/kernel"],
+                           "bias": f["classifier/bias"]},
+        }
+        for i in range(self.layers):
+            lyr = f"bert/encoder/layer_._{i}"
+
+            def qkv(name: str) -> dict:
+                return {
+                    "kernel": f[f"{lyr}/attention/self/{name}/kernel"].reshape(
+                        d, heads, head_dim),
+                    "bias": f[f"{lyr}/attention/self/{name}/bias"].reshape(
+                        heads, head_dim),
+                }
+
+            def ln(name: str) -> dict:
+                return {"scale": f[f"{lyr}/{name}/gamma"],
+                        "bias": f[f"{lyr}/{name}/beta"]}
+
+            def dense(name: str) -> dict:
+                return {"kernel": f[f"{lyr}/{name}/kernel"],
+                        "bias": f[f"{lyr}/{name}/bias"]}
+
+            params[f"layer{i}"] = {
+                "attn": {
+                    "query": qkv("query"),
+                    "key": qkv("key"),
+                    "value": qkv("value"),
+                    "out": {
+                        "kernel": f[f"{lyr}/attention/output/dense/kernel"]
+                        .reshape(heads, head_dim, d),
+                        "bias": f[f"{lyr}/attention/output/dense/bias"],
+                    },
+                },
+                "ln_attn": ln("attention/output/LayerNorm"),
+                "mlp_up": dense("intermediate/dense"),
+                "mlp_down": dense("output/dense"),
+                "ln_mlp": ln("output/LayerNorm"),
+            }
+        return {"params": params}
 
     # -- device side ---------------------------------------------------------
     def logits(self, module: BertClassifier, batch) -> torch.Tensor:

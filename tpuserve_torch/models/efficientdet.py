@@ -49,13 +49,15 @@ Kept from the reference where PyTorch's default differs:
   the first maximum.
 
 ``from_jax_params`` / ``to_jax_params`` are ``layers``' (the submodules carry
-the reference's flax names; the fusion weights keep theirs). The reference's
-Keras EfficientNet-B0 backbone import is not ported: it needs Keras weights
-the repo does not hold.
+the reference's flax names; the fusion weights keep theirs).
+``import_tf_variables`` maps a Keras-applications EfficientNetB0 SavedModel
+onto the backbone (``import-model``); the BiFPN and heads keep the seeded
+init.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 from typing import Sequence
 
@@ -68,6 +70,7 @@ from tpuserve_torch.config import ModelConfig
 from tpuserve_torch.models.layers import (BatchNorm, Conv, _same_padding, from_jax_params,
                                           seeded_state_dict, to_jax_params)
 from tpuserve_torch.models.vision import ImageClassifierServing
+from tpuserve_torch.utils.trees import flatten_with_paths
 
 # (expand_ratio, channels, repeats, stride, kernel) — EfficientNet-B0 table.
 B0_BLOCKS: tuple = (
@@ -434,6 +437,79 @@ class EfficientDetServing(ImageClassifierServing):
 
     def to_jax_params(self, state_dict: dict[str, torch.Tensor]) -> dict:
         return to_jax_params(state_dict)
+
+    def import_tf_variables(self, flat: dict) -> dict:
+        """Keras-applications EfficientNetB0 -> the backbone subtree.
+
+        The detector's backbone IS EfficientNet-B0, so a classification
+        checkpoint transfers it exactly — the standard detection transfer-
+        learning setup. BiFPN and heads keep the port's seeded init (logged).
+
+        Source scheme (``tf.keras.applications.EfficientNetB0``): stem
+        ``stem_conv``/``stem_bn``; block ``block{stage}{a,b,...}_{expand_conv,
+        expand_bn, dwconv, bn, se_reduce, se_expand, project_conv,
+        project_bn}`` (stage-1 blocks have no expand: ratio 1). Depthwise
+        kernels transpose (H, W, C, 1) -> (H, W, 1, C); SE convs keep biases;
+        the classifier-only ``top_conv``/``top_bn``/``predictions`` and the
+        input ``normalization`` stats have no detector counterpart and are
+        skipped."""
+        o = self.cfg.options
+        if (float(o.get("backbone_width", 1.0)), float(o.get("backbone_depth", 1.0))) != (1.0, 1.0):
+            raise ValueError(
+                "EfficientNetB0 import requires backbone_width/depth == 1.0")
+        f = {k.split(":")[0]: np.asarray(v) for k, v in flat.items()}
+
+        def conv(name):
+            return {"kernel": f[f"{name}/kernel"]}
+
+        def bn(name):
+            return (
+                {"scale": f[f"{name}/gamma"], "bias": f[f"{name}/beta"]},
+                {"mean": f[f"{name}/moving_mean"],
+                 "var": f[f"{name}/moving_variance"]},
+            )
+
+        bp: dict = {"stem": conv("stem_conv")}
+        bs: dict = {}
+        bp["bn_stem"], bs["bn_stem"] = bn("stem_bn")
+        bi = 0
+        for stage, (e, _c, r, _s, _k) in enumerate(B0_BLOCKS, start=1):
+            for j in range(r):
+                pre = f"block{stage}{'abcdefghij'[j]}"
+                p: dict = {}
+                st: dict = {}
+                if e != 1:
+                    p["expand"] = conv(f"{pre}_expand_conv")
+                    p["bn_expand"], st["bn_expand"] = bn(f"{pre}_expand_bn")
+                dw = f[f"{pre}_dwconv/kernel"]  # (H, W, C, 1)
+                p["depthwise"] = {"kernel": dw.transpose(0, 1, 3, 2)}
+                p["bn_dw"], st["bn_dw"] = bn(f"{pre}_bn")
+                p["se_reduce"] = {"kernel": f[f"{pre}_se_reduce/kernel"],
+                                  "bias": f[f"{pre}_se_reduce/bias"]}
+                p["se_expand"] = {"kernel": f[f"{pre}_se_expand/kernel"],
+                                  "bias": f[f"{pre}_se_expand/bias"]}
+                p["project"] = conv(f"{pre}_project_conv")
+                p["bn_project"], st["bn_project"] = bn(f"{pre}_project_bn")
+                bp[f"block{bi}"] = p
+                bs[f"block{bi}"] = st
+                bi += 1
+
+        full = self.to_jax_params(self.init_params(0))
+        got = list(flatten_with_paths(bp))
+        want = list(flatten_with_paths(full["params"]["backbone"]))
+        if [p for p, _ in got] != [p for p, _ in want]:
+            raise ValueError("imported backbone tree does not match the module")
+        for (_, g), (_, w) in zip(got, want):
+            if g.shape != w.shape:
+                raise ValueError(
+                    f"backbone shape mismatch: imported {g.shape} vs "
+                    f"module {w.shape}")
+        full["params"]["backbone"] = bp
+        full["batch_stats"]["backbone"] = bs
+        logging.getLogger("tpuserve_torch.models").info(
+            "%s: EfficientNetB0 backbone imported; BiFPN/heads keep the seeded "
+            "init (serve a full-detector .npz for end-to-end weights)", self.name)
+        return full
 
     def init_params(self, seed: int = 0) -> dict[str, torch.Tensor]:
         """``layers.seeded_state_dict`` with the reference's two other

@@ -33,15 +33,16 @@ Submodules carry the reference's flax names (``stem``, ``bn_stem``,
 ``layers.from_jax_params`` and ``layers.to_jax_params`` carry the
 reference's ``{"params", "batch_stats"}`` tree across; a depthwise kernel
 (kh, kw, 1, C) becomes (C, 1, kh, kw) under the same HWIO -> OIHW
-permutation as every other kernel. The reference's Keras import
-(``import_tf_variables``) is not ported: it needs Keras weights the repo
-does not hold.
+permutation as every other kernel. ``import_tf_variables`` maps a
+Keras-applications MobileNetV3Large SavedModel onto the tree
+(``import-model``).
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -168,6 +169,73 @@ class MobileNetV3Serving(ImageClassifierServing):
 
     def init_params(self, seed: int = 0) -> dict[str, torch.Tensor]:
         return seeded_state_dict(self.build_module, seed)
+
+    def import_tf_variables(self, flat: dict) -> dict:
+        """Keras-applications MobileNetV3Large names/layouts -> the
+        reference's tree.
+
+        Source scheme (``tf.keras.applications.MobileNetV3Large``): stem
+        ``conv``/``conv_bn``; block i as ``expanded_conv[_i]_{expand,
+        depthwise, project}[_bn]`` (block 0 has no ``_0`` suffix and no
+        expand conv) with squeeze-excite at ``..._squeeze_excite_conv``
+        (reduce) / ``..._squeeze_excite_conv_1`` (expand), both biased; head
+        ``conv_1``/``conv_1_bn`` then the post-pool ``conv_2`` and ``logits``
+        1x1 convs. BN eps is 1e-3 on both sides, and Keras' pad-then-VALID
+        stride-2 depthwise equals SAME padding at this model's even feature
+        sizes, so no option knobs are needed.
+
+        Layout translations: depthwise kernels are (H, W, C, 1) in Keras vs
+        the tree's (H, W, 1, C) — a transpose of the last two dims; the
+        post-pool 1x1 convs ``conv_2``/``logits`` become Dense layers by
+        dropping the spatial 1x1 dims. Plain convs are bias-free on both
+        sides (no BN fold, unlike ResNet50's import)."""
+        f = {k.split(":")[0]: np.asarray(v) for k, v in flat.items()}
+
+        def conv(name):
+            return {"kernel": f[f"{name}/kernel"]}
+
+        def bn(name):
+            return (
+                {"scale": f[f"{name}/gamma"], "bias": f[f"{name}/beta"]},
+                {"mean": f[f"{name}/moving_mean"],
+                 "var": f[f"{name}/moving_variance"]},
+            )
+
+        def dense_from_1x1(name):
+            k = f[f"{name}/kernel"]  # (1, 1, in, out)
+            return {"kernel": k.reshape(k.shape[2], k.shape[3]),
+                    "bias": f[f"{name}/bias"]}
+
+        params: dict = {}
+        stats: dict = {}
+        params["stem"] = conv("conv")
+        params["bn_stem"], stats["bn_stem"] = bn("conv_bn")
+        for i, (_k, _exp, _out, use_se, _hs, _s) in enumerate(V3_LARGE):
+            tfp = "expanded_conv" if i == 0 else f"expanded_conv_{i}"
+            p: dict = {}
+            st: dict = {}
+            if f"{tfp}_expand/kernel" in f:
+                p["expand"] = conv(f"{tfp}_expand")
+                p["bn_expand"], st["bn_expand"] = bn(f"{tfp}_expand_bn")
+            dw = f[f"{tfp}_depthwise/kernel"]  # (H, W, C, 1)
+            p["depthwise"] = {"kernel": dw.transpose(0, 1, 3, 2)}
+            p["bn_dw"], st["bn_dw"] = bn(f"{tfp}_depthwise_bn")
+            if use_se:
+                p["se"] = {
+                    "reduce": {"kernel": f[f"{tfp}_squeeze_excite_conv/kernel"],
+                               "bias": f[f"{tfp}_squeeze_excite_conv/bias"]},
+                    "expand": {"kernel": f[f"{tfp}_squeeze_excite_conv_1/kernel"],
+                               "bias": f[f"{tfp}_squeeze_excite_conv_1/bias"]},
+                }
+            p["project"] = conv(f"{tfp}_project")
+            p["bn_project"], st["bn_project"] = bn(f"{tfp}_project_bn")
+            params[f"block{i}"] = p
+            stats[f"block{i}"] = st
+        params["head_conv"] = conv("conv_1")
+        params["bn_head"], stats["bn_head"] = bn("conv_1_bn")
+        params["pre_logits"] = dense_from_1x1("conv_2")
+        params["classifier"] = dense_from_1x1("logits")
+        return {"params": params, "batch_stats": stats}
 
 
 def create(cfg: ModelConfig) -> MobileNetV3Serving:

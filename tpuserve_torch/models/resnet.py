@@ -37,11 +37,13 @@ weight-only path.
 tree (numpy leaves) into this module's float32 state_dict; that is how the
 tests hold the port to the JAX package on the same weights.
 ``to_jax_params`` converts back, so a ``.npz`` checkpoint of that tree can
-be written from the port's own seeded init.
+be written from the port's own seeded init. ``import_tf_variables`` maps a
+Keras-applications ResNet50 SavedModel onto the tree (``import-model``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -134,6 +136,58 @@ class ResNet50Serving(ImageClassifierServing):
 
     def init_params(self, seed: int = 0) -> dict[str, torch.Tensor]:
         return seeded_state_dict(self.build_module, seed)
+
+    def import_tf_variables(self, flat: dict) -> dict:
+        """Keras-applications ResNet50 names/layouts -> the reference's tree.
+
+        Source scheme (``tf.keras.applications.ResNet50``): stem
+        ``conv1_conv``/``conv1_bn``; blocks
+        ``conv{s}_block{j}_{1,2,3}_conv|bn`` with the projection shortcut at
+        ``_0``; head ``predictions``. That architecture puts stride 2 on the
+        block's first 1x1 and uses eps 1.001e-5, so serve imported weights
+        with ``options={"v1_downsample": true, "bn_eps": 1.001e-5}``.
+
+        Layouts transfer directly (both are NHWC with HWIO conv kernels and
+        (in, out) dense kernels). The one real translation: Keras convs carry
+        biases that immediately feed BatchNorm, while the tree's are
+        bias-free — a conv bias shifts the BN input, so it folds exactly into
+        the BN moving mean (``mean' = mean - bias``)."""
+        f = {k.split(":")[0]: np.asarray(v) for k, v in flat.items()}
+
+        def unit(conv_tf: str, bn_tf: str):
+            """-> (conv params, bn params, bn stats) with the bias fold."""
+            mean = f[f"{bn_tf}/moving_mean"].astype(np.float32)
+            bias = f.get(f"{conv_tf}/bias")
+            if bias is not None:
+                mean = mean - bias.astype(np.float32)
+            return (
+                {"kernel": f[f"{conv_tf}/kernel"]},
+                {"scale": f[f"{bn_tf}/gamma"], "bias": f[f"{bn_tf}/beta"]},
+                {"mean": mean, "var": f[f"{bn_tf}/moving_variance"]},
+            )
+
+        params: dict = {}
+        stats: dict = {}
+        params["stem_conv"], params["stem_bn"], stats["stem_bn"] = unit(
+            "conv1_conv", "conv1_bn")
+        for i, n_blocks in enumerate((3, 4, 6, 3)):
+            s = i + 2  # Keras stages are conv2..conv5
+            for j in range(1, n_blocks + 1):
+                name = f"stage{i + 1}_block{j}"
+                tf_pre = f"conv{s}_block{j}"
+                p: dict = {}
+                st: dict = {}
+                for k in (1, 2, 3):
+                    p[f"conv{k}"], p[f"bn{k}"], st[f"bn{k}"] = unit(
+                        f"{tf_pre}_{k}_conv", f"{tf_pre}_{k}_bn")
+                if f"{tf_pre}_0_conv/kernel" in f:
+                    p["proj_conv"], p["proj_bn"], st["proj_bn"] = unit(
+                        f"{tf_pre}_0_conv", f"{tf_pre}_0_bn")
+                params[name] = p
+                stats[name] = st
+        params["head"] = {"kernel": f["predictions/kernel"],
+                          "bias": f["predictions/bias"]}
+        return {"params": params, "batch_stats": stats}
 
 
 def create(cfg: ModelConfig) -> ResNet50Serving:

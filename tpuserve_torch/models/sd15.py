@@ -44,11 +44,16 @@ Two serving shapes, deterministic in (prompt, negative prompt, seed):
   captured extract program and the final image as binary frames
   (``tpuserve_torch.frame``).
 
-Tokenization is the port's WordPiece over the synthetic vocabulary (or
-``options.vocab_file``) with its [CLS]/[SEP] framing, fixed to 77 ids: with
-seeded weights it only needs to be deterministic. CLIP's byte-level BPE and
-the LDM-checkpoint import wait for their files (ROADMAP.md item 8b). PNGs are
-written with ``zlib`` and ``struct`` (``encode_png``).
+Tokenization, fixed to 77 ids: CLIP's byte-level BPE
+(``tpuserve_torch.text.CLIPBPETokenizer``) with ``options.bpe_vocab`` /
+``bpe_merges`` (the published artifact's ``vocab.json`` and
+``merges.txt``), else the port's WordPiece over the synthetic vocabulary
+(or ``options.vocab_file``) with its [CLS]/[SEP] framing; the text tower's
+vocabulary is sized from the tokenizer's. Weights: the seeded init, the
+port's ``.npz``, or a published single-file LDM checkpoint
+(``.safetensors`` / ``.ckpt``) named in ``weights``, mapped onto the tree by
+``models/sd15_import.py`` (``import_torch_variables``). PNGs are written
+with ``zlib`` and ``struct`` (``encode_png``).
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ from __future__ import annotations
 import json
 import math
 import struct
+import warnings
 import zlib
 from typing import Any, Sequence
 
@@ -70,7 +76,7 @@ from tpuserve_torch.genserve.model import GenerativeModel
 from tpuserve_torch.models.base import DTYPES, TensorSpec, not_ported
 from tpuserve_torch.ops import threefry
 from tpuserve_torch.ops.flash_attention import flash_attention
-from tpuserve_torch.text import WordPieceTokenizer, synthetic_vocab
+from tpuserve_torch.text import CLIPBPETokenizer, WordPieceTokenizer, synthetic_vocab
 
 MAX_TOKENS = 77  # CLIP text context length; SD conditions on all 77 states.
 LATENT_SCALE = 0.18215
@@ -571,15 +577,15 @@ class SD15Serving(GenerativeModel):
             raise ValueError(
                 "bpe_vocab and bpe_merges must be set together "
                 "(CLIP BPE needs vocab.json + merges.txt)")
-        if o.get("bpe_vocab"):
-            raise not_ported("options.bpe_vocab / bpe_merges (CLIP's byte-level BPE)",
-                             "item 8b, SD 1.5's checkpoint import and CLIP BPE")
         if cfg.parallelism != "single" or cfg.tp > 1 or cfg.sp > 1:
             raise not_ported(
                 f"parallelism={cfg.parallelism!r} (tp={cfg.tp}, sp={cfg.sp}); "
                 "set parallelism = \"single\"", "item 9, mesh modes")
         vocab_file = o.get("vocab_file")
-        if vocab_file:
+        if o.get("bpe_vocab"):
+            # Real SD/CLIP artifacts: byte-level BPE (vocab.json + merges.txt).
+            self.tokenizer = CLIPBPETokenizer(o["bpe_vocab"], o["bpe_merges"])
+        elif vocab_file:
             self.tokenizer = WordPieceTokenizer.from_vocab_file(vocab_file)
         else:
             self.tokenizer = WordPieceTokenizer(
@@ -662,7 +668,11 @@ class SD15Serving(GenerativeModel):
         ...}`` -> this module's float32 state_dict: conv kernels HWIO ->
         OIHW, Dense kernels (in, out) -> (out, in), attention query/key/value
         kernels (d, heads, hd) -> (heads*hd, d) with biases (heads, hd) ->
-        (heads*hd,), out kernels (heads, hd, d) -> (d, heads*hd)."""
+        (heads*hd,), out kernels (heads, hd, d) -> (d, heads*hd).
+
+        Each leaf is copied once, into the layout the module holds: a leaf
+        that is a view (an imported checkpoint's transposed memory map) is
+        read through the view, and nothing of the state_dict aliases it."""
         sd: dict[str, torch.Tensor] = {}
 
         def walk(node: Any, prefix: str) -> None:
@@ -670,7 +680,11 @@ class SD15Serving(GenerativeModel):
                 if hasattr(val, "items"):
                     walk(val, f"{prefix}{key}.")
                     continue
-                t = torch.from_numpy(np.array(val, dtype=np.float32))
+                with warnings.catch_warnings():
+                    # Read-only leaves (a memory-mapped checkpoint) are only
+                    # read: the clone below copies them.
+                    warnings.filterwarnings("ignore", "The given NumPy array is not writable")
+                    t = torch.from_numpy(np.asarray(val, dtype=np.float32))
                 if key == "kernel":
                     key = "weight"
                     t = (t.permute(3, 2, 0, 1) if t.dim() == 4
@@ -678,17 +692,39 @@ class SD15Serving(GenerativeModel):
                              (".query.", ".key.", ".value.")) else t.reshape(-1, t.shape[-1]).T)
                 elif key == "bias":
                     t = t.reshape(-1)
-                sd[prefix + key] = t.contiguous()
+                sd[prefix + key] = t.clone(memory_format=torch.contiguous_format)
 
         for net in ("text", "unet", "vae"):
             walk(tree[net]["params"], f"{net}.")
         return sd
 
     def to_jax_params(self, state_dict: dict[str, torch.Tensor]) -> dict:
-        """``from_jax_params`` inverted, bit for bit."""
+        """``from_jax_params`` inverted, bit for bit (each leaf laid out where
+        the state_dict lies — on the card, the transposes run there — then
+        copied to the host)."""
+        return self._reference_tree(state_dict, lambda t: t.contiguous().cpu().numpy())
+
+    def reference_tree_meta(self) -> dict:
+        """The reference's tree of this model with ``meta`` tensors for
+        leaves (their shapes are the leaves' shapes): ``to_jax_params`` of
+        the module's state_dict, built on the meta device, so that nothing is
+        allocated. The LDM import validates its tree against it."""
+        with torch.device("meta"):
+            state_dict = self.build_module().state_dict()
+        return self._reference_tree(state_dict, lambda t: t)
+
+    def import_torch_variables(self, flat: dict) -> Any:
+        """Published SD 1.5 single-file checkpoint (LDM layout, safetensors
+        or .ckpt) -> the reference's tree; see ``models/sd15_import.py``.
+        Pair with options bpe_vocab/bpe_merges for the real CLIP tokenizer."""
+        from tpuserve_torch.models.sd15_import import import_ldm_checkpoint
+
+        return import_ldm_checkpoint(self, flat)
+
+    def _reference_tree(self, state_dict: dict[str, torch.Tensor], finish) -> dict:
         tree: dict = {net: {"params": {}} for net in ("text", "unet", "vae")}
         for name, v in state_dict.items():
-            t = v.detach().to(torch.float32).cpu()
+            t = v.detach().to(torch.float32)
             net, *mods, leaf = name.split(".")
             h = self._heads(name)
             parent = mods[-1] if mods else ""
@@ -707,7 +743,7 @@ class SD15Serving(GenerativeModel):
             node = tree[net]["params"]
             for m in mods:
                 node = node.setdefault(m, {})
-            node[leaf] = t.contiguous().numpy()
+            node[leaf] = finish(t)
         return tree
 
     def reference_layout(self, name: str, shape: tuple) -> tuple[tuple, tuple]:
@@ -878,7 +914,8 @@ class SD15Serving(GenerativeModel):
 
     # -- host side --------------------------------------------------------------
     def _tokenize(self, prompt: str) -> np.ndarray:
-        """Prompt -> fixed (77,) int32: [CLS] + pieces + [SEP], pad-id padded."""
+        """Prompt -> fixed (77,) int32: BOS + BPE pieces + EOS, EOS-padded
+        (CLIP's BPE), or [CLS] + pieces + [SEP], pad-id padded (WordPiece)."""
         ids, _ = self.tokenizer.encode(prompt, MAX_TOKENS)
         return ids
 

@@ -95,6 +95,7 @@ from __future__ import annotations
 import gc
 import logging
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
@@ -916,7 +917,13 @@ class ModelRuntime:
         """A tree leaf as the forward would hold it, for the NaN/Inf scan
         (a float32 value beyond the compute dtype's range casts to inf)."""
         a = np.asarray(leaf)
-        return torch.from_numpy(a).to(self.dtype) if a.dtype.kind == "f" else a
+        if a.dtype.kind != "f":
+            return a
+        with warnings.catch_warnings():
+            # A torch checkpoint's leaves are read-only views of the mapped
+            # file; the scan only reads them.
+            warnings.filterwarnings("ignore", "The given NumPy array is not writable")
+            return torch.from_numpy(a).to(self.dtype)
 
     def publish(self, staged: StagedParams) -> dict:
         """Make a staged slot live as version N+1; the previous live slot is
