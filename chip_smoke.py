@@ -59,7 +59,15 @@ Phases (any failure exits non-zero before the result line):
    attention model in top-5 wherever its logits separate the ranks by more
    than the bf16 logit tolerance. In-process, the forward's stream and
    host-enqueue times per bucket are taken, and a second batch's h2d must
-   not wait for the first batch's forward still queued on the card.
+   not wait for the first batch's forward still queued on the card. Then
+   the retrace witness's negative gates, in process on the (32, 128)
+   runtime (``witness_gates``): with the barrier declared and the sync
+   guard armed (``torch.cuda.set_sync_debug_mode("error")``), a stray
+   ``.item()`` on a replay's output raises and ``host_fetch`` of the same
+   outputs does not (and equals a plain ``.cpu()`` with the guard off); a
+   capture after the barrier outside ``sanctioned_compiles`` raises
+   ``RetraceViolation`` before it starts, and inside it captures with no
+   further violation; the guard and the witness are restored after.
 7. Long-context slice: serve ``examples/bert_long_ring.toml`` (full-width
    BERT-base, bf16, ``attention = "ring"``, seq bucket 2048, batch buckets
    [1, 8], one-card mesh with sp = 1) through ``python -m tpuserve_torch
@@ -161,7 +169,13 @@ Phases (any failure exits non-zero before the result line):
    the capture window and (on the span ring's clock) inside a served
    batch's span, about 12 per batch; a second, concurrent capture answers
    409 and both land in ``/debug/audit``. K1 launches = 12 x the batches
-   dispatched; captures and compiles unchanged.
+   dispatched; captures and compiles unchanged. The server runs with
+   ``TPUSERVE_LOCK_WITNESS=1`` and ``TPUSERVE_RETRACE_WITNESS=1``
+   (``witness_check``): ``/stats`` ``robustness.lock_witness`` has nodes
+   and no violation; ``retrace_witness`` has its barrier declared, as many
+   warm-up compiles as the boot's compile ticks, the sync guard armed and
+   no violation; its ``allow_transfers`` windows are printed, with the
+   requests' p50 and p99 under the 4 clients.
 12. Cost of the defaults (``defaults_cost_phase``): BERT-flash (at
    ``SHALLOW_LAYERS`` layers) with the reference's planes on and with them
    off, both served at once, 32-text
@@ -238,7 +252,10 @@ Phases (any failure exits non-zero before the result line):
    reload published; at 1.0 exit 1. The ``cli`` line carries every run's
    summary, the K1 counts, both configs' roofline blocks, the utilization
    samples and the startup probe's raw (32, 128) ms (4 layers) beside phase
-   6's replay device time of the same bucket (12 layers).
+   6's replay device time of the same bucket (12 layers). ``lint`` runs
+   as a user runs it, on the card's machine: exit 0 against the port's
+   checked-in baseline (it imports neither JAX nor torch; whether a
+   ``jax`` is importable there is printed).
 17. Text generation (``textgen_phase``): K1 against its plain version at
    the prefill's shapes ((1, 256) inserts, (32, 256) locked batches, bf16,
    padded keys, and a one-token prompt), timed with its bound, plain
@@ -425,7 +442,10 @@ Phases (any failure exits non-zero before the result line):
    survivors at availability >= 0.99 with p99 within
    ``FLEET_P99_BUDGET_MS``, K1 = 12 x bert's batches over the load.
    Memory in each state, ``warm_ms`` and the survivors' p50/p99 are
-   printed (the ``fleet`` line).
+   printed (the ``fleet`` line). The fleet server runs under
+   ``TPUSERVE_RETRACE_WITNESS=1``: both warms' captures and the first
+   warm's compiles are sanctioned (as many as bert's ``captures_total`` and
+   ``compiles_total``), the sync guard stays armed, 0 violations.
 24. Tenants and the autopilot (``autopilot_phase``), started with phase 23
    and read after it: ``chaos --drill autopilot`` on a copy of
    ``examples/bert_flash_tenants.toml`` (2 host domains x 2 worker slots,
@@ -464,7 +484,11 @@ Phases (any failure exits non-zero before the result line):
    45 s after the drill's server is born; single texts offered at 20/s for
    30 s): exit 0, availability >= 0.99, the one death absorbed by
    ``batch_retries_total`` >= 1, a watchdog restart or a respawn counted.
-26. Print a ``slice`` line per path, the ``graphs`` line (phase 6-8's,
+26. Every process the phases started, and every one those started (the
+   smoke is their subreaper, so an orphan is re-parented to it), must end
+   within ``ORPHAN_GRACE_S`` of the last phase; one still running then is
+   killed, named, and fails the smoke. Nothing outlives the smoke.
+   Print a ``slice`` line per path, the ``graphs`` line (phase 6-8's,
    13's and 14's graph checks and host times), the ``lifecycle`` line, the
    ``robustness`` line (with phase 8's, 13's and 14's first-request
    tables), the ``observability``, ``defaults_cost``, ``cli``, ``router``,
@@ -543,6 +567,89 @@ class SmokeFailure(Exception):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+# -- the smoke's own processes -----------------------------------------------------
+
+PR_SET_CHILD_SUBREAPER = 36     # linux/prctl.h
+# How long the processes below the smoke may take to end on their own after
+# the last phase stopped what it started (a server's multiprocessing resource
+# tracker outlives it by a moment): what runs longer was left running.
+ORPHAN_GRACE_S = 30.0
+
+
+def adopt_orphans() -> None:
+    """Make this process the subreaper of every process it starts: one that
+    outlives its parent (a server's worker or resource tracker, a host agent
+    in its own session) is re-parented here, not to the machine's init, so
+    ``stop_descendants`` sees it and waits for it."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        print(f"chip_smoke: prctl(PR_SET_CHILD_SUBREAPER) failed: "
+              f"{os.strerror(ctypes.get_errno())}", file=sys.stderr, flush=True)
+
+
+def descendants() -> dict[int, str]:
+    """Every live process below this one (from /proc): pid -> command line.
+    Zombies are left out (``reap`` collects this process's)."""
+    parents: dict[int, int] = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            stat = Path(f"/proc/{entry}/stat").read_text()
+        except OSError:
+            continue  # ended meanwhile
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        if state != "Z":
+            parents[int(entry)] = int(ppid)
+    found, frontier = {}, [os.getpid()]
+    while frontier:
+        below = [pid for pid, ppid in parents.items() if ppid in frontier]
+        for pid in below:
+            try:
+                found[pid] = Path(f"/proc/{pid}/cmdline").read_bytes() \
+                    .replace(b"\0", b" ").decode(errors="replace").strip()[:200]
+            except OSError:
+                found[pid] = "?"
+        frontier = below
+    return found
+
+
+def reap() -> None:
+    """Collect every child of this process that has ended (the orphans
+    re-parented here included)."""
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def stop_descendants(grace_s: float = ORPHAN_GRACE_S) -> dict[int, str]:
+    """After the last phase: wait up to ``grace_s`` for every process below
+    this one to end, then SIGKILL what still runs and reap it all. Returns
+    the processes that had to be killed (pid -> command line)."""
+    deadline = time.monotonic() + grace_s
+    while True:
+        reap()
+        left = descendants()
+        if not left or time.monotonic() >= deadline:
+            break
+        time.sleep(0.2)
+    for pid in left:
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGKILL)
+    deadline = time.monotonic() + 10.0
+    while descendants() and time.monotonic() < deadline:
+        reap()
+        time.sleep(0.1)
+    reap()
+    return left
 
 
 # -- phase 1 + 2 ----------------------------------------------------------------
@@ -1021,6 +1128,10 @@ def sequence_parallel_phase() -> dict:
 
 CONFIG = ROOT / "examples" / "bert_flash.toml"
 LONG_CONFIG = ROOT / "examples" / "bert_long_ring.toml"
+# The witnesses as a user arms them (tpuserve_torch.analysis.witness): phase
+# 11's server runs under both, phase 23's fleet under the retrace witness.
+RETRACE_ENV = (("TPUSERVE_RETRACE_WITNESS", "1"),)
+WITNESS_ENV = (("TPUSERVE_LOCK_WITNESS", "1"),) + RETRACE_ENV
 
 
 def model_config(attention: str, config: Path = CONFIG):
@@ -1322,8 +1433,10 @@ def h2d_overlap_check(rt, model) -> None:
 _PRESTARTED: dict[tuple, dict] = {}
 
 
-def _start_server(config: Path, overrides: tuple, extra_toml: str) -> dict:
-    """``python -m tpuserve_torch serve`` on a free port, started at once."""
+def _start_server(config: Path, overrides: tuple, extra_toml: str,
+                  env: tuple = ()) -> dict:
+    """``python -m tpuserve_torch serve`` on a free port, started at once,
+    with ``env``'s (name, value) pairs added to its environment."""
     port = free_port()
     sets = [a for o in (f"port={port}", *overrides) for a in ("--set", o)]
     tmp = Path(tempfile.mkdtemp(prefix="smoke-serve-"))
@@ -1335,7 +1448,8 @@ def _start_server(config: Path, overrides: tuple, extra_toml: str) -> dict:
     with open(log_path, "w") as log:
         proc = subprocess.Popen([sys.executable, "-m", "tpuserve_torch", "serve",
                                  "--config", str(config), *sets],
-                                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+                                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                                env={**os.environ, **dict(env)} if env else None)
     return {"port": port, "proc": proc, "log": log_path, "tmp": tmp}
 
 
@@ -1350,14 +1464,15 @@ def _stop_server(srv: dict) -> None:
     shutil.rmtree(srv["tmp"], ignore_errors=True)
 
 
-def prestart(config: Path, n_buckets: int, overrides: tuple = (), extra_toml: str = "") -> None:
+def prestart(config: Path, n_buckets: int, overrides: tuple = (), extra_toml: str = "",
+             env: tuple = ()) -> None:
     """Start now the server that a later ``serving`` with the same
     arguments will use, so that it boots beside the server a phase starts
     next; that ``serving`` waits for both before it yields, so no boot runs
     under the phase's measurements and the later server is ready when its
     turn comes (the smoke's time limit)."""
-    _PRESTARTED[(str(config), tuple(overrides), extra_toml)] = dict(
-        _start_server(config, tuple(overrides), extra_toml), n_buckets=n_buckets)
+    _PRESTARTED[(str(config), tuple(overrides), extra_toml, tuple(env))] = dict(
+        _start_server(config, tuple(overrides), extra_toml, tuple(env)), n_buckets=n_buckets)
 
 
 def stop_prestarted() -> None:
@@ -1368,16 +1483,16 @@ def stop_prestarted() -> None:
 
 @contextlib.contextmanager
 def serving(config: Path, n_buckets: int, overrides: tuple = (), extra_toml: str = "",
-            with_proc: bool = False, with_log: bool = False):
+            with_proc: bool = False, with_log: bool = False, env: tuple = ()):
     """``python -m tpuserve_torch serve --config <config>`` (plus ``--set``
     ``overrides``, and ``extra_toml`` appended to a copy of the file) on a
-    free port, healthy (the prestarted one, if any, and every other
-    prestarted server healthy too); prints each model's graphs and the
-    memory their capture reserved; yields the port (and the process,
-    ``with_proc``, or the path of its log, ``with_log``) and stops the server
-    on the way out."""
-    srv = _PRESTARTED.pop((str(config), tuple(overrides), extra_toml), None) \
-        or _start_server(config, tuple(overrides), extra_toml)
+    free port, with ``env``'s (name, value) pairs added to its environment,
+    healthy (the prestarted one, if any, and every other prestarted server
+    healthy too); prints each model's graphs and the memory their capture
+    reserved; yields the port (and the process, ``with_proc``, or the path of
+    its log, ``with_log``) and stops the server on the way out."""
+    srv = _PRESTARTED.pop((str(config), tuple(overrides), extra_toml, tuple(env)), None) \
+        or _start_server(config, tuple(overrides), extra_toml, tuple(env))
     port, proc, log_path = srv["port"], srv["proc"], srv["log"]
     try:
         wait_healthy(proc, port, log_path, n_buckets)
@@ -1495,7 +1610,8 @@ def replay_timing(rt, bucket: tuple, dev: tuple, replays: int = 20, rounds: int 
     return {"replay_device_ms": times[rounds // 2], "replay_device_ms_range": [times[0], times[-1]]}
 
 
-def graph_phase(config: Path, timed: dict, logit_tol, share: bool = False) -> dict:
+def graph_phase(config: Path, timed: dict, logit_tol, share: bool = False,
+                witnessed: bool = False) -> dict:
     """Every model of ``config`` on a runtime whose graphs also keep the
     logits: (a) for every bucket, the graph replay against the eager
     forward of the live slot on the same resident input — indices
@@ -1505,7 +1621,8 @@ def graph_phase(config: Path, timed: dict, logit_tol, share: bool = False) -> di
     eager yardstick (``host_time``), and the replay's device time
     (``replay_timing``); (d) memory_reserved before and after capture.
     ``share``: the models take the run's shared seeded parameters
-    (``share_params``)."""
+    (``share_params``). ``witnessed``: then the retrace witness's negative
+    gates on the timed bucket (``witness_gates``)."""
     import torch
 
     from tpuserve_torch.config import load_config
@@ -1556,6 +1673,8 @@ def graph_phase(config: Path, timed: dict, logit_tol, share: bool = False) -> di
             entry["probe_raw_ms"] = {"after_capture_8": probe_cold,
                                      "warm_8": rt.probe_raw_ms(bucket, iters=8),
                                      "warm_64": rt.probe_raw_ms(bucket, iters=64)}
+            if witnessed:
+                entry["witness"] = witness_gates(rt, model, bucket)
         mem = rt.capture_memory
         print(f"graphs: {mcfg.name}: {rt.captures_total} captures, every bucket's replay "
               f"{'bit-identical to' if all(r['bit_identical'] for r in rows.values()) else 'within tolerance of'}"
@@ -1570,6 +1689,67 @@ def graph_phase(config: Path, timed: dict, logit_tol, share: bool = False) -> di
     return out
 
 
+def witness_gates(rt, model, bucket: tuple) -> dict:
+    """Phase 6's negative gates of the retrace witness, in process on the
+    card, on ``rt`` (BERT-flash's runtime) at ``bucket``: with the witness
+    forced on, the warmup barrier declared and the sync guard armed, a
+    stray ``.item()`` on a replay's CUDA output raises, and ``host_fetch`` of
+    the same outputs does not (and equals a plain ``.cpu()`` with the guard
+    off); a
+    capture after the barrier (one slot's graph dropped, ``ensure_compiled``)
+    raises ``RetraceViolation`` before it starts outside a sanctioned
+    window, and inside one captures with 0 violations more. The guard, the
+    witness and the registry are restored after."""
+    from tpuserve_torch.analysis import witness
+    from tpuserve_torch.utils import retrace
+
+    out = {}
+    witness.force_retrace(True)
+    witness.reset_retrace()
+    witness.declare_warmup_complete()
+    try:
+        check(retrace.arm_sync_guard(), "witness: the sync guard did not arm on the card")
+        outputs = rt.dispatch(bucket, rt.h2d(bucket, seeded_batch(model, bucket, seed=7)))
+        try:
+            outputs["indices"].sum().item()
+            stray = None
+        except RuntimeError as e:
+            stray = str(e)
+        check(stray is not None, "witness: a stray .item() passed the armed sync guard")
+        host = retrace.host_fetch(outputs)
+        out["stray_item_raised"] = stray.splitlines()[0][:120]
+        slot = rt.slots[0]
+        del slot.graphs[bucket]
+        try:
+            rt.ensure_compiled()
+            unsanctioned = None
+        except witness.RetraceViolation as e:
+            unsanctioned = str(e)
+        check(unsanctioned is not None and bucket not in slot.graphs,
+              "witness: a capture after the barrier outside a sanctioned window passed")
+        with witness.sanctioned_compiles():
+            rt.ensure_compiled()
+        snap = witness.retrace_snapshot()
+        check(bucket in slot.graphs and snap["sanctioned_captures"] == 1
+              and len(snap["violations"]) == 1 and snap["violations"][0]["kind"] == "recapture",
+              f"witness: the sanctioned re-capture: {snap}")
+        out.update(capture_violation=unsanctioned.split(" [at ")[0],
+                   sanctioned_captures=snap["sanctioned_captures"],
+                   transfer_windows=snap["transfer_windows"])
+    finally:
+        retrace.disarm_sync_guard()
+        witness.force_retrace(None)
+        witness.reset_retrace()
+    plain = {k: v.cpu().numpy() for k, v in outputs.items()}
+    check(all((host[k] == plain[k]).all() for k in plain),
+          "witness: host_fetch and a plain .cpu() disagree on the same outputs")
+    print(f"witness: armed sync guard: a stray .item() raised ({out['stray_item_raised']}), "
+          f"host_fetch passed; a capture after the barrier raised ({out['capture_violation']}), "
+          f"inside sanctioned_compiles it captured with 0 more violations; "
+          f"{out['transfer_windows']} transfer windows", flush=True)
+    return out
+
+
 def slice_phase() -> dict:
     prestart(LONG_CONFIG, 2)  # phase 7's server boots beside this one
     with serving(CONFIG, n_buckets=6) as port:
@@ -1579,7 +1759,8 @@ def slice_phase() -> dict:
         run["timing"] = serve_timing(port)
         print(json.dumps({"serve": run["timing"]}), flush=True)
     run["forward_ms"] = in_process_check(run["answers"])
-    run["graphs"] = graph_phase(CONFIG, {"bert": (32, 128)}, lambda logits: LOGIT_TOL)
+    run["graphs"] = graph_phase(CONFIG, {"bert": (32, 128)}, lambda logits: LOGIT_TOL,
+                                witnessed=True)
     return run
 
 
@@ -2769,26 +2950,56 @@ def profile_check(data: dict) -> dict:
     return out
 
 
+def witness_check(stats: dict, compiles: float) -> dict:
+    """Phase 11's witness gates on its server's ``/stats``: the lock
+    witness saw locks and no violation; the retrace witness declared its
+    barrier, counted the boot's ``compiles`` as warm-up compiles, armed the
+    sync guard and saw no violation."""
+    rob = stats["robustness"]
+    lock, rt = rob.get("lock_witness"), rob.get("retrace_witness")
+    check(lock is not None and rt is not None, f"/stats robustness lacks a witness: {rob}")
+    check(len(lock["locks"]) > 0 and lock["acquisitions"] > 0 and lock["violations"] == [],
+          f"lock witness: {len(lock['locks'])} nodes, violations {lock['violations'][:3]}")
+    check(rt["barrier_declared"] and rt["warmup_compiles"] == compiles
+          and rt["sync_guard_armed"] and rt["violations"] == [],
+          f"retrace witness: {rt} (the boot ticked {compiles:g} compiles)")
+    out = {"lock_nodes": len(lock["locks"]), "lock_edges": len(lock["edges"]),
+           "lock_acquisitions": lock["acquisitions"], "lock_violations": 0,
+           **{k: rt[k] for k in ("warmup_compiles", "sanctioned_compiles", "warmup_captures",
+                                 "sanctioned_captures", "transfer_windows")},
+           "retrace_violations": 0}
+    print(f"observability: witnessed: lock witness {out['lock_nodes']} nodes, "
+          f"{out['lock_edges']} edges, {out['lock_acquisitions']} acquisitions, 0 violations; "
+          f"retrace witness barrier declared, {out['warmup_compiles']} warm-up compiles = the "
+          f"boot's, {out['warmup_captures']} warm-up captures, sync guard armed, "
+          f"{out['transfer_windows']} transfer windows, 0 violations", flush=True)
+    return out
+
+
 def observability_phase(card: str) -> dict:
-    """Serve bert_flash.toml with a latency objective and a fast sampler:
-    tracing (``trace_tree_check``), then 4 clients of 32-text batches and,
+    """Serve bert_flash.toml with a latency objective and a fast sampler,
+    under the lock and retrace witnesses: tracing (``trace_tree_check``),
+    then 4 clients of 32-text batches (each request's wall time kept) and,
     under that load, history, utilization, alerts and a device profile
     (with a second, concurrent capture refused), K1 counted through the
-    replays; captures and compiles unchanged across it all."""
+    replays; captures and compiles unchanged across it all; the witnesses'
+    blocks clean (``witness_check``)."""
     import threading
 
     t0 = time.perf_counter()
-    with serving(CONFIG, n_buckets=6, extra_toml=OBS_TOML) as port:
+    with serving(CONFIG, n_buckets=6, extra_toml=OBS_TOML, env=WITNESS_ENV) as port:
         out = {"card": card, "trace": trace_tree_check(port)}
         graphs0 = served_graphs(port)["bert"]
         check(call(port, "POST", "/debug/kernels:reset")[0] == 200, "kernel count reset refused")
         before = call(port, "GET", "/metrics")[1].decode()
-        stop, statuses = threading.Event(), []
+        stop, statuses, walls = threading.Event(), [], []
 
         def client():
             while not stop.is_set():
+                t = time.perf_counter()
                 statuses.append(call(port, "POST", "/v1/models/bert:classify",
                                      {"texts": TEXTS_32})[0])
+                walls.append((time.perf_counter() - t) * 1e3)
 
         threads = [threading.Thread(target=client) for _ in range(4)]
         for t in threads:
@@ -2834,14 +3045,19 @@ def observability_phase(card: str) -> dict:
         audit = json.loads(call(port, "GET", "/debug/audit")[1])["audit"]
         outcomes = sorted(a["outcome"] for a in audit if a["verb"] == "profile")
         check(outcomes == ["busy", "ok"], f"the profile audit records: {audit}")
+        out["witness"] = witness_check(stats, graphs0["compiles_total"])
+        walls.sort()
         out.update({"requests_under_load": len(statuses), "batches_under_load": batches,
+                    "request_ms_p50": walls[len(walls) // 2],
+                    "request_ms_p99": walls[min(len(walls) - 1, int(0.99 * len(walls)))],
                     "k1_launches": launches, "device_utilization": util,
                     "batches_rate_per_s": rate, "alert": alerts["models"]["bert"]["state"],
                     "burn": alerts["models"]["bert"]["burn"],
                     "captures_total": graphs1["captures_total"],
                     "compiles_total": graphs1["compiles_total"],
                     "sampler_samples": stats["telemetry"]["samples_total"]})
-    print(f"observability: under 4 clients device_utilization {util:.3f}, batches "
+    print(f"observability: under 4 clients request p50 {out['request_ms_p50']:.2f} ms, p99 "
+          f"{out['request_ms_p99']:.2f} ms, device_utilization {util:.3f}, batches "
           f"{rate:.1f}/s (history), K1 {launches} = 12 x {batches:g} batches, /alerts "
           f"{out['alert']} (burn {out['burn']}), captures and compiles unchanged", flush=True)
     out["phase_s"] = time.perf_counter() - t0
@@ -3739,8 +3955,11 @@ model = "resnet50_rgb"
 
 
 def cli_phase(card: str) -> dict:
-    """Phase 16: ``describe``, ``warmup``, ``bench`` and ``chaos`` through
-    ``python -m tpuserve_torch``, as a user runs them."""
+    """Phase 16: ``describe``, ``warmup``, ``bench``, ``chaos`` and ``lint``
+    through ``python -m tpuserve_torch``, as a user runs them (``lint`` must
+    exit 0 against the port's checked-in baseline on this machine)."""
+    import importlib.util
+
     import torch
 
     t0 = time.perf_counter()
@@ -3750,6 +3969,7 @@ def cli_phase(card: str) -> dict:
         payload = tmp / "texts32.json"
         payload.write_text(json.dumps({"texts": TEXTS_32}))
         describe = Cli(tmp, "describe", "describe")
+        lint = Cli(tmp, "lint", "lint")
         shallow = shallow_config()
         warmup = Cli(tmp, "warmup", "warmup", "--config", str(shallow))
         with serving(shallow, n_buckets=6, overrides=CLI_SERVE_SETS) as port:
@@ -3758,6 +3978,13 @@ def cli_phase(card: str) -> dict:
             name = torch.cuda.get_device_name(0)
             check(rc == 0 and desc["platform"] == "gpu" and any(name in d for d in desc["devices"]),
                   f"describe: {desc}")
+            rc, _ = lint.finish()
+            lint_err = lint.err_path.read_text().strip().splitlines()
+            check(rc == 0, "lint exited 1 against the baseline:\n" + lint.out_path.read_text()[-3000:])
+            out["lint"] = {"exit": rc, "summary": lint_err[-1] if lint_err else "",
+                           "jax_importable": importlib.util.find_spec("jax") is not None}
+            print(f"cli: lint exit {rc}: {out['lint']['summary']} (jax importable here: "
+                  f"{out['lint']['jax_importable']})", flush=True)
             rc, text = warmup.finish()
             check(rc == 0, f"warmup exited {rc}")
             warm = json.loads(text)["bert"]
@@ -6219,7 +6446,9 @@ def _fleet_checks(specs: list, direct: list[bytes] | None, out: dict) -> None:
     """Phase 23's checks on examples/bert_fleet.toml's server (and the
     direct server in ``specs`` when ``direct`` is None): cold boot, the
     warming shed, :warm, the answers and K1, :demote and the memory it
-    returns, the re-warm under the neighbours' load."""
+    returns, the re-warm under the neighbours' load; under the retrace
+    witness, every capture and compile of both warms sanctioned, with 0
+    violations."""
     with serving_together(*specs) as served:
         port, proc = served[0]
         if direct is None:
@@ -6280,6 +6509,18 @@ def _fleet_checks(specs: list, direct: list[bytes] | None, out: dict) -> None:
               and rewarm["captures_total"] == warm["captures_total"] * 2,
               f"fleet: re-warm compiles/captures {rewarm} against the first warm's {warm}")
         memory["rewarmed"] = fleet_memory(port, proc.pid)
+        rw = json.loads(call(port, "GET", "/stats")[1])["robustness"].get("retrace_witness")
+        check(rw is not None and rw["barrier_declared"] and rw["sync_guard_armed"]
+              and rw["violations"] == []
+              and rw["sanctioned_captures"] == rewarm["captures_total"]
+              and rw["sanctioned_compiles"] == rewarm["compiles_total"],
+              f"fleet: retrace witness {rw} against bert's {rewarm}")
+        out["retrace_witness"] = {k: rw[k] for k in (
+            "warmup_compiles", "sanctioned_compiles", "warmup_captures", "sanctioned_captures",
+            "transfer_windows")}
+        print(f"fleet: retrace witness: both warms' {rw['sanctioned_captures']} captures and "
+              f"{rw['sanctioned_compiles']} compiles sanctioned, {rw['transfer_windows']} "
+              "transfer windows, 0 violations", flush=True)
         audit = [(r["verb"], r["outcome"])
                  for r in json.loads(call(port, "GET", "/debug/audit")[1])["audit"]]
         check(audit == [("warm", "ok"), ("demote", "ok"), ("warm", "ok")],
@@ -6310,7 +6551,8 @@ def fleet_phase(card: str, direct: list[bytes] | None = None,
                  "layers": FLEET_LAYERS}
     with tempfile.TemporaryDirectory() as tmp_name:
         drill = drill or start_fleet_drill(Path(tmp_name))
-        specs = [(FLEET_CONFIG, {"n_buckets": FLEET_BUCKETS, "with_proc": True})]
+        specs = [(FLEET_CONFIG, {"n_buckets": FLEET_BUCKETS, "with_proc": True,
+                                 "env": RETRACE_ENV})]
         if direct is None:
             specs.append((CONFIG, {"n_buckets": 6, "with_proc": True}))
         try:
@@ -6682,6 +6924,8 @@ def main() -> int:
               "run it from the root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    adopt_orphans()
+    left: dict[int, str] = {}
     try:
         card = card_line()
         print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
@@ -6738,6 +6982,16 @@ def main() -> int:
         return 1
     finally:
         stop_prestarted()
+        t_sweep, running = time.perf_counter(), len(descendants())
+        left = stop_descendants()
+        print(f"smoke: {running} processes below the smoke after the last phase; "
+              f"{running - len(left)} ended on their own within "
+              f"{time.perf_counter() - t_sweep:.1f} s, {len(left)} killed", flush=True)
+    if left:
+        print("chip_smoke: FAIL: processes still running "
+              f"{ORPHAN_GRACE_S:g} s after the last phase (killed): "
+              + "; ".join(f"{pid} {cmd}" for pid, cmd in left.items()), file=sys.stderr)
+        return 1
     vision_graphs = vision.pop("graphs")
     robustness["first_request_resnet50"] = vision.pop("first_request")
     # Where a (32, S) batch's device time goes: 12 K1 launches of one forward.

@@ -42,7 +42,9 @@ still refuses:
   served when written;
 - deferred mode's model keys (``session_mode`` and the four ``relay_*``),
   typed since deferred mode was ported, hold the reference's defaults and
-  are served when written.
+  are served when written;
+- ``profiler_port``, typed since the remote-profile listener was ported,
+  holds the reference's default and is served when written.
 
 Exact: the values are compared with ``==``.
 """
@@ -109,6 +111,9 @@ def _port_refuses(name: str, value) -> bool:
         assert key not in tconfig._MODEL_UNPORTED
     elif name.startswith("model "):
         cfg.models[0].unported = {name[len("model "):]: value}
+    elif name in SERVED_SERVER_KEYS:
+        setattr(cfg, name, value)
+        assert name not in tconfig._SERVER_UNPORTED
     else:
         cfg.unported = {name: value}
     return bool(tconfig.unported_settings(cfg))
@@ -135,7 +140,11 @@ SERVED_FLEET_KEYS = ["[autopilot] enabled", "[scheduler] enabled", "[tenants] en
 SERVED_DEFERRED_KEYS = [f"model {k}" for k in (
     "relay_epoch_images", "relay_epoch_ms", "relay_slots", "relay_workers", "session_mode")]
 
-REFUSED = sorted(tconfig._SERVER_UNPORTED) \
+# The remote-profile listener's key: refused until it was ported, served
+# since.
+SERVED_SERVER_KEYS = ["profiler_port"]
+
+REFUSED = sorted(tconfig._SERVER_UNPORTED) + SERVED_SERVER_KEYS \
     + [f"model {k}" for k in sorted(tconfig._MODEL_UNPORTED)] \
     + sorted({_switch(t) for t in tconfig.UNPORTED_TABLES}) + SERVED_TIER_KEYS \
     + SERVED_FLEET_KEYS + SERVED_DEFERRED_KEYS

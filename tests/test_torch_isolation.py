@@ -273,7 +273,10 @@ MODEL_TOML = '[[model]]\nname = "bert"\nfamily = "bert"\nparallelism = "single"\
     pytest.param("[router]\nrouters = 2\n", None,
                  id="[events]\nsnapshot_path = \"s.json\"\n-[events] snapshot_path = 's.json'"),
     ("[parallel]\nmode = \"replica\"\n", "[parallel] mode = 'replica'"),
-    ("profiler_port = 9999\n", "profiler_port = 9999"),
+    # profiler_port is served since the remote-profile listener was ported:
+    # this case (keeping its id) holds that the file builds and nothing is
+    # refused.
+    pytest.param("profiler_port = 9999\n", None, id="profiler_port = 9999\n-profiler_port = 9999"),
     (MODEL_TOML + "pp = 2\n", "model bert: pp = 2"),
     # [tenants] is served since the tenants were ported: this case (keeping
     # its id) holds that the file builds and nothing is refused.

@@ -672,8 +672,14 @@ def test_demote_endpoint_http_and_audit():
         seen.append(await side.call("POST", "/admin/models/pinned:demote"))
         seen.append((side.state.scheduler.state_of("toy"),
                      side.state.runtimes["toy"].params_resident))
+        # The re-warm's shed hints the last warm's own wall time (fleet.py:
+        # max(1, ceil(last_warm_s))), which each package measures on its
+        # own clock: held within each side, not across them.
+        stats = (await side.call("GET", "/stats"))[1]
+        last_warm_ms = stats["scheduler"]["models"]["toy"]["last_warm_ms"]
+        hint = str(max(1, math.ceil(last_warm_ms / 1000)))
         st, body, ra = await side.call("POST", "/v1/models/toy:predict", npy_image(), NPY)
-        seen.append((st, body.get("reason"), ra))
+        seen.append((st, body.get("reason"), ra == hint))
         audit = (await side.call("GET", "/debug/audit"))[1]["audit"]
         seen.append(sorted((r["verb"], r["target"], r["outcome"], r.get("demoted"))
                            for r in audit))
@@ -687,7 +693,7 @@ def test_demote_endpoint_http_and_audit():
     assert seen[1] == (200, {"model": "toy", "demoted": True}, None)
     assert seen[2] == (200, {"model": "toy", "demoted": False}, None)
     assert seen[3] == (200, {"model": "pinned", "demoted": False}, None)
-    assert seen[4] == ("cold", False) and seen[5] == (503, "model_warming", "1")
+    assert seen[4] == ("cold", False) and seen[5] == (503, "model_warming", True)
     assert ("demote", "toy", "ok", True) in seen[6] and ("warm", "toy", "ok", None) in seen[6]
 
 

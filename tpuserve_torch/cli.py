@@ -13,6 +13,8 @@ Usage::
     python -m tpuserve_torch describe [--device ...]
     python -m tpuserve_torch import-model --saved-model <SavedModel dir | .pb | torch ckpt>
                                       --family resnet50 --out weights.npz [--opt k=v ...]
+    python -m tpuserve_torch lint     [paths ...] [--no-baseline] [--update-baseline]
+                                      [--no-drift] [--json]
 
 Flags, names and defaults are the reference's. The subcommands that build a
 model (``serve``, ``chaos``, ``warmup``) and ``describe`` run on the current
@@ -42,8 +44,13 @@ TensorFlow is installed, and the card's machine serves the ``.npz``. Its
 with exit code 2 (ROADMAP.md queue 1 item 14b): serve the float ``.npz``
 with ``quantize = "int8"``.
 
+``lint`` (``tpuserve_torch.analysis.cli``) runs the reference's analysis
+passes over ``tpuserve_torch/`` against the port's checked-in baseline:
+exit 0 clean, 1 on a new finding, 2 on a bad path. It imports no torch, so
+it runs on a bare Python.
+
 Not ported, refused by name with exit code 2: ``finetune-det`` (ROADMAP.md
-queue 1 item 13) and ``lint`` (item 12).
+queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -56,8 +63,6 @@ import sys
 # is refused with.
 UNPORTED_COMMANDS = {
     "finetune-det": "not yet ported: ROADMAP.md queue 1 item 13 (training)",
-    "lint": "not yet ported: ROADMAP.md queue 1 item 12 (analysis/ pointed at "
-            "tpuserve_torch/)",
 }
 # The drills that serve a router over worker processes.
 PROCESS_DRILLS = ("worker_kill", "host_kill", "stream_kill", "autopilot")
@@ -272,6 +277,14 @@ def main(argv: list[str] | None = None) -> int:
                        help="the reference's weight-only int8 tree: not ported "
                             "(serve the float .npz with quantize = \"int8\")")
 
+    p_lint = sub.add_parser(
+        "lint",
+        help="concurrency, capture-discipline, ledger and drift analysis over "
+             "tpuserve_torch/; fails on findings not in the checked-in baseline")
+    from tpuserve_torch.analysis.cli import add_lint_args
+
+    add_lint_args(p_lint)
+
     for name, why in UNPORTED_COMMANDS.items():
         sub.add_parser(name, help=why)
 
@@ -282,6 +295,11 @@ def main(argv: list[str] | None = None) -> int:
         return _refuse(args.cmd, UNPORTED_COMMANDS[args.cmd])
     if extra:
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
+
+    if args.cmd == "lint":
+        from tpuserve_torch.analysis.cli import run_lint
+
+        return run_lint(args)
 
     if args.cmd == "serve":
         from tpuserve_torch.server import serve

@@ -14,8 +14,8 @@ the tenants' :class:`TenantsConfig` (with its :class:`TenantConfig`
 entries), the fleet controller's :class:`AutopilotConfig`, the per-model
 :class:`SloConfig` and the top-level :class:`ServerConfig` fields, with the
 JAX package's defaults and checks. Every other setting the JAX package
-knows — its other tables (``[parallel]``, ``[distributed]``) and the keys
-the port has no use for yet (``profiler_port``, ``pp``) — parses into the
+knows — its other tables (``[parallel]``, ``[distributed]``) and the key
+the port has no use for yet (``pp``) — parses into the
 ``unported`` dict of its ``ServerConfig`` or ``ModelConfig`` as a plain
 value.
 :func:`unported_settings` names those that ask for behaviour the port
@@ -62,8 +62,9 @@ _PARALLEL_OFF: dict[str, tuple] = {"mode": ("", "single")}
 _DISTRIBUTED_OFF: dict[str, tuple] = {"coordinator_address": ("",)}
 # The JAX package's top-level and per-model keys the port does not serve
 # yet, each with the values that ask for nothing the port lacks (empty: no
-# such value, any setting is refused).
-_SERVER_UNPORTED: dict[str, tuple] = {"profiler_port": (0,)}
+# such value, any setting is refused). No top-level key is left since
+# profiler_port was ported.
+_SERVER_UNPORTED: dict[str, tuple] = {}
 _MODEL_UNPORTED: dict[str, tuple] = {"pp": (0, 1)}
 
 
@@ -1025,6 +1026,13 @@ class ServerConfig:
     # Decode request bodies on the accept loop instead of the threadpool
     # (a single-core host saves the executor hop).
     decode_inline: bool = False
+    # The remote-profile listener (the reference's jax.profiler.start_server
+    # port): > 0 opens a second HTTP listener on this port whose
+    # POST /profile?duration_ms= answers the merged trace POST
+    # /debug/profile gives, through the same one-at-a-time capture (409
+    # while one is armed). 0 disables. Behind the router each worker's
+    # listener takes this port + its worker id.
+    profiler_port: int = 0
     # Directory the hand-written CUDA kernels build into and load from (the
     # port's counterpart of the reference's persistent XLA compilation
     # cache); "" = build/kernels at the root of the checkout.

@@ -50,6 +50,7 @@ from typing import Any, Awaitable, Callable
 
 import numpy as np
 
+from tpuserve_torch.analysis import witness
 from tpuserve_torch.config import LifecycleConfig
 from tpuserve_torch.obs import Metrics
 from tpuserve_torch.runtime import NaNDetected, StagedParams
@@ -145,9 +146,12 @@ class ModelLifecycle:
 
             # Every configured bucket's graphs exist before the staged canary
             # runs; steady state this adds nothing (runtime_compiles_total
-            # and the captures stay put across reload churn).
+            # and the captures stay put across reload churn). Sanctioned for
+            # the retrace witness: warming a cold or demoted model compiles
+            # and captures by design; steady state the window sees neither.
             try:
-                n_new = await loop.run_in_executor(None, self.runtime.ensure_compiled)
+                with witness.sanctioned_compiles():
+                    n_new = await loop.run_in_executor(None, self.runtime.ensure_compiled)
                 if n_new:
                     log.info("%s: captured %d missing variant(s) at stage time",
                              self.name, n_new)
@@ -242,6 +246,8 @@ class ModelLifecycle:
         item = self.model.canary_item()
         bucket = self.model.bucket_for(1, group=self.model.group_key(item))
         host_batch = self.model.assemble([item], bucket)
+        # runtime.fetch is the blessed readback (retrace.host_fetch): the
+        # comparison below reads host arrays only.
         out = self.runtime.fetch(self.runtime.run(bucket, host_batch,
                                                   params_override=staged))
         bad = [k for k, a in sorted(out.items())

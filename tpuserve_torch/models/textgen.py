@@ -471,7 +471,7 @@ class TextGenServing(GenerativeModel):
         # The state block's own keys select the path: a paged engine
         # allocates the kv_page_signature block, a dense one the
         # state_signature block.
-        if "kp" in state:
+        if "kp" in state:  # tps-ok[TPS503]: dict structure check at capture time
             return self._paged_decode_step(module, state)
         return self._decode_step(module, state)
 

@@ -103,6 +103,7 @@ import numpy as np
 import torch
 
 from tpuserve_torch import quantize
+from tpuserve_torch.analysis import witness
 from tpuserve_torch.config import ModelConfig, ServerConfig
 from tpuserve_torch.faults import FaultInjected
 from tpuserve_torch.models.base import DTYPES, ServingModel
@@ -112,6 +113,7 @@ from tpuserve_torch.ops import flash_attention as fa
 from tpuserve_torch.parallel.mesh import MeshPlan, make_mesh
 from tpuserve_torch.savedmodel import IntegrityError
 from tpuserve_torch.utils.locks import new_lock
+from tpuserve_torch.utils.retrace import allow_transfers, host_fetch
 from tpuserve_torch.utils.trees import map_leaves, nonfinite_paths, tree_summary
 
 log = logging.getLogger("tpuserve_torch.runtime")
@@ -498,6 +500,10 @@ class ModelRuntime:
         self._c_variant_batches[bucket] = self.metrics.counter(
             f"runtime_variant_batches_total{{model={self.model.name},variant={key.label}}}")
         self._c_compiles.inc()
+        # Retrace witness: a compile after the warmup barrier raises here,
+        # with the variant registered and the counter ticked, as the
+        # reference's runtime does.
+        witness.note_compile(self.model.name, key.label)
         self._g_variants.set(len(self.variants))
 
     def _capture_missing(self, bucket: tuple) -> int:
@@ -515,13 +521,23 @@ class ModelRuntime:
         # now, so that no request grows the allocator (a first request's
         # cudaMalloc took 17-124 ms on the H100 machine; chip_smoke.py
         # phase 14's first requests).
-        self.h2d(bucket, self._zeros(bucket))
-        self._copy_stream.synchronize()
+        with allow_transfers():
+            self.h2d(bucket, self._zeros(bucket))
+            self._copy_stream.synchronize()
         return len(missing)
 
     def _capture(self, slot: Slot, bucket: tuple) -> Graph:
         """One eager warm-up of ``bucket`` on ``slot`` and then its capture,
-        both on the runtime's capture stream; a failed capture raises."""
+        both on the runtime's capture stream; a failed capture raises. The
+        retrace witness hears of it first (a capture after the warmup
+        barrier, outside a sanctioned window, raises before it starts);
+        capturing syncs the host, so it runs in an ``allow_transfers``
+        window."""
+        witness.note_capture(self.model.name, self.variant_key(bucket).label)
+        with allow_transfers():
+            return self._warm_and_capture(slot, bucket)
+
+    def _warm_and_capture(self, slot: Slot, bucket: tuple) -> Graph:
         inputs = tuple(torch.from_numpy(a).to(self.device) for a in self._zeros(bucket))
         stream = self._capture_stream
         stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -643,8 +659,11 @@ class ModelRuntime:
 
     @staticmethod
     def fetch(outputs: dict) -> dict:
-        """Block for the D2H copy of the outputs; call off the event loop."""
-        return {k: v.cpu().numpy() for k, v in outputs.items()}
+        """Block for the D2H copy of the outputs; call off the event loop.
+        Goes through the retrace witness's blessed readback (``host_fetch``:
+        pinned copies and one event wait), which an armed sync guard never
+        flags."""
+        return host_fetch(outputs)
 
     def _fetch_finite(self, outputs: dict) -> dict:
         """``fetch`` under debug_nans: FloatingPointError when a floating
@@ -705,7 +724,7 @@ class ModelRuntime:
                     for spec in _flatten(prog.arg_specs))
             for i, slot in enumerate(self.slots):
                 for block in range(N_BLOCKS):
-                    prog.graphs[(i, block)] = self._capture_program(prog, slot, block)
+                    prog.graphs[(i, block)] = self._capture_program(prog, slot, block, width)
                     captures += 1
             for block in range(N_BLOCKS):
                 self.zero_state(block)
@@ -718,12 +737,16 @@ class ModelRuntime:
             f"runtime_variant_batches_total{{model={self.model.name},variant={key.label}}}")
         self.gen_programs[tag] = prog
         self._c_compiles.inc()
+        witness.note_compile(tag, key.label)  # the retrace witness (as above)
         self._g_variants.set(len(self.variants))
         return prog
 
-    def _capture_program(self, prog: Program, slot: Slot, block: int) -> Graph:
+    def _capture_program(self, prog: Program, slot: Slot, block: int, width: int) -> Graph:
         """One eager warm-up of ``prog`` on (``slot``, ``block``) and then
-        its capture, both on the runtime's capture stream."""
+        its capture, both on the runtime's capture stream, heard by the
+        retrace witness first, as ``_capture``. Programs register at
+        engine start, before the warmup barrier: the sync guard is off."""
+        witness.note_capture(prog.tag, self.variant_key((prog.tag, width)).label)
         state = self.state_blocks[block]
         stream = self._capture_stream
         stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -791,16 +814,10 @@ class ModelRuntime:
         return host
 
     def fetch_program(self, out: Any) -> Any:
-        """Block for a program's outputs on the host (numpy), each through
-        one copy into pinned memory on CUDA; call off the event loop."""
-        if self.device.type != "cuda":
-            return _map_out(out, lambda t: t.numpy().copy())
-        host = _map_out(out, lambda t: torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                        .copy_(t, non_blocking=True))
-        done = torch.cuda.Event()
-        done.record()
-        done.synchronize()
-        return _map_out(host, lambda t: t.numpy())
+        """Block for a program's outputs on the host (numpy) through
+        ``host_fetch`` (one pinned copy per output and one event wait on
+        CUDA); call off the event loop."""
+        return host_fetch(out)
 
     # -- raw-forward probes ---------------------------------------------------
     def probe_raw_ms(self, bucket: tuple, iters: int = 8) -> float:
@@ -876,6 +893,13 @@ class ModelRuntime:
         except (KeyError, TypeError, ValueError) as e:
             raise ValueError(f"reloaded weights do not match the module: {e!r}; "
                              "old params kept") from e
+        # The candidate lands on the card through blocking copies and a
+        # stream sync: a deliberate transfer under an armed sync guard.
+        with allow_transfers():
+            return self._stage_slot(state_dict)
+
+    def _stage_slot(self, state_dict: dict[str, torch.Tensor]) -> StagedParams:
+        """``stage_params``' device half: the candidate into a free slot."""
         if not self.slots:
             return self._stage_cold(state_dict)
         candidate = slot_tensors(self._prepare(state_dict))

@@ -146,7 +146,22 @@ launches, reported at each epoch's readback, are summed into ``/stats``
 ``kernels``. When every model is recycle this process never initializes
 CUDA (``/stats`` ``cuda_initialized``): the workers own the card.
 
-Not ported yet (ROADMAP.md queue 1): ``profiler_port`` (item 12).
+The witnesses (``tpuserve_torch.analysis.witness``), as the reference
+arms them: with ``TPUSERVE_LOCK_WITNESS=1`` every lock built through
+``utils.locks`` is a witness wrapper and ``start`` (and each ingest loop)
+installs the task factory that checks for a threading lock held across an
+``await``; with ``TPUSERVE_RETRACE_WITNESS=1`` ``build`` declares the
+warmup barrier once every model is warm and arms the sync guard
+(``utils.retrace``): a compile or a graph capture after it outside the
+lifecycle's sanctioned stage-time window raises ``RetraceViolation``, and
+so does a synchronizing CUDA call outside ``host_fetch`` or an
+``allow_transfers`` window. ``/stats`` ``robustness`` carries
+``lock_witness`` and ``retrace_witness`` while each is on.
+
+``profiler_port`` > 0 opens a second listener on that port (the
+reference's ``jax.profiler.start_server`` port): ``POST
+/profile?duration_ms=`` answers the merged trace ``POST /debug/profile``
+gives, through the same one-at-a-time capture (409 while one is armed).
 """
 
 from __future__ import annotations
@@ -172,6 +187,7 @@ import torch
 
 from tpuserve_torch import models as modelzoo
 from tpuserve_torch import preproc
+from tpuserve_torch.analysis import witness
 from tpuserve_torch.batcher import (DeadlineExceeded, ModelBatcher, QueueFull,
                                     clamp_retry_after_s)
 from tpuserve_torch.bench.roofline import compute_split, phase_p50
@@ -196,6 +212,7 @@ from tpuserve_torch.telemetry.events import (AuditLog, BlackBoxWriter, EventLog,
 from tpuserve_torch.telemetry.profile import CaptureBusy, ProfileCapture
 from tpuserve_torch.telemetry.slo import SloEngine, UtilizationDeriver
 from tpuserve_torch.telemetry.store import MetricSampler, TimeSeriesStore
+from tpuserve_torch.utils import retrace
 
 log = logging.getLogger("tpuserve_torch.server")
 
@@ -560,7 +577,11 @@ class ServerState:
         engine's programs in place of the buckets; for a ``cold_start``
         model under the scheduler, nothing on the device (its first warm
         stages it); for a recycle-mode model, a deferred pool with its
-        workers warm."""
+        workers warm. Then the retrace witness's warmup barrier."""
+        # Retrace witness: every build starts a fresh warmup window; the
+        # barrier is declared once every model below is warm, after which an
+        # unsanctioned compile or capture raises.
+        witness.reset_retrace()
         for mcfg in self.cfg.models:
             t0 = time.perf_counter()
             model = modelzoo.build(mcfg)
@@ -608,6 +629,14 @@ class ServerState:
             self.runtimes[mcfg.name] = rt
             log.info("model %s ready in %.1fs: %s", mcfg.name,
                      time.perf_counter() - t0, rt.describe())
+        # Startup done: from here on the steady-state compile- and
+        # capture-delta-0 invariant is live. Under TPUSERVE_RETRACE_WITNESS=1
+        # an unsanctioned compile or capture raises RetraceViolation naming
+        # its (tag, variant), and a synchronizing CUDA call outside
+        # host_fetch or an allow_transfers window raises (utils.retrace).
+        witness.declare_warmup_complete()
+        if retrace.arm_sync_guard():
+            log.info("retrace witness armed (TPUSERVE_RETRACE_WITNESS): sync guard on")
 
     def ingest_handles(self, index: int) -> IngestHandles:
         """Prebound ingest counters for accept loop ``index`` (idempotent)."""
@@ -618,6 +647,12 @@ class ServerState:
 
     async def start(self) -> None:
         self.main_loop = asyncio.get_running_loop()
+        # With TPUSERVE_LOCK_WITNESS=1 every task created on this loop checks
+        # at each suspension that no witnessed threading lock is held across
+        # an await, and every lock built via utils.locks feeds the global
+        # lock-order graph.
+        if witness.maybe_install():
+            log.info("lock witness installed (TPUSERVE_LOCK_WITNESS)")
         self.connections = Connections()
         self.ingest_handles(0)
         preproc.set_native_fallback_hook(self._note_native_fallback)
@@ -1098,6 +1133,14 @@ class ServerState:
         }
         if self.injector is not None:
             out["robustness"]["faults"] = self.injector.snapshot()
+        if witness.enabled():
+            # The observed lock-order graph and any violations.
+            out["robustness"]["lock_witness"] = witness.snapshot()
+        if witness.retrace_enabled():
+            # The warmup barrier, the compile and capture ledger, the
+            # allow_transfers windows and whether the sync guard is set.
+            out["robustness"]["retrace_witness"] = dict(
+                witness.retrace_snapshot(), sync_guard_armed=retrace.sync_guard_armed())
         # Flight-recorder occupancy (the trees are at /debug/slow and
         # /debug/trace?trace_id=).
         out["trace"] = self.recorder.stats()
@@ -1896,6 +1939,39 @@ async def _listen(state: ServerState, conns: Connections, ingest: IngestHandles,
         host, port, limit=_MAX_HEAD, reuse_port=reuse_port or None)
 
 
+class _ProfileDoor:
+    """The routes of the ``profiler_port`` listener: ``POST
+    /profile?duration_ms=`` alone, answered by the server's
+    ``debug_profile`` (the same merged trace and one-at-a-time capture)."""
+
+    def __init__(self, state: ServerState) -> None:
+        self.state = state
+
+    async def handle(self, req: Request, ingest: IngestHandles) -> Response:
+        await req.read()
+        if req.path != "/profile":
+            return _text(404)
+        if req.method != "POST":
+            resp = _text(405)
+            resp.headers["Allow"] = "POST"
+            return resp
+        return await self.state.debug_profile(req)
+
+
+async def _listen_profiler(state: ServerState, host: str) -> asyncio.AbstractServer:
+    """The remote-profile listener on ``profiler_port`` (the reference's
+    ``jax.profiler.start_server``), on the main loop beside the serving
+    port; its connections are closed at shutdown with the others'."""
+    door, conns = _ProfileDoor(state), Connections()
+    server = await asyncio.start_server(
+        lambda r, w: _serve_connection(door, conns, state.ingest_handles(0), r, w),
+        host, state.cfg.profiler_port, limit=_MAX_HEAD)
+    server.connections = conns
+    log.info("remote-profile listener on %s:%d (POST /profile?duration_ms=)",
+             host, state.cfg.profiler_port)
+    return server
+
+
 class IngestLoop(threading.Thread):
     """One more accept loop: its own thread, event loop and SO_REUSEPORT
     listener on the serving port. The kernel spreads connections across the
@@ -1929,6 +2005,9 @@ class IngestLoop(threading.Thread):
             loop.close()
 
     async def _serve(self) -> None:
+        # The lock witness instruments this loop too: a threading lock held
+        # across an await on an ingest loop is just as much a fault.
+        witness.maybe_install()
         conns = Connections()
         server = await _listen(self.state, conns, self.state.ingest_handles(self.index),
                                self.host, self.port, reuse_port=True)
@@ -1997,6 +2076,8 @@ async def start_server(state: ServerState, host: str | None = None,
     server.ingest_threads = threads
     for t in threads:
         await asyncio.get_running_loop().run_in_executor(None, t.wait_ready)
+    server.profiler = (await _listen_profiler(state, host)
+                       if state.cfg.profiler_port else None)
     return server
 
 
@@ -2006,6 +2087,11 @@ async def stop_server(state: ServerState, server: asyncio.AbstractServer) -> Non
     close the client connections still open."""
     state.draining = True
     await stop_ingest_loops(getattr(server, "ingest_threads", []))
+    profiler = getattr(server, "profiler", None)
+    if profiler is not None:
+        profiler.close()
+        await profiler.connections.close(5.0)
+        await profiler.wait_closed()
     server.close()
     await state.stop()
     await state.connections.close(5.0)

@@ -21,7 +21,8 @@ never a 5xx. One capture at a time (``CaptureBusy`` -> 409): the profiler
 is process-global state. The blocking start, stop and export run on one
 executor thread of their own (the profiler is enabled and disabled from the
 same thread); the window's wait is an ``asyncio.sleep``, so nothing here
-stalls the serving loop.
+stalls the serving loop. The ``profiler_port`` listener's ``POST
+/profile`` runs the same capture.
 """
 
 from __future__ import annotations

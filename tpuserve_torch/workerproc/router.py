@@ -118,6 +118,7 @@ from urllib.parse import urlencode
 import torch
 
 from tpuserve_torch import frame
+from tpuserve_torch.analysis import witness
 from tpuserve_torch.bench.client import ClientError, ClientSession, ClientTimeout
 from tpuserve_torch.cache import ModelCache
 from tpuserve_torch.config import ServerConfig, SloConfig
@@ -422,6 +423,8 @@ class RouterState:
 
     # -- lifecycle -----------------------------------------------------------
     async def start(self) -> None:
+        if witness.maybe_install():
+            log.info("lock witness installed (TPUSERVE_LOCK_WITNESS)")
         self._session = ClientSession(limit=0, timeout_s=120.0,
                                       connect_timeout_s=self.rcfg.connect_timeout_ms / 1e3)
         self.connections = Connections()
@@ -777,7 +780,7 @@ class RouterState:
                         continue
                     exc = t.exception()
                     if exc is None:
-                        ans = t.result()
+                        ans = await t  # already done: no suspension
                         self.supervisor.note_success(w_done)
                         if ans.status != 503:
                             # Definitive: the worker admitted and answered
@@ -1712,6 +1715,8 @@ class RouterState:
         }
         if self.burn_shed:
             out["robustness"]["burn_shed"] = sorted(self.burn_shed)
+        if witness.enabled():
+            out["robustness"]["lock_witness"] = witness.snapshot()
         out["workers"] = self.supervisor.stats()
         out["router"] = {"router_id": self.router_id, "is_primary": self.is_primary,
                          "generations": dict(self.generations),

@@ -58,6 +58,8 @@ def worker_config(cfg: ServerConfig, worker_id: int) -> ServerConfig:
     wcfg.host = cfg.worker.host
     wcfg.port = (cfg.worker.port_base + worker_id
                  if cfg.worker.port_base else 0)
+    # One remote-profile listener per worker, on consecutive ports.
+    wcfg.profiler_port = cfg.profiler_port + worker_id if cfg.profiler_port else 0
     if cfg.worker.drain_timeout_s > 0:
         wcfg.drain_timeout_s = cfg.worker.drain_timeout_s
     # Router-owned layers never run in the worker: the router admits
