@@ -45,6 +45,26 @@ Phases (any failure exits non-zero before the result line):
    card, at (2, 1024, 12, 64) bf16 with rank 2's key block fully masked and
    lane 1 fully padded, against plain dense attention in float32 (atol =
    rtol = 1.6e-2, as K1's bf16 check).
+5b. Mesh modes on one card (``mesh_phase``, in process, run beside phases
+   9 and 12): full-width BERT-flash (``examples/bert_flash.toml``, bucket (32,
+   128), one parameter slot) with ``mesh.visible_devices`` patched to four
+   ranks on ``cuda:0``, in single mode and as ``sharded`` with a data axis
+   of 2, ``replica`` x2, ``tp = 2`` and ``pipeline`` with ``pp = 2``: each
+   replica's answer equals single mode's bytes; the sharded, tensor-parallel
+   and pipelined logits lie within ``LOGIT_TOL`` of single mode's, with
+   top-5 equal where those separate the ranks by more than it; K1's
+   launches by shape over one batch per replica are 24 at (16, 128, H 12),
+   24 at (32, 128, H 12), 24 at (32, 128, H 6) and 48 at (8, 128, H 12);
+   compiles and captures do not move over 64 dispatches; every replica
+   serves. Then ``tp = 2`` under ``quantize = "int8"`` against single
+   int8 (the logit rule, K1's launches); textgen
+   (``examples/textgen_flash.toml`` at ``SHALLOW_LAYERS``) on a replica-2
+   ``GenEngineGroup`` gives the single engine's tokens with both replicas
+   stepping, and its sharded decode (``tp = 2``, paged KV, float32) the
+   single locked batch's tokens under phase 17's ``TG_MARGIN`` rule. K1 is
+   timed at the three new shapes once phases 9 and 12 have stopped their
+   servers (``mesh_k1_phase``), with the card to itself. Each mode's replay
+   device time beside single mode's is printed; nothing is gated on it.
 6. Slice: start ``python -m tpuserve_torch serve`` on a full-width BERT-base
    config (12 layers, d_model 768, 12 heads, d_ff 3072, vocab 30522, bf16,
    attention = "flash", seq buckets [64, 128], batch buckets [1, 8, 32],
@@ -127,7 +147,18 @@ Phases (any failure exits non-zero before the result line):
    compile counts unchanged across all of it (``lifecycle_drill``); the
    drill must stand in ``/debug/audit`` (reload ok, rollback ok, the two
    rejections with their gates, reload ok) and in ``/debug/events``
-   (``published`` twice, ``rolled_back``, ``reload_rejected`` twice).
+   (``published`` twice, ``rolled_back``, ``reload_rejected`` twice). The
+   BERT copy drops its ``parallelism = "single"`` (under
+   ``build/smoke/sharded/``) and serves the reference's default,
+   ``"sharded"``, on a one-device mesh: ``/stats`` ``parallel`` reads
+   ``n_chips`` 1 and ``replicas`` 1, ``topology`` platform ``gpu`` and 1
+   local device. ResNet-50 then takes a further ``:reload`` of the seed-1
+   tree written int8-quantized (``quantize.quantize_tree``, what
+   ``import-model --quantize int8`` applies, on the seed-1 tree as bf16
+   holds it): version 4, the first answers' bytes, no new capture (one
+   more reload ok in the audit, ``published`` three times). The two
+   drills run side by side, and phase 12 runs beside them (all three only
+   drive servers over HTTP).
    Phase 8 also times the first request of each bucket stage by stage
    (``stage_totals``: the server's per-stage histogram sums around one
    request) against eight repeats, and holds each stage but the queue
@@ -181,6 +212,7 @@ Phases (any failure exits non-zero before the result line):
    off, both served at once, 32-text
    batches from 1 client and from 4, measured on, off, off, on: p50 and
    p99 and the mean time per stage, printed; nothing is gated on them.
+   It runs beside phase 9's drills, whose reloads share the card.
 13. MobileNetV3-Large (``mobilenet_phase``): serve
    ``examples/mobilenetv3.toml`` (full width, bf16, yuv420 at 224, batch
    buckets [1, 2, 4, 8]); with the counts at 0 framed bodies of 1, 2, 4 and
@@ -255,7 +287,10 @@ Phases (any failure exits non-zero before the result line):
    6's replay device time of the same bucket (12 layers). ``lint`` runs
    as a user runs it, on the card's machine: exit 0 against the port's
    checked-in baseline (it imports neither JAX nor torch; whether a
-   ``jax`` is importable there is printed).
+   ``jax`` is importable there is printed). It runs after phase 14,
+   beside phase 17 (it only drives subprocesses; phase 17's gates are of
+   answers and counts, and its printed device times, its K1 timings
+   included, are taken with phase 16's servers on the card).
 17. Text generation (``textgen_phase``): K1 against its plain version at
    the prefill's shapes ((1, 256) inserts, (32, 256) locked batches, bf16,
    padded keys, and a one-token prompt), timed with its bound, plain
@@ -306,7 +341,9 @@ Phases (any failure exits non-zero before the result line):
    17's unary tokens/s. Then a paged server with ``stream_disconnect`` at
    0.2: every injected stream torn (injections = torn streams > 0), every
    other one whole and equal to the unary text, then ``gen_active_slots``
-   0 and ``gen_kv_pages_free`` back to the pool.
+   0 and ``gen_kv_pages_free`` back to the pool. It runs right after phase
+   17, beside phase 15 (it only drives servers; phase 15's gates are of
+   answers and counts) and phase 19.
 19. Switch-MoE (``moe_phase``): serve ``examples/textgen_moe_flash.toml``
    (phase 17's config with 8 experts per layer, Switch-Base-8): the 16
    seeded requests, K1 = 12 x inserts, compiles and captures moved 0;
@@ -321,7 +358,9 @@ Phases (any failure exits non-zero before the result line):
    model's (its max logit difference printed: a bf16 rounding that moves a
    router's argmax sends a token to another expert), every bucket's replay
    bit-identical to its eager forward, the (32, 128) replay's device time
-   and the capture memory.
+   and the capture memory. It runs in a process of its own
+   (``chip_smoke.py --phases --only moe_phase``, ``Apart``) beside phases
+   15 and 18, so its printed device times share the card with theirs.
 20. SD 1.5 txt2img (``sd15_phase``): K1 against its plain version at SD's
    padded shapes, (B, 4096, 8, 64 <- 40) and (B, 1024, 8, 128 <- 80) bf16
    with B = 2 (the locked path's UNet rows) and B = 16 (the engine step's
@@ -363,13 +402,16 @@ Phases (any failure exits non-zero before the result line):
    steps at each (16, ...) shape,
    ``gen_iterations_total`` > 0, captures and compiles moved 0 (previews
    included); the engine's image of the locked body beside the locked PNG
-   (reported).
+   (reported). The tree, the checkpoint and K1's timings come first, with
+   the card to itself (``sd15_prepare``); the served part and the
+   in-process checks then run beside phases 21 and 25, so its printed
+   device times share the card with their servers.
    Phases 17-20 each start their second server (17's paged one, 18's
    tearing one, 19's BERT-MoE one, 20's engine one) as their first boots,
    after the phase's K1 timings (``prestart``), as phase 6 starts phase
    7's and phase 15 its int8c ResNet-50 one; the first ``serving`` waits
-   for both, so no boot runs under a measurement (the smoke's time
-   limit).
+   for both (only for the servers its own thread started), so no boot of
+   the phase runs under its measurements (the smoke's time limit).
 21. The router/worker process tier (``router_phase``), every server and
    drill at ``SHALLOW_LAYERS`` (4): serve ``examples/bert_flash.toml``
    alone and bench it closed at 8 connections (phase 16's 32-text body);
@@ -462,7 +504,8 @@ Phases (any failure exits non-zero before the result line):
    ``/debug/audit`` as ``autopilot:*``, ``/tenants`` 200); the
    ``autopilot`` line carries ``first_action_s``, the actions and the
    victim's availability.
-25. Deferred (recycle) mode (``deferred_phase``), run beside phase 21:
+25. Deferred (recycle) mode (``deferred_phase``), run beside phase 21
+   and phase 20's served part:
    serve ``examples/bert_flash_recycle.toml`` (full-width 12-layer
    BERT-flash, ``session_mode = "recycle"``, the reference's relay
    defaults: 2 workers, 4,096-row or 2 s epochs, 4 slots) through ``python
@@ -487,9 +530,16 @@ Phases (any failure exits non-zero before the result line):
 26. Every process the phases started, and every one those started (the
    smoke is their subreaper, so an orphan is re-parented to it), must end
    within ``ORPHAN_GRACE_S`` of the last phase; one still running then is
-   killed, named, and fails the smoke. Nothing outlives the smoke.
+   killed, named, and fails the smoke. Nothing outlives the smoke: the
+   phases run in a child process (``--phases``) under a supervisor,
+   itself the subreaper, that kills the child and every process below it
+   and fails when the phases run past ``SMOKE_DEADLINE_S`` (1,150 s; the
+   command's limit is 1,200 s), on SIGTERM, SIGINT or SIGHUP, or when the
+   child dies and leaves a process behind. Each phase prints its wall time
+   and when it ended (``smoke: phase N took ...``).
    Print a ``slice`` line per path, the ``graphs`` line (phase 6-8's,
-   13's and 14's graph checks and host times), the ``lifecycle`` line, the
+   13's and 14's graph checks and host times), the ``mesh`` line, the
+   ``lifecycle`` line, the
    ``robustness`` line (with phase 8's, 13's and 14's first-request
    tables), the ``observability``, ``defaults_cost``, ``cli``, ``router``,
    ``hosts``, ``fleet``, ``autopilot`` and ``deferred`` lines, and
@@ -499,7 +549,8 @@ Phases (any failure exits non-zero before the result line):
    streams and ``bench --stream``, phase 19's MoE paths and phase 20's
    locked and engine SD paths, phase 21's router path and phase 22's host
    path and their benches beside, phase 23's first warm, re-warm and fleet
-   drill, phase 25's recycle path and its load, then K1's four SD rows, each with the
+   drill, phase 25's recycle path and its load, then K1's three mesh rows
+   (phase 5b's shapes, with their launches there), K1's four SD rows, each with the
    launches counted at its shape on the locked (B = 2) or engine (B = 16)
    path; the vision paths run neither),
    the whole smoke's seconds, the card line, then the result line ``{"ok": true,
@@ -521,6 +572,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -576,6 +628,13 @@ PR_SET_CHILD_SUBREAPER = 36     # linux/prctl.h
 # the last phase stopped what it started (a server's multiprocessing resource
 # tracker outlives it by a moment): what runs longer was left running.
 ORPHAN_GRACE_S = 30.0
+# The phases run in a child process (this flag) under a supervisor that
+# outlives it. Past SMOKE_DEADLINE_S seconds (the command's limit is 1,200 s),
+# or on SIGTERM, SIGINT or SIGHUP, the supervisor kills the child and every
+# process below it and fails: a smoke cut by its time limit or a crash of the
+# phases' process leaves no server behind.
+PHASES_FLAG = "--phases"
+SMOKE_DEADLINE_S = 1150.0
 
 
 def adopt_orphans() -> None:
@@ -650,6 +709,115 @@ def stop_descendants(grace_s: float = ORPHAN_GRACE_S) -> dict[int, str]:
         time.sleep(0.1)
     reap()
     return left
+
+
+def supervise() -> int:
+    """The smoke's outer process: the subreaper of everything the phases
+    start. It runs the phases in a child (``PHASES_FLAG``) that inherits its
+    output, relays the child's exit code, and once the child has ended (on
+    its own, by a crash, or killed past ``SMOKE_DEADLINE_S`` or on a signal)
+    stops every process still below it; one left running fails the smoke."""
+    adopt_orphans()
+    t0 = time.monotonic()
+    stop: list[int] = []
+    for sig in (signal.SIGTERM, signal.SIGINT, signal.SIGHUP):
+        signal.signal(sig, lambda signum, _frame: stop.append(signum))
+    child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), PHASES_FLAG])
+    cut, rc = None, None
+    while cut is None and rc is None:
+        with contextlib.suppress(subprocess.TimeoutExpired):
+            rc = child.wait(timeout=0.5)
+        if stop:
+            cut = f"signal {signal.Signals(stop[0]).name}"
+        elif rc is None and time.monotonic() - t0 > SMOKE_DEADLINE_S:
+            cut = f"the smoke's deadline of {SMOKE_DEADLINE_S:g} s"
+    if cut is not None:
+        child.kill()
+        child.wait()
+    left = stop_descendants(grace_s=0.0 if cut else ORPHAN_GRACE_S)
+    if cut is not None:
+        print(f"chip_smoke: FAIL: the phases were stopped by {cut} after "
+              f"{time.monotonic() - t0:.1f} s; {len(left)} processes below them killed: "
+              + "; ".join(f"{pid} {cmd}" for pid, cmd in left.items()),
+              file=sys.stderr, flush=True)
+        return 1
+    if left:
+        print("chip_smoke: FAIL: processes still running after the phases' process "
+              "ended (killed): " + "; ".join(f"{pid} {cmd}" for pid, cmd in left.items()),
+              file=sys.stderr, flush=True)
+        return 1
+    if rc < 0:
+        print(f"chip_smoke: FAIL: the phases' process died of signal "
+              f"{signal.Signals(-rc).name}", file=sys.stderr, flush=True)
+        return 1
+    return rc
+
+
+class Apart:
+    """One phase run in a process of its own (``--only``) beside the phases
+    this process runs. Two phases that work on the card in process cannot
+    share a process (a graph capture in one thread and work on the card in
+    another), but two processes can share the card. ``result()`` waits for
+    it and returns what the phase function returned."""
+
+    def __init__(self, label: str, fn, *args) -> None:
+        import pickle
+
+        self.label = label
+        self.tmp = Path(tempfile.mkdtemp(prefix="smoke-apart-"))
+        (self.tmp / "args.pkl").write_bytes(pickle.dumps(args))
+        self.proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                      PHASES_FLAG, "--only", fn.__name__, label,
+                                      str(self.tmp), repr(_T_START)])
+
+    def result(self):
+        import pickle
+
+        try:
+            rc = self.proc.wait()
+            check(rc == 0, f"phase {self.label}, in a process of its own, exited {rc}")
+            return pickle.loads((self.tmp / "result.pkl").read_bytes())
+        finally:
+            shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def run_apart(name: str, label: str, tmp: Path, t_start: float) -> int:
+    """The process ``Apart`` starts: run phase function ``name`` on the
+    pickled arguments in ``tmp`` and pickle what it returns there. Its
+    ``timed`` line counts from ``t_start``, the starting process's start
+    (``time.perf_counter`` reads the machine's monotonic clock)."""
+    import faulthandler
+    import pickle
+
+    global _T_START
+    _T_START = t_start
+    faulthandler.enable()
+    sys.path.insert(0, str(ROOT))
+    args = pickle.loads((tmp / "args.pkl").read_bytes())
+    try:
+        out = timed(label, globals()[name], *args)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
+        return 1
+    finally:
+        stop_prestarted()
+    (tmp / "result.pkl").write_bytes(pickle.dumps(out))
+    return 0
+
+
+_T_START = time.perf_counter()
+
+
+def timed(label: str, fn, *args, **kwargs):
+    """Run one phase and print its wall time and when it ended, from the
+    start of the phases' process."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        end = time.perf_counter()
+        print(f"smoke: phase {label} took {end - t0:.1f} s, ended at "
+              f"{end - _T_START:.1f} s", flush=True)
 
 
 # -- phase 1 + 2 ----------------------------------------------------------------
@@ -1124,6 +1292,288 @@ def sequence_parallel_phase() -> dict:
     return errs
 
 
+# -- phase 5b: the mesh modes on one card ----------------------------------------
+
+# The mesh phase's modes: (name, ModelConfig fields, [parallel] n_chips), and
+# the K1 shapes (B, S, H, D) each launches at the (32, 128) bucket with its
+# launches over one batch dispatched on each replica (12 per batch: two in
+# replica mode).
+MESH_MODES = (
+    ("sharded_d2", {"parallelism": "sharded"}, 2, {(16, 128, 12, 64): 24}),
+    ("replica_2", {"parallelism": "replica"}, 2, {(32, 128, 12, 64): 24}),
+    ("tp_2", {"parallelism": "sharded", "tp": 2}, 2, {(32, 128, 6, 64): 24}),
+    # pp = 2: _pp_micro gives 4 microbatches of 8 rows, 12 layers each.
+    ("pipeline_2", {"parallelism": "pipeline", "pp": 2}, 0, {(8, 128, 12, 64): 48}),
+)
+MESH_DISPATCHES = 64
+
+
+def mesh_runtime(fields: dict, n_chips: int):
+    """Full-width BERT-flash (examples/bert_flash.toml, one (32, 128)
+    bucket, the run's shared seeded parameters) on a runtime of the mode
+    ``fields`` names, its ranks on cuda:0: one parameter slot, so one graph
+    per replica (phase 9's default-layout server holds the lifecycle's
+    three)."""
+    import dataclasses
+
+    from tpuserve_torch.config import ParallelConfig
+    from tpuserve_torch.models import build
+    from tpuserve_torch.runtime import build_runtime
+
+    mcfg = dataclasses.replace(model_config("flash"), batch_buckets=[32],
+                               seq_buckets=[128], **fields)
+    model = share_params(build(mcfg), CONFIG)
+    return model, build_runtime(model, device="cuda", n_slots=1,
+                                parallel=ParallelConfig(n_chips=n_chips))
+
+
+def mesh_logits(model, rt, dev):
+    """The live slot's eager logits (float32) on ``dev``."""
+    import torch
+
+    from tpuserve_torch.models.base import MeshModule
+
+    with torch.inference_mode():
+        if isinstance(rt.module, MeshModule):
+            return model.mesh_logits(rt.module, dev).float()
+        return model.logits(rt.module, dev).float()
+
+
+def mesh_launches(rt, bucket, devs) -> dict:
+    """K1's launches by shape over one dispatch per replica."""
+    import torch
+
+    from tpuserve_torch.ops import flash_attention as fa
+
+    fa.reset_launches()
+    outs = [rt.dispatch(bucket, dev, replica=i) for i, dev in enumerate(devs)]
+    torch.cuda.synchronize()
+    return outs, dict(fa.shape_launches)
+
+
+def mesh_phase(card: str) -> dict:
+    """Full-width BERT-flash in every mesh mode, the ranks sharing cuda:0
+    (``visible_devices`` patched to four ranks on it): answers against
+    single mode's, K1's launches by shape, no compile or capture over
+    ``MESH_DISPATCHES`` dispatches, the replay device time beside single
+    mode's (what smaller launches cost; nothing gated on it); int8 under
+    tp = 2; textgen on a replica-2 GenEngineGroup."""
+    import gc
+    from unittest import mock
+
+    import torch
+
+    from tpuserve_torch.parallel import mesh as meshlib
+
+    t0 = time.perf_counter()
+    bucket = (32, 128)
+    out: dict = {"card": card, "modes": {}}
+    with mock.patch.object(meshlib, "visible_devices",
+                           lambda *a: [torch.device("cuda", 0)] * 4):
+        model, rt = mesh_runtime({"parallelism": "single"}, 0)
+        host = seeded_batch(model, bucket, seed=5)
+        dev = rt.h2d(bucket, host)
+        (base_out,), base_k1 = mesh_launches(rt, bucket, [dev])
+        check(base_k1 == {(32, 128, 12, 64): 12}, f"mesh: single mode's K1 launches {base_k1}")
+        base_logits = mesh_logits(model, rt, dev)
+        out["single"] = dict(replay_timing(rt, bucket, dev), k1_by_shape={
+            "x".join(map(str, k)): n for k, n in base_k1.items()})
+        del rt
+        for name, fields, n_chips, want_k1 in MESH_MODES:
+            mt0 = time.perf_counter()
+            model, rt = mesh_runtime(fields, n_chips)
+            devs = [rt.h2d(bucket, host, replica=i) for i in range(rt.n_replicas)]
+            outs, k1 = mesh_launches(rt, bucket, devs)
+            check(k1 == want_k1, f"mesh {name}: K1 launches by shape {k1}, expected {want_k1}")
+            row = {"signature": rt.parallel_signature, "n_chips": rt.n_chips,
+                   "replicas": rt.n_replicas,
+                   "k1_by_shape": {"x".join(map(str, k)): n for k, n in k1.items()}}
+            if rt.n_replicas > 1:
+                for i, o in enumerate(outs):
+                    check(all(torch.equal(o[k], base_out[k]) for k in ("probs", "indices")),
+                          f"mesh {name}: replica {i} does not answer single mode's bytes")
+                row["answers"] = "single mode's bytes on every replica"
+            else:
+                logits = mesh_logits(model, rt, devs[0])
+                diff = (logits - base_logits).abs().max().item()
+                check(diff <= LOGIT_TOL, f"mesh {name}: logits {diff:.3g} from single mode's "
+                      f"> {LOGIT_TOL}")
+                row["max_abs_logit_diff"] = diff
+                row["separated_ranks_held"] = separated_ranks_agree(
+                    logits, base_logits, f"mesh {name}")
+                # The graph replay's top-1 against the eager logits' wherever
+                # those separate it by more than the tolerance.
+                top2 = logits.topk(2, dim=-1).values
+                sep = (top2[:, 0] - top2[:, 1]) > LOGIT_TOL
+                check(bool((outs[0]["indices"][:, 0] == logits.argmax(-1))[sep].all()),
+                      f"mesh {name}: the graph replay's top-1 differs from the eager logits'")
+            graphs0 = (rt.compiles_total, rt.captures_total)
+            for i in range(MESH_DISPATCHES):
+                rt.dispatch(bucket, devs[i % len(devs)], replica=i % len(devs))
+            torch.cuda.synchronize()
+            check((rt.compiles_total, rt.captures_total) == graphs0,
+                  f"mesh {name}: compiles/captures moved {graphs0} -> "
+                  f"{(rt.compiles_total, rt.captures_total)} over {MESH_DISPATCHES} dispatches")
+            check(all(v > 0 for v in rt.replica_batches()),
+                  f"mesh {name}: a replica served no batch {rt.replica_batches()}")
+            row.update(replay_timing(rt, bucket, devs[0]), compiles_total=rt.compiles_total,
+                       captures_total=rt.captures_total,
+                       replica_batches=rt.replica_batches(),
+                       build_and_checks_s=time.perf_counter() - mt0)
+            out["modes"][name] = row
+            del rt
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["int8_tp_2"] = mesh_int8_check(bucket, host)
+        out["textgen_replica_2"] = mesh_textgen_check()
+    out["phase_s"] = time.perf_counter() - t0
+    sigs = ", ".join(f"{n} {r['signature']}" for n, r in out["modes"].items())
+    print(f"mesh: {sigs} "
+          f"on one card: answers held, K1 by shape as expected, compiles/captures 0 over "
+          f"{MESH_DISPATCHES} dispatches; replay device ms single "
+          f"{out['single']['replay_device_ms']:.3f}, "
+          + ", ".join(f"{n} {r['replay_device_ms']:.3f}" for n, r in out["modes"].items())
+          + f"; {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def mesh_k1_phase() -> dict:
+    """K1 at each of phase 5b's new shapes, timed as phase 3 times the main
+    path's, with the launches one (32, 128) batch makes there on its mode's
+    path. Run once no other phase uses the card: phase 5b itself runs beside
+    phase 9's and 12's servers, whose work would stretch the kernel's device
+    time."""
+    out = {}
+    for name, _, _, want_k1 in MESH_MODES:
+        for (b, s_, h, d), n in want_k1.items():
+            if (b, s_, h) != (32, 128, 12):
+                row = k1_timing(b, s_, h=h, d=d)
+                row["line"]["launches"] = n
+                row["line"]["launches_path"] = f"mesh {name}, one (32, 128) batch"
+                out[f"{b}x{s_}x{h}x{d}"] = row
+    return out
+
+
+def mesh_int8_check(bucket: tuple, host: tuple) -> dict:
+    """tp = 2 under quantize = "int8" against single mode's int8: the same
+    logit rule and K1 launches as tp = 2."""
+    import gc
+
+    import torch
+
+    model, rt = mesh_runtime({"parallelism": "single", "quantize": "int8"}, 0)
+    base = mesh_logits(model, rt, rt.h2d(bucket, host))
+    base_out = rt.fetch(rt.dispatch(bucket, rt.h2d(bucket, host)))
+    del rt
+    model, rt = mesh_runtime({"parallelism": "sharded", "tp": 2, "quantize": "int8"}, 2)
+    dev = rt.h2d(bucket, host)
+    outs, k1 = mesh_launches(rt, bucket, [dev])
+    check(k1 == {(32, 128, 6, 64): 24}, f"mesh int8 tp_2: K1 launches {k1}")
+    logits = mesh_logits(model, rt, dev)
+    diff = (logits - base).abs().max().item()
+    check(diff <= LOGIT_TOL, f"mesh int8 tp_2: logits {diff:.3g} from single int8's")
+    held = separated_ranks_agree(logits, base, "mesh int8 tp_2")
+    n_int8 = sum(t.dtype == torch.int8 for t in rt.slots[0].tensors.values())
+    check(n_int8 >= 2 * 12 * 6, f"mesh int8 tp_2: {n_int8} int8 tensors in a slot")
+    same_top1 = bool((rt.fetch(outs[0])["indices"][:, 0] == base_out["indices"][:, 0]).all())
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"max_abs_logit_diff": diff, "separated_ranks_held": held,
+            "int8_tensors_per_slot": n_int8, "top1_equal_to_single_int8": same_top1}
+
+
+def mesh_textgen_check() -> dict:
+    """examples/textgen_flash.toml at SHALLOW_LAYERS layers: a replica-2
+    GenEngineGroup's tokens equal a single engine's on the same seeded
+    weights, and both replicas step."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from tpuserve_torch.config import ParallelConfig, load_config
+    from tpuserve_torch.genserve import GenEngine, GenEngineGroup
+    from tpuserve_torch.models import build
+    from tpuserve_torch.obs import Metrics
+    from tpuserve_torch.runtime import build_runtime
+
+    cfg = load_config(str(TEXTGEN_CONFIG))
+    mcfg = cfg.models[0]
+    shallow = {**mcfg.options, "layers": SHALLOW_LAYERS}
+    gcfg = dataclasses.replace(cfg.genserve, slots=8)
+    params = None
+    tokens = {}
+    for mode in ("single", "replica"):
+        model = build(dataclasses.replace(mcfg, options=shallow, parallelism=mode))
+        params = params if params is not None else model.load_params()
+        model.load_params = lambda p=params: p
+        rt = build_runtime(model, device="cuda", compile_forward=False, n_slots=1,
+                           parallel=ParallelConfig(n_chips=2))
+        eng = (GenEngineGroup if mode == "replica" else GenEngine)(model, rt, Metrics(), gcfg)
+        eng.compile()
+        items = [model.host_decode(json.dumps(b).encode(), "application/json")
+                 for b in textgen_bodies(8, seed=3)]
+        tokens[mode] = [list(map(int, t)) for t in engine_tokens(eng, items)]
+        if mode == "replica":
+            rows = eng.pipeline_stats()["per_replica"]
+            check(all(r["steps_total"] > 0 for r in rows),
+                  f"mesh textgen: a replica did not step {rows}")
+            compiles = rt.compiles_total
+        del eng, rt
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(tokens["replica"] == tokens["single"],
+          "mesh textgen: the replica group's tokens differ from the single engine's")
+    return {"layers": SHALLOW_LAYERS, "requests": len(tokens["single"]),
+            "tokens": sum(map(len, tokens["single"])), "compiles_total": compiles,
+            "per_replica_steps": [r["steps_total"] for r in rows],
+            "sharded_decode_tp_2_float32": mesh_sharded_decode_check(mcfg, shallow, gcfg)}
+
+
+def mesh_sharded_decode_check(mcfg, options: dict, gcfg) -> dict:
+    """The sharded decode (tp = 2, paged KV) against single mode, float32
+    (TF32 off): its engine's tokens against the single locked batch's,
+    a lane allowed to differ first only where that batch's top-two margin
+    is below ``TG_MARGIN`` (the partial sums add in another order), as
+    phase 17 holds the engine to the locked batch."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from tpuserve_torch.config import ParallelConfig
+    from tpuserve_torch.genserve import GenEngine
+    from tpuserve_torch.models import build
+    from tpuserve_torch.obs import Metrics
+    from tpuserve_torch.runtime import build_runtime
+
+    gcfg = dataclasses.replace(gcfg, kv_paging=True, prefill_chunk=0)
+    out, params = {}, None
+    for mode, fields in (("single", {"parallelism": "single"}),
+                         ("tp_2", {"parallelism": "sharded", "tp": 2})):
+        model = build(dataclasses.replace(mcfg, options=options, dtype="float32", **fields))
+        params = params if params is not None else model.load_params()
+        model.load_params = lambda p=params: p
+        rt = build_runtime(model, device="cuda", compile_forward=False, n_slots=1,
+                           parallel=ParallelConfig(n_chips=2))
+        items = [model.host_decode(json.dumps(b).encode(), "application/json")
+                 for b in textgen_bodies(8, seed=3)]
+        if mode == "single":
+            want, margins, _ = locked_tokens(model, rt.module, items)
+        eng = GenEngine(model, rt, Metrics(), gcfg)
+        eng.compile()
+        got = [list(map(int, t)) for t in engine_tokens(eng, items)]
+        out[mode] = compare_tokens(got, [list(map(int, w)) for w in want], margins,
+                                   f"mesh textgen {mode} engine vs single locked (float32)")
+        if mode == "tp_2":
+            out["signature"] = rt.parallel_signature
+        del eng, rt
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 # -- phase 6: BERT-base with flash attention -------------------------------------
 
 CONFIG = ROOT / "examples" / "bert_flash.toml"
@@ -1163,8 +1613,18 @@ def shallow_config(config: Path = CONFIG) -> Path:
     check(cut != text, f"{config.name} does not set layers = 12")
     out = ROOT / "build" / "smoke" / config.name
     out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(cut)
+    write_atomic(out, cut)
     return out
+
+
+def write_atomic(path: Path, text: str) -> None:
+    """Write ``path`` through a temporary file and a rename: phases that run
+    side by side write the same config copies, and a server started by one
+    must never read a half-written file."""
+    fd, tmp = tempfile.mkstemp(dir=path.parent, prefix=f".{path.name}.")
+    with os.fdopen(fd, "w") as f:
+        f.write(text)
+    os.replace(tmp, path)
 
 
 def free_port() -> int:
@@ -1472,7 +1932,8 @@ def prestart(config: Path, n_buckets: int, overrides: tuple = (), extra_toml: st
     under the phase's measurements and the later server is ready when its
     turn comes (the smoke's time limit)."""
     _PRESTARTED[(str(config), tuple(overrides), extra_toml, tuple(env))] = dict(
-        _start_server(config, tuple(overrides), extra_toml, tuple(env)), n_buckets=n_buckets)
+        _start_server(config, tuple(overrides), extra_toml, tuple(env)), n_buckets=n_buckets,
+        thread=threading.get_ident())
 
 
 def stop_prestarted() -> None:
@@ -1487,8 +1948,9 @@ def serving(config: Path, n_buckets: int, overrides: tuple = (), extra_toml: str
     """``python -m tpuserve_torch serve --config <config>`` (plus ``--set``
     ``overrides``, and ``extra_toml`` appended to a copy of the file) on a
     free port, with ``env``'s (name, value) pairs added to its environment,
-    healthy (the prestarted one, if any, and every other prestarted server
-    healthy too); prints each model's graphs and the memory their capture
+    healthy (the prestarted one, if any, and every other server this thread
+    prestarted healthy too: phases that run side by side do not wait on
+    each other's); prints each model's graphs and the memory their capture
     reserved; yields the port (and the process, ``with_proc``, or the path of
     its log, ``with_log``) and stops the server on the way out."""
     srv = _PRESTARTED.pop((str(config), tuple(overrides), extra_toml, tuple(env)), None) \
@@ -1497,6 +1959,8 @@ def serving(config: Path, n_buckets: int, overrides: tuple = (), extra_toml: str
     try:
         wait_healthy(proc, port, log_path, n_buckets)
         for other in list(_PRESTARTED.values()):  # booting beside this one
+            if other["thread"] != threading.get_ident():
+                continue
             # Booted, or failed: the phase that takes it reports a failure.
             with contextlib.suppress(SmokeFailure):
                 wait_healthy(other["proc"], other["port"], other["log"], other["n_buckets"])
@@ -2242,7 +2706,8 @@ def resnet_phase() -> dict:
 # -- phase 9: the versioned lifecycle over HTTP ------------------------------------
 
 def lifecycle_drill(config: Path, name: str, n_buckets: int, body: bytes, ctype: str,
-                    overrides: tuple = ()) -> dict:
+                    overrides: tuple = (), prequantized: bool = False,
+                    mesh_stats: bool = False) -> dict:
     """Serve ``config`` (plus ``--set overrides``) with model ``name``'s weights read from a seed-1
     checkpoint (``save_npz`` of the port's own seeded init, in a temporary
     directory) and drive its lifecycle over HTTP with one fixed request:
@@ -2251,7 +2716,15 @@ def lifecycle_drill(config: Path, name: str, n_buckets: int, body: bytes, ctype:
     corrupted .npz under a stale manifest answers 409 at ``integrity``, a
     checkpoint with an inf leaf 409 at ``nan_scan``, and version 1 answers
     as before after each; a second ``:reload`` of the seed-2 checkpoint
-    gives version 3 and version 2's answers. ``runtime_compiles_total`` and
+    gives version 3 and version 2's answers. ``prequantized``: then a
+    ``:reload`` of the seed-1 tree written int8-quantized (the function
+    ``import-model --quantize int8`` applies after its import,
+    ``quantize.quantize_tree`` at the model's ``quantize_min_size``, on the
+    seed-1 tree as the compute dtype holds it: the reference quantizes the
+    cast weights at stage time and the float32 ones at import) gives
+    version 4 and the first answers' bytes. ``mesh_stats``: ``/stats``'
+    ``parallel`` block reads one chip and one replica and its ``topology``
+    platform gpu and one local device. ``runtime_compiles_total`` and
     the capture count must not move across all of it."""
     from tpuserve_torch import savedmodel
     from tpuserve_torch.config import load_config
@@ -2311,6 +2784,29 @@ def lifecycle_drill(config: Path, name: str, n_buckets: int, body: bytes, ctype:
             savedmodel.save_npz(ckpt, trees[2])
             check(admin("reload", 200)["version"] == 3, f"lifecycle {name}: second reload not version 3")
             check(answer() == v2, f"lifecycle {name}: version 3 does not answer as version 2 did")
+            if prequantized:
+                from tpuserve_torch import quantize
+                from tpuserve_torch.models.base import DTYPES
+
+                mcfg = load_config(str(config)).model(name)
+                q8 = quantize.quantize_tree(quantize.cast_tree(trees[1], DTYPES[mcfg.dtype]),
+                                            mcfg.quantize_min_size)
+                check(quantize.has_quantized_leaves(q8), f"lifecycle {name}: nothing quantized")
+                savedmodel.save_npz(ckpt, q8)
+                check(admin("reload", 200)["version"] == 4,
+                      f"lifecycle {name}: the pre-quantized reload is not version 4")
+                check(answer() == v1, f"lifecycle {name}: the pre-quantized seed-1 tree does "
+                      "not answer the float seed-1 tree's bytes")
+                seen["prequantized_int8_leaves"] = sum(
+                    1 for p, _ in flatten_with_paths(q8) if p.endswith("['q8']"))
+            if mesh_stats:
+                st = json.loads(call(port, "GET", "/stats")[1])
+                par, topo = st["parallel"][name], st["topology"]
+                check((par["mode"], par["n_chips"], par["replicas"]) == ("sharded", 1, 1),
+                      f"lifecycle {name}: /stats parallel {par}")
+                check((topo["platform"], topo["local_devices"]) == ("gpu", 1),
+                      f"lifecycle {name}: /stats topology {topo}")
+                seen["parallel"], seen["topology"] = par, topo
             graphs1 = served_graphs(port)[name]
             check((graphs1["captures_total"], graphs1["compiles_total"])
                   == (graphs0["captures_total"], graphs0["compiles_total"]),
@@ -2323,10 +2819,11 @@ def lifecycle_drill(config: Path, name: str, n_buckets: int, body: bytes, ctype:
                      if a["target"] == name]
             check(trail == [("reload", "ok", None), ("rollback", "ok", None),
                             ("reload", "rejected", "integrity"), ("reload", "rejected", "nan_scan"),
-                            ("reload", "ok", None)], f"lifecycle {name}: audit trail {trail}")
+                            ("reload", "ok", None)] + [("reload", "ok", None)] * prequantized,
+                  f"lifecycle {name}: audit trail {trail}")
             evs = json.loads(call(port, "GET", "/debug/events?subsystem=lifecycle")[1])["events"]
             kinds = [e["event"] for e in evs if e.get("model") == name]
-            check(kinds.count("published") == 2 and kinds.count("rolled_back") == 1
+            check(kinds.count("published") == 2 + prequantized and kinds.count("rolled_back") == 1
                   and kinds.count("reload_rejected") == 2,
                   f"lifecycle {name}: lifecycle events {kinds}")
             seen["audit"] = trail
@@ -2344,11 +2841,35 @@ def lifecycle_drill(config: Path, name: str, n_buckets: int, body: bytes, ctype:
 
 
 def lifecycle_phase() -> dict:
-    """The drill on BERT-flash and on the int8 ResNet-50."""
+    """The drill on BERT-flash, served in the reference's default layout
+    (``parallelism`` unset: "sharded", on a one-device mesh), and on the
+    int8 ResNet-50 with its pre-quantized reload."""
+    import concurrent.futures as cf
+
     texts = json.dumps({"texts": TEXTS_8}).encode()
     _, _, framed, ctype, _ = resnet_requests()[1]                # 8 framed yuv420 items
-    return {"bert_flash": lifecycle_drill(shallow_config(), "bert", 6, texts, "application/json"),
-            "resnet50_int8": lifecycle_drill(RESNET_CONFIG, "resnet50", 6, framed, ctype)}
+    # The two drills side by side: each drives its own server over HTTP.
+    with cf.ThreadPoolExecutor(1) as beside:
+        resnet = beside.submit(lifecycle_drill, RESNET_CONFIG, "resnet50", 6, framed, ctype,
+                               prequantized=True)
+        try:
+            bert = lifecycle_drill(default_layout_config(), "bert", 6, texts,
+                                   "application/json", mesh_stats=True)
+        finally:
+            resnet_int8 = resnet.result()
+    return {"bert_flash": bert, "resnet50_int8": resnet_int8}
+
+
+def default_layout_config() -> Path:
+    """``shallow_config()`` without its ``parallelism = "single"`` line (a
+    copy under build/smoke/sharded/): the reference's default layout."""
+    text = shallow_config().read_text()
+    cut = re.sub(r'(?m)^parallelism = "single"\n', "", text)
+    check(cut != text, "bert_flash.toml does not set parallelism = \"single\"")
+    out = ROOT / "build" / "smoke" / "sharded" / CONFIG.name
+    out.parent.mkdir(parents=True, exist_ok=True)
+    write_atomic(out, cut)
+    return out
 
 
 # -- phase 10: the batcher's robustness layer and the result cache -------------------
@@ -5723,13 +6244,12 @@ def sd_engine_served(bodies: list, locked_png: bytes, sets: tuple) -> dict:
     return out
 
 
-def sd15_phase(card: str) -> dict:
-    """Phase 20: SD 1.5 txt2img (examples/sd15_flash.toml) with CLIP's BPE,
-    locked from the seeded tree's LDM checkpoint and, on the seeded tree,
-    through the engine and in this process; K1 at SD's padded head dims."""
+def sd15_prepare(card: str) -> tuple[dict, dict, Path]:
+    """Phase 20's first part, with the card to itself: the seeded tree and
+    its LDM checkpoint, and K1 at SD's padded head dims. Returns the phase's
+    record so far, the checkpoint and the temporary directory holding it
+    (``sd15_phase`` removes it)."""
     import concurrent.futures as cf
-
-    import torch
 
     t0 = time.perf_counter()
     out: dict = {"card": card, "config": str(SD_CONFIG.relative_to(ROOT))}
@@ -5746,7 +6266,25 @@ def sd15_phase(card: str) -> dict:
                               for s, d in ((4096, 40), (1024, 80))}
             ckpt = writing.result()
         del seeded
-        out["checkpoint"] = {k: v for k, v in ckpt.items() if k not in ("path", "sets")}
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    out["checkpoint"] = {k: v for k, v in ckpt.items() if k not in ("path", "sets")}
+    out["prepare_s"] = time.perf_counter() - t0
+    return out, ckpt, tmp
+
+
+def sd15_phase(prepared: tuple[dict, dict, Path]) -> dict:
+    """Phase 20: SD 1.5 txt2img (examples/sd15_flash.toml) with CLIP's BPE,
+    locked from the seeded tree's LDM checkpoint and, on the seeded tree,
+    through the engine and in this process (after ``sd15_prepare``; the
+    smoke runs this part beside phases 21 and 25)."""
+    import torch
+
+    t0 = time.perf_counter()
+    out, ckpt, tmp = prepared
+    card = out["card"]
+    try:
         # The engine's server boots beside the locked one.
         prestart(SD_CONFIG, 3, SD_ENGINE_SETS + ckpt["sets"])
         locked = sd_locked_served(ckpt)
@@ -5760,11 +6298,12 @@ def sd15_phase(card: str) -> dict:
     k1_ms = 5 * sum(out["kernels"][(2, n)]["line"]["ms"] for n in (4096, 1024))
     out["k1_share_of_unet_2rows"] = k1_ms / out["in_process"]["unet_2rows_device_ms"]
     torch.cuda.empty_cache()
-    out["phase_s"] = time.perf_counter() - t0
+    out["phase_s"] = out["prepare_s"] + time.perf_counter() - t0
     out["phase_s_parent"] = SD_PHASE_S_PARENT
-    print(f"sd15: phase 20 took {out['phase_s']:.1f} s (before the import: "
-          f"{SD_PHASE_S_PARENT[0]:.1f}-{SD_PHASE_S_PARENT[1]:.1f} s on an H100 at 700 W); "
-          f"{card}", flush=True)
+    print(f"sd15: phase 20 took {out['phase_s']:.1f} s, {out['prepare_s']:.1f} s of it "
+          "with the card to itself, the rest beside phases 21 and 25 (alone, before the "
+          f"import: {SD_PHASE_S_PARENT[0]:.1f}-{SD_PHASE_S_PARENT[1]:.1f} s on an H100 at "
+          f"700 W); {card}", flush=True)
     return out
 
 
@@ -6912,8 +7451,17 @@ def deferred_phase(card: str, direct: list[bytes]) -> dict:
 
 
 def main() -> int:
+    if PHASES_FLAG not in sys.argv[1:]:
+        return supervise()
+    if "--only" in sys.argv:
+        name, label, tmp, t_start = sys.argv[sys.argv.index("--only") + 1:][:4]
+        return run_apart(name, label, Path(tmp), float(t_start))
+    import concurrent.futures as cf
+    import faulthandler
+
     import torch
 
+    faulthandler.enable()  # a crash of the phases' process prints its stacks
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is false; this smoke "
@@ -6930,35 +7478,61 @@ def main() -> int:
         card = card_line()
         print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
               f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-        build = build_kernels()
-        k1 = kernel_phase()
-        k2 = stats_kernel_phase()
-        sp_errs = sequence_parallel_phase()
-        run = slice_phase()
-        long = long_slice_phase()
-        vision = resnet_phase()
-        lifecycle = lifecycle_phase()
-        robustness = robustness_phase()
-        observability = observability_phase(card)
-        cost = defaults_cost_phase(card)
-        mnv3 = mobilenet_phase(card)
-        det = efficientdet_phase(card)
-        int8c = int8c_phase(card)
-        cli_run = cli_phase(card)
-        textgen = textgen_phase(card)
-        stream = streaming_phase(card, textgen["served"]["bench"]["tokens_per_s"])
-        moe = moe_phase(card)
-        sd = sd15_phase(card)
-        import concurrent.futures as cf
-
-        # Phase 25 waits on its workers' boots far more than it uses the
-        # card: it runs beside phase 21, as phases 23-24 run inside 22.
-        with cf.ThreadPoolExecutor(1) as beside:
-            deferred_run = beside.submit(deferred_phase, card, run["direct_bodies"])
+        build = timed("2 (build)", build_kernels)
+        k1 = timed("3", kernel_phase)
+        k2 = timed("4", stats_kernel_phase)
+        sp_errs = timed("5", sequence_parallel_phase)
+        run = timed("6", slice_phase)
+        long = timed("7", long_slice_phase)
+        vision = timed("8", resnet_phase)
+        # Side by side (the smoke's time limit): a phase that only drives
+        # servers and subprocesses (9, 12, 16, 18, 21, 25) runs beside one
+        # that works on the card in this process (5b, 15, 17, 20's served
+        # part), never two of the latter in one process (phase 19 runs in a
+        # process of its own beside 15), and never beside a phase whose
+        # gates are on time (8, 10, 11, 13, 14) or whose kernel timings the
+        # kernels line reports (3, 4, 5b's and 20's K1 rows, timed alone).
+        # Phase 9's two drills run side by side too.
+        with cf.ThreadPoolExecutor(2) as beside:
+            cost_run = beside.submit(timed, "12", defaults_cost_phase, card)
+            mesh_run = beside.submit(timed, "5b", mesh_phase, card)
             try:
-                router = router_phase(card)
+                lifecycle = timed("9", lifecycle_phase)
+            finally:
+                cost = cost_run.result()
+                mesh = mesh_run.result()
+        mesh["k1"] = timed("5b (K1 timings)", mesh_k1_phase)
+        robustness = timed("10", robustness_phase)
+        observability = timed("11", observability_phase, card)
+        mnv3 = timed("13", mobilenet_phase, card)
+        det = timed("14", efficientdet_phase, card)
+        with cf.ThreadPoolExecutor(1) as beside:
+            cli_future = beside.submit(timed, "16", cli_phase, card)
+            try:
+                textgen = timed("17", textgen_phase, card)
+            finally:
+                cli_run = cli_future.result()
+        moe_run = Apart("19", moe_phase, card)
+        try:
+            with cf.ThreadPoolExecutor(1) as beside:
+                stream_run = beside.submit(timed, "18", streaming_phase, card,
+                                           textgen["served"]["bench"]["tokens_per_s"])
+                try:
+                    int8c = timed("15", int8c_phase, card)
+                finally:
+                    stream = stream_run.result()
+        finally:
+            moe = moe_run.result()
+        sd_prepared = timed("20 (K1 timings, checkpoint)", sd15_prepare, card)
+        with cf.ThreadPoolExecutor(2) as beside:
+            deferred_run = beside.submit(timed, "25", deferred_phase, card,
+                                         run["direct_bodies"])
+            router_run = beside.submit(timed, "21", router_phase, card)
+            try:
+                sd = timed("20", sd15_phase, sd_prepared)
             finally:
                 deferred = deferred_run.result()
+                router = router_run.result()
         drills: dict = {}
         drill_tmp = ROOT / "build" / "smoke" / "fleet"
         drill_tmp.mkdir(parents=True, exist_ok=True)
@@ -6972,8 +7546,9 @@ def main() -> int:
             return fleet_phase(card, run["direct_bodies"], drills["fleet"])
 
         try:
-            hosts, fleet = hosts_phase(card, start=start_fleet, meanwhile=fleet_and_tenants)
-            autopilot = autopilot_phase(card, drills["autopilot"])
+            hosts, fleet = timed("22-23", hosts_phase, card, start=start_fleet,
+                                 meanwhile=fleet_and_tenants)
+            autopilot = timed("24", autopilot_phase, card, drills["autopilot"])
         finally:
             for drill in drills.values():
                 drill.kill()
@@ -7047,6 +7622,7 @@ def main() -> int:
     print(json.dumps({"graphs": {"bert_flash": run["graphs"], "bert_long_ring": long["graphs"],
                                  "resnet50": vision_graphs, "mobilenetv3": mnv3_graphs,
                                  "efficientdet": det_graphs}}))
+    print(json.dumps({"mesh": mesh}, default=str))
     print(json.dumps({"lifecycle": lifecycle}))
     print(json.dumps({"robustness": robustness}))
     print(json.dumps({"observability": observability}))
@@ -7096,6 +7672,9 @@ def main() -> int:
                                        launches_recycle=deferred["k1_launches"],
                                        launches_recycle_load=deferred["load"]["k1_launches"]),
                                   dict(k2["line"], launches=long["k2_launches"]),
+                                  # K1 at the mesh modes' shapes (phase 5b): sharded
+                                  # rows, tensor-parallel heads, pipeline microbatches.
+                                  *(row["line"] for row in mesh["k1"].values()),
                                   # K1 at SD 1.5's padded shapes, with the launches counted
                                   # at each shape: 2 rows on the locked path, 16 in the
                                   # engine's step.

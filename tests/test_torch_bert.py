@@ -278,19 +278,18 @@ def test_batch_padding_invariance(served):
 # -- what this slice does not port ---------------------------------------------
 
 @pytest.mark.parametrize("over, match", [
-    # Ring attention serves on a 1-device mesh; sp > 1 needs the mesh modes.
-    pytest.param(dict(options=dict(TINY, attention="ring"), sp=2), "mesh modes",
-                 id="over0-parallel attention"),
-    # The MoE variant serves on one card; expert parallelism over a sharded
-    # layout (ROADMAP item 10) waits for the mesh modes, quantized or not
-    # (int8c on MoE is the runtime's refusal, as the reference's:
-    # tests/test_torch_moe.py).
-    pytest.param(dict(options=dict(TINY, moe_experts=4), parallelism="sharded"),
-                 "mesh modes", id="over1-parallel attention"),
-    pytest.param(dict(options=dict(TINY, moe_experts=4), quantize="int8c",
-                      parallelism="sharded"), "mesh modes", id="over2-quantized"),
-    (dict(parallelism="sharded"), "mesh modes"),
-    (dict(tp=2), "mesh modes"),
+    # The mesh modes serve (tests/test_torch_mesh_modes.py); sequence-
+    # parallel attention beside a model axis waits for ROADMAP item 9b.
+    pytest.param(dict(options=dict(TINY, attention="ring"), parallelism="sharded", tp=2),
+                 "item 9b", id="over0-parallel attention"),
+    # The MoE variant serves on a mesh without a model axis; experts on
+    # "model" (expert parallelism) are ROADMAP item 10, quantized or not.
+    pytest.param(dict(options=dict(TINY, moe_experts=4), parallelism="sharded", tp=2),
+                 "item 10", id="over1-parallel attention"),
+    pytest.param(dict(options=dict(TINY, moe_experts=4), quantize="int8",
+                      parallelism="sharded", tp=2), "item 10", id="over2-quantized"),
+    (dict(parallelism="sharded", tp=2, sp=2), "item 9b"),
+    (dict(options=dict(TINY, attention="ulysses"), parallelism="sharded", tp=2), "item 9b"),
     # The port reads the .npz form of the reference's tree, not a GraphDef.
     pytest.param(dict(weights="/nonexistent/frozen.pb"), "npz", id="over5-weights"),
 ])
@@ -300,13 +299,16 @@ def test_unported_options_raise(over, match):
 
 
 @pytest.mark.parametrize("family, via", [
-    # Every family is ported: each case holds that the family's default
-    # layout (parallelism = "sharded", the mesh modes) is refused, by the
-    # server and at build.
+    # Every family is ported and serves its default layout (parallelism =
+    # "sharded", on a one-device mesh); each case holds that a layout the
+    # family does not serve yet is refused by name, by the server and at
+    # build: a seq axis for SD 1.5 and textgen (textgen's KV context over
+    # it; item 9b).
     pytest.param("sd15", "server", id="sd15-server"),
     pytest.param("sd15", "build", id="sd15"), pytest.param("textgen", "build", id="textgen")])
 def test_unported_families_raise(family, via):
-    cfg = ModelConfig(name="m", family=family)
+    over = dict(sp=2)
+    cfg = ModelConfig(name="m", family=family, **over)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         if via == "server":
             from tpuserve_torch.config import ServerConfig
@@ -370,4 +372,5 @@ def test_same_toml_files_parse():
     cfg = load_config("examples/bert_modes.toml",
                       ["model.bert-pp.deadline_ms=2.5", "port=9001"])
     assert cfg.model("bert-pp").deadline_ms == 2.5 and cfg.port == 9001
-    assert cfg.model("bert-pp").unported == {"pp": 4}
+    # pp is typed since the mesh modes were ported.
+    assert cfg.model("bert-pp").pp == 4 and cfg.model("bert-pp").unported == {}

@@ -21,9 +21,10 @@ the port refuses.
   textgen served on the CPU through its generation engine: ``n_err`` 0, the
   summary keys equal to the reference's load generator's against the same
   server, and the server's token and fold-in counters moving;
-- ``import-model --quantize int8`` and ``finetune-det`` exit 2 naming
-  their ROADMAP item, and ``lint`` (ported) exits 0 against the port's
-  baseline (the ``worker_kill``, ``host_kill`` and ``stream_kill``
+- ``finetune-det`` exits 2 naming its ROADMAP item, ``import-model
+  --quantize int8`` (ported) exits 0 and writes the reference's
+  ``quantize_tree`` of its input, and ``lint`` (ported) exits 0 against the
+  port's baseline (the ``worker_kill``, ``host_kill`` and ``stream_kill``
   drills run against the port: ``tests/test_torch_drill.py``);
 - ``chaos --drill fleet`` (3 toy models, one poisoned) exits 0 with the
   victim's breaker open and the survivors whole, with the reference's
@@ -40,6 +41,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -217,16 +219,39 @@ def test_bench_frame_wire_and_synthetic_payloads(capsys):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["import-model", "--saved-model", "d", "--family", "resnet50", "--out", "o.npz",
-      "--quantize", "int8"], "ROADMAP.md queue 1: item 14b"),
+    # import-model --quantize int8 is ported since item 14b: this case
+    # (keeping its id) converts a toy .npz and holds the int8 tree it
+    # writes to the reference's quantize_tree of the same float tree.
+    pytest.param(["import-model", "--family", "toy", "--quantize", "int8",
+                  "--opt", "quantize_min_size=256"], "int8",
+                 id="argv0-ROADMAP.md queue 1: item 14b"),
     (["finetune-det", "--out", "o"], "ROADMAP.md queue 1 item 13"),
     # lint is ported since the analysis item (12): this case (keeping its
     # id) holds that it runs over tpuserve_torch/ and exits 0 against the
     # port's checked-in baseline.
     pytest.param(["lint"], None, id="argv2-ROADMAP.md queue 1 item 12"),
 ])
-def test_refused_subcommands_and_drills_exit_2(argv, item, capsys):
+def test_refused_subcommands_and_drills_exit_2(argv, item, capsys, tmp_path):
     assert set(UNPORTED_COMMANDS) == {"finetune-det"}
+    if item == "int8":
+        from tpuserve import quantize as jqz
+        from tpuserve_torch import savedmodel
+        from tpuserve_torch.config import ModelConfig
+        from tpuserve_torch.models import build
+        from tpuserve_torch.utils.trees import flatten_with_paths
+
+        model = build(ModelConfig(name="toy", family="toy"))
+        tree = model.to_jax_params(model.init_params(1))
+        src, out = str(tmp_path / "toy.npz"), str(tmp_path / "toy_q8.npz")
+        savedmodel.save_npz(src, tree)
+        assert port_main(argv + ["--saved-model", src, "--out", out]) == 0
+        got = list(flatten_with_paths(savedmodel.load_npz(out)))
+        want = list(flatten_with_paths(jqz.quantize_tree(tree, 256)))
+        assert [p for p, _ in got] == [p for p, _ in want]
+        assert any(p.endswith("['q8']") for p, _ in got)
+        assert all(g.dtype == np.asarray(w).dtype and np.array_equal(g, w)
+                   for (_, g), (_, w) in zip(got, want))
+        return
     if item is None:
         assert port_main(argv) == 0
         assert "0 new" in capsys.readouterr().err

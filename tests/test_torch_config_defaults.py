@@ -246,8 +246,10 @@ def test_unported_table_keys_parse_as_refused(table, tmp_path):
     ported: each key written parses typed and, since host failure domains
     and peer routers were ported, is served; [scheduler], [tenants] and
     [autopilot] likewise since the fleet scheduler, tenants and the
-    autopilot were ported."""
-    if table in ("router", "worker", "scheduler", "tenants", "autopilot"):
+    autopilot were ported, and [parallel] and [distributed] since the mesh
+    modes were."""
+    if table in ("router", "worker", "scheduler", "tenants", "autopilot",
+                 "parallel", "distributed"):
         assert table not in tconfig.UNPORTED_TABLES
         for f in dataclasses.fields(getattr(tconfig, TABLE_CLASS[table])):
             if f.default is dataclasses.MISSING:
@@ -330,13 +332,14 @@ def test_worker_tier_keys_of_typed_tables_are_refused_when_written(name, value):
 
 
 @pytest.mark.parametrize("key, value, named", [
-    ("parallelism", '"sharded"', "mesh modes"),
-    ("tp", "2", "mesh modes")])
+    ("sp", "2", "item 9b"),
+    ("tp", "2", "item 9b")])
 def test_sd15_example_refuses_unserved_options_by_name(key, value, named, tmp_path):
     """``examples/sd15_flash.toml`` builds (its module on the meta device);
-    with a setting the slice does not serve written in, the server refuses
+    with a setting the port does not serve written in, the server refuses
     it at build time by name, with its ROADMAP.md item, where the reference
-    would serve it."""
+    would serve it. (The reference's default, "sharded", serves on a
+    one-device mesh since the mesh modes were ported.)"""
     from tpuserve_torch.models import build
     from tpuserve_torch.server import ServerState
 

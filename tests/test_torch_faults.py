@@ -426,28 +426,57 @@ def test_429_carries_retry_after_and_stats_robustness(npz):
 def test_watchdog_revives_killed_group_loop(npz):
     async def scenario(side):
         b = side.state.batchers["toy"]
+        (first,) = b._tasks.values()  # the group loop the startup canary began
         b.injector = PKGS[side.pkg][1].FaultInjector.single("kill_group_loop", count=1)
         s1 = (await side.predict())[0]
-        await asyncio.sleep(0.02)
-        (task,) = b._tasks.values()
-        died = task.done() and type(task.exception()).__name__ == "FaultInjected"
+        # The loop dies at its next turn. Watch that task itself: a 50 ms
+        # watchdog sweep may already have put a new one in its place.
+        deadline = time.monotonic() + 5.0
+        while not first.done() and time.monotonic() < deadline:
+            await asyncio.sleep(0.005)
+        died = first.done() and type(first.exception()).__name__ == "FaultInjected"
         await asyncio.sleep(0.2)  # a few watchdog sweeps
         (task,) = b._tasks.values()
         restarts = side.state.metrics.counter(
             "watchdog_restarts_total{model=toy,component=group_loop}").value
         s2 = (await side.predict())[0]
-        return {"statuses": (s1, s2), "died": died, "revived": not task.done(),
-                "restarts": restarts >= 1}
+        return {"statuses": (s1, s2), "died": died,
+                "revived": task is not first and not task.done(), "restarts": restarts >= 1}
 
     j, t = both(npz, scenario, watchdog_interval_s=0.05)
     assert t == j == {"statuses": (200, 200), "died": True, "revived": True,
                       "restarts": True}
 
 
+def count_accepted(batcher) -> list[int]:
+    """Count the requests ``batcher`` accepts (``submit`` returned a future)
+    from now on, in a one-element list the caller polls."""
+    n = [0]
+    submit = batcher.submit
+
+    def counting(*args, **kwargs):
+        fut = submit(*args, **kwargs)
+        n[0] += 1
+        return fut
+
+    batcher.submit = counting
+    return n
+
+
+async def wait_accepted(accepted: list[int], want: int, timeout_s: float = 10.0) -> None:
+    """Poll until ``accepted`` (from ``count_accepted``) reaches ``want``."""
+    deadline = time.monotonic() + timeout_s
+    while accepted[0] < want:
+        assert time.monotonic() < deadline, f"{accepted[0]} of {want} accepted"
+        await asyncio.sleep(0.005)
+
+
 def test_drain_completes_accepted_rejects_new(npz):
     async def scenario(side):
+        accepted = count_accepted(side.state.batchers["toy"])
         inflight = [asyncio.ensure_future(side.predict(i)) for i in range(5)]
-        await asyncio.sleep(0.05)  # all accepted, the dispatch mid-sleep
+        # Every request accepted by the batcher before the drain begins.
+        await wait_accepted(accepted, 5)
         drain_task = asyncio.ensure_future(side.state.drain())
         await asyncio.sleep(0)
         late = await side.predict()

@@ -234,8 +234,9 @@ def test_server_state_without_device_needs_cuda(no_cuda):
 
 
 def test_server_refuses_unported_sections():
-    """A table the port does not serve is refused by name ([tenants] is
-    served since the tenants were ported; [distributed] is not)."""
+    """A setting held as unported is refused by name (every table of the
+    reference is typed since the mesh modes were ported: this holds the
+    refusal itself, on a hand-made entry)."""
     from tpuserve_torch.config import ServerConfig
     from tpuserve_torch.server import ServerState
 
@@ -248,12 +249,12 @@ MODEL_TOML = '[[model]]\nname = "bert"\nfamily = "bert"\nparallelism = "single"\
 
 
 @pytest.mark.parametrize("toml, named", [
-    # [genserve] is served, streaming knobs included; its case (keeping its
-    # id) holds that the engine over a replica mesh (GenEngineGroup, the
-    # mesh modes) is refused.
+    # [genserve] is served, streaming knobs included, and since the mesh
+    # modes were ported the engine over replicas (GenEngineGroup) too: its
+    # case (keeping its id) holds that the file builds and nothing is
+    # refused.
     pytest.param("[genserve]\nenabled = true\nstream_queue = 8\n[parallel]\nmode = \"replica\"\n",
-                 "[parallel] mode = 'replica'",
-                 id="[genserve]\nenabled = true\n-[genserve] enabled = True"),
+                 None, id="[genserve]\nenabled = true\n-[genserve] enabled = True"),
     # Since the router/worker tier was ported, [router], worker_crash and
     # the black-box keys are served, and since host failure domains, peer
     # routers and the fleet scrape were ported, [router] hosts, peer_port,
@@ -272,12 +273,16 @@ MODEL_TOML = '[[model]]\nname = "bert"\nfamily = "bert"\nparallelism = "single"\
                  id="[telemetry]\nfleet_timeout_ms = 2000.0\n-[telemetry] fleet_timeout_ms = 2000.0"),
     pytest.param("[router]\nrouters = 2\n", None,
                  id="[events]\nsnapshot_path = \"s.json\"\n-[events] snapshot_path = 's.json'"),
-    ("[parallel]\nmode = \"replica\"\n", "[parallel] mode = 'replica'"),
+    # [parallel] and pp are served since the mesh modes were ported: these
+    # cases (keeping their ids) hold that the file builds and nothing is
+    # refused.
+    pytest.param("[parallel]\nmode = \"replica\"\n", None,
+                 id="[parallel]\nmode = \"replica\"\n-[parallel] mode = 'replica'"),
     # profiler_port is served since the remote-profile listener was ported:
     # this case (keeping its id) holds that the file builds and nothing is
     # refused.
     pytest.param("profiler_port = 9999\n", None, id="profiler_port = 9999\n-profiler_port = 9999"),
-    (MODEL_TOML + "pp = 2\n", "model bert: pp = 2"),
+    pytest.param(MODEL_TOML + "pp = 2\n", None, id=MODEL_TOML + "pp = 2\n-model bert: pp = 2"),
     # [tenants] is served since the tenants were ported: this case (keeping
     # its id) holds that the file builds and nothing is refused.
     pytest.param(MODEL_TOML + "[model.slo]\nlatency_ms = 50.0\n[tenants]\nenabled = true\n",
@@ -312,7 +317,8 @@ def test_server_accepts_settings_that_switch_unported_features_off(tmp_path):
                     '[cache]\nenabled = false\n[parallel]\nmode = "single"\n'
                     + MODEL_TOML + 'session_mode = "direct"\ncold_start = false\n')
     cfg = load_config(str(path), ['distributed.coordinator_address=""'])
-    assert cfg.unported["[distributed] coordinator_address"] == ""
+    # [distributed] is typed since the mesh modes were ported.
+    assert cfg.distributed.coordinator_address == "" and cfg.unported == {}
     assert unported_settings(cfg) == []
     for example in ("bert_flash.toml", "bert_long_ring.toml", "efficientdet.toml"):
         assert unported_settings(load_config(str(ROOT / "examples" / example))) == []

@@ -538,8 +538,8 @@ def test_http_stream_frames(served):
 
 @pytest.mark.parametrize("over, exc, match", [
     (dict(options={**TINY, "bpe_vocab": "v.json"}), ValueError, "set together"),
-    (dict(parallelism="sharded"), NotImplementedError, "mesh modes"),
-    (dict(tp=2), NotImplementedError, "mesh modes"),
+    (dict(sp=2), NotImplementedError, "item 9b"),
+    (dict(tp=2), NotImplementedError, "item 9b"),
     (dict(weights="/nonexistent/frozen.pb"), NotImplementedError, "import-model"),
     (dict(options={**TINY, "unet_attention": "magic"}), ValueError, "unet_attention"),
     (dict(options={**TINY, "preview_every": -1}), ValueError, "preview_every"),

@@ -557,7 +557,15 @@ def test_http_stream_end_to_end_byte_audited(served, weights):
                 f"Content-Type: application/json\r\nContent-Length: {len(data)}\r\n\r\n")
         sock.sendall(head.encode() + data)
         buf = b""
-        while not buf.endswith(b"0\r\n\r\n"):
+
+        def complete(buf: bytes) -> bool:
+            # The last chunk (0) after the head: a head alone can end in
+            # "0\r\n\r\n" too (a trace id ending in 0 on the last line).
+            head_end = buf.find(b"\r\n\r\n")
+            return head_end >= 0 and \
+                (b"\r\n" + buf[head_end + 4:]).endswith(b"\r\n0\r\n\r\n")
+
+        while not complete(buf):
             chunk = sock.recv(65536)
             assert chunk, buf
             buf += chunk

@@ -37,8 +37,14 @@
   bisected request's tree holds every attempt); the phase histograms carry
   a member's trace id as their exemplar, and the span ring gets one
   ``batch[bucket]`` span per batch. ``device_seconds_total{model=,
-  replica=0}`` counts the compute phase's wall time (the telemetry
+  replica=}`` counts each replica's compute phase wall time (the telemetry
   sampler's device utilization).
+- Replicas (a ``runtime.ReplicaRuntime``): one depth-k staging-slot pool
+  per replica; a batch takes the runtime's least-loaded pick and, when that
+  pool is full, the least-loaded of the others (ties rotating), so no
+  replica starves; admission is depth x replicas + assemble_ahead, and
+  ``replica_inflight{model=,replica=}`` and ``pipeline_stats``'
+  ``per_replica`` rows show each one's occupancy.
 - Fleet scheduler seams (``tpuserve_torch.scheduler``): a request submitted
   with its ``priority`` class lands in ``queue_wait_ms{model=,priority=}``
   (the model's default class without one), and ``device_time_cb``, when the
@@ -145,8 +151,10 @@ class ModelBatcher:
         self._c_poison = metrics.counter(f"poison_items_total{{model={name}}}")
         self._h_phase = {p: metrics.histogram(f"latency_ms{{model={name},phase={p}}}")
                          for p in PHASES}
-        # One device serves the model: replica 0.
-        self._c_device_seconds = metrics.device_seconds_counter(name, 0)
+        # Device seconds per runtime replica (replica 0 alone, and for a
+        # deferred pool); sized to the replica count at start().
+        self._c_device_seconds = [metrics.device_seconds_counter(name, 0)]
+        self._g_replica_inflight: list[Any] = []
         # Per-priority queue-wait split: requests without a resolved priority
         # land under the model's default class.
         self._default_priority = getattr(model.cfg, "priority", "interactive")
@@ -163,7 +171,8 @@ class ModelBatcher:
         self._tasks: dict[Hashable, asyncio.Task] = {}
         self._dispatch_tasks: set[asyncio.Task] = set()
         self._inflight: asyncio.Semaphore | None = None
-        self._staging: SlotPool | None = None
+        # One depth-k staging-slot pool per runtime replica.
+        self._staging: list[SlotPool] = []
         self.arena: AssemblyArena | None = None
         self.depth = 0
         self._admission_cap = 0
@@ -209,8 +218,17 @@ class ModelBatcher:
             # same cores; a CUDA device keeps the configured depth (its
             # stream orders the batches).
             self.depth = 1
-        self._staging = SlotPool(self.depth)
-        self._admission_cap = self.depth + pcfg.assemble_ahead
+        n_rep = max(1, int(getattr(self.runtime, "n_replicas", 1)))
+        self._staging = [SlotPool(self.depth) for _ in range(n_rep)]
+        # Replica-aware admission: depth-k batches per replica's device
+        # section plus the assembly ramp, so every replica's staging slots
+        # stay full.
+        self._admission_cap = self.depth * n_rep + pcfg.assemble_ahead
+        name = self.cfg.name
+        self._g_replica_inflight = [self.metrics.gauge(
+            f"replica_inflight{{model={name},replica={i}}}") for i in range(n_rep)]
+        self._c_device_seconds = [self.metrics.device_seconds_counter(name, i)
+                                  for i in range(n_rep)]
         if self._use_arena:
             self.arena = AssemblyArena(
                 self.model, pcfg.arena_slots or (self.depth + pcfg.assemble_ahead),
@@ -568,26 +586,49 @@ class ModelBatcher:
             if not released[0]:
                 self._inflight.release()
 
-    async def _acquire_staging(self, reqs: list[_Request]) -> int | None:
-        """Take one of the depth-k staging slots, bounded by the earliest
-        per-request deadline; None when every request expired while
-        waiting (their futures already carry DeadlineExceeded)."""
+    async def _acquire_staging(self, reqs: list[_Request]) -> tuple[int | None, int | None]:
+        """Pick a replica and take one of its depth-k staging slots, bounded
+        by the earliest per-request deadline. The first choice is the
+        runtime's least-loaded pick (fed each pool's occupancy); when its
+        pool is full the other pools are tried in ascending occupancy (ties
+        rotating from the first choice), so no replica starves under bursty
+        load. Returns (replica, slot), or (None, None) when every request
+        expired while waiting (their futures already carry
+        DeadlineExceeded)."""
         live = [r for r in reqs if not r.future.done()]
+        n = len(self._staging)
         while True:
-            slot = self._staging.try_acquire()
+            loads = [p.in_use for p in self._staging]
+            first = self.runtime.pick_replica(loads) if n > 1 else 0
+            slot = self._staging[first].try_acquire()
             if slot is not None:
-                return slot
+                return self._staged(first), slot
+            for i in sorted((j for j in range(n) if j != first),
+                            key=lambda j: (loads[j], (j - first) % n)):
+                slot = self._staging[i].try_acquire()
+                if slot is not None:
+                    return self._staged(i), slot
             live = self._expire_dead(live, adjust_pending=False)
             if not live:
-                return None
+                return None, None
             earliest = min((r.deadline_at for r in live
                             if r.deadline_at is not None), default=None)
             timeout = (None if earliest is None
                        else max(0.0, earliest - time.perf_counter()))
             try:
-                return await self._staging.acquire(timeout)
+                slot = await self._staging[first].acquire(timeout)
+                return self._staged(first), slot
             except asyncio.TimeoutError:
                 continue
+
+    def _staged(self, replica: int) -> int:
+        """Record a staging acquire on the replica's occupancy gauge."""
+        self._g_replica_inflight[replica].set(self._staging[replica].in_use)
+        return replica
+
+    def _release_staging(self, replica: int, slot: int) -> None:
+        self._staging[replica].release(slot)
+        self._g_replica_inflight[replica].set(self._staging[replica].in_use)
 
     async def _execute(self, reqs: list[_Request], group: Hashable,
                        released: list[bool]) -> None:
@@ -645,29 +686,29 @@ class ModelBatcher:
                 np_out = await out_fut
                 t3 = time.perf_counter()
                 mark("compute", t2, t3)
-                self._c_device_seconds.inc(t3 - t2)
+                self._c_device_seconds[0].inc(t3 - t2)
                 if self.device_time_cb is not None:
                     self.device_time_cb(t3 - t2)
             else:
-                slot = await self._acquire_staging(reqs)
-                if slot is None:
+                replica, slot = await self._acquire_staging(reqs)
+                if replica is None:
                     return  # every request expired; nothing to run
                 try:
                     await self._inject(name)
                     outputs = await self.stages.run(
-                        name, "h2d", self.runtime.run, bucket, host_batch)
+                        name, "h2d", self.runtime.run, bucket, host_batch, replica)
                     t2 = time.perf_counter()
                     mark("h2d", t1, t2)
                     np_out = await self.stages.run(name, "fetch", self.runtime.fetch, outputs)
                     t3 = time.perf_counter()
                     mark("compute", t2, t3)
-                    self._c_device_seconds.inc(t3 - t2)
+                    self._c_device_seconds[replica].inc(t3 - t2)
                     if self.device_time_cb is not None:
                         # The device section (dispatch to ready) is what the
                         # fleet's models compete for.
                         self.device_time_cb(t3 - t2)
                 finally:
-                    self._staging.release(slot)
+                    self._release_staging(replica, slot)
         finally:
             if lease is not None:
                 # Safe only now: the completed fetch proves the device is
@@ -784,8 +825,17 @@ class ModelBatcher:
             "admission_cap": self._admission_cap,
             "inflight": self._inflight_now,
             "inflight_peak": self._inflight_peak,
-            "staging_in_use": self._staging.in_use if self._staging else 0,
+            "staging_in_use": sum(p.in_use for p in self._staging),
             "pending": self._pending,
             "arena": self.arena.stats() if self.arena is not None else None,
             "adaptive": adaptive,
+            "replicas": len(self._staging),
+            # Per-replica dispatch count and device-section occupancy: a
+            # starved replica shows as a row of zeros.
+            "per_replica": [
+                {"replica": i, "batches_total": batches,
+                 "staging_in_use": p.in_use,
+                 "occupancy": round(p.in_use / self.depth, 3) if self.depth else 0.0}
+                for i, (p, batches) in enumerate(zip(
+                    self._staging, self.runtime.replica_batches()))],
         }

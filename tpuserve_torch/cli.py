@@ -40,9 +40,9 @@ victim) with ``device_error`` and gates the worst survivor's availability.
 frozen GraphDef or a torch checkpoint into the port's ``.npz`` and its
 manifest; it imports TensorFlow for the TF forms, so it runs where
 TensorFlow is installed, and the card's machine serves the ``.npz``. Its
-``--quantize int8`` (the reference's quantized tree) is refused by name
-with exit code 2 (ROADMAP.md queue 1 item 14b): serve the float ``.npz``
-with ``quantize = "int8"``.
+``--quantize int8`` writes the reference's weight-only int8 tree (serve it
+with ``quantize = "int8"``); an orbax directory is refused by name with
+exit code 2.
 
 ``lint`` (``tpuserve_torch.analysis.cli``) runs the reference's analysis
 passes over ``tpuserve_torch/`` against the port's checked-in baseline:
@@ -274,8 +274,8 @@ def main(argv: list[str] | None = None) -> int:
                        help="model option for the import (TOML-parsed value), "
                             "e.g. --opt vocab_file=vocab.txt --opt layers=24")
     p_imp.add_argument("--quantize", choices=["int8"], default=None,
-                       help="the reference's weight-only int8 tree: not ported "
-                            "(serve the float .npz with quantize = \"int8\")")
+                       help="write the weight-only int8 tree (serve it with "
+                            "quantize = \"int8\")")
 
     p_lint = sub.add_parser(
         "lint",
@@ -382,7 +382,7 @@ def main(argv: list[str] | None = None) -> int:
         try:
             savedmodel.convert_cli(args.saved_model, args.family, args.out,
                                    _parse_opt_args(parser, args.opt), quantize=args.quantize)
-        except NotImplementedError as e:  # --quantize int8, an orbax directory
+        except NotImplementedError as e:  # an orbax directory
             return _refuse("import-model", str(e))
         return 0
 

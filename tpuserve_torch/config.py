@@ -11,23 +11,20 @@ typed: :class:`ModelConfig`, :class:`PipelineConfig`,
 engine's :class:`GenserveConfig`, the process tier's :class:`RouterConfig`
 and :class:`WorkerConfig`, the fleet scheduler's :class:`SchedulerConfig`,
 the tenants' :class:`TenantsConfig` (with its :class:`TenantConfig`
-entries), the fleet controller's :class:`AutopilotConfig`, the per-model
-:class:`SloConfig` and the top-level :class:`ServerConfig` fields, with the
-JAX package's defaults and checks. Every other setting the JAX package
-knows — its other tables (``[parallel]``, ``[distributed]``) and the key
-the port has no use for yet (``pp``) — parses into the
-``unported`` dict of its ``ServerConfig`` or ``ModelConfig`` as a plain
-value.
-:func:`unported_settings` names those that ask for behaviour the port
-lacks, and the server refuses to start while any is set: a JAX config
-tuned with them never loads into a server that quietly behaves otherwise.
-A setting that switches a missing feature off (``[parallel] mode =
-"single"``), or that holds the JAX package's default where that default
-asks for nothing (``pp = 1``), is accepted. Every ``[[faults.rule]]`` kind
-fires at a call site the port has; while ``[faults]`` is enabled, a rule
-of a kind whose call site the port lacked would be refused by name
-(``_FAULT_KINDS_UNPORTED``, empty since deferred mode's ``worker_death``
-was ported).
+entries), the fleet controller's :class:`AutopilotConfig`, the mesh plan
+:class:`ParallelConfig`, the multi-process seam :class:`DistributedConfig`,
+the per-model :class:`SloConfig` and the top-level :class:`ServerConfig`
+fields, with the JAX package's defaults and checks. Every table and key of
+the JAX package is typed since the mesh modes were ported, so
+``UNPORTED_TABLES``, ``_SERVER_UNPORTED`` and ``_MODEL_UNPORTED`` are
+empty; a setting the port ever lacks again parses into the ``unported``
+dict of its ``ServerConfig`` or ``ModelConfig`` as a plain value, and
+:func:`unported_settings` names it so the server refuses to start: a JAX
+config tuned with it never loads into a server that quietly behaves
+otherwise. Every ``[[faults.rule]]`` kind fires at a call site the port
+has; while ``[faults]`` is enabled, a rule of a kind whose call site the
+port lacked would be refused by name (``_FAULT_KINDS_UNPORTED``, empty
+since deferred mode's ``worker_death`` was ported).
 
 Example TOML::
 
@@ -53,19 +50,17 @@ except ModuleNotFoundError:  # Python < 3.11: tomli is the same parser
 from dataclasses import dataclass, field
 from typing import Any
 
-# The JAX package's tables the port does not serve yet. Any key set in one
-# is refused, except ``enabled = false`` (and ``[parallel] mode`` naming the
-# one-device layout).
-UNPORTED_TABLES = ("distributed", "parallel")
+# The JAX package's tables the port does not serve yet (any key set in one
+# is refused, except ``enabled = false``): none since [parallel] and
+# [distributed] were ported with the mesh modes.
+UNPORTED_TABLES: tuple[str, ...] = ()
 _TABLE_OFF: dict[str, tuple] = {"enabled": (False,)}
-_PARALLEL_OFF: dict[str, tuple] = {"mode": ("", "single")}
-_DISTRIBUTED_OFF: dict[str, tuple] = {"coordinator_address": ("",)}
 # The JAX package's top-level and per-model keys the port does not serve
 # yet, each with the values that ask for nothing the port lacks (empty: no
-# such value, any setting is refused). No top-level key is left since
-# profiler_port was ported.
+# such value, any setting is refused). None is left since profiler_port
+# and pp were ported.
 _SERVER_UNPORTED: dict[str, tuple] = {}
-_MODEL_UNPORTED: dict[str, tuple] = {"pp": (0, 1)}
+_MODEL_UNPORTED: dict[str, tuple] = {}
 
 
 WIRE_FORMATS = ("rgb8", "yuv420")
@@ -658,7 +653,7 @@ class SchedulerConfig:
     # Idle-demotion sweep cadence (s).
     sweep_interval_s: float = 0.5
     # Chip budget of the warm models (each warm model occupies its
-    # parallelism degree: 1 on one card); warming past it first demotes
+    # parallelism degree, its runtime's n_chips); warming past it first demotes
     # idle cold_start models and otherwise sheds 503 chip_budget. 0 =
     # unlimited.
     chip_budget: int = 0
@@ -921,9 +916,16 @@ class ModelConfig:
     # "yuv420" (full-res Y plane + 2x2-subsampled Cb/Cr planes, 1.5 B/px;
     # colour conversion on the device).
     wire_format: str = "rgb8"
-    # Parallelism mode; the port serves "single" (one device) only.
+    # Parallelism mode (tpuserve_torch.runtime): "sharded" (one mesh, the
+    # batch split on its data axis, params replicated or split by the
+    # family's partition rules), "replica" (one runtime replica per device),
+    # "pipeline" (GPipe stages over a ("stage",) mesh) or "single" (the
+    # first device only). The reference's default, "sharded", serves on a
+    # one-device mesh on one card.
     parallelism: str = "sharded"
-    # Tensor- and sequence-parallel axis sizes (1 = off; > 1 not ported).
+    # Pipeline stage count for parallelism = "pipeline" (0 = all devices).
+    pp: int = 0
+    # Tensor- and sequence-parallel axis sizes (1 = off).
     tp: int = 1
     sp: int = 1
     # Model-specific knobs (BERT: layers, d_model, heads, attention, ...).
@@ -992,6 +994,8 @@ class ModelConfig:
         if self.tp < 1 or self.sp < 1:
             raise ValueError(
                 f"tp and sp must be >= 1, got tp={self.tp} sp={self.sp}")
+        if self.pp < 0:
+            raise ValueError(f"pp must be >= 0, got {self.pp}")
         if self.wire_format not in WIRE_FORMATS:
             raise ValueError(f"wire_format must be one of {WIRE_FORMATS}, "
                              f"got {self.wire_format!r}")
@@ -1010,11 +1014,66 @@ class ModelConfig:
 
 
 @dataclass
+class ParallelConfig:
+    """Multi-device serving plan (``[parallel]`` TOML): a server-wide
+    selection of how the serving path uses the devices; a model's
+    ``parallelism`` remains the fine-grained knob.
+
+    - ``mode = "replica"`` — N independent one-device runtime replicas,
+      params copied per device, the batcher keeping every replica's depth-k
+      staging slots full by least-loaded dispatch.
+    - ``mode = "sharded"`` — one mesh over the devices, the batch split on
+      its data axis.
+    - ``mode = "single"`` — the first device only.
+    - ``mode = ""`` (default) — every model keeps its own ``parallelism``.
+
+    A non-empty mode overrides every configured model (``pipeline`` ones
+    included) but the recycle-mode ones."""
+
+    # "" = respect per-model `parallelism`; "replica" / "sharded" /
+    # "single" override every model's mode at build time.
+    mode: str = ""
+    # Devices the serving path uses; 0 = every visible device.
+    n_chips: int = 0
+    # Sharded mode: data-axis size; 0 derives it from the device count and
+    # the model's tp/sp axes. Setting `data` with n_chips = 0 sizes the
+    # mesh to exactly data * tp * sp devices.
+    data: int = 0
+
+    def __post_init__(self) -> None:
+        if self.mode not in ("", "replica", "sharded", "single"):
+            raise ValueError(
+                f"parallel.mode must be one of '', 'replica', 'sharded', "
+                f"'single'; got {self.mode!r} (pipeline is per-model only)")
+        if self.n_chips < 0 or self.data < 0:
+            raise ValueError("parallel.n_chips/data must be >= 0")
+
+
+@dataclass
+class DistributedConfig:
+    """Multi-process initialization (``[distributed]`` TOML;
+    tpuserve_torch.parallel.distributed): with ``coordinator_address`` set,
+    startup joins ``torch.distributed``'s process group before any device
+    use. Leave it empty for one host."""
+
+    # "host:port" of the process-0 coordinator; "" disables distributed init.
+    coordinator_address: str = ""
+    # Total process count; -1 = take it from the launcher's environment.
+    num_processes: int = -1
+    # This process's rank; -1 = take it from the launcher's environment.
+    process_id: int = -1
+
+
+@dataclass
 class ServerConfig:
     """Top-level server configuration."""
 
     host: str = "0.0.0.0"
     port: int = 8000
+    # Multi-process init; defaults to one process (disabled).
+    distributed: DistributedConfig = field(default_factory=DistributedConfig)
+    # Multi-device serving plan: replica per device vs sharded batch.
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
     models: list[ModelConfig] = field(default_factory=list)
     # HTTP accept loops on the serving port: 1 = the main event loop only;
     # N > 1 adds N-1 ingest event-loop threads, each with its own
@@ -1112,13 +1171,14 @@ class ServerConfig:
         raise KeyError(f"no model named {name!r} configured")
 
 
-# The observability tables, [genserve], [router], [worker], [scheduler] and
-# [autopilot], typed by TOML table name ([tenants] nests its entries and is
-# built on its own).
+# The observability tables, [genserve], [router], [worker], [scheduler],
+# [autopilot], [parallel] and [distributed], typed by TOML table name
+# ([tenants] nests its entries and is built on its own).
 TYPED_TABLES = {"trace": TraceConfig, "telemetry": TelemetryConfig,
                 "events": EventsConfig, "genserve": GenserveConfig,
                 "router": RouterConfig, "worker": WorkerConfig,
-                "scheduler": SchedulerConfig, "autopilot": AutopilotConfig}
+                "scheduler": SchedulerConfig, "autopilot": AutopilotConfig,
+                "parallel": ParallelConfig, "distributed": DistributedConfig}
 
 
 def unported_settings(cfg: ServerConfig) -> list[str]:
@@ -1128,8 +1188,7 @@ def unported_settings(cfg: ServerConfig) -> list[str]:
     for name, value in cfg.unported.items():
         if name.startswith("["):
             table, _, key = name[1:].partition("] ")
-            accepted = {"parallel": _PARALLEL_OFF,
-                        "distributed": _DISTRIBUTED_OFF}.get(table, _TABLE_OFF).get(key, ())
+            accepted = _TABLE_OFF.get(key, ())
         else:
             accepted = _SERVER_UNPORTED[name]
         if value not in accepted:

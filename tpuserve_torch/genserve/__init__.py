@@ -16,13 +16,14 @@
   :class:`~tpuserve_torch.genserve.engine.KVPressure` as the
   page-exhaustion admission shed.
 
-Not ported yet: the replica group (``GenEngineGroup``).
+- :class:`~tpuserve_torch.genserve.engine.GenEngineGroup` — one engine per
+  replica of a replica-mode runtime, least-loaded placement.
 """
 
 from tpuserve_torch.genserve.arena import SlotArena, SlotCorrupted, SlotInfo
-from tpuserve_torch.genserve.engine import GenEngine, GenStream, KVPressure
+from tpuserve_torch.genserve.engine import GenEngine, GenEngineGroup, GenStream, KVPressure
 from tpuserve_torch.genserve.model import GenerativeModel
 from tpuserve_torch.genserve.pages import PageCorrupted, PageLedger
 
-__all__ = ["GenEngine", "GenStream", "GenerativeModel", "KVPressure", "PageCorrupted",
+__all__ = ["GenEngine", "GenEngineGroup", "GenStream", "GenerativeModel", "KVPressure", "PageCorrupted",
            "PageLedger", "SlotArena", "SlotCorrupted", "SlotInfo"]

@@ -42,7 +42,11 @@ per iteration, and every stream ends in exactly one terminal unit — "done"
 at retire, or an "error" naming the machinery that cut it
 (``obs.GEN_STREAM_REASONS``).
 
-Not ported: the replica group (``GenEngineGroup``).
+Replica mode: :class:`GenEngineGroup` runs one engine per runtime replica
+(its own slot arena, page ledger, state blocks and programs on its
+replica's device), places each request on the least-loaded one and
+serves the whole engine surface, so the HTTP layer, the watchdog, the
+lifecycle, the scheduler and ``/stats`` compose unchanged.
 
 All engine state is event-loop-only (the step loop owns every mutation);
 there is deliberately no lock to witness.
@@ -181,7 +185,8 @@ class GenEngine:
                  breaker: "Any | None" = None,
                  injector: "Any | None" = None,
                  stages: "StageExecutors | None" = None,
-                 pipeline_cfg: "PipelineConfig | None" = None) -> None:
+                 pipeline_cfg: "PipelineConfig | None" = None,
+                 replica: int = 0) -> None:
         self.model = model
         self.runtime = runtime
         self.metrics = metrics
@@ -189,8 +194,9 @@ class GenEngine:
         self.gcfg = gcfg or GenserveConfig()
         self.breaker = breaker
         self.injector = injector
-        # The port runs one engine per model on one card: replica 0.
-        self.replica = 0
+        # This engine's runtime replica (a GenEngineGroup member's index;
+        # 0 alone): its per-replica metric rows carry it.
+        self.replica = replica
         self.slots = self.gcfg.slots or max(self.cfg.batch_buckets)
         self.arena = SlotArena(self.slots)
         # Paged KV cache: only families that ship the paged programs opt in.
@@ -1277,3 +1283,202 @@ class GenEngine:
                 total += int(np.prod(spec.shape)) * torch.empty(
                     (), dtype=torch_dtype(spec.dtype)).element_size()
         return total
+
+
+class GenEngineGroup:
+    """One :class:`GenEngine` per replica of a replica-mode runtime
+    (``runtime.ReplicaRuntime``), each on its replica's one-device runtime
+    with its own slot arena, page ledger and state blocks; every member
+    registers the same programs on its replica, so
+    ``runtime_compiles_total`` counts replicas x programs at startup and 0
+    after. The group serves the full engine surface (submit and
+    submit_stream, start/stop/drain, the watchdog's revive, the staged
+    canary, the scheduler's predictors, ``pipeline_stats``).
+
+    Placement is least-loaded: a request goes to the engine with the
+    fewest committed items (active slots and queued requests), ties
+    rotating, so a replica pinned by long generations never starves the
+    others. Model-level counters are name-keyed and shared by every member;
+    per-replica truth lives on the ``{model=,replica=}`` rows and the
+    ``per_replica`` stats block."""
+
+    def __init__(self, model: GenerativeModel, runtime: Any,
+                 metrics: Metrics, gcfg: "GenserveConfig | None" = None,
+                 breaker: "Any | None" = None,
+                 injector: "Any | None" = None,
+                 stages: "StageExecutors | None" = None,
+                 pipeline_cfg: "PipelineConfig | None" = None) -> None:
+        self.model = model
+        self.runtime = runtime
+        self.metrics = metrics
+        self.cfg = model.cfg
+        self.gcfg = gcfg or GenserveConfig()
+        self.name = model.cfg.name
+        self._own_stages = stages is None
+        self.stages = stages if stages is not None \
+            else StageExecutors(pipeline_cfg or PipelineConfig(), metrics)
+        replicas = getattr(runtime, "replicas", [runtime])
+        self.engines = [
+            GenEngine(model, rt, metrics, gcfg=self.gcfg, breaker=breaker,
+                      injector=injector, stages=self.stages,
+                      pipeline_cfg=pipeline_cfg, replica=i)
+            for i, rt in enumerate(replicas)]
+        self._rr = 0
+
+    # -- settings the server wires after build, fanned out --------------------
+    def _fan(name: str):  # noqa: N805 — a property factory
+        def get(self):
+            return getattr(self.engines[0], name)
+
+        def set_(self, value):
+            for e in self.engines:
+                setattr(e, name, value)
+        return property(get, set_)
+
+    injector = _fan("injector")
+    breaker = _fan("breaker")
+    # Every engine feeds the same fleet ledger: the model's device seconds
+    # are the sum of its replicas' step time.
+    device_time_cb = _fan("device_time_cb")
+    del _fan
+
+    # -- aggregates -----------------------------------------------------------
+    @property
+    def slots(self) -> int:
+        return sum(e.slots for e in self.engines)
+
+    @property
+    def peak_active(self) -> int:
+        return sum(e.peak_active for e in self.engines)
+
+    @property
+    def pending(self) -> int:
+        return sum(e.pending for e in self.engines)
+
+    @property
+    def paging(self) -> bool:
+        return self.engines[0].paging
+
+    @property
+    def pages(self) -> Any:
+        return self.engines[0].pages
+
+    def kv_cache_bytes(self) -> int:
+        return sum(e.kv_cache_bytes() for e in self.engines)
+
+    # -- lifecycle ------------------------------------------------------------
+    def compile(self) -> None:
+        """Each member registers, captures and prewarms its programs on its
+        replica's runtime."""
+        for e in self.engines:
+            e.compile()
+
+    async def start(self) -> None:
+        for e in self.engines:
+            await e.start()
+
+    async def stop(self) -> None:
+        for e in self.engines:
+            await e.stop()
+        if self._own_stages:
+            self.stages.shutdown()
+
+    async def drain(self, deadline: float) -> bool:
+        results = await asyncio.gather(*(e.drain(deadline) for e in self.engines))
+        return all(results)
+
+    def revive_group_loops(self) -> int:
+        return sum(e.revive_group_loops() for e in self.engines)
+
+    # -- submission (event loop) ----------------------------------------------
+    def _pick(self) -> GenEngine:
+        """Least-loaded engine by committed work (active + queued); ties
+        rotate a cursor so idle replicas share cold traffic."""
+        n = len(self.engines)
+        best, best_load = self.engines[self._rr % n], None
+        for k in range(n):
+            e = self.engines[(self._rr + k) % n]
+            load = e.arena.n_active + len(e._pending)
+            if best_load is None or load < best_load:
+                best, best_load = e, load
+        self._rr = (self._rr + 1) % n
+        return best
+
+    def submit(self, item: Any, group: Any = None, deadline_at: float | None = None,
+               priority: str | None = None, ctx: Any = None) -> asyncio.Future:
+        return self._pick().submit(item, group=group, deadline_at=deadline_at,
+                                   priority=priority, ctx=ctx)
+
+    def submit_stream(self, item: Any, deadline_at: float | None = None,
+                      priority: str | None = None,
+                      ctx: Any = None) -> "tuple[asyncio.Future, GenStream]":
+        return self._pick().submit_stream(item, deadline_at=deadline_at,
+                                          priority=priority, ctx=ctx)
+
+    # -- staged canary (lifecycle hook; executor thread) ----------------------
+    def staged_canary_sync(self, staged: Any) -> None:
+        """Fan the staged canary to every member: each runs the short real
+        generation against its replica's copy of the candidate, so a
+        candidate broken on one replica is rejected before publish; the
+        failure names the replica."""
+        for i, e in enumerate(self.engines):
+            try:
+                e.staged_canary_sync(staged)
+            except Exception as err:
+                raise ValueError(f"staged canary failed on replica {i}: {err}") from err
+
+    # -- scheduler surface ----------------------------------------------------
+    def predicted_service_s(self, n_items: int = 1) -> float | None:
+        vals = [v for e in self.engines
+                if (v := e.predicted_service_s(n_items)) is not None]
+        return (sum(vals) / len(vals)) if vals else None
+
+    def kv_clear_s(self) -> float | None:
+        vals = [v for e in self.engines if (v := e.kv_clear_s()) is not None]
+        return max(vals) if vals else None
+
+    def estimate_clear_s(self) -> float | None:
+        # Replicas drain in parallel: the group clears when its slowest
+        # member does.
+        vals = [v for e in self.engines if (v := e.estimate_clear_s()) is not None]
+        return max(vals) if vals else None
+
+    # -- introspection --------------------------------------------------------
+    def pipeline_stats(self) -> dict:
+        e0 = self.engines[0]
+        # Model-level counters are shared: e0's already carry the group's
+        # totals; only the occupancy fields need summing.
+        stats = e0.pipeline_stats()
+        stats.update(
+            replicas=len(self.engines), slots=self.slots,
+            active=sum(e.arena.n_active for e in self.engines),
+            free=sum(e.arena.n_free for e in self.engines),
+            peak_active=self.peak_active, pending=self.pending,
+            admitted_total=sum(e.arena.acquires_total for e in self.engines))
+        ewmas = [e._ewma_step_ms for e in self.engines if e._ewma_step_ms]
+        stats["step_ewma_ms"] = round(sum(ewmas) / len(ewmas), 3) if ewmas else None
+        iters = [e._ewma_iters for e in self.engines if e._ewma_iters]
+        stats["iters_per_request_ewma"] = (round(sum(iters) / len(iters), 2)
+                                           if iters else None)
+        stats["per_slot"] = [
+            {"replica": e.replica, "slot": s, "iterations": e.arena.peek(s).iterations}
+            for e in self.engines for s in e.arena.active_slots()]
+        if e0.pages is not None:
+            paged = [e for e in self.engines if e.pages is not None]
+            usable = sum(e.pages.usable for e in paged)
+            reserved = sum(e.pages.n_reserved for e in paged)
+            stats["kv"] = {
+                "pages": sum(e.pages.pages for e in paged),
+                "usable": usable,
+                "free": sum(e.pages.n_free for e in paged),
+                "reserved": reserved,
+                "page_tokens": e0.pages.page_tokens,
+                "utilization": round(reserved / usable, 4) if usable else 0.0,
+                "acquires_total": sum(e.pages.acquires_total for e in paged),
+                "prefill_chunk": e0._prefill_chunk,
+                "prefill_chunks_total": e0._c_prefill_chunks.value,
+                "queued_pages": sum(e._queued_pages() for e in paged),
+                "kv_bytes": self.kv_cache_bytes(),
+            }
+        stats["per_replica"] = [e.replica_row() for e in self.engines]
+        return stats

@@ -239,23 +239,29 @@ class ModelLifecycle:
         """Run the model's canary item through the staged slot's graphs
         (``params_override``): the candidate proves itself on the device
         before one request can reach it. Blocking D2H — runs in the default
-        executor."""
+        executor. With replicas the canary runs on every one (each holds
+        its own copy of the candidate): the dispatches go out first, then
+        one fetch per replica proves each; a failure names the replica."""
         if self._staged_canary_fn is not None:
             self._staged_canary_fn(staged)
             return
         item = self.model.canary_item()
         bucket = self.model.bucket_for(1, group=self.model.group_key(item))
         host_batch = self.model.assemble([item], bucket)
-        # runtime.fetch is the blessed readback (retrace.host_fetch): the
-        # comparison below reads host arrays only.
-        out = self.runtime.fetch(self.runtime.run(bucket, host_batch,
-                                                  params_override=staged))
-        bad = [k for k, a in sorted(out.items())
-               if np.asarray(a).dtype.kind == "f" and not np.isfinite(a).all()]
-        if bad:
-            raise ValueError(f"staged canary produced non-finite outputs in {bad}")
-        if not self.model.host_postprocess(out, 1):
-            raise ValueError("staged canary produced no result")
+        n = max(1, int(getattr(self.runtime, "n_replicas", 1)))
+        pending = [self.runtime.run(bucket, host_batch, replica=i, params_override=staged)
+                   for i in range(n)]
+        for i, dev_out in enumerate(pending):
+            # runtime.fetch is the blessed readback (retrace.host_fetch): the
+            # comparison below reads host arrays only.
+            out = self.runtime.fetch(dev_out)
+            where = f" on replica {i}" if n > 1 else ""
+            bad = [k for k, a in sorted(out.items())
+                   if np.asarray(a).dtype.kind == "f" and not np.isfinite(a).all()]
+            if bad:
+                raise ValueError(f"staged canary produced non-finite outputs in {bad}{where}")
+            if not self.model.host_postprocess(out, 1):
+                raise ValueError(f"staged canary produced no result{where}")
 
     async def _rollback_locked(self, reason: str) -> dict:
         self._cancel_soak()

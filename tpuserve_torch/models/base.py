@@ -38,6 +38,8 @@ import torch
 
 from tpuserve_torch import quantize, savedmodel
 from tpuserve_torch.config import ModelConfig
+from tpuserve_torch.parallel.mesh import MODEL_AXIS, Mesh, batch_sharding
+from tpuserve_torch.parallel.partition import REPLICATED_RULES, PartitionSpec
 
 log = logging.getLogger("tpuserve_torch.models")
 
@@ -57,6 +59,61 @@ def not_ported(what: str, item: str) -> NotImplementedError:
     naming its ROADMAP.md item."""
     return NotImplementedError(
         f"{what} is not yet ported to tpuserve_torch (ROADMAP.md queue 1: {item})")
+
+
+def check_mesh(cfg: ModelConfig, tp_ok: bool = False, sp_ok: bool = False) -> None:
+    """The port's refusals of mesh layouts a family does not serve yet,
+    each naming its ROADMAP.md item (the reference's own refusals come
+    first, in each family): a model axis (``tp > 1``) unless the family
+    splits its weights by hand (``tp_ok``), a seq axis (``sp > 1``) unless
+    its attention runs over one (``sp_ok``), and a seq axis beside a model
+    axis. An axis the family cannot use is refused in every mode, never
+    quietly replicated."""
+    if cfg.tp > 1 and not tp_ok:
+        raise not_ported(f"tp={cfg.tp} for family {cfg.family!r} (the split of its "
+                         "weights over the model axis)", "item 9b")
+    if cfg.sp > 1 and not sp_ok:
+        raise not_ported(f"sp={cfg.sp} for family {cfg.family!r} (its work over a seq "
+                         "axis)", "item 9b")
+    if cfg.parallelism == "sharded" and cfg.sp > 1 and cfg.tp > 1:
+        raise not_ported(f"sp={cfg.sp} beside tp={cfg.tp}", "item 9b")
+
+
+class MeshModule(torch.nn.Module):
+    """One parameter slot of a mesh that splits the forward: a module per
+    rank (``ranks``, in the layout the family's ``mesh_module`` chose —
+    one per data rank, one per (data, model) rank, or one per stage), each
+    on its rank's device. The runtime treats it as one module: its
+    parameters and buffers are the slot's tensors, copied in place by a
+    reload, and ``ServingModel.mesh_forward`` runs it."""
+
+    def __init__(self, ranks: list[torch.nn.Module], mesh: Mesh,
+                 grid: tuple[int, ...]) -> None:
+        super().__init__()
+        self.ranks = torch.nn.ModuleList(ranks)
+        self.mesh = mesh
+        self.grid = grid  # the ranks' layout, e.g. (dp, tp) or (stages,)
+
+    def rank(self, *index: int) -> torch.nn.Module:
+        return self.ranks[int(np.ravel_multi_index(index, self.grid))]
+
+
+def rows_split(batch: tuple, n: int) -> list[tuple]:
+    """A batch's tensors cut into ``n`` equal row blocks."""
+    rows = batch[0].shape[0] // n
+    return [tuple(t[i * rows:(i + 1) * rows] for t in batch) for i in range(n)]
+
+
+def rows_gather(outs: list, device: torch.device) -> Any:
+    """Per-rank outputs (dicts of batch-leading tensors, or tensors) joined
+    along the rows on ``device``."""
+    if isinstance(outs[0], dict):
+        return {k: torch.cat([o[k].to(device) for o in outs]) for k in outs[0]}
+    return torch.cat([o.to(device) for o in outs])
+
+
+def to_device(batch: tuple, device: torch.device) -> tuple:
+    return tuple(t.to(device) for t in batch)
 
 
 @dataclass(frozen=True)
@@ -116,7 +173,9 @@ class ServingModel(abc.ABC):
         """The reference's float32 parameter tree: ``cfg.weights``' .npz,
         held to its sidecar checksum manifest before anything else reads it
         (IntegrityError; a missing manifest is one only with
-        ``require_manifest``); a torch checkpoint, imported through
+        ``require_manifest``), whose quantized ``{"q8", "q8_scale"}``
+        sub-trees need ``quantize = "int8"``/``"int8c"`` (ValueError with
+        the reference's guidance otherwise); a torch checkpoint, imported through
         ``import_torch_variables`` and, as in the reference, held to no
         manifest; or the seeded init (seed 0) when no weights are
         configured."""
@@ -135,11 +194,22 @@ class ServingModel(abc.ABC):
         tree = savedmodel.load_npz(path)
         if verify_integrity:
             savedmodel.verify_manifest_if_present(path, tree, require=require_manifest)
+        if quantize.has_quantized_leaves(tree) and self.cfg.quantize not in ("int8", "int8c"):
+            # Never served as float: the int8 values would read as weights.
+            raise ValueError(
+                f"checkpoint at {path!r} holds int8-quantized weights; set "
+                "quantize = \"int8\" (weight-only) or \"int8c\" (int8 compute) "
+                "on the model to serve it")
         return tree
 
-    def load_params(self) -> dict[str, torch.Tensor]:
-        """``load_tree`` (integrity gate included), as a float32 state_dict."""
-        return self.from_jax_params(self.load_tree())
+    def load_params(self) -> Any:
+        """``load_tree`` (integrity gate included), as a float32 state_dict;
+        a tree holding pre-quantized leaves comes back as it is (the
+        runtime installs its int8 values and scales as they are)."""
+        tree = self.load_tree()
+        if quantize.has_quantized_leaves(tree):
+            return tree
+        return self.from_jax_params(tree)
 
     def import_tf_variables(self, flat: dict[str, np.ndarray]) -> Any:
         """Translate a flat TF {name: array} dict into the reference's tree
@@ -182,6 +252,45 @@ class ServingModel(abc.ABC):
         """Hook for mesh-aware models (BERT's ring/Ulysses attention): the
         runtime passes its serving mesh before it builds the module and
         warms up. A no-op by default."""
+
+    # True for a family with a homogeneous block stack that pipelines its
+    # own depth (parallelism = "pipeline"); BERT does.
+    pipeline_capable = False
+
+    def partition_rules(self) -> list[tuple[str, PartitionSpec]]:
+        """Ordered (regex, PartitionSpec) rules over the reference tree's
+        '/'-joined leaf paths; default replicate."""
+        return list(REPLICATED_RULES)
+
+    def mesh_module(self, tree: Any, mesh: Mesh, prepare) -> MeshModule:
+        """One parameter slot on a mesh that splits the forward (a data or
+        model axis larger than 1, or pipeline stages), from the reference's
+        tree. ``prepare(model, tree, device)`` builds one rank's module the
+        way the runtime builds a one-device slot (conversion, cast,
+        quantization). Default: the data axis alone, one full copy of the
+        parameters per data rank (``REPLICATED_RULES``); a family that
+        splits its weights over the model axis or pipelines overrides it."""
+        if mesh.shape.get(MODEL_AXIS, 1) > 1:
+            raise not_ported(f"a model axis for family {self.cfg.family!r}", "item 9b")
+        devs = batch_sharding(mesh)
+        return MeshModule([prepare(self, tree, d) for d in devs], mesh, (len(devs),))
+
+    def mesh_forward(self, module: MeshModule, batch: tuple) -> Outputs:
+        """``forward`` over a ``MeshModule``: default, each data rank runs
+        its rows on its copy, on its device, and the rows come back to the
+        first rank's device (the batch is split and gathered, as the
+        reference's sharded executable takes and returns it)."""
+        devs = batch_sharding(module.mesh)
+        outs = [self.forward(rank, to_device(rows, d))
+                for rank, rows, d in zip(module.ranks, rows_split(batch, len(devs)), devs)]
+        return rows_gather(outs, devs[0])
+
+    def mesh_logits(self, module: MeshModule, batch: tuple) -> torch.Tensor:
+        """``logits`` over a ``MeshModule`` (default: per data rank, rows
+        gathered on the first rank's device)."""
+        devs = batch_sharding(module.mesh)
+        return rows_gather([self.logits(rank, to_device(rows, d)) for rank, rows, d in
+                            zip(module.ranks, rows_split(batch, len(devs)), devs)], devs[0])
 
     # -- shapes -------------------------------------------------------------
     @abc.abstractmethod

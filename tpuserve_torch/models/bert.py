@@ -17,8 +17,32 @@ forward ends in softmax and top-k on the device.
   ``ulysses_attention``), whose local step ``local_impl="auto"`` picks by
   memory: dense, or kernel K2 (ring) / K1 (Ulysses) once the dense score
   tile passes 2 GiB. They need the mesh: the runtime calls ``bind_mesh``
-  before it builds the module; a forward without one raises. Only
-  ``parallelism = "single"`` (a 1-device mesh, sp = 1) is ported.
+  before it builds the module; a forward without one raises.
+
+The mesh modes (``tpuserve_torch.runtime``), single-controller:
+
+- ``parallelism = "sharded"`` with a data axis: each data rank runs its
+  rows on its own copy of the parameters (``ServingModel.mesh_forward``);
+- ``tp > 1`` (the reference's partition rules, ``partition_rules``): each
+  model rank holds its heads of Q/K/V and its rows of the out projection,
+  its columns of ``mlp_up`` and rows of ``mlp_down``, and runs K1 on its own
+  heads; after each row-split product the ranks' partial sums are added on
+  the first rank's device (the all-reduce over "model") and the sum goes
+  back to every rank. The reference's replicated biases are sliced with
+  their kernels (q/k/v and ``mlp_up``), and the row-split products' biases
+  are added once, by model rank 0. Under ``quantize`` the whole tree is
+  quantized first and then split (``quantize.specs_for_tree``), so each
+  rank's scales are the whole weight's;
+- ``parallelism = "pipeline"`` (``pp`` stages): the reference's GPipe trunk
+  — the layers split into S equal stages, one per rank of a ("stage",)
+  mesh, each stage's module holding its layers and the replicated
+  embedding and head; embed on stage 0, ``_pp_micro`` microbatches through
+  ``parallel.pipeline.run_schedule``, head on the last stage. The
+  reference composes pipelining with dense attention only; the port's
+  stages also run K1 (``attention = "flash"``), which needs no mesh.
+
+Ring and Ulysses attention serve on a mesh whose data and model axes are 1;
+beside a split forward they are refused naming ROADMAP item 9b.
 
 ``quantize = "int8"`` stores the large weights int8 (weight-only, as the
 reference) and ``"int8c"`` also multiplies the q/k/v/out projections and
@@ -53,21 +77,29 @@ BERT-base defaults; the vocabulary is ``synthetic_vocab`` or a standard
 
 from __future__ import annotations
 
+import copy
 import json
+from typing import Any
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpuserve_torch import quantize
 from tpuserve_torch.config import ModelConfig
-from tpuserve_torch.models.base import ServingModel, TensorSpec, not_ported
+from tpuserve_torch.models.base import (DTYPES, MeshModule, ServingModel, TensorSpec,
+                                        check_mesh, not_ported, rows_gather, rows_split,
+                                        to_device)
 from tpuserve_torch.ops.flash_attention import flash_attention
 from tpuserve_torch.ops.moe import SwitchFFN
 from tpuserve_torch.ops.ring_attention import ring_attention
 from tpuserve_torch.ops.ulysses import ulysses_attention
-from tpuserve_torch.quantize import Int8Linear
-from tpuserve_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh
+from tpuserve_torch.quantize import Int8Linear, activation_scale
+from tpuserve_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh, batch_sharding
+from tpuserve_torch.parallel.partition import (P, PartitionSpec, match_partition_rules,
+                                               rank_coords, split_tree)
+from tpuserve_torch.parallel.pipeline import STAGE_AXIS, run_schedule
 from tpuserve_torch.text import WordPieceTokenizer, synthetic_vocab
 
 ATTENTION_IMPLS = ("dense", "flash", "ring", "ulysses")
@@ -86,22 +118,30 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class SelfAttention(nn.Module):
     """Multi-head self-attention with the reference's projections
-    (flax ``MultiHeadDotProductAttention``: query/key/value/out)."""
+    (flax ``MultiHeadDotProductAttention``: query/key/value/out).
+    ``head_dim`` defaults to d_model // heads; a tensor-parallel rank holds
+    fewer heads of the full head_dim."""
 
     def __init__(self, d_model: int, heads: int, attention: str,
-                 mesh: Mesh | None = None) -> None:
+                 mesh: Mesh | None = None, head_dim: int | None = None) -> None:
         super().__init__()
         self.heads = heads
+        self.head_dim = head_dim or d_model // heads
         self.attention = attention
         self.mesh = mesh  # required for "ring" / "ulysses"
-        self.query = Int8Linear(d_model, d_model)
-        self.key = Int8Linear(d_model, d_model)
-        self.value = Int8Linear(d_model, d_model)
-        self.out = Int8Linear(d_model, d_model)
+        inner = heads * self.head_dim
+        self.query = Int8Linear(d_model, inner)
+        self.key = Int8Linear(d_model, inner)
+        self.value = Int8Linear(d_model, inner)
+        self.out = Int8Linear(inner, d_model)
 
     def forward(self, x: torch.Tensor, key_bias: torch.Tensor) -> torch.Tensor:
-        b, s, d = x.shape
-        shape = (b, s, self.heads, d // self.heads)
+        return self.out(self.core(x, key_bias))
+
+    def core(self, x: torch.Tensor, key_bias: torch.Tensor) -> torch.Tensor:
+        """The attention before the out projection: (B, S, heads * head_dim)."""
+        b, s, _ = x.shape
+        shape = (b, s, self.heads, self.head_dim)
         q = self.query(x).view(shape)
         k = self.key(x).view(shape)
         v = self.value(x).view(shape)
@@ -117,16 +157,17 @@ class SelfAttention(nn.Module):
                         spec=(DATA_AXIS, SEQ_AXIS, MODEL_AXIS, None))
         else:
             a = masked_attention(q, k, v, key_bias)
-        return self.out(a.reshape(b, s, d))
+        return a.reshape(b, s, self.heads * self.head_dim)
 
 
 class BertBlock(nn.Module):
     def __init__(self, d_model: int, heads: int, d_ff: int,
                  attention: str = "dense", ln_eps: float = 1e-12,
                  mesh: Mesh | None = None, moe_experts: int = 0,
-                 moe_capacity_factor: float = 1.25) -> None:
+                 moe_capacity_factor: float = 1.25,
+                 head_dim: int | None = None) -> None:
         super().__init__()
-        self.attn = SelfAttention(d_model, heads, attention, mesh)
+        self.attn = SelfAttention(d_model, heads, attention, mesh, head_dim)
         self.ln_attn = nn.LayerNorm(d_model, eps=ln_eps)
         if moe_experts:
             self.moe = SwitchFFN(d_model, moe_experts, d_ff, moe_capacity_factor)
@@ -143,8 +184,11 @@ class BertBlock(nn.Module):
             # reference recovers it; the serving forward drops the aux loss.
             h, _aux = self.moe(x, (key_bias == 0.0).float())
         else:
-            h = self.mlp_down(F.gelu(self.mlp_up(x)))  # exact (erf) GELU
+            h = self.ffn(x)
         return self.ln_mlp(x + h)
+
+    def ffn(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mlp_down(F.gelu(self.mlp_up(x)))  # exact (erf) GELU
 
 
 class BertClassifier(nn.Module):
@@ -152,7 +196,8 @@ class BertClassifier(nn.Module):
                  d_ff: int, max_seq: int, num_classes: int,
                  attention: str = "dense", ln_eps: float = 1e-12,
                  mesh: Mesh | None = None, moe_experts: int = 0,
-                 moe_capacity_factor: float = 1.25) -> None:
+                 moe_capacity_factor: float = 1.25,
+                 head_dim: int | None = None) -> None:
         super().__init__()
         # nn.Embedding's own N(0, 1) init, skipped on the meta device (where
         # init_params only reads shapes): normal_ on a meta tensor imports
@@ -165,22 +210,59 @@ class BertClassifier(nn.Module):
         self.ln_embed = nn.LayerNorm(d_model, eps=ln_eps)
         self.layers = nn.ModuleList(
             BertBlock(d_model, heads, d_ff, attention, ln_eps, mesh,
-                      moe_experts, moe_capacity_factor)
+                      moe_experts, moe_capacity_factor, head_dim)
             for _ in range(layers))
         self.pooler = nn.Linear(d_model, d_model)
         self.classifier = nn.Linear(d_model, num_classes)
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        x = self.embed(ids)
-        x = x + self.pos_embed[: ids.shape[1]].to(x.dtype)
-        x = self.ln_embed(x)
-        key_bias = (1.0 - mask.float()) * -1e9            # (B, S) f32
+        x = self.embed_tokens(ids)
+        key_bias = key_bias_of(mask)
         for layer in self.layers:
             x = layer(x, key_bias)
+        return self.head(x)
+
+    def embed_tokens(self, ids: torch.Tensor) -> torch.Tensor:
+        x = self.embed(ids)
+        x = x + self.pos_embed[: ids.shape[1]].to(x.dtype)
+        return self.ln_embed(x)
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
         pooled = torch.tanh(self.pooler(x[:, 0]))
         # The classifier runs in f32 whatever the compute dtype.
         return F.linear(pooled.float(), self.classifier.weight.float(),
                         self.classifier.bias.float())
+
+
+def key_bias_of(mask: torch.Tensor) -> torch.Tensor:
+    """The additive (B, S) f32 key bias of a padding mask."""
+    return (1.0 - mask.float()) * -1e9
+
+
+def row_split_product(mods: list[Int8Linear], xs: list[torch.Tensor],
+                      devices: list[torch.device]) -> torch.Tensor:
+    """A product whose weight rows (its input dim) are split over the model
+    ranks: each rank's partial from its block of the input, then the sum
+    over the ranks on the first rank's device. Under int8c every rank
+    quantizes its block with the whole row's activation scale (the max of
+    the ranks' absmax), as the reference's partitioned ``int8_matmul``
+    does."""
+    scales = [None] * len(mods)
+    if mods[0].weight_scale is not None:
+        amax = torch.stack([x.float().abs().amax(dim=-1, keepdim=True).to(devices[0])
+                            for x in xs]).amax(dim=0)
+        scales = [activation_scale(amax).to(d) for d in devices]
+    return all_reduce([m(x, s_x=s) for m, x, s in zip(mods, xs, scales)], devices)[0]
+
+
+def all_reduce(parts: list[torch.Tensor], devices: list[torch.device]) -> list[torch.Tensor]:
+    """The sum over the model axis, single-controller: every rank's
+    partial added on the first rank's device, the sum copied back to each
+    rank's device (a no-op where the ranks share one)."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p.to(devices[0])
+    return [total.to(d) for d in devices]
 
 
 def from_jax_params(tree) -> dict[str, torch.Tensor]:
@@ -310,13 +392,15 @@ class BertServing(ServingModel):
                     f"local heads {local} (heads={heads}, tp={cfg.tp}) "
                     "are not divisible")
         moe_experts = int(opt.get("moe_experts", 0))
-        # The reference's MoE refusals, with its reasons, ahead of the
-        # port's own refusal of every mode but "single".
+        # The reference's refusals, with its reasons, ahead of the port's
+        # own (check_mesh, and the items below).
         if cfg.parallelism == "pipeline":
-            if attention != "dense":
+            if attention not in ("dense", "flash"):
+                # The reference takes "dense" only; the port's stages also
+                # run K1, which closes over no mesh.
                 raise ValueError(
                     "parallelism='pipeline' supports options.attention="
-                    f"'dense' only, got {attention!r}")
+                    f"'dense' or 'flash', got {attention!r}")
             if moe_experts:
                 raise ValueError(
                     "parallelism='pipeline' does not compose with "
@@ -331,10 +415,12 @@ class BertServing(ServingModel):
                 "options.moe_experts cannot be combined with weights=: no "
                 "TF import mapping exists for the MoE FFN; serve it with "
                 "seeded weights or an orbax checkpoint trained in-framework")
-        if cfg.parallelism != "single" or cfg.tp > 1 or cfg.sp > 1:
-            raise not_ported(
-                f"parallelism={cfg.parallelism!r} (tp={cfg.tp}, sp={cfg.sp}); "
-                "set parallelism = \"single\"", "mesh modes")
+        if moe_experts and cfg.parallelism == "sharded" and cfg.tp > 1:
+            raise not_ported(f"options.moe_experts with tp={cfg.tp} (experts on the "
+                             "model axis)", "item 10, expert parallelism")
+        if attention in ("ring", "ulysses") and cfg.parallelism == "sharded" and cfg.tp > 1:
+            raise not_ported(f"attention={attention!r} beside tp={cfg.tp}", "item 9b")
+        check_mesh(cfg, tp_ok=True, sp_ok=True)
         super().__init__(cfg)
         self.attention = attention
         self.moe_experts = moe_experts
@@ -352,6 +438,7 @@ class BertServing(ServingModel):
         self.d_model = int(opt.get("d_model", 768))
         self.heads = int(opt.get("heads", 12))
         self.d_ff = int(opt.get("d_ff", 3072))
+        self.head_dim = self.d_model // self.heads
         self.top_k = min(5, cfg.num_classes)
 
     # -- params --------------------------------------------------------------
@@ -362,7 +449,7 @@ class BertServing(ServingModel):
             max_seq=self.max_seq, num_classes=self.cfg.num_classes,
             attention=self.attention, mesh=self.mesh,
             moe_experts=self.moe_experts,
-            moe_capacity_factor=self.moe_capacity_factor)
+            moe_capacity_factor=self.moe_capacity_factor, head_dim=self.head_dim)
 
     def reference_layout(self, name: str, shape: tuple) -> tuple[tuple, tuple]:
         """The reference's layouts of BERT's leaves (``from_jax_params``):
@@ -393,11 +480,200 @@ class BertServing(ServingModel):
             return []
         return [r"mlp_(up|down)\.weight$", r"attn\.(query|key|value|out)\.weight$"]
 
+    pipeline_capable = True
+
     def bind_mesh(self, mesh: Mesh) -> None:
         """Ring/Ulysses attention closes over the serving mesh; modules
         built after this call carry it (the runtime binds before it builds
-        the module and warms up)."""
+        the module and warms up). A ("stage",) mesh checks the layer split
+        (the stage count is known only once the mesh exists); ring and
+        Ulysses beside a split data axis are refused."""
+        if STAGE_AXIS in mesh.shape:
+            s = mesh.shape[STAGE_AXIS]
+            if self.layers % s:
+                raise ValueError(
+                    f"pipeline: layers={self.layers} must split evenly over "
+                    f"{s} stages; adjust options.layers or pp")
+            self.mesh = None
+            return
+        if self.attention in ("ring", "ulysses") and mesh.shape[DATA_AXIS] > 1:
+            raise not_ported(f"attention={self.attention!r} beside a data axis of "
+                             f"{mesh.shape[DATA_AXIS]}", "item 9b")
         self.mesh = mesh
+
+    # -- the mesh modes --------------------------------------------------------
+    def partition_rules(self) -> list[tuple[str, PartitionSpec]]:
+        """The reference's rules over its tree: under tp > 1 Q/K/V by heads
+        and the out projection by rows, ``mlp_up`` by columns and
+        ``mlp_down`` by rows (the expert dim on "model" for MoE, which the
+        port refuses under tp > 1); pipeline mode stacks the trunk on
+        "stage"; else replicated."""
+        if self.cfg.parallelism == "pipeline":
+            return [(r"^staged/", P(STAGE_AXIS)), (r".*", P())]
+        if self.cfg.tp <= 1:
+            return [(".*", P())]
+        return [
+            (r"attn/(query|key|value)/kernel", P(None, MODEL_AXIS, None)),
+            (r"attn/out/kernel", P(MODEL_AXIS, None, None)),
+            (r"mlp_up/kernel", P(None, MODEL_AXIS)),
+            (r"mlp_down/kernel", P(MODEL_AXIS, None)),
+            (r"moe/w_(up|down)", P(MODEL_AXIS, None, None)),
+            (r".*", P()),
+        ]
+
+    def _with(self, **attrs) -> "BertServing":
+        """A view of this model with other sizes (a tensor-parallel rank's
+        heads and FFN width, a pipeline stage's layers): its
+        ``build_module``, ``from_jax_params`` and ``reference_layout`` read
+        them."""
+        view = copy.copy(self)
+        view.__dict__.update(attrs)
+        return view
+
+    def mesh_module(self, tree: Any, mesh: Mesh, prepare) -> MeshModule:
+        if STAGE_AXIS in mesh.shape:
+            return self._stage_module(tree, mesh, prepare)
+        tp = mesh.shape[MODEL_AXIS]
+        if tp == 1:
+            return super().mesh_module(tree, mesh, prepare)
+        if self.heads % tp or self.d_ff % tp:
+            raise ValueError(f"tp={tp} must divide heads={self.heads} and "
+                             f"d_ff={self.d_ff}")
+        if self.cfg.quantize is not None:
+            # Quantize whole (cast first, as the reference), then split.
+            tree = quantize.quantize_tree(
+                quantize.cast_tree(tree, DTYPES[self.cfg.dtype]), self.cfg.quantize_min_size)
+            specs = quantize.specs_for_tree(self.partition_rules(), tree)
+        else:
+            specs = match_partition_rules(self.partition_rules(), tree)
+        rank_model = self._with(heads=self.heads // tp, d_ff=self.d_ff // tp)
+        ranks = []
+        for coord, rank_tree, dev in zip(rank_coords(mesh), split_tree(tree, specs, mesh),
+                                         mesh.devices.flat):
+            ranks.append(prepare(rank_model, self._tp_biases(rank_tree, coord[MODEL_AXIS], tp),
+                                 dev))
+        return MeshModule(ranks, mesh, (mesh.shape[DATA_AXIS], tp))
+
+    @staticmethod
+    def _tp_biases(tree: dict, m: int, tp: int) -> dict:
+        """A model rank's block of the biases the reference keeps replicated
+        and XLA slices with their sharded products: q/k/v's (H, hd) by
+        heads and ``mlp_up``'s by columns; the row-split products' biases
+        (out, ``mlp_down``) are added once, by rank 0, so the others hold
+        zeros."""
+        p = tree["params"]
+        for name, lp in p.items():
+            if not name.startswith("layer"):
+                continue
+            for proj in ("query", "key", "value"):
+                b = lp["attn"][proj]["bias"]
+                n = b.shape[0] // tp
+                lp["attn"][proj]["bias"] = b[m * n:(m + 1) * n]
+            b = lp["mlp_up"]["bias"]
+            n = b.shape[0] // tp
+            lp["mlp_up"]["bias"] = b[m * n:(m + 1) * n]
+            if m:
+                lp["attn"]["out"]["bias"] = np.zeros_like(lp["attn"]["out"]["bias"])
+                lp["mlp_down"]["bias"] = np.zeros_like(lp["mlp_down"]["bias"])
+        return tree
+
+    def _stage_module(self, tree: Any, mesh: Mesh, prepare) -> MeshModule:
+        """One module per stage: its L/S layers (layer i of the tree in
+        stage i // (L/S), place i % (L/S), as the reference's stacking) and
+        the replicated embedding, pooler and classifier."""
+        s = mesh.shape[STAGE_AXIS]
+        per = self.layers // s
+        p = tree["params"]
+        unstaged = {k: v for k, v in p.items() if not k.startswith("layer")}
+        stage_model = self._with(layers=per)
+        ranks = [prepare(stage_model,
+                         {"params": {**unstaged, **{f"layer{j}": p[f"layer{st * per + j}"]
+                                                   for j in range(per)}}}, dev)
+                 for st, dev in enumerate(mesh.axis_devices(STAGE_AXIS))]
+        return MeshModule(ranks, mesh, (s,))
+
+    def mesh_forward(self, module: MeshModule, batch: tuple) -> dict:
+        mesh = module.mesh
+        if STAGE_AXIS not in mesh.shape and mesh.shape[MODEL_AXIS] == 1:
+            return super().mesh_forward(module, batch)
+        probs = torch.softmax(self.mesh_logits(module, batch).float(), dim=-1)
+        top_p, top_i = torch.topk(probs, self.top_k, dim=-1)
+        return {"probs": top_p, "indices": top_i}
+
+    def mesh_logits(self, module: MeshModule, batch: tuple) -> torch.Tensor:
+        """The logits over the pipeline's stages, or over each data rank's
+        model ranks (rows gathered on the first data rank's device)."""
+        mesh = module.mesh
+        if STAGE_AXIS in mesh.shape:
+            return self._pipeline_logits(module, batch)
+        if mesh.shape[MODEL_AXIS] == 1:
+            return super().mesh_logits(module, batch)
+        devs = batch_sharding(mesh)
+        dp, tp = module.grid
+        parts = []
+        for d, rows in enumerate(rows_split(batch, dp)):
+            ranks = [module.rank(d, m) for m in range(tp)]
+            rank_devs = [next(r.parameters()).device for r in ranks]
+            ids, mask = self.device_preprocess(to_device(rows, rank_devs[0]))
+            parts.append(self._tp_logits(ranks, rank_devs, ids, mask))
+        return rows_gather(parts, devs[0])
+
+    @staticmethod
+    def _tp_logits(ranks: list[BertClassifier], devs: list[torch.device],
+                   ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """``BertClassifier.forward`` over the model ranks of one data
+        rank: the replicated embedding and head on rank 0, each block's
+        attention and FFN split over the ranks with an all-reduce after
+        each row-split product."""
+        r0 = ranks[0]
+        x = r0.embed_tokens(ids)
+        biases = [key_bias_of(mask).to(d) for d in devs]
+        for i, blk in enumerate(r0.layers):
+            xs = [x.to(d) for d in devs]
+            a = [r.layers[i].attn.core(xm, b) for r, xm, b in zip(ranks, xs, biases)]
+            a = row_split_product([r.layers[i].attn.out for r in ranks], a, devs)
+            x = blk.ln_attn(x + a)
+            xs = [x.to(d) for d in devs]
+            u = [F.gelu(r.layers[i].mlp_up(xm)) for r, xm in zip(ranks, xs)]
+            h = row_split_product([r.layers[i].mlp_down for r in ranks], u, devs)
+            x = blk.ln_mlp(x + h)
+        return r0.head(x)
+
+    def _pp_micro(self, b: int, s: int) -> int:
+        """Microbatch count: options.pp_micro, else the largest divisor of
+        the bucket batch <= 2*S (the reference's rule)."""
+        override = int(self.cfg.options.get("pp_micro", 0))
+        if override:
+            if b % override:
+                raise ValueError(
+                    f"options.pp_micro={override} must divide every batch "
+                    f"bucket; {b} is not divisible")
+            return override
+        return max(d for d in range(1, b + 1) if b % d == 0 and d <= 2 * s)
+
+    def _pipeline_logits(self, module: MeshModule, batch: tuple) -> torch.Tensor:
+        """Embed on stage 0, the GPipe trunk over the stages (each
+        microbatch carries its key bias along), the head on the last
+        stage; the logits come back to stage 0's device."""
+        stages = list(module.ranks)
+        devs = module.mesh.axis_devices(STAGE_AXIS)
+        ids, mask = self.device_preprocess(to_device(batch, devs[0]))
+        x = stages[0].embed_tokens(ids)
+        key_bias = key_bias_of(mask)
+        n_micro = self._pp_micro(ids.shape[0], len(stages))
+        micro = list(zip(x.chunk(n_micro), key_bias.chunk(n_micro)))
+
+        def stage_fn(stage: BertClassifier):
+            def run(xb):
+                h, kb = xb
+                for layer in stage.layers:
+                    h = layer(h, kb)
+                return h, kb
+            return run
+
+        outs = run_schedule([stage_fn(st) for st in stages], micro, devs)
+        h = torch.cat([o[0] for o in outs])
+        return stages[-1].head(h).to(devs[0])
 
     def init_params(self, seed: int = 0) -> dict[str, torch.Tensor]:
         """Seeded init with the reference's initializer families (it cannot

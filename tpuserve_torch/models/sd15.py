@@ -73,7 +73,7 @@ from torch import nn
 from tpuserve_torch import frame as frame_wire
 from tpuserve_torch.config import ModelConfig
 from tpuserve_torch.genserve.model import GenerativeModel
-from tpuserve_torch.models.base import DTYPES, TensorSpec, not_ported
+from tpuserve_torch.models.base import DTYPES, TensorSpec, check_mesh
 from tpuserve_torch.ops import threefry
 from tpuserve_torch.ops.flash_attention import flash_attention
 from tpuserve_torch.text import CLIPBPETokenizer, WordPieceTokenizer, synthetic_vocab
@@ -577,10 +577,9 @@ class SD15Serving(GenerativeModel):
             raise ValueError(
                 "bpe_vocab and bpe_merges must be set together "
                 "(CLIP BPE needs vocab.json + merges.txt)")
-        if cfg.parallelism != "single" or cfg.tp > 1 or cfg.sp > 1:
-            raise not_ported(
-                f"parallelism={cfg.parallelism!r} (tp={cfg.tp}, sp={cfg.sp}); "
-                "set parallelism = \"single\"", "item 9, mesh modes")
+        # Replicas, or one mesh whose forward is not split (the runtime
+        # refuses a split mesh for this generative family).
+        check_mesh(cfg)
         vocab_file = o.get("vocab_file")
         if o.get("bpe_vocab"):
             # Real SD/CLIP artifacts: byte-level BPE (vocab.json + merges.txt).

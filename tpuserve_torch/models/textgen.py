@@ -58,6 +58,7 @@ prompt_len/max_new_tokens/moe_experts) with the reference's small defaults.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 from typing import Any, Callable
@@ -69,11 +70,14 @@ from torch import nn
 
 from tpuserve_torch.config import ModelConfig
 from tpuserve_torch.genserve.model import GenerativeModel
-from tpuserve_torch.models.base import DTYPES, TensorSpec, not_ported
+from tpuserve_torch.models.base import DTYPES, MeshModule, TensorSpec, check_mesh, not_ported
 from tpuserve_torch.models.bert import masked_attention
 from tpuserve_torch.ops import threefry
 from tpuserve_torch.ops.moe import switch_route
 from tpuserve_torch.ops.flash_attention import flash_attention
+from tpuserve_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh
+from tpuserve_torch.parallel.partition import (P, PartitionSpec, match_partition_rules,
+                                               rank_coords, split_tree)
 from tpuserve_torch.text import WordPieceTokenizer, synthetic_vocab
 
 I32 = np.dtype(np.int32)
@@ -101,15 +105,17 @@ class _Norm(nn.Module):
 class _Layer(nn.Module):
     """One decoder block's weights in the reference's layout: (in, out)
     matrices; with ``experts`` the Switch FFN's router (d, E) and expert
-    stacks (E, d, f) / (E, f, d) in place of the dense MLP."""
+    stacks (E, d, f) / (E, f, d) in place of the dense MLP. ``inner`` is
+    the q/k/v width (d; a tensor-parallel rank's heads x head_dim)."""
 
-    def __init__(self, d: int, f: int, experts: int = 0) -> None:
+    def __init__(self, d: int, f: int, experts: int = 0, inner: int | None = None) -> None:
         super().__init__()
+        inner = inner or d
         self.ln1 = _Norm(d)
-        self.wq = nn.Parameter(torch.zeros(d, d))
-        self.wk = nn.Parameter(torch.zeros(d, d))
-        self.wv = nn.Parameter(torch.zeros(d, d))
-        self.wo = nn.Parameter(torch.zeros(d, d))
+        self.wq = nn.Parameter(torch.zeros(d, inner))
+        self.wk = nn.Parameter(torch.zeros(d, inner))
+        self.wv = nn.Parameter(torch.zeros(d, inner))
+        self.wo = nn.Parameter(torch.zeros(inner, d))
         self.ln2 = _Norm(d)
         if experts:
             self.router = nn.Parameter(torch.zeros(d, experts))
@@ -121,16 +127,72 @@ class _Layer(nn.Module):
 
 
 class TextGenModule(nn.Module):
-    """The decoder's parameters; ``TextGenServing`` holds the math."""
+    """The decoder's parameters; ``TextGenServing`` holds the math. A
+    tensor-parallel rank's module holds its ``inner`` q/k/v columns, its
+    block of ``f`` and its ``head_cols`` vocab columns."""
 
     def __init__(self, vocab: int, d: int, f: int, layers: int, max_ctx: int,
-                 experts: int = 0) -> None:
+                 experts: int = 0, inner: int | None = None,
+                 head_cols: int | None = None) -> None:
         super().__init__()
         self.embed = nn.Parameter(torch.zeros(vocab, d))
         self.pos = nn.Parameter(torch.zeros(max_ctx, d))
         self.ln_f = _Norm(d)
-        self.head = nn.Parameter(torch.zeros(d, vocab))
-        self.layers = nn.ModuleList(_Layer(d, f, experts) for _ in range(layers))
+        self.head = nn.Parameter(torch.zeros(d, head_cols or vocab))
+        self.layers = nn.ModuleList(_Layer(d, f, experts, inner) for _ in range(layers))
+
+
+class _TPLayer:
+    """One decoder block over the model ranks of a tensor-parallel mesh:
+    each rank's column block of wq/wk/wv and ``w_up`` and row block of
+    ``wo`` and ``w_down`` (the reference's ``partition_rules``). q/k/v come
+    back as every rank's heads side by side; each row-split product's
+    partials are summed on the first rank's device (the all-reduce over
+    "model")."""
+
+    def __init__(self, parts: list, devices: list) -> None:
+        self.parts, self.devices = parts, devices
+        self.ln1, self.ln2 = parts[0].ln1, parts[0].ln2
+        self.inner = [p.wq.shape[1] for p in parts]
+
+    def _sum(self, partials: list) -> torch.Tensor:
+        total = partials[0]
+        for p in partials[1:]:
+            total = total + p.to(self.devices[0])
+        return total
+
+    def qkv(self, hx: torch.Tensor, shape: tuple) -> tuple:
+        return tuple(torch.cat([(hx.to(d) @ getattr(p, w)).to(self.devices[0])
+                                for p, d in zip(self.parts, self.devices)], dim=-1)
+                     .reshape(shape) for w in ("wq", "wk", "wv"))
+
+    def out(self, a: torch.Tensor) -> torch.Tensor:
+        return self._sum([blk.to(d) @ p.wo for blk, p, d in
+                          zip(a.split(self.inner, dim=-1), self.parts, self.devices)])
+
+    def mlp(self, hx: torch.Tensor) -> torch.Tensor:
+        return self._sum([F.gelu(hx.to(d) @ p.w_up, approximate="tanh") @ p.w_down
+                          for p, d in zip(self.parts, self.devices)])
+
+
+class _TPView:
+    """``TextGenModule``'s surface over a ``MeshModule`` of model ranks (one
+    data rank's): the replicated embedding, positions and final norm from
+    rank 0, each block a ``_TPLayer``, and the vocab head's column blocks
+    (``logits`` concatenates them)."""
+
+    def __init__(self, mesh_module: MeshModule) -> None:
+        ranks = list(mesh_module.ranks)
+        self.devices = [r.embed.device for r in ranks]
+        r0 = ranks[0]
+        self.embed, self.pos, self.ln_f = r0.embed, r0.pos, r0.ln_f
+        self.heads = [r.head for r in ranks]
+        self.layers = [_TPLayer([r.layers[i] for r in ranks], self.devices)
+                       for i in range(len(r0.layers))]
+
+    def logits(self, xn: torch.Tensor) -> torch.Tensor:
+        return torch.cat([(xn.to(d) @ h.float()).to(self.devices[0])
+                          for h, d in zip(self.heads, self.devices)], dim=-1)
 
 
 def _lane_write(state: dict, slot: torch.Tensor, lane: dict) -> None:
@@ -178,10 +240,19 @@ class TextGenServing(GenerativeModel):
             raise ValueError(
                 f"options.attention='flash' needs prompt_len "
                 f"({self.max_prompt}) divisible by 8 (TPU tile rows)")
-        if cfg.parallelism != "single" or cfg.tp > 1 or cfg.sp > 1:
-            raise not_ported(
-                f"parallelism={cfg.parallelism!r} (tp={cfg.tp}, sp={cfg.sp}); "
-                "set parallelism = \"single\"", "mesh modes")
+        if self.moe_experts and cfg.parallelism == "sharded" and cfg.tp > 1:
+            raise not_ported(f"options.moe_experts with tp={cfg.tp} (experts on the "
+                             "model axis)", "item 10, expert parallelism")
+        if cfg.parallelism == "sharded" and cfg.tp > 1 and self.heads % cfg.tp:
+            raise ValueError(f"tp={cfg.tp} must divide heads={self.heads}: each "
+                             "model rank decodes whole heads")
+        # A seq axis (the reference's KV context on "seq",
+        # state_partition_specs) is refused by check_mesh, item 9b.
+        check_mesh(cfg, tp_ok=True)
+        # A tensor-parallel rank's widths (see mesh_module): q/k/v columns,
+        # FFN block and vocab head columns; the whole model's by default.
+        self.inner: int | None = None
+        self.head_cols: int | None = None
         vocab_file = o.get("vocab_file")
         if vocab_file:
             self.tokenizer = WordPieceTokenizer.from_vocab_file(vocab_file)
@@ -198,7 +269,62 @@ class TextGenServing(GenerativeModel):
     # -- params ---------------------------------------------------------------
     def build_module(self) -> TextGenModule:
         return TextGenModule(self.vocab_size, self.d_model, self.d_ff,
-                             self.layers, self.max_ctx, self.moe_experts)
+                             self.layers, self.max_ctx, self.moe_experts,
+                             self.inner, self.head_cols)
+
+    # -- the mesh (the reference's sharded decode) -----------------------------
+    # The engine's programs run on a split mesh's MeshModule (the runtime
+    # allows a generative family that says so).
+    mesh_programs = True
+
+    def partition_rules(self) -> list[tuple[str, PartitionSpec]]:
+        """The reference's rules: under tp > 1 the q/k/v and vocab head
+        columns (heads / vocab) and ``w_up``'s on "model", ``wo`` and
+        ``w_down`` by rows; the rest replicated."""
+        if self.cfg.tp <= 1:
+            return [(".*", P())]
+        return [(r"w[qkv]$", P(None, MODEL_AXIS)), (r"wo$", P(MODEL_AXIS, None)),
+                (r"w_up$", P(None, MODEL_AXIS)), (r"w_down$", P(MODEL_AXIS, None)),
+                (r"router$", P()), (r"moe_(up|down)$", P(MODEL_AXIS, None, None)),
+                (r"head$", P(None, MODEL_AXIS)), (r".*", P())]
+
+    def mesh_module(self, tree: Any, mesh: Mesh, prepare) -> MeshModule:
+        """The sharded decode's parameters: one module per model rank of
+        data rank 0, its blocks by ``partition_rules`` (the vocab head in
+        contiguous blocks, the first ``vocab % tp`` one column wider). The
+        state block is the reference's: KV heads on "model" (each rank's
+        heads a block of the one KV tensor the ranks share on their card)
+        and every lane replicated over "data", so the data ranks' copies
+        would compute the same slots and are not made."""
+        specs = match_partition_rules(self.partition_rules(), tree)
+        ranks = []
+        for coord, rank_tree, dev in zip(rank_coords(mesh), split_tree(tree, specs, mesh),
+                                         mesh.devices.flat):
+            if coord.get(DATA_AXIS, 0) or coord.get(SEQ_AXIS, 0):
+                continue
+            view = self._with(inner=rank_tree["layer0"]["wq"].shape[1],
+                              d_ff=rank_tree["layer0"]["w_up"].shape[1],
+                              head_cols=rank_tree["head"].shape[1])
+            ranks.append(prepare(view, rank_tree, dev))
+        return MeshModule(ranks, mesh, (1, len(ranks)))
+
+    def _with(self, **attrs) -> "TextGenServing":
+        view = copy.copy(self)
+        view.__dict__.update(attrs)
+        return view
+
+    @staticmethod
+    def _math(module: Any) -> Any:
+        """The module the math reads: a MeshModule as its ``_TPView``."""
+        if isinstance(module, MeshModule):
+            view = module.__dict__.get("tp_view")
+            if view is None:
+                view = module.__dict__["tp_view"] = _TPView(module)
+            return view
+        return module
+
+    def mesh_forward(self, module: MeshModule, batch: Any) -> dict:
+        return self.forward(module, batch)
 
     def init_params(self, seed: int = 0) -> dict[str, torch.Tensor]:
         """Seeded init with the reference's initializer families (it cannot
@@ -324,15 +450,26 @@ class TextGenServing(GenerativeModel):
 
     def _logits(self, module: TextGenModule, x: torch.Tensor) -> torch.Tensor:
         # float32 GEMM, as the reference's: TF32 must stay off for parity.
+        if isinstance(module, _TPView):
+            return module.logits(_norm(x, module.ln_f).float())
         return _norm(x, module.ln_f).float() @ module.head.float()
 
     def _mlp(self, lp: _Layer, hx: torch.Tensor) -> torch.Tensor:
         """The position-wise FFN delta for a normed hidden block ``hx``
         (..., d): the dense MLP (tanh-approximate GELU, as ``jax.nn.gelu``'s
         default), or the Switch-MoE twin with ``options.moe_experts``."""
+        if isinstance(lp, _TPLayer):
+            return lp.mlp(hx)
         if not self.moe_experts:
             return F.gelu(hx @ lp.w_up, approximate="tanh") @ lp.w_down
         return self._moe_ffn(lp, hx)
+
+    @staticmethod
+    def _out(lp: _Layer, a: torch.Tensor) -> torch.Tensor:
+        """The attention output's projection ``a @ wo``."""
+        if isinstance(lp, _TPLayer):
+            return lp.out(a)
+        return a @ lp.wo
 
     @staticmethod
     def _moe_ffn(lp: _Layer, hx: torch.Tensor) -> torch.Tensor:
@@ -357,6 +494,8 @@ class TextGenServing(GenerativeModel):
         return out.reshape(*lead, d).to(dt)
 
     def _qkv(self, lp: _Layer, hx: torch.Tensor, shape: tuple):
+        if isinstance(lp, _TPLayer):
+            return lp.qkv(hx, shape)
         return ((hx @ lp.wq).reshape(shape), (hx @ lp.wk).reshape(shape),
                 (hx @ lp.wv).reshape(shape))
 
@@ -381,7 +520,7 @@ class TextGenServing(GenerativeModel):
             kc[:, i, :p] = k
             vc[:, i, :p] = v
             a = self._attend_prefill(q, k, v, key_bias).reshape(b, p, h * hd)
-            x = x + a.to(dt) @ lp.wo
+            x = x + self._out(lp, a.to(dt))
             x = x + self._mlp(lp, _norm(x, lp.ln2))
         last = torch.clamp_min(n - 1, 0).long()
         h_last = x[torch.arange(b, device=dev), last]
@@ -434,7 +573,7 @@ class TextGenServing(GenerativeModel):
             q, k, v = self._qkv(lp, hx, (b, h, hd))
             kc[rows, i, cp] = k
             vc[rows, i, cp] = v
-            x = x + self._decode_attention(q, kc[:, i], vc[:, i], mask) @ lp.wo
+            x = x + self._out(lp, self._decode_attention(q, kc[:, i], vc[:, i], mask))
             x = x + self._mlp(lp, _norm(x, lp.ln2))
         return self._advance(state, self._logits(module, x))
 
@@ -448,6 +587,7 @@ class TextGenServing(GenerativeModel):
 
     # -- one-shot path (locked batch) -----------------------------------------
     def forward(self, module: TextGenModule, batch: Any) -> dict:
+        module = self._math(module)
         ids, n, seed, max_new, temp = batch
         state = self._prefill(module, ids, n, seed, max_new, temp)
         # The locked batch runs the FULL cap for every lane — max_new only
@@ -462,6 +602,7 @@ class TextGenServing(GenerativeModel):
 
     # -- engine decomposition (tpuserve_torch.genserve) -----------------------
     def init_state(self, module: TextGenModule, item: tuple) -> dict:
+        module = self._math(module)
         ids, n, seed, max_new, temp = item
         state = self._prefill(module, ids[None], n[None], seed[None],
                               max_new[None], temp[None])
@@ -471,6 +612,7 @@ class TextGenServing(GenerativeModel):
         # The state block's own keys select the path: a paged engine
         # allocates the kv_page_signature block, a dense one the
         # state_signature block.
+        module = self._math(module)
         if "kp" in state:  # tps-ok[TPS503]: dict structure check at capture time
             return self._paged_decode_step(module, state)
         return self._decode_step(module, state)
@@ -513,6 +655,7 @@ class TextGenServing(GenerativeModel):
         # The whole-prompt chunk (the prefill_chunk = 0 default) routes
         # through init_state and only changes where K/V is stored, so
         # paged == dense token parity holds by construction.
+        module = self._math(module)
         if chunk >= self.max_prompt:
             self._prefill_paged_single(module, state, slot, item, pages)
         else:
@@ -592,7 +735,7 @@ class TextGenServing(GenerativeModel):
             s = torch.einsum("qhd,khd->hqk", q, kall).float() * (hd ** -0.5) + mask
             a = torch.softmax(s, dim=-1).to(q.dtype)
             o = torch.einsum("hqk,khd->qhd", a, vall).reshape(C, h * hd)
-            x = x + o @ lp.wo
+            x = x + self._out(lp, o)
             x = x + self._mlp(lp, _norm(x, lp.ln2))
         last_off = torch.clamp(n - 1 - start, 0, C - 1).long().reshape(1)
         h_last = x.index_select(0, last_off)
@@ -638,7 +781,7 @@ class TextGenServing(GenerativeModel):
             vp[w_page, i, offs] = v
             kc = kp[:, i][bt_idx].reshape(b, c_pad, h, hd)
             vc = vp[:, i][bt_idx].reshape(b, c_pad, h, hd)
-            x = x + self._decode_attention(q, kc, vc, mask) @ lp.wo
+            x = x + self._out(lp, self._decode_attention(q, kc, vc, mask))
             x = x + self._mlp(lp, _norm(x, lp.ln2))
         return self._advance(state, self._logits(module, x))
 

@@ -24,7 +24,7 @@ import torch
 
 from tpuserve_torch import frame, preproc
 from tpuserve_torch.config import ModelConfig
-from tpuserve_torch.models.base import DTYPES, ServingModel, TensorSpec, not_ported
+from tpuserve_torch.models.base import DTYPES, ServingModel, TensorSpec, check_mesh
 
 
 class ImageClassifierServing(ServingModel):
@@ -35,10 +35,10 @@ class ImageClassifierServing(ServingModel):
 
     def __init__(self, cfg: ModelConfig) -> None:
         super().__init__(cfg)
-        if cfg.parallelism != "single" or cfg.tp > 1 or cfg.sp > 1:
-            raise not_ported(
-                f"parallelism={cfg.parallelism!r} (tp={cfg.tp}, sp={cfg.sp}); "
-                "set parallelism = \"single\"", "mesh modes")
+        # Replica, a sharded data axis and (for the runtime's refusal)
+        # pipeline are the runtime's; the split of the weights over a model
+        # axis (the reference's rules) is not ported yet.
+        check_mesh(cfg)
         self.dtype = DTYPES[cfg.dtype]
         self.top_k = min(self.TOP_K, cfg.num_classes)
         # Normalisation the network was trained with, as (mean, std) applied

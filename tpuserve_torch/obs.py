@@ -742,8 +742,9 @@ class Metrics:
 
     def gen_replica_steps_counter(self, model: str, replica: int) -> Counter:
         """gen_replica_steps_total{model=,replica=}: decode iterations one
-        generation engine executed (the port runs one engine per model, on
-        replica 0). Prebound at engine construction."""
+        generation engine executed (one engine per runtime replica: replica
+        0 alone, or a GenEngineGroup's members). Prebound at engine
+        construction."""
         return self.counter(
             f"gen_replica_steps_total{{model={model},replica={replica}}}")
 

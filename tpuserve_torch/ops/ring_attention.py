@@ -16,7 +16,7 @@ rank blocks, each on its rank's device (``Mesh.axis_devices``). In each of
 the visiting blocks move one rank along ``perm = (i -> i+1)`` with
 ``.to(device, non_blocking=True)`` — a no-op when the ranks share a device,
 as they do on one card and in the CPU tests. Placing the ranks on several
-GPUs over NCCL waits for the mesh modes (ROADMAP.md queue 1, item 12).
+GPUs over NCCL is ROADMAP.md queue 1, item 10.
 
 Layouts: (batch, seq, heads, head_dim) throughout, seq split and heads
 whole. Bidirectional (encoder) attention; an additive per-key bias (e.g. a

@@ -38,6 +38,25 @@ int32 by ``int8_matmul``). Every other one goes under a
 buffer and dequantizes on every access: the forward reads ``module.weight``
 as before, nothing is mutated per call, so concurrent forwards are safe.
 
+A checkpoint may hold the weights already quantized (``import-model
+--quantize int8``): the reference's tree with a ``{"q8", "q8_scale"}``
+sub-tree in place of each quantized leaf (``quantize_tree``, the
+reference's numpy function, copied). ``prequantized_leaves`` carries such
+a tree through the family's ``from_jax_params`` into port parameter names,
+int8 values and scales, and ``quantize_module(..., given=...)`` installs
+them through the same parametrization (or ``weight_scale`` under int8c) as
+stage-time quantization; a float leaf left in the tree is quantized at
+stage time when eligible, as the reference's idempotent ``quantize_tree``
+does. Quantizing the float tree at stage time and loading its
+pre-quantized form give the same int8 bytes and scales wherever both see
+the same float values (the reference quantizes the weights cast to the
+compute dtype at stage time and the float32 ones at import, so under bf16
+the two agree for a tree whose floats are bf16 values). Under tensor
+parallelism the tree is quantized whole and then split
+(``specs_for_tree``: the int8 values take the weight's spec, the scale the
+spec entry of its channel axis), so each rank's scales are the whole
+weight's.
+
 ``int8_matmul``'s product is ``torch._int_mm`` (cuBLASLt's int8 GEMM on the
 card): the reference computes it with XLA's ``dot_general``, outside any
 Pallas kernel. On the card ``_int_mm`` needs more than 16 rows and K and N
@@ -48,8 +67,9 @@ fewer (a zero row quantizes to zeros and its output is dropped).
 from __future__ import annotations
 
 import re
-from typing import Callable, Sequence
+from typing import Any, Callable, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -59,6 +79,10 @@ from tpuserve_torch.models.layers import Conv
 
 # Leaves smaller than this stay in the compute dtype.
 DEFAULT_MIN_SIZE = 4096
+
+# Marker keys for a quantized leaf's sub-tree in the reference's tree.
+QKEY = "q8"
+SKEY = "q8_scale"
 
 # How a port parameter lies in the reference's tree: (view, perm) with
 # ``reference leaf == param.reshape(view).permute(perm)``.
@@ -128,6 +152,136 @@ def quantize_leaf(w: torch.Tensor, layout: Layout | None = None
     return q, scale.contiguous()
 
 
+def scale_shape(shape: tuple, layout: Layout | None = None) -> tuple:
+    """The shape of ``quantize_leaf``'s scale for a parameter of ``shape``:
+    the size of the axis holding the reference's channel, 1 elsewhere."""
+    view, perm = layout or default_layout(tuple(shape))
+    axis = perm[ref_channel_axis([view[p] for p in perm])]
+    if tuple(view) == tuple(shape):
+        return tuple(n if i == axis else 1 for i, n in enumerate(shape))
+    keep = _view_to_port_axes(tuple(shape), tuple(view))[axis]
+    return tuple(n if d == keep else 1 for d, n in enumerate(shape))
+
+
+# -- the reference's quantized tree (tpuserve.quantize, numpy) ------------------
+
+def _tree_channel_axis(shape: tuple) -> int:
+    return len(shape) - 1 if shape[-1] > 1 else max(len(shape) - 2, 0)
+
+
+def eligible_leaf(leaf: Any, min_size: int = DEFAULT_MIN_SIZE) -> bool:
+    """True when a leaf of the reference's tree should be quantized:
+    floating, at least 2-D, at least ``min_size`` elements."""
+    a = np.asarray(leaf)
+    return (np.issubdtype(a.dtype, np.floating) and a.ndim >= 2
+            and a.size >= min_size)
+
+
+def is_quantized(leaf: Any) -> bool:
+    return isinstance(leaf, dict) and QKEY in leaf and SKEY in leaf
+
+
+def quantize_tree_leaf(w: Any) -> dict[str, np.ndarray]:
+    """Symmetric per-channel int8 of one reference leaf:
+    {"q8": int8 like w, "q8_scale": float32 with w's rank}."""
+    w = np.asarray(w, dtype=np.float32)
+    axis = _tree_channel_axis(w.shape)
+    reduce_axes = tuple(i for i in range(w.ndim) if i != axis)
+    absmax = np.max(np.abs(w), axis=reduce_axes, keepdims=True)
+    scale = (absmax / 127.0).astype(np.float32)
+    scale = np.where(scale == 0.0, np.float32(1.0), scale)
+    q = np.clip(np.round(w / scale), -127, 127).astype(np.int8)
+    return {QKEY: q, SKEY: scale}
+
+
+def _map_tree(fn: Callable[[Any], Any], tree: Any) -> Any:
+    """``fn`` over the leaves of a nested-dict tree, a quantized sub-tree
+    taken as one leaf."""
+    if isinstance(tree, dict) and not is_quantized(tree):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def quantize_tree(params: Any, min_size: int = DEFAULT_MIN_SIZE) -> Any:
+    """Replace every eligible leaf of the reference's tree with its
+    {"q8", "q8_scale"} sub-tree; already-quantized sub-trees pass through
+    (idempotent, so a pre-quantized checkpoint is never re-quantized)."""
+    return _map_tree(lambda x: x if is_quantized(x)
+                     else (quantize_tree_leaf(x) if eligible_leaf(x, min_size) else x),
+                     params)
+
+
+def has_quantized_leaves(tree: Any) -> bool:
+    if is_quantized(tree):
+        return True
+    return isinstance(tree, dict) and any(has_quantized_leaves(v) for v in tree.values())
+
+
+def specs_for_tree(rules: list, tree: Any) -> Any:
+    """The partition rules' specs over a possibly-quantized tree: a
+    quantized sub-tree matches at its weight's path, its int8 values take
+    the matched spec and its scale the spec entry of its channel axis."""
+    from tpuserve_torch.parallel.partition import P, spec_for_name
+
+    def walk(prefix: str, node: Any) -> Any:
+        if isinstance(node, dict) and not is_quantized(node):
+            return {k: walk(f"{prefix}/{k}" if prefix else str(k), v) for k, v in node.items()}
+        if is_quantized(node):
+            w = node[QKEY]
+            spec = spec_for_name(rules, prefix, w.shape)
+            axis = _tree_channel_axis(w.shape)
+            full = tuple(spec) + (None,) * (w.ndim - len(spec))
+            return {QKEY: spec,
+                    SKEY: P(*[full[i] if i == axis else None for i in range(w.ndim)])}
+        return spec_for_name(rules, prefix, tuple(np.shape(node)))
+
+    return walk("", tree)
+
+
+def cast_tree(tree: Any, dtype: torch.dtype) -> Any:
+    """The reference's load-time cast: every float leaf rounded to the
+    compute dtype (kept as float32 numpy, exact), quantized sub-trees as
+    saved."""
+    def cast(x):
+        if is_quantized(x):
+            return x
+        a = np.asarray(x)
+        if not np.issubdtype(a.dtype, np.floating):
+            return a
+        return torch.from_numpy(np.array(a, np.float32)).to(dtype).float().numpy()
+
+    return _map_tree(cast, tree)
+
+
+def prequantized_leaves(tree: Any, convert: Callable[[Any], dict],
+                        layout: Callable[[str, tuple], Layout] | None = None
+                        ) -> tuple[dict[str, torch.Tensor], dict]:
+    """A tree with quantized sub-trees -> ``(state_dict, given)`` in the
+    port's names: ``convert`` (the family's ``from_jax_params``) maps the
+    int8 values (as float32, exact) and, separately, each scale broadcast
+    to its weight's shape, so both land in the port's layout by the same
+    reshapes; ``given`` maps each quantized parameter's name to its int8
+    values and its scale in ``quantize_leaf``'s shape. The state_dict holds
+    the float leaves as they are and the int8 values as floats (replaced
+    by ``quantize_module``)."""
+    values = convert(_map_tree(
+        lambda x: np.asarray(x[QKEY], np.float32) if is_quantized(x) else x, tree))
+    scales = convert(_map_tree(
+        lambda x: (np.broadcast_to(np.asarray(x[SKEY], np.float32), x[QKEY].shape)
+                   if is_quantized(x) else np.zeros(np.shape(x), np.float32)), tree))
+    given = {}
+    for name, full in scales.items():
+        if full.numel() == 0 or float(full.reshape(-1)[0]) == 0.0:
+            continue  # not a quantized leaf (a scale is never 0)
+        shape = tuple(full.shape)
+        lay = layout(name, shape) if layout else None
+        ss = scale_shape(shape, lay)
+        index = tuple(slice(None) if n > 1 else slice(0, 1) for n in ss)
+        given[name] = (values[name].round().to(torch.int8),
+                       full[index].reshape(ss).contiguous())
+    return values, given
+
+
 def dequantize(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """int8 values and their scale -> ``dtype``, multiplied in ``dtype``."""
     return q.to(dtype) * scale.to(dtype)
@@ -151,12 +305,21 @@ class Dequantize(nn.Module):
 
 # -- int8 compute (quantize = "int8c") ---------------------------------------
 
-def quantize_activations(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def activation_scale(amax: torch.Tensor) -> torch.Tensor:
+    """The per-row activation scale of a row's absmax: max(absmax, 1e-8) / 127."""
+    return torch.clamp_min(amax, 1e-8) / 127.0
+
+
+def quantize_activations(x: torch.Tensor, s_x: torch.Tensor | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Dynamic per-row int8 of ``x`` (..., K): ``(xq int8, s_x float32 (..., 1))``
-    with ``s_x = max(absmax over K, 1e-8) / 127``, rounding half to even."""
+    with ``s_x = max(absmax over K, 1e-8) / 127``, rounding half to even.
+    ``s_x`` given: that scale (a tensor-parallel rank holding a block of K
+    quantizes with the whole row's, as the reference's partitioned
+    ``int8_matmul`` does)."""
     x32 = x.to(torch.float32)
-    amax = x32.abs().amax(dim=-1, keepdim=True)
-    s_x = torch.clamp_min(amax, 1e-8) / 127.0
+    if s_x is None:
+        s_x = activation_scale(x32.abs().amax(dim=-1, keepdim=True))
     return torch.clamp(torch.round(x32 / s_x), -127, 127).to(torch.int8), s_x
 
 
@@ -170,14 +333,14 @@ def int_mm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
 
 
 def int8_matmul(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
-                out_dtype: torch.dtype) -> torch.Tensor:
+                out_dtype: torch.dtype, s_x: torch.Tensor | None = None) -> torch.Tensor:
     """``x @ dequant(wq)`` computed as int8 x int8 -> int32: the reference's
     ``int8_matmul``. x (..., K) float; wq (K, N) int8 (a transposed view of
     an (N, K) weight is what cuBLASLt's int8 GEMM takes); w_scale: N float32
     scales in any shape. Dynamic per-row activation scale, so padded lanes
     cannot skew other rows; ``y * s_x * w_scale`` in float32, then the cast."""
     k = x.shape[-1]
-    xq, s_x = quantize_activations(x)
+    xq, s_x = quantize_activations(x, s_x)
     y = int_mm(xq.reshape(-1, k), wq).reshape(x.shape[:-1] + (wq.shape[1],))
     return (y.to(torch.float32) * s_x
             * w_scale.reshape(-1).to(torch.float32)).to(out_dtype)
@@ -195,10 +358,12 @@ class Int8Linear(nn.Linear):
         super().__init__(cin, cout, bias=bias)
         self.register_buffer("weight_scale", None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, s_x: torch.Tensor | None = None) -> torch.Tensor:
+        """``s_x``: the activation scale to quantize ``x`` with under int8c
+        (``int8_matmul``); ignored otherwise."""
         if self.weight_scale is None:
             return super().forward(x)
-        y = int8_matmul(x, self.weight.t(), self.weight_scale, x.dtype)
+        y = int8_matmul(x, self.weight.t(), self.weight_scale, x.dtype, s_x)
         return y if self.bias is None else y + self.bias
 
 
@@ -228,24 +393,32 @@ class Int8Conv1x1(Conv):
 def quantize_module(module: nn.Module, dtype: torch.dtype,
                     min_size: int = DEFAULT_MIN_SIZE,
                     layout: Callable[[str, tuple], Layout] | None = None,
-                    native: Sequence[str] = ()) -> list[str]:
+                    native: Sequence[str] = (),
+                    given: dict | None = None) -> list[str]:
     """Quantize every eligible parameter of ``module`` in place (see the
     module docstring); returns their names. ``layout(name, shape)`` says how
     a parameter lies in the reference's tree (default: ``default_layout``).
-    A parameter whose name matches one of the ``native`` regexes stays int8
-    with its scale as its module's ``weight_scale``; the rest dequantize on
-    access. Call it after the cast to the compute dtype, as the reference
-    quantizes the cast weights, and move the module to its device afterwards
-    without a dtype, so the scales stay float32."""
+    ``given`` maps names to int8 values and scales already made (a
+    pre-quantized checkpoint, ``prequantized_leaves``): those are installed
+    as they are, whatever ``min_size`` says. A parameter whose name matches
+    one of the ``native`` regexes stays int8 with its scale as its module's
+    ``weight_scale``; the rest dequantize on access. Call it after the cast
+    to the compute dtype, as the reference quantizes the cast weights, and
+    move the module to its device afterwards without a dtype, so the scales
+    stay float32."""
     pats = [re.compile(p) for p in native]
+    given = given or {}
     done = []
     for mod_name, mod in list(module.named_modules()):
         for name, p in list(mod.named_parameters(recurse=False)):
             full = f"{mod_name}.{name}" if mod_name else name
             lay = layout(full, tuple(p.shape)) if layout else None
-            if not eligible(p, min_size, lay):
+            if full in given:
+                q, scale = given[full]
+            elif eligible(p, min_size, lay):
+                q, scale = quantize_leaf(p, lay)
+            else:
                 continue
-            q, scale = quantize_leaf(p, lay)
             setattr(mod, name, nn.Parameter(q, requires_grad=False))
             if any(pat.search(full) for pat in pats):
                 if name != "weight" or not isinstance(mod, (Int8Linear, Int8Conv1x1)):

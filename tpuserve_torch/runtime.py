@@ -79,6 +79,30 @@ The device is explicit: ``build_runtime(model)`` serves on the current CUDA
 device, ``device="cpu"`` on the CPU; CUDA absent without ``device="cpu"``
 raises instead of falling back.
 
+Parallelism (the model's ``parallelism``, bounded by ``[parallel]``), as
+the reference's runtime builds it, single-controller: one process owns
+every rank, and the ranks may share one device (``mesh.visible_devices``
+lists the devices; the tests and ``chip_smoke.py`` patch it):
+
+- ``"single"``: the given device alone;
+- ``"sharded"``: a (data, model, seq) mesh over ``select_devices`` (the
+  buckets round up to multiples of the data axis); with a data or model
+  axis larger than 1 each parameter slot is a ``MeshModule`` of rank
+  modules (the family's ``mesh_module``: a copy per data rank, BERT's
+  weights split over the model axis) and the family's ``mesh_forward``
+  runs them; a seq axis alone stays inside BERT's ring/Ulysses attention;
+- ``"pipeline"``: a ("stage",) mesh of ``pp`` stages, for a family that
+  pipelines its own depth (BERT), without ``quantize``;
+- ``"replica"``: ``ReplicaRuntime``, one one-device runtime per device.
+
+A split forward is captured as one CUDA graph per (bucket, slot), its
+collectives (the all-reduce after a row-split product, the pipeline's
+hand-offs) being tensor operations inside it; a graph cannot span cards,
+so on CUDA every rank of a split mesh must share one card, and a mesh
+over several is refused (ROADMAP item 10). ``runtime_compiles_total``
+counts one per bucket per mesh (replicas x buckets for a ReplicaRuntime),
+as the reference's counts one per (bucket, mesh).
+
 A deferred-mode worker (``tpuserve_torch.deferred``) runs no lifecycle, so
 it asks for one parameter slot (``build_runtime(..., n_slots=1)``) and one
 graph per bucket; every other runtime keeps ``N_SLOTS``.
@@ -104,13 +128,17 @@ import torch
 
 from tpuserve_torch import quantize
 from tpuserve_torch.analysis import witness
-from tpuserve_torch.config import ModelConfig, ServerConfig
+from tpuserve_torch.config import ModelConfig, ParallelConfig, ServerConfig
 from tpuserve_torch.faults import FaultInjected
-from tpuserve_torch.models.base import DTYPES, ServingModel
+from tpuserve_torch.models.base import DTYPES, MeshModule, ServingModel, not_ported
 from tpuserve_torch.obs import Metrics
 from tpuserve_torch.ops import _build
 from tpuserve_torch.ops import flash_attention as fa
-from tpuserve_torch.parallel.mesh import MeshPlan, make_mesh
+from tpuserve_torch.parallel.distributed import check_local_mesh
+from tpuserve_torch.parallel import mesh as meshlib
+from tpuserve_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, MeshPlan, make_mesh,
+                                          pad_batch_to_mesh, plan_for, select_devices)
+from tpuserve_torch.parallel.pipeline import STAGE_AXIS, make_stage_mesh
 from tpuserve_torch.savedmodel import IntegrityError
 from tpuserve_torch.utils.locks import new_lock
 from tpuserve_torch.utils.retrace import allow_transfers, host_fetch
@@ -205,6 +233,7 @@ class Variant:
     key: VariantKey
     compile_ms: float = 0.0
     captures: int = 0
+    replicas: int = 1
 
     def summary(self) -> dict:
         return {
@@ -212,7 +241,7 @@ class Variant:
             "dtype": self.key.dtype,
             "quantize": self.key.quantize,
             "parallelism": self.key.parallelism,
-            "replicas": 1,
+            "replicas": self.replicas,
             "captures": self.captures,
             "compile_ms": round(self.compile_ms, 1),
         }
@@ -290,19 +319,31 @@ class ModelRuntime:
     def __init__(self, model: ServingModel,
                  device: "str | torch.device | None" = None,
                  metrics: Metrics | None = None, prewarm: bool = True,
-                 debug_nans: bool = False, n_slots: int = N_SLOTS) -> None:
+                 debug_nans: bool = False, n_slots: int = N_SLOTS,
+                 parallel: ParallelConfig | None = None,
+                 mode: str | None = None, replica: int = 0,
+                 signature: str | None = None) -> None:
         self.model = model
         # Parameter slots this runtime fills: N_SLOTS, or 1 for a runtime
         # that never stages a candidate (a deferred-mode worker).
         self.n_slots = n_slots
         self.cfg: ModelConfig = model.cfg
-        self.device = resolve_device(device)
         self.metrics = metrics if metrics is not None else Metrics()
-        self.mode = self.cfg.parallelism
-        if self.mode != "single":
-            raise NotImplementedError(
-                f"parallelism={self.mode!r} is not yet ported to "
-                "tpuserve_torch (ROADMAP.md queue 1: mesh modes)")
+        # Server-wide device plan ([parallel]): bounds the device set and
+        # sizes the sharded data axis. The mode override happens at the
+        # config level (ServerState.build), so cfg.parallelism is the truth
+        # here; a replica of a ReplicaRuntime passes mode="single".
+        self.pcfg = parallel if parallel is not None else ParallelConfig()
+        self.mode = mode or self.cfg.parallelism
+        if self.mode not in ("sharded", "replica", "single", "pipeline"):
+            raise ValueError(f"unknown parallelism mode {self.mode!r}")
+        if self.mode == "replica":
+            raise ValueError("parallelism='replica' runtimes are ReplicaRuntimes: "
+                             "build them with build_runtime")
+        # This runtime's index among a ReplicaRuntime's replicas (0 alone),
+        # and the parallelism label of its variant keys.
+        self.replica = replica
+        self._signature = signature
         if self.cfg.dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}, "
                              f"got {self.cfg.dtype!r}")
@@ -315,11 +356,32 @@ class ModelRuntime:
                 "int8-native kernel sites; use quantize='int8' "
                 "(weight-only) instead")
         self.dtype = DTYPES[self.cfg.dtype]
-        # Single mode serves on a 1-device mesh (every axis of size 1).
-        # Mesh-aware models (BERT's ring/Ulysses attention) close over it;
-        # this precedes building the modules and warming up.
-        self.mesh = make_mesh(MeshPlan(), devices=[self.device])
+        self.mesh = self._plan_mesh(resolve_device(device))
+        # Every rank of the mesh on one device: the runtime's device. On
+        # the card a graph cannot span devices, so a mesh over several
+        # cards is refused (_plan_mesh).
+        self.device = self.mesh.devices.flat[0]
+        # True when a slot is a MeshModule: a data or model axis larger
+        # than 1, or pipeline stages (a seq axis alone stays inside BERT's
+        # ring/Ulysses attention on one module).
+        self.split = (self.mode == "pipeline" or self.mesh.shape.get(DATA_AXIS, 1) > 1
+                      or self.mesh.shape.get(MODEL_AXIS, 1) > 1)
+        if self.split and getattr(model, "generative", False) \
+                and not getattr(model, "mesh_programs", False):
+            raise not_ported(f"a {self.mesh.shape} mesh for the generative family "
+                             f"{self.cfg.family!r} (its programs on a split mesh)",
+                             "item 9b")
+        # Mesh-aware models (BERT's ring/Ulysses attention, its pipeline
+        # stages) close over it; this precedes building the modules.
         model.bind_mesh(self.mesh)
+        if self.mode == "sharded":
+            # The batch splits evenly over the data axis: buckets round up
+            # to its multiples, as the reference's do.
+            aligned = sorted({pad_batch_to_mesh(b, self.mesh) for b in self.cfg.batch_buckets})
+            if aligned != self.cfg.batch_buckets:
+                log.info("%s: batch buckets %s -> %s (data axis %d)", model.name,
+                         self.cfg.batch_buckets, aligned, self.mesh.shape[DATA_AXIS])
+                self.cfg.batch_buckets = aligned
         self.slots: list[Slot] = []
         self.variants: dict[VariantKey, Variant] = {}
         # Raw forward ms per bucket from the startup probes (probe_raw_ms),
@@ -361,6 +423,10 @@ class ModelRuntime:
             f"runtime_compiles_total{{model={name}}}")
         self._g_variants = self.metrics.gauge(f"runtime_variants{{model={name}}}")
         self._c_variant_batches: dict[tuple, Any] = {}
+        # Batches dispatched on this replica (replica_batches_total{model=,
+        # replica=}); a sharded or pipelined mesh is one entry.
+        self._c_replica_batches = self.metrics.counter(
+            f"replica_batches_total{{model={name},replica={replica}}}")
         # False for a runtime serving through the generation engine: its
         # programs replace the forward buckets (build_runtime).
         self.compile_forward = True
@@ -379,57 +445,128 @@ class ModelRuntime:
         self.state_blocks: list[dict[str, torch.Tensor]] = []
 
     # -- startup ------------------------------------------------------------
-    def _prepare(self, state_dict: dict[str, torch.Tensor]) -> torch.nn.Module:
-        """A fresh module holding ``state_dict`` as the forward reads it, on
-        the serving device (on the host under ``quantize``): every floating
-        tensor cast to the compute dtype; under ``quantize = "int8"`` or
-        ``"int8c"`` each eligible cast weight quantized on the reference's
-        channel (the reference's order: cast, then quantize), under int8c
-        the family's int8-native weights kept int8 for their int8 modules
-        and the rest dequantized on access as under int8; 4-D weights
-        channels_last for convolutional families.
-        ValueError when the state_dict does not fit the module."""
+    def _plan_mesh(self, device: torch.device):
+        """The serving mesh: the one device for "single"; for "sharded" a
+        (data, model, seq) mesh over ``select_devices`` of the visible
+        devices of ``device``'s platform ([parallel] n_chips bounds it;
+        ``data`` alone sizes it to data * tp * sp); for "pipeline" a
+        ("stage",) mesh of ``pp`` stages (every device when 0), for a
+        family that pipelines its own depth and without ``quantize``."""
+        if self.mode == "single":
+            return make_mesh(MeshPlan(), devices=[device])
+        n_chips = self.pcfg.n_chips
+        if not n_chips and self.pcfg.data and self.mode == "sharded":
+            n_chips = self.pcfg.data * self.cfg.tp * self.cfg.sp
+        devs = select_devices(n_chips, meshlib.visible_devices(device.type))
+        if self.mode == "pipeline":
+            if not self.model.pipeline_capable:
+                raise ValueError(
+                    f"{self.model.name}: parallelism='pipeline' needs a family "
+                    f"with a homogeneous block stack; {self.cfg.family!r} "
+                    "does not support it (BERT does) — use 'sharded', "
+                    "'replica', or 'single'")
+            if self.cfg.quantize:
+                raise ValueError(
+                    "parallelism='pipeline' does not compose with quantize "
+                    "modes yet; drop one of the two")
+            mesh = make_stage_mesh(self.cfg.pp or len(devs), devs)
+        else:
+            mesh = make_mesh(plan_for(self.pcfg, tp=self.cfg.tp, sp=self.cfg.sp), devs)
+        check_local_mesh(list(mesh.devices.flat))
+        distinct = mesh.distinct_devices()
+        if distinct[0].type == "cuda" and len(distinct) > 1:
+            # One process replays one CUDA graph per bucket, and a graph
+            # cannot span cards: the mesh's ranks must share one card.
+            raise NotImplementedError(
+                f"a {self.mode} mesh over {len(distinct)} CUDA devices needs "
+                "collectives between cards, which is not yet ported to "
+                "tpuserve_torch (ROADMAP.md queue 1: item 10, several GPUs); "
+                "its ranks may share one card, and parallelism = \"replica\" "
+                "serves one replica per card")
+        return mesh
+
+    def _prepare(self, weights: Any) -> torch.nn.Module:
+        """A fresh parameter slot's module holding ``weights`` (the
+        reference's tree, or the port's float32 state_dict): one module
+        (``prepare_module``), or a ``MeshModule`` of rank modules when the
+        mesh splits the forward (the family's ``mesh_module``, which reads
+        the tree)."""
+        if self.split:
+            tree = self.model.to_jax_params(weights) if _is_state_dict(weights) else weights
+            return self.model.mesh_module(tree, self.mesh, self.prepare_module)
+        return self.prepare_module(self.model, weights, self.device)
+
+    def prepare_module(self, model: ServingModel, tree: Any,
+                       device: torch.device) -> torch.nn.Module:
+        """``model``'s module holding ``tree`` (or a float32 state_dict of
+        it) as the forward reads it, on
+        ``device``: every floating tensor cast to the compute dtype; under
+        ``quantize = "int8"`` or ``"int8c"`` each eligible cast weight
+        quantized on the reference's channel (the reference's order: cast,
+        then quantize) and each leaf the tree holds pre-quantized installed
+        as it is, under int8c the family's int8-native weights kept int8
+        for their int8 modules and the rest dequantized on access as under
+        int8; 4-D weights channels_last for convolutional families.
+        ValueError when the tree does not fit the module (its quantized
+        leaves taken at their int8 values' shapes)."""
+        try:
+            if _is_state_dict(tree):
+                state_dict, given = tree, {}
+            elif quantize.has_quantized_leaves(tree):
+                state_dict, given = quantize.prequantized_leaves(
+                    tree, model.from_jax_params, model.reference_layout)
+            else:
+                state_dict, given = model.from_jax_params(tree), {}
+        except (KeyError, TypeError, ValueError) as e:
+            raise ValueError(f"weights do not match {model.name}'s param structure: "
+                             f"{e!r}") from e
         # Quantization runs on the host: CUDA divides by a scalar through
         # its reciprocal, which moves an int8 scale (absmax / 127) by an ulp
         # from the host's (tests/test_torch_runtime_cuda.py holds the card's
         # held weights equal to the CPU's).
-        with torch.device("cpu" if self.cfg.quantize is not None else self.device):
-            module = self.model.build_module()
+        with torch.device("cpu" if self.cfg.quantize is not None else device):
+            module = model.build_module()
         try:
             module.load_state_dict(state_dict)
         except (RuntimeError, KeyError) as e:
-            raise ValueError(f"weights do not fit {self.model.name}'s module: {e}") from e
+            raise ValueError(f"weights do not fit {model.name}'s module: {e}") from e
         module.to(dtype=self.dtype)
         module.eval().requires_grad_(False)
         if self.cfg.quantize is not None:
-            native = (self.model.int8c_native_kernel_paths()
+            native = (model.int8c_native_kernel_paths()
                       if self.cfg.quantize == "int8c" else ())
             quantize.quantize_module(module, self.dtype, self.cfg.quantize_min_size,
-                                     layout=self.model.reference_layout, native=native)
-        if self.model.channels_last:
+                                     layout=model.reference_layout, native=native,
+                                     given=given)
+        if model.channels_last:
             module.to(memory_format=torch.channels_last)
-        return module
+        # Without a dtype: int8 values and float32 scales arrive as they are.
+        return module.to(device=device)
+
+    def _forward(self, module: torch.nn.Module, batch: Any) -> Any:
+        """The model's forward on one slot's module, or on a mesh's."""
+        if isinstance(module, MeshModule):
+            return self.model.mesh_forward(module, batch)
+        return self.model.forward(module, batch)
 
     def load_params(self) -> None:
         """Load the model's parameters (``cfg.weights`` under its integrity
-        gate, or the seeded init) into every slot: one module per slot,
-        moved to the device without a dtype (when ``_prepare`` built it on
-        the host) so int8 values and float32 scales arrive as they are.
+        gate, or the seeded init) into every slot: one module per slot.
         Slot 0 is live."""
         self._fill_slots(self.model.load_params())
 
-    def _fill_slots(self, state_dict: dict[str, torch.Tensor]) -> None:
-        """``n_slots`` slots, each a module holding ``state_dict``."""
+    def _fill_slots(self, tree: Any) -> None:
+        """``n_slots`` slots, each a module holding ``tree``."""
         slots = []
         for _ in range(self.n_slots):
-            module = self._prepare(state_dict).to(device=self.device)
+            module = self._prepare(tree)
             slots.append(Slot(module, slot_tensors(module)))
         with self._replay_lock:
             self.slots = slots
         if self.device.type == "cuda":
             # Hand the float32 build and cast copies back, so memory_reserved
             # before capture counts the slots, not those transients.
-            del state_dict, module, slots
+            del tree, module, slots
             torch.cuda.empty_cache()
 
     @property
@@ -437,9 +574,42 @@ class ModelRuntime:
         """The live slot's module."""
         return self.slots[self._live].module
 
+    @property
+    def parallel_signature(self) -> str:
+        """The parallelism dimension of every VariantKey: the mode and the
+        layout it was specialized on ("sharded@d2", "replica@2",
+        "pipeline@2"); "single" stays bare."""
+        if self._signature is not None:
+            return self._signature
+        if self.mode == "sharded":
+            return f"sharded@d{self.mesh.shape[DATA_AXIS]}"
+        if self.mode == "pipeline":
+            return f"pipeline@{self.mesh.shape[STAGE_AXIS]}"
+        return self.mode
+
+    @property
+    def n_replicas(self) -> int:
+        """Independent graph sets (the batcher keeps a staging-slot pool
+        per replica): 1, a sharded or pipelined mesh included."""
+        return 1
+
+    @property
+    def n_chips(self) -> int:
+        """Ranks the serving path occupies: the mesh's size (they may share
+        one card)."""
+        return self.mesh.size
+
+    def replica_batches(self) -> list[float]:
+        """Per-replica dispatch counts (replica_batches_total)."""
+        return [self._c_replica_batches.value]
+
+    def pick_replica(self, loads: "list[int] | None" = None) -> int:
+        return 0
+
     def variant_key(self, bucket: tuple) -> VariantKey:
         return VariantKey(bucket=tuple(bucket), dtype=self.cfg.dtype,
-                          quantize=self.cfg.quantize, parallelism=self.mode)
+                          quantize=self.cfg.quantize,
+                          parallelism=self.parallel_signature)
 
     def compile_all(self) -> None:
         """Warm up (and on CUDA capture) every bucket on every slot: the
@@ -493,8 +663,8 @@ class ModelRuntime:
             # One eager run on the live slot (a cold runtime's first warm
             # runs this before its publish).
             with torch.inference_mode():
-                self.model.forward(self.slots[self._live].module,
-                                   self.h2d(bucket, self._zeros(bucket)))
+                self._forward(self.slots[self._live].module,
+                              self.h2d(bucket, self._zeros(bucket)))
         key = self.variant_key(bucket)
         self.variants[key] = Variant(key, (time.perf_counter() - t0) * 1e3, captures)
         self._c_variant_batches[bucket] = self.metrics.counter(
@@ -543,7 +713,7 @@ class ModelRuntime:
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.inference_mode():
             with torch.cuda.stream(stream):
-                self.model.forward(slot.module, inputs)
+                self._forward(slot.module, inputs)
             torch.cuda.current_stream(self.device).wait_stream(stream)
             # This thread's K1/K2 launches while capturing are the graph's;
             # other threads' launches and replays stay out of its count.
@@ -551,7 +721,7 @@ class ModelRuntime:
             with fa.capture_launches() as rec, torch.cuda.graph(
                     graph, pool=self._pool, stream=stream,
                     capture_error_mode="thread_local"):
-                outputs = self.model.forward(slot.module, inputs)
+                outputs = self._forward(slot.module, inputs)
             launches, shapes = (rec["k1"], rec["k2"]), rec["shapes"]
             if self.prewarm:
                 # A graph's first launch uploads it to the card: pay that
@@ -580,7 +750,7 @@ class ModelRuntime:
             self.variants.items(), key=lambda kv: self._bucket_order(kv[0]))]
 
     # -- hot path -----------------------------------------------------------
-    def h2d(self, bucket: tuple, host_batch: tuple) -> tuple:
+    def h2d(self, bucket: tuple, host_batch: tuple, replica: int = 0) -> tuple:
         """Copy the host batch to the device: from pinned memory (the
         assembly arena pins its buffers on CUDA) with ``non_blocking=True``,
         on the runtime's own copy stream, so the copy overlaps the forward
@@ -606,7 +776,7 @@ class ModelRuntime:
             copied.synchronize()
         return tuple(out)
 
-    def dispatch(self, bucket: tuple, dev_batch: tuple,
+    def dispatch(self, bucket: tuple, dev_batch: tuple, replica: int = 0,
                  params_override: StagedParams | None = None) -> dict:
         """Enqueue the forward on the device batch against the live slot —
         or, with ``params_override``, against a staged candidate's slot
@@ -624,7 +794,7 @@ class ModelRuntime:
         with self._replay_lock, torch.inference_mode():
             slot = self._serving_slot(params_override)
             if self.device.type != "cuda":
-                out = self.model.forward(slot.module, dev_batch)
+                out = self._forward(slot.module, dev_batch)
             else:
                 g = slot.graphs[bucket]
                 for dst, src in zip(g.inputs, dev_batch):
@@ -637,6 +807,7 @@ class ModelRuntime:
         c = self._c_variant_batches.get(bucket)
         if c is not None:
             c.inc()
+        self._c_replica_batches.inc()
         return out
 
     def _serving_slot(self, params_override: StagedParams | None) -> Slot:
@@ -651,9 +822,10 @@ class ModelRuntime:
         return self.slots[self._live if params_override is None
                           else params_override.slot]
 
-    def run(self, bucket: tuple, host_batch: tuple,
+    def run(self, bucket: tuple, host_batch: tuple, replica: int | None = None,
             params_override: StagedParams | None = None) -> dict:
-        """h2d + dispatch in one call; returns device outputs immediately."""
+        """h2d + dispatch in one call; returns device outputs immediately
+        (``replica`` is for a ReplicaRuntime's signature: one replica here)."""
         return self.dispatch(bucket, self.h2d(bucket, host_batch),
                              params_override=params_override)
 
@@ -869,6 +1041,16 @@ class ModelRuntime:
         faults fire at their gates. Only then is the candidate copied into
         the slot — in place, so its graphs stay valid — once the slot's last
         replay has finished on the card."""
+        tree = self.load_candidate(verify_integrity, nan_scan, require_manifest)
+        # The candidate lands on the card through blocking copies and a
+        # stream sync: a deliberate transfer under an armed sync guard.
+        with allow_transfers():
+            return self._stage_slot(tree)
+
+    def load_candidate(self, verify_integrity: bool = True, nan_scan: bool = True,
+                       require_manifest: bool = False) -> Any:
+        """``stage_params``' host half: the candidate tree, through the
+        integrity and NaN/Inf gates."""
         name = self.model.name
         if self.injector is not None:
             try:
@@ -888,21 +1070,17 @@ class ModelRuntime:
                 raise NaNDetected(
                     f"candidate weights for {name} hold NaN/Inf in {bad}; "
                     "candidate rejected")
-        try:
-            state_dict = self.model.from_jax_params(tree)
-        except (KeyError, TypeError, ValueError) as e:
-            raise ValueError(f"reloaded weights do not match the module: {e!r}; "
-                             "old params kept") from e
-        # The candidate lands on the card through blocking copies and a
-        # stream sync: a deliberate transfer under an armed sync guard.
-        with allow_transfers():
-            return self._stage_slot(state_dict)
+        return tree
 
-    def _stage_slot(self, state_dict: dict[str, torch.Tensor]) -> StagedParams:
+    def _stage_slot(self, tree: Any) -> StagedParams:
         """``stage_params``' device half: the candidate into a free slot."""
         if not self.slots:
-            return self._stage_cold(state_dict)
-        candidate = slot_tensors(self._prepare(state_dict))
+            return self._stage_cold(tree)
+        try:
+            candidate = slot_tensors(self._prepare(tree))
+        except ValueError as e:
+            raise ValueError(f"reloaded weights do not match the module: {e}; "
+                             "old params kept") from e
         live = self.slots[self._live].tensors
         if list(candidate) != list(live) or any(
                 a.shape != b.shape or a.dtype != b.dtype
@@ -925,13 +1103,13 @@ class ModelRuntime:
                 torch.cuda.current_stream(self.device).synchronize()
             return StagedParams(free, slot.generation)
 
-    def _stage_cold(self, state_dict: dict[str, torch.Tensor]) -> StagedParams:
+    def _stage_cold(self, tree: Any) -> StagedParams:
         """Stage into a runtime with no slot (cold boot or demoted): the
         candidate fills all ``N_SLOTS`` slots, as ``load_params`` does at a
         warm boot, and a free one is handed out as the staged candidate;
         ``ensure_compiled`` then captures every (bucket, slot)."""
         with self._reload_lock:
-            self._fill_slots(state_dict)
+            self._fill_slots(tree)
             free = next(i for i in range(self.n_slots) if i not in (self._live, self._prev))
             slot = self.slots[free]
             slot.generation += 1
@@ -1051,9 +1229,10 @@ class ModelRuntime:
             "weights": self.cfg.weights,
             "labels": self.cfg.labels,
             "options": dict(self.cfg.options),
-            "replicas": 1,
-            "n_chips": 1,
-            "parallel": self.mode,
+            "replicas": self.n_replicas,
+            "n_chips": self.n_chips,
+            "parallel": self.parallel_signature,
+            "mesh_shape": dict(self.mesh.shape),
             "device": str(self.device),
             "buckets": [list(k.bucket) for k in sorted(self.variants, key=self._bucket_order)],
             "variants": self.variants_summary(),
@@ -1070,6 +1249,12 @@ class ModelRuntime:
                                  for b, v in sorted(self.raw_ms_per_batch.items())},
             "params": tree_summary(params),
         }
+
+
+def _is_state_dict(weights: Any) -> bool:
+    """True for the port's flat state_dict (tensor values), False for the
+    reference's nested tree (numpy leaves)."""
+    return bool(weights) and all(isinstance(v, torch.Tensor) for v in weights.values())
 
 
 def _raise_nonfinite(name: str, outputs: dict) -> None:
@@ -1111,12 +1296,207 @@ def _map_out(out: Any, fn: Callable) -> Any:
     return fn(out)
 
 
+class ReplicaRuntime:
+    """``parallelism = "replica"``: one independent runtime replica per
+    device of the [parallel] plan (``select_devices``; the devices may
+    repeat, as ranks on one card do), each a one-device ``ModelRuntime``
+    with its own parameter slots, graphs, streams and memory pool — the
+    reference's one single-device executable set per device, with the
+    parameters copied per device. It serves the runtime surface: ``h2d``,
+    ``dispatch`` and ``run`` take the replica, ``pick_replica`` chooses
+    the least-loaded one (ties rotating), and the weight lifecycle fans
+    out: a candidate is loaded and gated once and staged into the same
+    free slot of every replica, publish and rollback switch every
+    replica's live slot together, so one version number serves on all.
+    ``runtime_compiles_total`` counts replicas x buckets at startup, as the
+    reference's; the generation engine runs one engine per replica on its
+    runtime (``GenEngineGroup``)."""
+
+    def __init__(self, model: ServingModel, device: "str | torch.device | None" = None,
+                 metrics: Metrics | None = None, prewarm: bool = True,
+                 debug_nans: bool = False, n_slots: int = N_SLOTS,
+                 parallel: ParallelConfig | None = None) -> None:
+        self.model = model
+        self.cfg: ModelConfig = model.cfg
+        self.metrics = metrics if metrics is not None else Metrics()
+        self.pcfg = parallel if parallel is not None else ParallelConfig()
+        self.mode = "replica"
+        devs = select_devices(self.pcfg.n_chips,
+                              meshlib.visible_devices(resolve_device(device).type))
+        check_local_mesh(devs)
+        signature = f"replica@{len(devs)}"
+        self.replicas = [
+            ModelRuntime(model, device=d, metrics=self.metrics, prewarm=prewarm,
+                         debug_nans=debug_nans, n_slots=n_slots, parallel=self.pcfg,
+                         mode="single", replica=i, signature=signature)
+            for i, d in enumerate(devs)]
+        self.device = self.replicas[0].device
+        self.mesh = self.replicas[0].mesh
+        self.n_slots = n_slots
+        self._rr = 0  # round-robin cursor
+        self._rr_lock = new_lock("runtime.replica_rr")
+        self._reload_lock = new_lock("runtime.replica_reload")
+
+    # -- settings the server and batcher write, fanned out ------------------
+    def _fan(name: str):  # noqa: N805 — a property factory
+        def get(self):
+            return getattr(self.replicas[0], name)
+
+        def set_(self, value):
+            for r in self.replicas:
+                setattr(r, name, value)
+        return property(get, set_)
+
+    injector = _fan("injector")
+    h2d_sync = _fan("h2d_sync")
+    compile_forward = _fan("compile_forward")
+    prewarm = _fan("prewarm")
+    del _fan
+
+    # -- the replica set ------------------------------------------------------
+    @property
+    def parallel_signature(self) -> str:
+        return f"replica@{len(self.replicas)}"
+
+    @property
+    def n_replicas(self) -> int:
+        return len(self.replicas)
+
+    @property
+    def n_chips(self) -> int:
+        return len(self.replicas)
+
+    def replica_batches(self) -> list[float]:
+        """Per-replica dispatch counts (replica_batches_total), in replica
+        order: every replica nonzero under load is the proof that the
+        batcher keeps every device busy."""
+        return [r._c_replica_batches.value for r in self.replicas]
+
+    def pick_replica(self, loads: "list[int] | None" = None) -> int:
+        """First-choice replica for the next batch: with ``loads`` (each
+        replica's staging-slot occupancy, from the batcher) the least
+        loaded, ties broken on a rotating cursor so equal replicas
+        alternate; without it plain round-robin."""
+        n = len(self.replicas)
+        if n == 1:
+            return 0
+        with self._rr_lock:
+            self._rr = (self._rr + 1) % n
+            start = self._rr
+        if not loads:
+            return start
+        return min(range(n), key=lambda i: (loads[i], (i - start) % n))
+
+    # -- startup --------------------------------------------------------------
+    def load_params(self) -> None:
+        """Load the weights once; fill every replica's slots from them."""
+        tree = self.model.load_params()
+        for r in self.replicas:
+            r._fill_slots(tree)
+
+    def compile_all(self) -> None:
+        for r in self.replicas:
+            r.compile_all()
+
+    def ensure_compiled(self) -> int:
+        return sum(r.ensure_compiled() for r in self.replicas)
+
+    def probe_all_raw(self, iters: int = 8) -> dict[tuple, float]:
+        return self.replicas[0].probe_all_raw(iters)
+
+    # -- hot path -------------------------------------------------------------
+    def h2d(self, bucket: tuple, host_batch: tuple, replica: int = 0) -> tuple:
+        return self.replicas[replica].h2d(bucket, host_batch)
+
+    def dispatch(self, bucket: tuple, dev_batch: tuple, replica: int = 0,
+                 params_override: StagedParams | None = None) -> dict:
+        return self.replicas[replica].dispatch(bucket, dev_batch,
+                                               params_override=params_override)
+
+    def run(self, bucket: tuple, host_batch: tuple, replica: int | None = None,
+            params_override: StagedParams | None = None) -> dict:
+        """h2d + dispatch on ``replica`` (round-robin when None)."""
+        i = replica if replica is not None else self.pick_replica()
+        return self.replicas[i].run(bucket, host_batch, params_override=params_override)
+
+    fetch = staticmethod(ModelRuntime.fetch)
+
+    # -- lifecycle ------------------------------------------------------------
+    def stage_params(self, verify_integrity: bool = True, nan_scan: bool = True,
+                     require_manifest: bool = False) -> StagedParams:
+        """Replica 0 loads and gates the candidate (integrity, NaN/Inf,
+        structure) as a one-device runtime does; every other replica then
+        takes the same tree into the same free slot."""
+        with self._reload_lock:
+            tree = self.replicas[0].load_candidate(verify_integrity, nan_scan,
+                                                   require_manifest)
+            with allow_transfers():
+                staged = [r._stage_slot(tree) for r in self.replicas]
+            if any(st != staged[0] for st in staged):
+                raise RuntimeError(f"the replicas staged into different slots: {staged}")
+            return staged[0]
+
+    def publish(self, staged: StagedParams) -> dict:
+        with self._reload_lock:
+            infos = [r.publish(staged) for r in self.replicas]
+        return infos[0]
+
+    def rollback(self) -> dict:
+        with self._reload_lock:
+            infos = [r.rollback() for r in self.replicas]
+        return infos[0]
+
+    def release_params(self) -> None:
+        for r in self.replicas:
+            r.release_params()
+
+    def reload_params(self) -> dict:
+        t0 = time.perf_counter()
+        info = self.publish(self.stage_params())
+        info["reload_ms"] = round((time.perf_counter() - t0) * 1e3, 1)
+        info["params"] = self.describe()["params"]
+        return info
+
+    # -- info -----------------------------------------------------------------
+    def __getattr__(self, name: str) -> Any:
+        # The version machine, the registry's read side and the rest of a
+        # runtime's state read as replica 0's (the replicas move together).
+        if name in ("version", "previous_version", "params_resident", "module",
+                    "compiles_total", "raw_ms_per_batch", "capture_memory",
+                    "releases_total", "variants", "slots", "gen_programs",
+                    "gen_meta", "dtype", "variant_key", "_live", "_prev", "_zeros"):
+            return getattr(self.replicas[0], name)
+        raise AttributeError(name)
+
+    @property
+    def captures_total(self) -> int:
+        return sum(r.captures_total for r in self.replicas)
+
+    def variants_summary(self) -> list[dict]:
+        out = self.replicas[0].variants_summary()
+        for v in out:
+            v["replicas"] = len(self.replicas)
+            v["captures"] = sum(r.variants[r.variant_key(tuple(v["bucket"]))].captures
+                                for r in self.replicas
+                                if r.variant_key(tuple(v["bucket"])) in r.variants)
+        return out
+
+    def describe(self) -> dict:
+        d = self.replicas[0].describe()
+        d.update(mode=self.mode, replicas=self.n_replicas, n_chips=self.n_chips,
+                 parallel=self.parallel_signature, variants=self.variants_summary(),
+                 captures_total=self.captures_total,
+                 devices=[str(r.device) for r in self.replicas])
+        return d
+
+
 def build_runtime(model: ServingModel,
                   device: "str | torch.device | None" = None,
                   metrics: Metrics | None = None,
                   compile_forward: bool = True, prewarm: bool = True,
                   debug_nans: bool = False, cold: bool = False,
-                  n_slots: int = N_SLOTS) -> ModelRuntime:
+                  n_slots: int = N_SLOTS,
+                  parallel: ParallelConfig | None = None) -> "ModelRuntime | ReplicaRuntime":
     """Parameter slots on ``device`` (default: the current CUDA device) and
     every bucket warmed up and, on CUDA, captured per slot.
     ``compile_forward=False`` skips the buckets: a runtime for the
@@ -1126,11 +1506,13 @@ def build_runtime(model: ServingModel,
     builds neither slots nor graphs (weight paging's cold boot: the first
     stage fills them). ``n_slots=1``: one parameter slot and one graph per
     bucket, for a runtime that never stages (a deferred-mode worker)."""
-    rt = ModelRuntime(model, device=device, metrics=metrics, prewarm=prewarm,
-                      debug_nans=debug_nans, n_slots=n_slots)
+    cls = ReplicaRuntime if model.cfg.parallelism == "replica" else ModelRuntime
+    rt = cls(model, device=device, metrics=metrics, prewarm=prewarm,
+             debug_nans=debug_nans, n_slots=n_slots, parallel=parallel)
     rt.compile_forward = compile_forward
     if cold:
-        rt._resident = False
+        for r in getattr(rt, "replicas", [rt]):
+            r._resident = False
         return rt
     rt.load_params()
     if compile_forward:

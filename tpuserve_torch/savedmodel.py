@@ -436,14 +436,16 @@ def convert_cli(saved_model_path: str, family: str, out_path: str,
     fields; everything else lands in ModelConfig.options (e.g. BERT's
     vocab_file / layer sizes). The import must match the artifact.
 
-    ``quantize="int8"`` (the reference writes the weight-only int8 tree) is
-    not ported: the port quantizes at stage time from the float ``.npz``
-    with ``quantize = "int8"`` on the model. Returns the manifest's path."""
+    ``quantize="int8"`` writes the weight-only int8 tree (the reference's
+    ``quantize_tree`` at the model's ``quantize_min_size``: a ``{"q8",
+    "q8_scale"}`` sub-tree per quantized leaf, half the bytes); serve it
+    with ``quantize = "int8"`` or ``"int8c"``. Returns the manifest's
+    path."""
     import dataclasses
 
+    from tpuserve_torch import quantize as qz
     from tpuserve_torch.config import ModelConfig
     from tpuserve_torch.models import build
-    from tpuserve_torch.models.base import not_ported
 
     opts = dict(options or {})
     reserved = {"name", "family", "weights", "options"}
@@ -451,19 +453,16 @@ def convert_cli(saved_model_path: str, family: str, out_path: str,
     if bad:
         raise ValueError(f"--opt cannot set {sorted(bad)}; use the dedicated "
                          "CLI flags instead")
-    if quantize == "int8":
-        raise not_ported("import-model --quantize int8 (serve the float .npz with "
-                         "quantize = \"int8\")", "item 14b, the int8-quantized tree in a .npz")
-    if quantize is not None:
+    if quantize not in (None, "int8"):
         raise ValueError(f"unknown --quantize mode {quantize!r}")
     settable = {f.name for f in dataclasses.fields(ModelConfig)} - reserved
     fields = {k: opts.pop(k) for k in list(opts) if k in settable}
-    # The tree does not depend on the mesh; the port's families build only
-    # for parallelism = "single" (the mesh modes are not ported).
-    fields.setdefault("parallelism", "single")
     cfg = ModelConfig(name=family, family=family, options=opts, **fields)
     tree = import_tree(build(cfg), saved_model_path)
+    if quantize == "int8":
+        tree = qz.quantize_tree(tree, cfg.quantize_min_size)
     mpath = save_npz(out_path, tree)
     log.info("wrote the .npz checkpoint to %s", out_path)
-    print(f"converted {saved_model_path} -> {out_path}")
+    print(f"converted {saved_model_path} -> {out_path}"
+          + (f" ({quantize}-quantized)" if quantize else ""))
     return mpath

@@ -86,8 +86,9 @@ class _Entry:
         self.warm_fn = warm_fn
         self.state = WARM
         # Placement facts: how many chips this model occupies when warm (the
-        # runtime's n_chips; 1 for the port's one-card runtimes, recycle
-        # pools and test doubles) and its parallel signature.
+        # runtime's n_chips: a replica@2 runtime counts 2, a sharded mesh its
+        # ranks; recycle pools and test doubles count 1) and its parallel
+        # signature ("replica@2", "sharded@d2", ...).
         self.degree = max(1, int(getattr(runtime, "n_chips", 1) or 1))
         self.signature = str(getattr(runtime, "parallel_signature",
                                      "single") or "single")

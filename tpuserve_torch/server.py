@@ -196,7 +196,8 @@ from tpuserve_torch.config import ServerConfig, SloConfig, unported_settings
 from tpuserve_torch.deferred import DeferredPool
 from tpuserve_torch.faults import CircuitBreaker, FaultInjector, Watchdog
 from tpuserve_torch.frame import FrameError
-from tpuserve_torch.genserve import GenEngine, KVPressure
+from tpuserve_torch.genserve import GenEngine, GenEngineGroup, KVPressure
+from tpuserve_torch.parallel.distributed import init_distributed, process_info
 from tpuserve_torch.hostpipe import StageExecutors
 from tpuserve_torch.lifecycle import ModelLifecycle, ReloadRejected
 from tpuserve_torch.obs import (PRIORITIES, FlightRecorder, Metrics, TraceContext,
@@ -582,6 +583,17 @@ class ServerState:
         # barrier is declared once every model below is warm, after which an
         # unsanctioned compile or capture raises.
         witness.reset_retrace()
+        # [parallel] mode override, applied to the config before the models
+        # are built, so each family's mode checks see the serving mode.
+        # Recycle-mode models keep their own: their runtimes live in worker
+        # processes with one device each.
+        if self.cfg.parallel.mode:
+            for mcfg in self.cfg.models:
+                if mcfg.session_mode != "recycle" \
+                        and mcfg.parallelism != self.cfg.parallel.mode:
+                    log.info("model %s: [parallel] mode overrides parallelism %r -> %r",
+                             mcfg.name, mcfg.parallelism, self.cfg.parallel.mode)
+                    mcfg.parallelism = self.cfg.parallel.mode
         for mcfg in self.cfg.models:
             t0 = time.perf_counter()
             model = modelzoo.build(mcfg)
@@ -600,7 +612,8 @@ class ServerState:
                 # scheduler sheds 503 model_warming until the publish lands.
                 rt = build_runtime(model, device=self.device, metrics=self.metrics,
                                    prewarm=self.cfg.prewarm_executables,
-                                   debug_nans=self.cfg.debug_nans, cold=True)
+                                   debug_nans=self.cfg.debug_nans, cold=True,
+                                   parallel=self.cfg.parallel)
             elif mcfg.session_mode == "recycle":
                 # Deferred-readback worker pool: the workers, spawned on this
                 # server's device, own the model; this process does not.
@@ -612,15 +625,20 @@ class ServerState:
                 # forward buckets: capturing both would double startup for
                 # nothing.
                 rt = build_runtime(model, device=self.device, metrics=self.metrics,
-                                   compile_forward=False, debug_nans=self.cfg.debug_nans)
-                eng = GenEngine(model, rt, self.metrics, self.cfg.genserve,
-                                stages=self.stages, pipeline_cfg=self.cfg.pipeline)
+                                   compile_forward=False, debug_nans=self.cfg.debug_nans,
+                                   parallel=self.cfg.parallel)
+                # One engine per replica (least-loaded placement, the engine
+                # surface aggregated) behind replica mode.
+                group = GenEngineGroup if rt.n_replicas > 1 else GenEngine
+                eng = group(model, rt, self.metrics, self.cfg.genserve,
+                            stages=self.stages, pipeline_cfg=self.cfg.pipeline)
                 eng.compile()  # registers, captures and prewarms the programs
                 self.engines[mcfg.name] = eng
             else:
                 rt = build_runtime(model, device=self.device, metrics=self.metrics,
                                    prewarm=self.cfg.prewarm_executables,
-                                   debug_nans=self.cfg.debug_nans)
+                                   debug_nans=self.cfg.debug_nans,
+                                   parallel=self.cfg.parallel)
                 if self.cfg.roofline_probe_iters > 0:
                     rt.probe_all_raw(int(self.cfg.roofline_probe_iters))
             # Armed after warm-up and probes: chaos targets the serving path.
@@ -1127,6 +1145,10 @@ class ServerState:
         # workers own the card.
         out["cuda_initialized"] = out["backend"]["cuda_initialized"]
         out["kernels"] = self.kernel_counts()
+        # The multi-process seam's coordinates (process_info) and this
+        # process's place in the router tier when it serves as a worker.
+        out["topology"] = {**process_info(), "worker_id": self.worker_id,
+                           "distributed": bool(self.cfg.distributed.coordinator_address)}
         out["robustness"] = {
             "draining": self.draining,
             "breakers": {n: br.describe() for n, br in self.breakers.items()},
@@ -1185,7 +1207,31 @@ class ServerState:
         roofline = self.roofline(out["latency"])
         if roofline:
             out["roofline"] = roofline
+        parallel = self.parallel_stats()
+        if parallel:
+            out["parallel"] = parallel
         return json_response(out)
+
+    def parallel_stats(self) -> dict:
+        """The /stats ``parallel`` block: per model the serving layout and
+        the dispatches per replica — one count per replica in replica mode,
+        one mesh-wide count for a sharded or pipelined mesh, with its share
+        per chip."""
+        out: dict = {}
+        for name, rt in self.runtimes.items():
+            if not hasattr(rt, "parallel_signature"):
+                continue  # deferred pools own their devices out of process
+            batches = rt.replica_batches()
+            out[name] = {
+                "mode": rt.mode,
+                "signature": rt.parallel_signature,
+                "n_chips": rt.n_chips,
+                "replicas": rt.n_replicas,
+                "replica_batches_total": batches,
+                "batches_per_chip": round(sum(batches) / rt.n_chips, 2)
+                if rt.n_chips else 0.0,
+            }
+        return out
 
     def roofline(self, latency_summary: dict) -> dict:
         """The /stats ``roofline`` block, as the reference builds it: per
@@ -2171,6 +2217,8 @@ def serve(cfg: ServerConfig, device: "str | None" = None) -> None:
 
         serve_router(cfg, device=device)
         return
+    # Before the serving path touches a device.
+    init_distributed(cfg.distributed)
     state = ServerState(cfg, device=device)
     state.build()
     # Startup leaves ~200k objects that live as long as the process and a
