@@ -527,7 +527,35 @@ Phases (any failure exits non-zero before the result line):
    45 s after the drill's server is born; single texts offered at 20/s for
    30 s): exit 0, availability >= 0.99, the one death absorbed by
    ``batch_retries_total`` >= 1, a watchdog restart or a respawn counted.
-26. Every process the phases started, and every one those started (the
+26. Training (``training_phase``), in a process of its own (``Apart``)
+   started with phase 19's, beside phases 19, 15 and 18, never beside a
+   phase with gates on time: (1) ``python -m tpuserve_torch finetune-det
+   --out <tmp>/det_cli.npz --steps 2 --batch 8 --opt image_size=512 --opt
+   wire_size=512 --opt det_classes=90`` (D0 widths, bf16), started first
+   and read last (it runs beside gates 2-4), exits 0 and prints its
+   ``{"final_loss", "checkpoint"}`` line; (2) ``finetune_detector``
+   in process at 512 px, batch 8, bf16, for 20 steps on the synthetic
+   rectangles: the mean loss of the last 5 steps below that of the first 5;
+   each step's time (synchronised), images/s and the peak memory printed;
+   (3) the ``.npz`` it wrote passes its manifest, loads through the port's
+   loader (``weights = <det.npz>``) into a runtime with bucket (8,), and a
+   replayed graph of its heads equals the trainer's final parameters run
+   eagerly in the same dtype within ``RESNET_LOGIT_REL`` of the scale, the
+   runtime's replayed detections with the same count and classes as the
+   trainer's; (4) one ``tpuserve_torch.train`` step with ``seq_attention``
+   "ring", then one with "ulysses", at BERT-base widths (``LM_TRAIN``:
+   d_model 768, 12 heads of 64, d_ff 3072, vocab 30522, 2 layers,
+   ``max_seq`` 8192, batch 2, float32, TF32 off) on a mesh of sp = 2 ranks
+   on ``cuda:0``: ``auto_local_impl`` picks "flash"; K2 launches layers x
+   sp x ring steps = 8 (ring), K1 layers x sp = 4 (Ulysses); the loss and
+   every gradient leaf equal the same step through the kernels' plain
+   versions (``plain_kernels``) within ``LM_LOSS_REL`` / ``LM_GRAD_REL``
+   (phase 4's float32 atol summed over the layers); each step's time and
+   its peak memory (the dense-recompute backward) printed. Then, with the
+   card to itself, K2 and K1 at those shapes in float32 against their plain
+   versions, timed beside their plain versions, their bounds and library
+   yardsticks (``train_kernel_rows``); the ``training`` line.
+27. Every process the phases started, and every one those started (the
    smoke is their subreaper, so an orphan is re-parented to it), must end
    within ``ORPHAN_GRACE_S`` of the last phase; one still running then is
    killed, named, and fails the smoke. Nothing outlives the smoke: the
@@ -542,14 +570,16 @@ Phases (any failure exits non-zero before the result line):
    ``lifecycle`` line, the
    ``robustness`` line (with phase 8's, 13's and 14's first-request
    tables), the ``observability``, ``defaults_cost``, ``cli``, ``router``,
-   ``hosts``, ``fleet``, ``autopilot`` and ``deferred`` lines, and
+   ``hosts``, ``fleet``, ``autopilot``, ``deferred`` and ``training`` lines, and
    the ``kernels`` line (K1 and K2, each with its launches on its path,
    counted through graph replays, K1's on the int8c path, in each of
    phase 16's ``bench`` runs, on phase 17's textgen path, phase 18's
    streams and ``bench --stream``, phase 19's MoE paths and phase 20's
    locked and engine SD paths, phase 21's router path and phase 22's host
    path and their benches beside, phase 23's first warm, re-warm and fleet
-   drill, phase 25's recycle path and its load, then K1's three mesh rows
+   drill, phase 25's recycle path and its load, phase 26's LM train steps
+   (K1 through Ulysses, K2 through the ring), then K2's and K1's rows at
+   the train step's float32 shapes (phase 26), K1's three mesh rows
    (phase 5b's shapes, with their launches there), K1's four SD rows, each with the
    launches counted at its shape on the locked (B = 2) or engine (B = 16)
    path; the vision paths run neither),
@@ -560,6 +590,7 @@ Phases (any failure exits non-zero before the result line):
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import http.client
 import json
@@ -3438,13 +3469,27 @@ def trace_tree_check(port: int) -> dict:
 def profile_check(data: dict) -> dict:
     """The merged trace of a served window: device events on the ring's
     clock, K1 by name, each K1 inside the capture window and inside a
-    served batch's ring span, and K1's count beside 12 per batch."""
+    served batch's ring span, and 12 K1 per replay (the first and the last
+    replay may be cut by the profiler's start and stop). A batch is one graph
+    replay, and a replay's kernels share its ``cudaGraphLaunch``'s
+    correlation id, so K1 is counted per replay by that id. Batch spans
+    overlap (several batches are in flight), so a span is never credited
+    with the K1 events it happens to contain: instead every batch whose
+    span lies wholly inside the traced device extent must have its replay
+    in the trace, and no more replays than batches touching that extent;
+    and no graph launch between the first and the last replay lacks its K1
+    events."""
     meta = data["tpuserve_profile"]
     check(meta["device_trace"] == "ok", f"profile: device_trace {meta['device_trace']!r}")
     lo, hi = meta["window_us"]
     evs = data["traceEvents"]
-    k1 = [e for e in evs if e.get("pid", 0) >= 1000 and e.get("cat") == "kernel"
-          and K1_NAME.search(e.get("name", ""))]
+    dev = [e for e in evs if e.get("pid", 0) >= 1000 and e.get("cat") in ("kernel", "gpu_memcpy",
+                                                                          "gpu_memset")]
+    k1 = [e for e in dev if e["cat"] == "kernel" and K1_NAME.search(e.get("name", ""))]
+    launches = {e["args"]["correlation"]: e for e in evs
+                if e.get("pid", 0) >= 1000
+                and e.get("name", "").startswith("cudaGraphLaunch")
+                and "correlation" in e.get("args", {})}
     batches = [e for e in evs if e.get("pid") == 0 and e["name"].startswith("batch[")
                and e["tid"] == "bert"]
     check(k1, f"profile: no K1 kernel event among {meta['device_events']} device events")
@@ -3452,22 +3497,42 @@ def profile_check(data: dict) -> dict:
     check(not outside, f"profile: {len(outside)} K1 events outside the capture window")
     in_batch = [e for e in k1 if any(b["ts"] <= e["ts"] and e["ts"] + e["dur"] <= b["ts"] + b["dur"]
                                      for b in batches)]
-    hit = {b["args"]["batch"] for b in batches
-           if any(b["ts"] <= e["ts"] <= b["ts"] + b["dur"] for e in k1)}
     share = len(in_batch) / len(k1)
+    replays = collections.Counter(e.get("args", {}).get("correlation") for e in k1)
+    unlaunched = [c for c in replays if c not in launches]
+    per_replay = collections.Counter(replays.values())
+    first, last = min(e["ts"] for e in dev), max(e["ts"] + e["dur"] for e in dev)
+    inside = [b for b in batches if first <= b["ts"] and b["ts"] + b["dur"] <= last]
+    touching = [b for b in batches if b["ts"] < last and b["ts"] + b["dur"] > first]
     out = {"device_events": meta["device_events"], "ring_events": meta["ring_events"],
-           "k1_events": len(k1), "k1_inside_a_batch_span": share,
-           "batches_with_k1": len(hit), "k1_per_batch": len(k1) / max(1, len(hit)),
-           "k1_name": k1[0]["name"][:80], "window_ms": (hi - lo) / 1e3}
+           "k1_events": len(k1), "k1_inside_a_batch_span": share, "replays_with_k1": len(replays),
+           "k1_per_replay": {str(k): v for k, v in sorted(per_replay.items())},
+           "batches_inside_device_extent": len(inside), "batches_touching_it": len(touching),
+           "k1_name": k1[0]["name"][:80], "window_ms": (hi - lo) / 1e3,
+           "device_extent_ms": (last - first) / 1e3}
     print(f"observability: /debug/profile: {meta['device_events']} device events beside "
-          f"{meta['ring_events']} ring spans over {out['window_ms']:.0f} ms; {len(k1)} K1 "
-          f"events ({out['k1_name']}), all inside the window, {share:.1%} inside a served "
-          f"batch's span; {len(hit)} batches ran them ({out['k1_per_batch']:.2f} per batch, 12 "
-          f"expected)", flush=True)
+          f"{meta['ring_events']} ring spans over {out['window_ms']:.0f} ms (device events over "
+          f"the last {out['device_extent_ms']:.0f} ms); {len(k1)} K1 events ({out['k1_name']}), "
+          f"all inside the window, {share:.1%} inside a served batch's span; {len(replays)} "
+          f"replays ran them (K1 per replay: {out['k1_per_replay']}, 12 expected) against "
+          f"{len(inside)} batches wholly inside the device extent and {len(touching)} touching it",
+          flush=True)
     check(share >= 0.95, f"profile: only {share:.1%} of K1 events fall inside a batch span "
                          "(device lanes off the ring's clock?)")
-    check(abs(len(k1) - 12 * len(hit)) <= 24,
-          f"profile: {len(k1)} K1 events for {len(hit)} batches (12 per batch)")
+    check(not unlaunched, f"profile: K1 events of {len(unlaunched)} correlation ids with no "
+                          "cudaGraphLaunch (K1 launched outside a replay?)")
+    # The first and the last replay may straddle the profiler's start or
+    # stop; every other one is whole.
+    order = sorted(replays, key=lambda c: launches[c]["ts"])
+    check(all(replays[c] == 12 for c in order[1:-1]) and all(replays[c] <= 12 for c in order),
+          f"profile: K1 per replay {dict(per_replay)} (12 expected)")
+    t_first, t_last = launches[order[0]]["ts"], launches[order[-1]]["ts"]
+    bare = [c for c, e in launches.items() if t_first <= e["ts"] <= t_last and c not in replays]
+    check(not bare, f"profile: {len(bare)} graph launches between the first and the last replay "
+                    "that ran K1 left no K1 event in the trace")
+    check(len(inside) <= len(replays) <= len(touching),
+          f"profile: {len(replays)} replays ran K1, but {len(inside)} batches lie wholly inside "
+          f"the device extent and {len(touching)} touch it (a replay dropped from the trace?)")
     return out
 
 
@@ -7450,6 +7515,334 @@ def deferred_phase(card: str, direct: list[bytes]) -> dict:
     return out
 
 
+# -- phase 26: training (finetune-det, and K1/K2 inside the LM train step) -----------
+
+# Full-width EfficientDet-D0 fine-tuning (BASELINE.json config 4: 512 px, 90
+# classes, D0 widths, bf16) on the synthetic rectangles.
+DET_TRAIN_OPTS = ("image_size=512", "wire_size=512", "det_classes=90")
+DET_TRAIN_STEPS = 20
+DET_TRAIN_BATCH = 8
+# The LM train step at BERT-base widths over a seq axis of 2 ranks on the
+# card, float32: the ring's local step is K2 and Ulysses' K1 once
+# auto_local_impl picks "flash" (the dense score tile 2 x 4 x b x h x s^2
+# passes DENSE_SCORE_BYTES_MAX: 3.2 GB for the ring's (2, 12, 4096) tile,
+# 6.4 GB for Ulysses' (2, 6, 8192)).
+LM_TRAIN = dict(vocab=30522, d_model=768, n_heads=12, n_layers=2, d_ff=3072, max_seq=8192)
+LM_SP = 2
+LM_BATCH = 2
+# The step through the kernels against the same step through their plain
+# versions, both float32 (TF32 off), both with the same dense-recompute
+# backward: phase 4's float32 atol (F32_TOL, on attention outputs of unit
+# scale) summed over the layers, as a share of each leaf's largest gradient,
+# plus 1e-3 of that share of the largest gradient of any leaf (for a leaf
+# whose gradient is zero in exact arithmetic: the attention key bias).
+LM_GRAD_REL = LM_TRAIN["n_layers"] * F32_TOL
+LM_LOSS_REL = LM_TRAIN["n_layers"] * F32_TOL
+H100_F32_FLOPS = 67e12          # float32 outside the tensor cores, H100 SXM data sheet
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """K1 and K2's wrapper runs the kernels' plain PyTorch versions on the
+    card (counting no launch) inside the block."""
+    from tpuserve_torch.ops import flash_attention as fa
+
+    real = fa._launch
+
+    def plain(q, k, v, bias, stats):  # noqa: ANN001, ANN202
+        ref = fa.flash_attention_stats_reference if stats else fa.flash_attention_reference
+        return ref(q, k, v, bias)
+
+    fa._launch = plain
+    try:
+        yield
+    finally:
+        fa._launch = real
+
+
+def det_train_cli(tmp: Path):
+    """Gate 1: ``python -m tpuserve_torch finetune-det`` as a user runs it,
+    at full width for 2 steps of 8 images. Starts it and returns it with a
+    callable that waits for it and checks it, so the CLI runs while the
+    caller works."""
+    out = tmp / "det_cli.npz"
+    t0 = time.perf_counter()
+    cli = Cli(tmp, "finetune-det", "finetune-det", "--out", str(out), "--steps", "2",
+              "--batch", str(DET_TRAIN_BATCH), *(a for o in DET_TRAIN_OPTS for a in ("--opt", o)))
+    return cli, lambda: det_train_cli_finish(cli, out, t0)
+
+
+def det_train_cli_finish(cli, out: Path, t0: float) -> dict:  # noqa: ANN001
+    rc, text = cli.finish(timeout_s=300.0)
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"finetune-det exited {rc}: {cli.err_path.read_text()[-2000:]}")
+    line = json.loads(text.strip().splitlines()[-1])
+    check(line.get("checkpoint") == str(out) and math.isfinite(line["final_loss"])
+          and out.exists(), f"finetune-det printed {line}")
+    return {"wall_s": wall, "final_loss": line["final_loss"]}
+
+
+def det_train_in_process(tmp: Path) -> dict:
+    """Gate 2: ``finetune_detector`` in process for ``DET_TRAIN_STEPS`` steps;
+    each step timed (synchronised) and its loss read. Returns the numbers,
+    the trainer's final state and the checkpoint it wrote."""
+    import torch
+
+    from tpuserve_torch import train_det as td
+    from tpuserve_torch.config import ModelConfig
+
+    cfg = ModelConfig(name="efficientdet", family="efficientdet", image_size=512,
+                      wire_size=512, options={"det_classes": 90})
+    records, held = [], {}
+    real = td.make_det_train_step
+
+    def timed_step(serving, state, tcfg):  # noqa: ANN001, ANN202
+        step = real(serving, state, tcfg)
+        held.update(serving=serving, state=state)
+
+        def run(batch):  # noqa: ANN001, ANN202
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(batch)
+            value = float(loss)            # waits for the step
+            records.append((time.perf_counter() - t0, value))
+            return loss
+
+        return run
+
+    out = tmp / "det.npz"
+    torch.cuda.reset_peak_memory_stats()
+    td.make_det_train_step = timed_step
+    try:
+        final = td.finetune_detector(cfg, str(out), steps=DET_TRAIN_STEPS,
+                                     batch_size=DET_TRAIN_BATCH, log_every=5)
+    finally:
+        td.make_det_train_step = real
+    peak = torch.cuda.max_memory_allocated()
+    losses = [v for _, v in records]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    check(len(losses) == DET_TRAIN_STEPS and all(map(math.isfinite, losses)) and last < first,
+          f"finetune_detector: the loss did not fall over {DET_TRAIN_STEPS} steps: {losses}")
+    steady = sorted(t for t, _ in records[2:])
+    step_ms = 1e3 * steady[len(steady) // 2]
+    return {"out": out, "cfg": cfg, **held, "numbers": {
+        "steps": DET_TRAIN_STEPS, "batch": DET_TRAIN_BATCH, "losses": losses,
+        "final_loss": final, "mean_first5": first, "mean_last5": last,
+        "first_step_ms": 1e3 * records[0][0], "step_ms_median": step_ms,
+        "images_per_s": DET_TRAIN_BATCH / step_ms * 1e3, "peak_allocated_mib": peak / 2**20}}
+
+
+def det_train_serves(run: dict) -> dict:
+    """Gate 3: the written ``.npz`` passes its manifest, loads through the
+    port's loader into a runtime with bucket (8,), and its replayed heads
+    and detections match the trainer's final parameters run eagerly in the
+    same dtype (phase 14's logit rule, RESNET_LOGIT_REL of the scale)."""
+    import dataclasses
+
+    import torch
+
+    from tpuserve_torch import savedmodel
+    from tpuserve_torch import train_det as td
+    from tpuserve_torch.models import build
+    from tpuserve_torch.runtime import build_runtime
+
+    out, serving, state = run["out"], run["serving"], run["state"]
+    tree = savedmodel.load_npz(str(out))
+    check(savedmodel.verify_manifest_if_present(str(out), tree, require=True),
+          "finetune_detector's checkpoint has no manifest")
+    # score_thresh 0: every slot NMS keeps is a detection, so the count and
+    # classes compared are max_dets' worth, not the few that pass 0.05.
+    model = build(dataclasses.replace(run["cfg"], name="det_ft", weights=str(out),
+                                      batch_buckets=[8],
+                                      options=dict(run["cfg"].options, score_thresh=0.0)))
+    rt = build_runtime(model, device="cuda")
+    batch = td.synthetic_det_batch(8, 512, 512, 90, 16, seed=1000)
+    dev = rt.h2d((8,), (batch["images"],))
+    with torch.inference_mode():
+        served = rt.dispatch((8,), dev)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):                     # warm-up before the capture
+                model.logits(rt.module, dev)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            heads = model.logits(rt.module, dev)
+        graph.replay()
+        cls_t, box_t = td.det_logits(serving, state, batch["images"])
+        eager = model.detect(cls_t, box_t)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, b in (("class_logits", heads[0], cls_t), ("box_regression", heads[1], box_t)):
+        err = (a - b).abs().max().item()
+        tol = RESNET_LOGIT_REL * b.abs().max().item()
+        check(bool(torch.isfinite(a).all()) and err <= tol,
+              f"finetune-det checkpoint: replayed {name} vs the trainer's eager differ by "
+              f"{err:.4g} > {tol:.4g}")
+        errs[name] = {"max_abs_diff": err, "tol": tol}
+    n_served, n_eager = served["n"].tolist(), eager["n"].tolist()
+    same_classes = all(served["classes"][i, :n].tolist() == eager["classes"][i, :n].tolist()
+                       for i, n in enumerate(n_served))
+    check(n_served == n_eager and same_classes,
+          f"finetune-det checkpoint: served detections {n_served} vs the trainer's {n_eager}")
+    errs["detections_per_image"] = n_served
+    del rt
+    torch.cuda.empty_cache()
+    return errs
+
+
+def lm_train_step(kind: str) -> dict:
+    """Gate 4: one ``make_train_step`` step with ``seq_attention=kind`` on a
+    sp = 2 mesh whose ranks share the card: the kernels' launches, and the
+    loss and every gradient leaf against the same step through the plain
+    versions (``plain_kernels``)."""
+    import torch
+
+    from tpuserve_torch import train as pt
+    from tpuserve_torch.ops import flash_attention as fa
+    from tpuserve_torch.ops.ring_attention import auto_local_impl
+    from tpuserve_torch.parallel.mesh import MeshPlan, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = pt.TrainConfig(**LM_TRAIN, seq_attention=kind)
+    h, s = cfg.n_heads, cfg.max_seq
+    local = (auto_local_impl(LM_BATCH, h, s // LM_SP, 64) if kind == "ring"
+             else auto_local_impl(LM_BATCH, h // LM_SP, s, 64))
+    check(local == "flash", f"train step {kind}: auto_local_impl picked {local!r}")
+    mesh = make_mesh(MeshPlan(sp=LM_SP), devices=["cuda:0"] * LM_SP)
+    state = pt.make_train_state(mesh, cfg, seed=0)
+    step = pt.make_train_step(state)
+    batch = pt.synthetic_batch(cfg, LM_BATCH, seed=0)
+
+    def timed(fn):  # noqa: ANN001, ANN202
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, 1e3 * (time.perf_counter() - t0), torch.cuda.max_memory_allocated() / 2**20
+
+    with plain_kernels():
+        (loss_p, grads_p), plain_ms, plain_peak = timed(lambda: pt.loss_and_grads(state, batch))
+    fa.reset_launches()
+    (loss_k, grads_k), step_ms, peak = timed(lambda: step(batch, with_grads=True))
+    launches = {"k1": fa.launches, "k2": fa.stats_launches}
+    want = ({"k1": 0, "k2": cfg.n_layers * LM_SP * LM_SP} if kind == "ring"
+            else {"k1": cfg.n_layers * LM_SP, "k2": 0})
+    check(launches == want, f"train step {kind}: launches {launches}, predicted {want}")
+    _, step2_ms, _ = timed(lambda: step(pt.synthetic_batch(cfg, LM_BATCH, seed=1)))
+    loss_err = abs(float(loss_k) - float(loss_p))
+    check(math.isfinite(float(loss_k)) and loss_err <= LM_LOSS_REL * abs(float(loss_p)),
+          f"train step {kind}: loss {float(loss_k)} vs plain {float(loss_p)}")
+    top = max(g.abs().max().item() for g in grads_p.values())
+    worst = {"share_of_tol": 0.0}
+    for name, gp in grads_p.items():
+        gk = grads_k[name]
+        err, scale = (gk - gp).abs().max().item(), gp.abs().max().item()
+        tol = LM_GRAD_REL * scale + LM_GRAD_REL * 1e-3 * top
+        check(bool(torch.isfinite(gk).all()) and err <= tol,
+              f"train step {kind}: gradient {name} differs by {err:.3g} > {tol:.3g}")
+        if err / tol > worst["share_of_tol"]:
+            worst = {"leaf": name, "max_abs_diff": err, "scale": scale, "tol": tol,
+                     "share_of_tol": err / tol}
+    out = {"kind": kind, "local_step": local, "launches": launches, "loss": float(loss_k),
+           "loss_plain": float(loss_p), "loss_abs_diff": loss_err, "worst_grad": worst,
+           "grad_tol_rel": LM_GRAD_REL, "step_ms_first": step_ms, "step_ms_second": step2_ms,
+           "plain_loss_and_grads_ms": plain_ms, "peak_allocated_mib": peak,
+           "plain_peak_allocated_mib": plain_peak}
+    del state, step, grads_k, grads_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def training_phase(card: str) -> dict:
+    """Phase 26: training, in a process of its own beside phases 19, 15 and
+    18 (gates 1-4 of ``det_train_cli``, ``det_train_in_process``,
+    ``det_train_serves`` and ``lm_train_step``; the CLI's process runs
+    beside the in-process gates)."""
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="smoke-train-"))
+    cli, cli_done = det_train_cli(tmp)      # the CLI's process runs beside the rest
+    try:
+        out = {"card": card}
+        run = det_train_in_process(tmp)
+        out["det"] = run["numbers"]
+        out["det"]["checkpoint_serves"] = det_train_serves(run)
+        del run
+        out["lm"] = {kind: lm_train_step(kind) for kind in ("ring", "ulysses")}
+        out["cli"] = cli_done()
+    finally:
+        cli.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t0
+    det, lm = out["det"], out["lm"]
+    print(f"training: finetune-det CLI {out['cli']['wall_s']:.1f} s; {det['steps']} full-width "
+          f"bf16 steps of {det['batch']} at 512 px: loss {det['mean_first5']:.4f} -> "
+          f"{det['mean_last5']:.4f} (means of the first and last 5), step {det['step_ms_median']:.1f} ms "
+          f"({det['images_per_s']:.1f} images/s), peak {det['peak_allocated_mib']:.0f} MiB; the "
+          f".npz serves (heads {det['checkpoint_serves']['class_logits']['max_abs_diff']:.3g}, "
+          f"{det['checkpoint_serves']['box_regression']['max_abs_diff']:.3g}); LM step ring "
+          f"{lm['ring']['step_ms_second']:.1f} ms (K2 x{lm['ring']['launches']['k2']}, peak "
+          f"{lm['ring']['peak_allocated_mib']:.0f} MiB), ulysses {lm['ulysses']['step_ms_second']:.1f} ms "
+          f"(K1 x{lm['ulysses']['launches']['k1']}, peak {lm['ulysses']['peak_allocated_mib']:.0f} MiB); "
+          f"phase 26 took {out['phase_s']:.1f} s beside phases 19, 15 and 18; {card}", flush=True)
+    return out
+
+
+def train_kernel_rows() -> dict:
+    """K2 and K1 at the LM train step's shapes (float32: K2 at the ring's
+    (2, 4096, 12, 64) local block, K1 at Ulysses' (2, 8192, 6, 64)), with
+    the card to itself: each against its plain version, timed beside its
+    plain version, its bound and its library yardstick."""
+    import torch
+
+    from tpuserve_torch.ops import flash_attention as fa
+
+    rows = {}
+    for name, (b, s, h, d) in (("k2", (LM_BATCH, LM_TRAIN["max_seq"] // LM_SP, 12, 64)),
+                               ("k1", (LM_BATCH, LM_TRAIN["max_seq"], 12 // LM_SP, 64))):
+        q, k, v, _ = qkv(b, s, s, h, d, torch.float32, seed=26)
+        bias = torch.zeros(b, s, device="cuda")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if name == "k2":
+            errs = compare_stats(q, k, v, bias)
+            err = max(errs["acc"], errs["m"], errs["l"])
+            fn = lambda: fa.flash_attention(q, k, v, bias, return_stats=True)  # noqa: E731
+            plain = lambda: fa.flash_attention_stats_reference(q, k, v, bias)  # noqa: E731
+            bias4 = bias[:, None, None, :].expand(b, h, s, s)
+            library = lambda: efficient_attention_lse(qt, kt, vt, bias4)  # noqa: E731
+            out_bytes = b * s * h * d * 4 + 2 * b * s * h * 4          # acc, m, l
+        else:
+            err = compare(q, k, v, bias)
+            fn = lambda: fa.flash_attention(q, k, v, bias)  # noqa: E731
+            plain = lambda: fa.flash_attention_reference(q, k, v, bias)  # noqa: E731
+            library = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
+            out_bytes = b * s * h * d * 4
+        ms = time_calls(fn, iters=10)["device_ms"]
+        plain_ms = time_ms(plain, iters=3)
+        library_ms = time_ms(library, iters=10)
+        nbytes = 3 * b * s * h * d * 4 + b * s * 4 + out_bytes
+        flops = 4 * b * h * s * s * d
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_F32_FLOPS * 1e3
+        rows[name] = {"name": "flash_attention_stats" if name == "k2" else "flash_attention",
+                      "route": "cuda", "source": "tpuserve_torch/ops/csrc/flash_attention.cu",
+                      "replaces": "tpuserve/ops/flash_attention.py:"
+                                  + ("106" if name == "k2" else "96"),
+                      "shape": [b, s, h, d], "dtype": "float32", "max_abs_err": err, "ms": ms,
+                      "plain_ms": plain_ms, "library_ms": library_ms,
+                      "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        print(f"kernels: {name.upper()} at the train step's {(b, s, h, d)} float32: "
+              f"{ms:.3f} ms (plain {plain_ms:.3f}, library {library_ms:.3f}, bound "
+              f"{rows[name]['bound_ms']:.4f} {rows[name]['bound_by']}), max abs err {err:.3g}",
+              flush=True)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if PHASES_FLAG not in sys.argv[1:]:
         return supervise()
@@ -7488,8 +7881,8 @@ def main() -> int:
         # Side by side (the smoke's time limit): a phase that only drives
         # servers and subprocesses (9, 12, 16, 18, 21, 25) runs beside one
         # that works on the card in this process (5b, 15, 17, 20's served
-        # part), never two of the latter in one process (phase 19 runs in a
-        # process of its own beside 15), and never beside a phase whose
+        # part), never two of the latter in one process (phases 19 and 26
+        # run in processes of their own beside 15), and never beside a phase whose
         # gates are on time (8, 10, 11, 13, 14) or whose kernel timings the
         # kernels line reports (3, 4, 5b's and 20's K1 rows, timed alone).
         # Phase 9's two drills run side by side too.
@@ -7512,7 +7905,10 @@ def main() -> int:
                 textgen = timed("17", textgen_phase, card)
             finally:
                 cli_run = cli_future.result()
+        # Phases 19 and 26 train or serve on the card in processes of their
+        # own; 15 and 18 run here meanwhile, and 26 ends before 19 does.
         moe_run = Apart("19", moe_phase, card)
+        train_run = Apart("26", training_phase, card)
         try:
             with cf.ThreadPoolExecutor(1) as beside:
                 stream_run = beside.submit(timed, "18", streaming_phase, card,
@@ -7522,7 +7918,10 @@ def main() -> int:
                 finally:
                     stream = stream_run.result()
         finally:
-            moe = moe_run.result()
+            try:
+                moe = moe_run.result()
+            finally:
+                training = train_run.result()
         sd_prepared = timed("20 (K1 timings, checkpoint)", sd15_prepare, card)
         with cf.ThreadPoolExecutor(2) as beside:
             deferred_run = beside.submit(timed, "25", deferred_phase, card,
@@ -7533,6 +7932,7 @@ def main() -> int:
             finally:
                 deferred = deferred_run.result()
                 router = router_run.result()
+        training["kernels"] = timed("26 (K1/K2 timings)", train_kernel_rows)
         drills: dict = {}
         drill_tmp = ROOT / "build" / "smoke" / "fleet"
         drill_tmp.mkdir(parents=True, exist_ok=True)
@@ -7642,6 +8042,7 @@ def main() -> int:
     deferred["load"]["direct_requests_per_s_4_layers"] = \
         router["direct"]["bench"]["summary"]["throughput_per_s"]
     print(json.dumps({"deferred": deferred}))
+    print(json.dumps({"training": {k: v for k, v in training.items() if k != "kernels"}}))
     # K1's launches on the main path (BERT-flash), on the int8c one, on
     # textgen's (12 per insert, none per decode step), streamed and unary,
     # and on the Switch-MoE paths (textgen's inserts, BERT-flash's batches).
@@ -7670,8 +8071,18 @@ def main() -> int:
                                        launches_fleet_rewarm=fleet["k1_launches"]["rewarm"],
                                        launches_fleet_drill=fleet["k1_launches"]["drill"],
                                        launches_recycle=deferred["k1_launches"],
-                                       launches_recycle_load=deferred["load"]["k1_launches"]),
-                                  dict(k2["line"], launches=long["k2_launches"]),
+                                       launches_recycle_load=deferred["load"]["k1_launches"],
+                                       launches_train_ulysses=training["lm"]["ulysses"][
+                                           "launches"]["k1"]),
+                                  dict(k2["line"], launches=long["k2_launches"],
+                                       launches_train_ring=training["lm"]["ring"]["launches"][
+                                           "k2"]),
+                                  # K2 and K1 at the LM train step's shapes (phase 26),
+                                  # with their launches in one step.
+                                  dict(training["kernels"]["k2"],
+                                       launches=training["lm"]["ring"]["launches"]["k2"]),
+                                  dict(training["kernels"]["k1"],
+                                       launches=training["lm"]["ulysses"]["launches"]["k1"]),
                                   # K1 at the mesh modes' shapes (phase 5b): sharded
                                   # rows, tensor-parallel heads, pipeline microbatches.
                                   *(row["line"] for row in mesh["k1"].values()),

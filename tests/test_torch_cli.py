@@ -21,7 +21,9 @@ the port refuses.
   textgen served on the CPU through its generation engine: ``n_err`` 0, the
   summary keys equal to the reference's load generator's against the same
   server, and the server's token and fold-in counters moving;
-- ``finetune-det`` exits 2 naming its ROADMAP item, ``import-model
+- ``finetune-det --device cpu`` (ported) exits 0 and writes a ``.npz``
+  under its manifest that the port's server loads and that answers
+  ``:detect``; ``import-model
   --quantize int8`` (ported) exits 0 and writes the reference's
   ``quantize_tree`` of its input, and ``lint`` (ported) exits 0 against the
   port's baseline (the ``worker_kill``, ``host_kill`` and ``stream_kill``
@@ -218,6 +220,73 @@ def test_bench_frame_wire_and_synthetic_payloads(capsys):
         assert len(set(stub.bodies)) == 3
 
 
+# The reference tests' tiny detector (tests/test_train_det.py's det_cfg).
+FINETUNE_OPTS = ("--opt", "image_size=64", "--opt", "wire_size=64", "--opt", "det_classes=5",
+                 "--opt", "fpn_channels=16", "--opt", "fpn_repeats=1", "--opt",
+                 "head_repeats=1", "--opt", "max_level=5", "--opt", "pre_nms=32", "--opt",
+                 "max_dets=8", "--opt", "backbone_width=0.25", "--opt", "backbone_depth=0.35")
+
+
+def test_finetune_det_checkpoint_answers_detect(tmp_path, capsys):
+    """``finetune-det --device cpu`` writes a .npz that the port's server
+    loads through ``weights =`` (integrity gate included) and that answers
+    ``:detect`` with the reference's result shape."""
+    import asyncio
+    import http.client
+    import threading
+
+    from tpuserve_torch.config import load_config
+    from tpuserve_torch.server import ServerState, start_server, stop_server
+
+    out = str(tmp_path / "det.npz")
+    assert port_main(["finetune-det", "--device", "cpu", "--steps", "2", "--batch", "2",
+                      "--out", out, *FINETUNE_OPTS]) == 0
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["checkpoint"] == out
+    opts = dict(zip(FINETUNE_OPTS[1::2], FINETUNE_OPTS[1::2]))
+    options = ", ".join(o.replace("=", " = ") for o in opts if not o.startswith(("image", "wire")))
+    path = tmp_path / "det.toml"
+    path.write_text(f"""
+decode_threads = 2
+
+[[model]]
+name = "det"
+family = "efficientdet"
+batch_buckets = [2]
+dtype = "bfloat16"
+image_size = 64
+wire_size = 64
+wire_format = "rgb8"
+weights = "{out}"
+request_timeout_ms = 60000.0
+options = {{ {options}, score_thresh = 0.0 }}
+""")
+    state = ServerState(load_config(str(path)), device="cpu")
+    state.build()
+    loop = asyncio.new_event_loop()
+    threading.Thread(target=loop.run_forever, daemon=True).start()
+    srv = asyncio.run_coroutine_threadsafe(start_server(state, "127.0.0.1", 0), loop).result(60)
+    try:
+        img = np.random.default_rng(0).integers(0, 255, (64, 64, 3), np.uint8)
+        import io
+
+        buf = io.BytesIO()
+        np.save(buf, img)
+        conn = http.client.HTTPConnection("127.0.0.1", state.serving_addresses[0][1], timeout=60)
+        conn.request("POST", "/v1/models/det:detect", body=buf.getvalue(),
+                     headers={"Content-Type": "application/x-npy"})
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        conn.close()
+    finally:
+        asyncio.run_coroutine_threadsafe(stop_server(state, srv), loop).result(60)
+        loop.call_soon_threadsafe(loop.stop)
+    assert resp.status == 200, body
+    assert set(body) == {"detections", "num_detections"}
+    # score_thresh 0: every candidate NMS keeps (at most max_dets = 8).
+    assert 1 <= body["num_detections"] == len(body["detections"]) <= 8
+    assert all(0 <= d["class"] < 5 and len(d["box"]) == 4 for d in body["detections"])
+
+
 @pytest.mark.parametrize("argv, item", [
     # import-model --quantize int8 is ported since item 14b: this case
     # (keeping its id) converts a toy .npz and holds the int8 tree it
@@ -225,14 +294,29 @@ def test_bench_frame_wire_and_synthetic_payloads(capsys):
     pytest.param(["import-model", "--family", "toy", "--quantize", "int8",
                   "--opt", "quantize_min_size=256"], "int8",
                  id="argv0-ROADMAP.md queue 1: item 14b"),
-    (["finetune-det", "--out", "o"], "ROADMAP.md queue 1 item 13"),
+    # finetune-det is ported since the training item (13): this case
+    # (keeping its id) fine-tunes the reference tests' tiny detector on the
+    # CPU for 2 steps and holds the .npz it writes to its manifest.
+    pytest.param(["finetune-det", "--device", "cpu", "--steps", "2", "--batch", "2",
+                  *FINETUNE_OPTS], "finetune",
+                 id="argv1-ROADMAP.md queue 1 item 13"),
     # lint is ported since the analysis item (12): this case (keeping its
     # id) holds that it runs over tpuserve_torch/ and exits 0 against the
     # port's checked-in baseline.
     pytest.param(["lint"], None, id="argv2-ROADMAP.md queue 1 item 12"),
 ])
 def test_refused_subcommands_and_drills_exit_2(argv, item, capsys, tmp_path):
-    assert set(UNPORTED_COMMANDS) == {"finetune-det"}
+    assert UNPORTED_COMMANDS == {}
+    if item == "finetune":
+        from tpuserve_torch import savedmodel
+
+        out = str(tmp_path / "det.npz")
+        assert port_main(argv + ["--out", out]) == 0
+        line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert line["checkpoint"] == out and np.isfinite(line["final_loss"])
+        assert savedmodel.verify_manifest_if_present(out, savedmodel.load_npz(out),
+                                                     require=True)
+        return
     if item == "int8":
         from tpuserve import quantize as jqz
         from tpuserve_torch import savedmodel

@@ -15,6 +15,9 @@ Usage::
                                       --family resnet50 --out weights.npz [--opt k=v ...]
     python -m tpuserve_torch lint     [paths ...] [--no-baseline] [--update-baseline]
                                       [--no-drift] [--json]
+    python -m tpuserve_torch finetune-det --out det.npz [--steps 50] [--batch 8]
+                                      [--data data.npz] [--weights <ckpt>] [--lr 1e-3]
+                                      [--opt k=v ...] [--device ...]
 
 Flags, names and defaults are the reference's. The subcommands that build a
 model (``serve``, ``chaos``, ``warmup``) and ``describe`` run on the current
@@ -49,8 +52,13 @@ passes over ``tpuserve_torch/`` against the port's checked-in baseline:
 exit 0 clean, 1 on a new finding, 2 on a bad path. It imports no torch, so
 it runs on a bare Python.
 
-Not ported, refused by name with exit code 2: ``finetune-det`` (ROADMAP.md
-queue 1 item 13).
+``finetune-det`` (``train_det.finetune_detector``) fine-tunes EfficientDet
+on synthetic rectangles or a ``--data`` ``.npz`` and writes the full
+detector as the port's ``.npz`` (``--out`` must end in ``.npz``) with its
+manifest, which serves through ``weights = <file>.npz``; ``--weights`` takes
+what the port's loader reads or an EfficientNet-B0 SavedModel (TensorFlow
+needed). It prints ``{"final_loss", "checkpoint"}``. Every subcommand of
+the reference is ported (``UNPORTED_COMMANDS`` is empty).
 """
 
 from __future__ import annotations
@@ -61,9 +69,7 @@ import sys
 
 # Subcommands of the reference that the port does not serve yet: what each
 # is refused with.
-UNPORTED_COMMANDS = {
-    "finetune-det": "not yet ported: ROADMAP.md queue 1 item 13 (training)",
-}
+UNPORTED_COMMANDS: dict[str, str] = {}
 # The drills that serve a router over worker processes.
 PROCESS_DRILLS = ("worker_kill", "host_kill", "stream_kill", "autopilot")
 
@@ -285,6 +291,25 @@ def main(argv: list[str] | None = None) -> int:
 
     add_lint_args(p_lint)
 
+    p_ft = sub.add_parser(
+        "finetune-det",
+        help="fine-tune EfficientDet -> the full detector's .npz checkpoint")
+    p_ft.add_argument("--out", required=True, help="the checkpoint to write (.npz)")
+    p_ft.add_argument("--steps", type=int, default=50)
+    p_ft.add_argument("--batch", type=int, default=8)
+    p_ft.add_argument("--data", default=None,
+                      help=".npz with images/boxes/classes/valid; default "
+                           "synthetic rectangles")
+    p_ft.add_argument("--weights", default=None,
+                      help="checkpoint to start from: the port's .npz, a torch "
+                           "checkpoint, or an EfficientNet-B0 SavedModel whose "
+                           "backbone transfers")
+    p_ft.add_argument("--lr", type=float, default=1e-3)
+    p_ft.add_argument("--opt", action="append", default=[], metavar="KEY=VALUE",
+                      help="model option/field (TOML-parsed), e.g. "
+                           "--opt image_size=512 --opt det_classes=90")
+    _add_device_arg(p_ft)
+
     for name, why in UNPORTED_COMMANDS.items():
         sub.add_parser(name, help=why)
 
@@ -388,6 +413,26 @@ def main(argv: list[str] | None = None) -> int:
 
     if args.cmd == "describe":
         print(json.dumps(describe(args.device), indent=2))
+        return 0
+
+    if args.cmd == "finetune-det":
+        import dataclasses
+
+        from tpuserve_torch.config import ModelConfig
+        from tpuserve_torch.runtime import resolve_device
+        from tpuserve_torch.train_det import DetTrainConfig, finetune_detector
+
+        opts = _parse_opt_args(parser, args.opt)
+        settable = {f.name for f in dataclasses.fields(ModelConfig)} - {
+            "name", "family", "weights", "options"}
+        fields = {k: opts.pop(k) for k in list(opts) if k in settable}
+        cfg = ModelConfig(name="efficientdet", family="efficientdet",
+                          weights=args.weights, options=opts, **fields)
+        loss = finetune_detector(cfg, args.out, steps=args.steps, batch_size=args.batch,
+                                 tcfg=DetTrainConfig(lr=args.lr), dataset=args.data,
+                                 device=None if args.device is None
+                                 else str(resolve_device(args.device)))
+        print(json.dumps({"final_loss": loss, "checkpoint": args.out}))
         return 0
 
     return 1

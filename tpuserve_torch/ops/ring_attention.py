@@ -18,13 +18,20 @@ the visiting blocks move one rank along ``perm = (i -> i+1)`` with
 as they do on one card and in the CPU tests. Placing the ranks on several
 GPUs over NCCL is ROADMAP.md queue 1, item 10.
 
-Layouts: (batch, seq, heads, head_dim) throughout, seq split and heads
-whole. Bidirectional (encoder) attention; an additive per-key bias (e.g. a
-padding mask) is split like K.
+Layouts: (batch, seq, heads, head_dim) throughout. A spec such as
+``("data", "seq", "model", None)`` (the reference's ``PartitionSpec``)
+also splits the batch over the data ranks and the heads over the model
+ranks, as ``shard_map`` does: every (data, model) rank takes its rows and
+its heads and runs the ring over its own seq ranks (``rank_blocks``), and
+the blocks are joined back in rank order. Every step is a tensor operation
+(slices, copies, ``torch.cat``), so autograd differentiates through the
+schedule. Bidirectional (encoder) attention; an additive per-key bias (e.g.
+a padding mask) is split like K.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from tpuserve_torch.ops.flash_attention import flash_attention
@@ -59,13 +66,61 @@ def _spec_axis_size(mesh: Mesh, entry) -> int:
     return n
 
 
+def _entry_axes(entry) -> tuple:
+    """The mesh axes one spec entry splits its dim over, major first."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
 def _check_spec(spec: tuple | None, axis_name: str) -> tuple:
     """A spec is a plain tuple of axis names per dim (the reference's
-    ``PartitionSpec``); the seq dim must be split on ``axis_name``."""
+    ``PartitionSpec``); the seq dim must be split on ``axis_name``, and no
+    axis may split two dims."""
     qkv_spec = tuple(spec) if spec is not None else (None, axis_name, None, None)
     if len(qkv_spec) != 4 or qkv_spec[1] != axis_name:
         raise ValueError(f"spec {qkv_spec} must put {axis_name!r} on the seq dim")
+    axes = [a for entry in qkv_spec for a in _entry_axes(entry)]
+    if len(set(axes)) != len(axes):
+        raise ValueError(f"spec {qkv_spec} names a mesh axis twice")
     return qkv_spec
+
+
+def rank_blocks(mesh: Mesh, qkv_spec: tuple, axis_name: str, b: int,
+                h: int) -> list[tuple[slice, slice, list[torch.device]]]:
+    """``(rows, heads, seq devices)`` of every (batch-axes, head-axes) rank
+    of ``qkv_spec``, rows major: the batch dim split over entry 0's axes and
+    the heads over entry 2's into equal contiguous blocks in rank order (the
+    major axis first), as ``shard_map`` splits them, and the devices of the
+    rank's ranks along ``axis_name``."""
+    b_axes, h_axes = _entry_axes(qkv_spec[0]), _entry_axes(qkv_spec[2])
+    nb, nh = _spec_axis_size(mesh, qkv_spec[0]), _spec_axis_size(mesh, qkv_spec[2])
+    if b % nb or h % nh:
+        raise ValueError(f"batch {b} and heads {h} must split evenly over the spec "
+                         f"{qkv_spec}'s {nb} row and {nh} head blocks")
+    rb, rh = b // nb, h // nh
+    blocks = []
+    for bi, b_idx in enumerate(np.ndindex(*(mesh.shape[a] for a in b_axes))):
+        for hi, h_idx in enumerate(np.ndindex(*(mesh.shape[a] for a in h_axes))):
+            coord = dict(zip(b_axes, b_idx)) | dict(zip(h_axes, h_idx))
+            index = tuple(slice(None) if a == axis_name else coord.get(a, 0)
+                          for a in mesh.axis_names)
+            blocks.append((slice(bi * rb, (bi + 1) * rb), slice(hi * rh, (hi + 1) * rh),
+                           list(mesh.devices[index])))
+    return blocks
+
+
+def per_rank(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_padding: torch.Tensor,
+             blocks: list, run) -> torch.Tensor:
+    """``run(q, k, v, key_padding, seq_devices)`` on every rank block's rows
+    and heads; the outputs joined back along the heads, then the rows."""
+    if len(blocks) == 1:
+        return run(q, k, v, key_padding, blocks[0][2])
+    outs = [run(q[rows, :, heads], k[rows, :, heads], v[rows, :, heads],
+                key_padding[rows], devices) for rows, heads, devices in blocks]
+    nh = sum(1 for rows, _, _ in blocks if rows == blocks[0][0])
+    return torch.cat([torch.cat(outs[i:i + nh], dim=2) for i in range(0, len(outs), nh)],
+                     dim=0)
 
 
 def _split(x: torch.Tensor, devices: list[torch.device]) -> list[torch.Tensor]:
@@ -164,8 +219,9 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         (0 = attend, -inf/-1e9 = masked), split like K's seq dim.
       spec: optional tuple of axis names for q/k/v's dims, e.g.
         ``("data", "seq", "model", None)`` (position 1 must be
-        ``axis_name``); it sizes the per-rank batch and heads that
-        ``local_impl="auto"`` decides on. Default splits only the seq dim.
+        ``axis_name``): each (data, model) rank takes its rows and heads
+        (``rank_blocks``), and ``local_impl="auto"`` decides on that
+        per-rank shape. Default splits only the seq dim.
       local_impl: per-rank block math — "dense" (einsum, materializes the
         local score tile), "flash" (kernel K2 with a merge in f32), or
         "auto" (``auto_local_impl`` on the per-rank shape).
@@ -185,7 +241,11 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         local_impl = auto_local_impl(b_loc, h_loc, q.shape[1] // n, d)
     elif local_impl not in ("dense", "flash"):
         raise ValueError(f"unknown local_impl {local_impl!r}")
-    devices = mesh.axis_devices(axis_name)
-    outs = _ring(_split(q, devices), _split(k, devices), _split(v, devices),
-                 _split(key_padding, devices), devices, local_impl)
-    return torch.cat([o.to(q.device, non_blocking=True) for o in outs], dim=1)
+
+    def run(q, k, v, key_padding, devices):  # noqa: ANN001, ANN202
+        outs = _ring(_split(q, devices), _split(k, devices), _split(v, devices),
+                     _split(key_padding, devices), devices, local_impl)
+        return torch.cat([o.to(q.device, non_blocking=True) for o in outs], dim=1)
+
+    return per_rank(q, k, v, key_padding,
+                    rank_blocks(mesh, qkv_spec, axis_name, q.shape[0], q.shape[2]), run)

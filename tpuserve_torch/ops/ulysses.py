@@ -14,6 +14,10 @@ every rank's sequence block moves to rank r's device
 the per-key bias is gathered whole onto every rank, and the inverse deal
 sends each rank's output rows back to the rank that owns them.
 
+A spec that names a data or model axis splits the rows and heads first, as
+the ring does (``ring_attention.rank_blocks``): each (data, model) rank
+runs the exchange over its own seq ranks.
+
 Constraint: attention heads (after any tensor-parallel split of the heads
 dim) must divide by the seq-axis size, because the all-to-all deals heads
 out across it.
@@ -25,7 +29,8 @@ import torch
 
 from tpuserve_torch.ops.flash_attention import flash_attention
 from tpuserve_torch.ops.ring_attention import (_check_spec, _spec_axis_size, _split,
-                                               auto_local_impl, dense_attention)
+                                               auto_local_impl, dense_attention, per_rank,
+                                               rank_blocks)
 from tpuserve_torch.parallel.mesh import Mesh
 
 
@@ -74,7 +79,8 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       key_padding: optional (batch, seq) additive per-key bias (0 = attend,
         -1e9 = masked), split like K's seq dim.
       spec: optional tuple of axis names for q/k/v's dims (position 1 must
-        be ``axis_name``), e.g. ``("data", "seq", "model", None)``.
+        be ``axis_name``), e.g. ``("data", "seq", "model", None)``: each
+        (data, model) rank takes its rows and heads.
       local_impl: "dense", "flash" (kernel K1) or "auto"
         (``auto_local_impl`` on the full sequence and the rank's heads).
 
@@ -96,7 +102,11 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         local_impl = auto_local_impl(b_loc, h // n, q.shape[1], q.shape[-1])
     elif local_impl not in ("dense", "flash"):
         raise ValueError(f"unknown local_impl {local_impl!r}")
-    devices = mesh.axis_devices(axis_name)
-    outs = _ulysses(_split(q, devices), _split(k, devices), _split(v, devices),
-                    _split(key_padding, devices), devices, local_impl)
-    return torch.cat([o.to(q.device, non_blocking=True) for o in outs], dim=1)
+
+    def run(q, k, v, key_padding, devices):  # noqa: ANN001, ANN202
+        outs = _ulysses(_split(q, devices), _split(k, devices), _split(v, devices),
+                        _split(key_padding, devices), devices, local_impl)
+        return torch.cat([o.to(q.device, non_blocking=True) for o in outs], dim=1)
+
+    return per_rank(q, k, v, key_padding,
+                    rank_blocks(mesh, qkv_spec, axis_name, q.shape[0], q.shape[2]), run)
