@@ -65,6 +65,23 @@ Phases (any failure exits non-zero before the result line):
    timed at the three new shapes once phases 9 and 12 have stopped their
    servers (``mesh_k1_phase``), with the card to itself. Each mode's replay
    device time beside single mode's is printed; nothing is gated on it.
+5c. The seq and model axes (``mesh_axes_phase``, ROADMAP items 9b.1-9b.2,
+   in a process of its own beside phases 15, 18, 19 and 26), on four ranks
+   on ``cuda:0`` as 5b's: full-width BERT-base (``examples/bert_long_ring.toml``'s
+   widths, 12 layers, bf16) at the (16, 4096) bucket, ring on data 2 x seq 2
+   (K2's launches by shape over one batch exactly {(8, 2048, 12, 64): 96})
+   and Ulysses on model 2 x seq 2 (K1's exactly {(16, 4096, 3, 64): 48}),
+   each against the same attention in single mode (K2, resp. K1, 12 times
+   at (16, 4096, 12, 64)) by the logit rule, no compile or capture over 64
+   dispatches, replay device times beside single mode's; ResNet-50 split
+   over "model" (``resnet50``, int8 on the yuv420 wire, and ``resnet50_rgb``,
+   bf16, tp = 2, bucket (32,)) within ``RESNET_LOGIT_REL`` of single mode's
+   logits' scale with separated top-5 ranks equal; MobileNetV3 and
+   EfficientDet-D0 at tp = 2 (parameters replicated over "model") on single
+   mode's bytes at (8,). Item 9b.3, textgen's KV context on "seq" (sp = 2
+   on dense KV, tp = 2 x sp = 2 on paged KV over an even page count), runs
+   in 5b's sharded decode check. K1 at (16, 4096, 3, 64) is timed in
+   5b's ``mesh_k1_phase``, with the card to itself.
 6. Slice: start ``python -m tpuserve_torch serve`` on a full-width BERT-base
    config (12 layers, d_model 768, 12 heads, d_ff 3072, vocab 30522, bf16,
    attention = "flash", seq buckets [64, 128], batch buckets [1, 8, 32],
@@ -1002,9 +1019,10 @@ def kernel_phase() -> dict:
     return {s_: k1_timing(32, s_) for s_ in (64, 128)}
 
 
-def k1_timing(b: int, s: int, h: int = 12, d: int = 64) -> dict:
-    """K1, its plain version and the SDPA yardstick at one bf16 shape with
-    padded keys, beside the least time the card could take."""
+def k1_timing(b: int, s: int, h: int = 12, d: int = 64, plain_iters: int = 50) -> dict:
+    """K1, its plain version (over ``plain_iters`` calls: fewer where its
+    float32 scores take gigabytes) and the SDPA yardstick at one bf16 shape
+    with padded keys, beside the least time the card could take."""
     import torch
 
     from tpuserve_torch.ops import flash_attention as fa
@@ -1015,7 +1033,7 @@ def k1_timing(b: int, s: int, h: int = 12, d: int = 64) -> dict:
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     timed = time_calls(lambda: fa.flash_attention(q, k, v, bias))
     ms = timed["device_ms"]
-    plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v, bias))
+    plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v, bias), iters=plain_iters)
     library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask4))
     nbytes = 4 * b * s * h * d * q.element_size() + b * s * 4   # q, k, v, o + f32 bias
@@ -1407,8 +1425,7 @@ def mesh_phase(card: str) -> dict:
         (base_out,), base_k1 = mesh_launches(rt, bucket, [dev])
         check(base_k1 == {(32, 128, 12, 64): 12}, f"mesh: single mode's K1 launches {base_k1}")
         base_logits = mesh_logits(model, rt, dev)
-        out["single"] = dict(replay_timing(rt, bucket, dev), k1_by_shape={
-            "x".join(map(str, k)): n for k, n in base_k1.items()})
+        out["single"] = dict(replay_timing(rt, bucket, dev), k1_by_shape=by_shape(base_k1))
         del rt
         for name, fields, n_chips, want_k1 in MESH_MODES:
             mt0 = time.perf_counter()
@@ -1418,7 +1435,7 @@ def mesh_phase(card: str) -> dict:
             check(k1 == want_k1, f"mesh {name}: K1 launches by shape {k1}, expected {want_k1}")
             row = {"signature": rt.parallel_signature, "n_chips": rt.n_chips,
                    "replicas": rt.n_replicas,
-                   "k1_by_shape": {"x".join(map(str, k)): n for k, n in k1.items()}}
+                   "k1_by_shape": by_shape(k1)}
             if rt.n_replicas > 1:
                 for i, o in enumerate(outs):
                     check(all(torch.equal(o[k], base_out[k]) for k in ("probs", "indices")),
@@ -1438,13 +1455,7 @@ def mesh_phase(card: str) -> dict:
                 sep = (top2[:, 0] - top2[:, 1]) > LOGIT_TOL
                 check(bool((outs[0]["indices"][:, 0] == logits.argmax(-1))[sep].all()),
                       f"mesh {name}: the graph replay's top-1 differs from the eager logits'")
-            graphs0 = (rt.compiles_total, rt.captures_total)
-            for i in range(MESH_DISPATCHES):
-                rt.dispatch(bucket, devs[i % len(devs)], replica=i % len(devs))
-            torch.cuda.synchronize()
-            check((rt.compiles_total, rt.captures_total) == graphs0,
-                  f"mesh {name}: compiles/captures moved {graphs0} -> "
-                  f"{(rt.compiles_total, rt.captures_total)} over {MESH_DISPATCHES} dispatches")
+            graphs_hold(rt, bucket, devs, f"mesh {name}")
             check(all(v > 0 for v in rt.replica_batches()),
                   f"mesh {name}: a replica served no batch {rt.replica_batches()}")
             row.update(replay_timing(rt, bucket, devs[0]), compiles_total=rt.compiles_total,
@@ -1456,6 +1467,7 @@ def mesh_phase(card: str) -> dict:
             gc.collect()
             torch.cuda.empty_cache()
         out["int8_tp_2"] = mesh_int8_check(bucket, host)
+        out["modes_s"] = time.perf_counter() - t0
         out["textgen_replica_2"] = mesh_textgen_check()
     out["phase_s"] = time.perf_counter() - t0
     sigs = ", ".join(f"{n} {r['signature']}" for n, r in out["modes"].items())
@@ -1465,6 +1477,214 @@ def mesh_phase(card: str) -> dict:
           f"{out['single']['replay_device_ms']:.3f}, "
           + ", ".join(f"{n} {r['replay_device_ms']:.3f}" for n, r in out["modes"].items())
           + f"; {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def graphs_hold(rt, bucket: tuple, devs: list, label: str) -> None:
+    """No compile or capture over ``MESH_DISPATCHES`` dispatches, spread
+    over the replicas."""
+    import torch
+
+    graphs0 = (rt.compiles_total, rt.captures_total)
+    for i in range(MESH_DISPATCHES):
+        rt.dispatch(bucket, devs[i % len(devs)], replica=i % len(devs))
+    torch.cuda.synchronize()
+    check((rt.compiles_total, rt.captures_total) == graphs0,
+          f"{label}: compiles/captures moved {graphs0} -> "
+          f"{(rt.compiles_total, rt.captures_total)} over {MESH_DISPATCHES} dispatches")
+
+
+# -- phase 5c: the seq and model axes (ROADMAP items 9b.1-9b.2) --------------------
+
+# Full-width BERT-base at a bucket where the per-rank score tile passes the
+# 2 GiB that makes ring and Ulysses take a kernel as their local step: each
+# mode (name, attention, ModelConfig fields, [parallel] n_chips, the kernel,
+# its launches by shape over one batch) and single mode's launches of the
+# same attention at sp 1. Ring on data 2 x seq 2: K2 at each rank's (8,
+# 2048) block, 2 data x 2 seq ranks x 2 ring steps x 12 layers; Ulysses on
+# model 2 x seq 2: K1 at each seq rank's 3 heads of all 4096 rows, 2 model x
+# 2 seq ranks x 12 layers.
+AXES_BUCKET = (16, 4096)
+AXES_BERT = (
+    ("ring_data2_seq2", "ring", {"parallelism": "sharded", "sp": 2}, 4,
+     "k2", {(8, 2048, 12, 64): 96}, {(16, 4096, 12, 64): 12}),
+    ("ulysses_model2_seq2", "ulysses", {"parallelism": "sharded", "tp": 2, "sp": 2}, 4,
+     "k1", {(16, 4096, 3, 64): 48}, {(16, 4096, 12, 64): 12}),
+)
+# Replays per round and rounds of the long bucket's replay timing (a
+# replay is tens of ms there).
+AXES_REPLAYS = (4, 3)
+
+
+def axes_runtime(mcfg, n_chips: int, key: str):
+    """``mcfg``'s model on the run's shared seeded tree of ``key`` and a
+    runtime of one parameter slot with its ranks on cuda:0."""
+    from tpuserve_torch.config import ParallelConfig
+    from tpuserve_torch.models import build
+    from tpuserve_torch.runtime import build_runtime
+
+    model = share_params(build(mcfg), key)
+    return model, build_runtime(model, device="cuda", n_slots=1,
+                                parallel=ParallelConfig(n_chips=n_chips))
+
+
+def kernel_launches(rt, bucket: tuple, dev: tuple) -> tuple:
+    """One dispatch's output and K1's and K2's launches by shape in it."""
+    import torch
+
+    from tpuserve_torch.ops import flash_attention as fa
+
+    fa.reset_launches()
+    out = rt.dispatch(bucket, dev)
+    torch.cuda.synchronize()
+    return out, {"k1": dict(fa.shape_launches), "k2": dict(fa.stats_shape_launches)}
+
+
+def by_shape(counts: dict) -> dict:
+    return {"x".join(map(str, k)): n for k, n in counts.items()}
+
+
+def free_runtime() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_axes_bert() -> dict:
+    """Ring on data 2 x seq 2 and Ulysses on model 2 x seq 2 at the long
+    bucket, each against its attention in single mode."""
+    import dataclasses
+
+    import torch
+
+    from tpuserve_torch.config import load_config
+
+    base_cfg = load_config(str(LONG_CONFIG)).models[0]
+    key = f"{LONG_CONFIG.relative_to(ROOT)} at seq {AXES_BUCKET[1]}"
+    out, host = {}, None
+    for name, attention, fields, n_chips, kernel, want, want_single in AXES_BERT:
+        t0 = time.perf_counter()
+        other = "k1" if kernel == "k2" else "k2"
+        mcfg = dataclasses.replace(base_cfg, batch_buckets=[AXES_BUCKET[0]],
+                                   seq_buckets=[AXES_BUCKET[1]],
+                                   options={**base_cfg.options, "attention": attention})
+        model, single = axes_runtime(dataclasses.replace(mcfg, parallelism="single"), 0, key)
+        host = host if host is not None else seeded_batch(model, AXES_BUCKET, seed=9)
+        dev = single.h2d(AXES_BUCKET, host)
+        _, got = kernel_launches(single, AXES_BUCKET, dev)
+        check(got == {kernel: want_single, other: {}},
+              f"mesh {name}: single mode's launches by shape {got}")
+        base = mesh_logits(model, single, dev)
+        row = {"single": dict(replay_timing(single, AXES_BUCKET, dev, *AXES_REPLAYS),
+                              **{f"{kernel}_by_shape": by_shape(got[kernel])})}
+        del single
+        free_runtime()
+        model, rt = axes_runtime(dataclasses.replace(mcfg, **fields), n_chips, key)
+        dev = rt.h2d(AXES_BUCKET, host)
+        served, got = kernel_launches(rt, AXES_BUCKET, dev)
+        check(got == {kernel: want, other: {}},
+              f"mesh {name}: launches by shape {got}, expected {kernel} {want}")
+        logits = mesh_logits(model, rt, dev)
+        diff = (logits - base).abs().max().item()
+        check(bool(torch.isfinite(logits).all()) and diff <= LOGIT_TOL,
+              f"mesh {name}: logits {diff:.3g} from single mode's > {LOGIT_TOL}")
+        top2 = logits.topk(2, dim=-1).values
+        sep = (top2[:, 0] - top2[:, 1]) > LOGIT_TOL
+        check(bool((served["indices"][:, 0] == logits.argmax(-1))[sep].all()),
+              f"mesh {name}: the graph replay's top-1 differs from the eager logits'")
+        graphs_hold(rt, AXES_BUCKET, [dev], f"mesh {name}")
+        row.update(signature=rt.parallel_signature, mesh_shape=dict(rt.mesh.shape),
+                   max_abs_logit_diff=diff,
+                   separated_ranks_held=separated_ranks_agree(logits, base, f"mesh {name}"),
+                   compiles_total=rt.compiles_total, captures_total=rt.captures_total,
+                   **{f"{kernel}_by_shape": by_shape(got[kernel])},
+                   **replay_timing(rt, AXES_BUCKET, dev, *AXES_REPLAYS),
+                   build_and_checks_s=time.perf_counter() - t0)
+        out[name] = row
+        del rt
+        free_runtime()
+    return out
+
+
+def mesh_axes_vision() -> dict:
+    """ResNet-50 split over "model" against single mode by the logit rule;
+    MobileNetV3 and EfficientDet-D0 (replicated over "model") on single
+    mode's bytes."""
+    import dataclasses
+
+    from tpuserve_torch.config import load_config
+
+    out = {}
+    cases = [(RESNET_CONFIG, m, (32,)) for m in ("resnet50", "resnet50_rgb")]
+    cases += [(MNV3_CONFIG, "mobilenetv3", (8,)), (DET_CONFIG, "efficientdet", (8,))]
+    for config, name, bucket in cases:
+        t0 = time.perf_counter()
+        mcfg = dataclasses.replace(
+            next(m for m in load_config(str(config)).models if m.name == name),
+            batch_buckets=[bucket[0]])
+        key = str(config)
+        model, single = axes_runtime(dataclasses.replace(mcfg, parallelism="single"), 0, key)
+        host = seeded_batch(model, bucket, seed=13)
+        dev = single.h2d(bucket, host)
+        base_out = single.fetch(single.dispatch(bucket, dev))
+        base = mesh_logits(model, single, dev) if name.startswith("resnet") else None
+        row = {"single": replay_timing(single, bucket, dev)}
+        del single
+        free_runtime()
+        model, rt = axes_runtime(dataclasses.replace(mcfg, parallelism="sharded", tp=2), 2, key)
+        dev = rt.h2d(bucket, host)
+        got = rt.fetch(rt.dispatch(bucket, dev))
+        if base is None:
+            check(sorted(got) == sorted(base_out)
+                  and all(got[k].tobytes() == base_out[k].tobytes() for k in base_out),
+                  f"mesh {name} tp_2: the answers differ from single mode's bytes")
+            row["answers"] = "single mode's bytes"
+        else:
+            logits = mesh_logits(model, rt, dev)
+            scale = base.abs().max().item()
+            diff = (logits - base).abs().max().item()
+            check(diff <= RESNET_LOGIT_REL * scale,
+                  f"mesh {name} tp_2: logits {diff:.3g} from single mode's, > "
+                  f"{RESNET_LOGIT_REL} x {scale:.3g}")
+            row.update(max_abs_logit_diff=diff, logit_scale=scale,
+                       separated_ranks_held=separated_ranks_agree(
+                           logits, base, f"mesh {name} tp_2", RESNET_LOGIT_REL * scale))
+        graphs_hold(rt, bucket, [dev], f"mesh {name} tp_2")
+        row.update(signature=rt.parallel_signature, mesh_shape=dict(rt.mesh.shape),
+                   rank_modules=len(rt.module.ranks), compiles_total=rt.compiles_total,
+                   captures_total=rt.captures_total, **replay_timing(rt, bucket, dev),
+                   build_and_checks_s=time.perf_counter() - t0)
+        out[f"{name}_tp_2"] = row
+        del rt
+        free_runtime()
+    return out
+
+
+def mesh_axes_phase(card: str) -> dict:
+    """Phase 5c: items 9b.1 and 9b.2 on the card, the ranks on cuda:0
+    (``visible_devices`` patched to four ranks on it, as phase 5b's; 9b.3's
+    textgen cases run in 5b's ``mesh_sharded_decode_check``); each new
+    mode's replay device time beside single mode's is printed."""
+    from unittest import mock
+
+    import torch
+
+    from tpuserve_torch.parallel import mesh as meshlib
+
+    t0 = time.perf_counter()
+    with mock.patch.object(meshlib, "visible_devices",
+                           lambda *a: [torch.device("cuda", 0)] * 4):
+        out = {"card": card, "bert": mesh_axes_bert(), "vision": mesh_axes_vision()}
+    out["phase_s"] = time.perf_counter() - t0
+    rows = {**out["bert"], **out["vision"]}
+    print("mesh axes: replay device ms (mode vs single) "
+          + ", ".join(f"{n} {r['replay_device_ms']:.3f} vs {r['single']['replay_device_ms']:.3f}"
+                      for n, r in rows.items())
+          + f"; launches {[r.get('k1_by_shape', r.get('k2_by_shape')) for r in out['bert'].values()]}"
+          f"; {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -1481,6 +1701,15 @@ def mesh_k1_phase() -> dict:
                 row = k1_timing(b, s_, h=h, d=d)
                 row["line"]["launches"] = n
                 row["line"]["launches_path"] = f"mesh {name}, one (32, 128) batch"
+                out[f"{b}x{s_}x{h}x{d}"] = row
+    # Ulysses' local step on model 2 x seq 2 at the long bucket (the plain
+    # version's float32 scores take 3.2 GB there: 3 calls, as phase 26's).
+    for name, _, _, _, kernel, want, _ in AXES_BERT:
+        for (b, s_, h, d), n in want.items():
+            if kernel == "k1":
+                row = k1_timing(b, s_, h=h, d=d, plain_iters=3)
+                row["line"]["launches"] = n
+                row["line"]["launches_path"] = f"mesh {name}, one {AXES_BUCKET} batch"
                 out[f"{b}x{s_}x{h}x{d}"] = row
     return out
 
@@ -1563,8 +1792,11 @@ def mesh_textgen_check() -> dict:
 
 
 def mesh_sharded_decode_check(mcfg, options: dict, gcfg) -> dict:
-    """The sharded decode (tp = 2, paged KV) against single mode, float32
-    (TF32 off): its engine's tokens against the single locked batch's,
+    """The sharded decode (tp = 2, paged KV over the default, odd, page
+    count: the pages replicate over "seq") and the KV context on "seq"
+    (sp = 2 on dense KV; tp = 2 x sp = 2 on paged KV over an even page
+    count) against single mode, float32 (TF32 off): each engine's tokens
+    against the single locked batch's,
     a lane allowed to differ first only where that batch's top-two margin
     is below ``TG_MARGIN`` (the partial sums add in another order), as
     phase 17 holds the engine to the locked batch."""
@@ -1579,24 +1811,40 @@ def mesh_sharded_decode_check(mcfg, options: dict, gcfg) -> dict:
     from tpuserve_torch.obs import Metrics
     from tpuserve_torch.runtime import build_runtime
 
-    gcfg = dataclasses.replace(gcfg, kv_paging=True, prefill_chunk=0)
+    paged = dataclasses.replace(gcfg, kv_paging=True, prefill_chunk=0)
+    # An even page count splits over the seq axis; the default (slots x
+    # pages per slot + the sentinel) is odd, and replicates (tp_2 above).
+    pps = -(-(int(options["prompt_len"]) + int(options["max_new_tokens"]))
+            // paged.kv_page_tokens)
+    even = dataclasses.replace(paged, kv_pages=gcfg.slots * pps + 2)
+    dense = dataclasses.replace(gcfg, kv_paging=False)
     out, params = {}, None
-    for mode, fields in (("single", {"parallelism": "single"}),
-                         ("tp_2", {"parallelism": "sharded", "tp": 2})):
+    for mode, fields, n_chips, gen in (
+            ("single", {"parallelism": "single"}, 2, paged),
+            ("tp_2", {"parallelism": "sharded", "tp": 2}, 2, paged),
+            ("sp_2_dense", {"parallelism": "sharded", "sp": 2}, 2, dense),
+            ("tp_2_sp_2_paged_even", {"parallelism": "sharded", "tp": 2, "sp": 2}, 4, even)):
         model = build(dataclasses.replace(mcfg, options=options, dtype="float32", **fields))
         params = params if params is not None else model.load_params()
         model.load_params = lambda p=params: p
         rt = build_runtime(model, device="cuda", compile_forward=False, n_slots=1,
-                           parallel=ParallelConfig(n_chips=2))
+                           parallel=ParallelConfig(n_chips=n_chips))
         items = [model.host_decode(json.dumps(b).encode(), "application/json")
                  for b in textgen_bodies(8, seed=3)]
         if mode == "single":
             want, margins, _ = locked_tokens(model, rt.module, items)
-        eng = GenEngine(model, rt, Metrics(), gcfg)
+        eng = GenEngine(model, rt, Metrics(), gen)
         eng.compile()
         got = [list(map(int, t)) for t in engine_tokens(eng, items)]
         out[mode] = compare_tokens(got, [list(map(int, w)) for w in want], margins,
                                    f"mesh textgen {mode} engine vs single locked (float32)")
+        blocks = model._seq_blocks({k: v for k, v in rt.state_blocks[0].items()
+                                    if k in ("k", "kp")})
+        check(blocks == fields.get("sp", 1),
+              f"mesh textgen {mode}: the KV context splits over {blocks} seq ranks")
+        pool = rt.state_blocks[0].get("kp")
+        out[mode].update(mesh_shape=dict(rt.mesh.shape), kv_seq_blocks=blocks,
+                         kv_pages=None if pool is None else pool.shape[0])
         if mode == "tp_2":
             out["signature"] = rt.parallel_signature
         del eng, rt
@@ -3476,9 +3724,9 @@ def profile_check(data: dict) -> dict:
     overlap (several batches are in flight), so a span is never credited
     with the K1 events it happens to contain: instead every batch whose
     span lies wholly inside the traced device extent must have its replay
-    in the trace, and no more replays than batches touching that extent;
-    and no graph launch between the first and the last replay lacks its K1
-    events."""
+    in the trace, and no more whole replays than batches touching that
+    extent; and no graph launch between the first and the last replay lacks
+    its K1 events."""
     meta = data["tpuserve_profile"]
     check(meta["device_trace"] == "ok", f"profile: device_trace {meta['device_trace']!r}")
     lo, hi = meta["window_us"]
@@ -3530,9 +3778,15 @@ def profile_check(data: dict) -> dict:
     bare = [c for c, e in launches.items() if t_first <= e["ts"] <= t_last and c not in replays]
     check(not bare, f"profile: {len(bare)} graph launches between the first and the last replay "
                     "that ran K1 left no K1 event in the trace")
-    check(len(inside) <= len(replays) <= len(touching),
-          f"profile: {len(replays)} replays ran K1, but {len(inside)} batches lie wholly inside "
-          f"the device extent and {len(touching)} touch it (a replay dropped from the trace?)")
+    # A replay cut by the profiler's start or stop has its kernels at the
+    # extent's edge while its batch span, on the ring's clock, may end just
+    # before the re-based extent begins: only whole replays are bounded by
+    # the batches touching the extent.
+    whole = sum(1 for c in order if replays[c] == 12)
+    check(len(inside) <= len(replays) and whole <= len(touching),
+          f"profile: {len(replays)} replays ran K1 ({whole} whole), but {len(inside)} batches "
+          f"lie wholly inside the device extent and {len(touching)} touch it (a replay "
+          "dropped from the trace?)")
     return out
 
 
@@ -4665,9 +4919,10 @@ BERT_MOE_CONFIG = ROOT / "examples" / "bert_moe_flash.toml"
 HOST_PARAMS: dict = {}
 
 
-def share_params(model, config: Path):
+def share_params(model, config: "Path | str"):
     """Point ``model.load_params`` at the run's one copy of ``config``'s
-    seeded parameters (every model of these configs serves seed 0)."""
+    seeded parameters (every model of these configs serves seed 0); a
+    string names a variant of a config whose tree has other shapes."""
     key = str(config)
     if key not in HOST_PARAMS:
         HOST_PARAMS[key] = model.load_params()
@@ -7881,8 +8136,8 @@ def main() -> int:
         # Side by side (the smoke's time limit): a phase that only drives
         # servers and subprocesses (9, 12, 16, 18, 21, 25) runs beside one
         # that works on the card in this process (5b, 15, 17, 20's served
-        # part), never two of the latter in one process (phases 19 and 26
-        # run in processes of their own beside 15), and never beside a phase whose
+        # part), never two of the latter in one process (phases 19, 26 and
+        # 5c run in processes of their own beside 15), and never beside a phase whose
         # gates are on time (8, 10, 11, 13, 14) or whose kernel timings the
         # kernels line reports (3, 4, 5b's and 20's K1 rows, timed alone).
         # Phase 9's two drills run side by side too.
@@ -7905,10 +8160,12 @@ def main() -> int:
                 textgen = timed("17", textgen_phase, card)
             finally:
                 cli_run = cli_future.result()
-        # Phases 19 and 26 train or serve on the card in processes of their
-        # own; 15 and 18 run here meanwhile, and 26 ends before 19 does.
+        # Phases 19, 26 and 5c train or serve on the card in processes of
+        # their own; 15 and 18 run here meanwhile, and 26 and 5c end before
+        # 19 does.
         moe_run = Apart("19", moe_phase, card)
         train_run = Apart("26", training_phase, card)
+        axes_run = Apart("5c", mesh_axes_phase, card)
         try:
             with cf.ThreadPoolExecutor(1) as beside:
                 stream_run = beside.submit(timed, "18", streaming_phase, card,
@@ -7921,7 +8178,10 @@ def main() -> int:
             try:
                 moe = moe_run.result()
             finally:
-                training = train_run.result()
+                try:
+                    training = train_run.result()
+                finally:
+                    mesh["axes"] = axes_run.result()
         sd_prepared = timed("20 (K1 timings, checkpoint)", sd15_prepare, card)
         with cf.ThreadPoolExecutor(2) as beside:
             deferred_run = beside.submit(timed, "25", deferred_phase, card,
@@ -8076,7 +8336,9 @@ def main() -> int:
                                            "launches"]["k1"]),
                                   dict(k2["line"], launches=long["k2_launches"],
                                        launches_train_ring=training["lm"]["ring"]["launches"][
-                                           "k2"]),
+                                           "k2"],
+                                       launches_mesh_ring_data2_seq2_b16_s4096=mesh["axes"][
+                                           "bert"]["ring_data2_seq2"]["k2_by_shape"]),
                                   # K2 and K1 at the LM train step's shapes (phase 26),
                                   # with their launches in one step.
                                   dict(training["kernels"]["k2"],
@@ -8084,7 +8346,8 @@ def main() -> int:
                                   dict(training["kernels"]["k1"],
                                        launches=training["lm"]["ulysses"]["launches"]["k1"]),
                                   # K1 at the mesh modes' shapes (phase 5b): sharded
-                                  # rows, tensor-parallel heads, pipeline microbatches.
+                                  # rows, tensor-parallel heads, pipeline microbatches,
+                                  # Ulysses' local step on model 2 x seq 2.
                                   *(row["line"] for row in mesh["k1"].values()),
                                   # K1 at SD 1.5's padded shapes, with the launches counted
                                   # at each shape: 2 rows on the locked path, 16 in the

@@ -278,18 +278,12 @@ def test_batch_padding_invariance(served):
 # -- what this slice does not port ---------------------------------------------
 
 @pytest.mark.parametrize("over, match", [
-    # The mesh modes serve (tests/test_torch_mesh_modes.py); sequence-
-    # parallel attention beside a model axis waits for ROADMAP item 9b.
-    pytest.param(dict(options=dict(TINY, attention="ring"), parallelism="sharded", tp=2),
-                 "item 9b", id="over0-parallel attention"),
     # The MoE variant serves on a mesh without a model axis; experts on
     # "model" (expert parallelism) are ROADMAP item 10, quantized or not.
     pytest.param(dict(options=dict(TINY, moe_experts=4), parallelism="sharded", tp=2),
                  "item 10", id="over1-parallel attention"),
     pytest.param(dict(options=dict(TINY, moe_experts=4), quantize="int8",
                       parallelism="sharded", tp=2), "item 10", id="over2-quantized"),
-    (dict(parallelism="sharded", tp=2, sp=2), "item 9b"),
-    (dict(options=dict(TINY, attention="ulysses"), parallelism="sharded", tp=2), "item 9b"),
     # The port reads the .npz form of the reference's tree, not a GraphDef.
     pytest.param(dict(weights="/nonexistent/frozen.pb"), "npz", id="over5-weights"),
 ])
@@ -298,25 +292,75 @@ def test_unported_options_raise(over, match):
         build(ModelConfig(**cfg_kwargs(**over)))
 
 
+@pytest.mark.parametrize("over, n_chips", [
+    # Refused until the seq axis was served beside a model and a data axis
+    # (tests/test_torch_mesh_axes.py holds each to the reference's forward).
+    pytest.param(dict(options=dict(TINY, attention="ring"), parallelism="sharded", tp=2),
+                 2, id="ring-tp2"),
+    pytest.param(dict(parallelism="sharded", tp=2, sp=2), 4, id="dense-tp2-sp2"),
+    pytest.param(dict(options=dict(TINY, attention="ulysses"), parallelism="sharded", tp=2),
+                 2, id="ulysses-tp2"),
+])
+def test_sequence_parallel_layouts_serve(over, n_chips, monkeypatch):
+    from tpuserve_torch.config import ParallelConfig
+    from tpuserve_torch.parallel import mesh as meshlib
+
+    monkeypatch.setattr(meshlib, "visible_devices", lambda *a: ["cpu"] * n_chips)
+    _, single = pair("dense")
+    tree = single.to_jax_params(single.init_params(0))
+    model = build(ModelConfig(**cfg_kwargs(**over)))
+    model.load_params = lambda: model.from_jax_params(tree)
+    rt = build_runtime(model, device="cpu", parallel=ParallelConfig(n_chips=n_chips))
+    single.load_params = lambda: single.from_jax_params(tree)
+    base = build_runtime(single, device="cpu")
+    items = [model.host_decode(json.dumps({"text": t}).encode(), "application/json")
+             for t in ("a served layout", "two")]
+    batch = model.assemble(items, (2, 16))
+    out, want = (r.fetch(r.run((2, 16), batch)) for r in (rt, base))
+    np.testing.assert_allclose(out["probs"], want["probs"], atol=1e-5)
+    np.testing.assert_array_equal(out["indices"], want["indices"])
+
+
+SD_TINY = dict(steps=2, guidance=5.0, vocab_size=512, text_layers=1, text_d_model=32,
+               text_heads=2, unet_ch=16, unet_mults=[1, 2], unet_res=1,
+               unet_attn_levels=[0], unet_heads=2, vae_ch=16, vae_mults=[1, 2])
+TG_TINY = dict(layers=1, d_model=32, heads=2, d_ff=64, vocab_size=512, prompt_len=16,
+               max_new_tokens=8)
+
+
 @pytest.mark.parametrize("family, via", [
     # Every family is ported and serves its default layout (parallelism =
-    # "sharded", on a one-device mesh); each case holds that a layout the
-    # family does not serve yet is refused by name, by the server and at
-    # build: a seq axis for SD 1.5 and textgen (textgen's KV context over
-    # it; item 9b).
+    # "sharded", on a one-device mesh). A seq axis was refused for SD 1.5
+    # and textgen until it was served (ROADMAP item 9b.3), and the test
+    # keeps its name: SD 1.5's work replicates over the axis, textgen's KV
+    # context splits over it. Each case serves sp = 2 over two ranks, by
+    # the server and at build, and gives single mode's answer.
     pytest.param("sd15", "server", id="sd15-server"),
     pytest.param("sd15", "build", id="sd15"), pytest.param("textgen", "build", id="textgen")])
-def test_unported_families_raise(family, via):
-    over = dict(sp=2)
-    cfg = ModelConfig(name="m", family=family, **over)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        if via == "server":
-            from tpuserve_torch.config import ServerConfig
-            from tpuserve_torch.server import ServerState
+def test_unported_families_raise(family, via, monkeypatch):
+    from tpuserve_torch.config import ParallelConfig, ServerConfig
+    from tpuserve_torch.parallel import mesh as meshlib
+    from tpuserve_torch.server import ServerState
 
-            ServerState(ServerConfig(models=[cfg]), device="cpu").build()
+    monkeypatch.setattr(meshlib, "visible_devices", lambda *a: ["cpu"] * 2)
+    kw = (dict(image_size=32, options=dict(SD_TINY)) if family == "sd15"
+          else dict(options=dict(TG_TINY)))
+    kw.update(name="m", family=family, batch_buckets=[1], dtype="float32")
+    body = json.dumps({"prompt": "a red cat", "seed": 3}).encode()
+    outs = []
+    for over in (dict(parallelism="single"), dict(parallelism="sharded", sp=2)):
+        cfg = ModelConfig(**kw, **over)
+        if via == "server":
+            state = ServerState(ServerConfig(models=[cfg]), device="cpu")
+            state.build()
+            model, rt = state.models["m"], state.runtimes["m"]
         else:
-            build(cfg)
+            model = build(cfg)
+            rt = build_runtime(model, device="cpu", parallel=ParallelConfig(n_chips=2))
+        assert dict(rt.mesh.shape)["seq"] == over.get("sp", 1)
+        batch = model.assemble([model.host_decode(body, "application/json")], (1,))
+        outs.append(rt.fetch(rt.run((1,), batch)))
+    assert all(outs[1][k].tobytes() == outs[0][k].tobytes() for k in outs[0])
 
 
 def _same(port_value, jax_value) -> bool:

@@ -454,12 +454,19 @@ FLEET_ARGS = ("--drill", "fleet", "--model", "victim", "--duration", "1.5", "--w
               "--concurrency", "4", "--min-availability", "0.99")
 
 
-def fleet_check(summary: dict) -> None:
-    assert summary["victim"] == "victim" and summary["victim_breaker_open"]
-    assert summary["availability"] >= 0.99
+def fleet_check(summary: dict, side: str = "port") -> None:
+    """The fleet drill's gates on one package's summary; a miss names the
+    package (``side``) and carries the rows it read, so a failure in a
+    loaded run says which half and which gate."""
+    rows = {"victim_breaker": summary.get("victim_breaker"),
+            "models": {n: {k: r.get(k) for k in ("availability", "n_ok", "n_err", "n_late")}
+                       for n, r in summary.get("models", {}).items()}}
+    assert summary["victim"] == "victim" and summary["victim_breaker_open"], (side, rows)
+    assert summary["availability"] >= 0.99, (side, rows)
     assert {n: r["role"] for n, r in summary["models"].items()} == {
-        "victim": "victim", "ok_a": "survivor", "ok_b": "survivor"}
-    assert summary["scheduler"]["models"]["ok_a"]["state"] == "warm"
+        "victim": "victim", "ok_a": "survivor", "ok_b": "survivor"}, (side, rows)
+    assert summary["scheduler"]["models"]["ok_a"]["state"] == "warm", (
+        side, summary["scheduler"]["models"]["ok_a"])
 
 
 @pytest.mark.parametrize("case", ["fleet", "fleet_against_reference", "autopilot"])
@@ -489,13 +496,13 @@ def test_fleet_and_autopilot_drills_exit_0(case, tmp_path, capsys):
     rc, out = run_main("port", ["chaos", "--config", str(path), "--device", "cpu",
                                 *FLEET_ARGS], capsys)
     summary = json.loads(out)
-    assert rc == 0
-    fleet_check(summary)
+    fleet_check(summary, "port")
+    assert rc == 0, ("port", summary.get("availability"))
     if case == "fleet_against_reference":
         rc, out = run_main("jax", ["chaos", "--config", str(path), *FLEET_ARGS], capsys)
         ref = json.loads(out)
-        assert rc == 0
-        fleet_check(ref)
+        fleet_check(ref, "reference")
+        assert rc == 0, ("reference", ref.get("availability"))
         assert sorted(summary) == sorted([*ref, "kernels"])
         assert sorted(summary["scheduler"]) == sorted(ref["scheduler"])
         assert sorted(summary["models"]["ok_b"]) == sorted(ref["models"]["ok_b"])

@@ -249,11 +249,12 @@ def test_sd15_replicas_answer_single_bytes():
 
 
 def test_generative_family_on_a_split_mesh_is_refused():
-    """SD 1.5 serves on a one-device mesh; its programs on a split one are
-    ROADMAP item 9b (textgen's are ported: tests/test_torch_meshgen.py)."""
+    """SD 1.5 serves on a one-device mesh and beside a seq axis alone; its
+    programs on a split one are ROADMAP item 9b.4 (textgen's are ported:
+    tests/test_torch_meshgen.py)."""
     model = build(tconfig.ModelConfig(name="sd", family="sd15", parallelism="sharded",
                                       dtype="float32", image_size=32, options=dict(SD_TINY)))
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    with pytest.raises(NotImplementedError, match="item 9b.4"):
         build_runtime(model, device="cpu", parallel=tconfig.ParallelConfig(n_chips=2),
                       compile_forward=False)
 

@@ -17,8 +17,8 @@ not move across churn, publish and rollback; the chip budget counts a
 replica@4 model as 4. The sharded decode (``tp = 2`` over 4 ranks, data 2
 x model 2, paged KV) gives the single engine's tokens and the reference's
 sharded decode's, and the locked batch the single runtime's; no compile
-across churn, publish and rollback; the KV context over a seq axis is
-ROADMAP item 9b.
+across churn, publish and rollback; beside a seq axis (the KV context over
+it) the single engine's tokens again.
 """
 
 import asyncio
@@ -284,11 +284,22 @@ def test_sharded_locked_batch_matches_single(weights, single):
     assert a["tokens"].tobytes() == b["tokens"].tobytes()
 
 
-def test_sharded_decode_refusals():
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        port_build(tg_cfg("port", parallelism="sharded", sp=2))
+def test_sharded_decode_refusals(weights, single):
+    """tp must divide the heads, as in the reference. A seq axis (refused
+    until the KV context on "seq" was ported) serves: sp = 2 beside tp = 2
+    gives the single engine's tokens (tests/test_torch_mesh_axes.py holds it
+    to the reference's sharded engine)."""
     with pytest.raises(ValueError, match="must divide heads"):
         port_build(tg_cfg("port", parallelism="sharded", tp=4))
+    model, rt = side("port", weights, parallelism="sharded", tp=2, sp=2)
+    assert dict(rt.mesh.shape) == {"data": 1, "model": 2, "seq": 2}
+    s_model, s_rt = single
+    s_eng = MODS["port"].genserve.GenEngine(s_model, s_rt, MODS["port"].obs.Metrics(),
+                                            paged("port"))
+    s_eng.compile()
+    eng = MODS["port"].genserve.GenEngine(model, rt, MODS["port"].obs.Metrics(), paged("port"))
+    eng.compile()
+    assert run(drive(eng, model, PROMPTS[:3])) == run(drive(s_eng, s_model, PROMPTS[:3]))
 
 
 # -- the fleet scheduler's chip budget -------------------------------------------------

@@ -538,18 +538,53 @@ def test_http_stream_frames(served):
 
 @pytest.mark.parametrize("over, exc, match", [
     (dict(options={**TINY, "bpe_vocab": "v.json"}), ValueError, "set together"),
-    (dict(sp=2), NotImplementedError, "item 9b"),
-    (dict(tp=2), NotImplementedError, "item 9b"),
+    (dict(tp=2), NotImplementedError, "item 9b.4"),
     (dict(weights="/nonexistent/frozen.pb"), NotImplementedError, "import-model"),
     (dict(options={**TINY, "unet_attention": "magic"}), ValueError, "unet_attention"),
     (dict(options={**TINY, "preview_every": -1}), ValueError, "preview_every"),
     (dict(dtype="float64"), ValueError, "dtype"),
-], ids=["bpe-half", "sharded", "tp2", "tf-weights", "attention", "preview", "dtype"])
+], ids=["bpe-half", "tp2", "tf-weights", "attention", "preview", "dtype"])
 def test_refusals(over, exc, match):
     """What the slice does not serve is refused at build by name, with its
     ROADMAP.md item; the reference's own validation messages otherwise."""
     with pytest.raises(exc, match=match):
         port_build(sd_cfg(tconfig, **over))
+
+
+@pytest.mark.parametrize("engine", [False, True], ids=["sharded", "sharded-engine"])
+def test_seq_axis_serves(engine, monkeypatch):
+    """A seq axis alone (sp = 2 over two ranks, data and model 1) was
+    refused until it was served: SD 1.5's work replicates over it, as in
+    the reference, so the locked batch and the engine give single mode's
+    image bytes. Beside a data axis it stays refused (item 9b.4)."""
+    from tpuserve_torch.parallel import mesh as meshlib
+    from tpuserve_torch.runtime import build_runtime
+
+    monkeypatch.setattr(meshlib, "visible_devices", lambda *a: ["cpu"] * 2)
+    images = []
+    for over in (dict(parallelism="single"), dict(parallelism="sharded", sp=2)):
+        tm = port_build(sd_cfg(tconfig, **over))
+        rt = build_runtime(tm, device="cpu", compile_forward=not engine,
+                           parallel=tconfig.ParallelConfig(n_chips=2))
+        assert dict(rt.mesh.shape)["seq"] == over.get("sp", 1)
+        if engine:
+            from tpuserve_torch.genserve import GenEngine
+            from tpuserve_torch.obs import Metrics
+
+            eng = GenEngine(tm, rt, Metrics(), tconfig.GenserveConfig(slots=2))
+            eng.compile()
+
+            async def drive():
+                await eng.start()
+                res = await asyncio.gather(*[eng.submit(it) for it in items(tm)])
+                await eng.stop()
+                return res
+
+            images.append([r for r in asyncio.run(drive())])
+        else:
+            out = rt.fetch(rt.run((2,), tm.assemble(items(tm), (2,))))
+            images.append({k: v.tobytes() for k, v in out.items()})
+    assert images[1] == images[0]
 
 
 def test_reference_layout_maps_each_leaf(tree):

@@ -328,17 +328,17 @@ def test_moe_and_sharded_layout_not_ported():
     """The Switch-MoE variant is served (tests/test_torch_moe.py holds it to
     the reference), and so are the reference's default (sharded) layout and
     the sharded decode (tp > 1; tests/test_torch_meshgen.py) since the mesh
-    modes were ported; the KV context over a seq axis (sp > 1) waits for
-    ROADMAP item 9b and experts on "model" for item 10."""
+    modes were ported, and the KV context over a seq axis (sp > 1;
+    tests/test_torch_mesh_axes.py) since it was; experts on "model" wait
+    for ROADMAP item 10."""
     model = port_build(cfg(tconfig, moe_experts=4))
     assert model.moe_experts == 4
     assert {"router", "moe_up", "moe_down"} <= dict(
         model.build_module().layers[0].named_parameters()).keys()
     port_build(tconfig.ModelConfig(name="tg", family="textgen", options=dict(TG_OPTS)))
     port_build(tconfig.ModelConfig(name="tg", family="textgen", tp=2, options=dict(TG_OPTS)))
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        port_build(tconfig.ModelConfig(name="tg", family="textgen", sp=2,
-                                       options=dict(TG_OPTS)))
+    assert port_build(tconfig.ModelConfig(name="tg", family="textgen", sp=2,
+                                          options=dict(TG_OPTS))).mesh is None
     with pytest.raises(NotImplementedError, match="item 10"):
         port_build(tconfig.ModelConfig(name="tg", family="textgen", tp=2,
                                        options=dict(TG_OPTS, moe_experts=4)))

@@ -28,6 +28,7 @@ The host side (decode, assemble, postprocess) is numpy and copied as it is.
 from __future__ import annotations
 
 import abc
+import copy
 import logging
 import time
 from dataclasses import dataclass
@@ -38,8 +39,9 @@ import torch
 
 from tpuserve_torch import quantize, savedmodel
 from tpuserve_torch.config import ModelConfig
-from tpuserve_torch.parallel.mesh import MODEL_AXIS, Mesh, batch_sharding
-from tpuserve_torch.parallel.partition import REPLICATED_RULES, PartitionSpec
+from tpuserve_torch.parallel.mesh import SEQ_AXIS, Mesh, batch_sharding
+from tpuserve_torch.parallel.partition import (REPLICATED_RULES, PartitionSpec,
+                                               match_partition_rules, rank_coords, split_tree)
 
 log = logging.getLogger("tpuserve_torch.models")
 
@@ -61,22 +63,18 @@ def not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not yet ported to tpuserve_torch (ROADMAP.md queue 1: {item})")
 
 
-def check_mesh(cfg: ModelConfig, tp_ok: bool = False, sp_ok: bool = False) -> None:
-    """The port's refusals of mesh layouts a family does not serve yet,
-    each naming its ROADMAP.md item (the reference's own refusals come
-    first, in each family): a model axis (``tp > 1``) unless the family
-    splits its weights by hand (``tp_ok``), a seq axis (``sp > 1``) unless
-    its attention runs over one (``sp_ok``), and a seq axis beside a model
-    axis. An axis the family cannot use is refused in every mode, never
-    quietly replicated."""
-    if cfg.tp > 1 and not tp_ok:
-        raise not_ported(f"tp={cfg.tp} for family {cfg.family!r} (the split of its "
-                         "weights over the model axis)", "item 9b")
-    if cfg.sp > 1 and not sp_ok:
-        raise not_ported(f"sp={cfg.sp} for family {cfg.family!r} (its work over a seq "
-                         "axis)", "item 9b")
-    if cfg.parallelism == "sharded" and cfg.sp > 1 and cfg.tp > 1:
-        raise not_ported(f"sp={cfg.sp} beside tp={cfg.tp}", "item 9b")
+def check_mesh(cfg: ModelConfig) -> None:
+    """The port's refusal of a model axis (``tp > 1``) for a family whose
+    programs do not run on a split mesh yet (SD 1.5: ROADMAP item 9b.4; its
+    data axis is refused by the runtime, which alone knows the mesh), in
+    every mode, never quietly replicated. Every other family serves every
+    axis: a seq axis runs BERT's ring and Ulysses attention and textgen's
+    KV context and replicates the other families' work, as in the
+    reference."""
+    if cfg.tp > 1:
+        raise not_ported(f"tp={cfg.tp} for family {cfg.family!r} (its programs on a "
+                         "split mesh and the split of its weights over the model axis)",
+                         "item 9b.4")
 
 
 class MeshModule(torch.nn.Module):
@@ -262,16 +260,43 @@ class ServingModel(abc.ABC):
         '/'-joined leaf paths; default replicate."""
         return list(REPLICATED_RULES)
 
+    def _with(self, **attrs) -> "ServingModel":
+        """A view of this model with other sizes (a tensor-parallel rank's
+        widths, a pipeline stage's layers, a rank's seq mesh): its
+        ``build_module``, ``from_jax_params`` and ``reference_layout`` read
+        them."""
+        view = copy.copy(self)
+        view.__dict__.update(attrs)
+        return view
+
+    def model_rank_trees(self, tree: Any, mesh: Mesh) -> list[tuple[dict, Any, torch.device]]:
+        """``(coordinate, block of tree, device)`` of every (data, model)
+        rank, the tree split by ``partition_rules`` (a rank's seq ranks hold
+        the same block: seq rank 0's stands for them). Under ``quantize``
+        the whole tree is cast and quantized first and then split
+        (``quantize.specs_for_tree``), so each rank's scales are the whole
+        weight's, as the reference quantizes before it shards."""
+        if self.cfg.quantize is not None:
+            tree = quantize.quantize_tree(
+                quantize.cast_tree(tree, DTYPES[self.cfg.dtype]), self.cfg.quantize_min_size)
+            specs = quantize.specs_for_tree(self.partition_rules(), tree)
+        else:
+            specs = match_partition_rules(self.partition_rules(), tree)
+        return [(coord, rank_tree, dev) for coord, rank_tree, dev in
+                zip(rank_coords(mesh), split_tree(tree, specs, mesh), mesh.devices.flat)
+                if not coord[SEQ_AXIS]]
+
     def mesh_module(self, tree: Any, mesh: Mesh, prepare) -> MeshModule:
         """One parameter slot on a mesh that splits the forward (a data or
         model axis larger than 1, or pipeline stages), from the reference's
         tree. ``prepare(model, tree, device)`` builds one rank's module the
         way the runtime builds a one-device slot (conversion, cast,
-        quantization). Default: the data axis alone, one full copy of the
-        parameters per data rank (``REPLICATED_RULES``); a family that
-        splits its weights over the model axis or pipelines overrides it."""
-        if mesh.shape.get(MODEL_AXIS, 1) > 1:
-            raise not_ported(f"a model axis for family {self.cfg.family!r}", "item 9b")
+        quantization). Default, the reference's default rule
+        (``REPLICATED_RULES``): the parameters replicate over every axis,
+        so the ranks of one data rank (its model and seq ranks) would
+        compute the same rows: one full copy per data rank is built, on
+        that rank's device. A family that splits its weights over the model
+        axis or pipelines overrides it."""
         devs = batch_sharding(mesh)
         return MeshModule([prepare(self, tree, d) for d in devs], mesh, (len(devs),))
 
@@ -325,7 +350,12 @@ class ServingModel(abc.ABC):
 
     def forward(self, module: torch.nn.Module, batch: Any) -> Outputs:
         """``logits`` + device postprocess: float32 softmax and top-k."""
-        probs = torch.softmax(self.logits(module, batch).float(), dim=-1)
+        return self.top_k_outputs(self.logits(module, batch))
+
+    def top_k_outputs(self, logits: torch.Tensor) -> Outputs:
+        """The device postprocess of (B, classes) logits: float32 softmax
+        and top-k."""
+        probs = torch.softmax(logits.float(), dim=-1)
         top_p, top_i = torch.topk(probs, self.top_k, dim=-1)
         return {"probs": top_p, "indices": top_i}
 

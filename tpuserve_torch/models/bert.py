@@ -41,8 +41,12 @@ The mesh modes (``tpuserve_torch.runtime``), single-controller:
   reference composes pipelining with dense attention only; the port's
   stages also run K1 (``attention = "flash"``), which needs no mesh.
 
-Ring and Ulysses attention serve on a mesh whose data and model axes are 1;
-beside a split forward they are refused naming ROADMAP item 9b.
+Ring and Ulysses attention serve beside a data and a model axis too
+(the reference's spec ``("data", "seq", head_axis, None)``): each rank
+module of the split forward (one per data rank, or per (data, model) rank
+under tp > 1) holds its rows and its heads, and its attention runs over
+that rank's own seq ranks (``parallel.mesh.seq_mesh``), never splitting
+them again. A seq axis alone keeps one module over the whole mesh.
 
 ``quantize = "int8"`` stores the large weights int8 (weight-only, as the
 reference) and ``"int8c"`` also multiplies the q/k/v/out projections and
@@ -77,7 +81,6 @@ BERT-base defaults; the vocabulary is ``synthetic_vocab`` or a standard
 
 from __future__ import annotations
 
-import copy
 import json
 from typing import Any
 
@@ -86,19 +89,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpuserve_torch import quantize
 from tpuserve_torch.config import ModelConfig
-from tpuserve_torch.models.base import (DTYPES, MeshModule, ServingModel, TensorSpec,
-                                        check_mesh, not_ported, rows_gather, rows_split,
-                                        to_device)
+from tpuserve_torch.models.base import (MeshModule, ServingModel, TensorSpec,
+                                        not_ported, rows_gather, rows_split, to_device)
 from tpuserve_torch.ops.flash_attention import flash_attention
 from tpuserve_torch.ops.moe import SwitchFFN
 from tpuserve_torch.ops.ring_attention import ring_attention
 from tpuserve_torch.ops.ulysses import ulysses_attention
 from tpuserve_torch.quantize import Int8Linear, activation_scale
-from tpuserve_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh, batch_sharding
-from tpuserve_torch.parallel.partition import (P, PartitionSpec, match_partition_rules,
-                                               rank_coords, split_tree)
+from tpuserve_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh,
+                                          batch_sharding, seq_mesh)
+from tpuserve_torch.parallel.partition import P, PartitionSpec
 from tpuserve_torch.parallel.pipeline import STAGE_AXIS, run_schedule
 from tpuserve_torch.text import WordPieceTokenizer, synthetic_vocab
 
@@ -393,7 +394,7 @@ class BertServing(ServingModel):
                     "are not divisible")
         moe_experts = int(opt.get("moe_experts", 0))
         # The reference's refusals, with its reasons, ahead of the port's
-        # own (check_mesh, and the items below).
+        # own (item 10 below).
         if cfg.parallelism == "pipeline":
             if attention not in ("dense", "flash"):
                 # The reference takes "dense" only; the port's stages also
@@ -418,9 +419,6 @@ class BertServing(ServingModel):
         if moe_experts and cfg.parallelism == "sharded" and cfg.tp > 1:
             raise not_ported(f"options.moe_experts with tp={cfg.tp} (experts on the "
                              "model axis)", "item 10, expert parallelism")
-        if attention in ("ring", "ulysses") and cfg.parallelism == "sharded" and cfg.tp > 1:
-            raise not_ported(f"attention={attention!r} beside tp={cfg.tp}", "item 9b")
-        check_mesh(cfg, tp_ok=True, sp_ok=True)
         super().__init__(cfg)
         self.attention = attention
         self.moe_experts = moe_experts
@@ -486,8 +484,8 @@ class BertServing(ServingModel):
         """Ring/Ulysses attention closes over the serving mesh; modules
         built after this call carry it (the runtime binds before it builds
         the module and warms up). A ("stage",) mesh checks the layer split
-        (the stage count is known only once the mesh exists); ring and
-        Ulysses beside a split data axis are refused."""
+        (the stage count is known only once the mesh exists). A split
+        forward's rank modules take their own seq meshes (``mesh_module``)."""
         if STAGE_AXIS in mesh.shape:
             s = mesh.shape[STAGE_AXIS]
             if self.layers % s:
@@ -496,9 +494,6 @@ class BertServing(ServingModel):
                     f"{s} stages; adjust options.layers or pp")
             self.mesh = None
             return
-        if self.attention in ("ring", "ulysses") and mesh.shape[DATA_AXIS] > 1:
-            raise not_ported(f"attention={self.attention!r} beside a data axis of "
-                             f"{mesh.shape[DATA_AXIS]}", "item 9b")
         self.mesh = mesh
 
     # -- the mesh modes --------------------------------------------------------
@@ -521,38 +516,29 @@ class BertServing(ServingModel):
             (r".*", P()),
         ]
 
-    def _with(self, **attrs) -> "BertServing":
-        """A view of this model with other sizes (a tensor-parallel rank's
-        heads and FFN width, a pipeline stage's layers): its
-        ``build_module``, ``from_jax_params`` and ``reference_layout`` read
-        them."""
-        view = copy.copy(self)
-        view.__dict__.update(attrs)
-        return view
-
     def mesh_module(self, tree: Any, mesh: Mesh, prepare) -> MeshModule:
+        """One module per data rank (tp = 1: the whole tree), or per (data,
+        model) rank (tp > 1: the rank's blocks by ``partition_rules``), or
+        per pipeline stage. The seq ranks of a (data, model) rank share its
+        parameters, so they are not built as modules of their own: the
+        rank's ring or Ulysses attention runs over them (its ``seq_mesh``)."""
         if STAGE_AXIS in mesh.shape:
             return self._stage_module(tree, mesh, prepare)
-        tp = mesh.shape[MODEL_AXIS]
+        dp, tp = mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS]
         if tp == 1:
-            return super().mesh_module(tree, mesh, prepare)
+            return MeshModule([prepare(self._with(mesh=seq_mesh(mesh, d)), tree,
+                                       mesh.devices[d, 0, 0]) for d in range(dp)],
+                              mesh, (dp,))
         if self.heads % tp or self.d_ff % tp:
             raise ValueError(f"tp={tp} must divide heads={self.heads} and "
                              f"d_ff={self.d_ff}")
-        if self.cfg.quantize is not None:
-            # Quantize whole (cast first, as the reference), then split.
-            tree = quantize.quantize_tree(
-                quantize.cast_tree(tree, DTYPES[self.cfg.dtype]), self.cfg.quantize_min_size)
-            specs = quantize.specs_for_tree(self.partition_rules(), tree)
-        else:
-            specs = match_partition_rules(self.partition_rules(), tree)
-        rank_model = self._with(heads=self.heads // tp, d_ff=self.d_ff // tp)
         ranks = []
-        for coord, rank_tree, dev in zip(rank_coords(mesh), split_tree(tree, specs, mesh),
-                                         mesh.devices.flat):
-            ranks.append(prepare(rank_model, self._tp_biases(rank_tree, coord[MODEL_AXIS], tp),
-                                 dev))
-        return MeshModule(ranks, mesh, (mesh.shape[DATA_AXIS], tp))
+        for coord, rank_tree, dev in self.model_rank_trees(tree, mesh):
+            d, m = coord[DATA_AXIS], coord[MODEL_AXIS]
+            rank_model = self._with(heads=self.heads // tp, d_ff=self.d_ff // tp,
+                                    mesh=seq_mesh(mesh, d, m))
+            ranks.append(prepare(rank_model, self._tp_biases(rank_tree, m, tp), dev))
+        return MeshModule(ranks, mesh, (dp, tp))
 
     @staticmethod
     def _tp_biases(tree: dict, m: int, tp: int) -> dict:
@@ -596,9 +582,7 @@ class BertServing(ServingModel):
         mesh = module.mesh
         if STAGE_AXIS not in mesh.shape and mesh.shape[MODEL_AXIS] == 1:
             return super().mesh_forward(module, batch)
-        probs = torch.softmax(self.mesh_logits(module, batch).float(), dim=-1)
-        top_p, top_i = torch.topk(probs, self.top_k, dim=-1)
-        return {"probs": top_p, "indices": top_i}
+        return self.top_k_outputs(self.mesh_logits(module, batch))
 
     def mesh_logits(self, module: MeshModule, batch: tuple) -> torch.Tensor:
         """The logits over the pipeline's stages, or over each data rank's

@@ -577,8 +577,9 @@ class SD15Serving(GenerativeModel):
             raise ValueError(
                 "bpe_vocab and bpe_merges must be set together "
                 "(CLIP BPE needs vocab.json + merges.txt)")
-        # Replicas, or one mesh whose forward is not split (the runtime
-        # refuses a split mesh for this generative family).
+        # Replicas, or one mesh whose forward is not split: a seq axis alone
+        # replicates its work, as in the reference. A model axis is refused
+        # here and a data axis by the runtime (item 9b.4).
         check_mesh(cfg)
         vocab_file = o.get("vocab_file")
         if o.get("bpe_vocab"):

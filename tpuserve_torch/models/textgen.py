@@ -41,6 +41,13 @@ every page assignment. Global position p of a slot lives at
 sentinel: free and frozen lanes scribble there instead of into pages the
 ledger may have re-handed to another request.
 
+On a sharded mesh the engine's state block lies as the reference's
+(``state_partition_specs``): KV heads on "model", and the context of dense
+K/V (the page pool of paged K/V) on "seq" where the axis divides it. Each
+seq rank's decode attention then reads its own block of the context, and
+the blocks merge through their row max and sum (``_decode_attention``);
+the locked batch and the prompt prefill attend the whole context.
+
 ``options.moe_experts`` = E >= 2 replaces every layer's MLP with the
 reference's top-1 Switch FFN (``_moe_ffn`` over
 ``tpuserve_torch.ops.moe.switch_route``) with GROUP SIZE ONE: every token
@@ -58,7 +65,6 @@ prompt_len/max_new_tokens/moe_experts) with the reference's small defaults.
 
 from __future__ import annotations
 
-import copy
 import json
 import math
 from typing import Any, Callable
@@ -70,12 +76,13 @@ from torch import nn
 
 from tpuserve_torch.config import ModelConfig
 from tpuserve_torch.genserve.model import GenerativeModel
-from tpuserve_torch.models.base import DTYPES, MeshModule, TensorSpec, check_mesh, not_ported
+from tpuserve_torch.models.base import DTYPES, MeshModule, TensorSpec, not_ported
 from tpuserve_torch.models.bert import masked_attention
 from tpuserve_torch.ops import threefry
 from tpuserve_torch.ops.moe import switch_route
 from tpuserve_torch.ops.flash_attention import flash_attention
-from tpuserve_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh
+from tpuserve_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh, axis_size,
+                                          can_shard)
 from tpuserve_torch.parallel.partition import (P, PartitionSpec, match_partition_rules,
                                                rank_coords, split_tree)
 from tpuserve_torch.text import WordPieceTokenizer, synthetic_vocab
@@ -246,9 +253,9 @@ class TextGenServing(GenerativeModel):
         if cfg.parallelism == "sharded" and cfg.tp > 1 and self.heads % cfg.tp:
             raise ValueError(f"tp={cfg.tp} must divide heads={self.heads}: each "
                              "model rank decodes whole heads")
-        # A seq axis (the reference's KV context on "seq",
-        # state_partition_specs) is refused by check_mesh, item 9b.
-        check_mesh(cfg, tp_ok=True)
+        # The serving mesh (bind_mesh): the engine's KV context splits over
+        # its seq axis (state_partition_specs).
+        self.mesh: Mesh | None = None
         # A tensor-parallel rank's widths (see mesh_module): q/k/v columns,
         # FFN block and vocab head columns; the whole model's by default.
         self.inner: int | None = None
@@ -292,10 +299,12 @@ class TextGenServing(GenerativeModel):
         """The sharded decode's parameters: one module per model rank of
         data rank 0, its blocks by ``partition_rules`` (the vocab head in
         contiguous blocks, the first ``vocab % tp`` one column wider). The
-        state block is the reference's: KV heads on "model" (each rank's
-        heads a block of the one KV tensor the ranks share on their card)
-        and every lane replicated over "data", so the data ranks' copies
-        would compute the same slots and are not made."""
+        state block is the reference's (``state_partition_specs``): KV heads
+        on "model" (each rank's heads a block of the one KV tensor the ranks
+        share on their card), the context on "seq", and every lane
+        replicated over "data", so the data ranks' copies would compute the
+        same slots and are not made; a model rank's seq ranks hold its
+        parameters, and the decode step reads their context blocks apart."""
         specs = match_partition_rules(self.partition_rules(), tree)
         ranks = []
         for coord, rank_tree, dev in zip(rank_coords(mesh), split_tree(tree, specs, mesh),
@@ -308,10 +317,44 @@ class TextGenServing(GenerativeModel):
             ranks.append(prepare(view, rank_tree, dev))
         return MeshModule(ranks, mesh, (1, len(ranks)))
 
-    def _with(self, **attrs) -> "TextGenServing":
-        view = copy.copy(self)
-        view.__dict__.update(attrs)
-        return view
+    def bind_mesh(self, mesh: Mesh) -> None:
+        """The serving mesh, read by the engine's decode step to split the
+        KV context over the seq axis (``state_partition_specs``)."""
+        self.mesh = mesh
+
+    def state_partition_specs(self, struct: Any, mesh: Mesh) -> Any:
+        """The reference's placement of the engine's state block: the KV
+        heads dim on "model" beside the q/k/v column blocks, the context
+        dim of dense ``k``/``v`` (the page dim of paged ``kp``/``vp``) on
+        "seq"; a dim the axis does not divide replicates (``can_shard``),
+        and an all-replicated layout is None. Lanes (tokens, pos, done,
+        ...) replicate: every rank must agree on the done flags. On one
+        card every rank shares the one state tensor: the model ranks decode
+        their heads of it, and the decode step reads the context of each
+        seq rank's block apart (``_seq_blocks``)."""
+        specs = {f: P() for f in struct}
+        kv_key, seq_dim, seq_len = (("kp", 0, int(struct["kp"].shape[0])) if "kp" in struct
+                                    else ("k", 2, self.max_ctx))
+        kv: list = [None] * 5  # (slots | pages, layers, ctx | page tokens, heads, hd)
+        if can_shard(mesh, MODEL_AXIS, self.heads):  # tps-ok[TPS503]: mesh and shapes, host ints
+            kv[3] = MODEL_AXIS
+        if can_shard(mesh, SEQ_AXIS, seq_len):  # tps-ok[TPS503]: mesh and shapes, host ints
+            kv[seq_dim] = SEQ_AXIS
+        specs[kv_key] = specs[kv_key.replace("k", "v")] = P(*kv)
+        if all(sp == P() for sp in specs.values()):
+            return None
+        return specs
+
+    def _seq_blocks(self, state: dict) -> int:
+        """The seq ranks the state block's KV context splits over under
+        ``state_partition_specs`` on the serving mesh: 1 where it
+        replicates."""
+        if self.mesh is None:
+            return 1
+        specs = self.state_partition_specs(state, self.mesh)
+        if specs is None or SEQ_AXIS not in specs.get("kp", specs.get("k")):  # tps-ok[TPS503]: specs of shapes
+            return 1
+        return axis_size(self.mesh, SEQ_AXIS)
 
     @staticmethod
     def _math(module: Any) -> Any:
@@ -554,11 +597,12 @@ class TextGenServing(GenerativeModel):
         done.copy_(done2)
         return {"done": done2, "n_new": n_new2, "tokens": tokens}
 
-    def _decode_step(self, module: TextGenModule, state: dict) -> dict:
+    def _decode_step(self, module: TextGenModule, state: dict, blocks: int = 1) -> dict:
         """One decode iteration over every lane, in place: process ``last``
         at cache index ``pos`` (writing its K/V), sample the token for
         pos + 1. Finished (and free, zero-initialized) lanes freeze via
-        ``done``."""
+        ``done``. ``blocks`` > 1: the context splits over that many seq
+        ranks, each attending its own block (``_decode_attention``)."""
         kc, vc = state["k"], state["v"]
         b = kc.shape[0]
         ln, h, hd, c = self.layers, self.heads, self.head_dim, self.max_ctx
@@ -573,17 +617,39 @@ class TextGenServing(GenerativeModel):
             q, k, v = self._qkv(lp, hx, (b, h, hd))
             kc[rows, i, cp] = k
             vc[rows, i, cp] = v
-            x = x + self._out(lp, self._decode_attention(q, kc[:, i], vc[:, i], mask))
+            ctx = list(zip(kc[:, i].chunk(blocks, 1), vc[:, i].chunk(blocks, 1),
+                           mask.chunk(blocks, 1)))
+            x = x + self._out(lp, self._decode_attention(q, ctx))
             x = x + self._mlp(lp, _norm(x, lp.ln2))
         return self._advance(state, self._logits(module, x))
 
-    def _decode_attention(self, q, kc, vc, mask) -> torch.Tensor:
-        """One query per lane against its cached (B, C, H, hd) keys and
-        values with an additive (B, C) mask -> (B, H*hd)."""
+    @staticmethod
+    def _decode_attention(q: torch.Tensor, ctx: list) -> torch.Tensor:
+        """One query per lane against its cached keys and values -> (B,
+        H*hd). ``ctx``: one (keys, values, mask) per seq rank, (B, C_r, H,
+        hd) x2 and an additive (B, C_r) mask. One block is the softmax over
+        the whole context; several merge through each block's row max and
+        sum in float32 (the ring's merge), so no rank reads another's
+        block. A lane's position 0 is never masked, so some block always
+        holds a live key and a wholly masked block weighs exp(-1e9) = 0."""
         b, h, hd = q.shape
-        s = torch.einsum("bhd,bchd->bhc", q, kc).float() * (hd ** -0.5) + mask[:, None, :]
-        a = torch.softmax(s, dim=-1).to(q.dtype)
-        return torch.einsum("bhc,bchd->bhd", a, vc).reshape(b, h * hd)
+        scale = hd ** -0.5
+        if len(ctx) == 1:
+            kc, vc, mask = ctx[0]
+            s = torch.einsum("bhd,bchd->bhc", q, kc).float() * scale + mask[:, None, :]
+            a = torch.softmax(s, dim=-1).to(q.dtype)
+            return torch.einsum("bhc,bchd->bhd", a, vc).reshape(b, h * hd)
+        stats = []
+        for kc, vc, mask in ctx:
+            s = torch.einsum("bhd,bchd->bhc", q, kc).float() * scale + mask[:, None, :]
+            m = s.amax(dim=-1)
+            p = torch.exp(s - m[..., None])
+            stats.append((m, p.sum(dim=-1), torch.einsum("bhc,bchd->bhd", p, vc.float())))
+        m_all = torch.stack([m for m, _, _ in stats]).amax(dim=0)
+        w = [torch.exp(m - m_all) for m, _, _ in stats]
+        l_all = sum(wr * l for wr, (_, l, _) in zip(w, stats))
+        acc = sum(wr[..., None] * a for wr, (_, _, a) in zip(w, stats))
+        return (acc / l_all[..., None]).to(q.dtype).reshape(b, h * hd)
 
     # -- one-shot path (locked batch) -----------------------------------------
     def forward(self, module: TextGenModule, batch: Any) -> dict:
@@ -613,9 +679,10 @@ class TextGenServing(GenerativeModel):
         # allocates the kv_page_signature block, a dense one the
         # state_signature block.
         module = self._math(module)
+        blocks = self._seq_blocks(state)
         if "kp" in state:  # tps-ok[TPS503]: dict structure check at capture time
-            return self._paged_decode_step(module, state)
-        return self._decode_step(module, state)
+            return self._paged_decode_step(module, state, blocks)
+        return self._decode_step(module, state, blocks)
 
     def extract(self, module: TextGenModule, state: dict, slot: torch.Tensor) -> dict:
         return {"tokens": state["tokens"].index_select(0, slot)[0],
@@ -752,11 +819,15 @@ class TextGenServing(GenerativeModel):
                                 torch.ones_like(is_final)),
             "seed": seed, "max_new": max_new, "temp": temp})
 
-    def _paged_decode_step(self, module: TextGenModule, state: dict) -> dict:
+    def _paged_decode_step(self, module: TextGenModule, state: dict,
+                           blocks: int = 1) -> dict:
         """The paged twin of _decode_step: identical math and sampling, but
         K/V reads gather through the block table and writes go to (page,
         offset) — frozen/free lanes' writes divert to the sentinel so a
-        released slot can never scribble into re-handed pages."""
+        released slot can never scribble into re-handed pages. ``blocks``
+        > 1: the page pool splits into that many contiguous seq-rank
+        blocks, and each rank attends the lane's positions whose pages it
+        holds (``_pool_blocks``)."""
         kp, vp, bt = state["kp"], state["vp"], state["bt"]
         b, pps = bt.shape
         P = kp.shape[2]
@@ -779,11 +850,33 @@ class TextGenServing(GenerativeModel):
             # is always masked.
             kp[w_page, i, offs] = k
             vp[w_page, i, offs] = v
-            kc = kp[:, i][bt_idx].reshape(b, c_pad, h, hd)
-            vc = vp[:, i][bt_idx].reshape(b, c_pad, h, hd)
-            x = x + self._out(lp, self._decode_attention(q, kc, vc, mask))
+            ctx = self._pool_blocks(kp[:, i], vp[:, i], bt_idx, mask, blocks)
+            x = x + self._out(lp, self._decode_attention(q, ctx))
             x = x + self._mlp(lp, _norm(x, lp.ln2))
         return self._advance(state, self._logits(module, x))
+
+    @staticmethod
+    def _pool_blocks(kp: torch.Tensor, vp: torch.Tensor, bt_idx: torch.Tensor,
+                     mask: torch.Tensor, blocks: int) -> list:
+        """Each seq rank's (keys, values, mask) of every lane's context from
+        one layer's page pool (pages, P, H, hd): rank r holds pages [r *
+        n, (r + 1) * n) and gathers only from them, the positions on
+        another rank's pages masked off."""
+        b, pps = bt_idx.shape
+        P, h, hd = kp.shape[1:]
+        n = kp.shape[0] // blocks
+        out = []
+        for r in range(blocks):
+            local = bt_idx - r * n
+            idx = local.clamp(0, n - 1)
+            k = kp[r * n:(r + 1) * n][idx].reshape(b, pps * P, h, hd)
+            v = vp[r * n:(r + 1) * n][idx].reshape(b, pps * P, h, hd)
+            if blocks == 1:
+                out.append((k, v, mask))
+                continue
+            elsewhere = ((local < 0) | (local >= n)).repeat_interleave(P, dim=1)
+            out.append((k, v, mask + elsewhere.float() * -1e9))
+        return out
 
     # -- host side ------------------------------------------------------------
     def host_decode(self, payload: bytes, content_type: str) -> Any:

@@ -24,7 +24,7 @@ import torch
 
 from tpuserve_torch import frame, preproc
 from tpuserve_torch.config import ModelConfig
-from tpuserve_torch.models.base import DTYPES, ServingModel, TensorSpec, check_mesh
+from tpuserve_torch.models.base import DTYPES, ServingModel, TensorSpec
 
 
 class ImageClassifierServing(ServingModel):
@@ -35,10 +35,10 @@ class ImageClassifierServing(ServingModel):
 
     def __init__(self, cfg: ModelConfig) -> None:
         super().__init__(cfg)
-        # Replica, a sharded data axis and (for the runtime's refusal)
-        # pipeline are the runtime's; the split of the weights over a model
-        # axis (the reference's rules) is not ported yet.
-        check_mesh(cfg)
+        # Replica, a sharded mesh and (for the runtime's refusal) pipeline
+        # are the runtime's: parameters replicate over "model" and "seq"
+        # (ServingModel.mesh_module), unless the family splits them over
+        # "model" by the reference's rules (ResNet-50).
         self.dtype = DTYPES[cfg.dtype]
         self.top_k = min(self.TOP_K, cfg.num_classes)
         # Normalisation the network was trained with, as (mean, std) applied

@@ -26,7 +26,8 @@ Dispatch is by the tensors' device, never by a fallback:
 
 ``launches`` counts K1's launches and ``stats_launches`` K2's (one per call on
 CUDA tensors, none on the CPU), so a run can show that its main path went
-through the kernel; ``shape_launches`` splits K1's count by q's (B, Sq, H, D). A call made while a CUDA graph is being captured counts
+through the kernel; ``shape_launches`` splits K1's count by q's (B, Sq, H, D)
+and ``stats_shape_launches`` K2's. A call made while a CUDA graph is being captured counts
 once at capture, though its launch runs at every replay; whoever replays the
 graph adds the launches it recorded (``count_replay``): the serving
 runtime's graphs do. A capture learns its own launches from
@@ -54,6 +55,7 @@ import torch
 launches = 0
 stats_launches = 0
 shape_launches: dict[tuple[int, int, int, int], int] = {}
+stats_shape_launches: dict[tuple[int, int, int, int], int] = {}
 _launches_lock = threading.Lock()
 # The launches of the calling thread's capture_launches block, if any.
 _capturing = threading.local()
@@ -71,27 +73,30 @@ def reset_launches() -> None:
     with _launches_lock:
         launches = stats_launches = 0
         shape_launches.clear()
+        stats_shape_launches.clear()
 
 
-def count_replay(k1: int, k2: int, k1_shapes: dict | None = None) -> None:
+def count_replay(k1: int, k2: int, k1_shapes: dict | None = None,
+                 k2_shapes: dict | None = None) -> None:
     """Add the K1 and K2 launches of one replay of a captured CUDA graph
-    (the launches its capture recorded, K1's by shape in ``k1_shapes``) to
-    the counts."""
+    (the launches its capture recorded, each kernel's by shape in
+    ``k1_shapes`` and ``k2_shapes``) to the counts."""
     global launches, stats_launches
     with _launches_lock:
         launches += k1
         stats_launches += k2
-        for shape, n in (k1_shapes or {}).items():
-            shape_launches[shape] = shape_launches.get(shape, 0) + n
+        for counts, shapes in ((shape_launches, k1_shapes), (stats_shape_launches, k2_shapes)):
+            for shape, n in (shapes or {}).items():
+                counts[shape] = counts.get(shape, 0) + n
 
 
 @contextlib.contextmanager
 def capture_launches():
     """Count the K1 and K2 launches the calling thread makes inside the
     block, apart from every other thread's: yields ``{"k1": n, "k2": n,
-    "shapes": {q shape: n}}``, filled as the launches happen (what one
-    captured graph's replay launches)."""
-    rec = {"k1": 0, "k2": 0, "shapes": {}}
+    "shapes": {q shape: n}, "k2_shapes": {q shape: n}}``, filled as the
+    launches happen (what one captured graph's replay launches)."""
+    rec = {"k1": 0, "k2": 0, "shapes": {}, "k2_shapes": {}}
     prev = getattr(_capturing, "rec", None)
     _capturing.rec = rec
     try:
@@ -244,6 +249,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with _launches_lock:
         if stats:
             stats_launches += 1
+            stats_shape_launches[(b, sq, h, d)] = stats_shape_launches.get((b, sq, h, d), 0) + 1
         else:
             launches += 1
             shape_launches[(b, sq, h, d)] = shape_launches.get((b, sq, h, d), 0) + 1
@@ -251,6 +257,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rec is not None:
         if stats:
             rec["k2"] += 1
+            rec["k2_shapes"][(b, sq, h, d)] = rec["k2_shapes"].get((b, sq, h, d), 0) + 1
         else:
             rec["k1"] += 1
             rec["shapes"][(b, sq, h, d)] = rec["shapes"].get((b, sq, h, d), 0) + 1

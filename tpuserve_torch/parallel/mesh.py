@@ -147,6 +147,14 @@ def batch_sharding(mesh: Mesh) -> list[torch.device]:
     return mesh.axis_devices(DATA_AXIS)
 
 
+def seq_mesh(mesh: Mesh, data: int = 0, model: int = 0) -> Mesh:
+    """The (1, 1, sp) mesh of one (data, model) rank's seq ranks. A rank
+    module of a split forward holds that rank's rows and heads already, so
+    BERT's ring or Ulysses attention there runs over this mesh: its own seq
+    devices, with no data or model axis left to split them again."""
+    return Mesh(mesh.devices[data:data + 1, model:model + 1, :])
+
+
 def replicated_sharding(mesh: Mesh) -> list[torch.device]:
     """Params (data-parallel mode): one full copy on every rank's device."""
     return list(mesh.devices.flat)

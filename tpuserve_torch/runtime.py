@@ -88,9 +88,12 @@ lists the devices; the tests and ``chip_smoke.py`` patch it):
 - ``"sharded"``: a (data, model, seq) mesh over ``select_devices`` (the
   buckets round up to multiples of the data axis); with a data or model
   axis larger than 1 each parameter slot is a ``MeshModule`` of rank
-  modules (the family's ``mesh_module``: a copy per data rank, BERT's
-  weights split over the model axis) and the family's ``mesh_forward``
-  runs them; a seq axis alone stays inside BERT's ring/Ulysses attention;
+  modules (the family's ``mesh_module``: a copy per data rank, BERT's,
+  ResNet-50's and textgen's weights split over the model axis, the other
+  families' replicated over it) and the family's ``mesh_forward`` runs
+  them; a seq axis runs BERT's ring/Ulysses attention and textgen's KV
+  context (each rank module over its own seq ranks) and replicates the
+  other families' work;
 - ``"pipeline"``: a ("stage",) mesh of ``pp`` stages, for a family that
   pipelines its own depth (BERT), without ``quantize``;
 - ``"replica"``: ``ReplicaRuntime``, one one-device runtime per device.
@@ -251,13 +254,14 @@ class Variant:
 class Graph:
     """One bucket's forward captured on one parameter slot: its static
     input and output tensors, and the K1/K2 launches one replay makes
-    (K1's by q shape in ``k1_shapes``)."""
+    (each kernel's by q shape in ``k1_shapes`` and ``k2_shapes``)."""
 
     graph: Any  # torch.cuda.CUDAGraph
     inputs: tuple
     outputs: dict
     launches: tuple[int, int]
     k1_shapes: dict
+    k2_shapes: dict
 
 
 @dataclass
@@ -362,15 +366,18 @@ class ModelRuntime:
         # cards is refused (_plan_mesh).
         self.device = self.mesh.devices.flat[0]
         # True when a slot is a MeshModule: a data or model axis larger
-        # than 1, or pipeline stages (a seq axis alone stays inside BERT's
-        # ring/Ulysses attention on one module).
+        # than 1, or pipeline stages. A seq axis alone keeps one module: BERT's
+        # ring/Ulysses attention and textgen's KV context run over the mesh's
+        # seq ranks inside it, and every other family's work replicates over
+        # them. Beside a data or model axis each rank module takes its own
+        # seq ranks (the family's mesh_module).
         self.split = (self.mode == "pipeline" or self.mesh.shape.get(DATA_AXIS, 1) > 1
                       or self.mesh.shape.get(MODEL_AXIS, 1) > 1)
         if self.split and getattr(model, "generative", False) \
                 and not getattr(model, "mesh_programs", False):
             raise not_ported(f"a {self.mesh.shape} mesh for the generative family "
                              f"{self.cfg.family!r} (its programs on a split mesh)",
-                             "item 9b")
+                             "item 9b.4")
         # Mesh-aware models (BERT's ring/Ulysses attention, its pipeline
         # stages) close over it; this precedes building the modules.
         model.bind_mesh(self.mesh)
@@ -722,15 +729,15 @@ class ModelRuntime:
                     graph, pool=self._pool, stream=stream,
                     capture_error_mode="thread_local"):
                 outputs = self._forward(slot.module, inputs)
-            launches, shapes = (rec["k1"], rec["k2"]), rec["shapes"]
+            launches, shapes = (rec["k1"], rec["k2"]), (rec["shapes"], rec["k2_shapes"])
             if self.prewarm:
                 # A graph's first launch uploads it to the card: pay that
                 # here, at startup, not in the first request of the bucket.
                 with torch.cuda.stream(stream):
                     graph.replay()
-                fa.count_replay(*launches, shapes)
+                fa.count_replay(*launches, *shapes)
             stream.synchronize()
-        return Graph(graph, inputs, outputs, launches, shapes)
+        return Graph(graph, inputs, outputs, launches, *shapes)
 
     @property
     def compiles_total(self) -> float:
@@ -800,7 +807,7 @@ class ModelRuntime:
                 for dst, src in zip(g.inputs, dev_batch):
                     dst.copy_(src)
                 g.graph.replay()
-                fa.count_replay(*g.launches, g.k1_shapes)
+                fa.count_replay(*g.launches, g.k1_shapes, g.k2_shapes)
                 out = {k: v.clone() for k, v in g.outputs.items()}
                 slot.last_replay = torch.cuda.Event()
                 slot.last_replay.record()
@@ -931,13 +938,13 @@ class ModelRuntime:
                     graph, pool=self._pool, stream=stream,
                     capture_error_mode="thread_local"):
                 outputs = prog.fn(slot.module, state, *_unflatten(prog.arg_specs, prog.inputs))
-            launches, shapes = (rec["k1"], rec["k2"]), rec["shapes"]
+            launches, shapes = (rec["k1"], rec["k2"]), (rec["shapes"], rec["k2_shapes"])
             # The first launch uploads the graph: pay it at startup.
             with torch.cuda.stream(stream):
                 graph.replay()
-            fa.count_replay(*launches, shapes)
+            fa.count_replay(*launches, *shapes)
             stream.synchronize()
-        return Graph(graph, prog.inputs, outputs, launches, shapes)
+        return Graph(graph, prog.inputs, outputs, launches, *shapes)
 
     def run_program(self, tag: str, *args, params_override: StagedParams | None = None,
                     block: int = LIVE_BLOCK) -> Any:
@@ -972,7 +979,7 @@ class ModelRuntime:
                 for dst, a in zip(prog.inputs, arrays):
                     dst.copy_(torch.from_numpy(a).pin_memory(), non_blocking=True)
                 g.graph.replay()
-                fa.count_replay(*g.launches, g.k1_shapes)
+                fa.count_replay(*g.launches, g.k1_shapes, g.k2_shapes)
                 out = _map_out(g.outputs, torch.Tensor.clone)
                 slot.last_replay = torch.cuda.Event()
                 slot.last_replay.record()
