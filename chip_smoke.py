@@ -66,7 +66,7 @@ Phases (any failure exits non-zero before the result line):
    servers (``mesh_k1_phase``), with the card to itself. Each mode's replay
    device time beside single mode's is printed; nothing is gated on it.
 5c. The seq and model axes (``mesh_axes_phase``, ROADMAP items 9b.1-9b.2,
-   in a process of its own beside phases 15, 18, 19 and 26), on four ranks
+   in a process of its own beside phases 5d, 15, 18, 19 and 26), on four ranks
    on ``cuda:0`` as 5b's: full-width BERT-base (``examples/bert_long_ring.toml``'s
    widths, 12 layers, bf16) at the (16, 4096) bucket, ring on data 2 x seq 2
    (K2's launches by shape over one batch exactly {(8, 2048, 12, 64): 96})
@@ -82,6 +82,27 @@ Phases (any failure exits non-zero before the result line):
    on dense KV, tp = 2 x sp = 2 on paged KV over an even page count), runs
    in 5b's sharded decode check. K1 at (16, 4096, 3, 64) is timed in
    5b's ``mesh_k1_phase``, with the card to itself.
+5d. SD 1.5 on a split mesh (``mesh_sd_phase``, ROADMAP item 9b.4, in a
+   process of its own beside phases 5c, 15, 18, 19 and 26), on four ranks
+   on ``cuda:0`` as 5c's: full-width SD 1.5 (``examples/sd15_flash.toml``,
+   seeded, bf16, flash) in single mode and on data 2 x model 2 (each model
+   rank 4 of the 8 heads and its GEGLU block), bucket (2,), one parameter
+   slot, the engine's programs (8 slots) captured on each runtime: one
+   2-row UNet call on the split view within ``SD_EPS_REL`` of single mode's
+   eps scale, K1 by shape exactly 10 at each of (2, 4096, 4, 64) and (2,
+   1024, 4, 128); the locked batch's K1 exactly 400 at each shape (20 steps
+   x 2 data ranks x 2 model ranks x 5), its replay bit-identical to its
+   eager ``mesh_forward`` and the same bytes twice, no compile or capture
+   over the replay timing's 9 dispatches; 4 requests through the engine,
+   then in reverse order (other slots), the same PNG bytes, K1 exactly 10
+   per step at each (16, ...) shape, no compile or capture; every locked
+   image (one a data rank) and engine PNG against single mode's: mean abs
+   pixel difference within ``SD_MESH_PIXEL_MEAN`` and at least
+   ``SD_MESH_PIXEL_EQUAL`` of the pixels equal; the max and mean
+   differences, and the locked and engine-step device times beside single
+   mode's, printed. K1 at SD's
+   four split shapes is timed in 5b's ``mesh_k1_phase``, with the card to
+   itself.
 6. Slice: start ``python -m tpuserve_torch serve`` on a full-width BERT-base
    config (12 layers, d_model 768, 12 heads, d_ff 3072, vocab 30522, bf16,
    attention = "flash", seq buckets [64, 128], batch buckets [1, 8, 32],
@@ -1663,6 +1684,209 @@ def mesh_axes_vision() -> dict:
     return out
 
 
+# SD 1.5 on data 2 x model 2 (item 9b.4, phase 5d): examples/sd15_flash.toml
+# at the (2,) bucket, one parameter slot, the engine's programs (8 slots)
+# captured on the same runtime; 4 requests through the engine, then the
+# same in reverse order (other slots). The locked batch's replay timing's
+# dispatches (a replay is ~0.8 s) are the compile and capture gate's.
+SD_MESH_FIELDS = {"parallelism": "sharded", "tp": 2}
+SD_MESH_CHIPS = 4
+SD_MESH_SLOTS = 8
+SD_MESH_REQUESTS = 4
+SD_MESH_REPLAYS = (2, 3)
+# The split images against single mode's: the model ranks' partial sums in
+# bf16 drift a 20-step image by a pixel or two (on an H100: mean abs 0.98-1.70,
+# 25-32 % of the pixels equal); a rank that computes the wrong thing moves
+# the image far past these limits.
+SD_MESH_PIXEL_MEAN = 4.0
+SD_MESH_PIXEL_EQUAL = 0.15
+# K1's shapes per padded level: (latent tokens, head dim, padded head dim).
+SD_LEVELS = ((4096, 40, 64), (1024, 80, 128))
+
+
+def sd_k1_want(rows: int, tp: int, calls: int) -> dict:
+    """K1's launches by shape over ``calls`` UNet calls of ``rows`` rows on
+    ``tp`` model ranks: each rank's 5 flash attentions a level at its 8 /
+    tp heads."""
+    return {(rows, s_, 8 // tp, dp): 5 * tp * calls for s_, _, dp in SD_LEVELS}
+
+
+def engine_results(eng, waves: list) -> list:
+    """The results of each list of items in ``waves`` through an
+    in-process engine, one wave after the other (started and stopped
+    once)."""
+    import asyncio
+
+    async def go():
+        await eng.start()
+        out = [await asyncio.gather(*[eng.submit(it) for it in items]) for items in waves]
+        await eng.stop()
+        return out
+
+    return asyncio.run(go())
+
+
+def sd_mesh_side(fields: dict, n_chips: int, params: dict, items: list, unet_in: tuple) -> dict:
+    """SD 1.5 (``SD_CONFIG``'s model on ``params``) on a runtime of the
+    mode ``fields`` names, ranks on cuda:0, bucket (2,), one parameter
+    slot, its engine's programs captured on it: one 2-row UNet call on its
+    first data rank's module (the model ranks' ``TPView`` when split), the
+    locked batch of ``items[:2]`` (replay against the eager forward, the
+    same bytes twice, no compile or capture over the replay timing's
+    dispatches), the engine on ``items`` and on them reversed (the same
+    PNG bytes, no compile or capture), K1's launches by shape in each, and
+    the replay and engine device times."""
+    import dataclasses
+
+    import torch
+
+    from tpuserve_torch.config import ParallelConfig, load_config
+    from tpuserve_torch.genserve import GenEngine
+    from tpuserve_torch.models import build
+    from tpuserve_torch.models.base import MeshModule
+    from tpuserve_torch.obs import Metrics
+    from tpuserve_torch.ops import flash_attention as fa
+    from tpuserve_torch.runtime import build_runtime
+
+    t0 = time.perf_counter()
+    cfg = load_config(str(SD_CONFIG))
+    model = build(dataclasses.replace(cfg.models[0], batch_buckets=[2], **fields))
+    model.load_params = lambda: params
+    rt = build_runtime(model, device="cuda", n_slots=1, parallel=ParallelConfig(n_chips=n_chips))
+    eng = GenEngine(model, rt, Metrics(), dataclasses.replace(cfg.genserve, slots=SD_MESH_SLOTS))
+    eng.compile()
+    dp, tp = rt.mesh.shape["data"], rt.mesh.shape["model"]
+    label = f"mesh sd15 {rt.parallel_signature} tp {tp}"
+    split = isinstance(rt.module, MeshModule)
+    out = {"signature": rt.parallel_signature, "mesh_shape": dict(rt.mesh.shape),
+           "rank_modules": len(rt.module.ranks) if split else 1,
+           "startup_s": time.perf_counter() - t0}
+    unet = model.data_ranks(rt.module)[0] if split else rt.module
+    fa.reset_launches()
+    with torch.inference_mode():
+        out["eps"] = unet.unet(*unet_in).float()
+    torch.cuda.synchronize()
+    got = dict(fa.shape_launches)
+    check(got == sd_k1_want(2, tp, 1), f"{label}: one 2-row UNet call launched K1 {got}")
+    out["unet_k1_by_shape"] = by_shape(got)
+    bucket = (2,)
+    dev = rt.h2d(bucket, model.assemble(items[:2], bucket))
+    fa.reset_launches()
+    first = rt.dispatch(bucket, dev)
+    torch.cuda.synchronize()
+    got = dict(fa.shape_launches)
+    want = sd_k1_want(2 * (2 // dp), tp, SD_STEPS * dp)
+    check(got == want, f"{label}: the locked batch launched K1 {got}, expected {want}")
+    out["locked_k1_by_shape"] = by_shape(got)
+    graphs0 = (rt.compiles_total, rt.captures_total)
+    out.update(replay_timing(rt, bucket, dev, *SD_MESH_REPLAYS))
+    check((rt.compiles_total, rt.captures_total) == graphs0,
+          f"{label}: compiles/captures moved {graphs0} over the replays")
+    second = rt.dispatch(bucket, dev)
+    with torch.inference_mode():
+        eager = (model.mesh_forward if split else model.forward)(rt.module, dev)
+    check(torch.equal(first["image"], second["image"]),
+          f"{label}: the same locked batch twice gave other bytes")
+    check(torch.equal(first["image"], eager["image"]),
+          f"{label}: the locked replay differs from the eager forward")
+    out["images"] = first["image"].cpu().numpy()
+    steps0 = eng.pipeline_stats()["iterations_total"]
+    fa.reset_launches()
+    pngs, again = engine_results(eng, [items, items[::-1]])
+    steps = eng.pipeline_stats()["iterations_total"] - steps0
+    got = dict(fa.shape_launches)
+    want = sd_k1_want(2 * SD_MESH_SLOTS, tp, steps)
+    check(again[::-1] == pngs, f"{label}: the same requests in other slots gave other PNG "
+          f"bytes ({sum(a != b for a, b in zip(again[::-1], pngs))} of {len(pngs)})")
+    check(steps > 0 and got == want, f"{label}: the engine launched K1 {got} in {steps} steps, "
+          f"expected {want}")
+    check((rt.compiles_total, rt.captures_total) == graphs0,
+          f"{label}: the engine moved compiles/captures {graphs0}")
+    out.update(pngs=pngs, engine_steps=steps, engine_k1_by_shape=by_shape(got),
+               compiles_total=rt.compiles_total, captures_total=rt.captures_total,
+               engine=sd_engine_timing(rt, eng, items[0], label=label),
+               build_and_checks_s=time.perf_counter() - t0)
+    del eng, rt
+    free_runtime()
+    return out
+
+
+def mesh_axes_sd() -> dict:
+    """SD 1.5 at full width on data 2 x model 2 (item 9b.4) against single
+    mode on the same seeded weights: one bf16 2-row UNet call's eps within
+    ``SD_EPS_REL`` of single mode's scale, every locked and engine image
+    within ``SD_MESH_PIXEL_MEAN`` mean abs pixel difference of single
+    mode's with at least ``SD_MESH_PIXEL_EQUAL`` of its pixels equal, each
+    side's gates (``sd_mesh_side``) and device times."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    model = sd_model()
+    params = model.init_params(0, "cuda")
+    items = [model.host_decode(json.dumps(b).encode(), "application/json")
+             for b in sd_bodies()[:SD_MESH_REQUESTS]]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    unet_in = (torch.randn(2, 64, 64, 4, generator=g, device="cuda"),
+               torch.tensor([500, 500], dtype=torch.int32, device="cuda"),
+               torch.randn(2, 77, 768, generator=g, device="cuda").to(torch.bfloat16))
+    single = sd_mesh_side({"parallelism": "single"}, 0, params, items, unet_in)
+    split = sd_mesh_side(SD_MESH_FIELDS, SD_MESH_CHIPS, params, items, unet_in)
+    del params
+    free_runtime()
+    scale = float(single["eps"].abs().max())
+    diff = float((split.pop("eps") - single.pop("eps")).abs().max())
+    check(diff <= SD_EPS_REL * scale, f"mesh sd15: the split UNet call's eps differ from "
+          f"single mode's by {diff:.4g}, over {SD_EPS_REL} of its scale {scale:.4g}")
+
+    def pixels(a, b) -> dict:
+        d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+        return {"max_abs": int(d.max()), "mean_abs": float(d.mean()),
+                "equal_share": float((d == 0).mean())}
+
+    locked = [pixels(a, b) for a, b in zip(split.pop("images"), single.pop("images"))]
+    engine = [pixels(read_png(a), read_png(b))
+              for a, b in zip(split.pop("pngs"), single.pop("pngs"))]
+    out = {"single": single, "data2_model2": split,
+           "unet_eps": {"max_abs_diff": diff, "single_max_abs": scale,
+                        "share_of_scale": diff / scale, "bound_share": SD_EPS_REL},
+           "locked_vs_single": locked, "engine_vs_single": engine,
+           "k1_launches": {f"sd_{k}": n for k, n in {**split["locked_k1_by_shape"],
+                                                     **split["engine_k1_by_shape"]}.items()},
+           "phase_s": time.perf_counter() - t0}
+    print(f"mesh sd15: data 2 x model 2 against single: UNet eps {diff:.4g} = "
+          f"{diff / scale:.4f} of the scale (bound {SD_EPS_REL}); locked PNGs max/mean abs pixel "
+          + ", ".join(f"{p['max_abs']}/{p['mean_abs']:.3f}" for p in locked)
+          + "; engine PNGs " + ", ".join(f"{p['max_abs']}/{p['mean_abs']:.3f}" for p in engine)
+          + f"; locked replay {split['replay_device_ms']:.1f} vs {single['replay_device_ms']:.1f} "
+          f"ms, engine step at 8 slots {split['engine'][8]['step_device_ms']:.1f} vs "
+          f"{single['engine'][8]['step_device_ms']:.1f} ms; K1 locked "
+          f"{split['locked_k1_by_shape']}, engine {split['engine_k1_by_shape']} in "
+          f"{split['engine_steps']} steps; {out['phase_s']:.1f} s", flush=True)
+    for what, rows in (("locked image", locked), ("engine PNG", engine)):
+        for i, p in enumerate(rows):
+            check(p["mean_abs"] <= SD_MESH_PIXEL_MEAN and p["equal_share"] >= SD_MESH_PIXEL_EQUAL,
+                  f"mesh sd15: {what} {i} differs from single mode's by {p['mean_abs']:.3f} "
+                  f"mean abs pixel with {p['equal_share']:.3f} of its pixels equal (limits "
+                  f"{SD_MESH_PIXEL_MEAN}, {SD_MESH_PIXEL_EQUAL})")
+    return out
+
+
+def mesh_sd_phase(card: str) -> dict:
+    """Phase 5d: item 9b.4 on the card (``mesh_axes_sd``), the ranks on
+    cuda:0 as phase 5c's, in a process of its own beside 5c, 15, 18, 19
+    and 26."""
+    from unittest import mock
+
+    import torch
+
+    from tpuserve_torch.parallel import mesh as meshlib
+
+    with mock.patch.object(meshlib, "visible_devices",
+                           lambda *a: [torch.device("cuda", 0)] * 4):
+        return dict(mesh_axes_sd(), card=card)
+
+
 def mesh_axes_phase(card: str) -> dict:
     """Phase 5c: items 9b.1 and 9b.2 on the card, the ranks on cuda:0
     (``visible_devices`` patched to four ranks on it, as phase 5b's; 9b.3's
@@ -1691,9 +1915,11 @@ def mesh_axes_phase(card: str) -> dict:
 def mesh_k1_phase() -> dict:
     """K1 at each of phase 5b's new shapes, timed as phase 3 times the main
     path's, with the launches one (32, 128) batch makes there on its mode's
-    path. Run once no other phase uses the card: phase 5b itself runs beside
-    phase 9's and 12's servers, whose work would stretch the kernel's device
-    time."""
+    path, and at phases 5c's and 5d's (Ulysses' local step; SD 1.5's
+    model ranks, ``sd_k1_row`` at 4 heads, whose launches ``main`` takes
+    from 5d's counts). Run once no other phase uses the card: phase 5b itself runs
+    beside phase 9's and 12's servers, whose work would stretch the
+    kernel's device time."""
     out = {}
     for name, _, _, want_k1 in MESH_MODES:
         for (b, s_, h, d), n in want_k1.items():
@@ -1711,6 +1937,16 @@ def mesh_k1_phase() -> dict:
                 row["line"]["launches"] = n
                 row["line"]["launches_path"] = f"mesh {name}, one {AXES_BUCKET} batch"
                 out[f"{b}x{s_}x{h}x{d}"] = row
+    # SD 1.5's model ranks on data 2 x model 2 (phase 5d): 4 of 8 heads at
+    # each padded level, 2 rows on the locked path, 2 x 8 slots in the
+    # engine's step; their launches are phase 5d's counts (main).
+    for b in (2, 2 * SD_MESH_SLOTS):
+        for s_, d, dp in SD_LEVELS:
+            row = sd_k1_row(b, s_, d, heads=4)
+            row["line"]["launches_path"] = (
+                "mesh sd15 data 2 x model 2, one (2,) locked batch" if b == 2 else
+                f"mesh sd15 data 2 x model 2, the engine's steps at {SD_MESH_SLOTS} slots")
+            out[f"sd_{b}x{s_}x4x{dp}"] = row
     return out
 
 
@@ -2167,6 +2403,9 @@ def h2d_overlap_check(rt, model) -> None:
           "batch's forward still queued (it waits for its own copy only)", flush=True)
 
 
+# A served port taken before the server bound it: new ports tried at most.
+PORT_TAKEN_RETRIES = 2
+
 # Servers started ahead of their use (``prestart``), by ``serving``'s
 # arguments: ``serving`` takes its server from here when one is waiting.
 _PRESTARTED: dict[tuple, dict] = {}
@@ -2190,6 +2429,25 @@ def _start_server(config: Path, overrides: tuple, extra_toml: str,
                                 cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
                                 env={**os.environ, **dict(env)} if env else None)
     return {"port": port, "proc": proc, "log": log_path, "tmp": tmp}
+
+
+def _wait_bound(srv: dict, n_buckets: int, restart) -> None:
+    """``wait_healthy`` for the server ``srv``. One that exited because its
+    port was taken before it bound it (``free_port`` releases the port, and
+    any process may listen on it in the seconds the server boots) is
+    started again on a new port (``restart()``, ``srv`` updated in place),
+    up to ``PORT_TAKEN_RETRIES`` times; any other failure stands."""
+    for attempt in range(PORT_TAKEN_RETRIES + 1):
+        try:
+            return wait_healthy(srv["proc"], srv["port"], srv["log"], n_buckets)
+        except SmokeFailure:
+            if (attempt == PORT_TAKEN_RETRIES or srv["proc"].poll() is None
+                    or "address already in use" not in srv["log"].read_text()):
+                raise
+        print(f"slice: port {srv['port']} was taken before the server bound it; "
+              "starting the server again on another", flush=True)
+        _stop_server(srv)
+        srv.update(restart())
 
 
 def _stop_server(srv: dict) -> None:
@@ -2232,11 +2490,14 @@ def serving(config: Path, n_buckets: int, overrides: tuple = (), extra_toml: str
     each other's); prints each model's graphs and the memory their capture
     reserved; yields the port (and the process, ``with_proc``, or the path of
     its log, ``with_log``) and stops the server on the way out."""
+    def start() -> dict:
+        return _start_server(config, tuple(overrides), extra_toml, tuple(env))
+
     srv = _PRESTARTED.pop((str(config), tuple(overrides), extra_toml, tuple(env)), None) \
-        or _start_server(config, tuple(overrides), extra_toml, tuple(env))
-    port, proc, log_path = srv["port"], srv["proc"], srv["log"]
+        or start()
     try:
-        wait_healthy(proc, port, log_path, n_buckets)
+        _wait_bound(srv, n_buckets, start)
+        port, proc, log_path = srv["port"], srv["proc"], srv["log"]
         for other in list(_PRESTARTED.values()):  # booting beside this one
             if other["thread"] != threading.get_ident():
                 continue
@@ -6083,21 +6344,22 @@ def read_png(data: bytes):
     return rows[:, 1:].reshape(h, w, 3)
 
 
-def sd_bound(b: int, s: int, d: int, bias: bool) -> tuple[float, str, dict]:
-    """The least time for attention over (b, s, 8, d) bf16 q/k/v: q, k, v
-    and o moved once (and a float32 (b, s) bias), q.k^T and p.v at d."""
-    nbytes = 4 * b * s * 8 * d * 2 + (b * s * 4 if bias else 0)
-    flops = 4 * b * 8 * s * s * d
+def sd_bound(b: int, s: int, d: int, bias: bool, heads: int = 8) -> tuple[float, str, dict]:
+    """The least time for attention over (b, s, heads, d) bf16 q/k/v: q,
+    k, v and o moved once (and a float32 (b, s) bias), q.k^T and p.v at d."""
+    nbytes = 4 * b * s * heads * d * 2 + (b * s * 4 if bias else 0)
+    flops = 4 * b * heads * s * s * d
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             {"bytes": nbytes, "operations": flops})
 
 
-def sd_k1_row(b: int, s: int, d: int) -> dict:
-    """K1 at an SD shape: (b, s, 8, d) bf16 q/k/v padded to the next
+def sd_k1_row(b: int, s: int, d: int, heads: int = 8) -> dict:
+    """K1 at an SD shape: (b, s, heads, d) bf16 q/k/v padded to the next
     multiple of 64 in the head dim (zero lanes) and q pre-scaled, as the
     UNet hands them over (b = 2 on the locked path, 2 x 8 slots in the
-    engine's step), against its plain version in float32 (phase 3's bf16
+    engine's step; 8 heads, 4 on a model rank at tp = 2), against its
+    plain version in float32 (phase 3's bf16
     tolerance, its atol a share of the output's scale), K1's TMA layout
     rule on the padded tensors; timed with its plain version (two rows at a
     time), its bound at the padded dim and at d, and SDPA on the UNPADDED
@@ -6108,13 +6370,13 @@ def sd_k1_row(b: int, s: int, d: int) -> dict:
     from tpuserve_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(b + s + d)
-    q, k, v = (torch.randn(b, s, 8, d, generator=g, device="cuda").to(torch.bfloat16)
+    q, k, v = (torch.randn(b, s, heads, d, generator=g, device="cuda").to(torch.bfloat16)
                for _ in range(3))
     qp, kp, vp = (sd15.pad_head_dim(t) for t in (q, k, v))
     dp = qp.shape[-1]
     qp = qp * sd15._rounded((dp / d) ** 0.5, torch.bfloat16)
     check(fa.tma_layout_problem(qp, kp, vp) is None,
-          f"sd15: padded ({b}, {s}, 8, {dp}) tensors break K1's TMA rule: "
+          f"sd15: padded ({b}, {s}, {heads}, {dp}) tensors break K1's TMA rule: "
           f"{fa.tma_layout_problem(qp, kp, vp)}")
     bias = torch.zeros(b, s, device="cuda")
     max_err = compare(qp, kp, vp, bias, scaled=True, rows=2)
@@ -6128,18 +6390,18 @@ def sd_k1_row(b: int, s: int, d: int) -> dict:
     plain_ms = time_ms(lambda: plain_k1(qp, kp, vp, bias, rows=2), iters=max(2, 20 // b))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
-    bound, bound_by, bound_inputs = sd_bound(b, s, dp, bias=True)
-    bound_d, bound_by_d, _ = sd_bound(b, s, d, bias=False)
+    bound, bound_by, bound_inputs = sd_bound(b, s, dp, bias=True, heads=heads)
+    bound_d, bound_by_d, _ = sd_bound(b, s, d, bias=False, heads=heads)
     line = {"name": "flash_attention", "route": "cuda",
             "source": "tpuserve_torch/ops/csrc/flash_attention.cu",
-            "replaces": "tpuserve/ops/flash_attention.py:96", "shape": [b, s, 8, dp],
+            "replaces": "tpuserve/ops/flash_attention.py:96", "shape": [b, s, heads, dp],
             "from_head_dim": d, "max_abs_err": max_err,
             "tolerance": "atol 1.6e-2 x max|plain|, rtol 1.6e-2", "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "library": f"SDPA on the unpadded ({b}, 8, {s}, {d}) heads",
+            "library": f"SDPA on the unpadded ({b}, {heads}, {s}, {d}) heads",
             "bound_ms": bound, "bound_by": bound_by,
             "bound_ms_unpadded": bound_d, "bound_by_unpadded": bound_by_d}
-    print(f"sd15: K1 at ({b}, {s}, 8, {dp} <- {d}) bf16 agrees with its plain version (max abs "
+    print(f"sd15: K1 at ({b}, {s}, {heads}, {dp} <- {d}) bf16 agrees with its plain version (max abs "
           f"err {max_err:.3g}); {ms * 1e3:.2f} us against a {bound * 1e3:.2f} us {bound_by} "
           f"bound ({bound_d * 1e3:.2f} us at d = {d}), plain {plain_ms * 1e3:.1f} us, SDPA "
           f"unpadded {library_ms * 1e3:.2f} us", flush=True)
@@ -6416,7 +6678,7 @@ def sd_in_process(served_png: bytes, sets: tuple) -> dict:
     return out
 
 
-def sd_engine_timing(rt, eng, item) -> dict:
+def sd_engine_timing(rt, eng, item, label: str = "sd15 engine") -> dict:
     """Device times (CUDA events) of the insert (CLIP + the latent draw), of
     the step at 1 and 8 active slots, and of the extract (VAE decode)."""
     import numpy as np
@@ -6446,7 +6708,7 @@ def sd_engine_timing(rt, eng, item) -> dict:
                 for _ in range(5)]
     out["extract_device_ms"] = sorted(extracts)[2]
     rt.zero_state(LIVE_BLOCK)
-    print(f"sd15 engine: insert (CLIP) {out[1]['insert_device_ms']:.2f} ms, step at 1 / 8 "
+    print(f"{label}: insert (CLIP) {out[1]['insert_device_ms']:.2f} ms, step at 1 / 8 "
           f"active slots {out[1]['step_device_ms']:.1f} / {out[8]['step_device_ms']:.1f} ms, "
           f"extract (VAE) {out['extract_device_ms']:.1f} ms of device time", flush=True)
     return out
@@ -8136,8 +8398,8 @@ def main() -> int:
         # Side by side (the smoke's time limit): a phase that only drives
         # servers and subprocesses (9, 12, 16, 18, 21, 25) runs beside one
         # that works on the card in this process (5b, 15, 17, 20's served
-        # part), never two of the latter in one process (phases 19, 26 and
-        # 5c run in processes of their own beside 15), and never beside a phase whose
+        # part), never two of the latter in one process (phases 19, 26, 5c
+        # and 5d run in processes of their own beside 15), and never beside a phase whose
         # gates are on time (8, 10, 11, 13, 14) or whose kernel timings the
         # kernels line reports (3, 4, 5b's and 20's K1 rows, timed alone).
         # Phase 9's two drills run side by side too.
@@ -8160,12 +8422,13 @@ def main() -> int:
                 textgen = timed("17", textgen_phase, card)
             finally:
                 cli_run = cli_future.result()
-        # Phases 19, 26 and 5c train or serve on the card in processes of
-        # their own; 15 and 18 run here meanwhile, and 26 and 5c end before
-        # 19 does.
+        # Phases 19, 26, 5c and 5d train or serve on the card in processes
+        # of their own; 15 and 18 run here meanwhile, and 26, 5c and 5d end
+        # before 19 does.
         moe_run = Apart("19", moe_phase, card)
         train_run = Apart("26", training_phase, card)
         axes_run = Apart("5c", mesh_axes_phase, card)
+        sd_mesh_run = Apart("5d", mesh_sd_phase, card)
         try:
             with cf.ThreadPoolExecutor(1) as beside:
                 stream_run = beside.submit(timed, "18", streaming_phase, card,
@@ -8181,7 +8444,10 @@ def main() -> int:
                 try:
                     training = train_run.result()
                 finally:
-                    mesh["axes"] = axes_run.result()
+                    try:
+                        mesh["axes"] = axes_run.result()
+                    finally:
+                        mesh["sd"] = sd_mesh_run.result()
         sd_prepared = timed("20 (K1 timings, checkpoint)", sd15_prepare, card)
         with cf.ThreadPoolExecutor(2) as beside:
             deferred_run = beside.submit(timed, "25", deferred_phase, card,
@@ -8282,6 +8548,9 @@ def main() -> int:
     print(json.dumps({"graphs": {"bert_flash": run["graphs"], "bert_long_ring": long["graphs"],
                                  "resnet50": vision_graphs, "mobilenetv3": mnv3_graphs,
                                  "efficientdet": det_graphs}}))
+    # Phase 5d's K1 launches at SD's split shapes, on the rows 5b timed.
+    for key, n in mesh["sd"]["k1_launches"].items():
+        mesh["k1"][key]["line"]["launches"] = n
     print(json.dumps({"mesh": mesh}, default=str))
     print(json.dumps({"lifecycle": lifecycle}))
     print(json.dumps({"robustness": robustness}))

@@ -331,19 +331,17 @@ def test_worker_tier_keys_of_typed_tables_are_refused_when_written(name, value):
     assert cfg.unported == {} and tconfig.unported_settings(cfg) == []
 
 
-@pytest.mark.parametrize("key, value, named", [
-    ("sp", "2", None),
-    ("tp", "2", "item 9b.4")])
-def test_sd15_example_refuses_unserved_options_by_name(key, value, named, tmp_path,
+@pytest.mark.parametrize("key, value, axis", [
+    ("sp", "2", "seq"),
+    ("tp", "2", "model")])
+def test_sd15_example_refuses_unserved_options_by_name(key, value, axis, tmp_path,
                                                        monkeypatch):
-    """``examples/sd15_flash.toml`` builds (its module on the meta device);
-    with a setting the port does not serve written in, the server refuses
-    it at build time by name, with its ROADMAP.md item, where the reference
-    would serve it. (The reference's default, "sharded", serves on a
-    one-device mesh since the mesh modes were ported.) A seq axis (sp = 2)
-    serves since it was ported: the server builds it over two ranks, its
-    work replicated (the example at tiny widths: the full one takes
-    minutes on the CPU)."""
+    """``examples/sd15_flash.toml`` builds (its module on the meta device),
+    and so does the example with either mesh axis the port once refused
+    by name written in: a seq axis (sp = 2), its work replicated, and a
+    model axis (tp = 2), a module per model rank. The server builds each
+    over two ranks (the example at tiny widths: the full one takes minutes
+    on the CPU)."""
     from tpuserve_torch.models import build
     from tpuserve_torch.parallel import mesh as meshlib
     from tpuserve_torch.server import ServerState
@@ -353,24 +351,17 @@ def test_sd15_example_refuses_unserved_options_by_name(key, value, named, tmp_pa
 
     with torch.device("meta"):
         build(cfg.models[0]).build_module()
-    sets = [f"model.sd15.{key}={value}"]
-    if named is None:
-        monkeypatch.setattr(meshlib, "visible_devices", lambda *a: ["cpu"] * 2)
-        sets += ["model.sd15.parallelism='sharded'", "model.sd15.image_size=32",
-                 "model.sd15.batch_buckets=[1]",
-                 *(f"model.sd15.options.{k}={v}" for k, v in (
-                     ("steps", 2), ("text_layers", 1), ("unet_ch", 16), ("vae_ch", 16),
-                     ("vocab_size", 512), ("text_d_model", 32), ("text_heads", 2),
-                     ("unet_mults", [1, 2]), ("unet_res", 1), ("unet_attn_levels", [0]),
-                     ("unet_heads", 2), ("vae_mults", [1, 2])))]
-    bad = tconfig.load_config("examples/sd15_flash.toml", sets)
-    if named is None:
-        state = ServerState(bad, device="cpu")
-        state.build()
-        assert dict(state.runtimes["sd15"].mesh.shape)["seq"] == 2
-        return
-    with pytest.raises(NotImplementedError, match=named):
-        ServerState(bad, device="cpu").build()
+    monkeypatch.setattr(meshlib, "visible_devices", lambda *a: ["cpu"] * 2)
+    sets = [f"model.sd15.{key}={value}", "model.sd15.parallelism='sharded'",
+            "model.sd15.image_size=32", "model.sd15.batch_buckets=[1]",
+            *(f"model.sd15.options.{k}={v}" for k, v in (
+                ("steps", 2), ("text_layers", 1), ("unet_ch", 16), ("vae_ch", 16),
+                ("vocab_size", 512), ("text_d_model", 32), ("text_heads", 2),
+                ("unet_mults", [1, 2]), ("unet_res", 1), ("unet_attn_levels", [0]),
+                ("unet_heads", 2), ("vae_mults", [1, 2])))]
+    state = ServerState(tconfig.load_config("examples/sd15_flash.toml", sets), device="cpu")
+    state.build()
+    assert dict(state.runtimes["sd15"].mesh.shape)[axis] == 2
 
 
 # Keys typed since the router/worker tier was ported: every field of

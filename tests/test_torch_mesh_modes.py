@@ -248,15 +248,23 @@ def test_sd15_replicas_answer_single_bytes():
     assert asyncio.run(drive(group, m2)) == asyncio.run(drive(one, m1))
 
 
-def test_generative_family_on_a_split_mesh_is_refused():
-    """SD 1.5 serves on a one-device mesh and beside a seq axis alone; its
-    programs on a split one are ROADMAP item 9b.4 (textgen's are ported:
-    tests/test_torch_meshgen.py)."""
-    model = build(tconfig.ModelConfig(name="sd", family="sd15", parallelism="sharded",
+@pytest.mark.parametrize("parallelism, n_chips", [("sharded", 2), ("pipeline", 2)])
+def test_sd15_on_a_data_mesh_and_the_pipeline_refusal(parallelism, n_chips):
+    """SD 1.5 builds on a 2-rank data mesh (a copy per data rank, the
+    engine's programs on the first: tests/test_torch_sd15_mesh.py); the
+    pipeline layout stays refused, as the reference refuses it for a family
+    without a homogeneous block stack."""
+    model = build(tconfig.ModelConfig(name="sd", family="sd15", parallelism=parallelism,
                                       dtype="float32", image_size=32, options=dict(SD_TINY)))
-    with pytest.raises(NotImplementedError, match="item 9b.4"):
-        build_runtime(model, device="cpu", parallel=tconfig.ParallelConfig(n_chips=2),
-                      compile_forward=False)
+    make = lambda: build_runtime(model, device="cpu", compile_forward=False,  # noqa: E731
+                                 parallel=tconfig.ParallelConfig(n_chips=n_chips))
+    if parallelism == "pipeline":
+        with pytest.raises(ValueError, match="pipeline"):
+            make()
+        return
+    rt = make()
+    assert dict(rt.mesh.shape) == {"data": 2, "model": 1, "seq": 1}
+    assert rt.parallel_signature == "sharded@d2" and len(rt.module.ranks) == 2
 
 
 def test_pick_replica_least_loaded_and_tie_rotation_as_reference():

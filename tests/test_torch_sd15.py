@@ -538,15 +538,15 @@ def test_http_stream_frames(served):
 
 @pytest.mark.parametrize("over, exc, match", [
     (dict(options={**TINY, "bpe_vocab": "v.json"}), ValueError, "set together"),
-    (dict(tp=2), NotImplementedError, "item 9b.4"),
     (dict(weights="/nonexistent/frozen.pb"), NotImplementedError, "import-model"),
     (dict(options={**TINY, "unet_attention": "magic"}), ValueError, "unet_attention"),
     (dict(options={**TINY, "preview_every": -1}), ValueError, "preview_every"),
     (dict(dtype="float64"), ValueError, "dtype"),
-], ids=["bpe-half", "tp2", "tf-weights", "attention", "preview", "dtype"])
+], ids=["bpe-half", "tf-weights", "attention", "preview", "dtype"])
 def test_refusals(over, exc, match):
-    """What the slice does not serve is refused at build by name, with its
-    ROADMAP.md item; the reference's own validation messages otherwise."""
+    """What the port does not read is refused at build by name (a TF
+    graph as ``weights`` names ``import-model``); the reference's own
+    validation messages otherwise."""
     with pytest.raises(exc, match=match):
         port_build(sd_cfg(tconfig, **over))
 
@@ -556,7 +556,8 @@ def test_seq_axis_serves(engine, monkeypatch):
     """A seq axis alone (sp = 2 over two ranks, data and model 1) was
     refused until it was served: SD 1.5's work replicates over it, as in
     the reference, so the locked batch and the engine give single mode's
-    image bytes. Beside a data axis it stays refused (item 9b.4)."""
+    image bytes. Beside a data or model axis it serves a split slot
+    (tests/test_torch_sd15_mesh.py)."""
     from tpuserve_torch.parallel import mesh as meshlib
     from tpuserve_torch.runtime import build_runtime
 

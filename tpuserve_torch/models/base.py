@@ -63,20 +63,6 @@ def not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not yet ported to tpuserve_torch (ROADMAP.md queue 1: {item})")
 
 
-def check_mesh(cfg: ModelConfig) -> None:
-    """The port's refusal of a model axis (``tp > 1``) for a family whose
-    programs do not run on a split mesh yet (SD 1.5: ROADMAP item 9b.4; its
-    data axis is refused by the runtime, which alone knows the mesh), in
-    every mode, never quietly replicated. Every other family serves every
-    axis: a seq axis runs BERT's ring and Ulysses attention and textgen's
-    KV context and replicates the other families' work, as in the
-    reference."""
-    if cfg.tp > 1:
-        raise not_ported(f"tp={cfg.tp} for family {cfg.family!r} (its programs on a "
-                         "split mesh and the split of its weights over the model axis)",
-                         "item 9b.4")
-
-
 class MeshModule(torch.nn.Module):
     """One parameter slot of a mesh that splits the forward: a module per
     rank (``ranks``, in the layout the family's ``mesh_module`` chose —
@@ -108,6 +94,42 @@ def rows_gather(outs: list, device: torch.device) -> Any:
     if isinstance(outs[0], dict):
         return {k: torch.cat([o[k].to(device) for o in outs]) for k in outs[0]}
     return torch.cat([o.to(device) for o in outs])
+
+
+def partial_sum(parts: list[torch.Tensor], device: torch.device) -> torch.Tensor:
+    """The sum over the model axis, single-controller: each model rank's
+    partial output of a product whose input dim is split over the ranks,
+    added on ``device`` (the first rank's) in rank order, in the partials'
+    own dtype."""
+    total = parts[0].to(device)
+    for p in parts[1:]:
+        total = total + p.to(device)
+    return total
+
+
+def tp_bias_share(tree: dict, m: int, tp: int, cols: tuple[str, ...],
+                  rows: tuple[str, ...]) -> dict:
+    """Model rank ``m`` of ``tp``'s share of the biases the reference keeps
+    replicated and XLA slices with their split products, found by module
+    name anywhere in ``tree``: a product split by columns (named in
+    ``cols``) keeps its bias' block ``m`` along the first dim; a product
+    split by rows (``rows``) keeps its bias on rank 0 alone, zeros on the
+    others, so ``partial_sum`` adds it once. A new tree; every other leaf
+    is shared."""
+    def walk(node: dict) -> dict:
+        out = {}
+        for k, v in node.items():
+            if k in cols:
+                n = np.shape(v["bias"])[0] // tp
+                v = dict(v, bias=v["bias"][m * n:(m + 1) * n])
+            elif k in rows:
+                v = dict(v, bias=v["bias"] if m == 0 else np.zeros_like(v["bias"]))
+            elif isinstance(v, dict) and not quantize.is_quantized(v):
+                v = walk(v)
+            out[k] = v
+        return out
+
+    return walk(tree)
 
 
 def to_device(batch: tuple, device: torch.device) -> tuple:
@@ -300,14 +322,21 @@ class ServingModel(abc.ABC):
         devs = batch_sharding(mesh)
         return MeshModule([prepare(self, tree, d) for d in devs], mesh, (len(devs),))
 
+    def data_ranks(self, module: MeshModule) -> list:
+        """What each data rank of a ``MeshModule`` runs its rows on, in data
+        rank order: default, its copy. A family that splits a data rank
+        over model ranks returns a view of them."""
+        return list(module.ranks)
+
     def mesh_forward(self, module: MeshModule, batch: tuple) -> Outputs:
         """``forward`` over a ``MeshModule``: default, each data rank runs
-        its rows on its copy, on its device, and the rows come back to the
-        first rank's device (the batch is split and gathered, as the
-        reference's sharded executable takes and returns it)."""
+        its rows on its ``data_ranks`` module, on its device, and the rows
+        come back to the first rank's device (the batch is split and
+        gathered, as the reference's sharded executable takes and returns
+        it)."""
         devs = batch_sharding(module.mesh)
-        outs = [self.forward(rank, to_device(rows, d))
-                for rank, rows, d in zip(module.ranks, rows_split(batch, len(devs)), devs)]
+        outs = [self.forward(rank, to_device(rows, d)) for rank, rows, d in
+                zip(self.data_ranks(module), rows_split(batch, len(devs)), devs)]
         return rows_gather(outs, devs[0])
 
     def mesh_logits(self, module: MeshModule, batch: tuple) -> torch.Tensor:
@@ -315,7 +344,8 @@ class ServingModel(abc.ABC):
         gathered on the first rank's device)."""
         devs = batch_sharding(module.mesh)
         return rows_gather([self.logits(rank, to_device(rows, d)) for rank, rows, d in
-                            zip(module.ranks, rows_split(batch, len(devs)), devs)], devs[0])
+                            zip(self.data_ranks(module), rows_split(batch, len(devs)), devs)],
+                           devs[0])
 
     # -- shapes -------------------------------------------------------------
     @abc.abstractmethod

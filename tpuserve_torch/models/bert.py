@@ -90,8 +90,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpuserve_torch.config import ModelConfig
-from tpuserve_torch.models.base import (MeshModule, ServingModel, TensorSpec,
-                                        not_ported, rows_gather, rows_split, to_device)
+from tpuserve_torch.models.base import (MeshModule, ServingModel, TensorSpec, not_ported,
+                                        partial_sum, rows_gather, rows_split, to_device,
+                                        tp_bias_share)
 from tpuserve_torch.ops.flash_attention import flash_attention
 from tpuserve_torch.ops.moe import SwitchFFN
 from tpuserve_torch.ops.ring_attention import ring_attention
@@ -253,17 +254,7 @@ def row_split_product(mods: list[Int8Linear], xs: list[torch.Tensor],
         amax = torch.stack([x.float().abs().amax(dim=-1, keepdim=True).to(devices[0])
                             for x in xs]).amax(dim=0)
         scales = [activation_scale(amax).to(d) for d in devices]
-    return all_reduce([m(x, s_x=s) for m, x, s in zip(mods, xs, scales)], devices)[0]
-
-
-def all_reduce(parts: list[torch.Tensor], devices: list[torch.device]) -> list[torch.Tensor]:
-    """The sum over the model axis, single-controller: every rank's
-    partial added on the first rank's device, the sum copied back to each
-    rank's device (a no-op where the ranks share one)."""
-    total = parts[0]
-    for p in parts[1:]:
-        total = total + p.to(devices[0])
-    return [total.to(d) for d in devices]
+    return partial_sum([m(x, s_x=s) for m, x, s in zip(mods, xs, scales)], devices[0])
 
 
 def from_jax_params(tree) -> dict[str, torch.Tensor]:
@@ -542,26 +533,11 @@ class BertServing(ServingModel):
 
     @staticmethod
     def _tp_biases(tree: dict, m: int, tp: int) -> dict:
-        """A model rank's block of the biases the reference keeps replicated
-        and XLA slices with their sharded products: q/k/v's (H, hd) by
-        heads and ``mlp_up``'s by columns; the row-split products' biases
-        (out, ``mlp_down``) are added once, by rank 0, so the others hold
-        zeros."""
-        p = tree["params"]
-        for name, lp in p.items():
-            if not name.startswith("layer"):
-                continue
-            for proj in ("query", "key", "value"):
-                b = lp["attn"][proj]["bias"]
-                n = b.shape[0] // tp
-                lp["attn"][proj]["bias"] = b[m * n:(m + 1) * n]
-            b = lp["mlp_up"]["bias"]
-            n = b.shape[0] // tp
-            lp["mlp_up"]["bias"] = b[m * n:(m + 1) * n]
-            if m:
-                lp["attn"]["out"]["bias"] = np.zeros_like(lp["attn"]["out"]["bias"])
-                lp["mlp_down"]["bias"] = np.zeros_like(lp["mlp_down"]["bias"])
-        return tree
+        """A model rank's block of the biases the reference keeps replicated:
+        q/k/v's (H, hd) by heads and ``mlp_up``'s by columns; the row-split
+        products' (out, ``mlp_down``) on rank 0 alone."""
+        return tp_bias_share(tree, m, tp, cols=("query", "key", "value", "mlp_up"),
+                             rows=("out", "mlp_down"))
 
     def _stage_module(self, tree: Any, mesh: Mesh, prepare) -> MeshModule:
         """One module per stage: its L/S layers (layer i of the tree in

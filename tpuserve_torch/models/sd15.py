@@ -44,6 +44,19 @@ Two serving shapes, deterministic in (prompt, negative prompt, seed):
   captured extract program and the final image as binary frames
   (``tpuserve_torch.frame``).
 
+On a split mesh (``parallelism = "sharded"`` with a data axis, ``tp > 1``
+or both) each parameter slot is a module per (data, model) rank. The
+reference's rules (``partition_rules``) put the heads of every attention
+and the hidden dim of the GEGLU and CLIP's MLP on "model", so a rank holds
+``heads / tp`` heads and its hidden block, its ``ff_up`` the whole leaf's
+gate block beside its value block (``_geglu_blocks``), and the rest whole.
+A data rank's ``TPView`` runs the replicated work once, on model rank 0,
+and each split block on every model rank, summing the partial outputs
+(``rank_sum``); the locked batch runs each data rank's rows on its view
+(``data_ranks``),
+the engine's programs run on data rank 0's (the state block replicates
+over "data", as in the reference).
+
 Tokenization, fixed to 77 ids: CLIP's byte-level BPE
 (``tpuserve_torch.text.CLIPBPETokenizer``) with ``options.bpe_vocab`` /
 ``bpe_merges`` (the published artifact's ``vocab.json`` and
@@ -71,11 +84,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpuserve_torch import frame as frame_wire
+from tpuserve_torch import quantize
 from tpuserve_torch.config import ModelConfig
 from tpuserve_torch.genserve.model import GenerativeModel
-from tpuserve_torch.models.base import DTYPES, TensorSpec, check_mesh
+from tpuserve_torch.models.base import (DTYPES, MeshModule, TensorSpec, partial_sum,
+                                        tp_bias_share)
 from tpuserve_torch.ops import threefry
 from tpuserve_torch.ops.flash_attention import flash_attention
+from tpuserve_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
+from tpuserve_torch.parallel.partition import PartitionSpec as P
 from tpuserve_torch.text import CLIPBPETokenizer, WordPieceTokenizer, synthetic_vocab
 
 MAX_TOKENS = 77  # CLIP text context length; SD conditions on all 77 states.
@@ -156,15 +173,18 @@ class Norm(nn.Module):
 
 class Attention(nn.Module):
     """flax ``MultiHeadDotProductAttention``: query from ``cq`` features,
-    key and value from ``ckv``, ``cq`` qkv features over ``heads`` heads."""
+    key and value from ``ckv``, ``cq`` qkv features over ``heads`` heads;
+    under tensor parallelism ``tp`` model ranks hold ``heads / tp`` heads
+    each, ``cq / tp`` qkv features (and the out projection's rows)."""
 
-    def __init__(self, cq: int, ckv: int, heads: int) -> None:
+    def __init__(self, cq: int, ckv: int, heads: int, tp: int = 1) -> None:
         super().__init__()
-        self.heads = heads
-        self.query = Dense(cq, cq)
-        self.key = Dense(ckv, cq)
-        self.value = Dense(ckv, cq)
-        self.out = Dense(cq, cq)
+        self.heads = heads // tp
+        inner = cq // tp
+        self.query = Dense(cq, inner)
+        self.key = Dense(ckv, inner)
+        self.value = Dense(ckv, inner)
+        self.out = Dense(inner, cq)
 
 
 # -- shared math ------------------------------------------------------------------
@@ -247,6 +267,20 @@ def attend(attn: Attention, xq: torch.Tensor, xkv: torch.Tensor, *,
     return attn.out(o.reshape(b, n, -1))
 
 
+def rank_sum(blocks: Sequence[nn.Module], fn, *xs: torch.Tensor) -> torch.Tensor:
+    """``fn(block, *xs)`` on each model rank's block (``blocks[0]`` the
+    first rank's, on the device of ``xs``), its inputs copied to the
+    block's device. Each call ends in a product whose input dim is split
+    over the ranks (an attention's out projection over its heads,
+    ``ff_down``/``mlp_down`` over their hidden block), so the outputs are
+    partial sums, each already rounded to its dtype, and ``partial_sum``
+    adds them on the first rank's device in rank order in that dtype (one
+    block: its output as it is). The bias of that product is the first
+    rank's alone (``SD15Serving._tp_leaves``)."""
+    return partial_sum([fn(blk, *(x.to(next(blk.parameters()).device) for x in xs))
+                        for blk in blocks], xs[0].device)
+
+
 def nhwc_rows(x: torch.Tensor) -> torch.Tensor:
     """(B, C, H, W) channels_last -> its (B, H*W, C) rows (a view)."""
     b, c, h, w = x.shape
@@ -276,39 +310,49 @@ def timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
 # -- CLIP text encoder ----------------------------------------------------------------
 
 class CLIPBlock(nn.Module):
-    def __init__(self, d: int, heads: int) -> None:
+    """Pre-LN causal self-attention and quick-gelu MLP; ``peers`` are the
+    same block of the other model ranks (its heads and MLP hidden block
+    split over ``tp`` ranks; the norms run on this one)."""
+
+    def __init__(self, d: int, heads: int, tp: int = 1) -> None:
         super().__init__()
         self.ln1 = Norm(d)
-        self.attn = Attention(d, d, heads)
+        self.attn = Attention(d, d, heads, tp)
         self.ln2 = Norm(d)
-        self.mlp_up = Dense(d, 4 * d)
-        self.mlp_down = Dense(4 * d, d)
+        self.mlp_up = Dense(d, 4 * d // tp)
+        self.mlp_down = Dense(4 * d // tp, d)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def mlp(self, h: torch.Tensor) -> torch.Tensor:
+        u = self.mlp_up(h)
+        return self.mlp_down(u * torch.sigmoid(1.702 * u))   # quick-gelu
+
+    def forward(self, x: torch.Tensor, peers: Sequence["CLIPBlock"] = ()) -> torch.Tensor:
+        blocks = (self, *peers)
         h = layer_norm(x, self.ln1).to(x.dtype)
-        x = x + attend(self.attn, h, h, causal=True)
-        h = self.mlp_up(layer_norm(x, self.ln2).to(x.dtype))
-        return x + self.mlp_down(h * torch.sigmoid(1.702 * h))   # quick-gelu
+        x = x + rank_sum(blocks, lambda b, h: attend(b.attn, h, h, causal=True), h)
+        return x + rank_sum(blocks, CLIPBlock.mlp, layer_norm(x, self.ln2).to(x.dtype))
 
 
 class CLIPTextEncoder(nn.Module):
     """(B, 77) int ids -> (B, 77, d) final hidden states."""
 
-    def __init__(self, vocab: int, layers: int, d: int, heads: int) -> None:
+    def __init__(self, vocab: int, layers: int, d: int, heads: int, tp: int = 1) -> None:
         super().__init__()
         self.token_embed = nn.Module()
         self.token_embed.embedding = nn.Parameter(torch.empty(vocab, d))
         self.pos_embed = nn.Parameter(torch.empty(MAX_TOKENS, d))
         for i in range(layers):
-            self.add_module(f"layer{i}", CLIPBlock(d, heads))
+            self.add_module(f"layer{i}", CLIPBlock(d, heads, tp))
         self.layers = layers
         self.ln_final = Norm(d)
 
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, ids: torch.Tensor,
+                peers: Sequence["CLIPTextEncoder"] = ()) -> torch.Tensor:
         emb = self.token_embed.embedding
         x = emb[ids.long()] + self.pos_embed[: ids.shape[1]].to(emb.dtype)
         for i in range(self.layers):
-            x = getattr(self, f"layer{i}")(x)
+            name = f"layer{i}"
+            x = getattr(self, name)(x, [getattr(p, name) for p in peers])
         return layer_norm(x, self.ln_final).to(emb.dtype)
 
 
@@ -342,49 +386,60 @@ class ResBlock(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """LN -> self-attention, LN -> cross-attention (text), LN -> GEGLU."""
+    """LN -> self-attention, LN -> cross-attention (text), LN -> GEGLU;
+    ``peers`` are the same block of the other model ranks (the heads and
+    the GEGLU hidden block split over ``tp`` ranks: a rank's ``ff_up``
+    holds its gate block beside its value block)."""
 
-    def __init__(self, c: int, ctx: int, heads: int, flash: bool) -> None:
+    def __init__(self, c: int, ctx: int, heads: int, flash: bool, tp: int = 1) -> None:
         super().__init__()
         self.flash = flash
         self.ln1 = Norm(c)
-        self.self_attn = Attention(c, c, heads)
+        self.self_attn = Attention(c, c, heads, tp)
         self.ln2 = Norm(c)
-        self.cross_attn = Attention(c, ctx, heads)
+        self.cross_attn = Attention(c, ctx, heads, tp)
         self.ln3 = Norm(c)
-        self.ff_up = Dense(c, 8 * c)
-        self.ff_down = Dense(4 * c, c)
+        self.ff_up = Dense(c, 8 * c // tp)
+        self.ff_down = Dense(4 * c // tp, c)
 
-    def forward(self, x: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
-        dt = x.dtype
+    def geglu(self, h: torch.Tensor) -> torch.Tensor:
+        gate, val = self.ff_up(h).chunk(2, dim=-1)
+        return self.ff_down(val * F.gelu(gate))
+
+    def forward(self, x: torch.Tensor, ctx: torch.Tensor,
+                peers: Sequence["TransformerBlock"] = ()) -> torch.Tensor:
+        blocks, dt = (self, *peers), x.dtype
         h = layer_norm(x, self.ln1).to(dt)
-        x = x + attend(self.self_attn, h, h, flash=self.flash)
+        x = x + rank_sum(blocks, lambda b, h: attend(b.self_attn, h, h, flash=b.flash), h)
         h = layer_norm(x, self.ln2).to(dt)
-        x = x + attend(self.cross_attn, h, ctx)
-        gate, val = self.ff_up(layer_norm(x, self.ln3).to(dt)).chunk(2, dim=-1)
-        return x + self.ff_down(val * F.gelu(gate))
+        x = x + rank_sum(blocks, lambda b, h, c: attend(b.cross_attn, h, c), h, ctx)
+        return x + rank_sum(blocks, TransformerBlock.geglu, layer_norm(x, self.ln3).to(dt))
 
 
 class SpatialTransformer(nn.Module):
-    def __init__(self, c: int, ctx: int, heads: int, flash: bool) -> None:
+    def __init__(self, c: int, ctx: int, heads: int, flash: bool, tp: int = 1) -> None:
         super().__init__()
         self.norm = Norm(c)
         self.proj_in = Conv(c, c, 1)
-        self.block = TransformerBlock(c, ctx, heads, flash)
+        self.block = TransformerBlock(c, ctx, heads, flash, tp)
         self.proj_out = Conv(c, c, 1)
 
-    def forward(self, x: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ctx: torch.Tensor,
+                peers: Sequence["SpatialTransformer"] = ()) -> torch.Tensor:
         h_, w_ = x.shape[-2:]
         h = nhwc_rows(self.proj_in(group_norm(x, self.norm, 1e-6).to(x.dtype)))
-        return x + self.proj_out(from_rows(self.block(h, ctx), h_, w_))
+        h = self.block(h, ctx, [p.block for p in peers])
+        return x + self.proj_out(from_rows(h, h_, w_))
 
 
 class UNet(nn.Module):
     """SD 1.5's epsilon predictor: (B, h, w, 4) float32 latents, (B,) int
-    timesteps and (B, 77, D) text states -> (B, h, w, 4) float32."""
+    timesteps and (B, 77, D) text states -> (B, h, w, 4) float32. ``peers``
+    are the other model ranks' UNets: every spatial transformer's block
+    runs split over them, the rest on this one."""
 
     def __init__(self, ctx: int, ch: int, mults: Sequence[int], num_res: int,
-                 attn_levels: Sequence[int], heads: int, flash: bool) -> None:
+                 attn_levels: Sequence[int], heads: int, flash: bool, tp: int = 1) -> None:
         super().__init__()
         self.ch, self.mults, self.num_res = ch, tuple(mults), num_res
         self.attn_levels = tuple(attn_levels)
@@ -397,26 +452,33 @@ class UNet(nn.Module):
                 self.add_module(f"down{i}_res{j}", ResBlock(c, ch * m, t))
                 c = ch * m
                 if i in self.attn_levels:
-                    self.add_module(f"down{i}_attn{j}", SpatialTransformer(c, ctx, heads, flash))
+                    self.add_module(f"down{i}_attn{j}",
+                                    SpatialTransformer(c, ctx, heads, flash, tp))
                 skips.append(c)
             if i != len(self.mults) - 1:
                 self.add_module(f"down{i}_ds", Conv(c, c, 3))
                 skips.append(c)
         self.mid_res1 = ResBlock(c, c, t)
-        self.mid_attn = SpatialTransformer(c, ctx, heads, flash)
+        self.mid_attn = SpatialTransformer(c, ctx, heads, flash, tp)
         self.mid_res2 = ResBlock(c, c, t)
         for i, m in reversed(list(enumerate(self.mults))):
             for j in range(num_res + 1):
                 self.add_module(f"up{i}_res{j}", ResBlock(c + skips.pop(), ch * m, t))
                 c = ch * m
                 if i in self.attn_levels:
-                    self.add_module(f"up{i}_attn{j}", SpatialTransformer(c, ctx, heads, flash))
+                    self.add_module(f"up{i}_attn{j}",
+                                    SpatialTransformer(c, ctx, heads, flash, tp))
             if i != 0:
                 self.add_module(f"up{i}_us", Conv(c, c, 3))
         self.norm_out = Norm(c)
         self.conv_out = Conv(c, 4, 3)
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
+    def _attn(self, name: str, h: torch.Tensor, ctx: torch.Tensor,
+              peers: Sequence["UNet"]) -> torch.Tensor:
+        return getattr(self, name)(h, ctx, [getattr(p, name) for p in peers])
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor, ctx: torch.Tensor,
+                peers: Sequence["UNet"] = ()) -> torch.Tensor:
         dt = self.conv_in.weight.dtype
         temb = self.time1(timestep_embedding(t, self.ch).to(dt))
         temb = self.time2(F.silu(temb))
@@ -426,17 +488,17 @@ class UNet(nn.Module):
             for j in range(self.num_res):
                 h = getattr(self, f"down{i}_res{j}")(h, temb)
                 if i in self.attn_levels:
-                    h = getattr(self, f"down{i}_attn{j}")(h, ctx)
+                    h = self._attn(f"down{i}_attn{j}", h, ctx, peers)
                 skips.append(h)
             if i != len(self.mults) - 1:
                 h = getattr(self, f"down{i}_ds")(h, stride=2)
                 skips.append(h)
-        h = self.mid_res2(self.mid_attn(self.mid_res1(h, temb), ctx), temb)
+        h = self.mid_res2(self._attn("mid_attn", self.mid_res1(h, temb), ctx, peers), temb)
         for i in reversed(range(len(self.mults))):
             for j in range(self.num_res + 1):
                 h = getattr(self, f"up{i}_res{j}")(torch.cat([h, skips.pop()], dim=1), temb)
                 if i in self.attn_levels:
-                    h = getattr(self, f"up{i}_attn{j}")(h, ctx)
+                    h = self._attn(f"up{i}_attn{j}", h, ctx, peers)
             if i != 0:
                 h = getattr(self, f"up{i}_us")(upsample2x(h))
         h = F.silu(group_norm(h, self.norm_out, 1e-5)).to(dt)
@@ -501,11 +563,31 @@ class VAEDecoder(nn.Module):
 
 
 class SD15Module(nn.Module):
-    """The three networks of one parameter slot."""
+    """The three networks of one parameter slot (of one model rank's
+    blocks under tensor parallelism)."""
 
     def __init__(self, text: CLIPTextEncoder, unet: UNet, vae: VAEDecoder) -> None:
         super().__init__()
         self.text, self.unet, self.vae = text, unet, vae
+
+
+class TPView:
+    """``SD15Module``'s surface over the model ranks of one data rank of a
+    split mesh (their modules, model rank 0 first): CLIP and the UNet run
+    their replicated work (embeddings, norms, convolutions, ``proj_in`` /
+    ``proj_out``, the time MLP) on rank 0's module and each attention,
+    GEGLU and CLIP MLP over every rank (``rank_sum``); the VAE, replicated,
+    is rank 0's. One rank (no model axis) is that rank's module."""
+
+    def __init__(self, ranks: Sequence[SD15Module]) -> None:
+        self.ranks = list(ranks)
+        self.vae = self.ranks[0].vae
+
+    def text(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.ranks[0].text(ids, [r.text for r in self.ranks[1:]])
+
+    def unet(self, x: torch.Tensor, t: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
+        return self.ranks[0].unet(x, t, ctx, [r.unet for r in self.ranks[1:]])
 
 
 # -- DDIM schedule (host-side numpy) ------------------------------------------------
@@ -577,10 +659,6 @@ class SD15Serving(GenerativeModel):
             raise ValueError(
                 "bpe_vocab and bpe_merges must be set together "
                 "(CLIP BPE needs vocab.json + merges.txt)")
-        # Replicas, or one mesh whose forward is not split: a seq axis alone
-        # replicates its work, as in the reference. A model axis is refused
-        # here and a data axis by the runtime (item 9b.4).
-        check_mesh(cfg)
         vocab_file = o.get("vocab_file")
         if o.get("bpe_vocab"):
             # Real SD/CLIP artifacts: byte-level BPE (vocab.json + merges.txt).
@@ -603,6 +681,14 @@ class SD15Serving(GenerativeModel):
         self.unet_res = int(o.get("unet_res", 2))
         self.unet_attn_levels = tuple(o.get("unet_attn_levels", (0, 1, 2)))
         self.unet_heads = int(o.get("unet_heads", 8))
+        if cfg.parallelism == "sharded" and (self.unet_heads % cfg.tp
+                                             or self.text_heads % cfg.tp):
+            raise ValueError(f"tp={cfg.tp} must divide unet_heads={self.unet_heads} and "
+                             f"text_heads={self.text_heads}: each model rank attends "
+                             "over whole heads")
+        # The model ranks the attention heads and the GEGLU / MLP hidden
+        # dims split over: 1, or a tensor-parallel rank's view (mesh_module).
+        self.tp_split = 1
         self.vae_ch = int(o.get("vae_ch", 128))
         self.schedule = ddim_schedule(self.steps)
         self._schedules: dict[torch.device, tuple] = {}
@@ -611,9 +697,10 @@ class SD15Serving(GenerativeModel):
     def build_module(self) -> SD15Module:
         return SD15Module(
             CLIPTextEncoder(self.vocab_size, self.text_layers, self.text_d_model,
-                            self.text_heads),
+                            self.text_heads, self.tp_split),
             UNet(self.text_d_model, self.unet_ch, self.unet_mults, self.unet_res,
-                 self.unet_attn_levels, self.unet_heads, self.unet_attention == "flash"),
+                 self.unet_attn_levels, self.unet_heads, self.unet_attention == "flash",
+                 self.tp_split),
             VAEDecoder(self.vae_ch, self.vae_mults))
 
     def bind_mesh(self, mesh) -> None:
@@ -661,7 +748,100 @@ class SD15Serving(GenerativeModel):
         return super().load_params()
 
     def _heads(self, name: str) -> int:
-        return self.text_heads if name.startswith("text.") else self.unet_heads
+        """The heads of ``name``'s attention (a model rank's share)."""
+        return (self.text_heads if name.startswith("text.") else self.unet_heads) // self.tp_split
+
+    # -- the model axis (the reference's rules) --------------------------------
+    def partition_rules(self) -> list[tuple[str, P]]:
+        """The reference's rules (off unless tp > 1): the heads of the UNet's
+        self- and cross-attention and of CLIP's ``attn`` (q/k/v kernels by
+        their heads dim, ``out`` by its rows) and the hidden dim of the
+        GEGLU (``ff_up``/``ff_down``) and of CLIP's MLP on "model"; every
+        other leaf (convolutions, norms, ``proj_in``/``proj_out``, the time
+        MLP, the embeddings, the whole VAE) replicated."""
+        if self.cfg.tp <= 1:
+            return [(".*", P())]
+        return [
+            (r"(self_attn|cross_attn|attn)/(query|key|value)/kernel", P(None, MODEL_AXIS, None)),
+            (r"(self_attn|cross_attn|attn)/out/kernel", P(MODEL_AXIS, None, None)),
+            (r"(ff_up|mlp_up)/kernel", P(None, MODEL_AXIS)),
+            (r"(ff_down|mlp_down)/kernel", P(MODEL_AXIS, None)),
+            (r".*", P()),
+        ]
+
+    def mesh_module(self, tree: Any, mesh: Mesh, prepare) -> MeshModule:
+        """tp = 1: one copy per data rank. tp > 1: one module per (data,
+        model) rank holding its blocks by ``partition_rules`` — ``ff_up``'s
+        taken from the whole leaf's gate and value halves
+        (``_geglu_blocks``) — and its share of the leaves the rules
+        replicate (``_tp_leaves``); a rank's seq ranks would compute the
+        same rows and are not built."""
+        dp, tp = mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS]
+        if tp == 1:
+            return super().mesh_module(tree, mesh, prepare)
+        view = self._with(tp_split=tp)
+        ranks = [prepare(view, self._tp_leaves(rank_tree, coord[MODEL_AXIS], tp), dev)
+                 for coord, rank_tree, dev in
+                 self.model_rank_trees(self._geglu_blocks(tree, tp), mesh)]
+        return MeshModule(ranks, mesh, (dp, tp))
+
+    @staticmethod
+    def _geglu_blocks(tree: dict, tp: int) -> dict:
+        """``tree`` with every ``ff_up`` kernel's and bias' columns laid
+        out as ``tp`` blocks [gate block r, value block r] (the rest of the
+        tree shared, not copied). The GEGLU cuts ``ff_up``'s output into
+        gate and value by halves, so the contiguous column blocks the rule
+        gives would hand rank 0 every gate column and rank 1 every value
+        column at tp = 2; after this, rank r's contiguous block is its gate
+        and value block r, and ``ff_down``'s row block r (value block r's
+        rows) matches it. A quantized kernel's int8 columns and per-column
+        scales move together: a column's scale is its own, so quantizing
+        before or after the move gives the same leaf."""
+        def cols(x: Any) -> Any:
+            if quantize.is_quantized(x):
+                return {k: cols(v) for k, v in x.items()}
+            n = np.shape(x)[-1] // 2
+            blk = n // tp
+            idx = np.concatenate([np.r_[r * blk:(r + 1) * blk, n + r * blk:n + (r + 1) * blk]
+                                  for r in range(tp)])
+            return np.take(np.asarray(x), idx, axis=-1)
+
+        def walk(node: Any) -> Any:
+            if not isinstance(node, dict) or quantize.is_quantized(node):
+                return node
+            return {k: ({leaf: cols(x) for leaf, x in v.items()} if k == "ff_up" else walk(v))
+                    for k, v in node.items()}
+
+        return walk(tree)
+
+    @staticmethod
+    def _tp_leaves(tree: dict, m: int, tp: int) -> dict:
+        """Model rank ``m``'s share of the biases the reference keeps
+        replicated: q/k/v's (H, hd) by heads, ``ff_up``'s (after
+        ``_geglu_blocks``) and ``mlp_up``'s by columns; the row-split
+        products' (``out``, ``ff_down``, ``mlp_down``) on rank 0 alone. The
+        VAE has none of these names."""
+        return tp_bias_share(tree, m, tp, cols=("query", "key", "value", "ff_up", "mlp_up"),
+                             rows=("out", "ff_down", "mlp_down"))
+
+    def data_ranks(self, module: MeshModule) -> list[TPView]:
+        """One ``TPView`` per data rank of a split slot (its model ranks),
+        made once per slot."""
+        views = module.__dict__.get("tp_views")
+        if views is None:
+            tp = module.grid[1] if len(module.grid) > 1 else 1
+            ranks = list(module.ranks)
+            views = module.__dict__["tp_views"] = [TPView(ranks[i:i + tp])
+                                                   for i in range(0, len(ranks), tp)]
+        return views
+
+    def _math(self, module: Any) -> Any:
+        """The module the engine's programs read: a split slot's first data
+        rank (its ``TPView``). The state block replicates over "data" (SD
+        has no ``state_partition_specs``, as in the reference), so the
+        other data ranks would compute the same slots: they serve the
+        locked batch's rows alone."""
+        return self.data_ranks(module)[0] if isinstance(module, MeshModule) else module
 
     def from_jax_params(self, tree: Any) -> dict[str, torch.Tensor]:
         """The reference's ``{"text", "unet", "vae"}`` tree of ``{"params":
@@ -832,6 +1012,7 @@ class SD15Serving(GenerativeModel):
     def init_state(self, module: SD15Module, item: tuple) -> dict:
         """Once-per-request work: text-encode the uncond + cond pair, seed
         the latent. Same math as forward's prologue."""
+        module = self._math(module)
         ids, neg_ids, seed = item
         ctx2 = module.text(torch.stack([neg_ids, ids]))
         return {"lat": self.latents(seed[None])[0], "ctx": ctx2,
@@ -842,6 +1023,7 @@ class SD15Serving(GenerativeModel):
         """One DDIM iteration over the whole slot block, in place, each slot
         at its OWN schedule index; finished and free slots freeze via
         ``done``."""
+        module = self._math(module)
         lat, ctx, step_i, done = state["lat"], state["ctx"], state["step_i"], state["done"]
         ts, a_t, a_prev = self._schedule_on(lat.device)
         idx = torch.clamp(step_i, 0, self.steps - 1).long()
@@ -859,7 +1041,8 @@ class SD15Serving(GenerativeModel):
 
     def extract(self, module: SD15Module, state: dict, slot: torch.Tensor) -> dict:
         """VAE decode + uint8 of the one slot's latent."""
-        return {"image": self._decode(module, state["lat"].index_select(0, slot))[0]}
+        lat = state["lat"].index_select(0, slot)
+        return {"image": self._decode(self._math(module), lat)[0]}
 
     def gen_max_steps(self) -> int:
         return self.steps

@@ -76,7 +76,7 @@ from torch import nn
 
 from tpuserve_torch.config import ModelConfig
 from tpuserve_torch.genserve.model import GenerativeModel
-from tpuserve_torch.models.base import DTYPES, MeshModule, TensorSpec, not_ported
+from tpuserve_torch.models.base import DTYPES, MeshModule, TensorSpec, not_ported, partial_sum
 from tpuserve_torch.models.bert import masked_attention
 from tpuserve_torch.ops import threefry
 from tpuserve_torch.ops.moe import switch_route
@@ -162,24 +162,19 @@ class _TPLayer:
         self.ln1, self.ln2 = parts[0].ln1, parts[0].ln2
         self.inner = [p.wq.shape[1] for p in parts]
 
-    def _sum(self, partials: list) -> torch.Tensor:
-        total = partials[0]
-        for p in partials[1:]:
-            total = total + p.to(self.devices[0])
-        return total
-
     def qkv(self, hx: torch.Tensor, shape: tuple) -> tuple:
         return tuple(torch.cat([(hx.to(d) @ getattr(p, w)).to(self.devices[0])
                                 for p, d in zip(self.parts, self.devices)], dim=-1)
                      .reshape(shape) for w in ("wq", "wk", "wv"))
 
     def out(self, a: torch.Tensor) -> torch.Tensor:
-        return self._sum([blk.to(d) @ p.wo for blk, p, d in
-                          zip(a.split(self.inner, dim=-1), self.parts, self.devices)])
+        return partial_sum([blk.to(d) @ p.wo for blk, p, d in
+                            zip(a.split(self.inner, dim=-1), self.parts, self.devices)],
+                           self.devices[0])
 
     def mlp(self, hx: torch.Tensor) -> torch.Tensor:
-        return self._sum([F.gelu(hx.to(d) @ p.w_up, approximate="tanh") @ p.w_down
-                          for p, d in zip(self.parts, self.devices)])
+        return partial_sum([F.gelu(hx.to(d) @ p.w_up, approximate="tanh") @ p.w_down
+                            for p, d in zip(self.parts, self.devices)], self.devices[0])
 
 
 class _TPView:
@@ -280,10 +275,6 @@ class TextGenServing(GenerativeModel):
                              self.inner, self.head_cols)
 
     # -- the mesh (the reference's sharded decode) -----------------------------
-    # The engine's programs run on a split mesh's MeshModule (the runtime
-    # allows a generative family that says so).
-    mesh_programs = True
-
     def partition_rules(self) -> list[tuple[str, PartitionSpec]]:
         """The reference's rules: under tp > 1 the q/k/v and vocab head
         columns (heads / vocab) and ``w_up``'s on "model", ``wo`` and

@@ -133,7 +133,7 @@ from tpuserve_torch import quantize
 from tpuserve_torch.analysis import witness
 from tpuserve_torch.config import ModelConfig, ParallelConfig, ServerConfig
 from tpuserve_torch.faults import FaultInjected
-from tpuserve_torch.models.base import DTYPES, MeshModule, ServingModel, not_ported
+from tpuserve_torch.models.base import DTYPES, MeshModule, ServingModel
 from tpuserve_torch.obs import Metrics
 from tpuserve_torch.ops import _build
 from tpuserve_torch.ops import flash_attention as fa
@@ -373,11 +373,6 @@ class ModelRuntime:
         # seq ranks (the family's mesh_module).
         self.split = (self.mode == "pipeline" or self.mesh.shape.get(DATA_AXIS, 1) > 1
                       or self.mesh.shape.get(MODEL_AXIS, 1) > 1)
-        if self.split and getattr(model, "generative", False) \
-                and not getattr(model, "mesh_programs", False):
-            raise not_ported(f"a {self.mesh.shape} mesh for the generative family "
-                             f"{self.cfg.family!r} (its programs on a split mesh)",
-                             "item 9b.4")
         # Mesh-aware models (BERT's ring/Ulysses attention, its pipeline
         # stages) close over it; this precedes building the modules.
         model.bind_mesh(self.mesh)
